@@ -1,0 +1,260 @@
+"""Attention over the ring KV cache (port of the ring path of
+``repro/models/attention.py``).
+
+Shapes: q [B, Sq, H, D]; k/v [B, Skv, KH, D]; GQA groups G = H // KH are
+kept factored so KV is never repeated in memory.
+
+The cache is a dict of tensors per layer that this module updates **in
+place** (the reference returns a new cache; here the engine hands in
+views of its batched cache and the writes land in it directly).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF, decode_attention_ref, div
+from repro_torch.quant.linear import (QuantizedLinear, _resolve_use_kernel,
+                                      quantized_out_proj, quantized_qkv_proj)
+from .layers import apply_rope, truncated_normal_, weight
+
+EMPTY_SLOT = 2 ** 30
+
+
+class Attention(nn.Module):
+    """Projection weights: ``q`` [d, H, Dh], ``k``/``v`` [d, KH, Dh],
+    ``o`` [H, Dh, d]; under a plan covering attention, ``qkv`` and ``o``
+    become :class:`QuantizedLinear` leaves."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 head_dim: int, dtype, device):
+        super().__init__()
+        self.q = weight((d_model, n_heads, head_dim), dtype, device)
+        self.k = weight((d_model, n_kv_heads, head_dim), dtype, device)
+        self.v = weight((d_model, n_kv_heads, head_dim), dtype, device)
+        self.o = weight((n_heads, head_dim, d_model), dtype, device)
+
+    def init_(self, generator: torch.Generator) -> None:
+        d = self.q.shape[0]
+        for p in (self.q, self.k, self.v):
+            truncated_normal_(p, generator, 1.0 / math.sqrt(d))
+        H, Dh, _ = self.o.shape
+        truncated_normal_(self.o, generator, 1.0 / math.sqrt(H * Dh))
+
+
+# ---------------------------------------------------------------------------
+# Masks + dense attention (prefill / multi-token path)
+# ---------------------------------------------------------------------------
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
+               window: Optional[int] = None) -> torch.Tensor:
+    """Additive bias [..., Sq, Skv]; 0 where attending is allowed."""
+    q = q_pos[..., :, None]
+    k = kv_pos[..., None, :]
+    if kind == "causal":
+        ok = k <= q
+    elif kind == "sliding":
+        ok = (k <= q) & (k > q - window)
+    else:
+        raise ValueError(f"unknown mask kind {kind!r}")
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
+                    window: Optional[int] = None) -> torch.Tensor:
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, D)
+    scale = 1.0 / math.sqrt(D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+    bias = _mask_bias(q_pos, kv_pos, kind, window)
+    scores = scores + bias[:, None, None]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, H, Dv)
+
+
+# ---------------------------------------------------------------------------
+# Ring-buffer cache update (in place)
+# ---------------------------------------------------------------------------
+def _ring_update(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+                 valid_len: Optional[torch.Tensor] = None) -> None:
+    """Write ``new`` (S entries starting at logical position ``idx[b]``)
+    into the capacity-``cap`` ring ``buf`` at ``slot = position % cap``,
+    in place.
+
+    ``valid_len`` [B] (default S) counts the leading valid entries:
+    bucket-padded prefill marks its pad suffix invalid so pads never
+    consume ring capacity.  Three paths, as in the reference:
+      * S == 1 (decode): one slot per row;
+      * S >= cap: the last ``cap`` valid entries, aligned to their slots;
+      * otherwise a scatter where invalid entries keep the slot's old
+        content (the reference's ``mode="drop"``; torch has no drop mode,
+        and the S < cap slots of a row are distinct, so writing the old
+        value back is the same).
+    """
+    cap = buf.shape[1]
+    B, S = new.shape[:2]
+    new = new.to(buf.dtype)
+    rows = torch.arange(B, device=buf.device)
+    start = idx.long() % cap
+    if S == 1:
+        buf[rows, start] = new[:, 0]
+        return
+    if S >= cap:
+        if valid_len is None:
+            s0 = torch.full_like(start, S - cap)
+        else:
+            s0 = torch.clamp(valid_len.long() - cap, 0, S - cap)
+        shift = (idx.long() + s0) % cap
+        j = torch.arange(cap, device=buf.device)
+        src = s0[:, None] + (j[None, :] - shift[:, None]) % cap   # [B, cap]
+        buf.copy_(new[rows[:, None], src])
+        return
+    ar = torch.arange(S, device=buf.device)
+    slots = (start[:, None] + ar[None, :]) % cap                 # [B, S]
+    vals = new
+    if valid_len is not None:
+        keep = ar[None, :] < valid_len.long()[:, None]
+        keep = keep.reshape(B, S, *([1] * (new.dim() - 2)))
+        vals = torch.where(keep, new, buf[rows[:, None], slots])
+    buf[rows[:, None], slots] = vals
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, position, head) symmetric int8: x [B, S, KH, D] ->
+    (q int8, scale [B, S, KH]) with ``scale = amax / 127 + 1e-12``."""
+    x32 = x.float()
+    amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    scale = div(amax, 127.0) + 1e-12
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale[..., 0]
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale[..., None]
+
+
+def _decode_attention_cached(q, ck, cv, cpos, q_pos, k_scale, v_scale,
+                             window):
+    """One-token decode over the ring cache on the flash-decode kernel
+    (its plain version for CPU tensors).  q [B, 1, H, D]; ck/cv
+    [B, S, KH, D]; returns [B, 1, H, D]."""
+    B, _, H, D = q.shape
+    KH = ck.shape[2]
+    q4 = q[:, 0].reshape(B, KH, H // KH, D)
+    qp = q_pos.to(torch.int32)
+    if _resolve_use_kernel(None):
+        out4 = kops.decode_attention(q4, ck, cv, cpos, qp, k_scale=k_scale,
+                                     v_scale=v_scale, window=window)
+    else:
+        out4 = decode_attention_ref(q4, ck, cv, cpos, qp, window=window,
+                                    k_scale=k_scale, v_scale=v_scale)
+    return out4.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full module apply
+# ---------------------------------------------------------------------------
+def attention_apply(attn: Attention, x: torch.Tensor,
+                    positions: torch.Tensor, *, mask_kind: str = "causal",
+                    window: Optional[int] = None,
+                    rope_theta: float = 10000.0,
+                    cache: Optional[dict] = None,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention over ``x`` [B, S, d]; returns [B, S, d].
+
+    ``cache`` ({"k", "v", "pos", "index"[, "k_scale", "v_scale"]}) is
+    written in place and attended over.  ``residual`` is added to the
+    output, inside the out-projection's epilogue on the quantized path.
+    """
+    B, S, _ = x.shape
+    qkv_w = getattr(attn, "qkv", None)
+    if isinstance(qkv_w, QuantizedLinear):
+        o_w = attn.o
+        H = (o_w.q if isinstance(o_w, QuantizedLinear) else o_w).shape[0]
+        KH = (qkv_w.q.shape[1] - H) // 2
+        wide = quantized_qkv_proj(qkv_w, x).to(x.dtype)
+        q, k, v = torch.split(wide, (H, KH, KH), dim=2)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, attn.q)
+        k = torch.einsum("bsd,dhk->bshk", x, attn.k)
+        v = torch.einsum("bsd,dhk->bshk", x, attn.v)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    if cache is not None:
+        # Ring-buffer cache: slot = position % capacity; per-slot true
+        # positions drive masking.
+        idx = cache["index"]
+        valid_len = torch.sum(positions < 2 ** 29, dim=1).to(torch.int32)
+        quantized = cache["k"].dtype == torch.int8
+        cks = cvs = None
+        if quantized:
+            # int8 at write time: the cache never holds widened KV
+            kq, ks = _quantize_kv(k)
+            vq, vs = _quantize_kv(v)
+            _ring_update(cache["k"], kq, idx, valid_len)
+            _ring_update(cache["v"], vq, idx, valid_len)
+            _ring_update(cache["k_scale"], ks, idx, valid_len)
+            _ring_update(cache["v_scale"], vs, idx, valid_len)
+            cks, cvs = cache["k_scale"], cache["v_scale"]
+        else:
+            _ring_update(cache["k"], k, idx, valid_len)
+            _ring_update(cache["v"], v, idx, valid_len)
+        _ring_update(cache["pos"], positions.to(torch.int32), idx, valid_len)
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        cache["index"] += S
+        if S == 1:
+            # single-token decode: the flash-decode kernel streams the
+            # (possibly int8) cache directly, dequantizing in-kernel
+            out = _decode_attention_cached(
+                q, ck, cv, cpos, positions[:, 0], cks, cvs,
+                window if mask_kind == "sliding" else None)
+        else:
+            # multi-token (prefill) path: plain dense attention over the
+            # dequantized cache, as in the reference
+            if quantized:
+                k_r = _dequantize_kv(ck, cks).to(q.dtype)
+                v_r = _dequantize_kv(cv, cvs).to(q.dtype)
+            else:
+                k_r, v_r = ck, cv
+            out = dense_attention(q, k_r, v_r, positions, cpos, mask_kind,
+                                  window)
+    else:
+        out = dense_attention(q, k, v, positions, positions, mask_kind,
+                              window)
+
+    o_w = attn.o
+    if isinstance(o_w, QuantizedLinear):
+        return quantized_out_proj(o_w, out, residual=residual).to(x.dtype)
+    o = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), o_w)
+    return o if residual is None else residual + o
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    out = {
+        "k": torch.zeros((batch, max_len, n_kv_heads, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, max_len, n_kv_heads, head_dim), dtype=dtype,
+                         device=device),
+        # true position held by each slot; 2**30 = empty
+        "pos": torch.full((batch, max_len), EMPTY_SLOT, dtype=torch.int32,
+                          device=device),
+        # per-row write index (rows advance independently)
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if dtype == torch.int8:
+        out["k_scale"] = torch.zeros((batch, max_len, n_kv_heads),
+                                     dtype=torch.float32, device=device)
+        out["v_scale"] = torch.zeros((batch, max_len, n_kv_heads),
+                                     dtype=torch.float32, device=device)
+    return out

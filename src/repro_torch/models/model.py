@@ -1,0 +1,187 @@
+"""Causal LM assembly for dense attention/MLP stacks (port of
+``repro/models/model.py``).
+
+The reference scans stacked layer groups; here every layer is its own
+:class:`Block` in an ``nn.ModuleList`` and runs eagerly.  A
+:class:`Model` holds its weights: build it on the ``meta`` device, then
+fill it with :meth:`Model.init` (torch's own truncated-normal draw) or
+load the reference's weights with :func:`repro_torch.convert.
+params_from_jax`.
+
+Entry points:
+    init(generator, device)              -> self, weights filled
+    forward(tokens, caches, positions)   -> logits
+    prefill_padded(tokens, caches, lengths) -> last real token's logits
+    decode_step(tokens, caches)          -> logits
+    init_cache(batch, max_len, kv_dtype) -> per-layer cache dicts
+    quantize(plan)                       -> self, plan applied in place
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.quant.plan import FULL_INT8, apply_plan
+from . import attention as attn_mod
+from .layers import (MLP, embedding_apply, embedding_attend, mlp_apply,
+                     rmsnorm_apply, truncated_normal_, weight)
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+
+class Block(nn.Module):
+    """One (attn | attn_local) x dense decoder block."""
+
+    def __init__(self, spec: tuple[str, str], cfg: ModelConfig, device):
+        super().__init__()
+        mixer, ffn = spec
+        if mixer not in ("attn", "attn_local") or ffn != "dense":
+            raise NotImplementedError(f"block {spec} is not ported yet")
+        if cfg.norm != "rmsnorm":
+            raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+        self.spec = spec
+        dtype = _dtype(cfg)
+        self.mixer_norm = weight((cfg.d_model,), torch.float32, device)
+        self.attn = attn_mod.Attention(cfg.d_model, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.head_dim, dtype,
+                                       device)
+        self.ffn_norm = weight((cfg.d_model,), torch.float32, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated, dtype, device)
+
+    def init_(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.mixer_norm.fill_(1.0)
+            self.ffn_norm.fill_(1.0)
+        self.attn.init_(generator)
+        self.mlp.init_(generator)
+
+
+def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor,
+                cache: Optional[dict]) -> torch.Tensor:
+    mixer, _ = block.spec
+    kind, window = "causal", None
+    if mixer == "attn_local":
+        kind, window = "sliding", cfg.sliding_window
+    h = rmsnorm_apply(block.mixer_norm, x)
+    # the skip connection rides into the out-projection's epilogue
+    x = attn_mod.attention_apply(block.attn, h, positions, mask_kind=kind,
+                                 window=window, rope_theta=cfg.rope_theta,
+                                 cache=cache, residual=x)
+    h = rmsnorm_apply(block.ffn_norm, x)
+    return mlp_apply(block.mlp, h, cfg.activation, residual=x)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device="meta"):
+        super().__init__()
+        if not cfg.tie_embeddings:
+            raise NotImplementedError("untied LM heads are not ported yet")
+        self.cfg = cfg
+        self.embed = weight((cfg.vocab, cfg.d_model), _dtype(cfg), device)
+        self.final_norm = weight((cfg.d_model,), torch.float32, device)
+        self.layers = nn.ModuleList(Block(spec, cfg, device)
+                                    for spec in cfg.layer_specs())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # -- parameters ------------------------------------------------------
+    def init(self, generator: torch.Generator | int = 0,
+             device=None) -> "Model":
+        """Allocate the weights on ``device`` (default: the card) and draw
+        them: every matrix ``N(0, 1)`` truncated to [-2, 2] times
+        1/sqrt(fan_in) (the embedding unscaled), norms at 1.  An int
+        ``generator`` seeds a fresh generator on that device."""
+        device = resolve_device(device)
+        if isinstance(generator, int):
+            generator = torch.Generator(device=device).manual_seed(generator)
+        self.to_empty(device=device)
+        truncated_normal_(self.embed, generator, 1.0)
+        with torch.no_grad():
+            self.final_norm.fill_(1.0)
+        for block in self.layers:
+            block.init_(generator)
+        return self
+
+    def quantize(self, plan=None) -> "Model":
+        """Apply a :class:`~repro_torch.quant.plan.QuantPlan` (default:
+        the full plan) in place: covered weights become int8
+        :class:`~repro_torch.quant.linear.QuantizedLinear` leaves."""
+        return apply_plan(self, FULL_INT8 if plan is None else plan)
+
+    # -- forward ----------------------------------------------------------
+    def forward(self, tokens: torch.Tensor,
+                caches: Optional[list] = None,
+                positions: Optional[torch.Tensor] = None,
+                last_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] -> logits f32 [B, S, vocab] (or [B, 1, vocab] at
+        each row's ``last_index``)."""
+        B, S = tokens.shape
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
+        x = embedding_apply(self.embed, tokens)
+        for i, block in enumerate(self.layers):
+            x = block_apply(block, self.cfg, x, positions,
+                            None if caches is None else caches[i])
+        x = rmsnorm_apply(self.final_norm, x)
+        if last_index is not None:
+            rows = torch.arange(B, device=x.device)
+            x = x[rows, last_index.long()][:, None]
+        return embedding_attend(self.embed, x)
+
+    # -- serving -------------------------------------------------------------
+    def prefill_padded(self, tokens: torch.Tensor, caches: list,
+                       lengths: torch.Tensor) -> torch.Tensor:
+        """Prefill bucket-padded prompts without leaking pad tokens.
+
+        Positions at or beyond ``lengths`` [B] get the empty-slot sentinel
+        (2**30), so pad entries written into the cache are masked like
+        empty slots.  Returns the logits at each row's last real token
+        ([B, 1, vocab]) and leaves every cache's write index at
+        ``lengths``.
+        """
+        B, S = tokens.shape
+        lengths = lengths.to(device=tokens.device, dtype=torch.int32)
+        rel = torch.arange(S, dtype=torch.int32,
+                           device=tokens.device).expand(B, S)
+        pos = torch.where(rel < lengths[:, None], rel,
+                          torch.full_like(rel, attn_mod.EMPTY_SLOT))
+        logits = self.forward(tokens, caches, positions=pos,
+                              last_index=lengths - 1)
+        for c in caches:
+            c["index"].copy_(lengths)
+        return logits
+
+    def decode_step(self, tokens: torch.Tensor, caches: list) -> torch.Tensor:
+        """One new token per row against the caches: tokens [B, S]."""
+        S = tokens.shape[1]
+        idx = caches[0]["index"]
+        positions = (idx[:, None] + torch.arange(
+            S, device=idx.device)[None, :]).to(torch.int32)
+        return self.forward(tokens, caches, positions=positions)
+
+    # -- caches ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   kv_dtype: Optional[str] = None) -> list:
+        """One ring cache dict per layer; ``kv_dtype="int8"`` overrides
+        ``cfg.kv_cache_dtype``.  Sliding-window layers hold only the
+        window."""
+        kv = kv_dtype or self.cfg.kv_cache_dtype
+        dt = torch.int8 if kv == "int8" else torch.bfloat16
+        caches = []
+        for block in self.layers:
+            span = max_len
+            if block.spec[0] == "attn_local":
+                span = min(max_len, self.cfg.sliding_window or max_len)
+            caches.append(attn_mod.init_kv_cache(
+                batch, span, self.cfg.n_kv_heads, self.cfg.head_dim,
+                dtype=dt, device=self.device))
+        return caches

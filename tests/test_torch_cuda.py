@@ -1,0 +1,222 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Imports only torch and numpy, so it runs on a GPU host without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a CUDA device every test skips.  Shapes are small and ragged
+(rows, columns and K not multiples of the kernels' tiles) to reach the
+edge masks that the gemma-2b shapes of ``chip_smoke.py`` never touch.
+Tolerances: integer outputs and epilogues without an activation are
+bitwise (the int32 accumulator is exact and the epilogue rounds in the
+plain version's order); activations allow 1e-5 relative (tanh/exp may
+differ by an ulp); requantized activations may move one int8 step at a
+rounding tie.  Attention is held against the plain version computed in
+f32 and rounded to q's dtype, element by element: 2**-7 of the element
+(one bf16 ulp at a rounding boundary; 1e-5 for f32 output) plus a share
+of its own query row's largest |out| (1e-3, for f32 summation order;
+2**-7 on a bf16 cache, whose probabilities the kernel rounds to bf16 as
+the reference does and the f32 oracle does not).
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import cim_gemm as cg
+from repro_torch.kernels import decode_attention as da
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (hand-written CUDA kernels)")
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(a, dev, dtype=None):
+    t = torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return t if dtype is None else t.to(dtype)
+
+
+def _w(rng, K, N, dev):
+    return (_t(rng.integers(-127, 128, (K, N)).astype(np.int8), dev),
+            _t(rng.uniform(1e-3, 2e-2, N).astype(np.float32), dev))
+
+
+@pytest.mark.parametrize("M,K,dtype", [(3, 70, torch.float32),
+                                       (5, 2048, torch.bfloat16),
+                                       (2, 16384, torch.float32)])
+def test_rowquant_bitwise(dev, M, K, dtype):
+    x = _t(_gen(0).standard_normal((M, K)).astype(np.float32), dev, dtype)
+    before = cg.quantize_rows_int8.launches
+    q, s = cg.quantize_rows_int8(x)
+    qr, sr = cg.quantize_rows_int8_plain(x)
+    torch.cuda.synchronize()
+    assert cg.quantize_rows_int8.launches == before + 1
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 96), (13, 100, 36),
+                                   (8, 2048, 2560), (70, 1030, 68)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_qin_bitwise_without_activation(dev, M, K, N, xdtype):
+    rng = _gen(1)
+    x = _t(rng.standard_normal((M, K)).astype(np.float32), dev, xdtype)
+    w, ws = _w(rng, K, N, dev)
+    b = _t(rng.standard_normal(N).astype(np.float32), dev)
+    r = _t(rng.standard_normal((M, N)).astype(np.float32), dev, xdtype)
+    for bias, res in ((None, None), (b, r)):
+        out = cg.cim_gemm_int8_fused_qin(x, w, ws, bias=bias, residual=res)
+        ref = cg.cim_gemm_int8_fused_qin_plain(x, w, ws, bias, res)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("act", ["gelu", "silu", "relu"])
+def test_qin_activation_close(dev, act):
+    rng = _gen(2)
+    x = _t(rng.standard_normal((9, 300)).astype(np.float32), dev)
+    w, ws = _w(rng, 300, 100, dev)
+    b = _t(rng.standard_normal(100).astype(np.float32), dev)
+    out = cg.cim_gemm_int8_fused_qin(x, w, ws, bias=b, activation=act)
+    ref = cg.cim_gemm_int8_fused_qin_plain(x, w, ws, b, None, act)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 16384, 2048), (3, 1000, 40),
+                                   (33, 64, 4)])
+def test_fused_bitwise(dev, M, K, N):
+    rng = _gen(3)
+    xq = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
+    xs = _t(rng.uniform(1e-3, 1e-1, (M, 1)).astype(np.float32), dev)
+    w, ws = _w(rng, K, N, dev)
+    r = _t(rng.standard_normal((M, N)).astype(np.float32), dev,
+           torch.bfloat16)
+    out = cg.cim_gemm_int8_fused(xq, w, xs, ws, residual=r)
+    ref = cg.cim_gemm_int8_fused_plain(xq, w, xs, ws, None, r)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    q, s = cg.cim_gemm_int8_fused(xq, w, xs, ws, quantize_out=True)
+    qr, sr = cg.quantize_rows_int8_plain(
+        cg.cim_gemm_int8_fused_plain(xq, w, xs, ws))
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 512), (5, 136, 20)])
+def test_gated_close(dev, M, K, N):
+    rng = _gen(4)
+    xq = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
+    xs = _t(rng.uniform(1e-3, 1e-2, (M, 1)).astype(np.float32), dev)
+    wg, gs = _w(rng, K, N, dev)
+    wu, us = _w(rng, K, N, dev)
+    h = cg.cim_gated_gemm_int8(xq, wg, wu, xs, gs, us, "gelu")
+    hr = cg.cim_gated_gemm_int8_plain(xq, wg, wu, xs, gs, us, "gelu")
+    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-6)
+    q, s = cg.cim_gated_gemm_int8(xq, wg, wu, xs, gs, us, "gelu",
+                                  quantize_out=True)
+    qr, sr = cg.quantize_rows_int8_plain(hr)
+    assert (q.int() - qr.int()).abs().max().item() <= 1
+    torch.testing.assert_close(s, sr, rtol=1e-5, atol=0)
+
+
+def _cache(rng, B, S, KH, D, quantized, dev, fill, dtype):
+    if quantized:
+        k = _t(rng.integers(-127, 128, (B, S, KH, D)).astype(np.int8), dev)
+        v = _t(rng.integers(-127, 128, (B, S, KH, D)).astype(np.int8), dev)
+        ks = _t(rng.uniform(1e-3, 2e-2, (B, S, KH)).astype(np.float32), dev)
+        vs = _t(rng.uniform(1e-3, 2e-2, (B, S, KH)).astype(np.float32), dev)
+    else:
+        k = _t(rng.standard_normal((B, S, KH, D)).astype(np.float32), dev,
+               dtype)
+        v = _t(rng.standard_normal((B, S, KH, D)).astype(np.float32), dev,
+               dtype)
+        ks = vs = None
+    pos = np.full((B, S), 2 ** 30, np.int32)
+    for b in range(B):
+        n = fill[b]
+        pos[b, :n] = rng.permutation(n)
+    return k, v, ks, vs, _t(pos, dev)
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B,S,KH,G,D,window", [
+    (2, 100, 1, 8, 256, None), (3, 70, 2, 4, 16, None),
+    (2, 130, 1, 1, 64, 8), (8, 1024, 1, 8, 256, None)])
+def test_decode_attention_close(dev, qdtype, quantized, B, S, KH, G, D,
+                                window):
+    rng = _gen(5)
+    fill = [int(rng.integers(1, S + 1)) for _ in range(B)]
+    fill[0] = 0                                   # an all-empty row
+    k, v, ks, vs, pos = _cache(rng, B, S, KH, D, quantized, dev, fill,
+                               qdtype)
+    q = _t(rng.standard_normal((B, KH, G, D)).astype(np.float32), dev,
+           qdtype)
+    qp = _t(np.array([max(f - 1, 0) for f in fill], np.int32), dev)
+    out = da.decode_attention(q, k, v, pos, qp, ks, vs, window=window)
+    wide = (lambda t: t) if quantized else (lambda t: t.float())
+    ref = da.decode_attention_plain(q.float(), wide(k), wide(v), pos, qp, ks,
+                                    vs, window=window).to(q.dtype).float()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    rtol = 2 ** -7 if qdtype == torch.bfloat16 else 1e-5
+    row = 2 ** -7 if k.dtype == torch.bfloat16 else 1e-3
+    limit = rtol * ref.abs() + row * ref.abs().amax(-1, keepdim=True)
+    err = (out.float() - ref).abs()
+    assert bool((err <= limit).all()), (err / limit).max().item()
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    x = torch.zeros((4, 64), device=dev)
+    w = torch.zeros((64, 6), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        cg.cim_gemm_int8_fused_qin(x, w, torch.ones(6, device=dev))
+    with pytest.raises(TypeError):
+        cg.quantize_rows_int8(torch.zeros((4, 64), dtype=torch.float16,
+                                          device=dev))
+
+
+def test_reduced_engine_on_card(dev):
+    """The reduced config serves on the card through all five kernels
+    (its d_ff of 128 takes the gated GEMM's quantize_out branch), and its
+    greedy tokens agree with the plain path's on at least 90% of steps
+    (an ulp of GELU can flip a near tie of the random-weight logits)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan, kernel_mode
+    from repro_torch.serving import Request, RequestStatus, ServingEngine
+
+    cfg = reduced_config(get_config("gemma-2b"))
+    prompts = [np.arange(1, n + 1, dtype=np.int32) * 7 % 256
+               for n in (3, 17, 30)]
+
+    def serve(plain):
+        eng = ServingEngine(Model(cfg).init(0, device=dev), n_slots=2,
+                            max_len=64, prefill_bucket=16,
+                            quant_plan=QuantPlan.full())
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        with kernel_mode(False if plain else None):
+            eng.run_until_done()
+        return reqs
+
+    reset_launch_counts()
+    kern = serve(plain=False)
+    counts = launch_counts()
+    plain = serve(plain=True)
+    assert launch_counts() == counts
+    assert all(n > 0 for n in counts.values()), counts
+    assert all(r.status is RequestStatus.OK for r in kern + plain)
+    agree = sum(a == b for ka, pa in zip(kern, plain)
+                for a, b in zip(ka.generated, pa.generated))
+    assert agree >= 0.9 * sum(len(r.generated) for r in plain)
