@@ -9,14 +9,26 @@ the JAX package.  Phases, each printing its lines:
 1. build  — compile every ``src/repro_torch/csrc/*.cu`` for sm_90a.
 2. card   — the card's name and power limit (nvidia-smi).
 3. check  — each kernel against its plain version on the card, at
-            gemma-2b's decode shape (M = 8) and two prefill shapes
-            (M = 64, and 256: the largest the serve run's bucket makes).
-4. serve  — full-width gemma-2b (random weights from a seed) served by
+            gemma-2b's decode shape (M = 8) and the prefill shapes of the
+            serve runs (M = 64, 256, and 5056: serve-long's largest).
+            The paged walk is also held bitwise against the ring walk on
+            the same logical cache, and the split walk at NS = 1 bitwise
+            against the single walk.
+4. serve  — full-width gemma-2b (random weights from a seed, built and
+            quantized once, shared by the three runs) served by
             ``ServingEngine(quant_plan=QuantPlan.full())``: 8 greedy
             requests; every request must end OK and the kernels' launch
             counters must match the plan (7 launches per layer per decode
-            step).  Then one full-width prefill + decode step is held
-            against the plain path, and the reduced config's logits too.
+            step).
+   serve-paged — ``PagedServingEngine`` over a pool too small for the
+            first 8 of its 16 requests, so it must preempt: every request
+            OK, the pool drains, counters exact (7 per layer per decode
+            step, 6 per layer per prefill chunk).
+   serve-long — the ring engine at 8192 slots, where decode attention
+            takes the split walk: 8 launches per layer per decode step.
+   reference — one full-width ring prefill + decode step and one paged
+            two-chunk prefill + decode step held against the plain path,
+            and the reduced config's logits too.
    profile — one decode step's wall time beside the device time the
             profiler attributes to kernels, and the largest kernels.
 5. times  — each kernel's median time at the serve shapes beside its
@@ -69,7 +81,23 @@ SOURCES = {
                             "src/repro/kernels/cim_gemm.py:517"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:192"),
+    "decode_attention_partial": ("src/repro_torch/csrc/decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:289"),
+    "decode_attention_combine": ("src/repro_torch/csrc/decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:274"),
+    "decode_attention_paged": ("src/repro_torch/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:374"),
 }
+# the paged run's pool (160 allocatable blocks of 16 slots) and requests:
+# the first eight need more than the pool holds, so it must preempt
+PAGED_BLOCK = 16
+PAGED_NUM_BLOCKS = 161
+PAGED_PROMPTS = [600, 520, 450, 380, 300, 240, 180, 120, 90, 64, 48, 40, 32,
+                 24, 20, 16]
+# the long run: a ring of 8192 slots, 4 splits
+LONG_MAX_LEN = 8192
+LONG_PROMPTS = [5000, 2500, 300, 40]
+LONG_NEW_TOKENS = 16
 
 
 class SmokeError(RuntimeError):
@@ -89,23 +117,32 @@ def say(*parts) -> None:
 # timing
 # ---------------------------------------------------------------------------
 def time_ms(torch, calls, reps: int = 20) -> float:
-    """Median ms of one call.  ``calls`` are callables on distinct
-    inputs, run round-robin so that their operands together exceed the
-    50 MB L2 cache and each call finds its weights cold, as the decode
-    loop does (every layer has its own weights)."""
+    """Median ms of one call on the device.  ``calls`` are callables on
+    distinct inputs, captured once into a CUDA graph in round-robin
+    order, so that their operands together exceed the 50 MB L2 cache and
+    each call finds its weights cold, as the decode loop does (every
+    layer has its own weights).  Replaying the graph leaves out the host
+    time between launches (the Python wrappers' checks and allocations),
+    which eager launches would add to every kernel shorter than it."""
     for c in calls:
         c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
     torch.cuda.synchronize()
     samples = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for c in calls:
-            c()
+        graph.replay()
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / len(calls))
+    del graph
     return statistics.median(samples)
 
 
@@ -173,17 +210,48 @@ def _decode_inputs(torch, dev, gen, B=8, S=1024, KH=1, G=8, D=256,
     return q, k, v, pos, qp, ks, vs
 
 
+def _to_pages(torch, k, v, pos, ks, vs, bs, seed):
+    """The paged layout of a ring cache: each block of ``bs`` slots that
+    holds a position goes to a pool block in shuffled order, the others
+    to the null block 0.  The ring's copies of those null blocks are
+    zeroed in place, so both layouts hold the same logical cache.
+    Returns (tables [B, nb], [k, v, pos, k_scale, v_scale] pools)."""
+    import numpy as np
+    B, S = pos.shape
+    nb = S // bs
+    dev = pos.device
+    used = (pos.reshape(B, nb, bs) != 2 ** 30).any(-1)
+    NB = 1 + B * nb
+    ids = torch.as_tensor(np.random.default_rng(seed).permutation(
+        np.arange(1, NB)), dtype=torch.int32, device=dev)
+    tables = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    tables[used] = ids[:int(used.sum())]
+    null = ~used.repeat_interleave(bs, 1)
+    pools = []
+    for a, fill in ((k, 0), (v, 0), (pos, 2 ** 30), (ks, 0), (vs, 0)):
+        a.masked_fill_(null.reshape(B, S, *[1] * (a.dim() - 2)), fill)
+        pool = torch.full((NB, bs) + tuple(a.shape[2:]), fill,
+                          dtype=a.dtype, device=dev)
+        pool[tables[used].long()] = a.reshape(B, nb, bs, *a.shape[2:])[used]
+        pools.append(pool)
+    return tables, pools
+
+
 def phase_check(torch) -> dict:
     """Each kernel against its plain version; returns max |err| per
     kernel (decode shape)."""
     from repro_torch.kernels import cim_gemm as cg
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
     errs: dict[str, float] = {}
 
-    def record(name, a, b, exact, M, rtol=0.0, atol=0.0, rule=None):
-        """``atol`` is a number or a tensor that broadcasts to ``b``."""
+    def record(name, a, b, exact, M, rtol=0.0, atol=0.0, rule=None,
+               where=None):
+        """``atol`` is a number or a tensor that broadcasts to ``b``;
+        M = 8 (the decode shape) records the kernel's max |err|."""
         a32, b32 = a.float(), b.float()
         diff = (a32 - b32).abs()
         err = diff.max().item()
@@ -196,13 +264,14 @@ def phase_check(torch) -> dict:
             worst = (diff / limit.clamp_min(1e-30)).max().item()
             rule = (f"{rule or f'rtol={rtol:g} atol={atol:.3g}'}; "
                     f"largest err/limit {worst:.3g}")
-        say(f"[check] {name} M={M}: max_abs_err={err:.3g} ({rule}) "
+        where = where or f"M={M}"
+        say(f"[check] {name} {where}: max_abs_err={err:.3g} ({rule}) "
             f"{'ok' if ok else 'FAIL'}")
-        need(ok, f"{name} at M={M} disagrees with its plain version")
+        need(ok, f"{name} at {where} disagrees with its plain version")
         if M == 8:
             errs[name] = max(errs.get(name, 0.0), err)
 
-    for M in (8, 64, 256):
+    for M in (8, 64, 256, 5056):
         t = _rand_inputs(torch, M, dev, gen)
         for x in (t["x"], t["h"]):
             q, s = cg.quantize_rows_int8(x)
@@ -240,36 +309,120 @@ def phase_check(torch) -> dict:
         torch, dev, gen, lengths=[1, 17, 100, 250, 513, 800, 1000, 1024])
     ref = da.decode_attention_plain(q, k, v, pos, qp, ks, vs).to(q.dtype)
     row_max = ref.float().abs().amax(-1, keepdim=True)
+    rule = f"rtol=2^-7 atol={ATTN_ATOL_ROW:g} x row max"
     record("decode_attention", da.decode_attention(q, k, v, pos, qp, ks, vs),
-           ref, False, 8, ATTN_RTOL, ATTN_ATOL_ROW * row_max,
-           rule=f"rtol=2^-7 atol={ATTN_ATOL_ROW:g} x row max")
+           ref, False, 8, ATTN_RTOL, ATTN_ATOL_ROW * row_max, rule=rule)
+
+    def attn_record(name, out, ref, where):
+        ref = ref.to(out.dtype)
+        row = ref.float().abs().amax(-1, keepdim=True)
+        record(name, out, ref, False, 8, ATTN_RTOL, ATTN_ATOL_ROW * row,
+               rule=rule, where=where)
+
+    # paged walk: 16-slot blocks over 1024 slots in shuffled order, row 0
+    # with an all-null table (no visible slot: the uniform softmax)
+    q, k, v, pos, qp, ks, vs = _decode_inputs(
+        torch, dev, gen, lengths=[0, 17, 100, 250, 513, 800, 1000, 1024])
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(torch, k, v, pos, ks, vs,
+                                               PAGED_BLOCK, SEED)
+    need(bool((tables[0] == 0).all()), "row 0's table is not all null")
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp)
+    where = f"B=8 bs={PAGED_BLOCK} S=1024"
+    attn_record("decode_attention_paged", paged,
+                da.decode_attention_paged_plain(q, kp, vp, pp, tables, qp,
+                                                ksp, vsp), where)
+    record("decode_attention_paged vs ring walk", paged,
+           da.decode_attention(q, k, v, pos, qp, ks, vs), True, 0,
+           where=where)
+
+    # split walk at 8192 slots: each NS against the plain split version,
+    # NS = 1 bitwise against the single walk; the combine on the kernel's
+    # partial states against its plain version
+    q, k, v, pos, qp, ks, vs = _decode_inputs(
+        torch, dev, gen, S=8192,
+        lengths=[1, 100, 1500, 2049, 4000, 5016, 7000, 8192])
+    single = da.decode_attention(q, k, v, pos, qp, ks, vs)
+    for ns in (1, 2, 4, 8):
+        where = f"B=8 S=8192 NS={ns}"
+        out = ops.decode_attention_splitkv(q, k, v, pos, qp, ks, vs,
+                                           n_splits=ns)
+        attn_record("decode_attention_partial", out,
+                    kref.decode_attention_splitkv_ref(
+                        q, k, v, pos, qp, ns, da.split_len(8192, ns),
+                        k_scale=ks, v_scale=vs), where)
+        if ns == 1:
+            record("split walk NS=1 vs single walk", out, single, True, 0,
+                   where=where)
+        o, m, l = da.decode_attention_partial(q, k, v, pos, qp, ks, vs,
+                                              n_splits=ns)
+        attn_record("decode_attention_combine",
+                    da.decode_attention_combine(o, m, l, q.dtype),
+                    da.decode_attention_combine_plain(o, m, l, q.dtype),
+                    where)
     torch.cuda.synchronize()
     return errs
 
 
-def expected_launches(n_layers, decode_steps, prefills) -> dict:
+def expected_launches(n_layers, decode_steps, forwards,
+                       attention=("decode_attention",)) -> dict:
     """Launches the full plan makes at gemma-2b (d_ff 16384 > 8192, so
     the hidden state is re-quantized by its own launch): per layer and
-    decode step QKV, attention, out-proj, row-quant, gated, row-quant,
-    down; a prefill runs the same GEMMs but attends with the plain
-    dense path."""
-    steps = decode_steps + prefills
-    return {
-        "quantize_rows_int8": 2 * n_layers * steps,
-        "cim_gemm_int8_fused_qin": 2 * n_layers * steps,
-        "cim_gemm_int8_fused": n_layers * steps,
-        "cim_gated_gemm_int8": n_layers * steps,
-        "decode_attention": n_layers * decode_steps,
-    }
+    forward (decode step, prefill or prefill chunk) QKV, out-proj,
+    row-quant, gated, row-quant, down; per layer and decode step one
+    launch of each ``attention`` kernel.  A prefill attends with the
+    plain dense path."""
+    want = {name: 0 for name in SOURCES}
+    want.update(quantize_rows_int8=2 * n_layers * forwards,
+                cim_gemm_int8_fused_qin=2 * n_layers * forwards,
+                cim_gemm_int8_fused=n_layers * forwards,
+                cim_gated_gemm_int8=n_layers * forwards)
+    for name in attention:
+        want[name] = n_layers * decode_steps
+    return want
+
+
+def _serve(torch, engine, reqs, prefill_counter):
+    """Submit ``reqs``, set the launch counters to 0, step the engine
+    until every request is terminal and read the counters.  Returns
+    (counts, wall seconds, ms of each step that ran no prefill)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    for r in reqs:
+        engine.submit(r)
+    reset_launch_counts()
+    step_ms = []
+    t0 = time.perf_counter()
+    while engine.pending():
+        s0 = time.perf_counter()
+        before = getattr(engine.stats, prefill_counter)
+        engine.step()
+        torch.cuda.synchronize()
+        if getattr(engine.stats, prefill_counter) == before:
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+    wall = time.perf_counter() - t0
+    return launch_counts(), wall, step_ms
+
+
+def _check_served(cfg, reqs, new_tokens):
+    from repro_torch.serving import RequestStatus
+    need(all(r.status is RequestStatus.OK for r in reqs),
+         f"requests not OK: {[r.status.value for r in reqs]}")
+    need(all(len(r.generated) == new_tokens for r in reqs),
+         "a request stopped early")
+    need(all(0 <= t < cfg.vocab for r in reqs for t in r.generated),
+         "token out of the vocabulary")
+
+
+def _prompts(cfg, lengths, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lengths]
 
 
 def phase_serve(torch) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.quant import QuantPlan
-    from repro_torch.serving import Request, RequestStatus, ServingEngine
-    import numpy as np
+    from repro_torch.serving import Request, ServingEngine
 
     cfg = get_config("gemma-2b")
     t0 = time.perf_counter()
@@ -283,34 +436,14 @@ def phase_serve(torch) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     say(f"[serve] quantized (full plan), device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    rng = np.random.default_rng(SEED)
     lengths = [16, 40, 64, 65, 100, 128, 150, 200]
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
-        np.int32), max_new_tokens=NEW_TOKENS) for i, n in
-        enumerate(lengths)]
-    for r in reqs:
-        engine.submit(r)
-
-    reset_launch_counts()
-    step_ms = []
-    t0 = time.perf_counter()
-    while engine.pending():
-        s0 = time.perf_counter()
-        prefills = engine.stats.prefills
-        engine.step()
-        torch.cuda.synchronize()
-        if engine.stats.prefills == prefills:
-            step_ms.append((time.perf_counter() - s0) * 1e3)
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, lengths, SEED))]
+    counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
     st = engine.stats
-    need(all(r.status is RequestStatus.OK for r in reqs),
-         f"requests not OK: {[r.status.value for r in reqs]}")
-    need(all(len(r.generated) == NEW_TOKENS for r in reqs),
-         "a request stopped early")
-    need(all(0 <= t < cfg.vocab for r in reqs for t in r.generated),
-         "token out of the vocabulary")
-    want = expected_launches(cfg.n_layers, st.decode_steps, st.prefills)
+    _check_served(cfg, reqs, NEW_TOKENS)
+    want = expected_launches(cfg.n_layers, st.decode_steps,
+                             st.decode_steps + st.prefills)
     say(f"[serve] {len(reqs)} requests OK: {st.tokens_out} decode tokens "
         f"+ {st.prefills} prefills in {wall:.2f} s "
         f"({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
@@ -328,10 +461,84 @@ def phase_serve(torch) -> tuple[dict, dict]:
     return counts, dict(model=model, lengths=lengths)
 
 
+def phase_serve_paged(torch, model) -> dict:
+    """The paged engine on the shared model, over a pool that cannot hold
+    the first eight requests at once."""
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import PagedServingEngine, Request
+
+    cfg = model.cfg
+    engine = PagedServingEngine(
+        model, n_slots=8, max_len=1024, prefill_bucket=64,
+        block_size=PAGED_BLOCK, prefill_chunk=64,
+        num_blocks=PAGED_NUM_BLOCKS, quant_plan=QuantPlan.full())
+    alloc = engine.paged.allocator
+    say(f"[serve-paged] pool {alloc.num_blocks - 1} blocks x "
+        f"{PAGED_BLOCK} = {(alloc.num_blocks - 1) * PAGED_BLOCK} positions; "
+        f"{len(PAGED_PROMPTS)} requests, prompts {PAGED_PROMPTS[0]}.."
+        f"{PAGED_PROMPTS[-1]} tokens, {NEW_TOKENS} new each")
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, PAGED_PROMPTS, SEED + 1))]
+    counts, wall, step_ms = _serve(torch, engine, reqs, "prefill_chunks")
+    st = engine.stats
+    _check_served(cfg, reqs, NEW_TOKENS)
+    need(st.preemptions >= 1, "the tight pool never preempted")
+    alloc.check()
+    need(alloc.n_used == 0, f"{alloc.n_used} blocks still held at the end")
+    want = expected_launches(cfg.n_layers, st.decode_steps,
+                             st.decode_steps + st.prefill_chunks,
+                             attention=("decode_attention_paged",))
+    say(f"[serve-paged] {len(reqs)} requests OK: {st.tokens_out} decode "
+        f"tokens + {st.prefills} prefills ({st.prefill_chunks} chunks) in "
+        f"{wall:.2f} s ({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
+        f"{st.decode_steps} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms per decode-only step, "
+        f"{st.preemptions} preemptions ({st.evicted_blocks} blocks evicted)")
+    say(f"[serve-paged] launches {json.dumps(counts)}")
+    need(counts == want, f"launch counts {counts} != expected {want}")
+    per = (sum(counts.values()) - 6 * cfg.n_layers * st.prefill_chunks) / (
+        cfg.n_layers * st.decode_steps)
+    say(f"[serve-paged] {per:g} launches per layer per decode step")
+    return counts
+
+
+def phase_serve_long(torch, model) -> dict:
+    """The ring engine at 8192 slots on the shared model: decode
+    attention takes the split walk (4 splits)."""
+    from repro_torch.kernels import ops
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = model.cfg
+    engine = ServingEngine(model, n_slots=4, max_len=LONG_MAX_LEN,
+                           prefill_bucket=64, quant_plan=QuantPlan.full())
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=LONG_NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, LONG_PROMPTS, SEED + 2))]
+    counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
+    st = engine.stats
+    _check_served(cfg, reqs, LONG_NEW_TOKENS)
+    want = expected_launches(
+        cfg.n_layers, st.decode_steps, st.decode_steps + st.prefills,
+        attention=("decode_attention_partial", "decode_attention_combine"))
+    say(f"[serve-long] {len(reqs)} requests OK (prompts {LONG_PROMPTS}, "
+        f"{ops.n_splits_for(LONG_MAX_LEN)} splits): {st.tokens_out} decode "
+        f"tokens + {st.prefills} prefills in {wall:.2f} s, "
+        f"{st.decode_steps} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms per decode step")
+    say(f"[serve-long] launches {json.dumps(counts)}")
+    need(counts == want, f"launch counts {counts} != expected {want}")
+    per = (sum(counts.values()) - 6 * cfg.n_layers * st.prefills) / (
+        cfg.n_layers * st.decode_steps)
+    say(f"[serve-long] {per:g} launches per layer per decode step")
+    need(per == 8, f"{per} launches per layer per decode step, not 8")
+    return counts
+
+
 def phase_reference(torch, model, seed: int) -> None:
     """The kernel path against the plain path on the same weights: one
-    full-width prefill + decode step, and the reduced config end to end.
-    Launches made here are not counted for the serve run."""
+    full-width ring prefill + decode step, one full-width paged prefill
+    in two chunks + decode step, and the reduced config end to end.
+    Launches made here are not counted for the serve runs."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import Model
     from repro_torch.quant import QuantPlan, kernel_mode
@@ -364,6 +571,41 @@ def phase_reference(torch, model, seed: int) -> None:
             f"max_abs_err={err:.4g} (tol {tol:.4g}), argmax agreement "
             f"{same:.3f}")
         need(err <= tol, f"{name}: kernel path disagrees with plain path")
+
+    # paged: two 64-token chunks into shuffled 16-slot blocks, then one
+    # decode step on the paged kernel (the same next tokens on both paths)
+    B, C = 2, 64
+    nb = (2 * C + PAGED_BLOCK) // PAGED_BLOCK
+    toks = torch.randint(0, model.cfg.vocab, (B, 2 * C + 1), device=DEVICE,
+                         generator=gen)
+    tables = (torch.randperm(B * nb, device=DEVICE, generator=gen) + 1).to(
+        torch.int32).reshape(B, nb)
+
+    def run_paged(plain):
+        caches = model.init_paged_cache(B, 1 + B * nb, PAGED_BLOCK, nb,
+                                        kv_dtype="int8")
+        caches[0]["block_tables"].copy_(tables)
+
+        def i32(*v):
+            return torch.tensor(v, dtype=torch.int32, device=DEVICE)
+        with torch.no_grad(), kernel_mode(False if plain else None):
+            a = model.prefill_padded(toks[:, :C], caches, i32(C, C),
+                                     offset=i32(0, 0))
+            b = model.prefill_padded(toks[:, C:2 * C], caches,
+                                     i32(C, C - 24), offset=i32(C, C))
+            c = model.decode_step(toks[:, 2 * C:], caches)
+        return torch.cat([a, b, c], dim=1)
+
+    kern, plain = run_paged(False), run_paged(True)
+    need(bool(torch.isfinite(kern).all()), "paged: non-finite logits")
+    need(kern.shape == (B, 3, model.cfg.vocab), "paged: logits shape")
+    err = (kern - plain).abs().max().item()
+    tol = LOGITS_ATOL_REL * plain.abs().max().item()
+    same = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    say(f"[reference] gemma-2b paged: two-chunk prefill + decode logits "
+        f"kernel vs plain max_abs_err={err:.4g} (tol {tol:.4g}), argmax "
+        f"agreement {same:.3f}")
+    need(err <= tol, "paged: kernel path disagrees with plain path")
 
 
 def phase_profile(torch, model, seed: int) -> None:
@@ -523,19 +765,93 @@ def phase_times(torch, serve: dict, counts: dict, errs: dict,
                          for a in insts])
     plain_ms = time_ms(torch, [lambda: da.decode_attention_plain(
         *insts[0])], reps=5)
-    q, k, v, pos, qp, ks, vs = insts[0]
-    kd = (k.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
-    vd = (v.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
-    mask = (pos <= qp[:, None])[:, None, None, :]
-    q4 = q.reshape(B, KH * G, 1, D)
-    lib_ms = time_ms(torch, [lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask, enable_gqa=True)])
+
+    def sdpa_ms(q, k, v, pos, qp, ks, vs):
+        """One SDPA call over the dequantized bf16 cache [B, KH, S, D]
+        (dequantizing and gathering not timed)."""
+        B, KH, G, D = q.shape
+        kd = (k.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
+        vd = (v.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
+        mask = (pos <= qp[:, None])[:, None, None, :]
+        q4 = q.reshape(B, KH * G, 1, D)
+        return time_ms(torch, [lambda: F.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask, enable_gqa=True)])
+
+    def attn_bytes(visible, B, KH, G, D, out_bytes):
+        """q read once, the visible slots' int8 K and V, their scales and
+        positions, q_pos, and the outputs."""
+        return (B * KH * G * D * 2 + visible * KH * (2 * D + 2 * 4)
+                + visible * 4 + B * 4 + out_bytes)
+
+    lib_ms = sdpa_ms(*insts[0])
     visible = sum(lengths)
-    nbytes = (B * KH * G * D * 2 * 2 + visible * KH * (2 * D + 2 * 4)
-              + visible * 4 + B * 4)
+    nbytes = attn_bytes(visible, B, KH, G, D, B * KH * G * D * 2)
     b, by = bound(nbytes, 4 * visible * KH * G * D, F32_OPS_PER_S)
     rows.append(dict(name="decode_attention", ms=ms, plain_ms=plain_ms,
                      bound_ms=b, bound_by=by, library_ms=lib_ms))
+
+    # paged walk at the same visible lengths, 16-slot blocks shuffled
+    pinsts = []
+    for i in range(n):
+        q, k, v, pos, qp, ks, vs = _decode_inputs(torch, dev, gen,
+                                                  lengths=lengths)
+        tables, (kp, vp, pp, ksp, vsp) = _to_pages(torch, k, v, pos, ks, vs,
+                                                   PAGED_BLOCK, SEED + i)
+        pinsts.append((q, kp, vp, pp, tables, qp, ksp, vsp))
+    ms = time_ms(torch, [(lambda a=a: da.decode_attention_paged(*a))
+                         for a in pinsts])
+    plain_ms = time_ms(torch, [lambda: da.decode_attention_paged_plain(
+        *pinsts[0])], reps=5)
+    q, kp, vp, pp, tables, qp, ksp, vsp = pinsts[0]
+    bt = tables.long()
+    lib_ms = sdpa_ms(q, kp[bt].reshape(B, S, KH, D),
+                     vp[bt].reshape(B, S, KH, D), pp[bt].reshape(B, S), qp,
+                     ksp[bt].reshape(B, S, KH), vsp[bt].reshape(B, S, KH))
+    nbytes = attn_bytes(visible, B, KH, G, D,
+                        B * KH * G * D * 2) + tables.numel() * 4
+    b, by = bound(nbytes, 4 * visible * KH * G * D, F32_OPS_PER_S)
+    rows.append(dict(name="decode_attention_paged", ms=ms,
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     library_ms=lib_ms))
+    del pinsts, insts
+
+    # split walk and combine at serve-long's end state: 4 rows of 8192
+    # slots, the prompts + generated tokens visible, 4 splits
+    from repro_torch.kernels import ops
+    lengths = [n + LONG_NEW_TOKENS for n in LONG_PROMPTS]
+    B, S, NS = len(lengths), LONG_MAX_LEN, ops.n_splits_for(LONG_MAX_LEN)
+    n = copies_for(2 * B * S * KH * D)
+    insts = [_decode_inputs(torch, dev, gen, B=B, S=S, lengths=lengths)
+             for _ in range(n)]
+    ms = time_ms(torch, [(lambda a=a: da.decode_attention_partial(
+        *a, n_splits=NS)) for a in insts])
+    plain_ms = time_ms(torch, [lambda: da.decode_attention_partial_plain(
+        *insts[0], n_splits=NS)], reps=5)
+    lib_ms = sdpa_ms(*insts[0])
+    single_ms = time_ms(torch, [(lambda a=a: da.decode_attention(*a))
+                                for a in insts])
+    say(f"[times] single walk at the same shapes (B={B}, S={S}): "
+        f"{single_ms:.4f} ms, against {ms:.4f} ms for the {NS}-split "
+        f"partial walk on {card}")
+    visible = sum(lengths)
+    part_bytes = B * KH * NS * G * (D + 2) * 4
+    nbytes = attn_bytes(visible, B, KH, G, D, part_bytes)
+    b, by = bound(nbytes, 4 * visible * KH * G * D, F32_OPS_PER_S)
+    rows.append(dict(name="decode_attention_partial", ms=ms,
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     library_ms=lib_ms))
+    parts = [da.decode_attention_partial(*a, n_splits=NS) for a in insts]
+    parts += [tuple(t.clone() for t in parts[i % len(parts)])
+              for i in range(copies_for(part_bytes) - len(parts))]
+    ms = time_ms(torch, [(lambda p=p: da.decode_attention_combine(
+        *p, torch.bfloat16)) for p in parts])
+    plain_ms = time_ms(torch, [lambda: da.decode_attention_combine_plain(
+        *parts[0], torch.bfloat16)], reps=5)
+    nbytes = part_bytes + B * KH * G * D * 2
+    b, by = bound(nbytes, 4 * B * KH * NS * G * (D + 1), F32_OPS_PER_S)
+    rows.append(dict(name="decode_attention_combine", ms=ms,
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     library_ms=None))
 
     out = []
     for r in rows:
@@ -579,6 +895,14 @@ def main() -> int:
         card = phase_card(torch)
         errs = phase_check(torch)
         counts, serve = phase_serve(torch)
+        # each run sets the counters to 0 first; the JSON line sums them
+        runs = [counts, phase_serve_paged(torch, serve["model"])]
+        torch.cuda.empty_cache()
+        runs.append(phase_serve_long(torch, serve["model"]))
+        torch.cuda.empty_cache()
+        counts = {k: sum(r[k] for r in runs) for k in counts}
+        need(all(v > 0 for v in counts.values()),
+             f"a kernel was never launched by the serve runs: {counts}")
         phase_reference(torch, serve["model"], SEED)
         phase_profile(torch, serve["model"], SEED)
         kernels = phase_times(torch, serve, counts, errs, card)

@@ -13,6 +13,9 @@ KERNELS = {
     "cim_gemm_int8_fused": cim_gemm.cim_gemm_int8_fused,
     "cim_gated_gemm_int8": cim_gemm.cim_gated_gemm_int8,
     "decode_attention": decode_attention.decode_attention,
+    "decode_attention_paged": decode_attention.decode_attention_paged,
+    "decode_attention_partial": decode_attention.decode_attention_partial,
+    "decode_attention_combine": decode_attention.decode_attention_combine,
 }
 
 

@@ -1,16 +1,25 @@
-"""Flash-decode over the ring KV cache (port of
-``repro/kernels/decode_attention.py::decode_attention``).
+"""Flash-decode kernels (port of ``repro/kernels/decode_attention.py``).
 
-The CUDA kernel lives in ``csrc/decode_attention.cu``; its note says
-what bounds it and how the design follows the reference (int8 K/V
-dequantized in the kernel, position masks, online softmax).  The
-wrapper takes the plain version (:func:`decode_attention_plain`) for
-CPU tensors; for CUDA tensors it launches the kernel or raises.
+Three walks share one CUDA body in ``csrc/decode_attention.cu``; its
+note says what bounds them and how the design follows the reference
+(int8 K/V dequantized in the kernel, position masks, online softmax,
+the all-masked-step skip).  Each wrapper takes its plain version for
+CPU tensors; for CUDA tensors it launches its kernel or raises, and
+counts the launch.
+
+* :func:`decode_attention` — the ring cache (``decode_attention``).
+* :func:`decode_attention_paged` — the paged cache: KV blocks of shared
+  pools read through per-row block tables (``decode_attention_paged``).
+* :func:`decode_attention_partial` and :func:`decode_attention_combine`
+  — the split-KV walk emitting raw ``(o, m, l)`` per slice, and the
+  renormalization (``decode_attention_splitkv``, ``_combine_kernel``).
 
 q:   [B, KH, G, D]    (GQA groups factored)
 k,v: [B, S, KH, D]    (bf16/f32, or int8 with [B, S, KH] f32 scales)
 pos: [B, S] int32     (slot positions; 2**30 = empty)
 q_pos: [B] int32      (current decode position)
+pools: k/v [NB, bs, KH, D], pos [NB, bs], scales [NB, bs, KH];
+block_tables [B, nb] int32, 0 = the all-empty null block
 out: [B, KH, G, D]    (q's dtype)
 """
 from __future__ import annotations
@@ -27,10 +36,46 @@ NEG_INF = ref.NEG_INF
 EMPTY_SLOT = 2 ** 30
 # query rows per kv head the kernel holds (its MAXG)
 MAX_GROUP = 16
+# a split's length is a multiple of the kernel's step (64 int8 slots)
+SPLIT_STEP = 64
 
 _LIB = "decode_attention"
 
 
+def _check_walk(q: torch.Tensor, k, v, pos, q_pos, k_scale, v_scale,
+                window, kv_shape, pos_shape) -> int:
+    """Checks shared by the walks (``kv_shape`` of K and V, ``pos_shape``
+    of the positions; the scales are ``kv_shape[:3]``); returns the C
+    code of the KV dtype."""
+    B, KH, G, D = q.shape
+    require(q, "q", (torch.float32, torch.bfloat16))
+    if k_scale is not None:
+        kv_dtype = torch.int8
+        require(k_scale, "k_scale", torch.float32, kv_shape[:3])
+        require(v_scale, "v_scale", torch.float32, kv_shape[:3])
+    else:
+        kv_dtype = q.dtype
+    require(k, "k", kv_dtype, kv_shape)
+    require(v, "v", kv_dtype, kv_shape)
+    require(pos, "pos", torch.int32, pos_shape)
+    require(q_pos, "q_pos", torch.int32, (B,))
+    if D > 256 or 256 % D or G > MAX_GROUP:
+        raise ValueError(f"decode attention kernels take 256 % D == 0 and "
+                         f"G <= {MAX_GROUP}; got D={D}, G={G}")
+    if window is not None and window <= 0:
+        raise ValueError("window must be positive")
+    return 0 if k_scale is not None else DTYPE_CODE[q.dtype]
+
+
+def _check_rows(n: int, what: str) -> None:
+    if n >= 2 ** 31:
+        raise ValueError(f"{what}: {n} cache rows exceed the kernel's "
+                         f"32-bit row index")
+
+
+# ---------------------------------------------------------------------------
+# Ring walk (kernel 5)
+# ---------------------------------------------------------------------------
 def decode_attention_plain(q, k, v, pos, q_pos, k_scale=None, v_scale=None,
                            window=None):
     return ref.decode_attention_ref(q, k, v, pos, q_pos, window=window,
@@ -42,43 +87,186 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_scale: torch.Tensor | None = None,
                      v_scale: torch.Tensor | None = None,
                      window: int | None = None) -> torch.Tensor:
-    """One-token attention of q over the cache (see the module note).
+    """One-token attention of q over the ring cache in one walk.
 
     ``k_scale``/``v_scale`` turn on the int8-KV path (K/V must then be
     int8).  ``window`` masks slots at or before ``q_pos - window``.
     """
-    quantized = k_scale is not None
     if on_cpu(q, k, v, pos, q_pos, k_scale, v_scale):
         return decode_attention_plain(q, k, v, pos, q_pos, k_scale, v_scale,
                                       window)
     B, KH, G, D = q.shape
     S = k.shape[1]
-    require(q, "q", (torch.float32, torch.bfloat16))
-    if quantized:
-        kv_dtype = torch.int8
-        require(k_scale, "k_scale", torch.float32, (B, S, KH))
-        require(v_scale, "v_scale", torch.float32, (B, S, KH))
-    else:
-        kv_dtype = q.dtype
-    require(k, "k", kv_dtype, (B, S, KH, D))
-    require(v, "v", kv_dtype, (B, S, KH, D))
-    require(pos, "pos", torch.int32, (B, S))
-    require(q_pos, "q_pos", torch.int32, (B,))
-    if D > 256 or 256 % D or G > MAX_GROUP:
-        raise ValueError(f"decode_attention kernel takes 256 % D == 0 and "
-                         f"G <= {MAX_GROUP}; got D={D}, G={G}")
-    if window is not None and window <= 0:
-        raise ValueError("window must be positive")
+    kv_kind = _check_walk(q, k, v, pos, q_pos, k_scale, v_scale, window,
+                          (B, S, KH, D), (B, S))
+    _check_rows(B * S, "decode_attention")
     out = torch.empty_like(q)
     fn = bind(_LIB, "decode_attention_launch",
               [P, I, P, P, I, P, P, P, P, P, I, I, I, I, I, I, F, P])
-    check(_LIB, fn(ptr(q), DTYPE_CODE[q.dtype], ptr(k), ptr(v),
-                   0 if quantized else DTYPE_CODE[q.dtype], ptr(pos),
-                   ptr(q_pos), ptr(k_scale), ptr(v_scale), ptr(out),
-                   B, S, KH, G, D, window or 0, 1.0 / math.sqrt(D),
-                   stream(q)), "decode_attention")
+    check(_LIB, fn(ptr(q), DTYPE_CODE[q.dtype], ptr(k), ptr(v), kv_kind,
+                   ptr(pos), ptr(q_pos), ptr(k_scale), ptr(v_scale),
+                   ptr(out), B, S, KH, G, D, window or 0,
+                   1.0 / math.sqrt(D), stream(q)), "decode_attention")
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Paged walk (kernel 11)
+# ---------------------------------------------------------------------------
+def decode_attention_paged_plain(q, k_pages, v_pages, pos_pages,
+                                 block_tables, q_pos, k_scale_pages=None,
+                                 v_scale_pages=None, window=None):
+    return ref.decode_attention_paged_ref(
+        q, k_pages, v_pages, pos_pages, block_tables, q_pos, window=window,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, pos_pages: torch.Tensor,
+                           block_tables: torch.Tensor, q_pos: torch.Tensor,
+                           k_scale_pages: torch.Tensor | None = None,
+                           v_scale_pages: torch.Tensor | None = None,
+                           window: int | None = None) -> torch.Tensor:
+    """One-token attention over the paged cache: slot ``j`` of row ``b``
+    is slot ``j % bs`` of pool block ``block_tables[b, j // bs]``.
+
+    Block 0 is the null block (all positions empty), so zero table
+    entries read as masked.  On the card a table entry outside
+    ``[0, NB)`` is read as the null block, never outside the pools.
+    Bitwise equal to :func:`decode_attention` on the equivalent ring
+    layout (one body, the same skip decisions).
+    """
+    if on_cpu(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
+              k_scale_pages, v_scale_pages):
+        return decode_attention_paged_plain(
+            q, k_pages, v_pages, pos_pages, block_tables, q_pos,
+            k_scale_pages, v_scale_pages, window)
+    B, KH, G, D = q.shape
+    if k_pages.dim() != 4:
+        raise ValueError(f"k_pages: expected [NB, bs, KH, D], got shape "
+                         f"{tuple(k_pages.shape)}")
+    NB, bs = k_pages.shape[:2]
+    kv_kind = _check_walk(q, k_pages, v_pages, pos_pages, q_pos,
+                          k_scale_pages, v_scale_pages, window,
+                          (NB, bs, KH, D), (NB, bs))
+    require(block_tables, "block_tables", torch.int32)
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"block_tables: expected [{B}, nb], got shape "
+                         f"{tuple(block_tables.shape)}")
+    nb = block_tables.shape[1]
+    _check_rows(NB * bs, "decode_attention_paged")
+    _check_rows(nb * bs, "decode_attention_paged")
+    out = torch.empty_like(q)
+    fn = bind(_LIB, "decode_attention_paged_launch",
+              [P, I, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
+               P])
+    check(_LIB, fn(ptr(q), DTYPE_CODE[q.dtype], ptr(k_pages), ptr(v_pages),
+                   kv_kind, ptr(pos_pages), ptr(block_tables), ptr(q_pos),
+                   ptr(k_scale_pages), ptr(v_scale_pages), ptr(out), B, NB,
+                   bs, nb, KH, G, D, window or 0, 1.0 / math.sqrt(D),
+                   stream(q)), "decode_attention_paged")
+    decode_attention_paged.launches += 1
+    return out
+
+
+decode_attention_paged.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Split walk (kernel 9) and combine (kernel 10)
+# ---------------------------------------------------------------------------
+def split_len(S: int, n_splits: int) -> int:
+    """Slots per split: the walk's ``ceil(S / 64)`` steps shared out
+    evenly, so every boundary falls on a step of the single walk."""
+    steps = -(-S // SPLIT_STEP)
+    return -(-steps // n_splits) * SPLIT_STEP
+
+
+def decode_attention_partial_plain(q, k, v, pos, q_pos, k_scale=None,
+                                   v_scale=None, window=None, n_splits=2):
+    return ref.decode_attention_partial_ref(
+        q, k, v, pos, q_pos, n_splits, split_len(k.shape[1], n_splits),
+        window=window, k_scale=k_scale, v_scale=v_scale)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, pos: torch.Tensor,
+                             q_pos: torch.Tensor,
+                             k_scale: torch.Tensor | None = None,
+                             v_scale: torch.Tensor | None = None,
+                             window: int | None = None, n_splits: int = 2
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The ring walk cut into ``n_splits`` slices of :func:`split_len`
+    slots, each emitting its raw online-softmax state: o f32
+    [B, KH, NS, G, D] (not divided by l), m and l f32 [B, KH, NS, G, 1].
+
+    The all-empty-row exception is decided over the whole row; a slice
+    with no visible slot in a row that has some emits m = -1e30, l = 0,
+    o = 0.
+    """
+    if n_splits < 1:
+        raise ValueError("n_splits must be positive")
+    if on_cpu(q, k, v, pos, q_pos, k_scale, v_scale):
+        return decode_attention_partial_plain(q, k, v, pos, q_pos, k_scale,
+                                              v_scale, window, n_splits)
+    B, KH, G, D = q.shape
+    S = k.shape[1]
+    kv_kind = _check_walk(q, k, v, pos, q_pos, k_scale, v_scale, window,
+                          (B, S, KH, D), (B, S))
+    _check_rows(B * S, "decode_attention_partial")
+    o = torch.empty((B, KH, n_splits, G, D), dtype=torch.float32,
+                    device=q.device)
+    m = torch.empty((B, KH, n_splits, G, 1), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)
+    fn = bind(_LIB, "decode_attention_partial_launch",
+              [P, I, P, P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I,
+               I, P])
+    check(_LIB, fn(ptr(q), DTYPE_CODE[q.dtype], ptr(k), ptr(v), kv_kind,
+                   ptr(pos), ptr(q_pos), ptr(k_scale), ptr(v_scale), ptr(o),
+                   ptr(m), ptr(l), B, S, KH, G, D, window or 0,
+                   1.0 / math.sqrt(D), n_splits, split_len(S, n_splits),
+                   stream(q)), "decode_attention_partial")
+    decode_attention_partial.launches += 1
+    return o, m, l
+
+
+decode_attention_partial.launches = 0
+
+
+def decode_attention_combine_plain(o, m, l, out_dtype):
+    return ref.combine_partials_ref(o, m, l).to(out_dtype)
+
+
+def decode_attention_combine(o: torch.Tensor, m: torch.Tensor,
+                             l: torch.Tensor,
+                             out_dtype: torch.dtype) -> torch.Tensor:
+    """Renormalize the split states against their common max:
+    ``sum_s o_s w_s / max(sum_s l_s w_s, 1e-30)`` with
+    ``w_s = exp(m_s - max_s m_s)`` -> [B, KH, G, D] in ``out_dtype``."""
+    if on_cpu(o, m, l):
+        return decode_attention_combine_plain(o, m, l, out_dtype)
+    if o.dim() != 5:
+        raise ValueError(f"o: expected [B, KH, NS, G, D], got shape "
+                         f"{tuple(o.shape)}")
+    B, KH, NS, G, D = o.shape
+    require(o, "o", torch.float32)
+    require(m, "m", torch.float32, (B, KH, NS, G, 1))
+    require(l, "l", torch.float32, (B, KH, NS, G, 1))
+    if out_dtype not in DTYPE_CODE:
+        raise TypeError(f"out_dtype {out_dtype} not in {tuple(DTYPE_CODE)}")
+    out = torch.empty((B, KH, G, D), dtype=out_dtype, device=o.device)
+    fn = bind(_LIB, "decode_attention_combine_launch",
+              [P, P, P, P, I, I, I, I, I, P])
+    check(_LIB, fn(ptr(o), ptr(m), ptr(l), ptr(out), DTYPE_CODE[out_dtype],
+                   B * KH, NS, G, D, stream(o)), "decode_attention_combine")
+    decode_attention_combine.launches += 1
+    return out
+
+
+decode_attention_combine.launches = 0

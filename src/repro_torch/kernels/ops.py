@@ -5,7 +5,8 @@ tensors launch the hand-written kernels or raise.  The reference's
 dispatch rules are kept: activations are quantized inside the GEMM when
 ``K <= MAX_FUSED_QUANT_K``, and the MLP's hidden state is re-quantized
 by the gated GEMM (``quantize_out``) only when ``d_ff <=
-MAX_FUSED_QUANT_N``, else by a separate row-quantize launch.  The
+MAX_FUSED_QUANT_N``, else by a separate row-quantize launch; decode
+attention takes the split-KV walk above ``SPLIT_MIN_SLOTS`` slots.  The
 reference's padding to 256-row / CORE_K / CORE_N multiples is TPU
 tiling and has no counterpart here: the kernels mask ragged edges.
 """
@@ -13,16 +14,22 @@ from __future__ import annotations
 
 import torch
 
+from . import decode_attention as _da
 from . import ref
 from .cim_gemm import (MAX_FUSED_QUANT_K, MAX_FUSED_QUANT_N,
                        cim_gated_gemm_int8, cim_gemm_int8_fused,
                        cim_gemm_int8_fused_qin, quantize_rows_int8)
-from .decode_attention import decode_attention as _decode_kernel
+from .decode_attention import SPLIT_STEP
 
 __all__ = ["quantize_weights_int8", "quantize_rows_int8",
            "cim_quantized_matmul_fused", "cim_quantized_mlp",
-           "decode_attention", "ref", "MAX_FUSED_QUANT_K",
-           "MAX_FUSED_QUANT_N"]
+           "decode_attention", "decode_attention_splitkv",
+           "decode_attention_paged", "n_splits_for", "ref",
+           "MAX_FUSED_QUANT_K", "MAX_FUSED_QUANT_N"]
+
+# Above this many cache slots decode attention takes the split walk.
+SPLIT_MIN_SLOTS = 2048
+MAX_SPLITS = 8
 
 
 def quantize_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor,
@@ -82,14 +89,59 @@ def cim_quantized_mlp(x: torch.Tensor, up_q: torch.Tensor,
                                residual=residual)
 
 
+def n_splits_for(S: int) -> int:
+    """The reference's split rule: one walk up to ``SPLIT_MIN_SLOTS``
+    slots, then one split per 2048 slots, at most ``MAX_SPLITS``."""
+    return 1 if S <= SPLIT_MIN_SLOTS else min(MAX_SPLITS, S // 2048)
+
+
 def decode_attention(q, k, v, pos, q_pos, k_scale=None, v_scale=None,
-                     window=None):
+                     window=None, n_splits: int | None = None):
     """Flash-decode over a (possibly int8) ring-buffer KV cache.
 
     ``k_scale``/``v_scale`` [B, S, KH] f32 turn on the int8-KV path
-    (dequantized inside the kernel).  One launch whatever S: the
-    split-KV walk the reference takes above 2048 slots is not ported
-    yet, and the single walk is exact at any S.  An unquantized cache
-    must have q's dtype."""
-    return _decode_kernel(q.contiguous(), k, v, pos, q_pos,
-                          k_scale=k_scale, v_scale=v_scale, window=window)
+    (dequantized inside the kernel).  ``n_splits`` picks the split-KV
+    walk: None applies :func:`n_splits_for` (one launch up to 2048
+    slots, else the partial and combine launches); 1 forces the single
+    walk.  The reference then lowers the count until it divides its
+    512-slot blocks; here splits end on the kernel's 64-slot steps, so
+    the count is only capped at the number of steps.  An unquantized
+    cache must have q's dtype."""
+    S = k.shape[1]
+    if n_splits is None:
+        n_splits = n_splits_for(S)
+    n_splits = min(n_splits, -(-S // SPLIT_STEP))
+    if n_splits > 1:
+        return decode_attention_splitkv(q, k, v, pos, q_pos, k_scale,
+                                        v_scale, window, n_splits)
+    return _da.decode_attention(q.contiguous(), k, v, pos, q_pos,
+                                k_scale=k_scale, v_scale=v_scale,
+                                window=window)
+
+
+def decode_attention_splitkv(q, k, v, pos, q_pos, k_scale=None,
+                             v_scale=None, window=None, n_splits: int = 2):
+    """Explicit split-KV entry: the partial and the combine launch even
+    at ``n_splits=1``, where the result equals the single walk's bit for
+    bit (the combine's weights are exactly 1)."""
+    o, m, l = _da.decode_attention_partial(q.contiguous(), k, v, pos, q_pos,
+                                           k_scale=k_scale, v_scale=v_scale,
+                                           window=window, n_splits=n_splits)
+    return _da.decode_attention_combine(o, m, l, q.dtype)
+
+
+def decode_attention_paged(q, k_pages, v_pages, pos_pages, block_tables,
+                           q_pos, k_scale_pages=None, v_scale_pages=None,
+                           window=None):
+    """Flash-decode over a paged (block-table) KV cache.
+
+    Pools [NB, bs, KH, D] hold fixed-size KV blocks shared by all
+    sequences; ``block_tables`` [B, nb] int32 maps each row's logical
+    blocks to pool blocks (0 = the all-empty null block).
+    ``k_scale_pages``/``v_scale_pages`` [NB, bs, KH] f32 turn on the
+    int8-KV path.  Bitwise equal to the single ring walk on the
+    equivalent layout."""
+    return _da.decode_attention_paged(
+        q.contiguous(), k_pages, v_pages, pos_pages, block_tables, q_pos,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+        window=window)

@@ -135,3 +135,93 @@ def decode_attention_ref(q, k, v, pos, q_pos, window=None,
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype), v)
+
+
+def decode_attention_paged_ref(q, k_pages, v_pages, pos_pages, block_tables,
+                               q_pos, window=None, k_scale_pages=None,
+                               v_scale_pages=None):
+    """Oracle for the paged walk: gather the pools into the linear
+    [B, nb*bs, KH, D] layout and run :func:`decode_attention_ref`.
+    pools [NB, bs, KH, D]; pos_pages [NB, bs]; block_tables [B, nb]
+    (0 = the all-empty null block, so unallocated entries self-mask)."""
+    B, nb = block_tables.shape
+    bs = pos_pages.shape[1]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, nb * bs, *k_pages.shape[2:])
+    v = v_pages[bt].reshape(B, nb * bs, *v_pages.shape[2:])
+    pos = pos_pages[bt].reshape(B, nb * bs)
+    ks = vs = None
+    if k_scale_pages is not None:
+        ks = k_scale_pages[bt].reshape(B, nb * bs, -1)
+        vs = v_scale_pages[bt].reshape(B, nb * bs, -1)
+    return decode_attention_ref(q, k, v, pos, q_pos, window=window,
+                                k_scale=ks, v_scale=vs)
+
+
+def decode_attention_partial_ref(q, k, v, pos, q_pos, n_splits, split_len,
+                                 window=None, k_scale=None, v_scale=None):
+    """Oracle for the split walk: split ``s`` covers slots
+    ``[s * split_len, (s + 1) * split_len)`` and emits its raw state
+    o f32 [B, KH, NS, G, D] (not divided), m, l f32 [B, KH, NS, G, 1].
+
+    As in the reference, the all-empty-row exception is decided over the
+    whole row (such a row attends uniformly, m = -1e30 in every split);
+    a split with no visible slot in a row that has some emits m = -1e30,
+    l = 0, o = 0."""
+    D = q.shape[-1]
+    S = k.shape[1]
+    if k_scale is not None:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
+        q = q.float()
+    # scores and the PV sum in f32, as the reference's kernel computes
+    # them (p is rounded to the cache dtype first)
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float())
+    s = s / math.sqrt(D)
+    ok = pos[:, None, None, :] <= q_pos[:, None, None, None]
+    if window is not None:
+        ok &= pos[:, None, None, :] > (q_pos[:, None, None, None] - window)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    row_any = ok.any(-1, keepdim=True)                       # [B, 1, 1, 1]
+    B, KH, G, _ = s.shape
+    os, ms, ls = [], [], []
+    for i in range(n_splits):
+        lo, hi = min(i * split_len, S), min((i + 1) * split_len, S)
+        si = s[..., lo:hi]
+        if hi == lo:
+            m = torch.full((B, KH, G, 1), NEG_INF, device=s.device)
+            l = torch.zeros_like(m)
+            o = torch.zeros((B, KH, G, D), device=s.device)
+        else:
+            m = si.amax(-1, keepdim=True)
+            p = torch.exp(si - m)
+            l = p.sum(-1, keepdim=True)
+            o = torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype).float(),
+                             v[:, lo:hi].float())
+            dead = row_any & ~ok[..., lo:hi].any(-1, keepdim=True)
+            m = torch.where(dead, torch.full_like(m, NEG_INF), m)
+            l = torch.where(dead, torch.zeros_like(l), l)
+            o = torch.where(dead, torch.zeros_like(o), o)
+        os.append(o)
+        ms.append(m)
+        ls.append(l)
+    return (torch.stack(os, 2), torch.stack(ms, 2), torch.stack(ls, 2))
+
+
+def combine_partials_ref(o, m, l):
+    """Oracle for the combine, as the reference's ``_combine_kernel``:
+    o [B, KH, NS, G, D], m/l [B, KH, NS, G, 1] -> f32 [B, KH, G, D]."""
+    m_g = m.amax(2, keepdim=True)
+    w = torch.exp(m - m_g)
+    l_g = (l * w).sum(2)
+    acc = (o * w).sum(2)
+    return acc / torch.clamp_min(l_g, 1e-30)
+
+
+def decode_attention_splitkv_ref(q, k, v, pos, q_pos, n_splits, split_len,
+                                 window=None, k_scale=None, v_scale=None):
+    """The split walk and its combine, in q's dtype."""
+    o, m, l = decode_attention_partial_ref(q, k, v, pos, q_pos, n_splits,
+                                           split_len, window=window,
+                                           k_scale=k_scale, v_scale=v_scale)
+    return combine_partials_ref(o, m, l).to(q.dtype)

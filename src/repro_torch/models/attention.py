@@ -1,4 +1,4 @@
-"""Attention over the ring KV cache (port of the ring path of
+"""Attention over the ring and the paged KV cache (port of
 ``repro/models/attention.py``).
 
 Shapes: q [B, Sq, H, D]; k/v [B, Skv, KH, D]; GQA groups G = H // KH are
@@ -6,7 +6,9 @@ kept factored so KV is never repeated in memory.
 
 The cache is a dict of tensors per layer that this module updates **in
 place** (the reference returns a new cache; here the engine hands in
-views of its batched cache and the writes land in it directly).
+views of its batched cache and the writes land in it directly).  A
+paged cache dict shares its pools among all rows and reads them through
+``block_tables``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import NEG_INF, decode_attention_ref, div
+from repro_torch.kernels.ref import (NEG_INF, decode_attention_paged_ref,
+                                    decode_attention_ref, div)
 from repro_torch.quant.linear import (QuantizedLinear, _resolve_use_kernel,
                                       quantized_out_proj, quantized_qkv_proj)
 from .layers import apply_rope, truncated_normal_, weight
@@ -128,6 +131,69 @@ def _ring_update(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
     buf[rows[:, None], slots] = vals
 
 
+# ---------------------------------------------------------------------------
+# Paged (block-table) cache update (in place)
+# ---------------------------------------------------------------------------
+def _paged_slots(block_tables: torch.Tensor, idx: torch.Tensor, S: int,
+                 bs: int, valid_len: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pool addresses of S writes per row starting at logical position
+    ``idx[b]``: (block, offset, invalid), each [B, S].
+
+    Position p lands in pool block ``block_tables[b, p // bs]`` at offset
+    ``p % bs``.  Invalid writes — pad entries beyond ``valid_len``,
+    positions past the table (sentinel-index rows), and entries whose
+    logical block is unallocated (table entry 0, the null block) — get
+    block 0; :func:`_paged_write` makes them leave the pool untouched."""
+    nb = block_tables.shape[1]
+    dev = block_tables.device
+    p = idx.long()[:, None] + torch.arange(S, device=dev)[None]
+    logical = torch.div(p, bs, rounding_mode="floor")
+    offs = p % bs
+    phys = torch.gather(block_tables.long(), 1, logical.clamp(0, nb - 1))
+    invalid = (logical >= nb) | (logical < 0) | (phys <= 0)
+    if valid_len is not None:
+        invalid |= (torch.arange(S, device=dev)[None]
+                    >= valid_len.long()[:, None])
+    return phys.masked_fill(invalid, 0), offs, invalid
+
+
+def _paged_write(pool: torch.Tensor, new: torch.Tensor, slots) -> None:
+    """Write ``new`` [B, S, ...] into ``pool`` [NB, bs, ...] in place at
+    the addresses of :func:`_paged_slots`.
+
+    The reference drops invalid writes with ``mode="drop"``.  torch has
+    no drop mode, and a boolean filter would sync the host on every
+    layer, so each invalid write goes to ``(block 0, offset)`` carrying
+    the value the null block already holds there: only invalid writes
+    land in block 0, they all write the same value, and valid writes
+    never collide because blocks belong to one sequence."""
+    phys, offs, invalid = slots
+    keep = invalid.reshape(*invalid.shape, *([1] * (new.dim() - 2)))
+    pool[phys, offs] = torch.where(keep, pool[0][offs], new.to(pool.dtype))
+
+
+def _paged_update(pool: torch.Tensor, new: torch.Tensor,
+                  block_tables: torch.Tensor, idx: torch.Tensor,
+                  valid_len: Optional[torch.Tensor] = None) -> None:
+    """Write ``new`` (S entries starting at logical position ``idx[b]``
+    per batch row) into a shared block pool [NB, bs, ...] through the
+    per-row block tables [B, nb], in place; invalid writes leave the
+    pool untouched (the reference's ``_paged_update``)."""
+    _paged_write(pool, new, _paged_slots(block_tables, idx, new.shape[1],
+                                         pool.shape[1], valid_len))
+
+
+def _gather_paged(pool: torch.Tensor, block_tables: torch.Tensor
+                  ) -> torch.Tensor:
+    """A row-linear [B, nb*bs, ...] copy of a block pool (the chunked
+    prefill's plain path; unallocated table entries read the all-empty
+    null block and self-mask)."""
+    B, nb = block_tables.shape
+    g = pool[block_tables.long()]
+    return g.reshape(B, nb * pool.shape[1], *pool.shape[2:])
+
+
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(batch, position, head) symmetric int8: x [B, S, KH, D] ->
     (q int8, scale [B, S, KH]) with ``scale = amax / 127 + 1e-12``."""
@@ -160,6 +226,70 @@ def _decode_attention_cached(q, ck, cv, cpos, q_pos, k_scale, v_scale,
     return out4.reshape(B, 1, H, D).to(q.dtype)
 
 
+def _decode_attention_paged_cached(q, ck, cv, cpos, bt, q_pos, k_scale,
+                                   v_scale, window):
+    """One-token decode over the paged cache on the paged flash-decode
+    kernel (its plain version for CPU tensors).  q [B, 1, H, D]; pools
+    [NB, bs, KH, D]; bt [B, nb]; returns [B, 1, H, D]."""
+    B, _, H, D = q.shape
+    KH = ck.shape[2]
+    q4 = q[:, 0].reshape(B, KH, H // KH, D)
+    qp = q_pos.to(torch.int32)
+    if _resolve_use_kernel(None):
+        out4 = kops.decode_attention_paged(q4, ck, cv, cpos, bt, qp,
+                                           k_scale_pages=k_scale,
+                                           v_scale_pages=v_scale,
+                                           window=window)
+    else:
+        out4 = decode_attention_paged_ref(q4, ck, cv, cpos, bt, qp,
+                                          window=window,
+                                          k_scale_pages=k_scale,
+                                          v_scale_pages=v_scale)
+    return out4.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _paged_cache_apply(cache: dict, k, v, positions, q, mask_kind,
+                       window) -> torch.Tensor:
+    """Cache write + attend for a paged (block-table) cache dict, in
+    place.  A single token attends on the paged kernel; more tokens (a
+    prefill chunk) gather the pools, dequantize and run
+    :func:`dense_attention`, as in the reference."""
+    idx = cache["index"]
+    bt = cache["block_tables"]
+    S = positions.shape[1]
+    valid_len = torch.sum(positions < 2 ** 29, dim=1).to(torch.int32)
+    quantized = cache["k_pages"].dtype == torch.int8
+    # one set of write addresses for every pool of the layer
+    slots = _paged_slots(bt, idx, S, cache["k_pages"].shape[1], valid_len)
+    cks = cvs = None
+    if quantized:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        _paged_write(cache["k_pages"], kq, slots)
+        _paged_write(cache["v_pages"], vq, slots)
+        _paged_write(cache["k_scale_pages"], ks, slots)
+        _paged_write(cache["v_scale_pages"], vs, slots)
+        cks, cvs = cache["k_scale_pages"], cache["v_scale_pages"]
+    else:
+        _paged_write(cache["k_pages"], k, slots)
+        _paged_write(cache["v_pages"], v, slots)
+    _paged_write(cache["pos_pages"], positions.to(torch.int32), slots)
+    ck, cv, cpos = cache["k_pages"], cache["v_pages"], cache["pos_pages"]
+    cache["index"] += S
+    if S == 1:
+        return _decode_attention_paged_cached(
+            q, ck, cv, cpos, bt, positions[:, 0], cks, cvs,
+            window if mask_kind == "sliding" else None)
+    k_lin = _gather_paged(ck, bt)
+    v_lin = _gather_paged(cv, bt)
+    pos_lin = _gather_paged(cpos, bt)
+    if quantized:
+        k_lin = _dequantize_kv(k_lin, _gather_paged(cks, bt)).to(q.dtype)
+        v_lin = _dequantize_kv(v_lin, _gather_paged(cvs, bt)).to(q.dtype)
+    return dense_attention(q, k_lin, v_lin, positions, pos_lin, mask_kind,
+                           window)
+
+
 # ---------------------------------------------------------------------------
 # Full module apply
 # ---------------------------------------------------------------------------
@@ -171,7 +301,9 @@ def attention_apply(attn: Attention, x: torch.Tensor,
                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention over ``x`` [B, S, d]; returns [B, S, d].
 
-    ``cache`` ({"k", "v", "pos", "index"[, "k_scale", "v_scale"]}) is
+    ``cache`` — a ring dict ({"k", "v", "pos", "index"[, "k_scale",
+    "v_scale"]}) or a paged dict ({"k_pages", "v_pages", "pos_pages",
+    "block_tables", "index"[, "k_scale_pages", "v_scale_pages"]}) — is
     written in place and attended over.  ``residual`` is added to the
     output, inside the out-projection's epilogue on the quantized path.
     """
@@ -190,7 +322,12 @@ def attention_apply(attn: Attention, x: torch.Tensor,
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
 
-    if cache is not None:
+    if cache is not None and "block_tables" in cache:
+        # Paged cache: fixed-size blocks from a shared pool, routed per
+        # row by the block table (serving/paged_cache.py).
+        out = _paged_cache_apply(cache, k, v, positions, q, mask_kind,
+                                 window)
+    elif cache is not None:
         # Ring-buffer cache: slot = position % capacity; per-slot true
         # positions drive masking.
         idx = cache["index"]
@@ -257,4 +394,30 @@ def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
                                      dtype=torch.float32, device=device)
         out["v_scale"] = torch.zeros((batch, max_len, n_kv_heads),
                                      dtype=torch.float32, device=device)
+    return out
+
+
+def init_paged_kv_cache(num_blocks: int, block_size: int, n_kv_heads: int,
+                        head_dim: int, block_tables: torch.Tensor,
+                        index: torch.Tensor, dtype=torch.bfloat16,
+                        device=None) -> dict:
+    """Paged KV state of one layer: shared fixed-size block pools plus
+    the per-row ``block_tables`` [B, nb] and write ``index`` [B] given by
+    the caller (the model hands every layer the same table tensor).
+    Block 0 is the null block — never allocated, all positions
+    empty-sentinel — so zeroed table entries read as fully masked."""
+    shape = (num_blocks, block_size, n_kv_heads, head_dim)
+    out = {
+        "k_pages": torch.zeros(shape, dtype=dtype, device=device),
+        "v_pages": torch.zeros(shape, dtype=dtype, device=device),
+        "pos_pages": torch.full((num_blocks, block_size), EMPTY_SLOT,
+                                dtype=torch.int32, device=device),
+        "block_tables": block_tables,
+        "index": index,
+    }
+    if dtype == torch.int8:
+        out["k_scale_pages"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                           device=device)
+        out["v_scale_pages"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                           device=device)
     return out

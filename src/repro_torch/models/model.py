@@ -11,9 +11,12 @@ params_from_jax`.
 Entry points:
     init(generator, device)              -> self, weights filled
     forward(tokens, caches, positions)   -> logits
-    prefill_padded(tokens, caches, lengths) -> last real token's logits
+    prefill_padded(tokens, caches, lengths[, offset])
+                                         -> last real token's logits
     decode_step(tokens, caches)          -> logits
     init_cache(batch, max_len, kv_dtype) -> per-layer cache dicts
+    init_paged_cache(batch, num_blocks, block_size, max_blocks, kv_dtype)
+                                         -> per-layer paged cache dicts
     quantize(plan)                       -> self, plan applied in place
 """
 from __future__ import annotations
@@ -139,25 +142,43 @@ class Model(nn.Module):
 
     # -- serving -------------------------------------------------------------
     def prefill_padded(self, tokens: torch.Tensor, caches: list,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       lengths: torch.Tensor,
+                       offset: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
         """Prefill bucket-padded prompts without leaking pad tokens.
 
         Positions at or beyond ``lengths`` [B] get the empty-slot sentinel
         (2**30), so pad entries written into the cache are masked like
-        empty slots.  Returns the logits at each row's last real token
-        ([B, 1, vocab]) and leaves every cache's write index at
-        ``lengths``.
+        empty slots.  ``offset`` [B] (default zeros) starts each row's
+        positions and cache writes at ``offset[b]``: the paged engine
+        feeds a long prompt through here one chunk at a time, ``lengths``
+        being the valid length within the chunk.  Returns the logits at
+        each row's last real token ([B, 1, vocab]) and leaves every
+        cache's write index at ``offset + lengths``.
+
+        The reference writes a chunk from the cache's current index, so
+        a paged slot reused after another sequence ended there writes its
+        first chunk from that sequence's end, past its own blocks, where
+        the writes are dropped; here the index is set to ``offset``
+        first.
         """
         B, S = tokens.shape
         lengths = lengths.to(device=tokens.device, dtype=torch.int32)
         rel = torch.arange(S, dtype=torch.int32,
                            device=tokens.device).expand(B, S)
-        pos = torch.where(rel < lengths[:, None], rel,
+        end = lengths
+        if offset is not None:
+            off = offset.to(device=tokens.device, dtype=torch.int32)
+            rel = rel + off[:, None]
+            end = off + lengths
+            for c in caches:
+                c["index"].copy_(off)
+        pos = torch.where(rel < end[:, None], rel,
                           torch.full_like(rel, attn_mod.EMPTY_SLOT))
         logits = self.forward(tokens, caches, positions=pos,
                               last_index=lengths - 1)
         for c in caches:
-            c["index"].copy_(lengths)
+            c["index"].copy_(end)
         return logits
 
     def decode_step(self, tokens: torch.Tensor, caches: list) -> torch.Tensor:
@@ -184,4 +205,29 @@ class Model(nn.Module):
             caches.append(attn_mod.init_kv_cache(
                 batch, span, self.cfg.n_kv_heads, self.cfg.head_dim,
                 dtype=dt, device=self.device))
+        return caches
+
+    def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,
+                         max_blocks: int,
+                         kv_dtype: Optional[str] = None) -> list:
+        """Paged KV caches for the continuously batched engine: every
+        layer gets its own pools of ``num_blocks`` blocks of
+        ``block_size`` slots (block 0 the all-empty null block) and its
+        own write index; all layers share one [batch, max_blocks] block
+        table tensor, which the engine fills once per step."""
+        kv = kv_dtype or self.cfg.kv_cache_dtype
+        dt = torch.int8 if kv == "int8" else torch.bfloat16
+        tables = torch.zeros((batch, max_blocks), dtype=torch.int32,
+                             device=self.device)
+        caches = []
+        for block in self.layers:
+            if block.spec[0] not in ("attn", "attn_local"):
+                raise NotImplementedError(
+                    f"paged KV cache: unsupported mixer {block.spec[0]!r}")
+            caches.append(attn_mod.init_paged_kv_cache(
+                num_blocks, block_size, self.cfg.n_kv_heads,
+                self.cfg.head_dim, tables,
+                torch.zeros((batch,), dtype=torch.int32,
+                            device=self.device), dtype=dt,
+                device=self.device))
         return caches

@@ -1,5 +1,7 @@
-"""Serving engine: continuous batching over fixed decode slots (port of
-``repro/serving/engine.py::ServingEngine``, the ring-cache engine).
+"""Serving engines: continuous batching over fixed decode slots (port of
+``repro/serving/engine.py``): :class:`ServingEngine` over the ring KV
+cache, and :class:`PagedServingEngine` over the paged one (block-table
+pools, chunked prefill, preemption by recompute; see its note).
 
 * ``n_slots`` concurrent sequences share one batched ring KV cache.
 * Requests queue up; free slots are prefilled one request at a time
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.models.attention import EMPTY_SLOT
 from .lifecycle import EngineStallError, LifecycleMixin, RequestStatus
+from .paged_cache import PagedKVCache, PoolExhausted
 
 
 @dataclass
@@ -60,6 +63,12 @@ class EngineStats:
     rejected: int = 0           # reached REJECTED
     timed_out: int = 0          # reached TIMED_OUT
     prefill_failures: int = 0   # health check tripped on prefill logits
+    # paged-engine counters (zero on the ring engine)
+    preemptions: int = 0        # sequences evicted for blocks, requeued
+    prefill_chunks: int = 0     # chunked-prefill forwards
+    pool_exhaustions: int = 0   # KV pool allocation failures (grow/admit)
+    evicted_blocks: int = 0     # blocks freed by preemption evictions
+    cache_utilization: list = field(default_factory=list)
 
 
 class ServingEngine:
@@ -93,12 +102,18 @@ class ServingEngine:
         self._clock = clock if clock is not None else time.monotonic
         self.kv_dtype = ("int8" if quant_plan is not None
                          and quant_plan.attn_kv else None)
-        self.cache = model.init_cache(n_slots, max_len, kv_dtype=self.kv_dtype)
+        self.cache = self._init_cache()
         self.slot_req: list[Optional[Request]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)
         self.slot_last = np.zeros(n_slots, np.int32)
         self.queue: deque[Request] = deque()
         self.stats = EngineStats()
+
+    def _init_cache(self) -> list:
+        """The KV cache; the paged engine overrides this with block pools
+        and tables."""
+        return self.model.init_cache(self.n_slots, self.max_len,
+                                     kv_dtype=self.kv_dtype)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -167,6 +182,11 @@ class ServingEngine:
                 f"wrap and silently drop the oldest prompt tokens. Raise "
                 f"max_len (or shrink prefill_bucket) so padded prompts "
                 f"stay strictly below it.")
+        return self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> RequestStatus:
+        """Shared admission tail: capacity rejections are typed, not
+        raised (see :meth:`submit`)."""
         if self.closed:
             return self._finish(req, RequestStatus.REJECTED,
                                 "engine closed (draining or shut down)")
@@ -237,6 +257,11 @@ class ServingEngine:
     def _active(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is not None]
 
+    def _clear_slot(self, slot: int) -> None:
+        """Free a slot after its request went terminal (the paged engine
+        also releases the slot's KV blocks here)."""
+        self.slot_req[slot] = None
+
     def step(self) -> None:
         """One engine iteration: expire + admit + one batched decode."""
         now = self._clock()
@@ -245,7 +270,7 @@ class ServingEngine:
             if req.expired(now):
                 self._finish(req, RequestStatus.TIMED_OUT,
                              "deadline expired mid-decode")
-                self.slot_req[slot] = None
+                self._clear_slot(slot)
         self._admit(now)
         active = self._active()
         if not active:
@@ -257,7 +282,7 @@ class ServingEngine:
             req = self.slot_req[slot]
             if self.health_checks and not np.isfinite(logits[slot]).all():
                 self._finish(req, RequestStatus.FAILED, "non-finite logits")
-                self.slot_req[slot] = None    # cache reset on next prefill
+                self._clear_slot(slot)        # cache reset on next prefill
                 continue
             tok = self._sample(req, logits[slot], len(req.generated))
             req.generated.append(tok)
@@ -268,7 +293,7 @@ class ServingEngine:
                     or len(req.generated) >= req.max_new_tokens
                     or self.slot_pos[slot] >= self.max_len - 1):
                 self._finish(req, RequestStatus.OK)
-                self.slot_req[slot] = None    # slot freed immediately
+                self._clear_slot(slot)        # slot freed immediately
 
     def pending(self) -> int:
         """Requests not yet terminal: queued + active."""
@@ -301,7 +326,7 @@ class ServingEngine:
             self._finish(self.queue.popleft(), RequestStatus.TIMED_OUT, why)
         for slot in self._active():
             self._finish(self.slot_req[slot], RequestStatus.TIMED_OUT, why)
-            self.slot_req[slot] = None
+            self._clear_slot(slot)
 
     def drain(self, max_iters: int = 10_000,
               on_stall: str = "timeout") -> None:
@@ -323,4 +348,304 @@ class ServingEngine:
         for slot in self._active():
             self._finish(self.slot_req[slot], RequestStatus.FAILED,
                          "engine shutdown with request in flight")
-            self.slot_req[slot] = None
+            self._clear_slot(slot)
+
+
+class PagedServingEngine(ServingEngine):
+    """Continuously batched engine over the paged (block-table) KV cache
+    (port of ``repro/serving/engine.py::PagedServingEngine``).
+
+    * **Paged KV storage** — slots hold per-sequence block tables into
+      shared fixed-size block pools (:mod:`.paged_cache`); a sequence
+      consumes blocks for its actual length, not a ``max_len`` ring, and
+      freed blocks recirculate every step.
+    * **Chunked prefill** — prompts stream through
+      ``Model.prefill_padded(offset=...)`` one ``prefill_chunk``-token
+      chunk per engine step, interleaved with decode for the running
+      slots.
+    * **Preemption** — when the pool runs dry, the youngest sequence is
+      evicted (blocks freed, request requeued at the front) and later
+      resumed by recomputing prompt + generated-so-far.
+    * **Block-granular admission** — ``submit`` bounds prompts by the
+      block table (``max_blocks * block_size`` positions, one kept for
+      the first decode write).  Admission claims a slot, not blocks:
+      blocks are allocated chunk by chunk and token by token.
+
+    The host numpy tables are the source of truth; their device copy
+    (one tensor that every layer's cache dict references) is refreshed
+    before a forward whenever they changed.  Scheduling never changes a
+    row's result: each row attends only to its own logical KV content.
+    """
+
+    def __init__(self, model, n_slots: int = 8, max_len: int = 512,
+                 prefill_bucket: int = 64, block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None, **kw):
+        self.block_size = block_size
+        self.num_blocks = num_blocks
+        self.prefill_chunk = (prefill_chunk if prefill_chunk is not None
+                              else prefill_bucket)
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be positive")
+        # slot -> [resume tokens (prompt + generated), next chunk offset]
+        self.slot_fill: dict[int, list] = {}
+        self._slot_seq = np.zeros(n_slots, np.int64)   # admission order
+        self._admit_order = 0
+        self._tables_dirty = True
+        super().__init__(model, n_slots=n_slots, max_len=max_len,
+                         prefill_bucket=prefill_bucket, **kw)
+
+    # -- cache ---------------------------------------------------------
+    def _init_cache(self) -> list:
+        self.paged = PagedKVCache(self.model, self.n_slots, self.max_len,
+                                  self.block_size,
+                                  num_blocks=self.num_blocks,
+                                  kv_dtype=self.kv_dtype)
+        return self.paged.cache
+
+    def _sync_tables(self) -> None:
+        """Copy the host block tables to their device tensor if they
+        changed since the last forward."""
+        if self._tables_dirty:
+            self.cache[0]["block_tables"].copy_(
+                torch.from_numpy(self.paged.tables))
+            self._tables_dirty = False
+
+    @torch.no_grad()
+    def _prefill_chunk(self, tokens: np.ndarray, slot: int, length: int,
+                       offset: int) -> torch.Tensor:
+        """Prefill one chunk of one request into slot ``slot``.
+
+        Unlike the ring engine's ``_prefill_one`` nothing is zeroed: only
+        the block table and the write index are sliced to the slot, the
+        pools are shared, and a fresh slot's blocks are already clean
+        (positions scrubbed to the empty sentinel on release).
+        ``tokens`` is the padded chunk, ``length`` its valid length,
+        ``offset`` the position of its first token; the write index
+        resumes at ``offset + length``.  Returns the last valid token's
+        logits [vocab]."""
+        self._sync_tables()
+        sub = [{k: (v[slot:slot + 1] if k in ("block_tables", "index")
+                    else v) for k, v in c.items()} for c in self.cache]
+        toks = torch.as_tensor(tokens, dtype=torch.long,
+                               device=self.device)[None]
+        lengths = torch.tensor([length], dtype=torch.int32,
+                               device=self.device)
+        off = torch.tensor([offset], dtype=torch.int32, device=self.device)
+        return self.model.prefill_padded(toks, sub, lengths,
+                                         offset=off)[0, -1]
+
+    @torch.no_grad()
+    def _decode_masked(self, last_tokens: np.ndarray,
+                       mask: np.ndarray) -> torch.Tensor:
+        """One decode step for every slot in ``mask``.
+
+        The write index of every other slot (empty or mid-prefill) is set
+        to the empty sentinel in place first: its KV writes are then
+        invalid and leave the pools untouched, its logits are thrown
+        away on the host, and its next prefill chunk restores its index.
+        """
+        self._sync_tables()
+        keep = torch.as_tensor(mask, device=self.device)
+        for c in self.cache:
+            c["index"].masked_fill_(~keep, EMPTY_SLOT)
+        toks = torch.as_tensor(last_tokens, dtype=torch.long,
+                               device=self.device)[:, None]
+        return self.model.decode_step(toks, self.cache)[:, 0]
+
+    # -- admission -----------------------------------------------------
+    def submit(self, req: Request) -> RequestStatus:
+        """Queue a request; block-granular admission bounds: the prompt
+        plus one decode position must fit in the slot's block table
+        (``paged.capacity_tokens`` positions)."""
+        L = len(req.prompt)
+        if L == 0:
+            self._finish(req, RequestStatus.REJECTED, "empty prompt")
+            raise ValueError("empty prompt: requests must contain at "
+                             "least one token")
+        cap = self.paged.capacity_tokens
+        if L + 1 > cap:
+            self._finish(req, RequestStatus.REJECTED,
+                         "prompt exceeds the slot's block table")
+            raise ValueError(
+                f"prompt of length {L} (+1 decode position) needs "
+                f"{self.paged.allocator.blocks_for(L + 1)} blocks but the "
+                f"block table holds {self.paged.max_blocks} x "
+                f"{self.block_size}-token blocks ({cap} positions). "
+                f"Raise max_len (table width) or block_size.")
+        return self._enqueue(req)
+
+    def _clear_slot(self, slot: int) -> None:
+        """Free the slot and its blocks; the freed blocks' positions are
+        reset to the empty sentinel in every layer, so a reallocated
+        block never exposes its previous sequence."""
+        freed = self.paged.release(slot)
+        if freed:
+            ids = torch.as_tensor(freed, dtype=torch.long,
+                                  device=self.device)
+            for c in self.cache:
+                c["pos_pages"][ids] = EMPTY_SLOT
+            self._tables_dirty = True
+        self.slot_req[slot] = None
+        self.slot_fill.pop(slot, None)
+
+    def _admit(self, now: float) -> None:
+        """Assign queued requests to free slots (FIFO, no reordering).
+
+        Admission only claims the slot and stages the resume tokens
+        (prompt + any generated before a preemption); the cache writes
+        happen in the chunked-prefill phase of :meth:`step`.  It stops,
+        keeping FIFO order, as soon as the head request's first-token
+        block demand exceeds the free pool.
+        """
+        for slot in range(self.n_slots):
+            if self.slot_req[slot] is not None:
+                continue
+            while self.queue:
+                req = self.queue[0]
+                if req.expired(now):
+                    self.queue.popleft()
+                    self._finish(req, RequestStatus.TIMED_OUT,
+                                 "deadline expired while queued")
+                    continue
+                toks = np.asarray(req.prompt, np.int32)
+                if req.generated:    # resume by recompute after preemption
+                    toks = np.concatenate(
+                        [toks, np.asarray(req.generated, np.int32)])
+                if not self.paged.can_fit(len(toks) + 1):
+                    return
+                self.queue.popleft()
+                req.status = RequestStatus.ACTIVE
+                self.slot_req[slot] = req
+                self.slot_fill[slot] = [toks, 0]
+                self._slot_seq[slot] = self._admit_order
+                self._admit_order += 1
+                break
+
+    # -- block pressure ------------------------------------------------
+    def _pick_victim(self, requester: int) -> Optional[int]:
+        cands = [s for s in self._active()
+                 if s != requester and self.paged.n_blocks_of[s] > 0]
+        if not cands:
+            return None
+        return max(cands, key=lambda s: self._slot_seq[s])
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot`` to free its blocks; the request requeues at the
+        front and resumes later by recomputing prompt + generated."""
+        req = self.slot_req[slot]
+        freed = int(self.paged.n_blocks_of[slot])
+        self._clear_slot(slot)
+        req.status = RequestStatus.QUEUED
+        self.queue.appendleft(req)
+        self.stats.preemptions += 1
+        self.stats.evicted_blocks += freed
+
+    def _ensure(self, slot: int, n_tokens: int) -> bool:
+        """Grow ``slot`` to cover ``n_tokens`` positions, preempting
+        younger sequences under pool pressure.  Returns False when
+        ``slot`` itself went terminal (pool exhausted with no victim
+        left: the request fails rather than stalling the engine)."""
+        while True:
+            try:
+                if self.paged.ensure(slot, n_tokens):
+                    self._tables_dirty = True
+                return True
+            except PoolExhausted:
+                self.stats.pool_exhaustions += 1
+                victim = self._pick_victim(slot)
+                if victim is None:
+                    self._finish(self.slot_req[slot], RequestStatus.FAILED,
+                                 "KV block pool exhausted")
+                    self._clear_slot(slot)
+                    return False
+                self._preempt(victim)
+
+    def _maybe_finish(self, slot: int, req: Request, tok: int) -> None:
+        if ((req.eos_id is not None and tok == req.eos_id)
+                or len(req.generated) >= req.max_new_tokens
+                or self.slot_pos[slot] >= self.paged.capacity_tokens - 1):
+            self._finish(req, RequestStatus.OK)
+            self._clear_slot(slot)
+
+    # -- the engine loop -----------------------------------------------
+    def step(self) -> None:
+        """One engine iteration: expire + admit + one prefill chunk per
+        filling slot + one batched decode for every running slot."""
+        now = self._clock()
+        for slot in self._active():
+            req = self.slot_req[slot]
+            if req.expired(now):
+                self._finish(req, RequestStatus.TIMED_OUT,
+                             "deadline expired mid-decode")
+                self._clear_slot(slot)
+        self._admit(now)
+
+        # chunked prefill: one chunk per filling slot
+        C = self.prefill_chunk
+        for slot in sorted(self.slot_fill):
+            if slot not in self.slot_fill:       # preempted this step
+                continue
+            req = self.slot_req[slot]
+            toks, off = self.slot_fill[slot]
+            chunk = toks[off:off + C]
+            valid = len(chunk)
+            if valid < C:                        # pad by repeating
+                chunk = np.concatenate(
+                    [chunk, np.full(C - valid, chunk[-1])]).astype(np.int32)
+            if not self._ensure(slot, off + valid):
+                continue
+            logits = self._to_host(self._prefill_chunk(chunk, slot, valid,
+                                                       off))
+            self.stats.prefill_chunks += 1
+            off += valid
+            if off < len(toks):
+                self.slot_fill[slot][1] = off
+                continue
+            # final chunk: the request joins the decode batch
+            self.stats.prefills += 1
+            if self.health_checks and not np.isfinite(logits).all():
+                self.stats.prefill_failures += 1
+                self._finish(req, RequestStatus.FAILED,
+                             "non-finite prefill logits")
+                self._clear_slot(slot)
+                continue
+            tok = self._sample(req, logits, len(req.generated))
+            req.generated.append(tok)
+            if req.first_token_at is None:
+                req.first_token_at = self._clock()
+            del self.slot_fill[slot]
+            self.slot_pos[slot] = len(toks)
+            self.slot_last[slot] = tok
+            self._maybe_finish(slot, req, tok)
+
+        # batched decode over every slot that is past prefill
+        ok = []
+        for slot in self._active():
+            if slot in self.slot_fill or self.slot_req[slot] is None:
+                continue
+            if self._ensure(slot, int(self.slot_pos[slot]) + 1):
+                ok.append(slot)
+        ok = [s for s in ok if self.slot_req[s] is not None
+              and s not in self.slot_fill]       # drop preempted victims
+        if ok:
+            self.stats.batch_occupancy.append(len(ok) / self.n_slots)
+            mask = np.zeros(self.n_slots, bool)
+            mask[ok] = True
+            logits = self._to_host(self._decode_masked(self.slot_last, mask))
+            self.stats.decode_steps += 1
+            for slot in ok:
+                req = self.slot_req[slot]
+                if self.health_checks \
+                        and not np.isfinite(logits[slot]).all():
+                    self._finish(req, RequestStatus.FAILED,
+                                 "non-finite logits")
+                    self._clear_slot(slot)
+                    continue
+                tok = self._sample(req, logits[slot], len(req.generated))
+                req.generated.append(tok)
+                self.stats.tokens_out += 1
+                self.slot_last[slot] = tok
+                self.slot_pos[slot] += 1
+                self._maybe_finish(slot, req, tok)
+        self.stats.cache_utilization.append(self.paged.utilization())

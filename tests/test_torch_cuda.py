@@ -173,6 +173,167 @@ def test_decode_attention_close(dev, qdtype, quantized, B, S, KH, G, D,
     assert bool((err <= limit).all()), (err / limit).max().item()
 
 
+def _attn_limit(ref, qdtype, kvdtype):
+    """The decode-attention rule above: 2**-7 of the element on bf16
+    output (1e-5 on f32) plus a share of its query row's largest |out|
+    (1e-3; 2**-7 on a bf16 cache)."""
+    rtol = 2 ** -7 if qdtype == torch.bfloat16 else 1e-5
+    row = 2 ** -7 if kvdtype == torch.bfloat16 else 1e-3
+    return rtol * ref.abs() + row * ref.abs().amax(-1, keepdim=True)
+
+
+def _ring_case(dev, seed, B, S, KH, G, D, quantized, qdtype):
+    rng = _gen(seed)
+    fill = [int(rng.integers(1, S + 1)) for _ in range(B)]
+    fill[0] = 0                                   # an all-empty row
+    if B > 2:
+        fill[1] = 1                               # a single-token row
+    k, v, ks, vs, pos = _cache(rng, B, S, KH, D, quantized, dev, fill,
+                               qdtype)
+    q = _t(rng.standard_normal((B, KH, G, D)).astype(np.float32), dev,
+           qdtype)
+    qp = _t(np.array([max(f - 1, 0) for f in fill], np.int32), dev)
+    return q, k, v, pos, qp, ks, vs
+
+
+def _to_pages(seed, bs, k, v, pos, ks, vs):
+    """The paged layout of a ring cache: blocks holding a position go to
+    shuffled pool blocks, the others to the null block 0; the ring's
+    copies of those null blocks are zeroed, so both layouts hold one
+    logical cache."""
+    B, S = pos.shape
+    nb = S // bs
+    dev = pos.device
+    used = (pos.reshape(B, nb, bs) != 2 ** 30).any(-1)
+    NB = 1 + B * nb
+    ids = torch.as_tensor(_gen(seed).permutation(np.arange(1, NB)),
+                          dtype=torch.int32, device=dev)
+    tables = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+    tables[used] = ids[:int(used.sum())]
+    null = ~used.repeat_interleave(bs, 1)                    # [B, S]
+    pages = []
+    for a, fill in ((k, 0), (v, 0), (pos, 2 ** 30), (ks, 0), (vs, 0)):
+        if a is None:
+            pages.append(None)
+            continue
+        a.masked_fill_(null.reshape(B, S, *[1] * (a.dim() - 2)), fill)
+        pool = torch.full((NB, bs) + tuple(a.shape[2:]), fill,
+                          dtype=a.dtype, device=dev)
+        pool[tables[used].long()] = a.reshape(B, nb, bs, *a.shape[2:])[used]
+        pages.append(pool)
+    return tables, pages
+
+
+PAGED_SHAPES = [(8, 1024, 1, 8, 256, 16, None), (3, 96, 2, 4, 16, 8, 7),
+                (4, 128, 1, 1, 64, 32, None), (2, 192, 2, 16, 128, 64, 50)]
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B,S,KH,G,D,bs,window", PAGED_SHAPES)
+def test_paged_bitwise_vs_ring_and_close_to_plain(dev, qdtype, quantized, B,
+                                                  S, KH, G, D, bs, window):
+    """The paged walk on shuffled blocks (one row all null) returns the
+    ring walk's bits on the same logical cache, and agrees with its
+    plain version by the decode-attention rule."""
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 6, B, S, KH, G, D, quantized,
+                                          qdtype)
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(7, bs, k, v, pos, ks, vs)
+    assert bool((tables[0] == 0).all())
+    before = da.decode_attention_paged.launches
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp,
+                                      window=window)
+    ring = da.decode_attention(q, k, v, pos, qp, ks, vs, window=window)
+    torch.cuda.synchronize()
+    assert da.decode_attention_paged.launches == before + 1
+    assert torch.equal(paged, ring)
+    wide = (lambda t: t) if quantized else (lambda t: t.float())
+    ref = da.decode_attention_paged_plain(
+        q.float(), wide(kp), wide(vp), pp, tables, qp, ksp, vsp,
+        window=window).to(q.dtype).float()
+    err = (paged.float() - ref).abs()
+    limit = _attn_limit(ref, qdtype, kp.dtype)
+    assert bool((err <= limit).all()), (err / limit).max().item()
+
+
+SPLIT_SHAPES = [(8, 8192, 1, 8, 256, None), (3, 700, 2, 4, 16, None),
+                (2, 4096, 1, 1, 64, 300), (4, 2500, 2, 16, 128, None)]
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B,S,KH,G,D,window", SPLIT_SHAPES)
+def test_split_one_bitwise_and_more_close(dev, qdtype, quantized, B, S, KH,
+                                          G, D, window):
+    """Partial + combine at NS = 1 return the single walk's bits; at
+    NS > 1 they agree with the plain split version (and the combine with
+    its plain version on the kernel's partial states) by the
+    decode-attention rule."""
+    from repro_torch.kernels import ops
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 8, B, S, KH, G, D, quantized,
+                                          qdtype)
+    one = da.decode_attention(q, k, v, pos, qp, ks, vs, window=window)
+    p0, c0 = da.decode_attention_partial.launches, \
+        da.decode_attention_combine.launches
+    split1 = ops.decode_attention_splitkv(q, k, v, pos, qp, ks, vs,
+                                          window=window, n_splits=1)
+    torch.cuda.synchronize()
+    assert da.decode_attention_partial.launches == p0 + 1
+    assert da.decode_attention_combine.launches == c0 + 1
+    assert torch.equal(split1, one)
+    wide = (lambda t: t) if quantized else (lambda t: t.float())
+    for ns in (2, 3, 4, 8):
+        out = ops.decode_attention_splitkv(q, k, v, pos, qp, ks, vs,
+                                           window=window, n_splits=ns)
+        ref = ops.decode_attention_splitkv(
+            q.float().cpu(), wide(k).cpu(), wide(v).cpu(), pos.cpu(),
+            qp.cpu(), None if ks is None else ks.cpu(),
+            None if vs is None else vs.cpu(), window=window,
+            n_splits=ns).to(q.dtype).float().to(dev)
+        err = (out.float() - ref).abs()
+        limit = _attn_limit(ref, qdtype, k.dtype)
+        assert bool((err <= limit).all()), (ns, (err / limit).max().item())
+        o, m, l = da.decode_attention_partial(q, k, v, pos, qp, ks, vs,
+                                              window=window, n_splits=ns)
+        got = da.decode_attention_combine(o, m, l, q.dtype).float()
+        ref = da.decode_attention_combine_plain(o, m, l, q.dtype).float()
+        err = (got - ref).abs()
+        limit = _attn_limit(ref, qdtype, torch.float32)
+        assert bool((err <= limit).all()), (ns, (err / limit).max().item())
+
+
+def test_decode_wrappers_reject_bad_tables_and_dtypes(dev):
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 9, 2, 64, 1, 2, 16, True,
+                                          torch.float32)
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(10, 16, k, v, pos, ks, vs)
+    ok = (q, kp, vp, pp, tables, qp, ksp, vsp)
+    da.decode_attention_paged(*ok)
+    bad = [
+        (TypeError, dict(tables=tables.long())),
+        (ValueError, dict(tables=tables[:1])),
+        (ValueError, dict(tables=tables.t().contiguous().t())),
+        (TypeError, dict(ksp=None, vsp=None)),             # int8 unscaled
+        (TypeError, dict(q=q.half())),
+        (ValueError, dict(pp=pp[:, :8].contiguous())),
+        (ValueError, dict(tables=tables.cpu())),           # device mix
+    ]
+    names = ("q", "kp", "vp", "pp", "tables", "qp", "ksp", "vsp")
+    for exc, change in bad:
+        args = dict(zip(names, ok), **change)
+        with pytest.raises(exc):
+            da.decode_attention_paged(*(args[n] for n in names))
+    with pytest.raises(TypeError):
+        da.decode_attention_partial(q, k, v, pos, qp, ks.double(), vs)
+    with pytest.raises(ValueError):
+        da.decode_attention_partial(q, k, v, pos, qp, ks, vs, n_splits=0)
+    o, m, l = da.decode_attention_partial(q, k, v, pos, qp, ks, vs)
+    with pytest.raises(ValueError):
+        da.decode_attention_combine(o, m[:, :, :1].contiguous(), l,
+                                    torch.float32)
+    with pytest.raises(TypeError):
+        da.decode_attention_combine(o, m, l, torch.float16)
+
+
 def test_wrappers_reject_bad_inputs(dev):
     x = torch.zeros((4, 64), device=dev)
     w = torch.zeros((64, 6), dtype=torch.int8, device=dev)
@@ -184,8 +345,9 @@ def test_wrappers_reject_bad_inputs(dev):
 
 
 def test_reduced_engine_on_card(dev):
-    """The reduced config serves on the card through all five kernels
-    (its d_ff of 128 takes the gated GEMM's quantize_out branch), and its
+    """The reduced config serves on the card through the ring path's five
+    kernels and no other (its d_ff of 128 takes the gated GEMM's
+    quantize_out branch; 64 slots take the single walk), and its
     greedy tokens agree with the plain path's on at least 90% of steps
     (an ulp of GELU can flip a near tie of the random-weight logits)."""
     from repro_torch.configs import get_config, reduced_config
@@ -215,8 +377,67 @@ def test_reduced_engine_on_card(dev):
     counts = launch_counts()
     plain = serve(plain=True)
     assert launch_counts() == counts
-    assert all(n > 0 for n in counts.values()), counts
+    ring = ("quantize_rows_int8", "cim_gemm_int8_fused_qin",
+            "cim_gemm_int8_fused", "cim_gated_gemm_int8", "decode_attention")
+    assert all(counts[k] > 0 for k in ring), counts
+    assert sum(counts.values()) == sum(counts[k] for k in ring), counts
     assert all(r.status is RequestStatus.OK for r in kern + plain)
     agree = sum(a == b for ka, pa in zip(kern, plain)
                 for a, b in zip(ka.generated, pa.generated))
     assert agree >= 0.9 * sum(len(r.generated) for r in plain)
+
+
+def test_reduced_paged_engine_on_card(dev):
+    """The reduced config serves on the card through the paged engine
+    (paged attention, tight pool, preemption) and through the ring engine
+    at 4096 slots (split attention); greedy tokens agree with the plain
+    path on at least 90% of steps, every request ends OK, the pool
+    drains, and each engine's attention kernel was launched."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan, kernel_mode
+    from repro_torch.serving import (PagedServingEngine, Request,
+                                     RequestStatus, ServingEngine)
+
+    cfg = reduced_config(get_config("gemma-2b"))
+    prompts = [np.arange(1, n + 1, dtype=np.int32) * 7 % 256
+               for n in (3, 17, 30, 9, 12)]
+    model = Model(cfg).init(0, device=dev).quantize(QuantPlan.full())
+
+    def serve(make, plain):
+        eng = make()
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        with kernel_mode(False if plain else None):
+            eng.run_until_done()
+        return eng, reqs
+
+    engines = {
+        "decode_attention_paged": lambda: PagedServingEngine(
+            model, n_slots=3, max_len=64, prefill_bucket=16, block_size=8,
+            num_blocks=7, prefill_chunk=8, quant_plan=QuantPlan.full()),
+        "decode_attention_partial": lambda: ServingEngine(
+            model, n_slots=3, max_len=4096, prefill_bucket=16,
+            quant_plan=QuantPlan.full()),
+    }
+    for kernel, make in engines.items():
+        reset_launch_counts()
+        eng, kern = serve(make, plain=False)
+        counts = launch_counts()
+        assert counts[kernel] > 0, (kernel, counts)
+        if kernel == "decode_attention_paged":
+            assert eng.stats.preemptions >= 1
+            eng.paged.allocator.check()
+            assert eng.paged.allocator.n_used == 0
+        else:
+            assert counts["decode_attention_combine"] == counts[kernel]
+        assert counts["decode_attention"] == 0
+        _, plain = serve(make, plain=True)
+        assert launch_counts() == counts
+        assert all(r.status is RequestStatus.OK for r in kern + plain)
+        agree = sum(a == b for ka, pa in zip(kern, plain)
+                    for a, b in zip(ka.generated, pa.generated))
+        assert agree >= 0.9 * sum(len(r.generated) for r in plain)
