@@ -13,7 +13,11 @@ the JAX package.  Phases, each printing its lines:
             serve runs (M = 64, 256, and 5056: serve-long's largest).
             The paged walk is also held bitwise against the ring walk on
             the same logical cache, and the split walk at NS = 1 bitwise
-            against the single walk.
+            against the single walk.  The grouped GEMMs at qwen2-moe's
+            decode (E = 60, T = 8) and prefill (T = 48) shapes with a
+            skip list holding zeros; the requant epilogue of kernels 3,
+            4 and 8 bitwise; the ring and paged walks at KH 16, G 1,
+            D 128.
 4. serve  — full-width gemma-2b (random weights from a seed, built and
             quantized once, shared by the three runs) served by
             ``ServingEngine(quant_plan=QuantPlan.full())``: 8 greedy
@@ -31,8 +35,21 @@ the JAX package.  Phases, each printing its lines:
             and the reduced config's logits too.
    profile — one decode step's wall time beside the device time the
             profiler attributes to kernels, and the largest kernels.
+   serve-moe — gemma-2b is freed; full-width qwen2-moe-a2.7b (random
+            weights from the seed, 24 layers, 60 experts top-4 + the
+            shared MLP, built in bf16 and quantized once) served by the
+            ring engine: 8 greedy requests, every request OK, counters
+            exact (9 launches per layer per decode step, 8 per prefill);
+            ms per decode step, memory and its peak, active experts.
+   serve-moe-paged — the same model through the paged engine over a
+            pool that must preempt: every request OK, the pool drains,
+            counters exact.
+   reference-moe, profile-moe — as reference and profile, on qwen2-moe.
 5. times  — each kernel's median time at the serve shapes beside its
-            bound, its plain version and one PyTorch call (library_ms).
+            bound, its plain version and one PyTorch call (library_ms);
+            the grouped GEMMs with the expert counts of a served decode
+            step and with every expert active, and kernels 3 and 4 with
+            the requant epilogue at the shared MLP's shapes.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -40,6 +57,7 @@ that line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -87,7 +105,14 @@ SOURCES = {
                                  "src/repro/kernels/decode_attention.py:274"),
     "decode_attention_paged": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:374"),
+    "cim_grouped_gemm_int8": ("src/repro_torch/csrc/cim_gemm.cu",
+                              "src/repro/kernels/cim_gemm.py:683"),
+    "cim_grouped_gated_gemm_int8": ("src/repro_torch/csrc/cim_gemm.cu",
+                                    "src/repro/kernels/cim_gemm.py:811"),
 }
+MOE_ARCH = "qwen2-moe-a2.7b"
+# qwen2-moe-a2.7b's widths, for the kernel checks and times
+MOE_E, MOE_D, MOE_F, MOE_SHARED = 60, 2048, 1408, 5632
 # the paged run's pool (160 allocatable blocks of 16 slots) and requests:
 # the first eight need more than the pool holds, so it must preempt
 PAGED_BLOCK = 16
@@ -237,6 +262,40 @@ def _to_pages(torch, k, v, pos, ks, vs, bs, seed):
     return tables, pools
 
 
+def _stack(torch, E, K, N, gen):
+    """int8 weights [E, K, N] and their f32 scales [E, N]."""
+    dev = gen.device
+    return (torch.randint(-127, 128, (E, K, N), dtype=torch.int8,
+                          device=dev, generator=gen),
+            torch.rand((E, N), device=dev, generator=gen) * 2e-3 + 1e-4)
+
+
+def _served_like_counts(torch, gen, dev, E=MOE_E, active=25):
+    """int32 [E] expert counts with ``active`` experts holding tokens, as
+    a decode step of 8 rows x top-4 leaves about 25 of 60."""
+    counts = torch.zeros(E, dtype=torch.int32, device=dev)
+    on = torch.randperm(E, device=dev, generator=gen)[:active]
+    counts[on] = torch.randint(1, 3, (active,), dtype=torch.int32,
+                               device=dev, generator=gen)
+    return counts
+
+
+def _grouped_rows(torch, counts, T, K, gen):
+    """Stacked int8 capacity rows [E, T, K] and scales [E, T, 1]: an
+    expert without tokens has zero rows (scale 1e-12/127), as the row
+    quantizer leaves an empty capacity buffer."""
+    E = counts.shape[0]
+    dev = counts.device
+    x = torch.randint(-127, 128, (E, T, K), dtype=torch.int8, device=dev,
+                      generator=gen)
+    xs = torch.rand((E, T, 1), device=dev, generator=gen) * 1e-2 + 1e-4
+    empty = counts == 0
+    x[empty] = 0
+    xs[empty] = torch.full((), 1e-12, device=dev) / torch.full(
+        (), 127.0, device=dev)
+    return x, xs
+
+
 def phase_check(torch) -> dict:
     """Each kernel against its plain version; returns max |err| per
     kernel (decode shape)."""
@@ -359,26 +418,116 @@ def phase_check(torch) -> dict:
                     da.decode_attention_combine(o, m, l, q.dtype),
                     da.decode_attention_combine_plain(o, m, l, q.dtype),
                     where)
+
+    # grouped GEMMs at qwen2-moe's widths: decode (T = 8) and a 64-token
+    # prefill of 8 rows (T = 48), 35 of the 60 experts without tokens
+    for T in (8, 48):
+        counts = _served_like_counts(torch, gen, dev)
+        x, xs = _grouped_rows(torch, counts, T, MOE_D, gen)
+        (wg, gs), (wu, us) = (_stack(torch, MOE_E, MOE_D, MOE_F, gen)
+                              for _ in range(2))
+        where = f"E={MOE_E} T={T} active={int((counts > 0).sum())}"
+        ref = cg.cim_grouped_gated_gemm_int8_plain(x, wg, wu, xs, gs, us,
+                                                   counts, "silu")
+        h = cg.cim_grouped_gated_gemm_int8(x, wg, wu, xs, gs, us,
+                                           counts=counts, activation="silu")
+        record("cim_grouped_gated_gemm_int8", h, ref, False, T, GELU_RTOL,
+               GELU_RTOL * ref.abs().max().item(), where=where)
+        need(bool((h[counts == 0] == 0).all()),
+             "a skipped expert's rows are not zero")
+        q, s = cg.cim_grouped_gated_gemm_int8(x, wg, wu, xs, gs, us,
+                                              counts=counts,
+                                              activation="silu",
+                                              quantize_out=True)
+        qr, sr = cg.quantize_rows_int8_plain(h)
+        record("cim_grouped_gated_gemm_int8[requant q]", q, qr, True, 0,
+               where=where)
+        record("cim_grouped_gated_gemm_int8[requant scale]", s, sr, True, 0,
+               where=where)
+        wd, ds = _stack(torch, MOE_E, MOE_F, MOE_D, gen)
+        down = cg.cim_grouped_gemm_int8(q, wd, s, ds, counts=counts)
+        record("cim_grouped_gemm_int8", down,
+               cg.cim_grouped_gemm_int8_plain(q, wd, s, ds, None, counts),
+               True, T, where=where)
+        record("cim_grouped_gemm_int8 skip list vs full run", down,
+               cg.cim_grouped_gemm_int8(q, wd, s, ds), True, 0, where=where)
+        del wg, wu, wd
+
+    # the requant epilogue of kernels 3 and 4 at the shared MLP's width,
+    # the expert width and a ragged width: bitwise the row quantizer of
+    # the f32 output the same kernel writes without it
+    for M, N in ((8, MOE_SHARED), (8, MOE_F), (40, 1000)):
+        xq = torch.randint(-127, 128, (M, MOE_D), dtype=torch.int8,
+                           device=dev, generator=gen)
+        xs = torch.rand((M, 1), device=dev, generator=gen) * 1e-2 + 1e-4
+        (wg, gs), (wu, us) = (_stack(torch, 1, MOE_D, N, gen)
+                              for _ in range(2))
+        wg, gs, wu, us = wg[0], gs[0], wu[0], us[0]
+        for name, fn, args in (
+                ("cim_gated_gemm_int8", cg.cim_gated_gemm_int8,
+                 (xq, wg, wu, xs, gs, us, "silu")),
+                ("cim_gemm_int8_fused", cg.cim_gemm_int8_fused,
+                 (xq, wg, xs, gs, None, None, "gelu"))):
+            q, s = fn(*args, quantize_out=True)
+            qr, sr = cg.quantize_rows_int8_plain(fn(*args))
+            record(f"{name}[requant]", torch.cat([q.float(), s], 1),
+                   torch.cat([qr.float(), sr], 1), True, 0,
+                   where=f"M={M} N={N}")
+
+    # ring and paged walks at qwen2-moe's heads (KH 16, G 1, D 128)
+    q, k, v, pos, qp, ks, vs = _decode_inputs(
+        torch, dev, gen, KH=16, G=1, D=128,
+        lengths=[0, 17, 100, 250, 513, 800, 1000, 1024])
+    where = "B=8 KH=16 G=1 D=128 S=1024"
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(torch, k, v, pos, ks, vs,
+                                               PAGED_BLOCK, SEED)
+    ring = da.decode_attention(q, k, v, pos, qp, ks, vs)
+    attn_record("decode_attention[KH=16]", ring,
+                da.decode_attention_plain(q, k, v, pos, qp, ks, vs), where)
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp)
+    attn_record("decode_attention_paged[KH=16]", paged,
+                da.decode_attention_paged_plain(q, kp, vp, pp, tables, qp,
+                                                ksp, vsp), where)
+    record("decode_attention_paged vs ring walk", paged, ring, True, 0,
+           where=where)
     torch.cuda.synchronize()
     return errs
 
 
-def expected_launches(n_layers, decode_steps, forwards,
+def expected_launches(cfg, decode_steps, forwards,
                        attention=("decode_attention",)) -> dict:
-    """Launches the full plan makes at gemma-2b (d_ff 16384 > 8192, so
-    the hidden state is re-quantized by its own launch): per layer and
-    forward (decode step, prefill or prefill chunk) QKV, out-proj,
-    row-quant, gated, row-quant, down; per layer and decode step one
-    launch of each ``attention`` kernel.  A prefill attends with the
-    plain dense path."""
+    """Launches the full plan makes, per layer and forward (decode step,
+    prefill or prefill chunk): QKV, out-proj; for a dense FFN row-quant,
+    gated (re-quantizing its output when d_ff <= 8192, else one more
+    row-quant: gemma-2b's 16384), down; for an MoE FFN row-quant of the
+    stacked expert rows, grouped gated (requant fused), grouped down,
+    and the shared MLP's row-quant, gated (requant fused), down.  Per
+    layer and decode step one launch of each ``attention`` kernel; a
+    prefill attends with the plain dense path."""
+    from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_N
     want = {name: 0 for name in SOURCES}
-    want.update(quantize_rows_int8=2 * n_layers * forwards,
-                cim_gemm_int8_fused_qin=2 * n_layers * forwards,
-                cim_gemm_int8_fused=n_layers * forwards,
-                cim_gated_gemm_int8=n_layers * forwards)
-    for name in attention:
-        want[name] = n_layers * decode_steps
+    for _mixer, ffn in cfg.layer_specs():
+        want["cim_gemm_int8_fused_qin"] += 2 * forwards
+        want["cim_gemm_int8_fused"] += forwards
+        want["cim_gated_gemm_int8"] += forwards
+        if ffn == "moe":
+            want["quantize_rows_int8"] += 2 * forwards
+            want["cim_grouped_gated_gemm_int8"] += forwards
+            want["cim_grouped_gemm_int8"] += forwards
+        else:
+            want["quantize_rows_int8"] += (
+                1 if cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
+        for name in attention:
+            want[name] += decode_steps
     return want
+
+
+def launches_per_decode_step(cfg, counts, decode_steps, forwards) -> float:
+    """Launches per layer per decode step: all counted launches less the
+    prefills' (``forwards`` without decode steps), over the steps."""
+    prefill = sum(expected_launches(cfg, 0, forwards - decode_steps,
+                                    ()).values())
+    return (sum(counts.values()) - prefill) / (cfg.n_layers * decode_steps)
 
 
 def _serve(torch, engine, reqs, prefill_counter):
@@ -442,7 +591,7 @@ def phase_serve(torch) -> tuple[dict, dict]:
     counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
     st = engine.stats
     _check_served(cfg, reqs, NEW_TOKENS)
-    want = expected_launches(cfg.n_layers, st.decode_steps,
+    want = expected_launches(cfg, st.decode_steps,
                              st.decode_steps + st.prefills)
     say(f"[serve] {len(reqs)} requests OK: {st.tokens_out} decode tokens "
         f"+ {st.prefills} prefills in {wall:.2f} s "
@@ -451,9 +600,8 @@ def phase_serve(torch) -> tuple[dict, dict]:
         f"{statistics.median(step_ms):.2f} ms per decode step")
     say(f"[serve] launches {json.dumps(counts)}")
     need(counts == want, f"launch counts {counts} != expected {want}")
-    # a prefill launches 6 kernels per layer (no decode attention)
-    per = (sum(counts.values()) - 6 * cfg.n_layers * st.prefills) / (
-        cfg.n_layers * st.decode_steps)
+    per = launches_per_decode_step(cfg, counts, st.decode_steps,
+                                   st.decode_steps + st.prefills)
     say(f"[serve] {per:g} launches per layer per decode step")
     for r in reqs[:2]:
         say(f"[serve]   req {r.uid}: prompt[{len(r.prompt)}] -> "
@@ -461,7 +609,7 @@ def phase_serve(torch) -> tuple[dict, dict]:
     return counts, dict(model=model, lengths=lengths)
 
 
-def phase_serve_paged(torch, model) -> dict:
+def phase_serve_paged(torch, model, tag: str = "serve-paged") -> dict:
     """The paged engine on the shared model, over a pool that cannot hold
     the first eight requests at once."""
     from repro_torch.quant import QuantPlan
@@ -473,7 +621,7 @@ def phase_serve_paged(torch, model) -> dict:
         block_size=PAGED_BLOCK, prefill_chunk=64,
         num_blocks=PAGED_NUM_BLOCKS, quant_plan=QuantPlan.full())
     alloc = engine.paged.allocator
-    say(f"[serve-paged] pool {alloc.num_blocks - 1} blocks x "
+    say(f"[{tag}] pool {alloc.num_blocks - 1} blocks x "
         f"{PAGED_BLOCK} = {(alloc.num_blocks - 1) * PAGED_BLOCK} positions; "
         f"{len(PAGED_PROMPTS)} requests, prompts {PAGED_PROMPTS[0]}.."
         f"{PAGED_PROMPTS[-1]} tokens, {NEW_TOKENS} new each")
@@ -485,20 +633,20 @@ def phase_serve_paged(torch, model) -> dict:
     need(st.preemptions >= 1, "the tight pool never preempted")
     alloc.check()
     need(alloc.n_used == 0, f"{alloc.n_used} blocks still held at the end")
-    want = expected_launches(cfg.n_layers, st.decode_steps,
+    want = expected_launches(cfg, st.decode_steps,
                              st.decode_steps + st.prefill_chunks,
                              attention=("decode_attention_paged",))
-    say(f"[serve-paged] {len(reqs)} requests OK: {st.tokens_out} decode "
+    say(f"[{tag}] {len(reqs)} requests OK: {st.tokens_out} decode "
         f"tokens + {st.prefills} prefills ({st.prefill_chunks} chunks) in "
         f"{wall:.2f} s ({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
         f"{st.decode_steps} decode steps, median "
         f"{statistics.median(step_ms):.2f} ms per decode-only step, "
         f"{st.preemptions} preemptions ({st.evicted_blocks} blocks evicted)")
-    say(f"[serve-paged] launches {json.dumps(counts)}")
+    say(f"[{tag}] launches {json.dumps(counts)}")
     need(counts == want, f"launch counts {counts} != expected {want}")
-    per = (sum(counts.values()) - 6 * cfg.n_layers * st.prefill_chunks) / (
-        cfg.n_layers * st.decode_steps)
-    say(f"[serve-paged] {per:g} launches per layer per decode step")
+    per = launches_per_decode_step(cfg, counts, st.decode_steps,
+                                   st.decode_steps + st.prefill_chunks)
+    say(f"[{tag}] {per:g} launches per layer per decode step")
     return counts
 
 
@@ -518,7 +666,7 @@ def phase_serve_long(torch, model) -> dict:
     st = engine.stats
     _check_served(cfg, reqs, LONG_NEW_TOKENS)
     want = expected_launches(
-        cfg.n_layers, st.decode_steps, st.decode_steps + st.prefills,
+        cfg, st.decode_steps, st.decode_steps + st.prefills,
         attention=("decode_attention_partial", "decode_attention_combine"))
     say(f"[serve-long] {len(reqs)} requests OK (prompts {LONG_PROMPTS}, "
         f"{ops.n_splits_for(LONG_MAX_LEN)} splits): {st.tokens_out} decode "
@@ -527,14 +675,104 @@ def phase_serve_long(torch, model) -> dict:
         f"{statistics.median(step_ms):.2f} ms per decode step")
     say(f"[serve-long] launches {json.dumps(counts)}")
     need(counts == want, f"launch counts {counts} != expected {want}")
-    per = (sum(counts.values()) - 6 * cfg.n_layers * st.prefills) / (
-        cfg.n_layers * st.decode_steps)
+    per = launches_per_decode_step(cfg, counts, st.decode_steps,
+                                   st.decode_steps + st.prefills)
     say(f"[serve-long] {per:g} launches per layer per decode step")
     need(per == 8, f"{per} launches per layer per decode step, not 8")
     return counts
 
 
-def phase_reference(torch, model, seed: int) -> None:
+class CountsRecorder:
+    """Keeps, without a host sync, the expert counts (the grouped
+    kernels' skip list) of every MoE layer of every decode forward."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.fn, self.decode = moe, moe.expert_counts, []
+
+    def __enter__(self):
+        def record(r, n_experts):
+            counts = self.fn(r, n_experts)
+            if r.expert_ids.shape[1] == 1:
+                self.decode.append(counts)
+            return counts
+        self.mod.expert_counts = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.expert_counts = self.fn
+
+
+def phase_serve_moe(torch) -> tuple[dict, dict]:
+    """Full-width qwen2-moe-a2.7b on the ring engine: 8 slots, 8 greedy
+    requests of 16-200 prompt tokens, 32 new each."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg).init(SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[serve-moe] {MOE_ARCH} init: {n_params / 1e9:.3f} B parameters "
+        f"in bf16 ({cfg.n_layers} layers, {cfg.moe.n_routed_experts} "
+        f"experts top-{cfg.moe.top_k}, shared {cfg.moe.shared_width}), "
+        f"{time.perf_counter() - t0:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    engine = ServingEngine(model, n_slots=8, max_len=1024,
+                           prefill_bucket=64, quant_plan=QuantPlan.full())
+    torch.cuda.synchronize()
+    say(f"[serve-moe] quantized (full plan): device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak so far "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    lengths = [16, 40, 64, 65, 100, 128, 150, 200]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, lengths, SEED + 3))]
+    with CountsRecorder() as rec:
+        counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
+    st = engine.stats
+    _check_served(cfg, reqs, NEW_TOKENS)
+    want = expected_launches(cfg, st.decode_steps,
+                             st.decode_steps + st.prefills)
+    say(f"[serve-moe] {len(reqs)} requests OK: {st.tokens_out} decode "
+        f"tokens + {st.prefills} prefills in {wall:.2f} s "
+        f"({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
+        f"{st.decode_steps} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms per decode step")
+    gib = 2 ** 30
+    say(f"[serve-moe] device memory {torch.cuda.memory_allocated() / gib:.2f} "
+        f"GiB, peak {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    say(f"[serve-moe] launches {json.dumps(counts)}")
+    need(counts == want, f"launch counts {counts} != expected {want}")
+    per = launches_per_decode_step(cfg, counts, st.decode_steps,
+                                   st.decode_steps + st.prefills)
+    say(f"[serve-moe] {per:g} launches per layer per decode step")
+    need(per == 9, f"{per} launches per layer per decode step, not 9")
+    prefill = sum(expected_launches(cfg, 0, 1, ()).values()) / cfg.n_layers
+    say(f"[serve-moe] {prefill:g} launches per layer per prefill")
+    need(prefill == 8, f"{prefill} launches per layer per prefill, not 8")
+    steps = torch.stack(rec.decode).reshape(st.decode_steps, cfg.n_layers,
+                                            -1)
+    active = (steps > 0).sum(-1).float()
+    need(len(rec.decode) == st.decode_steps * cfg.n_layers,
+         "expert counts were not recorded at every decode step")
+    say(f"[serve-moe] active experts per layer per decode step: mean "
+        f"{active.mean().item():.2f} of {cfg.moe.n_routed_experts} "
+        f"(min {active.min().item():g}, max {active.max().item():g})")
+    for r in reqs[:2]:
+        say(f"[serve-moe]   req {r.uid}: prompt[{len(r.prompt)}] -> "
+            f"{r.generated[:12]}...")
+    # the skip list of layer 0 at the middle decode step, for the times
+    mid = steps[st.decode_steps // 2, 0].clone()
+    return counts, dict(model=model, step_counts=mid,
+                        mean_active=active.mean().item())
+
+
+def phase_reference(torch, model, seed: int,
+                    tag: str = "reference") -> None:
     """The kernel path against the plain path on the same weights: one
     full-width ring prefill + decode step, one full-width paged prefill
     in two chunks + decode step, and the reduced config end to end.
@@ -552,8 +790,9 @@ def phase_reference(torch, model, seed: int) -> None:
         return torch.cat([a, b], dim=1)
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    for name, m, S in (("gemma-2b", model, 64), (
-            "gemma-2b-smoke", Model(reduced_config(get_config("gemma-2b")))
+    arch = model.cfg.name
+    for name, m, S in ((arch, model, 64), (
+            f"{arch}-smoke", Model(reduced_config(get_config(arch)))
             .init(seed, device=DEVICE).quantize(QuantPlan.full()), 16)):
         B = 4
         toks = torch.randint(0, m.cfg.vocab, (B, S), device=DEVICE,
@@ -567,7 +806,7 @@ def phase_reference(torch, model, seed: int) -> None:
         err = (kern - plain).abs().max().item()
         tol = LOGITS_ATOL_REL * plain.abs().max().item()
         same = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-        say(f"[reference] {name}: prefill+decode logits kernel vs plain "
+        say(f"[{tag}] {name}: prefill+decode logits kernel vs plain "
             f"max_abs_err={err:.4g} (tol {tol:.4g}), argmax agreement "
             f"{same:.3f}")
         need(err <= tol, f"{name}: kernel path disagrees with plain path")
@@ -602,13 +841,13 @@ def phase_reference(torch, model, seed: int) -> None:
     err = (kern - plain).abs().max().item()
     tol = LOGITS_ATOL_REL * plain.abs().max().item()
     same = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    say(f"[reference] gemma-2b paged: two-chunk prefill + decode logits "
+    say(f"[{tag}] {arch} paged: two-chunk prefill + decode logits "
         f"kernel vs plain max_abs_err={err:.4g} (tol {tol:.4g}), argmax "
         f"agreement {same:.3f}")
     need(err <= tol, "paged: kernel path disagrees with plain path")
 
 
-def phase_profile(torch, model, seed: int) -> None:
+def phase_profile(torch, model, seed: int, tag: str = "profile") -> None:
     """Where a decode step's time goes: wall time per step (no profiler)
     beside the device time the profiler attributes to kernels, at the
     serve shape (8 rows, 1024-slot int8 cache, 64-token prompts)."""
@@ -648,17 +887,17 @@ def phase_profile(torch, model, seed: int) -> None:
             rows.append((dev / 1e3 / n, e.count // n, e.key))
     dev_ms = sum(r[0] for r in rows)
     if dev_ms == 0:
-        say(f"[profile] decode step {wall_ms:.2f} ms wall; device time not "
+        say(f"[{tag}] decode step {wall_ms:.2f} ms wall; device time not "
             f"measured (the profiler saw no device activity)")
         return
-    say(f"[profile] decode step {wall_ms:.2f} ms wall, {dev_ms:.2f} ms of "
+    say(f"[{tag}] decode step {wall_ms:.2f} ms wall, {dev_ms:.2f} ms of "
         f"device kernels (busy share {dev_ms / wall_ms:.3f}), "
         f"{sum(r[1] for r in rows)} kernel launches per step")
     for ms, cnt, key in sorted(rows, reverse=True)[:12]:
-        say(f"[profile]   {ms:8.3f} ms  {cnt:5d} x  {key[:90]}")
+        say(f"[{tag}]   {ms:8.3f} ms  {cnt:5d} x  {key[:90]}")
 
 
-def phase_times(torch, serve: dict, counts: dict, errs: dict,
+def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
                 card: str) -> list:
     from repro_torch.kernels import cim_gemm as cg
     from repro_torch.kernels import decode_attention as da
@@ -852,6 +1091,119 @@ def phase_times(torch, serve: dict, counts: dict, errs: dict,
     rows.append(dict(name="decode_attention_combine", ms=ms,
                      plain_ms=plain_ms, bound_ms=b, bound_by=by,
                      library_ms=None))
+    del parts, insts
+
+    # grouped GEMMs at serve-moe's decode shapes (E = 60, T = 8) with the
+    # expert counts of a served decode step (the skip list), then with
+    # every expert active; the bound counts the active experts' rows and
+    # weights and every expert's outputs
+    E, T, Dm, F = MOE_E, 8, MOE_D, MOE_F
+    served = moe["step_counts"].to(dev)
+    full = torch.ones(E, dtype=torch.int32, device=dev)
+
+    def grouped_bytes(cnt, K, N, mats, out_bytes):
+        a = int((cnt > 0).sum())
+        return (a * (T * K + T * 4 + mats * (K * N + N * 4))
+                + E * T * out_bytes + E * 4), a
+
+    def make_grouped_gated(cnt):
+        x, xs = _grouped_rows(torch, cnt, T, Dm, gen)
+        (wg, gs), (wu, us) = (_stack(torch, E, Dm, F, gen)
+                              for _ in range(2))
+        return (lambda: cg.cim_grouped_gated_gemm_int8(
+            x, wg, wu, xs, gs, us, counts=cnt, activation="silu",
+            quantize_out=True)), (x, wg, wu, xs, gs, us, cnt)
+
+    def make_grouped_down(cnt):
+        hq, hs = _grouped_rows(torch, cnt, T, F, gen)
+        wd, ds = _stack(torch, E, F, Dm, gen)
+        return (lambda: cg.cim_grouped_gemm_int8(hq, wd, hs, ds,
+                                                 counts=cnt)), \
+            (hq, wd, hs, ds, cnt)
+
+    def gated_plain(x, wg, wu, xs, gs, us, cnt):
+        return lambda: cg.quantize_rows_int8_plain(
+            cg.cim_grouped_gated_gemm_int8_plain(x, wg, wu, xs, gs, us, cnt,
+                                                 "silu"))
+
+    def down_plain(hq, wd, hs, ds, cnt):
+        return lambda: cg.cim_grouped_gemm_int8_plain(hq, wd, hs, ds, None,
+                                                      cnt)
+
+    def bmm_yardstick(w_and_scales, cnt, K):
+        """One bf16 torch.bmm over the active experts' dequantized
+        weights (gate and up side by side): a yardstick, not a port."""
+        on = (cnt > 0).nonzero().squeeze(1)
+        x = torch.randn((len(on), T, K), device=dev,
+                        generator=gen).to(torch.bfloat16)
+        w = torch.cat([(q[on].float() * sc[on][:, None, :])
+                       for q, sc in w_and_scales], -1).to(torch.bfloat16)
+        return time_ms(torch, [lambda: torch.bmm(x, w)])
+
+    for name, make, plain, K, N, weights, out_bytes in (
+            ("cim_grouped_gated_gemm_int8", make_grouped_gated, gated_plain,
+             Dm, F,
+             lambda a: ((a[1], a[4]), (a[2], a[5])), F + 4),
+            ("cim_grouped_gemm_int8", make_grouped_down, down_plain, F, Dm,
+             lambda a: ((a[1], a[3]),), 4 * Dm)):
+        for tag, cnt in (("served", served), ("all experts", full)):
+            inst = make(cnt)
+            mats = len(weights(inst[1]))
+            nbytes, a = grouped_bytes(cnt, K, N, mats, out_bytes)
+            ms = time_ms(torch, [inst[0]])
+            b, by = bound(nbytes, 2 * mats * a * T * K * N, INT8_OPS_PER_S)
+            bmm = bmm_yardstick(weights(inst[1]), cnt, K)
+            say(f"[times] {name} ({tag}: {a} of {E} experts active, T={T}, "
+                f"K={K}, N={N}): {ms:.4f} ms, bound {b:.4f} ms by {by}; "
+                f"yardstick bf16 torch.bmm over the active experts "
+                f"{bmm:.4f} ms on {card}")
+            if tag == "served":
+                plain_ms = time_ms(torch, [plain(*inst[1])], reps=5)
+                rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b, bound_by=by, library_ms=None))
+            if name == "cim_grouped_gated_gemm_int8" and tag == "served":
+                x, wg, wu, xs, gs, us, c = inst[1]
+                two = time_ms(torch, [lambda: cg.quantize_rows_int8(
+                    cg.cim_grouped_gated_gemm_int8(
+                        x, wg, wu, xs, gs, us, counts=c,
+                        activation="silu").reshape(E * T, N))])
+                say(f"[times] {name} (served) as the GEMM then the row "
+                    f"quantizer: {two:.4f} ms, against {ms:.4f} ms with "
+                    f"the requant in its epilogue, on {card}")
+            del inst
+
+    # kernels 3 and 4 with the requant epilogue at the shared MLP's shapes
+    # ([8, 2048] x [2048, 5632]; gated: two weights), against the same
+    # kernel without it followed by the row quantizer; enough copies of
+    # the weights that each call finds them cold
+    N = MOE_SHARED
+
+    def make_shared():
+        xq = torch.randint(-127, 128, (M, Dm), dtype=torch.int8, device=dev,
+                           generator=gen)
+        xs = torch.rand((M, 1), device=dev, generator=gen) * 1e-2 + 1e-4
+        (wg, gs), (wu, us) = wmat(Dm, N), wmat(Dm, N)
+        return xq, xs, wg, gs, wu, us
+
+    shared = [make_shared() for _ in range(copies_for(Dm * N))]
+    for name, fn, pick, mats in (
+            ("cim_gated_gemm_int8", cg.cim_gated_gemm_int8,
+             lambda xq, xs, wg, gs, wu, us: (xq, wg, wu, xs, gs, us, "silu"),
+             2),
+            ("cim_gemm_int8_fused", cg.cim_gemm_int8_fused,
+             lambda xq, xs, wg, gs, wu, us: (xq, wg, xs, gs, None, None,
+                                             "gelu"), 1)):
+        args = [pick(*a) for a in shared]
+        fused = time_ms(torch, [(lambda a=a: fn(*a, quantize_out=True))
+                                for a in args])
+        two = time_ms(torch, [(lambda a=a: cg.quantize_rows_int8(fn(*a)))
+                              for a in args])
+        nbytes = M * Dm + M * 4 + mats * (Dm * N + N * 4) + M * N + M * 4
+        b, by = bound(nbytes, 2 * mats * M * Dm * N, INT8_OPS_PER_S)
+        say(f"[times] {name} quantize_out (M={M}, K={Dm}, N={N}): "
+            f"{fused:.4f} ms in one launch (bound {b:.4f} ms by {by}), "
+            f"{two:.4f} ms as the GEMM then the row quantizer, on {card}")
+    del shared
 
     out = []
     for r in rows:
@@ -900,12 +1252,25 @@ def main() -> int:
         torch.cuda.empty_cache()
         runs.append(phase_serve_long(torch, serve["model"]))
         torch.cuda.empty_cache()
+        phase_reference(torch, serve["model"], SEED)
+        phase_profile(torch, serve["model"], SEED)
+        del serve["model"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_counts, moe = phase_serve_moe(torch)
+        runs.append(moe_counts)
+        runs.append(phase_serve_paged(torch, moe["model"],
+                                      "serve-moe-paged"))
+        torch.cuda.empty_cache()
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for v in counts.values()),
              f"a kernel was never launched by the serve runs: {counts}")
-        phase_reference(torch, serve["model"], SEED)
-        phase_profile(torch, serve["model"], SEED)
-        kernels = phase_times(torch, serve, counts, errs, card)
+        phase_reference(torch, moe["model"], SEED, "reference-moe")
+        phase_profile(torch, moe["model"], SEED, "profile-moe")
+        del moe["model"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels = phase_times(torch, serve, moe, counts, errs, card)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

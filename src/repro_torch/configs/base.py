@@ -1,14 +1,17 @@
-"""Architecture configuration schema (dense attention/MLP stacks).
+"""Architecture configuration schema (attention stacks, dense or MoE).
 
 The port's copy of ``repro.configs.base.ModelConfig`` restricted to the
-fields a dense decoder uses: a stack of ``(mixer, ffn)`` blocks with
-``mixer`` in {"attn", "attn_local"} and ``ffn == "dense"``.  The MLA,
-MoE, SSM and xLSTM families come with later slices of the port.
+fields the ported families use: a stack of ``(mixer, ffn)`` blocks with
+``mixer`` in {"attn", "attn_local"} and ``ffn`` in {"dense", "moe"}.
+The MLA, SSM and xLSTM families come with later slices of the port.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
+
+if TYPE_CHECKING:       # the models package imports this module
+    from repro_torch.models.moe import MoEConfig
 
 
 @dataclass(frozen=True)
@@ -31,6 +34,10 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     local_global_pattern: int = 0     # N local layers per 1 global
 
+    # family extensions
+    moe: Optional["MoEConfig"] = None
+
+    family: str = "dense"             # dense | moe
     param_dtype: str = "bfloat16"
     # KV-cache precision ("bfloat16" | "int8")
     kv_cache_dtype: str = "bfloat16"
@@ -47,7 +54,9 @@ class ModelConfig:
                 mixer = "attn_local"
             else:
                 mixer = "attn"
-            out.append((mixer, "dense"))
+            ffn = ("moe" if self.moe is not None
+                   and i >= self.moe.first_k_dense else "dense")
+            out.append((mixer, ffn))
         return tuple(out)
 
     def layer_groups(self) -> list[tuple[tuple[str, str], int]]:
@@ -67,8 +76,15 @@ class ModelConfig:
 
     def param_count(self) -> int:
         d = self.d_model
+        mult = 3 if self.gated else 2
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
-        per_layer = (d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
-                     + self.n_heads * self.head_dim * d
-                     + (3 if self.gated else 2) * d * self.d_ff)
-        return int(total + self.n_layers * per_layer)
+        for _mixer, ffn in self.layer_specs():
+            total += (d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+                      + self.n_heads * self.head_dim * d)
+            if ffn == "dense":
+                total += mult * d * self.d_ff
+            else:
+                mo = self.moe
+                total += mo.n_routed_experts * (mult * d * mo.d_expert + d)
+                total += mult * d * mo.shared_width
+        return int(total)

@@ -7,6 +7,7 @@ from .base import ModelConfig
 
 _MODULES = {
     "gemma-2b": "gemma_2b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -23,4 +23,9 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw["n_layers"] = 4
         kw["local_global_pattern"] = 1       # alternate local/global
         kw["sliding_window"] = 8
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_routed_experts=8, top_k=2, d_expert=32,
+            shared_d_ff=32 if cfg.moe.n_shared_experts else 0,
+            first_k_dense=min(cfg.moe.first_k_dense, 1))
     return dataclasses.replace(cfg, **kw)

@@ -9,7 +9,11 @@ each group of identical layers on a leading axis; those leaves are
 unstacked into per-layer blocks.  Quantized leaves (the reference's
 ``QuantizedLinear`` named tuples ``(q, scale)``: qkv q [d, H+2KH, Dh]
 with scale [H+2KH, Dh], o q [H, Dh, d] with scale [d], MLP q [in, out]
-with scale [out]) become the port's ``QuantizedLinear`` modules.
+with scale [out]; MoE expert stacks q [E, in, out] with scale [E, out])
+become the port's ``QuantizedLinear`` modules.  An MoE group's ``moe``
+leaves (router, expert stacks ``up``/``gate``/``down``, the ``shared``
+MLP) and an untied ``head.kernel`` cross over the same way.  A leaf
+whose shape differs from the port's is refused.
 """
 from __future__ import annotations
 
@@ -43,13 +47,18 @@ def _assign(module: torch.nn.Module, name: str, leaf, layer: int | None,
     def pick(a):
         return to_torch(a if layer is None else a[layer], device)
 
+    current = getattr(module, name, None)    # absent: the fused qkv
     if _is_quantized(leaf):
-        if hasattr(module, name):
+        q, scale = pick(leaf.q), pick(leaf.scale)
+        if isinstance(current, torch.Tensor) and \
+                tuple(current.shape) != tuple(q.shape):
+            raise ValueError(f"{name}: reference shape {tuple(q.shape)} != "
+                             f"port shape {tuple(current.shape)}")
+        if current is not None:
             delattr(module, name)
-        setattr(module, name, QuantizedLinear(pick(leaf.q), pick(leaf.scale)))
+        setattr(module, name, QuantizedLinear(q, scale))
         return
     value = pick(leaf)
-    current = getattr(module, name)
     if tuple(current.shape) != tuple(value.shape):
         raise ValueError(f"{name}: reference shape {tuple(value.shape)} != "
                          f"port shape {tuple(current.shape)}")
@@ -64,6 +73,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
     model = Model(cfg)
     model.to_empty(device=device)
     _assign(model, "embed", tree["embed"]["embedding"], None, device)
+    if not cfg.tie_embeddings:
+        _assign(model, "head", tree["head"]["kernel"], None, device)
     _assign(model, "final_norm", tree["final_norm"]["scale"], None, device)
     i = 0
     for gi, (_spec, count) in enumerate(cfg.layer_groups()):
@@ -79,7 +90,14 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
                     delattr(block.attn, name)
             for name, leaf in attn.items():
                 _assign(block.attn, name, leaf, j, device)
-            for name, leaf in group["mlp"].items():
-                _assign(block.mlp, name, leaf, j, device)
+            if "moe" in group:
+                moe = dict(group["moe"])
+                for name, leaf in moe.pop("shared", {}).items():
+                    _assign(block.moe.shared, name, leaf, j, device)
+                for name, leaf in moe.items():
+                    _assign(block.moe, name, leaf, j, device)
+            else:
+                for name, leaf in group["mlp"].items():
+                    _assign(block.mlp, name, leaf, j, device)
             i += 1
     return model

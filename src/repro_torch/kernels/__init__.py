@@ -12,6 +12,8 @@ KERNELS = {
     "cim_gemm_int8_fused_qin": cim_gemm.cim_gemm_int8_fused_qin,
     "cim_gemm_int8_fused": cim_gemm.cim_gemm_int8_fused,
     "cim_gated_gemm_int8": cim_gemm.cim_gated_gemm_int8,
+    "cim_grouped_gemm_int8": cim_gemm.cim_grouped_gemm_int8,
+    "cim_grouped_gated_gemm_int8": cim_gemm.cim_grouped_gated_gemm_int8,
     "decode_attention": decode_attention.decode_attention,
     "decode_attention_paged": decode_attention.decode_attention_paged,
     "decode_attention_partial": decode_attention.decode_attention_partial,

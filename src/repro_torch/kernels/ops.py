@@ -3,12 +3,13 @@
 Dispatch is by tensor device: CPU tensors run the plain versions, CUDA
 tensors launch the hand-written kernels or raise.  The reference's
 dispatch rules are kept: activations are quantized inside the GEMM when
-``K <= MAX_FUSED_QUANT_K``, and the MLP's hidden state is re-quantized
-by the gated GEMM (``quantize_out``) only when ``d_ff <=
-MAX_FUSED_QUANT_N``, else by a separate row-quantize launch; decode
-attention takes the split-KV walk above ``SPLIT_MIN_SLOTS`` slots.  The
-reference's padding to 256-row / CORE_K / CORE_N multiples is TPU
-tiling and has no counterpart here: the kernels mask ragged edges.
+``K <= MAX_FUSED_QUANT_K``, and the MLP's hidden state (dense or per
+expert) is re-quantized in the up/gated GEMM's epilogue
+(``quantize_out``) only when ``d_ff <= MAX_FUSED_QUANT_N``, else by a
+separate row-quantize launch; decode attention takes the split-KV walk
+above ``SPLIT_MIN_SLOTS`` slots.  The reference's padding to 256-row /
+32-row / CORE_K / CORE_N multiples is TPU tiling and has no counterpart
+here: the kernels mask ragged edges.
 """
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ from . import decode_attention as _da
 from . import ref
 from .cim_gemm import (MAX_FUSED_QUANT_K, MAX_FUSED_QUANT_N,
                        cim_gated_gemm_int8, cim_gemm_int8_fused,
-                       cim_gemm_int8_fused_qin, quantize_rows_int8)
+                       cim_gemm_int8_fused_qin, cim_grouped_gated_gemm_int8,
+                       cim_grouped_gemm_int8, quantize_rows_int8)
 from .decode_attention import SPLIT_STEP
 
 __all__ = ["quantize_weights_int8", "quantize_rows_int8",
            "cim_quantized_matmul_fused", "cim_quantized_mlp",
+           "cim_quantized_grouped_mlp",
            "decode_attention", "decode_attention_splitkv",
            "decode_attention_paged", "n_splits_for", "ref",
            "MAX_FUSED_QUANT_K", "MAX_FUSED_QUANT_N"]
@@ -34,11 +37,13 @@ MAX_SPLITS = 8
 
 def quantize_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """Per-output-channel symmetric int8: w [K, N] -> (w_q, scale [N])."""
+    """Per-output-channel symmetric int8: w [K, N] -> (w_q, scale [N]);
+    a stack [E, K, N] quantizes per expert -> scale [E, N]."""
     w32 = w.float()
-    amax = torch.amax(torch.abs(w32), dim=0) + 1e-12
+    amax = torch.amax(torch.abs(w32), dim=-2) + 1e-12
     scale = ref.div(amax, 127.0)
-    w_q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    w_q = torch.clamp(torch.round(w32 / scale.unsqueeze(-2)), -127,
+                      127).to(torch.int8)
     return w_q, scale
 
 
@@ -72,7 +77,8 @@ def cim_quantized_mlp(x: torch.Tensor, up_q: torch.Tensor,
     in the down GEMM's epilogue.  The hidden state is re-quantized by
     the up/gated GEMM when ``d_ff <= MAX_FUSED_QUANT_N``, else by one
     more row-quantize launch (gemma-2b's d_ff of 16384 takes this
-    branch: 4 launches per MLP).  Returns f32 [M, N]."""
+    branch: 4 launches per MLP; narrower ones take 3).  Returns f32
+    [M, N]."""
     x, residual = x.contiguous(), _contig(residual)
     fuse_requant = up_q.shape[1] <= MAX_FUSED_QUANT_N
     x_q, x_s = quantize_rows_int8(x)
@@ -87,6 +93,48 @@ def cim_quantized_mlp(x: torch.Tensor, up_q: torch.Tensor,
     h_q, h_s = h if fuse_requant else quantize_rows_int8(h)
     return cim_gemm_int8_fused(h_q, down_q, h_s, down_scale,
                                residual=residual)
+
+
+def cim_quantized_grouped_mlp(x: torch.Tensor, up_q: torch.Tensor,
+                              up_scale: torch.Tensor, down_q: torch.Tensor,
+                              down_scale: torch.Tensor,
+                              gate_q: torch.Tensor | None = None,
+                              gate_scale: torch.Tensor | None = None,
+                              expert_counts: torch.Tensor | None = None,
+                              activation: str = "gelu") -> torch.Tensor:
+    """INT8 MLPs of all E experts in a number of launches independent of
+    E: one row quantize over the stacked [E * T, d] rows, one grouped
+    (gated) GEMM that re-quantizes the hidden state in its epilogue when
+    ``d_ff <= MAX_FUSED_QUANT_N`` (else one more row quantize), one
+    grouped down GEMM.
+
+    x [E, T, d] f32/bf16; up/gate [E, d, F] int8 with scales [E, F];
+    down [E, F, d'] int8 with scale [E, d'] -> f32 [E, T, d'].
+    ``expert_counts`` (int32 [E]) is the skip list: an expert with no
+    tokens streams no weights in either grouped GEMM (same bits, its
+    rows being zero)."""
+    E, T, d = x.shape
+    F = up_q.shape[2]
+    fuse_requant = F <= MAX_FUSED_QUANT_N
+    x_q, x_s = quantize_rows_int8(x.contiguous().reshape(E * T, d))
+    x_q, x_s = x_q.reshape(E, T, d), x_s.reshape(E, T, 1)
+    if gate_q is not None:
+        h = cim_grouped_gated_gemm_int8(x_q, gate_q, up_q, x_s, gate_scale,
+                                        up_scale, counts=expert_counts,
+                                        activation=activation,
+                                        quantize_out=fuse_requant)
+    else:
+        h = cim_grouped_gemm_int8(x_q, up_q, x_s, up_scale,
+                                  counts=expert_counts,
+                                  activation=activation,
+                                  quantize_out=fuse_requant)
+    if fuse_requant:
+        h_q, h_s = h
+    else:
+        h_q, h_s = quantize_rows_int8(h.reshape(E * T, F))
+        h_q, h_s = h_q.reshape(E, T, F), h_s.reshape(E, T, 1)
+    return cim_grouped_gemm_int8(h_q, down_q, h_s, down_scale,
+                                 counts=expert_counts)
 
 
 def n_splits_for(S: int) -> int:

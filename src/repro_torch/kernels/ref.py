@@ -18,7 +18,8 @@ _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
 def cim_gemm_int8_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """int8 [M, K] @ int8 [K, N] -> int32, exactly.
+    """int8 [..., M, K] @ int8 [..., K, N] -> int32, exactly (a leading
+    expert axis batches).
 
     CUDA has no integer matrix product, so on the card the sum runs in
     float64, which is exact while |sum| < 2**53 (127 * 127 * K is far
@@ -53,13 +54,20 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))``, one rounding per step in x's dtype:
+    the order XLA expands ``jax.nn.silu`` into (and the kernels'
+    epilogue computes)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def activate_ref(x: torch.Tensor, activation: str | None) -> torch.Tensor:
     if activation is None:
         return x
     if activation == "gelu":
         return gelu_tanh(x)
     if activation == "silu":
-        return x * torch.sigmoid(x)
+        return silu(x)
     if activation == "relu":
         return torch.relu(x)
     raise ValueError(f"unknown epilogue activation {activation!r}")
@@ -75,9 +83,9 @@ def fused_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
     (+ residual add)."""
     x_q, x_scale = quantize_rows_int8_ref(x)
     out = cim_gemm_int8_ref(x_q, w_q).float()
-    out = out * x_scale * w_scale[None, :]
+    out = out * x_scale * w_scale.unsqueeze(-2)
     if bias is not None:
-        out = out + bias.float()[None, :]
+        out = out + bias.float().unsqueeze(-2)
     out = activate_ref(out, activation)
     if residual is not None:
         out = out + residual.float()
@@ -90,8 +98,8 @@ def gated_mlp_hidden_ref(x: torch.Tensor, g_q: torch.Tensor,
                          activation: str = "gelu") -> torch.Tensor:
     """Oracle for the gated front half: act(x@Wg) * (x@Wu), f32."""
     x_q, x_scale = quantize_rows_int8_ref(x)
-    g = cim_gemm_int8_ref(x_q, g_q).float() * x_scale * g_scale[None, :]
-    u = cim_gemm_int8_ref(x_q, u_q).float() * x_scale * u_scale[None, :]
+    g = cim_gemm_int8_ref(x_q, g_q).float() * x_scale * g_scale.unsqueeze(-2)
+    u = cim_gemm_int8_ref(x_q, u_q).float() * x_scale * u_scale.unsqueeze(-2)
     return activate_ref(g, activation) * u
 
 
@@ -111,10 +119,20 @@ def quantized_mlp_ref(x: torch.Tensor, qtree: dict, activation: str,
                              activation=activation)
     h_q, h_scale = quantize_rows_int8_ref(h)
     out = cim_gemm_int8_ref(h_q, qtree["down"][0]).float()
-    out = out * h_scale * qtree["down"][1][None, :]
+    out = out * h_scale * qtree["down"][1].unsqueeze(-2)
     if residual is not None:
         out = out + residual.float()
     return out.to(out_dtype)
+
+
+def grouped_quantized_mlp_ref(x: torch.Tensor, qtree: dict, activation: str,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """Oracle for the grouped-expert int8 MLP pipeline: x [E, T, d] and
+    stacked leaves {'up': (q [E, d, F], scale [E, F])[, 'gate': ...],
+    'down': (q [E, F, d'], scale [E, d'])} -> [E, T, d'].  The
+    reference's per-expert vmap of :func:`quantized_mlp_ref`, written as
+    its leading batch axis: every step is per row or per expert."""
+    return quantized_mlp_ref(x, qtree, activation, out_dtype=out_dtype)
 
 
 def decode_attention_ref(q, k, v, pos, q_pos, window=None,

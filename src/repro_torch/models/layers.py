@@ -1,5 +1,6 @@
 """Core layer primitives (port of ``repro/models/layers.py``): init,
-rmsnorm, embedding + tied logits, RoPE, the dense MLP."""
+rmsnorm, embedding + tied logits, the untied LM head, RoPE, the dense
+MLP."""
 from __future__ import annotations
 
 import math
@@ -7,7 +8,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.kernels.ref import gelu_tanh
+from repro_torch.kernels.ref import gelu_tanh, silu
 from repro_torch.quant.linear import QuantizedLinear, quantized_mlp_apply
 
 
@@ -57,6 +58,13 @@ def embedding_attend(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (torch.matmul(x, emb.t()) * scale).float()
 
 
+def lm_head_apply(kernel: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Untied logits: x @ W with W [d, vocab] in the weights' dtype, then
+    f32.  A plain product outside any kernel, so it stays
+    ``torch.matmul``."""
+    return torch.matmul(x, kernel).float()
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -85,7 +93,7 @@ def _activate(name: str, x: torch.Tensor) -> torch.Tensor:
     if name in ("gelu", "geglu"):
         return gelu_tanh(x)
     if name in ("silu", "swiglu"):
-        return x * torch.sigmoid(x)
+        return silu(x)
     if name == "relu":
         return torch.relu(x)
     raise ValueError(f"unknown activation {name!r}")

@@ -1,5 +1,5 @@
-"""Causal LM assembly for dense attention/MLP stacks (port of
-``repro/models/model.py``).
+"""Causal LM assembly for attention stacks with dense or MoE FFNs (port
+of ``repro/models/model.py``).
 
 The reference scans stacked layer groups; here every layer is its own
 :class:`Block` in an ``nn.ModuleList`` and runs eagerly.  A
@@ -30,8 +30,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.quant.plan import FULL_INT8, apply_plan
 from . import attention as attn_mod
-from .layers import (MLP, embedding_apply, embedding_attend, mlp_apply,
-                     rmsnorm_apply, truncated_normal_, weight)
+from .layers import (MLP, embedding_apply, embedding_attend, lm_head_apply,
+                     mlp_apply, rmsnorm_apply, truncated_normal_, weight)
+from .moe import MoE, moe_apply
 
 
 def _dtype(cfg: ModelConfig):
@@ -39,12 +40,13 @@ def _dtype(cfg: ModelConfig):
 
 
 class Block(nn.Module):
-    """One (attn | attn_local) x dense decoder block."""
+    """One (attn | attn_local) x (dense | moe) decoder block."""
 
     def __init__(self, spec: tuple[str, str], cfg: ModelConfig, device):
         super().__init__()
         mixer, ffn = spec
-        if mixer not in ("attn", "attn_local") or ffn != "dense":
+        if mixer not in ("attn", "attn_local") or ffn not in ("dense",
+                                                              "moe"):
             raise NotImplementedError(f"block {spec} is not ported yet")
         if cfg.norm != "rmsnorm":
             raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
@@ -55,14 +57,17 @@ class Block(nn.Module):
                                        cfg.n_kv_heads, cfg.head_dim, dtype,
                                        device)
         self.ffn_norm = weight((cfg.d_model,), torch.float32, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated, dtype, device)
+        if ffn == "moe":
+            self.moe = MoE(cfg.d_model, cfg.moe, cfg.gated, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated, dtype, device)
 
     def init_(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.mixer_norm.fill_(1.0)
             self.ffn_norm.fill_(1.0)
         self.attn.init_(generator)
-        self.mlp.init_(generator)
+        (self.moe if self.spec[1] == "moe" else self.mlp).init_(generator)
 
 
 def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -78,16 +83,20 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
                                  window=window, rope_theta=cfg.rope_theta,
                                  cache=cache, residual=x)
     h = rmsnorm_apply(block.ffn_norm, x)
+    if block.spec[1] == "moe":
+        # as the reference: the residual is added here, not fused into
+        # the shared expert's down GEMM
+        return x + moe_apply(block.moe, h, cfg.moe, cfg.activation)
     return mlp_apply(block.mlp, h, cfg.activation, residual=x)
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="meta"):
         super().__init__()
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("untied LM heads are not ported yet")
         self.cfg = cfg
         self.embed = weight((cfg.vocab, cfg.d_model), _dtype(cfg), device)
+        if not cfg.tie_embeddings:
+            self.head = weight((cfg.d_model, cfg.vocab), _dtype(cfg), device)
         self.final_norm = weight((cfg.d_model,), torch.float32, device)
         self.layers = nn.ModuleList(Block(spec, cfg, device)
                                     for spec in cfg.layer_specs())
@@ -108,6 +117,9 @@ class Model(nn.Module):
             generator = torch.Generator(device=device).manual_seed(generator)
         self.to_empty(device=device)
         truncated_normal_(self.embed, generator, 1.0)
+        if hasattr(self, "head"):
+            truncated_normal_(self.head, generator,
+                              1.0 / self.cfg.d_model ** 0.5)
         with torch.no_grad():
             self.final_norm.fill_(1.0)
         for block in self.layers:
@@ -138,6 +150,8 @@ class Model(nn.Module):
         if last_index is not None:
             rows = torch.arange(B, device=x.device)
             x = x[rows, last_index.long()][:, None]
+        if hasattr(self, "head"):
+            return lm_head_apply(self.head, x)
         return embedding_attend(self.embed, x)
 
     # -- serving -------------------------------------------------------------

@@ -9,8 +9,8 @@ the hand-written kernels, CPU tensors run their plain versions.
 
 :func:`kernel_mode` forces call sites that pass ``use_kernel=None``
 (the model's layers) to the pipeline (True) or the oracle (False): an
-explicit choice of the caller, never a fallback.  Tensor parallelism,
-degraded mode and MoE experts come with later slices of the port.
+explicit choice of the caller, never a fallback.  Tensor parallelism
+and degraded mode come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -187,3 +187,68 @@ def quantized_out_proj(o: QuantizedLinear, attn_out: torch.Tensor,
     H, Dh, d = o.q.shape
     x2 = attn_out.reshape(*attn_out.shape[:-2], H * Dh)
     return _matmul(x2, o.q.reshape(H * Dh, d), o.scale, use_kernel, residual)
+
+
+# ---------------------------------------------------------------------------
+# MoE expert MLPs (grouped-expert pipeline, launches independent of E)
+# ---------------------------------------------------------------------------
+def quantize_moe_experts(moe: nn.Module) -> nn.Module:
+    """Quantize one MoE layer in place: the routed expert stacks
+    ``up``/``gate`` [E, d, F] and ``down`` [E, F, d] become per-expert
+    per-output-channel :class:`QuantizedLinear` stacks (q int8 [E, K, N],
+    scale [E, N]); the shared-expert MLP is quantized as a dense MLP.
+    The router stays f32 (routing is precision-sensitive).  Idempotent."""
+    quantize_mlp(moe)
+    shared = getattr(moe, "shared", None)
+    if shared is not None:
+        quantize_mlp(shared)
+    return moe
+
+
+def _expert_qtree(moe: nn.Module) -> dict:
+    return {k: (getattr(moe, k).q, getattr(moe, k).scale)
+            for k in _MLP_LEAVES if getattr(moe, k, None) is not None}
+
+
+def quantized_moe_apply(moe: nn.Module, x: torch.Tensor, activation: str,
+                        use_kernel: bool | None = False,
+                        expert_counts: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Grouped-expert INT8 MLPs: x [E, T, d] -> [E, T, d] in x's dtype.
+
+    All experts' capacity buffers run one pipeline
+    (:func:`~repro_torch.kernels.ops.cim_quantized_grouped_mlp`): a row
+    quantize, a grouped (gated) GEMM with the requant in its epilogue, a
+    grouped down GEMM, with the expert index as a grid dimension, so the
+    launch count does not depend on E.  ``expert_counts`` (int32 [E],
+    the router's tally) is the skip list: experts that received no tokens
+    stream no weights, with the same bits.  ``use_kernel=False`` runs
+    the plain grouped oracle."""
+    act = _canon_activation(activation)
+    if _resolve_use_kernel(use_kernel):
+        gate = getattr(moe, "gate", None)
+        out = kops.cim_quantized_grouped_mlp(
+            x, moe.up.q, moe.up.scale, moe.down.q, moe.down.scale,
+            gate_q=None if gate is None else gate.q,
+            gate_scale=None if gate is None else gate.scale,
+            expert_counts=expert_counts, activation=act)
+    else:
+        out = kref.grouped_quantized_mlp_ref(x, _expert_qtree(moe), act)
+    return out.to(x.dtype)
+
+
+def quantized_moe_apply_looped(moe: nn.Module, x: torch.Tensor,
+                               activation: str,
+                               use_kernel: bool | None = False
+                               ) -> torch.Tensor:
+    """One dense MLP pipeline per expert (3 launches each): the bitwise
+    comparator of :func:`quantized_moe_apply` in the tests, as in the
+    reference.  Not used on any model path."""
+    outs = []
+    for e in range(x.shape[0]):
+        one = nn.Module()
+        for k, (q, s) in _expert_qtree(moe).items():
+            setattr(one, k, QuantizedLinear(q[e], s[e]))
+        outs.append(quantized_mlp_apply(one, x[e], activation,
+                                        use_kernel=use_kernel))
+    return torch.stack(outs)

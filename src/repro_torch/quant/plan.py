@@ -16,15 +16,23 @@ pipeline:
                                               cache-update site; the
                                               flash-decode kernel
                                               dequantizes in-kernel)
+    ``moe_experts`` routed experts + shared  (quantize + grouped gated
+                  expert of an MoE layer      GEMM with the requant in
+                                              its epilogue + grouped down
+                                              GEMM for ALL experts, + the
+                                              shared expert's 3-launch
+                                              MLP; the router stays f32)
 
-``moe_experts`` and ``adaln`` are kept as plan fields for parity with
-the reference; the families they cover are not ported yet.
+With the full plan a decode step of a dense block is 6 launches (7 when
+d_ff > MAX_FUSED_QUANT_N, as at gemma-2b) and of an MoE block 9,
+whatever the number of experts.  ``adaln`` is kept as a plan field for
+parity with the reference; the DiT family it covers is not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .linear import quantize_attention, quantize_mlp
+from .linear import quantize_attention, quantize_mlp, quantize_moe_experts
 
 LAYER_KINDS = ("mlp", "attn_qkv", "attn_out", "attn_kv", "moe_experts",
                "adaln")
@@ -84,4 +92,6 @@ def apply_plan(model, plan: QuantPlan):
                                out="attn_out" in kinds)
         if "mlp" in kinds:
             quantize_mlp(block.mlp)
+        if "moe_experts" in kinds:
+            quantize_moe_experts(block.moe)
     return model

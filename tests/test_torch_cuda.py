@@ -125,6 +125,9 @@ def test_gated_close(dev, M, K, N):
     qr, sr = cg.quantize_rows_int8_plain(hr)
     assert (q.int() - qr.int()).abs().max().item() <= 1
     torch.testing.assert_close(s, sr, rtol=1e-5, atol=0)
+    # the in-kernel requant is the row quantizer of the kernel's own h
+    qk, sk = cg.quantize_rows_int8_plain(h)
+    assert torch.equal(q, qk) and torch.equal(s, sk)
 
 
 def _cache(rng, B, S, KH, D, quantized, dev, fill, dtype):
@@ -441,3 +444,188 @@ def test_reduced_paged_engine_on_card(dev):
         agree = sum(a == b for ka, pa in zip(kern, plain)
                     for a, b in zip(ka.generated, pa.generated))
         assert agree >= 0.9 * sum(len(r.generated) for r in plain)
+
+
+# ---------------------------------------------------------------------------
+# grouped-expert GEMMs (kernels 7 and 8) and the in-kernel requant
+# ---------------------------------------------------------------------------
+def _grouped(rng, E, M, K, N, dev, zero=()):
+    """int8 rows [E, M, K] (all zero for the experts in ``zero``, as a
+    capacity buffer without tokens), scales, two weight stacks, counts."""
+    x = rng.integers(-127, 128, (E, M, K)).astype(np.int8)
+    xs = rng.uniform(1e-3, 1e-2, (E, M, 1)).astype(np.float32)
+    counts = rng.integers(1, 9, E).astype(np.int32)
+    for e in zero:
+        x[e] = 0
+        xs[e] = np.float32(1e-12) / np.float32(127)
+        counts[e] = 0
+    stacks = [(_t(rng.integers(-127, 128, (E, K, N)).astype(np.int8), dev),
+               _t(rng.uniform(1e-3, 2e-2, (E, N)).astype(np.float32), dev))
+              for _ in range(2)]
+    return _t(x, dev), _t(xs, dev), stacks, _t(counts, dev)
+
+
+@pytest.mark.parametrize("E,M,K,N", [(60, 8, 2048, 1408), (5, 13, 100, 36),
+                                     (3, 48, 1408, 2048)])
+def test_grouped_gemm_bitwise_and_skip(dev, E, M, K, N):
+    """Kernel 7 without an activation is bitwise its plain version; an
+    expert whose count is 0 comes out as the full run on its zero rows."""
+    x, xs, [(w, ws), (b, _)], counts = _grouped(_gen(20), E, M, K, N, dev,
+                                                zero=(0, E - 1))
+    bias = ws * 0.5
+    before = cg.cim_grouped_gemm_int8.launches
+    out = cg.cim_grouped_gemm_int8(x, w, xs, ws, bias=bias, counts=counts)
+    full = cg.cim_grouped_gemm_int8(x, w, xs, ws, bias=bias)
+    torch.cuda.synchronize()
+    assert cg.cim_grouped_gemm_int8.launches == before + 2
+    ref = cg.cim_grouped_gemm_int8_plain(x, w, xs, ws, bias, counts)
+    assert torch.equal(out, ref) and torch.equal(full, out)
+    act = cg.cim_grouped_gemm_int8(x, w, xs, ws, counts=counts,
+                                   activation="silu")
+    torch.testing.assert_close(act, cg.cim_grouped_gemm_int8_plain(
+        x, w, xs, ws, None, counts, "silu"), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("E,M,K,N", [(60, 8, 2048, 1408), (4, 48, 2048, 1408),
+                                     (3, 5, 96, 1000)])
+def test_grouped_gated_close_and_requant_bitwise(dev, E, M, K, N):
+    """Kernel 8 against its plain version (silu within 1e-5), skipped
+    experts exactly zero, and the requant epilogue bitwise the row
+    quantizer of the kernel's own f32 output."""
+    x, xs, [(wg, gs), (wu, us)], counts = _grouped(_gen(21), E, M, K, N,
+                                                   dev, zero=(1,))
+    h = cg.cim_grouped_gated_gemm_int8(x, wg, wu, xs, gs, us, counts=counts,
+                                       activation="silu")
+    hr = cg.cim_grouped_gated_gemm_int8_plain(x, wg, wu, xs, gs, us, counts,
+                                              "silu")
+    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-6)
+    assert float(h[1].abs().max()) == 0.0
+    for _ in range(2):                   # the workspace is left zeroed
+        q, s = cg.cim_grouped_gated_gemm_int8(x, wg, wu, xs, gs, us,
+                                              counts=counts,
+                                              activation="silu",
+                                              quantize_out=True)
+        qr, sr = cg.quantize_rows_int8_plain(h)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert s.shape == (E, M, 1)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 5632), (8, 1408, 1408),
+                                   (37, 300, 1000)])
+def test_requant_epilogue_bitwise_dense(dev, M, K, N):
+    """Kernels 3 and 4 with quantize_out: one launch each, bitwise the
+    row quantizer of the f32 output the same kernel writes without it."""
+    rng = _gen(22)
+    xq = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
+    xs = _t(rng.uniform(1e-3, 1e-2, (M, 1)).astype(np.float32), dev)
+    wg, gs = _w(rng, K, N, dev)
+    wu, us = _w(rng, K, N, dev)
+    for fn, args in ((cg.cim_gated_gemm_int8, (xq, wg, wu, xs, gs, us,
+                                               "silu")),
+                     (cg.cim_gemm_int8_fused, (xq, wg, xs, gs, None, None,
+                                               "gelu"))):
+        h = fn(*args)
+        before = (cg.quantize_rows_int8.launches, fn.launches)
+        q, s = fn(*args, quantize_out=True)
+        torch.cuda.synchronize()
+        assert (cg.quantize_rows_int8.launches, fn.launches) == (
+            before[0], before[1] + 1)
+        qr, sr = cg.quantize_rows_int8_plain(h)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+def test_grouped_wrappers_reject_bad_inputs(dev):
+    x, xs, [(w, ws), _], counts = _grouped(_gen(23), 3, 4, 64, 8, dev)
+    with pytest.raises(TypeError):
+        cg.cim_grouped_gemm_int8(x, w, xs, ws, counts=counts.long())
+    with pytest.raises(ValueError):
+        cg.cim_grouped_gemm_int8(x, w[:2], xs, ws)
+    with pytest.raises(ValueError):
+        cg.cim_grouped_gemm_int8(x, w, xs[:, :, 0].contiguous(), ws)
+    with pytest.raises(ValueError):
+        cg.cim_grouped_gated_gemm_int8(x, w, w[..., :4].contiguous(), xs,
+                                       ws, ws[:, :4].contiguous())
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_decode_walks_at_qwen2_moe_heads(dev, quantized):
+    """The ring and paged walks at qwen2-moe's KH 16, G 1, D 128: paged
+    bitwise the ring walk, both within the decode-attention rule of
+    their plain versions."""
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 24, 8, 1024, 16, 1, 128,
+                                          quantized, torch.bfloat16)
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(25, 16, k, v, pos, ks, vs)
+    ring = da.decode_attention(q, k, v, pos, qp, ks, vs)
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, ring)
+    wide = (lambda t: t) if quantized else (lambda t: t.float())
+    ref = da.decode_attention_plain(q.float(), wide(k), wide(v), pos, qp, ks,
+                                    vs).to(q.dtype).float()
+    err = (ring.float() - ref).abs()
+    limit = _attn_limit(ref, q.dtype, k.dtype)
+    assert bool((err <= limit).all()), (err / limit).max().item()
+
+
+def test_reduced_moe_engines_on_card(dev):
+    """Reduced qwen2-moe serves on the card through the ring and the
+    paged engine: every request OK, the pool drains, 9 launches per layer
+    per decode step and 8 per prefill forward (ring) or chunk (paged),
+    and greedy tokens agree with the plain path on at least 90% of
+    steps."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan, kernel_mode
+    from repro_torch.serving import (PagedServingEngine, Request,
+                                     RequestStatus, ServingEngine)
+
+    cfg = reduced_config(get_config("qwen2-moe-a2.7b"))
+    prompts = [np.arange(1, n + 1, dtype=np.int32) * 7 % 256
+               for n in (3, 17, 30, 9, 12)]
+    model = Model(cfg).init(0, device=dev).quantize(QuantPlan.full())
+    L = cfg.n_layers
+    engines = {
+        "ring": (lambda: ServingEngine(model, n_slots=3, max_len=64,
+                                       prefill_bucket=16,
+                                       quant_plan=QuantPlan.full()),
+                 "decode_attention", "prefills"),
+        "paged": (lambda: PagedServingEngine(
+            model, n_slots=3, max_len=64, prefill_bucket=16, block_size=8,
+            num_blocks=7, prefill_chunk=8, quant_plan=QuantPlan.full()),
+            "decode_attention_paged", "prefill_chunks"),
+    }
+    for name, (make, attn, fwd_stat) in engines.items():
+        runs = []
+        for plain in (False, True):
+            eng = make()
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            reset_launch_counts()
+            with kernel_mode(False if plain else None):
+                eng.run_until_done()
+            runs.append((eng, reqs, launch_counts()))
+        (eng, kern, counts), (_, plain, plain_counts) = runs
+        steps, fwd = eng.stats.decode_steps, getattr(eng.stats, fwd_stat)
+        assert all(r.status is RequestStatus.OK for r in kern + plain)
+        want = dict.fromkeys(counts, 0)
+        want.update(quantize_rows_int8=2 * L * (steps + fwd),
+                    cim_gemm_int8_fused_qin=2 * L * (steps + fwd),
+                    cim_gemm_int8_fused=L * (steps + fwd),
+                    cim_gated_gemm_int8=L * (steps + fwd),
+                    cim_grouped_gemm_int8=L * (steps + fwd),
+                    cim_grouped_gated_gemm_int8=L * (steps + fwd))
+        want[attn] = L * steps
+        assert counts == want, (name, counts)
+        assert sum(counts.values()) == 9 * L * steps + 8 * L * fwd
+        assert not any(plain_counts.values()), plain_counts
+        if name == "paged":
+            assert eng.stats.preemptions >= 1
+            eng.paged.allocator.check()
+            assert eng.paged.allocator.n_used == 0
+        agree = sum(a == b for ka, pa in zip(kern, plain)
+                    for a, b in zip(ka.generated, pa.generated))
+        assert agree >= 0.9 * sum(len(r.generated) for r in plain), name

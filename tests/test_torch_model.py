@@ -235,7 +235,8 @@ def test_port_imports_no_jax_subprocess():
     code = ("import sys\n"
             "import repro_torch, repro_torch.configs, repro_torch.kernels, "
             "repro_torch.quant, repro_torch.models, repro_torch.serving, "
-            "repro_torch.convert, repro_torch.launch.serve\n"
+            "repro_torch.convert, repro_torch.launch.serve, "
+            "repro_torch.models.moe\n"
             "sys.path.insert(0, '.')\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

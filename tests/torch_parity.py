@@ -40,9 +40,9 @@ def t(a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def smoke():
-    """(jax cfg, jax model, jax params) of the reduced gemma-2b."""
-    cfg = reduced_config(get_config(ARCH))
+def smoke(arch: str = ARCH):
+    """(jax cfg, jax model, jax params) of the reduced ``arch``."""
+    cfg = reduced_config(get_config(arch))
     model = build_model(cfg)
     params = model.init(jax.random.PRNGKey(0))
     return cfg, model, params
@@ -52,13 +52,13 @@ def numpy_tree(params):
     return jax.tree.map(np.asarray, params)
 
 
-def port_model(plan=None):
-    """A fresh port Model (CPU) holding the reference smoke weights,
-    with ``plan`` (a port QuantPlan) applied."""
+def port_model(plan=None, arch: str = ARCH):
+    """A fresh port Model (CPU) holding the reference smoke weights of
+    ``arch``, with ``plan`` (a port QuantPlan) applied."""
     from repro_torch.configs import get_config as tget
     from repro_torch.configs import reduced_config as tred
     from repro_torch.convert import params_from_jax
-    _, _, params = smoke()
-    model = params_from_jax(numpy_tree(params), tred(tget(ARCH)),
+    _, _, params = smoke(arch)
+    model = params_from_jax(numpy_tree(params), tred(tget(arch)),
                             device="cpu")
     return model if plan is None else model.quantize(plan)
