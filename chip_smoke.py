@@ -17,7 +17,10 @@ the JAX package.  Phases, each printing its lines:
             decode (E = 60, T = 8) and prefill (T = 48) shapes with a
             skip list holding zeros; the requant epilogue of kernels 3,
             4 and 8 bitwise; the ring and paged walks at KH 16, G 1,
-            D 128.
+            D 128; kernel 6 (int8 -> int32) exactly at the TP partials'
+            shapes (M = 8, 64, 256, 5056) and ragged ones; each head of
+            the flash-decode walks bitwise at G = 4 (a TP-2 rank's heads
+            of gemma-2b's one KV head) and at G = 8.
 4. serve  — full-width gemma-2b (random weights from a seed, built and
             quantized once, shared by the three runs) served by
             ``ServingEngine(quant_plan=QuantPlan.full())``: 8 greedy
@@ -35,6 +38,18 @@ the JAX package.  Phases, each printing its lines:
             and the reduced config's logits too.
    profile — one decode step's wall time beside the device time the
             profiler attributes to kernels, and the largest kernels.
+   serve-tp — gemma-2b is freed; two tensor-parallel ranks (processes
+            joined by gloo, both on the one card) draw full-width
+            gemma-2b in turn, keep their shards and serve the serve
+            phase's 8 requests: every request OK, the ranks agree, the
+            tokens bitwise the serve run's, per rank 6 launches per layer
+            per decode step and 5 per prefill, 2 MAX + 2 SUM reductions
+            per layer per forward; ms per decode step, the collectives'
+            host time, memory per rank.
+   serve-tp-paged — the same ranks through the paged engine over the
+            serve-paged pool: preempts, drains, tokens bitwise.
+   reference-tp — one prefill + decode step at TP-2: logits bitwise the
+            unsharded kernel path's.
    serve-moe — gemma-2b is freed; full-width qwen2-moe-a2.7b (random
             weights from the seed, 24 layers, 60 experts top-4 + the
             shared MLP, built in bf16 and quantized once) served by the
@@ -45,11 +60,19 @@ the JAX package.  Phases, each printing its lines:
             pool that must preempt: every request OK, the pool drains,
             counters exact.
    reference-moe, profile-moe — as reference and profile, on qwen2-moe.
+   serve-moe-tp — qwen2-moe is freed; two ranks draw it one after the
+            other (a barrier between, so the card holds one bf16 copy and
+            the first rank's shards, about 37 GiB), keep their shards (30
+            experts, 8 KV heads, half the shared MLP each) and serve
+            serve-moe's requests: tokens bitwise, 9 launches per layer per
+            decode step, 2 MAX + 2 SUM + 1 gather per layer per forward.
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
             the grouped GEMMs with the expert counts of a served decode
-            step and with every expert active, and kernels 3 and 4 with
-            the requant epilogue at the shared MLP's shapes.
+            step and with every expert active, kernels 3 and 4 with the
+            requant epilogue at the shared MLP's shapes, and kernel 6 at
+            the TP partials' shapes (beside ``torch._int_mm``).
+            Collectives are never captured in a graph.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -109,6 +132,8 @@ SOURCES = {
                               "src/repro/kernels/cim_gemm.py:683"),
     "cim_grouped_gated_gemm_int8": ("src/repro_torch/csrc/cim_gemm.cu",
                                     "src/repro/kernels/cim_gemm.py:811"),
+    "cim_gemm_int8": ("src/repro_torch/csrc/cim_gemm.cu",
+                      "src/repro/kernels/cim_gemm.py:189"),
 }
 MOE_ARCH = "qwen2-moe-a2.7b"
 # qwen2-moe-a2.7b's widths, for the kernel checks and times
@@ -123,6 +148,12 @@ PAGED_PROMPTS = [600, 520, 450, 380, 300, 240, 180, 120, 90, 64, 48, 40, 32,
 LONG_MAX_LEN = 8192
 LONG_PROMPTS = [5000, 2500, 300, 40]
 LONG_NEW_TOKENS = 16
+# tensor parallelism: ranks on the one card, joined by gloo
+TP = 2
+TP_BACKEND = "gloo"
+# kernel 6's shapes: the row-parallel partials of gemma-2b at TP-2
+# (out-projection and down) and of qwen2-moe's shared down
+TP_GEMM_SHAPES = ((1024, 2048), (8192, 2048), (2816, 2048))
 
 
 class SmokeError(RuntimeError):
@@ -490,12 +521,53 @@ def phase_check(torch) -> dict:
                                                 ksp, vsp), where)
     record("decode_attention_paged vs ring walk", paged, ring, True, 0,
            where=where)
+
+    # kernel 6 (int8 -> int32, no epilogue): the TP row-parallel partials
+    # at decode (M = 8), the prefill shapes and ragged edges, exactly
+    for M in (8, 64, 256, 5056):
+        for K, N in TP_GEMM_SHAPES[:2] if M > 8 else TP_GEMM_SHAPES:
+            x = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                              device=dev, generator=gen)
+            w = torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                              device=dev, generator=gen)
+            record("cim_gemm_int8", cg.cim_gemm_int8(x, w),
+                   cg.cim_gemm_int8_plain(x, w), True, M,
+                   where=f"M={M} K={K} N={N}")
+    for M, K, N in ((13, 1030, 68), (3, 100, 36), (1, 5, 4)):
+        x = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=dev,
+                          generator=gen)
+        w = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev,
+                          generator=gen)
+        record("cim_gemm_int8", cg.cim_gemm_int8(x, w),
+               cg.cim_gemm_int8_plain(x, w), True, 0,
+               where=f"M={M} K={K} N={N}")
+
+    # head-parallel decode: a TP-2 rank of gemma-2b attends 4 of the 8 q
+    # heads of its one KV head; each head's bits must not depend on the
+    # group (ring and paged walks, G = 4 against G = 8)
+    q, k, v, pos, qp, ks, vs = _decode_inputs(
+        torch, dev, gen, lengths=[0, 17, 100, 250, 513, 800, 1000, 1024])
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(torch, k, v, pos, ks, vs,
+                                               PAGED_BLOCK, SEED)
+    ring = da.decode_attention(q, k, v, pos, qp, ks, vs)
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp)
+    for r in range(TP):
+        heads = slice(r * 8 // TP, (r + 1) * 8 // TP)
+        qr = q[:, :, heads].contiguous()
+        where = f"B=8 KH=1 G=4 (heads {heads.start}..{heads.stop - 1}) S=1024"
+        record("decode_attention G=4 vs G=8", da.decode_attention(
+            qr, k, v, pos, qp, ks, vs), ring[:, :, heads], True, 0,
+            where=where)
+        record("decode_attention_paged G=4 vs G=8",
+               da.decode_attention_paged(qr, kp, vp, pp, tables, qp, ksp,
+                                         vsp), paged[:, :, heads], True, 0,
+               where=where)
     torch.cuda.synchronize()
     return errs
 
 
 def expected_launches(cfg, decode_steps, forwards,
-                       attention=("decode_attention",)) -> dict:
+                       attention=("decode_attention",), tp=False) -> dict:
     """Launches the full plan makes, per layer and forward (decode step,
     prefill or prefill chunk): QKV, out-proj; for a dense FFN row-quant,
     gated (re-quantizing its output when d_ff <= 8192, else one more
@@ -503,12 +575,19 @@ def expected_launches(cfg, decode_steps, forwards,
     stacked expert rows, grouped gated (requant fused), grouped down,
     and the shared MLP's row-quant, gated (requant fused), down.  Per
     layer and decode step one launch of each ``attention`` kernel; a
-    prefill attends with the plain dense path."""
+    prefill attends with the plain dense path.  On a tensor-parallel
+    rank (``tp``) the out-projection and every down GEMM are kernel 6
+    (the int32 partial), and the gated GEMM writes f32 (the requant runs
+    on the global row scale, outside any kernel)."""
     from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_N
     want = {name: 0 for name in SOURCES}
     for _mixer, ffn in cfg.layer_specs():
-        want["cim_gemm_int8_fused_qin"] += 2 * forwards
-        want["cim_gemm_int8_fused"] += forwards
+        if tp:
+            want["cim_gemm_int8_fused_qin"] += forwards
+            want["cim_gemm_int8"] += 2 * forwards
+        else:
+            want["cim_gemm_int8_fused_qin"] += 2 * forwards
+            want["cim_gemm_int8_fused"] += forwards
         want["cim_gated_gemm_int8"] += forwards
         if ffn == "moe":
             want["quantize_rows_int8"] += 2 * forwards
@@ -516,37 +595,47 @@ def expected_launches(cfg, decode_steps, forwards,
             want["cim_grouped_gemm_int8"] += forwards
         else:
             want["quantize_rows_int8"] += (
-                1 if cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
+                1 if tp or cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
         for name in attention:
             want[name] += decode_steps
     return want
 
 
-def launches_per_decode_step(cfg, counts, decode_steps, forwards) -> float:
+def launches_per_decode_step(cfg, counts, decode_steps, forwards,
+                             tp=False) -> float:
     """Launches per layer per decode step: all counted launches less the
     prefills' (``forwards`` without decode steps), over the steps."""
     prefill = sum(expected_launches(cfg, 0, forwards - decode_steps,
-                                    ()).values())
+                                    (), tp).values())
     return (sum(counts.values()) - prefill) / (cfg.n_layers * decode_steps)
 
 
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def _serve(torch, engine, reqs, prefill_counter):
-    """Submit ``reqs``, set the launch counters to 0, step the engine
-    until every request is terminal and read the counters.  Returns
-    (counts, wall seconds, ms of each step that ran no prefill)."""
+    """Submit ``reqs``, set the launch counters (and a tensor-parallel
+    engine's collective counters) to 0, step the engine until every
+    request is terminal and read the counters.  Returns (counts, wall
+    seconds, ms of each step that ran no prefill)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     for r in reqs:
         engine.submit(r)
     reset_launch_counts()
+    if engine.tp is not None:
+        engine.tp.reset_counts()
     step_ms = []
     t0 = time.perf_counter()
     while engine.pending():
         s0 = time.perf_counter()
         before = getattr(engine.stats, prefill_counter)
         engine.step()
-        torch.cuda.synchronize()
+        _sync(torch)
         if getattr(engine.stats, prefill_counter) == before:
             step_ms.append((time.perf_counter() - s0) * 1e3)
+    engine.run_until_done()      # nothing left to step: the ranks' check
     wall = time.perf_counter() - t0
     return launch_counts(), wall, step_ms
 
@@ -606,12 +695,15 @@ def phase_serve(torch) -> tuple[dict, dict]:
     for r in reqs[:2]:
         say(f"[serve]   req {r.uid}: prompt[{len(r.prompt)}] -> "
             f"{r.generated[:12]}...")
-    return counts, dict(model=model, lengths=lengths)
+    return counts, dict(model=model, lengths=lengths,
+                        tokens=[r.generated for r in reqs])
 
 
-def phase_serve_paged(torch, model, tag: str = "serve-paged") -> dict:
+def phase_serve_paged(torch, model, tag: str = "serve-paged"
+                      ) -> tuple[dict, list]:
     """The paged engine on the shared model, over a pool that cannot hold
-    the first eight requests at once."""
+    the first eight requests at once.  Returns the launch counts and the
+    requests' tokens."""
     from repro_torch.quant import QuantPlan
     from repro_torch.serving import PagedServingEngine, Request
 
@@ -647,7 +739,7 @@ def phase_serve_paged(torch, model, tag: str = "serve-paged") -> dict:
     per = launches_per_decode_step(cfg, counts, st.decode_steps,
                                    st.decode_steps + st.prefill_chunks)
     say(f"[{tag}] {per:g} launches per layer per decode step")
-    return counts
+    return counts, [r.generated for r in reqs]
 
 
 def phase_serve_long(torch, model) -> dict:
@@ -768,6 +860,7 @@ def phase_serve_moe(torch) -> tuple[dict, dict]:
     # the skip list of layer 0 at the middle decode step, for the times
     mid = steps[st.decode_steps // 2, 0].clone()
     return counts, dict(model=model, step_counts=mid,
+                        tokens=[r.generated for r in reqs],
                         mean_active=active.mean().item())
 
 
@@ -897,6 +990,229 @@ def phase_profile(torch, model, seed: int, tag: str = "profile") -> None:
         say(f"[{tag}]   {ms:8.3f} ms  {cnt:5d} x  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: TP ranks on the one card
+# ---------------------------------------------------------------------------
+def _timed_collectives(torch, group) -> list:
+    """Time each collective of ``group`` on the host, after the work
+    queued before it has finished (so the time is the collective's own:
+    gloo's round trip through host memory).  Returns a one-element list
+    of the seconds spent, growing as collectives run."""
+    spent = [0.0]
+    for name in ("all_reduce_max", "all_reduce_sum", "all_gather"):
+        fn = getattr(group, name)
+
+        def timed(t, fn=fn):
+            _sync(torch)
+            t0 = time.perf_counter()
+            out = fn(t)
+            spent[0] += time.perf_counter() - t0
+            return out
+        setattr(group, name, timed)
+    return spent
+
+
+def _tp_rank(group, spec: dict) -> dict:
+    """One tensor-parallel rank: draw the model in turn (one rank at a
+    time holds the bf16 weights), keep this rank's shards, serve each of
+    ``spec["runs"]`` and, if asked, compute one prefill + decode step's
+    logits.  Returns numbers and tokens (no tensors)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.parallel.context import rank_device, tp_context
+    from repro_torch.parallel.sharding import build_in_turns, shard_model
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import PagedServingEngine, Request, ServingEngine
+
+    dev = rank_device(spec["device"], TP_BACKEND, group.rank)
+    cuda = dev.type == "cuda"
+    cfg = spec["cfg"]
+    gib = 2 ** 30
+
+    def build():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg).init(SEED, device=dev)
+        shard_model(model.quantize(QuantPlan.full()), group)
+        _sync(torch)
+        mem = {}
+        if cuda:
+            torch.cuda.empty_cache()
+            mem = dict(build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                       after_plan_gib=torch.cuda.memory_allocated() / gib)
+        return model, dict(mem, build_s=time.perf_counter() - t0)
+
+    model, memory = build_in_turns(group, build)
+    out = dict(rank=group.rank, memory=memory, runs={},
+               kv_heads=[b.attn.n_kv_heads for b in model.layers])
+    spent = _timed_collectives(torch, group)
+    for run in spec["runs"]:
+        paged = run["engine"] == "paged"
+        cls = PagedServingEngine if paged else ServingEngine
+        engine = cls(model, quant_plan=QuantPlan.full(), tp=group,
+                     **run["kw"])
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
+                for i, p in enumerate(_prompts(cfg, run["lengths"],
+                                               run["seed"]))]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        spent[0] = 0.0
+        counts, wall, step_ms = _serve(
+            torch, engine, reqs, "prefill_chunks" if paged else "prefills")
+        st = engine.stats
+        res = dict(tokens=[r.generated for r in reqs],
+                   status=[r.status.value for r in reqs],
+                   launches=counts, collectives=dict(group.counts),
+                   collective_s=spent[0], wall=wall,
+                   step_ms=statistics.median(step_ms),
+                   decode_steps=st.decode_steps, prefills=st.prefills,
+                   prefill_chunks=st.prefill_chunks,
+                   preemptions=st.preemptions,
+                   tokens_out=st.tokens_out)
+        if paged:
+            engine.paged.allocator.check()
+            res["blocks_held"] = engine.paged.allocator.n_used
+        if cuda:
+            res["memory_gib"] = torch.cuda.memory_allocated() / gib
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / gib
+        out["runs"][run["name"]] = res
+        del engine
+    if "reference" in spec:
+        toks, lengths = (torch.as_tensor(a, device=dev)
+                         for a in spec["reference"])
+        caches = model.init_cache(toks.shape[0], 1024, kv_dtype="int8")
+        with torch.no_grad(), tp_context(group):
+            a = model.prefill_padded(toks, caches, lengths)
+            b = model.decode_step(a.argmax(-1), caches)
+        out["logits"] = np.asarray(torch.cat([a, b], dim=1).cpu())
+    return out
+
+
+def _reference_input(torch, cfg, seed):
+    """Tokens [4, 64] and lengths for reference-tp (numpy)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, cfg.vocab, (4, 64)).astype(np.int64),
+            np.array([64, 61, 32, 1], np.int32))
+
+
+def reference_logits(torch, model, ref_input):
+    """One prefill + decode step on the unsharded kernel path: the logits
+    reference-tp must reproduce bit for bit."""
+    toks, lengths = (torch.as_tensor(a, device=DEVICE) for a in ref_input)
+    caches = model.init_cache(toks.shape[0], 1024, kv_dtype="int8")
+    with torch.no_grad():
+        a = model.prefill_padded(toks, caches, lengths)
+        b = model.decode_step(a.argmax(-1), caches)
+    return torch.cat([a, b], dim=1).cpu()
+
+
+def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
+             ref=None) -> dict:
+    """Serve ``runs`` at TP ranks on the one card (gloo) and hold each
+    against the unsharded run: every request OK, the ranks agree, rank
+    0's tokens bitwise ``want_tokens[run]``, per layer per decode step 6
+    launches (9 for an MoE layer) and per prefill 5 (8), per layer per
+    forward 2 MAX + 2 SUM (+1 gather), the paged run preempts and drains.
+    ``ref`` = (input, logits): reference-tp's bitwise logits.  Returns
+    the launch counts summed over ranks and runs."""
+    from repro_torch.parallel.context import spawn
+    spec = dict(device=DEVICE, cfg=cfg, runs=runs)
+    if ref is not None:
+        spec["reference"] = ref[0]
+    t0 = time.perf_counter()
+    ranks = spawn(_tp_rank, TP, args=(spec,), backend=TP_BACKEND,
+                  timeout_s=900)
+    say(f"[{tag}] {TP} ranks ({TP_BACKEND}, one card) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    moe = cfg.moe is not None
+    L = cfg.n_layers
+    total = {name: 0 for name in SOURCES}
+    for rk in ranks:
+        mem = rk["memory"]
+        say(f"[{tag}] rank {rk['rank']}: drew and sharded in "
+            f"{mem['build_s']:.1f} s, peak {mem.get('build_peak_gib', 0):.2f}"
+            f" GiB while drawing, {mem.get('after_plan_gib', 0):.2f} GiB "
+            f"after the plan; KV heads per layer {rk['kv_heads'][0]} of "
+            f"{cfg.n_kv_heads}")
+        KH = cfg.n_kv_heads
+        need(rk["kv_heads"] == [KH // TP if KH % TP == 0 else KH] * L,
+             f"rank {rk['rank']} holds {rk['kv_heads']} KV heads")
+    for run in runs:
+        name = run["name"]
+        res = [rk["runs"][name] for rk in ranks]
+        paged = run["engine"] == "paged"
+        for r in res:
+            need(r["status"] == ["ok"] * len(run["lengths"]),
+                 f"{name}: requests not OK: {r['status']}")
+            need(all(len(t) == run["new"] for t in r["tokens"]),
+                 f"{name}: a request stopped early")
+        need(all(r["tokens"] == res[0]["tokens"] for r in res),
+             f"{name}: the ranks' tokens differ")
+        need(res[0]["tokens"] == want_tokens[name],
+             f"{name}: tokens differ from the unsharded run's")
+        r0 = res[0]
+        steps = r0["decode_steps"]
+        fwd = steps + (r0["prefill_chunks"] if paged else r0["prefills"])
+        attn = ("decode_attention_paged",) if paged else ("decode_attention",)
+        want = expected_launches(cfg, steps, fwd, attn, tp=True)
+        for r in res:
+            need(r["launches"] == want,
+                 f"{name}: launch counts {r['launches']} != {want}")
+            need(r["collectives"] == dict(max=2 * L * fwd, sum=2 * L * fwd,
+                                          gather=L * fwd if moe else 0),
+                 f"{name}: collectives {r['collectives']}")
+            for k in total:
+                total[k] += r["launches"][k]
+        per = launches_per_decode_step(cfg, r0["launches"], steps, fwd,
+                                       tp=True)
+        pre = sum(expected_launches(cfg, 0, 1, (), tp=True).values()) / L
+        need(per == (9 if moe else 6),
+             f"{name}: {per} launches per layer per decode step")
+        need(pre == (8 if moe else 5),
+             f"{name}: {pre} launches per layer per prefill")
+        if paged:
+            need(all(r["preemptions"] >= 1 for r in res),
+                 f"{name}: the tight pool never preempted")
+            need(all(r["blocks_held"] == 0 for r in res),
+                 f"{name}: blocks still held at the end")
+        say(f"[{name}] {len(run['lengths'])} requests OK on every rank, "
+            f"tokens bitwise the unsharded run's: {r0['tokens_out']} decode "
+            f"tokens + {r0['prefills']} prefills"
+            + (f" ({r0['prefill_chunks']} chunks, {r0['preemptions']} "
+               f"preemptions)" if paged else "")
+            + f" in {r0['wall']:.2f} s, {steps} decode steps")
+        for r, rk in zip(res, ranks):
+            coll = r["collective_s"] * 1e3 / fwd
+            say(f"[{name}] rank {rk['rank']}: median {r['step_ms']:.2f} ms "
+                f"per decode step; collectives {coll:.2f} ms per forward "
+                f"(gloo through host memory)"
+                + (f"; memory {r['memory_gib']:.2f} GiB, peak "
+                   f"{r['peak_gib']:.2f} GiB" if "memory_gib" in r else ""))
+        say(f"[{name}] per rank: {per:g} launches per layer per decode "
+            f"step, {pre:g} per prefill; per layer per forward "
+            f"{r0['collectives']['max'] // (L * fwd)} MAX + "
+            f"{r0['collectives']['sum'] // (L * fwd)} SUM + "
+            f"{r0['collectives']['gather'] // (L * fwd)} gather")
+        say(f"[{name}] launches (rank 0) {json.dumps(r0['launches'])}")
+    if ref is not None:
+        import numpy as np
+        want = ref[1].numpy()
+        for rk in ranks:
+            got = rk["logits"]
+            need(got.shape == want.shape and np.isfinite(got).all(),
+                 "reference-tp: logits shape or non-finite")
+            need(np.array_equal(got, want),
+                 f"reference-tp: rank {rk['rank']} logits differ from the "
+                 f"unsharded kernel path's (max |diff| "
+                 f"{np.abs(got - want).max():.4g})")
+        say(f"[reference-tp] {cfg.name} prefill + decode logits at TP-{TP} "
+            f"bitwise the unsharded kernel path's on every rank")
+    return total
+
+
 def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
                 card: str) -> list:
     from repro_torch.kernels import cim_gemm as cg
@@ -992,6 +1308,32 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
                  xq, torch.cat([wg, wu], 1).t().contiguous().t()),
              M * d + M * 4 + 2 * d * ff + 2 * ff * 4 + M * ff * 4,
              4 * M * d * ff)
+
+    # kernel 6 at the TP row-parallel partials (decode, M = 8): the row
+    # is gemma-2b's down shard; the out-projection and qwen2-moe's shared
+    # down shards are printed beside it
+    for K, N in TP_GEMM_SHAPES:
+        def make_k6(K=K, N=N):
+            xq = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                               device=dev, generator=gen)
+            w = torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                              device=dev, generator=gen)
+            return (lambda: cg.cim_gemm_int8(xq, w)), (xq, w)
+        nbytes = M * K + K * N + M * N * 4
+        insts = [make_k6() for _ in range(copies_for(nbytes))]
+        ms = time_ms(torch, [i[0] for i in insts])
+        xq, w = insts[0][1]
+        plain_ms = time_ms(torch, [lambda: cg.cim_gemm_int8_plain(xq, w)],
+                           reps=5)
+        lib_ms = time_ms(torch, [int_mm(xq, w.t().contiguous().t())])
+        b, by = bound(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+        say(f"[times] cim_gemm_int8 (M={M}, K={K}, N={N}): {ms:.4f} ms, "
+            f"bound {b:.5f} ms by {by}, plain {plain_ms:.4f} ms, "
+            f"torch._int_mm {lib_ms:.4f} ms on {card}")
+        if (K, N) == TP_GEMM_SHAPES[1]:
+            rows.append(dict(name="cim_gemm_int8", ms=ms, plain_ms=plain_ms,
+                             bound_ms=b, bound_by=by, library_ms=lib_ms))
+        del insts
 
     # decode attention at the end-of-serve cache state: the served
     # lengths + generated tokens are visible, the rest of 1024 is empty
@@ -1248,28 +1590,50 @@ def main() -> int:
         errs = phase_check(torch)
         counts, serve = phase_serve(torch)
         # each run sets the counters to 0 first; the JSON line sums them
-        runs = [counts, phase_serve_paged(torch, serve["model"])]
+        paged_counts, paged_tokens = phase_serve_paged(torch, serve["model"])
+        runs = [counts, paged_counts]
         torch.cuda.empty_cache()
         runs.append(phase_serve_long(torch, serve["model"]))
         torch.cuda.empty_cache()
         phase_reference(torch, serve["model"], SEED)
         phase_profile(torch, serve["model"], SEED)
+        cfg = serve["model"].cfg
+        ref_input = _reference_input(torch, cfg, SEED + 4)
+        ref_logits = reference_logits(torch, serve["model"], ref_input)
         del serve["model"]
         gc.collect()
         torch.cuda.empty_cache()
+        runs.append(phase_tp(torch, "serve-tp", cfg, [
+            dict(name="serve-tp", engine="ring", lengths=serve["lengths"],
+                 seed=SEED, new=NEW_TOKENS, kw=dict(
+                     n_slots=8, max_len=1024, prefill_bucket=64)),
+            dict(name="serve-tp-paged", engine="paged",
+                 lengths=PAGED_PROMPTS, seed=SEED + 1, new=NEW_TOKENS,
+                 kw=dict(n_slots=8, max_len=1024, prefill_bucket=64,
+                         block_size=PAGED_BLOCK, prefill_chunk=64,
+                         num_blocks=PAGED_NUM_BLOCKS))],
+            {"serve-tp": serve["tokens"], "serve-tp-paged": paged_tokens},
+            ref=(ref_input, ref_logits)))
         moe_counts, moe = phase_serve_moe(torch)
         runs.append(moe_counts)
-        runs.append(phase_serve_paged(torch, moe["model"],
-                                      "serve-moe-paged"))
+        moe_paged_counts, _ = phase_serve_paged(torch, moe["model"],
+                                                "serve-moe-paged")
+        runs.append(moe_paged_counts)
         torch.cuda.empty_cache()
-        counts = {k: sum(r[k] for r in runs) for k in counts}
-        need(all(v > 0 for v in counts.values()),
-             f"a kernel was never launched by the serve runs: {counts}")
         phase_reference(torch, moe["model"], SEED, "reference-moe")
         phase_profile(torch, moe["model"], SEED, "profile-moe")
+        moe_cfg = moe["model"].cfg
         del moe["model"]
         gc.collect()
         torch.cuda.empty_cache()
+        runs.append(phase_tp(torch, "serve-moe-tp", moe_cfg, [
+            dict(name="serve-moe-tp", engine="ring",
+                 lengths=serve["lengths"], seed=SEED + 3, new=NEW_TOKENS,
+                 kw=dict(n_slots=8, max_len=1024, prefill_bucket=64))],
+            {"serve-moe-tp": moe["tokens"]}))
+        counts = {k: sum(r[k] for r in runs) for k in counts}
+        need(all(v > 0 for v in counts.values()),
+             f"a kernel was never launched by the serve runs: {counts}")
         kernels = phase_times(torch, serve, moe, counts, errs, card)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -7,7 +7,9 @@
 //   cim_gated_gemm_int8          (_cim_gated_kernel)
 //   cim_grouped_gemm_int8        (_cim_grouped_gemm_kernel)
 //   cim_grouped_gated_gemm_int8  (_cim_grouped_gated_kernel)
-// the last four with their quantize_out epilogue (_rowquant) in-kernel.
+//   cim_gemm_int8                (_cim_gemm_kernel)
+// the GEMMs with their quantize_out epilogue (_rowquant) in-kernel, and
+// cim_gemm_int8 as the template with an int32 store for its epilogue.
 //
 // What bounds them on the card: at decode (M = 8 rows) every weight byte
 // is used by 8 rows only, so the GEMMs are bound by the int8 weight bytes
@@ -20,7 +22,7 @@
 // bytes ([8, 16384] f32 in, about 0.66 MB, for gemma-2b's hidden
 // requant, which is too wide for the fused requant below).
 //
-// Design: one template, cim_gemm_kernel<TX, GATED, QOUT, GROUPED>.  A
+// Design: one template, cim_gemm_kernel<TX, GATED, EPI, GROUPED>.  A
 // block owns an 8-row x 32-column output tile of one expert (blockIdx.z;
 // the dense GEMMs, GROUPED false, have one and no skip list); its 256
 // threads are 8 column groups (4 adjacent columns each) x 32 slices of
@@ -38,10 +40,13 @@
 // slices are summed through shared memory, and the epilogue runs in f32
 // in the reference's order, with explicitly rounded multiplies and adds
 // (no fused multiply-add) so results without an activation match the
-// plain version bit for bit.  A block of an expert whose count is 0
+// plain version bit for bit.  EPI_ACC (cim_gemm_int8, the row-parallel
+// partial of tensor parallelism) stores the exact int32 sum instead and
+// reads no scale: the caller sums the partials of all ranks and runs the
+// epilogue once.  A block of an expert whose count is 0
 // (the grouped GEMMs' skip list) skips the K sweep and runs the epilogue
 // on zero accumulators, as the reference's kernel does.  GROUPED and
-// QOUT are compile-time: with the expert offsets and the requant tail
+// EPI are compile-time: with the expert offsets and the requant tail
 // decided at run time, ptxas gave the dense int8 GEMM 66 registers in
 // place of 80 and gemma-2b's down GEMM ran 1.5x slower.
 //
@@ -77,6 +82,8 @@ constexpr int JW = KW / TK;   // packed words per thread per tile
 static_assert(BM * BN == NT, "epilogue maps one output per thread");
 
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_SILU = 2, ACT_RELU = 3 };
+// The epilogue: f32 out, f32 out requantized (quantize_out), int32 sum.
+enum Epi { EPI_F32 = 0, EPI_QOUT = 1, EPI_ACC = 2 };
 
 __device__ __forceinline__ float load_f(const float* p, int64_t i) {
   return p[i];
@@ -201,10 +208,11 @@ __device__ __forceinline__ void requant_band(const float* h,
 
 // x [E, M, K] (TX), w/w2 [E, K, N] int8; xs [E, M] (int8 x only),
 // ws/ws2/bias [E, N] f32; res [M, N] (dense only); counts [E] int32 or
-// null (no skip list); out [E, M, N] f32.  With q != null (quantize_out)
-// out is the f32 scratch and q [E, M, N] int8, qs [E, M] f32 receive the
-// requantized rows; amax [E * M] and arrive [E * gridDim.y] must be 0.
-template <typename TX, bool GATED, bool QOUT, bool GROUPED>
+// null (no skip list); out [E, M, N] f32.  With EPI_QOUT out is the f32
+// scratch and q [E, M, N] int8, qs [E, M] f32 receive the requantized
+// rows; amax [E * M] and arrive [E * gridDim.y] must be 0.  With EPI_ACC
+// out holds int32 [M, N] and xs, ws, bias and res are not read.
+template <typename TX, bool GATED, int EPI, bool GROUPED>
 __global__ void __launch_bounds__(NT)
 cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
                 const int8_t* __restrict__ w, const float* __restrict__ ws,
@@ -256,7 +264,7 @@ cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
         amx = fmaxf(amx, __shfl_xor_sync(0xffffffffu, amx, o));
       if (lane == 0) s_scale[m] = row_scale(amx);
     }
-  } else {
+  } else if constexpr (EPI != EPI_ACC) {
     if (tid < BM)
       s_scale[tid] = (m0 + tid < M) ? xs[(int64_t)e * M + m0 + tid] : 0.0f;
   }
@@ -338,8 +346,12 @@ cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
   const int em = tid / BN, en = tid % BN;
   const int gm = m0 + em, gn = n0 + en;
   const bool valid = gm < M && gn < N;
-  const float xsv = s_scale[em];
   const int64_t o = (int64_t)gm * N + gn;
+  if constexpr (EPI == EPI_ACC) {
+    if (valid) reinterpret_cast<int*>(out)[o] = tot;
+    return;
+  }
+  const float xsv = s_scale[em];
   float y = 0.0f;
   if (valid) {
     if constexpr (GATED) {
@@ -358,7 +370,7 @@ cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
     }
     out[o] = y;
   }
-  if constexpr (QOUT) {
+  if constexpr (EPI == EPI_QOUT) {
 
     // publish the rows' |max|; the band's last block requantizes the
     // band (see the note at the top of this file)
@@ -448,13 +460,13 @@ int cim_gemm_int8_fused_qin(const void* x, int x_kind, const void* w,
   const float* b = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
   if (x_kind == 1)
-    cim_gemm_kernel<float, false, false, false>
+    cim_gemm_kernel<float, false, EPI_F32, false>
         <<<gemm_grid(1, M, N), NT, 0, st>>>(
         static_cast<const float*>(x), nullptr, w8, wsf, nullptr, nullptr, b,
         res, res_kind, act, nullptr, o, nullptr, nullptr, nullptr, nullptr,
         M, K, N);
   else
-    cim_gemm_kernel<__nv_bfloat16, false, false, false>
+    cim_gemm_kernel<__nv_bfloat16, false, EPI_F32, false>
         <<<gemm_grid(1, M, N), NT, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), nullptr, w8, wsf, nullptr,
         nullptr, b, res, res_kind, act, nullptr, o, nullptr, nullptr, nullptr,
@@ -483,17 +495,17 @@ int cim_gemm_int8_launch(const void* xq, const void* xs, const void* w,
   int* arr = static_cast<int*>(arrive);
   // dense GEMMs (E = 1) skip the expert offsets and the skip list at
   // compile time; quantize_out is its own instantiation
-#define LAUNCH(GATED, QOUT, GROUPED)                                       \
-  cim_gemm_kernel<int8_t, GATED, QOUT, GROUPED><<<grid, NT, 0, st>>>(      \
+#define LAUNCH(GATED, EPI, GROUPED)                                        \
+  cim_gemm_kernel<int8_t, GATED, EPI, GROUPED><<<grid, NT, 0, st>>>(       \
       x8, xsf, static_cast<const int8_t*>(w), static_cast<const float*>(ws), \
       static_cast<const int8_t*>(w2), static_cast<const float*>(ws2),        \
       static_cast<const float*>(bias), res, res_kind, act, cnt, o, q8, qsf,  \
       am, arr, M, K, N)
-#define LAUNCH_Q(GATED, GROUPED)       \
-  if (q8 != nullptr)                   \
-    LAUNCH(GATED, true, GROUPED);      \
-  else                                 \
-    LAUNCH(GATED, false, GROUPED)
+#define LAUNCH_Q(GATED, GROUPED)         \
+  if (q8 != nullptr)                     \
+    LAUNCH(GATED, EPI_QOUT, GROUPED);    \
+  else                                   \
+    LAUNCH(GATED, EPI_F32, GROUPED)
   const bool gated = w2 != nullptr;
   if (E > 1) {
     if (gated) { LAUNCH_Q(true, true); } else { LAUNCH_Q(false, true); }
@@ -502,6 +514,17 @@ int cim_gemm_int8_launch(const void* xq, const void* xs, const void* w,
   }
 #undef LAUNCH_Q
 #undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// x_q [M, K] int8 @ w [K, N] int8 -> out int32 [M, N], exact.
+int cim_gemm_int8_acc(const void* xq, const void* w, void* out, int M, int K,
+                      int N, void* stream) {
+  cim_gemm_kernel<int8_t, false, EPI_ACC, false>
+      <<<gemm_grid(1, M, N), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xq), nullptr, static_cast<const int8_t*>(w),
+      nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, nullptr,
+      static_cast<float*>(out), nullptr, nullptr, nullptr, nullptr, M, K, N);
   return (int)cudaGetLastError();
 }
 

@@ -159,6 +159,40 @@ quantize_rows_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# INT8 GEMM to int32, no epilogue (kernel 6)
+# ---------------------------------------------------------------------------
+def cim_gemm_int8_plain(x_q, w):
+    return ref.cim_gemm_int8_ref(x_q, w)
+
+
+def cim_gemm_int8(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int8 GEMM: x_q [M, K] int8 @ w [K, N] int8 -> int32 [M, N],
+    with no scale and no epilogue: the row-parallel partial accumulator
+    of tensor parallelism, summed over the ranks before the one
+    dequant/residual epilogue."""
+    if on_cpu(x_q, w):
+        return cim_gemm_int8_plain(x_q, w)
+    require(x_q, "x_q", torch.int8)
+    M, K = x_q.shape
+    require(w, "w", torch.int8)
+    if w.dim() != 2 or w.shape[0] != K:
+        raise ValueError(f"w: shape {tuple(w.shape)}, expected [{K}, N]")
+    N = w.shape[1]
+    if N % 4 or w.data_ptr() % 4:
+        raise ValueError(f"w: N={N} must be a multiple of 4 and w 4-byte "
+                         f"aligned")
+    out = torch.empty((M, N), dtype=torch.int32, device=x_q.device)
+    fn = bind(_LIB, "cim_gemm_int8_acc", [P, P, P, I, I, I, P])
+    check(_LIB, fn(ptr(x_q), ptr(w), ptr(out), M, K, N, stream(x_q)),
+          "cim_gemm_int8")
+    cim_gemm_int8.launches += 1
+    return out
+
+
+cim_gemm_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Quantize-in GEMM (kernel 2)
 # ---------------------------------------------------------------------------
 def cim_gemm_int8_fused_qin_plain(x, w, w_scale, bias=None, residual=None,

@@ -18,13 +18,15 @@ import torch
 from . import decode_attention as _da
 from . import ref
 from .cim_gemm import (MAX_FUSED_QUANT_K, MAX_FUSED_QUANT_N,
-                       cim_gated_gemm_int8, cim_gemm_int8_fused,
+                       cim_gated_gemm_int8, cim_gemm_int8,
+                       cim_gemm_int8_fused,
                        cim_gemm_int8_fused_qin, cim_grouped_gated_gemm_int8,
                        cim_grouped_gemm_int8, quantize_rows_int8)
 from .decode_attention import SPLIT_STEP
 
 __all__ = ["quantize_weights_int8", "quantize_rows_int8",
-           "cim_quantized_matmul_fused", "cim_quantized_mlp",
+           "cim_quantized_matmul", "cim_quantized_matmul_fused",
+           "cim_int8_gemm_acc", "cim_hidden_int8", "cim_quantized_mlp",
            "cim_quantized_grouped_mlp",
            "decode_attention", "decode_attention_splitkv",
            "decode_attention_paged", "n_splits_for", "ref",
@@ -49,6 +51,38 @@ def quantize_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor,
 
 def _contig(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.contiguous()
+
+
+def cim_quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                         w_scale: torch.Tensor) -> torch.Tensor:
+    """Unfused quantized linear: row quantize, the int32 GEMM, then the
+    dequant ``acc * x_scale * w_scale`` outside any kernel (two launches):
+    x [M, K] bf16/f32; w_q [K, N] int8; w_scale [N] -> f32 [M, N]."""
+    x_q, x_s = quantize_rows_int8(x.contiguous())
+    return cim_gemm_int8(x_q, w_q).float() * x_s * w_scale[None, :]
+
+
+def cim_int8_gemm_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """x_q [M, K] int8 @ w_q [K, N] int8 -> int32 [M, N], exactly: the
+    row-parallel partial accumulator that tensor parallelism sums over
+    the ranks before its one dequant/residual epilogue."""
+    return cim_gemm_int8(x_q.contiguous(), w_q)
+
+
+def cim_hidden_int8(x_q: torch.Tensor, x_scale: torch.Tensor,
+                    up_q: torch.Tensor, up_scale: torch.Tensor,
+                    gate_q: torch.Tensor | None = None,
+                    gate_scale: torch.Tensor | None = None,
+                    activation: str = "gelu") -> torch.Tensor:
+    """MLP front half from pre-quantized activations, f32 out, no
+    requant: ``act(x@Wg) * (x@Wu)`` (or ``act(x@Wu)`` ungated).  The
+    column shard of the tensor-parallel MLP: the requant runs outside,
+    with the row absmax reduced over the ranks."""
+    if gate_q is not None:
+        return cim_gated_gemm_int8(x_q, gate_q, up_q, x_scale, gate_scale,
+                                   up_scale, activation=activation)
+    return cim_gemm_int8_fused(x_q, up_q, x_scale, up_scale,
+                               activation=activation)
 
 
 def cim_quantized_matmul_fused(x: torch.Tensor, w_q: torch.Tensor,

@@ -135,24 +135,56 @@ def grouped_quantized_mlp_ref(x: torch.Tensor, qtree: dict, activation: str,
     return quantized_mlp_ref(x, qtree, activation, out_dtype=out_dtype)
 
 
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., G, D] . b [..., S, D] -> f32 [..., G, S]: each entry a sum
+    of f32 products over the last axis, in an order that depends on D
+    alone."""
+    return (a.float()[..., :, None, :] * b.float()[..., None, :, :]).sum(-1)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [B,KH,G,D] . k [B,S,KH,D] -> [B,KH,G,S] in q's dtype.
+
+    On the CPU a batched matrix product picks its summation order by the
+    shapes, so a GQA group of 4 heads rounds apart from the same heads in
+    a group of 8, and a tensor-parallel rank's heads would not match the
+    whole model's bit for bit; the CPU sums elementwise instead.  On the
+    card the tensor-parallel path runs the kernel, whose heads do not
+    depend on the group, and this keeps the batched product the serve
+    phases hold the kernels against."""
+    if q.is_cuda:
+        return torch.einsum("bhgd,bshd->bhgs", q, k)
+    return _dots(q, k.transpose(1, 2)).to(q.dtype)
+
+
+def _weighted(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p [B,KH,G,S] . v [B,S,KH,D] -> [B,KH,G,D] in v's dtype (as
+    :func:`_scores`)."""
+    if p.is_cuda:
+        return torch.einsum("bhgs,bshd->bhgd", p, v)
+    return _dots(p, v.permute(0, 2, 3, 1)).to(v.dtype)
+
+
 def decode_attention_ref(q, k, v, pos, q_pos, window=None,
                          k_scale=None, v_scale=None):
     """q [B,KH,G,D]; k/v [B,S,KH,D]; pos [B,S]; q_pos [B].
 
-    ``k_scale``/``v_scale`` [B,S,KH] f32 dequantize an int8 KV cache."""
+    ``k_scale``/``v_scale`` [B,S,KH] f32 dequantize an int8 KV cache.
+    The scores and the PV sum accumulate in f32 and are rounded to the
+    operands' dtype, as the reference's einsums."""
     D = q.shape[-1]
     if k_scale is not None:
         k = k.float() * k_scale[..., None]
         v = v.float() * v_scale[..., None]
         q = q.float()
-    s = torch.einsum("bhgd,bshd->bhgs", q, k).float()
+    s = _scores(q, k).float()
     s = s / math.sqrt(D)
     ok = pos[:, None, None, :] <= q_pos[:, None, None, None]
     if window is not None:
         ok &= pos[:, None, None, :] > (q_pos[:, None, None, None] - window)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype), v)
+    return _weighted(p.to(v.dtype), v)
 
 
 def decode_attention_paged_ref(q, k_pages, v_pages, pos_pages, block_tables,

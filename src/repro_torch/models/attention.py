@@ -18,9 +18,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import (NEG_INF, decode_attention_paged_ref,
-                                    decode_attention_ref, div)
+from repro_torch.kernels.ref import NEG_INF, div
+from repro_torch.quant import tp as _tp
 from repro_torch.quant.linear import (QuantizedLinear, _resolve_use_kernel,
                                       quantized_out_proj, quantized_qkv_proj)
 from .layers import apply_rope, truncated_normal_, weight
@@ -31,11 +30,14 @@ EMPTY_SLOT = 2 ** 30
 class Attention(nn.Module):
     """Projection weights: ``q`` [d, H, Dh], ``k``/``v`` [d, KH, Dh],
     ``o`` [H, Dh, d]; under a plan covering attention, ``qkv`` and ``o``
-    become :class:`QuantizedLinear` leaves."""
+    become :class:`QuantizedLinear` leaves.  ``n_kv_heads`` is the number
+    of KV heads this rank holds (all of them unless tensor parallelism
+    sharded them): the KV cache's head count."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, dtype, device):
         super().__init__()
+        self.n_kv_heads = n_kv_heads
         self.q = weight((d_model, n_heads, head_dim), dtype, device)
         self.k = weight((d_model, n_kv_heads, head_dim), dtype, device)
         self.v = weight((d_model, n_kv_heads, head_dim), dtype, device)
@@ -212,17 +214,15 @@ def _decode_attention_cached(q, ck, cv, cpos, q_pos, k_scale, v_scale,
                              window):
     """One-token decode over the ring cache on the flash-decode kernel
     (its plain version for CPU tensors).  q [B, 1, H, D]; ck/cv
-    [B, S, KH, D]; returns [B, 1, H, D]."""
+    [B, S, KH, D]; returns [B, 1, H, D].  Under tensor parallelism H and
+    KH are this rank's heads and the call is the same
+    (:func:`repro_torch.quant.tp.decode_attn`)."""
     B, _, H, D = q.shape
     KH = ck.shape[2]
     q4 = q[:, 0].reshape(B, KH, H // KH, D)
-    qp = q_pos.to(torch.int32)
-    if _resolve_use_kernel(None):
-        out4 = kops.decode_attention(q4, ck, cv, cpos, qp, k_scale=k_scale,
-                                     v_scale=v_scale, window=window)
-    else:
-        out4 = decode_attention_ref(q4, ck, cv, cpos, qp, window=window,
-                                    k_scale=k_scale, v_scale=v_scale)
+    out4 = _tp.decode_attn(q4, ck, cv, cpos, q_pos.to(torch.int32),
+                           k_scale, v_scale, window=window,
+                           use_kernel=_resolve_use_kernel(None))
     return out4.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -230,21 +230,15 @@ def _decode_attention_paged_cached(q, ck, cv, cpos, bt, q_pos, k_scale,
                                    v_scale, window):
     """One-token decode over the paged cache on the paged flash-decode
     kernel (its plain version for CPU tensors).  q [B, 1, H, D]; pools
-    [NB, bs, KH, D]; bt [B, nb]; returns [B, 1, H, D]."""
+    [NB, bs, KH, D]; bt [B, nb]; returns [B, 1, H, D].  Under tensor
+    parallelism H and KH are this rank's heads, as in
+    :func:`_decode_attention_cached`."""
     B, _, H, D = q.shape
     KH = ck.shape[2]
     q4 = q[:, 0].reshape(B, KH, H // KH, D)
-    qp = q_pos.to(torch.int32)
-    if _resolve_use_kernel(None):
-        out4 = kops.decode_attention_paged(q4, ck, cv, cpos, bt, qp,
-                                           k_scale_pages=k_scale,
-                                           v_scale_pages=v_scale,
-                                           window=window)
-    else:
-        out4 = decode_attention_paged_ref(q4, ck, cv, cpos, bt, qp,
-                                          window=window,
-                                          k_scale_pages=k_scale,
-                                          v_scale_pages=v_scale)
+    out4 = _tp.decode_attn_paged(q4, ck, cv, cpos, bt, q_pos.to(torch.int32),
+                                 k_scale, v_scale, window=window,
+                                 use_kernel=_resolve_use_kernel(None))
     return out4.reshape(B, 1, H, D).to(q.dtype)
 
 

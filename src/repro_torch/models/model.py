@@ -206,9 +206,10 @@ class Model(nn.Module):
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype: Optional[str] = None) -> list:
-        """One ring cache dict per layer; ``kv_dtype="int8"`` overrides
-        ``cfg.kv_cache_dtype``.  Sliding-window layers hold only the
-        window."""
+        """One ring cache dict per layer, over the KV heads each layer
+        holds (a tensor-parallel rank's shard); ``kv_dtype="int8"``
+        overrides ``cfg.kv_cache_dtype``.  Sliding-window layers hold
+        only the window."""
         kv = kv_dtype or self.cfg.kv_cache_dtype
         dt = torch.int8 if kv == "int8" else torch.bfloat16
         caches = []
@@ -217,7 +218,7 @@ class Model(nn.Module):
             if block.spec[0] == "attn_local":
                 span = min(max_len, self.cfg.sliding_window or max_len)
             caches.append(attn_mod.init_kv_cache(
-                batch, span, self.cfg.n_kv_heads, self.cfg.head_dim,
+                batch, span, block.attn.n_kv_heads, self.cfg.head_dim,
                 dtype=dt, device=self.device))
         return caches
 
@@ -239,7 +240,7 @@ class Model(nn.Module):
                 raise NotImplementedError(
                     f"paged KV cache: unsupported mixer {block.spec[0]!r}")
             caches.append(attn_mod.init_paged_kv_cache(
-                num_blocks, block_size, self.cfg.n_kv_heads,
+                num_blocks, block_size, block.attn.n_kv_heads,
                 self.cfg.head_dim, tables,
                 torch.zeros((batch,), dtype=torch.int32,
                             device=self.device), dtype=dt,

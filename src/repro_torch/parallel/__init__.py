@@ -1,0 +1,8 @@
+"""Tensor parallelism across ranks: process groups (:mod:`.context`) and
+shard placement (:mod:`.sharding`, imported from its module: it needs
+``repro_torch.quant``, which needs :mod:`.context`)."""
+from .context import (COLLECTIVES, TPGroup, rank_device, spawn, tp_context,
+                      tp_group)
+
+__all__ = ["COLLECTIVES", "TPGroup", "rank_device", "spawn", "tp_context",
+           "tp_group"]

@@ -9,8 +9,14 @@ the hand-written kernels, CPU tensors run their plain versions.
 
 :func:`kernel_mode` forces call sites that pass ``use_kernel=None``
 (the model's layers) to the pipeline (True) or the oracle (False): an
-explicit choice of the caller, never a fallback.  Tensor parallelism
-and degraded mode come with later slices of the port.
+explicit choice of the caller, never a fallback.
+
+Tensor parallelism: a leaf that
+:func:`~repro_torch.parallel.sharding.shard_model` cut to a rank's shard
+runs through :mod:`repro_torch.quant.tp` under the current group
+(:func:`~repro_torch.parallel.context.tp_context`); a whole leaf runs
+the unsharded path, as the reference does for a dimension the group
+size does not divide.  Degraded mode comes with a later slice.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from . import tp as _tp
 
 
 class QuantizedLinear(nn.Module):
@@ -29,13 +36,16 @@ class QuantizedLinear(nn.Module):
     ``q`` may carry extra structure axes ([in, heads, head_dim] for the
     fused QKV projection, [heads, head_dim, out] for the attention
     out-projection); ``scale`` matches the output-channel axes.  Apply
-    sites flatten to 2D.
+    sites flatten to 2D.  ``tp_size`` is the number of ranks the leaf
+    was sharded over (:func:`~repro_torch.parallel.sharding.shard_model`),
+    None for a whole leaf.
     """
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor):
         super().__init__()
         self.register_buffer("q", q)            # int8
         self.register_buffer("scale", scale)    # f32
+        self.tp_size: int | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +71,21 @@ def _resolve_use_kernel(use_kernel: bool | None) -> bool:
     if use_kernel is None:
         return True if _KERNEL_MODE is None else _KERNEL_MODE
     return use_kernel
+
+
+def _tp_group_for(w: QuantizedLinear):
+    """The current TP group if ``w`` is a rank's shard, None for a whole
+    leaf.  A shard outside a group of its size raises: its layer cannot
+    run alone."""
+    if w.tp_size is None:
+        return None
+    group = _tp.tp_group()
+    if group is None or group.size != w.tp_size:
+        raise RuntimeError(
+            f"a weight sharded {w.tp_size} ways needs a tensor-parallel "
+            f"group of that size current (tp_context), got "
+            f"{None if group is None else group.size}")
+    return group
 
 
 def _canon_activation(activation: str | None) -> str | None:
@@ -129,7 +154,12 @@ def quantized_mlp_apply(mlp: nn.Module, x: torch.Tensor, activation: str,
     r2 = None if residual is None else residual.reshape(-1,
                                                         residual.shape[-1])
     gate = getattr(mlp, "gate", None)
-    if use_kernel:
+    group = _tp_group_for(mlp.up)
+    if group is not None:
+        # up/gate column-parallel, down row-parallel with the int32 sum
+        # before the residual epilogue (quant/tp.py)
+        out = _tp.mlp(group, x2, mlp, act, use_kernel, residual=r2)
+    elif use_kernel:
         out = kops.cim_quantized_mlp(
             x2, mlp.up.q, mlp.up.scale, mlp.down.q, mlp.down.scale,
             gate_q=None if gate is None else gate.q,
@@ -172,10 +202,18 @@ def quantize_attention(attn: nn.Module, qkv: bool = True,
 
 def quantized_qkv_proj(qkv: QuantizedLinear, x: torch.Tensor,
                        use_kernel: bool | None = None) -> torch.Tensor:
-    """One wide fused GEMM for q/k/v: x [..., d] -> [..., HK, Dh] f32."""
+    """One wide fused GEMM for q/k/v: x [..., d] -> [..., HK, Dh] f32.
+
+    A rank's shard holds [its q heads | its k heads | its v heads] and
+    runs column-parallel: the same per-column math, no collective."""
     d, HK, Dh = qkv.q.shape
-    wide = _matmul(x, qkv.q.reshape(d, HK * Dh), qkv.scale.reshape(HK * Dh),
-                   use_kernel, None)
+    w_q, w_s = qkv.q.reshape(d, HK * Dh), qkv.scale.reshape(HK * Dh)
+    group = _tp_group_for(qkv)
+    if group is not None:
+        wide = _tp.matmul_column(group, x.reshape(-1, d), w_q, w_s,
+                                 _resolve_use_kernel(use_kernel))
+    else:
+        wide = _matmul(x, w_q, w_s, use_kernel, None)
     return wide.reshape(*x.shape[:-1], HK, Dh)
 
 
@@ -183,10 +221,24 @@ def quantized_out_proj(o: QuantizedLinear, attn_out: torch.Tensor,
                        residual: torch.Tensor | None = None,
                        use_kernel: bool | None = None) -> torch.Tensor:
     """Attention out-projection with the residual add fused into the
-    GEMM epilogue: attn_out [..., H, Dh] -> [..., d] f32."""
+    GEMM epilogue: attn_out [..., H, Dh] -> [..., d] f32.
+
+    A rank's shard (its H/p heads' input channels) runs row-parallel:
+    the global row scale, the int32 sum over the ranks, then the one
+    dequant/residual epilogue, bitwise the unsharded pipeline."""
     H, Dh, d = o.q.shape
     x2 = attn_out.reshape(*attn_out.shape[:-2], H * Dh)
-    return _matmul(x2, o.q.reshape(H * Dh, d), o.scale, use_kernel, residual)
+    group = _tp_group_for(o)
+    if group is None:
+        return _matmul(x2, o.q.reshape(H * Dh, d), o.scale, use_kernel,
+                       residual)
+    lead = x2.shape[:-1]
+    out = _tp.matmul_row(group, x2.reshape(-1, H * Dh),
+                         o.q.reshape(H * Dh, d), o.scale,
+                         _resolve_use_kernel(use_kernel),
+                         residual=None if residual is None
+                         else residual.reshape(-1, d))
+    return out.reshape(*lead, d)
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +275,14 @@ def quantized_moe_apply(moe: nn.Module, x: torch.Tensor, activation: str,
     launch count does not depend on E.  ``expert_counts`` (int32 [E],
     the router's tally) is the skip list: experts that received no tokens
     stream no weights, with the same bits.  ``use_kernel=False`` runs
-    the plain grouped oracle."""
+    the plain grouped oracle.  A rank's shard of the expert stacks runs
+    expert-parallel (:func:`repro_torch.quant.tp.grouped_moe`)."""
     act = _canon_activation(activation)
+    group = _tp_group_for(moe.up)
+    if group is not None:
+        return _tp.grouped_moe(group, x, moe, act,
+                               _resolve_use_kernel(use_kernel),
+                               expert_counts=expert_counts)
     if _resolve_use_kernel(use_kernel):
         gate = getattr(moe, "gate", None)
         out = kops.cim_quantized_grouped_mlp(

@@ -16,9 +16,15 @@ Every request ends in exactly one terminal
 :class:`~repro_torch.serving.lifecycle.RequestStatus`; the queue can be
 bounded (typed ``REJECTED`` backpressure), deadlines expire queued and
 active work, and health checks fail a request on non-finite logits.
+
+With ``tp`` (a :class:`~repro_torch.parallel.context.TPGroup`) every
+rank runs an engine over its shards of the model: the same scheduler on
+the same requests, the same logits on every rank, so the same tokens and
+decisions; at the end of a run the ranks check that they agree.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -28,6 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import EMPTY_SLOT
+from repro_torch.parallel.context import tp_context
+from repro_torch.parallel.sharding import shard_model
 from .lifecycle import EngineStallError, LifecycleMixin, RequestStatus
 from .paged_cache import PagedKVCache, PoolExhausted
 
@@ -75,12 +83,20 @@ class ServingEngine:
     def __init__(self, model, n_slots: int = 4, max_len: int = 512,
                  prefill_bucket: int = 64, quant_plan=None,
                  max_queue: Optional[int] = None,
-                 health_checks: bool = True, clock=None):
+                 health_checks: bool = True, clock=None, tp=None):
         """``model`` is a :class:`~repro_torch.models.model.Model` holding
         its weights; the engine runs on the model's device.  A
         ``quant_plan`` is applied to the model in place (covered weights
         become int8) and, when it covers ``attn_kv``, the KV cache is
         stored int8.
+
+        * ``tp`` — this rank's tensor-parallel group: the quantized
+          leaves are cut to the rank's shards in place
+          (:func:`~repro_torch.parallel.sharding.shard_model`, a
+          ``quant_plan`` is required), the KV cache holds the rank's KV
+          heads, and every forward runs under the group.  Each rank
+          drives its own engine with the same requests; requests with a
+          deadline are refused, since each rank reads its own clock.
 
         * ``max_queue`` — bounded admission queue; when full, ``submit``
           returns ``RequestStatus.REJECTED``.
@@ -89,8 +105,15 @@ class ServingEngine:
         * ``clock`` — injectable monotonic clock (seconds) for deadlines.
         """
         self.model = model
+        if tp is not None and quant_plan is None:
+            raise ValueError("tensor parallelism runs the INT8 plan: pass "
+                             "a quant_plan with tp")
         if quant_plan is not None:
             model.quantize(quant_plan)
+        if tp is not None:
+            shard_model(model, tp)
+        self.tp = tp
+        self._finished: list[tuple] = []    # (uid, status, tokens) under tp
         self.quant_plan = quant_plan
         self.device = model.device
         self.n_slots = n_slots
@@ -115,6 +138,11 @@ class ServingEngine:
         return self.model.init_cache(self.n_slots, self.max_len,
                                      kv_dtype=self.kv_dtype)
 
+    def _forward_ctx(self):
+        """The context of every forward: the engine's tensor-parallel
+        group (None: no group)."""
+        return tp_context(self.tp)
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _prefill_one(self, tokens: np.ndarray, slot: int,
@@ -134,13 +162,15 @@ class ServingEngine:
                                device=self.device)[None]
         lengths = torch.tensor([length], dtype=torch.int32,
                                device=self.device)
-        return self.model.prefill_padded(toks, sub, lengths)[0, -1]
+        with self._forward_ctx():
+            return self.model.prefill_padded(toks, sub, lengths)[0, -1]
 
     @torch.no_grad()
     def _decode_all(self, last_tokens: np.ndarray) -> torch.Tensor:
         toks = torch.as_tensor(last_tokens, dtype=torch.long,
                                device=self.device)[:, None]
-        return self.model.decode_step(toks, self.cache)[:, 0]
+        with self._forward_ctx():
+            return self.model.decode_step(toks, self.cache)[:, 0]
 
     @staticmethod
     def _to_host(logits: torch.Tensor) -> np.ndarray:
@@ -150,6 +180,9 @@ class ServingEngine:
     def _finish(self, req: Request, status: RequestStatus,
                 error: Optional[str] = None) -> RequestStatus:
         req.finish(status, error, now=self._clock())
+        if self.tp is not None:
+            self._finished.append((req.uid, status.value,
+                                   tuple(req.generated)))
         if status is RequestStatus.OK:
             self.stats.completed += 1
         elif status is RequestStatus.FAILED:
@@ -187,6 +220,10 @@ class ServingEngine:
     def _enqueue(self, req: Request) -> RequestStatus:
         """Shared admission tail: capacity rejections are typed, not
         raised (see :meth:`submit`)."""
+        if self.tp is not None and req.deadline_s is not None:
+            raise ValueError("deadlines are read from each rank's clock, "
+                             "so ranks could disagree: a tensor-parallel "
+                             "engine serves requests without one")
         if self.closed:
             return self._finish(req, RequestStatus.REJECTED,
                                 "engine closed (draining or shut down)")
@@ -309,17 +346,28 @@ class ServingEngine:
                              f"got {on_stall!r}")
         for _ in range(max_iters):
             if not self.pending():
-                return
+                break
             self.step()
-        if not self.pending():
-            return
-        if on_stall == "timeout":
+        if self.pending():
+            if on_stall == "raise":
+                raise EngineStallError(
+                    f"run_until_done hit max_iters={max_iters} with "
+                    f"{len(self.queue)} queued and {len(self._active())} "
+                    f"active request(s) still pending")
             self._expire_pending("engine stalled at max_iters")
+        self._check_ranks_agree()
+
+    def _check_ranks_agree(self) -> None:
+        """Under tensor parallelism: raise unless every rank ended the
+        same requests with the same status and tokens since the last
+        check."""
+        if self.tp is None:
             return
-        raise EngineStallError(
-            f"run_until_done hit max_iters={max_iters} with "
-            f"{len(self.queue)} queued and {len(self._active())} active "
-            f"request(s) still pending")
+        digest = hashlib.sha256(repr(sorted(self._finished)).encode())
+        self._finished.clear()
+        if not self.tp.agree(digest.digest()):
+            raise RuntimeError(f"tensor-parallel rank {self.tp.rank}: the "
+                               f"ranks' requests ended differently")
 
     def _expire_pending(self, why: str) -> None:
         while self.queue:
@@ -432,8 +480,9 @@ class PagedServingEngine(ServingEngine):
         lengths = torch.tensor([length], dtype=torch.int32,
                                device=self.device)
         off = torch.tensor([offset], dtype=torch.int32, device=self.device)
-        return self.model.prefill_padded(toks, sub, lengths,
-                                         offset=off)[0, -1]
+        with self._forward_ctx():
+            return self.model.prefill_padded(toks, sub, lengths,
+                                             offset=off)[0, -1]
 
     @torch.no_grad()
     def _decode_masked(self, last_tokens: np.ndarray,
@@ -451,7 +500,8 @@ class PagedServingEngine(ServingEngine):
             c["index"].masked_fill_(~keep, EMPTY_SLOT)
         toks = torch.as_tensor(last_tokens, dtype=torch.long,
                                device=self.device)[:, None]
-        return self.model.decode_step(toks, self.cache)[:, 0]
+        with self._forward_ctx():
+            return self.model.decode_step(toks, self.cache)[:, 0]
 
     # -- admission -----------------------------------------------------
     def submit(self, req: Request) -> RequestStatus:

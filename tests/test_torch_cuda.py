@@ -629,3 +629,224 @@ def test_reduced_moe_engines_on_card(dev):
         agree = sum(a == b for ka, pa in zip(kern, plain)
                     for a, b in zip(ka.generated, pa.generated))
         assert agree >= 0.9 * sum(len(r.generated) for r in plain), name
+
+
+# ---------------------------------------------------------------------------
+# kernel 6 (int8 -> int32) and tensor parallelism on the one card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M,K,N", [
+    (8, 1024, 2048), (8, 8192, 2048), (8, 2816, 2048),      # TP-2 partials
+    (64, 8192, 2048), (256, 1024, 2048), (5056, 8192, 2048),
+    (13, 1030, 68), (3, 100, 36), (1, 5, 4), (33, 7, 260)])
+def test_cim_gemm_int8_exact(dev, M, K, N):
+    rng = _gen(30)
+    x = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
+    w = _t(rng.integers(-127, 128, (K, N)).astype(np.int8), dev)
+    before = cg.cim_gemm_int8.launches
+    out = cg.cim_gemm_int8(x, w)
+    torch.cuda.synchronize()
+    assert cg.cim_gemm_int8.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (M, N)
+    assert torch.equal(out, cg.cim_gemm_int8_plain(x, w))
+
+
+def test_cim_gemm_int8_rejects_bad_inputs(dev):
+    x = torch.zeros((4, 64), dtype=torch.int8, device=dev)
+    w = torch.zeros((64, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        cg.cim_gemm_int8(x.float(), w)
+    with pytest.raises(ValueError):
+        cg.cim_gemm_int8(x, w[:, :6].contiguous())       # N % 4
+    with pytest.raises(ValueError):
+        cg.cim_gemm_int8(x, w[:32])                      # K mismatch
+    with pytest.raises(ValueError):
+        cg.cim_gemm_int8(x, torch.zeros((8, 64), dtype=torch.int8,
+                                        device=dev).t())  # not contiguous
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("KH,G,D,p", [(1, 8, 256, 2), (1, 8, 256, 4),
+                                      (1, 4, 16, 4), (16, 1, 128, 2)])
+def test_decode_heads_bitwise_across_groups(dev, quantized, KH, G, D, p):
+    """Head-parallel decode: a rank's heads (G/p of one KV head, or KH/p
+    KV heads) give the bits of the same heads in the whole walk, ring
+    and paged."""
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 31, 6, 256, KH, G, D,
+                                          quantized, torch.bfloat16)
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(32, 16, k, v, pos, ks, vs)
+    ring = da.decode_attention(q, k, v, pos, qp, ks, vs)
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp)
+    for r in range(p):
+        if KH == 1:
+            heads = slice(r * G // p, (r + 1) * G // p)
+
+            def part(t):
+                return t[:, :, heads].contiguous()
+            got = da.decode_attention(part(q), k, v, pos, qp, ks, vs)
+            gotp = da.decode_attention_paged(part(q), kp, vp, pp, tables,
+                                             qp, ksp, vsp)
+            want, wantp = ring[:, :, heads], paged[:, :, heads]
+        else:
+            kv = slice(r * KH // p, (r + 1) * KH // p)
+
+            def part(t, dim=2):
+                return None if t is None else t.narrow(
+                    dim, kv.start, kv.stop - kv.start).contiguous()
+            got = da.decode_attention(part(q, 1), part(k), part(v), pos, qp,
+                                      part(ks), part(vs))
+            gotp = da.decode_attention_paged(part(q, 1), part(kp), part(vp),
+                                             pp, tables, qp, part(ksp),
+                                             part(vsp))
+            want, wantp = ring[:, kv], paged[:, kv]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(gotp, wantp)
+
+
+def _tp_rank_on_card(group, seed):
+    """One of 2 gloo ranks on the one card: the row-parallel
+    out-projection and the TP MLP at gemma-2b's widths on this rank's
+    shards, against the unsharded kernel path on the whole weights."""
+    import types
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.context import rank_device
+    from repro_torch.quant import tp as qtp
+    dev = rank_device("cuda", "gloo", group.rank)
+    rng = _gen(seed)
+    M, d, F, HD = 8, 2048, 16384, 2048
+    x = _t(rng.standard_normal((M, d)).astype(np.float32), dev,
+           torch.bfloat16)
+    res = _t(rng.standard_normal((M, d)).astype(np.float32), dev,
+             torch.bfloat16)
+    attn = _t(rng.standard_normal((M, HD)).astype(np.float32), dev,
+              torch.bfloat16)
+    (up, us), (gate, gs) = _w(rng, d, F, dev), _w(rng, d, F, dev)
+    (down, ds), (o, os_) = _w(rng, F, d, dev), _w(rng, HD, d, dev)
+    whole_mlp = ops.cim_quantized_mlp(x, up, us, down, ds, gate_q=gate,
+                                      gate_scale=gs, residual=res,
+                                      activation="gelu")
+    whole_row = ops.cim_quantized_matmul_fused(attn, o, os_, residual=res)
+    p, r = group.size, group.rank
+    cols, rows = slice(r * F // p, (r + 1) * F // p), \
+        slice(r * HD // p, (r + 1) * HD // p)
+
+    def leaf(q, s):
+        return types.SimpleNamespace(q=q.contiguous(), scale=s.contiguous())
+    mlp = types.SimpleNamespace(up=leaf(up[:, cols], us[cols]),
+                                gate=leaf(gate[:, cols], gs[cols]),
+                                down=leaf(down[cols], ds))
+    before = cg.cim_gemm_int8.launches
+    tp_mlp = qtp.mlp(group, x, mlp, "gelu", True, residual=res)
+    tp_row = qtp.matmul_row(group, attn[:, rows].contiguous(),
+                            o[rows].contiguous(), os_, True, residual=res)
+    torch.cuda.synchronize()
+    return dict(mlp=bool(torch.equal(tp_mlp, whole_mlp)),
+                row=bool(torch.equal(tp_row, whole_row)),
+                k6=cg.cim_gemm_int8.launches - before,
+                collectives=dict(group.counts))
+
+
+def test_tp_two_ranks_on_one_card_bitwise(dev):
+    from repro_torch.parallel.context import spawn
+    for out in spawn(_tp_rank_on_card, 2, args=(33,), backend="gloo",
+                     timeout_s=300):
+        assert out["mlp"] and out["row"]
+        assert out["k6"] == 2
+        assert out["collectives"] == {"max": 2, "sum": 2, "gather": 0}
+
+
+# Registers ptxas gives each instantiation of the GEMM template
+# cim_gemm_kernel<TX, GATED, EPI, GROUPED> (``nvcc -Xptxas -v`` for
+# sm_90a), keyed by the mangled template arguments.  A change that moves
+# one (as run-time branches once took the dense int8 GEMM from 80 to 66
+# and slowed gemma-2b's down GEMM 1.5x) fails that mode's test here.
+GEMM_MODES = {
+    "qin_f32": (("f", 0, 0, 0), 80),           # kernel 2, f32 x
+    "qin_bf16": (("13__nv_bfloat16", 0, 0, 0), 80),   # kernel 2, bf16 x
+    "fused": (("a", 0, 0, 0), 80),             # kernel 3
+    "fused_requant": (("a", 0, 1, 0), 76),
+    "gated": (("a", 1, 0, 0), 159),            # kernel 4
+    "gated_requant": (("a", 1, 1, 0), 162),
+    "grouped": (("a", 0, 0, 1), 64),           # kernel 7
+    "grouped_requant": (("a", 0, 1, 1), 80),
+    "grouped_gated": (("a", 1, 0, 1), 168),    # kernel 8
+    "grouped_gated_requant": (("a", 1, 1, 1), 170),
+    "acc": (("a", 0, 2, 0), 80),               # kernel 6
+}
+
+
+def _mode_registers():
+    """{template arguments: {"REG", "STACK", "LOCAL", ...}} of every
+    instantiation in the built library, from the toolkit's
+    ``cuobjdump --dump-resource-usage``."""
+    import pathlib
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+    _build.load("cim_gemm")
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.BUILD_DIR / "libcim_gemm.so"
+    text = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    pat = re.compile(r"Function \S*cim_gemm_kernelI(a|f|13__nv_bfloat16)"
+                     r"Lb([01])ELi(\d)ELb([01])EE\S*:\s*\n\s*(.*)")
+    out = {}
+    for m in pat.finditer(text):
+        tx, gated, epi, grouped, use = m.groups()
+        out[(tx, int(gated), int(epi), int(grouped))] = {
+            k: int(v) for k, v in (f.split(":") for f in use.split())
+            if v.isdigit()}
+    return out
+
+
+def _run_mode(mode, dev):
+    """One launch of ``mode`` and its plain version: (out, ref, exact)."""
+    rng = _gen(34)
+    M, K, N, E = 8, 1030, 264, 3
+    x = _t(rng.standard_normal((M, K)).astype(np.float32), dev)
+    xq = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
+    xs = _t(rng.uniform(1e-3, 1e-2, (M, 1)).astype(np.float32), dev)
+    (w, ws), (w2, ws2) = _w(rng, K, N, dev), _w(rng, K, N, dev)
+    gx, gxs, [(gw, gws), (gw2, gws2)], counts = _grouped(rng, E, M, K, N,
+                                                         dev, zero=(1,))
+    if mode.startswith("qin"):
+        xx = x.to(torch.bfloat16) if mode == "qin_bf16" else x
+        return (cg.cim_gemm_int8_fused_qin(xx, w, ws),
+                cg.cim_gemm_int8_fused_qin_plain(xx, w, ws), True)
+    if mode == "acc":
+        return cg.cim_gemm_int8(xq, w), cg.cim_gemm_int8_plain(xq, w), True
+    calls = {
+        "fused": (cg.cim_gemm_int8_fused, (xq, w, xs, ws),
+                  cg.cim_gemm_int8_fused_plain, True),
+        "gated": (cg.cim_gated_gemm_int8, (xq, w, w2, xs, ws, ws2, "silu"),
+                  cg.cim_gated_gemm_int8_plain, False),
+        "grouped": (cg.cim_grouped_gemm_int8, (gx, gw, gxs, gws, None,
+                                               counts),
+                    cg.cim_grouped_gemm_int8_plain, True),
+        "grouped_gated": (cg.cim_grouped_gated_gemm_int8,
+                          (gx, gw, gw2, gxs, gws, gws2, counts, "silu"),
+                          cg.cim_grouped_gated_gemm_int8_plain, False)}
+    fn, args, plain, exact = calls[mode.replace("_requant", "")]
+    if not mode.endswith("_requant"):
+        return fn(*args), plain(*args), exact
+    q, s = fn(*args, quantize_out=True)
+    qr, sr = cg.quantize_rows_int8_plain(fn(*args))
+    return (torch.cat([q.float(), s], -1), torch.cat([qr.float(), sr], -1),
+            True)
+
+
+@pytest.mark.parametrize("mode", list(GEMM_MODES))
+def test_gemm_template_mode_and_registers(dev, mode):
+    """Each compile-time mode of the GEMM template launches, agrees with
+    its plain version (bitwise; activations within 1e-5; the requant
+    epilogue bitwise the row quantizer of the kernel's f32 output) and
+    keeps its registers, with nothing spilled."""
+    out, ref, exact = _run_mode(mode, dev)
+    torch.cuda.synchronize()
+    if exact:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    key, regs = GEMM_MODES[mode]
+    use = _mode_registers()[key]
+    assert use["REG"] == regs, (mode, use)
+    assert use["LOCAL"] == 0 and use["STACK"] == 0, (mode, use)

@@ -236,7 +236,9 @@ def test_port_imports_no_jax_subprocess():
             "import repro_torch, repro_torch.configs, repro_torch.kernels, "
             "repro_torch.quant, repro_torch.models, repro_torch.serving, "
             "repro_torch.convert, repro_torch.launch.serve, "
-            "repro_torch.models.moe\n"
+            "repro_torch.models.moe, repro_torch.parallel, "
+            "repro_torch.parallel.context, repro_torch.parallel.sharding, "
+            "repro_torch.quant.tp\n"
             "sys.path.insert(0, '.')\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -30,7 +30,6 @@ import pytest
 
 from repro.quant import QuantPlan as JPlan
 from repro.serving import PagedServingEngine as JPagedEngine
-from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JEngine
 
 from repro_torch.kernels import decode_attention as da
@@ -38,7 +37,7 @@ from repro_torch.kernels import launch_counts, ops
 from repro_torch.quant import QuantPlan
 from repro_torch.serving import (PagedServingEngine, Request, RequestStatus,
                                  ServingEngine)
-from torch_parity import port_model, rng, smoke
+from torch_parity import assert_same_tokens, port_model, rng, serve_jax
 
 ARCH = "qwen2-moe-a2.7b"
 LOGIT_ATOL = 0.15          # tests/test_torch_model.py
@@ -58,24 +57,7 @@ def _prompts():
 def _serve_jax(engine_cls, jplan, uids=None, **kw):
     """Serve the prompts ``uids`` (default all) on a fresh JAX engine;
     returns the requests and the top-2 margin of every sampled step."""
-    _, jm, params = smoke(ARCH)
-    eng = engine_cls(jm, params, quant_plan=jplan, **kw)
-    margins = {}
-    sample = eng._sample
-
-    def recording(req, logits, step):
-        top = np.sort(np.asarray(logits, np.float64))[-2:]
-        margins[(req.uid, step)] = top[1] - top[0]
-        return sample(req, logits, step)
-    eng._sample = recording
-    prompts = _prompts()
-    reqs = [JRequest(uid=i, prompt=prompts[i], max_new_tokens=8)
-            for i in (range(len(prompts)) if uids is None else uids)]
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_done()
-    assert all(r.status.value == "ok" for r in reqs)
-    return reqs, margins
+    return serve_jax(ARCH, engine_cls, jplan, _prompts(), uids, **kw)
 
 
 def _serve_port(engine_cls, plan, **kw):
@@ -90,17 +72,9 @@ def _serve_port(engine_cls, plan, **kw):
 
 
 def _same_tokens(jreqs, margins, reqs, name):
-    compared = total = 0
-    for jr, r in zip(jreqs, reqs):
-        assert len(r.generated) == len(jr.generated) == 8
-        total += 8
-        for step, (a, b) in enumerate(zip(jr.generated, r.generated)):
-            if a != b:
-                assert margins[(jr.uid, step)] <= MARGIN, (
-                    name, jr.uid, step, jr.generated, r.generated)
-                break
-            compared += 1
-    assert compared >= total // 2, (compared, total)
+    assert all(len(r.generated) == 8 for r in reqs)
+    assert_same_tokens(jreqs, margins, [r.generated for r in reqs], MARGIN,
+                       name)
 
 
 @pytest.mark.parametrize("name,jplan,plan", PLANS)

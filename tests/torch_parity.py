@@ -62,3 +62,47 @@ def port_model(plan=None, arch: str = ARCH):
     model = params_from_jax(numpy_tree(params), tred(tget(arch)),
                             device="cpu")
     return model if plan is None else model.quantize(plan)
+
+
+def serve_jax(arch: str, engine_cls, jplan, prompts, uids=None,
+              max_new_tokens: int = 8, **kw):
+    """Serve ``prompts[uid]`` for each of ``uids`` (default all) on a
+    fresh JAX engine of ``arch``'s smoke model; returns the requests and
+    the top-2 logit margin of every sampled step, keyed (uid, step)."""
+    from repro.serving import Request as JRequest
+    _, jm, params = smoke(arch)
+    eng = engine_cls(jm, params, quant_plan=jplan, **kw)
+    margins = {}
+    sample = eng._sample
+
+    def recording(req, logits, step):
+        top = np.sort(np.asarray(logits, np.float64))[-2:]
+        margins[(req.uid, step)] = top[1] - top[0]
+        return sample(req, logits, step)
+    eng._sample = recording
+    reqs = [JRequest(uid=i, prompt=prompts[i], max_new_tokens=max_new_tokens)
+            for i in (range(len(prompts)) if uids is None else uids)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    assert all(r.status.value == "ok" for r in reqs)
+    return reqs, margins
+
+
+def assert_same_tokens(jreqs, margins, tokens, margin, name=""):
+    """Greedy token streams equal to the reference's step for step up to
+    the first step where they part, which must be a near tie (the
+    reference's top-2 margin there at most ``margin``); at least half of
+    all steps compared equal.  ``tokens``: the port's streams, in the
+    order of ``jreqs``."""
+    compared = total = 0
+    for jr, toks in zip(jreqs, tokens):
+        assert len(toks) == len(jr.generated), (name, jr.uid)
+        total += len(toks)
+        for step, (a, b) in enumerate(zip(jr.generated, toks)):
+            if a != b:
+                assert margins[(jr.uid, step)] <= margin, (
+                    name, jr.uid, step, jr.generated, toks)
+                break
+            compared += 1
+    assert compared >= total // 2, (name, compared, total)
