@@ -21,6 +21,21 @@ the JAX package.  Phases, each printing its lines:
             shapes (M = 8, 64, 256, 5056) and ragged ones; each head of
             the flash-decode walks bitwise at G = 4 (a TP-2 rank's heads
             of gemma-2b's one KV head) and at G = 8.
+   ops    — kernels 12-14 through ``repro_torch.kernels.ops``, their
+            only entry point (no model path of the reference calls
+            them), at the widths of models in the registry: flash
+            attention at gemma-2b's prefill (S 2048, 8 heads on 1 KV head,
+            D 256, bf16, causal), gemma3-4b's sliding layers (S 4096, KH 4,
+            window 1024), qwen2-moe's (16 heads of 128) and an f32 case
+            with Sq != Skv; the SSD scan at one zamba2-1.2b Mamba-2 layer
+            (64 heads, S 2048, P 64, N 64, chunk 128); softmax over
+            DiT-XL/2's attention scores [16 x 1024, 1024] (rows path),
+            gemma-2b's logits [8, 256000] in f32 and bf16 (long-row path)
+            and the extreme rows [1e4, -1e4, 0, 1e4].  The counters must
+            read exactly 4 / 1 / 6 (two per long softmax row); each
+            output is held against its plain version, and flash attention
+            at gemma-2b and gemma3-4b against the model's prefill
+            attention (``dense_attention``).
 4. serve  — full-width gemma-2b (random weights from a seed, built and
             quantized once, shared by the three runs) served by
             ``ServingEngine(quant_plan=QuantPlan.full())``: 8 greedy
@@ -71,10 +86,14 @@ the JAX package.  Phases, each printing its lines:
             the grouped GEMMs with the expert counts of a served decode
             step and with every expert active, kernels 3 and 4 with the
             requant epilogue at the shared MLP's shapes, and kernel 6 at
-            the TP partials' shapes (beside ``torch._int_mm``).
+            the TP partials' shapes (beside ``torch._int_mm``), and
+            kernels 12-14 at the ops phase's shapes (beside SDPA and
+            ``torch.softmax``; none computes the SSD scan).
             Collectives are never captured in a graph.
 
-The last two lines are the kernels' JSON record and
+The serve runs must launch kernels 12-14 zero times and every other
+kernel at least once; the kernels' JSON record takes 12-14's launches
+from the ops phase.  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line.
 """
@@ -95,9 +114,10 @@ SEED = 0            # weights, prompts and test inputs are drawn from it
 NEW_TOKENS = 32     # generated per request in the serve phase
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM
-# bytes/s, int8 tensor-core ops/s, f32 (non-tensor) ops/s.
+# bytes/s, int8 and bf16 tensor-core ops/s, f32 (non-tensor) ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 
 # Tolerances of phase 3 (kernel against plain version on the same inputs).
@@ -134,7 +154,49 @@ SOURCES = {
                                     "src/repro/kernels/cim_gemm.py:811"),
     "cim_gemm_int8": ("src/repro_torch/csrc/cim_gemm.cu",
                       "src/repro/kernels/cim_gemm.py:189"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:80"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:71"),
+    "online_softmax": ("src/repro_torch/csrc/online_softmax.cu",
+                       "src/repro/kernels/online_softmax.py:58"),
 }
+# Kernels 12-14 are reached through the ops surface only (no model path
+# of the reference calls them); the ops phase drives them at the widths
+# of models in the registry, the serve runs launch them 0 times.
+OPS_KERNELS = ("flash_attention", "ssd_scan", "online_softmax")
+# (case, B, Sq, Skv, H, KH, D, dtype, causal, window); the first is the
+# timed row
+FLASH_CASES = (
+    ("gemma-2b prefill", 1, 2048, 2048, 8, 1, 256, "bf16", True, None),
+    ("gemma3-4b sliding layer", 1, 4096, 4096, 8, 4, 256, "bf16", True,
+     1024),
+    ("qwen2-moe-a2.7b prefill", 1, 2048, 2048, 16, 16, 128, "bf16", True,
+     None),
+    ("f32, Sq != Skv", 2, 512, 1024, 4, 2, 64, "f32", True, None),
+)
+# zamba2-1.2b's Mamba-2 layer: B 1 x 64 heads, S 2048, P 64, N 64
+SSD_CASE = (64, 2048, 64, 64, 128)
+# (case, R, C, dtype): the first is the timed row
+SOFTMAX_CASES = (
+    ("DiT-XL/2 attention scores", 16 * 1024, 1024, "f32"),
+    ("gemma-2b logits", 8, 256000, "f32"),
+    ("gemma-2b logits", 8, 256000, "bf16"),
+)
+# Tolerances of the ops phase (kernel against plain version): flash
+# attention in f32 2e-5 (the reference's) of the element plus 2e-5 of its
+# row's largest |out|; in bf16 2**-7 and 2**-7 of the row (p is rounded
+# to bf16 against the running max in the kernel, against the row max in
+# the plain version); against the model's dense_attention the reference's
+# bf16 tolerance, 2e-2 absolute and relative (it rounds its scores to
+# bf16).  The SSD scan 2e-4 of the element plus 2e-4 of the tensor's
+# largest magnitude.  Softmax in f32 2e-5 of the element plus 2e-6 of
+# the largest output (the reference's rtol, its atol scaled by the
+# largest output, at most 1); in bf16 2**-7 (one rounding apart).
+FLASH_TOL = {"f32": 2e-5, "bf16": 2 ** -7}
+FLASH_DENSE_TOL = 2e-2
+SSD_TOL = 2e-4
+SOFTMAX_TOL = {"f32": (2e-5, 2e-6), "bf16": (2 ** -7, 0.0)}
 MOE_ARCH = "qwen2-moe-a2.7b"
 # qwen2-moe-a2.7b's widths, for the kernel checks and times
 MOE_E, MOE_D, MOE_F, MOE_SHARED = 60, 2048, 1408, 5632
@@ -204,6 +266,14 @@ def time_ms(torch, calls, reps: int = 20) -> float:
 
 def copies_for(nbytes: int) -> int:
     return max(1, min(64, math.ceil(128e6 / max(nbytes, 1))))
+
+
+def bound(nbytes, ops, peak) -> tuple[float, str]:
+    """The least ms the card could take: the larger of the bytes over
+    the memory rate and the operations over ``peak``, and which."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +634,139 @@ def phase_check(torch) -> dict:
                where=where)
     torch.cuda.synchronize()
     return errs
+
+
+def _flash_inputs(torch, gen, B, Sq, Skv, H, KH, D, dtype):
+    """q [B, Sq, H, D], k and v [B, Skv, KH, D] from N(0, 1)."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return tuple(torch.randn(shape, device=gen.device, generator=gen).to(dt)
+                 for shape in ((B, Sq, H, D), (B, Skv, KH, D),
+                               (B, Skv, KH, D)))
+
+
+def _ssd_inputs(torch, gen, BH, S, P, N):
+    """A Mamba-2 layer's scan inputs: dt log-uniform in [1e-3, 1e-1] per
+    position, A in [1, 16] per head; x = dt * N(0, 1), log_a = -dt * A
+    (<= 0), b and c N(0, 1)."""
+    dev = gen.device
+    dt = torch.exp(torch.empty((BH, S, 1), device=dev).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen))
+    x = dt * torch.randn((BH, S, P), device=dev, generator=gen)
+    a = torch.empty((BH, 1), device=dev).uniform_(1.0, 16.0, generator=gen)
+    b, c = (torch.randn((BH, S, N), device=dev, generator=gen)
+            for _ in range(2))
+    return x, -dt[..., 0] * a, b, c
+
+
+def _softmax_input(torch, gen, case, R, C, dtype):
+    """Scores N(0, 2) for attention, logits N(0, 4)."""
+    scale = 4.0 if "logits" in case else 2.0
+    x = torch.randn((R, C), device=gen.device, generator=gen) * scale
+    return x.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+
+
+def phase_ops(torch) -> tuple[dict, dict]:
+    """Kernels 12-14 through ``repro_torch.kernels.ops``, their only entry
+    point (as in the reference), at the widths of models in the
+    registry: the counters are set to 0, every case is driven, the
+    counters are read and must be exact.  Then each output is held
+    against its plain version, and flash attention at gemma-2b and
+    gemma3-4b also against the model's prefill attention
+    (``models.attention.dense_attention`` at positions arange(S)).
+    Returns the launch counts and the max |err| of each kernel's timed
+    (first) case."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import online_softmax as sm
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.attention import dense_attention
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flash = [_flash_inputs(torch, gen, *c[1:8]) for c in FLASH_CASES]
+    ssd = _ssd_inputs(torch, gen, *SSD_CASE[:4])
+    soft = [_softmax_input(torch, gen, *c) for c in SOFTMAX_CASES]
+    extreme = torch.tensor([[1e4, -1e4, 0.0, 1e4]], device=dev).repeat(256,
+                                                                       1)
+    _sync(torch)
+
+    reset_launch_counts()
+    f_out = [ops.flash_attention(q, k, v, causal=c[8], window=c[9])
+             for c, (q, k, v) in zip(FLASH_CASES, flash)]
+    s_out = ops.ssd_scan(*ssd, chunk=SSD_CASE[4])
+    m_out = [ops.online_softmax(x) for x in soft]
+    e_out = ops.online_softmax(extreme)
+    _sync(torch)
+    counts = launch_counts()
+    want = {name: 0 for name in SOURCES}
+    want.update(flash_attention=len(FLASH_CASES), ssd_scan=1,
+                online_softmax=1 + sum(1 if c[2] <= sm.ROWS_MAX_C else 2
+                                       for c in SOFTMAX_CASES))
+    say(f"[ops] launches "
+        f"{json.dumps({k: counts[k] for k in OPS_KERNELS})} (a softmax "
+        f"row over {sm.ROWS_MAX_C} columns takes 2)")
+    need(counts == want, f"launch counts {counts} != expected {want}")
+
+    errs: dict[str, float] = {}
+
+    def held(name, where, got, ref, limit, rule, timed):
+        diff = (got.float() - ref.float()).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((diff <= limit).all())
+        worst = (diff / limit.clamp_min(1e-30)).max().item()
+        err = diff.max().item()
+        say(f"[ops] {name} {where}: max_abs_err={err:.3g} ({rule}; largest "
+            f"err/limit {worst:.3g}) {'ok' if ok else 'FAIL'}")
+        need(ok, f"{name} at {where} disagrees with its reference")
+        if timed:
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    for i, (c, (q, k, v), out) in enumerate(zip(FLASH_CASES, flash, f_out)):
+        case, B, Sq, Skv, H, KH, D, dtype, causal, window = c
+        where = (f"{case} (B {B}, Sq {Sq}, Skv {Skv}, H {H}, KH {KH}, "
+                 f"D {D}, {dtype}, window {window})")
+        plain = fa.flash_attention_plain(q, k, v, causal, window)
+        ref = plain.float().abs()
+        tol = FLASH_TOL[dtype]
+        held("flash_attention", where, out, plain,
+             tol * ref + tol * ref.amax(-1, keepdim=True),
+             f"rtol={tol:.3g} + {tol:.3g} x row max", i == 0)
+        if i < 2:
+            pos = torch.arange(Sq, device=dev)[None].expand(B, Sq)
+            kind = "causal" if window is None else "sliding"
+            dense = dense_attention(q, k, v, pos, pos, kind, window)
+            held("flash_attention vs dense_attention", f"{where}, {kind}",
+                 out, dense,
+                 FLASH_DENSE_TOL * (1 + dense.float().abs()),
+                 f"rtol=atol={FLASH_DENSE_TOL:g}", False)
+        del plain, ref
+
+    BH, S, P, N, L = SSD_CASE
+    for what, got, ref in zip(("y", "final state"), s_out,
+                              ss.ssd_scan_plain(*ssd, L)):
+        held("ssd_scan", f"zamba2-1.2b Mamba-2 layer (BH {BH}, S {S}, "
+             f"P {P}, N {N}, chunk {L}) {what}", got, ref,
+             SSD_TOL * ref.abs() + SSD_TOL * ref.abs().max(),
+             f"rtol={SSD_TOL:g} + {SSD_TOL:g} x max", True)
+
+    for i, (c, x, out) in enumerate(zip(SOFTMAX_CASES, soft, m_out)):
+        case, R, C, dtype = c
+        ref = sm.online_softmax_plain(x)
+        rtol, atol = SOFTMAX_TOL[dtype]
+        r32 = ref.float().abs()
+        path = ("rows path" if C <= sm.ROWS_MAX_C
+                else f"{sm.n_slices(C)} slices a row")
+        held("online_softmax", f"{case} [{R}, {C}] {dtype} ({path})", out,
+             ref, rtol * r32 + atol * r32.max(),
+             f"rtol={rtol:.3g} + {atol:g} x max", i == 0)
+        sums = out.float().sum(-1)
+        need(bool(((sums - 1).abs() <= 1e-2).all()),
+             f"online_softmax {case}: a row sums to {sums.min().item()}")
+    want_e = torch.tensor([0.5, 0.0, 0.0, 0.5], device=dev).expand(256, 4)
+    held("online_softmax", "rows [1e4, -1e4, 0, 1e4] x 256", e_out, want_e,
+         torch.full_like(want_e, 1e-7), "atol=1e-7 of [0.5, 0, 0, 0.5]",
+         False)
+    del flash, ssd, soft, f_out, s_out, m_out
+    torch.cuda.empty_cache()
+    return counts, errs
 
 
 def expected_launches(cfg, decode_steps, forwards,
@@ -1224,11 +1427,6 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     M = 8
     rows = []
 
-    def bound(nbytes, ops, peak):
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = ops / peak * 1e3
-        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
     def int_mm(xq, w_cm):
         # torch._int_mm needs more than 16 rows: pad to 32
         xp = torch.zeros((32, xq.shape[1]), dtype=torch.int8, device=dev)
@@ -1547,6 +1745,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
             f"{two:.4f} ms as the GEMM then the row quantizer, on {card}")
     del shared
 
+    rows += times_ops(torch, card)
     out = []
     for r in rows:
         src, repl = SOURCES[r["name"]]
@@ -1562,6 +1761,83 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
             f"{r['plain_ms']:.4f} ms, library {lib} ms) on {card}")
         out.append(entry)
     return out
+
+
+def times_ops(torch, card: str) -> list:
+    """Kernels 12-14 at the ops phase's shapes: each case's median ms
+    beside its bound, its plain version and one PyTorch call (SDPA with
+    GQA and the window as a mask for flash attention, ``torch.softmax``;
+    none computes the SSD scan).  The first case of each kernel is its
+    row of the kernels line, the others are printed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import online_softmax as sm
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import ssd_scan as ss
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+
+    def timed(name, case, calls, plain, lib, nbytes, ops, peak, first):
+        ms = time_ms(torch, calls)
+        plain_ms = time_ms(torch, [plain], reps=5)
+        lib_ms = time_ms(torch, [lib]) if lib else None
+        b, by = bound(nbytes, ops, peak)
+        lib_s = "null" if lib_ms is None else f"{lib_ms:.4f} ms"
+        say(f"[times] {name} ({case}): {ms:.4f} ms, bound {b:.5f} ms by "
+            f"{by}, plain {plain_ms:.4f} ms, library {lib_s} on {card}")
+        if first:
+            rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b, bound_by=by, library_ms=lib_ms))
+
+    for i, c in enumerate(FLASH_CASES):
+        case, B, Sq, Skv, H, KH, D, dtype, causal, window = c
+        size = 2 if dtype == "bf16" else 4
+        nbytes = size * (2 * B * Sq * H * D + 2 * B * Skv * KH * D)
+        insts = [_flash_inputs(torch, gen, B, Sq, Skv, H, KH, D, dtype)
+                 for _ in range(copies_for(nbytes))]
+        visible = kref.prefill_visible(Sq, Skv, causal, window, dev)
+        q, k, v = insts[0]
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        # SDPA (GQA, its top-left causal mask or the window as a mask)
+        mask = None if window is None else visible
+        timed("flash_attention", case,
+              [(lambda a=a: fa.flash_attention(*a, causal, window))
+               for a in insts],
+              lambda: fa.flash_attention_plain(q, k, v, causal, window),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qt, kt, vt, attn_mask=mask,
+                  is_causal=causal and mask is None, enable_gqa=True),
+              nbytes, 4 * B * H * D * int(visible.sum()),
+              BF16_OPS_PER_S if dtype == "bf16" else F32_OPS_PER_S, i == 0)
+        del insts, q, k, v, qt, kt, vt, visible
+
+    # the scan: the least work counts C·Bᵀ and G·X on and below the
+    # diagonal only
+    BH, S, P, N, L = SSD_CASE
+    nbytes = 4 * (2 * BH * S * P + BH * S + 2 * BH * S * N + BH * P * N)
+    insts = [_ssd_inputs(torch, gen, BH, S, P, N)
+             for _ in range(copies_for(nbytes))]
+    tri = L * (L + 1) // 2
+    ops_ssd = BH * (S // L) * (2 * tri * (N + P) + 4 * L * P * N)
+    timed("ssd_scan", f"zamba2-1.2b Mamba-2 layer, BH {BH}, S {S}, P {P}, "
+          f"N {N}, chunk {L}",
+          [(lambda a=a: ss.ssd_scan(*a, chunk=L)) for a in insts],
+          lambda: ss.ssd_scan_plain(*insts[0], L), None, nbytes, ops_ssd,
+          F32_OPS_PER_S, True)
+    del insts
+
+    for i, (case, R, C, dtype) in enumerate(SOFTMAX_CASES):
+        nbytes = 2 * R * C * (2 if dtype == "bf16" else 4)
+        insts = [_softmax_input(torch, gen, case, R, C, dtype)
+                 for _ in range(copies_for(nbytes))]
+        x = insts[0]
+        timed("online_softmax", f"{case} [{R}, {C}] {dtype}",
+              [(lambda a=a: sm.online_softmax(a)) for a in insts],
+              lambda: sm.online_softmax_plain(x),
+              lambda: torch.softmax(x, -1), nbytes, 4 * R * C,
+              F32_OPS_PER_S, i == 0)
+        del insts, x
+    return rows
 
 
 def main() -> int:
@@ -1588,6 +1864,8 @@ def main() -> int:
         phase_build()
         card = phase_card(torch)
         errs = phase_check(torch)
+        ops_counts, ops_errs = phase_ops(torch)
+        errs.update(ops_errs)
         counts, serve = phase_serve(torch)
         # each run sets the counters to 0 first; the JSON line sums them
         paged_counts, paged_tokens = phase_serve_paged(torch, serve["model"])
@@ -1632,8 +1910,12 @@ def main() -> int:
                  kw=dict(n_slots=8, max_len=1024, prefill_bucket=64))],
             {"serve-moe-tp": moe["tokens"]}))
         counts = {k: sum(r[k] for r in runs) for k in counts}
-        need(all(v > 0 for v in counts.values()),
+        need(all(v > 0 for k, v in counts.items() if k not in OPS_KERNELS),
              f"a kernel was never launched by the serve runs: {counts}")
+        need(not any(counts[k] for k in OPS_KERNELS),
+             f"a serve run launched a kernel of the ops phase: {counts}")
+        # kernels 12-14: the ops phase's own exact counts
+        counts.update({k: ops_counts[k] for k in OPS_KERNELS})
         kernels = phase_times(torch, serve, moe, counts, errs, card)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -3,9 +3,12 @@
 Each kernel wrapper counts its launches in a ``launches`` attribute;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` sets
 them to zero (``chip_smoke.py`` uses both to show which kernels a run
-went through).
+went through).  ``online_softmax`` takes two launches for a row longer
+than its shared memory holds (a stats and a normalize launch) and counts
+both.
 """
-from . import cim_gemm, decode_attention, ops, ref
+from . import (cim_gemm, decode_attention, flash_attention, online_softmax,
+               ops, ref, ssd_scan)
 
 KERNELS = {
     "quantize_rows_int8": cim_gemm.quantize_rows_int8,
@@ -19,6 +22,9 @@ KERNELS = {
     "decode_attention_paged": decode_attention.decode_attention_paged,
     "decode_attention_partial": decode_attention.decode_attention_partial,
     "decode_attention_combine": decode_attention.decode_attention_combine,
+    "flash_attention": flash_attention.flash_attention,
+    "ssd_scan": ssd_scan.ssd_scan,
+    "online_softmax": online_softmax.online_softmax,
 }
 
 
@@ -31,5 +37,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["cim_gemm", "decode_attention", "ops", "ref", "KERNELS",
+__all__ = ["cim_gemm", "decode_attention", "flash_attention",
+           "online_softmax", "ops", "ref", "ssd_scan", "KERNELS",
            "launch_counts", "reset_launch_counts"]

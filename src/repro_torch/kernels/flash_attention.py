@@ -1,0 +1,91 @@
+"""Flash-attention prefill (port of ``repro/kernels/flash_attention.py``).
+
+Causal or sliding-window attention of a whole prompt with an online
+softmax over KV tiles; the CUDA body is ``csrc/flash_attention.cu``,
+whose note says what bounds it and how it follows the reference (GQA by
+reading KV head ``h // G``, never repeating KV; f32 scores; ``p``
+rounded to v's dtype before PV; masked scores ``-1e30``; KV tiles that
+no query row of a tile can see are skipped, which computes the same
+function).  The wrapper takes its plain version for CPU tensors; for
+CUDA tensors it launches the kernel or raises, and counts the launch.
+
+q:   [B, Sq, H, D]    (f32 or bf16; D <= 256)
+k,v: [B, Skv, KH, D]  (q's dtype; H % KH == 0)
+out: [B, Sq, H, D]    (q's dtype)
+
+The causal mask is aligned top-left: query and key positions both start
+at 0, also when Sq != Skv.  ``window`` hides keys at or before
+``q_pos - window``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import ref
+from ._launch import (DTYPE_CODE, F, I, P, bind, check, on_cpu, ptr,
+                      require, stream)
+
+NEG_INF = ref.NEG_INF
+MAX_HEAD_DIM = 256
+
+_LIB = "flash_attention"
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          window: int | None = None) -> torch.Tensor:
+    """The kernel's arithmetic, densely: f32 scores times 1/sqrt(D),
+    masked with -1e30; p = exp(s - max) rounded to v's dtype for PV,
+    l = sum of the unrounded p; out = (p . v) / max(l, 1e-30) in q's
+    dtype."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.float().reshape(B, Sq, KH, G, D)
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    ok = ref.prefill_visible(Sq, Skv, causal, window, q.device)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    o = o / torch.clamp_min(l, 1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Prefill attention of q over k/v (see the module note for shapes
+    and masks).  One launch on CUDA tensors."""
+    if window is not None and window <= 0:
+        raise ValueError("window must be positive")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q, k: expected [B, S, H, D], got shapes "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (B, D) or H % KH:
+        raise ValueError(f"k: shape {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)} (H % KH must be 0)")
+    if on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal, window)
+    require(q, "q", (torch.float32, torch.bfloat16))
+    require(k, "k", q.dtype)
+    require(v, "v", q.dtype, tuple(k.shape))
+    if D > MAX_HEAD_DIM or Sq == 0 or Skv == 0:
+        raise ValueError(f"flash_attention takes 0 < S and D <= "
+                         f"{MAX_HEAD_DIM}; got Sq={Sq}, Skv={Skv}, D={D}")
+    out = torch.empty_like(q)
+    fn = bind(_LIB, "flash_attention_launch",
+              [P, P, P, P, I, I, I, I, I, I, I, I, I, F, P])
+    check(_LIB, fn(ptr(q), ptr(k), ptr(v), ptr(out), DTYPE_CODE[q.dtype],
+                   B, Sq, Skv, H, KH, D, int(causal), window or 0,
+                   1.0 / math.sqrt(D), stream(q)), "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

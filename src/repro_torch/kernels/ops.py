@@ -9,14 +9,19 @@ expert) is re-quantized in the up/gated GEMM's epilogue
 separate row-quantize launch; decode attention takes the split-KV walk
 above ``SPLIT_MIN_SLOTS`` slots.  The reference's padding to 256-row /
 32-row / CORE_K / CORE_N multiples is TPU tiling and has no counterpart
-here: the kernels mask ragged edges.
+here: the kernels mask ragged edges.  Flash attention, the SSD scan and
+the softmax keep the reference's block arguments and their divisibility
+checks as the public contract; their kernels use tiles of their own.
 """
 from __future__ import annotations
 
 import torch
 
 from . import decode_attention as _da
+from . import flash_attention as _fa
+from . import online_softmax as _sm
 from . import ref
+from . import ssd_scan as _ssd
 from .cim_gemm import (MAX_FUSED_QUANT_K, MAX_FUSED_QUANT_N,
                        cim_gated_gemm_int8, cim_gemm_int8,
                        cim_gemm_int8_fused,
@@ -29,7 +34,8 @@ __all__ = ["quantize_weights_int8", "quantize_rows_int8",
            "cim_int8_gemm_acc", "cim_hidden_int8", "cim_quantized_mlp",
            "cim_quantized_grouped_mlp",
            "decode_attention", "decode_attention_splitkv",
-           "decode_attention_paged", "n_splits_for", "ref",
+           "decode_attention_paged", "n_splits_for", "flash_attention",
+           "ssd_scan", "online_softmax", "ref",
            "MAX_FUSED_QUANT_K", "MAX_FUSED_QUANT_N"]
 
 # Above this many cache slots decode attention takes the split walk.
@@ -227,3 +233,43 @@ def decode_attention_paged(q, k_pages, v_pages, pos_pages, block_tables,
         q.contiguous(), k_pages, v_pages, pos_pages, block_tables, q_pos,
         k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
         window=window)
+
+
+def _blocks_divide(what: str, n: int, block: int, name: str) -> int:
+    """The reference's ``block = min(block, n); assert n % block == 0``."""
+    block = min(block, n)
+    if block < 1 or n % block:
+        raise ValueError(f"{what}: {name}={block} does not divide {n}")
+    return block
+
+
+def flash_attention(q, k, v, causal=True, window=None, block_q=256,
+                    block_k=512):
+    """Prefill attention: q [B, Sq, H, D], k/v [B, Skv, KH, D] ->
+    [B, Sq, H, D] in q's dtype; causal (aligned top-left) and/or a
+    sliding ``window``, GQA by KV head ``h // (H // KH)``.  ``block_q``
+    and ``block_k`` must divide Sq and Skv as in the reference (one
+    launch)."""
+    _blocks_divide("flash_attention", q.shape[1], block_q, "block_q")
+    _blocks_divide("flash_attention", k.shape[1], block_k, "block_k")
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan(x, log_a, b, c, chunk=128):
+    """Chunked Mamba-2 SSD from a zero state: x [BH, S, P], log_a
+    [BH, S], b/c [BH, S, N] -> (y [BH, S, P], final state f32
+    [BH, P, N]).  ``chunk`` (at most S) must divide S (one launch)."""
+    chunk = _blocks_divide("ssd_scan", x.shape[1], chunk, "chunk")
+    return _ssd.ssd_scan(x, log_a, b, c, chunk=chunk)
+
+
+def online_softmax(x, block_r=256, block_c=2048):
+    """Softmax over the last axis of x [R, C] in f32, returned in x's
+    dtype.  ``block_r`` must divide R, and ``block_c`` C when C exceeds
+    it, as in the reference; the kernels switch between their one-launch
+    rows path and the two-launch long-row path by their shared memory."""
+    R, C = x.shape
+    _blocks_divide("online_softmax", R, block_r, "block_r")
+    if C > block_c:
+        _blocks_divide("online_softmax", C, block_c, "block_c")
+    return _sm.online_softmax(x)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels (the oracles).
 
 Each function mirrors its namesake in the reference's ``kernels/ref.py``
 operation for operation: rows quantize with ``scale = (amax + 1e-12) /
@@ -275,3 +275,57 @@ def decode_attention_splitkv_ref(q, k, v, pos, q_pos, n_splits, split_len,
                                            split_len, window=window,
                                            k_scale=k_scale, v_scale=v_scale)
     return combine_partials_ref(o, m, l).to(q.dtype)
+
+
+def prefill_visible(Sq: int, Skv: int, causal: bool, window,
+                    device) -> torch.Tensor:
+    """bool [Sq, Skv]: key j is visible to query i.  The causal mask is
+    aligned top-left (query and key positions both start at 0, also
+    when Sq != Skv); ``window`` hides keys at or before i - window."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    return ok
+
+
+def flash_attention_ref(q, k, v, causal=True, window=None):
+    """Dense attention oracle; q [B,Sq,H,D], k/v [B,Skv,KH,D].
+
+    Masked scores are -1e30 (:func:`prefill_visible`), so a row with no
+    visible key attends uniformly.  The scores are rounded to q's dtype
+    before the f32 softmax and p to v's dtype before PV, as the
+    reference's einsums do."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    s = s / math.sqrt(D)
+    ok = prefill_visible(Sq, Skv, causal, window, q.device)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, H, D)
+
+
+def ssd_scan_ref(x, log_a, b, c):
+    """Naive recurrence, one step per position.  x [BH,S,P]; log_a
+    [BH,S]; b/c [BH,S,N] -> (y [BH,S,P], final state f32 [BH,P,N])."""
+    BH, S, P = x.shape
+    N = b.shape[-1]
+    h = torch.zeros((BH, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for s in range(S):
+        h = torch.exp(log_a[:, s])[:, None, None] * h + \
+            x[:, s, :, None] * b[:, s, None, :]
+        ys.append(torch.einsum("gpn,gn->gp", h, c[:, s]))
+    return torch.stack(ys, 1), h
+
+
+def online_softmax_ref(x):
+    """Softmax over the last axis in f32, returned in x's dtype."""
+    return torch.softmax(x.float(), dim=-1).to(x.dtype)

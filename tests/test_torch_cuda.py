@@ -16,7 +16,11 @@ f32 and rounded to q's dtype, element by element: 2**-7 of the element
 (one bf16 ulp at a rounding boundary; 1e-5 for f32 output) plus a share
 of its own query row's largest |out| (1e-3, for f32 summation order;
 2**-7 on a bf16 cache, whose probabilities the kernel rounds to bf16 as
-the reference does and the f32 oracle does not).
+the reference does and the f32 oracle does not).  Kernels 12-14 (flash
+attention, the SSD scan, online softmax) carry the tolerances their
+tests state: flash attention 2e-5 in f32 and 2**-7 of the element plus
+2**-7 of its row in bf16, the scan 2e-4, softmax 2e-5 (f32) and 2**-7
+(bf16).
 """
 from __future__ import annotations
 
@@ -850,3 +854,182 @@ def test_gemm_template_mode_and_registers(dev, mode):
     use = _mode_registers()[key]
     assert use["REG"] == regs, (mode, use)
     assert use["LOCAL"] == 0 and use["STACK"] == 0, (mode, use)
+
+
+# ---------------------------------------------------------------------------
+# kernels 12-14: flash-attention prefill, the SSD scan, online softmax
+# ---------------------------------------------------------------------------
+def _close_rows(got, ref, rtol, row_atol, where):
+    """|got - ref| <= rtol |ref| + row_atol x its row's largest |ref|."""
+    got, ref = got.float(), ref.float()
+    row = ref.abs().amax(-1, keepdim=True)
+    limit = rtol * ref.abs() + row_atol * row + 1e-30
+    err = (got - ref).abs()
+    assert bool(torch.isfinite(got).all()), where
+    assert bool((err <= limit).all()), (where, (err / limit).max().item())
+
+
+# (B, Sq, Skv, H, KH, D, causal, window): ragged tails; a window that
+# empties whole KV tiles; Sq != Skv both ways (top-left causal mask);
+# rows with no visible key (window past the keys: uniform attention)
+FLASH_SHAPES = [(2, 100, 100, 4, 2, 64, True, None),
+                (1, 130, 130, 8, 1, 256, True, 40),
+                (1, 200, 200, 4, 4, 128, False, 33),
+                (1, 70, 150, 4, 4, 128, False, None),
+                (1, 150, 70, 4, 2, 128, True, None),
+                (1, 100, 40, 2, 1, 64, True, 16),
+                (2, 64, 64, 2, 2, 48, True, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,causal,window", FLASH_SHAPES)
+def test_flash_attention_close(dev, dtype, B, Sq, Skv, H, KH, D, causal,
+                               window):
+    """Kernel 12 against its plain version: f32 within 2e-5 (summation
+    order); bf16 within 2**-7 of the element plus 2**-7 of its row's
+    largest |out| (p is rounded to bf16 against the running max in the
+    kernel and against the row max in the plain version)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(20)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32), dev, dtype)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    ref = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+    _close_rows(out, ref, tol, tol, (B, Sq, Skv, H, KH, D, causal, window))
+
+
+def test_flash_attention_empty_rows_attend_uniformly(dev):
+    """Rows whose window holds no key average all of V, as the
+    reference's dense oracle does."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(21)
+    q = _t(rng.standard_normal((1, 100, 2, 64)).astype(np.float32), dev)
+    k, v = (_t(rng.standard_normal((1, 40, 1, 64)).astype(np.float32), dev)
+            for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=True, window=16)
+    mean_v = v[0, :, 0].mean(0)
+    torch.testing.assert_close(out[0, 55:, 0],
+                               mean_v.expand(45, 64), rtol=1e-5, atol=1e-6)
+
+
+# (BH, S, P, N, chunk): one chunk; many chunks with a ragged last one;
+# P split over blocks with a ragged slice; N 128 at chunk 64
+SSD_SHAPES = [(3, 128, 64, 64, 128), (2, 300, 40, 16, 64),
+              (4, 256, 16, 8, 16), (1, 1000, 70, 64, 128),
+              (2, 192, 32, 128, 64), (2, 37, 8, 4, 128)]
+
+
+@pytest.mark.parametrize("BH,S,P,N,chunk", SSD_SHAPES)
+def test_ssd_scan_close(dev, BH, S, P, N, chunk):
+    """Kernel 13 against its plain version (the same chunked arithmetic
+    in f32): y and the final state within 2e-4 relative plus 2e-4 of
+    the tensor's largest magnitude (summation order)."""
+    from repro_torch.kernels import ssd_scan as ss
+    rng = _gen(22)
+    dt = rng.uniform(1e-3, 1e-1, (BH, S, 1)).astype(np.float32)
+    x = _t(dt * rng.standard_normal((BH, S, P)).astype(np.float32), dev)
+    la = _t(-dt[..., 0] * rng.uniform(1, 16, (BH, 1)).astype(np.float32),
+            dev)
+    b, c = (_t(rng.standard_normal((BH, S, N)).astype(np.float32), dev)
+            for _ in range(2))
+    before = ss.ssd_scan.launches
+    y, h = ss.ssd_scan(x, la, b, c, chunk=chunk)
+    yr, hr = ss.ssd_scan_plain(x, la, b, c, chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    for got, ref in ((y, yr), (h, hr)):
+        assert got.shape == ref.shape
+        limit = 2e-4 * ref.abs() + 2e-4 * ref.abs().max()
+        assert bool(((got - ref).abs() <= limit).all()), (
+            BH, S, P, N, chunk, ((got - ref).abs() / limit).max().item())
+
+
+# (R, C, dtype): rows path up to its 12288-column limit, the long-row
+# path from 12289 columns with a ragged last slice, bf16 in both
+SOFTMAX_SHAPES = [(300, 64, torch.float32), (5, 1000, torch.float32),
+                  (3, 12288, torch.float32), (2, 12289, torch.float32),
+                  (3, 50000, torch.float32), (4, 1024, torch.bfloat16),
+                  (4, 50000, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("R,C,dtype", SOFTMAX_SHAPES)
+def test_online_softmax_close(dev, R, C, dtype):
+    """Kernel 14 against its plain version: f32 within 2e-5 relative
+    plus 2e-6 of the largest output; bf16 within 2**-7 (one bf16
+    rounding apart).  One launch up to 12288 columns, two above."""
+    from repro_torch.kernels import online_softmax as sm
+    rng = _gen(23)
+    x = _t((rng.standard_normal((R, C)) * 4).astype(np.float32), dev, dtype)
+    x[0, :4] = torch.tensor([1e4, -1e4, 0.0, 1e4], device=dev).to(dtype)
+    before = sm.online_softmax.launches
+    out = sm.online_softmax(x)
+    ref = sm.online_softmax_plain(x)
+    torch.cuda.synchronize()
+    assert sm.online_softmax.launches == before + (
+        1 if C <= sm.ROWS_MAX_C else 2)
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        limit = 2e-5 * ref.abs() + 2e-6 * ref.abs().max()
+    else:
+        limit = 2 ** -7 * ref.float().abs()
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= limit).all()), (R, C, (err / limit).max().item())
+    torch.testing.assert_close(out.float().sum(-1),
+                               torch.ones(R, device=dev), rtol=1e-2,
+                               atol=0)
+
+
+def test_new_kernel_wrappers_reject_bad_inputs(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import online_softmax as sm
+    from repro_torch.kernels import ssd_scan as ss
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    k = torch.zeros((1, 8, 2, 64), device=dev)
+    fa.flash_attention(q, k, k)
+    for exc, args in (
+            (TypeError, (q, k.bfloat16(), k.bfloat16())),
+            (TypeError, (q.half(), k.half(), k.half())),
+            (ValueError, (q.transpose(1, 2).contiguous().transpose(1, 2),
+                          k, k)),
+            (ValueError, (q, torch.zeros((1, 8, 3, 64), device=dev),
+                          torch.zeros((1, 8, 3, 64), device=dev))),
+            (ValueError, (torch.zeros((1, 8, 2, 320), device=dev),
+                          torch.zeros((1, 8, 2, 320), device=dev),
+                          torch.zeros((1, 8, 2, 320), device=dev))),
+            (ValueError, (q, k.cpu(), k.cpu()))):
+        with pytest.raises(exc):
+            fa.flash_attention(*args)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k, window=0)
+    x = torch.zeros((2, 64, 8), device=dev)
+    la = torch.zeros((2, 64), device=dev)
+    b = torch.zeros((2, 64, 4), device=dev)
+    ss.ssd_scan(x, la, b, b, chunk=16)
+    for exc, args, kw in (
+            (TypeError, (x.bfloat16(), la, b, b), {}),
+            (ValueError, (x, la[:, :32].contiguous(), b, b), {}),
+            (ValueError, (x, la, b.transpose(0, 1).contiguous()
+                          .transpose(0, 1), b), {}),
+            (ValueError, (torch.zeros((2, 512, 8), device=dev),
+                          torch.zeros((2, 512), device=dev),
+                          torch.zeros((2, 512, 4), device=dev),
+                          torch.zeros((2, 512, 4), device=dev)),
+             {"chunk": 256}),
+            (ValueError, (torch.zeros((1, 128, 8), device=dev),
+                          torch.zeros((1, 128), device=dev),
+                          torch.zeros((1, 128, 128), device=dev),
+                          torch.zeros((1, 128, 128), device=dev)),
+             {"chunk": 128})):
+        with pytest.raises(exc):
+            ss.ssd_scan(*args, **kw)
+    s = torch.zeros((4, 100), device=dev)
+    sm.online_softmax(s)
+    for exc, arg in ((TypeError, s.half()), (ValueError, s[None]),
+                     (ValueError, s.t().contiguous().t())):
+        with pytest.raises(exc):
+            sm.online_softmax(arg)

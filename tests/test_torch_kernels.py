@@ -324,6 +324,7 @@ def test_build_flags_target_hopper_without_fast_math():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert {p.name for p in _build.sources()} == {"cim_gemm.cu",
-                                                  "decode_attention.cu"}
+    assert {p.name for p in _build.sources()} == {
+        "cim_gemm.cu", "decode_attention.cu", "flash_attention.cu",
+        "online_softmax.cu", "ssd_scan.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
