@@ -21,9 +21,8 @@ the JAX package.  Phases, each printing its lines:
             shapes (M = 8, 64, 256, 5056) and ragged ones; each head of
             the flash-decode walks bitwise at G = 4 (a TP-2 rank's heads
             of gemma-2b's one KV head) and at G = 8.
-   ops    — kernels 12-14 through ``repro_torch.kernels.ops``, their
-            only entry point (no model path of the reference calls
-            them), at the widths of models in the registry: flash
+   ops    — kernels 12-14 through ``repro_torch.kernels.ops`` at the
+            widths of models in the registry: flash
             attention at gemma-2b's prefill (S 2048, 8 heads on 1 KV head,
             D 256, bf16, causal), gemma3-4b's sliding layers (S 4096, KH 4,
             window 1024), qwen2-moe's (16 heads of 128) and an f32 case
@@ -53,6 +52,15 @@ the JAX package.  Phases, each printing its lines:
             and the reduced config's logits too.
    profile — one decode step's wall time beside the device time the
             profiler attributes to kernels, and the largest kernels.
+   forward-long — one cacheless ``Model.forward`` of 4096 tokens on the
+            same full-plan gemma-2b: attention above 2048 tokens runs on
+            kernel 12, exactly 18 launches (one a layer) beside the
+            plan's GEMMs; logits within 5% of the largest |logit| of the
+            same forward given explicit positions (the plain blockwise
+            path), argmax equal up to near ties; the dense path's logits
+            beside both (how far the reference's own roundings land
+            apart); ms per forward and kernel 12's share of the device
+            time.
    serve-tp — gemma-2b is freed; two tensor-parallel ranks (processes
             joined by gloo, both on the one card) draw full-width
             gemma-2b in turn, keep their shards and serve the serve
@@ -88,14 +96,15 @@ the JAX package.  Phases, each printing its lines:
             requant epilogue at the shared MLP's shapes, and kernel 6 at
             the TP partials' shapes (beside ``torch._int_mm``), and
             kernels 12-14 at the ops phase's shapes (beside SDPA and
-            ``torch.softmax``; none computes the SSD scan).
+            ``torch.softmax``; none computes the SSD scan), kernel 12's
+            bf16 cases on both of its bodies.
             Collectives are never captured in a graph.
 
 The serve runs must launch kernels 12-14 zero times and every other
-kernel at least once; the kernels' JSON record takes 12-14's launches
-from the ops phase.  The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
-that line.
+kernel at least once; the kernels' JSON record takes kernel 12's
+launches from forward-long and 13-14's from the ops phase.  The last two
+lines are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before that line.
 """
 from __future__ import annotations
 
@@ -161,9 +170,10 @@ SOURCES = {
     "online_softmax": ("src/repro_torch/csrc/online_softmax.cu",
                        "src/repro/kernels/online_softmax.py:58"),
 }
-# Kernels 12-14 are reached through the ops surface only (no model path
-# of the reference calls them); the ops phase drives them at the widths
-# of models in the registry, the serve runs launch them 0 times.
+# Kernels 12-14 are reached through the ops surface, and kernel 12 also
+# by the cacheless forward above 2048 tokens (forward-long); the ops
+# phase drives them at the widths of models in the registry, the serve
+# runs launch them 0 times.
 OPS_KERNELS = ("flash_attention", "ssd_scan", "online_softmax")
 # (case, B, Sq, Skv, H, KH, D, dtype, causal, window); the first is the
 # timed row
@@ -210,6 +220,12 @@ PAGED_PROMPTS = [600, 520, 450, 380, 300, 240, 180, 120, 90, 64, 48, 40, 32,
 LONG_MAX_LEN = 8192
 LONG_PROMPTS = [5000, 2500, 300, 40]
 LONG_NEW_TOKENS = 16
+# the cacheless forward above 2048 tokens: kernel 12's model path.  The
+# port's logit tolerance against JAX at the smoke size
+# (tests/test_torch_model.py), printed for each pair of attention paths
+# and used for the near-tie rule of the argmax
+LONG_FORWARD_S = 4096
+LONG_LOGIT_ATOL = 0.15
 # tensor parallelism: ranks on the one card, joined by gloo
 TP = 2
 TP_BACKEND = "gloo"
@@ -666,10 +682,9 @@ def _softmax_input(torch, gen, case, R, C, dtype):
 
 
 def phase_ops(torch) -> tuple[dict, dict]:
-    """Kernels 12-14 through ``repro_torch.kernels.ops``, their only entry
-    point (as in the reference), at the widths of models in the
-    registry: the counters are set to 0, every case is driven, the
-    counters are read and must be exact.  Then each output is held
+    """Kernels 12-14 through ``repro_torch.kernels.ops`` at the widths of
+    models in the registry: the counters are set to 0, every case is
+    driven, the counters are read and must be exact.  Then each output is held
     against its plain version, and flash attention at gemma-2b and
     gemma3-4b also against the model's prefill attention
     (``models.attention.dense_attention`` at positions arange(S)).
@@ -1193,6 +1208,115 @@ def phase_profile(torch, model, seed: int, tag: str = "profile") -> None:
         say(f"[{tag}]   {ms:8.3f} ms  {cnt:5d} x  {key[:90]}")
 
 
+def phase_forward_long(torch, model) -> dict:
+    """The cacheless forward above 2048 tokens on the shared full-plan
+    gemma-2b: one ``Model.forward`` of ``LONG_FORWARD_S`` tokens with the
+    model's own positions attends on kernel 12, exactly one launch per
+    layer, beside the plan's GEMMs.  Its logits are held against the same
+    forward given explicit ``arange`` positions, which attends with the
+    plain blockwise path (``models.attention.blockwise_attention``), by
+    this script's rule for full-width logits of a kernel path against a
+    plain path (``LOGITS_ATOL_REL`` of the largest |logit|), the argmax
+    equal wherever the blockwise path's top-2 margin is wider than twice
+    ``LONG_LOGIT_ATOL``.  Beside that, the dense path (the threshold
+    raised to S for one forward): how far two of the reference's own
+    roundings of one function land apart, and whether each pair stays
+    within ``LONG_LOGIT_ATOL``.  Prints ms per forward on the kernel and
+    the blockwise paths and kernel 12's share of the device time
+    (profiler).  Returns the launch counts of the kernel path's
+    forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention as attn_mod
+
+    cfg, S = model.cfg, LONG_FORWARD_S
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    toks = torch.randint(0, cfg.vocab, (1, S), device=DEVICE, generator=gen)
+    pos = torch.arange(S, device=DEVICE)[None]
+    with torch.no_grad():
+        _sync(torch)
+        reset_launch_counts()
+        kern = model(toks)
+        _sync(torch)
+        counts = launch_counts()
+        plain = model(toks, positions=pos)
+        threshold = attn_mod.DENSE_SEQ_THRESHOLD
+        attn_mod.DENSE_SEQ_THRESHOLD = S
+        try:
+            dense = model(toks)
+        finally:
+            attn_mod.DENSE_SEQ_THRESHOLD = threshold
+        _sync(torch)
+    want = expected_launches(cfg, 0, 1)
+    want["flash_attention"] = cfg.n_layers
+    say(f"[forward-long] gemma-2b, full plan, S {S}: launches "
+        f"{json.dumps(counts)}")
+    need(counts == want, f"forward-long: launch counts {counts} != {want}")
+    need(kern.shape == (1, S, cfg.vocab) and bool(torch.isfinite(kern).all()),
+         "forward-long: logits shape or non-finite")
+    errs = {pair: (a - b).abs().max().item() for pair, a, b in (
+        ("kernel 12 vs blockwise", kern, plain),
+        ("kernel 12 vs dense", kern, dense),
+        ("blockwise vs dense", plain, dense))}
+    tol = LOGITS_ATOL_REL * plain.abs().max().item()
+    for pair, err in errs.items():
+        say(f"[forward-long] logits {pair}: max_abs_err={err:.4g} "
+            f"({'within' if err <= LONG_LOGIT_ATOL else 'over'} "
+            f"{LONG_LOGIT_ATOL})")
+    top2 = plain.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])
+    differ = kern.argmax(-1) != plain.argmax(-1)
+    worst = margin[differ].max().item() if bool(differ.any()) else 0.0
+    err = errs["kernel 12 vs blockwise"]
+    say(f"[forward-long] kernel 12 vs blockwise: max_abs_err={err:.4g} "
+        f"(tol {tol:.4g}: {LOGITS_ATOL_REL:g} of the largest |logit|), "
+        f"argmax differs at {int(differ.sum())} of {S} positions (widest "
+        f"margin there {worst:.4g}, limit {2 * LONG_LOGIT_ATOL})")
+    need(err <= tol, "forward-long: logits disagree")
+    need(worst <= 2 * LONG_LOGIT_ATOL,
+         "forward-long: argmax differs away from a near tie")
+    del kern, plain, dense
+
+    def wall_ms(fn, n=3):
+        with torch.no_grad():
+            fn()
+            _sync(torch)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            _sync(torch)
+        return (time.perf_counter() - t0) * 1e3 / n
+    kern_ms = wall_ms(lambda: model(toks))
+    plain_ms = wall_ms(lambda: model(toks, positions=pos))
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        model(toks)
+        _sync(torch)
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (getattr(e, "self_cuda_time_total", 0) if t is None else t) / 1e3
+        rows.append((t, e.count, e.key))
+    dev_ms = sum(r[0] for r in rows)
+    flash_ms = sum(r[0] for r in rows if "flash_attention" in r[2])
+    say(f"[forward-long] {kern_ms:.2f} ms per forward on kernel 12, "
+        f"{plain_ms:.2f} ms on the blockwise path")
+    if dev_ms == 0:
+        say("[forward-long] device time not measured (the profiler saw no "
+            "device activity)")
+    else:
+        say(f"[forward-long] profiled forward: {dev_ms:.2f} ms of device "
+            f"kernels, kernel 12 {flash_ms:.3f} ms ({flash_ms / dev_ms:.3f}"
+            f" of it, {cfg.n_layers} launches)")
+        for t, cnt, key in sorted(rows, reverse=True)[:6]:
+            say(f"[forward-long]   {t:9.3f} ms  {cnt:4d} x  {key[:90]}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # tensor parallelism: TP ranks on the one card
 # ---------------------------------------------------------------------------
@@ -1365,7 +1489,8 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
             need(r["launches"] == want,
                  f"{name}: launch counts {r['launches']} != {want}")
             need(r["collectives"] == dict(max=2 * L * fwd, sum=2 * L * fwd,
-                                          gather=L * fwd if moe else 0),
+                                          gather=L * fwd if moe else 0,
+                                          bcast=0),
                  f"{name}: collectives {r['collectives']}")
             for k in total:
                 total[k] += r["launches"][k]
@@ -1768,7 +1893,8 @@ def times_ops(torch, card: str) -> list:
     beside its bound, its plain version and one PyTorch call (SDPA with
     GQA and the window as a mask for flash attention, ``torch.softmax``;
     none computes the SSD scan).  The first case of each kernel is its
-    row of the kernels line, the others are printed."""
+    row of the kernels line, the others are printed; a flash case that
+    runs on the tensor cores is also timed on the CUDA-core body."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import online_softmax as sm
     from repro_torch.kernels import ref as kref
@@ -1809,6 +1935,15 @@ def times_ops(torch, card: str) -> list:
                   is_causal=causal and mask is None, enable_gqa=True),
               nbytes, 4 * B * H * D * int(visible.sum()),
               BF16_OPS_PER_S if dtype == "bf16" else F32_OPS_PER_S, i == 0)
+        body = fa.body_for(q.dtype, D)
+        if body == "mma":    # the CUDA-core body at the same shape
+            fma_ms = time_ms(torch, [
+                (lambda a=a: fa.flash_attention(*a, causal, window,
+                                                body="fma"))
+                for a in insts])
+            say(f"[times] flash_attention ({case}) on the CUDA cores' f32 "
+                f"body: {fma_ms:.4f} ms (the tensor-core body above) on "
+                f"{card}")
         del insts, q, k, v, qt, kt, vt, visible
 
     # the scan: the least work counts C·Bᵀ and G·X on and below the
@@ -1875,6 +2010,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_reference(torch, serve["model"], SEED)
         phase_profile(torch, serve["model"], SEED)
+        long_counts = phase_forward_long(torch, serve["model"])
         cfg = serve["model"].cfg
         ref_input = _reference_input(torch, cfg, SEED + 4)
         ref_logits = reference_logits(torch, serve["model"], ref_input)
@@ -1914,8 +2050,10 @@ def main() -> int:
              f"a kernel was never launched by the serve runs: {counts}")
         need(not any(counts[k] for k in OPS_KERNELS),
              f"a serve run launched a kernel of the ops phase: {counts}")
-        # kernels 12-14: the ops phase's own exact counts
+        # kernels 13 and 14: the ops phase's own exact counts; kernel 12:
+        # its model path's, forward-long
         counts.update({k: ops_counts[k] for k in OPS_KERNELS})
+        counts["flash_attention"] = long_counts["flash_attention"]
         kernels = phase_times(torch, serve, moe, counts, errs, card)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -4,44 +4,58 @@
 // (_flash_kernel): causal or sliding-window attention of a whole prompt,
 // an online softmax over KV blocks, GQA through the KV index map h // G.
 //
-// What bounds it on the card: the two products, 4 * Sq * Skv * D
-// operations per head (about half of that under the causal mask),
-// against q, k, v and the output read or written once; at gemma-2b's
-// prefill (S 2048, D 256) that is ~900 operations per byte, far above
-// the ~295 where bf16 tensor cores stop waiting for memory, so the bound
-// is arithmetic.  This kernel does that arithmetic in f32 on the CUDA
-// cores (fused multiply-adds, not the tensor cores), so it runs well
-// above the bf16 bound; mma/wgmma tiles are left for later work.
+// What bounds it on the card: the two products, 4 * D operations per
+// visible (query, key) pair and head, against q, k, v and the output read
+// or written once; at gemma-2b's prefill (S 2048, D 256) that is ~900
+// operations per byte, far above the ~295 where bf16 tensor cores stop
+// waiting for memory, so the bound is arithmetic at the tensor cores'
+// rate.  Two bodies:
 //
-// Design: one block per (q tile of BQ = 64 rows, head, batch row); the
-// TPU's sequential kv grid axis becomes a loop inside the block over KV
-// tiles of BK = 32 keys, so the online-softmax state lives in registers
-// for the whole sweep and the output is written once.  The block stages
-// its q tile in shared memory as f32 once; per KV tile it stages K
-// transposed ([d][key], padded against bank conflicts) and V ([key][d]),
-// both as f32, read from KV head h / G in place (KV is never repeated).
-// Warp w owns query rows w, w + 8, ..., w + 56; lane j scores key j of
-// the tile for those 8 rows (float4 reads of q, broadcast), multiplies by
-// 1/sqrt(D) and masks with -1e30, as the reference does; keys past Skv
-// score -inf, so they weigh exactly 0.  The row max and sum are warp
-// shuffles, and the running (m, l) of each row is held by every lane of
-// its warp: m_new = max(m, max s), p = exp(s - m_new), l = l * corr +
-// sum p with corr = exp(m - m_new).  p is rounded to v's dtype before PV
-// when that is bf16 (the reference's p.astype(v.dtype)); l sums the
-// unrounded p.  The lane that owns head dims lane + 32u of a row keeps
-// its accumulators in registers: acc = acc * corr + sum_j p_j v_j, p_j
-// broadcast from lane j by a shuffle.  The end writes
-// acc / max(l, 1e-30) in q's dtype.
+// * bf16 with D % 16 == 0 (every head size of the registry: 64, 128,
+//   256) runs on the tensor cores, FlashAttention-2 style: mma.sync
+//   m16n8k16, bf16 operands, f32 accumulators.  A block of 4 warps owns
+//   BQ = 64 query rows (16 per warp) of one head and walks KV tiles of
+//   BK = 64 keys.  It stages its q tile in shared memory once (bf16) and
+//   double-buffers the K and V tiles with cp.async: tile j + 1 is in
+//   flight while tile j computes.  Keys past Skv and rows past Sq are
+//   zero-filled by the copy (source size 0), head dims past D too (the
+//   tile is DM = 64, 128 or 256 wide).  Rows are 16-byte chunks XOR-
+//   swizzled by row % 8, so that ldmatrix reads 8 rows without bank
+//   conflicts.  S = q K^T comes out of the mma in f32 fragments (q by
+//   ldmatrix as A, K rows by ldmatrix as B); each score is then
+//   __fmul_rn(s, 1/sqrt(D)), masked scores are set to -1e30 and keys past
+//   Skv to -inf, on the tiles that hold a diagonal, a window edge or the
+//   end of the keys only.  The online-softmax state lives in the
+//   fragment layout: a thread holds two rows (lane / 4 and lane / 4 + 8)
+//   and a row's max and sum are quad shuffles (xor 1, 2): m_new = max(m,
+//   max s), p = exp(s - m_new), l = l * corr + sum p over the unrounded
+//   p, corr = exp(m - m_new).  p is then rounded to bf16 (the reference's
+//   p.astype(v.dtype)) and is the A operand of P V straight from
+//   registers; V is read as B by ldmatrix.trans.  The O accumulator (16 x
+//   DM per warp, DM / 2 f32 a thread) stays in registers for the sweep.
+//   Shared memory: 640 * DM bytes (160 KB at D 256: one block an SM).
+// * f32, and bf16 with another D, run on the CUDA cores in f32 fused
+//   multiply-adds (TF32 would miss the f32 tolerance of 2e-5): one block
+//   of 8 warps per 64 query rows, KV tiles of 32 keys, q staged as f32,
+//   K transposed and V staged as f32, one buffer.  Warp w owns query rows
+//   w, w + 8, ..., w + 56; lane j scores key j of the tile for those 8
+//   rows, and the lane that owns head dims lane + 32u of a row keeps its
+//   accumulators; row max and sum are warp shuffles, p_j is broadcast
+//   from lane j.  The same masks, rounding and softmax rules as above.
 //
-// Masks and skipped tiles: the causal mask is aligned top-left (query
-// and key positions both start at 0).  A block walks only the KV tiles
-// between the first visible key of its first row and the last visible
-// key of its last row; the keys it skips are masked for every row of the
-// tile, which the reference's kernel computes to exactly nothing (a
-// masked block before the first live one is erased by corr = exp(-1e30
-// - m) = 0, one after it adds exp(-1e30 - m) = 0).  A row with no
-// visible key attends uniformly over all Skv keys in the reference; a
-// block holding such a row walks every tile, so it does too.
+// Both end by writing acc / max(l, 1e-30) in q's dtype once, from one
+// launch.
+//
+// Masks and skipped tiles (both bodies): the causal mask is aligned
+// top-left (query and key positions both start at 0).  A block walks
+// only the KV tiles between the first visible key of its first row and
+// the last visible key of its last row, heaviest q tiles first; the keys
+// it skips are masked for every row of the tile, which the reference's
+// kernel computes to exactly nothing (a masked block before the first
+// live one is erased by corr = exp(-1e30 - m) = 0, one after it adds
+// exp(-1e30 - m) = 0).  A row with no visible key attends uniformly over
+// all Skv keys in the reference; a block holding such a row walks every
+// tile, so it does too.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -221,6 +235,22 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 }
+// Above 48 KB a kernel needs the attribute; set once per device and
+// kernel, outside any graph capture (the first call of a size is never
+// captured).  ``granted`` is the caller's per-kernel record.
+template <typename K>
+cudaError_t opt_in(K kern, size_t smem, size_t (&granted)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024 && smem > granted[dev % 64]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    granted[dev % 64] = smem;
+  }
+  return cudaSuccess;
+}
 
 template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
@@ -230,18 +260,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const size_t smem =
       sizeof(float) * ((size_t)BQ * Dp + (size_t)Dp * KTS + (size_t)BK * DMAX);
   auto kern = flash_attention_kernel<T, DMAX>;
-  // above 48 KB a kernel needs the attribute; set once per device, outside
-  // any graph capture (the first call of a size is never captured)
   static size_t granted[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = opt_in(kern, smem, granted);
   if (e != cudaSuccess) return (int)e;
-  if (smem > 48 * 1024 && smem > granted[dev % 64]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    granted[dev % 64] = smem;
-  }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, st>>>(static_cast<const T*>(q),
                                static_cast<const T*>(k),
@@ -264,18 +285,341 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
                         scale, st);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16, D % 16 == 0)
+// ---------------------------------------------------------------------------
+constexpr int MT = 128;       // threads per block: 4 warps
+constexpr int MBQ = 64;       // query rows per block, 16 per warp
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// element offset of 16-byte chunk c of row r in a [rows][DM] tile
+template <int DM>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DM + ((c ^ (r & 7)) << 3);
+}
+
+// 16 bytes global -> shared; zero-fills when !ok (source size 0)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col); bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// Copy rows row0 .. row0 + ROWS - 1 of a [rows, stride] bf16 matrix (D
+// columns used) into a swizzled [ROWS][DM] tile; rows past nrows and
+// columns past D read as zero.
+template <int DM, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int64_t stride, int row0,
+                                          int nrows, int D, int tid) {
+  constexpr int CPR = DM / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = tid; i < ROWS * CPR; i += MT) {
+    const int r = i / CPR, c = i % CPR;
+    const int row = row0 + r;
+    const bool ok = row < nrows && c * 8 < D;
+    const bf16* g = ok ? src + (int64_t)row * stride + c * 8 : src;
+    cp_async16(smem_addr(dst + swz<DM>(r, c)), g, ok);
+  }
+}
+
+// Byte offset, in a swizzled [rows][DM] tile, of row ``r`` and of chunk
+// ``8 * (c / 8) + j`` for the chunk phase j = c % 8: the part that
+// varies with c / 8 is a constant (128 bytes a step) that the unrolled
+// loops fold into the ldmatrix address.
+template <int DM>
+__device__ __forceinline__ uint32_t tile_off(int r, int j) {
+  return (uint32_t)(r * DM + ((j ^ (r & 7)) << 3)) * 2u;
+}
+
+// q [B, Sq, H, D]; k, v [B, Skv, KH, D]; out [B, Sq, H, D], all bf16;
+// D % 16 == 0, D <= DM.  Grid (H, q tiles, B): every head's heaviest q
+// tile is scheduled before any lighter one.
+template <int DM, int BK, int MINB>
+__global__ void __launch_bounds__(MT, MINB)
+flash_attention_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           int Sq, int Skv, int H, int KH, int D, int causal,
+                           int window, float scale) {
+  constexpr int KS = DM / 16;  // k-steps of q K^T
+  constexpr int ON = DM / 8;   // 8-wide column tiles of O
+  constexpr int SN = BK / 8;   // 8-wide column tiles of S
+  constexpr uint32_t ROW16 = 16 * DM * 2;       // bytes of 16 tile rows
+  constexpr uint32_t KV_BYTES = BK * DM * 2;    // one K or V buffer
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [MBQ][DM]
+  bf16* s_k = s_q + MBQ * DM;                      // [2][BK][DM]
+  bf16* s_v = s_k + 2 * BK * DM;                   // [2][BK][DM]
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MBQ;
+  const int kh = h / (H / KH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // visible keys of query qp: [lo, hi]
+  auto lo_of = [&](int qp) {
+    return window > 0 ? max(0, qp - window + 1) : 0;
+  };
+  auto hi_of = [&](int qp) { return causal ? min(qp, Skv - 1) : Skv - 1; };
+  const int q_last = min(q0 + MBQ, Sq) - 1;
+  int kv_lo = lo_of(q0), kv_hi = hi_of(q_last);
+  const bool empty_row = lo_of(q_last) > hi_of(q_last);
+  if (empty_row) {  // an empty row: uniform over all keys
+    kv_lo = 0;
+    kv_hi = Skv - 1;
+  }
+  // tiles where every row of the block sees every key need no mask
+  const int full_lo = empty_row ? Skv : lo_of(q_last);
+  const int full_hi = hi_of(q0);
+
+  const int64_t qs = (int64_t)H * D, kvs = (int64_t)KH * D;
+  const bf16* qb = q + (int64_t)b * Sq * qs + (int64_t)h * D;
+  const bf16* kb = k + (int64_t)b * Skv * kvs + (int64_t)kh * D;
+  const bf16* vb = v + (int64_t)b * Skv * kvs + (int64_t)kh * D;
+
+  const int kt0 = kv_lo / BK, kt1 = kv_hi / BK;
+  load_tile<DM, MBQ>(s_q, qb, qs, q0, Sq, D, tid);
+  load_tile<DM, BK>(s_k, kb, kvs, kt0 * BK, Skv, D, tid);
+  load_tile<DM, BK>(s_v, vb, kvs, kt0 * BK, Skv, D, tid);
+  cp_async_commit();
+
+  // ldmatrix addresses: lane l gives row l % 16 (q; chunk + l / 16),
+  // for K rows 8 * (l / 16) + l % 8 (chunk + l / 8 % 2), for V rows
+  // 8 * (l / 8 % 2) + l % 8 (chunk + l / 16), in chunk phases j = 0..3
+  const int mi = lane >> 3;
+  uint32_t q_off[4], k_off[4], v_off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    q_off[j] = smem_addr(s_q) +
+               tile_off<DM>(warp * 16 + (lane & 15), 2 * j + (lane >> 4));
+    k_off[j] = tile_off<DM>((mi >> 1) * 8 + (lane & 7), 2 * j + (mi & 1));
+    v_off[j] = tile_off<DM>((mi & 1) * 8 + (lane & 7), 2 * j + (mi >> 1));
+  }
+  const uint32_t k_base = smem_addr(s_k), v_base = smem_addr(s_v);
+
+  // a thread's rows: qr and qr + 8; its columns in an 8-wide tile:
+  // 2 * (lane % 4) and + 1
+  const int qr = q0 + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  float o[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  for (int kt = kt0; kt <= kt1; ++kt) {
+    const int buf = (kt - kt0) & 1;
+    if (kt < kt1) {  // the next tile's copies fly while this one computes
+      load_tile<DM, BK>(s_k + (buf ^ 1) * BK * DM, kb, kvs, (kt + 1) * BK,
+                        Skv, D, tid);
+      load_tile<DM, BK>(s_v + (buf ^ 1) * BK * DM, vb, kvs, (kt + 1) * BK,
+                        Skv, D, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t kbuf = k_base + buf * KV_BYTES;
+    const uint32_t vbuf = v_base + buf * KV_BYTES;
+
+    // S = q K^T: 16 rows x BK keys a warp, SN column tiles of 8 keys
+    float s[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, q_off[kk & 3] + (kk >> 2) * 128);
+#pragma unroll
+      for (int np = 0; np < SN / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4(bb, kbuf + k_off[kk & 3] + (kk >> 2) * 128 + np * ROW16);
+        mma_bf16(s[2 * np], a, bb[0], bb[1]);
+        mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+
+    // scale, then mask on the diagonal / window-edge / last tiles
+    const int k0 = kt * BK;
+    const bool edge = !(k0 + BK <= Skv && full_lo <= k0 &&
+                        k0 + BK - 1 <= full_hi);
+#pragma unroll
+    for (int n = 0; n < SN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[n][e], scale);
+        if (edge) {
+          const int kp = k0 + 8 * n + cq + (e & 1);
+          const int qp = qr + 8 * (e >> 1);
+          const bool vis = (!causal || kp <= qp) &&
+                           (window <= 0 || kp > qp - window);
+          x = kp >= Skv ? -INFINITY : (vis ? x : NEG_INF);
+        }
+        s[n][e] = x;
+      }
+    }
+
+    // online softmax per row (a row lives in one quad)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < SN; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float corr[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      corr[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    // p rounded to bf16, packed as the A fragments of P V
+    uint32_t p[SN][2];
+#pragma unroll
+    for (int n = 0; n < SN; ++n) {
+      const float p0 = expf(s[n][0] - mx[0]), p1 = expf(s[n][1] - mx[0]);
+      const float p2 = expf(s[n][2] - mx[1]), p3 = expf(s[n][3] - mx[1]);
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      p[n][0] = pack_bf16(p0, p1);
+      p[n][1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(FULL, rs[i], 1);
+      rs[i] += __shfl_xor_sync(FULL, rs[i], 2);
+      l[i] = l[i] * corr[i] + rs[i];
+    }
+    // a row whose max did not move has corr exactly 1: skip the rescale
+    // when that holds for the whole warp
+    if (__any_sync(FULL, corr[0] != 1.0f || corr[1] != 1.0f)) {
+#pragma unroll
+      for (int n = 0; n < ON; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+    }
+
+    // O += P V: k-steps of 16 keys, V rows as B by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0],
+                             p[2 * kk + 1][1]};
+#pragma unroll
+      for (int dp = 0; dp < DM / 16; ++dp) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vbuf + v_off[dp & 3] + (dp >> 2) * 128 + kk * ROW16);
+        mma_bf16(o[2 * dp], a, bb[0], bb[1]);
+        mma_bf16(o[2 * dp + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled by the next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = qr + 8 * i;
+    if (qp >= Sq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    bf16* orow = out + ((int64_t)b * Sq + qp) * qs + (int64_t)h * D;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      const int d = 8 * n + cq;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(o[n][2 * i] / lc, o[n][2 * i + 1] / lc);
+    }
+  }
+}
+
+template <int DM, int BK, int MINB>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Skv, int H, int KH, int D, int causal, int window,
+               float scale, cudaStream_t st) {
+  const size_t smem = sizeof(bf16) * (size_t)(MBQ + 4 * BK) * DM;
+  auto kern = flash_attention_mma_kernel<DM, BK, MINB>;
+  static size_t granted[64] = {};
+  cudaError_t e = opt_in(kern, smem, granted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, (Sq + MBQ - 1) / MBQ, B);
+  kern<<<grid, MT, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KH, D,
+      causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// kind: 1 = float32, 2 = bfloat16 (q, k, v and out).  0 < D <= 256,
-// H % KH == 0, window 0 = none (checked by the wrapper).
+// kind: 1 = float32, 2 = bfloat16 (q, k, v and out).  body: 0 = the CUDA
+// cores' f32 body, 1 = the tensor-core body (bf16, D % 16 == 0, 16-byte
+// aligned q, k, v and out).  0 < D <= 256, H % KH == 0, window 0 = none
+// (checked by the wrapper).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int kind, int B, int Sq, int Skv, int H,
-                           int KH, int D, int causal, int window, float scale,
-                           void* stream) {
+                           void* out, int kind, int body, int B, int Sq,
+                           int Skv, int H, int KH, int D, int causal,
+                           int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 256 || KH < 1 || H % KH) return (int)cudaErrorInvalidValue;
+  if (body == 1) {
+    if (kind != 2 || D % 16) return (int)cudaErrorInvalidValue;
+    if (D <= 64)
+      return launch_mma<64, 64, 2>(q, k, v, out, B, Sq, Skv, H, KH, D,
+                                   causal, window, scale, st);
+    if (D <= 128)
+      return launch_mma<128, 64, 2>(q, k, v, out, B, Sq, Skv, H, KH, D,
+                                    causal, window, scale, st);
+    return launch_mma<256, 64, 1>(q, k, v, out, B, Sq, Skv, H, KH, D, causal,
+                                  window, scale, st);
+  }
   if (kind == 2)
     return launch_d<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KH, D, causal,
                                    window, scale, st);

@@ -1,13 +1,15 @@
 """Flash-attention prefill (port of ``repro/kernels/flash_attention.py``).
 
 Causal or sliding-window attention of a whole prompt with an online
-softmax over KV tiles; the CUDA body is ``csrc/flash_attention.cu``,
-whose note says what bounds it and how it follows the reference (GQA by
-reading KV head ``h // G``, never repeating KV; f32 scores; ``p``
+softmax over KV tiles; the CUDA bodies are ``csrc/flash_attention.cu``,
+whose note says what bounds them and how they follow the reference (GQA
+by reading KV head ``h // G``, never repeating KV; f32 scores; ``p``
 rounded to v's dtype before PV; masked scores ``-1e30``; KV tiles that
 no query row of a tile can see are skipped, which computes the same
-function).  The wrapper takes its plain version for CPU tensors; for
-CUDA tensors it launches the kernel or raises, and counts the launch.
+function).  bf16 with ``D % 16 == 0`` runs on the tensor cores
+(``mma.sync``), f32 and any other bf16 head size on the CUDA cores.  The
+wrapper takes its plain version for CPU tensors; for CUDA tensors it
+launches the kernel or raises, and counts the launch.
 
 q:   [B, Sq, H, D]    (f32 or bf16; D <= 256)
 k,v: [B, Skv, KH, D]  (q's dtype; H % KH == 0)
@@ -29,6 +31,9 @@ from ._launch import (DTYPE_CODE, F, I, P, bind, check, on_cpu, ptr,
 
 NEG_INF = ref.NEG_INF
 MAX_HEAD_DIM = 256
+BODIES = ("mma", "fma")
+# the tensor-core body's 16-byte copies: q, k, v rows start 16-byte aligned
+_ALIGN = 16
 
 _LIB = "flash_attention"
 
@@ -55,11 +60,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
+def body_for(dtype: torch.dtype, D: int) -> str:
+    """The body a call takes by default: the tensor cores' ("mma") for
+    bf16 with ``D % 16 == 0``, else the CUDA cores' f32 one ("fma")."""
+    return "mma" if dtype == torch.bfloat16 and D % 16 == 0 else "fma"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None, *,
+                    body: str | None = None) -> torch.Tensor:
     """Prefill attention of q over k/v (see the module note for shapes
-    and masks).  One launch on CUDA tensors."""
+    and masks).  One launch on CUDA tensors.  ``body`` ("mma" or "fma")
+    overrides :func:`body_for`; "mma" needs bf16 and ``D % 16 == 0``."""
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     if q.dim() != 4 or k.dim() != 4:
@@ -70,6 +82,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (k.shape[0], k.shape[3]) != (B, D) or H % KH:
         raise ValueError(f"k: shape {tuple(k.shape)} does not fit q "
                          f"{tuple(q.shape)} (H % KH must be 0)")
+    if body is not None and body not in BODIES:
+        raise ValueError(f"body must be one of {BODIES}, got {body!r}")
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal, window)
     require(q, "q", (torch.float32, torch.bfloat16))
@@ -78,12 +92,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D > MAX_HEAD_DIM or Sq == 0 or Skv == 0:
         raise ValueError(f"flash_attention takes 0 < S and D <= "
                          f"{MAX_HEAD_DIM}; got Sq={Sq}, Skv={Skv}, D={D}")
+    body = body or body_for(q.dtype, D)
+    if body == "mma":
+        if body_for(q.dtype, D) != "mma":
+            raise ValueError(f"the tensor-core body takes bf16 with "
+                             f"D % 16 == 0; got {q.dtype}, D={D}")
+        for name, a in (("q", q), ("k", k), ("v", v)):
+            if a.data_ptr() % _ALIGN:
+                raise ValueError(f"{name} must start {_ALIGN}-byte aligned "
+                                 f"for the tensor-core body")
     out = torch.empty_like(q)
     fn = bind(_LIB, "flash_attention_launch",
-              [P, P, P, P, I, I, I, I, I, I, I, I, I, F, P])
+              [P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P])
     check(_LIB, fn(ptr(q), ptr(k), ptr(v), ptr(out), DTYPE_CODE[q.dtype],
-                   B, Sq, Skv, H, KH, D, int(causal), window or 0,
-                   1.0 / math.sqrt(D), stream(q)), "flash_attention")
+                   int(body == "mma"), B, Sq, Skv, H, KH, D, int(causal),
+                   window or 0, 1.0 / math.sqrt(D), stream(q)),
+          "flash_attention")
     flash_attention.launches += 1
     return out
 

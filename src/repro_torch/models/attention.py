@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.ref import NEG_INF, div
 from repro_torch.quant import tp as _tp
 from repro_torch.quant.linear import (QuantizedLinear, _resolve_use_kernel,
@@ -25,6 +26,9 @@ from repro_torch.quant.linear import (QuantizedLinear, _resolve_use_kernel,
 from .layers import apply_rope, truncated_normal_, weight
 
 EMPTY_SLOT = 2 ** 30
+# without a cache, sequences longer than this attend blockwise (the
+# reference's rule): dense scores would grow as S**2
+DENSE_SEQ_THRESHOLD = 2048
 
 
 class Attention(nn.Module):
@@ -84,6 +88,93 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(B, Sq, H, Dv)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (online softmax over KV blocks; the reference's
+# forward, without its custom VJP)
+# ---------------------------------------------------------------------------
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
+                        window: Optional[int] = None, q_block: int = 512,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """The reference's ``blockwise_attention`` forward: q blocks of
+    ``q_block`` rows, each sweeping KV blocks of ``kv_block`` keys with
+    the online-softmax state (m, l, acc) in f32, so no [Sq, Skv] score
+    matrix is built.  Padded queries get position -1 and padded keys the
+    2**30 sentinel; the mask is the additive -1e30 bias on f32
+    positions.  The rounding is the reference's: the score einsum runs in
+    q's dtype and is then cast to f32, the PV einsum in v's dtype (p
+    rounded to it) is added to the f32 accumulator.  This is the plain
+    version of the path that :func:`attention_apply` gives kernel 12."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Skv)
+    nq = -(-Sq // q_block)
+    nk = -(-Skv // kv_block)
+    pad_q = nq * q_block - Sq
+    pad_k = nk * kv_block - Skv
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pad_q), value=-1)
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad_k),
+                                         value=EMPTY_SLOT)
+    qp, kp = q_pos.float(), kv_pos.float()
+    outs = []
+    for i in range(nq):
+        rows = slice(i * q_block, (i + 1) * q_block)
+        qg = q[:, rows].reshape(B, q_block, KH, G, D)
+        m = torch.full((B, KH, G, q_block), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KH, G, q_block, Dv), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            keys = slice(j * kv_block, (j + 1) * kv_block)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                             k[:, keys]).float() * scale
+            s = s + _mask_bias(qp[:, rows], kp[:, keys], kind,
+                               window)[:, None, None]
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype), v[:, keys])
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, Dv))
+    return torch.cat(outs, dim=1)[:, :Sq].to(q.dtype)
+
+
+def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        positions: torch.Tensor, kind: str,
+                        window: Optional[int] = None,
+                        aligned_positions: bool = False) -> torch.Tensor:
+    """Attention of a whole sequence over itself, without a cache, as the
+    reference: :func:`dense_attention` up to ``DENSE_SEQ_THRESHOLD``
+    tokens, the online softmax over KV blocks above it.
+
+    Above the threshold, a CUDA call with the model's own positions
+    (``aligned_positions``: ``arange(S)`` in every row) and a causal or
+    sliding mask is one launch of kernel 12, whose causal mask is aligned
+    top-left.  The kernel takes no positions operand, so caller-given
+    positions take :func:`blockwise_attention` on either device, as CPU
+    tensors do: a dispatch on the input, not a fallback on failure."""
+    if q.shape[1] <= DENSE_SEQ_THRESHOLD:
+        return dense_attention(q, k, v, positions, positions, kind, window)
+    if aligned_positions and q.is_cuda and kind in ("causal", "sliding"):
+        return _fa.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            window=window if kind == "sliding" else None)
+    return blockwise_attention(q, k, v, positions, positions, kind, window)
 
 
 # ---------------------------------------------------------------------------
@@ -292,7 +383,8 @@ def attention_apply(attn: Attention, x: torch.Tensor,
                     window: Optional[int] = None,
                     rope_theta: float = 10000.0,
                     cache: Optional[dict] = None,
-                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    residual: Optional[torch.Tensor] = None,
+                    aligned_positions: bool = False) -> torch.Tensor:
     """Self-attention over ``x`` [B, S, d]; returns [B, S, d].
 
     ``cache`` — a ring dict ({"k", "v", "pos", "index"[, "k_scale",
@@ -300,6 +392,9 @@ def attention_apply(attn: Attention, x: torch.Tensor,
     "block_tables", "index"[, "k_scale_pages", "v_scale_pages"]}) — is
     written in place and attended over.  ``residual`` is added to the
     output, inside the out-projection's epilogue on the quantized path.
+    Without a cache the sequence attends over itself
+    (:func:`cacheless_attention`); ``aligned_positions`` says that
+    ``positions`` is ``arange(S)`` in every row.
     """
     B, S, _ = x.shape
     qkv_w = getattr(attn, "qkv", None)
@@ -360,8 +455,8 @@ def attention_apply(attn: Attention, x: torch.Tensor,
             out = dense_attention(q, k_r, v_r, positions, cpos, mask_kind,
                                   window)
     else:
-        out = dense_attention(q, k, v, positions, positions, mask_kind,
-                              window)
+        out = cacheless_attention(q, k, v, positions, mask_kind, window,
+                                  aligned_positions)
 
     o_w = attn.o
     if isinstance(o_w, QuantizedLinear):

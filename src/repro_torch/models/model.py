@@ -71,8 +71,11 @@ class Block(nn.Module):
 
 
 def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor,
-                cache: Optional[dict]) -> torch.Tensor:
+                positions: torch.Tensor, cache: Optional[dict],
+                aligned_positions: bool = False) -> torch.Tensor:
+    """One decoder block.  ``aligned_positions``: ``positions`` is
+    ``arange(S)`` in every row (a cacheless forward above 2048 tokens
+    then attends on kernel 12)."""
     mixer, _ = block.spec
     kind, window = "causal", None
     if mixer == "attn_local":
@@ -81,7 +84,8 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
     # the skip connection rides into the out-projection's epilogue
     x = attn_mod.attention_apply(block.attn, h, positions, mask_kind=kind,
                                  window=window, rope_theta=cfg.rope_theta,
-                                 cache=cache, residual=x)
+                                 cache=cache, residual=x,
+                                 aligned_positions=aligned_positions)
     h = rmsnorm_apply(block.ffn_norm, x)
     if block.spec[1] == "moe":
         # as the reference: the residual is added here, not fused into
@@ -138,14 +142,17 @@ class Model(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 last_index: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S] -> logits f32 [B, S, vocab] (or [B, 1, vocab] at
-        each row's ``last_index``)."""
+        each row's ``last_index``).  Without caches, a sequence longer than
+        ``DENSE_SEQ_THRESHOLD`` attends blockwise; with the default
+        positions (``arange(S)``) that is kernel 12 on the card."""
         B, S = tokens.shape
-        if positions is None:
+        aligned = positions is None
+        if aligned:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
         x = embedding_apply(self.embed, tokens)
         for i, block in enumerate(self.layers):
             x = block_apply(block, self.cfg, x, positions,
-                            None if caches is None else caches[i])
+                            None if caches is None else caches[i], aligned)
         x = rmsnorm_apply(self.final_norm, x)
         if last_index is not None:
             rows = torch.arange(B, device=x.device)

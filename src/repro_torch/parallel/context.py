@@ -6,8 +6,9 @@ place the collectives.  Here every rank is a process of its own, holds
 its shards of the weights, and calls the collectives itself through a
 :class:`TPGroup`: the three the tensor-parallel pipeline needs
 (``all_reduce`` MAX on f32 row maxima, ``all_reduce`` SUM on int32
-accumulators, ``all_gather`` of the experts' outputs), each counted by
-kind so that a run can show how many it made.
+accumulators, ``all_gather`` of the experts' outputs) and the engines'
+``broadcast`` of rank 0's deadline verdicts, each counted by kind so
+that a run can show how many it made.
 
 :func:`tp_context` makes a group current for the enclosed scope, as the
 reference's ``sharding_context`` makes a mesh current; the quantized
@@ -38,7 +39,7 @@ import torch.multiprocessing as mp
 
 from repro_torch.device import resolve_device
 
-COLLECTIVES = ("max", "sum", "gather")
+COLLECTIVES = ("max", "sum", "gather", "bcast")
 BACKENDS = ("gloo", "nccl")
 
 
@@ -46,9 +47,9 @@ class TPGroup:
     """One rank's handle on a tensor-parallel group of ``size`` ranks.
 
     ``counts`` holds the collectives made so far by kind (``max``,
-    ``sum``, ``gather``); :meth:`agree` is the engines' end-of-run check
-    and is not counted.  With ``backend="gloo"`` a CUDA tensor is copied
-    to the host for the collective and back."""
+    ``sum``, ``gather``, ``bcast``); :meth:`agree` is the engines'
+    end-of-run check and is not counted.  With ``backend="gloo"`` a CUDA
+    tensor is copied to the host for the collective and back."""
 
     def __init__(self, rank: int = 0, size: int = 1,
                  backend: Optional[str] = None):
@@ -100,6 +101,19 @@ class TPGroup:
                           dtype=torch.uint8, device=src.device)
         dist.all_gather(list(out.chunk(self.size)), src)
         return out.to(t.device).view(t.dtype)
+
+    def broadcast_flags(self, flags: list[bool]) -> list[bool]:
+        """Rank 0's ``flags`` on every rank (the engines' deadline
+        verdicts: rank 0's clock decides); the lists have one length on
+        every rank."""
+        self.counts["bcast"] += 1
+        if self.size == 1:
+            return list(flags)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if self.backend == "nccl" else torch.device("cpu"))
+        t = torch.tensor(flags, dtype=torch.uint8, device=dev)
+        dist.broadcast(t, src=0)
+        return [bool(f) for f in t.tolist()]
 
     def barrier(self) -> None:
         if self.size > 1:

@@ -95,8 +95,8 @@ class ServingEngine:
           (:func:`~repro_torch.parallel.sharding.shard_model`, a
           ``quant_plan`` is required), the KV cache holds the rank's KV
           heads, and every forward runs under the group.  Each rank
-          drives its own engine with the same requests; requests with a
-          deadline are refused, since each rank reads its own clock.
+          drives its own engine with the same requests; deadlines are
+          decided by rank 0's clock (:meth:`_expired`).
 
         * ``max_queue`` — bounded admission queue; when full, ``submit``
           returns ``RequestStatus.REJECTED``.
@@ -220,10 +220,6 @@ class ServingEngine:
     def _enqueue(self, req: Request) -> RequestStatus:
         """Shared admission tail: capacity rejections are typed, not
         raised (see :meth:`submit`)."""
-        if self.tp is not None and req.deadline_s is not None:
-            raise ValueError("deadlines are read from each rank's clock, "
-                             "so ranks could disagree: a tensor-parallel "
-                             "engine serves requests without one")
         if self.closed:
             return self._finish(req, RequestStatus.REJECTED,
                                 "engine closed (draining or shut down)")
@@ -259,12 +255,40 @@ class ServingEngine:
         return int(rng.choice(len(p), p=p))
 
     # ------------------------------------------------------------------
-    def _admit(self, now: float) -> None:
+    def _expired(self, now: float) -> set[int]:
+        """``id()`` of every pending request (active, then queued) whose
+        deadline has passed at ``now``.  Under tensor parallelism rank
+        0's clock decides: when a pending request carries a deadline (a
+        fact every rank shares), rank 0's verdicts reach every rank in
+        one counted broadcast, so all ranks expire the same requests at
+        the same step."""
+        pending = [r for r in self.slot_req if r is not None]
+        pending += self.queue
+        verdicts = [r.expired(now) for r in pending]
+        if self.tp is not None and any(r.deadline_s is not None
+                                       for r in pending):
+            verdicts = self.tp.broadcast_flags(verdicts)
+        return {id(r) for r, v in zip(pending, verdicts) if v}
+
+    def _expire_and_admit(self) -> None:
+        """The head of every step: time out the active requests whose
+        deadline passed, then fill free slots (queued requests found
+        expired on the way time out too)."""
+        expired = self._expired(self._clock())
+        for slot in self._active():
+            req = self.slot_req[slot]
+            if id(req) in expired:
+                self._finish(req, RequestStatus.TIMED_OUT,
+                             "deadline expired mid-decode")
+                self._clear_slot(slot)
+        self._admit(expired)
+
+    def _admit(self, expired: set[int]) -> None:
         """Fill free slots from the queue (prefill path)."""
         for slot in range(self.n_slots):
             while self.slot_req[slot] is None and self.queue:
                 req = self.queue.popleft()
-                if req.expired(now):
+                if id(req) in expired:
                     self._finish(req, RequestStatus.TIMED_OUT,
                                  "deadline expired while queued")
                     continue
@@ -301,14 +325,7 @@ class ServingEngine:
 
     def step(self) -> None:
         """One engine iteration: expire + admit + one batched decode."""
-        now = self._clock()
-        for slot in self._active():
-            req = self.slot_req[slot]
-            if req.expired(now):
-                self._finish(req, RequestStatus.TIMED_OUT,
-                             "deadline expired mid-decode")
-                self._clear_slot(slot)
-        self._admit(now)
+        self._expire_and_admit()
         active = self._active()
         if not active:
             return
@@ -539,7 +556,7 @@ class PagedServingEngine(ServingEngine):
         self.slot_req[slot] = None
         self.slot_fill.pop(slot, None)
 
-    def _admit(self, now: float) -> None:
+    def _admit(self, expired: set[int]) -> None:
         """Assign queued requests to free slots (FIFO, no reordering).
 
         Admission only claims the slot and stages the resume tokens
@@ -553,7 +570,7 @@ class PagedServingEngine(ServingEngine):
                 continue
             while self.queue:
                 req = self.queue[0]
-                if req.expired(now):
+                if id(req) in expired:
                     self.queue.popleft()
                     self._finish(req, RequestStatus.TIMED_OUT,
                                  "deadline expired while queued")
@@ -622,14 +639,7 @@ class PagedServingEngine(ServingEngine):
     def step(self) -> None:
         """One engine iteration: expire + admit + one prefill chunk per
         filling slot + one batched decode for every running slot."""
-        now = self._clock()
-        for slot in self._active():
-            req = self.slot_req[slot]
-            if req.expired(now):
-                self._finish(req, RequestStatus.TIMED_OUT,
-                             "deadline expired mid-decode")
-                self._clear_slot(slot)
-        self._admit(now)
+        self._expire_and_admit()
 
         # chunked prefill: one chunk per filling slot
         C = self.prefill_chunk

@@ -19,8 +19,8 @@ of its own query row's largest |out| (1e-3, for f32 summation order;
 the reference does and the f32 oracle does not).  Kernels 12-14 (flash
 attention, the SSD scan, online softmax) carry the tolerances their
 tests state: flash attention 2e-5 in f32 and 2**-7 of the element plus
-2**-7 of its row in bf16, the scan 2e-4, softmax 2e-5 (f32) and 2**-7
-(bf16).
+2**-7 of its row in bf16 (on both of its bodies), the scan 2e-4,
+softmax 2e-5 (f32) and 2**-7 (bf16).
 """
 from __future__ import annotations
 
@@ -755,7 +755,8 @@ def test_tp_two_ranks_on_one_card_bitwise(dev):
                      timeout_s=300):
         assert out["mlp"] and out["row"]
         assert out["k6"] == 2
-        assert out["collectives"] == {"max": 2, "sum": 2, "gather": 0}
+        assert out["collectives"] == {"max": 2, "sum": 2, "gather": 0,
+                                      "bcast": 0}
 
 
 # Registers ptxas gives each instantiation of the GEMM template
@@ -915,6 +916,125 @@ def test_flash_attention_empty_rows_attend_uniformly(dev):
     mean_v = v[0, :, 0].mean(0)
     torch.testing.assert_close(out[0, 55:, 0],
                                mean_v.expand(45, 64), rtol=1e-5, atol=1e-6)
+
+
+# (B, Sq, Skv, H, KH, D, causal, window) for both bodies in bf16: D 64,
+# 128 and 256 (and 48, a padded tile); Sq and Skv not multiples of 64,
+# Sq != Skv both ways; G 1, 2 and 8; windows 1, 63 and 1024; rows with no
+# visible key
+BODY_SHAPES = [(2, 100, 100, 4, 2, 64, True, None),
+               (1, 77, 130, 8, 1, 128, True, 1),
+               (1, 130, 77, 8, 8, 256, False, 63),
+               (1, 1000, 1000, 2, 1, 256, True, 1024),
+               (2, 200, 333, 4, 4, 64, True, 63),
+               (1, 300, 517, 16, 2, 128, True, None),
+               (1, 100, 40, 2, 1, 64, True, 16),
+               (1, 96, 96, 2, 2, 48, True, None)]
+
+
+@pytest.mark.parametrize("body", ["mma", "fma"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,causal,window", BODY_SHAPES)
+def test_flash_attention_bodies_close(dev, body, B, Sq, Skv, H, KH, D,
+                                      causal, window):
+    """Both bodies of kernel 12 in bf16, the tensor cores' (mma.sync) and
+    the CUDA cores' f32 one, against the plain version: 2**-7 of the
+    element plus 2**-7 of its row's largest |out|; one launch each."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(24)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32), dev,
+                  torch.bfloat16)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             body=body)
+    ref = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _close_rows(out, ref, 2 ** -7, 2 ** -7,
+                (body, B, Sq, Skv, H, KH, D, causal, window))
+
+
+def test_flash_attention_tensor_core_body_spills_nothing(dev):
+    """Every instantiation of the tensor-core body (tiles 64, 128 and 256
+    wide) keeps its accumulators in registers: no local memory, no stack
+    (``cuobjdump --dump-resource-usage``)."""
+    import pathlib
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+    _build.load("flash_attention")
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.BUILD_DIR / "libflash_attention.so"
+    text = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    pat = re.compile(r"Function \S*flash_attention_mma_kernelILi(\d+)E"
+                     r"\S*:\s*\n\s*(.*)")
+    use = {int(m.group(1)): {k: int(v) for k, v in (
+        f.split(":") for f in m.group(2).split()) if v.isdigit()}
+        for m in pat.finditer(text)}
+    assert sorted(use) == [64, 128, 256], use
+    for dm, u in use.items():
+        assert u["LOCAL"] == 0 and u["STACK"] == 0, (dm, u)
+        assert u["REG"] <= 255, (dm, u)
+
+
+def test_flash_attention_body_choice(dev):
+    """bf16 with D % 16 == 0 takes the tensor cores by default, f32 and
+    other bf16 head sizes the CUDA cores; the tensor-core body refuses
+    what it cannot take, and a q that does not start 16-byte aligned."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.body_for(torch.bfloat16, 256) == "mma"
+    assert fa.body_for(torch.bfloat16, 40) == "fma"
+    assert fa.body_for(torch.float32, 64) == "fma"
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    k = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k, body="mma")
+    q40 = torch.zeros((1, 8, 4, 40), device=dev, dtype=torch.bfloat16)
+    k40 = torch.zeros((1, 8, 2, 40), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q40, k40, k40, body="mma")
+    fa.flash_attention(q40, k40, k40)
+    flat = torch.zeros(1 + 8 * 4 * 64, device=dev, dtype=torch.bfloat16)
+    qm = flat[1:].view(1, 8, 4, 64)
+    kb = k.bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(qm, kb, kb)
+    torch.testing.assert_close(fa.flash_attention(qm, kb, kb, body="fma"),
+                               fa.flash_attention_plain(qm, kb, kb))
+
+
+def test_long_forward_launches_kernel12_once_per_layer(dev):
+    """Full-width gemma-2b (bf16, no plan) without caches: above 2048
+    tokens, with the model's own positions, each of the 18 layers attends
+    in one launch of kernel 12; at 2048 tokens, or with explicit
+    positions, none.  The two S 4096 forwards' logits agree within 0.15
+    (the port's logit tolerance), the argmax equal wherever the top-2
+    margin is wider than twice that."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    cfg = get_config("gemma-2b")
+    model = Model(cfg).init(0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (1, 4096), device=dev, generator=gen)
+    pos = torch.arange(4096, device=dev)[None]
+    outs = []
+    for x, p, want in ((toks, None, cfg.n_layers), (toks, pos, 0),
+                       (toks[:, :2048], None, 0)):
+        before = fa.flash_attention.launches
+        with torch.no_grad():
+            outs.append(model(x, positions=p))
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - before == want, x.shape
+        assert bool(torch.isfinite(outs[-1]).all())
+    kern, plain = outs[0], outs[1]
+    assert (kern - plain).abs().max().item() <= 0.15
+    top2 = plain.topk(2, dim=-1).values
+    differ = kern.argmax(-1) != plain.argmax(-1)
+    assert bool(((top2[..., 0] - top2[..., 1])[differ] <= 0.3).all())
+    del model, outs, kern, plain
+    torch.cuda.empty_cache()
 
 
 # (BH, S, P, N, chunk): one chunk; many chunks with a ragged last one;

@@ -90,6 +90,11 @@ PAGED_KW = dict(n_slots=5, max_len=64, prefill_bucket=16, block_size=8,
                 prefill_chunk=8)
 # 12 allocatable blocks of 8 slots: the five requests need 16 at once
 TIGHT_KW = dict(PAGED_KW, num_blocks=13)
+# the deadline run: per request (None = none), and each rank's clock
+# (start, seconds a read): rank 1's alone would expire other requests at
+# other steps
+DEADLINES = (None, 12.0, None, 3.0, 30.0)
+CLOCKS = ((0.0, 1.0), (1e6, 0.5))
 
 
 def close(a, b, rtol=RTOL):
@@ -412,10 +417,14 @@ def _logits_input():
 
 
 def _engine_cases_2() -> dict:
-    return {f"eng/{arch}": ("engines", dict(
+    cases = {f"eng/{arch}": ("engines", dict(
         model=port_model(QuantPlan.full(), arch), engines=ENGINES,
         prompts=_prompts(), max_new=MAX_NEW, logits=_logits_input()))
         for arch in ARCHS}
+    cases["deadlines/gemma-2b"] = ("deadlines", dict(
+        model=port_model(None), engines=ENGINES[:2], prompts=_prompts(),
+        deadlines=DEADLINES, clocks=CLOCKS, max_new=MAX_NEW))
+    return cases
 
 
 def _mixed_config(arch):
@@ -524,7 +533,32 @@ def test_tp_engine_launches_and_collectives(arch):
                                               + per_prefill * (fwd - steps))
             assert got["collectives"] == dict(
                 max=2 * L * fwd, sum=2 * L * fwd,
-                gather=L * fwd if moe else 0), engine
+                gather=L * fwd if moe else 0, bcast=0), engine
+
+
+@pytest.mark.parametrize("engine", ["ring", "paged"])
+def test_tp_deadlines_follow_rank0_clock(engine):
+    """Two ranks on different clocks (``CLOCKS``) serve requests with
+    deadlines: rank 0's clock decides, in one broadcast per step with a
+    pending deadline, so both ranks time out the same requests (one
+    mid-decode, one while queued) at the same step, and every status,
+    token and step is the unsharded engine's on rank 0's clock."""
+    _, cls, kw = next(e for e in ENGINES if e[0] == engine)
+
+    def unsharded(clock):
+        eng = cls(port_model(None), quant_plan=QuantPlan.full(),
+                  clock=ranks.StepClock(*clock), **kw)
+        return ranks.serve_with_deadlines(eng, _prompts(), DEADLINES,
+                                          MAX_NEW)
+    want = unsharded(CLOCKS[0])
+    assert want["status"] == ["ok", "timed_out", "ok", "timed_out", "ok"]
+    assert want["tokens"][1] and not want["tokens"][3]
+    assert unsharded(CLOCKS[1])["ended"] != want["ended"]
+    for res in _function_results(2):
+        got = res["deadlines/gemma-2b"][engine]
+        for key in ("status", "tokens", "ended", "steps"):
+            assert got[key] == want[key], key
+        assert got["collectives"]["bcast"] == want["with_deadline"] > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -566,13 +600,13 @@ def test_tp_fallback_keeps_indivisible_leaves_whole(arch):
         assert shapes["attn.o"][2] == 4
         if arch == "gemma-2b":
             assert shapes["mlp.up"][2] is None
-            assert got["ring"]["collectives"] == dict(max=L * fwd,
-                                                      sum=L * fwd, gather=0)
+            assert got["ring"]["collectives"] == dict(
+                max=L * fwd, sum=L * fwd, gather=0, bcast=0)
         else:
             assert shapes["experts.up"][2] is None
             assert shapes["shared.up"][2] == 4
             assert got["ring"]["collectives"] == dict(
-                max=2 * L * fwd, sum=2 * L * fwd, gather=0)
+                max=2 * L * fwd, sum=2 * L * fwd, gather=0, bcast=0)
 
 
 # ---------------------------------------------------------------------------
@@ -583,9 +617,10 @@ def test_group_of_one_counts_and_returns_input():
     x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
     assert g.all_reduce_max(x) is x and g.all_reduce_sum(x) is x
     assert g.all_gather(x) is x and g.agree(b"any")
-    assert g.counts == {"max": 1, "sum": 1, "gather": 1}
+    assert g.broadcast_flags([True, False]) == [True, False]
+    assert g.counts == {"max": 1, "sum": 1, "gather": 1, "bcast": 1}
     g.reset_counts()
-    assert g.counts == {"max": 0, "sum": 0, "gather": 0}
+    assert g.counts == {"max": 0, "sum": 0, "gather": 0, "bcast": 0}
     with pytest.raises(ValueError):
         TPGroup(0, 2)                  # no backend
     with pytest.raises(ValueError):
@@ -607,9 +642,9 @@ def test_tp_engine_refuses_what_ranks_cannot_agree_on():
         ServingEngine(port_model(None), tp=TPGroup())
     eng = ServingEngine(port_model(None), quant_plan=QuantPlan.full(),
                         tp=TPGroup(), **RING_KW)
-    with pytest.raises(ValueError, match="deadline"):
-        eng.submit(Request(uid=0, prompt=np.ones(3, np.int32),
-                           deadline_s=5.0))
+    # deadlines are decided by rank 0's clock, so they are accepted
+    assert eng.submit(Request(uid=0, prompt=np.ones(3, np.int32),
+                              deadline_s=5.0)) is RequestStatus.QUEUED
 
 
 def _fails_on_rank_1(group):

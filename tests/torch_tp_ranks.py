@@ -189,12 +189,66 @@ def engines(group, case: dict) -> dict:
     return out
 
 
+class StepClock:
+    """An engine clock that reads ``start + rate * n`` on its n-th read:
+    each rank of the deadline test gets its own ``start`` and ``rate``."""
+
+    def __init__(self, start: float, rate: float):
+        self.start, self.rate, self.reads = start, rate, 0
+
+    def __call__(self) -> float:
+        self.reads += 1
+        return self.start + self.rate * self.reads
+
+
+def serve_with_deadlines(engine, prompts, deadlines, max_new) -> dict:
+    """Serve ``prompts`` with per-request ``deadlines``, stepping by hand;
+    returns each request's status, tokens and the step at which it went
+    terminal, the steps taken, and how many of them began with a pending
+    request that carries a deadline."""
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new, deadline_s=d)
+            for i, (p, d) in enumerate(zip(prompts, deadlines))]
+    for req in reqs:
+        engine.submit(req)
+    if engine.tp is not None:
+        engine.tp.reset_counts()
+    ended, steps, with_deadline = {}, 0, 0
+    while engine.pending():
+        with_deadline += any(r.deadline_s is not None and not r.done
+                             for r in reqs)
+        engine.step()
+        steps += 1
+        for r in reqs:
+            if r.done:
+                ended.setdefault(r.uid, steps)
+    engine.run_until_done()      # under tp: the ranks' agreement check
+    return dict(status=[r.status.value for r in reqs],
+                tokens=[list(r.generated) for r in reqs],
+                ended=[ended[r.uid] for r in reqs], steps=steps,
+                with_deadline=with_deadline)
+
+
+def deadlines(group, case: dict) -> dict:
+    """Each engine of ``case["engines"]`` over this rank's shards, read
+    from this rank's own clock (``case["clocks"][rank]``), serving
+    requests with deadlines; and the broadcasts each run made."""
+    out = {}
+    for name, cls, kw in case["engines"]:
+        eng = cls(case["model"], quant_plan=QuantPlan.full(), tp=group,
+                  clock=StepClock(*case["clocks"][group.rank]), **kw)
+        out[name] = serve_with_deadlines(eng, case["prompts"],
+                                         case["deadlines"], case["max_new"])
+        out[name]["collectives"] = dict(group.counts)
+    return out
+
+
 def run_cases(group, cases: dict) -> dict:
     """``cases``: name -> ("functions" | "engines", case dict).  One
     thread per rank: the ranks share the host's cores, and the shapes
     are tiny."""
     torch.set_num_threads(1)
-    todo = {"functions": functions, "engines": engines}
+    todo = {"functions": functions, "engines": engines,
+            "deadlines": deadlines}
     return {name: todo[kind](group, case)
             for name, (kind, case) in cases.items()}
 
