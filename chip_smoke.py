@@ -95,6 +95,11 @@ the JAX package.  Phases, each printing its lines:
             step and with every expert active, kernels 3 and 4 with the
             requant epilogue at the shared MLP's shapes, and kernel 6 at
             the TP partials' shapes (beside ``torch._int_mm``), and
+            the flash-decode walks at five shapes (gemma-2b's ring and
+            paged walks and kernel 9 at the end state of serve and
+            serve-long, the ring and paged walks at qwen2-moe's heads):
+            kept steps, time a step, the launch plan, SDPA beside them,
+            and each again at every cluster size the plan can pick;
             kernels 12-14 at the ops phase's shapes (beside SDPA and
             ``torch.softmax``; none computes the SSD scan), kernel 12's
             bf16 cases on both of its bodies.
@@ -216,6 +221,8 @@ PAGED_BLOCK = 16
 PAGED_NUM_BLOCKS = 161
 PAGED_PROMPTS = [600, 520, 450, 380, 300, 240, 180, 120, 90, 64, 48, 40, 32,
                  24, 20, 16]
+# the serve runs' prompt lengths (ring, serve-moe and the TP runs)
+SERVE_LENGTHS = [16, 40, 64, 65, 100, 128, 150, 200]
 # the long run: a ring of 8192 slots, 4 splits
 LONG_MAX_LEN = 8192
 LONG_PROMPTS = [5000, 2500, 300, 40]
@@ -892,7 +899,7 @@ def phase_serve(torch) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     say(f"[serve] quantized (full plan), device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    lengths = [16, 40, 64, 65, 100, 128, 150, 200]
+    lengths = SERVE_LENGTHS
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(_prompts(cfg, lengths, SEED))]
     counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
@@ -1038,7 +1045,7 @@ def phase_serve_moe(torch) -> tuple[dict, dict]:
     say(f"[serve-moe] quantized (full plan): device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak so far "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    lengths = [16, 40, 64, 65, 100, 128, 150, 200]
+    lengths = SERVE_LENGTHS
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(_prompts(cfg, lengths, SEED + 3))]
     with CountsRecorder() as rec:
@@ -1541,11 +1548,119 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
     return total
 
 
+def _sdpa_ms(torch, q, k, v, pos, qp, ks, vs):
+    """One SDPA call over the dequantized bf16 cache [B, KH, S, D]
+    (dequantizing and gathering not timed)."""
+    import torch.nn.functional as F
+    B, KH, G, D = q.shape
+    kd = (k.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
+    vd = (v.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
+    mask = (pos <= qp[:, None])[:, None, None, :]
+    q4 = q.reshape(B, KH * G, 1, D)
+    return time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=mask, enable_gqa=True)])
+
+
+def walk_shapes():
+    """The flash-decode walks' five timed shapes: (case, mode, visible
+    lengths, S, KH, G, D, NS).  gemma-2b's and qwen2-moe's heads at the
+    serve runs' end state (prompts + generated tokens visible in 1024
+    slots), ring and paged (16-slot blocks, shuffled); kernel 9 at
+    serve-long's end state (8192 slots, 4 splits)."""
+    end = [n + NEW_TOKENS for n in SERVE_LENGTHS]
+    long_end = [n + LONG_NEW_TOKENS for n in LONG_PROMPTS]
+    return (("gemma-2b ring", "ring", end, 1024, 1, 8, 256, 1),
+            ("gemma-2b paged", "paged", end, 1024, 1, 8, 256, 1),
+            ("kernel 9 at serve-long", "split", long_end, LONG_MAX_LEN, 1,
+             8, 256, 4),
+            ("qwen2-moe ring", "ring", end, 1024, 16, 1, 128, 1),
+            ("qwen2-moe paged", "paged", end, 1024, 16, 1, 128, 1))
+
+
+def kept_steps(lengths, S, ns, step=64):
+    """The longest walk's kept 64-slot steps: a row's visible prefix cut
+    into the ``ns`` splits of ``split_len`` slots (one walk at ns 1)."""
+    steps = -(-S // step)
+    L = -(-steps // ns) * step
+    return max(-(-(min(n, (s + 1) * L) - s * L) // step)
+               for n in lengths for s in range(ns) if n > s * L)
+
+
+def times_walks(torch, card: str) -> None:
+    """The three walks at :func:`walk_shapes`: ms (CUDA-graph replays of
+    L2-cold copies), the kept steps of the longest walk and the time per
+    step, the launch plan's cluster size and stages, SDPA on the same
+    cache beside it; at qwen2-moe's heads also the plain version and the
+    bound; then each walk forced to every cluster size the plan picks
+    from, with the clusters the card holds at once."""
+    from repro_torch.kernels import decode_attention as da
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for case, mode, lengths, S, KH, G, D, NS in walk_shapes():
+        B = len(lengths)
+        insts = [_decode_inputs(torch, dev, gen, B=B, S=S, KH=KH, G=G, D=D,
+                                lengths=lengths)
+                 for _ in range(copies_for(2 * B * S * KH * D))]
+        if mode == "paged":
+            for i, (q, k, v, pos, qp, ks, vs) in enumerate(insts):
+                tables, pools = _to_pages(torch, k, v, pos, ks, vs,
+                                          PAGED_BLOCK, SEED + i)
+                insts[i] = (q, *pools[:3], tables, qp, *pools[3:])
+        call, plain = {
+            "ring": (da.decode_attention, da.decode_attention_plain),
+            "paged": (da.decode_attention_paged,
+                      da.decode_attention_paged_plain),
+            "split": (lambda *a: da.decode_attention_partial(
+                *a, n_splits=NS), None)}[mode]
+        calls = [(lambda a=a: call(*a)) for a in insts]
+        ms = time_ms(torch, calls)
+        a = insts[0]
+        if mode == "paged":
+            q, kp, vp, pp, tables, qp, ksp, vsp = a
+            bt = tables.long()
+            ring = (q, kp[bt].reshape(B, S, KH, D),
+                    vp[bt].reshape(B, S, KH, D), pp[bt].reshape(B, S), qp,
+                    ksp[bt].reshape(B, S, KH), vsp[bt].reshape(B, S, KH))
+        else:
+            ring = a
+        lib = _sdpa_ms(torch, *ring)
+        steps = kept_steps(lengths, S, NS)
+
+        def resident():
+            return da.max_active_clusters(a[0].dtype, a[1].dtype, mode, S,
+                                          KH, G, D, NS, PAGED_BLOCK)
+        p = da.walk_plan(S, D, G, a[1].dtype, mode, NS, PAGED_BLOCK)
+        say(f"[times] walk {case} (B {B}, S {S}, KH {KH}, G {G}, D {D}, "
+            f"NS {NS}): {ms:.4f} ms, longest walk {steps} kept steps, "
+            f"{ms / steps * 1e3:.2f} us a step; cluster {p.cluster} x "
+            f"{da.STAGES} stages, {p.smem} B shared, {resident()} clusters "
+            f"resident, {-(-steps // p.cluster)} steps a rank; SDPA "
+            f"{lib:.4f} ms on {card}")
+        sweep = []
+        for c in da.CLUSTERS:
+            with da.forced_plan(c):
+                sweep.append(f"{c}: {time_ms(torch, calls):.4f} ms "
+                             f"({resident()} resident)")
+        say(f"[times] walk {case} at each cluster size: "
+            f"{', '.join(sweep)} on {card}")
+        if case.startswith("qwen2-moe"):
+            plain_ms = time_ms(torch, [lambda: plain(*a)], reps=5)
+            visible = sum(lengths)
+            nbytes = (B * KH * G * D * 4 + visible * KH * (2 * D + 8)
+                      + visible * 4 + B * 4)
+            if mode == "paged":
+                nbytes += a[4].numel() * 4
+            b, by = bound(nbytes, 4 * visible * KH * G * D, F32_OPS_PER_S)
+            say(f"[times] {call.__name__} (qwen2-moe heads, {mode}): "
+                f"{ms:.4f} ms, bound {b:.5f} ms by {by}, plain "
+                f"{plain_ms:.4f} ms, SDPA {lib:.4f} ms on {card}")
+        del insts, calls, a, ring
+
+
 def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
                 card: str) -> list:
     from repro_torch.kernels import cim_gemm as cg
     from repro_torch.kernels import decode_attention as da
-    import torch.nn.functional as F
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1670,24 +1785,13 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     plain_ms = time_ms(torch, [lambda: da.decode_attention_plain(
         *insts[0])], reps=5)
 
-    def sdpa_ms(q, k, v, pos, qp, ks, vs):
-        """One SDPA call over the dequantized bf16 cache [B, KH, S, D]
-        (dequantizing and gathering not timed)."""
-        B, KH, G, D = q.shape
-        kd = (k.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
-        vd = (v.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
-        mask = (pos <= qp[:, None])[:, None, None, :]
-        q4 = q.reshape(B, KH * G, 1, D)
-        return time_ms(torch, [lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask, enable_gqa=True)])
-
     def attn_bytes(visible, B, KH, G, D, out_bytes):
         """q read once, the visible slots' int8 K and V, their scales and
         positions, q_pos, and the outputs."""
         return (B * KH * G * D * 2 + visible * KH * (2 * D + 2 * 4)
                 + visible * 4 + B * 4 + out_bytes)
 
-    lib_ms = sdpa_ms(*insts[0])
+    lib_ms = _sdpa_ms(torch, *insts[0])
     visible = sum(lengths)
     nbytes = attn_bytes(visible, B, KH, G, D, B * KH * G * D * 2)
     b, by = bound(nbytes, 4 * visible * KH * G * D, F32_OPS_PER_S)
@@ -1708,9 +1812,9 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
         *pinsts[0])], reps=5)
     q, kp, vp, pp, tables, qp, ksp, vsp = pinsts[0]
     bt = tables.long()
-    lib_ms = sdpa_ms(q, kp[bt].reshape(B, S, KH, D),
-                     vp[bt].reshape(B, S, KH, D), pp[bt].reshape(B, S), qp,
-                     ksp[bt].reshape(B, S, KH), vsp[bt].reshape(B, S, KH))
+    lib_ms = _sdpa_ms(torch, q, kp[bt].reshape(B, S, KH, D),
+                      vp[bt].reshape(B, S, KH, D), pp[bt].reshape(B, S), qp,
+                      ksp[bt].reshape(B, S, KH), vsp[bt].reshape(B, S, KH))
     nbytes = attn_bytes(visible, B, KH, G, D,
                         B * KH * G * D * 2) + tables.numel() * 4
     b, by = bound(nbytes, 4 * visible * KH * G * D, F32_OPS_PER_S)
@@ -1731,7 +1835,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
         *a, n_splits=NS)) for a in insts])
     plain_ms = time_ms(torch, [lambda: da.decode_attention_partial_plain(
         *insts[0], n_splits=NS)], reps=5)
-    lib_ms = sdpa_ms(*insts[0])
+    lib_ms = _sdpa_ms(torch, *insts[0])
     single_ms = time_ms(torch, [(lambda a=a: da.decode_attention(*a))
                                 for a in insts])
     say(f"[times] single walk at the same shapes (B={B}, S={S}): "
@@ -1870,6 +1974,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
             f"{two:.4f} ms as the GEMM then the row quantizer, on {card}")
     del shared
 
+    times_walks(torch, card)
     rows += times_ops(torch, card)
     out = []
     for r in rows:

@@ -3,9 +3,18 @@
 Three walks share one CUDA body in ``csrc/decode_attention.cu``; its
 note says what bounds them and how the design follows the reference
 (int8 K/V dequantized in the kernel, position masks, online softmax,
-the all-masked-step skip).  Each wrapper takes its plain version for
-CPU tensors; for CUDA tensors it launches its kernel or raises, and
-counts the launch.
+the all-masked-step skip).  In short: a walk is bound by round trips to
+device memory, not by bytes, so the body reads a range's positions once
+into a bitmask and a list of kept steps, streams the kept steps' K/V
+rows and scales through a ring of ``cp.async`` stages in shared memory,
+and spreads one walk over a thread-block cluster whose ranks merge their
+softmax states through distributed shared memory.  The launch plan
+(cluster size, shared-memory bytes) is decided here, by
+:func:`walk_plan`: the cluster size from S and D only (the stage count
+is the kernel's constant), so the ring, paged and split walks over one
+range make the same sums in the same order.
+Each wrapper takes its plain version for CPU tensors; for CUDA tensors
+it launches its kernel or raises, and counts the launch.
 
 * :func:`decode_attention` — the ring cache (``decode_attention``).
 * :func:`decode_attention_paged` — the paged cache: KV blocks of shared
@@ -24,6 +33,8 @@ out: [B, KH, G, D]    (q's dtype)
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 
 import torch
@@ -38,8 +49,104 @@ EMPTY_SLOT = 2 ** 30
 MAX_GROUP = 16
 # a split's length is a multiple of the kernel's step (64 int8 slots)
 SPLIT_STEP = 64
+# dynamic shared memory a block may use on sm_90 (227 KB)
+MAX_SMEM = 232448
+# cluster sizes the plan picks from (8 is the portable maximum)
+CLUSTERS = (1, 2, 4, 8)
+# steps in flight in the shared-memory ring (the kernel's NST)
+STAGES = 4
+_NT = 256  # threads per block
 
 _LIB = "decode_attention"
+
+
+# ---------------------------------------------------------------------------
+# Launch plan
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    cluster: int   # blocks of a cluster, each walking a share of the steps
+    smem: int      # dynamic shared-memory bytes of a block
+
+
+def cluster_for(S: int, D: int) -> int:
+    """Blocks per walk: the fewest that leave each rank at most 4 steps
+    of 64 slots at D 256 (a step's work scales with D), up to 8.  Chosen
+    by timing every size on the card: at 1024 slots D 256 (gemma-2b)
+    takes 4, D 128 (qwen2-moe, 16 KV heads) 2; kernel 9 at 8192 takes 8
+    (``chip_smoke.py``'s forced-cluster ``[times]`` lines).  A function of S and D alone,
+    never of B, KH, G, the split count or the walk, so every walk over
+    one range partitions it alike (the bitwise pins)."""
+    work = -(-S // SPLIT_STEP) * D / 256
+    c = 1
+    while c < CLUSTERS[-1] and work > 4 * c:
+        c *= 2
+    return c
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def smem_bytes(kv_bytes: int, D: int, G: int, range_slots: int,
+               table_entries: int = 0) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out
+    (``layout`` in ``csrc/decode_attention.cu``, whose
+    ``decode_attention_smem_bytes`` a card test holds this against):
+    the stage ring (K rows
+    padded by 16 bytes, V rows, both scales), reused for the p . v
+    slices' sums; q in f32; the scores and probabilities of a step; the
+    rows' rescale, max and sum; the range's visibility bitmask and kept
+    steps; the paged walk's table row; the count of kept steps."""
+    BS = 64 // kv_bytes
+    maxg = 1 << max(G - 1, 0).bit_length()
+    row = _align16(D * kv_bytes)
+    stage = BS * (2 * row + 16) + 2 * BS * 4
+    dw = min(D, 4)
+    part = min(BS, _NT // (D // dw)) * G * D * 4
+    return (_align16(max(STAGES * stage, part)) + _align16(G * D * 4)
+            + _align16(G * BS * 4) + _align16(BS * maxg * 4)
+            + _align16(G * 4) + _align16(2 * G * 4)
+            + _align16(-(-range_slots // 32) * 4)
+            + _align16(-(-range_slots // BS) * 4)
+            + _align16(table_entries * 4) + 16)
+
+
+_FORCED: dict = {}
+
+
+@contextlib.contextmanager
+def forced_plan(cluster: int):
+    """Force the plan's cluster size for the walks launched inside the
+    block (tests and timings of each size)."""
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS}")
+    saved = dict(_FORCED)
+    _FORCED["cluster"] = cluster
+    try:
+        yield
+    finally:
+        _FORCED.clear()
+        _FORCED.update(saved)
+
+
+def walk_plan(S: int, D: int, G: int, kv_dtype: torch.dtype, mode: str,
+              n_splits: int = 1, bs: int | None = None) -> WalkPlan:
+    """The launch plan of one walk: ``mode`` is "ring", "paged" (``bs``
+    slots a pool block, S = nb * bs) or "split" (``n_splits`` slices).
+    The cluster size depends on S and D only; the bytes also on the
+    cache dtype, G and the range a block reads.  Raises if a block cannot
+    hold it (a walk of more than about 200 thousand slots: its bitmask
+    and step list outgrow shared memory)."""
+    kv_bytes = torch.empty((), dtype=kv_dtype).element_size()
+    cluster = _FORCED.get("cluster", cluster_for(S, D))
+    rng = split_len(S, n_splits) if mode == "split" else S
+    smem = smem_bytes(kv_bytes, D, G, rng,
+                      S // bs if mode == "paged" else 0)
+    if smem > MAX_SMEM:
+        raise ValueError(f"decode attention: a walk over {rng} slots needs "
+                         f"{smem} bytes of shared memory, over {MAX_SMEM}")
+    return WalkPlan(cluster, smem)
 
 
 def _check_walk(q: torch.Tensor, k, v, pos, q_pos, k_scale, v_scale,
@@ -100,13 +207,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_kind = _check_walk(q, k, v, pos, q_pos, k_scale, v_scale, window,
                           (B, S, KH, D), (B, S))
     _check_rows(B * S, "decode_attention")
+    plan = walk_plan(S, D, G, k.dtype, "ring")
     out = torch.empty_like(q)
     fn = bind(_LIB, "decode_attention_launch",
-              [P, I, P, P, I, P, P, P, P, P, I, I, I, I, I, I, F, P])
+              [P, I, P, P, I, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P])
     check(_LIB, fn(ptr(q), DTYPE_CODE[q.dtype], ptr(k), ptr(v), kv_kind,
                    ptr(pos), ptr(q_pos), ptr(k_scale), ptr(v_scale),
                    ptr(out), B, S, KH, G, D, window or 0,
-                   1.0 / math.sqrt(D), stream(q)), "decode_attention")
+                   1.0 / math.sqrt(D), plan.cluster, plan.smem, stream(q)),
+          "decode_attention")
     decode_attention.launches += 1
     return out
 
@@ -160,15 +269,17 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     nb = block_tables.shape[1]
     _check_rows(NB * bs, "decode_attention_paged")
     _check_rows(nb * bs, "decode_attention_paged")
+    plan = walk_plan(nb * bs, D, G, k_pages.dtype, "paged", bs=bs)
     out = torch.empty_like(q)
     fn = bind(_LIB, "decode_attention_paged_launch",
               [P, I, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
-               P])
+               I, I, P])
     check(_LIB, fn(ptr(q), DTYPE_CODE[q.dtype], ptr(k_pages), ptr(v_pages),
                    kv_kind, ptr(pos_pages), ptr(block_tables), ptr(q_pos),
                    ptr(k_scale_pages), ptr(v_scale_pages), ptr(out), B, NB,
                    bs, nb, KH, G, D, window or 0, 1.0 / math.sqrt(D),
-                   stream(q)), "decode_attention_paged")
+                   plan.cluster, plan.smem, stream(q)),
+          "decode_attention_paged")
     decode_attention_paged.launches += 1
     return out
 
@@ -224,14 +335,16 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
     m = torch.empty((B, KH, n_splits, G, 1), dtype=torch.float32,
                     device=q.device)
     l = torch.empty_like(m)
+    plan = walk_plan(S, D, G, k.dtype, "split", n_splits)
     fn = bind(_LIB, "decode_attention_partial_launch",
               [P, I, P, P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I,
-               I, P])
+               I, I, I, P])
     check(_LIB, fn(ptr(q), DTYPE_CODE[q.dtype], ptr(k), ptr(v), kv_kind,
                    ptr(pos), ptr(q_pos), ptr(k_scale), ptr(v_scale), ptr(o),
                    ptr(m), ptr(l), B, S, KH, G, D, window or 0,
                    1.0 / math.sqrt(D), n_splits, split_len(S, n_splits),
-                   stream(q)), "decode_attention_partial")
+                   plan.cluster, plan.smem, stream(q)),
+          "decode_attention_partial")
     decode_attention_partial.launches += 1
     return o, m, l
 
@@ -270,3 +383,32 @@ def decode_attention_combine(o: torch.Tensor, m: torch.Tensor,
 
 
 decode_attention_combine.launches = 0
+
+
+def max_active_clusters(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                        mode: str, S: int, KH: int, G: int, D: int,
+                        n_splits: int = 1, bs: int | None = None) -> int:
+    """How many clusters of this walk's plan the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); needs a card."""
+    import ctypes
+    plan = walk_plan(S, D, G, kv_dtype, mode, n_splits, bs)
+    kv_kind = 0 if kv_dtype == torch.int8 else DTYPE_CODE[kv_dtype]
+    out = ctypes.c_int(0)
+    fn = bind(_LIB, "decode_attention_max_clusters",
+              [I, I, I, I, I, I, I, I, I, I, I, P])
+    modes = {"ring": 0, "paged": 1, "split": 2}
+    check(_LIB, fn(DTYPE_CODE[q_dtype], kv_kind, modes[mode], S, KH, G, D,
+                   bs or 0, split_len(S, n_splits) if mode == "split" else 0,
+                   plan.cluster, plan.smem,
+                   ctypes.cast(ctypes.pointer(out), ctypes.c_void_p)),
+          "decode_attention_max_clusters")
+    return out.value
+
+
+def kernel_smem_bytes(kv_dtype: torch.dtype, D: int, G: int,
+                      range_slots: int, table_entries: int = 0) -> int:
+    """The kernel's own count of :func:`smem_bytes`
+    (``decode_attention_smem_bytes``); needs the built library."""
+    kv_bytes = torch.empty((), dtype=kv_dtype).element_size()
+    fn = bind(_LIB, "decode_attention_smem_bytes", [I, I, I, I, I])
+    return fn(kv_bytes, D, G, range_slots, table_entries)

@@ -706,6 +706,178 @@ def test_decode_heads_bitwise_across_groups(dev, quantized, KH, G, D, p):
         assert torch.equal(got, want) and torch.equal(gotp, wantp)
 
 
+# ---------------------------------------------------------------------------
+# the flash-decode body (kernels 5, 9, 11): step list, stages, clusters
+# ---------------------------------------------------------------------------
+def _ordered_case(dev, seed, B, S, KH, G, D, quantized, lengths, q_pos,
+                  first=None):
+    """A cache whose row b holds positions first[b] .. first[b] +
+    lengths[b] - 1 in slot order (the rest empty), so a window picks
+    contiguous slots."""
+    rng = _gen(seed)
+    k, v, ks, vs, _ = _cache(rng, B, S, KH, D, quantized, dev, [0] * B,
+                             torch.bfloat16)
+    pos = np.full((B, S), 2 ** 30, np.int32)
+    for b, n in enumerate(lengths):
+        pos[b, :n] = np.arange(n) + (first[b] if first else 0)
+    q = _t(rng.standard_normal((B, KH, G, D)).astype(np.float32), dev,
+           torch.bfloat16)
+    return (q, k, v, _t(pos, dev), _t(np.array(q_pos, np.int32), dev), ks,
+            vs)
+
+
+def _walks_agree(dev, case, window, splits=(1, 2, 4, 8), bs=16):
+    """Ring, paged and split walks over one logical cache: paged == ring
+    and NS 1 (+ combine) == ring bitwise; ring, paged and every split
+    count within the decode-attention rule of the plain versions."""
+    from repro_torch.kernels import ops
+    q, k, v, pos, qp, ks, vs = case
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(42, bs, k, v, pos, ks, vs)
+    ring = da.decode_attention(q, k, v, pos, qp, ks, vs, window=window)
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, ring)
+    wide = (lambda t: t) if ks is not None else (lambda t: t.float())
+    cpu = [None if t is None else t.cpu()
+           for t in (q.float(), wide(k), wide(v), pos, qp, ks, vs)]
+    ref = da.decode_attention_plain(*cpu, window=window).to(q.dtype).float()
+    limit = _attn_limit(ref, q.dtype, k.dtype).to(dev)
+    err = (ring.float() - ref.to(dev)).abs()
+    assert bool((err <= limit).all()), (err / limit).max().item()
+    for ns in splits:
+        out = ops.decode_attention_splitkv(q, k, v, pos, qp, ks, vs,
+                                           window=window, n_splits=ns)
+        torch.cuda.synchronize()
+        if ns == 1:
+            assert torch.equal(out, ring)
+        ref = ops.decode_attention_splitkv(*cpu, window=window,
+                                           n_splits=ns).to(q.dtype).float()
+        err = (out.float() - ref.to(dev)).abs()
+        limit = _attn_limit(ref, q.dtype, k.dtype).to(dev)
+        assert bool((err <= limit).all()), (ns, (err / limit).max().item())
+    return ring
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_all_masked_row_at_8192_through_every_walk(dev, quantized):
+    """A row with no visible slot in 8192 (every slot holds a position
+    after q_pos; beside a long and a short row): every walk keeps all its
+    steps and returns the uniform average of V, decided over the whole
+    row by each split and each cluster rank; ring, paged and NS 1, 2, 4,
+    8 agree as the pins and the rule say."""
+    B, S = 3, 8192
+    case = _ordered_case(dev, 40, B, S, 1, 8, 256, quantized,
+                         [S, 5016, 77], [0, 5015, 76], first=[100, 0, 0])
+    ring = _walks_agree(dev, case, None)
+    q, k, v, pos, qp, ks, vs = case
+    vd = v[0, :, 0].float() * (vs[0, :, 0, None] if quantized else 1.0)
+    mean = vd.mean(0)
+    torch.testing.assert_close(ring[0, 0].float(),
+                               mean.expand(8, 256).to(ring.dtype).float(),
+                               rtol=2 ** -7, atol=1e-3 * mean.abs().max())
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("window", [40, 700])
+def test_window_at_the_end_and_across_ranks(dev, quantized, window):
+    """Windows over ordered positions at 8192 slots: row 0 sees only its
+    last ``window`` slots (the last split, the last kept step: the last
+    cluster rank's share when it is the only step), row 1 a window that
+    crosses the 4096-slot split boundary and the ranks' shares, row 2
+    one short of a step boundary."""
+    S = 8192
+    case = _ordered_case(dev, 41, 3, S, 1, 8, 256, quantized,
+                         [S, 4401, 1000], [S - 1, 4400, 63 + window])
+    _walks_agree(dev, case, window)
+
+
+# (B, S, KH, G, D): gemma-2b's heads, qwen2-moe's, and a narrow head of
+# odd group size whose rows are not 16-byte multiples (the element copy)
+CLUSTER_SHAPES = [(8, 1024, 1, 8, 256), (4, 1024, 4, 1, 128),
+                  (3, 200, 2, 3, 8)]
+
+
+@pytest.mark.parametrize("cluster", da.CLUSTERS)
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B,S,KH,G,D", CLUSTER_SHAPES)
+def test_every_cluster_size(dev, cluster, quantized, B, S, KH, G, D):
+    """Each cluster size the plan can pick, forced through it: paged ==
+    ring == NS 1 bitwise at that size, every walk within the
+    decode-attention rule."""
+    case = _ring_case(dev, 43, B, S, KH, G, D, quantized, torch.bfloat16)
+    with da.forced_plan(cluster=cluster):
+        plan = da.walk_plan(S, D, G, case[1].dtype, "paged", bs=8)
+        assert plan.cluster == cluster
+        _walks_agree(dev, case, 60 if D == 8 else None, splits=(1, 3),
+                     bs=8)
+
+
+def test_walk_shared_memory_matches_the_kernel_layout(dev):
+    """The wrapper's byte count (``smem_bytes``, which the plan and the
+    CPU tests use) is the kernel's own ``layout`` total, over the served
+    heads and narrow ones, every cache dtype, ranges from one slot to
+    8192 and paged table rows."""
+    for kv in (torch.int8, torch.bfloat16, torch.float32):
+        size = torch.empty((), dtype=kv).element_size()
+        for D in (256, 128, 64, 8, 4):
+            for G in (1, 2, 3, 8, 16):
+                for rng, ntab in ((1, 0), (200, 0), (1024, 0), (1024, 64),
+                                  (2048, 0), (8192, 512)):
+                    want = da.kernel_smem_bytes(kv, D, G, rng, ntab)
+                    got = da.smem_bytes(size, D, G, rng, ntab)
+                    assert got == want, (kv, D, G, rng, ntab, got, want)
+
+
+# Registers ptxas gives the walk body decode_attention_kernel<TQ, TKV,
+# MAXG, MODE> (``nvcc -Xptxas -v`` for sm_90a) at the served types, bf16
+# q over an int8 cache, keyed (MAXG, MODE): MAXG 8 (gemma-2b's G 8,
+# D 256) and MAXG 1 (qwen2-moe's G 1, D 128); MODE 0 ring, 1 paged,
+# 2 split.
+DECODE_REGS = {(8, 0): 138, (8, 1): 134, (8, 2): 144,
+               (1, 0): 89, (1, 1): 82, (1, 2): 83}
+
+
+def test_decode_walk_body_registers_and_no_spill(dev):
+    """No instantiation of the walk body spills (no local memory, no
+    stack; ``cuobjdump --dump-resource-usage``), the served ones keep
+    their registers, and each plan of the served walks fits the card
+    with at least one cluster resident."""
+    import pathlib
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+    _build.load("decode_attention")
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.BUILD_DIR / "libdecode_attention.so"
+    text = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    pat = re.compile(r"Function (\S*decode_attention_kernel\S*):\s*\n"
+                     r"\s*(.*)")
+    use = {m.group(1): {k: int(v) for k, v in (
+        f.split(":") for f in m.group(2).split()) if v.isdigit()}
+        for m in pat.finditer(text)}
+    served = re.compile(r"decode_attention_kernelI13__nv_bfloat16a"
+                        r"Li(\d+)ELi(\d)E")
+    regs = {(int(m.group(1)), int(m.group(2))): u["REG"]
+            for name, u in use.items() if (m := served.search(name))}
+    print("served registers", regs)
+    assert len(use) == 60, sorted(use)      # 4 type pairs x 5 MAXG x 3
+    for name, u in use.items():
+        assert u["LOCAL"] == 0 and u["STACK"] == 0, (name, u)
+    for key, want in DECODE_REGS.items():
+        assert regs[key] == want, (key, regs)
+    for mode, S, KH, G, D, ns in (("ring", 1024, 1, 8, 256, 1),
+                                  ("paged", 1024, 1, 8, 256, 1),
+                                  ("split", 8192, 1, 8, 256, 4),
+                                  ("ring", 1024, 16, 1, 128, 1),
+                                  ("paged", 1024, 16, 1, 128, 1)):
+        n = da.max_active_clusters(torch.bfloat16, torch.int8, mode, S, KH,
+                                   G, D, ns, 16 if mode == "paged" else None)
+        print("resident clusters", mode, S, KH, G, D, ns, n)
+        assert n >= 1, (mode, S, G, D, n)
+
+
 def _tp_rank_on_card(group, seed):
     """One of 2 gloo ranks on the one card: the row-parallel
     out-projection and the TP MLP at gemma-2b's widths on this rank's
