@@ -94,8 +94,12 @@ the JAX package.  Phases, each printing its lines:
             the grouped GEMMs with the expert counts of a served decode
             step and with every expert active, kernels 3 and 4 with the
             requant epilogue at the shared MLP's shapes, and kernel 6 at
-            the TP partials' shapes (beside ``torch._int_mm``), and
-            the flash-decode walks at five shapes (gemma-2b's ring and
+            the TP partials' shapes (beside ``torch._int_mm``); the
+            tensor-core GEMM of kernels 3 and 6 under every plan it
+            takes at those decode shapes (tile shape and cluster size,
+            one line a plan), and at the prefill shapes of
+            ``PREFILL_GEMMS`` with kernels 2 and 4 beside it, each
+            against ``torch._int_mm``; the flash-decode walks at five shapes (gemma-2b's ring and
             paged walks and kernel 9 at the end state of serve and
             serve-long, the ring and paged walks at qwen2-moe's heads):
             kept steps, time a step, the launch plan, SDPA beside them,
@@ -1657,6 +1661,102 @@ def times_walks(torch, card: str) -> None:
         del insts, calls, a, ring
 
 
+# prefill shapes timed beside ``torch._int_mm``: kernel 3 at forward-long's
+# down GEMM and a served prompt's, kernel 6 at the long forward's TP-2 down
+# shard, and kernels 2 and 4 at forward-long's QKV and gated GEMMs
+PREFILL_GEMMS = (("cim_gemm_int8_fused", 4096, 16384, 2048),
+                 ("cim_gemm_int8_fused", 200, 16384, 2048),
+                 ("cim_gemm_int8", 4096, 8192, 2048),
+                 ("cim_gemm_int8_fused_qin", 4096, 2048, 2560),
+                 ("cim_gated_gemm_int8", 4096, 2048, 16384))
+
+
+def times_gemm_plans(torch, card: str) -> None:
+    """The tensor-core GEMM (kernels 3 and 6) under every plan it takes
+    at the decode shapes (kernel 3 at gemma-2b's down GEMM with its bf16
+    residual, kernel 6 at the TP partials), one line a plan; then the
+    prefill shapes of ``PREFILL_GEMMS`` under the plan's rule, each
+    beside ``torch._int_mm`` on the same operands (without the
+    epilogue) and its bound."""
+    from repro_torch.kernels import cim_gemm as cg
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                             generator=gen)
+
+    def rf(*shape):
+        return torch.rand(shape, device=dev, generator=gen) * 1e-2 + 1e-4
+
+    def operands(name, M, K, N):
+        w = ri(K, N)
+        if name == "cim_gemm_int8":
+            x = ri(M, K)
+            return (lambda: cg.cim_gemm_int8(x, w)), x, w, \
+                M * K + K * N + M * N * 4, 2 * M * K * N
+        if name == "cim_gemm_int8_fused_qin":
+            x = torch.randn((M, K), device=dev, generator=gen).to(
+                torch.bfloat16)
+            ws = rf(N)
+            return (lambda: cg.cim_gemm_int8_fused_qin(x, w, ws)), \
+                cg.quantize_rows_int8(x)[0], w, \
+                M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * K * N
+        x, xs = ri(M, K), rf(M, 1)
+        if name == "cim_gated_gemm_int8":
+            wu, gs, us = ri(K, N), rf(N), rf(N)
+            return (lambda: cg.cim_gated_gemm_int8(x, w, wu, xs, gs, us,
+                                                   "gelu")), \
+                x, torch.cat([w, wu], 1), \
+                M * K + M * 4 + 2 * (K * N + N * 4) + M * N * 4, 4 * M * K * N
+        ws = rf(N)
+        r = torch.randn((M, N), device=dev, generator=gen).to(torch.bfloat16)
+        return (lambda: cg.cim_gemm_int8_fused(x, w, xs, ws, residual=r)), \
+            x, w, M * K + M * 4 + K * N + N * 4 + M * N * 6, 2 * M * K * N
+
+    def int_mm_ms(x, w):
+        xp = x
+        if x.shape[0] <= 16:  # torch._int_mm needs more than 16 rows
+            xp = torch.zeros((32, x.shape[1]), dtype=torch.int8, device=dev)
+            xp[:x.shape[0]] = x
+        w_cm = w.t().contiguous().t()
+        return time_ms(torch, [lambda: torch._int_mm(xp, w_cm)])
+
+    decode = [("cim_gemm_int8_fused", 8, 16384, 2048)] + [
+        ("cim_gemm_int8", 8, K, N) for K, N in TP_GEMM_SHAPES]
+    for name, M, K, N in decode:
+        insts = [operands(name, M, K, N)
+                 for _ in range(copies_for(K * N))]
+        calls = [i[0] for i in insts]
+        rule = cg.gemm_plan(M, K, N)
+        b, by = bound(insts[0][3], insts[0][4], INT8_OPS_PER_S)
+        lib = int_mm_ms(insts[0][1], insts[0][2])
+        for plan in cg.gemm_plans(M, K, N):
+            with cg.forced_gemm_plan(plan.kind, plan.cluster):
+                ms = time_ms(torch, calls)
+            say(f"[times] {name} plan (M={M}, K={K}, N={N}) {plan.kind} "
+                f"cluster {plan.cluster}: {ms:.4f} ms, grid "
+                f"{plan.grid(M, N)} blocks, {plan.smem} B shared"
+                f"{' (the rule)' if plan == rule else ''}; bound {b:.5f} ms "
+                f"by {by}, torch._int_mm {lib:.4f} ms on {card}")
+        del insts, calls
+    for name, M, K, N in PREFILL_GEMMS:
+        insts = [operands(name, M, K, N) for _ in range(copies_for(
+            K * N * (2 if name == "cim_gated_gemm_int8" else 1)))]
+        ms = time_ms(torch, [i[0] for i in insts], reps=10)
+        b, by = bound(insts[0][3], insts[0][4], INT8_OPS_PER_S)
+        lib = int_mm_ms(insts[0][1], insts[0][2])
+        plan = cg.gemm_plan(M, K, N) if name in (
+            "cim_gemm_int8_fused", "cim_gemm_int8") else None
+        how = (f"{plan.kind} cluster {plan.cluster}" if plan
+               else "CUDA-core template")
+        say(f"[times] {name} prefill (M={M}, K={K}, N={N}, {how}): "
+            f"{ms:.4f} ms, bound {b:.5f} ms by {by}, torch._int_mm "
+            f"{lib:.4f} ms ({ms / lib:.2f}x) on {card}")
+        del insts
+        torch.cuda.empty_cache()
+
+
 def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
                 card: str) -> list:
     from repro_torch.kernels import cim_gemm as cg
@@ -1974,6 +2074,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
             f"{two:.4f} ms as the GEMM then the row quantizer, on {card}")
     del shared
 
+    times_gemm_plans(torch, card)
     times_walks(torch, card)
     rows += times_ops(torch, card)
     out = []

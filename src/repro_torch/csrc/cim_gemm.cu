@@ -1,4 +1,5 @@
-// INT8 GEMM kernels for Hopper (sm_90a): row quantizer + one GEMM template.
+// INT8 GEMM kernels for Hopper (sm_90a): row quantizer, the int8 x int8
+// GEMM on the tensor cores, and one GEMM template on the CUDA cores.
 //
 // Replaces, in src/repro/kernels/cim_gemm.py:
 //   quantize_rows_int8           (_rowquant_kernel)
@@ -8,66 +9,116 @@
 //   cim_grouped_gemm_int8        (_cim_grouped_gemm_kernel)
 //   cim_grouped_gated_gemm_int8  (_cim_grouped_gated_kernel)
 //   cim_gemm_int8                (_cim_gemm_kernel)
-// the GEMMs with their quantize_out epilogue (_rowquant) in-kernel, and
-// cim_gemm_int8 as the template with an int32 store for its epilogue.
+// the GEMMs with their quantize_out epilogue (_rowquant) in-kernel.
+// cim_gemm_int8_fused (kernel 3) and cim_gemm_int8 (kernel 6) run on
+// cim_gemm_i8_kernel, the tensor-core body; the others on the template
+// cim_gemm_kernel.
 //
 // What bounds them on the card: at decode (M = 8 rows) every weight byte
 // is used by 8 rows only, so the GEMMs are bound by the int8 weight bytes
 // they stream from device memory (2 int8 operations per byte per row,
 // far below the ~600 operations per byte where int8 compute would bind).
-// The grouped GEMMs are bound by the weight bytes of the experts that
-// received tokens: an expert whose count is 0 streams none.  The row
-// quantizer runs one block per row, so at decode it has only M = 8
-// blocks on 132 SMs: it is bound by that lack of parallelism, not by its
-// bytes ([8, 16384] f32 in, about 0.66 MB, for gemma-2b's hidden
-// requant, which is too wide for the fused requant below).
+// At prefill (M = 4096 in a long forward) each weight byte serves 4096
+// rows and the int8 operations bind (gemma-2b's down GEMM: 2.7e11
+// operations, 0.139 ms at 1979 TOPS).  The grouped GEMMs are bound by the
+// weight bytes of the experts that received tokens: an expert whose count
+// is 0 streams none.  The row quantizer runs one block per row, so at
+// decode it has only M = 8 blocks on 132 SMs: it is bound by that lack of
+// parallelism, not by its bytes ([8, 16384] f32 in, about 0.66 MB, for
+// gemma-2b's hidden requant, which is too wide for the fused requant).
 //
-// Design: one template, cim_gemm_kernel<TX, GATED, EPI, GROUPED>.  A
-// block owns an 8-row x 32-column output tile of one expert (blockIdx.z;
-// the dense GEMMs, GROUPED false, have one and no skip list); its 256
-// threads are 8 column groups (4 adjacent columns each) x 32 slices of
-// K.  K is swept in tiles of 1024: the tile's
+// Kernels 3 and 6: cim_gemm_i8_kernel<EPI, SHAPE>.  The product is
+// mma.sync.m16n8k32 s8 x s8 -> s32, exact (|sum| <= K 127^2 fits int32 up
+// to K ~ 133,000), so the f32 epilogue sees the same int32 totals as the
+// plain version in any summation order.  Weights stay [K, N] int8 as the
+// public functions hold them (no transposed copy, no extra memory); the
+// s8 mma wants both operands contiguous along K, so each lane reads the
+// 32-bit word of 4 adjacent columns in the 4 rows of its k-quad from
+// shared memory and transposes the 4 x 4 bytes with __byte_perm
+// (transpose4x4): the 4 columns' k-quads fill the same fragment slot of
+// 4 mma tiles, a column permutation inside the block tile that the
+// stores undo.  A stage's 16-byte chunks are XOR-swizzled by row, so
+// every warp-wide read of the fragments meets 32 banks.  The wrapper's
+// plan (gemm_plan) picks one of two tile shapes and a thread-block
+// cluster of C blocks (1 to 8, a launch attribute) that splits the K
+// steps; rank 0 sums the ranks' int32 partials through distributed shared
+// memory (exact in any order) and runs the epilogue.
+// - Decode tile (M <= 16; 8 or 16 rows): bound by bytes in flight.  The
+//   operands are swapped: W^T is the mma's A side (16 output columns a
+//   tile), the rows of x its n = 8 side, so at M = 8 no lane of the tensor
+//   core is padding.  A block owns 64 columns; the cluster splits K so the
+//   grid gives every SM a block (gemma-2b's down GEMM: 32 column tiles x 5
+//   ranks = 160 blocks, 64 blocks on the CUDA-core body).  Each rank
+//   stages its activation slice once (rows padded by 16 bytes: the 8 rows
+//   a warp reads meet distinct banks) and streams its weight slice with
+//   16-byte cp.async into a ring of 4 stages of 128 x 64 bytes, so three
+//   stages are in flight while one is multiplied.  8 warps: 4 along the
+//   stage's rows x 2 along its columns; lane t reads its quad's rows in a
+//   rotated order (every read then meets both halves of a bank line) and
+//   rotates its x words by t bytes to match: the same k permutation on
+//   both sides.  The warps' sums meet in shared memory, the ranks' in
+//   rank 0.
+// - Prefill tile (M > 16): bound by the mma issue rate.  128 x 128 output
+//   tiles, K steps of 64, 8 warps of 64 x 32 (4 x 4 mma tiles of 16 x 8),
+//   x by ldmatrix, a cp.async ring of 4 stages of x and w (64 KB, opted
+//   in above 48 KB once per device before any graph capture), 2 blocks an
+//   SM (128 registers) with the f32 epilogue, 1 with the others (they
+//   spill at 128).  Tiles that do
+//   not fill the card (a served prompt: M 200 at N 2048, 32 tiles) take a
+//   cluster along K as the decode tile does.
+// wgmma and TMA are left for later work: on mma.sync the prefill tile
+// reaches about a fifth of the int8 peak (PERF.md).
+// The epilogue runs in f32 in the reference's order, with explicitly
+// rounded multiplies and adds (no fused multiply-add), so results without
+// an activation match the plain version bit for bit.  EPI_ACC
+// (cim_gemm_int8, the row-parallel partial of tensor parallelism) stores
+// the exact int32 sum instead and reads no scale: the caller sums the
+// partials of all ranks and runs the epilogue once.
+//
+// The CUDA-core template, cim_gemm_kernel<TX, GATED, EPI, GROUPED>
+// (kernels 2, 4, 7 and 8): a block owns an 8-row x 32-column output tile
+// of one expert (blockIdx.z; the dense GEMMs, GROUPED false, have one and
+// no skip list); its 256 threads are 8 column groups (4 adjacent columns
+// each) x 32 slices of K.  K is swept in tiles of 1024: the tile's
 // activations are packed four int8 values per 32-bit word into shared
 // memory (quantized on the fly from f32/bf16 with the row scale found in
-// the prologue when TX is a float type, copied when TX is int8).
-// Weights stay [K, N] int8 (per expert [E, K, N]) as the public functions
-// hold them (no private transposed copy, no extra memory): each thread
-// loads 4 rows x 4 columns as four 32-bit words straight into registers,
-// transposes the 4x4 bytes with __byte_perm so each word holds 4
+// the prologue when TX is a float type, copied when TX is int8).  Each
+// thread loads 4 rows x 4 columns of weights as four 32-bit words straight
+// into registers, transposes them (transpose4x4) so each word holds 4
 // consecutive K values of one column, and feeds __dp4a, accumulating
 // exactly in int32.  Every thread issues all its weight loads of a tile
 // before it computes, so 32 words per thread are in flight.  The 32 K
-// slices are summed through shared memory, and the epilogue runs in f32
-// in the reference's order, with explicitly rounded multiplies and adds
-// (no fused multiply-add) so results without an activation match the
-// plain version bit for bit.  EPI_ACC (cim_gemm_int8, the row-parallel
-// partial of tensor parallelism) stores the exact int32 sum instead and
-// reads no scale: the caller sums the partials of all ranks and runs the
-// epilogue once.  A block of an expert whose count is 0
-// (the grouped GEMMs' skip list) skips the K sweep and runs the epilogue
-// on zero accumulators, as the reference's kernel does.  GROUPED and
-// EPI are compile-time: with the expert offsets and the requant tail
-// decided at run time, ptxas gave the dense int8 GEMM 66 registers in
-// place of 80 and gemma-2b's down GEMM ran 1.5x slower.
+// slices are summed through shared memory, and the epilogue is the one
+// above.  A block of an expert whose count is 0 (the grouped GEMMs' skip
+// list) skips the K sweep and runs the epilogue on zero accumulators, as
+// the reference's kernel does.  GROUPED and EPI are compile-time: with
+// the expert offsets and the requant tail decided at run time, ptxas
+// gave the dense int8 GEMM 66 registers in place of 80 and gemma-2b's
+// down GEMM ran 1.5x slower.  Split-K, wgmma and TMA are left for later
+// work on this template.
 //
 // The requant epilogue (quantize_out): a row's scale needs its absmax
-// over all N columns, which 32-column blocks share.  Every block writes
+// over all N columns, which the column tiles share.  Every block writes
 // its f32 tile to a scratch buffer, publishes each row's |max| with an
 // atomicMax on the float's bits (non-negative floats order as unsigned
 // ints; max is exact in any order), fences, and bumps its row band's
-// arrival counter.  The block that arrives last quantizes the band's
-// rows from the scratch tile (reading through L2, where the other blocks'
-// stores and atomics landed, 8 float4 loads in flight per thread) with
-// the row quantizer's arithmetic, so q
-// and the scale are bitwise quantize_rows_int8 of the f32 output, and
-// resets the band's maxima and counter to 0 for the next launch.  One
-// launch, the present grid, no block waits on another.  wgmma, TMA and
-// split-K over blocks are left for later work.
+// arrival counter (the band is the tile's rows: 8 on the CUDA cores, 8
+// or 16 on the decode tile, 128 on the prefill tile; on the tensor-core
+// body only rank 0 of a cluster counts in).  The block that arrives last
+// quantizes the band's rows from the scratch tile (reading through L2,
+// where the other blocks' stores and atomics landed, 8 float4 loads in
+// flight per thread) with the row quantizer's arithmetic, so q and the
+// scale are bitwise quantize_rows_int8 of the f32 output, and resets the
+// band's maxima and counter to 0 for the next launch.  One launch, no
+// block waits on another.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -429,6 +480,654 @@ inline dim3 gemm_grid(int E, int M, int N) {
   return dim3((N + BN - 1) / BN, (M + BM - 1) / BM, E);
 }
 
+// ---------------------------------------------------------------------------
+// The int8 GEMM on the tensor cores (kernels 3 and 6); see the note at the
+// top of this file.
+// ---------------------------------------------------------------------------
+constexpr int I8_NT = 256;           // threads per block: 8 warps
+constexpr int I8_MAX_SMEM = 232448;  // dynamic shared memory a block may use
+// decode tile: up to 16 rows, DBN columns, K steps of 128 rows, DNST
+// stages in the cp.async ring
+constexpr int DBN = 64, DBK = 128, DNST = 4;
+// prefill tile: 128 rows, 128 columns, K steps of 64, PNST stages
+constexpr int PBM = 128, PBN = 128, PBK = 64, PNST = 4;
+constexpr int PPITCH = PBN + 4;  // int32 row pitch of a rank's partial tile
+// the tile shapes of the wrapper's plan: decode at 8 or 16 rows, prefill
+enum Shape { DEC8 = 0, DEC16 = 1, PRE = 2 };
+// the last bytes of shared memory: row maxima [128], the requant's row
+// scales [128], the last-block flag
+constexpr int I8_TAIL = 128 * 4 + 128 * 4 + 16;
+
+struct I8Layout {
+  int x, x_pitch, tail, total;  // byte offsets (x: the decode x slice)
+};
+// Dynamic shared memory of one block (cim_gemm_i8_smem_bytes; the wrapper's
+// gemm_plan counts the same).  Decode: the ring of NST stages of DBK x DBN
+// weight bytes (reused for the warps' K sums), then the rank's activation
+// slice: MR rows of spr * DBK bytes, each padded by 16 so that the 8 rows
+// a warp reads fall on distinct banks.  Prefill: the ring of NST stages of
+// x [PBM][PBK] and w [PBK][PBN] bytes or, with a cluster, the int32 partial
+// tile that takes its place for the merge, whichever is larger.
+__host__ __device__ inline I8Layout i8_layout(int shape, int K, int C) {
+  I8Layout L;
+  if (shape == PRE) {
+    const int ring = PNST * (PBM * PBK + PBK * PBN);
+    const int part = C > 1 ? PBM * PPITCH * 4 : 0;
+    L.x = 0;
+    L.x_pitch = 0;
+    L.tail = ring > part ? ring : part;
+  } else {
+    const int mr = shape == DEC8 ? 8 : 16;
+    const int steps = (K + DBK - 1) / DBK;
+    const int spr = (steps + C - 1) / C;
+    L.x = DNST * DBK * DBN;
+    L.x_pitch = spr * DBK + 16;
+    L.tail = L.x + mr * L.x_pitch;
+  }
+  L.total = L.tail + I8_TAIL;
+  return L;
+}
+
+struct I8Args {
+  const int8_t* x;     // [M, K]
+  const float* xs;     // [M] (not read by EPI_ACC)
+  const int8_t* w;     // [K, N]
+  const float* ws;     // [N]
+  const float* bias;   // [N] or null
+  const void* res;     // [M, N] f32 or bf16, or null
+  int res_kind, act;
+  void* out;           // f32 [M, N] (EPI_QOUT: the scratch), int32 (EPI_ACC)
+  int8_t* q;           // EPI_QOUT: [M, N]
+  float* qs;           // EPI_QOUT: [M]
+  unsigned int* amax;  // EPI_QOUT: [M], zero
+  int* arrive;         // EPI_QOUT: one counter a row band, zero
+  int M, K, N;
+  int x16, w16;        // rows copyable in 16-byte chunks
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared; zero-fills when !ok (source size 0)
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 32, row) . b (32 x 8, col): s8 in, s32 accumulated exactly
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Swizzles of a stage: 16-byte chunk c of stage row r lies at chunk
+// c ^ swz(r), so that each warp-wide 32-bit read of the fragment loops
+// (and each 8-row ldmatrix of x) touches 32 distinct banks.
+__device__ __forceinline__ int dswz(int r) { return ((r >> 3) & 1) << 1; }
+__device__ __forceinline__ int pswz(int r) { return ((r >> 2) & 3) << 1; }
+__device__ __forceinline__ int xswz(int r) { return (r >> 1) & 3; }
+
+// Copy weight rows k0 .. k0 + ROWS - 1 (rows at or past kend read as zero)
+// and columns n0 .. n0 + 16 CPR - 1 (past N zero) into a swizzled stage of
+// ROWS rows of CPR chunks: 16-byte copies when w16, else 4-byte ones
+// (N % 4 == 0).
+template <int ROWS, int CPR, bool PREFILL>
+__device__ __forceinline__ void copy_w(uint32_t dst, const I8Args& a, int k0,
+                                       int kend, int n0, int tid) {
+  if (a.w16) {
+#pragma unroll
+    for (int i = tid; i < ROWS * CPR; i += I8_NT) {
+      const int r = i / CPR, c = i % CPR;
+      const int k = k0 + r, n = n0 + 16 * c;
+      const bool ok = k < kend && n < a.N;
+      const int s = PREFILL ? pswz(r) : dswz(r);
+      cp16(dst + r * CPR * 16 + 16 * (c ^ s),
+           ok ? a.w + (int64_t)k * a.N + n : a.w, ok);
+    }
+  } else {
+    for (int i = tid; i < ROWS * CPR * 4; i += I8_NT) {
+      const int r = i / (CPR * 4), wd = i % (CPR * 4);
+      const int k = k0 + r, n = n0 + 4 * wd;
+      const bool ok = k < kend && n < a.N;
+      const int s = PREFILL ? pswz(r) : dswz(r);
+      cp4(dst + r * CPR * 16 + 16 * ((wd >> 2) ^ s) + 4 * (wd & 3),
+          ok ? a.w + (int64_t)k * a.N + n : a.w, ok);
+    }
+  }
+}
+
+// Copy x rows m0 .. m0 + rows - 1 (past M zero), columns k0 .. k0 + cols
+// - 1 (at or past kend zero) to dst: chunk c of row r at byte r * pitch +
+// 16 (c ^ xswz(r)) when SWZ, else r * pitch + 16 c.  16-byte copies when
+// x16, else byte by byte (synchronous: rows of any length and alignment).
+template <bool SWZ>
+__device__ __forceinline__ void copy_x(unsigned char* dst, int pitch,
+                                       const I8Args& a, int rows, int cols,
+                                       int m0, int k0, int kend, int tid) {
+  if (a.x16) {
+    const int cpr = cols / 16;
+    for (int i = tid; i < rows * cpr; i += I8_NT) {
+      const int r = i / cpr, c = i % cpr;
+      const int m = m0 + r, k = k0 + 16 * c;
+      const bool ok = m < a.M && k < kend;
+      cp16(smem_u32(dst + r * pitch + 16 * (SWZ ? c ^ xswz(r) : c)),
+           ok ? a.x + (int64_t)m * a.K + k : a.x, ok);
+    }
+  } else {
+    for (int i = tid; i < rows * cols; i += I8_NT) {
+      const int r = i / cols, b = i % cols;
+      const int m = m0 + r, k = k0 + b;
+      const int c = b / 16;
+      dst[r * pitch + 16 * (SWZ ? c ^ xswz(r) : c) + b % 16] =
+          (m < a.M && k < kend) ? (unsigned char)a.x[(int64_t)m * a.K + k]
+                                : (unsigned char)0;
+    }
+  }
+}
+
+// The copies of one K step (from row k0) into stage st of the ring.
+template <int SHAPE>
+__device__ __forceinline__ void load_step(unsigned char* smem, int st,
+                                          const I8Args& a, int k0, int kend,
+                                          int m0, int n0, int tid) {
+  if constexpr (SHAPE == PRE) {
+    unsigned char* s = smem + st * (PBM * PBK + PBK * PBN);
+    copy_x<true>(s, PBK, a, PBM, PBK, m0, k0, kend, tid);
+    copy_w<PBK, PBN / 16, true>(smem_u32(s + PBM * PBK), a, k0, kend, n0,
+                                tid);
+  } else {
+    copy_w<DBK, DBN / 16, false>(smem_u32(smem + st * DBK * DBN), a, k0,
+                                 kend, n0, tid);
+  }
+}
+
+// dequant, bias, activation, residual in the reference's order, each
+// product and sum rounded on its own (EPI_F32 and EPI_QOUT)
+__device__ __forceinline__ float i8_epilogue(const I8Args& a, int tot, int gm,
+                                             int gn) {
+  float y = __fmul_rn(__fmul_rn((float)tot, a.xs[gm]), a.ws[gn]);
+  if (a.bias != nullptr) y = __fadd_rn(y, a.bias[gn]);
+  y = activate(y, a.act);
+  const int64_t o = (int64_t)gm * a.N + gn;
+  if (a.res_kind == 1)
+    y = __fadd_rn(y, static_cast<const float*>(a.res)[o]);
+  else if (a.res_kind == 2)
+    y = __fadd_rn(
+        y, __bfloat162float(static_cast<const __nv_bfloat16*>(a.res)[o]));
+  return y;
+}
+
+// EPI_QOUT, after the block's f32 stores with its rows' |max| in s_amax:
+// publish the maxima, count the block in its row band, and in the band's
+// last block turn the band's ``rows`` f32 rows (from m0) into int8 codes
+// and scales with the row quantizer's arithmetic (requant_band's, for a
+// band of up to 128 rows), resetting the maxima and the counter to 0.
+__device__ __forceinline__ void i8_requant(const I8Args& a, unsigned char* tl,
+                                           int m0, int rows, int band,
+                                           int blocks, int tid) {
+  unsigned int* s_amax = reinterpret_cast<unsigned int*>(tl);
+  float* s_rs = reinterpret_cast<float*>(tl + 512);
+  int* s_last = reinterpret_cast<int*>(tl + 1024);
+  const int M = a.M, N = a.N;
+  __syncthreads();
+  if (tid < rows && m0 + tid < M) atomicMax(&a.amax[m0 + tid], s_amax[tid]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *s_last = atomicAdd(&a.arrive[band], 1) == blocks - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  if (tid < rows && m0 + tid < M) {
+    const float s = row_scale(__uint_as_float(__ldcg(&a.amax[m0 + tid])));
+    s_rs[tid] = s;
+    a.qs[m0 + tid] = s;
+    a.amax[m0 + tid] = 0u;
+  }
+  __syncthreads();
+  constexpr int RQ = 8;
+  const int n4 = N / 4;
+  const int total = min(rows, M - m0) * n4;
+  const float4* h4 = reinterpret_cast<const float4*>(
+      static_cast<const float*>(a.out) + (int64_t)m0 * N);
+  char4* q4 = reinterpret_cast<char4*>(a.q + (int64_t)m0 * N);
+  for (int i0 = tid; i0 < total; i0 += RQ * I8_NT) {
+    float4 v[RQ];
+#pragma unroll
+    for (int u = 0; u < RQ; ++u)
+      if (i0 + u * I8_NT < total) v[u] = __ldcg(&h4[i0 + u * I8_NT]);
+#pragma unroll
+    for (int u = 0; u < RQ; ++u) {
+      const int i = i0 + u * I8_NT;
+      if (i < total) {
+        const float s = s_rs[i / n4];
+        q4[i] = make_char4(quant1(v[u].x, s), quant1(v[u].y, s),
+                           quant1(v[u].z, s), quant1(v[u].w, s));
+      }
+    }
+  }
+  if (tid == 0) a.arrive[band] = 0;
+}
+
+// One body: two tile shapes (SHAPE, from the wrapper's plan) and three
+// epilogues (EPI).  A cluster of C blocks (a launch attribute, 1 to 8)
+// shares one output tile and splits its K steps: rank r takes steps
+// [r steps / C, (r + 1) steps / C) of the ceil(K / BK); rank 0 sums the
+// ranks' int32 partials through distributed shared memory and runs the
+// epilogue.  Two blocks an SM (128 registers), but one on the prefill
+// tile with the requant or the int32 epilogue, which spill at 128.
+template <int EPI, int SHAPE>
+__global__ void __launch_bounds__(I8_NT,
+                                  SHAPE == PRE && EPI != EPI_F32 ? 1 : 2)
+cim_gemm_i8_kernel(const I8Args a) {
+  constexpr bool DEC = SHAPE != PRE;
+  constexpr int NJ = SHAPE == DEC16 ? 2 : 1;  // decode: n-tiles of 8 rows
+  constexpr int MR = 8 * NJ;                  // decode: rows of the tile
+  constexpr int BK = DEC ? DBK : PBK;
+  constexpr int BN = DEC ? DBN : PBN;
+  constexpr int NST = DEC ? DNST : PNST;
+  constexpr int STAGE = DEC ? DBK * DBN : PBM * PBK + PBK * PBN;
+  // decode warps: WK along the stage's K rows x WN along its columns,
+  // KSW k-steps of 32 rows each a stage
+  constexpr int WN = DBN / 32, WK = 8 / WN, KSW = DBK / (32 * WK);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = (int)(blockIdx.x / C) * BN;
+  const int m0 = DEC ? 0 : (int)blockIdx.y * PBM;
+  const I8Layout L = i8_layout(SHAPE, a.K, C);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* tail = smem + L.tail;
+  if (EPI == EPI_QOUT && tid < 128)
+    reinterpret_cast<unsigned int*>(tail)[tid] = 0u;
+
+  // this rank's K steps
+  const int steps = (a.K + BK - 1) / BK;
+  const int s_lo = rank * steps / C;  // steps < 2^28: no 64-bit division
+  const int nsteps = (rank + 1) * steps / C - s_lo;
+  const int k_lo = s_lo * BK;
+  const int kend = min(a.K, (s_lo + nsteps) * BK);
+  const uint32_t ring = smem_u32(smem);
+
+  if constexpr (DEC)  // the rank's activation slice, once, in group 0
+    copy_x<false>(smem + L.x, L.x_pitch, a, MR, L.x_pitch - 16, 0, k_lo, kend,
+                  tid);
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < nsteps)
+      load_step<SHAPE>(smem, i, a, k_lo + i * BK, kend, m0, n0, tid);
+    cp_commit();
+  }
+
+  // decode: warp (wk, wn) takes stage rows 32 KSW wk .. + 32 KSW - 1 and
+  // output columns 32 wn .. + 31 (two m-tiles of W^T); prefill: warp (wm, wn)
+  // takes rows 64 wm .. + 63 (4 m-tiles of x) and columns 32 wn .. + 31
+  // (4 n-tiles of W)
+  constexpr int TA = DEC ? 2 : 4, TB = DEC ? NJ : 4;
+  int acc[TA][TB][4];
+#pragma unroll
+  for (int i = 0; i < TA; ++i)
+#pragma unroll
+    for (int j = 0; j < TB; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+
+  // Per-lane shared-memory offsets within a stage.  W fragments: lane
+  // (g, t) reads the 32-bit word of 4 adjacent columns 4 (8 wn + g) .. + 3
+  // in 4 rows of its k-quad and transposes them (transpose4x4): the 4
+  // columns' k-quads fill one fragment slot of 4 tiles, a column
+  // permutation inside the tile that the stores undo.
+  const int wa = DEC ? warp / WN : warp >> 2;  // wk (decode), wm (prefill)
+  const int wn = DEC ? warp % WN : warp & 3;
+  const int c16 = 2 * wn + (g >> 2);  // the word's chunk in its row
+  uint32_t w_off[2][4];
+  if constexpr (DEC) {
+    // lane t reads its quad's rows in the order 4t + ((j + t) & 3): every
+    // read then meets both halves of a bank line; the k permutation is
+    // undone on the x side by rotating its words by t bytes
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ra = 32 * KSW * wa + 4 * t + ((j + t) & 3), rb = ra + 16;
+      w_off[0][j] = ra * DBN + 16 * (c16 ^ dswz(ra)) + 4 * (g & 3);
+      w_off[1][j] = rb * DBN + 16 * (c16 ^ dswz(rb)) + 4 * (g & 3);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ra = 4 * t + j, rb = ra + 16;  // + 32 per k-step of the stage
+      w_off[0][j] = PBM * PBK + ra * PBN + 16 * (c16 ^ pswz(ra)) + 4 * (g & 3);
+      w_off[1][j] = PBM * PBK + rb * PBN + 16 * (c16 ^ pswz(rb)) + 4 * (g & 3);
+    }
+  }
+  // prefill x fragments by ldmatrix: lane l gives row (l & 7) + 8 ((l >> 3)
+  // & 1) of the m-tile, chunk (l >> 4) of the k-step
+  const int xr = 64 * wa + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const uint32_t x_off = xr * PBK;
+  const int x_c = lane >> 4, x_s = xswz(xr);
+  // decode x words: row 8 j + g, byte 4 t of the step's 32-row slice
+  const uint32_t xd =
+      smem_u32(smem + L.x) + g * L.x_pitch + 32 * KSW * wa + 4 * t;
+
+  for (int it = 0; it < nsteps; ++it) {
+    cp_wait<NST - 2>();
+    __syncthreads();
+    const int nx = it + NST - 1;
+    if (nx < nsteps)
+      load_step<SHAPE>(smem, nx % NST, a, k_lo + nx * BK, kend, m0, n0, tid);
+    cp_commit();
+    const uint32_t sb = ring + (it % NST) * STAGE;
+    if constexpr (DEC) {
+#pragma unroll
+      for (int ks = 0; ks < KSW; ++ks) {
+        uint32_t r0[4], r1[4], a0[4], a1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          r0[j] = lds32(sb + w_off[0][j] + ks * 32 * DBN);
+          r1[j] = lds32(sb + w_off[1][j] + ks * 32 * DBN);
+        }
+        transpose4x4(r0, a0);
+        transpose4x4(r1, a1);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint32_t xa = xd + j * 8 * L.x_pitch + it * DBK + 32 * ks;
+          const uint32_t v0 = lds32(xa), v1 = lds32(xa + 16);
+          const uint32_t b0 = __funnelshift_r(v0, v0, 8 * t);
+          const uint32_t b1 = __funnelshift_r(v1, v1, 8 * t);
+          mma_s8(acc[0][j], a0[0], a0[1], a1[0], a1[1], b0, b1);
+          mma_s8(acc[1][j], a0[2], a0[3], a1[2], a1[3], b0, b1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t af[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          ldsm_x4(af[mt], sb + x_off + mt * 16 * PBK +
+                              16 * ((2 * ks + x_c) ^ x_s));
+        uint32_t r0[4], r1[4], b0[4], b1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          r0[j] = lds32(sb + w_off[0][j] + ks * 32 * PBN);
+          r1[j] = lds32(sb + w_off[1][j] + ks * 32 * PBN);
+        }
+        transpose4x4(r0, b0);
+        transpose4x4(r1, b1);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_s8(acc[mt][nt], af[mt][0], af[mt][1], af[mt][2], af[mt][3],
+                   b0[nt], b1[nt]);
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free
+
+  if constexpr (DEC) {
+    // the warps' K sums: red[wk][m][col] in the tile's own column order
+    int* red = reinterpret_cast<int*>(smem);
+#pragma unroll
+    for (int tp = 0; tp < 2; ++tp)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int rho = g + 8 * (r >> 1);  // the m-tile's row
+          const int col = 32 * wn + 4 * (rho & 7) + 2 * tp + (rho >> 3);
+          const int m = 8 * j + 2 * t + (r & 1);
+          red[(wa * MR + m) * DBN + col] = acc[tp][j][r];
+        }
+    __syncthreads();
+    constexpr int PER = MR * DBN / I8_NT;  // outputs a thread
+    int tot[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + I8_NT * i;
+      tot[i] = red[e];
+#pragma unroll
+      for (int k = 1; k < WK; ++k) tot[i] += red[e + k * MR * DBN];
+    }
+    if (C > 1) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) red[tid + I8_NT * i] = tot[i];
+      cluster.sync();
+      if (rank == 0)
+        for (int r = 1; r < C; ++r) {
+          const int* rem = cluster.map_shared_rank(red, r);
+#pragma unroll
+          for (int i = 0; i < PER; ++i) tot[i] += rem[tid + I8_NT * i];
+        }
+      cluster.sync();  // the other ranks' shared memory stays until read
+      if (rank != 0) return;
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + I8_NT * i;
+      const int m = e / DBN, gn = n0 + e % DBN;
+      const bool valid = m < a.M && gn < a.N;
+      const int64_t o = (int64_t)m * a.N + gn;
+      if constexpr (EPI == EPI_ACC) {
+        if (valid) static_cast<int*>(a.out)[o] = tot[i];
+      } else {
+        float y = 0.0f;
+        if (valid) {
+          y = i8_epilogue(a, tot[i], m, gn);
+          static_cast<float*>(a.out)[o] = y;
+        }
+        if constexpr (EPI == EPI_QOUT) {
+          // a warp's 32 outputs lie in one row
+          float mx = fabsf(y);
+#pragma unroll
+          for (int off = 16; off; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          if (lane == 0)
+            atomicMax(reinterpret_cast<unsigned int*>(tail) + m,
+                      __float_as_uint(mx));
+        }
+      }
+    }
+    if constexpr (EPI == EPI_QOUT)
+      i8_requant(a, tail, 0, MR, 0, (int)gridDim.x / C, tid);
+  } else {
+    // thread (g, t) of warp (wm, wn) holds, for m-tile mt and half h, row
+    // 64 wm + 16 mt + g + 8 h at columns 32 wn + 8 t .. + 7: acc[mt][q][2h]
+    // at column + q and acc[mt][q][2h + 1] at column + 4 + q
+    if (C > 1) {
+      int* part = reinterpret_cast<int*>(smem);  // [PBM][PPITCH]
+      if (rank != 0) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            int4* p = reinterpret_cast<int4*>(
+                part + (64 * wa + 16 * mt + g + 8 * h) * PPITCH + 32 * wn +
+                8 * t);
+            p[0] = make_int4(acc[mt][0][2 * h], acc[mt][1][2 * h],
+                             acc[mt][2][2 * h], acc[mt][3][2 * h]);
+            p[1] = make_int4(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1],
+                             acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1]);
+          }
+      }
+      cluster.sync();
+      if (rank == 0)
+        for (int r = 1; r < C; ++r) {
+          const int* rem = cluster.map_shared_rank(part, r);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int4* p = reinterpret_cast<const int4*>(
+                  rem + (64 * wa + 16 * mt + g + 8 * h) * PPITCH + 32 * wn +
+                  8 * t);
+              const int4 u = p[0], v = p[1];
+              acc[mt][0][2 * h] += u.x;
+              acc[mt][1][2 * h] += u.y;
+              acc[mt][2][2 * h] += u.z;
+              acc[mt][3][2 * h] += u.w;
+              acc[mt][0][2 * h + 1] += v.x;
+              acc[mt][1][2 * h + 1] += v.y;
+              acc[mt][2][2 * h + 1] += v.z;
+              acc[mt][3][2 * h + 1] += v.w;
+            }
+        }
+      cluster.sync();
+      if (rank != 0) return;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lm = 64 * wa + 16 * mt + g + 8 * h;
+        const int gm = m0 + lm;
+        const int gn0 = n0 + 32 * wn + 8 * t;
+        int v[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[q] = acc[mt][q][2 * h];
+          v[4 + q] = acc[mt][q][2 * h + 1];
+        }
+        const bool full = gm < a.M && gn0 + 8 <= a.N;
+        const int64_t o = (int64_t)gm * a.N + gn0;
+        if constexpr (EPI == EPI_ACC) {
+          int* out = static_cast<int*>(a.out);
+          if (full) {
+            reinterpret_cast<int4*>(out + o)[0] =
+                make_int4(v[0], v[1], v[2], v[3]);
+            reinterpret_cast<int4*>(out + o)[1] =
+                make_int4(v[4], v[5], v[6], v[7]);
+          } else if (gm < a.M) {
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              if (gn0 + q < a.N) out[o + q] = v[q];
+          }
+        } else {
+          float y[8];
+          float mx = 0.0f;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            y[q] = 0.0f;
+            if (gm < a.M && gn0 + q < a.N) {
+              y[q] = i8_epilogue(a, v[q], gm, gn0 + q);
+              mx = fmaxf(mx, fabsf(y[q]));
+            }
+          }
+          float* out = static_cast<float*>(a.out);
+          if (full) {
+            reinterpret_cast<float4*>(out + o)[0] =
+                make_float4(y[0], y[1], y[2], y[3]);
+            reinterpret_cast<float4*>(out + o)[1] =
+                make_float4(y[4], y[5], y[6], y[7]);
+          } else if (gm < a.M) {
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              if (gn0 + q < a.N) out[o + q] = y[q];
+          }
+          if constexpr (EPI == EPI_QOUT) {
+            // the row's 32 columns of this warp lie in its 4 t lanes
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            if (t == 0 && gm < a.M)
+              atomicMax(reinterpret_cast<unsigned int*>(tail) + lm,
+                        __float_as_uint(mx));
+          }
+        }
+      }
+    if constexpr (EPI == EPI_QOUT)
+      i8_requant(a, tail, m0, PBM, (int)blockIdx.y, (int)gridDim.x / C, tid);
+  }
+}
+
+template <int EPI, int SHAPE>
+cudaError_t i8_launch(const I8Args& a, int C, int smem, cudaStream_t st) {
+  constexpr int BN = SHAPE == PRE ? PBN : DBN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + BN - 1) / BN * C,
+                     SHAPE == PRE ? (a.M + PBM - 1) / PBM : 1, 1);
+  cfg.blockDim = dim3(I8_NT, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, cim_gemm_i8_kernel<EPI, SHAPE>, a);
+}
+
+template <int EPI>
+cudaError_t i8_run(const I8Args& a, int shape, int C, int smem,
+                   cudaStream_t st) {
+  if (shape == DEC8) return i8_launch<EPI, DEC8>(a, C, smem, st);
+  if (shape == DEC16) return i8_launch<EPI, DEC16>(a, C, smem, st);
+  return i8_launch<EPI, PRE>(a, C, smem, st);
+}
+
+template <int EPI>
+cudaError_t i8_opt_in_epi() {
+  cudaError_t e = cudaFuncSetAttribute(
+      cim_gemm_i8_kernel<EPI, DEC8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, I8_MAX_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, DEC16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             I8_MAX_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, PRE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             I8_MAX_SMEM);
+  return e;
+}
+
+// The opt-in above 48 KB, for every instantiation at the largest size,
+// once per device at its first launch: no later launch (inside a graph
+// capture) needs it.
+cudaError_t i8_opt_in() {
+  static bool granted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || granted[dev % 64]) return e;
+  e = i8_opt_in_epi<EPI_F32>();
+  if (e == cudaSuccess) e = i8_opt_in_epi<EPI_QOUT>();
+  if (e == cudaSuccess) e = i8_opt_in_epi<EPI_ACC>();
+  if (e == cudaSuccess) granted[dev % 64] = true;
+  return e;
+}
+
 }  // namespace
 
 // x_kind / res_kind: 1 = float32, 2 = bfloat16 (res_kind 0 = none).
@@ -510,22 +1209,66 @@ int cim_gemm_int8_launch(const void* xq, const void* xs, const void* w,
   if (E > 1) {
     if (gated) { LAUNCH_Q(true, true); } else { LAUNCH_Q(false, true); }
   } else {
-    if (gated) { LAUNCH_Q(true, false); } else { LAUNCH_Q(false, false); }
+    // the dense plain GEMM runs on the tensor cores (cim_gemm_i8_launch)
+    if (!gated) return (int)cudaErrorInvalidValue;
+    LAUNCH_Q(true, false);
   }
 #undef LAUNCH_Q
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
 
-// x_q [M, K] int8 @ w [K, N] int8 -> out int32 [M, N], exact.
-int cim_gemm_int8_acc(const void* xq, const void* w, void* out, int M, int K,
-                      int N, void* stream) {
-  cim_gemm_kernel<int8_t, false, EPI_ACC, false>
-      <<<gemm_grid(1, M, N), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), nullptr, static_cast<const int8_t*>(w),
-      nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, nullptr,
-      static_cast<float*>(out), nullptr, nullptr, nullptr, nullptr, M, K, N);
+// Kernels 3 and 6 on the tensor cores: x_q [M, K] int8 @ w [K, N] int8
+// with the f32 epilogue (q null; xs [M], ws/bias [N], res [M, N] as
+// above), the requant epilogue (q [M, N], qs [M], amax [M] and arrive
+// [one a row band] given, zeros) or, with acc, the exact int32 sum in out
+// [M, N].  shape (0/1 decode at 8/16 rows, 2 prefill), cluster and smem
+// are the wrapper's plan (gemm_plan); N % 4 == 0.
+int cim_gemm_i8_launch(const void* xq, const void* xs, const void* w,
+                       const void* ws, const void* bias, const void* res,
+                       int res_kind, int act, int acc, void* out, void* q,
+                       void* qs, void* amax, void* arrive, int M, int K, int N,
+                       int shape, int cluster, int smem, void* stream) {
+  if (shape < DEC8 || shape > PRE || M < 1 || K < 1 || N < 1 || N % 4 ||
+      (shape != PRE && M > 8 * (shape + 1)) ||
+      cluster < 1 || cluster > 8 ||
+      smem < i8_layout(shape, K, cluster).total || smem > I8_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  I8Args a;
+  a.x = static_cast<const int8_t*>(xq);
+  a.xs = static_cast<const float*>(xs);
+  a.w = static_cast<const int8_t*>(w);
+  a.ws = static_cast<const float*>(ws);
+  a.bias = static_cast<const float*>(bias);
+  a.res = res;
+  a.res_kind = res_kind;
+  a.act = act;
+  a.out = out;
+  a.q = static_cast<int8_t*>(q);
+  a.qs = static_cast<float*>(qs);
+  a.amax = static_cast<unsigned int*>(amax);
+  a.arrive = static_cast<int*>(arrive);
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.x16 = K % 16 == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0;
+  a.w16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  cudaError_t e = i8_opt_in();
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (acc)
+    e = i8_run<EPI_ACC>(a, shape, cluster, smem, st);
+  else if (q != nullptr)
+    e = i8_run<EPI_QOUT>(a, shape, cluster, smem, st);
+  else
+    e = i8_run<EPI_F32>(a, shape, cluster, smem, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared-memory bytes of a block of that plan (i8_layout).
+int cim_gemm_i8_smem_bytes(int shape, int K, int cluster) {
+  return i8_layout(shape, K, cluster).total;
 }
 
 const char* cim_gemm_error_string(int err) {

@@ -2,9 +2,12 @@
 grouped over experts.
 
 The port of ``repro/kernels/cim_gemm.py``.  The CUDA kernels live in
-``csrc/cim_gemm.cu`` (one GEMM template whose instantiations differ in
-the prologue and the epilogue; see the note at the top of that file for
-what bounds them and how).  Every wrapper here:
+``csrc/cim_gemm.cu``: the int8 x int8 GEMM of kernels 3 and 6 runs on
+the tensor cores in one of two tile shapes, with thread-block clusters
+splitting K, as :func:`gemm_plan` decides from (M, K, N); the other
+GEMMs share one template on the CUDA cores whose instantiations differ
+in the prologue and the epilogue (see the note at the top of that file
+for what bounds them and how).  Every wrapper here:
 
 * takes its plain version (``*_plain``) when its tensors lie on the CPU;
 * on CUDA tensors checks dtype, shape, contiguity and alignment,
@@ -17,6 +20,9 @@ reference's ``[E, 1, N]`` scale layout is TPU tiling, so the grouped
 wrappers take ``[E, N]``.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import torch
 
@@ -105,8 +111,9 @@ def _gemm_int8(what, x_q, x_scale, w, w_scale, w2=None, w2_scale=None,
                bias=None, residual=None, counts=None, activation=None,
                quantize_out=False):
     """Launch the pre-quantized GEMM template on x_q [E, M, K] int8 and
-    w (w2) [E, K, N], checked by the caller; returns f32 [E, M, N] or
-    (q int8 [E, M, N], scale f32 [E, M, 1])."""
+    w (w2) [E, K, N], checked by the caller (the gated GEMM, E = 1, and
+    the grouped GEMMs); returns f32 [E, M, N] or (q int8 [E, M, N],
+    scale f32 [E, M, 1])."""
     E, M, K = x_q.shape
     N = w.shape[-1]
     dev = x_q.device
@@ -125,6 +132,194 @@ def _gemm_int8(what, x_q, x_scale, w, w_scale, w2=None, w2_scale=None,
                    ACTIVATIONS[activation], ptr(out), ptr(q), ptr(qs),
                    ptr(amax), ptr(arrive), E, M, K, N, stream(x_q)), what)
     return (q, qs) if quantize_out else out
+
+
+# ---------------------------------------------------------------------------
+# Launch plan of the tensor-core GEMM (kernels 3 and 6)
+# ---------------------------------------------------------------------------
+SMS = 132              # streaming multiprocessors of an H100
+MAX_SMEM = 232448      # dynamic shared memory a block may use on sm_90
+CLUSTERS = (1, 2, 3, 4, 5, 6, 7, 8)   # 8: the portable maximum
+# rows the decode tile takes (two n-tiles of 8); more take the prefill
+# tile
+DECODE_MAX_M = 16
+# decode: columns of a tile, K rows a step, stages of the cp.async ring
+DEC_BN, DEC_BK, DEC_STAGES = 64, 128, 4
+PRE_BM, PRE_BN, PRE_BK, PRE_STAGES = 128, 128, 64, 4
+# a prefill rank keeps at least this many K steps (of 64 rows)
+PRE_MIN_STEPS = 4
+# the rule's largest cluster: clusters of 8 timed slower than clusters of
+# 5 to 7 at every decode shape swept and than 6 at the prefill ones
+# (``chip_smoke.py``'s forced-plan ``[times]`` lines; PERF.md)
+RULE_MAX_CLUSTER = 6
+_TAIL = 128 * 4 + 128 * 4 + 16   # row maxima, requant scales, flag
+_KINDS = ("decode", "prefill")
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    kind: str     # "decode": W^T as the tensor cores' A side; "prefill"
+    bm: int       # rows of a tile: 8 or 16 (decode), 128 (prefill)
+    bn: int       # columns of a tile
+    bk: int       # K rows of one step of the cp.async ring
+    cluster: int  # blocks of a cluster, splitting the K steps
+    smem: int     # dynamic shared-memory bytes of a block
+
+    @property
+    def shape(self) -> int:
+        """The kernel's code of the tile shape (``Shape`` in the source)."""
+        return 2 if self.kind == "prefill" else self.bm // 8 - 1
+
+    def grid(self, M: int, N: int) -> int:
+        """Blocks of the launch."""
+        rows = -(-M // self.bm) if self.kind == "prefill" else 1
+        return rows * -(-N // self.bn) * self.cluster
+
+
+def k_steps(K: int, bk: int, cluster: int) -> tuple[int, int]:
+    """(K steps of ``bk`` rows, the most steps a rank takes): rank r
+    takes steps [r steps // C, (r + 1) steps // C), a whole number; the
+    last step is ragged (masked) when bk does not divide K."""
+    steps = -(-K // bk)
+    return steps, -(-steps // cluster)
+
+
+def smem_bytes(kind: str, bm: int, K: int, cluster: int) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out
+    (``i8_layout`` in ``csrc/cim_gemm.cu``, whose
+    ``cim_gemm_i8_smem_bytes`` a card test holds this against).  Decode:
+    the stage ring (DEC_BK x DEC_BN bytes a stage) and the rank's x slice
+    (bm rows of its K extent, padded by 16 bytes).  Prefill: the ring of
+    x and w stages, or with a cluster the int32 partial tile merged by
+    rank 0, whichever is larger."""
+    if kind == "prefill":
+        ring = PRE_STAGES * (PRE_BM * PRE_BK + PRE_BK * PRE_BN)
+        part = PRE_BM * (PRE_BN + 4) * 4 if cluster > 1 else 0
+        return max(ring, part) + _TAIL
+    _, spr = k_steps(K, DEC_BK, cluster)
+    return DEC_STAGES * DEC_BK * DEC_BN + bm * (spr * DEC_BK + 16) + _TAIL
+
+
+def _plan_of(kind: str, cluster: int, M: int, K: int) -> GemmPlan:
+    if kind == "decode":
+        bm = 8 if M <= 8 else 16
+        return GemmPlan(kind, bm, DEC_BN, DEC_BK, cluster,
+                        smem_bytes(kind, bm, K, cluster))
+    return GemmPlan(kind, PRE_BM, PRE_BN, PRE_BK, cluster,
+                    smem_bytes(kind, PRE_BM, K, cluster))
+
+
+def _refusal(plan: GemmPlan, M: int, K: int) -> str | None:
+    """Why the kernel cannot take ``plan`` at (M, K), or None."""
+    if plan.kind == "decode" and M > DECODE_MAX_M:
+        return f"the decode tile takes at most {DECODE_MAX_M} rows, not {M}"
+    if plan.cluster not in CLUSTERS:
+        return f"cluster {plan.cluster} not in {CLUSTERS}"
+    steps, _ = k_steps(K, plan.bk, plan.cluster)
+    if plan.cluster > steps:
+        return (f"a cluster of {plan.cluster} leaves a rank without a K "
+                f"step ({steps} steps of {plan.bk})")
+    if plan.smem > MAX_SMEM:
+        return f"{plan.smem} bytes of shared memory, over {MAX_SMEM}"
+    return None
+
+
+def _cluster_rule(kind: str, M: int, K: int, N: int) -> int:
+    """The fewest blocks per cluster that give the grid a block per SM
+    (``SMS``), at most ``RULE_MAX_CLUSTER``, while every rank keeps a K
+    step (``PRE_MIN_STEPS`` of them on the prefill tile); more if the
+    decode tile's x slice needs it to fit."""
+    one = _plan_of(kind, 1, M, K)
+    least = 1 if kind == "decode" else PRE_MIN_STEPS
+    steps = -(-K // one.bk)
+    c = max(1, min(-(-SMS // one.grid(M, N)), RULE_MAX_CLUSTER,
+                   steps // least))
+    while c < CLUSTERS[-1] and _plan_of(kind, c, M, K).smem > MAX_SMEM:
+        c += 1
+    return c
+
+
+_FORCED: dict = {}
+
+
+@contextlib.contextmanager
+def forced_gemm_plan(kind: str | None = None, cluster: int | None = None):
+    """Force the tile shape and/or the cluster size of the plan for the
+    GEMMs launched inside the block (tests and timings of every plan);
+    a forced plan the kernel cannot take raises in :func:`gemm_plan`."""
+    if kind is not None and kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}")
+    if cluster is not None and cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS}")
+    saved = dict(_FORCED)
+    _FORCED.update({k: v for k, v in (("kind", kind), ("cluster", cluster))
+                    if v is not None})
+    try:
+        yield
+    finally:
+        _FORCED.clear()
+        _FORCED.update(saved)
+
+
+def gemm_plan(M: int, K: int, N: int) -> GemmPlan:
+    """The launch plan of ``x [M, K] @ w [K, N]`` on the tensor-core
+    GEMM, a function of (M, K, N) alone: the decode tile up to
+    ``DECODE_MAX_M`` rows (while its x slice fits), else the prefill
+    tile; the cluster size from :func:`_cluster_rule`.  Raises if a
+    forced plan cannot be taken."""
+    kind = _FORCED.get("kind")
+    if kind is None:
+        kind = "decode" if M <= DECODE_MAX_M and _plan_of(
+            "decode", CLUSTERS[-1], M, K).smem <= MAX_SMEM else "prefill"
+    cluster = _FORCED.get("cluster") or _cluster_rule(kind, M, K, N)
+    plan = _plan_of(kind, cluster, M, K)
+    why = _refusal(plan, M, K)
+    if why is not None:
+        raise ValueError(f"GEMM plan {plan.kind} x{plan.cluster} at M={M} "
+                         f"K={K} N={N}: {why}")
+    return plan
+
+
+def gemm_plans(M: int, K: int, N: int) -> list[GemmPlan]:
+    """Every plan the kernel can take at (M, K, N)."""
+    plans = [_plan_of(kind, c, M, K) for kind in _KINDS for c in CLUSTERS]
+    return [p for p in plans if _refusal(p, M, K) is None]
+
+
+def _gemm_i8(what, x_q, x_scale, w, w_scale, bias=None, residual=None,
+             activation=None, quantize_out=False, acc=False):
+    """Launch the tensor-core GEMM on x_q [M, K] int8 and w [K, N] int8,
+    checked by the caller, under :func:`gemm_plan`; returns f32 [M, N],
+    (q int8 [M, N], scale f32 [M, 1]) or, with ``acc``, int32 [M, N]."""
+    M, K = x_q.shape
+    N = w.shape[1]
+    dev = x_q.device
+    plan = gemm_plan(M, K, N)
+    rc = _residual_code(residual, M, N)
+    out = torch.empty((M, N), dtype=torch.int32 if acc else torch.float32,
+                      device=dev)
+    q = qs = amax = arrive = None
+    if quantize_out:
+        q = torch.empty((M, N), dtype=torch.int8, device=dev)
+        qs = torch.empty((M, 1), dtype=torch.float32, device=dev)
+        bands = -(-M // plan.bm)
+        ws = _requant_workspace(dev, M + bands)
+        amax, arrive = ws[:M], ws[M:M + bands]
+    fn = bind(_LIB, "cim_gemm_i8_launch", [P] * 6 + [I] * 3 + [P] * 5
+              + [I] * 6 + [P])
+    check(_LIB, fn(ptr(x_q), ptr(x_scale), ptr(w), ptr(w_scale), ptr(bias),
+                   ptr(residual), rc, ACTIVATIONS[activation], int(acc),
+                   ptr(out), ptr(q), ptr(qs), ptr(amax), ptr(arrive), M, K,
+                   N, plan.shape, plan.cluster, plan.smem, stream(x_q)),
+          what)
+    return (q, qs) if quantize_out else out
+
+
+def kernel_smem_bytes(plan: GemmPlan, K: int) -> int:
+    """The kernel's own count of :func:`smem_bytes`
+    (``cim_gemm_i8_smem_bytes``); needs the built library."""
+    fn = bind(_LIB, "cim_gemm_i8_smem_bytes", [I, I, I])
+    return fn(plan.shape, K, plan.cluster)
 
 
 def _check_counts(counts, E):
@@ -181,10 +376,7 @@ def cim_gemm_int8(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if N % 4 or w.data_ptr() % 4:
         raise ValueError(f"w: N={N} must be a multiple of 4 and w 4-byte "
                          f"aligned")
-    out = torch.empty((M, N), dtype=torch.int32, device=x_q.device)
-    fn = bind(_LIB, "cim_gemm_int8_acc", [P, P, P, I, I, I, P])
-    check(_LIB, fn(ptr(x_q), ptr(w), ptr(out), M, K, N, stream(x_q)),
-          "cim_gemm_int8")
+    out = _gemm_i8("cim_gemm_int8", x_q, None, w, None, acc=True)
     cim_gemm_int8.launches += 1
     return out
 
@@ -264,11 +456,11 @@ def cim_gemm_int8_fused(x_q: torch.Tensor, w: torch.Tensor,
     N = _check_weight(w, w_scale, K)
     if bias is not None:
         require(bias, "bias", torch.float32, (N,))
-    out = _gemm_int8("cim_gemm_int8_fused", x_q[None], x_scale[None], w[None],
-                     w_scale[None], bias=bias, residual=residual,
-                     activation=activation, quantize_out=quantize_out)
+    out = _gemm_i8("cim_gemm_int8_fused", x_q, x_scale, w, w_scale,
+                   bias=bias, residual=residual, activation=activation,
+                   quantize_out=quantize_out)
     cim_gemm_int8_fused.launches += 1
-    return (out[0][0], out[1][0]) if quantize_out else out[0]
+    return out
 
 
 cim_gemm_int8_fused.launches = 0

@@ -67,6 +67,9 @@ _LIB = "decode_attention"
 class WalkPlan:
     cluster: int   # blocks of a cluster, each walking a share of the steps
     smem: int      # dynamic shared-memory bytes of a block
+    # a paged walk too long for one block: the number of slices it is
+    # walked in, as the split walk's partials merged by the combine
+    splits: int = 1
 
 
 def cluster_for(S: int, D: int) -> int:
@@ -135,18 +138,27 @@ def walk_plan(S: int, D: int, G: int, kv_dtype: torch.dtype, mode: str,
     """The launch plan of one walk: ``mode`` is "ring", "paged" (``bs``
     slots a pool block, S = nb * bs) or "split" (``n_splits`` slices).
     The cluster size depends on S and D only; the bytes also on the
-    cache dtype, G and the range a block reads.  Raises if a block cannot
-    hold it (a walk of more than about 200 thousand slots: its bitmask
-    and step list outgrow shared memory)."""
+    cache dtype, G and the range a block reads.  A paged walk whose
+    bitmask, step list and table row outgrow a block (above about 189
+    thousand int8 slots at D 256, G 8) is planned in the fewest slices
+    of :func:`split_len` slots that fit one (``splits``); a ring or split
+    walk that does not fit raises."""
     kv_bytes = torch.empty((), dtype=kv_dtype).element_size()
     cluster = _FORCED.get("cluster", cluster_for(S, D))
     rng = split_len(S, n_splits) if mode == "split" else S
     smem = smem_bytes(kv_bytes, D, G, rng,
                       S // bs if mode == "paged" else 0)
-    if smem > MAX_SMEM:
-        raise ValueError(f"decode attention: a walk over {rng} slots needs "
-                         f"{smem} bytes of shared memory, over {MAX_SMEM}")
-    return WalkPlan(cluster, smem)
+    if smem <= MAX_SMEM:
+        return WalkPlan(cluster, smem)
+    if mode == "paged":
+        ns = 2
+        while ns < S and smem_bytes(kv_bytes, D, G,
+                                    split_len(S, ns)) > MAX_SMEM:
+            ns += 1
+        return WalkPlan(cluster, smem_bytes(kv_bytes, D, G,
+                                            split_len(S, ns)), ns)
+    raise ValueError(f"decode attention: a walk over {rng} slots needs "
+                     f"{smem} bytes of shared memory, over {MAX_SMEM}")
 
 
 def _check_walk(q: torch.Tensor, k, v, pos, q_pos, k_scale, v_scale,
@@ -247,7 +259,9 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     entries read as masked.  On the card a table entry outside
     ``[0, NB)`` is read as the null block, never outside the pools.
     Bitwise equal to :func:`decode_attention` on the equivalent ring
-    layout (one body, the same skip decisions).
+    layout (one body, the same skip decisions).  A walk too long for one
+    block (``walk_plan``'s ``splits``) runs in slices instead: the split
+    walk and the combine, within summation order of the single walk.
     """
     if on_cpu(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
               k_scale_pages, v_scale_pages):
@@ -270,6 +284,10 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     _check_rows(NB * bs, "decode_attention_paged")
     _check_rows(nb * bs, "decode_attention_paged")
     plan = walk_plan(nb * bs, D, G, k_pages.dtype, "paged", bs=bs)
+    if plan.splits > 1:
+        return _paged_in_slices(q, k_pages, v_pages, pos_pages,
+                                block_tables, q_pos, k_scale_pages,
+                                v_scale_pages, window, plan.splits)
     out = torch.empty_like(q)
     fn = bind(_LIB, "decode_attention_paged_launch",
               [P, I, P, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
@@ -285,6 +303,29 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 decode_attention_paged.launches = 0
+
+
+def _paged_in_slices(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
+                     k_scale_pages, v_scale_pages, window, n_splits):
+    """A paged walk too long for one block: the rows' pool blocks are
+    gathered in table order (an entry outside the pool reads as the null
+    block, as in the kernel) into the ring layout, walked in ``n_splits``
+    slices of whole 64-slot steps by the split walk and merged by the
+    combine: two launches, and the ring layout's copy of the rows'
+    cache.  Differs from the single walk by summation order only."""
+    B, nb = block_tables.shape
+    NB, bs = k_pages.shape[:2]
+    tab = block_tables.long()
+    tab = torch.where((tab >= 0) & (tab < NB), tab, torch.zeros_like(tab))
+
+    def ring(pages):
+        if pages is None:
+            return None
+        return pages[tab].reshape(B, nb * bs, *pages.shape[2:])
+    o, m, l = decode_attention_partial(
+        q, ring(k_pages), ring(v_pages), ring(pos_pages), q_pos,
+        ring(k_scale_pages), ring(v_scale_pages), window, n_splits)
+    return decode_attention_combine(o, m, l, q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -931,23 +931,27 @@ def test_tp_two_ranks_on_one_card_bitwise(dev):
                                       "bcast": 0}
 
 
-# Registers ptxas gives each instantiation of the GEMM template
-# cim_gemm_kernel<TX, GATED, EPI, GROUPED> (``nvcc -Xptxas -v`` for
-# sm_90a), keyed by the mangled template arguments.  A change that moves
+# Registers ptxas gives each instantiation (``nvcc -Xptxas -v`` for
+# sm_90a), keyed by the mangled template arguments: of the CUDA-core
+# template cim_gemm_kernel<TX, GATED, EPI, GROUPED> (kernels 2, 4, 7, 8)
+# and, for kernels 3 and 6, of the tensor-core body cim_gemm_i8_kernel<EPI,
+# SHAPE> at each of its tile shapes (("i8", EPI, SHAPE): SHAPE 0 and 1 the
+# decode tile at 8 and 16 rows, 2 the prefill tile).  A change that moves
 # one (as run-time branches once took the dense int8 GEMM from 80 to 66
 # and slowed gemma-2b's down GEMM 1.5x) fails that mode's test here.
 GEMM_MODES = {
-    "qin_f32": (("f", 0, 0, 0), 80),           # kernel 2, f32 x
-    "qin_bf16": (("13__nv_bfloat16", 0, 0, 0), 80),   # kernel 2, bf16 x
-    "fused": (("a", 0, 0, 0), 80),             # kernel 3
-    "fused_requant": (("a", 0, 1, 0), 76),
-    "gated": (("a", 1, 0, 0), 159),            # kernel 4
-    "gated_requant": (("a", 1, 1, 0), 162),
-    "grouped": (("a", 0, 0, 1), 64),           # kernel 7
-    "grouped_requant": (("a", 0, 1, 1), 80),
-    "grouped_gated": (("a", 1, 0, 1), 168),    # kernel 8
-    "grouped_gated_requant": (("a", 1, 1, 1), 170),
-    "acc": (("a", 0, 2, 0), 80),               # kernel 6
+    "qin_f32": {("f", 0, 0, 0): 80},           # kernel 2, f32 x
+    "qin_bf16": {("13__nv_bfloat16", 0, 0, 0): 80},   # kernel 2, bf16 x
+    "fused": {("i8", 0, 0): 92, ("i8", 0, 1): 99,     # kernel 3
+              ("i8", 0, 2): 128},
+    "fused_requant": {("i8", 1, 0): 96, ("i8", 1, 1): 95, ("i8", 1, 2): 160},
+    "gated": {("a", 1, 0, 0): 159},            # kernel 4
+    "gated_requant": {("a", 1, 1, 0): 162},
+    "grouped": {("a", 0, 0, 1): 64},           # kernel 7
+    "grouped_requant": {("a", 0, 1, 1): 80},
+    "grouped_gated": {("a", 1, 0, 1): 168},    # kernel 8
+    "grouped_gated_requant": {("a", 1, 1, 1): 170},
+    "acc": {("i8", 2, 0): 92, ("i8", 2, 1): 96, ("i8", 2, 2): 158},  # 6
 }
 
 
@@ -964,14 +968,21 @@ def _mode_registers():
     lib = _build.BUILD_DIR / "libcim_gemm.so"
     text = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
                           capture_output=True, text=True, check=True).stdout
+
+    def usage(use):
+        return {k: int(v) for k, v in (f.split(":") for f in use.split())
+                if v.isdigit()}
+    out = {}
     pat = re.compile(r"Function \S*cim_gemm_kernelI(a|f|13__nv_bfloat16)"
                      r"Lb([01])ELi(\d)ELb([01])EE\S*:\s*\n\s*(.*)")
-    out = {}
     for m in pat.finditer(text):
         tx, gated, epi, grouped, use = m.groups()
-        out[(tx, int(gated), int(epi), int(grouped))] = {
-            k: int(v) for k, v in (f.split(":") for f in use.split())
-            if v.isdigit()}
+        out[(tx, int(gated), int(epi), int(grouped))] = usage(use)
+    pat = re.compile(r"Function \S*cim_gemm_i8_kernelILi(\d)ELi(\d)EE"
+                     r"\S*:\s*\n\s*(.*)")
+    for m in pat.finditer(text):
+        epi, shape, use = m.groups()
+        out[("i8", int(epi), int(shape))] = usage(use)
     return out
 
 
@@ -1023,10 +1034,150 @@ def test_gemm_template_mode_and_registers(dev, mode):
         assert torch.equal(out, ref)
     else:
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
-    key, regs = GEMM_MODES[mode]
-    use = _mode_registers()[key]
-    assert use["REG"] == regs, (mode, use)
-    assert use["LOCAL"] == 0 and use["STACK"] == 0, (mode, use)
+    found = _mode_registers()
+    for key, regs in GEMM_MODES[mode].items():
+        use = found[key]
+        assert use["REG"] == regs, (mode, key, use)
+        assert use["LOCAL"] == 0 and use["STACK"] == 0, (mode, key, use)
+    # the dense plain GEMM has no CUDA-core instantiation left
+    assert not {("a", 0, e, 0) for e in range(3)} & set(found)
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 6 on the tensor cores: every plan, both tile shapes
+# ---------------------------------------------------------------------------
+def _i8_case(M, K, N, dev, seed=50):
+    rng = _gen(seed)
+    xq = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
+    xs = _t(rng.uniform(1e-3, 1e-2, (M, 1)).astype(np.float32), dev)
+    w, ws = _w(rng, K, N, dev)
+    b = _t(rng.standard_normal(N).astype(np.float32), dev)
+    r = _t(rng.standard_normal((M, N)).astype(np.float32), dev)
+    return xq, xs, w, ws, b, r
+
+
+@pytest.mark.parametrize("K,N", [(1030, 264), (2048, 512)])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 33, 130, 4096])
+def test_i8_gemm_bitwise_under_every_plan(dev, M, K, N):
+    """Under every plan the kernel takes (both tile shapes, clusters 1 to
+    8), with ragged K and N (byte and 4-byte copies) and aligned ones
+    (16-byte copies): kernel 6 exact; kernel 3 bitwise its plain version
+    with an f32 residual and bias and with a bf16 residual, its
+    activations within 1e-5, and its requant bitwise the row quantizer
+    of its own f32 output.  One launch a call."""
+    xq, xs, w, ws, b, r = _i8_case(M, K, N, dev)
+    plans = cg.gemm_plans(M, K, N)
+    assert {p.kind for p in plans} == ({"decode", "prefill"} if M <= 16
+                                       else {"prefill"})
+    acc_ref = cg.cim_gemm_int8_plain(xq, w)
+    f32_ref = cg.cim_gemm_int8_fused_plain(xq, w, xs, ws, b, r)
+    bf16_ref = cg.cim_gemm_int8_fused_plain(xq, w, xs, ws, None,
+                                            r.to(torch.bfloat16))
+    for plan in plans:
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            n3, n6 = cg.cim_gemm_int8_fused.launches, cg.cim_gemm_int8.launches
+            assert torch.equal(cg.cim_gemm_int8(xq, w), acc_ref), plan
+            assert torch.equal(cg.cim_gemm_int8_fused(
+                xq, w, xs, ws, bias=b, residual=r), f32_ref), plan
+            assert torch.equal(cg.cim_gemm_int8_fused(
+                xq, w, xs, ws, residual=r.to(torch.bfloat16)), bf16_ref), plan
+            for act in ("gelu", "silu", "relu"):
+                out = cg.cim_gemm_int8_fused(xq, w, xs, ws, bias=b,
+                                             activation=act)
+                ref = cg.cim_gemm_int8_fused_plain(xq, w, xs, ws, b, None,
+                                                   act)
+                torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+            h = cg.cim_gemm_int8_fused(xq, w, xs, ws, activation="silu")
+            q, s = cg.cim_gemm_int8_fused(xq, w, xs, ws, activation="silu",
+                                          quantize_out=True)
+            qr, sr = cg.quantize_rows_int8_plain(h)
+            torch.cuda.synchronize()
+            assert torch.equal(q, qr) and torch.equal(s, sr), plan
+            assert cg.cim_gemm_int8_fused.launches == n3 + 7
+            assert cg.cim_gemm_int8.launches == n6 + 1
+
+
+def test_i8_decode_plans_replay_their_bits_from_a_graph(dev):
+    """A CUDA-graph replay of each decode plan (clusters included)
+    returns the eager launch's bits, for kernel 6 and for kernel 3 with
+    and without the requant epilogue (its counters reset by the launch
+    before the capture)."""
+    xq, xs, w, ws, b, r = _i8_case(8, 5632, 2048, dev, seed=51)
+    for plan in cg.gemm_plans(8, 5632, 2048):
+        if plan.kind != "decode":
+            continue
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            def calls():
+                return (cg.cim_gemm_int8(xq, w),
+                        cg.cim_gemm_int8_fused(xq, w, xs, ws, residual=r),
+                        *cg.cim_gemm_int8_fused(xq, w, xs, ws,
+                                                quantize_out=True))
+            eager = calls()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = calls()
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                for a, e in zip(captured, eager):
+                    assert torch.equal(a, e), plan
+
+
+def test_i8_shared_memory_matches_the_kernel_layout(dev):
+    """The plan's byte count (``smem_bytes``, which the CPU tests hold)
+    is the kernel's own ``i8_layout`` total, for both tile shapes at
+    every cluster size and K from one step to gemma-2b's d_ff."""
+    for K in (5, 128, 129, 1030, 2816, 16384):
+        for M in (8, 16, 130):
+            for c in cg.CLUSTERS:
+                kind = "decode" if M <= 16 else "prefill"
+                plan = cg._plan_of(kind, c, M, K)
+                assert plan.smem == cg.kernel_smem_bytes(plan, K), (plan, K)
+
+
+def test_paged_walk_above_one_block_runs_in_slices(dev):
+    """ROADMAP C.9: an int8 paged walk at gemma-2b's heads (B 1, KH 1,
+    G 8, D 256) over 12,000 blocks of 16 (192,000 slots, about 100 MB of
+    K and V), past the 189,312 one block can plan, runs: the split walk
+    and the combine, no paged walk, within the decode-attention rule of
+    its plain version."""
+    B, KH, G, D, bs, nb = 1, 1, 8, 256, 16, 12000
+    S = nb * bs
+    plan = da.walk_plan(S, D, G, torch.int8, "paged", bs=bs)
+    assert plan.splits > 1
+    rng = _gen(52)
+    NB = nb + 1
+    kp = _t(rng.integers(-127, 128, (NB, bs, KH, D)).astype(np.int8), dev)
+    vp = _t(rng.integers(-127, 128, (NB, bs, KH, D)).astype(np.int8), dev)
+    ksp = _t(rng.uniform(1e-3, 2e-2, (NB, bs, KH)).astype(np.float32), dev)
+    vsp = _t(rng.uniform(1e-3, 2e-2, (NB, bs, KH)).astype(np.float32), dev)
+    fill = S - 1000
+    pos = np.full(S, 2 ** 30, np.int32)
+    pos[:fill] = rng.permutation(fill)
+    tables = np.zeros((B, nb), np.int32)
+    tables[0] = rng.permutation(np.arange(1, NB))
+    pp = np.full((NB, bs), 2 ** 30, np.int32)
+    pp[tables[0]] = pos.reshape(nb, bs)
+    pp, tables = _t(pp, dev), _t(tables, dev)
+    q = _t(rng.standard_normal((B, KH, G, D)).astype(np.float32), dev,
+           torch.bfloat16)
+    qp = _t(np.array([fill - 1], np.int32), dev)
+    launches = (da.decode_attention_paged.launches,
+                da.decode_attention_partial.launches,
+                da.decode_attention_combine.launches)
+    out = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp)
+    torch.cuda.synchronize()
+    assert (da.decode_attention_paged.launches,
+            da.decode_attention_partial.launches,
+            da.decode_attention_combine.launches) == (
+        launches[0], launches[1] + 1, launches[2] + 1)
+    ref = da.decode_attention_paged_plain(q.float(), kp, vp, pp, tables, qp,
+                                          ksp, vsp).to(q.dtype).float()
+    err = (out.float() - ref).abs()
+    limit = _attn_limit(ref, q.dtype, kp.dtype)
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool((err <= limit).all()), (err / limit).max().item()
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ and D only; the bytes must fit a block (232,448 on sm_90).
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 
 import pytest
@@ -126,11 +127,11 @@ def test_forced_plan_and_its_limits():
 def test_too_long_a_paged_walk_raises_before_any_launch(monkeypatch):
     """An int8 paged walk at gemma-2b's heads over 12,000 blocks of 16
     (192,000 slots: bitmask, step list and table row outgrow a block)
-    raises in the wrapper, after the checks and before the library is
-    loaded or any launch counted; the paged walk has no split path yet
-    (ROADMAP), and 11,000 blocks still plan.  Meta tensors, taken down the
-    card's path, stand in for the card's: no memory, only shapes and
-    dtypes."""
+    no longer raises: the wrapper takes the plan's slices, one launch of
+    the split walk over the gathered rows and one combine, and launches
+    no paged walk; 11,000 blocks still plan as one walk.  Meta tensors,
+    taken down the card's path, stand in for the card's: no memory, only
+    shapes and dtypes; the two launches are recorded, not run."""
     def no_library(name):
         raise AssertionError(f"library {name} loaded")
     monkeypatch.setattr(_build, "load", no_library)
@@ -142,10 +143,58 @@ def test_too_long_a_paged_walk_raises_before_any_launch(monkeypatch):
     pp = torch.empty(NB, bs, dtype=torch.int32, **meta)
     sp = torch.empty(NB, bs, KH, dtype=torch.float32, **meta)
     qp = torch.empty(B, dtype=torch.int32, **meta)
+    calls = []
+
+    def partial(q, k, v, pos, q_pos, k_scale, v_scale, window, n_splits):
+        calls.append(("partial", tuple(k.shape), tuple(pos.shape),
+                      tuple(k_scale.shape), n_splits))
+        part = torch.empty(B, KH, n_splits, G, 1, **meta)
+        return torch.empty(B, KH, n_splits, G, D, **meta), part, part
+
+    def combine(o, m, l, out_dtype):
+        calls.append(("combine", tuple(o.shape), out_dtype))
+        return torch.empty(B, KH, G, D, dtype=out_dtype, **meta)
+    monkeypatch.setattr(da, "decode_attention_partial", partial)
+    monkeypatch.setattr(da, "decode_attention_combine", combine)
     before = da.decode_attention_paged.launches
     tables = torch.empty(B, 12000, dtype=torch.int32, **meta)
-    with pytest.raises(ValueError, match="shared memory"):
-        da.decode_attention_paged(q, kp, kp, pp, tables, qp, sp, sp)
+    out = da.decode_attention_paged(q, kp, kp, pp, tables, qp, sp, sp)
     assert da.decode_attention_paged.launches == before
+    plan = da.walk_plan(12000 * bs, D, G, torch.int8, "paged", bs=bs)
+    S = 12000 * bs
+    assert calls == [("partial", (B, S, KH, D), (B, S), (B, S, KH),
+                      plan.splits),
+                     ("combine", (B, KH, plan.splits, G, D),
+                      torch.bfloat16)]
+    assert out.shape == q.shape and out.dtype == q.dtype
     assert da.walk_plan(11000 * bs, D, G, torch.int8, "paged",
-                        bs=bs).smem <= da.MAX_SMEM
+                        bs=bs).splits == 1
+
+
+def test_long_paged_walk_plans_in_slices():
+    """At 192,000 slots (gemma-2b's heads, int8, blocks of 16) the one
+    walk needs more than a block's 232,448 bytes; the plan takes the
+    fewest slices of whole 64-slot steps (whole pool blocks of 16) that
+    fit, with the split walk's bytes and the cluster size of the whole
+    walk's S and D, as the served splits have.  Up to 11,832 blocks
+    (189,312 slots) one walk fits; from 11,833 the slices start."""
+    D, G, bs = 256, 8, 16
+    S = 12000 * bs
+    plan = da.walk_plan(S, D, G, torch.int8, "paged", bs=bs)
+    assert plan.splits == 2
+    assert plan.cluster == da.cluster_for(S, D)
+    L = da.split_len(S, plan.splits)
+    assert L % da.SPLIT_STEP == 0 and L % bs == 0 and L * plan.splits >= S
+    assert plan == dataclasses.replace(
+        da.walk_plan(S, D, G, torch.int8, "split", plan.splits),
+        splits=plan.splits)
+    assert da.smem_bytes(1, D, G, S, S // bs) > da.MAX_SMEM >= plan.smem
+    assert da.walk_plan(11832 * bs, D, G, torch.int8, "paged",
+                        bs=bs).splits == 1
+    assert da.walk_plan(11833 * bs, D, G, torch.int8, "paged",
+                        bs=bs).splits == 2
+    for S in (2 ** 20, 3 * 10 ** 6):
+        plan = da.walk_plan(S, D, 16, torch.float32, "paged", bs=bs)
+        assert plan.splits > 1 and plan.smem <= da.MAX_SMEM
+        assert da.smem_bytes(4, D, 16, da.split_len(S, plan.splits - 1)) \
+            > da.MAX_SMEM
