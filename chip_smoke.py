@@ -95,12 +95,12 @@ the JAX package.  Phases, each printing its lines:
             step and with every expert active, kernels 3 and 4 with the
             requant epilogue at the shared MLP's shapes, and kernel 6 at
             the TP partials' shapes (beside ``torch._int_mm``); the
-            tensor-core GEMM of kernels 3 and 6 under every plan it
-            takes at those decode shapes (tile shape and cluster size,
-            one line a plan), and at the prefill shapes of
-            ``PREFILL_GEMMS`` with kernels 2 and 4 beside it, each
-            against ``torch._int_mm``; the flash-decode walks at five shapes (gemma-2b's ring and
-            paged walks and kernel 9 at the end state of serve and
+            tensor-core GEMM of kernels 2, 3, 4 and 6 under every plan
+            it takes at decode shapes (tile shape and cluster size, one
+            line a plan), and at the prefill shapes of
+            ``PREFILL_GEMMS``, each against ``torch._int_mm``; the
+            flash-decode walks at five shapes (gemma-2b's ring and paged
+            walks and kernel 9 at the end state of serve and
             serve-long, the ring and paged walks at qwen2-moe's heads):
             kept steps, time a step, the launch plan, SDPA beside them,
             and each again at every cluster size the plan can pick;
@@ -1669,15 +1669,21 @@ PREFILL_GEMMS = (("cim_gemm_int8_fused", 4096, 16384, 2048),
                  ("cim_gemm_int8", 4096, 8192, 2048),
                  ("cim_gemm_int8_fused_qin", 4096, 2048, 2560),
                  ("cim_gated_gemm_int8", 4096, 2048, 16384))
+# the tensor-core body's variant of each dense GEMM as the times phase
+# drives it (kernel 2 on bf16 x, as the models feed it)
+GEMM_VARIANT = {"cim_gemm_int8_fused": "int8", "cim_gemm_int8": "int8",
+                "cim_gated_gemm_int8": "gated",
+                "cim_gemm_int8_fused_qin": "qin_bf16"}
 
 
 def times_gemm_plans(torch, card: str) -> None:
-    """The tensor-core GEMM (kernels 3 and 6) under every plan it takes
-    at the decode shapes (kernel 3 at gemma-2b's down GEMM with its bf16
-    residual, kernel 6 at the TP partials), one line a plan; then the
-    prefill shapes of ``PREFILL_GEMMS`` under the plan's rule, each
-    beside ``torch._int_mm`` on the same operands (without the
-    epilogue) and its bound."""
+    """The tensor-core GEMM under every plan it takes at the decode
+    shapes (kernel 3 at gemma-2b's down GEMM with its bf16 residual,
+    kernel 6 at the TP partials, kernel 4 at gemma-2b's gated GEMM and at
+    qwen2-moe's shared one with its requant, kernel 2 at gemma-2b's QKV),
+    one line a plan; then the prefill shapes of ``PREFILL_GEMMS`` under
+    the plan's rule, each beside ``torch._int_mm`` on the same operands
+    (without the epilogue) and its bound."""
     from repro_torch.kernels import cim_gemm as cg
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1704,11 +1710,16 @@ def times_gemm_plans(torch, card: str) -> None:
                 M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * K * N
         x, xs = ri(M, K), rf(M, 1)
         if name == "cim_gated_gemm_int8":
+            # qwen2-moe's shared MLP requantizes its hidden state in-kernel
+            qout = N == MOE_SHARED
             wu, gs, us = ri(K, N), rf(N), rf(N)
-            return (lambda: cg.cim_gated_gemm_int8(x, w, wu, xs, gs, us,
-                                                   "gelu")), \
+            return (lambda: cg.cim_gated_gemm_int8(
+                x, w, wu, xs, gs, us, "silu" if qout else "gelu",
+                quantize_out=qout)), \
                 x, torch.cat([w, wu], 1), \
-                M * K + M * 4 + 2 * (K * N + N * 4) + M * N * 4, 4 * M * K * N
+                M * K + M * 4 + 2 * (K * N + N * 4) + M * N * (
+                    1 if qout else 4) + (M * 4 if qout else 0), \
+                4 * M * K * N
         ws = rf(N)
         r = torch.randn((M, N), device=dev, generator=gen).to(torch.bfloat16)
         return (lambda: cg.cim_gemm_int8_fused(x, w, xs, ws, residual=r)), \
@@ -1723,15 +1734,19 @@ def times_gemm_plans(torch, card: str) -> None:
         return time_ms(torch, [lambda: torch._int_mm(xp, w_cm)])
 
     decode = [("cim_gemm_int8_fused", 8, 16384, 2048)] + [
-        ("cim_gemm_int8", 8, K, N) for K, N in TP_GEMM_SHAPES]
+        ("cim_gemm_int8", 8, K, N) for K, N in TP_GEMM_SHAPES] + [
+        ("cim_gated_gemm_int8", 8, 2048, 16384),
+        ("cim_gated_gemm_int8", 8, MOE_D, MOE_SHARED),
+        ("cim_gemm_int8_fused_qin", 8, 2048, 2560)]
     for name, M, K, N in decode:
-        insts = [operands(name, M, K, N)
-                 for _ in range(copies_for(K * N))]
+        variant = GEMM_VARIANT[name]
+        insts = [operands(name, M, K, N) for _ in range(copies_for(
+            K * N * (2 if variant == "gated" else 1)))]
         calls = [i[0] for i in insts]
-        rule = cg.gemm_plan(M, K, N)
+        rule = cg.gemm_plan(M, K, N, variant)
         b, by = bound(insts[0][3], insts[0][4], INT8_OPS_PER_S)
         lib = int_mm_ms(insts[0][1], insts[0][2])
-        for plan in cg.gemm_plans(M, K, N):
+        for plan in cg.gemm_plans(M, K, N, variant):
             with cg.forced_gemm_plan(plan.kind, plan.cluster):
                 ms = time_ms(torch, calls)
             say(f"[times] {name} plan (M={M}, K={K}, N={N}) {plan.kind} "
@@ -1746,10 +1761,8 @@ def times_gemm_plans(torch, card: str) -> None:
         ms = time_ms(torch, [i[0] for i in insts], reps=10)
         b, by = bound(insts[0][3], insts[0][4], INT8_OPS_PER_S)
         lib = int_mm_ms(insts[0][1], insts[0][2])
-        plan = cg.gemm_plan(M, K, N) if name in (
-            "cim_gemm_int8_fused", "cim_gemm_int8") else None
-        how = (f"{plan.kind} cluster {plan.cluster}" if plan
-               else "CUDA-core template")
+        plan = cg.gemm_plan(M, K, N, GEMM_VARIANT[name])
+        how = f"{plan.variant} {plan.kind} cluster {plan.cluster}"
         say(f"[times] {name} prefill (M={M}, K={K}, N={N}, {how}): "
             f"{ms:.4f} ms, bound {b:.5f} ms by {by}, torch._int_mm "
             f"{lib:.4f} ms ({ms / lib:.2f}x) on {card}")

@@ -1,5 +1,6 @@
-// INT8 GEMM kernels for Hopper (sm_90a): row quantizer, the int8 x int8
-// GEMM on the tensor cores, and one GEMM template on the CUDA cores.
+// INT8 GEMM kernels for Hopper (sm_90a): the row quantizer, the dense
+// int8 GEMMs on one tensor-core body, and the grouped GEMMs on a template
+// for the CUDA cores.
 //
 // Replaces, in src/repro/kernels/cim_gemm.py:
 //   quantize_rows_int8           (_rowquant_kernel)
@@ -9,9 +10,9 @@
 //   cim_grouped_gemm_int8        (_cim_grouped_gemm_kernel)
 //   cim_grouped_gated_gemm_int8  (_cim_grouped_gated_kernel)
 //   cim_gemm_int8                (_cim_gemm_kernel)
-// the GEMMs with their quantize_out epilogue (_rowquant) in-kernel.
-// cim_gemm_int8_fused (kernel 3) and cim_gemm_int8 (kernel 6) run on
-// cim_gemm_i8_kernel, the tensor-core body; the others on the template
+// the GEMMs with their quantize_out epilogue (_rowquant) in-kernel.  The
+// dense GEMMs (kernels 2, 3, 4 and 6) run on cim_gemm_i8_kernel, the
+// tensor-core body; the grouped GEMMs (kernels 7 and 8) on the template
 // cim_gemm_kernel.
 //
 // What bounds them on the card: at decode (M = 8 rows) every weight byte
@@ -27,7 +28,7 @@
 // parallelism, not by its bytes ([8, 16384] f32 in, about 0.66 MB, for
 // gemma-2b's hidden requant, which is too wide for the fused requant).
 //
-// Kernels 3 and 6: cim_gemm_i8_kernel<EPI, SHAPE>.  The product is
+// The dense GEMMs: cim_gemm_i8_kernel<EPI, SHAPE, VAR>.  The product is
 // mma.sync.m16n8k32 s8 x s8 -> s32, exact (|sum| <= K 127^2 fits int32 up
 // to K ~ 133,000), so the f32 epilogue sees the same int32 totals as the
 // plain version in any summation order.  Weights stay [K, N] int8 as the
@@ -48,24 +49,56 @@
 //   tile), the rows of x its n = 8 side, so at M = 8 no lane of the tensor
 //   core is padding.  A block owns 64 columns; the cluster splits K so the
 //   grid gives every SM a block (gemma-2b's down GEMM: 32 column tiles x 5
-//   ranks = 160 blocks, 64 blocks on the CUDA-core body).  Each rank
-//   stages its activation slice once (rows padded by 16 bytes: the 8 rows
-//   a warp reads meet distinct banks) and streams its weight slice with
-//   16-byte cp.async into a ring of 4 stages of 128 x 64 bytes, so three
-//   stages are in flight while one is multiplied.  8 warps: 4 along the
-//   stage's rows x 2 along its columns; lane t reads its quad's rows in a
-//   rotated order (every read then meets both halves of a bank line) and
-//   rotates its x words by t bytes to match: the same k permutation on
-//   both sides.  The warps' sums meet in shared memory, the ranks' in
-//   rank 0.
-// - Prefill tile (M > 16): bound by the mma issue rate.  128 x 128 output
-//   tiles, K steps of 64, 8 warps of 64 x 32 (4 x 4 mma tiles of 16 x 8),
-//   x by ldmatrix, a cp.async ring of 4 stages of x and w (64 KB, opted
-//   in above 48 KB once per device before any graph capture), 2 blocks an
-//   SM (128 registers) with the f32 epilogue, 1 with the others (they
-//   spill at 128).  Tiles that do
-//   not fill the card (a served prompt: M 200 at N 2048, 32 tiles) take a
-//   cluster along K as the decode tile does.
+//   ranks = 160 blocks).  Each rank stages its activation slice once (rows
+//   padded by 16 bytes: the 8 rows a warp reads meet distinct banks) and
+//   streams its weight slice with 16-byte cp.async into a ring of 4
+//   stages of 128 rows, so three stages are in flight while one is
+//   multiplied.  8 warps: 4 along the stage's rows x 2 along its columns;
+//   lane t reads its quad's rows in a rotated order (every read then meets
+//   both halves of a bank line) and rotates its x words by t bytes to
+//   match: the same k permutation on both sides.  The warps' sums meet in
+//   shared memory, the ranks' in rank 0.
+// - Prefill tile (M > 16): bound by the mma issue rate.  128-row tiles,
+//   K steps of 64, stage rows of 128 weight bytes, 8 warps of 64 x 32
+//   (4 x 4 mma tiles of 16 x 8), x by ldmatrix, a cp.async ring of 4
+//   stages of x and w (opted in above 48 KB once per device before any
+//   graph capture), 2 blocks an SM (128 registers) with the f32 epilogue
+//   of an int8 x, 1 with the others (they spill at 128, or the f32 x
+//   ring fills the SM).  Tiles that do not fill the card (a served
+//   prompt: M 200 at N 2048, 32 tiles) take a cluster along K as the
+//   decode tile does.
+// The variants (VAR) differ in x and in the weights:
+// - V_I8 (kernels 3 and 6): x int8 [M, K] with its row scales.
+// - V_GATED (kernel 4): two weights, w_gate and w_up, stream through the
+//   one ring: a stage row holds 64 columns of each side by side (128
+//   bytes, swizzled as the prefill rows, each weight copied in its own
+//   pass), so a tile has 64 output columns and 128 accumulator columns,
+//   as many as the prefill tile of the others.  On the prefill tile the
+//   warps are 4 along the rows x 2 along the columns, each 32 rows x 32
+//   output columns of both weights, so a thread holds g and u of the same
+//   outputs and the epilogue forms act(g) * u in registers, in the
+//   reference's order (g = acc_g xs gs, u = acc_u xs us, each multiply
+//   rounded on its own).  Its 128 registers at two blocks an SM are tight:
+//   the fragment offsets are one base and immediates, and the epilogue
+//   reads the lane's coordinates again rather than keep them through the
+//   loop, which leaves no spill (one block an SM was 1.5x slower).
+// - V_QF32 and V_QBF16 (kernel 2): x f32 or bf16, quantized in the kernel
+//   with the row quantizer's arithmetic, so the codes and scales are
+//   bitwise quantize_rows_int8's and the int32 totals those of the plain
+//   version.  A row's scale needs its |max| over all of K before any code
+//   exists: each rank takes the maxima of its rows over its own K slice,
+//   the ranks of a cluster exchange them through distributed shared memory
+//   (max is exact in any order) and every block derives the scales.  The
+//   decode tile then quantizes the rank's x slice into shared memory
+//   once; on the prefill tile the ring carries x as it is (16-byte
+//   cp.async) and each step quantizes its x tile into an int8 tile that
+//   the mma reads.  The division by the scale bound the prefill tile (the
+//   transform took half its time): the codes come from a multiply by the
+//   correctly rounded reciprocal, and the IEEE division decides only near
+//   a rounding boundary (quant4), bitwise the same.
+// The variants' operands travel in the int8 body's argument fields (I8Args)
+// rather than in new ones: a larger struct, or the same fields declared
+// as unions, moved ptxas's register allocation of kernels 3 and 6.
 // wgmma and TMA are left for later work: on mma.sync the prefill tile
 // reaches about a fifth of the int8 peak (PERF.md).
 // The epilogue runs in f32 in the reference's order, with explicitly
@@ -75,26 +108,22 @@
 // the exact int32 sum instead and reads no scale: the caller sums the
 // partials of all ranks and runs the epilogue once.
 //
-// The CUDA-core template, cim_gemm_kernel<TX, GATED, EPI, GROUPED>
-// (kernels 2, 4, 7 and 8): a block owns an 8-row x 32-column output tile
-// of one expert (blockIdx.z; the dense GEMMs, GROUPED false, have one and
-// no skip list); its 256 threads are 8 column groups (4 adjacent columns
-// each) x 32 slices of K.  K is swept in tiles of 1024: the tile's
-// activations are packed four int8 values per 32-bit word into shared
-// memory (quantized on the fly from f32/bf16 with the row scale found in
-// the prologue when TX is a float type, copied when TX is int8).  Each
-// thread loads 4 rows x 4 columns of weights as four 32-bit words straight
-// into registers, transposes them (transpose4x4) so each word holds 4
-// consecutive K values of one column, and feeds __dp4a, accumulating
-// exactly in int32.  Every thread issues all its weight loads of a tile
-// before it computes, so 32 words per thread are in flight.  The 32 K
-// slices are summed through shared memory, and the epilogue is the one
-// above.  A block of an expert whose count is 0 (the grouped GEMMs' skip
-// list) skips the K sweep and runs the epilogue on zero accumulators, as
-// the reference's kernel does.  GROUPED and EPI are compile-time: with
-// the expert offsets and the requant tail decided at run time, ptxas
-// gave the dense int8 GEMM 66 registers in place of 80 and gemma-2b's
-// down GEMM ran 1.5x slower.  Split-K, wgmma and TMA are left for later
+// The grouped GEMMs, cim_gemm_kernel<GATED, EPI> on the CUDA cores
+// (kernels 7 and 8): a block owns an 8-row x 32-column output tile of one
+// expert (blockIdx.z); its 256 threads are 8 column groups (4 adjacent
+// columns each) x 32 slices of K.  K is swept in tiles of 1024: the tile's
+// int8 activations are packed four to a 32-bit word into shared memory.
+// Each thread loads 4 rows x 4 columns of weights as four 32-bit words
+// straight into registers, transposes them (transpose4x4) so each word
+// holds 4 consecutive K values of one column, and feeds __dp4a,
+// accumulating exactly in int32.  Every thread issues all its weight loads
+// of a tile before it computes, so 32 words per thread are in flight.  The
+// 32 K slices are summed through shared memory, and the epilogue is the
+// one above.  A block of an expert whose count is 0 (the skip list) skips
+// the K sweep and runs the epilogue on zero accumulators, as the
+// reference's kernel does.  EPI is compile-time: with the requant tail
+// decided at run time, ptxas gave the int8 GEMM 66 registers in place of
+// 80 and it ran 1.5x slower.  Split-K, wgmma and TMA are left for later
 // work on this template.
 //
 // The requant epilogue (quantize_out): a row's scale needs its absmax
@@ -141,6 +170,14 @@ __device__ __forceinline__ float load_f(const float* p, int64_t i) {
 }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(p[i]);
+}
+// element i of x as f32: XE = 4 for f32 x, 2 for bf16 x
+template <int XE>
+__device__ __forceinline__ float load_x(const void* p, int64_t i) {
+  if constexpr (XE == 4)
+    return load_f(static_cast<const float*>(p), i);
+  else
+    return load_f(static_cast<const __nv_bfloat16*>(p), i);
 }
 
 // scale = (amax + 1e-12) / 127 with IEEE rounding, as the reference.
@@ -257,23 +294,24 @@ __device__ __forceinline__ void requant_band(const float* h,
   }
 }
 
-// x [E, M, K] (TX), w/w2 [E, K, N] int8; xs [E, M] (int8 x only),
-// ws/ws2/bias [E, N] f32; res [M, N] (dense only); counts [E] int32 or
-// null (no skip list); out [E, M, N] f32.  With EPI_QOUT out is the f32
-// scratch and q [E, M, N] int8, qs [E, M] f32 receive the requantized
-// rows; amax [E * M] and arrive [E * gridDim.y] must be 0.  With EPI_ACC
-// out holds int32 [M, N] and xs, ws, bias and res are not read.
-template <typename TX, bool GATED, int EPI, bool GROUPED>
+// x [E, M, K] int8, w/w2 [E, K, N] int8; xs [E, M], ws/ws2/bias [E, N]
+// f32; res [M, N] f32 (res_kind 1) or bf16 (2) added after the activation,
+// or none (0); counts [E] int32 or null (no skip list); out [E, M, N] f32.
+// With EPI_QOUT out is the f32 scratch and q [E, M, N] int8, qs [E, M] f32
+// receive the requantized rows; amax [E * M] and arrive [E * gridDim.y]
+// must be 0.  The grouped wrappers pass no residual; the operand stays
+// because without it ptxas gave the plain instantiation 66 registers in
+// place of 64 and kernel 7 ran 1.2x slower (PERF.md).
+template <bool GATED, int EPI>
 __global__ void __launch_bounds__(NT)
-cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
+cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
                 const int8_t* __restrict__ w, const float* __restrict__ ws,
                 const int8_t* __restrict__ w2, const float* __restrict__ ws2,
-                const float* __restrict__ bias, const void* __restrict__ res,
-                int res_kind, int act, const int* __restrict__ counts,
-                float* __restrict__ out, int8_t* __restrict__ q,
-                float* __restrict__ qs,
+                const float* __restrict__ bias,
+                const void* __restrict__ res, int res_kind, int act,
+                const int* __restrict__ counts, float* __restrict__ out,
+                int8_t* __restrict__ q, float* __restrict__ qs,
                 unsigned int* amax, int* arrive, int M, int K, int N) {
-  constexpr bool QUANT_IN = !std::is_same<TX, int8_t>::value;
   __shared__ float s_scale[BM];
   __shared__ int s_x[BM][KW];
   __shared__ int s_red[TK][BM][BN];
@@ -281,44 +319,25 @@ cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
 
   const int tid = threadIdx.x;
   const int tx = tid % TN, ty = tid / TN;
-  const int warp = tid / 32, lane = tid % 32;
+  const int lane = tid % 32;
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int ncol = n0 + 4 * tx;
 
   // This block's expert: offset every per-expert operand.
-  bool active = true;
-  if constexpr (GROUPED) {
-    x += (int64_t)e * M * K;
-    w += (int64_t)e * K * N;
-    ws += (int64_t)e * N;
-    if constexpr (GATED) {
-      w2 += (int64_t)e * K * N;
-      ws2 += (int64_t)e * N;
-    }
-    if (bias != nullptr) bias += (int64_t)e * N;
-    out += (int64_t)e * M * N;
-    active = counts == nullptr || counts[e] > 0;
+  x += (int64_t)e * M * K;
+  w += (int64_t)e * K * N;
+  ws += (int64_t)e * N;
+  if constexpr (GATED) {
+    w2 += (int64_t)e * K * N;
+    ws2 += (int64_t)e * N;
   }
+  if (bias != nullptr) bias += (int64_t)e * N;
+  out += (int64_t)e * M * N;
+  const bool active = counts == nullptr || counts[e] > 0;
 
-  // Prologue: the row scales (absmax over the full K when quantizing in).
-  if constexpr (QUANT_IN) {
-    for (int m = warp; m < BM; m += NT / 32) {
-      float amx = 0.0f;
-      if (m0 + m < M) {
-        const int64_t base = (int64_t)(m0 + m) * K;
-        for (int k = lane; k < K; k += 32)
-          amx = fmaxf(amx, fabsf(load_f(x, base + k)));
-      }
-#pragma unroll
-      for (int o = 16; o; o >>= 1)
-        amx = fmaxf(amx, __shfl_xor_sync(0xffffffffu, amx, o));
-      if (lane == 0) s_scale[m] = row_scale(amx);
-    }
-  } else if constexpr (EPI != EPI_ACC) {
-    if (tid < BM)
-      s_scale[tid] = (m0 + tid < M) ? xs[(int64_t)e * M + m0 + tid] : 0.0f;
-  }
+  if (tid < BM)
+    s_scale[tid] = (m0 + tid < M) ? xs[(int64_t)e * M + m0 + tid] : 0.0f;
   __syncthreads();
 
   int acc[BM][4];
@@ -340,13 +359,7 @@ cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
         const int64_t base = (int64_t)(m0 + m) * K;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          int v = 0;
-          if (k + j < K) {
-            if constexpr (QUANT_IN)
-              v = quant1(load_f(x, base + k + j), s_scale[m]);
-            else
-              v = (int)x[base + k + j];
-          }
+          const int v = k + j < K ? (int)x[base + k + j] : 0;
           packed |= (uint32_t)(v & 0xff) << (8 * j);
         }
       }
@@ -398,10 +411,6 @@ cim_gemm_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
   const int gm = m0 + em, gn = n0 + en;
   const bool valid = gm < M && gn < N;
   const int64_t o = (int64_t)gm * N + gn;
-  if constexpr (EPI == EPI_ACC) {
-    if (valid) reinterpret_cast<int*>(out)[o] = tot;
-    return;
-  }
   const float xsv = s_scale[em];
   float y = 0.0f;
   if (valid) {
@@ -481,46 +490,63 @@ inline dim3 gemm_grid(int E, int M, int N) {
 }
 
 // ---------------------------------------------------------------------------
-// The int8 GEMM on the tensor cores (kernels 3 and 6); see the note at the
-// top of this file.
+// The dense int8 GEMMs on the tensor cores (kernels 2, 3, 4 and 6); see the
+// note at the top of this file.
 // ---------------------------------------------------------------------------
 constexpr int I8_NT = 256;           // threads per block: 8 warps
 constexpr int I8_MAX_SMEM = 232448;  // dynamic shared memory a block may use
 // decode tile: up to 16 rows, DBN columns, K steps of 128 rows, DNST
 // stages in the cp.async ring
 constexpr int DBN = 64, DBK = 128, DNST = 4;
-// prefill tile: 128 rows, 128 columns, K steps of 64, PNST stages
+// prefill tile: 128 rows, 128 weight bytes a stage row, K steps of 64,
+// PNST stages
 constexpr int PBM = 128, PBN = 128, PBK = 64, PNST = 4;
 constexpr int PPITCH = PBN + 4;  // int32 row pitch of a rank's partial tile
 // the tile shapes of the wrapper's plan: decode at 8 or 16 rows, prefill
 enum Shape { DEC8 = 0, DEC16 = 1, PRE = 2 };
-// the last bytes of shared memory: row maxima [128], the requant's row
-// scales [128], the last-block flag
+// the body's variants: int8 x (kernels 3 and 6), int8 x with two weights
+// (kernel 4), f32 or bf16 x quantized in the kernel (kernel 2)
+enum Var { V_I8 = 0, V_GATED = 1, V_QF32 = 2, V_QBF16 = 3 };
+// weight streams, bytes of an x element, and whether x is quantized in
+__host__ __device__ constexpr int var_nw(int v) {
+  return v == V_GATED ? 2 : 1;
+}
+__host__ __device__ constexpr int var_xe(int v) {
+  return v == V_QF32 ? 4 : v == V_QBF16 ? 2 : 1;
+}
+__host__ __device__ constexpr bool var_qin(int v) { return v >= V_QF32; }
+// the last bytes of shared memory: row maxima [128] (with quantize-in: the
+// rank's row maxima, read by the other ranks), the requant's or the
+// quantize-in's row scales [128], the last-block flag
 constexpr int I8_TAIL = 128 * 4 + 128 * 4 + 16;
 
 struct I8Layout {
   int x, x_pitch, tail, total;  // byte offsets (x: the decode x slice)
 };
 // Dynamic shared memory of one block (cim_gemm_i8_smem_bytes; the wrapper's
-// gemm_plan counts the same).  Decode: the ring of NST stages of DBK x DBN
-// weight bytes (reused for the warps' K sums), then the rank's activation
-// slice: MR rows of spr * DBK bytes, each padded by 16 so that the 8 rows
-// a warp reads fall on distinct banks.  Prefill: the ring of NST stages of
-// x [PBM][PBK] and w [PBK][PBN] bytes or, with a cluster, the int32 partial
-// tile that takes its place for the merge, whichever is larger.
-__host__ __device__ inline I8Layout i8_layout(int shape, int K, int C) {
+// gemm_plan counts the same).  Decode: the ring of NST stages of DBK rows
+// of DBN bytes a weight (reused for the warps' K sums), then the rank's
+// activation slice: MR rows of spr * DBK bytes, each padded by 16 so that
+// the 8 rows a warp reads fall on distinct banks.  Prefill: the ring of NST
+// stages of x [PBM][PBK] (f32 or bf16 values with quantize-in) and w
+// [PBK][PBN] bytes, then with quantize-in the int8 x tile of the step, or
+// with a cluster the int32 partial tile that takes the place of both for
+// the merge, whichever is larger.
+__host__ __device__ inline I8Layout i8_layout(int shape, int var, int K,
+                                              int C) {
   I8Layout L;
   if (shape == PRE) {
-    const int ring = PNST * (PBM * PBK + PBK * PBN);
+    const int ring = PNST * (PBM * PBK * var_xe(var) + PBK * PBN);
+    const int body = ring + (var_qin(var) ? PBM * PBK : 0);
     const int part = C > 1 ? PBM * PPITCH * 4 : 0;
-    L.x = 0;
+    L.x = ring;  // quantize-in: the int8 x tile
     L.x_pitch = 0;
-    L.tail = ring > part ? ring : part;
+    L.tail = body > part ? body : part;
   } else {
     const int mr = shape == DEC8 ? 8 : 16;
     const int steps = (K + DBK - 1) / DBK;
     const int spr = (steps + C - 1) / C;
-    L.x = DNST * DBK * DBN;
+    L.x = DNST * DBK * DBN * var_nw(var);
     L.x_pitch = spr * DBK + 16;
     L.tail = L.x + mr * L.x_pitch;
   }
@@ -528,13 +554,18 @@ __host__ __device__ inline I8Layout i8_layout(int shape, int K, int C) {
   return L;
 }
 
+// The other variants' operands travel in the int8 body's fields (see the
+// note at the top of this file): f32 or bf16 x in x's slot, and the gated
+// body, which has no bias and no residual, carries the up weight in res's
+// slot and its scales in bias's (x_in, w_up, s_up).
 struct I8Args {
-  const int8_t* x;     // [M, K]
-  const float* xs;     // [M] (not read by EPI_ACC)
-  const int8_t* w;     // [K, N]
+  const int8_t* x;     // [M, K] int8; V_QF32, V_QBF16: f32 or bf16
+  const float* xs;     // [M] (V_I8, V_GATED; not read by EPI_ACC)
+  const int8_t* w;     // [K, N] (V_GATED: the gate's)
   const float* ws;     // [N]
-  const float* bias;   // [N] or null
-  const void* res;     // [M, N] f32 or bf16, or null
+  const float* bias;   // [N] or null; V_GATED: the up weight's scales [N]
+  const void* res;     // [M, N] f32 or bf16, or null; V_GATED: the up
+                       // weight [K, N]
   int res_kind, act;
   void* out;           // f32 [M, N] (EPI_QOUT: the scratch), int32 (EPI_ACC)
   int8_t* q;           // EPI_QOUT: [M, N]
@@ -544,6 +575,16 @@ struct I8Args {
   int M, K, N;
   int x16, w16;        // rows copyable in 16-byte chunks
 };
+
+__device__ __forceinline__ const void* x_in(const I8Args& a) {
+  return static_cast<const void*>(a.x);
+}
+__device__ __forceinline__ const int8_t* w_up(const I8Args& a) {
+  return static_cast<const int8_t*>(a.res);
+}
+__device__ __forceinline__ const float* s_up(const I8Args& a) {
+  return a.bias;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -598,30 +639,39 @@ __device__ __forceinline__ int pswz(int r) { return ((r >> 2) & 3) << 1; }
 __device__ __forceinline__ int xswz(int r) { return (r >> 1) & 3; }
 
 // Copy weight rows k0 .. k0 + ROWS - 1 (rows at or past kend read as zero)
-// and columns n0 .. n0 + 16 CPR - 1 (past N zero) into a swizzled stage of
-// ROWS rows of CPR chunks: 16-byte copies when w16, else 4-byte ones
-// (N % 4 == 0).
-template <int ROWS, int CPR, bool PREFILL>
+// into a swizzled stage of ROWS rows of CPR chunks (pswz when PSWZ, else
+// dswz): with one weight (NW 1) its columns n0 .. n0 + 16 CPR - 1; with two
+// (the gated body) the first CPR / 2 chunks of a row from w (the gate) and
+// the rest from the up weight, both at columns n0 .. n0 + 8 CPR - 1, one
+// weight a pass (the source is then fixed at compile time).  Columns past
+// N read as zero.  16-byte copies when w16, else 4-byte ones (N % 4 == 0).
+template <int ROWS, int CPR, int NW, bool PSWZ>
 __device__ __forceinline__ void copy_w(uint32_t dst, const I8Args& a, int k0,
                                        int kend, int n0, int tid) {
-  if (a.w16) {
+  constexpr int CW = CPR / NW;  // chunks of one weight in a stage row
 #pragma unroll
-    for (int i = tid; i < ROWS * CPR; i += I8_NT) {
-      const int r = i / CPR, c = i % CPR;
-      const int k = k0 + r, n = n0 + 16 * c;
-      const bool ok = k < kend && n < a.N;
-      const int s = PREFILL ? pswz(r) : dswz(r);
-      cp16(dst + r * CPR * 16 + 16 * (c ^ s),
-           ok ? a.w + (int64_t)k * a.N + n : a.w, ok);
-    }
-  } else {
-    for (int i = tid; i < ROWS * CPR * 4; i += I8_NT) {
-      const int r = i / (CPR * 4), wd = i % (CPR * 4);
-      const int k = k0 + r, n = n0 + 4 * wd;
-      const bool ok = k < kend && n < a.N;
-      const int s = PREFILL ? pswz(r) : dswz(r);
-      cp4(dst + r * CPR * 16 + 16 * ((wd >> 2) ^ s) + 4 * (wd & 3),
-          ok ? a.w + (int64_t)k * a.N + n : a.w, ok);
+  for (int w = 0; w < NW; ++w) {
+    const int8_t* src = w == 0 ? a.w : w_up(a);
+    if (a.w16) {
+#pragma unroll
+      for (int i = tid; i < ROWS * CW; i += I8_NT) {
+        const int r = i / CW, c = i % CW;
+        const int k = k0 + r, n = n0 + 16 * c;
+        const bool ok = k < kend && n < a.N;
+        const int s = PSWZ ? pswz(r) : dswz(r);
+        cp16(dst + r * CPR * 16 + 16 * ((c + CW * w) ^ s),
+             ok ? src + (int64_t)k * a.N + n : src, ok);
+      }
+    } else {
+      for (int i = tid; i < ROWS * CW * 4; i += I8_NT) {
+        const int r = i / (CW * 4), wd = i % (CW * 4);
+        const int k = k0 + r, n = n0 + 4 * wd;
+        const bool ok = k < kend && n < a.N;
+        const int s = PSWZ ? pswz(r) : dswz(r);
+        cp4(dst + r * CPR * 16 + 16 * (((wd >> 2) + CW * w) ^ s) +
+                4 * (wd & 3),
+            ok ? src + (int64_t)k * a.N + n : src, ok);
+      }
     }
   }
 }
@@ -655,27 +705,274 @@ __device__ __forceinline__ void copy_x(unsigned char* dst, int pitch,
   }
 }
 
+// 16 bytes of x as f32: 4 f32 values or 8 bf16 ones (a bf16 is the high
+// half of its f32)
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// Four int8 codes quant1(f[j], s), byte j from f[j], for values of the
+// row whose scale s is (so |f / s| <= 127), given r = 1 / s correctly
+// rounded: y = f r lies within 2.3e-5 of the rounded quotient f / s (two
+// roundings of 2^-24 relative at |f / s| <= 127.5), so rint(y) is the code
+// unless y lies within 2^-14 of a rounding boundary; then the IEEE
+// division decides the four (NaN lands there too).  Zeros, the padding of
+// ragged tiles, never reach the division, whose slow path a zero dividend
+// takes.
+__device__ __forceinline__ uint32_t quant4(const float* f, float s,
+                                           float r) {
+  float c[4];
+  bool near = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float y = __fmul_rn(f[j], r);
+    c[j] = rintf(y);
+    near |= !(fabsf(__fsub_rn(y, c[j])) < 0.5f - 0x1p-14f);
+  }
+  if (near) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = (float)quant1(f[j], s);
+  }
+  uint32_t p = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    p |= (uint32_t)((int)c[j] & 0xff) << (8 * j);
+  return p;
+}
+
+// Quantize-in: the |max| of x rows m0 .. m0 + rows - 1 (0 past M) over
+// columns k_lo .. kend - 1, as float bits into s_part[0 .. rows - 1].  Warp
+// w takes rows w, w + 8, ..., two at a time, its lanes 16-byte loads along
+// the rows (8 a row in flight) when x16, else single values: the band's
+// rows come from L2, and the loads in flight set the pace.
+template <int XE>
+__device__ __forceinline__ void qin_row_max(const I8Args& a, int m0,
+                                            int rows, int k_lo, int kend,
+                                            unsigned int* s_part, int tid) {
+  constexpr int VEC = 16 / XE;  // values of a 16-byte load
+  constexpr int NW8 = I8_NT / 32, U = 8;
+  const int warp = tid / 32, lane = tid % 32;
+  const int n = (kend - k_lo) / VEC;  // 16-byte loads of a row (x16)
+  for (int r0 = warp; r0 < rows; r0 += 2 * NW8) {
+    float amx[2] = {0.0f, 0.0f};
+    bool live[2];
+    int64_t base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      live[h] = r0 + NW8 * h < rows && m0 + r0 + NW8 * h < a.M;
+      base[h] = (int64_t)(m0 + r0 + NW8 * h) * a.K + k_lo;
+    }
+    if (a.x16) {
+      for (int i0 = lane; i0 < n; i0 += U * 32) {
+        uint4 v[2][U];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            v[h][u] = live[h] && i0 + 32 * u < n
+                          ? __ldg(reinterpret_cast<const uint4*>(
+                                static_cast<const unsigned char*>(x_in(a)) +
+                                base[h] * XE) + i0 + 32 * u)
+                          : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            float f[VEC];
+            unpack16(v[h][u], f);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) amx[h] = fmaxf(amx[h], fabsf(f[j]));
+          }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (live[h])
+          for (int k = lane; k < kend - k_lo; k += 32)
+            amx[h] = fmaxf(amx[h], fabsf(load_x<XE>(x_in(a), base[h] + k)));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+        amx[h] = fmaxf(amx[h], __shfl_xor_sync(0xffffffffu, amx[h], o));
+      if (lane == 0 && r0 + NW8 * h < rows)
+        s_part[r0 + NW8 * h] = __float_as_uint(amx[h]);
+    }
+  }
+}
+
+// Quantize-in: the rows' scales from the maxima of every rank of the
+// cluster (read through distributed shared memory; max is exact in any
+// order), row_scale as the row quantizer's.  s_part stays as it is until
+// the ranks' last cluster barrier, so no rank reads a block that has
+// left.
+__device__ __forceinline__ void qin_scales(cg::cluster_group& cluster, int C,
+                                           unsigned int* s_part,
+                                           float* s_scale, int rows,
+                                           int tid) {
+  if (C > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  if (tid < rows) {
+    unsigned int amx = s_part[tid];
+    if (C > 1)
+      for (int r = 0; r < C; ++r)
+        amx = max(amx, cluster.map_shared_rank(s_part, r)[tid]);
+    s_scale[tid] = row_scale(__uint_as_float(amx));
+  }
+  __syncthreads();
+}
+
+// Quantize-in, decode: x rows 0 .. rows - 1 (zero past M), columns k_lo ..
+// k_lo + cols - 1 (zero at or past kend), quantized with the rows' scales
+// into the rank's activation slice (row pitch ``pitch``), four codes a
+// 32-bit word, four words a thread in flight.
+template <int XE>
+__device__ __forceinline__ void qin_stage_slice(unsigned char* dst, int pitch,
+                                                const I8Args& a, int rows,
+                                                int cols, int k_lo, int kend,
+                                                const float* s_scale,
+                                                int tid) {
+  const int wpr = cols / 4, total = rows * wpr;
+  for (int i0 = tid; i0 < total; i0 += 4 * I8_NT) {
+    float v[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * I8_NT;
+      const int r = i / wpr, k = k_lo + 4 * (i % wpr);
+      const bool row = i < total && r < a.M;
+      const int64_t o = (int64_t)r * a.K + k;
+      if (row && a.x16 && k < kend) {
+        // 4 values in one load: K % 4 == 0, so k + 3 < kend
+        if constexpr (XE == 4) {
+          const float4 f = __ldg(reinterpret_cast<const float4*>(
+              static_cast<const float*>(x_in(a)) + o));
+          v[u][0] = f.x;
+          v[u][1] = f.y;
+          v[u][2] = f.z;
+          v[u][3] = f.w;
+        } else {
+          const uint2 h = __ldg(reinterpret_cast<const uint2*>(
+              static_cast<const __nv_bfloat16*>(x_in(a)) + o));
+          v[u][0] = __uint_as_float(h.x << 16);
+          v[u][1] = __uint_as_float(h.x & 0xffff0000u);
+          v[u][2] = __uint_as_float(h.y << 16);
+          v[u][3] = __uint_as_float(h.y & 0xffff0000u);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[u][j] = row && k + j < kend ? load_x<XE>(x_in(a), o + j) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * I8_NT;
+      if (i < total) {
+        const int r = i / wpr;
+        const float s = s_scale[r];
+        *reinterpret_cast<uint32_t*>(dst + r * pitch + 4 * (i % wpr)) =
+            quant4(v[u], s, __frcp_rn(s));
+      }
+    }
+  }
+}
+
+// Quantize-in, prefill: x rows m0 .. m0 + PBM - 1 (zero past M), columns
+// k0 .. k0 + PBK - 1 (zero at or past kend) as they are (f32 or bf16) into
+// dst, row pitch PBK XE bytes: 16-byte cp.async when x16, else value by
+// value (synchronous: rows of any length and alignment).
+template <int XE>
+__device__ __forceinline__ void copy_xraw(unsigned char* dst, const I8Args& a,
+                                          int m0, int k0, int kend, int tid) {
+  const unsigned char* x = static_cast<const unsigned char*>(x_in(a));
+  if (a.x16) {
+    constexpr int VEC = 16 / XE, CPR = PBK / VEC;
+#pragma unroll
+    for (int i = tid; i < PBM * CPR; i += I8_NT) {
+      const int r = i / CPR, c = i % CPR;
+      const int m = m0 + r, k = k0 + VEC * c;
+      const bool ok = m < a.M && k < kend;
+      cp16(smem_u32(dst + 16 * i), ok ? x + ((int64_t)m * a.K + k) * XE : x,
+           ok);
+    }
+  } else {
+    using U = typename std::conditional<XE == 4, uint32_t, uint16_t>::type;
+    for (int i = tid; i < PBM * PBK; i += I8_NT) {
+      const int r = i / PBK, b = i % PBK;
+      const int m = m0 + r, k = k0 + b;
+      reinterpret_cast<U*>(dst)[i] =
+          m < a.M && k < kend
+              ? reinterpret_cast<const U*>(x)[(int64_t)m * a.K + k]
+              : (U)0;
+    }
+  }
+}
+
+// Quantize-in, prefill: the step's x tile (src, PBM x PBK values as
+// copy_xraw lays them out) quantized with the rows' scales into the int8
+// tile the mma reads (dst, swizzled as copy_x<true> lays a stage out), a
+// 16-byte chunk (4 or 8 values) a thread at a time.
+template <int XE>
+__device__ __forceinline__ void qin_quantize_tile(const unsigned char* src,
+                                                  unsigned char* dst,
+                                                  const float* s_scale,
+                                                  int tid) {
+  constexpr int VEC = 16 / XE, CPR = PBK / VEC;
+#pragma unroll
+  for (int i = tid; i < PBM * CPR; i += I8_NT) {
+    const int r = i / CPR, k = VEC * (i % CPR);
+    float f[VEC];
+    unpack16(*reinterpret_cast<const uint4*>(src + 16 * i), f);
+    const float s = s_scale[r], rs = __frcp_rn(s);
+    unsigned char* d = dst + r * PBK + 16 * ((k >> 4) ^ xswz(r)) + (k & 15);
+    if constexpr (VEC == 4)
+      *reinterpret_cast<uint32_t*>(d) = quant4(f, s, rs);
+    else
+      *reinterpret_cast<uint2*>(d) = make_uint2(quant4(f, s, rs),
+                                                quant4(f + 4, s, rs));
+  }
+}
+
 // The copies of one K step (from row k0) into stage st of the ring.
-template <int SHAPE>
+template <int SHAPE, int VAR>
 __device__ __forceinline__ void load_step(unsigned char* smem, int st,
                                           const I8Args& a, int k0, int kend,
                                           int m0, int n0, int tid) {
+  constexpr int NW = var_nw(VAR), XE = var_xe(VAR);
   if constexpr (SHAPE == PRE) {
-    unsigned char* s = smem + st * (PBM * PBK + PBK * PBN);
-    copy_x<true>(s, PBK, a, PBM, PBK, m0, k0, kend, tid);
-    copy_w<PBK, PBN / 16, true>(smem_u32(s + PBM * PBK), a, k0, kend, n0,
-                                tid);
+    constexpr int XB = PBM * PBK * XE;
+    unsigned char* s = smem + st * (XB + PBK * PBN);
+    if constexpr (var_qin(VAR))
+      copy_xraw<XE>(s, a, m0, k0, kend, tid);
+    else
+      copy_x<true>(s, PBK, a, PBM, PBK, m0, k0, kend, tid);
+    copy_w<PBK, PBN / 16, NW, true>(smem_u32(s + XB), a, k0, kend, n0, tid);
   } else {
-    copy_w<DBK, DBN / 16, false>(smem_u32(smem + st * DBK * DBN), a, k0,
-                                 kend, n0, tid);
+    copy_w<DBK, DBN * NW / 16, NW, NW == 2>(
+        smem_u32(smem + st * DBK * DBN * NW), a, k0, kend, n0, tid);
   }
 }
 
 // dequant, bias, activation, residual in the reference's order, each
-// product and sum rounded on its own (EPI_F32 and EPI_QOUT)
-__device__ __forceinline__ float i8_epilogue(const I8Args& a, int tot, int gm,
-                                             int gn) {
-  float y = __fmul_rn(__fmul_rn((float)tot, a.xs[gm]), a.ws[gn]);
+// product and sum rounded on its own (EPI_F32 and EPI_QOUT); xs is the
+// row's scale
+__device__ __forceinline__ float i8_epilogue(const I8Args& a, float xs,
+                                             int tot, int gm, int gn) {
+  float y = __fmul_rn(__fmul_rn((float)tot, xs), a.ws[gn]);
   if (a.bias != nullptr) y = __fadd_rn(y, a.bias[gn]);
   y = activate(y, a.act);
   const int64_t o = (int64_t)gm * a.N + gn;
@@ -685,6 +982,27 @@ __device__ __forceinline__ float i8_epilogue(const I8Args& a, int tot, int gm,
     y = __fadd_rn(
         y, __bfloat162float(static_cast<const __nv_bfloat16*>(a.res)[o]));
   return y;
+}
+
+// The f32 output of row gm (lm in the tile), column gn from the int32
+// totals t0 (and t1, the gated body's up side): the gated epilogue
+// act(acc_g xs gs) * (acc_u xs us) as the reference's _cim_gated_kernel
+// orders it, or i8_epilogue with the row's scale from xs (from the
+// quantize-in scales s_scale).
+template <int VAR>
+__device__ __forceinline__ float i8_out(const I8Args& a,
+                                        const float* s_scale, int t0, int t1,
+                                        int lm, int gm, int gn) {
+  if constexpr (VAR == V_GATED) {
+    const float xs = a.xs[gm];
+    const float g = __fmul_rn(__fmul_rn((float)t0, xs), a.ws[gn]);
+    const float u = __fmul_rn(__fmul_rn((float)t1, xs), s_up(a)[gn]);
+    return __fmul_rn(activate(g, a.act), u);
+  } else if constexpr (var_qin(VAR)) {
+    return i8_epilogue(a, s_scale[lm], t0, gm, gn);
+  } else {
+    return i8_epilogue(a, a.xs[gm], t0, gm, gn);
+  }
 }
 
 // EPI_QOUT, after the block's f32 stores with its rows' |max| in s_amax:
@@ -738,27 +1056,38 @@ __device__ __forceinline__ void i8_requant(const I8Args& a, unsigned char* tl,
   if (tid == 0) a.arrive[band] = 0;
 }
 
-// One body: two tile shapes (SHAPE, from the wrapper's plan) and three
-// epilogues (EPI).  A cluster of C blocks (a launch attribute, 1 to 8)
-// shares one output tile and splits its K steps: rank r takes steps
-// [r steps / C, (r + 1) steps / C) of the ceil(K / BK); rank 0 sums the
-// ranks' int32 partials through distributed shared memory and runs the
-// epilogue.  Two blocks an SM (128 registers), but one on the prefill
-// tile with the requant or the int32 epilogue, which spill at 128.
-template <int EPI, int SHAPE>
-__global__ void __launch_bounds__(I8_NT,
-                                  SHAPE == PRE && EPI != EPI_F32 ? 1 : 2)
+// One body: two tile shapes (SHAPE, from the wrapper's plan), three
+// epilogues (EPI) and four variants (VAR).  A cluster of C blocks (a launch
+// attribute, 1 to 8) shares one output tile and splits its K steps: rank r
+// takes steps [r steps / C, (r + 1) steps / C) of the ceil(K / BK); rank 0
+// sums the ranks' int32 partials through distributed shared memory and
+// runs the epilogue.  Two blocks an SM (128 registers), but one on the
+// prefill tile with the requant or the int32 epilogue, which spill at 128,
+// or with f32 x, whose ring leaves room for one.
+template <int EPI, int SHAPE, int VAR>
+__global__ void __launch_bounds__(
+    I8_NT, SHAPE == PRE && (EPI != EPI_F32 || VAR == V_QF32) ? 1 : 2)
 cim_gemm_i8_kernel(const I8Args a) {
   constexpr bool DEC = SHAPE != PRE;
+  constexpr bool QIN = var_qin(VAR);
+  constexpr int NW = var_nw(VAR);             // weight streams
+  constexpr int XE = var_xe(VAR);             // bytes of an x element
   constexpr int NJ = SHAPE == DEC16 ? 2 : 1;  // decode: n-tiles of 8 rows
   constexpr int MR = 8 * NJ;                  // decode: rows of the tile
   constexpr int BK = DEC ? DBK : PBK;
-  constexpr int BN = DEC ? DBN : PBN;
+  constexpr int BN = DEC ? DBN : PBN / NW;    // output columns of a tile
   constexpr int NST = DEC ? DNST : PNST;
-  constexpr int STAGE = DEC ? DBK * DBN : PBM * PBK + PBK * PBN;
+  constexpr int XB = PBM * PBK * XE;          // prefill: x bytes of a stage
+  constexpr int RB = DEC ? DBN * NW : PBN;    // weight bytes of a stage row
+  constexpr int STAGE = DEC ? DBK * RB : XB + PBK * PBN;
   // decode warps: WK along the stage's K rows x WN along its columns,
   // KSW k-steps of 32 rows each a stage
   constexpr int WN = DBN / 32, WK = 8 / WN, KSW = DBK / (32 * WK);
+  // prefill warps: 2^PWL along the tile's columns (2 for the gated body:
+  // 32 output columns of both weights each), the rest along its rows,
+  // RPW rows each
+  constexpr int PWL = NW == 2 ? 1 : 2;
+  constexpr int RPW = PBM >> (3 - PWL);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -766,9 +1095,12 @@ cim_gemm_i8_kernel(const I8Args a) {
   const int g = lane >> 2, t = lane & 3;
   const int n0 = (int)(blockIdx.x / C) * BN;
   const int m0 = DEC ? 0 : (int)blockIdx.y * PBM;
-  const I8Layout L = i8_layout(SHAPE, a.K, C);
+  const I8Layout L = i8_layout(SHAPE, VAR, a.K, C);
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* tail = smem + L.tail;
+  // quantize-in: the rank's row maxima and the rows' scales
+  unsigned int* s_part = reinterpret_cast<unsigned int*>(tail);
+  float* s_xs = reinterpret_cast<float*>(tail + 512);
   if (EPI == EPI_QOUT && tid < 128)
     reinterpret_cast<unsigned int*>(tail)[tid] = 0u;
 
@@ -780,36 +1112,48 @@ cim_gemm_i8_kernel(const I8Args a) {
   const int kend = min(a.K, (s_lo + nsteps) * BK);
   const uint32_t ring = smem_u32(smem);
 
-  if constexpr (DEC)  // the rank's activation slice, once, in group 0
+  if constexpr (DEC && !QIN)  // the rank's activation slice, once, in group 0
     copy_x<false>(smem + L.x, L.x_pitch, a, MR, L.x_pitch - 16, 0, k_lo, kend,
                   tid);
 #pragma unroll
   for (int i = 0; i < NST - 1; ++i) {
     if (i < nsteps)
-      load_step<SHAPE>(smem, i, a, k_lo + i * BK, kend, m0, n0, tid);
+      load_step<SHAPE, VAR>(smem, i, a, k_lo + i * BK, kend, m0, n0, tid);
     cp_commit();
+  }
+  if constexpr (QIN) {
+    // the rows' scales while the first stages fly; the decode tile then
+    // quantizes its x slice once
+    constexpr int ROWS = DEC ? MR : PBM;
+    qin_row_max<XE>(a, m0, ROWS, k_lo, kend, s_part, tid);
+    qin_scales(cluster, C, s_part, s_xs, ROWS, tid);
+    if constexpr (DEC)
+      qin_stage_slice<XE>(smem + L.x, L.x_pitch, a, MR, L.x_pitch - 16, k_lo,
+                          kend, s_xs, tid);
   }
 
   // decode: warp (wk, wn) takes stage rows 32 KSW wk .. + 32 KSW - 1 and
   // output columns 32 wn .. + 31 (two m-tiles of W^T); prefill: warp (wm, wn)
-  // takes rows 64 wm .. + 63 (4 m-tiles of x) and columns 32 wn .. + 31
-  // (4 n-tiles of W)
-  constexpr int TA = DEC ? 2 : 4, TB = DEC ? NJ : 4;
-  int acc[TA][TB][4];
+  // takes rows RPW wm .. + RPW - 1 (TA m-tiles of x) and columns 32 wn ..
+  // + 31 (4 n-tiles of W) of each weight.  acc[w] sums weight w.
+  constexpr int TA = DEC ? 2 : RPW / 16, TB = DEC ? NJ : 4;
+  int acc[NW][TA][TB][4];
 #pragma unroll
-  for (int i = 0; i < TA; ++i)
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int j = 0; j < TB; ++j)
+    for (int i = 0; i < TA; ++i)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+      for (int j = 0; j < TB; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[w][i][j][r] = 0;
 
   // Per-lane shared-memory offsets within a stage.  W fragments: lane
   // (g, t) reads the 32-bit word of 4 adjacent columns 4 (8 wn + g) .. + 3
   // in 4 rows of its k-quad and transposes them (transpose4x4): the 4
   // columns' k-quads fill one fragment slot of 4 tiles, a column
   // permutation inside the tile that the stores undo.
-  const int wa = DEC ? warp / WN : warp >> 2;  // wk (decode), wm (prefill)
-  const int wn = DEC ? warp % WN : warp & 3;
+  const int wa = DEC ? warp / WN : warp >> PWL;  // wk (decode), wm (prefill)
+  const int wn = DEC ? warp % WN : warp & ((1 << PWL) - 1);
   const int c16 = 2 * wn + (g >> 2);  // the word's chunk in its row
   uint32_t w_off[2][4];
   if constexpr (DEC) {
@@ -819,20 +1163,40 @@ cim_gemm_i8_kernel(const I8Args a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ra = 32 * KSW * wa + 4 * t + ((j + t) & 3), rb = ra + 16;
-      w_off[0][j] = ra * DBN + 16 * (c16 ^ dswz(ra)) + 4 * (g & 3);
-      w_off[1][j] = rb * DBN + 16 * (c16 ^ dswz(rb)) + 4 * (g & 3);
+      if constexpr (NW == 1) {
+        w_off[0][j] = ra * DBN + 16 * (c16 ^ dswz(ra)) + 4 * (g & 3);
+        w_off[1][j] = rb * DBN + 16 * (c16 ^ dswz(rb)) + 4 * (g & 3);
+      } else {
+        w_off[0][j] = ra * RB + 16 * (c16 ^ pswz(ra)) + 4 * (g & 3);
+        w_off[1][j] = rb * RB + 16 * (c16 ^ pswz(rb)) + 4 * (g & 3);
+      }
     }
-  } else {
+  } else if constexpr (NW == 1) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ra = 4 * t + j, rb = ra + 16;  // + 32 per k-step of the stage
-      w_off[0][j] = PBM * PBK + ra * PBN + 16 * (c16 ^ pswz(ra)) + 4 * (g & 3);
-      w_off[1][j] = PBM * PBK + rb * PBN + 16 * (c16 ^ pswz(rb)) + 4 * (g & 3);
+      w_off[0][j] = XB + ra * PBN + 16 * (c16 ^ pswz(ra)) + 4 * (g & 3);
+      w_off[1][j] = XB + rb * PBN + 16 * (c16 ^ pswz(rb)) + 4 * (g & 3);
+    }
+  } else {
+    // the same offsets, written as one base and the rows as immediates
+    // (every row 4t + j, + 16, + 32 a lane reads has pswz 2t): the gated
+    // prefill tile keeps its registers for the two weights' fragments
+    const uint32_t wb =
+        XB + 4 * t * PBN + 16 * (c16 ^ (2 * t)) + 4 * (g & 3);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      w_off[0][j] = wb + j * PBN;
+      w_off[1][j] = wb + (16 + j) * PBN;
     }
   }
+  // the gated body: the up weight's word lies 4 chunks past the gate's
+  // (c16 < 4) before the swizzle; every row a lane reads has pswz 2t, so
+  // after it the word moves by 64 bytes, down when bit 2 of 2t is set
+  const int du = NW == 2 ? ((t & 2) ? -64 : 64) : 0;
   // prefill x fragments by ldmatrix: lane l gives row (l & 7) + 8 ((l >> 3)
   // & 1) of the m-tile, chunk (l >> 4) of the k-step
-  const int xr = 64 * wa + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int xr = RPW * wa + (lane & 7) + 8 * ((lane >> 3) & 1);
   const uint32_t x_off = xr * PBK;
   const int x_c = lane >> 4, x_s = xswz(xr);
   // decode x words: row 8 j + g, byte 4 t of the step's 32-row slice
@@ -844,52 +1208,66 @@ cim_gemm_i8_kernel(const I8Args a) {
     __syncthreads();
     const int nx = it + NST - 1;
     if (nx < nsteps)
-      load_step<SHAPE>(smem, nx % NST, a, k_lo + nx * BK, kend, m0, n0, tid);
+      load_step<SHAPE, VAR>(smem, nx % NST, a, k_lo + nx * BK, kend, m0, n0,
+                            tid);
     cp_commit();
     const uint32_t sb = ring + (it % NST) * STAGE;
     if constexpr (DEC) {
 #pragma unroll
-      for (int ks = 0; ks < KSW; ++ks) {
-        uint32_t r0[4], r1[4], a0[4], a1[4];
+      for (int ks = 0; ks < KSW; ++ks)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          r0[j] = lds32(sb + w_off[0][j] + ks * 32 * DBN);
-          r1[j] = lds32(sb + w_off[1][j] + ks * 32 * DBN);
-        }
-        transpose4x4(r0, a0);
-        transpose4x4(r1, a1);
+        for (int w = 0; w < NW; ++w) {
+          uint32_t r0[4], r1[4], a0[4], a1[4];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const uint32_t xa = xd + j * 8 * L.x_pitch + it * DBK + 32 * ks;
-          const uint32_t v0 = lds32(xa), v1 = lds32(xa + 16);
-          const uint32_t b0 = __funnelshift_r(v0, v0, 8 * t);
-          const uint32_t b1 = __funnelshift_r(v1, v1, 8 * t);
-          mma_s8(acc[0][j], a0[0], a0[1], a1[0], a1[1], b0, b1);
-          mma_s8(acc[1][j], a0[2], a0[3], a1[2], a1[3], b0, b1);
+          for (int j = 0; j < 4; ++j) {
+            r0[j] = lds32(sb + w_off[0][j] + w * du + ks * 32 * RB);
+            r1[j] = lds32(sb + w_off[1][j] + w * du + ks * 32 * RB);
+          }
+          transpose4x4(r0, a0);
+          transpose4x4(r1, a1);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const uint32_t xa = xd + j * 8 * L.x_pitch + it * DBK + 32 * ks;
+            const uint32_t v0 = lds32(xa), v1 = lds32(xa + 16);
+            const uint32_t b0 = __funnelshift_r(v0, v0, 8 * t);
+            const uint32_t b1 = __funnelshift_r(v1, v1, 8 * t);
+            mma_s8(acc[w][0][j], a0[0], a0[1], a1[0], a1[1], b0, b1);
+            mma_s8(acc[w][1][j], a0[2], a0[3], a1[2], a1[3], b0, b1);
+          }
         }
-      }
     } else {
+      if constexpr (QIN) {
+        // this step's x tile into int8 (the tile was last read by the
+        // step before, which every warp has left)
+        qin_quantize_tile<XE>(smem + (it % NST) * STAGE, smem + L.x, s_xs,
+                              tid);
+        __syncthreads();
+      }
+      const uint32_t xb = QIN ? smem_u32(smem + L.x) : sb;
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
-        uint32_t af[4][4];
+        uint32_t af[TA][4];
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldsm_x4(af[mt], sb + x_off + mt * 16 * PBK +
+        for (int mt = 0; mt < TA; ++mt)
+          ldsm_x4(af[mt], xb + x_off + mt * 16 * PBK +
                               16 * ((2 * ks + x_c) ^ x_s));
-        uint32_t r0[4], r1[4], b0[4], b1[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          r0[j] = lds32(sb + w_off[0][j] + ks * 32 * PBN);
-          r1[j] = lds32(sb + w_off[1][j] + ks * 32 * PBN);
+        for (int w = 0; w < NW; ++w) {
+          uint32_t r0[4], r1[4], b0[4], b1[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            r0[j] = lds32(sb + w_off[0][j] + w * du + ks * 32 * PBN);
+            r1[j] = lds32(sb + w_off[1][j] + w * du + ks * 32 * PBN);
+          }
+          transpose4x4(r0, b0);
+          transpose4x4(r1, b1);
+#pragma unroll
+          for (int mt = 0; mt < TA; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_s8(acc[w][mt][nt], af[mt][0], af[mt][1], af[mt][2],
+                     af[mt][3], b0[nt], b1[nt]);
         }
-        transpose4x4(r0, b0);
-        transpose4x4(r1, b1);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_s8(acc[mt][nt], af[mt][0], af[mt][1], af[mt][2], af[mt][3],
-                   b0[nt], b1[nt]);
       }
     }
   }
@@ -897,38 +1275,50 @@ cim_gemm_i8_kernel(const I8Args a) {
   __syncthreads();  // the ring is free
 
   if constexpr (DEC) {
-    // the warps' K sums: red[wk][m][col] in the tile's own column order
+    // the warps' K sums: red[w][wk][m][col] in the tile's own column order
     int* red = reinterpret_cast<int*>(smem);
 #pragma unroll
-    for (int tp = 0; tp < 2; ++tp)
+    for (int w = 0; w < NW; ++w)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+      for (int tp = 0; tp < 2; ++tp)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int rho = g + 8 * (r >> 1);  // the m-tile's row
-          const int col = 32 * wn + 4 * (rho & 7) + 2 * tp + (rho >> 3);
-          const int m = 8 * j + 2 * t + (r & 1);
-          red[(wa * MR + m) * DBN + col] = acc[tp][j][r];
-        }
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int rho = g + 8 * (r >> 1);  // the m-tile's row
+            const int col = 32 * wn + 4 * (rho & 7) + 2 * tp + (rho >> 3);
+            const int m = 8 * j + 2 * t + (r & 1);
+            red[((w * WK + wa) * MR + m) * DBN + col] = acc[w][tp][j][r];
+          }
     __syncthreads();
     constexpr int PER = MR * DBN / I8_NT;  // outputs a thread
-    int tot[PER];
+    constexpr int WS = WK * MR * DBN;      // the sums of one weight
+    int tot[NW][PER];
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + I8_NT * i;
-      tot[i] = red[e];
+    for (int w = 0; w < NW; ++w)
 #pragma unroll
-      for (int k = 1; k < WK; ++k) tot[i] += red[e + k * MR * DBN];
-    }
+      for (int i = 0; i < PER; ++i) {
+        const int e = w * WS + tid + I8_NT * i;
+        tot[w][i] = red[e];
+#pragma unroll
+        for (int k = 1; k < WK; ++k) tot[w][i] += red[e + k * MR * DBN];
+      }
     if (C > 1) {
+      // each thread overwrites only sums it has read itself
 #pragma unroll
-      for (int i = 0; i < PER; ++i) red[tid + I8_NT * i] = tot[i];
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          red[w * MR * DBN + tid + I8_NT * i] = tot[w][i];
       cluster.sync();
       if (rank == 0)
         for (int r = 1; r < C; ++r) {
           const int* rem = cluster.map_shared_rank(red, r);
 #pragma unroll
-          for (int i = 0; i < PER; ++i) tot[i] += rem[tid + I8_NT * i];
+          for (int w = 0; w < NW; ++w)
+#pragma unroll
+            for (int i = 0; i < PER; ++i)
+              tot[w][i] += rem[w * MR * DBN + tid + I8_NT * i];
         }
       cluster.sync();  // the other ranks' shared memory stays until read
       if (rank != 0) return;
@@ -940,11 +1330,11 @@ cim_gemm_i8_kernel(const I8Args a) {
       const bool valid = m < a.M && gn < a.N;
       const int64_t o = (int64_t)m * a.N + gn;
       if constexpr (EPI == EPI_ACC) {
-        if (valid) static_cast<int*>(a.out)[o] = tot[i];
+        if (valid) static_cast<int*>(a.out)[o] = tot[0][i];
       } else {
         float y = 0.0f;
         if (valid) {
-          y = i8_epilogue(a, tot[i], m, gn);
+          y = i8_out<VAR>(a, s_xs, tot[0][i], tot[NW - 1][i], m, m, gn);
           static_cast<float*>(a.out)[o] = y;
         }
         if constexpr (EPI == EPI_QOUT) {
@@ -962,76 +1352,132 @@ cim_gemm_i8_kernel(const I8Args a) {
     if constexpr (EPI == EPI_QOUT)
       i8_requant(a, tail, 0, MR, 0, (int)gridDim.x / C, tid);
   } else {
+    // the lane's coordinates; the gated tile at two blocks an SM reads them
+    // again from %tid.x here rather than keep them live through the main
+    // loop (which left ptxas 4 registers short: 16 bytes of spills)
+    int ewa = wa, ewn = wn, eg = g, et = t;
+    if constexpr (NW == 2) {
+      uint32_t r;
+      asm volatile("mov.u32 %0, %%tid.x;" : "=r"(r));
+      ewa = (int)(r / 32) >> PWL;
+      ewn = (int)(r / 32) & ((1 << PWL) - 1);
+      eg = (int)(r % 32) >> 2;
+      et = (int)r & 3;
+    }
     // thread (g, t) of warp (wm, wn) holds, for m-tile mt and half h, row
-    // 64 wm + 16 mt + g + 8 h at columns 32 wn + 8 t .. + 7: acc[mt][q][2h]
-    // at column + q and acc[mt][q][2h + 1] at column + 4 + q
+    // RPW wm + 16 mt + g + 8 h at output columns 32 wn + 8 t .. + 7 of each
+    // weight w: acc[w][mt][q][2h] at column + q and acc[w][mt][q][2h + 1]
+    // at column + 4 + q (partial tile column 64 w + the output column)
     if (C > 1) {
       int* part = reinterpret_cast<int*>(smem);  // [PBM][PPITCH]
       if (rank != 0) {
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
+        for (int w = 0; w < NW; ++w)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            int4* p = reinterpret_cast<int4*>(
-                part + (64 * wa + 16 * mt + g + 8 * h) * PPITCH + 32 * wn +
-                8 * t);
-            p[0] = make_int4(acc[mt][0][2 * h], acc[mt][1][2 * h],
-                             acc[mt][2][2 * h], acc[mt][3][2 * h]);
-            p[1] = make_int4(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1],
-                             acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1]);
-          }
+          for (int mt = 0; mt < TA; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              int4* p = reinterpret_cast<int4*>(
+                  part + (RPW * ewa + 16 * mt + eg + 8 * h) * PPITCH + 64 * w +
+                  32 * ewn + 8 * et);
+              p[0] = make_int4(acc[w][mt][0][2 * h], acc[w][mt][1][2 * h],
+                               acc[w][mt][2][2 * h], acc[w][mt][3][2 * h]);
+              p[1] = make_int4(acc[w][mt][0][2 * h + 1],
+                               acc[w][mt][1][2 * h + 1],
+                               acc[w][mt][2][2 * h + 1],
+                               acc[w][mt][3][2 * h + 1]);
+            }
       }
       cluster.sync();
       if (rank == 0)
         for (int r = 1; r < C; ++r) {
           const int* rem = cluster.map_shared_rank(part, r);
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
+          for (int w = 0; w < NW; ++w)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int4* p = reinterpret_cast<const int4*>(
-                  rem + (64 * wa + 16 * mt + g + 8 * h) * PPITCH + 32 * wn +
-                  8 * t);
-              const int4 u = p[0], v = p[1];
-              acc[mt][0][2 * h] += u.x;
-              acc[mt][1][2 * h] += u.y;
-              acc[mt][2][2 * h] += u.z;
-              acc[mt][3][2 * h] += u.w;
-              acc[mt][0][2 * h + 1] += v.x;
-              acc[mt][1][2 * h + 1] += v.y;
-              acc[mt][2][2 * h + 1] += v.z;
-              acc[mt][3][2 * h + 1] += v.w;
-            }
+            for (int mt = 0; mt < TA; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int4* p = reinterpret_cast<const int4*>(
+                    rem + (RPW * ewa + 16 * mt + eg + 8 * h) * PPITCH +
+                    64 * w + 32 * ewn + 8 * et);
+                const int4 u = p[0], v = p[1];
+                acc[w][mt][0][2 * h] += u.x;
+                acc[w][mt][1][2 * h] += u.y;
+                acc[w][mt][2][2 * h] += u.z;
+                acc[w][mt][3][2 * h] += u.w;
+                acc[w][mt][0][2 * h + 1] += v.x;
+                acc[w][mt][1][2 * h + 1] += v.y;
+                acc[w][mt][2][2 * h + 1] += v.z;
+                acc[w][mt][3][2 * h + 1] += v.w;
+              }
         }
       cluster.sync();
       if (rank != 0) return;
     }
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < TA; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int lm = 64 * wa + 16 * mt + g + 8 * h;
+        const int lm = RPW * ewa + 16 * mt + eg + 8 * h;
         const int gm = m0 + lm;
-        const int gn0 = n0 + 32 * wn + 8 * t;
-        int v[8];
+        const int gn0 = n0 + 32 * ewn + 8 * et;
+        int v[NW][8];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          v[q] = acc[mt][q][2 * h];
-          v[4 + q] = acc[mt][q][2 * h + 1];
-        }
+        for (int w = 0; w < NW; ++w)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            v[w][q] = acc[w][mt][q][2 * h];
+            v[w][4 + q] = acc[w][mt][q][2 * h + 1];
+          }
         const bool full = gm < a.M && gn0 + 8 <= a.N;
         const int64_t o = (int64_t)gm * a.N + gn0;
         if constexpr (EPI == EPI_ACC) {
           int* out = static_cast<int*>(a.out);
           if (full) {
             reinterpret_cast<int4*>(out + o)[0] =
-                make_int4(v[0], v[1], v[2], v[3]);
+                make_int4(v[0][0], v[0][1], v[0][2], v[0][3]);
             reinterpret_cast<int4*>(out + o)[1] =
-                make_int4(v[4], v[5], v[6], v[7]);
+                make_int4(v[0][4], v[0][5], v[0][6], v[0][7]);
           } else if (gm < a.M) {
 #pragma unroll
             for (int q = 0; q < 8; ++q)
-              if (gn0 + q < a.N) out[o + q] = v[q];
+              if (gn0 + q < a.N) out[o + q] = v[0][q];
+          }
+        } else if constexpr (NW == 2) {
+          // the gated pair in two halves of 4 columns, each stored before
+          // the next is formed: fewer values live across the activation's
+          // calls (the division's slow path) at two blocks an SM
+          float* out = static_cast<float*>(a.out);
+          float mx = 0.0f;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float y[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int c = 4 * hh + q;
+              y[q] = 0.0f;
+              if (gm < a.M && gn0 + c < a.N) {
+                y[q] = i8_out<VAR>(a, s_xs, v[0][c], v[1][c], lm, gm,
+                                   gn0 + c);
+                mx = fmaxf(mx, fabsf(y[q]));
+              }
+            }
+            if (full) {
+              reinterpret_cast<float4*>(out + o)[hh] =
+                  make_float4(y[0], y[1], y[2], y[3]);
+            } else if (gm < a.M) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                if (gn0 + 4 * hh + q < a.N) out[o + 4 * hh + q] = y[q];
+            }
+          }
+          if constexpr (EPI == EPI_QOUT) {
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            if (et == 0 && gm < a.M)
+              atomicMax(reinterpret_cast<unsigned int*>(tail) + lm,
+                        __float_as_uint(mx));
           }
         } else {
           float y[8];
@@ -1040,7 +1486,8 @@ cim_gemm_i8_kernel(const I8Args a) {
           for (int q = 0; q < 8; ++q) {
             y[q] = 0.0f;
             if (gm < a.M && gn0 + q < a.N) {
-              y[q] = i8_epilogue(a, v[q], gm, gn0 + q);
+              y[q] = i8_out<VAR>(a, s_xs, v[0][q], v[NW - 1][q], lm, gm,
+                                 gn0 + q);
               mx = fmaxf(mx, fabsf(y[q]));
             }
           }
@@ -1059,7 +1506,7 @@ cim_gemm_i8_kernel(const I8Args a) {
             // the row's 32 columns of this warp lie in its 4 t lanes
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-            if (t == 0 && gm < a.M)
+            if (et == 0 && gm < a.M)
               atomicMax(reinterpret_cast<unsigned int*>(tail) + lm,
                         __float_as_uint(mx));
           }
@@ -1070,9 +1517,9 @@ cim_gemm_i8_kernel(const I8Args a) {
   }
 }
 
-template <int EPI, int SHAPE>
+template <int EPI, int SHAPE, int VAR>
 cudaError_t i8_launch(const I8Args& a, int C, int smem, cudaStream_t st) {
-  constexpr int BN = SHAPE == PRE ? PBN : DBN;
+  constexpr int BN = SHAPE == PRE ? PBN / var_nw(VAR) : DBN;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((a.N + BN - 1) / BN * C,
                      SHAPE == PRE ? (a.M + PBM - 1) / PBM : 1, 1);
@@ -1086,28 +1533,28 @@ cudaError_t i8_launch(const I8Args& a, int C, int smem, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, cim_gemm_i8_kernel<EPI, SHAPE>, a);
+  return cudaLaunchKernelEx(&cfg, cim_gemm_i8_kernel<EPI, SHAPE, VAR>, a);
 }
 
-template <int EPI>
+template <int EPI, int VAR>
 cudaError_t i8_run(const I8Args& a, int shape, int C, int smem,
                    cudaStream_t st) {
-  if (shape == DEC8) return i8_launch<EPI, DEC8>(a, C, smem, st);
-  if (shape == DEC16) return i8_launch<EPI, DEC16>(a, C, smem, st);
-  return i8_launch<EPI, PRE>(a, C, smem, st);
+  if (shape == DEC8) return i8_launch<EPI, DEC8, VAR>(a, C, smem, st);
+  if (shape == DEC16) return i8_launch<EPI, DEC16, VAR>(a, C, smem, st);
+  return i8_launch<EPI, PRE, VAR>(a, C, smem, st);
 }
 
-template <int EPI>
-cudaError_t i8_opt_in_epi() {
+template <int EPI, int VAR>
+cudaError_t i8_opt_in_one() {
   cudaError_t e = cudaFuncSetAttribute(
-      cim_gemm_i8_kernel<EPI, DEC8>,
+      cim_gemm_i8_kernel<EPI, DEC8, VAR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, I8_MAX_SMEM);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, DEC16>,
+    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, DEC16, VAR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              I8_MAX_SMEM);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, PRE>,
+    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, PRE, VAR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              I8_MAX_SMEM);
   return e;
@@ -1121,9 +1568,13 @@ cudaError_t i8_opt_in() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || granted[dev % 64]) return e;
-  e = i8_opt_in_epi<EPI_F32>();
-  if (e == cudaSuccess) e = i8_opt_in_epi<EPI_QOUT>();
-  if (e == cudaSuccess) e = i8_opt_in_epi<EPI_ACC>();
+  e = i8_opt_in_one<EPI_F32, V_I8>();
+  if (e == cudaSuccess) e = i8_opt_in_one<EPI_QOUT, V_I8>();
+  if (e == cudaSuccess) e = i8_opt_in_one<EPI_ACC, V_I8>();
+  if (e == cudaSuccess) e = i8_opt_in_one<EPI_F32, V_GATED>();
+  if (e == cudaSuccess) e = i8_opt_in_one<EPI_QOUT, V_GATED>();
+  if (e == cudaSuccess) e = i8_opt_in_one<EPI_F32, V_QF32>();
+  if (e == cudaSuccess) e = i8_opt_in_one<EPI_F32, V_QBF16>();
   if (e == cudaSuccess) granted[dev % 64] = true;
   return e;
 }
@@ -1149,98 +1600,68 @@ int cim_quantize_rows_int8(const void* x, int x_kind, void* q, void* scale,
   return (int)cudaGetLastError();
 }
 
-int cim_gemm_int8_fused_qin(const void* x, int x_kind, const void* w,
-                            const void* ws, const void* bias, const void* res,
-                            int res_kind, int act, void* out, int M, int K,
-                            int N, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* w8 = static_cast<const int8_t*>(w);
-  const float* wsf = static_cast<const float*>(ws);
-  const float* b = static_cast<const float*>(bias);
-  float* o = static_cast<float*>(out);
-  if (x_kind == 1)
-    cim_gemm_kernel<float, false, EPI_F32, false>
-        <<<gemm_grid(1, M, N), NT, 0, st>>>(
-        static_cast<const float*>(x), nullptr, w8, wsf, nullptr, nullptr, b,
-        res, res_kind, act, nullptr, o, nullptr, nullptr, nullptr, nullptr,
-        M, K, N);
-  else
-    cim_gemm_kernel<__nv_bfloat16, false, EPI_F32, false>
-        <<<gemm_grid(1, M, N), NT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), nullptr, w8, wsf, nullptr,
-        nullptr, b, res, res_kind, act, nullptr, o, nullptr, nullptr, nullptr,
-        nullptr, M, K, N);
-  return (int)cudaGetLastError();
-}
-
-// The pre-quantized GEMMs, dense (E = 1) and grouped, plain (w2 null) or
-// gated (act(x w) * (x w2)).  counts null = no skip list; q null = f32
-// output in out, else the requantized rows in q / qs with out as scratch.
-int cim_gemm_int8_launch(const void* xq, const void* xs, const void* w,
-                         const void* ws, const void* w2, const void* ws2,
-                         const void* bias, const void* res, int res_kind,
-                         const void* counts, int act, void* out, void* q,
-                         void* qs, void* amax, void* arrive, int E, int M,
-                         int K, int N, void* stream) {
+// The grouped GEMMs (kernels 7 and 8) on the CUDA cores: x [E, M, K]
+// int8, plain (w2 null) or gated (act(x w) * (x w2)).  counts null = no
+// skip list; q null = f32 output in out, else the requantized rows in q /
+// qs with out as scratch.
+int cim_grouped_gemm_launch(const void* xq, const void* xs, const void* w,
+                            const void* ws, const void* w2, const void* ws2,
+                            const void* bias, const void* counts, int act,
+                            void* out, void* q, void* qs, void* amax,
+                            void* arrive, int E, int M, int K, int N,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = gemm_grid(E, M, N);
-  const int8_t* x8 = static_cast<const int8_t*>(xq);
-  const float* xsf = static_cast<const float*>(xs);
-  const int* cnt = static_cast<const int*>(counts);
-  float* o = static_cast<float*>(out);
   int8_t* q8 = static_cast<int8_t*>(q);
-  float* qsf = static_cast<float*>(qs);
-  unsigned int* am = static_cast<unsigned int*>(amax);
-  int* arr = static_cast<int*>(arrive);
-  // dense GEMMs (E = 1) skip the expert offsets and the skip list at
-  // compile time; quantize_out is its own instantiation
-#define LAUNCH(GATED, EPI, GROUPED)                                        \
-  cim_gemm_kernel<int8_t, GATED, EPI, GROUPED><<<grid, NT, 0, st>>>(       \
-      x8, xsf, static_cast<const int8_t*>(w), static_cast<const float*>(ws), \
-      static_cast<const int8_t*>(w2), static_cast<const float*>(ws2),        \
-      static_cast<const float*>(bias), res, res_kind, act, cnt, o, q8, qsf,  \
-      am, arr, M, K, N)
-#define LAUNCH_Q(GATED, GROUPED)         \
-  if (q8 != nullptr)                     \
-    LAUNCH(GATED, EPI_QOUT, GROUPED);    \
-  else                                   \
-    LAUNCH(GATED, EPI_F32, GROUPED)
-  const bool gated = w2 != nullptr;
-  if (E > 1) {
-    if (gated) { LAUNCH_Q(true, true); } else { LAUNCH_Q(false, true); }
+#define LAUNCH(GATED, EPI)                                                  \
+  cim_gemm_kernel<GATED, EPI><<<grid, NT, 0, st>>>(                         \
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),        \
+      static_cast<const int8_t*>(w), static_cast<const float*>(ws),         \
+      static_cast<const int8_t*>(w2), static_cast<const float*>(ws2),       \
+      static_cast<const float*>(bias), nullptr, 0, act,                     \
+      static_cast<const int*>(counts),                                      \
+      static_cast<float*>(out), q8, static_cast<float*>(qs),                \
+      static_cast<unsigned int*>(amax), static_cast<int*>(arrive), M, K, N)
+  if (w2 != nullptr) {
+    if (q8 != nullptr) LAUNCH(true, EPI_QOUT); else LAUNCH(true, EPI_F32);
   } else {
-    // the dense plain GEMM runs on the tensor cores (cim_gemm_i8_launch)
-    if (!gated) return (int)cudaErrorInvalidValue;
-    LAUNCH_Q(true, false);
+    if (q8 != nullptr) LAUNCH(false, EPI_QOUT); else LAUNCH(false, EPI_F32);
   }
-#undef LAUNCH_Q
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
 
-// Kernels 3 and 6 on the tensor cores: x_q [M, K] int8 @ w [K, N] int8
-// with the f32 epilogue (q null; xs [M], ws/bias [N], res [M, N] as
-// above), the requant epilogue (q [M, N], qs [M], amax [M] and arrive
-// [one a row band] given, zeros) or, with acc, the exact int32 sum in out
-// [M, N].  shape (0/1 decode at 8/16 rows, 2 prefill), cluster and smem
-// are the wrapper's plan (gemm_plan); N % 4 == 0.
-int cim_gemm_i8_launch(const void* xq, const void* xs, const void* w,
-                       const void* ws, const void* bias, const void* res,
-                       int res_kind, int act, int acc, void* out, void* q,
-                       void* qs, void* amax, void* arrive, int M, int K, int N,
+// The dense GEMMs on the tensor cores, x [M, K] @ w [K, N] int8, by
+// variant (var): 0 int8 x with xs [M] (kernels 3 and 6), 1 the same with
+// the gated pair w / w2 and ws / ws2 [N] (kernel 4), 2 or 3 f32 or bf16 x
+// quantized in the kernel (kernel 2).  The f32 epilogue (q null; ws / bias
+// [N], res [M, N] as above), the requant epilogue (variants 0 and 1: q
+// [M, N], qs [M], amax [M] and arrive [one a row band] given, zeros) or,
+// with acc (variant 0), the exact int32 sum in out [M, N].  shape (0/1
+// decode at 8/16 rows, 2 prefill), cluster and smem are the wrapper's plan
+// (gemm_plan); N % 4 == 0.
+int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
+                       const void* ws, const void* w2, const void* ws2,
+                       const void* bias, const void* res, int res_kind,
+                       int act, int acc, void* out, void* q, void* qs,
+                       void* amax, void* arrive, int M, int K, int N, int var,
                        int shape, int cluster, int smem, void* stream) {
-  if (shape < DEC8 || shape > PRE || M < 1 || K < 1 || N < 1 || N % 4 ||
-      (shape != PRE && M > 8 * (shape + 1)) ||
-      cluster < 1 || cluster > 8 ||
-      smem < i8_layout(shape, K, cluster).total || smem > I8_MAX_SMEM)
+  const bool qin = var_qin(var);
+  if (var < V_I8 || var > V_QBF16 || shape < DEC8 || shape > PRE || M < 1 ||
+      K < 1 || N < 1 || N % 4 || (shape != PRE && M > 8 * (shape + 1)) ||
+      cluster < 1 || cluster > 8 || (var == V_GATED) != (w2 != nullptr) ||
+      (acc && var != V_I8) || (q != nullptr && (acc || qin)) ||
+      smem < i8_layout(shape, var, K, cluster).total || smem > I8_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  if (var == V_GATED && (bias != nullptr || res != nullptr || res_kind))
     return (int)cudaErrorInvalidValue;
   I8Args a;
-  a.x = static_cast<const int8_t*>(xq);
+  a.x = static_cast<const int8_t*>(x);
   a.xs = static_cast<const float*>(xs);
   a.w = static_cast<const int8_t*>(w);
   a.ws = static_cast<const float*>(ws);
-  a.bias = static_cast<const float*>(bias);
-  a.res = res;
+  a.bias = static_cast<const float*>(var == V_GATED ? ws2 : bias);
+  a.res = var == V_GATED ? w2 : res;
   a.res_kind = res_kind;
   a.act = act;
   a.out = out;
@@ -1251,24 +1672,34 @@ int cim_gemm_i8_launch(const void* xq, const void* xs, const void* w,
   a.M = M;
   a.K = K;
   a.N = N;
-  a.x16 = K % 16 == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0;
-  a.w16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  a.x16 = (int64_t)K * var_xe(var) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.w16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(w2) % 16 == 0;
   cudaError_t e = i8_opt_in();
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (acc)
-    e = i8_run<EPI_ACC>(a, shape, cluster, smem, st);
+    e = i8_run<EPI_ACC, V_I8>(a, shape, cluster, smem, st);
+  else if (q != nullptr && var == V_GATED)
+    e = i8_run<EPI_QOUT, V_GATED>(a, shape, cluster, smem, st);
   else if (q != nullptr)
-    e = i8_run<EPI_QOUT>(a, shape, cluster, smem, st);
+    e = i8_run<EPI_QOUT, V_I8>(a, shape, cluster, smem, st);
+  else if (var == V_GATED)
+    e = i8_run<EPI_F32, V_GATED>(a, shape, cluster, smem, st);
+  else if (var == V_QF32)
+    e = i8_run<EPI_F32, V_QF32>(a, shape, cluster, smem, st);
+  else if (var == V_QBF16)
+    e = i8_run<EPI_F32, V_QBF16>(a, shape, cluster, smem, st);
   else
-    e = i8_run<EPI_F32>(a, shape, cluster, smem, st);
+    e = i8_run<EPI_F32, V_I8>(a, shape, cluster, smem, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // The dynamic shared-memory bytes of a block of that plan (i8_layout).
-int cim_gemm_i8_smem_bytes(int shape, int K, int cluster) {
-  return i8_layout(shape, K, cluster).total;
+int cim_gemm_i8_smem_bytes(int shape, int var, int K, int cluster) {
+  return i8_layout(shape, var, K, cluster).total;
 }
 
 const char* cim_gemm_error_string(int err) {

@@ -2,12 +2,13 @@
 grouped over experts.
 
 The port of ``repro/kernels/cim_gemm.py``.  The CUDA kernels live in
-``csrc/cim_gemm.cu``: the int8 x int8 GEMM of kernels 3 and 6 runs on
-the tensor cores in one of two tile shapes, with thread-block clusters
-splitting K, as :func:`gemm_plan` decides from (M, K, N); the other
-GEMMs share one template on the CUDA cores whose instantiations differ
-in the prologue and the epilogue (see the note at the top of that file
-for what bounds them and how).  Every wrapper here:
+``csrc/cim_gemm.cu``: the dense GEMMs (kernels 2, 3, 4 and 6) run on one
+tensor-core body in one of two tile shapes, with thread-block clusters
+splitting K, as :func:`gemm_plan` decides from (M, K, N) and the body's
+variant (int8 x, the gated pair of weights, or f32/bf16 x quantized in
+the kernel); the grouped GEMMs (kernels 7 and 8) share one template on
+the CUDA cores (see the note at the top of that file for what bounds
+them and how).  Every wrapper here:
 
 * takes its plain version (``*_plain``) when its tensors lie on the CPU;
 * on CUDA tensors checks dtype, shape, contiguity and alignment,
@@ -39,7 +40,8 @@ MAX_FUSED_QUANT_K = 4096
 
 _LIB = "cim_gemm"
 _FLOAT = (torch.float32, torch.bfloat16)
-_GEMM_ARGS = [P, P, P, P, P, P, P, P, I, P, I, P, P, P, P, P, I, I, I, I, P]
+_GROUPED_ARGS = [P] * 8 + [I] + [P] * 5 + [I] * 4 + [P]
+_I8_ARGS = [P] * 8 + [I] * 3 + [P] * 5 + [I] * 7 + [P]
 
 
 def _epilogue_plain(acc, x_scale, w_scale, bias, residual, activation):
@@ -107,17 +109,15 @@ def _requant_workspace(device: torch.device, n: int) -> torch.Tensor:
     return ws
 
 
-def _gemm_int8(what, x_q, x_scale, w, w_scale, w2=None, w2_scale=None,
-               bias=None, residual=None, counts=None, activation=None,
-               quantize_out=False):
-    """Launch the pre-quantized GEMM template on x_q [E, M, K] int8 and
-    w (w2) [E, K, N], checked by the caller (the gated GEMM, E = 1, and
-    the grouped GEMMs); returns f32 [E, M, N] or (q int8 [E, M, N],
-    scale f32 [E, M, 1])."""
+def _grouped_gemm(what, x_q, x_scale, w, w_scale, w2=None, w2_scale=None,
+                  bias=None, counts=None, activation=None,
+                  quantize_out=False):
+    """Launch the grouped GEMM template on x_q [E, M, K] int8 and w (w2)
+    [E, K, N], checked by the caller; returns f32 [E, M, N] or (q int8
+    [E, M, N], scale f32 [E, M, 1])."""
     E, M, K = x_q.shape
     N = w.shape[-1]
     dev = x_q.device
-    rc = _residual_code(residual, M, N)
     out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
     q = qs = amax = arrive = None
     if quantize_out:
@@ -126,16 +126,16 @@ def _gemm_int8(what, x_q, x_scale, w, w_scale, w2=None, w2_scale=None,
         bands = E * -(-M // 8)
         ws = _requant_workspace(dev, E * M + bands)
         amax, arrive = ws[:E * M], ws[E * M:E * M + bands]
-    fn = bind(_LIB, "cim_gemm_int8_launch", _GEMM_ARGS)
+    fn = bind(_LIB, "cim_grouped_gemm_launch", _GROUPED_ARGS)
     check(_LIB, fn(ptr(x_q), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
-                   ptr(w2_scale), ptr(bias), ptr(residual), rc, ptr(counts),
+                   ptr(w2_scale), ptr(bias), ptr(counts),
                    ACTIVATIONS[activation], ptr(out), ptr(q), ptr(qs),
                    ptr(amax), ptr(arrive), E, M, K, N, stream(x_q)), what)
     return (q, qs) if quantize_out else out
 
 
 # ---------------------------------------------------------------------------
-# Launch plan of the tensor-core GEMM (kernels 3 and 6)
+# Launch plan of the tensor-core GEMM (kernels 2, 3, 4 and 6)
 # ---------------------------------------------------------------------------
 SMS = 132              # streaming multiprocessors of an H100
 MAX_SMEM = 232448      # dynamic shared memory a block may use on sm_90
@@ -145,6 +145,8 @@ CLUSTERS = (1, 2, 3, 4, 5, 6, 7, 8)   # 8: the portable maximum
 DECODE_MAX_M = 16
 # decode: columns of a tile, K rows a step, stages of the cp.async ring
 DEC_BN, DEC_BK, DEC_STAGES = 64, 128, 4
+# prefill: rows of a tile, weight bytes of a stage row (the output columns
+# of a tile, half of them with the gated pair), K rows a step, stages
 PRE_BM, PRE_BN, PRE_BK, PRE_STAGES = 128, 128, 64, 4
 # a prefill rank keeps at least this many K steps (of 64 rows)
 PRE_MIN_STEPS = 4
@@ -152,23 +154,35 @@ PRE_MIN_STEPS = 4
 # 5 to 7 at every decode shape swept and than 6 at the prefill ones
 # (``chip_smoke.py``'s forced-plan ``[times]`` lines; PERF.md)
 RULE_MAX_CLUSTER = 6
-_TAIL = 128 * 4 + 128 * 4 + 16   # row maxima, requant scales, flag
+_TAIL = 128 * 4 + 128 * 4 + 16   # row maxima, row scales, flag
 _KINDS = ("decode", "prefill")
+# the body's variants (``Var`` in the source): int8 x (kernels 3 and 6),
+# int8 x with the gated pair of weights (kernel 4), f32 or bf16 x
+# quantized in the kernel (kernel 2)
+VARIANTS = ("int8", "gated", "qin_f32", "qin_bf16")
+# bytes of an x element of each variant
+_X_BYTES = {"int8": 1, "gated": 1, "qin_f32": 4, "qin_bf16": 2}
 
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     kind: str     # "decode": W^T as the tensor cores' A side; "prefill"
     bm: int       # rows of a tile: 8 or 16 (decode), 128 (prefill)
-    bn: int       # columns of a tile
+    bn: int       # output columns of a tile
     bk: int       # K rows of one step of the cp.async ring
     cluster: int  # blocks of a cluster, splitting the K steps
     smem: int     # dynamic shared-memory bytes of a block
+    variant: str = "int8"   # one of VARIANTS
 
     @property
     def shape(self) -> int:
         """The kernel's code of the tile shape (``Shape`` in the source)."""
         return 2 if self.kind == "prefill" else self.bm // 8 - 1
+
+    @property
+    def var(self) -> int:
+        """The kernel's code of the variant (``Var`` in the source)."""
+        return VARIANTS.index(self.variant)
 
     def grid(self, M: int, N: int) -> int:
         """Blocks of the launch."""
@@ -184,29 +198,38 @@ def k_steps(K: int, bk: int, cluster: int) -> tuple[int, int]:
     return steps, -(-steps // cluster)
 
 
-def smem_bytes(kind: str, bm: int, K: int, cluster: int) -> int:
+def smem_bytes(kind: str, bm: int, K: int, cluster: int,
+               variant: str = "int8") -> int:
     """Dynamic shared memory of one block, as the kernel lays it out
     (``i8_layout`` in ``csrc/cim_gemm.cu``, whose
     ``cim_gemm_i8_smem_bytes`` a card test holds this against).  Decode:
-    the stage ring (DEC_BK x DEC_BN bytes a stage) and the rank's x slice
-    (bm rows of its K extent, padded by 16 bytes).  Prefill: the ring of
-    x and w stages, or with a cluster the int32 partial tile merged by
-    rank 0, whichever is larger."""
+    the stage ring (DEC_BK x DEC_BN bytes a stage and weight) and the
+    rank's x slice (bm rows of its K extent, padded by 16 bytes).
+    Prefill: the ring of x (its f32 or bf16 values with quantize-in) and
+    w stages, then with quantize-in the int8 x tile of the step, or with
+    a cluster the int32 partial tile merged by rank 0, whichever is
+    larger."""
+    nw = 2 if variant == "gated" else 1
     if kind == "prefill":
-        ring = PRE_STAGES * (PRE_BM * PRE_BK + PRE_BK * PRE_BN)
+        ring = PRE_STAGES * (PRE_BM * PRE_BK * _X_BYTES[variant]
+                             + PRE_BK * PRE_BN)
+        body = ring + (PRE_BM * PRE_BK if variant.startswith("qin") else 0)
         part = PRE_BM * (PRE_BN + 4) * 4 if cluster > 1 else 0
-        return max(ring, part) + _TAIL
+        return max(body, part) + _TAIL
     _, spr = k_steps(K, DEC_BK, cluster)
-    return DEC_STAGES * DEC_BK * DEC_BN + bm * (spr * DEC_BK + 16) + _TAIL
+    return (DEC_STAGES * DEC_BK * DEC_BN * nw + bm * (spr * DEC_BK + 16)
+            + _TAIL)
 
 
-def _plan_of(kind: str, cluster: int, M: int, K: int) -> GemmPlan:
+def _plan_of(kind: str, cluster: int, M: int, K: int,
+             variant: str = "int8") -> GemmPlan:
     if kind == "decode":
         bm = 8 if M <= 8 else 16
         return GemmPlan(kind, bm, DEC_BN, DEC_BK, cluster,
-                        smem_bytes(kind, bm, K, cluster))
-    return GemmPlan(kind, PRE_BM, PRE_BN, PRE_BK, cluster,
-                    smem_bytes(kind, PRE_BM, K, cluster))
+                        smem_bytes(kind, bm, K, cluster, variant), variant)
+    bn = PRE_BN // 2 if variant == "gated" else PRE_BN
+    return GemmPlan(kind, PRE_BM, bn, PRE_BK, cluster,
+                    smem_bytes(kind, PRE_BM, K, cluster, variant), variant)
 
 
 def _refusal(plan: GemmPlan, M: int, K: int) -> str | None:
@@ -224,17 +247,20 @@ def _refusal(plan: GemmPlan, M: int, K: int) -> str | None:
     return None
 
 
-def _cluster_rule(kind: str, M: int, K: int, N: int) -> int:
-    """The fewest blocks per cluster that give the grid a block per SM
-    (``SMS``), at most ``RULE_MAX_CLUSTER``, while every rank keeps a K
-    step (``PRE_MIN_STEPS`` of them on the prefill tile); more if the
-    decode tile's x slice needs it to fit."""
-    one = _plan_of(kind, 1, M, K)
+def _cluster_rule(kind: str, M: int, K: int, N: int, variant: str) -> int:
+    """The fewest blocks per cluster that give each SM (``SMS``) a weight
+    stream (a block of the gated pair streams two), at most
+    ``RULE_MAX_CLUSTER``, while every rank keeps a K step
+    (``PRE_MIN_STEPS`` of them on the prefill tile); more if the decode
+    tile's x slice needs it to fit."""
+    one = _plan_of(kind, 1, M, K, variant)
     least = 1 if kind == "decode" else PRE_MIN_STEPS
+    streams = 2 if variant == "gated" else 1
     steps = -(-K // one.bk)
-    c = max(1, min(-(-SMS // one.grid(M, N)), RULE_MAX_CLUSTER,
+    c = max(1, min(-(-SMS // (one.grid(M, N) * streams)), RULE_MAX_CLUSTER,
                    steps // least))
-    while c < CLUSTERS[-1] and _plan_of(kind, c, M, K).smem > MAX_SMEM:
+    while c < CLUSTERS[-1] and _plan_of(kind, c, M, K, variant).smem \
+            > MAX_SMEM:
         c += 1
     return c
 
@@ -261,40 +287,51 @@ def forced_gemm_plan(kind: str | None = None, cluster: int | None = None):
         _FORCED.update(saved)
 
 
-def gemm_plan(M: int, K: int, N: int) -> GemmPlan:
+def gemm_plan(M: int, K: int, N: int, variant: str = "int8") -> GemmPlan:
     """The launch plan of ``x [M, K] @ w [K, N]`` on the tensor-core
-    GEMM, a function of (M, K, N) alone: the decode tile up to
-    ``DECODE_MAX_M`` rows (while its x slice fits), else the prefill
-    tile; the cluster size from :func:`_cluster_rule`.  Raises if a
-    forced plan cannot be taken."""
+    GEMM, a function of (M, K, N) and the body's variant alone: the
+    decode tile up to ``DECODE_MAX_M`` rows (while its x slice fits),
+    else the prefill tile; the cluster size from :func:`_cluster_rule`.
+    Raises if a forced plan cannot be taken."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
     kind = _FORCED.get("kind")
     if kind is None:
         kind = "decode" if M <= DECODE_MAX_M and _plan_of(
-            "decode", CLUSTERS[-1], M, K).smem <= MAX_SMEM else "prefill"
-    cluster = _FORCED.get("cluster") or _cluster_rule(kind, M, K, N)
-    plan = _plan_of(kind, cluster, M, K)
+            "decode", CLUSTERS[-1], M, K, variant).smem <= MAX_SMEM \
+            else "prefill"
+    cluster = _FORCED.get("cluster") or _cluster_rule(kind, M, K, N, variant)
+    plan = _plan_of(kind, cluster, M, K, variant)
     why = _refusal(plan, M, K)
     if why is not None:
         raise ValueError(f"GEMM plan {plan.kind} x{plan.cluster} at M={M} "
-                         f"K={K} N={N}: {why}")
+                         f"K={K} N={N} ({variant}): {why}")
     return plan
 
 
-def gemm_plans(M: int, K: int, N: int) -> list[GemmPlan]:
-    """Every plan the kernel can take at (M, K, N)."""
-    plans = [_plan_of(kind, c, M, K) for kind in _KINDS for c in CLUSTERS]
+def gemm_plans(M: int, K: int, N: int,
+               variant: str = "int8") -> list[GemmPlan]:
+    """Every plan the kernel can take at (M, K, N) for ``variant``."""
+    plans = [_plan_of(kind, c, M, K, variant) for kind in _KINDS
+             for c in CLUSTERS]
     return [p for p in plans if _refusal(p, M, K) is None]
 
 
-def _gemm_i8(what, x_q, x_scale, w, w_scale, bias=None, residual=None,
-             activation=None, quantize_out=False, acc=False):
-    """Launch the tensor-core GEMM on x_q [M, K] int8 and w [K, N] int8,
+def _gemm_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
+             bias=None, residual=None, activation=None, quantize_out=False,
+             acc=False):
+    """Launch the tensor-core GEMM on x [M, K] (int8, or f32/bf16 to be
+    quantized in the kernel) and w [K, N] int8 (with w2, the gated pair),
     checked by the caller, under :func:`gemm_plan`; returns f32 [M, N],
     (q int8 [M, N], scale f32 [M, 1]) or, with ``acc``, int32 [M, N]."""
-    M, K = x_q.shape
+    M, K = x.shape
     N = w.shape[1]
-    dev = x_q.device
-    plan = gemm_plan(M, K, N)
+    dev = x.device
+    if x.dtype == torch.int8:
+        variant = "int8" if w2 is None else "gated"
+    else:
+        variant = "qin_f32" if x.dtype == torch.float32 else "qin_bf16"
+    plan = gemm_plan(M, K, N, variant)
     rc = _residual_code(residual, M, N)
     out = torch.empty((M, N), dtype=torch.int32 if acc else torch.float32,
                       device=dev)
@@ -305,21 +342,20 @@ def _gemm_i8(what, x_q, x_scale, w, w_scale, bias=None, residual=None,
         bands = -(-M // plan.bm)
         ws = _requant_workspace(dev, M + bands)
         amax, arrive = ws[:M], ws[M:M + bands]
-    fn = bind(_LIB, "cim_gemm_i8_launch", [P] * 6 + [I] * 3 + [P] * 5
-              + [I] * 6 + [P])
-    check(_LIB, fn(ptr(x_q), ptr(x_scale), ptr(w), ptr(w_scale), ptr(bias),
-                   ptr(residual), rc, ACTIVATIONS[activation], int(acc),
-                   ptr(out), ptr(q), ptr(qs), ptr(amax), ptr(arrive), M, K,
-                   N, plan.shape, plan.cluster, plan.smem, stream(x_q)),
-          what)
+    fn = bind(_LIB, "cim_gemm_i8_launch", _I8_ARGS)
+    check(_LIB, fn(ptr(x), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
+                   ptr(w2_scale), ptr(bias), ptr(residual), rc,
+                   ACTIVATIONS[activation], int(acc), ptr(out), ptr(q),
+                   ptr(qs), ptr(amax), ptr(arrive), M, K, N, plan.var,
+                   plan.shape, plan.cluster, plan.smem, stream(x)), what)
     return (q, qs) if quantize_out else out
 
 
 def kernel_smem_bytes(plan: GemmPlan, K: int) -> int:
     """The kernel's own count of :func:`smem_bytes`
     (``cim_gemm_i8_smem_bytes``); needs the built library."""
-    fn = bind(_LIB, "cim_gemm_i8_smem_bytes", [I, I, I])
-    return fn(plan.shape, K, plan.cluster)
+    fn = bind(_LIB, "cim_gemm_i8_smem_bytes", [I, I, I, I])
+    return fn(plan.shape, plan.var, K, plan.cluster)
 
 
 def _check_counts(counts, E):
@@ -410,13 +446,8 @@ def cim_gemm_int8_fused_qin(x: torch.Tensor, w: torch.Tensor,
     N = _check_weight(w, w_scale, K)
     if bias is not None:
         require(bias, "bias", torch.float32, (N,))
-    rc = _residual_code(residual, M, N)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    fn = bind(_LIB, "cim_gemm_int8_fused_qin",
-              [P, I, P, P, P, P, I, I, P, I, I, I, P])
-    check(_LIB, fn(ptr(x), DTYPE_CODE[x.dtype], ptr(w), ptr(w_scale),
-                   ptr(bias), ptr(residual), rc, ACTIVATIONS[activation],
-                   ptr(out), M, K, N, stream(x)), "cim_gemm_int8_fused_qin")
+    out = _gemm_i8("cim_gemm_int8_fused_qin", x, None, w, w_scale,
+                   bias=bias, residual=residual, activation=activation)
     cim_gemm_int8_fused_qin.launches += 1
     return out
 
@@ -496,12 +527,11 @@ def cim_gated_gemm_int8(x_q: torch.Tensor, w_gate: torch.Tensor,
     N = _check_weight(w_gate, gate_scale, K, "w_gate")
     if _check_weight(w_up, up_scale, K, "w_up") != N:
         raise ValueError("gate and up widths differ")
-    out = _gemm_int8("cim_gated_gemm_int8", x_q[None], x_scale[None],
-                     w_gate[None], gate_scale[None], w_up[None],
-                     up_scale[None], activation=activation,
-                     quantize_out=quantize_out)
+    out = _gemm_i8("cim_gated_gemm_int8", x_q, x_scale, w_gate, gate_scale,
+                   w_up, up_scale, activation=activation,
+                   quantize_out=quantize_out)
     cim_gated_gemm_int8.launches += 1
-    return (out[0][0], out[1][0]) if quantize_out else out[0]
+    return out
 
 
 cim_gated_gemm_int8.launches = 0
@@ -539,9 +569,9 @@ def cim_grouped_gemm_int8(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         require(bias, "bias", torch.float32, (E, N))
     _check_counts(counts, E)
-    out = _gemm_int8("cim_grouped_gemm_int8", x, x_scale, w, w_scale,
-                     bias=bias, counts=counts, activation=activation,
-                     quantize_out=quantize_out)
+    out = _grouped_gemm("cim_grouped_gemm_int8", x, x_scale, w, w_scale,
+                        bias=bias, counts=counts, activation=activation,
+                        quantize_out=quantize_out)
     cim_grouped_gemm_int8.launches += 1
     return out
 
@@ -587,9 +617,9 @@ def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
     if _check_weight(w_up, up_scale, K, "w_up", E=E) != N:
         raise ValueError("gate and up widths differ")
     _check_counts(counts, E)
-    out = _gemm_int8("cim_grouped_gated_gemm_int8", x, x_scale, w_gate,
-                     gate_scale, w_up, up_scale, counts=counts,
-                     activation=activation, quantize_out=quantize_out)
+    out = _grouped_gemm("cim_grouped_gated_gemm_int8", x, x_scale, w_gate,
+                        gate_scale, w_up, up_scale, counts=counts,
+                        activation=activation, quantize_out=quantize_out)
     cim_grouped_gated_gemm_int8.launches += 1
     return out
 

@@ -932,26 +932,34 @@ def test_tp_two_ranks_on_one_card_bitwise(dev):
 
 
 # Registers ptxas gives each instantiation (``nvcc -Xptxas -v`` for
-# sm_90a), keyed by the mangled template arguments: of the CUDA-core
-# template cim_gemm_kernel<TX, GATED, EPI, GROUPED> (kernels 2, 4, 7, 8)
-# and, for kernels 3 and 6, of the tensor-core body cim_gemm_i8_kernel<EPI,
-# SHAPE> at each of its tile shapes (("i8", EPI, SHAPE): SHAPE 0 and 1 the
-# decode tile at 8 and 16 rows, 2 the prefill tile).  A change that moves
-# one (as run-time branches once took the dense int8 GEMM from 80 to 66
-# and slowed gemma-2b's down GEMM 1.5x) fails that mode's test here.
+# sm_90a), keyed by the mangled template arguments: of the dense GEMMs'
+# tensor-core body cim_gemm_i8_kernel<EPI, SHAPE, VAR> at each of its tile
+# shapes (("i8", EPI, SHAPE, VAR): SHAPE 0 and 1 the decode tile at 8 and
+# 16 rows, 2 the prefill tile; VAR 0 int8 x (kernels 3 and 6), 1 the gated
+# pair (kernel 4), 2 and 3 f32 and bf16 x quantized in the kernel (kernel
+# 2)) and of the grouped GEMMs' CUDA-core template cim_gemm_kernel<GATED,
+# EPI> (("grouped", GATED, EPI): kernels 7 and 8).  A change that moves
+# one (as run-time branches once took the int8 GEMM template from 80 to
+# 66 and slowed gemma-2b's down GEMM 1.5x) fails that mode's test here.
 GEMM_MODES = {
-    "qin_f32": {("f", 0, 0, 0): 80},           # kernel 2, f32 x
-    "qin_bf16": {("13__nv_bfloat16", 0, 0, 0): 80},   # kernel 2, bf16 x
-    "fused": {("i8", 0, 0): 92, ("i8", 0, 1): 99,     # kernel 3
-              ("i8", 0, 2): 128},
-    "fused_requant": {("i8", 1, 0): 96, ("i8", 1, 1): 95, ("i8", 1, 2): 160},
-    "gated": {("a", 1, 0, 0): 159},            # kernel 4
-    "gated_requant": {("a", 1, 1, 0): 162},
-    "grouped": {("a", 0, 0, 1): 64},           # kernel 7
-    "grouped_requant": {("a", 0, 1, 1): 80},
-    "grouped_gated": {("a", 1, 0, 1): 168},    # kernel 8
-    "grouped_gated_requant": {("a", 1, 1, 1): 170},
-    "acc": {("i8", 2, 0): 92, ("i8", 2, 1): 96, ("i8", 2, 2): 158},  # 6
+    "qin_f32": {("i8", 0, 0, 2): 110, ("i8", 0, 1, 2): 113,   # kernel 2
+                ("i8", 0, 2, 2): 180},
+    "qin_bf16": {("i8", 0, 0, 3): 112, ("i8", 0, 1, 3): 113,
+                 ("i8", 0, 2, 3): 128},
+    "fused": {("i8", 0, 0, 0): 92, ("i8", 0, 1, 0): 99,     # kernel 3
+              ("i8", 0, 2, 0): 128},
+    "fused_requant": {("i8", 1, 0, 0): 96, ("i8", 1, 1, 0): 95,
+                      ("i8", 1, 2, 0): 160},
+    "gated": {("i8", 0, 0, 1): 94, ("i8", 0, 1, 1): 99,     # kernel 4
+              ("i8", 0, 2, 1): 128},
+    "gated_requant": {("i8", 1, 0, 1): 90, ("i8", 1, 1, 1): 101,
+                      ("i8", 1, 2, 1): 148},
+    "grouped": {("grouped", 0, 0): 64},           # kernel 7
+    "grouped_requant": {("grouped", 0, 1): 80},
+    "grouped_gated": {("grouped", 1, 0): 168},    # kernel 8
+    "grouped_gated_requant": {("grouped", 1, 1): 170},
+    "acc": {("i8", 2, 0, 0): 92, ("i8", 2, 1, 0): 96,       # kernel 6
+            ("i8", 2, 2, 0): 158},
 }
 
 
@@ -973,16 +981,16 @@ def _mode_registers():
         return {k: int(v) for k, v in (f.split(":") for f in use.split())
                 if v.isdigit()}
     out = {}
-    pat = re.compile(r"Function \S*cim_gemm_kernelI(a|f|13__nv_bfloat16)"
-                     r"Lb([01])ELi(\d)ELb([01])EE\S*:\s*\n\s*(.*)")
-    for m in pat.finditer(text):
-        tx, gated, epi, grouped, use = m.groups()
-        out[(tx, int(gated), int(epi), int(grouped))] = usage(use)
-    pat = re.compile(r"Function \S*cim_gemm_i8_kernelILi(\d)ELi(\d)EE"
+    pat = re.compile(r"Function \S*cim_gemm_kernelILb([01])ELi(\d)EE"
                      r"\S*:\s*\n\s*(.*)")
     for m in pat.finditer(text):
-        epi, shape, use = m.groups()
-        out[("i8", int(epi), int(shape))] = usage(use)
+        gated, epi, use = m.groups()
+        out[("grouped", int(gated), int(epi))] = usage(use)
+    pat = re.compile(r"Function \S*cim_gemm_i8_kernelILi(\d)ELi(\d)ELi(\d)EE"
+                     r"\S*:\s*\n\s*(.*)")
+    for m in pat.finditer(text):
+        epi, shape, var, use = m.groups()
+        out[("i8", int(epi), int(shape), int(var))] = usage(use)
     return out
 
 
@@ -1024,10 +1032,12 @@ def _run_mode(mode, dev):
 
 @pytest.mark.parametrize("mode", list(GEMM_MODES))
 def test_gemm_template_mode_and_registers(dev, mode):
-    """Each compile-time mode of the GEMM template launches, agrees with
-    its plain version (bitwise; activations within 1e-5; the requant
-    epilogue bitwise the row quantizer of the kernel's f32 output) and
-    keeps its registers, with nothing spilled."""
+    """Each compile-time mode of the GEMMs launches, agrees with its plain
+    version (bitwise; activations within 1e-5; the requant epilogue
+    bitwise the row quantizer of the kernel's f32 output) and keeps its
+    registers at every tile shape, with nothing spilled; the library
+    holds exactly the instantiations pinned here (the CUDA-core template
+    none of a dense GEMM)."""
     out, ref, exact = _run_mode(mode, dev)
     torch.cuda.synchronize()
     if exact:
@@ -1039,8 +1049,7 @@ def test_gemm_template_mode_and_registers(dev, mode):
         use = found[key]
         assert use["REG"] == regs, (mode, key, use)
         assert use["LOCAL"] == 0 and use["STACK"] == 0, (mode, key, use)
-    # the dense plain GEMM has no CUDA-core instantiation left
-    assert not {("a", 0, e, 0) for e in range(3)} & set(found)
+    assert set(found) == {k for m in GEMM_MODES.values() for k in m}
 
 
 # ---------------------------------------------------------------------------
@@ -1097,6 +1106,120 @@ def test_i8_gemm_bitwise_under_every_plan(dev, M, K, N):
             assert cg.cim_gemm_int8.launches == n6 + 1
 
 
+@pytest.mark.parametrize("K,N", [(1030, 264), (2048, 512)])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 130, 4096])
+def test_qin_gemm_bitwise_under_every_plan(dev, M, K, N):
+    """Kernel 2 on the tensor-core body under every plan it takes, with f32
+    and bf16 x, ragged K and N (value-by-value and 4-byte copies) and
+    aligned ones (16-byte copies): without an activation bitwise its plain
+    version with a bias and an f32 residual and with a bf16 residual (the
+    in-kernel codes and scales are the row quantizer's); its activations
+    within 1e-5.  One launch a call."""
+    rng = _gen(53)
+    x32 = rng.standard_normal((M, K)).astype(np.float32)
+    w, ws = _w(rng, K, N, dev)
+    b = _t(rng.standard_normal(N).astype(np.float32), dev)
+    r = _t(rng.standard_normal((M, N)).astype(np.float32), dev)
+    rb = r.to(torch.bfloat16)
+    for xdtype, variant in ((torch.float32, "qin_f32"),
+                            (torch.bfloat16, "qin_bf16")):
+        x = _t(x32, dev, xdtype)
+        plans = cg.gemm_plans(M, K, N, variant)
+        assert {p.kind for p in plans} == (
+            {"decode", "prefill"} if M <= 16 else {"prefill"})
+        f32_ref = cg.cim_gemm_int8_fused_qin_plain(x, w, ws, b, r)
+        bf16_ref = cg.cim_gemm_int8_fused_qin_plain(x, w, ws, None, rb)
+        acts = {act: cg.cim_gemm_int8_fused_qin_plain(x, w, ws, b, None, act)
+                for act in ("gelu", "silu", "relu")}
+        for plan in plans:
+            with cg.forced_gemm_plan(plan.kind, plan.cluster):
+                n2 = cg.cim_gemm_int8_fused_qin.launches
+                assert torch.equal(cg.cim_gemm_int8_fused_qin(
+                    x, w, ws, bias=b, residual=r), f32_ref), plan
+                assert torch.equal(cg.cim_gemm_int8_fused_qin(
+                    x, w, ws, residual=rb), bf16_ref), plan
+                for act, ref in acts.items():
+                    out = cg.cim_gemm_int8_fused_qin(x, w, ws, bias=b,
+                                                     activation=act)
+                    torch.testing.assert_close(out, ref, rtol=1e-5,
+                                               atol=1e-6)
+                torch.cuda.synchronize()
+                assert cg.cim_gemm_int8_fused_qin.launches == n2 + 5
+
+
+@pytest.mark.parametrize("K,N", [(1030, 264), (2048, 512)])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 130, 4096])
+def test_gated_gemm_bitwise_under_every_plan(dev, M, K, N):
+    """Kernel 4 on the tensor-core body under every plan it takes, with
+    ragged and aligned K and N: without an activation (act(g) = g)
+    bitwise its plain version; gelu and silu within 1e-5; the requant
+    bitwise the row quantizer of its own f32 output.  One launch a
+    call."""
+    xq, xs, wg, gs, _, _ = _i8_case(M, K, N, dev, seed=54)
+    wu, us = _w(_gen(55), K, N, dev)
+    args = (xq, wg, wu, xs, gs, us)
+    plans = cg.gemm_plans(M, K, N, "gated")
+    assert {p.kind for p in plans} == ({"decode", "prefill"} if M <= 16
+                                       else {"prefill"})
+    assert all(p.bn == 64 for p in plans)
+    bare = cg.cim_gated_gemm_int8_plain(*args, None)
+    acts = {act: cg.cim_gated_gemm_int8_plain(*args, act)
+            for act in ("gelu", "silu")}
+    for plan in plans:
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            n4 = cg.cim_gated_gemm_int8.launches
+            assert torch.equal(cg.cim_gated_gemm_int8(*args, None), bare), \
+                plan
+            for act, ref in acts.items():
+                torch.testing.assert_close(cg.cim_gated_gemm_int8(*args, act),
+                                           ref, rtol=1e-5, atol=1e-6)
+            h = cg.cim_gated_gemm_int8(*args, "silu")
+            q, s = cg.cim_gated_gemm_int8(*args, "silu", quantize_out=True)
+            qr, sr = cg.quantize_rows_int8_plain(h)
+            torch.cuda.synchronize()
+            assert torch.equal(q, qr) and torch.equal(s, sr), plan
+            assert cg.cim_gated_gemm_int8.launches == n4 + 5
+
+
+# served decode shapes of kernels 4 and 2: qwen2-moe's shared MLP (with
+# its requant), gemma-2b's TP-2 MLP shard, gemma-2b's and qwen2-moe's QKV
+@pytest.mark.parametrize("variant,M,K,N", [
+    ("gated", 8, 2048, 5632), ("gated", 8, 2048, 8192),
+    ("qin_bf16", 8, 2048, 2560), ("qin_f32", 16, 2048, 6144)])
+def test_qin_and_gated_decode_plans_replay_their_bits_from_a_graph(
+        dev, variant, M, K, N):
+    """A CUDA-graph replay of each decode plan (clusters included) of
+    kernels 4 and 2 returns the eager launch's bits (kernel 4 with and
+    without the requant epilogue, its counters reset by the launch before
+    the capture)."""
+    rng = _gen(56)
+    xq, xs, wg, gs, _, r = _i8_case(M, K, N, dev, seed=57)
+    wu, us = _w(rng, K, N, dev)
+    x = _t(rng.standard_normal((M, K)).astype(np.float32), dev,
+           torch.float32 if variant == "qin_f32" else torch.bfloat16)
+
+    def calls():
+        if variant == "gated":
+            return (cg.cim_gated_gemm_int8(xq, wg, wu, xs, gs, us, "gelu"),
+                    *cg.cim_gated_gemm_int8(xq, wg, wu, xs, gs, us, "gelu",
+                                            quantize_out=True))
+        return (cg.cim_gemm_int8_fused_qin(x, wg, gs, residual=r),)
+    for plan in cg.gemm_plans(M, K, N, variant):
+        if plan.kind != "decode":
+            continue
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            eager = calls()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = calls()
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                for a, e in zip(captured, eager):
+                    assert torch.equal(a, e), plan
+
+
 def test_i8_decode_plans_replay_their_bits_from_a_graph(dev):
     """A CUDA-graph replay of each decode plan (clusters included)
     returns the eager launch's bits, for kernel 6 and for kernel 3 with
@@ -1126,14 +1249,17 @@ def test_i8_decode_plans_replay_their_bits_from_a_graph(dev):
 
 def test_i8_shared_memory_matches_the_kernel_layout(dev):
     """The plan's byte count (``smem_bytes``, which the CPU tests hold)
-    is the kernel's own ``i8_layout`` total, for both tile shapes at
-    every cluster size and K from one step to gemma-2b's d_ff."""
-    for K in (5, 128, 129, 1030, 2816, 16384):
-        for M in (8, 16, 130):
-            for c in cg.CLUSTERS:
-                kind = "decode" if M <= 16 else "prefill"
-                plan = cg._plan_of(kind, c, M, K)
-                assert plan.smem == cg.kernel_smem_bytes(plan, K), (plan, K)
+    is the kernel's own ``i8_layout`` total, for both tile shapes of every
+    variant at every cluster size and K from one step to gemma-2b's
+    d_ff."""
+    for variant in cg.VARIANTS:
+        for K in (5, 128, 129, 1030, 2816, 16384):
+            for M in (8, 16, 130):
+                for c in cg.CLUSTERS:
+                    kind = "decode" if M <= 16 else "prefill"
+                    plan = cg._plan_of(kind, c, M, K, variant)
+                    assert plan.smem == cg.kernel_smem_bytes(plan, K), \
+                        (plan, K)
 
 
 def test_paged_walk_above_one_block_runs_in_slices(dev):

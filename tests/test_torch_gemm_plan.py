@@ -1,12 +1,14 @@
-"""The launch plan of the tensor-core int8 GEMM (kernels 3 and 6,
+"""The launch plan of the tensor-core int8 GEMM (kernels 2, 3, 4 and 6,
 ``repro_torch.kernels.cim_gemm.gemm_plan``), on the CPU: no card is
-needed to check it; and the plain versions of both kernels against the
-JAX package's kernels in interpret mode at a ragged prefill shape.
+needed to check it; and the plain versions of the four kernels against
+the JAX package's kernels in interpret mode at a ragged prefill shape.
 
 The plan picks the tile shape (decode: W^T on the tensor cores' A side,
-up to 16 rows; prefill: 128 x 128 tiles), the cluster size that splits K
-and the dynamic shared-memory bytes, from (M, K, N) alone.  The kernel's
-own count of the bytes is held against this one on the card
+up to 16 rows; prefill: 128-row tiles), the cluster size that splits K
+and the dynamic shared-memory bytes, from (M, K, N) and the body's
+variant alone (int8 x for kernels 3 and 6, the gated pair for kernel 4,
+f32 or bf16 x quantized in the kernel for kernel 2).  The kernel's own
+count of the bytes is held against this one on the card
 (``tests/test_torch_cuda.py``).
 """
 from __future__ import annotations
@@ -20,51 +22,87 @@ import torch
 
 from repro.kernels import cim_gemm as jcg
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import cim_gemm as cg
 from torch_parity import rng, t, to_np
 
-# served decode shapes (M = 8 slots): gemma-2b's down GEMM, qwen2-moe's
-# shared down GEMM and kernel 6's tensor-parallel partials at TP-2
-# (``chip_smoke.TP_GEMM_SHAPES``: gemma-2b's out-projection and down
-# shards, qwen2-moe's shared down shard)
+# served decode shapes (M = 8 slots) of kernels 3 and 6: gemma-2b's down
+# GEMM, qwen2-moe's shared down GEMM and kernel 6's tensor-parallel
+# partials at TP-2 (``chip_smoke.TP_GEMM_SHAPES``: gemma-2b's
+# out-projection and down shards, qwen2-moe's shared down shard)
 DECODE_SHAPES = [(8, 16384, 2048), (8, 5632, 2048), (8, 1024, 2048),
                  (8, 8192, 2048), (8, 2816, 2048)]
+# served decode shapes of kernel 4 (gemma-2b's gated GEMM, qwen2-moe's
+# shared gated GEMM with its requant, gemma-2b's TP-2 shard) and of kernel
+# 2 (gemma-2b's QKV and out-projection, qwen2-moe's QKV), with the variant
+SERVED_NEW = [("gated", 8, 2048, 16384), ("gated", 8, 2048, 5632),
+              ("gated", 8, 2048, 8192), ("qin_bf16", 8, 2048, 2560),
+              ("qin_bf16", 8, 2048, 2048), ("qin_bf16", 8, 2048, 6144),
+              ("qin_f32", 8, 2048, 2560)]
 RAGGED = [(1, 5, 4), (3, 100, 36), (13, 1030, 68), (16, 1030, 264),
           (17, 1030, 264), (33, 2048, 512), (130, 1030, 264)]
+# the prefill shapes of forward-long: gemma-2b's QKV (kernel 2) and gated
+# GEMM (kernel 4) at 4096 tokens, and a served prompt's
+PREFILL_NEW = [("qin_bf16", 4096, 2048, 2560), ("gated", 4096, 2048, 16384),
+               ("qin_bf16", 200, 2048, 2560), ("gated", 200, 2048, 16384)]
 
 
+@pytest.mark.parametrize("variant", cg.VARIANTS)
 @pytest.mark.parametrize("M", [1, 5, 8, 9, 16, 17, 33, 130, 200, 4096])
 @pytest.mark.parametrize("K,N", [(16384, 2048), (1030, 264), (64, 4)])
-def test_tile_shape_by_rows(M, K, N):
+def test_tile_shape_by_rows(M, K, N, variant):
     """The decode tile up to DECODE_MAX_M rows (8 rows of it up to 8),
-    the prefill tile above."""
-    plan = cg.gemm_plan(M, K, N)
+    the prefill tile above; a gated tile has 64 output columns on both
+    shapes (64 of each weight)."""
+    plan = cg.gemm_plan(M, K, N, variant)
+    assert plan.variant == variant and plan.var == cg.VARIANTS.index(
+        variant)
     if M <= cg.DECODE_MAX_M:
         assert plan.kind == "decode" and plan.bm == (8 if M <= 8 else 16)
         assert (plan.bn, plan.bk) == (cg.DEC_BN, cg.DEC_BK)
         assert plan.shape == plan.bm // 8 - 1
     else:
+        bn = cg.PRE_BN // 2 if variant == "gated" else cg.PRE_BN
         assert plan.kind == "prefill" and plan.shape == 2
-        assert (plan.bm, plan.bn, plan.bk) == (cg.PRE_BM, cg.PRE_BN,
-                                               cg.PRE_BK)
+        assert (plan.bm, plan.bn, plan.bk) == (cg.PRE_BM, bn, cg.PRE_BK)
 
 
 def test_plan_is_a_function_of_m_k_n_only():
-    """No dtype, epilogue, device or tensor enters the plan, and the same
-    (M, K, N) always gives the same plan."""
-    assert list(inspect.signature(cg.gemm_plan).parameters) == ["M", "K",
-                                                                "N"]
+    """No dtype, epilogue, device or tensor enters the plan beyond the
+    body's variant, the same (M, K, N, variant) always gives the same
+    plan, and kernels 3 and 6 (the default variant) keep PR 18's plans:
+    the int8 body's shared bytes and the rule's cluster."""
+    assert list(inspect.signature(cg.gemm_plan).parameters) == [
+        "M", "K", "N", "variant"]
+    assert inspect.signature(cg.gemm_plan).parameters[
+        "variant"].default == "int8"
     for M, K, N in DECODE_SHAPES + RAGGED + [(4096, 16384, 2048)]:
-        assert cg.gemm_plan(M, K, N) == cg.gemm_plan(M, K, N)
+        for variant in cg.VARIANTS:
+            assert cg.gemm_plan(M, K, N, variant) == cg.gemm_plan(
+                M, K, N, variant)
+        plan = cg.gemm_plan(M, K, N)
+        assert plan == cg.gemm_plan(M, K, N, "int8")
+        _, spr = cg.k_steps(K, cg.DEC_BK, plan.cluster)
+        assert plan.smem == (
+            4 * 128 * 64 + plan.bm * (spr * 128 + 16) + 1040
+            if plan.kind == "decode" else
+            max(4 * (128 * 64 + 64 * 128),
+                128 * 132 * 4 if plan.cluster > 1 else 0) + 1040)
+    assert [cg.gemm_plan(*s).cluster for s in DECODE_SHAPES] == [5, 5, 5,
+                                                                 5, 5]
+    with pytest.raises(ValueError, match="variant"):
+        cg.gemm_plan(8, 64, 64, "fp8")
 
 
+@pytest.mark.parametrize("variant", cg.VARIANTS)
 @pytest.mark.parametrize("M,K,N", DECODE_SHAPES + RAGGED + [
-    (200, 16384, 2048), (4096, 16384, 2048), (4096, 8192, 2048)])
-def test_split_gives_every_rank_whole_steps(M, K, N):
+    (200, 16384, 2048), (4096, 16384, 2048), (4096, 8192, 2048)] + [
+    s[1:] for s in SERVED_NEW + PREFILL_NEW])
+def test_split_gives_every_rank_whole_steps(M, K, N, variant):
     """Every plan the kernel takes splits K into whole steps of bk rows,
     contiguous and in rank order, every rank at least one; the last step
     is ragged (masked in the kernel) when bk does not divide K."""
-    for plan in cg.gemm_plans(M, K, N):
+    for plan in cg.gemm_plans(M, K, N, variant):
         steps = -(-K // plan.bk)
         # rank r's steps, as the kernel splits them
         spans = [(r * steps // plan.cluster, (r + 1) * steps // plan.cluster)
@@ -77,73 +115,99 @@ def test_split_gives_every_rank_whole_steps(M, K, N):
         assert (steps * plan.bk - K) < plan.bk
 
 
-@pytest.mark.parametrize("M,K,N", DECODE_SHAPES)
-def test_served_decode_grids_fill_the_card(M, K, N):
+@pytest.mark.parametrize("variant,M,K,N", [
+    ("int8", *s) for s in DECODE_SHAPES] + SERVED_NEW)
+def test_served_decode_grids_fill_the_card(variant, M, K, N):
     """At every served decode shape the rule's grid gives each of the
-    132 SMs a block, with clusters of at most RULE_MAX_CLUSTER."""
-    plan = cg.gemm_plan(M, K, N)
+    132 SMs a weight stream (a gated block streams two), with the fewest
+    blocks per cluster that do (at most RULE_MAX_CLUSTER): kernels 3 and
+    6 split K over 5 blocks, kernel 4 takes no cluster at its served
+    widths (256, 88 and 128 column tiles of 64)."""
+    plan = cg.gemm_plan(M, K, N, variant)
+    streams = 2 if variant == "gated" else 1
     assert plan.kind == "decode"
-    assert plan.grid(M, N) >= cg.SMS, plan
-    assert 1 < plan.cluster <= cg.RULE_MAX_CLUSTER
+    assert plan.grid(M, N) * streams >= cg.SMS, plan
+    assert 1 <= plan.cluster <= cg.RULE_MAX_CLUSTER
+    assert plan.cluster == 1 or cg._plan_of(
+        "decode", plan.cluster - 1, M, K, variant).grid(M, N) * streams \
+        < cg.SMS
+    if variant == "int8":
+        assert plan.cluster > 1
+    if variant == "gated":
+        assert plan.cluster == 1
 
 
+@pytest.mark.parametrize("variant", cg.VARIANTS)
 @pytest.mark.parametrize("M,K,N", DECODE_SHAPES + RAGGED + [
     (16, 16384, 2048), (200, 16384, 2048), (4096, 16384, 2048),
-    (8, 200000, 2048)])
-def test_shared_bytes_fit_a_block(M, K, N):
+    (8, 200000, 2048)] + [s[1:] for s in SERVED_NEW + PREFILL_NEW])
+def test_shared_bytes_fit_a_block(M, K, N, variant):
     """The rule's plan and every plan the kernel takes fit 232,448 bytes;
-    the decode bytes grow with the rank's x slice."""
-    assert cg.gemm_plan(M, K, N).smem <= cg.MAX_SMEM == 232448
-    for plan in cg.gemm_plans(M, K, N):
+    the decode bytes grow with the rank's x slice; the gated ring holds
+    two weights' stages, the quantize-in prefill ring x as it is (f32 or
+    bf16) beside the int8 tile."""
+    assert cg.gemm_plan(M, K, N, variant).smem <= cg.MAX_SMEM == 232448
+    for plan in cg.gemm_plans(M, K, N, variant):
         assert plan.smem <= cg.MAX_SMEM
-    dec = [cg.smem_bytes("decode", 16, 16384, c) for c in (1, 2, 4, 8)]
+    dec = [cg.smem_bytes("decode", 16, 16384, c, variant)
+           for c in (1, 2, 4, 8)]
     assert dec == sorted(dec, reverse=True)
     assert dec[0] > cg.MAX_SMEM
+    ring = {"int8": 32768, "gated": 65536, "qin_f32": 32768,
+            "qin_bf16": 32768}[variant]
+    assert cg.smem_bytes("decode", 8, 128, 1, variant) == \
+        ring + 8 * (128 + 16) + 1040
+    pre = {"int8": 65536, "gated": 65536, "qin_f32": 4 * 40960 + 8192,
+           "qin_bf16": 4 * 24576 + 8192}[variant]
+    assert cg.smem_bytes("prefill", 128, 2048, 1, variant) == pre + 1040
 
 
-def test_forced_plan_rejects_what_the_kernel_cannot_take():
-    """Forcing the plan works inside the block and ends with it; a
-    cluster size or tile the kernel does not have raises at once; a
-    forced plan the shape does not allow raises in gemm_plan."""
-    rule = cg.gemm_plan(8, 16384, 2048)
+@pytest.mark.parametrize("variant", cg.VARIANTS)
+def test_forced_plan_rejects_what_the_kernel_cannot_take(variant):
+    """Forcing the plan works inside the block and ends with it, for every
+    variant; a cluster size or tile the kernel does not have raises at
+    once; a forced plan the shape does not allow raises in gemm_plan."""
+    rule = cg.gemm_plan(8, 16384, 2048, variant)
     with cg.forced_gemm_plan(cluster=2):
-        assert cg.gemm_plan(8, 16384, 2048).cluster == 2
+        assert cg.gemm_plan(8, 16384, 2048, variant).cluster == 2
         with cg.forced_gemm_plan(kind="prefill"):
-            forced = cg.gemm_plan(8, 16384, 2048)
+            forced = cg.gemm_plan(8, 16384, 2048, variant)
             assert (forced.kind, forced.cluster) == ("prefill", 2)
-        assert cg.gemm_plan(8, 16384, 2048).kind == "decode"
-    assert cg.gemm_plan(8, 16384, 2048) == rule
+        assert cg.gemm_plan(8, 16384, 2048, variant).kind == "decode"
+    assert cg.gemm_plan(8, 16384, 2048, variant) == rule
     for bad in (dict(cluster=0), dict(cluster=9), dict(kind="wgmma")):
         with pytest.raises(ValueError):
             with cg.forced_gemm_plan(**bad):
                 pass
     with cg.forced_gemm_plan(kind="decode"):
         with pytest.raises(ValueError, match="at most 16 rows"):
-            cg.gemm_plan(17, 1024, 64)
+            cg.gemm_plan(17, 1024, 64, variant)
     with cg.forced_gemm_plan(kind="decode", cluster=1):
         with pytest.raises(ValueError, match="shared memory"):
-            cg.gemm_plan(16, 16384, 2048)
+            cg.gemm_plan(16, 16384, 2048, variant)
     with cg.forced_gemm_plan(cluster=8):
         with pytest.raises(ValueError, match="without a K step"):
-            cg.gemm_plan(8, 700, 64)       # 6 steps of 128
-    assert cg.gemm_plan(8, 700, 64).cluster <= 6
+            cg.gemm_plan(8, 700, 64, variant)       # 6 steps of 128
+    assert cg.gemm_plan(8, 700, 64, variant).cluster <= 6
 
 
-def test_every_plan_listed_is_one_gemm_plan_takes():
+@pytest.mark.parametrize("variant", cg.VARIANTS)
+def test_every_plan_listed_is_one_gemm_plan_takes(variant):
     """``gemm_plans`` lists exactly the forced plans gemm_plan accepts."""
-    for M, K, N in [(8, 1024, 2048), (16, 16384, 2048), (130, 1030, 264)]:
-        plans = cg.gemm_plans(M, K, N)
+    for M, K, N in [(8, 1024, 2048), (16, 16384, 2048), (130, 1030, 264),
+                    (8, 2048, 16384), (4096, 2048, 2560)]:
+        plans = cg.gemm_plans(M, K, N, variant)
         for kind in ("decode", "prefill"):
             for c in cg.CLUSTERS:
                 with cg.forced_gemm_plan(kind, c):
                     try:
-                        got = cg.gemm_plan(M, K, N)
+                        got = cg.gemm_plan(M, K, N, variant)
                     except ValueError:
                         assert all((p.kind, p.cluster) != (kind, c)
                                    for p in plans)
                     else:
                         assert got in plans
-        assert cg.gemm_plan(M, K, N) in plans
+        assert cg.gemm_plan(M, K, N, variant) in plans
 
 
 # ---------------------------------------------------------------------------
@@ -206,3 +270,96 @@ def test_cim_gemm_int8_fused_matches_jax_at_ragged_prefill(bias, residual):
     else:
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=1e-6 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# kernels 2 and 4 (plain versions) against the JAX kernels at the ragged
+# prefill shape
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_cim_gemm_int8_fused_qin_matches_jax_at_ragged_prefill(dtype, act):
+    """Kernel 2 with f32 and bf16 x against the reference's oracle
+    (``ref.fused_matmul_ref``): without an activation bitwise (the row
+    codes and scales, the exact int32 sums and the epilogue's order
+    agree); with gelu within RTOL = 1e-6 of the largest |out| (XLA's tanh
+    against torch's).  Against the JAX kernel through ``ops`` (padded to
+    its blocks, one dispatch, interpret mode): XLA folds the kernel's
+    division by 127 into a multiply by the reciprocal, so its row scales
+    sit one ulp from the oracle's in some rows and a bf16 x meets exact
+    ties (x = amax / 2 gives 63.5) that the ulp breaks the other way; the
+    JAX kernel's output is bitwise the port's product and epilogue
+    (kernel 3's plain version) on the JAX row quantizer's own codes and
+    scales, which lie within one step and one ulp of the port's."""
+    r = rng(42)
+    M, K, N = RAGGED_PREFILL
+    x = r.standard_normal((M, K)).astype(np.float32)
+    w = r.integers(-127, 128, (K, N)).astype(np.int8)
+    ws = r.uniform(1e-3, 2e-2, N).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bf16"
+                               else jnp.float32)
+    tx = t(x, torch.bfloat16 if dtype == "bf16" else torch.float32)
+    got = cg.cim_gemm_int8_fused_qin(tx, t(w), t(ws), activation=act)
+    assert got.dtype == torch.float32
+    got = to_np(got)
+    oracle = to_np(jref.fused_matmul_ref(jx, jnp.asarray(w), jnp.asarray(ws),
+                                         activation=act))
+    if act is not None:
+        np.testing.assert_allclose(got, oracle, rtol=0,
+                                   atol=1e-6 * np.abs(oracle).max())
+        return
+    np.testing.assert_array_equal(got, oracle)
+    want = to_np(jops.cim_quantized_matmul_fused(
+        jx, jnp.asarray(w), jnp.asarray(ws), interpret=True))
+    jq, js = jops.quantize_rows_int8(jops._pad_to(jx, 1, jcg.CORE_K)[0],
+                                     interpret=True)
+    jq, js = to_np(jq)[:, :K], to_np(js)
+    np.testing.assert_array_equal(to_np(cg.cim_gemm_int8_fused_plain(
+        t(jq), t(w), t(js), t(ws))), want)
+    q, s = cg.quantize_rows_int8(tx)
+    assert np.abs(to_np(q).astype(int) - jq.astype(int)).max() <= 1
+    np.testing.assert_allclose(to_np(s), js, rtol=2e-7, atol=0)
+
+
+def _gated_jax(xq, xs, wg, gs, wu, us, act, quantize_out):
+    """The JAX gated kernel padded as ``ops.cim_hidden_int8`` pads it
+    (rows to 256, K to CORE_K, N to CORE_N), interpret mode, sliced
+    back."""
+    M, _ = xq.shape
+    N = wg.shape[1]
+    x_p, _ = jops._pad_to(jnp.asarray(xq), 0, 256)
+    x_p, _ = jops._pad_to(x_p, 1, jcg.CORE_K)
+    s_p, _ = jops._pad_to(jnp.asarray(xs), 0, 256)
+    g_p, gs_p, _ = jops._pad_weight(jnp.asarray(wg), jnp.asarray(gs))
+    u_p, us_p, _ = jops._pad_weight(jnp.asarray(wu), jnp.asarray(us))
+    out = jcg.cim_gated_gemm_int8(x_p, g_p, u_p, s_p, gs_p, us_p,
+                                  activation=act, quantize_out=quantize_out,
+                                  interpret=True)
+    if quantize_out:
+        return to_np(out[0][:M, :N]), to_np(out[1][:M])
+    return to_np(out[:M, :N])
+
+
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+def test_cim_gated_gemm_int8_matches_jax_at_ragged_prefill(act):
+    """Kernel 4 against the JAX kernel at the ragged prefill shape: the
+    f32 hidden state within RTOL = 1e-6 of its largest |h| (XLA's tanh
+    and exp against torch's); with the requant the codes within one step
+    (where an ulp of the activation crosses a rounding tie, as
+    ``tests/test_torch_kernels.py`` states) and the scales within
+    RTOL."""
+    xq, xs, wg, gs, *_ = _operands(43)
+    M, K, N = RAGGED_PREFILL
+    r = rng(44)
+    wu = r.integers(-127, 128, (K, N)).astype(np.int8)
+    us = r.uniform(1e-3, 2e-2, N).astype(np.float32)
+    want = _gated_jax(xq, xs, wg, gs, wu, us, act, False)
+    got = to_np(cg.cim_gated_gemm_int8(t(xq), t(wg), t(wu), t(xs), t(gs),
+                                       t(us), activation=act))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+    wq, wsc = _gated_jax(xq, xs, wg, gs, wu, us, act, True)
+    q, s = cg.cim_gated_gemm_int8(t(xq), t(wg), t(wu), t(xs), t(gs), t(us),
+                                  activation=act, quantize_out=True)
+    assert np.abs(to_np(q).astype(int) - wq.astype(int)).max() <= 1
+    np.testing.assert_allclose(to_np(s), wsc, rtol=1e-6, atol=0)
