@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Time kernels of another checkout beside this one's on one NVIDIA GPU.
+
+    python3 ab_kernels.py DIR KERNEL [KERNEL ...]
+
+DIR holds the other checkout's ``src/`` (for example a parent commit
+unpacked with ``git archive HEAD^ src | tar -x -C build/parent``).  Each
+KERNEL names a wrapper of ``repro_torch.kernels.cim_gemm`` with cases in
+CASES.  The trees run in turns old | new | new | old, one process a turn
+(both packages are ``repro_torch``), each building only
+``csrc/cim_gemm.cu``.  One line a case gives the four times (ms, CUDA-graph
+replays through ``chip_smoke.time_ms``, operands cold in L2) and whether
+all four turns gave the same output bits.  Exits 1 if any case's bits
+differ between turns, 2 on bad arguments or no GPU.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def _rowquant_cases(torch, cs, cg, gen):
+    """The row quantizer at chip_smoke's RQ_SHAPES."""
+    for M, K, dtype in cs.RQ_SHAPES:
+        xb = 4 if dtype == "f32" else 2
+        xs = [cs._rq_input(torch, M, K, dtype, gen)
+              for _ in range(cs.copies_for(M * K * (xb + 1)))]
+        yield (f"[{M}, {K}] {dtype}",
+               [(lambda x=x: cg.quantize_rows_int8(x)) for x in xs])
+
+
+def _grouped_operands(torch, cs, gen, K, N):
+    """serve-moe's decode shape with 25 of 60 experts active (a served
+    step's counts), then with all 60: (tag, counts, x, xs, w, ws)."""
+    served = cs._served_like_counts(torch, gen, gen.device, E=cs.MOE_E)
+    for tag, cnt in (("25 of 60 active", served),
+                     ("all 60 active", torch.ones_like(served))):
+        x, xs = cs._grouped_rows(torch, cnt, 8, K, gen)
+        w, ws = cs._stack(torch, cs.MOE_E, K, N, gen)
+        yield tag, cnt, x, xs, w, ws
+
+
+def _grouped_gated_cases(torch, cs, cg, gen):
+    """Kernel 8 at serve-moe's decode shape, with its requant (as served)
+    and with f32 out."""
+    for tag, cnt, x, xs, wg, gs in _grouped_operands(
+            torch, cs, gen, cs.MOE_D, cs.MOE_F):
+        wu, us = cs._stack(torch, cs.MOE_E, cs.MOE_D, cs.MOE_F, gen)
+        for qo in (True, False):
+            yield (f"{'requant' if qo else 'f32'}, {tag}",
+                   [lambda cnt=cnt, x=x, xs=xs, wg=wg, gs=gs, wu=wu, us=us,
+                    qo=qo: cg.cim_grouped_gated_gemm_int8(
+                        x, wg, wu, xs, gs, us, counts=cnt,
+                        activation="silu", quantize_out=qo)])
+
+
+def _grouped_cases(torch, cs, cg, gen):
+    """Kernel 7 at serve-moe's down projection of the experts."""
+    for tag, cnt, x, xs, w, ws in _grouped_operands(
+            torch, cs, gen, cs.MOE_F, cs.MOE_D):
+        yield tag, [lambda cnt=cnt, x=x, xs=xs, w=w, ws=ws:
+                    cg.cim_grouped_gemm_int8(x, w, xs, ws, counts=cnt)]
+
+
+# wrapper name -> cases (label, calls on distinct inputs); add a kernel
+# here to time it
+CASES = {
+    "quantize_rows_int8": _rowquant_cases,
+    "cim_grouped_gated_gemm_int8": _grouped_gated_cases,
+    "cim_grouped_gemm_int8": _grouped_cases,
+}
+
+
+def child(src: str, kernels: list[str]) -> int:
+    """Build ``src/repro_torch``'s cim_gemm.cu, time each case of
+    ``kernels`` and print the times and the outputs' digests as the last
+    line."""
+    import torch
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cim_gemm as cg
+    _build.sources = lambda: [_build.CSRC / "cim_gemm.cu"]
+    t0 = time.perf_counter()
+    _build.build_all()
+    cs.say(f"[ab] {_build.CSRC.parent} built in "
+           f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(10)
+    times, digests = {}, {}
+    for kernel in kernels:
+        for label, calls in CASES[kernel](torch, cs, cg, gen):
+            name = f"{kernel} {label}"
+            out = calls[0]()
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for t in out if isinstance(out, tuple) else (out,):
+                h.update(t.cpu().numpy().tobytes())
+            digests[name] = h.hexdigest()
+            times[name] = cs.time_ms(torch, calls)
+            del calls, out
+        torch.cuda.empty_cache()
+    print(json.dumps({"times": times, "digests": digests}), flush=True)
+    return 0
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--turn"] and len(sys.argv) > 3:
+        return child(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) < 3 or any(k not in CASES for k in sys.argv[2:]):
+        print(f"usage: ab_kernels.py DIR KERNEL [KERNEL ...]; kernels: "
+              f"{', '.join(CASES)}", file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError:
+        torch = None
+    if torch is None or not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    other, kernels = pathlib.Path(sys.argv[1]).resolve(), sys.argv[2:]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    turns = []
+    for tree in (other, ROOT, ROOT, other):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "ab_kernels.py"), "--turn",
+             str(tree / "src"), *kernels], capture_output=True, text=True,
+            timeout=900)
+        lines = proc.stdout.splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if proc.returncode != 0 or not lines:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            print(f"ab_kernels: FAILED: the turn of {tree}", file=sys.stderr)
+            return 1
+        turns.append(json.loads(lines[-1]))
+    print(f"[ab] old = {other}, new = {ROOT}; ms, CUDA-graph replays, on "
+          f"{card}")
+    differ = 0
+    for name in turns[1]["times"]:
+        times = " | ".join(f"{t['times'][name]:.4f}" for t in turns)
+        same = len({t["digests"][name] for t in turns}) == 1
+        differ += not same
+        print(f"[ab] {name}: {times}; "
+              f"{'bitwise equal' if same else 'BITS DIFFER'}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -91,8 +91,13 @@ the JAX package.  Phases, each printing its lines:
             decode step, 2 MAX + 2 SUM + 1 gather per layer per forward.
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
-            the grouped GEMMs with the expert counts of a served decode
-            step and with every expert active, kernels 3 and 4 with the
+            the row quantizer at four shapes (gemma-2b's hidden requant
+            and MLP input at decode, qwen2-moe's stacked expert rows, a
+            4096-token forward's hidden requant) under its plan and at
+            half and twice its threads; the grouped GEMMs with the
+            expert counts of a served decode step and with every expert
+            active (kernel 8 also under every plan of its body), kernels
+            3 and 4 with the
             requant epilogue at the shared MLP's shapes, and kernel 6 at
             the TP partials' shapes (beside ``torch._int_mm``); the
             tensor-core GEMM of kernels 2, 3, 4 and 6 under every plan
@@ -1770,6 +1775,77 @@ def times_gemm_plans(torch, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# the row quantizer's timed shapes (M, K, dtype): gemma-2b's hidden
+# requant and its MLP input at decode, qwen2-moe's stacked expert rows (E
+# 60 x 8 capacity rows), the hidden requant of a 4096-token forward; the
+# first is the kernels line's row
+RQ_SHAPES = ((8, 16384, "f32"), (8, 2048, "bf16"), (480, 2048, "bf16"),
+             (4096, 16384, "f32"))
+
+
+def _rq_input(torch, M, K, dtype, gen):
+    x = torch.randn((M, K), device=gen.device, generator=gen)
+    return x if dtype == "f32" else x.to(torch.bfloat16)
+
+
+def times_rowquant(torch, card: str) -> dict:
+    """The row quantizer at each of RQ_SHAPES under the plan's rule and at
+    half and twice the rule's threads (one line a plan), beside its bound (x read once, the codes and
+    scales written once) and its plain version; returns the kernels
+    line's row (the first shape)."""
+    from repro_torch.kernels import cim_gemm as cg
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(8)
+    row = None
+    for M, K, dtype in RQ_SHAPES:
+        xb = 4 if dtype == "f32" else 2
+        nbytes = M * K * xb + M * K + M * 4
+        xs = [_rq_input(torch, M, K, dtype, gen)
+              for _ in range(copies_for(nbytes))]
+        calls = [(lambda x=x: cg.quantize_rows_int8(x)) for x in xs]
+        rule = cg.rowquant_plan(M, K, xs[0].dtype)
+        ms = time_ms(torch, calls)
+        plain_ms = time_ms(torch, [lambda: cg.quantize_rows_int8_plain(
+            xs[0])], reps=5)
+        b, by = bound(nbytes, 3 * M * K, F32_OPS_PER_S)
+        say(f"[times] quantize_rows_int8 ([{M}, {K}] {dtype}): {ms:.4f} "
+            f"ms, bound {b:.5f} ms by {by}, plain {plain_ms:.4f} ms; plan "
+            f"{M} blocks of {rule.threads} on {card}")
+        for threads in (rule.threads // 2, rule.threads * 2):
+            if not 32 <= threads <= 1024:
+                continue
+            with cg.forced_rowquant_plan(threads):
+                pms = time_ms(torch, calls)
+            say(f"[times] quantize_rows_int8 plan ([{M}, {K}] {dtype}) "
+                f"{threads} threads: {pms:.4f} ms on {card}")
+        if row is None:
+            row = dict(name="quantize_rows_int8", ms=ms, plain_ms=plain_ms,
+                       bound_ms=b, bound_by=by, library_ms=None)
+        del xs, calls
+    return row
+
+
+def times_grouped_plans(torch, card: str, counts) -> None:
+    """Kernel 8 at serve-moe's decode shape with a served step's expert
+    counts, with its requant, under every plan the gated body takes (one
+    line a plan)."""
+    from repro_torch.kernels import cim_gemm as cg
+    gen = torch.Generator(device=counts.device).manual_seed(9)
+    E, T, K, N = MOE_E, 8, MOE_D, MOE_F
+    x, xs = _grouped_rows(torch, counts, T, K, gen)
+    (wg, gs), (wu, us) = (_stack(torch, E, K, N, gen) for _ in range(2))
+    rule = cg.grouped_plan(E, T, K, N)
+    active = int((counts > 0).sum())
+    for plan in cg.gemm_plans(T, K, N, "gated"):
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            ms = time_ms(torch, [lambda: cg.cim_grouped_gated_gemm_int8(
+                x, wg, wu, xs, gs, us, counts=counts, activation="silu",
+                quantize_out=True)])
+        say(f"[times] cim_grouped_gated_gemm_int8 plan (E={E}, {active} "
+            f"active, T={T}, K={K}, N={N}) {plan.kind} cluster "
+            f"{plan.cluster}: {ms:.4f} ms, grid {plan.grid(T, N) * E} "
+            f"blocks{' (the rule)' if plan == rule else ''} on {card}")
+
+
 def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
                 card: str) -> list:
     from repro_torch.kernels import cim_gemm as cg
@@ -1807,13 +1883,9 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
         return torch.randn((M, K), device=dev, generator=gen).to(
             torch.bfloat16)
 
-    # row quantizer at the hidden-state requant: [8, 16384] f32
-    def make_rq():
-        h = torch.randn((M, ff), device=dev, generator=gen)
-        return (lambda: cg.quantize_rows_int8(h)), (h,)
-    gemm_row("quantize_rows_int8", make_rq,
-             lambda h: lambda: cg.quantize_rows_int8_plain(h), None,
-             M * ff * 4 + M * ff + M * 4, 3 * M * ff, F32_OPS_PER_S)
+    # row quantizer at the hidden-state requant ([8, 16384] f32, the row)
+    # and the other shapes of RQ_SHAPES, each under every plan
+    rows.append(times_rowquant(torch, card))
 
     # QKV: x [8, 2048] bf16 @ [2048, 2560] int8
     def make_qkv():
@@ -2053,6 +2125,8 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
                     f"quantizer: {two:.4f} ms, against {ms:.4f} ms with "
                     f"the requant in its epilogue, on {card}")
             del inst
+
+    times_grouped_plans(torch, card, served)
 
     # kernels 3 and 4 with the requant epilogue at the shared MLP's shapes
     # ([8, 2048] x [2048, 5632]; gated: two weights), against the same

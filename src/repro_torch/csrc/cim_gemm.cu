@@ -1,6 +1,7 @@
-// INT8 GEMM kernels for Hopper (sm_90a): the row quantizer, the dense
-// int8 GEMMs on one tensor-core body, and the grouped GEMMs on a template
-// for the CUDA cores.
+// INT8 GEMM kernels for Hopper (sm_90a): the row quantizer, the int8
+// GEMMs on one tensor-core body (dense, and grouped over experts for the
+// gated pair), and the plain grouped GEMM on a template for the CUDA
+// cores.
 //
 // Replaces, in src/repro/kernels/cim_gemm.py:
 //   quantize_rows_int8           (_rowquant_kernel)
@@ -12,8 +13,9 @@
 //   cim_gemm_int8                (_cim_gemm_kernel)
 // the GEMMs with their quantize_out epilogue (_rowquant) in-kernel.  The
 // dense GEMMs (kernels 2, 3, 4 and 6) run on cim_gemm_i8_kernel, the
-// tensor-core body; the grouped GEMMs (kernels 7 and 8) on the template
-// cim_gemm_kernel.
+// tensor-core body, and so does the grouped gated GEMM (kernel 8, through
+// cim_gemm_i8_grouped_kernel); the plain grouped GEMM (kernel 7) on the
+// template cim_gemm_kernel.
 //
 // What bounds them on the card: at decode (M = 8 rows) every weight byte
 // is used by 8 rows only, so the GEMMs are bound by the int8 weight bytes
@@ -23,10 +25,27 @@
 // rows and the int8 operations bind (gemma-2b's down GEMM: 2.7e11
 // operations, 0.139 ms at 1979 TOPS).  The grouped GEMMs are bound by the
 // weight bytes of the experts that received tokens: an expert whose count
-// is 0 streams none.  The row quantizer runs one block per row, so at
-// decode it has only M = 8 blocks on 132 SMs: it is bound by that lack of
-// parallelism, not by its bytes ([8, 16384] f32 in, about 0.66 MB, for
-// gemma-2b's hidden requant, which is too wide for the fused requant).
+// is 0 streams none.  The row quantizer is bound by its bytes (x read
+// once, the codes written once) where the rows are many (a 4096-token
+// forward's hidden state, [4096, 16384] f32: 0.10 ms at 3.35 TB/s); at
+// decode ([8, 16384] f32, 0.66 MB) by the latency of one launch and one
+// pass to device memory, far above its 0.0002 ms byte bound.
+//
+// The row quantizer, rowquant_kernel<XE, VEC>: a row's scale needs its
+// |max| over all of K before any code exists, so a plain kernel reads x
+// twice.  Here a row takes one block whose threads hold the row in
+// registers (up to RQ_V units of 16 bytes a thread, all loads in flight at
+// once), so x is read once and q written once up to 1024 x RQ_V units a
+// row (64 KB of f32: every served row).  The wrapper's plan
+// (rowquant_plan) gives a row about two units a thread when the rows are
+// few (the pass is latency-bound: more warps issue their loads at once
+// and the quantize pass is short), four when they are many.  Splitting a
+// row over a thread-block cluster was timed and never faster (PERF.md).
+// Codes and scales are the reference's: row_scale's IEEE division, and
+// quant4 (a multiply by the correctly rounded reciprocal, the IEEE
+// division where that lies near a rounding boundary), bitwise the
+// division.  Rows that are not 16-byte aligned take single values as
+// units.
 //
 // The dense GEMMs: cim_gemm_i8_kernel<EPI, SHAPE, VAR>.  The product is
 // mma.sync.m16n8k32 s8 x s8 -> s32, exact (|sum| <= K 127^2 fits int32 up
@@ -108,12 +127,25 @@
 // the exact int32 sum instead and reads no scale: the caller sums the
 // partials of all ranks and runs the epilogue once.
 //
-// The grouped GEMMs, cim_gemm_kernel<GATED, EPI> on the CUDA cores
-// (kernels 7 and 8): a block owns an 8-row x 32-column output tile of one
-// expert (blockIdx.z); its 256 threads are 8 column groups (4 adjacent
-// columns each) x 32 slices of K.  K is swept in tiles of 1024: the tile's
-// int8 activations are packed four to a 32-bit word into shared memory.
-// Each thread loads 4 rows x 4 columns of weights as four 32-bit words
+// The grouped gated GEMM (kernel 8) runs the V_GATED body once per
+// expert: the expert is blockIdx.z, and cim_gemm_i8_grouped_kernel moves
+// every operand to that expert's slice (x, xs, both weights and their
+// scales, the output, and with quantize_out q, qs and the requant's row
+// maxima and band counters) before the body runs; the dense kernels never
+// see the expert or the skip list (counts, a second kernel argument), so
+// their argument struct, and with it their register allocation, is as it
+// was.  A block of an expert whose count is 0 (the skip list, read from
+// the device, no host sync) streams no weights: it stores what the
+// epilogue gives zero accumulators (+0 in f32, or the code 0 and the row
+// scale row_scale(0)) and leaves, with no K reduction and no wait, so the
+// idle experts' tiles cost one short store each rather than a wave slot.
+//
+// The plain grouped GEMM, cim_gemm_kernel<EPI> on the CUDA cores (kernel
+// 7): a block owns an 8-row x 32-column output tile of one expert
+// (blockIdx.z); its 256 threads are 8 column groups (4 adjacent columns
+// each) x 32 slices of K.  K is swept in tiles of 1024: the tile's int8
+// activations are packed four to a 32-bit word into shared memory.  Each
+// thread loads 4 rows x 4 columns of weights as four 32-bit words
 // straight into registers, transposes them (transpose4x4) so each word
 // holds 4 consecutive K values of one column, and feeds __dp4a,
 // accumulating exactly in int32.  Every thread issues all its weight loads
@@ -123,8 +155,7 @@
 // the K sweep and runs the epilogue on zero accumulators, as the
 // reference's kernel does.  EPI is compile-time: with the requant tail
 // decided at run time, ptxas gave the int8 GEMM 66 registers in place of
-// 80 and it ran 1.5x slower.  Split-K, wgmma and TMA are left for later
-// work on this template.
+// 80 and it ran 1.5x slower.
 //
 // The requant epilogue (quantize_out): a row's scale needs its absmax
 // over all N columns, which the column tiles share.  Every block writes
@@ -132,14 +163,15 @@
 // atomicMax on the float's bits (non-negative floats order as unsigned
 // ints; max is exact in any order), fences, and bumps its row band's
 // arrival counter (the band is the tile's rows: 8 on the CUDA cores, 8
-// or 16 on the decode tile, 128 on the prefill tile; on the tensor-core
-// body only rank 0 of a cluster counts in).  The block that arrives last
-// quantizes the band's rows from the scratch tile (reading through L2,
-// where the other blocks' stores and atomics landed, 8 float4 loads in
-// flight per thread) with the row quantizer's arithmetic, so q and the
-// scale are bitwise quantize_rows_int8 of the f32 output, and resets the
-// band's maxima and counter to 0 for the next launch.  One launch, no
-// block waits on another.
+// or 16 on the decode tile, 128 on the prefill tile, per expert on the
+// grouped body; on the tensor-core body only rank 0 of a cluster counts
+// in).  The block that arrives last quantizes the band's rows from the
+// scratch tile (reading through L2, where the other blocks' stores and
+// atomics landed, 8 float4 loads in flight per thread) with the row
+// quantizer's arithmetic, so q and the scale are bitwise
+// quantize_rows_int8 of the f32 output, and resets the band's maxima and
+// counter to 0 for the next launch.  One launch, no block waits on
+// another.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -294,19 +326,17 @@ __device__ __forceinline__ void requant_band(const float* h,
   }
 }
 
-// x [E, M, K] int8, w/w2 [E, K, N] int8; xs [E, M], ws/ws2/bias [E, N]
-// f32; res [M, N] f32 (res_kind 1) or bf16 (2) added after the activation,
-// or none (0); counts [E] int32 or null (no skip list); out [E, M, N] f32.
-// With EPI_QOUT out is the f32 scratch and q [E, M, N] int8, qs [E, M] f32
+// x [E, M, K] int8, w [E, K, N] int8; xs [E, M], ws/bias [E, N] f32;
+// counts [E] int32 or null (no skip list); out [E, M, N] f32.  With
+// EPI_QOUT out is the f32 scratch and q [E, M, N] int8, qs [E, M] f32
 // receive the requantized rows; amax [E * M] and arrive [E * gridDim.y]
-// must be 0.  The grouped wrappers pass no residual; the operand stays
-// because without it ptxas gave the plain instantiation 66 registers in
-// place of 64 and kernel 7 ran 1.2x slower (PERF.md).
-template <bool GATED, int EPI>
+// must be 0.  The wrapper passes no residual; the operand stays because
+// without it ptxas gave the instantiation 66 registers in place of 64 and
+// kernel 7 ran 1.2x slower (PERF.md).
+template <int EPI>
 __global__ void __launch_bounds__(NT)
 cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
                 const int8_t* __restrict__ w, const float* __restrict__ ws,
-                const int8_t* __restrict__ w2, const float* __restrict__ ws2,
                 const float* __restrict__ bias,
                 const void* __restrict__ res, int res_kind, int act,
                 const int* __restrict__ counts, float* __restrict__ out,
@@ -328,10 +358,6 @@ cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
   x += (int64_t)e * M * K;
   w += (int64_t)e * K * N;
   ws += (int64_t)e * N;
-  if constexpr (GATED) {
-    w2 += (int64_t)e * K * N;
-    ws2 += (int64_t)e * N;
-  }
   if (bias != nullptr) bias += (int64_t)e * N;
   out += (int64_t)e * M * N;
   const bool active = counts == nullptr || counts[e] > 0;
@@ -341,11 +367,10 @@ cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
   __syncthreads();
 
   int acc[BM][4];
-  int acc2[BM][4];
 #pragma unroll
   for (int m = 0; m < BM; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = acc2[m][c] = 0;
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0;
 
   // An expert with no tokens streams no weights (uniform per block).
   const int kend = active ? K : 0;
@@ -368,13 +393,9 @@ cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
     __syncthreads();
 
     uint32_t wr[JW][4];
-    uint32_t wr2[GATED ? JW : 1][4];
 #pragma unroll
-    for (int j = 0; j < JW; ++j) {
-      const int k = k0 + 4 * (ty + TK * j);
-      load_rows(w, k, K, N, ncol, wr[j]);
-      if constexpr (GATED) load_rows(w2, k, K, N, ncol, wr2[j]);
-    }
+    for (int j = 0; j < JW; ++j)
+      load_rows(w, k0 + 4 * (ty + TK * j), K, N, ncol, wr[j]);
 #pragma unroll
     for (int j = 0; j < JW; ++j) {
       const int kw = ty + TK * j;
@@ -387,23 +408,11 @@ cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
         for (int c = 0; c < 4; ++c)
           acc[m][c] = __dp4a(xw, (int)col[c], acc[m][c]);
       }
-      if constexpr (GATED) {
-        transpose4x4(wr2[j], col);
-#pragma unroll
-        for (int m = 0; m < BM; ++m) {
-          const int xw = s_x[m][kw];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc2[m][c] = __dp4a(xw, (int)col[c], acc2[m][c]);
-        }
-      }
     }
     __syncthreads();
   }
 
   const int tot = reduce_k(s_red, acc, tx, ty, tid);
-  int tot2 = 0;
-  if constexpr (GATED) tot2 = reduce_k(s_red, acc2, tx, ty, tid);
 
   // Epilogue (post-processing): dequant, bias, activation, residual.
   // Thread tid owns row em = tid / 32 (its warp) and column en = lane.
@@ -414,20 +423,14 @@ cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
   const float xsv = s_scale[em];
   float y = 0.0f;
   if (valid) {
-    if constexpr (GATED) {
-      const float g = __fmul_rn(__fmul_rn((float)tot, xsv), ws[gn]);
-      const float u = __fmul_rn(__fmul_rn((float)tot2, xsv), ws2[gn]);
-      y = __fmul_rn(activate(g, act), u);
-    } else {
-      y = __fmul_rn(__fmul_rn((float)tot, xsv), ws[gn]);
-      if (bias != nullptr) y = __fadd_rn(y, bias[gn]);
-      y = activate(y, act);
-      if (res_kind == 1)
-        y = __fadd_rn(y, static_cast<const float*>(res)[o]);
-      else if (res_kind == 2)
-        y = __fadd_rn(
-            y, __bfloat162float(static_cast<const __nv_bfloat16*>(res)[o]));
-    }
+    y = __fmul_rn(__fmul_rn((float)tot, xsv), ws[gn]);
+    if (bias != nullptr) y = __fadd_rn(y, bias[gn]);
+    y = activate(y, act);
+    if (res_kind == 1)
+      y = __fadd_rn(y, static_cast<const float*>(res)[o]);
+    else if (res_kind == 2)
+      y = __fadd_rn(
+          y, __bfloat162float(static_cast<const __nv_bfloat16*>(res)[o]));
     out[o] = y;
   }
   if constexpr (EPI == EPI_QOUT) {
@@ -453,36 +456,6 @@ cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
                  s_scale, m0, M, N, tid);
     if (tid == 0) *band = 0;
   }
-}
-
-// One block per row: absmax reduction, then quantize the row.
-template <typename T>
-__global__ void __launch_bounds__(256)
-rowquant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                float* __restrict__ scale, int K) {
-  __shared__ float s_amax[32];
-  const int64_t base = (int64_t)blockIdx.x * K;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float amax = 0.0f;
-  for (int k = tid; k < K; k += blockDim.x)
-    amax = fmaxf(amax, fabsf(load_f(x, base + k)));
-#pragma unroll
-  for (int o = 16; o; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (lane == 0) s_amax[warp] = amax;
-  __syncthreads();
-  if (warp == 0) {
-    amax = lane < (int)(blockDim.x / 32) ? s_amax[lane] : 0.0f;
-#pragma unroll
-    for (int o = 16; o; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (lane == 0) s_amax[0] = amax;
-  }
-  __syncthreads();
-  const float s = row_scale(s_amax[0]);
-  for (int k = tid; k < K; k += blockDim.x)
-    q[base + k] = (int8_t)quant1(load_f(x, base + k), s);
-  if (tid == 0) scale[blockIdx.x] = s;
 }
 
 inline dim3 gemm_grid(int E, int M, int N) {
@@ -749,6 +722,112 @@ __device__ __forceinline__ uint32_t quant4(const float* f, float s,
   for (int j = 0; j < 4; ++j)
     p |= (uint32_t)((int)c[j] & 0xff) << (8 * j);
   return p;
+}
+
+// ---------------------------------------------------------------------------
+// The row quantizer (kernel 1); see the note at the top of this file.
+// ---------------------------------------------------------------------------
+constexpr int RQ_V = 8;          // units a thread holds
+constexpr int RQ_MAX_NT = 1024;  // threads of a block
+
+// Units i0 + j G (j < RQ_V) of a row of n units at xr, zero past the
+// row: 16 bytes (f32 or bf16 values) when VEC, else one value as f32.
+template <int XE, bool VEC, typename Unit>
+__device__ __forceinline__ void rq_load(Unit (&v)[RQ_V],
+                                        const unsigned char* xr, int i0,
+                                        int G, int n) {
+#pragma unroll
+  for (int j = 0; j < RQ_V; ++j) {
+    const int i = i0 + j * G;
+    if constexpr (VEC)
+      v[j] = i < n ? __ldg(reinterpret_cast<const uint4*>(xr) + i)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    else
+      v[j] = i < n ? load_x<XE>(xr, i) : 0.0f;
+  }
+}
+
+template <int XE, bool VEC, typename Unit>
+__device__ __forceinline__ float rq_absmax(const Unit (&v)[RQ_V]) {
+  float a = 0.0f;
+#pragma unroll
+  for (int j = 0; j < RQ_V; ++j) {
+    if constexpr (VEC) {
+      float f[16 / XE];
+      unpack16(v[j], f);
+#pragma unroll
+      for (int i = 0; i < 16 / XE; ++i) a = fmaxf(a, fabsf(f[i]));
+    } else {
+      a = fmaxf(a, fabsf(v[j]));
+    }
+  }
+  return a;
+}
+
+// The codes of the units rq_load gave, with the row's scale s (r = 1 / s
+// correctly rounded), to qr (the row's first code).
+template <int XE, bool VEC, typename Unit>
+__device__ __forceinline__ void rq_store(const Unit (&v)[RQ_V], int8_t* qr,
+                                         int i0, int G, int n, float s,
+                                         float r) {
+#pragma unroll
+  for (int j = 0; j < RQ_V; ++j) {
+    const int i = i0 + j * G;
+    if (i >= n) continue;
+    if constexpr (!VEC) {
+      qr[i] = (int8_t)quant1(v[j], s);
+    } else {
+      float f[16 / XE];
+      unpack16(v[j], f);
+      if constexpr (XE == 4)
+        reinterpret_cast<uint32_t*>(qr)[i] = quant4(f, s, r);
+      else
+        reinterpret_cast<uint2*>(qr)[i] =
+            make_uint2(quant4(f, s, r), quant4(f + 4, s, r));
+    }
+  }
+}
+
+// x [M, K] (XE = 4: f32, 2: bf16) -> q [M, K] int8, scale [M].  Block m
+// takes row m, in units of 16 bytes when VEC, else single values.  A
+// thread holds RQ_V units of the row at a time: when the row is longer
+// than blockDim RQ_V units, the first pass walks it for the |max| and the
+// second reads all but the last chunk again.
+template <int XE, bool VEC>
+__global__ void __launch_bounds__(RQ_MAX_NT)
+rowquant_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
+                float* __restrict__ scale, int K) {
+  using Unit = typename std::conditional<VEC, uint4, float>::type;
+  constexpr int PER = VEC ? 16 / XE : 1;  // values of a unit
+  __shared__ float s_warp[32];
+  const int tid = threadIdx.x, G = blockDim.x, m = (int)blockIdx.x;
+  const int n = K / PER;  // units of the row (32-bit arithmetic only)
+  const int chunk = G * RQ_V;
+  const int nch = max(1, (n + chunk - 1) / chunk);
+  const int64_t first = (int64_t)m * K;
+  const unsigned char* xr = static_cast<const unsigned char*>(x) + first * XE;
+  int8_t* qr = q + first;
+
+  Unit v[RQ_V];
+  float amx = 0.0f;
+  for (int c = 0; c < nch; ++c) {
+    rq_load<XE, VEC>(v, xr, c * chunk + tid, G, n);
+    amx = fmaxf(amx, rq_absmax<XE, VEC>(v));
+  }
+  // the row's |max|: the block's lanes, then its warps
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    amx = fmaxf(amx, __shfl_xor_sync(0xffffffffu, amx, o));
+  if (tid % 32 == 0) s_warp[tid / 32] = amx;
+  __syncthreads();
+  amx = 0.0f;
+  for (int w = 0; w < G / 32; ++w) amx = fmaxf(amx, s_warp[w]);
+  const float s = row_scale(amx), r = __frcp_rn(s);
+  for (int c = nch - 1; c >= 0; --c) {
+    if (c != nch - 1) rq_load<XE, VEC>(v, xr, c * chunk + tid, G, n);
+    rq_store<XE, VEC>(v, qr, c * chunk + tid, G, n, s, r);
+  }
+  if (tid == 0) scale[m] = s;
 }
 
 // Quantize-in: the |max| of x rows m0 .. m0 + rows - 1 (0 past M) over
@@ -1061,13 +1140,9 @@ __device__ __forceinline__ void i8_requant(const I8Args& a, unsigned char* tl,
 // attribute, 1 to 8) shares one output tile and splits its K steps: rank r
 // takes steps [r steps / C, (r + 1) steps / C) of the ceil(K / BK); rank 0
 // sums the ranks' int32 partials through distributed shared memory and
-// runs the epilogue.  Two blocks an SM (128 registers), but one on the
-// prefill tile with the requant or the int32 epilogue, which spill at 128,
-// or with f32 x, whose ring leaves room for one.
+// runs the epilogue.
 template <int EPI, int SHAPE, int VAR>
-__global__ void __launch_bounds__(
-    I8_NT, SHAPE == PRE && (EPI != EPI_F32 || VAR == V_QF32) ? 1 : 2)
-cim_gemm_i8_kernel(const I8Args a) {
+__device__ __forceinline__ void i8_body(const I8Args& a) {
   constexpr bool DEC = SHAPE != PRE;
   constexpr bool QIN = var_qin(VAR);
   constexpr int NW = var_nw(VAR);             // weight streams
@@ -1517,13 +1592,82 @@ cim_gemm_i8_kernel(const I8Args a) {
   }
 }
 
+// The dense GEMMs: two blocks an SM (128 registers), but one on the
+// prefill tile with the requant or the int32 epilogue, which spill at 128,
+// or with f32 x, whose ring leaves room for one.
 template <int EPI, int SHAPE, int VAR>
-cudaError_t i8_launch(const I8Args& a, int C, int smem, cudaStream_t st) {
-  constexpr int BN = SHAPE == PRE ? PBN / var_nw(VAR) : DBN;
+__global__ void __launch_bounds__(
+    I8_NT, SHAPE == PRE && (EPI != EPI_F32 || VAR == V_QF32) ? 1 : 2)
+cim_gemm_i8_kernel(const I8Args a) {
+  i8_body<EPI, SHAPE, VAR>(a);
+}
+
+// The grouped gated GEMM, a block of an idle expert (count 0): what the
+// epilogue gives zero accumulators with the positive scales of the
+// reference (act(+0) * (+0) = +0; with the requant the code 0 and the row
+// scale row_scale(0), the row's |max| being 0), over the block's tile of
+// 64 columns, stored by rank 0 of its cluster.
+template <int EPI, int SHAPE>
+__device__ __forceinline__ void i8_idle(const I8Args& a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (cluster.block_rank() != 0) return;
+  const int tile = (int)(blockIdx.x / cluster.num_blocks());
+  const int n0 = tile * DBN, m0 = SHAPE == PRE ? (int)blockIdx.y * PBM : 0;
+  const int rows = min(SHAPE == PRE ? PBM : 8 * (SHAPE + 1), a.M - m0);
+  const int c4 = min(DBN, a.N - n0) / 4;  // N % 4 == 0
+  for (int i = threadIdx.x; i < rows * c4; i += I8_NT) {
+    const int64_t o = (int64_t)(m0 + i / c4) * a.N + n0 + 4 * (i % c4);
+    if constexpr (EPI == EPI_QOUT)
+      *reinterpret_cast<char4*>(a.q + o) = make_char4(0, 0, 0, 0);
+    else
+      *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  if constexpr (EPI == EPI_QOUT)
+    if (tile == 0 && (int)threadIdx.x < rows)
+      a.qs[m0 + threadIdx.x] = row_scale(0.0f);
+}
+
+// The grouped gated GEMM (kernel 8): expert blockIdx.z of x [E, M, K], the
+// gate and up weights [E, K, N] with their scales [E, N], the output [E,
+// M, N] (with the requant q [E, M, N], qs [E, M], amax [E * M] and one
+// counter a row band and expert); counts [E] or null.  ``a`` holds expert
+// 0's operands in the gated body's fields.  Two blocks an SM on the
+// decode tiles; one on the prefill tile, where the expert's operands
+// leave the gated body no registers to spare at two.
+template <int EPI, int SHAPE>
+__global__ void __launch_bounds__(I8_NT, SHAPE == PRE ? 1 : 2)
+cim_gemm_i8_grouped_kernel(const I8Args a, const int* __restrict__ counts) {
+  const int e = (int)blockIdx.z;
+  const int64_t kn = (int64_t)a.K * a.N, mn = (int64_t)a.M * a.N;
+  I8Args b = a;
+  b.x = a.x + e * (int64_t)a.M * a.K;
+  b.xs = a.xs + (int64_t)e * a.M;
+  b.w = a.w + e * kn;
+  b.ws = a.ws + (int64_t)e * a.N;
+  b.bias = s_up(a) + (int64_t)e * a.N;
+  b.res = w_up(a) + e * kn;
+  b.out = static_cast<float*>(a.out) + e * mn;
+  if constexpr (EPI == EPI_QOUT) {
+    b.q = a.q + e * mn;
+    b.qs = a.qs + (int64_t)e * a.M;
+    b.amax = a.amax + (int64_t)e * a.M;
+    b.arrive = a.arrive + (int64_t)e * gridDim.y;
+  }
+  if (counts != nullptr && counts[e] <= 0) {
+    i8_idle<EPI, SHAPE>(b);
+    return;
+  }
+  i8_body<EPI, SHAPE, V_GATED>(b);
+}
+
+// A launch of ``grid`` blocks of ``threads`` in clusters of C along x.
+template <typename... P, typename... A>
+cudaError_t launch_clustered(void (*kernel)(P...), dim3 grid, int threads,
+                             int C, int smem, cudaStream_t st, A... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.N + BN - 1) / BN * C,
-                     SHAPE == PRE ? (a.M + PBM - 1) / PBM : 1, 1);
-  cfg.blockDim = dim3(I8_NT, 1, 1);
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -1533,7 +1677,22 @@ cudaError_t i8_launch(const I8Args& a, int C, int smem, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, cim_gemm_i8_kernel<EPI, SHAPE, VAR>, a);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The body's grid: column tiles x C, row tiles (prefill), experts.
+template <int SHAPE, int VAR>
+dim3 i8_grid(const I8Args& a, int C, int E) {
+  constexpr int BN = SHAPE == PRE ? PBN / var_nw(VAR) : DBN;
+  return dim3((a.N + BN - 1) / BN * C,
+              SHAPE == PRE ? (a.M + PBM - 1) / PBM : 1, E);
+}
+
+template <int EPI, int SHAPE, int VAR>
+cudaError_t i8_launch(const I8Args& a, int C, int smem, cudaStream_t st) {
+  return launch_clustered(cim_gemm_i8_kernel<EPI, SHAPE, VAR>,
+                          i8_grid<SHAPE, VAR>(a, C, 1), I8_NT, C, smem, st,
+                          a);
 }
 
 template <int EPI, int VAR>
@@ -1544,19 +1703,41 @@ cudaError_t i8_run(const I8Args& a, int shape, int C, int smem,
   return i8_launch<EPI, PRE, VAR>(a, C, smem, st);
 }
 
+template <int EPI>
+cudaError_t i8_grouped_run(const I8Args& a, const int* counts, int E,
+                           int shape, int C, int smem, cudaStream_t st) {
+  if (shape == DEC8)
+    return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, DEC8>,
+                            i8_grid<DEC8, V_GATED>(a, C, E), I8_NT, C, smem,
+                            st, a, counts);
+  if (shape == DEC16)
+    return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, DEC16>,
+                            i8_grid<DEC16, V_GATED>(a, C, E), I8_NT, C, smem,
+                            st, a, counts);
+  return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, PRE>,
+                          i8_grid<PRE, V_GATED>(a, C, E), I8_NT, C, smem, st,
+                          a, counts);
+}
+
+template <typename... P>
+cudaError_t opt_in_smem(void (*kernel)(P...)) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, I8_MAX_SMEM);
+}
+
 template <int EPI, int VAR>
 cudaError_t i8_opt_in_one() {
-  cudaError_t e = cudaFuncSetAttribute(
-      cim_gemm_i8_kernel<EPI, DEC8, VAR>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, I8_MAX_SMEM);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, DEC16, VAR>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             I8_MAX_SMEM);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(cim_gemm_i8_kernel<EPI, PRE, VAR>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             I8_MAX_SMEM);
+  cudaError_t e = opt_in_smem(cim_gemm_i8_kernel<EPI, DEC8, VAR>);
+  if (e == cudaSuccess) e = opt_in_smem(cim_gemm_i8_kernel<EPI, DEC16, VAR>);
+  if (e == cudaSuccess) e = opt_in_smem(cim_gemm_i8_kernel<EPI, PRE, VAR>);
+  if constexpr (VAR == V_GATED && EPI != EPI_ACC) {
+    if (e == cudaSuccess)
+      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, DEC8>);
+    if (e == cudaSuccess)
+      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, DEC16>);
+    if (e == cudaSuccess)
+      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, PRE>);
+  }
   return e;
 }
 
@@ -1579,6 +1760,37 @@ cudaError_t i8_opt_in() {
   return e;
 }
 
+// The body's argument struct: the gated variant carries the up weight in
+// res's field and its scales in bias's (see I8Args).
+I8Args i8_args(const void* x, const void* xs, const void* w, const void* ws,
+               const void* w2, const void* ws2, const void* bias,
+               const void* res, int res_kind, int act, void* out, void* q,
+               void* qs, void* amax, void* arrive, int M, int K, int N,
+               int var) {
+  I8Args a;
+  a.x = static_cast<const int8_t*>(x);
+  a.xs = static_cast<const float*>(xs);
+  a.w = static_cast<const int8_t*>(w);
+  a.ws = static_cast<const float*>(ws);
+  a.bias = static_cast<const float*>(var == V_GATED ? ws2 : bias);
+  a.res = var == V_GATED ? w2 : res;
+  a.res_kind = res_kind;
+  a.act = act;
+  a.out = out;
+  a.q = static_cast<int8_t*>(q);
+  a.qs = static_cast<float*>(qs);
+  a.amax = static_cast<unsigned int*>(amax);
+  a.arrive = static_cast<int*>(arrive);
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.x16 = (int64_t)K * var_xe(var) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.w16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  return a;
+}
+
 }  // namespace
 
 // x_kind / res_kind: 1 = float32, 2 = bfloat16 (res_kind 0 = none).
@@ -1586,47 +1798,51 @@ cudaError_t i8_opt_in() {
 // Each entry point returns cudaGetLastError() after its launch.
 extern "C" {
 
+// The row quantizer under the wrapper's plan (rowquant_plan): one block
+// of ``threads`` a row, 16-byte units when ``vec`` (K x_bytes % 16 == 0,
+// x 16-byte aligned).
 int cim_quantize_rows_int8(const void* x, int x_kind, void* q, void* scale,
-                           int M, int K, void* stream) {
+                           int M, int K, int threads, int vec,
+                           void* stream) {
+  const int xe = x_kind == 1 ? 4 : 2;
+  if ((x_kind != 1 && x_kind != 2) || M < 1 || K < 1 || threads < 32 ||
+      threads % 32 || threads > RQ_MAX_NT ||
+      (vec && ((int64_t)K * xe % 16 ||
+               reinterpret_cast<uintptr_t>(x) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_kind == 1)
-    rowquant_kernel<float><<<M, 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), K);
-  else
-    rowquant_kernel<__nv_bfloat16><<<M, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), K);
+  int8_t* q8 = static_cast<int8_t*>(q);
+  float* s = static_cast<float*>(scale);
+  if (xe == 4) {
+    if (vec) rowquant_kernel<4, true><<<M, threads, 0, st>>>(x, q8, s, K);
+    else rowquant_kernel<4, false><<<M, threads, 0, st>>>(x, q8, s, K);
+  } else {
+    if (vec) rowquant_kernel<2, true><<<M, threads, 0, st>>>(x, q8, s, K);
+    else rowquant_kernel<2, false><<<M, threads, 0, st>>>(x, q8, s, K);
+  }
   return (int)cudaGetLastError();
 }
 
-// The grouped GEMMs (kernels 7 and 8) on the CUDA cores: x [E, M, K]
-// int8, plain (w2 null) or gated (act(x w) * (x w2)).  counts null = no
-// skip list; q null = f32 output in out, else the requantized rows in q /
-// qs with out as scratch.
+// The plain grouped GEMM (kernel 7) on the CUDA cores: x [E, M, K] int8
+// @ w [E, K, N].  counts null = no skip list; q null = f32 output in
+// out, else the requantized rows in q / qs with out as scratch.
 int cim_grouped_gemm_launch(const void* xq, const void* xs, const void* w,
-                            const void* ws, const void* w2, const void* ws2,
-                            const void* bias, const void* counts, int act,
-                            void* out, void* q, void* qs, void* amax,
-                            void* arrive, int E, int M, int K, int N,
-                            void* stream) {
+                            const void* ws, const void* bias,
+                            const void* counts, int act, void* out, void* q,
+                            void* qs, void* amax, void* arrive, int E, int M,
+                            int K, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = gemm_grid(E, M, N);
   int8_t* q8 = static_cast<int8_t*>(q);
-#define LAUNCH(GATED, EPI)                                                  \
-  cim_gemm_kernel<GATED, EPI><<<grid, NT, 0, st>>>(                         \
+#define LAUNCH(EPI)                                                         \
+  cim_gemm_kernel<EPI><<<grid, NT, 0, st>>>(                                \
       static_cast<const int8_t*>(xq), static_cast<const float*>(xs),        \
       static_cast<const int8_t*>(w), static_cast<const float*>(ws),         \
-      static_cast<const int8_t*>(w2), static_cast<const float*>(ws2),       \
       static_cast<const float*>(bias), nullptr, 0, act,                     \
       static_cast<const int*>(counts),                                      \
       static_cast<float*>(out), q8, static_cast<float*>(qs),                \
       static_cast<unsigned int*>(amax), static_cast<int*>(arrive), M, K, N)
-  if (w2 != nullptr) {
-    if (q8 != nullptr) LAUNCH(true, EPI_QOUT); else LAUNCH(true, EPI_F32);
-  } else {
-    if (q8 != nullptr) LAUNCH(false, EPI_QOUT); else LAUNCH(false, EPI_F32);
-  }
+  if (q8 != nullptr) LAUNCH(EPI_QOUT); else LAUNCH(EPI_F32);
 #undef LAUNCH
   return (int)cudaGetLastError();
 }
@@ -1655,27 +1871,8 @@ int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
     return (int)cudaErrorInvalidValue;
   if (var == V_GATED && (bias != nullptr || res != nullptr || res_kind))
     return (int)cudaErrorInvalidValue;
-  I8Args a;
-  a.x = static_cast<const int8_t*>(x);
-  a.xs = static_cast<const float*>(xs);
-  a.w = static_cast<const int8_t*>(w);
-  a.ws = static_cast<const float*>(ws);
-  a.bias = static_cast<const float*>(var == V_GATED ? ws2 : bias);
-  a.res = var == V_GATED ? w2 : res;
-  a.res_kind = res_kind;
-  a.act = act;
-  a.out = out;
-  a.q = static_cast<int8_t*>(q);
-  a.qs = static_cast<float*>(qs);
-  a.amax = static_cast<unsigned int*>(amax);
-  a.arrive = static_cast<int*>(arrive);
-  a.M = M;
-  a.K = K;
-  a.N = N;
-  a.x16 = (int64_t)K * var_xe(var) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  a.w16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  const I8Args a = i8_args(x, xs, w, ws, w2, ws2, bias, res, res_kind, act,
+                           out, q, qs, amax, arrive, M, K, N, var);
   cudaError_t e = i8_opt_in();
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1693,6 +1890,38 @@ int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
     e = i8_run<EPI_F32, V_QBF16>(a, shape, cluster, smem, st);
   else
     e = i8_run<EPI_F32, V_I8>(a, shape, cluster, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The grouped gated GEMM (kernel 8) on the tensor-core body: x [E, M, K]
+// int8 with xs [E, M], the gate and up weights w / w2 [E, K, N] with ws /
+// ws2 [E, N]; counts [E] int32 or null (no skip list); the f32 output out
+// [E, M, N] (q null), or the requant (q [E, M, N], qs [E, M], amax [E M]
+// and arrive [E x row bands] given, zeros; out the scratch).  shape,
+// cluster and smem are the wrapper's plan (grouped_plan); N % 4 == 0.
+int cim_grouped_gated_i8_launch(const void* x, const void* xs, const void* w,
+                                const void* ws, const void* w2,
+                                const void* ws2, const void* counts, int act,
+                                void* out, void* q, void* qs, void* amax,
+                                void* arrive, int E, int M, int K, int N,
+                                int shape, int cluster, int smem,
+                                void* stream) {
+  if (E < 1 || E > 65535 || shape < DEC8 || shape > PRE || M < 1 || K < 1 ||
+      N < 1 || N % 4 || (shape != PRE && M > 8 * (shape + 1)) ||
+      cluster < 1 || cluster > 8 || w2 == nullptr ||
+      smem < i8_layout(shape, V_GATED, K, cluster).total ||
+      smem > I8_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const I8Args a = i8_args(x, xs, w, ws, w2, ws2, nullptr, nullptr, 0, act,
+                           out, q, qs, amax, arrive, M, K, N, V_GATED);
+  cudaError_t e = i8_opt_in();
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* c = static_cast<const int*>(counts);
+  e = q != nullptr
+          ? i8_grouped_run<EPI_QOUT>(a, c, E, shape, cluster, smem, st)
+          : i8_grouped_run<EPI_F32>(a, c, E, shape, cluster, smem, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

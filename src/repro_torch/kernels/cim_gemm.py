@@ -6,9 +6,12 @@ The port of ``repro/kernels/cim_gemm.py``.  The CUDA kernels live in
 tensor-core body in one of two tile shapes, with thread-block clusters
 splitting K, as :func:`gemm_plan` decides from (M, K, N) and the body's
 variant (int8 x, the gated pair of weights, or f32/bf16 x quantized in
-the kernel); the grouped GEMMs (kernels 7 and 8) share one template on
-the CUDA cores (see the note at the top of that file for what bounds
-them and how).  Every wrapper here:
+the kernel); the grouped gated GEMM (kernel 8) runs the gated body once
+per expert under :func:`grouped_plan`; the plain grouped GEMM (kernel 7)
+runs on a template for the CUDA cores; the row quantizer (kernel 1)
+holds each row in the registers of one block, as many threads as
+:func:`rowquant_plan` decides (see the note at the top of that file for
+what bounds them and how).  Every wrapper here:
 
 * takes its plain version (``*_plain``) when its tensors lie on the CPU;
 * on CUDA tensors checks dtype, shape, contiguity and alignment,
@@ -40,8 +43,10 @@ MAX_FUSED_QUANT_K = 4096
 
 _LIB = "cim_gemm"
 _FLOAT = (torch.float32, torch.bfloat16)
-_GROUPED_ARGS = [P] * 8 + [I] + [P] * 5 + [I] * 4 + [P]
+_GROUPED_ARGS = [P] * 6 + [I] + [P] * 5 + [I] * 4 + [P]
+_GROUPED_I8_ARGS = [P] * 7 + [I] + [P] * 5 + [I] * 7 + [P]
 _I8_ARGS = [P] * 8 + [I] * 3 + [P] * 5 + [I] * 7 + [P]
+_ROWQUANT_ARGS = [P, I, P, P] + [I] * 4 + [P]
 
 
 def _epilogue_plain(acc, x_scale, w_scale, bias, residual, activation):
@@ -109,12 +114,11 @@ def _requant_workspace(device: torch.device, n: int) -> torch.Tensor:
     return ws
 
 
-def _grouped_gemm(what, x_q, x_scale, w, w_scale, w2=None, w2_scale=None,
-                  bias=None, counts=None, activation=None,
-                  quantize_out=False):
-    """Launch the grouped GEMM template on x_q [E, M, K] int8 and w (w2)
-    [E, K, N], checked by the caller; returns f32 [E, M, N] or (q int8
-    [E, M, N], scale f32 [E, M, 1])."""
+def _grouped_gemm(x_q, x_scale, w, w_scale, bias=None, counts=None,
+                  activation=None, quantize_out=False):
+    """Launch the CUDA-core grouped GEMM (kernel 7) on x_q [E, M, K] int8
+    and w [E, K, N], checked by the caller; returns f32 [E, M, N] or
+    (q int8 [E, M, N], scale f32 [E, M, 1])."""
     E, M, K = x_q.shape
     N = w.shape[-1]
     dev = x_q.device
@@ -127,10 +131,10 @@ def _grouped_gemm(what, x_q, x_scale, w, w_scale, w2=None, w2_scale=None,
         ws = _requant_workspace(dev, E * M + bands)
         amax, arrive = ws[:E * M], ws[E * M:E * M + bands]
     fn = bind(_LIB, "cim_grouped_gemm_launch", _GROUPED_ARGS)
-    check(_LIB, fn(ptr(x_q), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
-                   ptr(w2_scale), ptr(bias), ptr(counts),
-                   ACTIVATIONS[activation], ptr(out), ptr(q), ptr(qs),
-                   ptr(amax), ptr(arrive), E, M, K, N, stream(x_q)), what)
+    check(_LIB, fn(ptr(x_q), ptr(x_scale), ptr(w), ptr(w_scale), ptr(bias),
+                   ptr(counts), ACTIVATIONS[activation], ptr(out), ptr(q),
+                   ptr(qs), ptr(amax), ptr(arrive), E, M, K, N, stream(x_q)),
+          "cim_grouped_gemm_int8")
     return (q, qs) if quantize_out else out
 
 
@@ -247,18 +251,19 @@ def _refusal(plan: GemmPlan, M: int, K: int) -> str | None:
     return None
 
 
-def _cluster_rule(kind: str, M: int, K: int, N: int, variant: str) -> int:
+def _cluster_rule(kind: str, M: int, K: int, N: int, variant: str,
+                  experts: int = 1) -> int:
     """The fewest blocks per cluster that give each SM (``SMS``) a weight
-    stream (a block of the gated pair streams two), at most
-    ``RULE_MAX_CLUSTER``, while every rank keeps a K step
-    (``PRE_MIN_STEPS`` of them on the prefill tile); more if the decode
-    tile's x slice needs it to fit."""
+    stream (a block of the gated pair streams two; the grouped GEMM has
+    ``experts`` times the blocks), at most ``RULE_MAX_CLUSTER``, while
+    every rank keeps a K step (``PRE_MIN_STEPS`` of them on the prefill
+    tile); more if the decode tile's x slice needs it to fit."""
     one = _plan_of(kind, 1, M, K, variant)
     least = 1 if kind == "decode" else PRE_MIN_STEPS
     streams = 2 if variant == "gated" else 1
     steps = -(-K // one.bk)
-    c = max(1, min(-(-SMS // (one.grid(M, N) * streams)), RULE_MAX_CLUSTER,
-                   steps // least))
+    blocks = one.grid(M, N) * streams * experts
+    c = max(1, min(-(-SMS // blocks), RULE_MAX_CLUSTER, steps // least))
     while c < CLUSTERS[-1] and _plan_of(kind, c, M, K, variant).smem \
             > MAX_SMEM:
         c += 1
@@ -287,6 +292,22 @@ def forced_gemm_plan(kind: str | None = None, cluster: int | None = None):
         _FORCED.update(saved)
 
 
+def _planned(M: int, K: int, N: int, variant: str, experts: int) -> GemmPlan:
+    kind = _FORCED.get("kind")
+    if kind is None:
+        kind = "decode" if M <= DECODE_MAX_M and _plan_of(
+            "decode", CLUSTERS[-1], M, K, variant).smem <= MAX_SMEM \
+            else "prefill"
+    cluster = _FORCED.get("cluster") or _cluster_rule(kind, M, K, N, variant,
+                                                      experts)
+    plan = _plan_of(kind, cluster, M, K, variant)
+    why = _refusal(plan, M, K)
+    if why is not None:
+        raise ValueError(f"GEMM plan {plan.kind} x{plan.cluster} at M={M} "
+                         f"K={K} N={N} ({variant}, E={experts}): {why}")
+    return plan
+
+
 def gemm_plan(M: int, K: int, N: int, variant: str = "int8") -> GemmPlan:
     """The launch plan of ``x [M, K] @ w [K, N]`` on the tensor-core
     GEMM, a function of (M, K, N) and the body's variant alone: the
@@ -295,18 +316,24 @@ def gemm_plan(M: int, K: int, N: int, variant: str = "int8") -> GemmPlan:
     Raises if a forced plan cannot be taken."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
-    kind = _FORCED.get("kind")
-    if kind is None:
-        kind = "decode" if M <= DECODE_MAX_M and _plan_of(
-            "decode", CLUSTERS[-1], M, K, variant).smem <= MAX_SMEM \
-            else "prefill"
-    cluster = _FORCED.get("cluster") or _cluster_rule(kind, M, K, N, variant)
-    plan = _plan_of(kind, cluster, M, K, variant)
-    why = _refusal(plan, M, K)
-    if why is not None:
-        raise ValueError(f"GEMM plan {plan.kind} x{plan.cluster} at M={M} "
-                         f"K={K} N={N} ({variant}): {why}")
-    return plan
+    return _planned(M, K, N, variant, 1)
+
+
+# the grid's z extent: the grouped GEMM's experts
+MAX_EXPERTS = 65535
+
+
+def grouped_plan(E: int, M: int, K: int, N: int) -> GemmPlan:
+    """The launch plan of the grouped gated GEMM (kernel 8) over E experts
+    of ``x [M, K] @ (w_gate, w_up) [K, N]`` each: the gated body's tile
+    rule (:func:`gemm_plan`), and a cluster rule that counts the blocks of
+    all E experts, since a function of the shapes alone cannot see which
+    experts hold tokens (at qwen2-moe's E 60 and 22 column tiles: cluster
+    1).  The launch has ``plan.grid(M, N) * E`` blocks.  Raises if E is
+    out of range or a forced plan cannot be taken."""
+    if not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"E={E} experts: the grid takes 1 to {MAX_EXPERTS}")
+    return _planned(M, K, N, "gated", E)
 
 
 def gemm_plans(M: int, K: int, N: int,
@@ -351,6 +378,34 @@ def _gemm_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
     return (q, qs) if quantize_out else out
 
 
+def _grouped_gated(x, x_scale, w_gate, gate_scale, w_up, up_scale, counts,
+                   activation, quantize_out):
+    """Launch the grouped gated body (kernel 8) on x [E, M, K] int8 and
+    the weights [E, K, N], checked by the caller, under
+    :func:`grouped_plan`; returns f32 [E, M, N] or (q int8 [E, M, N],
+    scale f32 [E, M, 1])."""
+    E, M, K = x.shape
+    N = w_gate.shape[-1]
+    dev = x.device
+    plan = grouped_plan(E, M, K, N)
+    out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
+    q = qs = amax = arrive = None
+    if quantize_out:
+        q = torch.empty((E, M, N), dtype=torch.int8, device=dev)
+        qs = torch.empty((E, M, 1), dtype=torch.float32, device=dev)
+        bands = E * -(-M // plan.bm)
+        ws = _requant_workspace(dev, E * M + bands)
+        amax, arrive = ws[:E * M], ws[E * M:E * M + bands]
+    fn = bind(_LIB, "cim_grouped_gated_i8_launch", _GROUPED_I8_ARGS)
+    check(_LIB, fn(ptr(x), ptr(x_scale), ptr(w_gate), ptr(gate_scale),
+                   ptr(w_up), ptr(up_scale), ptr(counts),
+                   ACTIVATIONS[activation], ptr(out), ptr(q), ptr(qs),
+                   ptr(amax), ptr(arrive), E, M, K, N, plan.shape,
+                   plan.cluster, plan.smem, stream(x)),
+          "cim_grouped_gated_gemm_int8")
+    return (q, qs) if quantize_out else out
+
+
 def kernel_smem_bytes(plan: GemmPlan, K: int) -> int:
     """The kernel's own count of :func:`smem_bytes`
     (``cim_gemm_i8_smem_bytes``); needs the built library."""
@@ -364,6 +419,80 @@ def _check_counts(counts, E):
 
 
 # ---------------------------------------------------------------------------
+# Launch plan of the row quantizer (kernel 1)
+# ---------------------------------------------------------------------------
+RQ_UNITS = 8              # units a thread holds at a time (RQ_V)
+RQ_MAX_THREADS = 1024     # threads of a block (RQ_MAX_NT)
+# threads a row takes unless it needs more to stay in registers
+RQ_THREADS = 512
+_X_ITEM = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowQuantPlan:
+    threads: int   # threads of the block that takes a row
+    vec: bool      # 16-byte units; else one value a unit
+    units: int     # units of a row
+
+    @property
+    def chunks(self) -> int:
+        """Passes of RQ_UNITS units a thread makes over its row: at 1 x is
+        read once; at more, all but the last chunk twice."""
+        return max(1, -(-self.units // (self.threads * RQ_UNITS)))
+
+
+_FORCED_RQ: dict = {}
+
+
+@contextlib.contextmanager
+def forced_rowquant_plan(threads: int):
+    """Force the threads of the row quantizer's block inside the block
+    (tests and timings of other plans)."""
+    if threads % 32 or not 32 <= threads <= RQ_MAX_THREADS:
+        raise ValueError(f"threads must be a multiple of 32 from 32 to "
+                         f"{RQ_MAX_THREADS}")
+    saved = dict(_FORCED_RQ)
+    _FORCED_RQ["threads"] = threads
+    try:
+        yield
+    finally:
+        _FORCED_RQ.clear()
+        _FORCED_RQ.update(saved)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def rowquant_plan(M: int, K: int, dtype: torch.dtype,
+                  aligned: bool = True) -> RowQuantPlan:
+    """The launch plan of the row quantizer on x [M, K] of ``dtype``
+    (float32 or bfloat16), a function of its arguments alone
+    (``aligned``: x's first byte is 16-byte aligned).  Rows whose bytes
+    divide into 16 (and are aligned) take 16-byte units, else single
+    values.  A row takes one block with the fewest threads (whole warps,
+    a power of two, at most RQ_THREADS unless the row needs more to stay
+    in registers, RQ_UNITS units a thread) that give each two units when
+    the rows are fewer than 4 SMS, four when they are more."""
+    if dtype not in _X_ITEM:
+        raise ValueError(f"dtype must be one of {tuple(_X_ITEM)}")
+    if M < 1 or K < 1:
+        raise ValueError(f"x [{M}, {K}] is empty")
+    xb = _X_ITEM[dtype]
+    vec = aligned and K * xb % 16 == 0
+    units = K * xb // 16 if vec else K
+    threads = _FORCED_RQ.get("threads")
+    if threads is None:
+        lane = 2 if M < 4 * SMS else 4
+        threads = min(RQ_THREADS,
+                      max(32, _pow2_at_least(-(-units // lane))))
+        if threads * RQ_UNITS < units:
+            threads = min(RQ_MAX_THREADS,
+                          _pow2_at_least(-(-units // RQ_UNITS)))
+    return RowQuantPlan(threads, vec, units)
+
+
+# ---------------------------------------------------------------------------
 # Row quantizer (kernel 1)
 # ---------------------------------------------------------------------------
 def quantize_rows_int8_plain(x):
@@ -372,16 +501,19 @@ def quantize_rows_int8_plain(x):
 
 def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row symmetric int8: x [M, K] f32/bf16 ->
-    (q int8 [M, K], scale f32 [M, 1])."""
+    (q int8 [M, K], scale f32 [M, 1]), in one launch under
+    :func:`rowquant_plan`."""
     if on_cpu(x):
         return quantize_rows_int8_plain(x)
     require(x, "x", _FLOAT)
     M, K = x.shape
+    plan = rowquant_plan(M, K, x.dtype, x.data_ptr() % 16 == 0)
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    fn = bind(_LIB, "cim_quantize_rows_int8", [P, I, P, P, I, I, P])
+    fn = bind(_LIB, "cim_quantize_rows_int8", _ROWQUANT_ARGS)
     check(_LIB, fn(ptr(x), DTYPE_CODE[x.dtype], ptr(q), ptr(s), M, K,
-                   stream(x)), "quantize_rows_int8")
+                   plan.threads, int(plan.vec), stream(x)),
+          "quantize_rows_int8")
     quantize_rows_int8.launches += 1
     return q, s
 
@@ -569,9 +701,8 @@ def cim_grouped_gemm_int8(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         require(bias, "bias", torch.float32, (E, N))
     _check_counts(counts, E)
-    out = _grouped_gemm("cim_grouped_gemm_int8", x, x_scale, w, w_scale,
-                        bias=bias, counts=counts, activation=activation,
-                        quantize_out=quantize_out)
+    out = _grouped_gemm(x, x_scale, w, w_scale, bias=bias, counts=counts,
+                        activation=activation, quantize_out=quantize_out)
     cim_grouped_gemm_int8.launches += 1
     return out
 
@@ -600,11 +731,13 @@ def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
                                 activation: str = "gelu",
                                 quantize_out: bool = False):
     """All experts' gated front halves ``act(x@Wg) * (x@Wu)`` in one
-    launch: x [E, M, K] int8, w_gate/w_up [E, K, N] int8, scales
-    ``x_scale [E, M, 1]``, ``gate_scale``/``up_scale [E, N]`` -> f32
-    [E, M, N], or with ``quantize_out`` (q int8 [E, M, N], scale f32
-    [E, M, 1]) for the grouped down GEMM.  ``counts`` as in
-    :func:`cim_grouped_gemm_int8`."""
+    launch on the gated tensor-core body under :func:`grouped_plan`: x
+    [E, M, K] int8, w_gate/w_up [E, K, N] int8, scales ``x_scale [E, M,
+    1]``, ``gate_scale``/``up_scale [E, N]`` -> f32 [E, M, N], or with
+    ``quantize_out`` (q int8 [E, M, N], scale f32 [E, M, 1]) for the
+    grouped down GEMM.  ``counts`` as in :func:`cim_grouped_gemm_int8`:
+    an idle expert's tiles store the zero accumulators' output and
+    stream nothing."""
     if on_cpu(x, w_gate, w_up, x_scale, gate_scale, up_scale, counts):
         h = cim_grouped_gated_gemm_int8_plain(x, w_gate, w_up, x_scale,
                                               gate_scale, up_scale, counts,
@@ -617,9 +750,8 @@ def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
     if _check_weight(w_up, up_scale, K, "w_up", E=E) != N:
         raise ValueError("gate and up widths differ")
     _check_counts(counts, E)
-    out = _grouped_gemm("cim_grouped_gated_gemm_int8", x, x_scale, w_gate,
-                        gate_scale, w_up, up_scale, counts=counts,
-                        activation=activation, quantize_out=quantize_out)
+    out = _grouped_gated(x, x_scale, w_gate, gate_scale, w_up, up_scale,
+                         counts, activation, quantize_out)
     cim_grouped_gated_gemm_int8.launches += 1
     return out
 

@@ -24,6 +24,8 @@ softmax 2e-5 (f32) and 2**-7 (bf16).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -66,6 +68,71 @@ def test_rowquant_bitwise(dev, M, K, dtype):
     torch.cuda.synchronize()
     assert cg.quantize_rows_int8.launches == before + 1
     assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+def _rows_with_edges(rng, M, K):
+    """f32 rows [M, K] of normal values at magnitudes from 1e-2 to 1e2,
+    where they exist with row 1 all zero (scale 1e-12 / 127), row 2 of
+    exact ties at scale 1 (|max| 127; 0.5, 1.5, ..., 126.5 and their
+    negatives divide to half-integers exactly) and row 3 of exact ties at
+    scale 2 (|max| 254; odd integers); every value is a bf16 value too,
+    so both dtypes meet the same ties."""
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x *= rng.uniform(1e-2, 1e2, (M, 1)).astype(np.float32)
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    if M > 1:
+        x[1] = 0.0
+    k = np.arange(K) // 2 % 127
+    sign = np.where(np.arange(K) % 2, 1.0, -1.0)
+    for row, (amax, step) in ((2, (127.0, 0.5)), (3, (254.0, 1.0))):
+        if row < M:
+            x[row] = sign * step * (2 * k + 1)
+            x[row, 0] = amax
+    return x
+
+
+# M from one row to a 4096-token forward, K of gemma-2b's d_model, qwen2's
+# shared d_ff, gemma-2b's d_ff and a ragged width (single-value units);
+# one long row that takes more than one chunk
+@pytest.mark.parametrize("M,K", [(1, 2048), (3, 1030), (8, 16384),
+                                 (8, 5632), (130, 1030), (480, 2048),
+                                 (4096, 16384), (1, 1 << 20)])
+def test_rowquant_bitwise_under_every_plan(dev, M, K):
+    """Kernel 1 under the plan's rule and with 32, 128 and 1024 threads a
+    block (rows of several chunks, and of one), f32 and bf16 x: the codes
+    and scales bitwise its plain version, all-zero rows and exact ties
+    included; one launch a call."""
+    x = _rows_with_edges(_gen(60), M, K)
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = _t(x, dev, dtype)
+        qr, sr = cg.quantize_rows_int8_plain(xt)
+        rule = cg.rowquant_plan(M, K, dtype)
+        for threads in (rule.threads, 32, 128, 1024):
+            with cg.forced_rowquant_plan(threads):
+                plan = cg.rowquant_plan(M, K, dtype)
+                assert plan == dataclasses.replace(rule, threads=threads)
+                before = cg.quantize_rows_int8.launches
+                q, s = cg.quantize_rows_int8(xt)
+                torch.cuda.synchronize()
+                assert cg.quantize_rows_int8.launches == before + 1
+                assert torch.equal(q, qr) and torch.equal(s, sr), plan
+
+
+def test_rowquant_unaligned_rows_take_single_values(dev):
+    """x whose first byte is not 16-byte aligned (a view one value into
+    its storage) takes the single-value units, bitwise the plain
+    version."""
+    x = _rows_with_edges(_gen(61), 9, 2048)
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = _t(np.concatenate([[1.0], x.ravel()]).astype(np.float32),
+                  dev, dtype)
+        xt = flat[1:].view(9, 2048)
+        assert xt.data_ptr() % 16 and xt.is_contiguous()
+        assert not cg.rowquant_plan(9, 2048, dtype, aligned=False).vec
+        q, s = cg.quantize_rows_int8(xt)
+        qr, sr = cg.quantize_rows_int8_plain(xt)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 96), (13, 100, 36),
@@ -515,6 +582,107 @@ def test_grouped_gated_close_and_requant_bitwise(dev, E, M, K, N):
     assert s.shape == (E, M, 1)
 
 
+# qwen2-moe's served decode (E 60, M 8) and its TP-2 expert shard (E 30),
+# the decode tile at 16 rows, prefill chunks (17 and 136 rows an expert)
+# and ragged widths; one row
+@pytest.mark.parametrize("E,M,K,N", [(60, 8, 2048, 1408),
+                                     (30, 8, 2048, 1408), (4, 16, 1030, 264),
+                                     (3, 17, 1030, 264), (5, 136, 2048, 512),
+                                     (2, 1, 96, 36)])
+def test_grouped_gated_bitwise_under_every_plan(dev, E, M, K, N):
+    """Kernel 8 on the gated tensor-core body under every plan it takes
+    (both tile shapes, clusters 1 to 8), an idle expert in the skip list:
+    without an activation bitwise its plain version, gelu and silu within
+    1e-5, the requant bitwise the row quantizer of its own f32 output.
+    One launch a call."""
+    x, xs, [(wg, gs), (wu, us)], counts = _grouped(_gen(62), E, M, K, N,
+                                                   dev, zero=(E - 1,))
+    args = (x, wg, wu, xs, gs, us, counts)
+    bare = cg.cim_grouped_gated_gemm_int8_plain(*args, None)
+    acts = {act: cg.cim_grouped_gated_gemm_int8_plain(*args, act)
+            for act in ("gelu", "silu")}
+    plans = cg.gemm_plans(M, K, N, "gated")
+    assert cg.grouped_plan(E, M, K, N) in plans
+    for plan in plans:
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            assert cg.grouped_plan(E, M, K, N) == plan
+            n8 = cg.cim_grouped_gated_gemm_int8.launches
+            assert torch.equal(cg.cim_grouped_gated_gemm_int8(
+                *args, activation=None), bare), plan
+            for act, ref in acts.items():
+                torch.testing.assert_close(cg.cim_grouped_gated_gemm_int8(
+                    *args, activation=act), ref, rtol=1e-5, atol=1e-6)
+            h = cg.cim_grouped_gated_gemm_int8(*args, activation="silu")
+            q, s = cg.cim_grouped_gated_gemm_int8(*args, activation="silu",
+                                                  quantize_out=True)
+            qr, sr = cg.quantize_rows_int8_plain(h)
+            torch.cuda.synchronize()
+            assert torch.equal(q, qr) and torch.equal(s, sr), plan
+            assert cg.cim_grouped_gated_gemm_int8.launches == n8 + 5
+
+
+@pytest.mark.parametrize("active", [0, 1, 25, 60])
+def test_grouped_gated_skip_list_at_the_served_shape(dev, active):
+    """Kernel 8 at qwen2-moe's decode shape with 0, 1, 25 and 60 of 60
+    experts holding tokens (the idle experts' rows zero, as the dispatch
+    leaves them): the output bitwise the run without a skip list (the
+    reference's claim) and the plain version, the idle experts' rows +0
+    in f32, and with the requant code 0 at scale row_scale(0)."""
+    E, M, K, N = 60, 8, 2048, 1408
+    rng = _gen(63)
+    idle = tuple(sorted(rng.permutation(E)[active:]))
+    x, xs, [(wg, gs), (wu, us)], counts = _grouped(rng, E, M, K, N, dev,
+                                                   zero=idle)
+    assert int((counts > 0).sum()) == active
+    args = (x, wg, wu, xs, gs, us)
+    h = cg.cim_grouped_gated_gemm_int8(*args, counts, activation=None)
+    assert torch.equal(h, cg.cim_grouped_gated_gemm_int8(*args,
+                                                         activation=None))
+    assert torch.equal(h, cg.cim_grouped_gated_gemm_int8_plain(
+        *args, counts, None))
+    q, s = cg.cim_grouped_gated_gemm_int8(*args, counts, activation="silu",
+                                          quantize_out=True)
+    qr, sr = cg.quantize_rows_int8_plain(cg.cim_grouped_gated_gemm_int8(
+        *args, counts, activation="silu"))
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    off = counts == 0
+    zero_scale = torch.full((), 1e-12, device=dev) / torch.full(
+        (), 127.0, device=dev)
+    assert not torch.signbit(h[off]).any() and not h[off].any()
+    assert not q[off].any() and bool((s[off] == zero_scale).all())
+
+
+def test_grouped_gated_decode_plans_replay_their_bits_from_a_graph(dev):
+    """A CUDA-graph replay of each decode plan of kernel 8 at the served
+    shape (25 of 60 experts active) returns the eager launch's bits, with
+    and without the requant epilogue (its counters reset by the launch
+    before the capture)."""
+    E, M, K, N = 60, 8, 2048, 1408
+    rng = _gen(64)
+    x, xs, [(wg, gs), (wu, us)], counts = _grouped(
+        rng, E, M, K, N, dev, zero=tuple(rng.permutation(E)[25:]))
+    args = (x, wg, wu, xs, gs, us, counts)
+    for plan in cg.gemm_plans(M, K, N, "gated"):
+        if plan.kind != "decode":
+            continue
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            def calls():
+                return (cg.cim_grouped_gated_gemm_int8(*args, "silu"),
+                        *cg.cim_grouped_gated_gemm_int8(
+                            *args, "silu", quantize_out=True))
+            eager = calls()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = calls()
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                for a, e in zip(captured, eager):
+                    assert torch.equal(a, e), plan
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 2048, 5632), (8, 1408, 1408),
                                    (37, 300, 1000)])
 def test_requant_epilogue_bitwise_dense(dev, M, K, N):
@@ -937,10 +1105,14 @@ def test_tp_two_ranks_on_one_card_bitwise(dev):
 # shapes (("i8", EPI, SHAPE, VAR): SHAPE 0 and 1 the decode tile at 8 and
 # 16 rows, 2 the prefill tile; VAR 0 int8 x (kernels 3 and 6), 1 the gated
 # pair (kernel 4), 2 and 3 f32 and bf16 x quantized in the kernel (kernel
-# 2)) and of the grouped GEMMs' CUDA-core template cim_gemm_kernel<GATED,
-# EPI> (("grouped", GATED, EPI): kernels 7 and 8).  A change that moves
-# one (as run-time branches once took the int8 GEMM template from 80 to
-# 66 and slowed gemma-2b's down GEMM 1.5x) fails that mode's test here.
+# 2)), of the grouped gated GEMM on the same body,
+# cim_gemm_i8_grouped_kernel<EPI, SHAPE> (("grouped_i8", EPI, SHAPE):
+# kernel 8), of the plain grouped GEMM's CUDA-core template
+# cim_gemm_kernel<EPI> (("grouped", EPI): kernel 7) and of the row
+# quantizer rowquant_kernel<XE, VEC> (("rowquant", XE, VEC): kernel 1, f32
+# or bf16 x, 16-byte or single-value units).  A change that moves one (as
+# run-time branches once took the int8 GEMM template from 80 to 66 and
+# slowed gemma-2b's down GEMM 1.5x) fails that mode's test here.
 GEMM_MODES = {
     "qin_f32": {("i8", 0, 0, 2): 110, ("i8", 0, 1, 2): 113,   # kernel 2
                 ("i8", 0, 2, 2): 180},
@@ -954,12 +1126,18 @@ GEMM_MODES = {
               ("i8", 0, 2, 1): 128},
     "gated_requant": {("i8", 1, 0, 1): 90, ("i8", 1, 1, 1): 101,
                       ("i8", 1, 2, 1): 148},
-    "grouped": {("grouped", 0, 0): 64},           # kernel 7
-    "grouped_requant": {("grouped", 0, 1): 80},
-    "grouped_gated": {("grouped", 1, 0): 168},    # kernel 8
-    "grouped_gated_requant": {("grouped", 1, 1): 170},
+    "grouped": {("grouped", 0): 64},              # kernel 7
+    "grouped_requant": {("grouped", 1): 80},
+    "grouped_gated": {("grouped_i8", 0, 0): 102,            # kernel 8
+                      ("grouped_i8", 0, 1): 106,
+                      ("grouped_i8", 0, 2): 165},
+    "grouped_gated_requant": {("grouped_i8", 1, 0): 92,
+                              ("grouped_i8", 1, 1): 104,
+                              ("grouped_i8", 1, 2): 163},
     "acc": {("i8", 2, 0, 0): 92, ("i8", 2, 1, 0): 96,       # kernel 6
             ("i8", 2, 2, 0): 158},
+    "rowquant": {("rowquant", 4, 1): 57, ("rowquant", 4, 0): 50,  # kernel 1
+                 ("rowquant", 2, 1): 61, ("rowquant", 2, 0): 46},
 }
 
 
@@ -981,16 +1159,15 @@ def _mode_registers():
         return {k: int(v) for k, v in (f.split(":") for f in use.split())
                 if v.isdigit()}
     out = {}
-    pat = re.compile(r"Function \S*cim_gemm_kernelILb([01])ELi(\d)EE"
-                     r"\S*:\s*\n\s*(.*)")
-    for m in pat.finditer(text):
-        gated, epi, use = m.groups()
-        out[("grouped", int(gated), int(epi))] = usage(use)
-    pat = re.compile(r"Function \S*cim_gemm_i8_kernelILi(\d)ELi(\d)ELi(\d)EE"
-                     r"\S*:\s*\n\s*(.*)")
-    for m in pat.finditer(text):
-        epi, shape, var, use = m.groups()
-        out[("i8", int(epi), int(shape), int(var))] = usage(use)
+    for kind, name in (("grouped", r"cim_gemm_kernelILi(\d)EE"),
+                       ("i8", r"cim_gemm_i8_kernelILi(\d)ELi(\d)ELi(\d)EE"),
+                       ("grouped_i8",
+                        r"cim_gemm_i8_grouped_kernelILi(\d)ELi(\d)EE"),
+                       ("rowquant", r"rowquant_kernelILi(\d)ELb([01])EE")):
+        pat = re.compile(r"Function \S*" + name + r"\S*:\s*\n\s*(.*)")
+        for m in pat.finditer(text):
+            *args, use = m.groups()
+            out[(kind, *map(int, args))] = usage(use)
     return out
 
 
@@ -1004,6 +1181,11 @@ def _run_mode(mode, dev):
     (w, ws), (w2, ws2) = _w(rng, K, N, dev), _w(rng, K, N, dev)
     gx, gxs, [(gw, gws), (gw2, gws2)], counts = _grouped(rng, E, M, K, N,
                                                          dev, zero=(1,))
+    if mode == "rowquant":
+        q, sc = cg.quantize_rows_int8(x)
+        qr, sr = cg.quantize_rows_int8_plain(x)
+        return (torch.cat([q.float(), sc], -1),
+                torch.cat([qr.float(), sr], -1), True)
     if mode.startswith("qin"):
         xx = x.to(torch.bfloat16) if mode == "qin_bf16" else x
         return (cg.cim_gemm_int8_fused_qin(xx, w, ws),
@@ -1037,7 +1219,7 @@ def test_gemm_template_mode_and_registers(dev, mode):
     bitwise the row quantizer of the kernel's f32 output) and keeps its
     registers at every tile shape, with nothing spilled; the library
     holds exactly the instantiations pinned here (the CUDA-core template
-    none of a dense GEMM)."""
+    none of a dense or a gated GEMM)."""
     out, ref, exact = _run_mode(mode, dev)
     torch.cuda.synchronize()
     if exact:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -363,3 +364,121 @@ def test_cim_gated_gemm_int8_matches_jax_at_ragged_prefill(act):
                                   activation=act, quantize_out=True)
     assert np.abs(to_np(q).astype(int) - wq.astype(int)).max() <= 1
     np.testing.assert_allclose(to_np(s), wsc, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: the grouped gated GEMM's plan, and its plain version against
+# the JAX kernel at a ragged shape
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("E", [60, 30])
+@pytest.mark.parametrize("M", [8, 16, 17, 136])
+def test_grouped_plan_at_the_served_shapes(E, M):
+    """qwen2-moe's experts (K 2048, N 1408) at serve-moe's decode (E 60,
+    8 capacity rows), its TP-2 expert shard (E 30), the 16-row decode tile
+    and prefill chunks of 17 and 136 rows an expert: the gated body's tile
+    (8 or 16 rows, else 128-row prefill tiles), 64 output columns,
+    cluster 1 (E x 22 column tiles x 2 weight streams give every SM a
+    stream many times over), the launch E times the body's grid, the gated
+    body's shared bytes."""
+    plan = cg.grouped_plan(E, M, 2048, 1408)
+    assert plan.variant == "gated" and plan.cluster == 1 and plan.bn == 64
+    assert plan.kind == ("decode" if M <= 16 else "prefill")
+    assert plan.bm == {8: 8, 16: 16}.get(M, 128)
+    assert plan == cg._plan_of(plan.kind, 1, M, 2048, "gated")
+    assert plan.grid(M, 1408) * E == E * 22 * (1 if M <= 128 else 2)
+    assert plan.smem <= cg.MAX_SMEM
+    assert plan in cg.gemm_plans(M, 2048, 1408, "gated")
+
+
+def test_grouped_plan_counts_every_expert_and_refuses():
+    """The cluster rule counts the blocks of all E experts (the plan
+    cannot see which hold tokens): one expert at qwen2-moe's width is the
+    dense gated plan (22 tiles x 2 streams: a cluster of 3), two take 2,
+    three fill the card at 1.  E outside 1 to 65535 (the grid's z extent)
+    raises, and so does a forced plan the body cannot take, as in
+    gemm_plan; a forced plan the body takes is taken."""
+    assert cg.grouped_plan(1, 8, 2048, 1408) == cg.gemm_plan(8, 2048, 1408,
+                                                             "gated")
+    assert [cg.grouped_plan(E, 8, 2048, 1408).cluster
+            for E in (1, 2, 3, 60)] == [3, 2, 1, 1]
+    for E in (0, -1, 65536):
+        with pytest.raises(ValueError, match="experts"):
+            cg.grouped_plan(E, 8, 2048, 1408)
+    with cg.forced_gemm_plan(kind="decode"):
+        with pytest.raises(ValueError, match="at most 16 rows"):
+            cg.grouped_plan(60, 17, 2048, 1408)
+    with cg.forced_gemm_plan(cluster=8):
+        with pytest.raises(ValueError, match="without a K step"):
+            cg.grouped_plan(60, 8, 700, 1408)
+    with cg.forced_gemm_plan("prefill", 2):
+        plan = cg.grouped_plan(60, 8, 2048, 1408)
+        assert (plan.kind, plan.cluster) == ("prefill", 2)
+
+
+def _grouped_gated_jax(x, xs, wg, gs, wu, us, counts, act):
+    """The JAX grouped gated kernel padded as ``ops`` pads the grouped
+    MLP (rows to 32, K to CORE_K, N to CORE_N), interpret mode, sliced
+    back."""
+    E, M, _ = x.shape
+    N = wg.shape[-1]
+    x_p = jops._pad_grouped_acts(jnp.asarray(x))
+    s_p, _ = jops._pad_to(jnp.asarray(xs), 1, jops.GROUP_ROW_ALIGN)
+    g_p, gs_p, _ = jops._pad_grouped_weight(jnp.asarray(wg), jnp.asarray(gs))
+    u_p, us_p, _ = jops._pad_grouped_weight(jnp.asarray(wu), jnp.asarray(us))
+    out = jcg.cim_grouped_gated_gemm_int8(
+        x_p, g_p, u_p, s_p, gs_p, us_p, counts=jnp.asarray(counts),
+        activation=act, interpret=True)
+    return to_np(out[:, :M, :N])
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_grouped_gated_plain_matches_jax_at_ragged_shape(act):
+    """Kernel 8's plain version (which the kernel is on the card: bitwise,
+    activations within 1e-5) against the JAX kernel at E 3, M 13, K 1030,
+    N 264 with expert 1 idle (count 0, its rows zero, as the dispatch
+    leaves an empty capacity buffer): the f32 output within RTOL = 1e-6
+    of its largest |h| (the interpreter fuses the epilogue; XLA's exp
+    against torch's); without an activation bitwise the reference's
+    epilogue run op by op on its exact int32 sums (ROADMAP C.2: hold the
+    grouped kernels against the oracle where the interpreter differs);
+    the requant bitwise the reference's row quantizer of the f32 output,
+    not the interpreter's in-kernel requant, which multiplies by 1/127
+    (C.2, as ``tests/test_torch_moe.py`` holds kernels 7 and 8); the idle
+    expert's rows +0, code 0, scale 1e-12 / 127."""
+    r = rng(45)
+    E, M, K, N = 3, 13, 1030, 264
+    x = r.integers(-127, 128, (E, M, K)).astype(np.int8)
+    xs = r.uniform(1e-3, 1e-2, (E, M, 1)).astype(np.float32)
+    x[1] = 0
+    xs[1] = np.float32(1e-12) / np.float32(127)
+    counts = np.array([2, 0, 5], np.int32)
+    wg, wu = (r.integers(-127, 128, (E, K, N)).astype(np.int8)
+              for _ in range(2))
+    gs, us = (r.uniform(1e-3, 2e-2, (E, N)).astype(np.float32)
+              for _ in range(2))
+    got = cg.cim_grouped_gated_gemm_int8(t(x), t(wg), t(wu), t(xs), t(gs),
+                                         t(us), counts=t(counts),
+                                         activation=act)
+    want = _grouped_gated_jax(x, xs, wg, gs, wu, us, counts, act)
+    got = to_np(got)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+    if act is None:
+        acc_g, acc_u = (jnp.where(jnp.asarray(counts)[:, None, None] > 0,
+                                  jax.vmap(jref.cim_gemm_int8_ref)(
+                                      jnp.asarray(x), jnp.asarray(w)), 0)
+                        for w in (wg, wu))
+        g = acc_g.astype(jnp.float32) * jnp.asarray(xs) \
+            * jnp.asarray(gs)[:, None, :]
+        u = acc_u.astype(jnp.float32) * jnp.asarray(xs) \
+            * jnp.asarray(us)[:, None, :]
+        np.testing.assert_array_equal(got, to_np(g * u))
+    assert not got[1].any() and not np.signbit(got[1]).any()
+    q, s = cg.cim_grouped_gated_gemm_int8(t(x), t(wg), t(wu), t(xs), t(gs),
+                                          t(us), counts=t(counts),
+                                          activation=act, quantize_out=True)
+    rq, rs = jref.quantize_rows_int8_ref(jnp.asarray(got))
+    np.testing.assert_array_equal(to_np(q), to_np(rq))
+    np.testing.assert_array_equal(to_np(s), to_np(rs))
+    assert not to_np(q)[1].any()
+    assert (to_np(s)[1] == np.float32(1e-12) / np.float32(127)).all()

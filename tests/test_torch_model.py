@@ -240,7 +240,7 @@ def test_port_imports_no_jax_subprocess():
             "repro_torch.parallel.context, repro_torch.parallel.sharding, "
             "repro_torch.quant.tp\n"
             "sys.path.insert(0, '.')\n"
-            "import chip_smoke\n"
+            "import chip_smoke, ab_kernels\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes')\n"
@@ -255,7 +255,7 @@ def test_port_imports_no_jax_subprocess():
 
 def test_port_sources_import_no_jax():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "ab_kernels.py"]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
