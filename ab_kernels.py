@@ -5,13 +5,15 @@
 
 DIR holds the other checkout's ``src/`` (for example a parent commit
 unpacked with ``git archive HEAD^ src | tar -x -C build/parent``).  Each
-KERNEL names a wrapper of ``repro_torch.kernels.cim_gemm`` with cases in
-CASES.  The trees run in turns old | new | new | old, one process a turn
-(both packages are ``repro_torch``), each building only
-``csrc/cim_gemm.cu``.  One line a case gives the four times (ms, CUDA-graph
-replays through ``chip_smoke.time_ms``, operands cold in L2) and whether
-all four turns gave the same output bits.  Exits 1 if any case's bits
-differ between turns, 2 on bad arguments or no GPU.
+KERNEL names a wrapper of ``repro_torch.kernels.cim_gemm`` or
+``repro_torch.kernels.decode_attention`` with cases in CASES.  The trees
+run in turns old | new | new | old, one process a turn (both packages
+are ``repro_torch``), each building only the sources of the named
+kernels (``csrc/cim_gemm.cu``, ``csrc/decode_attention.cu``, as
+``chip_smoke.SOURCES`` lists them).  One line a case gives the four
+times (ms, CUDA-graph replays through ``chip_smoke.time_ms``, operands
+cold in L2) and whether all four turns gave the same output bits.  Exits
+1 if any case's bits differ between turns, 2 on bad arguments or no GPU.
 """
 from __future__ import annotations
 
@@ -68,26 +70,52 @@ def _grouped_cases(torch, cs, cg, gen):
                     cg.cim_grouped_gemm_int8(x, w, xs, ws, counts=cnt)]
 
 
+def _combine_cases(torch, cs, cg, gen):
+    """Kernel 10 at serve-long's end state (B 4, KH 1, G 8, D 256, NS 4,
+    bf16 out) on split states drawn from the seed, enough copies that
+    each call finds its partials cold; launched plainly (back to back,
+    dependent launches would overlap one another)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    da.COMBINE_PDL = False
+    B, KH, G, D = len(cs.LONG_PROMPTS), 1, 8, 256
+    NS = ops.n_splits_for(cs.LONG_MAX_LEN)
+    dev = gen.device
+
+    def states():
+        return (torch.randn((B, KH, NS, G, D), device=dev, generator=gen),
+                torch.randn((B, KH, NS, G, 1), device=dev,
+                            generator=gen) * 3,
+                torch.rand((B, KH, NS, G, 1), device=dev,
+                           generator=gen) * 50 + 0.5)
+    parts = [states() for _ in range(cs.copies_for(B * KH * NS * G * D * 4))]
+    yield (f"B={B} KH={KH} G={G} D={D} NS={NS} bf16",
+           [lambda p=p: da.decode_attention_combine(*p, torch.bfloat16)
+            for p in parts])
+
+
 # wrapper name -> cases (label, calls on distinct inputs); add a kernel
 # here to time it
 CASES = {
     "quantize_rows_int8": _rowquant_cases,
     "cim_grouped_gated_gemm_int8": _grouped_gated_cases,
     "cim_grouped_gemm_int8": _grouped_cases,
+    "decode_attention_combine": _combine_cases,
 }
 
 
 def child(src: str, kernels: list[str]) -> int:
-    """Build ``src/repro_torch``'s cim_gemm.cu, time each case of
-    ``kernels`` and print the times and the outputs' digests as the last
-    line."""
+    """Build the sources of ``kernels`` in ``src/repro_torch``, time each
+    case of ``kernels`` and print the times and the outputs' digests as
+    the last line."""
     import torch
     sys.path.insert(0, src)
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
     from repro_torch.kernels import _build
     from repro_torch.kernels import cim_gemm as cg
-    _build.sources = lambda: [_build.CSRC / "cim_gemm.cu"]
+    names = sorted({pathlib.Path(cs.SOURCES[k][0]).name for k in kernels})
+    _build.sources = lambda: [_build.CSRC / n for n in names]
     t0 = time.perf_counter()
     _build.build_all()
     cs.say(f"[ab] {_build.CSRC.parent} built in "
@@ -101,7 +129,8 @@ def child(src: str, kernels: list[str]) -> int:
             torch.cuda.synchronize()
             h = hashlib.sha256()
             for t in out if isinstance(out, tuple) else (out,):
-                h.update(t.cpu().numpy().tobytes())
+                h.update(t.cpu().contiguous().view(torch.uint8).numpy()
+                         .tobytes())
             digests[name] = h.hexdigest()
             times[name] = cs.time_ms(torch, calls)
             del calls, out

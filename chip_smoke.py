@@ -96,8 +96,11 @@ the JAX package.  Phases, each printing its lines:
             4096-token forward's hidden requant) under its plan and at
             half and twice its threads; the grouped GEMMs with the
             expert counts of a served decode step and with every expert
-            active (kernel 8 also under every plan of its body), kernels
-            3 and 4 with the
+            active (kernels 7 and 8 also under every plan of their body,
+            kernel 7 also at a prefill chunk of 48 rows an expert); the
+            split walk then the combine at serve-long's end state, the
+            combine launched plainly and as a programmatic dependent of
+            the walk; kernels 3 and 4 with the
             requant epilogue at the shared MLP's shapes, and kernel 6 at
             the TP partials' shapes (beside ``torch._int_mm``); the
             tensor-core GEMM of kernels 2, 3, 4 and 6 under every plan
@@ -1825,9 +1828,10 @@ def times_rowquant(torch, card: str) -> dict:
 
 
 def times_grouped_plans(torch, card: str, counts) -> None:
-    """Kernel 8 at serve-moe's decode shape with a served step's expert
-    counts, with its requant, under every plan the gated body takes (one
-    line a plan)."""
+    """The grouped GEMMs under every plan their body takes (one line a
+    plan), with a served step's expert counts: kernel 8 at serve-moe's
+    decode shape with its requant; kernel 7 at the experts' down GEMM at
+    decode (T 8) and at a prefill chunk's 48 capacity rows an expert."""
     from repro_torch.kernels import cim_gemm as cg
     gen = torch.Generator(device=counts.device).manual_seed(9)
     E, T, K, N = MOE_E, 8, MOE_D, MOE_F
@@ -1844,6 +1848,20 @@ def times_grouped_plans(torch, card: str, counts) -> None:
             f"active, T={T}, K={K}, N={N}) {plan.kind} cluster "
             f"{plan.cluster}: {ms:.4f} ms, grid {plan.grid(T, N) * E} "
             f"blocks{' (the rule)' if plan == rule else ''} on {card}")
+    del x, xs, wg, gs, wu, us
+    K, N = MOE_F, MOE_D
+    wd, ds = _stack(torch, E, K, N, gen)
+    for T in (8, 48):
+        x, xs = _grouped_rows(torch, counts, T, K, gen)
+        rule = cg.grouped_plan(E, T, K, N, "int8")
+        for plan in cg.gemm_plans(T, K, N, "int8"):
+            with cg.forced_gemm_plan(plan.kind, plan.cluster):
+                ms = time_ms(torch, [lambda: cg.cim_grouped_gemm_int8(
+                    x, wd, xs, ds, counts=counts)])
+            say(f"[times] cim_grouped_gemm_int8 plan (E={E}, {active} "
+                f"active, T={T}, K={K}, N={N}) {plan.kind} cluster "
+                f"{plan.cluster}: {ms:.4f} ms, grid {plan.grid(T, N) * E} "
+                f"blocks{' (the rule)' if plan == rule else ''} on {card}")
 
 
 def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
@@ -2036,6 +2054,11 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     parts = [da.decode_attention_partial(*a, n_splits=NS) for a in insts]
     parts += [tuple(t.clone() for t in parts[i % len(parts)])
               for i in range(copies_for(part_bytes) - len(parts))]
+    # the combine alone launched plainly (back to back, dependent launches
+    # would overlap one another); then the split walk and the combine as
+    # served, one after the other, the combine launched plainly and as a
+    # programmatic dependent of the walk
+    pdl0, da.COMBINE_PDL = da.COMBINE_PDL, False
     ms = time_ms(torch, [(lambda p=p: da.decode_attention_combine(
         *p, torch.bfloat16)) for p in parts])
     plain_ms = time_ms(torch, [lambda: da.decode_attention_combine_plain(
@@ -2045,6 +2068,17 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     rows.append(dict(name="decode_attention_combine", ms=ms,
                      plain_ms=plain_ms, bound_ms=b, bound_by=by,
                      library_ms=None))
+    pair = {}
+    for pdl in (False, True):
+        da.COMBINE_PDL = pdl
+        pair[pdl] = time_ms(torch, [(
+            lambda a=a: da.decode_attention_combine(
+                *da.decode_attention_partial(*a, n_splits=NS),
+                torch.bfloat16)) for a in insts])
+    da.COMBINE_PDL = pdl0
+    say(f"[times] split walk then combine (B={B}, S={S}, NS={NS}): "
+        f"{pair[False]:.4f} ms, {pair[True]:.4f} ms with the combine as a "
+        f"programmatic dependent launch, on {card}")
     del parts, insts
 
     # grouped GEMMs at serve-moe's decode shapes (E = 60, T = 8) with the

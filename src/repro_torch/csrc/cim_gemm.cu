@@ -1,7 +1,5 @@
-// INT8 GEMM kernels for Hopper (sm_90a): the row quantizer, the int8
-// GEMMs on one tensor-core body (dense, and grouped over experts for the
-// gated pair), and the plain grouped GEMM on a template for the CUDA
-// cores.
+// INT8 GEMM kernels for Hopper (sm_90a): the row quantizer and the int8
+// GEMMs on one tensor-core body (dense, and grouped over experts).
 //
 // Replaces, in src/repro/kernels/cim_gemm.py:
 //   quantize_rows_int8           (_rowquant_kernel)
@@ -13,9 +11,8 @@
 //   cim_gemm_int8                (_cim_gemm_kernel)
 // the GEMMs with their quantize_out epilogue (_rowquant) in-kernel.  The
 // dense GEMMs (kernels 2, 3, 4 and 6) run on cim_gemm_i8_kernel, the
-// tensor-core body, and so does the grouped gated GEMM (kernel 8, through
-// cim_gemm_i8_grouped_kernel); the plain grouped GEMM (kernel 7) on the
-// template cim_gemm_kernel.
+// tensor-core body, and so do the grouped GEMMs (kernel 7 on the int8
+// variant, kernel 8 on the gated one, through cim_gemm_i8_grouped_kernel).
 //
 // What bounds them on the card: at decode (M = 8 rows) every weight byte
 // is used by 8 rows only, so the GEMMs are bound by the int8 weight bytes
@@ -127,51 +124,40 @@
 // the exact int32 sum instead and reads no scale: the caller sums the
 // partials of all ranks and runs the epilogue once.
 //
-// The grouped gated GEMM (kernel 8) runs the V_GATED body once per
-// expert: the expert is blockIdx.z, and cim_gemm_i8_grouped_kernel moves
-// every operand to that expert's slice (x, xs, both weights and their
-// scales, the output, and with quantize_out q, qs and the requant's row
-// maxima and band counters) before the body runs; the dense kernels never
-// see the expert or the skip list (counts, a second kernel argument), so
-// their argument struct, and with it their register allocation, is as it
-// was.  A block of an expert whose count is 0 (the skip list, read from
-// the device, no host sync) streams no weights: it stores what the
-// epilogue gives zero accumulators (+0 in f32, or the code 0 and the row
-// scale row_scale(0)) and leaves, with no K reduction and no wait, so the
-// idle experts' tiles cost one short store each rather than a wave slot.
-//
-// The plain grouped GEMM, cim_gemm_kernel<EPI> on the CUDA cores (kernel
-// 7): a block owns an 8-row x 32-column output tile of one expert
-// (blockIdx.z); its 256 threads are 8 column groups (4 adjacent columns
-// each) x 32 slices of K.  K is swept in tiles of 1024: the tile's int8
-// activations are packed four to a 32-bit word into shared memory.  Each
-// thread loads 4 rows x 4 columns of weights as four 32-bit words
-// straight into registers, transposes them (transpose4x4) so each word
-// holds 4 consecutive K values of one column, and feeds __dp4a,
-// accumulating exactly in int32.  Every thread issues all its weight loads
-// of a tile before it computes, so 32 words per thread are in flight.  The
-// 32 K slices are summed through shared memory, and the epilogue is the
-// one above.  A block of an expert whose count is 0 (the skip list) skips
-// the K sweep and runs the epilogue on zero accumulators, as the
-// reference's kernel does.  EPI is compile-time: with the requant tail
-// decided at run time, ptxas gave the int8 GEMM 66 registers in place of
-// 80 and it ran 1.5x slower.
+// The grouped GEMMs run the body once per expert: V_I8 for kernel 7
+// (one weight, an optional bias, the expert down GEMM), V_GATED for
+// kernel 8.  The expert is blockIdx.z, and cim_gemm_i8_grouped_kernel
+// moves every operand to that expert's slice (x, xs, the weights and
+// their scales, kernel 7's bias, the output, and with quantize_out q, qs
+// and the requant's row maxima and band counters) before the body runs;
+// the dense kernels never see the expert or the skip list (counts, a
+// second kernel argument), so their argument struct, and with it their
+// register allocation, is as it was.  A block of an expert whose count is
+// 0 (the skip list, read from the device, no host sync) streams no
+// weights.  Where the epilogue of zero accumulators is +0 (the gated pair,
+// act(+0) * (+0); kernel 7 without a bias) it stores that (or the code 0
+// and the row scale row_scale(0)) and leaves, with no K reduction and no
+// wait, so the idle experts' tiles cost one short store each rather than
+// a wave slot.  With a bias the rows are act(bias), as in the reference:
+// the block runs the body with no K step and takes part in the requant.
+// EPI and VAR are compile-time: with the requant tail decided at run time,
+// ptxas once gave an int8 GEMM 66 registers in place of 80 and it ran
+// 1.5x slower.
 //
 // The requant epilogue (quantize_out): a row's scale needs its absmax
 // over all N columns, which the column tiles share.  Every block writes
 // its f32 tile to a scratch buffer, publishes each row's |max| with an
 // atomicMax on the float's bits (non-negative floats order as unsigned
 // ints; max is exact in any order), fences, and bumps its row band's
-// arrival counter (the band is the tile's rows: 8 on the CUDA cores, 8
-// or 16 on the decode tile, 128 on the prefill tile, per expert on the
-// grouped body; on the tensor-core body only rank 0 of a cluster counts
-// in).  The block that arrives last quantizes the band's rows from the
-// scratch tile (reading through L2, where the other blocks' stores and
-// atomics landed, 8 float4 loads in flight per thread) with the row
-// quantizer's arithmetic, so q and the scale are bitwise
-// quantize_rows_int8 of the f32 output, and resets the band's maxima and
-// counter to 0 for the next launch.  One launch, no block waits on
-// another.
+// arrival counter (the band is the tile's rows: 8 or 16 on the decode
+// tile, 128 on the prefill tile, per expert on the grouped body; only
+// rank 0 of a cluster counts in).  The block that arrives last quantizes
+// the band's rows from the scratch tile (reading through L2, where the
+// other blocks' stores and atomics landed, 8 float4 loads in flight per
+// thread) with the row quantizer's arithmetic, so q and the scale are
+// bitwise quantize_rows_int8 of the f32 output, and resets the band's
+// maxima and counter to 0 for the next launch.  One launch, no block
+// waits on another.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,16 +168,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int BM = 8;         // output rows per block
-constexpr int BN = 32;        // output columns per block
-constexpr int TN = BN / 4;    // threads along N, 4 columns each
-constexpr int TK = 32;        // threads along K
-constexpr int NT = TN * TK;   // threads per block (256)
-constexpr int BK = 1024;      // K extent of one shared-memory tile
-constexpr int KW = BK / 4;    // packed int8x4 words per row per tile
-constexpr int JW = KW / TK;   // packed words per thread per tile
-static_assert(BM * BN == NT, "epilogue maps one output per thread");
 
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_SILU = 2, ACT_RELU = 3 };
 // The epilogue: f32 out, f32 out requantized (quantize_out), int32 sum.
@@ -251,215 +227,6 @@ __device__ __forceinline__ void transpose4x4(const uint32_t r[4],
   col[1] = __byte_perm(t0, t2, 0x7632);
   col[2] = __byte_perm(t1, t3, 0x5410);
   col[3] = __byte_perm(t1, t3, 0x7632);
-}
-
-__device__ __forceinline__ void load_rows(const int8_t* __restrict__ w,
-                                          int k, int K, int N, int ncol,
-                                          uint32_t r[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k + i;
-    r[i] = (kr < K && ncol < N)
-               ? __ldg(reinterpret_cast<const unsigned int*>(
-                     w + (int64_t)kr * N + ncol))
-               : 0u;
-  }
-}
-
-// Sum one int32 accumulator tile over the TK slices of K; returns the
-// total for this thread's epilogue element (row tid / BN, col tid % BN).
-__device__ __forceinline__ int reduce_k(int (*s_red)[BM][BN],
-                                        int acc[BM][4], int tx, int ty,
-                                        int tid) {
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s_red[ty][m][4 * tx + c] = acc[m][c];
-  __syncthreads();
-  const int em = tid / BN, en = tid % BN;
-  int s = 0;
-#pragma unroll 8
-  for (int t = 0; t < TK; ++t) s += s_red[t][em][en];
-  __syncthreads();
-  return s;
-}
-
-// The requant tail of a quantize_out launch: the last block of a row band
-// turns the band's f32 rows into int8 codes and scales.  ``h`` holds the
-// f32 output of every block of the band, ``amax`` the rows' |max| bits,
-// which are reset to 0 for the next launch once read into ``s_rs``.
-__device__ __forceinline__ void requant_band(const float* h,
-                                             unsigned int* amax,
-                                             int8_t* __restrict__ q,
-                                             float* __restrict__ qs,
-                                             float* s_rs, int m0, int M,
-                                             int N, int tid) {
-  if (tid < BM && m0 + tid < M) {
-    const float s = row_scale(__uint_as_float(__ldcg(&amax[m0 + tid])));
-    s_rs[tid] = s;
-    qs[m0 + tid] = s;
-    amax[m0 + tid] = 0u;
-  }
-  __syncthreads();
-  // The band's rows as one run of float4 (N % 4 == 0), RQ loads in
-  // flight per thread before any is quantized: L2 latency, not bytes,
-  // bounds one block's pass over 8 x N values.
-  constexpr int RQ = 8;
-  const int n4 = N / 4;
-  const int total = min(BM, M - m0) * n4;
-  const float4* h4 = reinterpret_cast<const float4*>(h + (int64_t)m0 * N);
-  char4* q4 = reinterpret_cast<char4*>(q + (int64_t)m0 * N);
-  for (int i0 = tid; i0 < total; i0 += RQ * NT) {
-    float4 v[RQ];
-#pragma unroll
-    for (int u = 0; u < RQ; ++u)
-      if (i0 + u * NT < total) v[u] = __ldcg(&h4[i0 + u * NT]);
-#pragma unroll
-    for (int u = 0; u < RQ; ++u) {
-      const int i = i0 + u * NT;
-      if (i < total) {
-        const float s = s_rs[i / n4];
-        q4[i] = make_char4(quant1(v[u].x, s), quant1(v[u].y, s),
-                           quant1(v[u].z, s), quant1(v[u].w, s));
-      }
-    }
-  }
-}
-
-// x [E, M, K] int8, w [E, K, N] int8; xs [E, M], ws/bias [E, N] f32;
-// counts [E] int32 or null (no skip list); out [E, M, N] f32.  With
-// EPI_QOUT out is the f32 scratch and q [E, M, N] int8, qs [E, M] f32
-// receive the requantized rows; amax [E * M] and arrive [E * gridDim.y]
-// must be 0.  The wrapper passes no residual; the operand stays because
-// without it ptxas gave the instantiation 66 registers in place of 64 and
-// kernel 7 ran 1.2x slower (PERF.md).
-template <int EPI>
-__global__ void __launch_bounds__(NT)
-cim_gemm_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
-                const int8_t* __restrict__ w, const float* __restrict__ ws,
-                const float* __restrict__ bias,
-                const void* __restrict__ res, int res_kind, int act,
-                const int* __restrict__ counts, float* __restrict__ out,
-                int8_t* __restrict__ q, float* __restrict__ qs,
-                unsigned int* amax, int* arrive, int M, int K, int N) {
-  __shared__ float s_scale[BM];
-  __shared__ int s_x[BM][KW];
-  __shared__ int s_red[TK][BM][BN];
-  __shared__ int s_last;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TN, ty = tid / TN;
-  const int lane = tid % 32;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ncol = n0 + 4 * tx;
-
-  // This block's expert: offset every per-expert operand.
-  x += (int64_t)e * M * K;
-  w += (int64_t)e * K * N;
-  ws += (int64_t)e * N;
-  if (bias != nullptr) bias += (int64_t)e * N;
-  out += (int64_t)e * M * N;
-  const bool active = counts == nullptr || counts[e] > 0;
-
-  if (tid < BM)
-    s_scale[tid] = (m0 + tid < M) ? xs[(int64_t)e * M + m0 + tid] : 0.0f;
-  __syncthreads();
-
-  int acc[BM][4];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0;
-
-  // An expert with no tokens streams no weights (uniform per block).
-  const int kend = active ? K : 0;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    // Stage the activation tile as packed int8x4 words.
-    for (int i = tid; i < BM * KW; i += NT) {
-      const int m = i / KW, kw = i % KW;
-      const int k = k0 + 4 * kw;
-      uint32_t packed = 0;
-      if (m0 + m < M) {
-        const int64_t base = (int64_t)(m0 + m) * K;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int v = k + j < K ? (int)x[base + k + j] : 0;
-          packed |= (uint32_t)(v & 0xff) << (8 * j);
-        }
-      }
-      s_x[m][kw] = (int)packed;
-    }
-    __syncthreads();
-
-    uint32_t wr[JW][4];
-#pragma unroll
-    for (int j = 0; j < JW; ++j)
-      load_rows(w, k0 + 4 * (ty + TK * j), K, N, ncol, wr[j]);
-#pragma unroll
-    for (int j = 0; j < JW; ++j) {
-      const int kw = ty + TK * j;
-      uint32_t col[4];
-      transpose4x4(wr[j], col);
-#pragma unroll
-      for (int m = 0; m < BM; ++m) {
-        const int xw = s_x[m][kw];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[m][c] = __dp4a(xw, (int)col[c], acc[m][c]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int tot = reduce_k(s_red, acc, tx, ty, tid);
-
-  // Epilogue (post-processing): dequant, bias, activation, residual.
-  // Thread tid owns row em = tid / 32 (its warp) and column en = lane.
-  const int em = tid / BN, en = tid % BN;
-  const int gm = m0 + em, gn = n0 + en;
-  const bool valid = gm < M && gn < N;
-  const int64_t o = (int64_t)gm * N + gn;
-  const float xsv = s_scale[em];
-  float y = 0.0f;
-  if (valid) {
-    y = __fmul_rn(__fmul_rn((float)tot, xsv), ws[gn]);
-    if (bias != nullptr) y = __fadd_rn(y, bias[gn]);
-    y = activate(y, act);
-    if (res_kind == 1)
-      y = __fadd_rn(y, static_cast<const float*>(res)[o]);
-    else if (res_kind == 2)
-      y = __fadd_rn(
-          y, __bfloat162float(static_cast<const __nv_bfloat16*>(res)[o]));
-    out[o] = y;
-  }
-  if constexpr (EPI == EPI_QOUT) {
-
-    // publish the rows' |max|; the band's last block requantizes the
-    // band (see the note at the top of this file)
-    float a = valid ? fabsf(y) : 0.0f;
-#pragma unroll
-    for (int off = 16; off; off >>= 1)
-      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
-    amax += (int64_t)e * M;
-    if (lane == 0 && gm < M) atomicMax(&amax[gm], __float_as_uint(a));
-    __threadfence();
-    __syncthreads();
-    int* band = arrive + (int64_t)e * gridDim.y + blockIdx.y;
-    if (tid == 0) s_last = atomicAdd(band, 1) == (int)gridDim.x - 1;
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
-    // s_scale is free again: every thread read its row scale before the
-    // barriers above
-    requant_band(out, amax, q + (int64_t)e * M * N, qs + (int64_t)e * M,
-                 s_scale, m0, M, N, tid);
-    if (tid == 0) *band = 0;
-  }
-}
-
-inline dim3 gemm_grid(int E, int M, int N) {
-  return dim3((N + BN - 1) / BN, (M + BM - 1) / BM, E);
 }
 
 // ---------------------------------------------------------------------------
@@ -1087,8 +854,8 @@ __device__ __forceinline__ float i8_out(const I8Args& a,
 // EPI_QOUT, after the block's f32 stores with its rows' |max| in s_amax:
 // publish the maxima, count the block in its row band, and in the band's
 // last block turn the band's ``rows`` f32 rows (from m0) into int8 codes
-// and scales with the row quantizer's arithmetic (requant_band's, for a
-// band of up to 128 rows), resetting the maxima and the counter to 0.
+// and scales with the row quantizer's arithmetic (8 float4 loads in
+// flight a thread), resetting the maxima and the counter to 0.
 __device__ __forceinline__ void i8_requant(const I8Args& a, unsigned char* tl,
                                            int m0, int rows, int band,
                                            int blocks, int tid) {
@@ -1602,19 +1369,21 @@ cim_gemm_i8_kernel(const I8Args a) {
   i8_body<EPI, SHAPE, VAR>(a);
 }
 
-// The grouped gated GEMM, a block of an idle expert (count 0): what the
-// epilogue gives zero accumulators with the positive scales of the
-// reference (act(+0) * (+0) = +0; with the requant the code 0 and the row
-// scale row_scale(0), the row's |max| being 0), over the block's tile of
-// 64 columns, stored by rank 0 of its cluster.
-template <int EPI, int SHAPE>
+// The grouped GEMMs, a block of an idle expert (count 0) where the
+// epilogue gives zero accumulators +0 (the gated pair: act(+0) * (+0);
+// kernel 7 without a bias: act(+0), the scales of the reference being
+// positive): +0 in f32, or with the requant the code 0 and the row scale
+// row_scale(0) (the row's |max| being 0), over the block's tile, stored
+// by rank 0 of its cluster.
+template <int EPI, int SHAPE, int VAR>
 __device__ __forceinline__ void i8_idle(const I8Args& a) {
+  constexpr int BN = SHAPE == PRE ? PBN / var_nw(VAR) : DBN;
   cg::cluster_group cluster = cg::this_cluster();
   if (cluster.block_rank() != 0) return;
   const int tile = (int)(blockIdx.x / cluster.num_blocks());
-  const int n0 = tile * DBN, m0 = SHAPE == PRE ? (int)blockIdx.y * PBM : 0;
+  const int n0 = tile * BN, m0 = SHAPE == PRE ? (int)blockIdx.y * PBM : 0;
   const int rows = min(SHAPE == PRE ? PBM : 8 * (SHAPE + 1), a.M - m0);
-  const int c4 = min(DBN, a.N - n0) / 4;  // N % 4 == 0
+  const int c4 = min(BN, a.N - n0) / 4;  // N % 4 == 0
   for (int i = threadIdx.x; i < rows * c4; i += I8_NT) {
     const int64_t o = (int64_t)(m0 + i / c4) * a.N + n0 + 4 * (i % c4);
     if constexpr (EPI == EPI_QOUT)
@@ -1628,14 +1397,15 @@ __device__ __forceinline__ void i8_idle(const I8Args& a) {
       a.qs[m0 + threadIdx.x] = row_scale(0.0f);
 }
 
-// The grouped gated GEMM (kernel 8): expert blockIdx.z of x [E, M, K], the
-// gate and up weights [E, K, N] with their scales [E, N], the output [E,
-// M, N] (with the requant q [E, M, N], qs [E, M], amax [E * M] and one
-// counter a row band and expert); counts [E] or null.  ``a`` holds expert
-// 0's operands in the gated body's fields.  Two blocks an SM on the
-// decode tiles; one on the prefill tile, where the expert's operands
-// leave the gated body no registers to spare at two.
-template <int EPI, int SHAPE>
+// The grouped GEMMs: expert blockIdx.z of x [E, M, K] with xs [E, M], the
+// weights [E, K, N] with their scales [E, N] (V_I8, kernel 7: one weight
+// and an optional bias [E, N]; V_GATED, kernel 8: the gate and up
+// weights), the output [E, M, N] (with the requant q [E, M, N], qs [E,
+// M], amax [E * M] and one counter a row band and expert); counts [E] or
+// null.  ``a`` holds expert 0's operands in the variant's fields.  Two
+// blocks an SM on the decode tiles; one on the prefill tile, where the
+// expert's operands leave the gated body no registers to spare at two.
+template <int EPI, int SHAPE, int VAR>
 __global__ void __launch_bounds__(I8_NT, SHAPE == PRE ? 1 : 2)
 cim_gemm_i8_grouped_kernel(const I8Args a, const int* __restrict__ counts) {
   const int e = (int)blockIdx.z;
@@ -1645,8 +1415,12 @@ cim_gemm_i8_grouped_kernel(const I8Args a, const int* __restrict__ counts) {
   b.xs = a.xs + (int64_t)e * a.M;
   b.w = a.w + e * kn;
   b.ws = a.ws + (int64_t)e * a.N;
-  b.bias = s_up(a) + (int64_t)e * a.N;
-  b.res = w_up(a) + e * kn;
+  if constexpr (VAR == V_GATED) {
+    b.bias = s_up(a) + (int64_t)e * a.N;
+    b.res = w_up(a) + e * kn;
+  } else if (a.bias != nullptr) {
+    b.bias = a.bias + (int64_t)e * a.N;
+  }
   b.out = static_cast<float*>(a.out) + e * mn;
   if constexpr (EPI == EPI_QOUT) {
     b.q = a.q + e * mn;
@@ -1655,10 +1429,15 @@ cim_gemm_i8_grouped_kernel(const I8Args a, const int* __restrict__ counts) {
     b.arrive = a.arrive + (int64_t)e * gridDim.y;
   }
   if (counts != nullptr && counts[e] <= 0) {
-    i8_idle<EPI, SHAPE>(b);
-    return;
+    if (VAR == V_GATED || a.bias == nullptr) {
+      i8_idle<EPI, SHAPE, VAR>(b);
+      return;
+    }
+    // act(bias) and its requant: the body with no K step reads no x and
+    // no weight byte and runs the epilogue on zero accumulators
+    b.K = 0;
   }
-  i8_body<EPI, SHAPE, V_GATED>(b);
+  i8_body<EPI, SHAPE, VAR>(b);
 }
 
 // A launch of ``grid`` blocks of ``threads`` in clusters of C along x.
@@ -1703,20 +1482,20 @@ cudaError_t i8_run(const I8Args& a, int shape, int C, int smem,
   return i8_launch<EPI, PRE, VAR>(a, C, smem, st);
 }
 
-template <int EPI>
+template <int EPI, int VAR>
 cudaError_t i8_grouped_run(const I8Args& a, const int* counts, int E,
                            int shape, int C, int smem, cudaStream_t st) {
   if (shape == DEC8)
-    return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, DEC8>,
-                            i8_grid<DEC8, V_GATED>(a, C, E), I8_NT, C, smem,
-                            st, a, counts);
+    return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, DEC8, VAR>,
+                            i8_grid<DEC8, VAR>(a, C, E), I8_NT, C, smem, st,
+                            a, counts);
   if (shape == DEC16)
-    return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, DEC16>,
-                            i8_grid<DEC16, V_GATED>(a, C, E), I8_NT, C, smem,
-                            st, a, counts);
-  return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, PRE>,
-                          i8_grid<PRE, V_GATED>(a, C, E), I8_NT, C, smem, st,
-                          a, counts);
+    return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, DEC16, VAR>,
+                            i8_grid<DEC16, VAR>(a, C, E), I8_NT, C, smem, st,
+                            a, counts);
+  return launch_clustered(cim_gemm_i8_grouped_kernel<EPI, PRE, VAR>,
+                          i8_grid<PRE, VAR>(a, C, E), I8_NT, C, smem, st, a,
+                          counts);
 }
 
 template <typename... P>
@@ -1730,13 +1509,13 @@ cudaError_t i8_opt_in_one() {
   cudaError_t e = opt_in_smem(cim_gemm_i8_kernel<EPI, DEC8, VAR>);
   if (e == cudaSuccess) e = opt_in_smem(cim_gemm_i8_kernel<EPI, DEC16, VAR>);
   if (e == cudaSuccess) e = opt_in_smem(cim_gemm_i8_kernel<EPI, PRE, VAR>);
-  if constexpr (VAR == V_GATED && EPI != EPI_ACC) {
+  if constexpr ((VAR == V_I8 || VAR == V_GATED) && EPI != EPI_ACC) {
     if (e == cudaSuccess)
-      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, DEC8>);
+      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, DEC8, VAR>);
     if (e == cudaSuccess)
-      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, DEC16>);
+      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, DEC16, VAR>);
     if (e == cudaSuccess)
-      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, PRE>);
+      e = opt_in_smem(cim_gemm_i8_grouped_kernel<EPI, PRE, VAR>);
   }
   return e;
 }
@@ -1823,30 +1602,6 @@ int cim_quantize_rows_int8(const void* x, int x_kind, void* q, void* scale,
   return (int)cudaGetLastError();
 }
 
-// The plain grouped GEMM (kernel 7) on the CUDA cores: x [E, M, K] int8
-// @ w [E, K, N].  counts null = no skip list; q null = f32 output in
-// out, else the requantized rows in q / qs with out as scratch.
-int cim_grouped_gemm_launch(const void* xq, const void* xs, const void* w,
-                            const void* ws, const void* bias,
-                            const void* counts, int act, void* out, void* q,
-                            void* qs, void* amax, void* arrive, int E, int M,
-                            int K, int N, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = gemm_grid(E, M, N);
-  int8_t* q8 = static_cast<int8_t*>(q);
-#define LAUNCH(EPI)                                                         \
-  cim_gemm_kernel<EPI><<<grid, NT, 0, st>>>(                                \
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),        \
-      static_cast<const int8_t*>(w), static_cast<const float*>(ws),         \
-      static_cast<const float*>(bias), nullptr, 0, act,                     \
-      static_cast<const int*>(counts),                                      \
-      static_cast<float*>(out), q8, static_cast<float*>(qs),                \
-      static_cast<unsigned int*>(amax), static_cast<int*>(arrive), M, K, N)
-  if (q8 != nullptr) LAUNCH(EPI_QOUT); else LAUNCH(EPI_F32);
-#undef LAUNCH
-  return (int)cudaGetLastError();
-}
-
 // The dense GEMMs on the tensor cores, x [M, K] @ w [K, N] int8, by
 // variant (var): 0 int8 x with xs [M] (kernels 3 and 6), 1 the same with
 // the gated pair w / w2 and ws / ws2 [N] (kernel 4), 2 or 3 f32 or bf16 x
@@ -1894,34 +1649,45 @@ int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
   return (int)cudaGetLastError();
 }
 
-// The grouped gated GEMM (kernel 8) on the tensor-core body: x [E, M, K]
-// int8 with xs [E, M], the gate and up weights w / w2 [E, K, N] with ws /
-// ws2 [E, N]; counts [E] int32 or null (no skip list); the f32 output out
-// [E, M, N] (q null), or the requant (q [E, M, N], qs [E, M], amax [E M]
-// and arrive [E x row bands] given, zeros; out the scratch).  shape,
-// cluster and smem are the wrapper's plan (grouped_plan); N % 4 == 0.
-int cim_grouped_gated_i8_launch(const void* x, const void* xs, const void* w,
-                                const void* ws, const void* w2,
-                                const void* ws2, const void* counts, int act,
-                                void* out, void* q, void* qs, void* amax,
-                                void* arrive, int E, int M, int K, int N,
-                                int shape, int cluster, int smem,
-                                void* stream) {
-  if (E < 1 || E > 65535 || shape < DEC8 || shape > PRE || M < 1 || K < 1 ||
-      N < 1 || N % 4 || (shape != PRE && M > 8 * (shape + 1)) ||
-      cluster < 1 || cluster > 8 || w2 == nullptr ||
-      smem < i8_layout(shape, V_GATED, K, cluster).total ||
-      smem > I8_MAX_SMEM)
+// The grouped GEMMs on the tensor-core body: x [E, M, K] int8 with xs [E,
+// M]; by variant (var) 0 (kernel 7) one weight w [E, K, N] with ws [E, N]
+// and an optional bias [E, N], 1 (kernel 8) the gate and up weights w /
+// w2 [E, K, N] with ws / ws2 [E, N] and no bias; counts [E] int32 or null
+// (no skip list); the f32 output out [E, M, N] (q null), or the requant
+// (q [E, M, N], qs [E, M], amax [E M] and arrive [E x row bands] given,
+// zeros; out the scratch).  shape, cluster and smem are the wrapper's
+// plan (grouped_plan); N % 4 == 0.
+int cim_grouped_i8_launch(const void* x, const void* xs, const void* w,
+                          const void* ws, const void* w2, const void* ws2,
+                          const void* bias, const void* counts, int act,
+                          void* out, void* q, void* qs, void* amax,
+                          void* arrive, int E, int M, int K, int N, int var,
+                          int shape, int cluster, int smem, void* stream) {
+  if ((var != V_I8 && var != V_GATED) || E < 1 || E > 65535 ||
+      shape < DEC8 || shape > PRE || M < 1 || K < 1 || N < 1 || N % 4 ||
+      (shape != PRE && M > 8 * (shape + 1)) || cluster < 1 || cluster > 8 ||
+      (var == V_GATED) != (w2 != nullptr) ||
+      (var == V_GATED && bias != nullptr) ||
+      smem < i8_layout(shape, var, K, cluster).total || smem > I8_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
-  const I8Args a = i8_args(x, xs, w, ws, w2, ws2, nullptr, nullptr, 0, act,
-                           out, q, qs, amax, arrive, M, K, N, V_GATED);
+  const I8Args a = i8_args(x, xs, w, ws, w2, ws2, bias, nullptr, 0, act, out,
+                           q, qs, amax, arrive, M, K, N, var);
   cudaError_t e = i8_opt_in();
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(counts);
-  e = q != nullptr
-          ? i8_grouped_run<EPI_QOUT>(a, c, E, shape, cluster, smem, st)
-          : i8_grouped_run<EPI_F32>(a, c, E, shape, cluster, smem, st);
+  if (var == V_GATED)
+    e = q != nullptr
+            ? i8_grouped_run<EPI_QOUT, V_GATED>(a, c, E, shape, cluster,
+                                                smem, st)
+            : i8_grouped_run<EPI_F32, V_GATED>(a, c, E, shape, cluster, smem,
+                                               st);
+  else
+    e = q != nullptr
+            ? i8_grouped_run<EPI_QOUT, V_I8>(a, c, E, shape, cluster, smem,
+                                             st)
+            : i8_grouped_run<EPI_F32, V_I8>(a, c, E, shape, cluster, smem,
+                                            st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

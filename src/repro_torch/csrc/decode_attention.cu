@@ -77,11 +77,17 @@
 //    A second cluster.sync() keeps every rank's shared memory alive
 //    until the reads are done.
 // A split walks [split * L, min(S, (split + 1) * L)) with L a multiple
-// of 64, so its steps are the single walk's steps.  The combine (one
-// block per (row, kv head)) takes m_g = max_s m, w = exp(m - m_g),
-// l_g = sum l w, acc = sum o w and writes acc / max(l_g, 1e-30) in q's
-// dtype, rounded one by one, so at NS = 1 (w = 1 exactly) it returns the
-// single walk's bits.
+// of 64, so its steps are the single walk's steps.  The combine takes
+// m_g = max_s m, w_s = exp(m_s - m_g), l_g = sum_s l_s w_s and acc =
+// sum_s o_s w_s, summed in ascending s, and writes acc / max(l_g, 1e-30)
+// in q's dtype, rounded one by one, so at NS = 1 (w = 1 exactly) it
+// returns the single walk's bits.  Its bytes are few (serve-long's end
+// state: 4 x 8 x 4 partial rows of 256 floats, 128 KB), so it is bound by
+// latency: a block takes one (row, kv head, query row) and a slice of D,
+// filling the card with B KH G blocks; its threads put all their
+// partials' 16-byte loads in flight before anything waits, while one warp
+// computes the row's NS weights and l_g once, for every thread of the
+// block.
 //
 // Why the bitwise pins hold (paged == ring, split NS 1 + combine ==
 // single walk, a head's bits whatever the number of heads in the launch,
@@ -729,31 +735,101 @@ decode_attention_kernel(const Args<TQ, TKV> a) {
   cluster.sync();
 }
 
-// One block per (row, kv head): renormalize the NS partial states
-// against their common max.  o [BH, NS, G, D], m/l [BH, NS, G].
-template <typename TQ>
-__global__ void __launch_bounds__(NT)
+// The combine: block (bh, g, z) renormalizes query row g of (row, kv
+// head) bh over D elements z V blockDim.x .. + V blockDim.x - 1, V a
+// thread (16-byte loads when V = 4).  o [BH, NS, G, D], m/l [BH, NS, G].
+// Shared memory: the NS weights, the NS products l_s w_s, l_g.  With a
+// programmatic dependent launch the block waits for the grid before it
+// (the split walk) at griddepcontrol.wait, before its first read; else
+// the wait returns at once.
+constexpr int CB_NT = 128;  // the combine's most threads a block
+constexpr int CB_U = 8;     // partials a thread has in flight
+
+__device__ __forceinline__ void cb_unpack(const float4& v, float (&f)[4]) {
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void cb_unpack(const float& v, float (&f)[1]) {
+  f[0] = v;
+}
+
+// Splits s0 .. s0 + CB_U - 1 (below NS) of the thread's V elements, all
+// loads in flight before any is used.
+template <typename Vec>
+__device__ __forceinline__ void cb_load(Vec (&v)[CB_U], const float* ob,
+                                        int64_t stride, int s0, int NS) {
+#pragma unroll
+  for (int u = 0; u < CB_U; ++u)
+    if (s0 + u < NS)
+      v[u] = __ldg(reinterpret_cast<const Vec*>(ob + (s0 + u) * stride));
+}
+
+template <typename TQ, int V>
+__global__ void __launch_bounds__(CB_NT)
 combine_kernel(const float* __restrict__ o, const float* __restrict__ m,
                const float* __restrict__ l, TQ* __restrict__ out, int NS,
                int G, int D) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  extern __shared__ float s_cb[];
+  float* s_w = s_cb;
+  float* s_p = s_cb + NS;
+  const int tid = threadIdx.x, g = (int)blockIdx.y;
   const int64_t bh = blockIdx.x;
-  const float* ob = o + bh * NS * G * D;
-  const float* mb = m + bh * NS * G;
-  const float* lb = l + bh * NS * G;
-  for (int i = threadIdx.x; i < G * D; i += NT) {
-    const int g = i / D;
-    float mg = mb[g];
-    for (int s = 1; s < NS; ++s) mg = fmaxf(mg, mb[s * G + g]);
-    float w = expf(mb[g] - mg);
-    float lg = __fmul_rn(lb[g], w);
-    float acc = __fmul_rn(ob[i], w);
-    for (int s = 1; s < NS; ++s) {
-      w = expf(mb[s * G + g] - mg);
-      lg = __fadd_rn(lg, __fmul_rn(lb[s * G + g], w));
-      acc = __fadd_rn(acc, __fmul_rn(ob[(int64_t)s * G * D + i], w));
+  const int i = ((int)blockIdx.z * (int)blockDim.x + tid) * V;
+  const bool live = i < D;  // D % V == 0
+  const int64_t stride = (int64_t)G * D;  // from one split's row to the next
+  const float* ob = o + (bh * NS * G + g) * D + i;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  Vec v[CB_U];
+  if (live) cb_load(v, ob, stride, 0, NS);
+  if (tid < 32) {
+    // m_g (max is exact in any order), each weight once, then l_g in
+    // ascending s
+    const float* mb = m + bh * NS * G + g;
+    const float* lb = l + bh * NS * G + g;
+    float mg = __int_as_float(0xff800000);  // -inf
+    for (int s = tid; s < NS; s += 32) mg = fmaxf(mg, mb[(int64_t)s * G]);
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, off));
+    for (int s = tid; s < NS; s += 32) {
+      const float w = expf(mb[(int64_t)s * G] - mg);
+      s_w[s] = w;
+      s_p[s] = __fmul_rn(lb[(int64_t)s * G], w);
     }
-    out[bh * G * D + i] = from_f<TQ>(acc / fmaxf(lg, 1e-30f));
+    __syncwarp();
+    if (tid == 0) {
+      float lg = s_p[0];
+      for (int s = 1; s < NS; ++s) lg = __fadd_rn(lg, s_p[s]);
+      s_p[NS] = lg;
+    }
   }
+  __syncthreads();
+  if (!live) return;
+  float acc[V];
+  for (int s0 = 0; s0 < NS; s0 += CB_U) {
+    if (s0 > 0) cb_load(v, ob, stride, s0, NS);
+#pragma unroll
+    for (int u = 0; u < CB_U; ++u) {
+      const int s = s0 + u;
+      if (s < NS) {
+        const float w = s_w[s];
+        float f[V];
+        cb_unpack(v[u], f);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          acc[j] = s == 0 ? __fmul_rn(f[j], w)
+                          : __fadd_rn(acc[j], __fmul_rn(f[j], w));
+      }
+    }
+  }
+  const float den = fmaxf(s_p[NS], 1e-30f);
+  TQ* ot = out + (bh * G + g) * D + i;
+#pragma unroll
+  for (int j = 0; j < V; ++j) ot[j] = from_f<TQ>(acc[j] / den);
 }
 
 // The launch plan the wrapper chose: cluster size C, the dynamic shared
@@ -954,22 +1030,46 @@ int decode_attention_smem_bytes(int kv_bytes, int D, int G, int range,
 }
 
 // Combine: o [B*KH, NS, G, D], m/l [B*KH, NS, G] -> out [B*KH, G, D] in
-// the dtype out_kind names (1 = float32, 2 = bfloat16).
+// the dtype out_kind names (1 = float32, 2 = bfloat16); pdl: launch as a
+// programmatic dependent of the kernel before it on the stream.
 int decode_attention_combine_launch(const void* o, const void* m,
                                     const void* l, void* out, int out_kind,
-                                    int BH, int NS, int G, int D,
+                                    int BH, int NS, int G, int D, int pdl,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (BH < 1 || NS < 1 || G < 1 || G > 65535 || D < 1 ||
+      (out_kind != 1 && out_kind != 2))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  const int per = vec ? D / 4 : D;  // threads a query row needs
+  const int nt = per >= CB_NT ? CB_NT : (per + 31) / 32 * 32;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BH, G, (per + nt - 1) / nt);
+  cfg.blockDim = dim3(nt, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)(2 * NS + 1) * sizeof(float);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
   const float* of = static_cast<const float*>(o);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
-  if (out_kind == 2)
-    combine_kernel<__nv_bfloat16><<<BH, NT, 0, st>>>(
-        of, mf, lf, static_cast<__nv_bfloat16*>(out), NS, G, D);
-  else
-    combine_kernel<float><<<BH, NT, 0, st>>>(of, mf, lf,
-                                             static_cast<float*>(out), NS,
-                                             G, D);
+  cudaError_t e;
+  if (out_kind == 2) {
+    auto* ob = static_cast<__nv_bfloat16*>(out);
+    e = vec ? cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16, 4>, of,
+                                 mf, lf, ob, NS, G, D)
+            : cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16, 1>, of,
+                                 mf, lf, ob, NS, G, D);
+  } else {
+    auto* ob = static_cast<float*>(out);
+    e = vec ? cudaLaunchKernelEx(&cfg, combine_kernel<float, 4>, of, mf, lf,
+                                 ob, NS, G, D)
+            : cudaLaunchKernelEx(&cfg, combine_kernel<float, 1>, of, mf, lf,
+                                 ob, NS, G, D);
+  }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

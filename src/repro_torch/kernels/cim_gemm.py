@@ -6,12 +6,12 @@ The port of ``repro/kernels/cim_gemm.py``.  The CUDA kernels live in
 tensor-core body in one of two tile shapes, with thread-block clusters
 splitting K, as :func:`gemm_plan` decides from (M, K, N) and the body's
 variant (int8 x, the gated pair of weights, or f32/bf16 x quantized in
-the kernel); the grouped gated GEMM (kernel 8) runs the gated body once
-per expert under :func:`grouped_plan`; the plain grouped GEMM (kernel 7)
-runs on a template for the CUDA cores; the row quantizer (kernel 1)
-holds each row in the registers of one block, as many threads as
-:func:`rowquant_plan` decides (see the note at the top of that file for
-what bounds them and how).  Every wrapper here:
+the kernel); the grouped GEMMs (kernel 7 on the int8 body, kernel 8 on
+the gated one) run the body once per expert under :func:`grouped_plan`;
+the row quantizer (kernel 1) holds each row in the registers of one
+block, as many threads as :func:`rowquant_plan` decides (see the note at
+the top of that file for what bounds them and how).  Every wrapper
+here:
 
 * takes its plain version (``*_plain``) when its tensors lie on the CPU;
 * on CUDA tensors checks dtype, shape, contiguity and alignment,
@@ -43,8 +43,7 @@ MAX_FUSED_QUANT_K = 4096
 
 _LIB = "cim_gemm"
 _FLOAT = (torch.float32, torch.bfloat16)
-_GROUPED_ARGS = [P] * 6 + [I] + [P] * 5 + [I] * 4 + [P]
-_GROUPED_I8_ARGS = [P] * 7 + [I] + [P] * 5 + [I] * 7 + [P]
+_GROUPED_I8_ARGS = [P] * 8 + [I] + [P] * 5 + [I] * 8 + [P]
 _I8_ARGS = [P] * 8 + [I] * 3 + [P] * 5 + [I] * 7 + [P]
 _ROWQUANT_ARGS = [P, I, P, P] + [I] * 4 + [P]
 
@@ -114,32 +113,8 @@ def _requant_workspace(device: torch.device, n: int) -> torch.Tensor:
     return ws
 
 
-def _grouped_gemm(x_q, x_scale, w, w_scale, bias=None, counts=None,
-                  activation=None, quantize_out=False):
-    """Launch the CUDA-core grouped GEMM (kernel 7) on x_q [E, M, K] int8
-    and w [E, K, N], checked by the caller; returns f32 [E, M, N] or
-    (q int8 [E, M, N], scale f32 [E, M, 1])."""
-    E, M, K = x_q.shape
-    N = w.shape[-1]
-    dev = x_q.device
-    out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
-    q = qs = amax = arrive = None
-    if quantize_out:
-        q = torch.empty((E, M, N), dtype=torch.int8, device=dev)
-        qs = torch.empty((E, M, 1), dtype=torch.float32, device=dev)
-        bands = E * -(-M // 8)
-        ws = _requant_workspace(dev, E * M + bands)
-        amax, arrive = ws[:E * M], ws[E * M:E * M + bands]
-    fn = bind(_LIB, "cim_grouped_gemm_launch", _GROUPED_ARGS)
-    check(_LIB, fn(ptr(x_q), ptr(x_scale), ptr(w), ptr(w_scale), ptr(bias),
-                   ptr(counts), ACTIVATIONS[activation], ptr(out), ptr(q),
-                   ptr(qs), ptr(amax), ptr(arrive), E, M, K, N, stream(x_q)),
-          "cim_grouped_gemm_int8")
-    return (q, qs) if quantize_out else out
-
-
 # ---------------------------------------------------------------------------
-# Launch plan of the tensor-core GEMM (kernels 2, 3, 4 and 6)
+# Launch plan of the tensor-core GEMM (kernels 2, 3, 4 and 6; 7 and 8)
 # ---------------------------------------------------------------------------
 SMS = 132              # streaming multiprocessors of an H100
 MAX_SMEM = 232448      # dynamic shared memory a block may use on sm_90
@@ -323,17 +298,22 @@ def gemm_plan(M: int, K: int, N: int, variant: str = "int8") -> GemmPlan:
 MAX_EXPERTS = 65535
 
 
-def grouped_plan(E: int, M: int, K: int, N: int) -> GemmPlan:
-    """The launch plan of the grouped gated GEMM (kernel 8) over E experts
-    of ``x [M, K] @ (w_gate, w_up) [K, N]`` each: the gated body's tile
-    rule (:func:`gemm_plan`), and a cluster rule that counts the blocks of
-    all E experts, since a function of the shapes alone cannot see which
-    experts hold tokens (at qwen2-moe's E 60 and 22 column tiles: cluster
-    1).  The launch has ``plan.grid(M, N) * E`` blocks.  Raises if E is
-    out of range or a forced plan cannot be taken."""
+def grouped_plan(E: int, M: int, K: int, N: int,
+                 variant: str = "gated") -> GemmPlan:
+    """The launch plan of a grouped GEMM over E experts of ``x [M, K] @
+    w [K, N]`` each: ``variant`` "gated" for kernel 8 (the gate and up
+    weights), "int8" for kernel 7 (one weight).  The body's tile rule
+    (:func:`gemm_plan`), and a cluster rule that counts the blocks of all
+    E experts, since a function of the shapes alone cannot see which
+    experts hold tokens (at qwen2-moe's E 60: cluster 1 for both).  The
+    launch has ``plan.grid(M, N) * E`` blocks.  Raises if E is out of
+    range, the variant is not a grouped one or a forced plan cannot be
+    taken."""
+    if variant not in ("int8", "gated"):
+        raise ValueError("a grouped GEMM's variant is 'int8' or 'gated'")
     if not 1 <= E <= MAX_EXPERTS:
         raise ValueError(f"E={E} experts: the grid takes 1 to {MAX_EXPERTS}")
-    return _planned(M, K, N, "gated", E)
+    return _planned(M, K, N, variant, E)
 
 
 def gemm_plans(M: int, K: int, N: int,
@@ -378,16 +358,16 @@ def _gemm_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
     return (q, qs) if quantize_out else out
 
 
-def _grouped_gated(x, x_scale, w_gate, gate_scale, w_up, up_scale, counts,
-                   activation, quantize_out):
-    """Launch the grouped gated body (kernel 8) on x [E, M, K] int8 and
-    the weights [E, K, N], checked by the caller, under
-    :func:`grouped_plan`; returns f32 [E, M, N] or (q int8 [E, M, N],
-    scale f32 [E, M, 1])."""
+def _grouped_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
+                bias=None, counts=None, activation=None, quantize_out=False):
+    """Launch the grouped body on x [E, M, K] int8 and w [E, K, N] (with
+    w2, the gated pair: kernel 8; else kernel 7), checked by the caller,
+    under :func:`grouped_plan`; returns f32 [E, M, N] or (q int8
+    [E, M, N], scale f32 [E, M, 1])."""
     E, M, K = x.shape
-    N = w_gate.shape[-1]
+    N = w.shape[-1]
     dev = x.device
-    plan = grouped_plan(E, M, K, N)
+    plan = grouped_plan(E, M, K, N, "int8" if w2 is None else "gated")
     out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
     q = qs = amax = arrive = None
     if quantize_out:
@@ -396,13 +376,12 @@ def _grouped_gated(x, x_scale, w_gate, gate_scale, w_up, up_scale, counts,
         bands = E * -(-M // plan.bm)
         ws = _requant_workspace(dev, E * M + bands)
         amax, arrive = ws[:E * M], ws[E * M:E * M + bands]
-    fn = bind(_LIB, "cim_grouped_gated_i8_launch", _GROUPED_I8_ARGS)
-    check(_LIB, fn(ptr(x), ptr(x_scale), ptr(w_gate), ptr(gate_scale),
-                   ptr(w_up), ptr(up_scale), ptr(counts),
+    fn = bind(_LIB, "cim_grouped_i8_launch", _GROUPED_I8_ARGS)
+    check(_LIB, fn(ptr(x), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
+                   ptr(w2_scale), ptr(bias), ptr(counts),
                    ACTIVATIONS[activation], ptr(out), ptr(q), ptr(qs),
-                   ptr(amax), ptr(arrive), E, M, K, N, plan.shape,
-                   plan.cluster, plan.smem, stream(x)),
-          "cim_grouped_gated_gemm_int8")
+                   ptr(amax), ptr(arrive), E, M, K, N, plan.var, plan.shape,
+                   plan.cluster, plan.smem, stream(x)), what)
     return (q, qs) if quantize_out else out
 
 
@@ -684,12 +663,13 @@ def cim_grouped_gemm_int8(x: torch.Tensor, w: torch.Tensor,
                           counts: torch.Tensor | None = None,
                           activation: str | None = None,
                           quantize_out: bool = False):
-    """All experts' INT8 GEMMs in one launch: per expert e, x [E, M, K]
-    int8 @ w [E, K, N] int8, rescaled by ``x_scale [E, M, 1]`` and
-    ``w_scale [E, N]`` (+ bias [E, N]) (+ activation) -> f32 [E, M, N];
-    with ``quantize_out`` -> (q int8 [E, M, N], scale f32 [E, M, 1]).
-    ``counts`` (int32 [E]) is the skip list: an expert whose count is 0
-    streams no weights and gets the epilogue of zero accumulators."""
+    """All experts' INT8 GEMMs in one launch on the int8 tensor-core body
+    under :func:`grouped_plan`: per expert e, x [E, M, K] int8 @ w [E, K,
+    N] int8, rescaled by ``x_scale [E, M, 1]`` and ``w_scale [E, N]`` (+
+    bias [E, N]) (+ activation) -> f32 [E, M, N]; with ``quantize_out``
+    -> (q int8 [E, M, N], scale f32 [E, M, 1]).  ``counts`` (int32 [E])
+    is the skip list: an expert whose count is 0 streams no weights and
+    gets the epilogue of zero accumulators (act(bias) with a bias)."""
     if on_cpu(x, w, x_scale, w_scale, bias, counts):
         out = cim_grouped_gemm_int8_plain(x, w, x_scale, w_scale, bias,
                                           counts, activation)
@@ -701,8 +681,9 @@ def cim_grouped_gemm_int8(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         require(bias, "bias", torch.float32, (E, N))
     _check_counts(counts, E)
-    out = _grouped_gemm(x, x_scale, w, w_scale, bias=bias, counts=counts,
-                        activation=activation, quantize_out=quantize_out)
+    out = _grouped_i8("cim_grouped_gemm_int8", x, x_scale, w, w_scale,
+                      bias=bias, counts=counts, activation=activation,
+                      quantize_out=quantize_out)
     cim_grouped_gemm_int8.launches += 1
     return out
 
@@ -750,8 +731,9 @@ def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
     if _check_weight(w_up, up_scale, K, "w_up", E=E) != N:
         raise ValueError("gate and up widths differ")
     _check_counts(counts, E)
-    out = _grouped_gated(x, x_scale, w_gate, gate_scale, w_up, up_scale,
-                         counts, activation, quantize_out)
+    out = _grouped_i8("cim_grouped_gated_gemm_int8", x, x_scale, w_gate,
+                      gate_scale, w_up, up_scale, counts=counts,
+                      activation=activation, quantize_out=quantize_out)
     cim_grouped_gated_gemm_int8.launches += 1
     return out
 

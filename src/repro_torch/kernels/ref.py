@@ -48,9 +48,19 @@ def quantize_rows_int8_ref(x: torch.Tensor) -> tuple[torch.Tensor,
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """tanh-approximate GELU in the reference's operation order."""
-    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI
-                                  * (x + 0.044715 * (x * x * x))))
+    """tanh-approximate GELU in the reference's operation order.  On f32
+    x on the CPU the tanh runs in f64 and is rounded once to f32: torch's
+    f32 CPU tanh has been seen to return exactly +-1 at arguments near
+    +-5 (true value 1 - 9e-5) in some runs, and the rounded f64 value
+    stays within an ulp or two of XLA's tanh.  On the card torch's f32
+    tanh is the kernels' own tanhf, which the plain version keeps to
+    match them.  Other dtypes compute as they are (XLA rounds a bf16
+    gelu through f32, as torch does)."""
+    inner = _SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+    th = (torch.tanh(inner.double()).float()
+          if x.dtype == torch.float32 and not x.is_cuda
+          else torch.tanh(inner))
+    cdf = 0.5 * (1.0 + th)
     return x * cdf
 
 
@@ -260,11 +270,16 @@ def decode_attention_partial_ref(q, k, v, pos, q_pos, n_splits, split_len,
 
 def combine_partials_ref(o, m, l):
     """Oracle for the combine, as the reference's ``_combine_kernel``:
-    o [B, KH, NS, G, D], m/l [B, KH, NS, G, 1] -> f32 [B, KH, G, D]."""
+    o [B, KH, NS, G, D], m/l [B, KH, NS, G, 1] -> f32 [B, KH, G, D].  The
+    sums over the splits run in ascending order, each product and sum
+    rounded on its own, as the CUDA combine adds them (torch's reduction
+    order on the card is its own)."""
     m_g = m.amax(2, keepdim=True)
     w = torch.exp(m - m_g)
-    l_g = (l * w).sum(2)
-    acc = (o * w).sum(2)
+    l_g, acc = l[:, :, 0] * w[:, :, 0], o[:, :, 0] * w[:, :, 0]
+    for s in range(1, o.shape[2]):
+        l_g = l_g + l[:, :, s] * w[:, :, s]
+        acc = acc + o[:, :, s] * w[:, :, s]
     return acc / torch.clamp_min(l_g, 1e-30)
 
 

@@ -376,6 +376,60 @@ def test_split_one_bitwise_and_more_close(dev, qdtype, quantized, B, S, KH,
         assert bool((err <= limit).all()), (ns, (err / limit).max().item())
 
 
+def _partials(seed, B, KH, NS, G, D, dev):
+    """Split states (o, m, l) as the partial walk leaves them: random
+    rows, a split of each (row, head) empty (m = -1e30, l = 0, o = 0)
+    where NS > 1, and (row 0, head 0) empty in every split."""
+    rng = _gen(seed)
+    o = rng.standard_normal((B, KH, NS, G, D)).astype(np.float32)
+    m = (3 * rng.standard_normal((B, KH, NS, G, 1))).astype(np.float32)
+    l = rng.uniform(0.5, 50.0, (B, KH, NS, G, 1)).astype(np.float32)
+    if NS > 1:
+        empty = rng.integers(0, NS, (B, KH))
+        for b in range(B):
+            for h in range(KH):
+                o[b, h, empty[b, h]], m[b, h, empty[b, h]] = 0.0, -1e30
+                l[b, h, empty[b, h]] = 0.0
+    o[0, 0], m[0, 0], l[0, 0] = 0.0, -1e30, 0.0
+    return _t(o, dev), _t(m, dev), _t(l, dev)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(1, 64), (2, 128), (4, 256), (8, 256),
+                                 (8, 64), (3, 96)])
+def test_combine_bitwise_against_its_plain_version(dev, out_dtype, G, D):
+    """Kernel 10 at NS 1 to 8 on split states with empty splits and an
+    all-empty (row, head): bitwise its plain version (the splits summed in
+    ascending order, each product and sum rounded on its own), in f32 and
+    bf16 out, on 16-byte rows and (D 96 from an unaligned base) single
+    values; and the split walk at NS 1 with the combine bitwise the
+    single walk at the same G and D (D divides 256).  One launch a
+    call."""
+    for ns in range(1, 9):
+        o, m, l = _partials(70 + ns, 3, 2, ns, G, D, dev)
+        if D == 96:  # an o that is not 16-byte aligned
+            o = o.new_empty(o.numel() + 1)[1:].view(o.shape).copy_(o)
+        n = da.decode_attention_combine.launches
+        got = da.decode_attention_combine(o, m, l, out_dtype)
+        torch.cuda.synchronize()
+        assert da.decode_attention_combine.launches == n + 1
+        assert got.dtype == out_dtype and got.shape == (3, 2, G, D)
+        want = da.decode_attention_combine_plain(o, m, l, out_dtype)
+        assert torch.equal(got, want), ns
+        assert not got[0, 0].float().any()
+    if 256 % D:
+        return
+    from repro_torch.kernels import ops
+    qdtype = out_dtype
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 79, 3, 700, 2, G, D, True,
+                                          qdtype)
+    one = da.decode_attention(q, k, v, pos, qp, ks, vs)
+    split1 = ops.decode_attention_splitkv(q, k, v, pos, qp, ks, vs,
+                                          n_splits=1)
+    torch.cuda.synchronize()
+    assert torch.equal(split1, one)
+
+
 def test_decode_wrappers_reject_bad_tables_and_dtypes(dev):
     q, k, v, pos, qp, ks, vs = _ring_case(dev, 9, 2, 64, 1, 2, 16, True,
                                           torch.float32)
@@ -555,6 +609,131 @@ def test_grouped_gemm_bitwise_and_skip(dev, E, M, K, N):
                                    activation="silu")
     torch.testing.assert_close(act, cg.cim_grouped_gemm_int8_plain(
         x, w, xs, ws, None, counts, "silu"), rtol=1e-5, atol=1e-6)
+
+
+# qwen2-moe's expert down GEMM at serve-moe's decode (E 60, M 8), its
+# TP-2 expert shard (E 30), the decode tile at 16 rows, prefill chunks
+# (17 and 136 rows an expert) and ragged widths; one row
+@pytest.mark.parametrize("E,M,K,N", [(60, 8, 1408, 2048),
+                                     (30, 8, 1408, 2048), (4, 16, 1030, 264),
+                                     (3, 17, 1030, 264), (5, 136, 1408, 512),
+                                     (2, 1, 96, 36)])
+def test_grouped_gemm_bitwise_under_every_plan(dev, E, M, K, N):
+    """Kernel 7 on the int8 tensor-core body under every plan it takes
+    (both tile shapes, clusters 1 to 8), an idle expert in the skip list:
+    without an activation bitwise its plain version and the run without a
+    skip list, with and without a bias (an idle expert's rows are then
+    act(bias)); gelu and silu within 1e-5; the requant, with and without
+    a bias, bitwise the row quantizer of its own f32 output.  One launch
+    a call."""
+    x, xs, [(w, ws), _], counts = _grouped(_gen(65), E, M, K, N, dev,
+                                           zero=(E - 1,))
+    bias = _t(_gen(66).standard_normal((E, N)).astype(np.float32), dev)
+    fn, plain = cg.cim_grouped_gemm_int8, cg.cim_grouped_gemm_int8_plain
+    bare = plain(x, w, xs, ws, None, counts)
+    biased = plain(x, w, xs, ws, bias, counts)
+    acts = {act: plain(x, w, xs, ws, bias, counts, act)
+            for act in ("gelu", "silu")}
+    plans = cg.gemm_plans(M, K, N, "int8")
+    assert cg.grouped_plan(E, M, K, N, "int8") in plans
+    for plan in plans:
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            assert cg.grouped_plan(E, M, K, N, "int8") == plan
+            n7 = fn.launches
+            assert torch.equal(fn(x, w, xs, ws, counts=counts), bare), plan
+            got = fn(x, w, xs, ws, bias=bias, counts=counts)
+            assert torch.equal(got, biased), plan
+            assert torch.equal(fn(x, w, xs, ws, bias=bias), got), plan
+            for act, ref in acts.items():
+                torch.testing.assert_close(fn(
+                    x, w, xs, ws, bias=bias, counts=counts, activation=act),
+                    ref, rtol=1e-5, atol=1e-6)
+            for b in (None, bias):
+                h = fn(x, w, xs, ws, bias=b, counts=counts,
+                       activation="silu")
+                q, s = fn(x, w, xs, ws, bias=b, counts=counts,
+                          activation="silu", quantize_out=True)
+                qr, sr = cg.quantize_rows_int8_plain(h)
+                torch.cuda.synchronize()
+                assert torch.equal(q, qr) and torch.equal(s, sr), plan
+            assert fn.launches == n7 + 9
+
+
+@pytest.mark.parametrize("active", [0, 1, 25, 60])
+def test_grouped_gemm_skip_list_at_the_served_shape(dev, active):
+    """Kernel 7 at qwen2-moe's expert down GEMM (E 60, M 8, K 1408, N
+    2048) with 0, 1, 25 and 60 of 60 experts holding tokens (the idle
+    experts' rows zero, as the dispatch leaves them): bitwise the run
+    without a skip list and the plain version; the idle experts' rows +0
+    without a bias, with the requant the code 0 at scale row_scale(0);
+    with a bias its rows exactly, and with gelu act(bias) bitwise the run
+    without a skip list and, requantized, the row quantizer's codes and
+    scales of it."""
+    E, M, K, N = 60, 8, 1408, 2048
+    rng = _gen(67)
+    idle = tuple(sorted(rng.permutation(E)[active:]))
+    x, xs, [(w, ws), _], counts = _grouped(rng, E, M, K, N, dev, zero=idle)
+    bias = _t(rng.standard_normal((E, N)).astype(np.float32), dev)
+    assert int((counts > 0).sum()) == active
+    fn, plain = cg.cim_grouped_gemm_int8, cg.cim_grouped_gemm_int8_plain
+    off = counts == 0
+    h = fn(x, w, xs, ws, counts=counts)
+    assert torch.equal(h, fn(x, w, xs, ws))
+    assert torch.equal(h, plain(x, w, xs, ws, None, counts))
+    assert not torch.signbit(h[off]).any() and not h[off].any()
+    q, s = fn(x, w, xs, ws, counts=counts, activation="silu",
+              quantize_out=True)
+    qr, sr = cg.quantize_rows_int8_plain(fn(x, w, xs, ws, counts=counts,
+                                            activation="silu"))
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    zero_scale = torch.full((), 1e-12, device=dev) / torch.full(
+        (), 127.0, device=dev)
+    assert not q[off].any() and bool((s[off] == zero_scale).all())
+    hb = fn(x, w, xs, ws, bias=bias, counts=counts, activation="gelu")
+    torch.testing.assert_close(hb, plain(x, w, xs, ws, bias, counts, "gelu"),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(hb, fn(x, w, xs, ws, bias=bias, activation="gelu"))
+    h0 = fn(x, w, xs, ws, bias=bias, counts=counts)
+    assert torch.equal(h0[off], bias[off][:, None, :].expand_as(h0[off]))
+    qb, sb = fn(x, w, xs, ws, bias=bias, counts=counts, activation="gelu",
+                quantize_out=True)
+    qbr, sbr = cg.quantize_rows_int8_plain(hb)
+    torch.cuda.synchronize()
+    assert torch.equal(qb, qbr) and torch.equal(sb, sbr)
+
+
+def test_grouped_gemm_decode_plans_replay_their_bits_from_a_graph(dev):
+    """A CUDA-graph replay of each decode plan of kernel 7 at the served
+    shape (25 of 60 experts active) returns the eager launch's bits, with
+    a bias and without, with and without the requant epilogue (its
+    counters reset by the launch before the capture)."""
+    E, M, K, N = 60, 8, 1408, 2048
+    rng = _gen(68)
+    x, xs, [(w, ws), _], counts = _grouped(
+        rng, E, M, K, N, dev, zero=tuple(rng.permutation(E)[25:]))
+    bias = _t(rng.standard_normal((E, N)).astype(np.float32), dev)
+    fn = cg.cim_grouped_gemm_int8
+    for plan in cg.gemm_plans(M, K, N, "int8"):
+        if plan.kind != "decode":
+            continue
+        with cg.forced_gemm_plan(plan.kind, plan.cluster):
+            def calls():
+                return (fn(x, w, xs, ws, counts=counts),
+                        *fn(x, w, xs, ws, counts=counts, activation="silu",
+                            quantize_out=True),
+                        *fn(x, w, xs, ws, bias=bias, counts=counts,
+                            activation="silu", quantize_out=True))
+            eager = calls()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = calls()
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                for a, e in zip(captured, eager):
+                    assert torch.equal(a, e), plan
 
 
 @pytest.mark.parametrize("E,M,K,N", [(60, 8, 2048, 1408), (4, 48, 2048, 1408),
@@ -1105,11 +1284,10 @@ def test_tp_two_ranks_on_one_card_bitwise(dev):
 # shapes (("i8", EPI, SHAPE, VAR): SHAPE 0 and 1 the decode tile at 8 and
 # 16 rows, 2 the prefill tile; VAR 0 int8 x (kernels 3 and 6), 1 the gated
 # pair (kernel 4), 2 and 3 f32 and bf16 x quantized in the kernel (kernel
-# 2)), of the grouped gated GEMM on the same body,
-# cim_gemm_i8_grouped_kernel<EPI, SHAPE> (("grouped_i8", EPI, SHAPE):
-# kernel 8), of the plain grouped GEMM's CUDA-core template
-# cim_gemm_kernel<EPI> (("grouped", EPI): kernel 7) and of the row
-# quantizer rowquant_kernel<XE, VEC> (("rowquant", XE, VEC): kernel 1, f32
+# 2)), of the grouped GEMMs on the same body,
+# cim_gemm_i8_grouped_kernel<EPI, SHAPE, VAR> (("grouped_i8", EPI, SHAPE,
+# VAR): VAR 0 kernel 7, 1 kernel 8) and of the row quantizer
+# rowquant_kernel<XE, VEC> (("rowquant", XE, VEC): kernel 1, f32
 # or bf16 x, 16-byte or single-value units).  A change that moves one (as
 # run-time branches once took the int8 GEMM template from 80 to 66 and
 # slowed gemma-2b's down GEMM 1.5x) fails that mode's test here.
@@ -1126,14 +1304,18 @@ GEMM_MODES = {
               ("i8", 0, 2, 1): 128},
     "gated_requant": {("i8", 1, 0, 1): 90, ("i8", 1, 1, 1): 101,
                       ("i8", 1, 2, 1): 148},
-    "grouped": {("grouped", 0): 64},              # kernel 7
-    "grouped_requant": {("grouped", 1): 80},
-    "grouped_gated": {("grouped_i8", 0, 0): 102,            # kernel 8
-                      ("grouped_i8", 0, 1): 106,
-                      ("grouped_i8", 0, 2): 165},
-    "grouped_gated_requant": {("grouped_i8", 1, 0): 92,
-                              ("grouped_i8", 1, 1): 104,
-                              ("grouped_i8", 1, 2): 163},
+    "grouped": {("grouped_i8", 0, 0, 0): 112,               # kernel 7
+                ("grouped_i8", 0, 1, 0): 115,
+                ("grouped_i8", 0, 2, 0): 188},
+    "grouped_requant": {("grouped_i8", 1, 0, 0): 112,
+                        ("grouped_i8", 1, 1, 0): 122,
+                        ("grouped_i8", 1, 2, 0): 192},
+    "grouped_gated": {("grouped_i8", 0, 0, 1): 102,         # kernel 8
+                      ("grouped_i8", 0, 1, 1): 106,
+                      ("grouped_i8", 0, 2, 1): 165},
+    "grouped_gated_requant": {("grouped_i8", 1, 0, 1): 92,
+                              ("grouped_i8", 1, 1, 1): 104,
+                              ("grouped_i8", 1, 2, 1): 163},
     "acc": {("i8", 2, 0, 0): 92, ("i8", 2, 1, 0): 96,       # kernel 6
             ("i8", 2, 2, 0): 158},
     "rowquant": {("rowquant", 4, 1): 57, ("rowquant", 4, 0): 50,  # kernel 1
@@ -1159,10 +1341,9 @@ def _mode_registers():
         return {k: int(v) for k, v in (f.split(":") for f in use.split())
                 if v.isdigit()}
     out = {}
-    for kind, name in (("grouped", r"cim_gemm_kernelILi(\d)EE"),
-                       ("i8", r"cim_gemm_i8_kernelILi(\d)ELi(\d)ELi(\d)EE"),
+    for kind, name in (("i8", r"cim_gemm_i8_kernelILi(\d)ELi(\d)ELi(\d)EE"),
                        ("grouped_i8",
-                        r"cim_gemm_i8_grouped_kernelILi(\d)ELi(\d)EE"),
+                        r"cim_gemm_i8_grouped_kernelILi(\d)ELi(\d)ELi(\d)EE"),
                        ("rowquant", r"rowquant_kernelILi(\d)ELb([01])EE")):
         pat = re.compile(r"Function \S*" + name + r"\S*:\s*\n\s*(.*)")
         for m in pat.finditer(text):
@@ -1218,8 +1399,7 @@ def test_gemm_template_mode_and_registers(dev, mode):
     version (bitwise; activations within 1e-5; the requant epilogue
     bitwise the row quantizer of the kernel's f32 output) and keeps its
     registers at every tile shape, with nothing spilled; the library
-    holds exactly the instantiations pinned here (the CUDA-core template
-    none of a dense or a gated GEMM)."""
+    holds exactly the instantiations pinned here."""
     out, ref, exact = _run_mode(mode, dev)
     torch.cuda.synchronize()
     if exact:

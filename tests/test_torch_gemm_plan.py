@@ -1,7 +1,8 @@
 """The launch plan of the tensor-core int8 GEMM (kernels 2, 3, 4 and 6,
 ``repro_torch.kernels.cim_gemm.gemm_plan``), on the CPU: no card is
-needed to check it; and the plain versions of the four kernels against
-the JAX package's kernels in interpret mode at a ragged prefill shape.
+needed to check it; the grouped plan of kernels 7 and 8; and the plain
+versions of the four kernels and of kernel 8 against the JAX package's
+kernels in interpret mode at a ragged prefill shape.
 
 The plan picks the tile shape (decode: W^T on the tensor cores' A side,
 up to 16 rows; prefill: 128-row tiles), the cluster size that splits K
@@ -367,51 +368,68 @@ def test_cim_gated_gemm_int8_matches_jax_at_ragged_prefill(act):
 
 
 # ---------------------------------------------------------------------------
-# kernel 8: the grouped gated GEMM's plan, and its plain version against
-# the JAX kernel at a ragged shape
+# kernels 7 and 8: the grouped GEMMs' plan, and kernel 8's plain version
+# against the JAX kernel at a ragged shape
 # ---------------------------------------------------------------------------
+# qwen2-moe's experts: kernel 8 (the gated pair, K 2048, N 1408) and
+# kernel 7 (the down GEMM, K 1408, N 2048), with the clusters that E = 1,
+# 2, 3 and 60 experts of that shape take at 8 rows
+GROUPED = [("gated", 2048, 1408, [3, 2, 1, 1]),
+           ("int8", 1408, 2048, [5, 3, 2, 1])]
+GROUPED_IDS = [v for v, *_ in GROUPED]
+
+
+@pytest.mark.parametrize("variant,K,N,clusters", GROUPED, ids=GROUPED_IDS)
 @pytest.mark.parametrize("E", [60, 30])
 @pytest.mark.parametrize("M", [8, 16, 17, 136])
-def test_grouped_plan_at_the_served_shapes(E, M):
-    """qwen2-moe's experts (K 2048, N 1408) at serve-moe's decode (E 60,
-    8 capacity rows), its TP-2 expert shard (E 30), the 16-row decode tile
-    and prefill chunks of 17 and 136 rows an expert: the gated body's tile
-    (8 or 16 rows, else 128-row prefill tiles), 64 output columns,
-    cluster 1 (E x 22 column tiles x 2 weight streams give every SM a
-    stream many times over), the launch E times the body's grid, the gated
-    body's shared bytes."""
-    plan = cg.grouped_plan(E, M, 2048, 1408)
-    assert plan.variant == "gated" and plan.cluster == 1 and plan.bn == 64
+def test_grouped_plan_at_the_served_shapes(E, M, variant, K, N, clusters):
+    """qwen2-moe's experts at serve-moe's decode (E 60, 8 capacity rows),
+    its TP-2 expert shard (E 30), the 16-row decode tile and prefill
+    chunks of 17 and 136 rows an expert: the body's tile (8 or 16 rows,
+    else 128-row prefill tiles; 64 output columns, 128 on the int8
+    prefill tile), cluster 1 (E x the column tiles, x 2 weight streams on
+    the gated body, give every SM a stream many times over), the launch E
+    times the body's grid, the body's shared bytes."""
+    plan = cg.grouped_plan(E, M, K, N, variant)
+    assert plan.variant == variant and plan.cluster == 1
     assert plan.kind == ("decode" if M <= 16 else "prefill")
     assert plan.bm == {8: 8, 16: 16}.get(M, 128)
-    assert plan == cg._plan_of(plan.kind, 1, M, 2048, "gated")
-    assert plan.grid(M, 1408) * E == E * 22 * (1 if M <= 128 else 2)
+    assert plan.bn == (128 if plan.kind == "prefill" and variant == "int8"
+                       else 64)
+    assert plan == cg._plan_of(plan.kind, 1, M, K, variant)
+    assert plan.grid(M, N) * E == E * -(-N // plan.bn) * (
+        1 if M <= 128 else 2)
     assert plan.smem <= cg.MAX_SMEM
-    assert plan in cg.gemm_plans(M, 2048, 1408, "gated")
+    assert plan in cg.gemm_plans(M, K, N, variant)
 
 
-def test_grouped_plan_counts_every_expert_and_refuses():
+@pytest.mark.parametrize("variant,K,N,clusters", GROUPED, ids=GROUPED_IDS)
+def test_grouped_plan_counts_every_expert_and_refuses(variant, K, N,
+                                                      clusters):
     """The cluster rule counts the blocks of all E experts (the plan
-    cannot see which hold tokens): one expert at qwen2-moe's width is the
-    dense gated plan (22 tiles x 2 streams: a cluster of 3), two take 2,
-    three fill the card at 1.  E outside 1 to 65535 (the grid's z extent)
-    raises, and so does a forced plan the body cannot take, as in
-    gemm_plan; a forced plan the body takes is taken."""
-    assert cg.grouped_plan(1, 8, 2048, 1408) == cg.gemm_plan(8, 2048, 1408,
-                                                             "gated")
-    assert [cg.grouped_plan(E, 8, 2048, 1408).cluster
-            for E in (1, 2, 3, 60)] == [3, 2, 1, 1]
+    cannot see which hold tokens): one expert is the dense plan of its
+    variant (the gated pair: 22 tiles x 2 streams, a cluster of 3; the
+    down GEMM: 32 tiles, 5), more take fewer, 60 fill the card at 1.  E
+    outside 1 to 65535 (the grid's z extent) raises, and so does a
+    variant with no grouped body, and a forced plan the body cannot take,
+    as in gemm_plan; a forced plan the body takes is taken."""
+    assert cg.grouped_plan(1, 8, K, N, variant) == cg.gemm_plan(8, K, N,
+                                                                variant)
+    assert [cg.grouped_plan(E, 8, K, N, variant).cluster
+            for E in (1, 2, 3, 60)] == clusters
     for E in (0, -1, 65536):
         with pytest.raises(ValueError, match="experts"):
-            cg.grouped_plan(E, 8, 2048, 1408)
+            cg.grouped_plan(E, 8, K, N, variant)
+    with pytest.raises(ValueError, match="variant"):
+        cg.grouped_plan(60, 8, K, N, "qin_f32")
     with cg.forced_gemm_plan(kind="decode"):
         with pytest.raises(ValueError, match="at most 16 rows"):
-            cg.grouped_plan(60, 17, 2048, 1408)
+            cg.grouped_plan(60, 17, K, N, variant)
     with cg.forced_gemm_plan(cluster=8):
         with pytest.raises(ValueError, match="without a K step"):
-            cg.grouped_plan(60, 8, 700, 1408)
+            cg.grouped_plan(60, 8, 700, N, variant)
     with cg.forced_gemm_plan("prefill", 2):
-        plan = cg.grouped_plan(60, 8, 2048, 1408)
+        plan = cg.grouped_plan(60, 8, K, N, variant)
         assert (plan.kind, plan.cluster) == ("prefill", 2)
 
 

@@ -299,6 +299,45 @@ def test_decode_attention_all_empty_row_is_uniform():
 
 
 # ---------------------------------------------------------------------------
+# the plain gelu against an f64 gelu
+# ---------------------------------------------------------------------------
+def _saturating_tanh(real):
+    """torch.tanh as some runs computed it on f32: exactly +-1 from
+    |y| >= 4.5 on (true tanh(5) = 1 - 9.1e-5); other dtypes as they are."""
+    def tanh(y, *args, **kwargs):
+        out = real(y, *args, **kwargs)
+        if y.dtype == torch.float32:
+            out = torch.where(y.abs() >= 4.5, torch.sign(y), out)
+        return out
+    return tanh
+
+
+@pytest.mark.parametrize("f32_tanh", ["torch", "saturating"])
+def test_plain_gelu_within_two_ulp_of_f64(monkeypatch, f32_tanh):
+    """The plain gelu on f32 x within 2 ulp of |x| of the gelu computed
+    in f64 (gelu(x) = x cdf with cdf in [0, 1], so one ulp of the f32 cdf
+    moves the output by at most ulp(x)), at arguments whose tanh argument
+    straddles +-5 and at a spread of others; also with an f32 tanh that
+    saturates near +-5, which the plain gelu must not depend on."""
+    if f32_tanh == "saturating":
+        monkeypatch.setattr(torch, "tanh", _saturating_tanh(torch.tanh))
+    c = np.sqrt(2.0 / np.pi)
+    near = np.linspace(3.5, 4.1, 20001)
+    x = np.concatenate([near, -near, np.linspace(-8.0, 8.0, 20001),
+                        np.logspace(-6, 1.5, 2001),
+                        -np.logspace(-6, 1.5, 2001)]).astype(np.float32)
+    d = x.astype(np.float64)
+    inner = c * (d + 0.044715 * d ** 3)
+    assert inner[:near.size].min() < 5 < inner[:near.size].max()
+    assert inner[near.size:2 * near.size].min() < -5 \
+        < inner[near.size:2 * near.size].max()
+    want = d * 0.5 * (1.0 + np.tanh(inner))
+    got = to_np(tref.gelu_tanh(t(x))).astype(np.float64)
+    ulps = np.abs(got - want) / np.spacing(np.abs(x))
+    assert ulps.max() <= 2.0, (x[ulps.argmax()], ulps.max())
+
+
+# ---------------------------------------------------------------------------
 # wrappers: device dispatch, counters, build flags
 # ---------------------------------------------------------------------------
 def test_cpu_calls_launch_nothing():
