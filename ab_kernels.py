@@ -37,13 +37,14 @@ def _rowquant_cases(torch, cs, cg, gen):
                [(lambda x=x: cg.quantize_rows_int8(x)) for x in xs])
 
 
-def _grouped_operands(torch, cs, gen, K, N):
-    """serve-moe's decode shape with 25 of 60 experts active (a served
-    step's counts), then with all 60: (tag, counts, x, xs, w, ws)."""
+def _grouped_operands(torch, cs, gen, K, N, T=8):
+    """serve-moe's experts at T capacity rows each (8 at a decode step)
+    with 25 of 60 experts active (a served step's counts), then with all
+    60: (tag, counts, x, xs, w, ws)."""
     served = cs._served_like_counts(torch, gen, gen.device, E=cs.MOE_E)
     for tag, cnt in (("25 of 60 active", served),
                      ("all 60 active", torch.ones_like(served))):
-        x, xs = cs._grouped_rows(torch, cnt, 8, K, gen)
+        x, xs = cs._grouped_rows(torch, cnt, T, K, gen)
         w, ws = cs._stack(torch, cs.MOE_E, K, N, gen)
         yield tag, cnt, x, xs, w, ws
 
@@ -63,21 +64,23 @@ def _grouped_gated_cases(torch, cs, cg, gen):
 
 
 def _grouped_cases(torch, cs, cg, gen):
-    """Kernel 7 at serve-moe's down projection of the experts."""
-    for tag, cnt, x, xs, w, ws in _grouped_operands(
-            torch, cs, gen, cs.MOE_F, cs.MOE_D):
-        yield tag, [lambda cnt=cnt, x=x, xs=xs, w=w, ws=ws:
-                    cg.cim_grouped_gemm_int8(x, w, xs, ws, counts=cnt)]
+    """Kernel 7 at serve-moe's down projection of the experts: at a decode
+    step (T 8), at the 16-row decode tile and at a prefill chunk's 48
+    capacity rows an expert (the prefill tile)."""
+    for T in (8, 16, 48):
+        for tag, cnt, x, xs, w, ws in _grouped_operands(
+                torch, cs, gen, cs.MOE_F, cs.MOE_D, T):
+            yield (tag if T == 8 else f"T {T}, {tag}",
+                   [lambda cnt=cnt, x=x, xs=xs, w=w, ws=ws:
+                    cg.cim_grouped_gemm_int8(x, w, xs, ws, counts=cnt)])
 
 
 def _combine_cases(torch, cs, cg, gen):
     """Kernel 10 at serve-long's end state (B 4, KH 1, G 8, D 256, NS 4,
     bf16 out) on split states drawn from the seed, enough copies that
-    each call finds its partials cold; launched plainly (back to back,
-    dependent launches would overlap one another)."""
+    each call finds its partials cold."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
-    da.COMBINE_PDL = False
     B, KH, G, D = len(cs.LONG_PROMPTS), 1, 8, 256
     NS = ops.n_splits_for(cs.LONG_MAX_LEN)
     dev = gen.device

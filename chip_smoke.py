@@ -2054,11 +2054,8 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     parts = [da.decode_attention_partial(*a, n_splits=NS) for a in insts]
     parts += [tuple(t.clone() for t in parts[i % len(parts)])
               for i in range(copies_for(part_bytes) - len(parts))]
-    # the combine alone launched plainly (back to back, dependent launches
-    # would overlap one another); then the split walk and the combine as
-    # served, one after the other, the combine launched plainly and as a
-    # programmatic dependent of the walk
-    pdl0, da.COMBINE_PDL = da.COMBINE_PDL, False
+    # the combine alone; then the split walk and the combine as served,
+    # one after the other
     ms = time_ms(torch, [(lambda p=p: da.decode_attention_combine(
         *p, torch.bfloat16)) for p in parts])
     plain_ms = time_ms(torch, [lambda: da.decode_attention_combine_plain(
@@ -2068,17 +2065,11 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     rows.append(dict(name="decode_attention_combine", ms=ms,
                      plain_ms=plain_ms, bound_ms=b, bound_by=by,
                      library_ms=None))
-    pair = {}
-    for pdl in (False, True):
-        da.COMBINE_PDL = pdl
-        pair[pdl] = time_ms(torch, [(
-            lambda a=a: da.decode_attention_combine(
-                *da.decode_attention_partial(*a, n_splits=NS),
-                torch.bfloat16)) for a in insts])
-    da.COMBINE_PDL = pdl0
+    pair = time_ms(torch, [(lambda a=a: da.decode_attention_combine(
+        *da.decode_attention_partial(*a, n_splits=NS), torch.bfloat16))
+        for a in insts])
     say(f"[times] split walk then combine (B={B}, S={S}, NS={NS}): "
-        f"{pair[False]:.4f} ms, {pair[True]:.4f} ms with the combine as a "
-        f"programmatic dependent launch, on {card}")
+        f"{pair:.4f} ms on {card}")
     del parts, insts
 
     # grouped GEMMs at serve-moe's decode shapes (E = 60, T = 8) with the

@@ -738,10 +738,7 @@ decode_attention_kernel(const Args<TQ, TKV> a) {
 // The combine: block (bh, g, z) renormalizes query row g of (row, kv
 // head) bh over D elements z V blockDim.x .. + V blockDim.x - 1, V a
 // thread (16-byte loads when V = 4).  o [BH, NS, G, D], m/l [BH, NS, G].
-// Shared memory: the NS weights, the NS products l_s w_s, l_g.  With a
-// programmatic dependent launch the block waits for the grid before it
-// (the split walk) at griddepcontrol.wait, before its first read; else
-// the wait returns at once.
+// Shared memory: the NS weights, the NS products l_s w_s, l_g.
 constexpr int CB_NT = 128;  // the combine's most threads a block
 constexpr int CB_U = 8;     // partials a thread has in flight
 
@@ -781,7 +778,6 @@ combine_kernel(const float* __restrict__ o, const float* __restrict__ m,
   const bool live = i < D;  // D % V == 0
   const int64_t stride = (int64_t)G * D;  // from one split's row to the next
   const float* ob = o + (bh * NS * G + g) * D + i;
-  asm volatile("griddepcontrol.wait;" ::: "memory");
 
   Vec v[CB_U];
   if (live) cb_load(v, ob, stride, 0, NS);
@@ -1030,11 +1026,10 @@ int decode_attention_smem_bytes(int kv_bytes, int D, int G, int range,
 }
 
 // Combine: o [B*KH, NS, G, D], m/l [B*KH, NS, G] -> out [B*KH, G, D] in
-// the dtype out_kind names (1 = float32, 2 = bfloat16); pdl: launch as a
-// programmatic dependent of the kernel before it on the stream.
+// the dtype out_kind names (1 = float32, 2 = bfloat16).
 int decode_attention_combine_launch(const void* o, const void* m,
                                     const void* l, void* out, int out_kind,
-                                    int BH, int NS, int G, int D, int pdl,
+                                    int BH, int NS, int G, int D,
                                     void* stream) {
   if (BH < 1 || NS < 1 || G < 1 || G > 65535 || D < 1 ||
       (out_kind != 1 && out_kind != 2))
@@ -1042,34 +1037,29 @@ int decode_attention_combine_launch(const void* o, const void* m,
   const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
   const int per = vec ? D / 4 : D;  // threads a query row needs
   const int nt = per >= CB_NT ? CB_NT : (per + 31) / 32 * 32;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(BH, G, (per + nt - 1) / nt);
-  cfg.blockDim = dim3(nt, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)(2 * NS + 1) * sizeof(float);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  const dim3 grid(BH, G, (per + nt - 1) / nt);
+  const size_t smem = (size_t)(2 * NS + 1) * sizeof(float);
+  const auto st = static_cast<cudaStream_t>(stream);
   const float* of = static_cast<const float*>(o);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
-  cudaError_t e;
   if (out_kind == 2) {
     auto* ob = static_cast<__nv_bfloat16*>(out);
-    e = vec ? cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16, 4>, of,
-                                 mf, lf, ob, NS, G, D)
-            : cudaLaunchKernelEx(&cfg, combine_kernel<__nv_bfloat16, 1>, of,
-                                 mf, lf, ob, NS, G, D);
+    if (vec)
+      combine_kernel<__nv_bfloat16, 4><<<grid, nt, smem, st>>>(of, mf, lf, ob,
+                                                              NS, G, D);
+    else
+      combine_kernel<__nv_bfloat16, 1><<<grid, nt, smem, st>>>(of, mf, lf, ob,
+                                                              NS, G, D);
   } else {
     auto* ob = static_cast<float*>(out);
-    e = vec ? cudaLaunchKernelEx(&cfg, combine_kernel<float, 4>, of, mf, lf,
-                                 ob, NS, G, D)
-            : cudaLaunchKernelEx(&cfg, combine_kernel<float, 1>, of, mf, lf,
-                                 ob, NS, G, D);
+    if (vec)
+      combine_kernel<float, 4><<<grid, nt, smem, st>>>(of, mf, lf, ob, NS, G,
+                                                      D);
+    else
+      combine_kernel<float, 1><<<grid, nt, smem, st>>>(of, mf, lf, ob, NS, G,
+                                                      D);
   }
-  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -393,13 +393,6 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
 decode_attention_partial.launches = 0
 
 
-# Launch the combine as a programmatic dependent of the kernel before it
-# on the stream (the split walk): its launch overlaps the walk's tail.
-# The times phase of chip_smoke.py times the walk and the combine both
-# ways; the dependent launch was the faster (PERF.md).
-COMBINE_PDL = True
-
-
 def decode_attention_combine_plain(o, m, l, out_dtype):
     return ref.combine_partials_ref(o, m, l).to(out_dtype)
 
@@ -425,9 +418,9 @@ def decode_attention_combine(o: torch.Tensor, m: torch.Tensor,
         raise TypeError(f"out_dtype {out_dtype} not in {tuple(DTYPE_CODE)}")
     out = torch.empty((B, KH, G, D), dtype=out_dtype, device=o.device)
     fn = bind(_LIB, "decode_attention_combine_launch",
-              [P, P, P, P, I, I, I, I, I, I, P])
+              [P, P, P, P, I, I, I, I, I, P])
     check(_LIB, fn(ptr(o), ptr(m), ptr(l), ptr(out), DTYPE_CODE[out_dtype],
-                   B * KH, NS, G, D, int(COMBINE_PDL), stream(o)),
+                   B * KH, NS, G, D, stream(o)),
           "decode_attention_combine")
     decode_attention_combine.launches += 1
     return out

@@ -162,6 +162,30 @@ def test_qin_activation_close(dev, act):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
 
 
+def test_card_plain_gelu_within_few_ulp_of_the_cpu_one(dev):
+    """The plain gelu on an f32 card tensor (torch's f32 tanh, the
+    kernels' tanhf) against the same function on the CPU (an f64 tanh
+    rounded once): the two oracles differ only in the tanh, so they stay
+    within 4 ulp of |x| everywhere (gelu(x) = x cdf, cdf in [0, 1]) and,
+    where x >= 0 and cdf >= 1/2 leaves no cancellation, within 8 ulp of
+    the output; at tanh arguments straddling +-5 and a spread of
+    others."""
+    from repro_torch.kernels import ref as kref
+    near = np.linspace(3.5, 4.1, 20001)
+    x = np.concatenate([near, -near, np.linspace(-8.0, 8.0, 20001),
+                        np.logspace(-6, 1.5, 2001),
+                        -np.logspace(-6, 1.5, 2001)]).astype(np.float32)
+    cpu = kref.gelu_tanh(torch.from_numpy(x)).numpy().astype(np.float64)
+    card = kref.gelu_tanh(_t(x, dev)).cpu().numpy().astype(np.float64)
+    diff = np.abs(card - cpu)
+    ulps_x = diff / np.spacing(np.abs(x))
+    assert ulps_x.max() <= 4.0, (x[ulps_x.argmax()], ulps_x.max())
+    pos = x > 0
+    ulps_out = diff[pos] / np.spacing(np.abs(cpu[pos]).astype(np.float32))
+    assert ulps_out.max() <= 8.0, (x[pos][ulps_out.argmax()],
+                                   ulps_out.max())
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 16384, 2048), (3, 1000, 40),
                                    (33, 64, 4)])
 def test_fused_bitwise(dev, M, K, N):
