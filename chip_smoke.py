@@ -20,21 +20,26 @@ the JAX package.  Phases, each printing its lines:
             D 128; kernel 6 (int8 -> int32) exactly at the TP partials'
             shapes (M = 8, 64, 256, 5056) and ragged ones; each head of
             the flash-decode walks bitwise at G = 4 (a TP-2 rank's heads
-            of gemma-2b's one KV head) and at G = 8.
+            of gemma-2b's one KV head) and at G = 8; the plan's GEMMs at
+            DiT-XL/2's block shapes (kernel 2 on the f32 adaLN input with
+            a bias, on the bf16 QKV and out-projection inputs; kernel 1 on
+            the MLP input; kernel 3 with gelu and its requant, and to
+            f32).
    ops    — kernels 12-14 through ``repro_torch.kernels.ops`` at the
             widths of models in the registry: flash
             attention at gemma-2b's prefill (S 2048, 8 heads on 1 KV head,
             D 256, bf16, causal), gemma3-4b's sliding layers (S 4096, KH 4,
-            window 1024), qwen2-moe's (16 heads of 128) and an f32 case
-            with Sq != Skv; the SSD scan at one zamba2-1.2b Mamba-2 layer
+            window 1024), qwen2-moe's (16 heads of 128), an f32 case
+            with Sq != Skv and DiT-XL/2's full attention (B 8, S 1024, 16
+            heads of 72: the tensor-core body at D 72); the SSD scan at one zamba2-1.2b Mamba-2 layer
             (64 heads, S 2048, P 64, N 64, chunk 128); softmax over
             DiT-XL/2's attention scores [16 x 1024, 1024] (rows path),
             gemma-2b's logits [8, 256000] in f32 and bf16 (long-row path)
             and the extreme rows [1e4, -1e4, 0, 1e4].  The counters must
-            read exactly 4 / 1 / 6 (two per long softmax row); each
-            output is held against its plain version, and flash attention
-            at gemma-2b and gemma3-4b against the model's prefill
-            attention (``dense_attention``).
+            read exactly 5 / 1 / 6 (two per long softmax row); each
+            output is held against its plain version, and each bf16 flash
+            case with Sq == Skv against the model's prefill attention
+            (``dense_attention``).
 4. serve  — full-width gemma-2b (random weights from a seed, built and
             quantized once, shared by the three runs) served by
             ``ServingEngine(quant_plan=QuantPlan.full())``: 8 greedy
@@ -89,6 +94,16 @@ the JAX package.  Phases, each printing its lines:
             experts, 8 KV heads, half the shared MLP each) and serve
             serve-moe's requests: tokens bitwise, 9 launches per layer per
             decode step, 2 MAX + 2 SUM + 1 gather per layer per forward.
+   serve-dit — full-width DiT-XL/2 (random weights from the seed, 28
+            blocks, d 1152, 16 heads of 72, 1024 tokens, the full plan)
+            served by ``DiffusionEngine``: 8 DDIM and 4 Euler requests at
+            batch 4, 8 steps at guidance 4.0 (the null-label rows stacked:
+            8 rows an evaluation); every request OK with finite latents,
+            exactly 7 launches per block per evaluation (the 6 plan
+            launches and 1 of kernel 12), the engine's latents bitwise a
+            direct ``sample()``, one evaluation within 5% of the largest
+            |eps| of the plain path; ms per evaluation, images/s, the
+            profiled device share.
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
             the row quantizer at four shapes (gemma-2b's hidden requant
@@ -114,12 +129,15 @@ the JAX package.  Phases, each printing its lines:
             and each again at every cluster size the plan can pick;
             kernels 12-14 at the ops phase's shapes (beside SDPA and
             ``torch.softmax``; none computes the SSD scan), kernel 12's
-            bf16 cases on both of its bodies.
+            bf16 cases on both of its bodies; the plan's launches of a
+            DiT-XL/2 block (``DIT_GEMMS`` and the row quantizer) beside
+            their bounds and ``torch._int_mm``.
             Collectives are never captured in a graph.
 
-The serve runs must launch kernels 12-14 zero times and every other
-kernel at least once; the kernels' JSON record takes kernel 12's
-launches from forward-long and 13-14's from the ops phase.  The last two
+The LM serve runs must launch kernels 12-14 zero times and every other
+kernel at least once; the kernels' JSON record adds serve-dit's launches
+to theirs, and takes kernel 12's launches from forward-long and
+serve-dit and 13-14's from the ops phase.  The last two
 lines are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.
 """
@@ -188,13 +206,14 @@ SOURCES = {
                        "src/repro/kernels/online_softmax.py:58"),
 }
 # Kernels 12-14 are reached through the ops surface, and kernel 12 also
-# by the cacheless forward above 2048 tokens (forward-long); the ops
-# phase drives them at the widths of models in the registry, the serve
-# runs launch them 0 times.
+# by the cacheless forward above 2048 tokens (forward-long) and by DiT's
+# full attention (serve-dit); the ops phase drives them at the widths of
+# models in the registry, the LM serve runs launch them 0 times.
 OPS_KERNELS = ("flash_attention", "ssd_scan", "online_softmax")
 # (case, B, Sq, Skv, H, KH, D, dtype, causal, window); the first is the
-# timed row
+# timed row: DiT-XL/2's, the shape of most of kernel 12's served launches
 FLASH_CASES = (
+    ("DiT-XL/2 attention", 8, 1024, 1024, 16, 16, 72, "bf16", False, None),
     ("gemma-2b prefill", 1, 2048, 2048, 8, 1, 256, "bf16", True, None),
     ("gemma3-4b sliding layer", 1, 4096, 4096, 8, 4, 256, "bf16", True,
      1024),
@@ -245,6 +264,26 @@ LONG_NEW_TOKENS = 16
 # and used for the near-tie rule of the argmax
 LONG_FORWARD_S = 4096
 LONG_LOGIT_ATOL = 0.15
+# DiT-XL/2 served by the diffusion engine (serve-dit): batches of 4
+# latents (8 rows with the guidance's null-label rows stacked), 8 steps at
+# guidance scale 4.0; 8 DDIM requests, then 4 Euler ones
+DIT_ARCH = "dit-xl-2"
+DIT_BATCH = 4
+DIT_STEPS = 8
+DIT_CFG_SCALE = 4.0
+DIT_REQUESTS = (("ddim", 8), ("euler", 4))
+# one full-width evaluation, kernel path against the plain path (the
+# GEMMs' plain versions, dense attention): 1.83% of the largest |eps| on
+# an H100 at seed 0, with room for codes that flip at other ties
+DIT_EPS_ATOL_REL = 3e-2   # of the largest |eps|
+# the plan's GEMMs of a DiT-XL/2 block at 2B = 8 rows of 1024 tokens:
+# (launch, kernel, M, K, N, form)
+DIT_GEMMS = (
+    ("adaLN", "cim_gemm_int8_fused_qin", 8, 1152, 6912, "f32 + bias"),
+    ("QKV", "cim_gemm_int8_fused_qin", 8192, 1152, 3456, "bf16"),
+    ("out-proj", "cim_gemm_int8_fused_qin", 8192, 1152, 1152, "bf16"),
+    ("MLP up", "cim_gemm_int8_fused", 8192, 1152, 4608, "gelu + requant"),
+    ("MLP down", "cim_gemm_int8_fused", 8192, 4608, 1152, "f32 out"))
 # tensor parallelism: ranks on the one card, joined by gloo
 TP = 2
 TP_BACKEND = "gloo"
@@ -667,8 +706,93 @@ def phase_check(torch) -> dict:
                da.decode_attention_paged(qr, kp, vp, pp, tables, qp, ksp,
                                          vsp), paged[:, :, heads], True, 0,
                where=where)
+
+    _check_dit_gemms(torch, record, dev, gen)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return errs
+
+
+def _dit_operands(torch, dev, gen, launch, name, M, K, N):
+    """Operands of one ``DIT_GEMMS`` launch drawn from ``gen``: int8
+    weights ``w`` [K, N] with scales ``ws``; for kernel 2 its float input
+    ``x`` (f32 with a ``bias`` for the adaLN, else bf16), for kernel 3
+    int8 codes ``xq`` with row scales ``xs``.  ``run`` makes the launch
+    as the block makes it (MLP up with the in-kernel requant), and
+    ``nbytes`` counts each input read once and the output written once."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import cim_gemm as cg
+    o = SimpleNamespace(
+        w=torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev,
+                        generator=gen),
+        ws=torch.rand(N, device=dev, generator=gen) * 2e-3 + 1e-4,
+        x=None, bias=None, xq=None, xs=None)
+    if name == "cim_gemm_int8_fused_qin":
+        o.x = torch.randn((M, K), device=dev, generator=gen)
+        if launch == "adaLN":
+            o.bias = torch.randn(N, device=dev, generator=gen)
+            o.nbytes = M * K * 4 + K * N + 2 * N * 4 + M * N * 4
+        else:
+            o.x = o.x.to(torch.bfloat16)
+            o.nbytes = M * K * 2 + K * N + N * 4 + M * N * 4
+        o.run = lambda: cg.cim_gemm_int8_fused_qin(o.x, o.w, o.ws,
+                                                   bias=o.bias)
+        return o
+    o.xq = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=dev,
+                         generator=gen)
+    o.xs = torch.rand((M, 1), device=dev, generator=gen) * 1e-2 + 1e-4
+    if launch == "MLP up":
+        o.nbytes = M * K + M * 4 + K * N + N * 4 + M * N + M * 4
+        o.run = lambda: cg.cim_gemm_int8_fused(
+            o.xq, o.w, o.xs, o.ws, activation="gelu", quantize_out=True)
+    else:
+        o.nbytes = M * K + M * 4 + K * N + N * 4 + M * N * 4
+        o.run = lambda: cg.cim_gemm_int8_fused(o.xq, o.w, o.xs, o.ws)
+    return o
+
+
+def _dit_mlp_input() -> tuple:
+    """(M, K) of the MLP's input, which kernel 1 quantizes."""
+    return next((M, K) for launch, _, M, K, _, _ in DIT_GEMMS
+                if launch == "MLP up")
+
+
+def _check_dit_gemms(torch, record, dev, gen) -> None:
+    """The plan's GEMMs at DiT-XL/2's shapes (``DIT_GEMMS``: 2B = 8 rows
+    of 1024 tokens) against their plain versions with ``record`` (see
+    :func:`phase_check`): kernel 2 on the f32 adaLN input with the bias
+    in its epilogue and on the bf16 QKV and out-projection inputs,
+    kernel 1 on the MLP input, kernel 3 with gelu and the requant (MLP
+    up) and to f32 (MLP down)."""
+    from repro_torch.kernels import cim_gemm as cg
+    for launch, name, M, K, N, form in DIT_GEMMS:
+        where = f"DiT-XL/2 {launch} M={M} K={K} N={N} {form}"
+        o = _dit_operands(torch, dev, gen, launch, name, M, K, N)
+        if o.x is not None:
+            record(name, o.run(), cg.cim_gemm_int8_fused_qin_plain(
+                o.x, o.w, o.ws, o.bias), True, 0, where=where)
+        elif launch == "MLP up":
+            h = cg.cim_gemm_int8_fused(o.xq, o.w, o.xs, o.ws,
+                                       activation="gelu")
+            ref = cg.cim_gemm_int8_fused_plain(o.xq, o.w, o.xs, o.ws, None,
+                                               None, "gelu")
+            record(name, h, ref, False, 0, GELU_RTOL,
+                   GELU_RTOL * ref.abs().max().item(), where=where)
+            q, s = o.run()
+            qr, sr = cg.quantize_rows_int8_plain(h)
+            record(f"{name}[requant]", torch.cat([q.float(), s], 1),
+                   torch.cat([qr.float(), sr], 1), True, 0, where=where)
+        else:
+            record(name, o.run(), cg.cim_gemm_int8_fused_plain(
+                o.xq, o.w, o.xs, o.ws), True, 0, where=where)
+        del o
+    M, K = _dit_mlp_input()
+    x = torch.randn((M, K), device=dev, generator=gen).to(torch.bfloat16)
+    q, s = cg.quantize_rows_int8(x)
+    qr, sr = cg.quantize_rows_int8_plain(x)
+    record("quantize_rows_int8", torch.cat([q.float(), s], 1),
+           torch.cat([qr.float(), sr], 1), True, 0,
+           where=f"DiT-XL/2 MLP input [{M}, {K}] bf16")
 
 
 def _flash_inputs(torch, gen, B, Sq, Skv, H, KH, D, dtype):
@@ -763,9 +887,10 @@ def phase_ops(torch) -> tuple[dict, dict]:
         held("flash_attention", where, out, plain,
              tol * ref + tol * ref.amax(-1, keepdim=True),
              f"rtol={tol:.3g} + {tol:.3g} x row max", i == 0)
-        if i < 2:
+        if dtype == "bf16" and Sq == Skv:
             pos = torch.arange(Sq, device=dev)[None].expand(B, Sq)
-            kind = "causal" if window is None else "sliding"
+            kind = ("full" if not causal else
+                    "causal" if window is None else "sliding")
             dense = dense_attention(q, k, v, pos, pos, kind, window)
             held("flash_attention vs dense_attention", f"{where}, {kind}",
                  out, dense,
@@ -1334,6 +1459,229 @@ def phase_forward_long(torch, model) -> dict:
             say(f"[forward-long]   {t:9.3f} ms  {cnt:4d} x  {key[:90]}")
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_serve_dit(torch) -> dict:
+    """Full-width DiT-XL/2 (random weights from the seed, bf16, the full
+    plan) served by ``DiffusionEngine``: ``DIT_REQUESTS`` at batch
+    ``DIT_BATCH``, ``DIT_STEPS`` steps at guidance ``DIT_CFG_SCALE``
+    (each step one evaluation of 2B = 8 rows).  Every request OK with
+    finite latents; exactly 7 launches per block per evaluation (the 6
+    plan launches and 1 of kernel 12); the engine's latents bitwise a
+    direct ``sample()`` on the same noise; one evaluation within
+    ``DIT_EPS_ATOL_REL`` of the largest |eps| of the plain path (the
+    GEMMs' plain versions under ``kernel_mode(False)``, dense attention
+    by explicit positions), which launches nothing.  Prints ms per
+    evaluation, images/s and the profiled device share of an evaluation.
+    Returns the launch counts of the served run."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_dit_config
+    from repro_torch.diffusion import DiffusionEngine, ImageRequest, sample
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.dit import DiTModel
+    from repro_torch.quant import QuantPlan, kernel_mode
+    from repro_torch.serving import RequestStatus
+
+    cfg = get_dit_config(DIT_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DiTModel(cfg).init(SEED, device=DEVICE)
+    engine = DiffusionEngine(model, batch_size=DIT_BATCH,
+                             quant_plan=QuantPlan.full())
+    _sync(torch)
+    say(f"[serve-dit] {DIT_ARCH} ({cfg.n_layers} blocks, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.tokens} tokens) drawn "
+        f"and quantized (full plan) in {time.perf_counter() - t0:.1f} s, "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(SEED + 6)
+    reqs = []
+    for method, n in DIT_REQUESTS:
+        reqs += [ImageRequest(uid=len(reqs) + i,
+                              label=int(rng.integers(cfg.n_classes)),
+                              num_steps=DIT_STEPS, cfg_scale=DIT_CFG_SCALE,
+                              method=method, seed=SEED) for i in range(n)]
+    for r in reqs:
+        engine.submit(r)
+    _sync(torch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run_until_done()
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = engine.stats
+    evals = st.denoise_steps      # one stacked 2B evaluation a step
+    need(all(r.status is RequestStatus.OK for r in reqs),
+         f"serve-dit: requests not OK: {[r.status.value for r in reqs]}")
+    shape = (cfg.in_channels, cfg.input_size, cfg.input_size)
+    need(all(r.latents.shape == shape and np.isfinite(r.latents).all()
+             for r in reqs), "serve-dit: latents of the wrong shape or "
+         "non-finite")
+    L = cfg.n_layers
+    want = {name: 0 for name in SOURCES}
+    want.update(cim_gemm_int8_fused_qin=3 * L * evals,
+                quantize_rows_int8=L * evals,
+                cim_gemm_int8_fused=2 * L * evals,
+                flash_attention=L * evals)
+    say(f"[serve-dit] {len(reqs)} requests OK in {st.batches} batches of "
+        f"{DIT_BATCH} ({evals} evaluations of {2 * DIT_BATCH} rows): "
+        f"{wall:.2f} s, {st.images_out / wall:.3f} images/s, "
+        f"{wall * 1e3 / evals:.2f} ms per evaluation in the engine")
+    say(f"[serve-dit] launches {json.dumps(counts)}")
+    need(counts == want, f"serve-dit: launch counts {counts} != {want}")
+    per = sum(counts.values()) / (L * evals)
+    say(f"[serve-dit] {per:g} launches per block per evaluation, "
+        f"{counts['flash_attention'] / (L * evals):g} of them kernel 12")
+    need(per == 7, f"serve-dit: {per} launches per block per evaluation")
+
+    first = reqs[:DIT_BATCH]
+    noise = torch.stack([engine._noise(r) for r in first])
+    labels = torch.tensor([r.label for r in first], dtype=torch.int32,
+                          device=DEVICE)
+    direct = sample(model, labels, x_init=noise, num_steps=DIT_STEPS,
+                    cfg_scale=DIT_CFG_SCALE).cpu().numpy()
+    same = all(np.array_equal(direct[i], r.latents)
+               for i, r in enumerate(first))
+    say(f"[serve-dit] engine latents vs a direct sample(): "
+        f"{'bitwise' if same else 'DIFFER'}")
+    need(same, "serve-dit: the engine's latents are not its sample()'s")
+
+    # one evaluation, the kernel path against the plain path
+    x = torch.cat([noise, noise])
+    tt = torch.full((2 * DIT_BATCH,), 500, dtype=torch.int32, device=DEVICE)
+    yy = torch.cat([labels, torch.full_like(labels, cfg.null_class)])
+    pos = torch.arange(cfg.tokens, device=DEVICE).expand(2 * DIT_BATCH,
+                                                         cfg.tokens)
+    C = cfg.in_channels
+    with torch.no_grad():
+        kern = model(x, tt, yy)[:, :C]
+        _sync(torch)
+        before = launch_counts()
+        with kernel_mode(False):
+            plain = model(x, tt, yy, positions=pos)[:, :C]
+        _sync(torch)
+        need(launch_counts() == before, "serve-dit: the plain path "
+             "launched a kernel")
+    err = (kern - plain).abs().max().item()
+    top = plain.abs().max().item()
+    say(f"[serve-dit] one evaluation (t 500, {2 * DIT_BATCH} rows), kernel "
+        f"path vs plain path: eps max_abs_err={err:.4g}, "
+        f"{err / top:.4g} of the largest |eps| {top:.4g} (tol "
+        f"{DIT_EPS_ATOL_REL:g})")
+    need(bool(torch.isfinite(kern).all()) and err <= DIT_EPS_ATOL_REL * top,
+         "serve-dit: eps disagrees with the plain path")
+    del kern, plain
+
+    def evaluate():
+        with torch.no_grad():
+            model(x, tt, yy)
+    evaluate()
+    _sync(torch)
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        evaluate()
+    _sync(torch)
+    eval_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        evaluate()
+        _sync(torch)
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        d = getattr(e, "self_device_time_total", None)
+        d = (getattr(e, "self_cuda_time_total", 0) if d is None else d) / 1e3
+        rows.append((d, e.count, e.key))
+    dev_ms = sum(r[0] for r in rows)
+    per_s = DIT_BATCH * 1e3 / (eval_ms * DIT_STEPS)
+    say(f"[serve-dit] {eval_ms:.2f} ms per evaluation ({2 * DIT_BATCH} rows "
+        f"x {cfg.tokens} tokens), {per_s:.3f} images/s at {DIT_STEPS} "
+        f"guided steps")
+    if dev_ms == 0:
+        say("[serve-dit] device time not measured (the profiler saw no "
+            "device activity)")
+    else:
+        say(f"[serve-dit] profiled evaluation: {dev_ms:.2f} ms of device "
+            f"kernels (busy share {dev_ms / eval_ms:.3f}), "
+            f"{sum(r[1] for r in rows)} kernel launches")
+        for d, cnt, key in sorted(rows, reverse=True)[:8]:
+            say(f"[serve-dit]   {d:8.3f} ms  {cnt:5d} x  {key[:90]}")
+    say(f"[serve-dit] device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def times_dit(torch, card: str) -> None:
+    """The plan's launches of a DiT-XL/2 block at 2B = 8 rows
+    (``DIT_GEMMS``, and kernel 1 on the MLP input) under the plan's rule,
+    each beside its bound and ``torch._int_mm`` on the same int8
+    operands (no epilogue); their sum over a block and over the blocks
+    of an evaluation.  Kernel 12 at the block's attention is the
+    ops phase's "DiT-XL/2 attention" case (``times_ops``)."""
+    from repro_torch.configs import get_dit_config
+    from repro_torch.kernels import cim_gemm as cg
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def int_mm_ms(xq, w):
+        if xq.shape[0] <= 16:  # torch._int_mm needs more than 16 rows
+            xp = torch.zeros((32, xq.shape[1]), dtype=torch.int8,
+                             device=dev)
+            xp[:xq.shape[0]] = xq
+            xq = xp
+        w_cm = w.t().contiguous().t()
+        return time_ms(torch, [lambda: torch._int_mm(xq, w_cm)], reps=10)
+
+    blocks = get_dit_config(DIT_ARCH).n_layers
+    block_ms = 0.0
+    for launch, name, M, K, N, form in DIT_GEMMS:
+        insts = [_dit_operands(torch, dev, gen, launch, name, M, K, N)
+                 for _ in range(copies_for(K * N + M * K))]
+        ms = time_ms(torch, [o.run for o in insts], reps=10)
+        o = insts[0]
+        b, by = bound(o.nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+        lib = int_mm_ms(o.xq if o.x is None else
+                        cg.quantize_rows_int8(o.x)[0], o.w)
+        variant = "qin_f32" if form.startswith("f32 +") else (
+            "qin_bf16" if name.endswith("qin") else "int8")
+        plan = cg.gemm_plan(M, K, N, variant)
+        block_ms += ms
+        say(f"[times] DiT-XL/2 {launch}: {name} (M={M}, K={K}, N={N}, "
+            f"{form}; {plan.variant} {plan.kind} cluster {plan.cluster}): "
+            f"{ms:.4f} ms, bound {b:.5f} ms by {by}, torch._int_mm "
+            f"{lib:.4f} ms ({ms / lib:.2f}x) on {card}")
+        if launch == "MLP up":    # the requant's other form (ROADMAP B.14)
+            two = time_ms(torch, [
+                (lambda o=o: cg.quantize_rows_int8(cg.cim_gemm_int8_fused(
+                    o.xq, o.w, o.xs, o.ws, activation="gelu")))
+                for o in insts], reps=10)
+            say(f"[times] DiT-XL/2 MLP up as the GEMM to f32 then the row "
+                f"quantizer: {two:.4f} ms, against {ms:.4f} ms with the "
+                f"requant in its epilogue, on {card}")
+        del insts, o
+        torch.cuda.empty_cache()
+    M, K = _dit_mlp_input()
+    xs = [torch.randn((M, K), device=dev, generator=gen).to(torch.bfloat16)
+          for _ in range(copies_for(M * K * 2))]
+    ms = time_ms(torch, [(lambda a=a: cg.quantize_rows_int8(a)) for a in xs],
+                 reps=10)
+    b, by = bound(M * K * 2 + M * K + M * 4, 0, INT8_OPS_PER_S)
+    block_ms += ms
+    say(f"[times] DiT-XL/2 MLP quantize: quantize_rows_int8 ([{M}, {K}] "
+        f"bf16): {ms:.4f} ms, bound {b:.5f} ms by {by}, library null on "
+        f"{card}")
+    say(f"[times] DiT-XL/2 the plan's 6 launches of a block: {block_ms:.4f}"
+        f" ms, x {blocks} blocks {blocks * block_ms:.3f} ms an evaluation "
+        f"(kernel 12: the DiT-XL/2 attention line, x {blocks}) on {card}")
+    del xs
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2187,6 +2535,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     del shared
 
     times_gemm_plans(torch, card)
+    times_dit(torch, card)
     times_walks(torch, card)
     rows += times_ops(torch, card)
     out = []
@@ -2363,15 +2712,18 @@ def main() -> int:
                  lengths=serve["lengths"], seed=SEED + 3, new=NEW_TOKENS,
                  kw=dict(n_slots=8, max_len=1024, prefill_bucket=64))],
             {"serve-moe-tp": moe["tokens"]}))
+        dit_counts = phase_serve_dit(torch)
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for k, v in counts.items() if k not in OPS_KERNELS),
              f"a kernel was never launched by the serve runs: {counts}")
         need(not any(counts[k] for k in OPS_KERNELS),
              f"a serve run launched a kernel of the ops phase: {counts}")
+        counts = {k: v + dit_counts[k] for k, v in counts.items()}
         # kernels 13 and 14: the ops phase's own exact counts; kernel 12:
-        # its model path's, forward-long
+        # its model paths', forward-long and serve-dit
         counts.update({k: ops_counts[k] for k in OPS_KERNELS})
-        counts["flash_attention"] = long_counts["flash_attention"]
+        counts["flash_attention"] = (long_counts["flash_attention"]
+                                     + dit_counts["flash_attention"])
         kernels = phase_times(torch, serve, moe, counts, errs, card)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,5 +1,9 @@
 from .base import ModelConfig
-from .registry import ARCH_IDS, get_config
+from .dit import DiTConfig
+from .registry import (ARCH_IDS, DIT_ARCH_IDS, all_dit_configs, get_config,
+                       get_dit_config)
 from .shapes import reduced_config
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "reduced_config"]
+__all__ = ["ModelConfig", "DiTConfig", "ARCH_IDS", "DIT_ARCH_IDS",
+           "all_dit_configs", "get_config", "get_dit_config",
+           "reduced_config"]

@@ -14,6 +14,12 @@ become the port's ``QuantizedLinear`` modules.  An MoE group's ``moe``
 leaves (router, expert stacks ``up``/``gate``/``down``, the ``shared``
 MLP) and an untied ``head.kernel`` cross over the same way.  A leaf
 whose shape differs from the port's is refused.
+
+``dit_params_from_jax(tree, cfg)`` does the same for the reference's
+``DiTModel`` tree: the scanned ``blocks`` axis is unstacked into the
+port's :class:`~repro_torch.models.dit.DiTBlock` list, and quantized
+block leaves (the adaLN kernel q [d, 6d] with scale [6d], the attention
+and MLP leaves) cross over as ``QuantizedLinear`` modules.
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.dit import DiTConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.dit import DiTModel
 from repro_torch.models.model import Model
 from repro_torch.quant.linear import QuantizedLinear
 
@@ -42,18 +50,21 @@ def _is_quantized(leaf) -> bool:
 
 
 def _assign(module: torch.nn.Module, name: str, leaf, layer: int | None,
-            device) -> None:
-    """Set ``module.<name>`` from a (possibly stacked) reference leaf."""
+            device, shape: tuple | None = None) -> None:
+    """Set ``module.<name>`` from a (possibly stacked) reference leaf.
+    ``shape``: the port's shape of a leaf the module does not hold yet
+    (the fused qkv)."""
     def pick(a):
         return to_torch(a if layer is None else a[layer], device)
 
     current = getattr(module, name, None)    # absent: the fused qkv
     if _is_quantized(leaf):
         q, scale = pick(leaf.q), pick(leaf.scale)
-        if isinstance(current, torch.Tensor) and \
-                tuple(current.shape) != tuple(q.shape):
+        want = tuple(current.shape) if isinstance(current, torch.Tensor) \
+            else shape
+        if want is not None and want != tuple(q.shape):
             raise ValueError(f"{name}: reference shape {tuple(q.shape)} != "
-                             f"port shape {tuple(current.shape)}")
+                             f"port shape {want}")
         if current is not None:
             delattr(module, name)
         setattr(module, name, QuantizedLinear(q, scale))
@@ -64,6 +75,20 @@ def _assign(module: torch.nn.Module, name: str, leaf, layer: int | None,
                          f"port shape {tuple(current.shape)}")
     with torch.no_grad():
         current.copy_(value.to(current.dtype))
+
+
+def _assign_attention(attn: torch.nn.Module, leaves: dict, layer: int,
+                      device) -> None:
+    """An attention layer's leaves; a fused ``qkv`` leaf replaces the
+    module's q/k/v and must have their fused shape [d, H + 2*KH, Dh]."""
+    shape = None
+    if "qkv" in leaves:
+        d, H, Dh = attn.q.shape
+        shape = (d, H + 2 * attn.k.shape[1], Dh)
+        for name in ("q", "k", "v"):
+            delattr(attn, name)
+    for name, leaf in leaves.items():
+        _assign(attn, name, leaf, layer, device, shape=shape)
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
@@ -84,12 +109,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
             _assign(block, "mixer_norm", group["mixer_norm"]["scale"], j,
                     device)
             _assign(block, "ffn_norm", group["ffn_norm"]["scale"], j, device)
-            attn = group["attn"]
-            if "qkv" in attn:
-                for name in ("q", "k", "v"):
-                    delattr(block.attn, name)
-            for name, leaf in attn.items():
-                _assign(block.attn, name, leaf, j, device)
+            _assign_attention(block.attn, group["attn"], j, device)
             if "moe" in group:
                 moe = dict(group["moe"])
                 for name, leaf in moe.pop("shared", {}).items():
@@ -101,3 +121,42 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
                     _assign(block.mlp, name, leaf, j, device)
             i += 1
     return model
+
+
+def dit_params_from_jax(tree: dict, cfg: DiTConfig,
+                        device=None) -> DiTModel:
+    """The reference's numpy ``DiTModel`` parameter tree -> a port
+    :class:`DiTModel` on ``device`` (default: the card)."""
+    device = resolve_device(device)
+    model = DiTModel(cfg)
+    model.to_empty(device=device)
+    for name in ("kernel", "bias"):
+        _assign(model.patch_embed, name, tree["patch_embed"][name], None,
+                device)
+        for part in ("adaln", "linear"):
+            _assign(getattr(model.final, part), name,
+                    tree["final"][part][name], None, device)
+    for name, leaf in tree["t_embed"].items():
+        _assign(model.t_embed, name, leaf, None, device)
+    _assign(model, "y_table", tree["y_embed"]["table"], None, device)
+    blocks = tree["blocks"]
+    for j, block in enumerate(model.blocks):
+        _assign_attention(block.attn, blocks["attn"], j, device)
+        for name, leaf in blocks["mlp"].items():
+            _assign(block.mlp, name, leaf, j, device)
+        for name, leaf in blocks["adaln"].items():
+            _assign(block.adaln, name, leaf, j, device)
+        _check_scales(block)
+    return model
+
+
+def _check_scales(block: torch.nn.Module) -> None:
+    """Each quantized leaf's scale has its output channels' shape: the
+    fused qkv's [H + 2*KH, Dh], every other leaf's [out]."""
+    for mod in (block.attn, block.mlp, block.adaln):
+        for name, leaf in mod.named_children():
+            want = leaf.q.shape[1:] if name == "qkv" else leaf.q.shape[-1:]
+            if tuple(leaf.scale.shape) != tuple(want):
+                raise ValueError(f"{name}: reference scale shape "
+                                 f"{tuple(leaf.scale.shape)} != port shape "
+                                 f"{tuple(want)}")

@@ -1,7 +1,7 @@
 // Flash-attention prefill for Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/flash_attention.py: flash_attention
-// (_flash_kernel): causal or sliding-window attention of a whole prompt,
+// (_flash_kernel): causal, sliding-window or full attention of a prompt,
 // an online softmax over KV blocks, GQA through the KV index map h // G.
 //
 // What bounds it on the card: the two products, 4 * D operations per
@@ -11,29 +11,33 @@
 // waiting for memory, so the bound is arithmetic at the tensor cores'
 // rate.  Two bodies:
 //
-// * bf16 with D % 16 == 0 (every head size of the registry: 64, 128,
-//   256) runs on the tensor cores, FlashAttention-2 style: mma.sync
-//   m16n8k16, bf16 operands, f32 accumulators.  A block of 4 warps owns
-//   BQ = 64 query rows (16 per warp) of one head and walks KV tiles of
-//   BK = 64 keys.  It stages its q tile in shared memory once (bf16) and
-//   double-buffers the K and V tiles with cp.async: tile j + 1 is in
-//   flight while tile j computes.  Keys past Skv and rows past Sq are
-//   zero-filled by the copy (source size 0), head dims past D too (the
-//   tile is DM = 64, 128 or 256 wide).  Rows are 16-byte chunks XOR-
-//   swizzled by row % 8, so that ldmatrix reads 8 rows without bank
-//   conflicts.  S = q K^T comes out of the mma in f32 fragments (q by
-//   ldmatrix as A, K rows by ldmatrix as B); each score is then
-//   __fmul_rn(s, 1/sqrt(D)), masked scores are set to -1e30 and keys past
-//   Skv to -inf, on the tiles that hold a diagonal, a window edge or the
-//   end of the keys only.  The online-softmax state lives in the
-//   fragment layout: a thread holds two rows (lane / 4 and lane / 4 + 8)
-//   and a row's max and sum are quad shuffles (xor 1, 2): m_new = max(m,
-//   max s), p = exp(s - m_new), l = l * corr + sum p over the unrounded
-//   p, corr = exp(m - m_new).  p is then rounded to bf16 (the reference's
-//   p.astype(v.dtype)) and is the A operand of P V straight from
-//   registers; V is read as B by ldmatrix.trans.  The O accumulator (16 x
-//   DM per warp, DM / 2 f32 a thread) stays in registers for the sweep.
-//   Shared memory: 640 * DM bytes (160 KB at D 256: one block an SM).
+// * bf16 with D % 8 == 0 (every head size of the registry: 64, 72 at DiT-XL/2,
+//   128, 256) runs on the tensor cores, FlashAttention-2 style: mma.sync
+//   m16n8k16, bf16 operands, f32 accumulators.  A block of 4 warps owns BQ =
+//   64 query rows (16 per warp) of one head and walks KV tiles of BK = 64
+//   keys.  It stages its q tile in shared memory once (bf16) and
+//   double-buffers the K and V tiles with cp.async: tile j + 1 is in flight
+//   while tile j computes.  Keys past Skv and rows past Sq are zero-filled by
+//   the copy (source size 0), head dims past D too (the tile is DM = 64, 128
+//   or 256 wide; D % 8 == 0 makes a row of one head whole 16-byte chunks, so a
+//   chunk is all head dims or all zeros and never reads the next head's
+//   values).  The zero columns add exact zeros to q K^T and the O columns past
+//   D are never stored, so D 72 runs in the DM 128 tile at 128 / 72 = 1.78
+//   times the head's own mma work; the scale stays 1/sqrt(D) of the true D.
+//   Rows are 16-byte chunks XOR-swizzled by row % 8 (the swizzle indexed by
+//   DM, a power of two), so that ldmatrix reads 8 rows without bank conflicts.
+//   S = q K^T comes out of the mma in f32 fragments (q by ldmatrix as A, K
+//   rows by ldmatrix as B); each score is then __fmul_rn(s, 1/sqrt(D)), masked
+//   scores are set to -1e30 and keys past Skv to -inf, on the tiles that hold
+//   a diagonal, a window edge or the end of the keys only.  The online-softmax
+//   state lives in the fragment layout: a thread holds two rows (lane / 4 and
+//   lane / 4 + 8) and a row's max and sum are quad shuffles (xor 1, 2): m_new
+//   = max(m, max s), p = exp(s - m_new), l = l * corr + sum p over the
+//   unrounded p, corr = exp(m - m_new).  p is then rounded to bf16 (the
+//   reference's p.astype(v.dtype)) and is the A operand of P V straight from
+//   registers; V is read as B by ldmatrix.trans.  The O accumulator (16 x DM
+//   per warp, DM / 2 f32 a thread) stays in registers for the sweep. Shared
+//   memory: 640 * DM bytes (160 KB at D 256: one block an SM).
 // * f32, and bf16 with another D, run on the CUDA cores in f32 fused
 //   multiply-adds (TF32 would miss the f32 tolerance of 2e-5): one block
 //   of 8 warps per 64 query rows, KV tiles of 32 keys, q staged as f32,
@@ -286,7 +290,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body (bf16, D % 16 == 0)
+// The tensor-core body (bf16, D % 8 == 0)
 // ---------------------------------------------------------------------------
 constexpr int MT = 128;       // threads per block: 4 warps
 constexpr int MBQ = 64;       // query rows per block, 16 per warp
@@ -377,7 +381,7 @@ __device__ __forceinline__ uint32_t tile_off(int r, int j) {
 }
 
 // q [B, Sq, H, D]; k, v [B, Skv, KH, D]; out [B, Sq, H, D], all bf16;
-// D % 16 == 0, D <= DM.  Grid (H, q tiles, B): every head's heaviest q
+// D % 8 == 0, D <= DM.  Grid (H, q tiles, B): every head's heaviest q
 // tile is scheduled before any lighter one.
 template <int DM, int BK, int MINB>
 __global__ void __launch_bounds__(MT, MINB)
@@ -600,7 +604,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // kind: 1 = float32, 2 = bfloat16 (q, k, v and out).  body: 0 = the CUDA
-// cores' f32 body, 1 = the tensor-core body (bf16, D % 16 == 0, 16-byte
+// cores' f32 body, 1 = the tensor-core body (bf16, D % 8 == 0, 16-byte
 // aligned q, k, v and out).  0 < D <= 256, H % KH == 0, window 0 = none
 // (checked by the wrapper).
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -610,7 +614,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 256 || KH < 1 || H % KH) return (int)cudaErrorInvalidValue;
   if (body == 1) {
-    if (kind != 2 || D % 16) return (int)cudaErrorInvalidValue;
+    if (kind != 2 || D % 8) return (int)cudaErrorInvalidValue;
     if (D <= 64)
       return launch_mma<64, 64, 2>(q, k, v, out, B, Sq, Skv, H, KH, D,
                                    causal, window, scale, st);

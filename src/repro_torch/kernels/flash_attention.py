@@ -1,13 +1,14 @@
 """Flash-attention prefill (port of ``repro/kernels/flash_attention.py``).
 
-Causal or sliding-window attention of a whole prompt with an online
+Causal, sliding-window or full attention of a whole prompt with an online
 softmax over KV tiles; the CUDA bodies are ``csrc/flash_attention.cu``,
 whose note says what bounds them and how they follow the reference (GQA
 by reading KV head ``h // G``, never repeating KV; f32 scores; ``p``
 rounded to v's dtype before PV; masked scores ``-1e30``; KV tiles that
 no query row of a tile can see are skipped, which computes the same
-function).  bf16 with ``D % 16 == 0`` runs on the tensor cores
-(``mma.sync``), f32 and any other bf16 head size on the CUDA cores.  The
+function).  bf16 with ``D % 8 == 0`` runs on the tensor cores
+(``mma.sync``; D 72, DiT-XL/2's head size, in the tile 128 wide), f32
+and any other bf16 head size on the CUDA cores.  The
 wrapper takes its plain version for CPU tensors; for CUDA tensors it
 launches the kernel or raises, and counts the launch.
 
@@ -32,7 +33,8 @@ from ._launch import (DTYPE_CODE, F, I, P, bind, check, on_cpu, ptr,
 NEG_INF = ref.NEG_INF
 MAX_HEAD_DIM = 256
 BODIES = ("mma", "fma")
-# the tensor-core body's 16-byte copies: q, k, v rows start 16-byte aligned
+# the tensor-core body's 16-byte copies: q, k, v rows start 16-byte
+# aligned (a head of D % 8 == 0 bf16 values is whole 16-byte chunks)
 _ALIGN = 16
 
 _LIB = "flash_attention"
@@ -62,8 +64,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def body_for(dtype: torch.dtype, D: int) -> str:
     """The body a call takes by default: the tensor cores' ("mma") for
-    bf16 with ``D % 16 == 0``, else the CUDA cores' f32 one ("fma")."""
-    return "mma" if dtype == torch.bfloat16 and D % 16 == 0 else "fma"
+    bf16 with ``D % 8 == 0``, else the CUDA cores' f32 one ("fma")."""
+    return "mma" if dtype == torch.bfloat16 and D % 8 == 0 else "fma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,7 +73,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     body: str | None = None) -> torch.Tensor:
     """Prefill attention of q over k/v (see the module note for shapes
     and masks).  One launch on CUDA tensors.  ``body`` ("mma" or "fma")
-    overrides :func:`body_for`; "mma" needs bf16 and ``D % 16 == 0``."""
+    overrides :func:`body_for`; "mma" needs bf16 and ``D % 8 == 0``."""
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     if q.dim() != 4 or k.dim() != 4:
@@ -96,7 +98,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if body == "mma":
         if body_for(q.dtype, D) != "mma":
             raise ValueError(f"the tensor-core body takes bf16 with "
-                             f"D % 16 == 0; got {q.dtype}, D={D}")
+                             f"D % 8 == 0; got {q.dtype}, D={D}")
         for name, a in (("q", q), ("k", k), ("v", v)):
             if a.data_ptr() % _ALIGN:
                 raise ValueError(f"{name} must start {_ALIGN}-byte aligned "

@@ -93,17 +93,22 @@ def cim_hidden_int8(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 def cim_quantized_matmul_fused(x: torch.Tensor, w_q: torch.Tensor,
                                w_scale: torch.Tensor,
-                               residual: torch.Tensor | None = None
+                               bias: torch.Tensor | None = None,
+                               residual: torch.Tensor | None = None,
+                               activation: str | None = None
                                ) -> torch.Tensor:
     """Quantized linear: x [M, K] bf16/f32; w_q [K, N] int8; w_scale [N];
-    optional residual [M, N] added in the epilogue -> f32 [M, N].  One
-    launch when K fits ``MAX_FUSED_QUANT_K``, else quantize + GEMM (two
-    launches)."""
+    optional bias [N] f32, activation and residual [M, N], applied in
+    the epilogue in that order -> f32 [M, N].  One launch when K fits
+    ``MAX_FUSED_QUANT_K``, else quantize + GEMM (two launches)."""
     x, residual = x.contiguous(), _contig(residual)
     if x.shape[1] <= MAX_FUSED_QUANT_K:
-        return cim_gemm_int8_fused_qin(x, w_q, w_scale, residual=residual)
+        return cim_gemm_int8_fused_qin(x, w_q, w_scale, bias=bias,
+                                       residual=residual,
+                                       activation=activation)
     x_q, x_s = quantize_rows_int8(x)
-    return cim_gemm_int8_fused(x_q, w_q, x_s, w_scale, residual=residual)
+    return cim_gemm_int8_fused(x_q, w_q, x_s, w_scale, bias=bias,
+                               residual=residual, activation=activation)
 
 
 def cim_quantized_mlp(x: torch.Tensor, up_q: torch.Tensor,

@@ -67,6 +67,8 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
         ok = k <= q
     elif kind == "sliding":
         ok = (k <= q) & (k > q - window)
+    elif kind == "full":
+        ok = k < 2 ** 29  # everything except padding/empty sentinel slots
     else:
         raise ValueError(f"unknown mask kind {kind!r}")
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
@@ -162,15 +164,20 @@ def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference: :func:`dense_attention` up to ``DENSE_SEQ_THRESHOLD``
     tokens, the online softmax over KV blocks above it.
 
-    Above the threshold, a CUDA call with the model's own positions
-    (``aligned_positions``: ``arange(S)`` in every row) and a causal or
-    sliding mask is one launch of kernel 12, whose causal mask is aligned
-    top-left.  The kernel takes no positions operand, so caller-given
-    positions take :func:`blockwise_attention` on either device, as CPU
-    tensors do: a dispatch on the input, not a fallback on failure."""
+    A CUDA call with the model's own positions (``aligned_positions``:
+    ``arange(S)`` in every row) is one launch of kernel 12, whose causal
+    mask is aligned top-left: a ``"full"`` mask (DiT) at every length, a
+    causal or sliding one above the threshold.  The kernel takes no
+    positions operand, so caller-given positions take the dense or
+    blockwise path on either device, as CPU tensors do: a dispatch on
+    the input, not a fallback on failure."""
+    kernel = aligned_positions and q.is_cuda
+    if kernel and kind == "full":
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=False)
     if q.shape[1] <= DENSE_SEQ_THRESHOLD:
         return dense_attention(q, k, v, positions, positions, kind, window)
-    if aligned_positions and q.is_cuda and kind in ("causal", "sliding"):
+    if kernel and kind in ("causal", "sliding"):
         return _fa.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
             window=window if kind == "sliding" else None)
@@ -383,6 +390,7 @@ def attention_apply(attn: Attention, x: torch.Tensor,
                     window: Optional[int] = None,
                     rope_theta: float = 10000.0,
                     cache: Optional[dict] = None,
+                    use_rope: bool = True,
                     residual: Optional[torch.Tensor] = None,
                     aligned_positions: bool = False) -> torch.Tensor:
     """Self-attention over ``x`` [B, S, d]; returns [B, S, d].
@@ -394,7 +402,8 @@ def attention_apply(attn: Attention, x: torch.Tensor,
     output, inside the out-projection's epilogue on the quantized path.
     Without a cache the sequence attends over itself
     (:func:`cacheless_attention`); ``aligned_positions`` says that
-    ``positions`` is ``arange(S)`` in every row.
+    ``positions`` is ``arange(S)`` in every row.  ``use_rope=False``
+    leaves q and k unrotated (DiT's attention).
     """
     B, S, _ = x.shape
     qkv_w = getattr(attn, "qkv", None)
@@ -408,8 +417,9 @@ def attention_apply(attn: Attention, x: torch.Tensor,
         q = torch.einsum("bsd,dhk->bshk", x, attn.q)
         k = torch.einsum("bsd,dhk->bshk", x, attn.k)
         v = torch.einsum("bsd,dhk->bshk", x, attn.v)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
 
     if cache is not None and "block_tables" in cache:
         # Paged cache: fixed-size blocks from a shared pool, routed per

@@ -102,25 +102,35 @@ def quantize_linear(w: torch.Tensor) -> QuantizedLinear:
 
 
 def _matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-            use_kernel: bool | None,
-            residual: torch.Tensor | None) -> torch.Tensor:
-    """x [..., K] @ int8 q [K, N] * scale [N] (+ residual) -> f32."""
+            use_kernel: bool | None, residual: torch.Tensor | None,
+            bias: torch.Tensor | None = None,
+            activation: str | None = None) -> torch.Tensor:
+    """x [..., K] @ int8 q [K, N] * scale [N] (+ bias, + activation,
+    + residual) -> f32."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     r2 = None if residual is None else residual.reshape(-1,
                                                         residual.shape[-1])
+    activation = _canon_activation(activation)
     if _resolve_use_kernel(use_kernel):
-        out = kops.cim_quantized_matmul_fused(x2, q, scale, residual=r2)
+        out = kops.cim_quantized_matmul_fused(x2, q, scale, bias=bias,
+                                              residual=r2,
+                                              activation=activation)
     else:
-        out = kref.fused_matmul_ref(x2, q, scale, residual=r2)
+        out = kref.fused_matmul_ref(x2, q, scale, bias=bias, residual=r2,
+                                    activation=activation)
     return out.reshape(*lead, -1)
 
 
 def quantized_matmul(x: torch.Tensor, w: QuantizedLinear,
                      use_kernel: bool | None = False,
-                     residual: torch.Tensor | None = None) -> torch.Tensor:
-    """x [..., K] @ int8 W (+ residual, added in the epilogue) -> f32."""
-    return _matmul(x, w.q, w.scale, use_kernel, residual)
+                     bias: torch.Tensor | None = None,
+                     residual: torch.Tensor | None = None,
+                     activation: str | None = None) -> torch.Tensor:
+    """x [..., K] @ int8 W (+ bias [N], + activation, + residual [..., N])
+    -> f32; bias, activation and residual run in the GEMM's epilogue, in
+    that order."""
+    return _matmul(x, w.q, w.scale, use_kernel, residual, bias, activation)
 
 
 # ---------------------------------------------------------------------------

@@ -23,19 +23,28 @@ pipeline:
                                               shared expert's 3-launch
                                               MLP; the router stays f32)
 
+    ``adaln``     DiT adaLN modulation GEMM  (c -> 6*d shift/scale/gate:
+                                              one fused GEMM with the
+                                              bias in its epilogue)
+
 With the full plan a decode step of a dense block is 6 launches (7 when
 d_ff > MAX_FUSED_QUANT_N, as at gemma-2b) and of an MoE block 9,
-whatever the number of experts.  ``adaln`` is kept as a plan field for
-parity with the reference; the DiT family it covers is not ported yet.
+whatever the number of experts.  A DiT block
+(:mod:`repro_torch.models.dit`) covers ``DIT_LAYER_KINDS``: 6 plan
+launches (adaLN, QKV, out-projection, and the 3-launch MLP), beside
+one launch of the flash-attention kernel.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .linear import quantize_attention, quantize_mlp, quantize_moe_experts
+from .linear import (QuantizedLinear, quantize_attention, quantize_linear,
+                     quantize_mlp, quantize_moe_experts)
 
 LAYER_KINDS = ("mlp", "attn_qkv", "attn_out", "attn_kv", "moe_experts",
                "adaln")
+# the kinds a DiT block covers (models/dit.py)
+DIT_LAYER_KINDS = ("adaln", "attn_qkv", "attn_out", "mlp")
 
 
 def covered_kinds(mixer: str, ffn: str) -> tuple[str, ...]:
@@ -94,4 +103,24 @@ def apply_plan(model, plan: QuantPlan):
             quantize_mlp(block.mlp)
         if "moe_experts" in kinds:
             quantize_moe_experts(block.moe)
+    return model
+
+
+def apply_dit_plan(model, plan: QuantPlan):
+    """Rewrite, in place, the plan-covered weights of every block of
+    ``model`` (a :class:`~repro_torch.models.dit.DiTModel`), the kinds of
+    ``DIT_LAYER_KINDS``: the attention projections, the MLP, and the
+    adaLN modulation kernel (its f32 bias stays and rides in the GEMM's
+    epilogue).  The patch embed, the embedders and the final layer are
+    untouched; idempotent."""
+    for block in model.blocks:
+        if plan.covers("attn_qkv") or plan.covers("attn_out"):
+            quantize_attention(block.attn, qkv=plan.covers("attn_qkv"),
+                               out=plan.covers("attn_out"))
+        if plan.covers("mlp"):
+            quantize_mlp(block.mlp)
+        w = block.adaln.kernel
+        if plan.covers("adaln") and not isinstance(w, QuantizedLinear):
+            delattr(block.adaln, "kernel")
+            block.adaln.kernel = quantize_linear(w)
     return model

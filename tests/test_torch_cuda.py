@@ -1814,22 +1814,28 @@ def test_flash_attention_tensor_core_body_spills_nothing(dev):
 
 
 def test_flash_attention_body_choice(dev):
-    """bf16 with D % 16 == 0 takes the tensor cores by default, f32 and
-    other bf16 head sizes the CUDA cores; the tensor-core body refuses
-    what it cannot take, and a q that does not start 16-byte aligned."""
+    """bf16 with D % 8 == 0 (D 72: DiT-XL/2's heads; D 40 and 136 in the
+    64- and 256-wide tiles) takes the tensor cores by default, f32 and other bf16 head sizes the CUDA cores; the
+    tensor-core body refuses what it cannot take (f32, D 36), and a q
+    that does not start 16-byte aligned."""
     from repro_torch.kernels import flash_attention as fa
     assert fa.body_for(torch.bfloat16, 256) == "mma"
-    assert fa.body_for(torch.bfloat16, 40) == "fma"
+    for d in (40, 72, 136):
+        assert fa.body_for(torch.bfloat16, d) == "mma", d
+    assert fa.body_for(torch.bfloat16, 36) == "fma"
     assert fa.body_for(torch.float32, 64) == "fma"
     q = torch.zeros((1, 8, 4, 64), device=dev)
     k = torch.zeros((1, 8, 2, 64), device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, k, body="mma")
-    q40 = torch.zeros((1, 8, 4, 40), device=dev, dtype=torch.bfloat16)
-    k40 = torch.zeros((1, 8, 2, 40), device=dev, dtype=torch.bfloat16)
+    q36 = torch.zeros((1, 8, 4, 36), device=dev, dtype=torch.bfloat16)
+    k36 = torch.zeros((1, 8, 2, 36), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        fa.flash_attention(q40, k40, k40, body="mma")
-    fa.flash_attention(q40, k40, k40)
+        fa.flash_attention(q36, k36, k36, body="mma")
+    fa.flash_attention(q36, k36, k36)
+    q72 = torch.zeros((1, 8, 4, 72), device=dev, dtype=torch.bfloat16)
+    k72 = torch.zeros((1, 8, 2, 72), device=dev, dtype=torch.bfloat16)
+    fa.flash_attention(q72, k72, k72, causal=False, body="mma")
     flat = torch.zeros(1 + 8 * 4 * 64, device=dev, dtype=torch.bfloat16)
     qm = flat[1:].view(1, 8, 4, 64)
     kb = k.bfloat16()
@@ -1837,6 +1843,131 @@ def test_flash_attention_body_choice(dev):
         fa.flash_attention(qm, kb, kb)
     torch.testing.assert_close(fa.flash_attention(qm, kb, kb, body="fma"),
                                fa.flash_attention_plain(qm, kb, kb))
+
+
+# DiT-XL/2's attention (B 8 = 2 x 4 CFG rows, S 1024, H = KH 16, D 72,
+# full), ragged lengths around the 64-row tiles, and a head size in each
+# tile width the D % 8 gate opens (D 40: DM 64, 5 of its 8 chunks a row;
+# D 72: DM 128; D 136: DM 256, 17 of 32), non-causal and causal
+@pytest.mark.parametrize("B,S,H,D,causal", [
+    (8, 1024, 16, 72, False), (2, 333, 4, 72, False), (1, 65, 3, 72, False),
+    (2, 333, 4, 40, False), (2, 333, 4, 136, False), (2, 333, 4, 72, True),
+    (1, 200, 2, 136, True)])
+def test_flash_attention_head_dim_multiple_of_8(dev, B, S, H, D, causal):
+    """Kernel 12 at a bf16 head size that is a multiple of 8 but not of
+    16, on its tensor-core body (head dims past D zero-filled in the
+    tile), against its plain version and against the CUDA-core body:
+    2**-7 of the element plus 2**-7 of its row; the head's neighbours in
+    memory do not leak into it (q, k, v cut from wider tensors whose
+    other heads hold large values)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(25)
+    wide = [_t(rng.standard_normal((B, S, H + 1, D)).astype(np.float32),
+               dev, torch.bfloat16) for _ in range(3)]
+    for w in wide:
+        w[:, :, H] = 1e4
+    q, k, v = (w[:, :, :H].contiguous() for w in wide)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal)
+    fma = fa.flash_attention(q, k, v, causal=causal, body="fma")
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert fa.body_for(q.dtype, D) == "mma"
+    _close_rows(out, ref, 2 ** -7, 2 ** -7, ("mma", B, S, H, D, causal))
+    _close_rows(fma, ref, 2 ** -7, 2 ** -7, ("fma", B, S, H, D, causal))
+
+
+def test_gemm_adaln_bias_and_mlp_gelu_requant_at_dit_xl2(dev):
+    """The plan's GEMMs at DiT-XL/2's new forms: kernel 2 on f32 input
+    with the adaLN bias in its epilogue ([8, 1152] x [1152, 6912]),
+    bitwise its plain version; kernel 3 with gelu and the in-kernel
+    requant at the MLP up GEMM ([8192, 1152] x [1152, 4608]): the f32
+    output within 1e-5 of the plain version, the codes and scales the
+    row quantizer's of the kernel's own f32 output, and within one step
+    of the plain version's."""
+    rng = _gen(26)
+    x = _t(rng.standard_normal((8, 1152)).astype(np.float32), dev)
+    w, ws = _w(rng, 1152, 6912, dev)
+    b = _t(rng.standard_normal(6912).astype(np.float32), dev)
+    before = cg.cim_gemm_int8_fused_qin.launches
+    out = cg.cim_gemm_int8_fused_qin(x, w, ws, bias=b)
+    ref = cg.cim_gemm_int8_fused_qin_plain(x, w, ws, bias=b)
+    torch.cuda.synchronize()
+    assert cg.cim_gemm_int8_fused_qin.launches == before + 1
+    assert torch.equal(out, ref)
+    xq = _t(rng.integers(-127, 128, (8192, 1152)).astype(np.int8), dev)
+    xs = _t(rng.uniform(1e-3, 1e-2, (8192, 1)).astype(np.float32), dev)
+    wu, us = _w(rng, 1152, 4608, dev)
+    h = cg.cim_gemm_int8_fused(xq, wu, xs, us, activation="gelu")
+    hr = cg.cim_gemm_int8_fused_plain(xq, wu, xs, us, activation="gelu")
+    q, s = cg.cim_gemm_int8_fused(xq, wu, xs, us, activation="gelu",
+                                  quantize_out=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-6)
+    qk, sk = cg.quantize_rows_int8_plain(h)
+    assert torch.equal(q, qk) and torch.equal(s, sk)
+    qr, _ = cg.quantize_rows_int8_plain(hr)
+    assert (q.int() - qr.int()).abs().max().item() <= 1
+
+
+def _dit_test_on_card(dev):
+    from repro_torch.configs import get_dit_config
+    from repro_torch.models.dit import DiTModel
+    cfg = get_dit_config("dit-test")
+    return cfg, DiTModel(cfg).init(0, device=dev).quantize()
+
+
+def test_dit_forward_launches_seven_per_block(dev):
+    """dit-test (f32) under the full plan on the card: a forward is 6
+    plan launches and 1 of kernel 12 a block (whatever the depth), and
+    agrees with the plain path (``kernel_mode(False)`` and explicit
+    positions) within 1e-3 of its largest |out|."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.quant import kernel_mode
+    cfg, m = _dit_test_on_card(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((3, 4, 8, 8), device=dev, generator=gen)
+    tt = torch.tensor([999, 500, 0], device=dev)
+    y = torch.tensor([0, 5, cfg.null_class], device=dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        out = m(x, tt, y)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        pos = torch.arange(cfg.tokens, device=dev).expand(3, cfg.tokens)
+        with kernel_mode(False):
+            plain = m(x, tt, y, positions=pos)
+    L = cfg.n_layers
+    want = {"cim_gemm_int8_fused_qin": 3 * L, "quantize_rows_int8": L,
+            "cim_gemm_int8_fused": 2 * L, "flash_attention": L}
+    assert {k: v for k, v in counts.items() if v} == want, counts
+    err = (out - plain).abs().max().item()
+    assert err <= 1e-3 * plain.abs().max().item(), err
+
+
+def test_dit_denoise_step_graph_replay_bitwise(dev):
+    """One guided dit-test denoise evaluation (2B stacked rows) captured
+    in a CUDA graph and replayed on new inputs: bitwise the eager
+    evaluation on them."""
+    from repro_torch.diffusion import guided_eps
+    _, m = _dit_test_on_card(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((2, 4, 8, 8), device=dev, generator=gen)
+    tt = torch.tensor([700, 700], device=dev, dtype=torch.int32)
+    y = torch.tensor([1, 2], device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        guided_eps(m, x, tt, y, 2.0)            # sizes every workspace
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = guided_eps(m, x, tt, y, 2.0)
+        x.copy_(torch.randn((2, 4, 8, 8), device=dev, generator=gen))
+        tt.fill_(300)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = guided_eps(m, x, tt, y, 2.0)
+    assert torch.equal(out, eager)
 
 
 def test_long_forward_launches_kernel12_once_per_layer(dev):

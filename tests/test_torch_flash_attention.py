@@ -70,6 +70,21 @@ def test_dtypes_match_jax(dtype):
            jref.flash_attention_ref(jq, jk, jv), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dit_head_dim_72_non_causal_matches_jax(dtype):
+    """DiT-XL/2's attention: full (non-causal), H = KH, head dim 72
+    (1152 / 16), against the Pallas kernel in interpret mode and the
+    reference's oracle at a small S with a ragged last block."""
+    (jq, jk, jv), (q, k, v) = _qkv(9, 2, 96, 96, 4, 4, 72, dtype)
+    got = ops.flash_attention(q, k, v, causal=False, block_q=32,
+                              block_k=32)
+    _close(got, jops.flash_attention(jq, jk, jv, causal=False, block_q=32,
+                                     block_k=32, interpret=True),
+           TOL[dtype])
+    _close(got, jref.flash_attention_ref(jq, jk, jv, False), TOL[dtype])
+    assert fa.body_for(q.dtype, 72) == ("mma" if dtype == "bf16" else "fma")
+
+
 @pytest.mark.parametrize("Sq,Skv,causal,window", [(64, 128, True, None),
                                                   (128, 64, True, None),
                                                   (64, 128, False, 40),
@@ -109,13 +124,14 @@ def test_rows_with_an_empty_window_attend_uniformly():
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("kind,window", [("causal", None), ("sliding", 24)])
+@pytest.mark.parametrize("kind,window", [("causal", None), ("sliding", 24),
+                                         ("full", None)])
 def test_plain_matches_port_dense_attention(dtype, kind, window):
     """The port's model prefill attention at positions arange(S) computes
-    the same function."""
+    the same function (the "full" mask of DiT: kernel 12 non-causal)."""
     _, (q, k, v) = _qkv(6, 2, 64, 64, 4, 2, 32, dtype)
     pos = torch.arange(64)[None].expand(2, 64)
-    got = ops.flash_attention(q, k, v, causal=True, window=window,
+    got = ops.flash_attention(q, k, v, causal=kind != "full", window=window,
                               block_q=32, block_k=32)
     _close(got, dense_attention(q, k, v, pos, pos, kind, window),
            TOL[dtype])

@@ -238,7 +238,8 @@ def test_port_imports_no_jax_subprocess():
             "repro_torch.convert, repro_torch.launch.serve, "
             "repro_torch.models.moe, repro_torch.parallel, "
             "repro_torch.parallel.context, repro_torch.parallel.sharding, "
-            "repro_torch.quant.tp\n"
+            "repro_torch.quant.tp, repro_torch.models.dit, "
+            "repro_torch.diffusion, repro_torch.launch.generate\n"
             "sys.path.insert(0, '.')\n"
             "import chip_smoke, ab_kernels\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -12,10 +12,11 @@ import jax
 import numpy as np
 import torch
 
-from repro.configs import get_config, reduced_config
+from repro.configs import get_config, get_dit_config, reduced_config
 from repro.models import build_model
 
 ARCH = "gemma-2b"
+DIT_ARCH = "dit-test"
 
 
 def rng(seed: int = 0) -> np.random.Generator:
@@ -31,6 +32,15 @@ def to_np(a) -> np.ndarray:
         return a.numpy()
     a = np.asarray(a)
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def rel_close(got, want, rel: float) -> None:
+    """Same shape, and max |got - want| within ``rel`` of the largest
+    |want|."""
+    got, want = to_np(got), np.asarray(to_np(want), np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= rel * np.abs(want).max(), (err, np.abs(want).max())
 
 
 def t(a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -62,6 +72,27 @@ def port_model(plan=None, arch: str = ARCH):
     model = params_from_jax(numpy_tree(params), tred(tget(arch)),
                             device="cpu")
     return model if plan is None else model.quantize(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dit(arch: str = DIT_ARCH):
+    """(jax cfg, jax model, params, full-plan params) of the DiT
+    ``arch``."""
+    from repro.models.dit import DiTModel
+    cfg = get_dit_config(arch)
+    m = DiTModel(cfg)
+    params = m.init(jax.random.PRNGKey(0))
+    return cfg, m, params, m.quantize(params)
+
+
+def port_dit(quantized: bool, arch: str = DIT_ARCH):
+    """A fresh port DiTModel (CPU) holding the reference's weights of
+    ``arch`` (its full-plan tree when ``quantized``)."""
+    from repro_torch.configs import get_dit_config as tget_dit
+    from repro_torch.convert import dit_params_from_jax
+    _, _, params, qparams = jax_dit(arch)
+    return dit_params_from_jax(numpy_tree(qparams if quantized else params),
+                               tget_dit(arch), device="cpu")
 
 
 def serve_jax(arch: str, engine_cls, jplan, prompts, uids=None,
