@@ -5,15 +5,18 @@
 
 DIR holds the other checkout's ``src/`` (for example a parent commit
 unpacked with ``git archive HEAD^ src | tar -x -C build/parent``).  Each
-KERNEL names a wrapper of ``repro_torch.kernels.cim_gemm`` or
-``repro_torch.kernels.decode_attention`` with cases in CASES.  The trees
-run in turns old | new | new | old, one process a turn (both packages
-are ``repro_torch``), each building only the sources of the named
-kernels (``csrc/cim_gemm.cu``, ``csrc/decode_attention.cu``, as
-``chip_smoke.SOURCES`` lists them).  One line a case gives the four
-times (ms, CUDA-graph replays through ``chip_smoke.time_ms``, operands
-cold in L2) and whether all four turns gave the same output bits.  Exits
-1 if any case's bits differ between turns, 2 on bad arguments or no GPU.
+KERNEL names a wrapper of ``repro_torch.kernels`` with cases in CASES.
+The trees run in turns old | new | new | old, one process a turn (both
+packages are ``repro_torch``), each building only the sources of the
+named kernels (as ``chip_smoke.SOURCES`` lists them).  One line a case
+gives the four times (ms, CUDA-graph replays through
+``chip_smoke.time_ms``, operands cold in L2) and whether all four turns
+gave the same output bits.  A kernel in CLOSE (the SSD scan: two
+designs may sum in different orders) must give the same bits in the two
+turns of each tree, and the new tree's outputs must lie within its tolerance
+of the old tree's (the turns' outputs go through files under
+``build/ab_out/``).  Exits 1 if a case fails its check, 2 on bad
+arguments or no GPU.
 """
 from __future__ import annotations
 
@@ -97,6 +100,20 @@ def _combine_cases(torch, cs, cg, gen):
             for p in parts])
 
 
+def _ssd_cases(torch, cs, cg, gen):
+    """Kernel 13 through the flattened-head signature both trees take, at
+    the ops phase's zamba2-1.2b layer (S 2048) and at serve-zamba2's
+    longest prompt (S 1984: a ragged last chunk), from a zero state."""
+    from repro_torch.kernels import ssd_scan as ss
+    BH, S, P, N, L = cs.SSD_CASE
+    for s in (S, 1984):
+        nbytes = 4 * (2 * BH * s * P + BH * s + 2 * BH * s * N)
+        insts = [cs._ssd_inputs(torch, gen, BH, s, P, N)
+                 for _ in range(cs.copies_for(nbytes))]
+        yield (f"BH {BH}, S {s}, P {P}, N {N}, chunk {L}",
+               [lambda a=a: ss.ssd_scan(*a, chunk=L) for a in insts])
+
+
 # wrapper name -> cases (label, calls on distinct inputs); add a kernel
 # here to time it
 CASES = {
@@ -104,13 +121,23 @@ CASES = {
     "cim_grouped_gated_gemm_int8": _grouped_gated_cases,
     "cim_grouped_gemm_int8": _grouped_cases,
     "decode_attention_combine": _combine_cases,
+    "ssd_scan": _ssd_cases,
 }
+# kernels held to a tolerance across trees: (rtol, share of the largest
+# magnitude), chip_smoke's
+CLOSE = {"ssd_scan": "SSD_TOL"}
+OUT = ROOT / "build" / "ab_out"
 
 
-def child(src: str, kernels: list[str]) -> int:
+def _slug(name: str) -> str:
+    return "".join(ch if ch.isalnum() else "_" for ch in name)
+
+
+def child(src: str, turn: str, kernels: list[str]) -> int:
     """Build the sources of ``kernels`` in ``src/repro_torch``, time each
     case of ``kernels`` and print the times and the outputs' digests as
-    the last line."""
+    the last line; the outputs of a kernel in CLOSE go to
+    ``OUT/<turn>_<case>.pt``."""
     import torch
     sys.path.insert(0, src)
     sys.path.insert(1, str(ROOT))
@@ -135,6 +162,10 @@ def child(src: str, kernels: list[str]) -> int:
                 h.update(t.cpu().contiguous().view(torch.uint8).numpy()
                          .tobytes())
             digests[name] = h.hexdigest()
+            if kernel in CLOSE:
+                OUT.mkdir(parents=True, exist_ok=True)
+                torch.save([t.cpu() for t in out],
+                           OUT / f"{turn}_{_slug(name)}.pt")
             times[name] = cs.time_ms(torch, calls)
             del calls, out
         torch.cuda.empty_cache()
@@ -143,8 +174,8 @@ def child(src: str, kernels: list[str]) -> int:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--turn"] and len(sys.argv) > 3:
-        return child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--turn"] and len(sys.argv) > 4:
+        return child(sys.argv[2], sys.argv[3], sys.argv[4:])
     if len(sys.argv) < 3 or any(k not in CASES for k in sys.argv[2:]):
         print(f"usage: ab_kernels.py DIR KERNEL [KERNEL ...]; kernels: "
               f"{', '.join(CASES)}", file=sys.stderr)
@@ -162,11 +193,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     turns = []
-    for tree in (other, ROOT, ROOT, other):
+    for i, tree in enumerate((other, ROOT, ROOT, other)):
         proc = subprocess.run(
             [sys.executable, str(ROOT / "ab_kernels.py"), "--turn",
-             str(tree / "src"), *kernels], capture_output=True, text=True,
-            timeout=900)
+             str(tree / "src"), str(i), *kernels], capture_output=True,
+            text=True, timeout=900)
         lines = proc.stdout.splitlines()
         for line in lines[:-1]:
             print(line, flush=True)
@@ -180,10 +211,29 @@ def main() -> int:
     differ = 0
     for name in turns[1]["times"]:
         times = " | ".join(f"{t['times'][name]:.4f}" for t in turns)
-        same = len({t["digests"][name] for t in turns}) == 1
-        differ += not same
-        print(f"[ab] {name}: {times}; "
-              f"{'bitwise equal' if same else 'BITS DIFFER'}")
+        digests = [t["digests"][name] for t in turns]
+        kernel = name.split()[0]
+        if kernel not in CLOSE:
+            same = len(set(digests)) == 1
+            differ += not same
+            print(f"[ab] {name}: {times}; "
+                  f"{'bitwise equal' if same else 'BITS DIFFER'}")
+            continue
+        import chip_smoke as cs
+        import torch
+        tol = getattr(cs, CLOSE[kernel])
+        old, new = (torch.load(OUT / f"{i}_{_slug(name)}.pt")
+                    for i in (0, 1))
+        worst = max(((n.float() - o.float()).abs() / (
+            tol * o.float().abs() + tol * o.float().abs().max())).max()
+            .item() for o, n in zip(old, new))
+        ok = digests[0] == digests[3] and digests[1] == digests[2] and \
+            worst <= 1
+        differ += not ok
+        print(f"[ab] {name}: {times}; each tree bitwise across its turns: "
+              f"{digests[0] == digests[3] and digests[1] == digests[2]}; "
+              f"new within {tol:g} + {tol:g} x max of old: largest "
+              f"err/limit {worst:.3g} {'ok' if ok else 'FAIL'}")
     return 1 if differ else 0
 
 

@@ -32,7 +32,10 @@ the JAX package.  Phases, each printing its lines:
             window 1024), qwen2-moe's (16 heads of 128), an f32 case
             with Sq != Skv and DiT-XL/2's full attention (B 8, S 1024, 16
             heads of 72: the tensor-core body at D 72); the SSD scan at one zamba2-1.2b Mamba-2 layer
-            (64 heads, S 2048, P 64, N 64, chunk 128); softmax over
+            (64 heads, S 2048, P 64, N 64, chunk 128), then (not
+            counted) from a nonzero initial state there and at
+            serve-zamba2's 1984-token prefill in the model's layout;
+            softmax over
             DiT-XL/2's attention scores [16 x 1024, 1024] (rows path),
             gemma-2b's logits [8, 256000] in f32 and bf16 (long-row path)
             and the extreme rows [1e4, -1e4, 0, 1e4].  The counters must
@@ -104,6 +107,19 @@ the JAX package.  Phases, each printing its lines:
             direct ``sample()``, one evaluation within 5% of the largest
             |eps| of the plain path; ms per evaluation, images/s, the
             profiled device share.
+   serve-zamba2 — full-width zamba2-1.2b (random weights from the seed,
+            38 layers: 32 Mamba-2, 6 attention + dense-geglu, 1.35 B
+            parameters, the full plan, int8 KV) on the ring engine: 8
+            slots of 2048, bucket 64, 8 requests of 16-1984 tokens, 32
+            new each; every request OK, exactly 6 launches per attention
+            layer per decode step, none per Mamba-2 layer, kernel 13 once
+            per Mamba-2 layer per prefill; the 1984-token request's logits
+            bitwise a direct prefill + decode loop's at the engine's 8
+            rows, and at batch 1 its prefill bitwise and its greedy tokens
+            equal but at near ties; that prefill's logits within 5% of the
+            plain path's; ms per decode
+            step, tok/s, the 1984-token prefill's wall time and its
+            profiled device time by kernel (kernel 13's share).
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
             the row quantizer at four shapes (gemma-2b's hidden requant
@@ -134,10 +150,11 @@ the JAX package.  Phases, each printing its lines:
             their bounds and ``torch._int_mm``.
             Collectives are never captured in a graph.
 
-The LM serve runs must launch kernels 12-14 zero times and every other
-kernel at least once; the kernels' JSON record adds serve-dit's launches
-to theirs, and takes kernel 12's launches from forward-long and
-serve-dit and 13-14's from the ops phase.  The last two
+The LM serve runs before serve-dit must launch kernels 12-14 zero times
+and every other kernel at least once; the kernels' JSON record adds
+serve-dit's and serve-zamba2's launches to theirs, and takes kernel 12's
+launches from forward-long and serve-dit, kernel 13's from the ops phase
+and serve-zamba2, and kernel 14's from the ops phase.  The last two
 lines are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.
 """
@@ -264,6 +281,12 @@ LONG_NEW_TOKENS = 16
 # and used for the near-tie rule of the argmax
 LONG_FORWARD_S = 4096
 LONG_LOGIT_ATOL = 0.15
+# zamba2-1.2b served by the ring engine (serve-zamba2): 8 slots of 2048,
+# bucket 64; 8 requests, the first of 1984 tokens (a bucket multiple:
+# kernel 13 over 15 chunks of 128 and a ragged one of 64)
+ZAMBA_ARCH = "zamba2-1.2b"
+ZAMBA_PREFILL = 1984
+ZAMBA_PROMPTS = [ZAMBA_PREFILL, 16, 40, 100, 257, 500, 1000, 1500]
 # DiT-XL/2 served by the diffusion engine (serve-dit): batches of 4
 # latents (8 rows with the guidance's null-label rows stacked), 8 steps at
 # guidance scale 4.0; 8 DDIM requests, then 4 Euler ones
@@ -905,6 +928,26 @@ def phase_ops(torch) -> tuple[dict, dict]:
              f"P {P}, N {N}, chunk {L}) {what}", got, ref,
              SSD_TOL * ref.abs() + SSD_TOL * ref.abs().max(),
              f"rtol={SSD_TOL:g} + {SSD_TOL:g} x max", True)
+    # from a nonzero initial state (the model path's continuation), at
+    # SSD_CASE and at serve-zamba2's longest prefill in the model's layout
+    # (B 1, 1984 tokens, 64 heads, b and c per group); not counted
+    h0 = torch.randn((BH, P, N), device=dev, generator=gen)
+    served = _ssd_inputs(torch, gen, BH, ZAMBA_PREFILL, P, N)
+    served = (served[0].transpose(0, 1)[None].contiguous(),
+              served[1].t()[None].contiguous(),
+              served[2][:1].transpose(0, 1)[None].contiguous(),
+              served[3][:1].transpose(0, 1)[None].contiguous(), h0[None])
+    for where, args in ((f"BH {BH}, S {S}, P {P}, N {N}, chunk {L}, h0",
+                         (*ssd, L, h0)),
+                        (f"B 1, S {ZAMBA_PREFILL}, H {BH}, G 1, P {P}, "
+                         f"N {N}, chunk {L}, h0", (*served[:4], L,
+                                                   served[4]))):
+        for what, got, ref in zip(("y", "final state"), ss.ssd_scan(*args),
+                                  ss.ssd_scan_plain(*args)):
+            held("ssd_scan", f"{where} {what}", got, ref,
+                 SSD_TOL * ref.abs() + SSD_TOL * ref.abs().max(),
+                 f"rtol={SSD_TOL:g} + {SSD_TOL:g} x max", False)
+    del served, h0
 
     for i, (c, x, out) in enumerate(zip(SOFTMAX_CASES, soft, m_out)):
         case, R, C, dtype = c
@@ -940,10 +983,16 @@ def expected_launches(cfg, decode_steps, forwards,
     prefill attends with the plain dense path.  On a tensor-parallel
     rank (``tp``) the out-projection and every down GEMM are kernel 6
     (the int32 partial), and the gated GEMM writes f32 (the requant runs
-    on the global row scale, outside any kernel)."""
+    on the global row scale, outside any kernel).  A Mamba-2 layer
+    launches kernel 13 once per prefill and nothing at a decode step (its
+    projections are bf16 ``torch.matmul``, its decode recurrence plain
+    torch)."""
     from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_N
     want = {name: 0 for name in SOURCES}
-    for _mixer, ffn in cfg.layer_specs():
+    for mixer, ffn in cfg.layer_specs():
+        if mixer == "mamba2":
+            want["ssd_scan"] += forwards - decode_steps
+            continue
         if tp:
             want["cim_gemm_int8_fused_qin"] += forwards
             want["cim_gemm_int8"] += 2 * forwards
@@ -965,11 +1014,13 @@ def expected_launches(cfg, decode_steps, forwards,
 
 def launches_per_decode_step(cfg, counts, decode_steps, forwards,
                              tp=False) -> float:
-    """Launches per layer per decode step: all counted launches less the
-    prefills' (``forwards`` without decode steps), over the steps."""
+    """Launches per attention layer per decode step: all counted launches
+    less the prefills' (``forwards`` without decode steps), over the
+    steps (a Mamba-2 layer launches nothing at a decode step)."""
     prefill = sum(expected_launches(cfg, 0, forwards - decode_steps,
                                     (), tp).values())
-    return (sum(counts.values()) - prefill) / (cfg.n_layers * decode_steps)
+    layers = sum(m != "mamba2" for m, _ in cfg.layer_specs())
+    return (sum(counts.values()) - prefill) / (layers * decode_steps)
 
 
 def _sync(torch) -> None:
@@ -1611,6 +1662,222 @@ def phase_serve_dit(torch) -> dict:
         for d, cnt, key in sorted(rows, reverse=True)[:8]:
             say(f"[serve-dit]   {d:8.3f} ms  {cnt:5d} x  {key[:90]}")
     say(f"[serve-dit] device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _prefill_profile(torch, model, prompt, tag: str, share: str) -> None:
+    """One batch-1 ``prefill_padded`` of ``prompt`` from a fresh cache:
+    its wall time (no profiler, the median of 3) beside the device time
+    the profiler attributes to kernels, split by kernel, and the share of
+    the kernel whose name holds ``share``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=DEVICE)[None]
+    lengths = torch.tensor([len(prompt)], dtype=torch.int32, device=DEVICE)
+
+    def run():
+        caches = model.init_cache(1, 2048, kv_dtype="int8")
+        with torch.no_grad():
+            model.prefill_padded(toks, caches, lengths)
+    run()
+    _sync(torch)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        _sync(torch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        _sync(torch)
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        d = getattr(e, "self_device_time_total", None)
+        d = (getattr(e, "self_cuda_time_total", 0) if d is None else d) / 1e3
+        if d > 0:
+            rows.append((d, e.count, e.key))
+    dev_ms = sum(r[0] for r in rows)
+    wall = statistics.median(walls)
+    say(f"[{tag}] prefill of {len(prompt)} tokens: {wall:.2f} ms wall "
+        f"(median of 3)")
+    if dev_ms == 0:
+        say(f"[{tag}] device time not measured (the profiler saw no device "
+            f"activity)")
+        return
+    mine = sum(r[0] for r in rows if share in r[2])
+    say(f"[{tag}] profiled prefill: {dev_ms:.2f} ms of device kernels (busy "
+        f"share {dev_ms / wall:.3f}), {sum(r[1] for r in rows)} kernel "
+        f"launches; {share} {mine:.3f} ms = {mine / dev_ms:.3f} of the "
+        f"device time")
+    for d, cnt, key in sorted(rows, reverse=True)[:10]:
+        say(f"[{tag}]   {d:8.3f} ms  {cnt:5d} x  {key[:90]}")
+
+
+def _check_direct_loops(torch, model, req, served: dict) -> None:
+    """``req`` (served by the ring engine at 8 slots) against direct
+    ``prefill_padded`` then ``decode_step`` loops on the same model, fed
+    the engine's tokens: at the engine's batch shape (8 rows, the request
+    and 7 copies of it) its logits must be bitwise the engine's at every
+    step, so its greedy tokens are the engine's; at batch 1 the prefill
+    must be bitwise, and each decode step's greedy token the engine's
+    unless the step is a near tie (top-2 margin within the two paths'
+    largest logit difference there), with every step's logits within
+    ``LOGITS_ATOL_REL`` of the largest.  The Mamba-2 decode's product of
+    the state with c (a batched product over the rows' heads) rounds by
+    batch shape, so at batch 1 the logits move by a bf16 step or so once
+    a rounding flips."""
+    import numpy as np
+    n = len(req.generated)
+    served = np.stack([served[i] for i in range(n)])
+
+    def loop(B):
+        caches = model.init_cache(B, 2048, kv_dtype="int8")
+        toks = torch.as_tensor(req.prompt, dtype=torch.long,
+                               device=DEVICE)[None].expand(B, -1)
+        lengths = torch.full((B,), len(req.prompt), dtype=torch.int32,
+                             device=DEVICE)
+        with torch.no_grad():
+            out = [model.prefill_padded(toks.contiguous(), caches,
+                                        lengths)[0, -1]]
+            for step in range(1, n):
+                nxt = torch.full((B, 1), req.generated[step - 1],
+                                 dtype=torch.long, device=DEVICE)
+                out.append(model.decode_step(nxt, caches)[0, -1])
+        return torch.stack(out).float().cpu().numpy()
+
+    same8 = loop(8)
+    bitwise = bool((same8 == served).all())
+    say(f"[serve-zamba2] request of {len(req.prompt)} tokens: a direct loop "
+        f"at the engine's 8 rows gives the engine's logits "
+        f"{'bitwise at every step' if bitwise else 'NOT bitwise'}, greedy "
+        f"tokens {'equal' if list(same8.argmax(-1)) == req.generated else 'DIFFER'}")
+    need(bitwise and list(same8.argmax(-1)) == req.generated,
+         "serve-zamba2: the engine is not its direct loop at its batch")
+    one = loop(1)
+    diff = np.abs(one - served).max(-1)
+    top2 = np.sort(one, -1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    agree = one.argmax(-1) == np.asarray(req.generated)
+    ties = ~agree & (margin <= diff)
+    exact = int((diff == 0).sum())
+    say(f"[serve-zamba2] at batch 1: prefill logits "
+        f"{'bitwise' if diff[0] == 0 else 'DIFFER'}; {exact} of {n} steps "
+        f"bitwise, largest logit difference {diff.max():.4g} "
+        f"({diff.max() / np.abs(served).max():.3g} of the largest); greedy "
+        f"tokens equal at {int(agree.sum())} of {n} steps, the others near "
+        f"ties: {int(ties.sum())}")
+    need(diff[0] == 0 and bool((agree | ties).all())
+         and diff.max() <= LOGITS_ATOL_REL * np.abs(served).max(),
+         "serve-zamba2: the engine disagrees with a direct batch-1 loop")
+
+
+def phase_serve_zamba2(torch) -> dict:
+    """Full-width zamba2-1.2b (random weights from the seed, 38 layers:
+    32 Mamba-2 and 6 attention + dense-geglu, bf16, the full plan, int8
+    KV) on the ring engine: 8 slots of 2048, bucket 64, ``ZAMBA_PROMPTS``
+    with 32 new tokens each.  Every request OK; launches exact: 6 per
+    attention layer per decode step, none on a Mamba-2 layer, kernel 13
+    once per Mamba-2 layer per prefill.  The 1984-token request (a bucket
+    multiple, so the engine pads nothing) against direct
+    ``prefill_padded`` then ``decode_step`` loops
+    (``_check_direct_loops``); off the bucket the engine's pad tokens
+    enter the Mamba-2 state (ROADMAP C.11), so only that request is
+    compared.  One prefill held against the plain
+    path (``kernel_mode(False)``: the GEMMs' and the scan's plain
+    versions) on the logits.  Prints ms per decode step, tok/s, the
+    1984-token prefill's wall time and its profiled device time by
+    kernel.  Returns the launch counts of the served run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan, kernel_mode
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(ZAMBA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg).init(SEED, device=DEVICE)
+    _sync(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    specs = cfg.layer_specs()
+    n_mamba = sum(m == "mamba2" for m, _ in specs)
+    n_attn = len(specs) - n_mamba
+    say(f"[serve-zamba2] {ZAMBA_ARCH} init: {n_params / 1e9:.3f} B "
+        f"parameters in bf16 ({n_mamba} Mamba-2 layers, {n_attn} attention "
+        f"layers), {time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(model, n_slots=8, max_len=2048,
+                           prefill_bucket=64, quant_plan=QuantPlan.full())
+    _sync(torch)
+    say(f"[serve-zamba2] quantized (full plan), device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = _prompts(cfg, ZAMBA_PROMPTS, SEED + 7)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    served_logits = {}            # the compared request's, by step
+    sample = engine._sample
+
+    def recording(req, logits, step):
+        if req.uid == 0:
+            served_logits[step] = logits
+        return sample(req, logits, step)
+    engine._sample = recording
+    counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
+    st = engine.stats
+    _check_served(cfg, reqs, NEW_TOKENS)
+    want = expected_launches(cfg, st.decode_steps,
+                             st.decode_steps + st.prefills)
+    say(f"[serve-zamba2] {len(reqs)} requests OK (prompts "
+        f"{ZAMBA_PROMPTS}): {st.tokens_out} decode tokens + {st.prefills} "
+        f"prefills in {wall:.2f} s "
+        f"({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
+        f"{st.decode_steps} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms per decode step")
+    say(f"[serve-zamba2] launches {json.dumps(counts)}")
+    need(counts == want, f"serve-zamba2: launch counts {counts} != {want}")
+    per = launches_per_decode_step(cfg, counts, st.decode_steps,
+                                   st.decode_steps + st.prefills)
+    say(f"[serve-zamba2] {per:g} launches per attention layer per decode "
+        f"step, 0 per Mamba-2 layer; kernel 13 "
+        f"{counts['ssd_scan'] / (n_mamba * st.prefills):g} per Mamba-2 "
+        f"layer per prefill")
+    need(per == 6, f"serve-zamba2: {per} launches per attention layer per "
+         f"decode step, not 6")
+    need(counts["ssd_scan"] == n_mamba * st.prefills,
+         "serve-zamba2: kernel 13 not once per Mamba-2 layer per prefill")
+
+    # the bucket-multiple request against direct prefill + decode loops
+    first = reqs[0]
+    need(len(first.prompt) % engine.bucket == 0,
+         "serve-zamba2: the compared prompt is not a bucket multiple")
+    _check_direct_loops(torch, model, first, served_logits)
+    toks = torch.as_tensor(first.prompt, dtype=torch.long,
+                           device=DEVICE)[None]
+    lengths = torch.tensor([len(first.prompt)], dtype=torch.int32,
+                           device=DEVICE)
+    with torch.no_grad():
+        # the kernel path against the plain path on one prefill
+        logits = model.prefill_padded(
+            toks, model.init_cache(1, 2048, kv_dtype="int8"), lengths)
+        with kernel_mode(False):
+            plain = model.prefill_padded(
+                toks, model.init_cache(1, 2048, kv_dtype="int8"), lengths)
+    err = (logits - plain).abs().max().item()
+    tol = LOGITS_ATOL_REL * plain.abs().max().item()
+    say(f"[serve-zamba2] {len(first.prompt)}-token prefill logits, kernel "
+        f"path vs plain path: max_abs_err={err:.4g} (tol {tol:.4g}), argmax "
+        f"{'equal' if int(plain.argmax()) == int(logits.argmax()) else 'DIFFER'}")
+    need(bool(torch.isfinite(logits).all()) and err <= tol,
+         "serve-zamba2: kernel path disagrees with plain path")
+    del logits, plain
+    _prefill_profile(torch, model, first.prompt, "serve-zamba2",
+                     "ssd_scan")
+    say(f"[serve-zamba2] device memory peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del engine, model
     gc.collect()
@@ -2713,15 +2980,19 @@ def main() -> int:
                  kw=dict(n_slots=8, max_len=1024, prefill_bucket=64))],
             {"serve-moe-tp": moe["tokens"]}))
         dit_counts = phase_serve_dit(torch)
+        zamba_counts = phase_serve_zamba2(torch)
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for k, v in counts.items() if k not in OPS_KERNELS),
              f"a kernel was never launched by the serve runs: {counts}")
         need(not any(counts[k] for k in OPS_KERNELS),
              f"a serve run launched a kernel of the ops phase: {counts}")
-        counts = {k: v + dit_counts[k] for k, v in counts.items()}
-        # kernels 13 and 14: the ops phase's own exact counts; kernel 12:
-        # its model paths', forward-long and serve-dit
+        counts = {k: v + dit_counts[k] + zamba_counts[k]
+                  for k, v in counts.items()}
+        # kernel 14: the ops phase's own exact count; kernel 13: the ops
+        # phase's and serve-zamba2's; kernel 12: its model paths',
+        # forward-long and serve-dit
         counts.update({k: ops_counts[k] for k in OPS_KERNELS})
+        counts["ssd_scan"] += zamba_counts["ssd_scan"]
         counts["flash_attention"] = (long_counts["flash_attention"]
                                      + dit_counts["flash_attention"])
         kernels = phase_times(torch, serve, moe, counts, errs, card)

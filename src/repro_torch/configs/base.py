@@ -1,9 +1,11 @@
-"""Architecture configuration schema (attention stacks, dense or MoE).
+"""Architecture configuration schema (attention stacks, dense or MoE,
+and Mamba-2 hybrids).
 
 The port's copy of ``repro.configs.base.ModelConfig`` restricted to the
 fields the ported families use: a stack of ``(mixer, ffn)`` blocks with
-``mixer`` in {"attn", "attn_local"} and ``ffn`` in {"dense", "moe"}.
-The MLA, SSM and xLSTM families come with later slices of the port.
+``mixer`` in {"attn", "attn_local", "mamba2"} and ``ffn`` in {"dense",
+"moe", "none"} (a Mamba-2 block has no FFN).  The MLA and xLSTM families
+come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import TYPE_CHECKING, Optional
 
 if TYPE_CHECKING:       # the models package imports this module
     from repro_torch.models.moe import MoEConfig
+    from repro_torch.models.ssm import SSMConfig
 
 
 @dataclass(frozen=True)
@@ -33,11 +36,13 @@ class ModelConfig:
     # attention layout
     sliding_window: Optional[int] = None
     local_global_pattern: int = 0     # N local layers per 1 global
+    attn_every: int = 0               # hybrid: attention block every k layers
 
     # family extensions
     moe: Optional["MoEConfig"] = None
+    ssm: Optional["SSMConfig"] = None
 
-    family: str = "dense"             # dense | moe
+    family: str = "dense"             # dense | moe | hybrid
     param_dtype: str = "bfloat16"
     # KV-cache precision ("bfloat16" | "int8")
     kv_cache_dtype: str = "bfloat16"
@@ -46,6 +51,11 @@ class ModelConfig:
         """Per-layer (mixer, ffn) kinds."""
         out = []
         for i in range(self.n_layers):
+            if self.ssm is not None:
+                e = self.attn_every
+                out.append(("attn", "dense") if e and i % e == e - 1
+                           else ("mamba2", "none"))
+                continue
             if self.local_global_pattern:
                 p = self.local_global_pattern + 1
                 mixer = ("attn" if (i % p) == self.local_global_pattern
@@ -78,12 +88,17 @@ class ModelConfig:
         d = self.d_model
         mult = 3 if self.gated else 2
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
-        for _mixer, ffn in self.layer_specs():
-            total += (d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
-                      + self.n_heads * self.head_dim * d)
+        for mixer, ffn in self.layer_specs():
+            if mixer == "mamba2":
+                s = self.ssm
+                total += d * (2 * s.d_inner(d) + 2 * s.n_groups * s.state_dim
+                              + s.n_heads(d)) + s.d_inner(d) * d
+            else:
+                total += (d * (self.n_heads + 2 * self.n_kv_heads)
+                          * self.head_dim + self.n_heads * self.head_dim * d)
             if ffn == "dense":
                 total += mult * d * self.d_ff
-            else:
+            elif ffn == "moe":
                 mo = self.moe
                 total += mo.n_routed_experts * (mult * d * mo.d_expert + d)
                 total += mult * d * mo.shared_width

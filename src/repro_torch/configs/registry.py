@@ -14,6 +14,7 @@ from .dit import DiTConfig
 _MODULES = {
     "gemma-2b": "gemma_2b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 _DIT_MODULES = {

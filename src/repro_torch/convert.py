@@ -12,8 +12,10 @@ with scale [H+2KH, Dh], o q [H, Dh, d] with scale [d], MLP q [in, out]
 with scale [out]; MoE expert stacks q [E, in, out] with scale [E, out])
 become the port's ``QuantizedLinear`` modules.  An MoE group's ``moe``
 leaves (router, expert stacks ``up``/``gate``/``down``, the ``shared``
-MLP) and an untied ``head.kernel`` cross over the same way.  A leaf
-whose shape differs from the port's is refused.
+MLP), a Mamba-2 group's ``mamba`` leaves (``in_proj``, ``conv_w``,
+``conv_b``, ``a_log``, ``d_skip``, ``dt_bias``, ``norm.scale``,
+``out_proj``; no FFN) and an untied ``head.kernel`` cross over the same
+way.  A leaf whose shape differs from the port's is refused.
 
 ``dit_params_from_jax(tree, cfg)`` does the same for the reference's
 ``DiTModel`` tree: the scanned ``blocks`` axis is unstacked into the
@@ -106,8 +108,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
         group = tree[f"group_{gi}"]
         for j in range(count):
             block = model.layers[i]
+            i += 1
             _assign(block, "mixer_norm", group["mixer_norm"]["scale"], j,
                     device)
+            if "mamba" in group:      # a Mamba-2 block: no FFN
+                mamba = dict(group["mamba"])
+                _assign(block.mamba.norm, "scale",
+                        mamba.pop("norm")["scale"], j, device)
+                for name, leaf in mamba.items():
+                    _assign(block.mamba, name, leaf, j, device)
+                continue
             _assign(block, "ffn_norm", group["ffn_norm"]["scale"], j, device)
             _assign_attention(block.attn, group["attn"], j, device)
             if "moe" in group:
@@ -119,7 +129,6 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
             else:
                 for name, leaf in group["mlp"].items():
                     _assign(block.mlp, name, leaf, j, device)
-            i += 1
     return model
 
 

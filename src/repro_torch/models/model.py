@@ -1,5 +1,5 @@
-"""Causal LM assembly for attention stacks with dense or MoE FFNs (port
-of ``repro/models/model.py``).
+"""Causal LM assembly for attention stacks with dense or MoE FFNs and
+for Mamba-2 hybrids (port of ``repro/models/model.py``).
 
 The reference scans stacked layer groups; here every layer is its own
 :class:`Block` in an ``nn.ModuleList`` and runs eagerly.  A
@@ -33,6 +33,7 @@ from . import attention as attn_mod
 from .layers import (MLP, embedding_apply, embedding_attend, lm_head_apply,
                      mlp_apply, rmsnorm_apply, truncated_normal_, weight)
 from .moe import MoE, moe_apply
+from .ssm import Mamba2, init_ssm_cache, mamba2_apply
 
 
 def _dtype(cfg: ModelConfig):
@@ -40,19 +41,24 @@ def _dtype(cfg: ModelConfig):
 
 
 class Block(nn.Module):
-    """One (attn | attn_local) x (dense | moe) decoder block."""
+    """One (attn | attn_local) x (dense | moe) decoder block, or a
+    ("mamba2", "none") block: the Mamba-2 mixer and no FFN."""
 
     def __init__(self, spec: tuple[str, str], cfg: ModelConfig, device):
         super().__init__()
         mixer, ffn = spec
-        if mixer not in ("attn", "attn_local") or ffn not in ("dense",
-                                                              "moe"):
+        if spec != ("mamba2", "none") and (
+                mixer not in ("attn", "attn_local")
+                or ffn not in ("dense", "moe")):
             raise NotImplementedError(f"block {spec} is not ported yet")
         if cfg.norm != "rmsnorm":
             raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
         self.spec = spec
         dtype = _dtype(cfg)
         self.mixer_norm = weight((cfg.d_model,), torch.float32, device)
+        if mixer == "mamba2":
+            self.mamba = Mamba2(cfg.d_model, cfg.ssm, dtype, device)
+            return
         self.attn = attn_mod.Attention(cfg.d_model, cfg.n_heads,
                                        cfg.n_kv_heads, cfg.head_dim, dtype,
                                        device)
@@ -65,6 +71,10 @@ class Block(nn.Module):
     def init_(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.mixer_norm.fill_(1.0)
+        if self.spec[0] == "mamba2":
+            self.mamba.init_(generator)
+            return
+        with torch.no_grad():
             self.ffn_norm.fill_(1.0)
         self.attn.init_(generator)
         (self.moe if self.spec[1] == "moe" else self.mlp).init_(generator)
@@ -77,10 +87,12 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
     ``arange(S)`` in every row (a cacheless forward above 2048 tokens
     then attends on kernel 12)."""
     mixer, _ = block.spec
+    h = rmsnorm_apply(block.mixer_norm, x)
+    if mixer == "mamba2":      # no FFN: the mixer's output is the update
+        return x + mamba2_apply(block.mamba, h, cfg.ssm, cache)
     kind, window = "causal", None
     if mixer == "attn_local":
         kind, window = "sliding", cfg.sliding_window
-    h = rmsnorm_apply(block.mixer_norm, x)
     # the skip connection rides into the out-projection's epilogue
     x = attn_mod.attention_apply(block.attn, h, positions, mask_kind=kind,
                                  window=window, rope_theta=cfg.rope_theta,
@@ -203,7 +215,9 @@ class Model(nn.Module):
         return logits
 
     def decode_step(self, tokens: torch.Tensor, caches: list) -> torch.Tensor:
-        """One new token per row against the caches: tokens [B, S]."""
+        """One new token per row against the caches: tokens [B, S].  The
+        positions come from the first layer's write index, whatever its
+        mixer (every layer's index advances alike)."""
         S = tokens.shape[1]
         idx = caches[0]["index"]
         positions = (idx[:, None] + torch.arange(
@@ -216,11 +230,17 @@ class Model(nn.Module):
         """One ring cache dict per layer, over the KV heads each layer
         holds (a tensor-parallel rank's shard); ``kv_dtype="int8"``
         overrides ``cfg.kv_cache_dtype``.  Sliding-window layers hold
-        only the window."""
+        only the window; a Mamba-2 layer holds its conv tail and state
+        (``init_ssm_cache``)."""
         kv = kv_dtype or self.cfg.kv_cache_dtype
         dt = torch.int8 if kv == "int8" else torch.bfloat16
         caches = []
         for block in self.layers:
+            if block.spec[0] == "mamba2":
+                caches.append(init_ssm_cache(batch, self.cfg.d_model,
+                                             self.cfg.ssm,
+                                             device=self.device))
+                continue
             span = max_len
             if block.spec[0] == "attn_local":
                 span = min(max_len, self.cfg.sliding_window or max_len)
@@ -236,7 +256,9 @@ class Model(nn.Module):
         layer gets its own pools of ``num_blocks`` blocks of
         ``block_size`` slots (block 0 the all-empty null block) and its
         own write index; all layers share one [batch, max_blocks] block
-        table tensor, which the engine fills once per step."""
+        table tensor, which the engine fills once per step.  Only
+        attention layers page: a recurrent mixer is refused, as the
+        reference refuses it."""
         kv = kv_dtype or self.cfg.kv_cache_dtype
         dt = torch.int8 if kv == "int8" else torch.bfloat16
         tables = torch.zeros((batch, max_blocks), dtype=torch.int32,

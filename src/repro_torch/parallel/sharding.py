@@ -108,6 +108,9 @@ def shard_model(model, group: TPGroup):
     ``group.size`` does not divide) is logged once."""
     whole = set()
     for block in model.layers:
+        if block.spec[0] not in ("attn", "attn_local"):
+            raise NotImplementedError(f"tensor parallelism: mixer "
+                                      f"{block.spec[0]!r} is not ported")
         parts = [("attention", block.attn, _shard_attention)]
         if block.spec[1] == "moe":
             parts.append(("experts", block.moe, _shard_experts))

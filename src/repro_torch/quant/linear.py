@@ -73,6 +73,12 @@ def _resolve_use_kernel(use_kernel: bool | None) -> bool:
     return use_kernel
 
 
+def kernels_enabled() -> bool:
+    """Whether a ``use_kernel=None`` call site runs the kernels here (the
+    Mamba-2 scan reads it too)."""
+    return _resolve_use_kernel(None)
+
+
 def _tp_group_for(w: QuantizedLinear):
     """The current TP group if ``w`` is a rank's shard, None for a whole
     leaf.  A shard outside a group of its size raises: its layer cannot

@@ -48,7 +48,9 @@ DIT_LAYER_KINDS = ("adaln", "attn_qkv", "attn_out", "mlp")
 
 
 def covered_kinds(mixer: str, ffn: str) -> tuple[str, ...]:
-    """Which plan layer kinds apply to a (mixer, ffn) block spec."""
+    """Which plan layer kinds apply to a (mixer, ffn) block spec.  None
+    for a Mamba-2 block ("mamba2", "none"), as in the reference: its
+    projections stay bf16."""
     kinds: list[str] = []
     if mixer in ("attn", "attn_local"):
         kinds += ["attn_qkv", "attn_out", "attn_kv"]

@@ -151,13 +151,17 @@ class ServingEngine:
         every layer's cache is reset (zeros, empty positions, index 0)
         and prefilled with batch 1, writing into the batched cache in
         place.  ``tokens`` is the bucket-padded prompt and ``length`` its
-        true length.  Returns the last real token's logits [vocab]."""
+        true length.  Returns the last real token's logits [vocab].  A
+        recurrent (Mamba-2) layer has no position-keyed cache, so its
+        state and conv tail take the pad tokens in, as the reference's
+        do: padding there stays approximate."""
         sub = [{k: v[slot:slot + 1] for k, v in c.items()}
                for c in self.cache]
         for c in sub:
             for v in c.values():
                 v.zero_()
-            c["pos"].fill_(EMPTY_SLOT)
+            if "pos" in c:        # a Mamba-2 layer's cache has no positions
+                c["pos"].fill_(EMPTY_SLOT)
         toks = torch.as_tensor(tokens, dtype=torch.long,
                                device=self.device)[None]
         lengths = torch.tensor([length], dtype=torch.int32,
@@ -446,6 +450,13 @@ class PagedServingEngine(ServingEngine):
                  prefill_bucket: int = 64, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, **kw):
+        mixers = {m for m, _ in model.cfg.layer_specs()}
+        if not mixers <= {"attn", "attn_local"}:
+            # refused before the plan rewrites the model in place
+            raise NotImplementedError(
+                f"paged KV cache: unsupported mixer(s) "
+                f"{sorted(mixers - {'attn', 'attn_local'})} (only "
+                f"attention layers hold a position-keyed cache)")
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.prefill_chunk = (prefill_chunk if prefill_chunk is not None

@@ -2035,6 +2035,118 @@ def test_ssd_scan_close(dev, BH, S, P, N, chunk):
             BH, S, P, N, chunk, ((got - ref).abs() / limit).max().item())
 
 
+# zamba2-1.2b's Mamba-2 layer at serve-zamba2's longest prompt: B 1 x 64
+# heads, 1984 tokens (15 chunks of 128 and a ragged one of 64)
+SSD_ZAMBA2 = (64, 1984, 64, 64, 128)
+
+
+@pytest.mark.parametrize("BH,S,P,N,chunk", SSD_SHAPES + [SSD_ZAMBA2])
+def test_ssd_scan_from_h0_per_group_close(dev, BH, S, P, N, chunk):
+    """Kernel 13 in the model's layout (x [1, S, H, P] with H = BH, b and
+    c [1, S, G, N] read per group: G 2 where H is even, else 1) from a
+    nonzero initial state, against its plain version (b and c repeated
+    per head): y and the final state within 2e-4 relative plus 2e-4 of
+    the tensor's largest magnitude; one launch."""
+    from repro_torch.kernels import ssd_scan as ss
+    rng = _gen(24)
+    H, G = BH, 2 if BH % 2 == 0 else 1
+    dt = rng.uniform(1e-3, 1e-1, (1, S, H)).astype(np.float32)
+    x = _t(dt[..., None] * rng.standard_normal((1, S, H, P)).astype(
+        np.float32), dev)
+    la = _t(-dt * rng.uniform(1, 16, H).astype(np.float32), dev)
+    b, c = (_t(rng.standard_normal((1, S, G, N)).astype(np.float32), dev)
+            for _ in range(2))
+    h0 = _t(rng.standard_normal((1, H, P, N)).astype(np.float32), dev)
+    before = ss.ssd_scan.launches
+    y, h = ss.ssd_scan(x, la, b, c, chunk, h0)
+    yr, hr = ss.ssd_scan_plain(x, la, b, c, chunk, h0)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    for got, ref in ((y, yr), (h, hr)):
+        assert got.shape == ref.shape
+        limit = 2e-4 * ref.abs() + 2e-4 * ref.abs().max()
+        assert bool(((got - ref).abs() <= limit).all()), (
+            BH, S, P, N, chunk, ((got - ref).abs() / limit).max().item())
+
+
+# registers of ssd_scan_kernel<VEC> (cuobjdump), VEC = float4 global
+# access; a change to the kernel that moves them updates them here
+SSD_REGS = {"true": 92, "false": 93}
+
+
+def test_ssd_scan_registers_and_no_spill(dev):
+    """Kernel 13's two instantiations keep their tiles in registers: no
+    local memory and no stack, registers pinned."""
+    import pathlib
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+    _build.load("ssd_scan")
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.BUILD_DIR / "libssd_scan.so"
+    text = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    pat = re.compile(r"Function \S*ssd_scan_kernelILb(\d)E\S*:\s*\n\s*(.*)")
+    use = {("true" if m.group(1) == "1" else "false"): {
+        k: int(v) for k, v in (f.split(":") for f in m.group(2).split())
+        if v.isdigit()} for m in pat.finditer(text)}
+    assert sorted(use) == ["false", "true"], text[-2000:]
+    for vec, u in use.items():
+        assert u["LOCAL"] == 0 and u["STACK"] == 0, (vec, u)
+    assert {k: u["REG"] for k, u in use.items()} == SSD_REGS, use
+
+
+def test_mamba2_block_on_card_matches_cpu(dev):
+    """A Mamba-2 block (d 256, 8 SSM heads of 64, state 64, chunk 128) on
+    the card (kernel 13 for the prefill, the recurrence for decode)
+    against the same block on the CPU (the plain scan): a 300-token
+    prefill from a nonzero cache, then 3 decode steps.  bf16 outputs
+    within 2e-2 of the largest |output| (cuBLAS and the CPU round the
+    bf16 projections apart), the f32 state within 1e-3 of its largest,
+    the index exactly; one launch of kernel 13, in the prefill."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm
+    cfg = ssm.SSMConfig(state_dim=64, head_dim=64, expand=2, chunk=128)
+    d = 256
+    m_cpu = ssm.Mamba2(d, cfg, torch.bfloat16, "cpu")
+    m_cpu.init_(torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        m_cpu.dt_bias.normal_(0.0, 0.5, generator=torch.Generator()
+                              .manual_seed(6))
+    m_gpu = ssm.Mamba2(d, cfg, torch.bfloat16, dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    rng = _gen(25)
+    x = rng.standard_normal((2, 303, d)).astype(np.float32)
+    caches = []
+    for where in ("cpu", dev):
+        c = ssm.init_ssm_cache(2, d, cfg, device=where)
+        c["ssm"].copy_(torch.as_tensor(
+            0.3 * _gen(26).standard_normal(tuple(c["ssm"].shape)),
+            dtype=torch.float32))
+        caches.append(c)
+    before = ss.ssd_scan.launches
+    outs = []
+    for m, c, where in ((m_cpu, caches[0], "cpu"), (m_gpu, caches[1], dev)):
+        xs = _t(x, where, torch.bfloat16)
+        with torch.no_grad():
+            o = [ssm.mamba2_apply(m, xs[:, :300], cfg, c)]
+            o += [ssm.mamba2_apply(m, xs[:, s:s + 1], cfg, c)
+                  for s in range(300, 303)]
+        outs.append(torch.cat(o, 1).float().cpu())
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    err = (outs[1] - outs[0]).abs().max().item()
+    assert err <= 2e-2 * outs[0].abs().max().item(), err
+    st = caches[0]["ssm"]
+    assert (caches[1]["ssm"].cpu() - st).abs().max().item() <= \
+        1e-3 * st.abs().max().item()
+    assert caches[1]["index"].cpu().tolist() == [303, 303]
+    assert torch.equal(caches[1]["conv"].cpu(), caches[0]["conv"]) or \
+        (caches[1]["conv"].cpu().float() - caches[0]["conv"].float()).abs()\
+        .max().item() <= 2 ** -8 * caches[0]["conv"].float().abs().max()\
+        .item()
+
+
 # (R, C, dtype): rows path up to its 12288-column limit, the long-row
 # path from 12289 columns with a ragged last slice, bf16 in both
 SOFTMAX_SHAPES = [(300, 64, torch.float32), (5, 1000, torch.float32),
@@ -2108,8 +2220,8 @@ def test_new_kernel_wrappers_reject_bad_inputs(dev):
              {"chunk": 256}),
             (ValueError, (torch.zeros((1, 128, 8), device=dev),
                           torch.zeros((1, 128), device=dev),
-                          torch.zeros((1, 128, 128), device=dev),
-                          torch.zeros((1, 128, 128), device=dev)),
+                          torch.zeros((1, 128, 256), device=dev),
+                          torch.zeros((1, 128, 256), device=dev)),
              {"chunk": 128})):
         with pytest.raises(exc):
             ss.ssd_scan(*args, **kw)
