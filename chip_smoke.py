@@ -24,7 +24,9 @@ the JAX package.  Phases, each printing its lines:
             DiT-XL/2's block shapes (kernel 2 on the f32 adaLN input with
             a bias, on the bf16 QKV and out-projection inputs; kernel 1 on
             the MLP input; kernel 3 with gelu and its requant, and to
-            f32).
+            f32); kernel 12's prefix mode (``prefix_len``) on both bodies
+            at paligemma-3b's cacheless forward (S 4096, p 256) and at a
+            ragged S with p inside a tile (not counted).
    ops    — kernels 12-14 through ``repro_torch.kernels.ops`` at the
             widths of models in the registry: flash
             attention at gemma-2b's prefill (S 2048, 8 heads on 1 KV head,
@@ -120,6 +122,30 @@ the JAX package.  Phases, each printing its lines:
             plain path's; ms per decode
             step, tok/s, the 1984-token prefill's wall time and its
             profiled device time by kernel (kernel 13's share).
+   serve-gemma3 — full-width gemma3-4b (3.88 B parameters: 29 sliding
+            layers of 1024 and 5 global, qk_norm; drawn and quantized
+            block by block, the full plan, int8 KV): the ring engine at 8
+            slots of 4096 (local layers hold 1024 slots; the global
+            layers' walk splits in 2: 7 launches per local layer and 8
+            per global layer per decode step) and the paged engine (7,
+            drains) on 8 requests of 16-3000 tokens, 32 new; a 1500-token
+            prefill + 4 decode steps against the plain path; a cacheless
+            forward of 4096 tokens: kernel 12 exactly 29 times sliding and
+            5 causal, logits within 5% of the blockwise path.
+   serve-paligemma — full-width paligemma-3b on the ring engine with text
+            prompts (prefix_len 256; 7 per layer per decode step); 256
+            seeded patch embeddings + 64 tokens prefilled into a ring,
+            then 16 decode steps, against the plain path; a cacheless
+            forward of 256 patches + 3840 tokens: kernel 12's prefix mode
+            exactly 18 times, against the plain path.
+   musicgen — full-width musicgen-medium: a ring prefill of 512 seeded
+            frame embeddings (2 rows), 16 decode steps fed seeded frames,
+            6 launches per layer per decode step, against the plain path.
+   serve-deepseek, serve-command — deepseek-67b and command-r-plus-104b
+            at full width cut to 4 layers on the ring engine: QKV and
+            out-projection above K 4096 as kernel 1 + kernel 3, 9
+            launches per layer per decode step; one prefill + decode step
+            against the plain path.
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
             the row quantizer at four shapes (gemma-2b's hidden requant
@@ -147,19 +173,22 @@ the JAX package.  Phases, each printing its lines:
             ``torch.softmax``; none computes the SSD scan), kernel 12's
             bf16 cases on both of its bodies; the plan's launches of a
             DiT-XL/2 block (``DIT_GEMMS`` and the row quantizer) beside
-            their bounds and ``torch._int_mm``.
-            Collectives are never captured in a graph.
+            their bounds and ``torch._int_mm``; kernel 12's prefix mode at
+            paligemma-3b's forward beside SDPA with the same boolean
+            mask.  Collectives are never captured in a graph.
 
-The LM serve runs before serve-dit must launch kernels 12-14 zero times
-and every other kernel at least once; the kernels' JSON record adds
-serve-dit's and serve-zamba2's launches to theirs, and takes kernel 12's
-launches from forward-long and serve-dit, kernel 13's from the ops phase
-and serve-zamba2, and kernel 14's from the ops phase.  The last two
+The LM serve runs (with the family's serve runs) must launch kernels
+12-14 zero times and every other kernel at least once; the kernels' JSON
+record adds serve-dit's and serve-zamba2's launches to theirs, and takes
+kernel 12's launches from forward-long, serve-dit and the family's two
+cacheless forwards, kernel 13's from the ops phase and serve-zamba2, and
+kernel 14's from the ops phase.  The last two
 lines are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -307,6 +336,35 @@ DIT_GEMMS = (
     ("out-proj", "cim_gemm_int8_fused_qin", 8192, 1152, 1152, "bf16"),
     ("MLP up", "cim_gemm_int8_fused", 8192, 1152, 4608, "gelu + requant"),
     ("MLP down", "cim_gemm_int8_fused", 8192, 4608, 1152, "f32 out"))
+# the dense family beyond gemma-2b, full width (serve-gemma3,
+# serve-paligemma, musicgen, serve-deepseek, serve-command): gemma3-4b on
+# the ring at 8 slots of 4096 (its local layers hold 1024) and the paged
+# engine in chunks of 512 over prompts up to 3000 tokens, some past the
+# window, and a cacheless forward of 4096 tokens; paligemma-3b's text
+# prompts, some inside the 256-position prefix, a direct prefill of 256
+# patches + 64 tokens then 16 decode steps, and a cacheless forward of
+# 256 patches + 3840 tokens; musicgen-medium on 512 frames then 16 fed
+# frames; deepseek-67b and command-r-plus-104b cut to 4 layers
+GEMMA3_ARCH = "gemma3-4b"
+GEMMA3_MAX_LEN = 4096
+GEMMA3_CHUNK = 512
+GEMMA3_PROMPTS = [3000, 16, 1500, 40, 2200, 100, 1100, 600]
+GEMMA3_LONG_S = 4096
+PALI_ARCH = "paligemma-3b"
+PALI_PROMPTS = [16, 40, 100, 128, 200, 255, 300, 600]
+PALI_TEXT = 64
+PALI_STEPS = 16
+PALI_LONG_TEXT = 3840
+MUSIC_ARCH = "musicgen-medium"
+MUSIC_FRAMES = 512
+MUSIC_STEPS = 16
+DEEP_ARCHS = ("deepseek-67b", "command-r-plus-104b")
+DEEP_LAYERS = 4
+# kernel 12's prefix mode in the check phase (case, B, S, H, KH, D, p):
+# paligemma-3b's cacheless forward, and a ragged S with p inside a tile
+FLASH_PREFIX_CASES = (
+    ("paligemma-3b forward", 1, 4096, 8, 1, 256, 256),
+    ("ragged", 2, 1000, 4, 2, 128, 77))
 # tensor parallelism: ranks on the one card, joined by gloo
 TP = 2
 TP_BACKEND = "gloo"
@@ -974,12 +1032,17 @@ def phase_ops(torch) -> tuple[dict, dict]:
 def expected_launches(cfg, decode_steps, forwards,
                        attention=("decode_attention",), tp=False) -> dict:
     """Launches the full plan makes, per layer and forward (decode step,
-    prefill or prefill chunk): QKV, out-proj; for a dense FFN row-quant,
-    gated (re-quantizing its output when d_ff <= 8192, else one more
-    row-quant: gemma-2b's 16384), down; for an MoE FFN row-quant of the
-    stacked expert rows, grouped gated (requant fused), grouped down,
-    and the shared MLP's row-quant, gated (requant fused), down.  Per
-    layer and decode step one launch of each ``attention`` kernel; a
+    prefill or prefill chunk): QKV and out-proj, each one launch of
+    kernel 2 when its K (d_model; heads x head_dim) is at most
+    ``MAX_FUSED_QUANT_K``, else kernel 1 then kernel 3 (deepseek-67b's
+    and command-r-plus-104b's); for a dense FFN row-quant, gated (kernel
+    4; an ungated MLP such as musicgen's gelu: kernel 3), re-quantizing
+    its output when d_ff <= 8192, else one more row-quant (gemma-2b's
+    16384), down; for an MoE FFN row-quant of the stacked expert rows,
+    grouped gated (requant fused), grouped down, and the shared MLP's
+    row-quant, gated (requant fused), down.  Per layer and decode step
+    one launch of each ``attention`` kernel (a dict maps a layer's mixer
+    to its kernels: the split walk on gemma3-4b's global layers); a
     prefill attends with the plain dense path.  On a tensor-parallel
     rank (``tp``) the out-projection and every down GEMM are kernel 6
     (the int32 partial), and the gated GEMM writes f32 (the requant runs
@@ -987,8 +1050,16 @@ def expected_launches(cfg, decode_steps, forwards,
     launches kernel 13 once per prefill and nothing at a decode step (its
     projections are bf16 ``torch.matmul``, its decode recurrence plain
     torch)."""
-    from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_N
+    from repro_torch.kernels.cim_gemm import (MAX_FUSED_QUANT_K,
+                                              MAX_FUSED_QUANT_N)
     want = {name: 0 for name in SOURCES}
+
+    def projection(K):
+        if K <= MAX_FUSED_QUANT_K:
+            want["cim_gemm_int8_fused_qin"] += forwards
+        else:
+            want["quantize_rows_int8"] += forwards
+            want["cim_gemm_int8_fused"] += forwards
     for mixer, ffn in cfg.layer_specs():
         if mixer == "mamba2":
             want["ssd_scan"] += forwards - decode_steps
@@ -997,9 +1068,11 @@ def expected_launches(cfg, decode_steps, forwards,
             want["cim_gemm_int8_fused_qin"] += forwards
             want["cim_gemm_int8"] += 2 * forwards
         else:
-            want["cim_gemm_int8_fused_qin"] += 2 * forwards
+            projection(cfg.d_model)
+            projection(cfg.n_heads * cfg.head_dim)
             want["cim_gemm_int8_fused"] += forwards
-        want["cim_gated_gemm_int8"] += forwards
+        want["cim_gated_gemm_int8" if cfg.gated
+             else "cim_gemm_int8_fused"] += forwards
         if ffn == "moe":
             want["quantize_rows_int8"] += 2 * forwards
             want["cim_grouped_gated_gemm_int8"] += forwards
@@ -1007,9 +1080,25 @@ def expected_launches(cfg, decode_steps, forwards,
         else:
             want["quantize_rows_int8"] += (
                 1 if tp or cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
-        for name in attention:
+        names = attention.get(mixer, ()) if isinstance(attention, dict) \
+            else attention
+        for name in names:
             want[name] += decode_steps
     return want
+
+
+def launches_per_layer_step(cfg, attention=("decode_attention",)) -> dict:
+    """Launches of one decode step, per layer mixer kind (e.g. gemma3-4b:
+    7 on a local layer, 8 on a global one with the split walk)."""
+    out = {}
+    for mixer, ffn in cfg.layer_specs():
+        one = dataclasses.replace(cfg, n_layers=1, local_global_pattern=0,
+                                  sliding_window=None)
+        if mixer not in out:
+            att = attention.get(mixer, ()) if isinstance(attention, dict) \
+                else attention
+            out[mixer] = sum(expected_launches(one, 1, 1, att).values())
+    return out
 
 
 def launches_per_decode_step(cfg, counts, decode_steps, forwards,
@@ -1883,6 +1972,406 @@ def phase_serve_zamba2(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the attention + dense-FFN family beyond gemma-2b
+# ---------------------------------------------------------------------------
+def _draw_quantized(torch, cfg, tag: str):
+    """``Model(cfg)`` on the card with ``Model.init(SEED)``'s weights, drawn
+    and quantized under the full plan one block at a time: the card holds
+    the bf16 (and the quantizer's f32) copy of one block at a time, never
+    of the whole stack (command-r-plus-104b's gated weight alone is 1.66
+    GB in f32)."""
+    from types import SimpleNamespace
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan
+    from repro_torch.quant.plan import apply_plan
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    layers = model.layers
+    model.layers = torch.nn.ModuleList()
+    model.to_empty(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model.init_outer(gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    for block in layers:
+        block.to_empty(device=DEVICE)
+        n_params += sum(p.numel() for p in block.parameters())
+        block.init_(gen)
+        apply_plan(SimpleNamespace(layers=[block]), QuantPlan.full())
+    model.layers = layers
+    _sync(torch)
+    gib = 2 ** 30
+    say(f"[{tag}] {cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.n_layers}"
+        f" layers, d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+        f"KV of {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.activation}, "
+        f"{cfg.norm}{', qk_norm' if cfg.qk_norm else ''}) drawn and "
+        f"quantized block by block in {time.perf_counter() - t0:.1f} s: "
+        f"device memory {torch.cuda.memory_allocated() / gib:.2f} GiB, "
+        f"peak {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    return model
+
+
+def _free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _served_run(torch, tag, engine, reqs, prefill_counter, attention,
+                new_tokens=NEW_TOKENS) -> dict:
+    """Serve ``reqs`` on ``engine`` and pin its launches exactly: every
+    request OK, the counts ``expected_launches`` gives, and per layer per
+    decode step ``launches_per_layer_step``.  Returns the counts."""
+    cfg = engine.model.cfg
+    counts, wall, step_ms = _serve(torch, engine, reqs, prefill_counter)
+    st = engine.stats
+    _check_served(cfg, reqs, new_tokens)
+    forwards = st.decode_steps + getattr(st, prefill_counter)
+    want = expected_launches(cfg, st.decode_steps, forwards, attention)
+    say(f"[{tag}] {len(reqs)} requests OK (prompts "
+        f"{[len(r.prompt) for r in reqs]}): {st.tokens_out} decode tokens + "
+        f"{st.prefills} prefills ({getattr(st, prefill_counter)} "
+        f"{prefill_counter.replace('_', ' ')}) in {wall:.2f} s "
+        f"({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
+        f"{st.decode_steps} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms per decode-only step")
+    say(f"[{tag}] launches {json.dumps(counts)}")
+    need(counts == want, f"{tag}: launch counts {counts} != {want}")
+    per = launches_per_layer_step(cfg, attention)
+    say(f"[{tag}] launches per layer per decode step {json.dumps(per)} "
+        f"(mean {launches_per_decode_step(cfg, counts, st.decode_steps, forwards):g})")
+    return counts
+
+
+def _held(tag, what, kern, plain) -> float:
+    """Kernel-path logits against plain-path logits: finite, within
+    ``LOGITS_ATOL_REL`` of the plain path's largest |logit|."""
+    err = (kern - plain).abs().max().item()
+    tol = LOGITS_ATOL_REL * plain.abs().max().item()
+    same = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    say(f"[{tag}] {what}: logits kernel vs plain max_abs_err={err:.4g} "
+        f"(tol {tol:.4g}), argmax agreement {same:.3f}")
+    need(bool(kern.isfinite().all()) and err <= tol,
+         f"{tag}: {what}: the kernel path disagrees with the plain path")
+    return err
+
+
+class FlashModes:
+    """Counts kernel 12's launches by mask while active: ``sliding``
+    (a window), ``prefix`` (prefix_len > 0), ``causal``, ``full``.  The
+    attention layer's handle on the kernel module (``models.attention.
+    _fa``) is pointed at a recording stand-in; the kernel module itself is
+    left alone, since its wrapper counts launches on its own name."""
+
+    def __init__(self):
+        from types import SimpleNamespace
+        from repro_torch.models import attention
+        self.mod, self.fa = attention, attention._fa
+        self.modes = {"causal": 0, "sliding": 0, "prefix": 0, "full": 0}
+
+        def counted(q, k, v, causal=True, window=None, **kw):
+            mode = ("full" if not causal else "sliding" if window
+                    else "prefix" if kw.get("prefix_len") else "causal")
+            self.modes[mode] += 1
+            return self.fa.flash_attention(q, k, v, causal, window, **kw)
+        self.stand_in = SimpleNamespace(flash_attention=counted)
+
+    def __enter__(self):
+        self.mod._fa = self.stand_in
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._fa = self.fa
+
+
+def _forward_vs_plain(torch, tag, model, S, want_modes, **inputs) -> dict:
+    """One cacheless forward of S positions with the model's own positions
+    (kernel 12 on every layer, counted by mask) against the same forward
+    given explicit positions (the plain blockwise path).  Returns the
+    kernel path's launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    pos = torch.arange(S, device=DEVICE)[None]
+    with torch.no_grad(), FlashModes() as fm:
+        _sync(torch)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        kern = model(**inputs)
+        _sync(torch)
+        kern_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        plain = model(positions=pos, **inputs)
+        _sync(torch)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    modes = {k: v for k, v in fm.modes.items() if v}
+    say(f"[{tag}] cacheless forward of {S} positions: kernel 12 "
+        f"{counts['flash_attention']} launches by mask {json.dumps(modes)} "
+        f"(want {json.dumps(want_modes)}); {kern_ms:.1f} ms on kernel 12, "
+        f"{plain_ms:.1f} ms on the blockwise path (first calls)")
+    need(modes == want_modes and counts["flash_attention"]
+         == sum(want_modes.values()), f"{tag}: kernel 12 launches {modes}")
+    need(kern.shape == (1, S, model.cfg.vocab), f"{tag}: logits shape")
+    _held(tag, f"cacheless forward of {S} positions", kern, plain)
+    del kern, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ring_vs_plain(torch, tag, model, B, max_len, steps, prompt, seed,
+                   feed=None):
+    """A prefill into a fresh int8 ring cache then ``steps`` decode steps,
+    on the kernel path and on the plain path (``kernel_mode(False)``):
+    the plain path is fed the kernel path's greedy tokens (or the same
+    ``feed`` inputs), and every step's logits are held.  ``prompt`` is a
+    dict of ``prefill_padded``'s inputs (tokens, lengths and
+    embeddings)."""
+    from repro_torch.quant import kernel_mode
+    toks = prompt.pop("tokens", None)
+
+    def run(plain, fed):
+        caches = model.init_cache(B, max_len, kv_dtype="int8")
+        out, nxt = [], []
+        with torch.no_grad(), kernel_mode(False if plain else None):
+            a = model.prefill_padded(toks, caches, **prompt)
+            out.append(a)
+            for i in range(steps):
+                if feed is not None:
+                    a = model.decode_step(None, caches,
+                                          frame_embeddings=feed[i])
+                else:
+                    tok = a.argmax(-1) if fed is None else fed[i]
+                    nxt.append(tok)
+                    a = model.decode_step(tok, caches)
+                out.append(a)
+        return torch.cat(out, dim=1), nxt
+    kern, fed = run(False, None)
+    plain, _ = run(True, fed or None)
+    need(kern.shape == (B, steps + 1, model.cfg.vocab), f"{tag}: shape")
+    return _held(tag, f"prefill + {steps} decode steps", kern, plain)
+
+
+def phase_serve_gemma3(torch) -> tuple[dict, dict]:
+    """Full-width gemma3-4b (34 layers, 29 sliding-window of 1024 and 5
+    global, qk_norm, GQA 8 on 4 of 256) under the full plan, int8 KV: the
+    ring engine at 8 slots of ``GEMMA3_MAX_LEN`` (local layers hold 1024
+    slots; the global layers' walk takes 2 splits), then the paged
+    engine over the same requests, each with exact launches; one 1500-
+    token prefill (past the window) + decode steps against the plain
+    path; a cacheless forward of 4096 tokens, kernel 12 exactly 29 times
+    sliding and 5 causal.  Returns (served launch counts, kernel 12's
+    cacheless counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import (PagedServingEngine, Request,
+                                     ServingEngine)
+    tag = "serve-gemma3"
+    cfg = get_config(GEMMA3_ARCH)
+    from repro_torch.kernels import ops
+    model = _draw_quantized(torch, cfg, tag)
+    # a global layer's ring of GEMMA3_MAX_LEN slots takes the split walk
+    # above ops.SPLIT_MIN_SLOTS; a local layer's 1024 slots one walk
+    split = {"attn": ("decode_attention_partial", "decode_attention_combine")
+             if ops.n_splits_for(GEMMA3_MAX_LEN) > 1
+             else ("decode_attention",),
+             "attn_local": ("decode_attention",)}
+    runs = []
+    for name, cls, kw, prefill_counter, attention in (
+            ("ring", ServingEngine, {}, "prefills", split),
+            ("paged", PagedServingEngine,
+             dict(block_size=PAGED_BLOCK, prefill_chunk=GEMMA3_CHUNK),
+             "prefill_chunks", ("decode_attention_paged",))):
+        engine = cls(model, n_slots=8, max_len=GEMMA3_MAX_LEN,
+                     prefill_bucket=64, quant_plan=QuantPlan.full(), **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(_prompts(cfg, GEMMA3_PROMPTS,
+                                               SEED + 8))]
+        runs.append(_served_run(torch, f"{tag} {name}", engine, reqs,
+                                prefill_counter, attention))
+        if name == "paged":
+            alloc = engine.paged.allocator
+            alloc.check()
+            need(alloc.n_used == 0, f"{tag}: {alloc.n_used} blocks held")
+        else:
+            tokens = [r.generated for r in reqs]
+        del engine
+        _free(torch)
+    paged_tokens = [r.generated for r in reqs]
+    same = sum(a == b for a, b in zip(tokens, paged_tokens))
+    say(f"[{tag}] paged streams equal to the ring's for {same} of "
+        f"{len(tokens)} requests (the paged prefill runs in chunks of "
+        f"{GEMMA3_CHUNK}, the ring's in one)")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    toks = torch.randint(0, cfg.vocab, (1, 1500), device=DEVICE,
+                         generator=gen)
+    _ring_vs_plain(torch, tag, model, 1, 2048, 4, dict(
+        tokens=toks, lengths=torch.tensor([1500], dtype=torch.int32,
+                                          device=DEVICE)), SEED)
+    toks = torch.randint(0, cfg.vocab, (1, GEMMA3_LONG_S), device=DEVICE,
+                         generator=gen)
+    n_local = sum(m == "attn_local" for m, _ in cfg.layer_specs())
+    fwd = _forward_vs_plain(torch, tag, model, GEMMA3_LONG_S,
+                            {"causal": cfg.n_layers - n_local,
+                             "sliding": n_local}, tokens=toks)
+    del model
+    _free(torch)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}, fwd
+
+
+def phase_serve_paligemma(torch) -> tuple[dict, dict]:
+    """Full-width paligemma-3b (18 layers of gemma-2b's shape under the
+    ``"prefix"`` mask, frontend_proj [1152, 2048]) under the full plan:
+    the ring engine on text prompts (prefix_len = frontend_len = 256:
+    text positions below 256 attend both ways, as in the reference), 7
+    launches per layer per decode step; a direct prefill of 256 seeded
+    patch embeddings + ``PALI_TEXT`` tokens into an int8 ring and
+    ``PALI_STEPS`` decode steps against the plain path; a cacheless
+    forward of 256 patches + ``PALI_LONG_TEXT`` tokens, kernel 12's prefix
+    mode exactly 18 times, against the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import Request, ServingEngine
+    tag = "serve-paligemma"
+    cfg = get_config(PALI_ARCH)
+    model = _draw_quantized(torch, cfg, tag)
+    engine = ServingEngine(model, n_slots=8, max_len=1024, prefill_bucket=64,
+                           quant_plan=QuantPlan.full())
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, PALI_PROMPTS, SEED + 10))]
+    counts = _served_run(torch, tag, engine, reqs, "prefills",
+                         ("decode_attention",))
+    del engine
+    _free(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    patches = torch.randn((1, cfg.frontend_len, cfg.frontend_dim),
+                          device=DEVICE, generator=gen)
+    toks = torch.randint(0, cfg.vocab, (1, PALI_TEXT), device=DEVICE,
+                         generator=gen)
+    _ring_vs_plain(torch, f"{tag} patches", model, 1, 1024, PALI_STEPS, dict(
+        tokens=toks, patch_embeddings=patches,
+        lengths=torch.tensor([PALI_TEXT], dtype=torch.int32,
+                             device=DEVICE)), SEED)
+    toks = torch.randint(0, cfg.vocab, (1, PALI_LONG_TEXT), device=DEVICE,
+                         generator=gen)
+    fwd = _forward_vs_plain(torch, tag, model,
+                            cfg.frontend_len + PALI_LONG_TEXT,
+                            {"prefix": cfg.n_layers}, tokens=toks,
+                            patch_embeddings=patches)
+    del model
+    _free(torch)
+    return counts, fwd
+
+
+def phase_musicgen(torch) -> dict:
+    """Full-width musicgen-medium (48 layers, MHA 24 x 64, layernorm, an
+    ungated gelu MLP of 6144) under the full plan, int8 KV: a ring
+    prefill of ``MUSIC_FRAMES`` seeded frame embeddings in 2 rows, then
+    ``MUSIC_STEPS`` decode steps each fed seeded frames; launches exact
+    (6 per layer per decode step), logits against the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    tag = "musicgen"
+    cfg = get_config(MUSIC_ARCH)
+    model = _draw_quantized(torch, cfg, tag)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    B = 2
+    frames = torch.randn((B, MUSIC_FRAMES, cfg.d_model), device=DEVICE,
+                         generator=gen)
+    feed = [torch.randn((B, 1, cfg.d_model), device=DEVICE, generator=gen)
+            for _ in range(MUSIC_STEPS)]
+    lengths = torch.tensor([MUSIC_FRAMES, MUSIC_FRAMES - 100],
+                           dtype=torch.int32, device=DEVICE)
+    caches = model.init_cache(B, 1024, kv_dtype="int8")
+    step_ms = []
+    with torch.no_grad():
+        _sync(torch)
+        reset_launch_counts()
+        model.prefill_padded(None, caches, lengths, frame_embeddings=frames)
+        for f in feed:
+            t0 = time.perf_counter()
+            model.decode_step(None, caches, frame_embeddings=f)
+            _sync(torch)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+    want = expected_launches(cfg, MUSIC_STEPS, MUSIC_STEPS + 1)
+    say(f"[{tag}] {B} rows: prefill of {MUSIC_FRAMES} frames, "
+        f"{MUSIC_STEPS} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms per decode step; launches "
+        f"{json.dumps(counts)}")
+    need(counts == want, f"{tag}: launch counts {counts} != {want}")
+    per = launches_per_layer_step(cfg)
+    say(f"[{tag}] launches per layer per decode step {json.dumps(per)}")
+    need(per == {"attn": 6}, f"{tag}: {per} per layer per decode step")
+    _ring_vs_plain(torch, tag, model, B, 1024, MUSIC_STEPS, dict(
+        frame_embeddings=frames, lengths=lengths), SEED, feed=feed)
+    del model, caches
+    _free(torch)
+    return counts
+
+
+def phase_serve_deep(torch, arch: str) -> dict:
+    """Full width, depth cut to ``DEEP_LAYERS`` layers (deepseek-67b's 95 and
+    command-r-plus-104b's 64 cannot be drawn on one card): the ring
+    engine at 8 slots of 1024, 8 requests; QKV and out-projection at K
+    8192 / 12288 above ``MAX_FUSED_QUANT_K`` take kernel 1 then kernel 3:
+    9 launches per layer per decode step; one ring prefill + decode step
+    against the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import Request, ServingEngine
+    tag = f"serve-{arch.split('-')[0]}"
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=DEEP_LAYERS)
+    say(f"[{tag}] {arch} at full width, depth cut to {DEEP_LAYERS} of "
+        f"{full.n_layers} layers ({full.param_count() / 1e9:.1f} B "
+        f"parameters uncut)")
+    model = _draw_quantized(torch, cfg, tag)
+    engine = ServingEngine(model, n_slots=8, max_len=1024, prefill_bucket=64,
+                           quant_plan=QuantPlan.full())
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, SERVE_LENGTHS, SEED + 13))]
+    counts = _served_run(torch, tag, engine, reqs, "prefills",
+                         ("decode_attention",))
+    per = launches_per_layer_step(cfg)
+    need(per == {"attn": 9}, f"{tag}: {per} per layer per decode step")
+    del engine
+    _free(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    toks = torch.randint(0, cfg.vocab, (4, 64), device=DEVICE, generator=gen)
+    _ring_vs_plain(torch, tag, model, 4, 1024, 1, dict(
+        tokens=toks, lengths=torch.tensor([64, 61, 32, 1], dtype=torch.int32,
+                                          device=DEVICE)), SEED)
+    del model
+    _free(torch)
+    return counts
+
+
+def phase_check_prefix(torch) -> None:
+    """Kernel 12's prefix mode (``prefix_len``) against its plain version
+    on both bodies, at paligemma-3b's cacheless forward (B 1, S 4096, 8
+    heads on 1 KV head of 256, p 256) and at a ragged S with p inside a
+    tile (not counted)."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    for case, B, S, H, KH, D, p in FLASH_PREFIX_CASES:
+        q, k, v = _flash_inputs(torch, gen, B, S, S, H, KH, D, "bf16")
+        plain = fa.flash_attention_plain(q, k, v, True, None, p).float()
+        ref = plain.abs()
+        tol = FLASH_TOL["bf16"]
+        limit = tol * ref + tol * ref.amax(-1, keepdim=True)
+        for body in fa.BODIES:
+            out = fa.flash_attention(q, k, v, True, None, body=body,
+                                     prefix_len=p)
+            diff = (out.float() - plain).abs()
+            ok = bool(out.isfinite().all()) and bool((diff <= limit).all())
+            say(f"[check] flash_attention prefix {case} (B {B}, S {S}, H {H}"
+                f", KH {KH}, D {D}, p {p}, {body} body): max_abs_err="
+                f"{diff.max().item():.3g} (rtol={tol:.3g} + {tol:.3g} x row "
+                f"max) {'ok' if ok else 'FAIL'}")
+            need(ok, f"flash_attention prefix at {case} ({body}) disagrees")
+        del q, k, v, plain, ref, limit
+    torch.cuda.empty_cache()
 
 
 def times_dit(torch, card: str) -> None:
@@ -2880,6 +3369,30 @@ def times_ops(torch, card: str) -> list:
                 f"{card}")
         del insts, q, k, v, qt, kt, vt, visible
 
+    # the prefix mode at paligemma-3b's cacheless forward, beside SDPA
+    # with the same boolean mask
+    case, B, S, H, KH, D, p = FLASH_PREFIX_CASES[0]
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KH * D)
+    insts = [_flash_inputs(torch, gen, B, S, S, H, KH, D, "bf16")
+             for _ in range(copies_for(nbytes))]
+    visible = kref.prefill_visible(S, S, True, None, dev, p)
+    q, k, v = insts[0]
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    where = f"prefix {case}, B {B}, S {S}, H {H}, KH {KH}, D {D}, p {p}"
+    timed("flash_attention", where,
+          [(lambda a=a: fa.flash_attention(*a, prefix_len=p))
+           for a in insts],
+          lambda: fa.flash_attention_plain(q, k, v, True, None, p),
+          lambda: torch.nn.functional.scaled_dot_product_attention(
+              qt, kt, vt, attn_mask=visible, enable_gqa=True),
+          nbytes, 4 * B * H * D * int(visible.sum()), BF16_OPS_PER_S, False)
+    fma_ms = time_ms(torch, [
+        (lambda a=a: fa.flash_attention(*a, prefix_len=p, body="fma"))
+        for a in insts])
+    say(f"[times] flash_attention ({where}) on the CUDA cores' f32 body: "
+        f"{fma_ms:.4f} ms on {card}")
+    del insts, q, k, v, qt, kt, vt, visible
+
     # the scan: the least work counts C·Bᵀ and G·X on and below the
     # diagonal only
     BH, S, P, N, L = SSD_CASE
@@ -2933,6 +3446,7 @@ def main() -> int:
         phase_build()
         card = phase_card(torch)
         errs = phase_check(torch)
+        phase_check_prefix(torch)
         ops_counts, ops_errs = phase_ops(torch)
         errs.update(ops_errs)
         counts, serve = phase_serve(torch)
@@ -2981,6 +3495,13 @@ def main() -> int:
             {"serve-moe-tp": moe["tokens"]}))
         dit_counts = phase_serve_dit(torch)
         zamba_counts = phase_serve_zamba2(torch)
+        # the dense family beyond gemma-2b: their serve runs launch
+        # kernel 12 zero times, their cacheless forwards only kernel 12
+        # (counted below)
+        g3_counts, g3_forward = phase_serve_gemma3(torch)
+        pali_counts, pali_forward = phase_serve_paligemma(torch)
+        runs += [g3_counts, pali_counts, phase_musicgen(torch)]
+        runs += [phase_serve_deep(torch, arch) for arch in DEEP_ARCHS]
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for k, v in counts.items() if k not in OPS_KERNELS),
              f"a kernel was never launched by the serve runs: {counts}")
@@ -2994,7 +3515,9 @@ def main() -> int:
         counts.update({k: ops_counts[k] for k in OPS_KERNELS})
         counts["ssd_scan"] += zamba_counts["ssd_scan"]
         counts["flash_attention"] = (long_counts["flash_attention"]
-                                     + dit_counts["flash_attention"])
+                                     + dit_counts["flash_attention"]
+                                     + g3_forward["flash_attention"]
+                                     + pali_forward["flash_attention"])
         kernels = phase_times(torch, serve, moe, counts, errs, card)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

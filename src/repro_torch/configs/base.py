@@ -4,8 +4,12 @@ and Mamba-2 hybrids).
 The port's copy of ``repro.configs.base.ModelConfig`` restricted to the
 fields the ported families use: a stack of ``(mixer, ffn)`` blocks with
 ``mixer`` in {"attn", "attn_local", "mamba2"} and ``ffn`` in {"dense",
-"moe", "none"} (a Mamba-2 block has no FFN).  The MLA and xLSTM families
-come with later slices of the port.
+"moe", "none"} (a Mamba-2 block has no FFN); rmsnorm or layernorm,
+optional per-head ``qk_norm``, and the reference's stub frontends
+(``"vision"``: patch embeddings projected by ``frontend_proj`` into an
+image prefix that the global layers attend bidirectionally; ``"audio"``:
+frame embeddings at ``d_model`` in place of the token lookup).  The MLA
+and xLSTM families come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ class ModelConfig:
     activation: str = "swiglu"
     norm: str = "rmsnorm"
     rope_theta: float = 10000.0
+    qk_norm: bool = False
     tie_embeddings: bool = False
 
     # attention layout
@@ -42,7 +47,12 @@ class ModelConfig:
     moe: Optional["MoEConfig"] = None
     ssm: Optional["SSMConfig"] = None
 
-    family: str = "dense"             # dense | moe | hybrid
+    # modality frontend (stub): None | "audio" | "vision"
+    frontend: Optional[str] = None
+    frontend_len: int = 0             # e.g. 256 SigLIP patches
+    frontend_dim: int = 0             # frontend embedding dim (0 = d_model)
+
+    family: str = "dense"             # dense | moe | hybrid | vlm | audio
     param_dtype: str = "bfloat16"
     # KV-cache precision ("bfloat16" | "int8")
     kv_cache_dtype: str = "bfloat16"
@@ -85,6 +95,9 @@ class ModelConfig:
         return self.activation in ("geglu", "swiglu")
 
     def param_count(self) -> int:
+        """The reference's count: embeddings, head, mixers and FFNs.  Like
+        the reference's, it leaves out the norms and ``frontend_proj``
+        (paligemma-3b's [1152, 2048], 2.36 M)."""
         d = self.d_model
         mult = 3 if self.gated else 2
         total = self.vocab * d * (1 if self.tie_embeddings else 2)

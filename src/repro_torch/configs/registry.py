@@ -13,6 +13,11 @@ from .dit import DiTConfig
 
 _MODULES = {
     "gemma-2b": "gemma_2b",
+    "gemma3-4b": "gemma3_4b",
+    "deepseek-67b": "deepseek_67b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "paligemma-3b": "paligemma_3b",
+    "musicgen-medium": "musicgen_medium",
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
     "zamba2-1.2b": "zamba2_1p2b",
 }

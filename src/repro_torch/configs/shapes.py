@@ -35,4 +35,7 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         from repro_torch.models.ssm import SSMConfig
         kw["ssm"] = SSMConfig(state_dim=8, head_dim=16, expand=2,
                               conv_kernel=4, chunk=8)
+    if cfg.frontend == "vision":
+        kw["frontend_len"] = 4
+        kw["frontend_dim"] = 32
     return dataclasses.replace(cfg, **kw)

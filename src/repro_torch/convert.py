@@ -14,8 +14,12 @@ become the port's ``QuantizedLinear`` modules.  An MoE group's ``moe``
 leaves (router, expert stacks ``up``/``gate``/``down``, the ``shared``
 MLP), a Mamba-2 group's ``mamba`` leaves (``in_proj``, ``conv_w``,
 ``conv_b``, ``a_log``, ``d_skip``, ``dt_bias``, ``norm.scale``,
-``out_proj``; no FFN) and an untied ``head.kernel`` cross over the same
-way.  A leaf whose shape differs from the port's is refused.
+``out_proj``; no FFN), an untied ``head.kernel``, the ``q_norm`` and
+``k_norm`` scales of a ``qk_norm`` config, a vision config's
+``frontend_proj.kernel`` and every norm's ``scale`` (and ``bias``, where a
+layernorm tree has one) cross over the same way.  A leaf whose shape
+differs from the port's is refused, and so is a tree whose ``q_norm`` or
+``frontend_proj`` does not match the config.
 
 ``dit_params_from_jax(tree, cfg)`` does the same for the reference's
 ``DiTModel`` tree: the scanned ``blocks`` axis is unstacked into the
@@ -82,7 +86,12 @@ def _assign(module: torch.nn.Module, name: str, leaf, layer: int | None,
 def _assign_attention(attn: torch.nn.Module, leaves: dict, layer: int,
                       device) -> None:
     """An attention layer's leaves; a fused ``qkv`` leaf replaces the
-    module's q/k/v and must have their fused shape [d, H + 2*KH, Dh]."""
+    module's q/k/v and must have their fused shape [d, H + 2*KH, Dh].
+    The ``q_norm``/``k_norm`` leaves ({"scale": [Dh]}) go to the layer's
+    scales of the same names."""
+    if ("q_norm" in leaves) != hasattr(attn, "q_norm"):
+        raise ValueError("q_norm/k_norm: the tree and the config disagree "
+                         "on qk_norm")
     shape = None
     if "qkv" in leaves:
         d, H, Dh = attn.q.shape
@@ -90,7 +99,23 @@ def _assign_attention(attn: torch.nn.Module, leaves: dict, layer: int,
         for name in ("q", "k", "v"):
             delattr(attn, name)
     for name, leaf in leaves.items():
-        _assign(attn, name, leaf, layer, device, shape=shape)
+        if name in ("q_norm", "k_norm"):
+            _assign(attn, name, leaf["scale"], layer, device)
+        else:
+            _assign(attn, name, leaf, layer, device, shape=shape)
+
+
+def _assign_norm(owner: torch.nn.Module, name: str, leaves: dict,
+                 layer: int | None, device) -> None:
+    """A norm's ``scale`` into ``owner.<name>``, and a layernorm's
+    ``bias`` (when the tree has one) into a new ``owner.<name>_bias`` of
+    the scale's shape."""
+    _assign(owner, name, leaves["scale"], layer, device)
+    if "bias" in leaves:
+        scale = getattr(owner, name)
+        setattr(owner, name + "_bias", torch.nn.Parameter(
+            torch.empty_like(scale), requires_grad=False))
+        _assign(owner, name + "_bias", leaves["bias"], layer, device)
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
@@ -102,15 +127,19 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
     _assign(model, "embed", tree["embed"]["embedding"], None, device)
     if not cfg.tie_embeddings:
         _assign(model, "head", tree["head"]["kernel"], None, device)
-    _assign(model, "final_norm", tree["final_norm"]["scale"], None, device)
+    _assign_norm(model, "final_norm", tree["final_norm"], None, device)
+    if ("frontend_proj" in tree) != hasattr(model, "frontend_proj"):
+        raise ValueError("frontend_proj: the tree and the config disagree")
+    if "frontend_proj" in tree:
+        _assign(model, "frontend_proj", tree["frontend_proj"]["kernel"],
+                None, device)
     i = 0
     for gi, (_spec, count) in enumerate(cfg.layer_groups()):
         group = tree[f"group_{gi}"]
         for j in range(count):
             block = model.layers[i]
             i += 1
-            _assign(block, "mixer_norm", group["mixer_norm"]["scale"], j,
-                    device)
+            _assign_norm(block, "mixer_norm", group["mixer_norm"], j, device)
             if "mamba" in group:      # a Mamba-2 block: no FFN
                 mamba = dict(group["mamba"])
                 _assign(block.mamba.norm, "scale",
@@ -118,7 +147,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
                 for name, leaf in mamba.items():
                     _assign(block.mamba, name, leaf, j, device)
                 continue
-            _assign(block, "ffn_norm", group["ffn_norm"]["scale"], j, device)
+            _assign_norm(block, "ffn_norm", group["ffn_norm"], j, device)
             _assign_attention(block.attn, group["attn"], j, device)
             if "moe" in group:
                 moe = dict(group["moe"])

@@ -2,7 +2,10 @@
 //
 // Replaces src/repro/kernels/flash_attention.py: flash_attention
 // (_flash_kernel): causal, sliding-window or full attention of a prompt,
-// an online softmax over KV blocks, GQA through the KV index map h // G.
+// and causal with a bidirectional prefix (the reference's "prefix" mask of
+// a vision config's global layers: key k is visible to query q when k <= q
+// or k < prefix), an online softmax over KV blocks, GQA through the KV
+// index map h // G.
 //
 // What bounds it on the card: the two products, 4 * D operations per
 // visible (query, key) pair and head, against q, k, v and the output read
@@ -51,7 +54,9 @@
 // launch.
 //
 // Masks and skipped tiles (both bodies): the causal mask is aligned
-// top-left (query and key positions both start at 0).  A block walks
+// top-left (query and key positions both start at 0); a prefix p moves a
+// causal row's last visible key from q to max(q, p - 1), so every q tile
+// walks every KV tile below p.  A block walks
 // only the KV tiles between the first visible key of its first row and
 // the last visible key of its last row, heaviest q tiles first; the keys
 // it skips are masked for every row of the tile, which the reference's
@@ -113,7 +118,7 @@ __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
                        int Skv, int H, int KH, int D, int causal, int window,
-                       float scale) {
+                       int prefix, float scale) {
   constexpr int U = DMAX / 32;
   const int Dp = (D + 3) & ~3;  // q and K^T rows, padded with zeros
   extern __shared__ __align__(16) float smem[];
@@ -137,7 +142,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // visible keys of query qp: [lo, hi]
   auto lo_of = [&](int qp) { return window > 0 ? max(0, qp - window + 1) : 0; };
-  auto hi_of = [&](int qp) { return causal ? min(qp, Skv - 1) : Skv - 1; };
+  auto hi_of = [&](int qp) {
+    return causal ? min(max(qp, prefix - 1), Skv - 1) : Skv - 1;
+  };
   const int q_last = min(q0 + BQ, Sq) - 1;
   int kv_lo = lo_of(q0), kv_hi = hi_of(q_last);
   if (lo_of(q_last) > hi_of(q_last)) {  // an empty row: uniform over all
@@ -195,7 +202,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int qp = q0 + warp + NW * i;
-      const bool vis = (!causal || kp <= qp) &&
+      const bool vis = (!causal || kp <= qp || kp < prefix) &&
                        (window <= 0 || kp > qp - window);
       const float sc =
           kp >= Skv ? -INFINITY : (vis ? __fmul_rn(s[i], scale) : NEG_INF);
@@ -259,7 +266,7 @@ cudaError_t opt_in(K kern, size_t smem, size_t (&granted)[64]) {
 template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int H, int KH, int D, int causal, int window,
-           float scale, cudaStream_t st) {
+           int prefix, float scale, cudaStream_t st) {
   const int Dp = (D + 3) & ~3;
   const size_t smem =
       sizeof(float) * ((size_t)BQ * Dp + (size_t)Dp * KTS + (size_t)BK * DMAX);
@@ -271,22 +278,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, NT, smem, st>>>(static_cast<const T*>(q),
                                static_cast<const T*>(k),
                                static_cast<const T*>(v), static_cast<T*>(out),
-                               Sq, Skv, H, KH, D, causal, window, scale);
+                               Sq, Skv, H, KH, D, causal, window, prefix,
+                               scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B,
              int Sq, int Skv, int H, int KH, int D, int causal, int window,
-             float scale, cudaStream_t st) {
+             int prefix, float scale, cudaStream_t st) {
   if (D <= 64)
     return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                         scale, st);
+                         prefix, scale, st);
   if (D <= 128)
     return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                          scale, st);
+                          prefix, scale, st);
   return launch<T, 256>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                        scale, st);
+                        prefix, scale, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -389,7 +397,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
                            int Sq, int Skv, int H, int KH, int D, int causal,
-                           int window, float scale) {
+                           int window, int prefix, float scale) {
   constexpr int KS = DM / 16;  // k-steps of q K^T
   constexpr int ON = DM / 8;   // 8-wide column tiles of O
   constexpr int SN = BK / 8;   // 8-wide column tiles of S
@@ -409,7 +417,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   auto lo_of = [&](int qp) {
     return window > 0 ? max(0, qp - window + 1) : 0;
   };
-  auto hi_of = [&](int qp) { return causal ? min(qp, Skv - 1) : Skv - 1; };
+  auto hi_of = [&](int qp) {
+    return causal ? min(max(qp, prefix - 1), Skv - 1) : Skv - 1;
+  };
   const int q_last = min(q0 + MBQ, Sq) - 1;
   int kv_lo = lo_of(q0), kv_hi = hi_of(q_last);
   const bool empty_row = lo_of(q_last) > hi_of(q_last);
@@ -498,7 +508,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
         if (edge) {
           const int kp = k0 + 8 * n + cq + (e & 1);
           const int qp = qr + 8 * (e >> 1);
-          const bool vis = (!causal || kp <= qp) &&
+          const bool vis = (!causal || kp <= qp || kp < prefix) &&
                            (window <= 0 || kp > qp - window);
           x = kp >= Skv ? -INFINITY : (vis ? x : NEG_INF);
         }
@@ -585,7 +595,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 template <int DM, int BK, int MINB>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Skv, int H, int KH, int D, int causal, int window,
-               float scale, cudaStream_t st) {
+               int prefix, float scale, cudaStream_t st) {
   const size_t smem = sizeof(bf16) * (size_t)(MBQ + 4 * BK) * DM;
   auto kern = flash_attention_mma_kernel<DM, BK, MINB>;
   static size_t granted[64] = {};
@@ -595,7 +605,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KH, D,
-      causal, window, scale);
+      causal, window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -605,30 +615,33 @@ extern "C" {
 
 // kind: 1 = float32, 2 = bfloat16 (q, k, v and out).  body: 0 = the CUDA
 // cores' f32 body, 1 = the tensor-core body (bf16, D % 8 == 0, 16-byte
-// aligned q, k, v and out).  0 < D <= 256, H % KH == 0, window 0 = none
-// (checked by the wrapper).
+// aligned q, k, v and out).  0 < D <= 256, H % KH == 0, window 0 = none,
+// prefix 0 = none (a prefix only with causal and no window; checked by the
+// wrapper).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int kind, int body, int B, int Sq,
                            int Skv, int H, int KH, int D, int causal,
-                           int window, float scale, void* stream) {
+                           int window, int prefix, float scale,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D < 1 || D > 256 || KH < 1 || H % KH) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 256 || KH < 1 || H % KH || prefix < 0)
+    return (int)cudaErrorInvalidValue;
   if (body == 1) {
     if (kind != 2 || D % 8) return (int)cudaErrorInvalidValue;
     if (D <= 64)
       return launch_mma<64, 64, 2>(q, k, v, out, B, Sq, Skv, H, KH, D,
-                                   causal, window, scale, st);
+                                   causal, window, prefix, scale, st);
     if (D <= 128)
       return launch_mma<128, 64, 2>(q, k, v, out, B, Sq, Skv, H, KH, D,
-                                    causal, window, scale, st);
+                                    causal, window, prefix, scale, st);
     return launch_mma<256, 64, 1>(q, k, v, out, B, Sq, Skv, H, KH, D, causal,
-                                  window, scale, st);
+                                  window, prefix, scale, st);
   }
   if (kind == 2)
     return launch_d<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KH, D, causal,
-                                   window, scale, st);
+                                   window, prefix, scale, st);
   return launch_d<float>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                         scale, st);
+                         prefix, scale, st);
 }
 
 const char* flash_attention_error_string(int err) {

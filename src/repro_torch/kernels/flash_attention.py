@@ -1,7 +1,7 @@
 """Flash-attention prefill (port of ``repro/kernels/flash_attention.py``).
 
-Causal, sliding-window or full attention of a whole prompt with an online
-softmax over KV tiles; the CUDA bodies are ``csrc/flash_attention.cu``,
+Causal, sliding-window, prefix or full attention of a whole prompt with an
+online softmax over KV tiles; the CUDA bodies are ``csrc/flash_attention.cu``,
 whose note says what bounds them and how they follow the reference (GQA
 by reading KV head ``h // G``, never repeating KV; f32 scores; ``p``
 rounded to v's dtype before PV; masked scores ``-1e30``; KV tiles that
@@ -18,7 +18,9 @@ out: [B, Sq, H, D]    (q's dtype)
 
 The causal mask is aligned top-left: query and key positions both start
 at 0, also when Sq != Skv.  ``window`` hides keys at or before
-``q_pos - window``.
+``q_pos - window``.  ``prefix_len`` p > 0 (causal, no window) also shows
+every query the keys before p: the reference's ``"prefix"`` mask, the
+image prefix of a vision config attended bidirectionally.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ _LIB = "flash_attention"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          window: int | None = None) -> torch.Tensor:
+                          causal: bool = True, window: int | None = None,
+                          prefix_len: int = 0) -> torch.Tensor:
     """The kernel's arithmetic, densely: f32 scores times 1/sqrt(D),
     masked with -1e30; p = exp(s - max) rounded to v's dtype for PV,
     l = sum of the unrounded p; out = (p . v) / max(l, 1e-30) in q's
@@ -53,7 +55,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(B, Sq, KH, G, D)
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    ok = ref.prefill_visible(Sq, Skv, causal, window, q.device)
+    ok = ref.prefill_visible(Sq, Skv, causal, window, q.device, prefix_len)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True)
@@ -70,12 +72,19 @@ def body_for(dtype: torch.dtype, D: int) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None, *,
-                    body: str | None = None) -> torch.Tensor:
+                    body: str | None = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Prefill attention of q over k/v (see the module note for shapes
     and masks).  One launch on CUDA tensors.  ``body`` ("mma" or "fma")
     overrides :func:`body_for`; "mma" needs bf16 and ``D % 8 == 0``."""
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    prefix_len = int(prefix_len or 0)
+    if prefix_len < 0 or (prefix_len and (not causal
+                                          or window is not None)):
+        raise ValueError(f"prefix_len takes an int >= 0 with a causal "
+                         f"mask and no window; got {prefix_len}, "
+                         f"causal={causal}, window={window}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k: expected [B, S, H, D], got shapes "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -87,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if body is not None and body not in BODIES:
         raise ValueError(f"body must be one of {BODIES}, got {body!r}")
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal, window)
+        return flash_attention_plain(q, k, v, causal, window, prefix_len)
     require(q, "q", (torch.float32, torch.bfloat16))
     require(k, "k", q.dtype)
     require(v, "v", q.dtype, tuple(k.shape))
@@ -105,10 +114,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"for the tensor-core body")
     out = torch.empty_like(q)
     fn = bind(_LIB, "flash_attention_launch",
-              [P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P])
+              [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, P])
     check(_LIB, fn(ptr(q), ptr(k), ptr(v), ptr(out), DTYPE_CODE[q.dtype],
                    int(body == "mma"), B, Sq, Skv, H, KH, D, int(causal),
-                   window or 0, 1.0 / math.sqrt(D), stream(q)),
+                   window or 0, prefix_len, 1.0 / math.sqrt(D), stream(q)),
           "flash_attention")
     flash_attention.launches += 1
     return out

@@ -296,15 +296,17 @@ def decode_attention_splitkv_ref(q, k, v, pos, q_pos, n_splits, split_len,
 
 
 def prefill_visible(Sq: int, Skv: int, causal: bool, window,
-                    device) -> torch.Tensor:
+                    device, prefix_len: int = 0) -> torch.Tensor:
     """bool [Sq, Skv]: key j is visible to query i.  The causal mask is
     aligned top-left (query and key positions both start at 0, also
-    when Sq != Skv); ``window`` hides keys at or before i - window."""
+    when Sq != Skv); ``prefix_len`` p also shows a causal row every key
+    j < p (the reference's ``"prefix"`` mask); ``window`` hides keys at
+    or before i - window."""
     qp = torch.arange(Sq, device=device)[:, None]
     kp = torch.arange(Skv, device=device)[None, :]
     ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
-        ok &= kp <= qp
+        ok &= (kp <= qp) | (kp < prefix_len)
     if window is not None:
         ok &= kp > qp - window
     return ok

@@ -120,6 +120,9 @@ def main(argv: list[str] | None = None) -> list[Request]:
     if args["tp"] and not args["int8"]:
         ap.error("--tp serves the INT8 plan: add --int8")
     cfg = _config(args)
+    if cfg.frontend == "audio":
+        raise SystemExit("audio-frontend archs need embedding inputs; "
+                         "use the token-backbone archs for this CLI")
 
     if args["tp"]:
         device = resolve_device(args["device"])   # no card: raises here

@@ -23,7 +23,7 @@ from repro_torch.kernels.ref import NEG_INF, div
 from repro_torch.quant import tp as _tp
 from repro_torch.quant.linear import (QuantizedLinear, _resolve_use_kernel,
                                       quantized_out_proj, quantized_qkv_proj)
-from .layers import apply_rope, truncated_normal_, weight
+from .layers import apply_rope, rmsnorm_apply, truncated_normal_, weight
 
 EMPTY_SLOT = 2 ** 30
 # without a cache, sequences longer than this attend blockwise (the
@@ -36,16 +36,21 @@ class Attention(nn.Module):
     ``o`` [H, Dh, d]; under a plan covering attention, ``qkv`` and ``o``
     become :class:`QuantizedLinear` leaves.  ``n_kv_heads`` is the number
     of KV heads this rank holds (all of them unless tensor parallelism
-    sharded them): the KV cache's head count."""
+    sharded them): the KV cache's head count.  With ``qk_norm`` the layer
+    also holds ``q_norm`` and ``k_norm`` [Dh] f32: the scales of an
+    rmsnorm of each q and k head, taken before RoPE."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
-                 head_dim: int, dtype, device):
+                 head_dim: int, dtype, device, qk_norm: bool = False):
         super().__init__()
         self.n_kv_heads = n_kv_heads
         self.q = weight((d_model, n_heads, head_dim), dtype, device)
         self.k = weight((d_model, n_kv_heads, head_dim), dtype, device)
         self.v = weight((d_model, n_kv_heads, head_dim), dtype, device)
         self.o = weight((n_heads, head_dim, d_model), dtype, device)
+        if qk_norm:
+            self.q_norm = weight((head_dim,), torch.float32, device)
+            self.k_norm = weight((head_dim,), torch.float32, device)
 
     def init_(self, generator: torch.Generator) -> None:
         d = self.q.shape[0]
@@ -53,20 +58,29 @@ class Attention(nn.Module):
             truncated_normal_(p, generator, 1.0 / math.sqrt(d))
         H, Dh, _ = self.o.shape
         truncated_normal_(self.o, generator, 1.0 / math.sqrt(H * Dh))
+        if hasattr(self, "q_norm"):
+            with torch.no_grad():
+                self.q_norm.fill_(1.0)
+                self.k_norm.fill_(1.0)
 
 
 # ---------------------------------------------------------------------------
 # Masks + dense attention (prefill / multi-token path)
 # ---------------------------------------------------------------------------
 def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
-               window: Optional[int] = None) -> torch.Tensor:
-    """Additive bias [..., Sq, Skv]; 0 where attending is allowed."""
+               window: Optional[int] = None,
+               prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Additive bias [..., Sq, Skv]; 0 where attending is allowed.
+    ``"prefix"``: bidirectional among the keys before ``prefix_len``,
+    causal elsewhere."""
     q = q_pos[..., :, None]
     k = kv_pos[..., None, :]
     if kind == "causal":
         ok = k <= q
     elif kind == "sliding":
         ok = (k <= q) & (k > q - window)
+    elif kind == "prefix":
+        ok = (k <= q) | (k < prefix_len)
     elif kind == "full":
         ok = k < 2 ** 29  # everything except padding/empty sentinel slots
     else:
@@ -77,7 +91,8 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    prefix_len: Optional[int] = None) -> torch.Tensor:
     B, Sq, H, D = q.shape
     KH = k.shape[2]
     Dv = v.shape[-1]
@@ -85,7 +100,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, Sq, KH, G, D)
     scale = 1.0 / math.sqrt(D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
-    bias = _mask_bias(q_pos, kv_pos, kind, window)
+    bias = _mask_bias(q_pos, kv_pos, kind, window, prefix_len)
     scores = scores + bias[:, None, None]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
@@ -98,7 +113,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
-                        window: Optional[int] = None, q_block: int = 512,
+                        window: Optional[int] = None,
+                        prefix_len: Optional[int] = None, q_block: int = 512,
                         kv_block: int = 1024) -> torch.Tensor:
     """The reference's ``blockwise_attention`` forward: q blocks of
     ``q_block`` rows, each sweeping KV blocks of ``kv_block`` keys with
@@ -143,7 +159,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                              k[:, keys]).float() * scale
             s = s + _mask_bias(qp[:, rows], kp[:, keys], kind,
-                               window)[:, None, None]
+                               window, prefix_len)[:, None, None]
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -159,7 +175,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         positions: torch.Tensor, kind: str,
                         window: Optional[int] = None,
-                        aligned_positions: bool = False) -> torch.Tensor:
+                        aligned_positions: bool = False,
+                        prefix_len: Optional[int] = None) -> torch.Tensor:
     """Attention of a whole sequence over itself, without a cache, as the
     reference: :func:`dense_attention` up to ``DENSE_SEQ_THRESHOLD``
     tokens, the online softmax over KV blocks above it.
@@ -167,8 +184,8 @@ def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CUDA call with the model's own positions (``aligned_positions``:
     ``arange(S)`` in every row) is one launch of kernel 12, whose causal
     mask is aligned top-left: a ``"full"`` mask (DiT) at every length, a
-    causal or sliding one above the threshold.  The kernel takes no
-    positions operand, so caller-given positions take the dense or
+    causal, sliding or prefix one above the threshold.  The kernel takes
+    no positions operand, so caller-given positions take the dense or
     blockwise path on either device, as CPU tensors do: a dispatch on
     the input, not a fallback on failure."""
     kernel = aligned_positions and q.is_cuda
@@ -176,12 +193,15 @@ def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=False)
     if q.shape[1] <= DENSE_SEQ_THRESHOLD:
-        return dense_attention(q, k, v, positions, positions, kind, window)
-    if kernel and kind in ("causal", "sliding"):
+        return dense_attention(q, k, v, positions, positions, kind, window,
+                               prefix_len)
+    if kernel and kind in ("causal", "sliding", "prefix"):
         return _fa.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-            window=window if kind == "sliding" else None)
-    return blockwise_attention(q, k, v, positions, positions, kind, window)
+            window=window if kind == "sliding" else None,
+            prefix_len=prefix_len if kind == "prefix" else 0)
+    return blockwise_attention(q, k, v, positions, positions, kind, window,
+                               prefix_len)
 
 
 # ---------------------------------------------------------------------------
@@ -341,11 +361,13 @@ def _decode_attention_paged_cached(q, ck, cv, cpos, bt, q_pos, k_scale,
 
 
 def _paged_cache_apply(cache: dict, k, v, positions, q, mask_kind,
-                       window) -> torch.Tensor:
+                       window, prefix_len=None) -> torch.Tensor:
     """Cache write + attend for a paged (block-table) cache dict, in
     place.  A single token attends on the paged kernel; more tokens (a
     prefill chunk) gather the pools, dequantize and run
-    :func:`dense_attention`, as in the reference."""
+    :func:`dense_attention`, as in the reference.  Under the ``"prefix"``
+    mask a chunk sees only the prefix keys already written (ROADMAP
+    C.12, as the reference)."""
     idx = cache["index"]
     bt = cache["block_tables"]
     S = positions.shape[1]
@@ -379,7 +401,7 @@ def _paged_cache_apply(cache: dict, k, v, positions, q, mask_kind,
         k_lin = _dequantize_kv(k_lin, _gather_paged(cks, bt)).to(q.dtype)
         v_lin = _dequantize_kv(v_lin, _gather_paged(cvs, bt)).to(q.dtype)
     return dense_attention(q, k_lin, v_lin, positions, pos_lin, mask_kind,
-                           window)
+                           window, prefix_len)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +414,8 @@ def attention_apply(attn: Attention, x: torch.Tensor,
                     cache: Optional[dict] = None,
                     use_rope: bool = True,
                     residual: Optional[torch.Tensor] = None,
-                    aligned_positions: bool = False) -> torch.Tensor:
+                    aligned_positions: bool = False,
+                    prefix_len: Optional[int] = None) -> torch.Tensor:
     """Self-attention over ``x`` [B, S, d]; returns [B, S, d].
 
     ``cache`` — a ring dict ({"k", "v", "pos", "index"[, "k_scale",
@@ -403,7 +426,12 @@ def attention_apply(attn: Attention, x: torch.Tensor,
     Without a cache the sequence attends over itself
     (:func:`cacheless_attention`); ``aligned_positions`` says that
     ``positions`` is ``arange(S)`` in every row.  ``use_rope=False``
-    leaves q and k unrotated (DiT's attention).
+    leaves q and k unrotated (DiT's attention).  ``prefix_len`` is the
+    ``"prefix"`` mask's bidirectional span; a one-token decode under it
+    walks as causal (every cached key is at or before the query), as in
+    the reference.  A layer with ``q_norm``/``k_norm`` rmsnorms each q
+    and k head after the projection (the wide int8 output is cast to
+    x's dtype and split first) and before RoPE.
     """
     B, S, _ = x.shape
     qkv_w = getattr(attn, "qkv", None)
@@ -417,6 +445,9 @@ def attention_apply(attn: Attention, x: torch.Tensor,
         q = torch.einsum("bsd,dhk->bshk", x, attn.q)
         k = torch.einsum("bsd,dhk->bshk", x, attn.k)
         v = torch.einsum("bsd,dhk->bshk", x, attn.v)
+    if hasattr(attn, "q_norm"):
+        q = rmsnorm_apply(attn.q_norm, q)
+        k = rmsnorm_apply(attn.k_norm, k)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -425,7 +456,7 @@ def attention_apply(attn: Attention, x: torch.Tensor,
         # Paged cache: fixed-size blocks from a shared pool, routed per
         # row by the block table (serving/paged_cache.py).
         out = _paged_cache_apply(cache, k, v, positions, q, mask_kind,
-                                 window)
+                                 window, prefix_len)
     elif cache is not None:
         # Ring-buffer cache: slot = position % capacity; per-slot true
         # positions drive masking.
@@ -463,10 +494,10 @@ def attention_apply(attn: Attention, x: torch.Tensor,
             else:
                 k_r, v_r = ck, cv
             out = dense_attention(q, k_r, v_r, positions, cpos, mask_kind,
-                                  window)
+                                  window, prefix_len)
     else:
         out = cacheless_attention(q, k, v, positions, mask_kind, window,
-                                  aligned_positions)
+                                  aligned_positions, prefix_len)
 
     o_w = attn.o
     if isinstance(o_w, QuantizedLinear):

@@ -1,6 +1,6 @@
 """Core layer primitives (port of ``repro/models/layers.py``): init,
-rmsnorm, embedding + tied logits, the untied LM head, RoPE, the dense
-MLP."""
+rmsnorm and layernorm, embedding + tied logits, the untied LM head,
+RoPE, the dense MLP."""
 from __future__ import annotations
 
 import math
@@ -41,6 +41,34 @@ def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor,
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * scale).to(dtype)
+
+
+def layernorm_apply(scale: torch.Tensor, x: torch.Tensor,
+                    bias: torch.Tensor | None = None,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (the population variance, as ``jnp.var``), times
+    ``scale``, plus ``bias`` when given, in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps) * scale
+    if bias is not None:
+        x = x + bias
+    return x.to(dtype)
+
+
+def norm_apply(kind: str, scale: torch.Tensor, x: torch.Tensor,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The block and final norms of a config: ``"rmsnorm"`` (no bias) or
+    ``"layernorm"``."""
+    if kind == "rmsnorm":
+        if bias is not None:
+            raise ValueError("rmsnorm takes no bias")
+        return rmsnorm_apply(scale, x)
+    if kind == "layernorm":
+        return layernorm_apply(scale, x, bias)
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 # ---------------------------------------------------------------------------

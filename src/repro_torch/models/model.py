@@ -1,5 +1,6 @@
 """Causal LM assembly for attention stacks with dense or MoE FFNs and
-for Mamba-2 hybrids (port of ``repro/models/model.py``).
+for Mamba-2 hybrids, with the reference's stub frontends (port of
+``repro/models/model.py``).
 
 The reference scans stacked layer groups; here every layer is its own
 :class:`Block` in an ``nn.ModuleList`` and runs eagerly.  A
@@ -8,7 +9,9 @@ fill it with :meth:`Model.init` (torch's own truncated-normal draw) or
 load the reference's weights with :func:`repro_torch.convert.
 params_from_jax`.
 
-Entry points:
+Entry points (each also takes ``patch_embeddings=`` for a vision
+config or ``frame_embeddings=`` for an audio one, see :meth:`Model.
+forward`):
     init(generator, device)              -> self, weights filled
     forward(tokens, caches, positions)   -> logits
     prefill_padded(tokens, caches, lengths[, offset])
@@ -31,7 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.quant.plan import FULL_INT8, apply_plan
 from . import attention as attn_mod
 from .layers import (MLP, embedding_apply, embedding_attend, lm_head_apply,
-                     mlp_apply, rmsnorm_apply, truncated_normal_, weight)
+                     mlp_apply, norm_apply, truncated_normal_, weight)
 from .moe import MoE, moe_apply
 from .ssm import Mamba2, init_ssm_cache, mamba2_apply
 
@@ -40,9 +43,18 @@ def _dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
+def _norm(kind: str, scale: torch.Tensor, x: torch.Tensor,
+          owner: nn.Module, name: str) -> torch.Tensor:
+    """The config's norm with ``scale``, and the bias ``owner`` holds as
+    ``<name>_bias`` when a converted tree carried one (the reference's
+    layernorm may have a bias; none of its configs draws one)."""
+    return norm_apply(kind, scale, x, getattr(owner, name + "_bias", None))
+
+
 class Block(nn.Module):
     """One (attn | attn_local) x (dense | moe) decoder block, or a
-    ("mamba2", "none") block: the Mamba-2 mixer and no FFN."""
+    ("mamba2", "none") block: the Mamba-2 mixer and no FFN.  Its norms
+    are the config's (rmsnorm or layernorm, a scale [d] f32 each)."""
 
     def __init__(self, spec: tuple[str, str], cfg: ModelConfig, device):
         super().__init__()
@@ -51,8 +63,8 @@ class Block(nn.Module):
                 mixer not in ("attn", "attn_local")
                 or ffn not in ("dense", "moe")):
             raise NotImplementedError(f"block {spec} is not ported yet")
-        if cfg.norm != "rmsnorm":
-            raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+        if cfg.norm not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm {cfg.norm!r}")
         self.spec = spec
         dtype = _dtype(cfg)
         self.mixer_norm = weight((cfg.d_model,), torch.float32, device)
@@ -61,7 +73,7 @@ class Block(nn.Module):
             return
         self.attn = attn_mod.Attention(cfg.d_model, cfg.n_heads,
                                        cfg.n_kv_heads, cfg.head_dim, dtype,
-                                       device)
+                                       device, qk_norm=cfg.qk_norm)
         self.ffn_norm = weight((cfg.d_model,), torch.float32, device)
         if ffn == "moe":
             self.moe = MoE(cfg.d_model, cfg.moe, cfg.gated, dtype, device)
@@ -82,23 +94,29 @@ class Block(nn.Module):
 
 def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict],
-                aligned_positions: bool = False) -> torch.Tensor:
+                aligned_positions: bool = False,
+                prefix_len: Optional[int] = None) -> torch.Tensor:
     """One decoder block.  ``aligned_positions``: ``positions`` is
     ``arange(S)`` in every row (a cacheless forward above 2048 tokens
-    then attends on kernel 12)."""
+    then attends on kernel 12).  The global (``"attn"``) layers of a
+    vision config attend under the ``"prefix"`` mask with
+    ``prefix_len``."""
     mixer, _ = block.spec
-    h = rmsnorm_apply(block.mixer_norm, x)
+    h = _norm(cfg.norm, block.mixer_norm, x, block, "mixer_norm")
     if mixer == "mamba2":      # no FFN: the mixer's output is the update
         return x + mamba2_apply(block.mamba, h, cfg.ssm, cache)
     kind, window = "causal", None
     if mixer == "attn_local":
         kind, window = "sliding", cfg.sliding_window
+    elif cfg.frontend == "vision":
+        kind = "prefix"
     # the skip connection rides into the out-projection's epilogue
     x = attn_mod.attention_apply(block.attn, h, positions, mask_kind=kind,
                                  window=window, rope_theta=cfg.rope_theta,
                                  cache=cache, residual=x,
-                                 aligned_positions=aligned_positions)
-    h = rmsnorm_apply(block.ffn_norm, x)
+                                 aligned_positions=aligned_positions,
+                                 prefix_len=prefix_len)
+    h = _norm(cfg.norm, block.ffn_norm, x, block, "ffn_norm")
     if block.spec[1] == "moe":
         # as the reference: the residual is added here, not fused into
         # the shared expert's down GEMM
@@ -114,6 +132,11 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.head = weight((cfg.d_model, cfg.vocab), _dtype(cfg), device)
         self.final_norm = weight((cfg.d_model,), torch.float32, device)
+        if cfg.frontend == "vision" and cfg.frontend_dim:
+            # the patch embeddings' projection: a plain bf16 product,
+            # outside the plan (the reference's plan does not cover it)
+            self.frontend_proj = weight((cfg.frontend_dim, cfg.d_model),
+                                        _dtype(cfg), device)
         self.layers = nn.ModuleList(Block(spec, cfg, device)
                                     for spec in cfg.layer_specs())
 
@@ -127,20 +150,32 @@ class Model(nn.Module):
         """Allocate the weights on ``device`` (default: the card) and draw
         them: every matrix ``N(0, 1)`` truncated to [-2, 2] times
         1/sqrt(fan_in) (the embedding unscaled), norms at 1.  An int
-        ``generator`` seeds a fresh generator on that device."""
+        ``generator`` seeds a fresh generator on that device.  The draws
+        run in a fixed order: :meth:`init_outer`, then each block."""
         device = resolve_device(device)
         if isinstance(generator, int):
             generator = torch.Generator(device=device).manual_seed(generator)
         self.to_empty(device=device)
+        self.init_outer(generator)
+        for block in self.layers:
+            block.init_(generator)
+        return self
+
+    def init_outer(self, generator: torch.Generator) -> None:
+        """Draw the weights outside the blocks, already allocated: the
+        embedding, the untied head, the final norm and ``frontend_proj``
+        (a caller that allocates and draws the blocks one at a time calls
+        this first, then ``block.init_`` in order, and gets
+        :meth:`init`'s weights)."""
         truncated_normal_(self.embed, generator, 1.0)
         if hasattr(self, "head"):
             truncated_normal_(self.head, generator,
                               1.0 / self.cfg.d_model ** 0.5)
         with torch.no_grad():
             self.final_norm.fill_(1.0)
-        for block in self.layers:
-            block.init_(generator)
-        return self
+        if hasattr(self, "frontend_proj"):
+            truncated_normal_(self.frontend_proj, generator,
+                              1.0 / self.cfg.frontend_dim ** 0.5)
 
     def quantize(self, plan=None) -> "Model":
         """Apply a :class:`~repro_torch.quant.plan.QuantPlan` (default:
@@ -149,23 +184,60 @@ class Model(nn.Module):
         return apply_plan(self, FULL_INT8 if plan is None else plan)
 
     # -- forward ----------------------------------------------------------
-    def forward(self, tokens: torch.Tensor,
+    def _embed_inputs(self, tokens, patch_embeddings, frame_embeddings
+                      ) -> tuple[torch.Tensor, Optional[int]]:
+        """The reference's ``_embed_inputs``: (x [B, S, d], prefix_len).
+        Audio: the frame embeddings in the weights' dtype, no token
+        lookup.  Vision: patch embeddings [B, P, frontend_dim] projected
+        by ``frontend_proj`` and put before the text tokens' embeddings,
+        ``prefix_len`` P; text alone (a continuation whose image prefix
+        is in the cache) keeps ``prefix_len`` = ``frontend_len``."""
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            if frame_embeddings is None:
+                raise ValueError(f"{cfg.name} takes frame_embeddings "
+                                 f"[B, S, {cfg.d_model}], not tokens")
+            return frame_embeddings.to(_dtype(cfg)), None
+        if frame_embeddings is not None:
+            raise ValueError(f"{cfg.name} has no audio frontend")
+        if patch_embeddings is not None and cfg.frontend != "vision":
+            raise ValueError(f"{cfg.name} has no vision frontend")
+        x = embedding_apply(self.embed, tokens)
+        if cfg.frontend != "vision":
+            return x, None
+        if patch_embeddings is None:
+            return x, cfg.frontend_len
+        img = patch_embeddings.to(_dtype(cfg))
+        if hasattr(self, "frontend_proj"):
+            img = torch.matmul(img, self.frontend_proj)
+        return torch.cat([img, x], dim=1), img.shape[1]
+
+    def forward(self, tokens: Optional[torch.Tensor] = None,
                 caches: Optional[list] = None,
                 positions: Optional[torch.Tensor] = None,
-                last_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                last_index: Optional[torch.Tensor] = None, *,
+                patch_embeddings: Optional[torch.Tensor] = None,
+                frame_embeddings: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """tokens [B, S] -> logits f32 [B, S, vocab] (or [B, 1, vocab] at
-        each row's ``last_index``).  Without caches, a sequence longer than
-        ``DENSE_SEQ_THRESHOLD`` attends blockwise; with the default
-        positions (``arange(S)``) that is kernel 12 on the card."""
-        B, S = tokens.shape
+        each row's ``last_index``).  A vision config also takes
+        ``patch_embeddings`` [B, P, frontend_dim] (the sequence is then
+        the P patches followed by the tokens), an audio config takes
+        ``frame_embeddings`` [B, S, d_model] instead of tokens.  Without
+        caches, a sequence longer than ``DENSE_SEQ_THRESHOLD`` attends
+        blockwise; with the default positions (``arange(S)``) that is
+        kernel 12 on the card."""
+        x, prefix_len = self._embed_inputs(tokens, patch_embeddings,
+                                           frame_embeddings)
+        B, S = x.shape[:2]
         aligned = positions is None
         if aligned:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
-        x = embedding_apply(self.embed, tokens)
+            positions = torch.arange(S, device=x.device).expand(B, S)
         for i, block in enumerate(self.layers):
             x = block_apply(block, self.cfg, x, positions,
-                            None if caches is None else caches[i], aligned)
-        x = rmsnorm_apply(self.final_norm, x)
+                            None if caches is None else caches[i], aligned,
+                            prefix_len)
+        x = _norm(self.cfg.norm, self.final_norm, x, self, "final_norm")
         if last_index is not None:
             rows = torch.arange(B, device=x.device)
             x = x[rows, last_index.long()][:, None]
@@ -174,9 +246,11 @@ class Model(nn.Module):
         return embedding_attend(self.embed, x)
 
     # -- serving -------------------------------------------------------------
-    def prefill_padded(self, tokens: torch.Tensor, caches: list,
+    def prefill_padded(self, tokens: Optional[torch.Tensor], caches: list,
                        lengths: torch.Tensor,
-                       offset: Optional[torch.Tensor] = None
+                       offset: Optional[torch.Tensor] = None, *,
+                       patch_embeddings: Optional[torch.Tensor] = None,
+                       frame_embeddings: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
         """Prefill bucket-padded prompts without leaking pad tokens.
 
@@ -194,14 +268,23 @@ class Model(nn.Module):
         first chunk from that sequence's end, past its own blocks, where
         the writes are dropped; here the index is set to ``offset``
         first.
+
+        With ``patch_embeddings`` [B, P, frontend_dim] the prompt is the P
+        patches then the tokens, and ``lengths`` counts the tokens: each
+        row's valid length is P + lengths.  An audio config takes
+        ``frame_embeddings`` [B, S, d_model] in place of tokens.
         """
-        B, S = tokens.shape
-        lengths = lengths.to(device=tokens.device, dtype=torch.int32)
-        rel = torch.arange(S, dtype=torch.int32,
-                           device=tokens.device).expand(B, S)
+        first = tokens if frame_embeddings is None else frame_embeddings
+        dev = first.device
+        B, S = first.shape[:2]
+        lengths = lengths.to(device=dev, dtype=torch.int32)
+        if patch_embeddings is not None:
+            S += patch_embeddings.shape[1]
+            lengths = lengths + patch_embeddings.shape[1]
+        rel = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
         end = lengths
         if offset is not None:
-            off = offset.to(device=tokens.device, dtype=torch.int32)
+            off = offset.to(device=dev, dtype=torch.int32)
             rel = rel + off[:, None]
             end = off + lengths
             for c in caches:
@@ -209,20 +292,27 @@ class Model(nn.Module):
         pos = torch.where(rel < end[:, None], rel,
                           torch.full_like(rel, attn_mod.EMPTY_SLOT))
         logits = self.forward(tokens, caches, positions=pos,
-                              last_index=lengths - 1)
+                              last_index=lengths - 1,
+                              patch_embeddings=patch_embeddings,
+                              frame_embeddings=frame_embeddings)
         for c in caches:
             c["index"].copy_(end)
         return logits
 
-    def decode_step(self, tokens: torch.Tensor, caches: list) -> torch.Tensor:
-        """One new token per row against the caches: tokens [B, S].  The
+    def decode_step(self, tokens: Optional[torch.Tensor], caches: list, *,
+                    frame_embeddings: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """One new token per row against the caches: tokens [B, S] (an
+        audio config: ``frame_embeddings`` [B, S, d_model]).  The
         positions come from the first layer's write index, whatever its
         mixer (every layer's index advances alike)."""
-        S = tokens.shape[1]
+        S = (tokens if frame_embeddings is None else frame_embeddings
+             ).shape[1]
         idx = caches[0]["index"]
         positions = (idx[:, None] + torch.arange(
             S, device=idx.device)[None, :]).to(torch.int32)
-        return self.forward(tokens, caches, positions=positions)
+        return self.forward(tokens, caches, positions=positions,
+                            frame_embeddings=frame_embeddings)
 
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,

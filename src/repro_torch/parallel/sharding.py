@@ -105,7 +105,17 @@ def shard_model(model, group: TPGroup):
     in place; returns the model.  Modules already sharded for a group of
     this size are left as they are (for another size: raises).  Each
     layer kind that stays whole (not quantized, or a dimension that
-    ``group.size`` does not divide) is logged once."""
+    ``group.size`` does not divide) is logged once.  A config with
+    ``qk_norm``, layernorm or a frontend is refused: its sharded path has
+    not been held against the unsharded one (ROADMAP A.3)."""
+    cfg = model.cfg
+    untested = [what for what, on in (
+        ("qk_norm", cfg.qk_norm), ("layernorm", cfg.norm == "layernorm"),
+        (f"the {cfg.frontend} frontend", cfg.frontend is not None)) if on]
+    if untested:
+        raise NotImplementedError(
+            f"tensor parallelism of {cfg.name}: {', '.join(untested)} "
+            f"not ported to the sharded path")
     whole = set()
     for block in model.layers:
         if block.spec[0] not in ("attn", "attn_local"):

@@ -85,7 +85,10 @@ class ServingEngine:
                  max_queue: Optional[int] = None,
                  health_checks: bool = True, clock=None, tp=None):
         """``model`` is a :class:`~repro_torch.models.model.Model` holding
-        its weights; the engine runs on the model's device.  A
+        its weights; the engine runs on the model's device.  Prompts are
+        tokens: a vision config serves text prompts whose first
+        ``frontend_len`` positions form the bidirectional prefix, as in
+        the reference; an audio config is refused.  A
         ``quant_plan`` is applied to the model in place (covered weights
         become int8) and, when it covers ``attn_kv``, the KV cache is
         stored int8.
@@ -104,6 +107,11 @@ class ServingEngine:
           instead of sampling from them.
         * ``clock`` — injectable monotonic clock (seconds) for deadlines.
         """
+        if model.cfg.frontend == "audio":
+            raise ValueError(f"{model.cfg.name}: an audio-frontend arch "
+                             f"takes frame embeddings, not token prompts; "
+                             f"drive Model.prefill_padded / decode_step "
+                             f"with frame_embeddings=")
         self.model = model
         if tp is not None and quant_plan is None:
             raise ValueError("tensor parallelism runs the INT8 plan: pass "

@@ -2231,3 +2231,183 @@ def test_new_kernel_wrappers_reject_bad_inputs(dev):
                      (ValueError, s.t().contiguous().t())):
         with pytest.raises(exc):
             sm.online_softmax(arg)
+
+
+# ---------------------------------------------------------------------------
+# the dense family beyond gemma-2b: kernel 12's prefix mode, the walks at
+# its shapes, its blocks and forwards on the card
+# ---------------------------------------------------------------------------
+# (B, S, H, KH, D, prefix_len): p 0 (causal), on a tile edge (64), inside
+# a tile (77, 150), past the sequence; ragged S; paligemma-3b's heads (8
+# on 1 of 256), GQA and D 72 (the 128-wide tile)
+PREFIX_SHAPES = [(1, 333, 8, 1, 256, 0), (1, 333, 8, 1, 256, 64),
+                 (2, 517, 4, 2, 128, 77), (1, 200, 16, 2, 64, 150),
+                 (1, 130, 2, 2, 72, 200)]
+
+
+@pytest.mark.parametrize("body", ["mma", "fma"])
+@pytest.mark.parametrize("B,S,H,KH,D,p", PREFIX_SHAPES)
+def test_flash_attention_prefix_close(dev, body, B, S, H, KH, D, p):
+    """Kernel 12 with ``prefix_len`` on both bodies against its plain
+    version (keys before p visible to every query): 2**-7 of the element
+    plus 2**-7 of its row's largest |out|, one launch; every q tile walks
+    every KV tile below p (a query of the first tile sees the last key of
+    the prefix)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(27)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32), dev,
+                  torch.bfloat16)
+               for s in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D)))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, body=body, prefix_len=p)
+    ref = fa.flash_attention_plain(q, k, v, True, None, p)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _close_rows(out, ref, 2 ** -7, 2 ** -7, (body, B, S, H, KH, D, p))
+    if p:
+        causal = fa.flash_attention_plain(q, k, v, True, None, 0)
+        assert not torch.equal(ref[:, :min(p, S) - 1], causal[:, :min(p, S)
+                                                              - 1])
+
+
+def test_flash_attention_prefix_f32(dev):
+    """The CUDA-core body in f32 with a prefix inside a tile: 2e-5."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(28)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32), dev)
+               for s in ((2, 150, 4, 64), (2, 150, 2, 64), (2, 150, 2, 64)))
+    out = fa.flash_attention(q, k, v, prefix_len=45)
+    ref = fa.flash_attention_plain(q, k, v, True, None, 45)
+    _close_rows(out, ref, 2e-5, 2e-5, "f32 prefix 45")
+
+
+# (B, S, KH, G, D, window): gemma3-4b's local layers (KH 4, G 2, D 256,
+# window 1024 over 2048 slots: half the keys past the window),
+# command-r-plus-104b's heads (96 on 8 KV: G 12, D 128), musicgen-medium's
+# MHA (24 heads of 64: G 1)
+FAMILY_WALKS = [(8, 2048, 4, 2, 256, 1024), (8, 1024, 8, 12, 128, None),
+                (8, 1024, 24, 1, 64, None)]
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B,S,KH,G,D,window", FAMILY_WALKS)
+def test_decode_walks_at_family_shapes(dev, quantized, B, S, KH, G, D,
+                                       window):
+    """The ring walk (kernel 5) and the paged walk (kernel 11) at the
+    family's decode shapes: paged bitwise the ring walk on the same
+    logical cache, both within the decode-attention rule of the plain
+    version."""
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 29, B, S, KH, G, D,
+                                          quantized, torch.bfloat16)
+    tables, (kp, vp, pp, ksp, vsp) = _to_pages(30, 16, k, v, pos, ks, vs)
+    ring = da.decode_attention(q, k, v, pos, qp, ks, vs, window=window)
+    paged = da.decode_attention_paged(q, kp, vp, pp, tables, qp, ksp, vsp,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, ring)
+    wide = (lambda t: t) if quantized else (lambda t: t.float())
+    ref = da.decode_attention_plain(q.float(), wide(k), wide(v), pos, qp, ks,
+                                    vs, window=window).to(q.dtype).float()
+    err = (ring.float() - ref).abs()
+    limit = _attn_limit(ref, q.dtype, k.dtype)
+    assert bool((err <= limit).all()), (err / limit).max().item()
+
+
+def _family_pair(dev, arch):
+    """The reduced ``arch`` under the full plan on the CPU and the same
+    weights on the card."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan
+    cfg = reduced_config(get_config(arch))
+    cpu = Model(cfg).init(0, device="cpu").quantize(QuantPlan.full())
+    card = Model(cfg).init(0, device="cpu").quantize(QuantPlan.full())
+    return cfg, cpu, card.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "command-r-plus-104b",
+                                  "musicgen-medium", "paligemma-3b"])
+def test_family_block_and_prefill_decode_on_card(dev, arch):
+    """A qk_norm block (gemma3-4b, command-r-plus-104b), a layernorm block
+    (command-r-plus-104b, musicgen-medium) and a prefix block
+    (paligemma-3b) on the card against the same block on the CPU (plain
+    versions): within 5% of the largest |out|; then an int8-KV prefill +
+    decode step on the card, launches exact per layer, logits within 5%
+    of the CPU's largest |logit|."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import block_apply
+    cfg, cpu, card = _family_pair(dev, arch)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 16, cfg.d_model), generator=gen).bfloat16()
+    pos = torch.arange(16).expand(2, 16)
+    pfx = cfg.frontend_len if cfg.frontend == "vision" else None
+    with torch.no_grad():
+        want = block_apply(cpu.layers[1], cfg, x, pos, None, True, pfx)
+        got = block_apply(card.layers[1], cfg, x.to(dev), pos.to(dev), None,
+                          True, pfx).cpu()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 5e-2 * want.float().abs().max().item(), err
+    lengths = torch.tensor([16, 11], dtype=torch.int32)
+    if cfg.frontend == "audio":
+        frames = torch.randn((2, 16, cfg.d_model), generator=gen)
+        step = torch.randn((2, 1, cfg.d_model), generator=gen)
+        ins, dec = dict(frame_embeddings=frames), dict(frame_embeddings=step)
+        toks, nxt = None, None
+    else:
+        toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+        nxt = torch.randint(0, cfg.vocab, (2, 1), generator=gen)
+        ins = dec = {}
+    outs = []
+    for m, where in ((cpu, "cpu"), (card, dev)):
+        c = m.init_cache(2, 64, kv_dtype="int8")
+
+        def move(a, where=where):
+            return None if a is None else a.to(where)
+        with torch.no_grad():
+            reset_launch_counts()
+            a = m.prefill_padded(move(toks), c, move(lengths),
+                                 **{k: move(v) for k, v in ins.items()})
+            b = m.decode_step(move(nxt), c,
+                              **{k: move(v) for k, v in dec.items()})
+        outs.append((torch.cat([a, b], 1).cpu(), launch_counts()))
+    (want, zero), (got, counts) = outs
+    assert not any(zero.values())
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item(), err
+    per = 6 if cfg.d_ff <= 8192 else 7
+    total = sum(counts.values())
+    assert total == cfg.n_layers * (2 * (per - 1) + 1), counts
+    assert counts["decode_attention"] == cfg.n_layers
+
+
+def test_paligemma_long_forward_launches_prefix_kernel12(dev):
+    """Reduced paligemma-3b (4 patches) without caches above 2048
+    positions: each layer attends in one launch of kernel 12 in its
+    prefix mode; with explicit positions (the blockwise path), none; the
+    logits within 5% of the blockwise path's largest |logit|."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg, _, card = _family_pair(dev, "paligemma-3b")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (1, 2100), device=dev, generator=gen)
+    pe = torch.randn((1, 4, cfg.frontend_dim), device=dev, generator=gen)
+    S = 2104
+    seen = []
+    from types import SimpleNamespace
+    from repro_torch.models import attention
+
+    def spy(*a, **kw):
+        seen.append(kw.get("prefix_len"))
+        return fa.flash_attention(*a, **kw)
+    attention._fa = SimpleNamespace(flash_attention=spy)
+    try:
+        before = fa.flash_attention.launches
+        with torch.no_grad():
+            kern = card(toks, patch_embeddings=pe)
+            n = fa.flash_attention.launches - before
+            plain = card(toks, patch_embeddings=pe,
+                         positions=torch.arange(S, device=dev)[None])
+    finally:
+        attention._fa = fa
+    assert seen == [4] * cfg.n_layers and n == cfg.n_layers
+    err = (kern - plain).abs().max().item()
+    assert err <= 5e-2 * plain.abs().max().item(), err

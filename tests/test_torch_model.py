@@ -240,6 +240,8 @@ def test_port_imports_no_jax_subprocess():
             "repro_torch.parallel.context, repro_torch.parallel.sharding, "
             "repro_torch.quant.tp, repro_torch.models.dit, "
             "repro_torch.diffusion, repro_torch.launch.generate\n"
+            "for arch in repro_torch.configs.ARCH_IDS:\n"
+            "    repro_torch.configs.get_config(arch)\n"
             "sys.path.insert(0, '.')\n"
             "import chip_smoke, ab_kernels\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
