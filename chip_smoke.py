@@ -146,6 +146,26 @@ the JAX package.  Phases, each printing its lines:
             out-projection above K 4096 as kernel 1 + kernel 3, 9
             launches per layer per decode step; one prefill + decode step
             against the plain path.
+   serve-deepseek-v3 — deepseek-v3-671b at full width (MLA: 128 heads,
+            q_lora 1536, kv_lora 512, nope 128, rope 64, v 128; 256
+            experts top-8 of 2048 and a shared one; the untied head of
+            129280) cut to 4 layers (its 3 dense of d_ff 18432, 1 MoE),
+            drawn and quantized block by block (expert stacks over
+            chunks of experts; the draw's peak printed): the ring engine
+            at 8 slots of 1024 on 8 requests, exactly 4 launches per
+            dense layer and 6 per MoE layer per decode step (MLA itself
+            none: bf16 torch products, as the reference's einsum); one
+            prefill + decode step against the plain path; a cacheless
+            forward of 4096 tokens: kernel 12 exactly 4 times (causal, D
+            192, v padded to 192), logits within 5% of the blockwise
+            path on the tokens both paths route alike (most of them).
+   serve-xlstm — xlstm-350m at full width, nothing cut (21 mLSTM, 3
+            sLSTM layers): the ring engine at 8 slots of 2048 on 8
+            requests of 16-1984 tokens, exactly 0 plan launches; the
+            1984-token request's logits bitwise a direct loop from a
+            zeroed cache (the engine's slot reset, ROADMAP C.14) at the
+            engine's 8 rows; its prefill within 5% of the plain path; ms
+            per decode step.
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
             the row quantizer at four shapes (gemma-2b's hidden requant
@@ -175,13 +195,18 @@ the JAX package.  Phases, each printing its lines:
             DiT-XL/2 block (``DIT_GEMMS`` and the row quantizer) beside
             their bounds and ``torch._int_mm``; kernel 12's prefix mode at
             paligemma-3b's forward beside SDPA with the same boolean
-            mask.  Collectives are never captured in a graph.
+            mask; kernels 8 and 7 at deepseek-v3's decode shape (E 256,
+            8 rows an expert) with a served step's expert counts and
+            with all 256 active; kernel 12 at MLA's forward (B 1, S
+            4096, 128 heads, D 192, v padded) held against its plain
+            version and beside SDPA (E 192, Ev 128), its bound from the
+            unpadded work.  Collectives are never captured in a graph.
 
 The LM serve runs (with the family's serve runs) must launch kernels
 12-14 zero times and every other kernel at least once; the kernels' JSON
 record adds serve-dit's and serve-zamba2's launches to theirs, and takes
-kernel 12's launches from forward-long, serve-dit and the family's two
-cacheless forwards, kernel 13's from the ops phase and serve-zamba2, and
+kernel 12's launches from forward-long, serve-dit, the family's two
+cacheless forwards and serve-deepseek-v3's, kernel 13's from the ops phase and serve-zamba2, and
 kernel 14's from the ops phase.  The last two
 lines are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.
@@ -360,6 +385,15 @@ MUSIC_FRAMES = 512
 MUSIC_STEPS = 16
 DEEP_ARCHS = ("deepseek-67b", "command-r-plus-104b")
 DEEP_LAYERS = 4
+V3_ARCH = "deepseek-v3-671b"
+V3_LAYERS = 4            # 3 dense (first_k_dense) + 1 MoE of 256 experts
+V3_FORWARD_S = 4096
+# kernel 12 at MLA's cacheless forward: B, S, heads, D_qk, D_v
+MLA_FLASH = (1, V3_FORWARD_S, 128, 192, 128)
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_PROMPTS = ZAMBA_PROMPTS       # the 1984-token one first: on the bucket
+# mixers with no FFN and no plan launch at a decode step
+RECURRENT = ("mamba2", "mlstm", "slstm")
 # kernel 12's prefix mode in the check phase (case, B, S, H, KH, D, p):
 # paligemma-3b's cacheless forward, and a ragged S with p inside a tile
 FLASH_PREFIX_CASES = (
@@ -1049,10 +1083,31 @@ def expected_launches(cfg, decode_steps, forwards,
     on the global row scale, outside any kernel).  A Mamba-2 layer
     launches kernel 13 once per prefill and nothing at a decode step (its
     projections are bf16 ``torch.matmul``, its decode recurrence plain
-    torch)."""
+    torch).  An MLA layer launches only its FFN's: its projections and
+    absorbed attention are bf16 ``torch`` products, as the reference's
+    plain ``einsum`` (no plan kind covers them); an mLSTM or sLSTM layer
+    launches nothing."""
+    want = {name: 0 for name in SOURCES}
+    for mixer, ffn in cfg.layer_specs():
+        for name, n in layer_launches(cfg, mixer, ffn, decode_steps,
+                                      forwards, attention, tp).items():
+            want[name] += n
+    return want
+
+
+def layer_launches(cfg, mixer, ffn, decode_steps, forwards,
+                   attention=("decode_attention",), tp=False) -> dict:
+    """One (mixer, ffn) layer's launches over ``forwards`` forwards of
+    which ``decode_steps`` are decode steps (``expected_launches``'s
+    rules)."""
+    from collections import Counter
     from repro_torch.kernels.cim_gemm import (MAX_FUSED_QUANT_K,
                                               MAX_FUSED_QUANT_N)
-    want = {name: 0 for name in SOURCES}
+    want = Counter()
+    if mixer == "mamba2":
+        want["ssd_scan"] += forwards - decode_steps
+    if mixer in RECURRENT:
+        return want
 
     def projection(K):
         if K <= MAX_FUSED_QUANT_K:
@@ -1060,55 +1115,55 @@ def expected_launches(cfg, decode_steps, forwards,
         else:
             want["quantize_rows_int8"] += forwards
             want["cim_gemm_int8_fused"] += forwards
-    for mixer, ffn in cfg.layer_specs():
-        if mixer == "mamba2":
-            want["ssd_scan"] += forwards - decode_steps
-            continue
-        if tp:
-            want["cim_gemm_int8_fused_qin"] += forwards
-            want["cim_gemm_int8"] += 2 * forwards
-        else:
+    if tp:
+        want["cim_gemm_int8_fused_qin"] += forwards
+        want["cim_gemm_int8"] += 2 * forwards
+    else:
+        if mixer != "mla":
             projection(cfg.d_model)
             projection(cfg.n_heads * cfg.head_dim)
-            want["cim_gemm_int8_fused"] += forwards
-        want["cim_gated_gemm_int8" if cfg.gated
-             else "cim_gemm_int8_fused"] += forwards
-        if ffn == "moe":
-            want["quantize_rows_int8"] += 2 * forwards
-            want["cim_grouped_gated_gemm_int8"] += forwards
-            want["cim_grouped_gemm_int8"] += forwards
-        else:
-            want["quantize_rows_int8"] += (
-                1 if tp or cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
-        names = attention.get(mixer, ()) if isinstance(attention, dict) \
-            else attention
-        for name in names:
-            want[name] += decode_steps
+        want["cim_gemm_int8_fused"] += forwards
+    want["cim_gated_gemm_int8" if cfg.gated
+         else "cim_gemm_int8_fused"] += forwards
+    if ffn == "moe":
+        want["quantize_rows_int8"] += 2 * forwards
+        want["cim_grouped_gated_gemm_int8"] += forwards
+        want["cim_grouped_gemm_int8"] += forwards
+    else:
+        want["quantize_rows_int8"] += (
+            1 if tp or cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
+    names = attention.get(mixer, ()) if isinstance(attention, dict) \
+        else attention
+    for name in names:
+        want[name] += decode_steps
     return want
 
 
-def launches_per_layer_step(cfg, attention=("decode_attention",)) -> dict:
+def launches_per_layer_step(cfg, attention=("decode_attention",),
+                            by_ffn=False) -> dict:
     """Launches of one decode step, per layer mixer kind (e.g. gemma3-4b:
-    7 on a local layer, 8 on a global one with the split walk)."""
+    7 on a local layer, 8 on a global one with the split walk), or per
+    ``"mixer/ffn"`` kind with ``by_ffn`` (deepseek-v3: ``mla/dense`` and
+    ``mla/moe``)."""
     out = {}
     for mixer, ffn in cfg.layer_specs():
-        one = dataclasses.replace(cfg, n_layers=1, local_global_pattern=0,
-                                  sliding_window=None)
-        if mixer not in out:
+        key = f"{mixer}/{ffn}" if by_ffn else mixer
+        if key not in out:
             att = attention.get(mixer, ()) if isinstance(attention, dict) \
                 else attention
-            out[mixer] = sum(expected_launches(one, 1, 1, att).values())
+            out[key] = sum(layer_launches(cfg, mixer, ffn, 1, 1,
+                                          att).values())
     return out
 
 
 def launches_per_decode_step(cfg, counts, decode_steps, forwards,
                              tp=False) -> float:
-    """Launches per attention layer per decode step: all counted launches
-    less the prefills' (``forwards`` without decode steps), over the
-    steps (a Mamba-2 layer launches nothing at a decode step)."""
+    """Launches per attention (or MLA) layer per decode step: all counted
+    launches less the prefills' (``forwards`` without decode steps), over
+    the steps (a recurrent layer launches nothing at a decode step)."""
     prefill = sum(expected_launches(cfg, 0, forwards - decode_steps,
                                     (), tp).values())
-    layers = sum(m != "mamba2" for m, _ in cfg.layer_specs())
+    layers = sum(m not in RECURRENT for m, _ in cfg.layer_specs())
     return (sum(counts.values()) - prefill) / (layers * decode_steps)
 
 
@@ -1809,12 +1864,21 @@ def _prefill_profile(torch, model, prompt, tag: str, share: str) -> None:
         say(f"[{tag}]   {d:8.3f} ms  {cnt:5d} x  {key[:90]}")
 
 
-def _check_direct_loops(torch, model, req, served: dict) -> None:
+def _check_direct_loops(torch, model, req, served: dict,
+                        tag: str = "serve-zamba2",
+                        engine_like: bool = False) -> None:
     """``req`` (served by the ring engine at 8 slots) against direct
     ``prefill_padded`` then ``decode_step`` loops on the same model, fed
     the engine's tokens: at the engine's batch shape (8 rows, the request
     and 7 copies of it) its logits must be bitwise the engine's at every
-    step, so its greedy tokens are the engine's; at batch 1 the prefill
+    step, so its greedy tokens are the engine's.  With ``engine_like``
+    (a recurrent model without attention caches) the loop starts as the
+    engine's slot does, from caches whose every leaf is zero (ROADMAP
+    C.14), and prefills the request alone at batch 1 (into row 0, then
+    copied to the other rows); the prefill of all 8 rows at once is
+    printed beside it (the xLSTM's batched products round by batch
+    count).  Otherwise it starts from ``init_cache``, prefills 8 rows,
+    and also runs at batch 1, where the prefill
     must be bitwise, and each decode step's greedy token the engine's
     unless the step is a near tie (top-2 margin within the two paths'
     largest logit difference there), with every step's logits within
@@ -1826,29 +1890,47 @@ def _check_direct_loops(torch, model, req, served: dict) -> None:
     n = len(req.generated)
     served = np.stack([served[i] for i in range(n)])
 
-    def loop(B):
+    def loop(B, one=False):
         caches = model.init_cache(B, 2048, kv_dtype="int8")
+        if engine_like:
+            for c in caches:
+                for v in c.values():
+                    v.zero_()
+        P = 1 if one else B
         toks = torch.as_tensor(req.prompt, dtype=torch.long,
-                               device=DEVICE)[None].expand(B, -1)
-        lengths = torch.full((B,), len(req.prompt), dtype=torch.int32,
+                               device=DEVICE)[None].expand(P, -1)
+        lengths = torch.full((P,), len(req.prompt), dtype=torch.int32,
                              device=DEVICE)
         with torch.no_grad():
-            out = [model.prefill_padded(toks.contiguous(), caches,
+            rows = [{k: v[:P] for k, v in c.items()} for c in caches]
+            out = [model.prefill_padded(toks.contiguous(), rows,
                                         lengths)[0, -1]]
+            for c in caches:
+                for v in c.values():
+                    v[P:] = v[:1]
             for step in range(1, n):
                 nxt = torch.full((B, 1), req.generated[step - 1],
                                  dtype=torch.long, device=DEVICE)
                 out.append(model.decode_step(nxt, caches)[0, -1])
         return torch.stack(out).float().cpu().numpy()
 
-    same8 = loop(8)
+    same8 = loop(8, engine_like)
     bitwise = bool((same8 == served).all())
-    say(f"[serve-zamba2] request of {len(req.prompt)} tokens: a direct loop "
-        f"at the engine's 8 rows gives the engine's logits "
-        f"{'bitwise at every step' if bitwise else 'NOT bitwise'}, greedy "
-        f"tokens {'equal' if list(same8.argmax(-1)) == req.generated else 'DIFFER'}")
+    start = "a zeroed cache" if engine_like else "init_cache"
+    if engine_like:
+        diff8 = np.abs(loop(8) - served).max()
+        say(f"[{tag}] prefilling all 8 rows at once instead moves the "
+            f"logits by {diff8:.4g} at most")
+        start += ", prefilled at batch 1 as the engine does,"
+    say(f"[{tag}] request of {len(req.prompt)} tokens: a direct loop from "
+        f"{start} at the engine's 8 rows gives the engine's logits "
+        f"{'bitwise at every step' if bitwise else 'NOT bitwise'} (largest "
+        f"difference {np.abs(same8 - served).max():.4g}), greedy tokens "
+        f"{'equal' if list(same8.argmax(-1)) == req.generated else 'DIFFER'}")
     need(bitwise and list(same8.argmax(-1)) == req.generated,
-         "serve-zamba2: the engine is not its direct loop at its batch")
+         f"{tag}: the engine is not its direct loop at its batch")
+    if engine_like:
+        return
     one = loop(1)
     diff = np.abs(one - served).max(-1)
     top2 = np.sort(one, -1)[:, -2:]
@@ -2086,14 +2168,49 @@ class FlashModes:
         self.mod._fa = self.fa
 
 
+class RoutesRecorder:
+    """Keeps, for every MoE layer of every forward while active
+    (``models.moe.route`` wrapped), each token's routing [B, S, K]: its
+    top-k expert ids, sorted, an id e written -1 - e where the entry was
+    dropped at the expert's capacity."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.mod, self.fn, self.ids = torch, moe, moe.route, []
+
+    def __enter__(self):
+        def record(router, x, cfg):
+            r = self.fn(router, x, cfg)
+            kept = self.torch.zeros_like(r.keep).scatter_(1, r.order,
+                                                          r.keep)
+            ids = r.expert_ids
+            sig = self.torch.where(kept.reshape(ids.shape), ids, -1 - ids)
+            self.ids.append(sig.sort(-1).values)
+            return r
+        self.mod.route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.fn
+
+
 def _forward_vs_plain(torch, tag, model, S, want_modes, **inputs) -> dict:
     """One cacheless forward of S positions with the model's own positions
     (kernel 12 on every layer, counted by mask) against the same forward
-    given explicit positions (the plain blockwise path).  Returns the
-    kernel path's launch counts."""
+    given explicit positions (the plain blockwise path).  In an MoE model
+    the two attentions' roundings can flip a near tie of the router, and
+    a token routed to another expert (or dropped at an expert's capacity
+    where it was kept) is another function: the logits are then held on
+    the tokens whose every MoE layer routed them alike in both forwards,
+    which must be most of them (deepseek-v3 at full width on an H100:
+    3336 of 4096; the int8 row codes of three dense layers carry the
+    attentions' rounding differences to the router's 256-way top-8,
+    whose 8th and 9th logits lie close).  Returns the kernel path's
+    launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     pos = torch.arange(S, device=DEVICE)[None]
-    with torch.no_grad(), FlashModes() as fm:
+    with torch.no_grad(), FlashModes() as fm, \
+            RoutesRecorder(torch) as routes:
         _sync(torch)
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -2113,6 +2230,19 @@ def _forward_vs_plain(torch, tag, model, S, want_modes, **inputs) -> dict:
     need(modes == want_modes and counts["flash_attention"]
          == sum(want_modes.values()), f"{tag}: kernel 12 launches {modes}")
     need(kern.shape == (1, S, model.cfg.vocab), f"{tag}: logits shape")
+    if routes.ids:
+        n = len(routes.ids) // 2
+        same = torch.ones(S, dtype=torch.bool, device=kern.device)
+        for a, b in zip(routes.ids[:n], routes.ids[n:]):
+            same &= (a == b).all(-1)[0]
+        err_all = (kern - plain).abs().max().item()
+        say(f"[{tag}] routing: {int(same.sum())} of {S} tokens take the "
+            f"same experts in every MoE layer on both paths; over all "
+            f"tokens the logits differ by {err_all:.4g} at most")
+        need(int(same.sum()) > S // 2,
+             f"{tag}: the two paths route {int((~same).sum())} tokens "
+             f"apart")
+        kern, plain = kern[:, same], plain[:, same]
     _held(tag, f"cacheless forward of {S} positions", kern, plain)
     del kern, plain
     torch.cuda.empty_cache()
@@ -2345,6 +2475,233 @@ def phase_serve_deep(torch, arch: str) -> dict:
     del model
     _free(torch)
     return counts
+
+
+def phase_serve_v3(torch) -> tuple[dict, dict, dict]:
+    """deepseek-v3-671b at full width (d 7168, 128 heads of MLA: q_lora
+    1536, kv_lora 512, nope 128, rope 64, v 128; 256 experts top-8 of
+    2048, one shared of 2048; the untied head of 129280), depth cut to
+    ``V3_LAYERS`` (its 3 dense layers of d_ff 18432, then 1 MoE layer):
+    671 B parameters cannot be drawn on one card.  Drawn and quantized
+    block by block under the full plan (the expert stacks over chunks of
+    experts), the draw's peak printed.  The ring engine at 8 slots of
+    1024 on 8 requests of ``SERVE_LENGTHS``: launches exact, 4 per dense
+    layer and 6 per MoE layer per decode step (MLA launches none: its
+    projections and absorbed attention are bf16 torch products); one ring
+    prefill + decode step against the plain path; a cacheless forward of
+    ``V3_FORWARD_S`` tokens: kernel 12 exactly once a layer, causal, at
+    D_qk 192 with v padded to 192, logits within 5% of the blockwise
+    path.  A decode step is profiled (``phase_profile``).  Returns
+    (served launch counts, kernel 12's cacheless counts, the expert
+    counts of a served decode step's MoE layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import Request, ServingEngine
+    tag = "serve-deepseek-v3"
+    full, cfg = get_config(V3_ARCH), _v3_config()
+    say(f"[{tag}] {V3_ARCH} at full width, depth cut to {V3_LAYERS} of "
+        f"{full.n_layers} layers ({cfg.moe.first_k_dense} dense, "
+        f"{V3_LAYERS - cfg.moe.first_k_dense} MoE of "
+        f"{cfg.moe.n_routed_experts} experts top-{cfg.moe.top_k}; "
+        f"{full.param_count() / 1e9:.1f} B parameters uncut)")
+    model = _draw_quantized(torch, cfg, tag)
+    engine = ServingEngine(model, n_slots=8, max_len=1024, prefill_bucket=64,
+                           quant_plan=QuantPlan.full())
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, SERVE_LENGTHS, SEED + 16))]
+    with CountsRecorder() as rec:
+        counts = _served_run(torch, tag, engine, reqs, "prefills", ())
+    per = launches_per_layer_step(cfg, (), by_ffn=True)
+    say(f"[{tag}] launches per layer per decode step by kind "
+        f"{json.dumps(per)} (MLA itself: none)")
+    need(per == {"mla/dense": 4, "mla/moe": 6},
+         f"{tag}: {per} per layer per decode step")
+    steps = torch.stack(rec.decode)
+    active = (steps > 0).sum(-1).float()
+    say(f"[{tag}] active experts per decode step: mean "
+        f"{active.mean().item():.2f} of {cfg.moe.n_routed_experts} (min "
+        f"{active.min().item():g}, max {active.max().item():g}); capacity "
+        f"1 row an expert a batch row")
+    step_counts = steps[len(steps) // 2].clone()
+    del engine
+    _free(torch)
+    phase_profile(torch, model, SEED, "profile-deepseek-v3")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    toks = torch.randint(0, cfg.vocab, (4, 64), device=DEVICE, generator=gen)
+    _ring_vs_plain(torch, tag, model, 4, 1024, 1, dict(
+        tokens=toks, lengths=torch.tensor([64, 61, 32, 1], dtype=torch.int32,
+                                          device=DEVICE)), SEED)
+    toks = torch.randint(0, cfg.vocab, (1, V3_FORWARD_S), device=DEVICE,
+                         generator=gen)
+    fwd = _forward_vs_plain(torch, tag, model, V3_FORWARD_S,
+                            {"causal": cfg.n_layers}, tokens=toks)
+    say(f"[{tag}] device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    _free(torch)
+    return counts, fwd, step_counts
+
+
+def phase_serve_xlstm(torch) -> dict:
+    """xlstm-350m at full width, nothing cut (24 layers: 21 mLSTM with
+    inner width 2048 in 4 heads of 512, chunk 64, and 3 sLSTM with heads
+    of 256 and a geglu FFN of 1365; vocab 50304, untied): the ring engine
+    at 8 slots of 2048, bucket 64, 8 requests of ``XLSTM_PROMPTS`` with
+    32 new tokens each; every request OK and exactly 0 plan launches (no
+    plan kind covers an xLSTM block, as in the reference).  The
+    1984-token request (a bucket multiple: the engine pads nothing)
+    against a direct prefill + decode loop at the engine's 8 rows from a
+    zeroed cache (the engine's slot reset, ROADMAP C.14), prefilled at
+    batch 1 as the engine prefills: logits bitwise at every step; its prefill's logits within 5% of the plain path's
+    (``kernel_mode(False)``).  Prints ms per decode step and the
+    1984-token prefill's wall time, and profiles a decode step
+    (``phase_profile``).  Returns the served launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantPlan, kernel_mode
+    from repro_torch.serving import Request, ServingEngine
+    tag = "serve-xlstm"
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg).init(SEED, device=DEVICE)
+    _sync(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    specs = cfg.layer_specs()
+    say(f"[{tag}] {XLSTM_ARCH} init: {n_params / 1e9:.3f} B parameters "
+        f"({specs.count(('mlstm', 'none'))} mLSTM, "
+        f"{specs.count(('slstm', 'none'))} sLSTM layers), "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(model, n_slots=8, max_len=2048,
+                           prefill_bucket=64, quant_plan=QuantPlan.full())
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, XLSTM_PROMPTS, SEED + 18))]
+    served_logits = {}
+    sample = engine._sample
+
+    def recording(req, logits, step):
+        if req.uid == 0:
+            served_logits[step] = logits
+        return sample(req, logits, step)
+    engine._sample = recording
+    counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
+    st = engine.stats
+    _check_served(cfg, reqs, NEW_TOKENS)
+    want = expected_launches(cfg, st.decode_steps,
+                             st.decode_steps + st.prefills)
+    say(f"[{tag}] {len(reqs)} requests OK (prompts {XLSTM_PROMPTS}): "
+        f"{st.tokens_out} decode tokens + {st.prefills} prefills in "
+        f"{wall:.2f} s ({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
+        f"{st.decode_steps} decode steps, median "
+        f"{statistics.median(step_ms):.2f} ms per decode step")
+    say(f"[{tag}] launches {json.dumps(counts)}")
+    need(counts == want and not any(counts.values()),
+         f"{tag}: launch counts {counts} != {want} (none)")
+    first = reqs[0]
+    need(len(first.prompt) % engine.bucket == 0,
+         f"{tag}: the compared prompt is not a bucket multiple")
+    _check_direct_loops(torch, model, first, served_logits, tag,
+                        engine_like=True)
+    toks = torch.as_tensor(first.prompt, dtype=torch.long,
+                           device=DEVICE)[None]
+    lengths = torch.tensor([len(first.prompt)], dtype=torch.int32,
+                           device=DEVICE)
+    with torch.no_grad():
+        _sync(torch)
+        t0 = time.perf_counter()
+        logits = model.prefill_padded(toks, model.init_cache(1, 2048),
+                                      lengths)
+        _sync(torch)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        with kernel_mode(False):
+            plain = model.prefill_padded(toks, model.init_cache(1, 2048),
+                                         lengths)
+    say(f"[{tag}] {len(first.prompt)}-token prefill (batch 1): "
+        f"{prefill_ms:.1f} ms wall")
+    _held(tag, f"{len(first.prompt)}-token prefill", logits, plain)
+    del logits, plain
+    phase_profile(torch, model, SEED, "profile-xlstm")
+    say(f"[{tag}] device memory peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del engine, model
+    _free(torch)
+    return counts
+
+
+def _event_ms(torch, fn, reps: int = 3) -> float:
+    """Median ms of ``fn`` run eagerly, timed with CUDA events (a call
+    too large to capture in a graph beside the others)."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+def times_flash_mla(torch, card: str) -> None:
+    """Kernel 12 at MLA's cacheless forward (``MLA_FLASH``: B 1, S 4096,
+    128 heads, q and k at 192, v at 128 padded with zeros to 192, causal),
+    as the model launches it: held against its plain version (on 16 heads
+    at a time, the scores of all 128 being 8.6 GB) within 2^-7 + 2^-7 x
+    row max on the first 128 columns, its padded columns exactly 0; timed
+    beside SDPA on the unpadded v (E 192, Ev 128).  The bound counts the
+    reference's work, not the padded one: 2 (192 + 128) per visible pair
+    and head, at the bf16 peak."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, D, Dv = MLA_FLASH
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    q, k, v = _flash_inputs(torch, gen, B, S, S, H, H, D, "bf16")
+    v = v[..., :Dv].contiguous()
+    vp = torch.nn.functional.pad(v, (0, D - Dv))
+    out = fa.flash_attention(q, k, vp)
+    tol, err = FLASH_TOL["bf16"], 0.0
+    for h in range(0, H, 16):
+        heads = slice(h, h + 16)
+        plain = fa.flash_attention_plain(
+            q[:, :, heads].contiguous(), k[:, :, heads].contiguous(),
+            vp[:, :, heads].contiguous()).float()[..., :Dv]
+        got = out[:, :, heads].float()
+        ref = plain.abs()
+        diff = (got[..., :Dv] - plain).abs()
+        need(bool(got.isfinite().all())
+             and bool((diff <= tol * ref + tol * ref.amax(-1,
+                                                          keepdim=True)).all())
+             and not bool(got[..., Dv:].any()),
+             f"flash_attention at MLA's shape disagrees (heads {heads})")
+        err = max(err, diff.max().item())
+        del plain, got, ref, diff
+    say(f"[check] flash_attention MLA (B {B}, S {S}, H {H}, D {D}, v {Dv} "
+        f"padded to {D}, causal, mma body): max_abs_err={err:.3g} "
+        f"(rtol={tol:.3g} + {tol:.3g} x row max), padded columns 0 ok")
+    del out
+    nbytes = 2 * B * S * H * (2 * D + 2 * Dv)
+    insts = [tuple(a.clone() for a in (q, k, vp))
+             for _ in range(copies_for(nbytes))]
+    ms = time_ms(torch, [(lambda a=a: fa.flash_attention(*a))
+                         for a in insts])
+    del insts
+    plain_ms = sum(_event_ms(torch, lambda h=h: fa.flash_attention_plain(
+        q[:, :, h:h + 16].contiguous(), k[:, :, h:h + 16].contiguous(),
+        vp[:, :, h:h + 16].contiguous()), reps=1) for h in range(0, H, 16))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    sdpa_ms = time_ms(torch, [
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)])
+    pairs = B * S * (S + 1) // 2
+    b, by = bound(nbytes, 2 * (D + Dv) * pairs * H, BF16_OPS_PER_S)
+    say(f"[times] flash_attention (MLA, B {B}, S {S}, H {H}, D {D}, v {Dv} "
+        f"padded, causal): {ms:.4f} ms, bound {b:.4f} ms by {by} (the "
+        f"unpadded work: {pairs} visible pairs a head), plain {plain_ms:.4f}"
+        f" ms (16 heads at a time), SDPA (E {D}, Ev {Dv}) {sdpa_ms:.4f} ms "
+        f"on {card}")
+    del q, k, v, vp, qt, kt, vt
+    torch.cuda.empty_cache()
 
 
 def phase_check_prefix(torch) -> None:
@@ -2968,8 +3325,64 @@ def times_grouped_plans(torch, card: str, counts) -> None:
                 f"blocks{' (the rule)' if plan == rule else ''} on {card}")
 
 
+def times_grouped_v3(torch, card: str, counts) -> None:
+    """Kernels 8 and 7 at deepseek-v3's served decode shape (E 256, 8
+    capacity rows an expert: 8 batch rows at capacity 1; gated K 7168, N
+    2048 with its requant; down K 2048, N 7168) with a served step's
+    expert counts (``counts``, from serve-deepseek-v3) and with every
+    expert active, beside their bounds (the active experts' rows and
+    weights, every expert's outputs) and a bf16 ``torch.bmm`` over the
+    active experts' dequantized weights (a yardstick).  No plain time:
+    the plain versions widen all 256 experts' weights to f64 (30 GB a
+    stack)."""
+    from repro_torch.kernels import cim_gemm as cg
+    gen = torch.Generator(device=counts.device).manual_seed(21)
+    cfg = dataclasses.replace(_v3_config(), n_layers=1)
+    E, T, D, F = (cfg.moe.n_routed_experts, 8, cfg.d_model,
+                  cfg.moe.d_expert)
+    full = torch.ones(E, dtype=torch.int32, device=counts.device)
+    for name, K, N, mats, out_bytes in (
+            ("cim_grouped_gated_gemm_int8", D, F, 2, F + 4),
+            ("cim_grouped_gemm_int8", F, D, 1, 4 * D)):
+        w = [_stack(torch, E, K, N, gen) for _ in range(mats)]
+        for tag, cnt in (("served", counts), ("all experts", full)):
+            x, xs = _grouped_rows(torch, cnt, T, K, gen)
+
+            def call(x=x, xs=xs, cnt=cnt):
+                if mats == 2:
+                    (wg, gs), (wu, us) = w
+                    return cg.cim_grouped_gated_gemm_int8(
+                        x, wg, wu, xs, gs, us, counts=cnt,
+                        activation="silu", quantize_out=True)
+                return cg.cim_grouped_gemm_int8(x, w[0][0], xs, w[0][1],
+                                                counts=cnt)
+            ms = time_ms(torch, [call])
+            a = int((cnt > 0).sum())
+            nbytes = (a * (T * K + T * 4 + mats * (K * N + N * 4))
+                      + E * T * out_bytes + E * 4)
+            b, by = bound(nbytes, 2 * mats * a * T * K * N, INT8_OPS_PER_S)
+            on = (cnt > 0).nonzero().squeeze(1)
+            xb = torch.randn((a, T, K), device=counts.device,
+                             generator=gen).to(torch.bfloat16)
+            wb = torch.cat([(q[on].float() * sc[on][:, None, :])
+                            for q, sc in w], -1).to(torch.bfloat16)
+            bmm = time_ms(torch, [lambda: torch.bmm(xb, wb)])
+            say(f"[times] {name} deepseek-v3 ({tag}: {a} of {E} experts "
+                f"active, T={T}, K={K}, N={N}): {ms:.4f} ms, bound "
+                f"{b:.4f} ms by {by}; yardstick bf16 torch.bmm over the "
+                f"active experts {bmm:.4f} ms on {card}")
+            del x, xs, xb, wb
+        del w
+        torch.cuda.empty_cache()
+
+
+def _v3_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(V3_ARCH), n_layers=V3_LAYERS)
+
+
 def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
-                card: str) -> list:
+                card: str, v3_counts=None) -> list:
     from repro_torch.kernels import cim_gemm as cg
     from repro_torch.kernels import decode_attention as da
 
@@ -3256,6 +3669,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
             del inst
 
     times_grouped_plans(torch, card, served)
+    times_grouped_v3(torch, card, v3_counts.to(dev))
 
     # kernels 3 and 4 with the requant epilogue at the shared MLP's shapes
     # ([8, 2048] x [2048, 5632]; gated: two weights), against the same
@@ -3294,6 +3708,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     times_dit(torch, card)
     times_walks(torch, card)
     rows += times_ops(torch, card)
+    times_flash_mla(torch, card)
     out = []
     for r in rows:
         src, repl = SOURCES[r["name"]]
@@ -3502,6 +3917,8 @@ def main() -> int:
         pali_counts, pali_forward = phase_serve_paligemma(torch)
         runs += [g3_counts, pali_counts, phase_musicgen(torch)]
         runs += [phase_serve_deep(torch, arch) for arch in DEEP_ARCHS]
+        v3_counts, v3_forward, v3_steps = phase_serve_v3(torch)
+        runs += [v3_counts, phase_serve_xlstm(torch)]
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for k, v in counts.items() if k not in OPS_KERNELS),
              f"a kernel was never launched by the serve runs: {counts}")
@@ -3517,8 +3934,10 @@ def main() -> int:
         counts["flash_attention"] = (long_counts["flash_attention"]
                                      + dit_counts["flash_attention"]
                                      + g3_forward["flash_attention"]
-                                     + pali_forward["flash_attention"])
-        kernels = phase_times(torch, serve, moe, counts, errs, card)
+                                     + pali_forward["flash_attention"]
+                                     + v3_forward["flash_attention"])
+        kernels = phase_times(torch, serve, moe, counts, errs, card,
+                              v3_steps)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

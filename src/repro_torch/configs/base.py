@@ -1,15 +1,15 @@
-"""Architecture configuration schema (attention stacks, dense or MoE,
-and Mamba-2 hybrids).
+"""Architecture configuration schema (attention or MLA stacks, dense or
+MoE, Mamba-2 hybrids and xLSTM stacks).
 
 The port's copy of ``repro.configs.base.ModelConfig`` restricted to the
 fields the ported families use: a stack of ``(mixer, ffn)`` blocks with
-``mixer`` in {"attn", "attn_local", "mamba2"} and ``ffn`` in {"dense",
-"moe", "none"} (a Mamba-2 block has no FFN); rmsnorm or layernorm,
-optional per-head ``qk_norm``, and the reference's stub frontends
-(``"vision"``: patch embeddings projected by ``frontend_proj`` into an
-image prefix that the global layers attend bidirectionally; ``"audio"``:
-frame embeddings at ``d_model`` in place of the token lookup).  The MLA
-and xLSTM families come with later slices of the port.
+``mixer`` in {"attn", "attn_local", "mla", "mamba2", "mlstm", "slstm"}
+and ``ffn`` in {"dense", "moe", "none"} (a Mamba-2 or xLSTM block has no
+FFN); rmsnorm or layernorm, optional per-head ``qk_norm``, and the
+reference's stub frontends (``"vision"``: patch embeddings projected by
+``frontend_proj`` into an image prefix that the global layers attend
+bidirectionally; ``"audio"``: frame embeddings at ``d_model`` in place
+of the token lookup).
 """
 from __future__ import annotations
 
@@ -17,8 +17,10 @@ from dataclasses import dataclass
 from typing import TYPE_CHECKING, Optional
 
 if TYPE_CHECKING:       # the models package imports this module
+    from repro_torch.models.mla import MLAConfig
     from repro_torch.models.moe import MoEConfig
     from repro_torch.models.ssm import SSMConfig
+    from repro_torch.models.xlstm import XLSTMConfig
 
 
 @dataclass(frozen=True)
@@ -44,15 +46,17 @@ class ModelConfig:
     attn_every: int = 0               # hybrid: attention block every k layers
 
     # family extensions
+    mla: Optional["MLAConfig"] = None
     moe: Optional["MoEConfig"] = None
     ssm: Optional["SSMConfig"] = None
+    xlstm: Optional["XLSTMConfig"] = None
 
     # modality frontend (stub): None | "audio" | "vision"
     frontend: Optional[str] = None
     frontend_len: int = 0             # e.g. 256 SigLIP patches
     frontend_dim: int = 0             # frontend embedding dim (0 = d_model)
 
-    family: str = "dense"             # dense | moe | hybrid | vlm | audio
+    family: str = "dense"             # dense | moe | ssm | hybrid | vlm | audio
     param_dtype: str = "bfloat16"
     # KV-cache precision ("bfloat16" | "int8")
     kv_cache_dtype: str = "bfloat16"
@@ -61,12 +65,19 @@ class ModelConfig:
         """Per-layer (mixer, ffn) kinds."""
         out = []
         for i in range(self.n_layers):
+            if self.xlstm is not None:
+                e = self.xlstm.slstm_every
+                out.append(("slstm", "none") if e and i % e == e - 1
+                           else ("mlstm", "none"))
+                continue
             if self.ssm is not None:
                 e = self.attn_every
                 out.append(("attn", "dense") if e and i % e == e - 1
                            else ("mamba2", "none"))
                 continue
-            if self.local_global_pattern:
+            if self.mla is not None:
+                mixer = "mla"
+            elif self.local_global_pattern:
                 p = self.local_global_pattern + 1
                 mixer = ("attn" if (i % p) == self.local_global_pattern
                          else "attn_local")
@@ -102,10 +113,23 @@ class ModelConfig:
         mult = 3 if self.gated else 2
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         for mixer, ffn in self.layer_specs():
-            if mixer == "mamba2":
+            if mixer == "mla":
+                m, H = self.mla, self.n_heads
+                total += d * m.q_lora_rank + m.q_lora_rank * H * m.qk_head_dim
+                total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                total += m.kv_lora_rank * H * (m.qk_nope_head_dim
+                                               + m.v_head_dim)
+                total += H * m.v_head_dim * d
+            elif mixer == "mamba2":
                 s = self.ssm
                 total += d * (2 * s.d_inner(d) + 2 * s.n_groups * s.state_dim
                               + s.n_heads(d)) + s.d_inner(d) * d
+            elif mixer == "mlstm":
+                di = int(self.xlstm.mlstm_proj_factor * d)
+                total += d * 2 * di + 3 * di * di + di * d
+            elif mixer == "slstm":
+                total += (4 * d * d
+                          + int(self.xlstm.slstm_ffn_factor * d) * d * 3)
             else:
                 total += (d * (self.n_heads + 2 * self.n_kv_heads)
                           * self.head_dim + self.n_heads * self.head_dim * d)

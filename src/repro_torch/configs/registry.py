@@ -20,6 +20,8 @@ _MODULES = {
     "musicgen-medium": "musicgen_medium",
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 _DIT_MODULES = {

@@ -26,6 +26,11 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.attn_every:
         kw["attn_every"] = 2
         kw["n_layers"] = 4
+    if cfg.mla is not None:
+        from repro_torch.models.mla import MLAConfig
+        kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                              qk_nope_head_dim=16, qk_rope_head_dim=8,
+                              v_head_dim=16)
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(
             cfg.moe, n_routed_experts=8, top_k=2, d_expert=32,
@@ -35,6 +40,11 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         from repro_torch.models.ssm import SSMConfig
         kw["ssm"] = SSMConfig(state_dim=8, head_dim=16, expand=2,
                               conv_kernel=4, chunk=8)
+    if cfg.xlstm is not None:
+        from repro_torch.models.xlstm import XLSTMConfig
+        kw["xlstm"] = XLSTMConfig(n_heads=4, conv_kernel=4, chunk=8,
+                                  slstm_every=cfg.xlstm.slstm_every and 2)
+        kw["n_layers"] = 4
     if cfg.frontend == "vision":
         kw["frontend_len"] = 4
         kw["frontend_dim"] = 32

@@ -12,14 +12,19 @@ with scale [H+2KH, Dh], o q [H, Dh, d] with scale [d], MLP q [in, out]
 with scale [out]; MoE expert stacks q [E, in, out] with scale [E, out])
 become the port's ``QuantizedLinear`` modules.  An MoE group's ``moe``
 leaves (router, expert stacks ``up``/``gate``/``down``, the ``shared``
-MLP), a Mamba-2 group's ``mamba`` leaves (``in_proj``, ``conv_w``,
-``conv_b``, ``a_log``, ``d_skip``, ``dt_bias``, ``norm.scale``,
-``out_proj``; no FFN), an untied ``head.kernel``, the ``q_norm`` and
-``k_norm`` scales of a ``qk_norm`` config, a vision config's
-``frontend_proj.kernel`` and every norm's ``scale`` (and ``bias``, where a
-layernorm tree has one) cross over the same way.  A leaf whose shape
-differs from the port's is refused, and so is a tree whose ``q_norm`` or
-``frontend_proj`` does not match the config.
+MLP), an MLA group's ``mla`` leaves (``q_down``, ``q_norm.scale``,
+``q_up``, ``kv_down``, ``kv_norm.scale``, ``kv_up``, ``o`` [H, v, d]), a
+Mamba-2 group's ``mamba`` leaves (``in_proj``, ``conv_w``, ``conv_b``,
+``a_log``, ``d_skip``, ``dt_bias``, ``norm.scale``, ``out_proj``; no
+FFN), an xLSTM group's ``mlstm`` or ``slstm`` leaves (the f32 gates,
+``r`` and ``b`` stay f32; the sLSTM's ``ffn``; no FFN), an untied
+``head.kernel``, the ``q_norm`` and ``k_norm`` scales of a ``qk_norm``
+config, a vision config's ``frontend_proj.kernel`` and every norm's
+``scale`` (and ``bias``, where a layernorm tree has one) cross over the
+same way.  A leaf whose shape differs from the port's is refused, and so
+is a leaf the port's module does not have, a group without its block's
+mixer, and a tree whose ``q_norm`` or ``frontend_proj`` does not match
+the config.
 
 ``dit_params_from_jax(tree, cfg)`` does the same for the reference's
 ``DiTModel`` tree: the scanned ``blocks`` axis is unstacked into the
@@ -36,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dit import DiTConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.dit import DiTModel
-from repro_torch.models.model import Model
+from repro_torch.models.model import MIXER_ATTR, Model
 from repro_torch.quant.linear import QuantizedLinear
 
 
@@ -75,12 +80,30 @@ def _assign(module: torch.nn.Module, name: str, leaf, layer: int | None,
             delattr(module, name)
         setattr(module, name, QuantizedLinear(q, scale))
         return
+    if current is None:
+        raise ValueError(f"{type(module).__name__} has no leaf {name!r}")
     value = pick(leaf)
     if tuple(current.shape) != tuple(value.shape):
         raise ValueError(f"{name}: reference shape {tuple(value.shape)} != "
                          f"port shape {tuple(current.shape)}")
     with torch.no_grad():
         current.copy_(value.to(current.dtype))
+
+
+def _assign_tree(module: torch.nn.Module, leaves: dict, layer: int,
+                 device) -> None:
+    """Each leaf of ``leaves`` into ``module``'s attribute of its name; a
+    nested dict (a norm's ``{"scale": ...}``, the sLSTM's ``ffn``) into
+    the submodule of its name."""
+    for name, leaf in leaves.items():
+        if isinstance(leaf, dict):
+            sub = getattr(module, name, None)
+            if not isinstance(sub, torch.nn.Module):
+                raise ValueError(f"{type(module).__name__} has no module "
+                                 f"{name!r}")
+            _assign_tree(sub, leaf, layer, device)
+        else:
+            _assign(module, name, leaf, layer, device)
 
 
 def _assign_attention(attn: torch.nn.Module, leaves: dict, layer: int,
@@ -140,15 +163,17 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Model:
             block = model.layers[i]
             i += 1
             _assign_norm(block, "mixer_norm", group["mixer_norm"], j, device)
-            if "mamba" in group:      # a Mamba-2 block: no FFN
-                mamba = dict(group["mamba"])
-                _assign(block.mamba.norm, "scale",
-                        mamba.pop("norm")["scale"], j, device)
-                for name, leaf in mamba.items():
-                    _assign(block.mamba, name, leaf, j, device)
+            key = MIXER_ATTR[block.spec[0]]
+            if key not in group:
+                raise ValueError(f"group_{gi}: no {key!r} leaves for a "
+                                 f"{block.spec[0]!r} block")
+            if key == "attn":
+                _assign_attention(block.attn, group["attn"], j, device)
+            else:
+                _assign_tree(block.mixer, group[key], j, device)
+            if block.spec[1] == "none":       # a recurrent block: no FFN
                 continue
             _assign_norm(block, "ffn_norm", group["ffn_norm"], j, device)
-            _assign_attention(block.attn, group["attn"], j, device)
             if "moe" in group:
                 moe = dict(group["moe"])
                 for name, leaf in moe.pop("shared", {}).items():

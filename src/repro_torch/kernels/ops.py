@@ -43,15 +43,37 @@ SPLIT_MIN_SLOTS = 2048
 MAX_SPLITS = 8
 
 
-def quantize_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """Per-output-channel symmetric int8: w [K, N] -> (w_q, scale [N]);
-    a stack [E, K, N] quantizes per expert -> scale [E, N]."""
+# f32 elements a stack's quantization holds at once (1 GiB a temporary)
+QUANT_CHUNK_ELEMS = 2 ** 28
+
+
+def _quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     w32 = w.float()
     amax = torch.amax(torch.abs(w32), dim=-2) + 1e-12
     scale = ref.div(amax, 127.0)
     w_q = torch.clamp(torch.round(w32 / scale.unsqueeze(-2)), -127,
                       127).to(torch.int8)
+    return w_q, scale
+
+
+def quantize_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Per-output-channel symmetric int8: w [K, N] -> (w_q, scale [N]);
+    a stack [E, K, N] quantizes per expert -> scale [E, N].  A stack is
+    quantized over chunks of experts of at most ``QUANT_CHUNK_ELEMS``
+    elements (at least one expert a chunk), so its f32 temporaries stay
+    that small (deepseek-v3's [256, 7168, 2048] bf16 stack would
+    otherwise need three 15 GB ones); the scales are per expert, so the
+    bits are the whole stack's."""
+    if w.dim() != 3 or w.numel() <= QUANT_CHUNK_ELEMS:
+        return _quantize_int8(w)
+    E = w.shape[0]
+    step = max(1, QUANT_CHUNK_ELEMS // w[0].numel())
+    w_q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((E, w.shape[2]), dtype=torch.float32,
+                        device=w.device)
+    for e in range(0, E, step):
+        w_q[e:e + step], scale[e:e + step] = _quantize_int8(w[e:e + step])
     return w_q, scale
 
 

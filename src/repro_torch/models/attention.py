@@ -187,19 +187,28 @@ def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal, sliding or prefix one above the threshold.  The kernel takes
     no positions operand, so caller-given positions take the dense or
     blockwise path on either device, as CPU tensors do: a dispatch on
-    the input, not a fallback on failure."""
+    the input, not a fallback on failure.
+
+    The kernel takes v at q's head size; a narrower v (MLA: q and k at
+    192, v at 128) is padded with zero columns for the launch and the
+    output cut back to v's width, which is exact: a zero column adds
+    nothing to the others."""
     kernel = aligned_positions and q.is_cuda
-    if kernel and kind == "full":
-        return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=False)
+    if kernel and (kind == "full" or (
+            q.shape[1] > DENSE_SEQ_THRESHOLD
+            and kind in ("causal", "sliding", "prefix"))):
+        Dv = v.shape[-1]
+        if Dv < q.shape[-1]:
+            v = torch.nn.functional.pad(v, (0, q.shape[-1] - Dv))
+        out = _fa.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            causal=kind != "full",
+            window=window if kind == "sliding" else None,
+            prefix_len=prefix_len if kind == "prefix" else 0)
+        return out[..., :Dv]
     if q.shape[1] <= DENSE_SEQ_THRESHOLD:
         return dense_attention(q, k, v, positions, positions, kind, window,
                                prefix_len)
-    if kernel and kind in ("causal", "sliding", "prefix"):
-        return _fa.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-            window=window if kind == "sliding" else None,
-            prefix_len=prefix_len if kind == "prefix" else 0)
     return blockwise_attention(q, k, v, positions, positions, kind, window,
                                prefix_len)
 

@@ -1,0 +1,176 @@
+"""Multi-head Latent Attention, DeepSeek-V3's mixer (port of
+``repro/models/mla.py``; arXiv:2412.19437).
+
+Two paths share one parameter set, as in the reference:
+
+* without a cache the latents are up-projected to per-head K (nope and
+  the shared rope key, ``qk_head_dim``) and V (``v_head_dim``) and
+  attend as standard MHA through
+  :func:`~repro_torch.models.attention.cacheless_attention`: dense up to
+  2048 tokens, above it kernel 12 on the card (given the model's own
+  positions) or the blockwise online softmax;
+* with a cache (prefill and decode alike) the *absorbed* form: ``c_kv``
+  and ``k_rope`` are written into the latent cache in place at
+  ``index``, the queries are folded through ``W_uk`` and scored in f32
+  against the latent cache plus the rope key, and the probabilities, cast
+  to the cache's dtype, are folded back through ``W_uv``.
+
+Every projection and the absorbed decode are bf16 ``torch`` products, as
+the reference computes them with plain ``einsum`` outside any Pallas
+kernel; no plan kind covers them (``quant/plan.py covered_kinds``).  The
+casts are the reference's: they decide the bf16 roundings.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.ref import NEG_INF
+from . import attention as attn_mod
+from .layers import apply_rope, rmsnorm_apply, truncated_normal_, weight
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+class MLA(nn.Module):
+    """The reference's ``mla_init`` leaves: ``q_down`` [d, q_lora],
+    ``q_norm.scale`` [q_lora] (f32), ``q_up`` [q_lora, H, nope + rope],
+    ``kv_down`` [d, kv_lora + rope] (``c_kv`` then the shared rope key),
+    ``kv_norm.scale`` [kv_lora] (f32), ``kv_up`` [kv_lora, H, nope + v]
+    and ``o`` [H, v, d]."""
+
+    def __init__(self, d_model: int, n_heads: int, cfg: MLAConfig, dtype,
+                 device):
+        super().__init__()
+        nope, rope, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                            cfg.v_head_dim)
+        self.q_down = weight((d_model, cfg.q_lora_rank), dtype, device)
+        self.q_norm = nn.Module()
+        self.q_norm.scale = weight((cfg.q_lora_rank,), torch.float32, device)
+        self.q_up = weight((cfg.q_lora_rank, n_heads, nope + rope), dtype,
+                           device)
+        self.kv_down = weight((d_model, cfg.kv_lora_rank + rope), dtype,
+                              device)
+        self.kv_norm = nn.Module()
+        self.kv_norm.scale = weight((cfg.kv_lora_rank,), torch.float32,
+                                    device)
+        self.kv_up = weight((cfg.kv_lora_rank, n_heads, nope + vdim), dtype,
+                            device)
+        self.o = weight((n_heads, vdim, d_model), dtype, device)
+
+    def init_(self, generator: torch.Generator) -> None:
+        """``mla_init``'s scales: each projection ``N(0, 1)`` truncated to
+        [-2, 2] over sqrt(fan_in) (``o``'s fan-in is H · v), norms at 1."""
+        for p in (self.q_down, self.q_up, self.kv_down, self.kv_up):
+            truncated_normal_(p, generator, 1.0 / math.sqrt(p.shape[0]))
+        H, vdim, _ = self.o.shape
+        truncated_normal_(self.o, generator, 1.0 / math.sqrt(H * vdim))
+        with torch.no_grad():
+            self.q_norm.scale.fill_(1.0)
+            self.kv_norm.scale.fill_(1.0)
+
+
+def _project_q(m: MLA, x, cfg: MLAConfig, positions, rope_theta):
+    cq = torch.einsum("bsd,dr->bsr", x, m.q_down)
+    cq = rmsnorm_apply(m.q_norm.scale, cq)
+    q = torch.einsum("bsr,rhk->bshk", cq, m.q_up)
+    q_nope = q[..., :cfg.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, rope_theta)
+    return q_nope, q_rope
+
+
+def _project_kv_latent(m: MLA, x, cfg: MLAConfig, positions, rope_theta):
+    ckv = torch.einsum("bsd,dr->bsr", x, m.kv_down)
+    c_kv = rmsnorm_apply(m.kv_norm.scale, ckv[..., :cfg.kv_lora_rank])
+    k_rope = ckv[..., cfg.kv_lora_rank:][:, :, None, :]     # shared head
+    k_rope = apply_rope(k_rope, positions, rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _write_latent(buf: torch.Tensor, new: torch.Tensor,
+                  idx: torch.Tensor) -> None:
+    """``buf[b, idx[b]:idx[b] + S] = new[b]`` in place, the start clamped
+    into [0, T - S] as ``jax.lax.dynamic_update_slice`` clamps it."""
+    B, S = new.shape[:2]
+    start = torch.clamp(idx.long(), 0, buf.shape[1] - S)
+    cols = start[:, None] + torch.arange(S, device=buf.device)[None]
+    buf[torch.arange(B, device=buf.device)[:, None], cols] = \
+        new.to(buf.dtype)
+
+
+def mla_apply(m: MLA, x: torch.Tensor, positions: torch.Tensor,
+              cfg: MLAConfig, *, rope_theta: float = 10000.0,
+              cache: Optional[dict] = None,
+              aligned_positions: bool = False) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d] in x's dtype.  ``cache`` ({"c_kv" [B, T,
+    kv_lora], "k_rope" [B, T, rope], "index" [B] int32}) is written in
+    place and its index advanced by S.  ``aligned_positions``:
+    ``positions`` is ``arange(S)`` in every row (the cacheless path may
+    then attend on kernel 12)."""
+    B, S, _ = x.shape
+    nope = cfg.qk_nope_head_dim
+    scale = 1.0 / math.sqrt(cfg.qk_head_dim)
+
+    q_nope, q_rope = _project_q(m, x, cfg, positions, rope_theta)
+    c_kv, k_rope = _project_kv_latent(m, x, cfg, positions, rope_theta)
+
+    if cache is None:
+        # materialized: standard MHA over up-projected K/V
+        kv = torch.einsum("bsr,rhk->bshk", c_kv, m.kv_up)
+        H = kv.shape[2]
+        k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(
+            B, S, H, cfg.qk_rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = attn_mod.cacheless_attention(
+            q, k, kv[..., nope:], positions, "causal",
+            aligned_positions=aligned_positions)
+        return torch.einsum("bshv,hvd->bsd", out.to(x.dtype), m.o)
+
+    # absorbed: score and fold values directly against the latent cache
+    idx = cache["index"].clone()
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    _write_latent(c_cache, c_kv, idx)
+    _write_latent(r_cache, k_rope, idx)
+    cache["index"] += S
+
+    w_uk = m.kv_up[..., :nope]                  # [r, H, nope]
+    w_uv = m.kv_up[..., nope:]                  # [r, H, v]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_cache.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             r_cache.float())) * scale
+    t_pos = torch.arange(c_cache.shape[1], device=x.device)[None, None,
+                                                            None, :]
+    valid = t_pos <= positions[:, None, :, None]
+    valid &= t_pos < (idx[:, None, None, None] + S)
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs.to(c_cache.dtype), c_cache)
+    out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
+    return torch.einsum("bshv,hvd->bsd", out.to(x.dtype), m.o)
+
+
+def init_mla_cache(batch: int, max_len: int, cfg: MLAConfig,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

@@ -1,6 +1,6 @@
-"""Causal LM assembly for attention stacks with dense or MoE FFNs and
-for Mamba-2 hybrids, with the reference's stub frontends (port of
-``repro/models/model.py``).
+"""Causal LM assembly for attention or MLA stacks with dense or MoE FFNs,
+Mamba-2 hybrids and xLSTM stacks, with the reference's stub frontends
+(port of ``repro/models/model.py``).
 
 The reference scans stacked layer groups; here every layer is its own
 :class:`Block` in an ``nn.ModuleList`` and runs eagerly.  A
@@ -35,8 +35,17 @@ from repro_torch.quant.plan import FULL_INT8, apply_plan
 from . import attention as attn_mod
 from .layers import (MLP, embedding_apply, embedding_attend, lm_head_apply,
                      mlp_apply, norm_apply, truncated_normal_, weight)
+from .mla import MLA, init_mla_cache, mla_apply
 from .moe import MoE, moe_apply
 from .ssm import Mamba2, init_ssm_cache, mamba2_apply
+from .xlstm import (MLSTMBlock, SLSTMBlock, init_mlstm_cache,
+                    init_slstm_cache, mlstm_block_apply, slstm_block_apply)
+
+# mixers with no FFN: the block is the mixer, its output added to x
+RECURRENT = ("mamba2", "mlstm", "slstm")
+# a block's attribute holding its mixer (the reference's key in a group)
+MIXER_ATTR = {"attn": "attn", "attn_local": "attn", "mla": "mla",
+              "mamba2": "mamba", "mlstm": "mlstm", "slstm": "slstm"}
 
 
 def _dtype(cfg: ModelConfig):
@@ -52,16 +61,18 @@ def _norm(kind: str, scale: torch.Tensor, x: torch.Tensor,
 
 
 class Block(nn.Module):
-    """One (attn | attn_local) x (dense | moe) decoder block, or a
-    ("mamba2", "none") block: the Mamba-2 mixer and no FFN.  Its norms
-    are the config's (rmsnorm or layernorm, a scale [d] f32 each)."""
+    """One (attn | attn_local | mla) x (dense | moe) decoder block, or a
+    recurrent block with no FFN: ("mamba2" | "mlstm" | "slstm", "none").
+    Its norms are the config's (rmsnorm or layernorm, a scale [d] f32
+    each).  The mixer is the attribute of its kind: ``attn``, ``mla``,
+    ``mamba``, ``mlstm`` or ``slstm``."""
 
     def __init__(self, spec: tuple[str, str], cfg: ModelConfig, device):
         super().__init__()
         mixer, ffn = spec
-        if spec != ("mamba2", "none") and (
-                mixer not in ("attn", "attn_local")
-                or ffn not in ("dense", "moe")):
+        if not ((mixer in RECURRENT and ffn == "none")
+                or (mixer in ("attn", "attn_local", "mla")
+                    and ffn in ("dense", "moe"))):
             raise NotImplementedError(f"block {spec} is not ported yet")
         if cfg.norm not in ("rmsnorm", "layernorm"):
             raise ValueError(f"unknown norm {cfg.norm!r}")
@@ -70,25 +81,38 @@ class Block(nn.Module):
         self.mixer_norm = weight((cfg.d_model,), torch.float32, device)
         if mixer == "mamba2":
             self.mamba = Mamba2(cfg.d_model, cfg.ssm, dtype, device)
+        elif mixer == "mlstm":
+            self.mlstm = MLSTMBlock(cfg.d_model, cfg.xlstm, dtype, device)
+        elif mixer == "slstm":
+            self.slstm = SLSTMBlock(cfg.d_model, cfg.xlstm, dtype, device)
+        elif mixer == "mla":
+            self.mla = MLA(cfg.d_model, cfg.n_heads, cfg.mla, dtype, device)
+        else:
+            self.attn = attn_mod.Attention(cfg.d_model, cfg.n_heads,
+                                           cfg.n_kv_heads, cfg.head_dim,
+                                           dtype, device,
+                                           qk_norm=cfg.qk_norm)
+        if ffn == "none":
             return
-        self.attn = attn_mod.Attention(cfg.d_model, cfg.n_heads,
-                                       cfg.n_kv_heads, cfg.head_dim, dtype,
-                                       device, qk_norm=cfg.qk_norm)
         self.ffn_norm = weight((cfg.d_model,), torch.float32, device)
         if ffn == "moe":
             self.moe = MoE(cfg.d_model, cfg.moe, cfg.gated, dtype, device)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated, dtype, device)
 
+    @property
+    def mixer(self) -> nn.Module:
+        return getattr(self, MIXER_ATTR[self.spec[0]])
+
     def init_(self, generator: torch.Generator) -> None:
+        """Norms at 1, then the mixer's draws, then the FFN's."""
         with torch.no_grad():
             self.mixer_norm.fill_(1.0)
-        if self.spec[0] == "mamba2":
-            self.mamba.init_(generator)
+        self.mixer.init_(generator)
+        if self.spec[1] == "none":
             return
         with torch.no_grad():
             self.ffn_norm.fill_(1.0)
-        self.attn.init_(generator)
         (self.moe if self.spec[1] == "moe" else self.mlp).init_(generator)
 
 
@@ -100,11 +124,22 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
     ``arange(S)`` in every row (a cacheless forward above 2048 tokens
     then attends on kernel 12).  The global (``"attn"``) layers of a
     vision config attend under the ``"prefix"`` mask with
-    ``prefix_len``."""
+    ``prefix_len``.  Every mixer but attention adds its output to x, as
+    the reference does (attention fuses it into its out-projection)."""
     mixer, _ = block.spec
     h = _norm(cfg.norm, block.mixer_norm, x, block, "mixer_norm")
-    if mixer == "mamba2":      # no FFN: the mixer's output is the update
+    # a recurrent block has no FFN: the mixer's output is the update
+    if mixer == "mamba2":
         return x + mamba2_apply(block.mamba, h, cfg.ssm, cache)
+    if mixer == "mlstm":
+        return x + mlstm_block_apply(block.mlstm, h, cfg.xlstm, cache)
+    if mixer == "slstm":
+        return x + slstm_block_apply(block.slstm, h, cfg.xlstm, cache)
+    if mixer == "mla":
+        x = x + mla_apply(block.mla, h, positions, cfg.mla,
+                          rope_theta=cfg.rope_theta, cache=cache,
+                          aligned_positions=aligned_positions)
+        return _ffn_apply(block, cfg, x)
     kind, window = "causal", None
     if mixer == "attn_local":
         kind, window = "sliding", cfg.sliding_window
@@ -116,6 +151,12 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
                                  cache=cache, residual=x,
                                  aligned_positions=aligned_positions,
                                  prefix_len=prefix_len)
+    return _ffn_apply(block, cfg, x)
+
+
+def _ffn_apply(block: Block, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    """The block's FFN on its norm of x, the residual included."""
     h = _norm(cfg.norm, block.ffn_norm, x, block, "ffn_norm")
     if block.spec[1] == "moe":
         # as the reference: the residual is added here, not fused into
@@ -321,15 +362,31 @@ class Model(nn.Module):
         holds (a tensor-parallel rank's shard); ``kv_dtype="int8"``
         overrides ``cfg.kv_cache_dtype``.  Sliding-window layers hold
         only the window; a Mamba-2 layer holds its conv tail and state
-        (``init_ssm_cache``)."""
+        (``init_ssm_cache``), an MLA layer its bf16 latent cache of
+        ``max_len`` slots whatever ``kv_dtype`` says (``init_mla_cache``,
+        as the reference), an xLSTM layer its state (``init_mlstm_cache``,
+        ``init_slstm_cache``)."""
         kv = kv_dtype or self.cfg.kv_cache_dtype
         dt = torch.int8 if kv == "int8" else torch.bfloat16
+        cfg, dev = self.cfg, self.device
         caches = []
         for block in self.layers:
-            if block.spec[0] == "mamba2":
-                caches.append(init_ssm_cache(batch, self.cfg.d_model,
-                                             self.cfg.ssm,
-                                             device=self.device))
+            mixer = block.spec[0]
+            if mixer == "mamba2":
+                caches.append(init_ssm_cache(batch, cfg.d_model, cfg.ssm,
+                                             device=dev))
+                continue
+            if mixer == "mla":
+                caches.append(init_mla_cache(batch, max_len, cfg.mla,
+                                             device=dev))
+                continue
+            if mixer == "mlstm":
+                caches.append(init_mlstm_cache(batch, cfg.d_model,
+                                               cfg.xlstm, device=dev))
+                continue
+            if mixer == "slstm":
+                caches.append(init_slstm_cache(batch, cfg.d_model,
+                                               cfg.xlstm, device=dev))
                 continue
             span = max_len
             if block.spec[0] == "attn_local":
@@ -347,8 +404,8 @@ class Model(nn.Module):
         ``block_size`` slots (block 0 the all-empty null block) and its
         own write index; all layers share one [batch, max_blocks] block
         table tensor, which the engine fills once per step.  Only
-        attention layers page: a recurrent mixer is refused, as the
-        reference refuses it."""
+        attention layers page: MLA and the recurrent mixers are refused,
+        as the reference refuses them."""
         kv = kv_dtype or self.cfg.kv_cache_dtype
         dt = torch.int8 if kv == "int8" else torch.bfloat16
         tables = torch.zeros((batch, max_blocks), dtype=torch.int32,

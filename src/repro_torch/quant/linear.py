@@ -103,7 +103,7 @@ def _canon_activation(activation: str | None) -> str | None:
 
 
 def quantize_linear(w: torch.Tensor) -> QuantizedLinear:
-    q, s = kops.quantize_weights_int8(w.float())
+    q, s = kops.quantize_weights_int8(w)
     return QuantizedLinear(q, s)
 
 

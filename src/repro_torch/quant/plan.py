@@ -49,8 +49,9 @@ DIT_LAYER_KINDS = ("adaln", "attn_qkv", "attn_out", "mlp")
 
 def covered_kinds(mixer: str, ffn: str) -> tuple[str, ...]:
     """Which plan layer kinds apply to a (mixer, ffn) block spec.  None
-    for a Mamba-2 block ("mamba2", "none"), as in the reference: its
-    projections stay bf16."""
+    for the MLA, Mamba-2 and xLSTM mixers, as in the reference: their
+    projections stay bf16 (an MLA block's dense or MoE FFN is covered).
+    """
     kinds: list[str] = []
     if mixer in ("attn", "attn_local"):
         kinds += ["attn_qkv", "attn_out", "attn_kv"]

@@ -160,15 +160,19 @@ class ServingEngine:
         and prefilled with batch 1, writing into the batched cache in
         place.  ``tokens`` is the bucket-padded prompt and ``length`` its
         true length.  Returns the last real token's logits [vocab].  A
-        recurrent (Mamba-2) layer has no position-keyed cache, so its
-        state and conv tail take the pad tokens in, as the reference's
-        do: padding there stays approximate."""
+        recurrent (Mamba-2, mLSTM, sLSTM) layer has no position-keyed
+        cache, so its state and conv tail take the pad tokens in, as the
+        reference's do: padding there stays approximate (ROADMAP C.11).
+        Every leaf is zeroed, as the reference's ``jnp.zeros_like`` reset
+        does, so an xLSTM stabilizer ``m`` starts at 0 and not at
+        ``init_cache``'s -1e30 (C.14).  An MLA layer's pads sit at
+        positions no real query sees."""
         sub = [{k: v[slot:slot + 1] for k, v in c.items()}
                for c in self.cache]
         for c in sub:
             for v in c.values():
                 v.zero_()
-            if "pos" in c:        # a Mamba-2 layer's cache has no positions
+            if "pos" in c:        # only attention caches hold positions
                 c["pos"].fill_(EMPTY_SLOT)
         toks = torch.as_tensor(tokens, dtype=torch.long,
                                device=self.device)[None]

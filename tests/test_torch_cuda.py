@@ -2411,3 +2411,144 @@ def test_paligemma_long_forward_launches_prefix_kernel12(dev):
     assert seen == [4] * cfg.n_layers and n == cfg.n_layers
     err = (kern - plain).abs().max().item()
     assert err <= 5e-2 * plain.abs().max().item(), err
+
+
+@pytest.mark.parametrize("H,D,Dv", [(4, 24, 16), (8, 192, 128)])
+def test_mla_cacheless_attention_pads_v_for_kernel12(dev, H, D, Dv):
+    """MLA's cacheless attention above 2048 tokens (q and k at D, v at Dv
+    < D: deepseek-v3-smoke's 24 / 16 and the full 192 / 128): one launch
+    of kernel 12 on the card with v padded to D, the output cut back to
+    Dv: within 2**-7 of the element plus 2**-7 of its row's largest |out|
+    of the kernel's plain version on the padded v (CPU), and within 2e-2
+    (1 + |out|) of the blockwise path on the CPU (``chip_smoke.py``'s
+    FLASH_DENSE_TOL: the blockwise path rounds p to bf16 against another
+    running max)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import cacheless_attention
+    S = 2100
+    gen = torch.Generator().manual_seed(5)
+    q, k = (torch.randn((1, S, H, D), generator=gen).bfloat16()
+            for _ in range(2))
+    v = torch.randn((1, S, H, Dv), generator=gen).bfloat16()
+    pos = torch.arange(S)[None]
+    blockwise = cacheless_attention(q, k, v, pos, "causal").float()
+    plain = fa.flash_attention_plain(
+        q, k, torch.nn.functional.pad(v, (0, D - Dv))).float()
+    before = fa.flash_attention.launches
+    got = cacheless_attention(q.to(dev), k.to(dev), v.to(dev), pos.to(dev),
+                              "causal", aligned_positions=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == (1, S, H, Dv)
+    got = got.float().cpu()
+    assert not bool(plain[..., Dv:].any())
+    ref = plain[..., :Dv].abs()
+    limit = 2 ** -7 * ref + 2 ** -7 * ref.amax(-1, keepdim=True)
+    assert bool(((got - plain[..., :Dv]).abs() <= limit).all())
+    assert bool(((got - blockwise).abs()
+                 <= 2e-2 * (1 + blockwise.abs())).all())
+
+
+def test_mla_model_on_card_matches_cpu(dev):
+    """deepseek-v3-smoke under the full plan: the MLA + dense block on the
+    card against the CPU within 5% of the largest |out|; the absorbed
+    MLA prefill + decode on the card within 2**-7 of the largest |out|;
+    an int8-KV ring prefill + decode step launches exactly the FFNs'
+    kernels (3 a dense layer, 6 an MoE layer a forward; none for MLA)
+    with finite logits; a cacheless forward above 2048 tokens launches
+    kernel 12 once a layer."""
+    from repro_torch.kernels import (flash_attention as fa, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.models import mla as tmla
+    from repro_torch.models.model import block_apply
+    cfg, cpu, card = _family_pair(dev, "deepseek-v3-671b")
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 16, cfg.d_model), generator=gen).bfloat16()
+    pos = torch.arange(16).expand(2, 16)
+    with torch.no_grad():
+        want = block_apply(cpu.layers[0], cfg, x, pos, None, True)
+        got = block_apply(card.layers[0], cfg, x.to(dev), pos.to(dev), None,
+                          True).cpu()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 5e-2 * want.float().abs().max().item(), err
+        outs = []
+        for m, where in ((cpu, "cpu"), (card, dev)):
+            c = tmla.init_mla_cache(2, 32, cfg.mla, device=where)
+            a = tmla.mla_apply(m.layers[1].mla, x.to(where), pos.to(where),
+                               cfg.mla, cache=c)
+            b = tmla.mla_apply(m.layers[1].mla, x[:, :1].to(where),
+                               c["index"][:, None].clone(), cfg.mla,
+                               cache=c)
+            outs.append(torch.cat([a, b], 1).float().cpu())
+        err = (outs[1] - outs[0]).abs().max().item()
+        assert err <= 2 ** -7 * outs[0].abs().max().item(), err
+        toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen).to(dev)
+        c = card.init_cache(2, 64, kv_dtype="int8")
+        reset_launch_counts()
+        a = card.prefill_padded(toks, c, torch.tensor([16, 11],
+                                                      dtype=torch.int32))
+        b = card.decode_step(a.argmax(-1), c)
+        counts = launch_counts()
+        assert bool(a.isfinite().all()) and bool(b.isfinite().all())
+        per = {"mla/dense": 3, "mla/moe": 6}
+        want_total = 2 * sum(per[f"mla/{f}"] for _, f in cfg.layer_specs())
+        assert sum(counts.values()) == want_total, counts
+        assert counts["cim_grouped_gated_gemm_int8"] == 2 * sum(
+            f == "moe" for _, f in cfg.layer_specs())
+        before = fa.flash_attention.launches
+        toks = torch.randint(0, cfg.vocab, (1, 2100), generator=gen)
+        assert bool(card(toks.to(dev)).isfinite().all())
+        assert fa.flash_attention.launches - before == cfg.n_layers
+
+
+def test_xlstm_on_card_matches_cpu(dev):
+    """xlstm-350m-smoke: both blocks with a cache (a ragged 11-token
+    prefill, then a decode step) on the card against the CPU: outputs
+    within 2**-7 of the largest |out|, f32 states within 1e-4 of their
+    largest |value| (the card's f32 sums and exp differ from the CPU's);
+    a ring prefill + decode step launches no kernel and its logits are
+    within 5% of the CPU's largest |logit|."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models import xlstm as txl
+    cfg = reduced_config(get_config("xlstm-350m"))
+    cpu = Model(cfg).init(0, device="cpu")
+    card = Model(cfg).init(0, device="cpu").to(dev)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((2, 11, cfg.d_model), generator=gen).bfloat16()
+    x1 = torch.randn((2, 1, cfg.d_model), generator=gen).bfloat16()
+    for layer, kind in ((0, "mlstm"), (1, "slstm")):
+        apply = getattr(txl, f"{kind}_block_apply")
+        init = getattr(txl, f"init_{kind}_cache")
+        res = []
+        for m, where in ((cpu, "cpu"), (card, dev)):
+            c = init(2, cfg.d_model, cfg.xlstm, device=where)
+            blk = getattr(m.layers[layer], kind)
+            with torch.no_grad():
+                a = apply(blk, x.to(where), cfg.xlstm, c)
+                b = apply(blk, x1.to(where), cfg.xlstm, c)
+            res.append((torch.cat([a, b], 1).float().cpu(),
+                        {n: v.cpu() for n, v in c.items()}))
+        (want, wc), (got, gc) = res
+        err = (got - want).abs().max().item()
+        assert err <= 2 ** -7 * want.abs().max().item(), (kind, err)
+        for name, v in wc.items():
+            if v.dtype == torch.float32:
+                e = (gc[name] - v).abs().max().item()
+                assert e <= 1e-4 * v.abs().max().item(), (kind, name, e)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    nxt = torch.randint(0, cfg.vocab, (2, 1), generator=gen)
+    outs = []
+    for m, where in ((cpu, "cpu"), (card, dev)):
+        c = m.init_cache(2, 64)
+        with torch.no_grad():
+            reset_launch_counts()
+            a = m.prefill_padded(toks.to(where), c,
+                                 torch.tensor([16, 11], dtype=torch.int32))
+            b = m.decode_step(nxt.to(where), c)
+        outs.append((torch.cat([a, b], 1).cpu(), launch_counts()))
+    (want, _), (got, counts) = outs
+    assert not any(counts.values()), counts
+    err = (got - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item(), err
