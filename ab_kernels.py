@@ -11,10 +11,10 @@ packages are ``repro_torch``), each building only the sources of the
 named kernels (as ``chip_smoke.SOURCES`` lists them).  One line a case
 gives the four times (ms, CUDA-graph replays through
 ``chip_smoke.time_ms``, operands cold in L2) and whether all four turns
-gave the same output bits.  A kernel in CLOSE (the SSD scan: two
-designs may sum in different orders) must give the same bits in the two
-turns of each tree, and the new tree's outputs must lie within its tolerance
-of the old tree's (the turns' outputs go through files under
+gave the same output bits.  A kernel in CLOSE (the SSD scan and the
+online softmax: two designs may sum in different orders) must give the
+same bits in the two turns of each tree, and the new tree's outputs must
+lie within its tolerance of the old tree's (the turns' outputs go through files under
 ``build/ab_out/``).  Exits 1 if a case fails its check, 2 on bad
 arguments or no GPU.
 """
@@ -114,6 +114,19 @@ def _ssd_cases(torch, cs, cg, gen):
                [lambda a=a: ss.ssd_scan(*a, chunk=L) for a in insts])
 
 
+def _softmax_cases(torch, cs, cg, gen):
+    """Kernel 14 at the ops phase's SOFTMAX_CASES (DiT-XL/2's scores,
+    gemma-2b's logits in f32 and bf16), enough copies that each call finds
+    x cold in L2."""
+    from repro_torch.kernels import online_softmax as sm
+    for case, R, C, dtype in cs.SOFTMAX_CASES:
+        nbytes = 2 * R * C * (2 if dtype == "bf16" else 4)
+        xs = [cs._softmax_input(torch, gen, case, R, C, dtype)
+              for _ in range(cs.copies_for(nbytes))]
+        yield (f"{case} [{R}, {C}] {dtype}",
+               [lambda x=x: sm.online_softmax(x) for x in xs])
+
+
 # wrapper name -> cases (label, calls on distinct inputs); add a kernel
 # here to time it
 CASES = {
@@ -122,10 +135,11 @@ CASES = {
     "cim_grouped_gemm_int8": _grouped_cases,
     "decode_attention_combine": _combine_cases,
     "ssd_scan": _ssd_cases,
+    "online_softmax": _softmax_cases,
 }
-# kernels held to a tolerance across trees: (rtol, share of the largest
-# magnitude), chip_smoke's
-CLOSE = {"ssd_scan": "SSD_TOL"}
+# kernels held to a tolerance across trees, chip_smoke's: a number (rtol
+# and share of the largest magnitude alike) or, by dtype, (rtol, share)
+CLOSE = {"ssd_scan": "SSD_TOL", "online_softmax": "SOFTMAX_TOL"}
 OUT = ROOT / "build" / "ab_out"
 
 
@@ -156,9 +170,10 @@ def child(src: str, turn: str, kernels: list[str]) -> int:
         for label, calls in CASES[kernel](torch, cs, cg, gen):
             name = f"{kernel} {label}"
             out = calls[0]()
+            out = out if isinstance(out, tuple) else (out,)
             torch.cuda.synchronize()
             h = hashlib.sha256()
-            for t in out if isinstance(out, tuple) else (out,):
+            for t in out:
                 h.update(t.cpu().contiguous().view(torch.uint8).numpy()
                          .tobytes())
             digests[name] = h.hexdigest()
@@ -221,18 +236,23 @@ def main() -> int:
             continue
         import chip_smoke as cs
         import torch
-        tol = getattr(cs, CLOSE[kernel])
         old, new = (torch.load(OUT / f"{i}_{_slug(name)}.pt")
                     for i in (0, 1))
+        tol = getattr(cs, CLOSE[kernel])
+        if isinstance(tol, dict):
+            rtol, share = tol["bf16" if old[0].dtype == torch.bfloat16
+                              else "f32"]
+        else:
+            rtol = share = tol
         worst = max(((n.float() - o.float()).abs() / (
-            tol * o.float().abs() + tol * o.float().abs().max())).max()
-            .item() for o, n in zip(old, new))
+            rtol * o.float().abs() + share * o.float().abs().max())
+            .clamp_min(1e-30)).max().item() for o, n in zip(old, new))
         ok = digests[0] == digests[3] and digests[1] == digests[2] and \
             worst <= 1
         differ += not ok
         print(f"[ab] {name}: {times}; each tree bitwise across its turns: "
               f"{digests[0] == digests[3] and digests[1] == digests[2]}; "
-              f"new within {tol:g} + {tol:g} x max of old: largest "
+              f"new within {rtol:g} + {share:g} x max of old: largest "
               f"err/limit {worst:.3g} {'ok' if ok else 'FAIL'}")
     return 1 if differ else 0
 

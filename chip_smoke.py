@@ -38,10 +38,12 @@ the JAX package.  Phases, each printing its lines:
             counted) from a nonzero initial state there and at
             serve-zamba2's 1984-token prefill in the model's layout;
             softmax over
-            DiT-XL/2's attention scores [16 x 1024, 1024] (rows path),
-            gemma-2b's logits [8, 256000] in f32 and bf16 (long-row path)
-            and the extreme rows [1e4, -1e4, 0, 1e4].  The counters must
-            read exactly 5 / 1 / 6 (two per long softmax row); each
+            DiT-XL/2's attention scores [16 x 1024, 1024] (a warp a row),
+            gemma-2b's logits [8, 256000] in f32 and bf16 (a cluster a
+            row) and the extreme rows [1e4, -1e4, 0, 1e4], each case's
+            regime from ``softmax_plan`` printed.  The counters must
+            read exactly 5 / 1 / 4 (the softmax its plans' launches: one
+            a case); each
             output is held against its plain version, and each bf16 flash
             case with Sq == Skv against the model's prefill attention
             (``dense_attention``).
@@ -191,7 +193,9 @@ the JAX package.  Phases, each printing its lines:
             and each again at every cluster size the plan can pick;
             kernels 12-14 at the ops phase's shapes (beside SDPA and
             ``torch.softmax``; none computes the SSD scan), kernel 12's
-            bf16 cases on both of its bodies; the plan's launches of a
+            bf16 cases on both of its bodies, the softmax also beside a
+            copy of its bytes and, where its plan takes a cluster, under
+            16 blocks of 512 threads a row; the plan's launches of a
             DiT-XL/2 block (``DIT_GEMMS`` and the row quantizer) beside
             their bounds and ``torch._int_mm``; kernel 12's prefix mode at
             paligemma-3b's forward beside SDPA with the same boolean
@@ -970,13 +974,20 @@ def phase_ops(torch) -> tuple[dict, dict]:
     e_out = ops.online_softmax(extreme)
     _sync(torch)
     counts = launch_counts()
+    plans = [sm.softmax_plan(*x.shape, x.dtype, x.data_ptr() % 16 == 0)
+             for x in (*soft, extreme)]
+    for (case, R, C, dtype), plan in zip(
+            (*SOFTMAX_CASES, ("rows [1e4, -1e4, 0, 1e4]", 256, 4, "f32")),
+            plans):
+        say(f"[ops] online_softmax {case} [{R}, {C}] {dtype}: regime "
+            f"{plan.regime}, {plan.threads} threads, {plan.units} units a "
+            f"thread, cluster {plan.cluster}, {plan.launches} launch(es)")
     want = {name: 0 for name in SOURCES}
     want.update(flash_attention=len(FLASH_CASES), ssd_scan=1,
-                online_softmax=1 + sum(1 if c[2] <= sm.ROWS_MAX_C else 2
-                                       for c in SOFTMAX_CASES))
+                online_softmax=sum(p.launches for p in plans))
     say(f"[ops] launches "
-        f"{json.dumps({k: counts[k] for k in OPS_KERNELS})} (a softmax "
-        f"row over {sm.ROWS_MAX_C} columns takes 2)")
+        f"{json.dumps({k: counts[k] for k in OPS_KERNELS})} (the softmax "
+        f"its plans' launches)")
     need(counts == want, f"launch counts {counts} != expected {want}")
 
     errs: dict[str, float] = {}
@@ -1041,14 +1052,15 @@ def phase_ops(torch) -> tuple[dict, dict]:
                  f"rtol={SSD_TOL:g} + {SSD_TOL:g} x max", False)
     del served, h0
 
-    for i, (c, x, out) in enumerate(zip(SOFTMAX_CASES, soft, m_out)):
+    for i, (c, x, out, plan) in enumerate(zip(SOFTMAX_CASES, soft, m_out,
+                                              plans)):
         case, R, C, dtype = c
         ref = sm.online_softmax_plain(x)
         rtol, atol = SOFTMAX_TOL[dtype]
         r32 = ref.float().abs()
-        path = ("rows path" if C <= sm.ROWS_MAX_C
-                else f"{sm.n_slices(C)} slices a row")
-        held("online_softmax", f"{case} [{R}, {C}] {dtype} ({path})", out,
+        held("online_softmax",
+             f"{case} [{R}, {C}] {dtype} ({plan.regime}, cluster "
+             f"{plan.cluster})", out,
              ref, rtol * r32 + atol * r32.max(),
              f"rtol={rtol:.3g} + {atol:g} x max", i == 0)
         sums = out.float().sum(-1)
@@ -3823,17 +3835,35 @@ def times_ops(torch, card: str) -> list:
           F32_OPS_PER_S, True)
     del insts
 
+    # the softmax beside a copy of the same bytes (what one read and one
+    # write of x take here) and, where the plan takes a cluster, under a
+    # cluster of 16 blocks of 512 threads
     for i, (case, R, C, dtype) in enumerate(SOFTMAX_CASES):
         nbytes = 2 * R * C * (2 if dtype == "bf16" else 4)
         insts = [_softmax_input(torch, gen, case, R, C, dtype)
                  for _ in range(copies_for(nbytes))]
         x = insts[0]
-        timed("online_softmax", f"{case} [{R}, {C}] {dtype}",
+        plan = sm.softmax_plan(R, C, x.dtype)
+        where = (f"{case} [{R}, {C}] {dtype}, {plan.regime}, "
+                 f"{plan.threads} threads, cluster {plan.cluster}")
+        timed("online_softmax", where,
               [(lambda a=a: sm.online_softmax(a)) for a in insts],
               lambda: sm.online_softmax_plain(x),
               lambda: torch.softmax(x, -1), nbytes, 4 * R * C,
               F32_OPS_PER_S, i == 0)
-        del insts, x
+        outs = [torch.empty_like(a) for a in insts]
+        copy_ms = time_ms(torch, [(lambda a=a, o=o: o.copy_(a))
+                                  for a, o in zip(insts, outs)])
+        say(f"[times] online_softmax ({case} [{R}, {C}] {dtype}): a copy "
+            f"of the same bytes (copy_) {copy_ms:.4f} ms on {card}")
+        if plan.regime == "cluster":
+            with sm.forced_softmax_plan(512, 16):
+                forced_ms = time_ms(torch, [
+                    (lambda a=a: sm.online_softmax(a)) for a in insts])
+            say(f"[times] online_softmax ({case} [{R}, {C}] {dtype}) under "
+                f"16 blocks of 512 threads a row: {forced_ms:.4f} ms on "
+                f"{card}")
+        del insts, outs, x
     return rows
 
 

@@ -3,8 +3,9 @@
 Each kernel wrapper counts its launches in a ``launches`` attribute;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` sets
 them to zero (``chip_smoke.py`` uses both to show which kernels a run
-went through).  ``online_softmax`` takes two launches for a row longer
-than its shared memory holds (a stats and a normalize launch) and counts
+went through).  ``online_softmax`` takes the launches its
+``softmax_plan`` gives: one, or two for a row longer than a
+thread-block cluster holds (a stats and a normalize launch), and counts
 both.
 """
 from . import (cim_gemm, decode_attention, flash_attention, online_softmax,

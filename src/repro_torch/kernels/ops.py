@@ -293,8 +293,9 @@ def ssd_scan(x, log_a, b, c, chunk=128):
 def online_softmax(x, block_r=256, block_c=2048):
     """Softmax over the last axis of x [R, C] in f32, returned in x's
     dtype.  ``block_r`` must divide R, and ``block_c`` C when C exceeds
-    it, as in the reference; the kernels switch between their one-launch
-    rows path and the two-launch long-row path by their shared memory."""
+    it, as in the reference; the kernel's regime comes from
+    ``online_softmax.softmax_plan`` (one launch, two above 524288
+    columns), not from the block arguments."""
     R, C = x.shape
     _blocks_divide("online_softmax", R, block_r, "block_r")
     if C > block_c:

@@ -2147,29 +2147,52 @@ def test_mamba2_block_on_card_matches_cpu(dev):
         .item()
 
 
-# (R, C, dtype): rows path up to its 12288-column limit, the long-row
-# path from 12289 columns with a ragged last slice, bf16 in both
-SOFTMAX_SHAPES = [(300, 64, torch.float32), (5, 1000, torch.float32),
-                  (3, 12288, torch.float32), (2, 12289, torch.float32),
-                  (3, 50000, torch.float32), (4, 1024, torch.bfloat16),
-                  (4, 50000, torch.bfloat16)]
+# (R, C, dtype, unaligned, launches): each regime of softmax_plan and its
+# edges, the expected launches written out.  "warp" up to 1024 columns;
+# "block" from 1025 when the rows fill the card (R 132, or a row under
+# 2 x 2048 values); "cluster" at fewer rows (R 131) or rows one block
+# cannot hold (above 32768 values: 16 blocks, the non-portable size, from
+# 262145); "split" (two launches) above 524288.  Ragged C (single-value
+# units) and x = y[1:] of a y whose rows do not divide into 16 bytes (x
+# off 16-byte alignment).
+F32, BF16 = torch.float32, torch.bfloat16
+SOFTMAX_SHAPES = [(300, 64, F32, False, 1), (5, 1000, F32, False, 1),
+                  (4, 1024, BF16, False, 1), (1000, 1025, F32, False, 1),
+                  (3, 12288, F32, False, 1), (2, 12289, F32, False, 1),
+                  (132, 4096, F32, False, 1), (131, 4096, F32, False, 1),
+                  (1, 4095, F32, False, 1), (1, 4096, F32, False, 1),
+                  (3, 50000, F32, False, 1), (4, 50000, BF16, False, 1),
+                  (1, 262144, F32, False, 1), (1, 262145, F32, False, 1),
+                  (1, 524288, F32, False, 1), (2, 524289, F32, False, 2),
+                  (2, 600000, BF16, False, 2), (5, 1001, F32, True, 1),
+                  (3, 12289, BF16, True, 1), (2, 524289, F32, True, 2)]
 
 
-@pytest.mark.parametrize("R,C,dtype", SOFTMAX_SHAPES)
-def test_online_softmax_close(dev, R, C, dtype):
+def _softmax_x(dev, R, C, dtype, unaligned, seed=23):
+    """Scores N(0, 4) with an extreme row head [1e4, -1e4, 0, 1e4]; x[1:]
+    of an [R + 1, C] tensor when ``unaligned``."""
+    rng = _gen(seed)
+    y = _t((rng.standard_normal((R + 1, C)) * 4).astype(np.float32), dev,
+           dtype)
+    y[1, :4] = torch.tensor([1e4, -1e4, 0.0, 1e4], device=dev).to(dtype)
+    x = y[1:] if unaligned else y[:R]
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == unaligned
+    return x
+
+
+@pytest.mark.parametrize("R,C,dtype,unaligned,launches", SOFTMAX_SHAPES)
+def test_online_softmax_close(dev, R, C, dtype, unaligned, launches):
     """Kernel 14 against its plain version: f32 within 2e-5 relative
     plus 2e-6 of the largest output; bf16 within 2**-7 (one bf16
-    rounding apart).  One launch up to 12288 columns, two above."""
+    rounding apart).  The launches of each regime: one, two for the
+    split rows."""
     from repro_torch.kernels import online_softmax as sm
-    rng = _gen(23)
-    x = _t((rng.standard_normal((R, C)) * 4).astype(np.float32), dev, dtype)
-    x[0, :4] = torch.tensor([1e4, -1e4, 0.0, 1e4], device=dev).to(dtype)
+    x = _softmax_x(dev, R, C, dtype, unaligned)
     before = sm.online_softmax.launches
     out = sm.online_softmax(x)
     ref = sm.online_softmax_plain(x)
     torch.cuda.synchronize()
-    assert sm.online_softmax.launches == before + (
-        1 if C <= sm.ROWS_MAX_C else 2)
+    assert sm.online_softmax.launches == before + launches
     assert out.dtype == dtype
     if dtype == torch.float32:
         limit = 2e-5 * ref.abs() + 2e-6 * ref.abs().max()
@@ -2180,6 +2203,91 @@ def test_online_softmax_close(dev, R, C, dtype):
     torch.testing.assert_close(out.float().sum(-1),
                                torch.ones(R, device=dev), rtol=1e-2,
                                atol=0)
+
+
+@pytest.mark.parametrize("R,C,dtype", [(300, 64, F32), (1000, 1025, F32),
+                                       (8, 256000, F32), (8, 256000, BF16),
+                                       (1, 262145, F32),
+                                       (2, 600000, BF16)])
+def test_online_softmax_graph_replay_is_its_eager_call(dev, R, C, dtype):
+    """A CUDA-graph replay of each regime (warp, block, cluster of 8 and
+    of 16, split) returns the eager call's bits."""
+    from repro_torch.kernels import online_softmax as sm
+    x = _softmax_x(dev, R, C, dtype, False, seed=29)
+    eager = sm.online_softmax(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sm.online_softmax(x)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+def test_online_softmax_division_is_ieee(dev):
+    """The kernels' division (the row's correctly rounded reciprocal and
+    one remainder step, the IEEE division below 2^-100) is bitwise torch's
+    p / d on 2^22 quotients: p in [0, 1) and down to subnormal exps, d in
+    [1, 3e5] (a row's sums)."""
+    from repro_torch.kernels import _launch
+    n = 1 << 22
+    g = torch.Generator(device=dev).manual_seed(31)
+    p = torch.exp(-torch.rand(n, device=dev, generator=g) * 110)
+    p[: n // 4] = torch.rand(n // 4, device=dev, generator=g)
+    p[:16] = 0.0
+    d = torch.rand(n, device=dev, generator=g) * 3e5 + 1
+    q = torch.empty_like(p)
+    fn = _launch.bind("online_softmax", "online_softmax_div_check",
+                      [_launch.P, _launch.P, _launch.P, _launch.I,
+                       _launch.P])
+    _launch.check("online_softmax", fn(_launch.ptr(p), _launch.ptr(d),
+                                       _launch.ptr(q), n, _launch.stream(p)),
+                  "online_softmax_div_check")
+    assert torch.equal(q, p / d)
+
+
+# registers of kernel 14's bodies (cuobjdump), by (body, bytes of an
+# element, 16-byte units): the block body within the 64 that 1024
+# threads leave it
+SOFTMAX_REGS = {("warp", 2, "0"): 48, ("warp", 2, "1"): 48,
+                ("warp", 4, "0"): 48, ("warp", 4, "1"): 52,
+                ("block", 2, "0"): 63, ("block", 2, "1"): 63,
+                ("block", 4, "0"): 64, ("block", 4, "1"): 64,
+                ("stats", 2, "0"): 31, ("stats", 2, "1"): 32,
+                ("stats", 4, "0"): 32, ("stats", 4, "1"): 32,
+                ("normalize", 2, "0"): 47, ("normalize", 2, "1"): 39,
+                ("normalize", 4, "0"): 47, ("normalize", 4, "1"): 39}
+
+
+def test_online_softmax_no_local_memory(dev):
+    """Every instantiation of kernel 14 (the warp, block, stats and
+    normalize bodies at f32 / bf16 x 16-byte / single-value units) keeps
+    its values in registers: no local memory and no stack
+    (``cuobjdump --dump-resource-usage``), registers pinned; the block
+    body fits 1024 threads (64 registers)."""
+    import pathlib
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+    _build.load("online_softmax")
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build.BUILD_DIR / "libonline_softmax.so"
+    text = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    pat = re.compile(r"Function \S*softmax_(warp|block|stats|normalize)_"
+                     r"kernelILi(\d)ELb(\d)E\S*:\s*\n\s*(.*)")
+    use = {(m.group(1), int(m.group(2)), m.group(3)): {
+        k: int(v) for k, v in (f.split(":") for f in m.group(4).split())
+        if v.isdigit()} for m in pat.finditer(text)}
+    assert sorted(use) == sorted(
+        (body, xe, vec) for body in ("warp", "block", "stats", "normalize")
+        for xe in (2, 4) for vec in ("0", "1")), text[-2000:]
+    for key, u in use.items():
+        assert u["LOCAL"] == 0 and u["STACK"] == 0, (key, u)
+        if key[0] == "block":
+            assert u["REG"] <= 64, (key, u)
+    assert {k: u["REG"] for k, u in use.items()} == SOFTMAX_REGS, use
 
 
 def test_new_kernel_wrappers_reject_bad_inputs(dev):

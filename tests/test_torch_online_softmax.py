@@ -84,12 +84,20 @@ def test_bf16_matches_jax(c, block_c):
 
 
 def test_regimes_follow_shared_memory_not_block_c():
-    """The port's switch: one launch while a row fits 48 KiB of f32,
-    4096-column slices above (gemma-2b's 256000 logits: 63 slices)."""
-    assert sm.n_slices(1024) == sm.n_slices(sm.ROWS_MAX_C) == 1
-    assert sm.n_slices(sm.ROWS_MAX_C + 1) == 4
-    assert sm.n_slices(256000) == 63
-    assert sm.ROWS_MAX_C * 4 == 48 * 1024
+    """The port's switch follows what its blocks hold on chip (32 values
+    a thread in registers, ``softmax_plan``), not the reference's
+    ``block_c``: a warp a row up to 1024 columns, one launch up to
+    16 x 1024 x 32 = 524288 (gemma-2b's 256000 logits: a cluster of 8
+    blocks a row), two above."""
+    f32 = torch.float32
+    assert sm.WARP_MAX_C == 1024
+    assert sm.CLUSTER_MAX_C == 16 * 1024 * 32
+    assert sm.softmax_plan(256, 1024, f32).regime == "warp"
+    assert sm.softmax_plan(256, 1025, f32).regime == "block"
+    plan = sm.softmax_plan(8, 256000, f32)
+    assert (plan.regime, plan.cluster, plan.launches) == ("cluster", 8, 1)
+    assert sm.softmax_plan(1, sm.CLUSTER_MAX_C, f32).launches == 1
+    assert sm.softmax_plan(1, sm.CLUSTER_MAX_C + 1, f32).launches == 2
 
 
 def test_block_arguments_must_divide_as_in_the_reference():
