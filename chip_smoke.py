@@ -26,7 +26,15 @@ the JAX package.  Phases, each printing its lines:
             the MLP input; kernel 3 with gelu and its requant, and to
             f32); kernel 12's prefix mode (``prefix_len``) on both bodies
             at paligemma-3b's cacheless forward (S 4096, p 256) and at a
-            ragged S with p inside a tile (not counted).
+            ragged S with p inside a tile (not counted).  The degraded
+            mode's kernels: the finite screen's flag against its plain
+            version at 16384 to 8388608 values (finite, NaN, +-inf), and
+            the gated fallback of kernels 1, 2, 3, 4, 7 and 8 at
+            gemma-2b's decode shape (M 8) and qwen2-moe's (E 60, T 8), NaN
+            and +-inf planted in every float operand: with the flag at 0
+            a sentinel-filled output untouched bitwise, at 1 the plain
+            version on the sanitized operands (integers exact, floats
+            bitwise or within ``GELU_RTOL`` after an activation).
    ops    — kernels 12-14 through ``repro_torch.kernels.ops`` at the
             widths of models in the registry: flash
             attention at gemma-2b's prefill (S 2048, 8 heads on 1 KV head,
@@ -73,6 +81,17 @@ the JAX package.  Phases, each printing its lines:
             beside both (how far the reference's own roundings land
             apart); ms per forward and kernel 12's share of the device
             time.
+   chaos  — the reliability layer on the same gemma-2b
+            (``phase_chaos``): degraded mode on the healthy model (the
+            serve phase's tokens bitwise, ``DEGRADED_PER_LAYER`` 16
+            launches per layer per decode step, no host sync under CUDA's
+            sync debug mode, a profiled step with and without it); an inf
+            in one layer's out-projection scale (FAILED without degraded
+            mode, OK with it, screens tripped); ``chaos_soak`` at BERs
+            1e-6, 1e-4, 1e-2 through the ring engine and 1e-4 through the
+            paged engine (every request terminal, every invariant held,
+            seconds per campaign printed); the int8 weights bitwise
+            restored.
    serve-tp — gemma-2b is freed; two tensor-parallel ranks (processes
             joined by gloo, both on the one card) draw full-width
             gemma-2b in turn, keep their shards and serve the serve
@@ -110,7 +129,10 @@ the JAX package.  Phases, each printing its lines:
             launches and 1 of kernel 12), the engine's latents bitwise a
             direct ``sample()``, one evaluation within 5% of the largest
             |eps| of the plain path; ms per evaluation, images/s, the
-            profiled device share.
+            profiled device share; the first batch again under degraded
+            mode with a fault hook that plants a NaN in one request's
+            latents: that request FAILED, the others bitwise, 18
+            launches per block per evaluation.
    serve-zamba2 — full-width zamba2-1.2b (random weights from the seed,
             38 layers: 32 Mamba-2, 6 attention + dense-geglu, 1.35 B
             parameters, the full plan, int8 KV) on the ring engine: 8
@@ -204,10 +226,14 @@ the JAX package.  Phases, each printing its lines:
             with all 256 active; kernel 12 at MLA's forward (B 1, S
             4096, 128 heads, D 192, v padded) held against its plain
             version and beside SDPA (E 192, Ev 128), its bound from the
-            unpadded work.  Collectives are never captured in a graph.
+            unpadded work; the degraded mode's gated launches with the
+            flag at 0 beside their kernels' ungated launches, and the
+            screen.  Collectives are never captured in a graph.
 
 The LM serve runs (with the family's serve runs) must launch kernels
-12-14 zero times and every other kernel at least once; the kernels' JSON
+12-14 and the screen zero times and every other kernel at least once
+(the kernels' JSON record takes the screen's launches from the chaos
+phase's degraded serve); the kernels' JSON
 record adds serve-dit's and serve-zamba2's launches to theirs, and takes
 kernel 12's launches from forward-long, serve-dit, the family's two
 cacheless forwards and serve-deepseek-v3's, kernel 13's from the ops phase and serve-zamba2, and
@@ -279,7 +305,13 @@ SOURCES = {
                  "src/repro/kernels/ssd_scan.py:71"),
     "online_softmax": ("src/repro_torch/csrc/online_softmax.cu",
                        "src/repro/kernels/online_softmax.py:58"),
+    # the degraded mode's screen: the reference's is an XLA reduction and
+    # lax.cond, no Pallas kernel
+    "finite_screen": ("src/repro_torch/csrc/cim_gemm.cu",
+                      "src/repro/quant/linear.py:129"),
 }
+# Launched only under degraded mode (the chaos phase).
+DEGRADED_KERNELS = ("finite_screen",)
 # Kernels 12-14 are reached through the ops surface, and kernel 12 also
 # by the cacheless forward above 2048 tokens (forward-long) and by DiT's
 # full attention (serve-dit); the ops phase drives them at the widths of
@@ -342,6 +374,21 @@ LONG_LOGIT_ATOL = 0.15
 # zamba2-1.2b served by the ring engine (serve-zamba2): 8 slots of 2048,
 # bucket 64; 8 requests, the first of 1984 tokens (a bucket multiple:
 # kernel 13 over 15 chunks of 128 and a ragged one of 64)
+# The chaos phase: the chaos bench's sweep at full width, one campaign
+# every CHAOS_PERIOD fetches (a campaign at 1e-2 over gemma-2b's 1.98 GB of
+# int8 draws about 1.6e8 faults on the host)
+CHAOS_BERS = (1e-6, 1e-4, 1e-2)
+CHAOS_PAGED_BER = 1e-4
+CHAOS_SEED = 42
+CHAOS_PERIOD = 4
+CHAOS_NAN_RATE = 0.2
+# launches per layer per decode step under degraded mode
+# (``degraded_launches``): the plan's 7 (9), one screen a quantized site
+# (3; 4) and the fallback chains (QKV 1, out-proj 1, an MLP or the
+# experts 4 each)
+DEGRADED_PER_LAYER = {"gemma-2b": 16, "qwen2-moe-a2.7b": 23}
+# launches of one call in the graph that times a gated fallback launch
+FALLBACK_REPS = 64
 ZAMBA_ARCH = "zamba2-1.2b"
 ZAMBA_PREFILL = 1984
 ZAMBA_PROMPTS = [ZAMBA_PREFILL, 16, 40, 100, 257, 500, 1000, 1500]
@@ -830,6 +877,189 @@ def phase_check(torch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return errs
+
+
+# ---------------------------------------------------------------------------
+# the degraded mode: the finite screen and the gated fallback
+# ---------------------------------------------------------------------------
+def _poison(torch, t, gen):
+    """A copy of the float tensor ``t`` with a NaN, a +inf and a -inf at
+    random places."""
+    a = t.clone().reshape(-1)
+    idx = torch.randperm(a.numel(), device=a.device, generator=gen)[:3]
+    a[idx] = torch.tensor([math.nan, math.inf, -math.inf], device=a.device,
+                          dtype=a.dtype)
+    return a.reshape(t.shape)
+
+
+def _fallback_cases(torch, dev, gen):
+    """(name, where, call(fn, gate, out), kernel, plain, out specs,
+    exact) of kernels 1, 2, 3, 4, 7 and 8 at gemma-2b's decode shape
+    (M 8) and qwen2-moe's (E 60, T 8), every float operand poisoned."""
+    t = _rand_inputs(torch, 8, dev, gen)
+    p = (lambda a: _poison(torch, a, gen))
+    x, h, res = p(t["x"]), p(t["h"]), p(t["res"])
+    wqkv, sqkv = t["wqkv"][0], p(t["wqkv"][1])
+    wo, so = t["wo"][0], p(t["wo"][1])
+    wg, sg = t["wg"][0], p(t["wg"][1])
+    wu, su = t["wu"][0], p(t["wu"][1])
+    wd, sd = t["wd"][0], p(t["wd"][1])
+    hq = torch.randint(-127, 128, (8, 16384), dtype=torch.int8, device=dev,
+                       generator=gen)
+    hs = p(torch.rand((8, 1), device=dev, generator=gen) * 1e-2 + 1e-4)
+    xq = torch.randint(-127, 128, (8, 2048), dtype=torch.int8, device=dev,
+                       generator=gen)
+    xs = p(torch.rand((8, 1), device=dev, generator=gen) * 1e-2 + 1e-4)
+    counts = _served_like_counts(torch, gen, dev)
+    ex, exs = _grouped_rows(torch, counts, 8, MOE_D, gen)
+    exs = p(exs)
+    (eg, egs), (eu, eus) = (_stack(torch, MOE_E, MOE_D, MOE_F, gen)
+                            for _ in range(2))
+    egs, eus = p(egs), p(eus)
+    eh = torch.randint(-127, 128, (MOE_E, 8, MOE_F), dtype=torch.int8,
+                       device=dev, generator=gen)
+    ehs = p(torch.rand((MOE_E, 8, 1), device=dev, generator=gen) * 1e-2
+            + 1e-4)
+    ed, eds = _stack(torch, MOE_E, MOE_F, MOE_D, gen)
+    eds = p(eds)
+    from repro_torch.kernels import cim_gemm as cg
+    f32 = torch.float32
+    return [
+        ("quantize_rows_int8", "[8, 16384] f32",
+         lambda fn, g, o: fn(h, gate=g, out=o), cg.quantize_rows_int8,
+         cg.quantize_rows_int8_plain,
+         [((8, 16384), torch.int8), ((8, 1), f32)], True),
+        ("cim_gemm_int8_fused_qin", "QKV [8, 2048] bf16",
+         lambda fn, g, o: fn(x, wqkv, sqkv, None, None, None, g, o),
+         cg.cim_gemm_int8_fused_qin, cg.cim_gemm_int8_fused_qin_plain,
+         [((8, 2560), f32)], True),
+        ("cim_gemm_int8_fused_qin", "out-proj with residual",
+         lambda fn, g, o: fn(x, wo, so, None, res, None, g, o),
+         cg.cim_gemm_int8_fused_qin, cg.cim_gemm_int8_fused_qin_plain,
+         [((8, 2048), f32)], True),
+        ("cim_gated_gemm_int8", "[8, 2048] x 2 x [2048, 16384] gelu",
+         lambda fn, g, o: fn(xq, wg, wu, xs, sg, su, "gelu", gate=g,
+                             out=o),
+         cg.cim_gated_gemm_int8, cg.cim_gated_gemm_int8_plain,
+         [((8, 16384), f32)], False),
+        ("cim_gemm_int8_fused", "down [8, 16384] with residual",
+         lambda fn, g, o: fn(hq, wd, hs, sd, None, res, None, gate=g, out=o),
+         cg.cim_gemm_int8_fused, cg.cim_gemm_int8_fused_plain,
+         [((8, 2048), f32)], True),
+        ("cim_grouped_gated_gemm_int8", f"E={MOE_E} T=8 silu",
+         lambda fn, g, o: fn(ex, eg, eu, exs, egs, eus, counts, "silu",
+                             gate=g, out=o),
+         cg.cim_grouped_gated_gemm_int8,
+         cg.cim_grouped_gated_gemm_int8_plain,
+         [((MOE_E, 8, MOE_F), f32)], False),
+        ("cim_grouped_gemm_int8", f"E={MOE_E} T=8 down",
+         lambda fn, g, o: fn(eh, ed, ehs, eds, None, counts, None, gate=g,
+                             out=o),
+         cg.cim_grouped_gemm_int8, cg.cim_grouped_gemm_int8_plain,
+         [((MOE_E, 8, MOE_D), f32)], True)]
+
+
+def phase_check_fallback(torch, errs: dict) -> None:
+    """The degraded mode's kernels against their plain versions: the
+    screen's flag (0 on finite values, 1 with a NaN or an inf) at the
+    decode outputs' sizes and a prefill's; each gated fallback of kernels
+    1, 2, 3, 4, 7 and 8 (``_fallback_cases``) with the flag at 0, where
+    its sentinel-filled output must come back untouched bitwise, and at
+    1, where it must equal its plain version on the sanitized operands
+    (integers exact, floats bitwise, or within ``GELU_RTOL`` after an
+    activation).  Adds the screen's max |err| (the flags') to ``errs``."""
+    from repro_torch.kernels import cim_gemm as cg
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    trips = cg.screen_trips(dev)
+    flags = tripped = 0
+    for n in (8 * 2048, 8 * 2560, MOE_E * 8 * MOE_D, 4096 * 2048):
+        x = torch.randn(n, device=dev, generator=gen)
+        for bad in (None, math.nan, math.inf, -math.inf):
+            y = x.clone()
+            if bad is not None:
+                y[int(torch.randint(n, (1,), generator=gen, device=dev))] = \
+                    bad
+                tripped += 1
+            got, want = cg.finite_screen(y), cg.finite_screen_plain(y)
+            need(torch.equal(got, want) and int(got) == (bad is not None),
+                 f"finite_screen at n={n} ({bad}): {int(got)} != "
+                 f"{int(want)}")
+            flags += 1
+    need(cg.screen_trips(dev) - trips == 2 * tripped,
+         "finite_screen: the trip counter missed a screen")
+    say(f"[check] finite_screen: {flags} screens of 16384 to 8388608 "
+        f"values, flags equal the plain version's, {tripped} tripped and "
+        f"counted ok")
+    errs["finite_screen"] = 0.0
+    for name, where, call, fn, plain, outs, exact in _fallback_cases(
+            torch, dev, gen):
+        for v in (0, 1):
+            flag = torch.tensor([v], dtype=torch.int32, device=dev)
+            got, want = ([torch.full(s, 77 if d == torch.int8 else 12345.0,
+                                     dtype=d, device=dev) for s, d in outs]
+                         for _ in range(2))
+            call(fn, flag, got[0] if len(got) == 1 else tuple(got))
+            call(plain, flag, want[0] if len(want) == 1 else tuple(want))
+            _sync(torch)
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            if v == 0 or exact:
+                ok = all(torch.equal(a, b) for a, b in zip(got, want))
+                rule = "bitwise"
+            else:
+                ok = all(torch.equal(a, b) if a.dtype == torch.int8 else
+                         bool(((a - b).abs() <= 1e-6 + GELU_RTOL * b.abs())
+                              .all()) for a, b in zip(got, want))
+                rule = f"rtol={GELU_RTOL:g} atol=1e-06"
+            ok = ok and all(bool(torch.isfinite(a.float()).all())
+                            for a in got)
+            what = "passed: sentinel untouched" if v == 0 else \
+                "tripped: sanitized operands"
+            say(f"[check] {name}[fallback] {where}, {what}: "
+                f"max_abs_err={err:.3g} ({rule}) {'ok' if ok else 'FAIL'}")
+            need(ok, f"{name}'s fallback ({where}, flag {v}) disagrees "
+                 f"with its plain version")
+
+
+def times_fallback(torch, card: str) -> dict:
+    """The degraded mode's cost on a healthy step, at the check's shapes
+    (``_fallback_cases``): each gated fallback launch with the flag at 0
+    (its blocks read the flag and leave) beside the same kernel's
+    ungated launch, each the same call ``FALLBACK_REPS`` times in one
+    CUDA graph (so the kernel's operands are warm in L2, and a gated
+    launch's time is what a launch that exits costs in a graph), and the
+    screen at the decode outputs' sizes.  Returns the screen's row of
+    the kernels' record, at the out-projection's output [8, 2048] f32."""
+    from repro_torch.kernels import cim_gemm as cg
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    passed = torch.zeros(1, dtype=torch.int32, device=dev)
+    for name, where, call, fn, _, outs, _ in _fallback_cases(torch, dev,
+                                                             gen):
+        bufs = [torch.empty(s, dtype=d, device=dev) for s, d in outs]
+        out = bufs[0] if len(bufs) == 1 else tuple(bufs)
+        kern = time_ms(torch, [lambda: call(fn, None, None)] * FALLBACK_REPS)
+        gated = time_ms(torch,
+                        [lambda: call(fn, passed, out)] * FALLBACK_REPS)
+        say(f"[times] {name}[fallback] {where}: {gated:.4f} ms a gated "
+            f"launch with the flag passed, against {kern:.4f} ms for the "
+            f"kernel's launch (warm), on {card}")
+    row = None
+    for shape in ((8, 2048), (8, 2560), (MOE_E, 8, MOE_D)):
+        n = math.prod(shape)
+        xs = [torch.randn(shape, device=dev, generator=gen)
+              for _ in range(copies_for(4 * n))]
+        ms = time_ms(torch, [(lambda x=x: cg.finite_screen(x)) for x in xs])
+        plain_ms = time_ms(torch, [lambda: cg.finite_screen_plain(xs[0])],
+                           reps=5)
+        b, by = bound(4 * n + 4, n, F32_OPS_PER_S)
+        say(f"[times] finite_screen {list(shape)} f32: {ms:.4f} ms (bound "
+            f"{b:.5f} ms by {by}, plain {plain_ms:.4f} ms) on {card}")
+        if row is None:
+            row = dict(name="finite_screen", ms=ms, plain_ms=plain_ms,
+                       bound_ms=b, bound_by=by, library_ms=None)
+    return row
 
 
 def _dit_operands(torch, dev, gen, launch, name, M, K, N):
@@ -1509,6 +1739,246 @@ def phase_reference(torch, model, seed: int,
     need(err <= tol, "paged: kernel path disagrees with plain path")
 
 
+def degraded_launches(cfg, decode_steps, forwards) -> dict:
+    """``expected_launches`` under degraded mode: per quantized site and
+    forward one screen and its fallback chain — QKV and out-proj the
+    same launches as the site (one of kernel 2, or kernel 1 then kernel
+    3 above ``MAX_FUSED_QUANT_K``), a dense MLP row-quant, gated (or
+    kernel 3 ungated), row-quant, down (the fallback never fuses the
+    requant), an MoE layer the same over the experts (grouped) and over
+    the shared MLP."""
+    from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_K
+    want = expected_launches(cfg, decode_steps, forwards)
+    for mixer, ffn in cfg.layer_specs():
+        if mixer in RECURRENT:
+            continue
+        sites = []
+        if mixer != "mla":
+            sites += [cfg.d_model, cfg.n_heads * cfg.head_dim]
+        for K in sites:
+            want["finite_screen"] += forwards
+            if K <= MAX_FUSED_QUANT_K:
+                want["cim_gemm_int8_fused_qin"] += forwards
+            else:
+                want["quantize_rows_int8"] += forwards
+                want["cim_gemm_int8_fused"] += forwards
+        mlps = [("cim_gated_gemm_int8" if cfg.gated
+                 else "cim_gemm_int8_fused", "cim_gemm_int8_fused")]
+        if ffn == "moe":
+            mlps.append(("cim_grouped_gated_gemm_int8" if cfg.gated
+                         else "cim_grouped_gemm_int8",
+                         "cim_grouped_gemm_int8"))
+        for up, down in mlps:
+            want["finite_screen"] += forwards
+            want["quantize_rows_int8"] += 2 * forwards
+            want[up] += forwards
+            want[down] += forwards
+    return want
+
+
+def _chaos_requests(cfg):
+    """The chaos bench's workload: 4 requests of 4-6 prompt tokens and
+    4-6 new tokens, sampled at temperature 0.7, top-k 5, seed 11."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, 4 + i % 3)
+                    .astype(np.int32), max_new_tokens=4 + i % 3,
+                    temperature=0.7, top_k=5, seed=11) for i in range(4)]
+
+
+class CampaignClock:
+    """Seconds the chaos monkeys spend drawing campaigns (``inject_tree``)
+    and writing them into the model (``load_leaves``), read by wrapping
+    the names the chaos module calls."""
+
+    def __init__(self, torch):
+        from repro_torch.reliability import chaos
+        self.torch, self.mod = torch, chaos
+        self.seconds = {"draw": 0.0, "load": 0.0}
+        self.saved = {n: getattr(chaos, n) for n in ("inject_tree",
+                                                     "load_leaves")}
+
+    def __enter__(self):
+        for name, key in (("inject_tree", "draw"), ("load_leaves", "load")):
+            fn = self.saved[name]
+
+            def timed(*a, _fn=fn, _key=key, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                _sync(self.torch)
+                self.seconds[_key] += time.perf_counter() - t0
+                return out
+            setattr(self.mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def phase_chaos(torch, serve: dict) -> dict:
+    """The reliability layer on the serve phase's full-width gemma-2b:
+    (a) ``degraded=True`` on a healthy model serves the serve phase's
+    requests with its tokens bitwise, at ``degraded_launches``' counts
+    (16 launches per layer per decode step); one decode step with the
+    mode off and on under CUDA's sync debug mode "error" (the screens
+    and gated launches add no host sync); (b) ``inf`` planted in one
+    layer's out-projection scale: with the mode off every request ends
+    FAILED on the health check, with it on every request ends OK and the
+    device's count of tripped screens grows; (c) ``chaos_soak`` on the
+    ring engine at ``CHAOS_BERS`` (the chaos bench's workload at full
+    width, ``CHAOS_PERIOD``), (d) one soak through the paged engine at
+    ``CHAOS_PAGED_BER``, each with every request terminal and every
+    invariant held; (e) afterwards every int8 weight bitwise its
+    snapshot from before the soaks.  Returns the launch counts of (a)."""
+    import contextlib
+
+    import numpy as np
+    from repro_torch.kernels import cim_gemm as cg
+    from repro_torch.quant import QuantPlan, degraded_mode
+    from repro_torch.reliability import chaos_soak, quantized_leaves
+    from repro_torch.serving import (PagedServingEngine, Request,
+                                     RequestStatus, ServingEngine)
+    model = serve["model"]
+    cfg = model.cfg
+    dev = torch.device(DEVICE)
+    plan = QuantPlan.full()
+    L = sum(m not in RECURRENT for m, _ in cfg.layer_specs())
+
+    # (a) healthy, degraded
+    engine = ServingEngine(model, n_slots=8, max_len=1024, prefill_bucket=64,
+                           quant_plan=plan, degraded=True)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(_prompts(cfg, serve["lengths"], SEED))]
+    trips = cg.screen_trips(dev)
+    counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
+    st = engine.stats
+    _check_served(cfg, reqs, NEW_TOKENS)
+    same = [r.generated for r in reqs] == serve["tokens"]
+    say(f"[chaos] (a) degraded, healthy: {len(reqs)} requests OK, tokens "
+        f"{'bitwise the serve phase' if same else 'DIFFER'}s, median "
+        f"{statistics.median(step_ms):.2f} ms per decode step, "
+        f"{cg.screen_trips(dev) - trips} screens tripped")
+    need(same, "chaos: degraded mode changed a healthy serve's tokens")
+    need(cg.screen_trips(dev) == trips, "chaos: a healthy screen tripped")
+    want = degraded_launches(cfg, st.decode_steps,
+                             st.decode_steps + st.prefills)
+    say(f"[chaos] (a) launches {json.dumps(counts)}")
+    need(counts == want, f"chaos: degraded launch counts {counts} != {want}")
+    prefill = sum(degraded_launches(cfg, 0, st.prefills).values())
+    per = (sum(counts.values()) - prefill) / (L * st.decode_steps)
+    base = launches_per_layer_step(cfg)["attn"]
+    say(f"[chaos] (a) {per:g} launches per layer per decode step with "
+        f"degraded mode ({base:g} without)")
+    need(per == DEGRADED_PER_LAYER[cfg.name],
+         f"chaos: {per} launches per layer per decode step, not "
+         f"{DEGRADED_PER_LAYER[cfg.name]}")
+    syncs = {}
+    cache = model.init_cache(8, 64, kv_dtype="int8")
+    tok = torch.zeros((8, 1), dtype=torch.long, device=dev)
+    for deg in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad(), (degraded_mode(True) if deg
+                                   else contextlib.nullcontext()):
+                model.decode_step(tok, cache)
+            syncs[deg] = "no host sync"
+        except RuntimeError as e:
+            syncs[deg] = f"a host sync ({str(e).splitlines()[0][:80]})"
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    say(f"[chaos] (a) one decode step under sync debug mode 'error': "
+        f"{syncs[False]} with the mode off, {syncs[True]} with it on")
+    need(syncs[True] == syncs[False] == "no host sync",
+         "chaos: a degraded decode step synchronised with the host")
+    del engine, cache
+    # wall and device time of a decode step, without and with the mode
+    phase_profile(torch, model, SEED, "chaos-profile")
+    with degraded_mode(True):
+        phase_profile(torch, model, SEED, "chaos-profile-degraded")
+
+    # (b) one layer's out-projection scale holds an inf
+    o = model.layers[len(model.layers) // 2].attn.o
+    saved = o.scale.clone()
+    o.scale[7] = math.inf
+    outcome = {}
+    for deg in (False, True):
+        eng = ServingEngine(model, n_slots=8, max_len=1024,
+                            prefill_bucket=64, quant_plan=plan,
+                            degraded=deg)
+        short = [Request(uid=i, prompt=p, max_new_tokens=4)
+                 for i, p in enumerate(_prompts(cfg, serve["lengths"],
+                                                SEED))]
+        t0 = cg.screen_trips(dev)
+        for r in short:
+            eng.submit(r)
+        eng.run_until_done()
+        _sync(torch)
+        outcome[deg] = ([r.status for r in short],
+                        cg.screen_trips(dev) - t0)
+    o.scale.copy_(saved)
+    off, on = outcome[False], outcome[True]
+    say(f"[chaos] (b) inf in layer {len(model.layers) // 2}'s out-projection "
+        f"scale: mode off {sorted({s.value for s in off[0]})} (health "
+        f"check), mode on {sorted({s.value for s in on[0]})} with "
+        f"{on[1]} screens tripped (read once after the run)")
+    need(all(s is RequestStatus.FAILED for s in off[0]),
+         "chaos: a poisoned layer served without degraded mode")
+    need(all(s is RequestStatus.OK for s in on[0]) and on[1] > 0,
+         "chaos: degraded mode did not carry the poisoned layer")
+
+    # (c), (d) the soaks
+    pristine = quantized_leaves(model)
+    soaks = [("ring", ServingEngine, ber, {}) for ber in CHAOS_BERS]
+    soaks.append(("paged", PagedServingEngine, CHAOS_PAGED_BER,
+                  dict(block_size=16, prefill_chunk=4)))
+    for kind, cls, ber, kw in soaks:
+        eng = cls(model, n_slots=2, max_len=32, prefill_bucket=4,
+                  quant_plan=plan, degraded=True, **kw)
+        reqs = _chaos_requests(cfg)
+        t0 = time.perf_counter()
+        with CampaignClock(torch) as clock:
+            res = chaos_soak(eng, reqs, ber=ber, seed=CHAOS_SEED,
+                             period=CHAOS_PERIOD,
+                             logit_nan_rate=CHAOS_NAN_RATE, max_iters=200)
+        secs = time.perf_counter() - t0
+        rep = res.chaos
+        say(f"[chaos] ({'c' if kind == 'ring' else 'd'}) {kind} soak at ber "
+            f"{ber:g}: statuses {res.statuses}, {rep.weight_injections} "
+            f"campaigns, {rep.bits_faulted} bits faulted, "
+            f"{rep.logit_hits} NaN rows, {res.decode_steps} decode steps, "
+            f"{secs:.2f} s ({clock.seconds['draw']:.2f} s drawing, "
+            f"{clock.seconds['load']:.2f} s writing the campaigns and the "
+            f"restore; "
+            f"{clock.seconds['draw'] / max(1, rep.weight_injections):.2f} s "
+            f"drawn per campaign)")
+        need(all(r.done for r in reqs), "chaos: a request is not terminal")
+        need(res.healthy, f"chaos: invariants violated: {res.violations}")
+        need(rep.weight_injections > 0, "chaos: no weight campaign ran")
+        need(ber < 1e-4 or rep.bits_faulted > 0,
+             f"chaos: no bit faulted at ber {ber:g}")
+        if kind == "paged":
+            eng.paged.allocator.check()
+            need(eng.paged.allocator.n_used == 0,
+                 "chaos: the paged soak left blocks held")
+        del eng
+
+    # (e) the weights are back
+    back = quantized_leaves(model)
+    need(set(back) == set(pristine) and all(
+        np.array_equal(back[p].q, pristine[p].q)
+        and np.array_equal(back[p].scale, pristine[p].scale)
+        for p in pristine), "chaos: the int8 weights were not restored")
+    say(f"[chaos] (e) {len(pristine)} stacked leaves "
+        f"({sum(v.q.nbytes for v in pristine.values()) / 1e9:.3f} GB int8) "
+        f"bitwise their snapshot after the soaks")
+    del pristine, back
+    gc.collect()
+    return counts
+
+
 def phase_profile(torch, model, seed: int, tag: str = "profile") -> None:
     """Where a decode step's time goes: wall time per step (no profiler)
     beside the device time the profiler attributes to kernels, at the
@@ -1754,6 +2224,42 @@ def phase_serve_dit(torch) -> dict:
     say(f"[serve-dit] engine latents vs a direct sample(): "
         f"{'bitwise' if same else 'DIFFER'}")
     need(same, "serve-dit: the engine's latents are not its sample()'s")
+
+    # the first batch again, under degraded mode, with a fault hook that
+    # plants a NaN in one request's latents
+    def plant(phase, lat):
+        lat = lat.copy()
+        lat[1, 0, 0, 0] = np.nan
+        return lat
+    replay = [dataclasses.replace(r, status=RequestStatus.QUEUED,
+                                  latents=None, error=None,
+                                  finished_at=None) for r in first]
+    deg = DiffusionEngine(model, batch_size=DIT_BATCH, degraded=True,
+                          fault_hook=plant)
+    for r in replay:
+        deg.submit(r)
+    reset_launch_counts()
+    deg.run_until_done()
+    _sync(torch)
+    dcounts, devals = launch_counts(), deg.stats.denoise_steps
+    dwant = {name: 0 for name in SOURCES}
+    dwant.update(cim_gemm_int8_fused_qin=6 * L * devals,
+                 quantize_rows_int8=3 * L * devals,
+                 cim_gemm_int8_fused=4 * L * devals,
+                 flash_attention=L * devals, finite_screen=4 * L * devals)
+    statuses = [r.status.value for r in replay]
+    kept = all(np.array_equal(a.latents, b.latents)
+               for a, b in zip(replay, first) if a.ok)
+    say(f"[serve-dit] degraded batch with a NaN planted in request "
+        f"{replay[1].uid}'s latents: {statuses}, the others' latents "
+        f"{'bitwise the undegraded run' if kept else 'DIFFER'}; "
+        f"{sum(dcounts.values()) / (L * devals):g} launches per block per "
+        f"evaluation")
+    need(statuses == ["ok", "failed"] + ["ok"] * (DIT_BATCH - 2) and kept,
+         "serve-dit: the fault hook's NaN did not fail only its request")
+    need(dcounts == dwant, f"serve-dit: degraded launch counts {dcounts} "
+         f"!= {dwant}")
+    del deg
 
     # one evaluation, the kernel path against the plain path
     x = torch.cat([noise, noise])
@@ -3721,6 +4227,7 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     times_walks(torch, card)
     rows += times_ops(torch, card)
     times_flash_mla(torch, card)
+    rows.append(times_fallback(torch, card))
     out = []
     for r in rows:
         src, repl = SOURCES[r["name"]]
@@ -3891,6 +4398,7 @@ def main() -> int:
         phase_build()
         card = phase_card(torch)
         errs = phase_check(torch)
+        phase_check_fallback(torch, errs)
         phase_check_prefix(torch)
         ops_counts, ops_errs = phase_ops(torch)
         errs.update(ops_errs)
@@ -3904,6 +4412,7 @@ def main() -> int:
         phase_reference(torch, serve["model"], SEED)
         phase_profile(torch, serve["model"], SEED)
         long_counts = phase_forward_long(torch, serve["model"])
+        chaos_counts = phase_chaos(torch, serve)
         cfg = serve["model"].cfg
         ref_input = _reference_input(torch, cfg, SEED + 4)
         ref_logits = reference_logits(torch, serve["model"], ref_input)
@@ -3950,10 +4459,12 @@ def main() -> int:
         v3_counts, v3_forward, v3_steps = phase_serve_v3(torch)
         runs += [v3_counts, phase_serve_xlstm(torch)]
         counts = {k: sum(r[k] for r in runs) for k in counts}
-        need(all(v > 0 for k, v in counts.items() if k not in OPS_KERNELS),
+        need(all(v > 0 for k, v in counts.items()
+                 if k not in OPS_KERNELS + DEGRADED_KERNELS),
              f"a kernel was never launched by the serve runs: {counts}")
-        need(not any(counts[k] for k in OPS_KERNELS),
-             f"a serve run launched a kernel of the ops phase: {counts}")
+        need(not any(counts[k] for k in OPS_KERNELS + DEGRADED_KERNELS),
+             f"a serve run launched a kernel of the ops phase or of the "
+             f"degraded mode: {counts}")
         counts = {k: v + dit_counts[k] + zamba_counts[k]
                   for k, v in counts.items()}
         # kernel 14: the ops phase's own exact count; kernel 13: the ops
@@ -3961,6 +4472,7 @@ def main() -> int:
         # forward-long and serve-dit
         counts.update({k: ops_counts[k] for k in OPS_KERNELS})
         counts["ssd_scan"] += zamba_counts["ssd_scan"]
+        counts["finite_screen"] = chaos_counts["finite_screen"]
         counts["flash_attention"] = (long_counts["flash_attention"]
                                      + dit_counts["flash_attention"]
                                      + g3_forward["flash_attention"]

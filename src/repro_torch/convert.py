@@ -31,6 +31,13 @@ the config.
 port's :class:`~repro_torch.models.dit.DiTBlock` list, and quantized
 block leaves (the adaLN kernel q [d, 6d] with scale [6d], the attention
 and MLP leaves) cross over as ``QuantizedLinear`` modules.
+
+``quantized_paths(model)`` is the inverse map, kept beside the loaders
+so the two cannot drift apart: the reference's path of each stacked
+quantized leaf (``['group_0']['attn']['qkv']``,
+``['group_0']['moe']['shared']['down']``, ``['blocks']['adaln']['kernel']``)
+to the port's modules it stacks, in layer order (the fault campaigns of
+:mod:`repro_torch.reliability.faults` draw per stacked leaf).
 """
 from __future__ import annotations
 
@@ -223,3 +230,44 @@ def _check_scales(block: torch.nn.Module) -> None:
                 raise ValueError(f"{name}: reference scale shape "
                                  f"{tuple(leaf.scale.shape)} != port shape "
                                  f"{tuple(want)}")
+
+
+# ---------------------------------------------------------------------------
+# The reference's paths of the quantized leaves
+# ---------------------------------------------------------------------------
+def _leaf_paths(prefix: str, module: torch.nn.Module):
+    """(path, leaf) of every :class:`QuantizedLinear` under ``module``,
+    spelled as the reference's ``keystr`` spells its tree path."""
+    for name, sub in module.named_modules():
+        if isinstance(sub, QuantizedLinear):
+            yield prefix + "".join(f"['{p}']" for p in name.split(".")), sub
+
+
+def quantized_paths(model) -> dict[str, list[QuantizedLinear]]:
+    """The reference's ``keystr`` path of each stacked quantized leaf ->
+    the port's :class:`QuantizedLinear` modules it stacks, in layer
+    order: the inverse of the unstacking above.  An LM's group ``gi``
+    stacks its layers' leaves under ``['group_<gi>']['<mixer key>']...``
+    and ``['group_<gi>']['mlp' | 'moe']...`` (the MoE's shared MLP under
+    ``['moe']['shared']``); a DiT's blocks under ``['blocks']['attn' |
+    'mlp' | 'adaln']...``.  So a stacked leaf of the reference is
+    ``np.stack`` of these modules' tensors."""
+    out: dict[str, list[QuantizedLinear]] = {}
+    if isinstance(model, DiTModel):
+        parts = [("['blocks']", block, key) for block in model.blocks
+                 for key in ("attn", "mlp", "adaln")]
+    else:
+        parts, i = [], 0
+        for gi, (spec, count) in enumerate(model.cfg.layer_groups()):
+            for _ in range(count):
+                block = model.layers[i]
+                i += 1
+                parts.append((f"['group_{gi}']", block, MIXER_ATTR[spec[0]]))
+                if spec[1] != "none":
+                    parts.append((f"['group_{gi}']", block,
+                                  "moe" if spec[1] == "moe" else "mlp"))
+    for prefix, block, key in parts:
+        for path, leaf in _leaf_paths(f"{prefix}['{key}']",
+                                      getattr(block, key)):
+            out.setdefault(path, []).append(leaf)
+    return out

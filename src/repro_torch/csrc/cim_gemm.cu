@@ -158,6 +158,25 @@
 // bitwise quantize_rows_int8 of the f32 output, and resets the band's
 // maxima and counter to 0 for the next launch.  One launch, no block
 // waits on another.
+//
+// The degraded mode (src/repro/quant/linear.py:90-134, whose isfinite screen
+// and lax.cond have no Pallas kernel): finite_screen_kernel reduces a
+// layer's f32 output to one int32 flag on the device (1: a NaN or inf),
+// and the layer's fallback chain runs gated instantiations of the row
+// quantizer (rowquant_fallback_kernel) and of the body
+// (cim_gemm_i8_fallback_kernel, cim_gemm_i8_grouped_fallback_kernel, f32
+// epilogue) that take the flag's address: every block reads the flag
+// first and leaves at once when the screen passed, so a healthy step pays
+// the screen and launches that exit, with no host sync; when it tripped,
+// they read x, the scales, the bias and the residual through nan_to_num
+// (SAN; the int8 weights never) and the chain's last launch writes the
+// layer's output in place.  The fallback never fuses the requant (its
+// chain quantizes the hidden state with the gated row quantizer, the
+// same bits).  The ungated kernels are the same code as before: SAN is a
+// template argument, and their instantiations and argument structs are
+// unchanged.  The gated instantiations build from this source into a
+// library of their own (cim_gemm_fallback.cu defines CIM_GEMM_FALLBACK
+// and includes this file), in parallel with this one.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -197,6 +216,30 @@ __device__ __forceinline__ float row_scale(float amax) {
 __device__ __forceinline__ int quant1(float x, float scale) {
   float r = rintf(__fdiv_rn(x, scale));
   return (int)fminf(fmaxf(r, -127.0f), 127.0f);
+}
+
+// nan_to_num(v, 0, 0, 0): how the degraded fallback (SAN) reads a float
+// operand; opnd<false> is the plain read, so SAN false compiles to the
+// code it always was.
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+__device__ __forceinline__ float san(float v) {
+  return nonfinite(v) ? 0.0f : v;
+}
+template <bool SAN>
+__device__ __forceinline__ float opnd(float v) {
+  if constexpr (SAN)
+    return san(v);
+  else
+    return v;
+}
+template <bool SAN, int N>
+__device__ __forceinline__ void opnd_all(float (&f)[N]) {
+  if constexpr (SAN) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = san(f[i]);
+  }
 }
 
 __device__ __forceinline__ float activate(float x, int act) {
@@ -514,7 +557,7 @@ __device__ __forceinline__ void rq_load(Unit (&v)[RQ_V],
   }
 }
 
-template <int XE, bool VEC, typename Unit>
+template <int XE, bool VEC, bool SAN, typename Unit>
 __device__ __forceinline__ float rq_absmax(const Unit (&v)[RQ_V]) {
   float a = 0.0f;
 #pragma unroll
@@ -522,10 +565,11 @@ __device__ __forceinline__ float rq_absmax(const Unit (&v)[RQ_V]) {
     if constexpr (VEC) {
       float f[16 / XE];
       unpack16(v[j], f);
+      opnd_all<SAN>(f);
 #pragma unroll
       for (int i = 0; i < 16 / XE; ++i) a = fmaxf(a, fabsf(f[i]));
     } else {
-      a = fmaxf(a, fabsf(v[j]));
+      a = fmaxf(a, fabsf(opnd<SAN>(v[j])));
     }
   }
   return a;
@@ -533,7 +577,7 @@ __device__ __forceinline__ float rq_absmax(const Unit (&v)[RQ_V]) {
 
 // The codes of the units rq_load gave, with the row's scale s (r = 1 / s
 // correctly rounded), to qr (the row's first code).
-template <int XE, bool VEC, typename Unit>
+template <int XE, bool VEC, bool SAN, typename Unit>
 __device__ __forceinline__ void rq_store(const Unit (&v)[RQ_V], int8_t* qr,
                                          int i0, int G, int n, float s,
                                          float r) {
@@ -542,10 +586,11 @@ __device__ __forceinline__ void rq_store(const Unit (&v)[RQ_V], int8_t* qr,
     const int i = i0 + j * G;
     if (i >= n) continue;
     if constexpr (!VEC) {
-      qr[i] = (int8_t)quant1(v[j], s);
+      qr[i] = (int8_t)quant1(opnd<SAN>(v[j]), s);
     } else {
       float f[16 / XE];
       unpack16(v[j], f);
+      opnd_all<SAN>(f);
       if constexpr (XE == 4)
         reinterpret_cast<uint32_t*>(qr)[i] = quant4(f, s, r);
       else
@@ -559,11 +604,13 @@ __device__ __forceinline__ void rq_store(const Unit (&v)[RQ_V], int8_t* qr,
 // takes row m, in units of 16 bytes when VEC, else single values.  A
 // thread holds RQ_V units of the row at a time: when the row is longer
 // than blockDim RQ_V units, the first pass walks it for the |max| and the
-// second reads all but the last chunk again.
-template <int XE, bool VEC>
-__global__ void __launch_bounds__(RQ_MAX_NT)
-rowquant_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
-                float* __restrict__ scale, int K) {
+// second reads all but the last chunk again.  SAN reads x through
+// nan_to_num (the degraded fallback).
+template <int XE, bool VEC, bool SAN>
+__device__ __forceinline__ void rowquant_rows(const void* __restrict__ x,
+                                              int8_t* __restrict__ q,
+                                              float* __restrict__ scale,
+                                              int K) {
   using Unit = typename std::conditional<VEC, uint4, float>::type;
   constexpr int PER = VEC ? 16 / XE : 1;  // values of a unit
   __shared__ float s_warp[32];
@@ -579,7 +626,7 @@ rowquant_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
   float amx = 0.0f;
   for (int c = 0; c < nch; ++c) {
     rq_load<XE, VEC>(v, xr, c * chunk + tid, G, n);
-    amx = fmaxf(amx, rq_absmax<XE, VEC>(v));
+    amx = fmaxf(amx, rq_absmax<XE, VEC, SAN>(v));
   }
   // the row's |max|: the block's lanes, then its warps
 #pragma unroll
@@ -592,9 +639,27 @@ rowquant_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
   const float s = row_scale(amx), r = __frcp_rn(s);
   for (int c = nch - 1; c >= 0; --c) {
     if (c != nch - 1) rq_load<XE, VEC>(v, xr, c * chunk + tid, G, n);
-    rq_store<XE, VEC>(v, qr, c * chunk + tid, G, n, s, r);
+    rq_store<XE, VEC, SAN>(v, qr, c * chunk + tid, G, n, s, r);
   }
   if (tid == 0) scale[m] = s;
+}
+
+template <int XE, bool VEC>
+__global__ void __launch_bounds__(RQ_MAX_NT)
+rowquant_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
+                float* __restrict__ scale, int K) {
+  rowquant_rows<XE, VEC, false>(x, q, scale, K);
+}
+
+// The degraded fallback of the row quantizer: nothing when the screen's
+// flag (*gate) is 0 (passed); else the rows of nan_to_num(x).
+template <int XE, bool VEC>
+__global__ void __launch_bounds__(RQ_MAX_NT)
+rowquant_fallback_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
+                         float* __restrict__ scale, int K,
+                         const int* __restrict__ gate) {
+  if (*gate == 0) return;
+  rowquant_rows<XE, VEC, true>(x, q, scale, K);
 }
 
 // Quantize-in: the |max| of x rows m0 .. m0 + rows - 1 (0 past M) over
@@ -602,7 +667,7 @@ rowquant_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
 // w takes rows w, w + 8, ..., two at a time, its lanes 16-byte loads along
 // the rows (8 a row in flight) when x16, else single values: the band's
 // rows come from L2, and the loads in flight set the pace.
-template <int XE>
+template <int XE, bool SAN>
 __device__ __forceinline__ void qin_row_max(const I8Args& a, int m0,
                                             int rows, int k_lo, int kend,
                                             unsigned int* s_part, int tid) {
@@ -637,6 +702,7 @@ __device__ __forceinline__ void qin_row_max(const I8Args& a, int m0,
           for (int u = 0; u < U; ++u) {
             float f[VEC];
             unpack16(v[h][u], f);
+            opnd_all<SAN>(f);
 #pragma unroll
             for (int j = 0; j < VEC; ++j) amx[h] = fmaxf(amx[h], fabsf(f[j]));
           }
@@ -646,7 +712,8 @@ __device__ __forceinline__ void qin_row_max(const I8Args& a, int m0,
       for (int h = 0; h < 2; ++h)
         if (live[h])
           for (int k = lane; k < kend - k_lo; k += 32)
-            amx[h] = fmaxf(amx[h], fabsf(load_x<XE>(x_in(a), base[h] + k)));
+            amx[h] = fmaxf(amx[h],
+                           fabsf(opnd<SAN>(load_x<XE>(x_in(a), base[h] + k))));
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -686,7 +753,7 @@ __device__ __forceinline__ void qin_scales(cg::cluster_group& cluster, int C,
 // k_lo + cols - 1 (zero at or past kend), quantized with the rows' scales
 // into the rank's activation slice (row pitch ``pitch``), four codes a
 // 32-bit word, four words a thread in flight.
-template <int XE>
+template <int XE, bool SAN>
 __device__ __forceinline__ void qin_stage_slice(unsigned char* dst, int pitch,
                                                 const I8Args& a, int rows,
                                                 int cols, int k_lo, int kend,
@@ -730,6 +797,7 @@ __device__ __forceinline__ void qin_stage_slice(unsigned char* dst, int pitch,
       if (i < total) {
         const int r = i / wpr;
         const float s = s_scale[r];
+        opnd_all<SAN>(v[u]);
         *reinterpret_cast<uint32_t*>(dst + r * pitch + 4 * (i % wpr)) =
             quant4(v[u], s, __frcp_rn(s));
       }
@@ -772,7 +840,7 @@ __device__ __forceinline__ void copy_xraw(unsigned char* dst, const I8Args& a,
 // copy_xraw lays them out) quantized with the rows' scales into the int8
 // tile the mma reads (dst, swizzled as copy_x<true> lays a stage out), a
 // 16-byte chunk (4 or 8 values) a thread at a time.
-template <int XE>
+template <int XE, bool SAN>
 __device__ __forceinline__ void qin_quantize_tile(const unsigned char* src,
                                                   unsigned char* dst,
                                                   const float* s_scale,
@@ -783,6 +851,7 @@ __device__ __forceinline__ void qin_quantize_tile(const unsigned char* src,
     const int r = i / CPR, k = VEC * (i % CPR);
     float f[VEC];
     unpack16(*reinterpret_cast<const uint4*>(src + 16 * i), f);
+    opnd_all<SAN>(f);
     const float s = s_scale[r], rs = __frcp_rn(s);
     unsigned char* d = dst + r * PBK + 16 * ((k >> 4) ^ xswz(r)) + (k & 15);
     if constexpr (VEC == 4)
@@ -815,18 +884,19 @@ __device__ __forceinline__ void load_step(unsigned char* smem, int st,
 
 // dequant, bias, activation, residual in the reference's order, each
 // product and sum rounded on its own (EPI_F32 and EPI_QOUT); xs is the
-// row's scale
+// row's scale.  SAN reads the operands through nan_to_num.
+template <bool SAN>
 __device__ __forceinline__ float i8_epilogue(const I8Args& a, float xs,
                                              int tot, int gm, int gn) {
-  float y = __fmul_rn(__fmul_rn((float)tot, xs), a.ws[gn]);
-  if (a.bias != nullptr) y = __fadd_rn(y, a.bias[gn]);
+  float y = __fmul_rn(__fmul_rn((float)tot, xs), opnd<SAN>(a.ws[gn]));
+  if (a.bias != nullptr) y = __fadd_rn(y, opnd<SAN>(a.bias[gn]));
   y = activate(y, a.act);
   const int64_t o = (int64_t)gm * a.N + gn;
   if (a.res_kind == 1)
-    y = __fadd_rn(y, static_cast<const float*>(a.res)[o]);
+    y = __fadd_rn(y, opnd<SAN>(static_cast<const float*>(a.res)[o]));
   else if (a.res_kind == 2)
-    y = __fadd_rn(
-        y, __bfloat162float(static_cast<const __nv_bfloat16*>(a.res)[o]));
+    y = __fadd_rn(y, opnd<SAN>(__bfloat162float(
+                         static_cast<const __nv_bfloat16*>(a.res)[o])));
   return y;
 }
 
@@ -835,19 +905,20 @@ __device__ __forceinline__ float i8_epilogue(const I8Args& a, float xs,
 // act(acc_g xs gs) * (acc_u xs us) as the reference's _cim_gated_kernel
 // orders it, or i8_epilogue with the row's scale from xs (from the
 // quantize-in scales s_scale).
-template <int VAR>
+template <int VAR, bool SAN>
 __device__ __forceinline__ float i8_out(const I8Args& a,
                                         const float* s_scale, int t0, int t1,
                                         int lm, int gm, int gn) {
   if constexpr (VAR == V_GATED) {
-    const float xs = a.xs[gm];
-    const float g = __fmul_rn(__fmul_rn((float)t0, xs), a.ws[gn]);
-    const float u = __fmul_rn(__fmul_rn((float)t1, xs), s_up(a)[gn]);
+    const float xs = opnd<SAN>(a.xs[gm]);
+    const float g = __fmul_rn(__fmul_rn((float)t0, xs), opnd<SAN>(a.ws[gn]));
+    const float u =
+        __fmul_rn(__fmul_rn((float)t1, xs), opnd<SAN>(s_up(a)[gn]));
     return __fmul_rn(activate(g, a.act), u);
   } else if constexpr (var_qin(VAR)) {
-    return i8_epilogue(a, s_scale[lm], t0, gm, gn);
+    return i8_epilogue<SAN>(a, s_scale[lm], t0, gm, gn);
   } else {
-    return i8_epilogue(a, a.xs[gm], t0, gm, gn);
+    return i8_epilogue<SAN>(a, opnd<SAN>(a.xs[gm]), t0, gm, gn);
   }
 }
 
@@ -907,8 +978,10 @@ __device__ __forceinline__ void i8_requant(const I8Args& a, unsigned char* tl,
 // attribute, 1 to 8) shares one output tile and splits its K steps: rank r
 // takes steps [r steps / C, (r + 1) steps / C) of the ceil(K / BK); rank 0
 // sums the ranks' int32 partials through distributed shared memory and
-// runs the epilogue.
-template <int EPI, int SHAPE, int VAR>
+// runs the epilogue.  SAN (the degraded fallback) reads every float
+// operand through nan_to_num: x (quantize-in), the row and weight scales,
+// the bias and the residual.
+template <int EPI, int SHAPE, int VAR, bool SAN = false>
 __device__ __forceinline__ void i8_body(const I8Args& a) {
   constexpr bool DEC = SHAPE != PRE;
   constexpr bool QIN = var_qin(VAR);
@@ -967,11 +1040,11 @@ __device__ __forceinline__ void i8_body(const I8Args& a) {
     // the rows' scales while the first stages fly; the decode tile then
     // quantizes its x slice once
     constexpr int ROWS = DEC ? MR : PBM;
-    qin_row_max<XE>(a, m0, ROWS, k_lo, kend, s_part, tid);
+    qin_row_max<XE, SAN>(a, m0, ROWS, k_lo, kend, s_part, tid);
     qin_scales(cluster, C, s_part, s_xs, ROWS, tid);
     if constexpr (DEC)
-      qin_stage_slice<XE>(smem + L.x, L.x_pitch, a, MR, L.x_pitch - 16, k_lo,
-                          kend, s_xs, tid);
+      qin_stage_slice<XE, SAN>(smem + L.x, L.x_pitch, a, MR, L.x_pitch - 16,
+                               k_lo, kend, s_xs, tid);
   }
 
   // decode: warp (wk, wn) takes stage rows 32 KSW wk .. + 32 KSW - 1 and
@@ -1081,8 +1154,8 @@ __device__ __forceinline__ void i8_body(const I8Args& a) {
       if constexpr (QIN) {
         // this step's x tile into int8 (the tile was last read by the
         // step before, which every warp has left)
-        qin_quantize_tile<XE>(smem + (it % NST) * STAGE, smem + L.x, s_xs,
-                              tid);
+        qin_quantize_tile<XE, SAN>(smem + (it % NST) * STAGE, smem + L.x,
+                                   s_xs, tid);
         __syncthreads();
       }
       const uint32_t xb = QIN ? smem_u32(smem + L.x) : sb;
@@ -1176,7 +1249,8 @@ __device__ __forceinline__ void i8_body(const I8Args& a) {
       } else {
         float y = 0.0f;
         if (valid) {
-          y = i8_out<VAR>(a, s_xs, tot[0][i], tot[NW - 1][i], m, m, gn);
+          y = i8_out<VAR, SAN>(a, s_xs, tot[0][i], tot[NW - 1][i], m, m,
+                               gn);
           static_cast<float*>(a.out)[o] = y;
         }
         if constexpr (EPI == EPI_QOUT) {
@@ -1300,8 +1374,8 @@ __device__ __forceinline__ void i8_body(const I8Args& a) {
               const int c = 4 * hh + q;
               y[q] = 0.0f;
               if (gm < a.M && gn0 + c < a.N) {
-                y[q] = i8_out<VAR>(a, s_xs, v[0][c], v[1][c], lm, gm,
-                                   gn0 + c);
+                y[q] = i8_out<VAR, SAN>(a, s_xs, v[0][c], v[1][c], lm, gm,
+                                        gn0 + c);
                 mx = fmaxf(mx, fabsf(y[q]));
               }
             }
@@ -1328,8 +1402,8 @@ __device__ __forceinline__ void i8_body(const I8Args& a) {
           for (int q = 0; q < 8; ++q) {
             y[q] = 0.0f;
             if (gm < a.M && gn0 + q < a.N) {
-              y[q] = i8_out<VAR>(a, s_xs, v[0][q], v[NW - 1][q], lm, gm,
-                                 gn0 + q);
+              y[q] = i8_out<VAR, SAN>(a, s_xs, v[0][q], v[NW - 1][q], lm,
+                                      gm, gn0 + q);
               mx = fmaxf(mx, fabsf(y[q]));
             }
           }
@@ -1369,6 +1443,17 @@ cim_gemm_i8_kernel(const I8Args a) {
   i8_body<EPI, SHAPE, VAR>(a);
 }
 
+// The degraded fallback of the dense GEMMs (f32 epilogue): every block
+// leaves at once when the screen's flag (*gate) is 0 (passed); else the
+// body on operands read through nan_to_num.  One block an SM: the
+// sanitizing reads must not spill, and the path runs only on a fault.
+template <int SHAPE, int VAR>
+__global__ void __launch_bounds__(I8_NT, 1)
+cim_gemm_i8_fallback_kernel(const I8Args a, const int* __restrict__ gate) {
+  if (*gate == 0) return;
+  i8_body<EPI_F32, SHAPE, VAR, true>(a);
+}
+
 // The grouped GEMMs, a block of an idle expert (count 0) where the
 // epilogue gives zero accumulators +0 (the gated pair: act(+0) * (+0);
 // kernel 7 without a bias: act(+0), the scales of the reference being
@@ -1405,9 +1490,9 @@ __device__ __forceinline__ void i8_idle(const I8Args& a) {
 // null.  ``a`` holds expert 0's operands in the variant's fields.  Two
 // blocks an SM on the decode tiles; one on the prefill tile, where the
 // expert's operands leave the gated body no registers to spare at two.
-template <int EPI, int SHAPE, int VAR>
-__global__ void __launch_bounds__(I8_NT, SHAPE == PRE ? 1 : 2)
-cim_gemm_i8_grouped_kernel(const I8Args a, const int* __restrict__ counts) {
+template <int EPI, int SHAPE, int VAR, bool SAN>
+__device__ __forceinline__ void i8_grouped(const I8Args& a,
+                                           const int* __restrict__ counts) {
   const int e = (int)blockIdx.z;
   const int64_t kn = (int64_t)a.K * a.N, mn = (int64_t)a.M * a.N;
   I8Args b = a;
@@ -1437,8 +1522,64 @@ cim_gemm_i8_grouped_kernel(const I8Args a, const int* __restrict__ counts) {
     // no weight byte and runs the epilogue on zero accumulators
     b.K = 0;
   }
-  i8_body<EPI, SHAPE, VAR>(b);
+  i8_body<EPI, SHAPE, VAR, SAN>(b);
 }
+
+template <int EPI, int SHAPE, int VAR>
+__global__ void __launch_bounds__(I8_NT, SHAPE == PRE ? 1 : 2)
+cim_gemm_i8_grouped_kernel(const I8Args a, const int* __restrict__ counts) {
+  i8_grouped<EPI, SHAPE, VAR, false>(a, counts);
+}
+
+// The degraded fallback of the grouped GEMMs (f32 epilogue), gated as
+// cim_gemm_i8_fallback_kernel; the skip list stays.
+template <int SHAPE, int VAR>
+__global__ void __launch_bounds__(I8_NT, 1)
+cim_gemm_i8_grouped_fallback_kernel(const I8Args a,
+                                    const int* __restrict__ counts,
+                                    const int* __restrict__ gate) {
+  if (*gate == 0) return;
+  i8_grouped<EPI_F32, SHAPE, VAR, true>(a, counts);
+}
+
+#ifndef CIM_GEMM_FALLBACK
+// The degraded mode's screen: flag[0] = 1 when any of x[0 .. n) (f32, in
+// float4s when vec) is NaN or +-inf, else 0, in one launch.  Each block
+// ORs its verdict into ws[0] and counts itself in ws[1]; the last block to
+// arrive writes the flag, adds a trip to ws[2] (read by the host after a
+// run) and leaves ws[0] and ws[1] zero for the next launch.
+constexpr int SCREEN_NT = 256;
+__global__ void __launch_bounds__(SCREEN_NT)
+finite_screen_kernel(const float* __restrict__ x, int64_t n, int vec,
+                     int* __restrict__ flag, unsigned int* ws) {
+  bool bad = false;
+  const int64_t stride = (int64_t)gridDim.x * SCREEN_NT;
+  const int64_t i0 = (int64_t)blockIdx.x * SCREEN_NT + threadIdx.x;
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (int64_t i = i0; i < n / 4; i += stride) {
+      const float4 v = __ldg(x4 + i);
+      bad |= nonfinite(v.x) || nonfinite(v.y) || nonfinite(v.z) ||
+             nonfinite(v.w);
+    }
+  } else {
+    for (int64_t i = i0; i < n; i += stride) {
+      const float v = __ldg(x + i);
+      bad |= nonfinite(v);
+    }
+  }
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x != 0) return;
+  if (bad) atomicOr(&ws[0], 1u);
+  __threadfence();
+  if (atomicAdd(&ws[1], 1u) != gridDim.x - 1) return;
+  __threadfence();
+  const unsigned int tripped = atomicExch(&ws[0], 0u);
+  *flag = (int)tripped;
+  if (tripped) atomicAdd(&ws[2], 1u);
+  atomicExch(&ws[1], 0u);
+}
+#endif  // CIM_GEMM_FALLBACK
 
 // A launch of ``grid`` blocks of ``threads`` in clusters of C along x.
 template <typename... P, typename... A>
@@ -1482,6 +1623,42 @@ cudaError_t i8_run(const I8Args& a, int shape, int C, int smem,
   return i8_launch<EPI, PRE, VAR>(a, C, smem, st);
 }
 
+#ifdef CIM_GEMM_FALLBACK
+// the degraded fallback (gate: the screen's flag)
+template <int VAR>
+cudaError_t i8_fallback_run(const I8Args& a, int shape, int C, int smem,
+                            cudaStream_t st, const int* gate) {
+  if (shape == DEC8)
+    return launch_clustered(cim_gemm_i8_fallback_kernel<DEC8, VAR>,
+                            i8_grid<DEC8, VAR>(a, C, 1), I8_NT, C, smem, st,
+                            a, gate);
+  if (shape == DEC16)
+    return launch_clustered(cim_gemm_i8_fallback_kernel<DEC16, VAR>,
+                            i8_grid<DEC16, VAR>(a, C, 1), I8_NT, C, smem, st,
+                            a, gate);
+  return launch_clustered(cim_gemm_i8_fallback_kernel<PRE, VAR>,
+                          i8_grid<PRE, VAR>(a, C, 1), I8_NT, C, smem, st, a,
+                          gate);
+}
+
+template <int VAR>
+cudaError_t i8_grouped_fallback_run(const I8Args& a, const int* counts,
+                                    int E, int shape, int C, int smem,
+                                    cudaStream_t st, const int* gate) {
+  if (shape == DEC8)
+    return launch_clustered(cim_gemm_i8_grouped_fallback_kernel<DEC8, VAR>,
+                            i8_grid<DEC8, VAR>(a, C, E), I8_NT, C, smem, st,
+                            a, counts, gate);
+  if (shape == DEC16)
+    return launch_clustered(cim_gemm_i8_grouped_fallback_kernel<DEC16, VAR>,
+                            i8_grid<DEC16, VAR>(a, C, E), I8_NT, C, smem, st,
+                            a, counts, gate);
+  return launch_clustered(cim_gemm_i8_grouped_fallback_kernel<PRE, VAR>,
+                          i8_grid<PRE, VAR>(a, C, E), I8_NT, C, smem, st, a,
+                          counts, gate);
+}
+#endif  // CIM_GEMM_FALLBACK
+
 template <int EPI, int VAR>
 cudaError_t i8_grouped_run(const I8Args& a, const int* counts, int E,
                            int shape, int C, int smem, cudaStream_t st) {
@@ -1504,6 +1681,26 @@ cudaError_t opt_in_smem(void (*kernel)(P...)) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, I8_MAX_SMEM);
 }
 
+#ifdef CIM_GEMM_FALLBACK
+template <int VAR>
+cudaError_t i8_opt_in_fallback() {
+  cudaError_t e = opt_in_smem(cim_gemm_i8_fallback_kernel<DEC8, VAR>);
+  if (e == cudaSuccess)
+    e = opt_in_smem(cim_gemm_i8_fallback_kernel<DEC16, VAR>);
+  if (e == cudaSuccess)
+    e = opt_in_smem(cim_gemm_i8_fallback_kernel<PRE, VAR>);
+  if constexpr (VAR == V_I8 || VAR == V_GATED) {
+    if (e == cudaSuccess)
+      e = opt_in_smem(cim_gemm_i8_grouped_fallback_kernel<DEC8, VAR>);
+    if (e == cudaSuccess)
+      e = opt_in_smem(cim_gemm_i8_grouped_fallback_kernel<DEC16, VAR>);
+    if (e == cudaSuccess)
+      e = opt_in_smem(cim_gemm_i8_grouped_fallback_kernel<PRE, VAR>);
+  }
+  return e;
+}
+#endif  // CIM_GEMM_FALLBACK
+
 template <int EPI, int VAR>
 cudaError_t i8_opt_in_one() {
   cudaError_t e = opt_in_smem(cim_gemm_i8_kernel<EPI, DEC8, VAR>);
@@ -1520,14 +1717,20 @@ cudaError_t i8_opt_in_one() {
   return e;
 }
 
-// The opt-in above 48 KB, for every instantiation at the largest size,
-// once per device at its first launch: no later launch (inside a graph
-// capture) needs it.
+// The opt-in above 48 KB, for every instantiation of this library at the
+// largest size, once per device at its first launch: no later launch
+// (inside a graph capture) needs it.
 cudaError_t i8_opt_in() {
   static bool granted[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || granted[dev % 64]) return e;
+#ifdef CIM_GEMM_FALLBACK
+  e = i8_opt_in_fallback<V_I8>();
+  if (e == cudaSuccess) e = i8_opt_in_fallback<V_GATED>();
+  if (e == cudaSuccess) e = i8_opt_in_fallback<V_QF32>();
+  if (e == cudaSuccess) e = i8_opt_in_fallback<V_QBF16>();
+#else
   e = i8_opt_in_one<EPI_F32, V_I8>();
   if (e == cudaSuccess) e = i8_opt_in_one<EPI_QOUT, V_I8>();
   if (e == cudaSuccess) e = i8_opt_in_one<EPI_ACC, V_I8>();
@@ -1535,6 +1738,7 @@ cudaError_t i8_opt_in() {
   if (e == cudaSuccess) e = i8_opt_in_one<EPI_QOUT, V_GATED>();
   if (e == cudaSuccess) e = i8_opt_in_one<EPI_F32, V_QF32>();
   if (e == cudaSuccess) e = i8_opt_in_one<EPI_F32, V_QBF16>();
+#endif
   if (e == cudaSuccess) granted[dev % 64] = true;
   return e;
 }
@@ -1572,6 +1776,19 @@ I8Args i8_args(const void* x, const void* xs, const void* w, const void* ws,
 
 }  // namespace
 
+// The entry points of the two libraries built from this source: this
+// file (cim_gemm) launches the kernels with a null ``gate``, and
+// cim_gemm_fallback.cu, which defines CIM_GEMM_FALLBACK and includes it,
+// the degraded fallback's gated instantiations with a given one (its
+// entry names end in _fallback).  Each library instantiates only its own
+// kernels, so the two build in parallel and the kernels with a null gate
+// are the code they were.
+#ifdef CIM_GEMM_FALLBACK
+#define CIM_ENTRY(name) name##_fallback
+#else
+#define CIM_ENTRY(name) name
+#endif
+
 // x_kind / res_kind: 1 = float32, 2 = bfloat16 (res_kind 0 = none).
 // act: 0 none, 1 gelu (tanh), 2 silu, 3 relu.
 // Each entry point returns cudaGetLastError() after its launch.
@@ -1579,10 +1796,13 @@ extern "C" {
 
 // The row quantizer under the wrapper's plan (rowquant_plan): one block
 // of ``threads`` a row, 16-byte units when ``vec`` (K x_bytes % 16 == 0,
-// x 16-byte aligned).
-int cim_quantize_rows_int8(const void* x, int x_kind, void* q, void* scale,
-                           int M, int K, int threads, int vec,
-                           void* stream) {
+// x 16-byte aligned).  With ``gate`` (the screen's int32 flag on the
+// device) the degraded fallback: nothing when the flag is 0, else the
+// rows of nan_to_num(x).
+int CIM_ENTRY(cim_quantize_rows_int8)(const void* x, int x_kind, void* q,
+                                      void* scale, int M, int K, int threads,
+                                      int vec, const void* gate,
+                                      void* stream) {
   const int xe = x_kind == 1 ? 4 : 2;
   if ((x_kind != 1 && x_kind != 2) || M < 1 || K < 1 || threads < 32 ||
       threads % 32 || threads > RQ_MAX_NT ||
@@ -1592,6 +1812,19 @@ int cim_quantize_rows_int8(const void* x, int x_kind, void* q, void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* q8 = static_cast<int8_t*>(q);
   float* s = static_cast<float*>(scale);
+#ifdef CIM_GEMM_FALLBACK
+  const int* g = static_cast<const int*>(gate);
+  if (g == nullptr) return (int)cudaErrorInvalidValue;
+  if (xe == 4 && vec)
+    rowquant_fallback_kernel<4, true><<<M, threads, 0, st>>>(x, q8, s, K, g);
+  else if (xe == 4)
+    rowquant_fallback_kernel<4, false><<<M, threads, 0, st>>>(x, q8, s, K, g);
+  else if (vec)
+    rowquant_fallback_kernel<2, true><<<M, threads, 0, st>>>(x, q8, s, K, g);
+  else
+    rowquant_fallback_kernel<2, false><<<M, threads, 0, st>>>(x, q8, s, K, g);
+#else
+  if (gate != nullptr) return (int)cudaErrorInvalidValue;
   if (xe == 4) {
     if (vec) rowquant_kernel<4, true><<<M, threads, 0, st>>>(x, q8, s, K);
     else rowquant_kernel<4, false><<<M, threads, 0, st>>>(x, q8, s, K);
@@ -1599,6 +1832,7 @@ int cim_quantize_rows_int8(const void* x, int x_kind, void* q, void* scale,
     if (vec) rowquant_kernel<2, true><<<M, threads, 0, st>>>(x, q8, s, K);
     else rowquant_kernel<2, false><<<M, threads, 0, st>>>(x, q8, s, K);
   }
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -1610,13 +1844,18 @@ int cim_quantize_rows_int8(const void* x, int x_kind, void* q, void* scale,
 // [M, N], qs [M], amax [M] and arrive [one a row band] given, zeros) or,
 // with acc (variant 0), the exact int32 sum in out [M, N].  shape (0/1
 // decode at 8/16 rows, 2 prefill), cluster and smem are the wrapper's plan
-// (gemm_plan); N % 4 == 0.
-int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
-                       const void* ws, const void* w2, const void* ws2,
-                       const void* bias, const void* res, int res_kind,
-                       int act, int acc, void* out, void* q, void* qs,
-                       void* amax, void* arrive, int M, int K, int N, int var,
-                       int shape, int cluster, int smem, void* stream) {
+// (gemm_plan); N % 4 == 0.  With ``gate`` (the screen's int32 flag on the
+// device; f32 epilogue only) the degraded fallback: every block leaves
+// when the flag is 0, else the body on operands read through nan_to_num.
+int CIM_ENTRY(cim_gemm_i8_launch)(const void* x, const void* xs,
+                                  const void* w, const void* ws,
+                                  const void* w2, const void* ws2,
+                                  const void* bias, const void* res,
+                                  int res_kind, int act, int acc, void* out,
+                                  void* q, void* qs, void* amax,
+                                  void* arrive, int M, int K, int N, int var,
+                                  int shape, int cluster, int smem,
+                                  const void* gate, void* stream) {
   const bool qin = var_qin(var);
   if (var < V_I8 || var > V_QBF16 || shape < DEC8 || shape > PRE || M < 1 ||
       K < 1 || N < 1 || N % 4 || (shape != PRE && M > 8 * (shape + 1)) ||
@@ -1626,11 +1865,28 @@ int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
     return (int)cudaErrorInvalidValue;
   if (var == V_GATED && (bias != nullptr || res != nullptr || res_kind))
     return (int)cudaErrorInvalidValue;
+#ifdef CIM_GEMM_FALLBACK
+  if (gate == nullptr || acc || q != nullptr)
+    return (int)cudaErrorInvalidValue;
+#else
+  if (gate != nullptr) return (int)cudaErrorInvalidValue;
+#endif
   const I8Args a = i8_args(x, xs, w, ws, w2, ws2, bias, res, res_kind, act,
                            out, q, qs, amax, arrive, M, K, N, var);
   cudaError_t e = i8_opt_in();
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef CIM_GEMM_FALLBACK
+  const int* g = static_cast<const int*>(gate);
+  if (var == V_GATED)
+    e = i8_fallback_run<V_GATED>(a, shape, cluster, smem, st, g);
+  else if (var == V_QF32)
+    e = i8_fallback_run<V_QF32>(a, shape, cluster, smem, st, g);
+  else if (var == V_QBF16)
+    e = i8_fallback_run<V_QBF16>(a, shape, cluster, smem, st, g);
+  else
+    e = i8_fallback_run<V_I8>(a, shape, cluster, smem, st, g);
+#else
   if (acc)
     e = i8_run<EPI_ACC, V_I8>(a, shape, cluster, smem, st);
   else if (q != nullptr && var == V_GATED)
@@ -1645,6 +1901,7 @@ int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
     e = i8_run<EPI_F32, V_QBF16>(a, shape, cluster, smem, st);
   else
     e = i8_run<EPI_F32, V_I8>(a, shape, cluster, smem, st);
+#endif
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1656,13 +1913,17 @@ int cim_gemm_i8_launch(const void* x, const void* xs, const void* w,
 // (no skip list); the f32 output out [E, M, N] (q null), or the requant
 // (q [E, M, N], qs [E, M], amax [E M] and arrive [E x row bands] given,
 // zeros; out the scratch).  shape, cluster and smem are the wrapper's
-// plan (grouped_plan); N % 4 == 0.
-int cim_grouped_i8_launch(const void* x, const void* xs, const void* w,
-                          const void* ws, const void* w2, const void* ws2,
-                          const void* bias, const void* counts, int act,
-                          void* out, void* q, void* qs, void* amax,
-                          void* arrive, int E, int M, int K, int N, int var,
-                          int shape, int cluster, int smem, void* stream) {
+// plan (grouped_plan); N % 4 == 0.  ``gate`` as in cim_gemm_i8_launch (f32
+// output only).
+int CIM_ENTRY(cim_grouped_i8_launch)(const void* x, const void* xs,
+                                     const void* w, const void* ws,
+                                     const void* w2, const void* ws2,
+                                     const void* bias, const void* counts,
+                                     int act, void* out, void* q, void* qs,
+                                     void* amax, void* arrive, int E, int M,
+                                     int K, int N, int var, int shape,
+                                     int cluster, int smem, const void* gate,
+                                     void* stream) {
   if ((var != V_I8 && var != V_GATED) || E < 1 || E > 65535 ||
       shape < DEC8 || shape > PRE || M < 1 || K < 1 || N < 1 || N % 4 ||
       (shape != PRE && M > 8 * (shape + 1)) || cluster < 1 || cluster > 8 ||
@@ -1670,12 +1931,25 @@ int cim_grouped_i8_launch(const void* x, const void* xs, const void* w,
       (var == V_GATED && bias != nullptr) ||
       smem < i8_layout(shape, var, K, cluster).total || smem > I8_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
+#ifdef CIM_GEMM_FALLBACK
+  if (gate == nullptr || q != nullptr) return (int)cudaErrorInvalidValue;
+#else
+  if (gate != nullptr) return (int)cudaErrorInvalidValue;
+#endif
   const I8Args a = i8_args(x, xs, w, ws, w2, ws2, bias, nullptr, 0, act, out,
                            q, qs, amax, arrive, M, K, N, var);
   cudaError_t e = i8_opt_in();
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(counts);
+#ifdef CIM_GEMM_FALLBACK
+  const int* g = static_cast<const int*>(gate);
+  e = var == V_GATED
+          ? i8_grouped_fallback_run<V_GATED>(a, c, E, shape, cluster, smem,
+                                             st, g)
+          : i8_grouped_fallback_run<V_I8>(a, c, E, shape, cluster, smem, st,
+                                          g);
+#else
   if (var == V_GATED)
     e = q != nullptr
             ? i8_grouped_run<EPI_QOUT, V_GATED>(a, c, E, shape, cluster,
@@ -1688,7 +1962,33 @@ int cim_grouped_i8_launch(const void* x, const void* xs, const void* w,
                                              st)
             : i8_grouped_run<EPI_F32, V_I8>(a, c, E, shape, cluster, smem,
                                             st);
+#endif
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+#ifdef CIM_GEMM_FALLBACK
+const char* cim_gemm_fallback_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+#else
+// The degraded mode's screen over x [n] f32 (n >= 1): flag [1] int32 gets
+// 1 when any value is NaN or +-inf, else 0.  ws: 3 unsigned words on the
+// device, zero before the first launch (every launch leaves ws[0] and
+// ws[1] zero); ws[2] counts the screens that tripped.
+int cim_finite_screen(const void* x, int64_t n, void* flag, void* ws,
+                      void* stream) {
+  if (n < 1 || flag == nullptr || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int64_t units = vec ? n / 4 : n;
+  // about 8 units a thread, at most 4 blocks an SM
+  const int64_t want = (units + 8 * SCREEN_NT - 1) / (8 * SCREEN_NT);
+  const int blocks = (int)(want < 528 ? want : 528);
+  finite_screen_kernel<<<blocks, SCREEN_NT, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, vec, static_cast<int*>(flag),
+      static_cast<unsigned int*>(ws));
   return (int)cudaGetLastError();
 }
 
@@ -1700,5 +2000,6 @@ int cim_gemm_i8_smem_bytes(int shape, int var, int K, int cluster) {
 const char* cim_gemm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif  // CIM_GEMM_FALLBACK
 
 }  // extern "C"

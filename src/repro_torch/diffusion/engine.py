@@ -25,14 +25,16 @@ the same request (same distribution).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.quant import degraded_mode
 from repro_torch.serving.lifecycle import (EngineStallError, LifecycleMixin,
                                            RequestStatus)
 from .sampler import DEFAULT_SCHEDULE, DiffusionSchedule, sample
@@ -73,15 +75,23 @@ class DiffusionStats:
 class DiffusionEngine:
     def __init__(self, model, batch_size: int = 4, quant_plan=None,
                  schedule: DiffusionSchedule = DEFAULT_SCHEDULE,
-                 max_queue: Optional[int] = None,
-                 health_checks: bool = True, clock=None):
+                 max_queue: Optional[int] = None, degraded: bool = False,
+                 health_checks: bool = True,
+                 fault_hook: Optional[Callable] = None, clock=None):
         """``model`` is a :class:`~repro_torch.models.dit.DiTModel`
         holding its weights; the engine runs on the model's device.  A
         ``quant_plan`` is applied to the model in place.
 
         * ``max_queue`` — bounded admission queue; when full, ``submit``
           returns ``RequestStatus.REJECTED``.
+        * ``degraded`` — sample under
+          :func:`repro_torch.quant.degraded_mode` (each quantized layer's
+          finite screen and gated fallback).
         * ``health_checks`` — fail a request on non-finite latents.
+        * ``fault_hook(phase, latents) -> latents | None`` — host-side
+          interception point after every batch's fetch ("denoise", the
+          padded batch's latents [batch_size, C, H, W]), as the
+          reference calls it.
         * ``clock`` — injectable monotonic clock (seconds) for deadlines.
         """
         self.model = model
@@ -92,7 +102,9 @@ class DiffusionEngine:
         self.batch = batch_size
         self.schedule = schedule
         self.max_queue = max_queue
+        self.degraded = degraded
         self.health_checks = health_checks
+        self.fault_hook = fault_hook
         self.closed = False
         self._clock = clock if clock is not None else time.monotonic
         self.queue: deque[ImageRequest] = deque()
@@ -193,10 +205,16 @@ class DiffusionEngine:
         noise = torch.stack([self._noise(r) for r in rows])
         labels = torch.tensor([r.label for r in rows], dtype=torch.int32,
                               device=self.device)
-        lat = sample(self.model, labels, x_init=noise,
-                     num_steps=head.num_steps, cfg_scale=head.cfg_scale,
-                     method=head.method, schedule=self.schedule)
+        with (degraded_mode(True) if self.degraded
+              else contextlib.nullcontext()):
+            lat = sample(self.model, labels, x_init=noise,
+                         num_steps=head.num_steps, cfg_scale=head.cfg_scale,
+                         method=head.method, schedule=self.schedule)
         lat = lat.cpu().numpy()
+        if self.fault_hook is not None:
+            out = self.fault_hook("denoise", lat)
+            if out is not None:
+                lat = np.asarray(out)
         delivered = 0
         for i, r in enumerate(batch):
             if self.health_checks and not np.isfinite(lat[i]).all():

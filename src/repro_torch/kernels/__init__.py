@@ -6,7 +6,8 @@ them to zero (``chip_smoke.py`` uses both to show which kernels a run
 went through).  ``online_softmax`` takes the launches its
 ``softmax_plan`` gives: one, or two for a row longer than a
 thread-block cluster holds (a stats and a normalize launch), and counts
-both.
+both.  ``finite_screen`` (the degraded mode's screen) launches only under
+``quant.degraded_mode``.
 """
 from . import (cim_gemm, decode_attention, flash_attention, online_softmax,
                ops, ref, ssd_scan)
@@ -19,6 +20,7 @@ KERNELS = {
     "cim_grouped_gemm_int8": cim_gemm.cim_grouped_gemm_int8,
     "cim_grouped_gated_gemm_int8": cim_gemm.cim_grouped_gated_gemm_int8,
     "cim_gemm_int8": cim_gemm.cim_gemm_int8,
+    "finite_screen": cim_gemm.finite_screen,
     "decode_attention": decode_attention.decode_attention,
     "decode_attention_paged": decode_attention.decode_attention_paged,
     "decode_attention_partial": decode_attention.decode_attention_partial,

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface under ``build/repro_torch/`` at the
 root of the checkout, once, at first use; ``ctypes`` loads it.  All
 sources compile in parallel (one ``nvcc`` process each).  A library is
-rebuilt when its source is newer.  There is deliberately no
+rebuilt when its source, or a source it includes from ``csrc/``, is
+newer.  There is deliberately no
 ``--use_fast_math``: row quantization must divide in IEEE arithmetic to
 match the plain version bit for bit.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,9 +55,17 @@ def _lib_path(src: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"lib{src.stem}.so"
 
 
+def _inputs(src: pathlib.Path) -> list[pathlib.Path]:
+    """``src`` and the sources it includes by ``#include "name"`` from
+    ``csrc/`` (``cim_gemm_fallback.cu`` includes ``cim_gemm.cu``)."""
+    names = re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)
+    return [src] + [CSRC / n for n in names if (CSRC / n).exists()]
+
+
 def _stale(src: pathlib.Path) -> bool:
     lib = _lib_path(src)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    return not lib.exists() or lib.stat().st_mtime < max(
+        f.stat().st_mtime for f in _inputs(src))
 
 
 def build_all() -> dict[str, dict]:

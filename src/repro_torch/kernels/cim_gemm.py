@@ -22,10 +22,21 @@ here:
 launch (bitwise ``quantize_rows_int8`` of the f32 output); the
 reference's ``[E, 1, N]`` scale layout is TPU tiling, so the grouped
 wrappers take ``[E, N]``.
+
+The degraded mode (``quant/linear.py``): :func:`finite_screen` reduces a
+layer's f32 output to an int32 flag on the device (1: it holds a NaN or
+an inf), and kernels 1, 2, 3, 4, 7 and 8 take that flag as ``gate=``: a
+gated launch does nothing when the flag is 0 and otherwise runs on its
+float operands read through ``nan_to_num(·, 0, 0, 0)`` (x, the scales,
+the bias and the residual; never the int8 weights), writing into
+``out=`` where given (the layer's output, in place).  The plain versions
+take the same flag: they compute on the sanitized operands and write
+``out`` only when the flag is set.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 
 import torch
@@ -42,10 +53,51 @@ MAX_FUSED_QUANT_N = 8192
 MAX_FUSED_QUANT_K = 4096
 
 _LIB = "cim_gemm"
+# the degraded fallback's gated instantiations (csrc/cim_gemm_fallback.cu)
+_FALLBACK_LIB = "cim_gemm_fallback"
 _FLOAT = (torch.float32, torch.bfloat16)
-_GROUPED_I8_ARGS = [P] * 8 + [I] + [P] * 5 + [I] * 8 + [P]
-_I8_ARGS = [P] * 8 + [I] * 3 + [P] * 5 + [I] * 7 + [P]
-_ROWQUANT_ARGS = [P, I, P, P] + [I] * 4 + [P]
+_GROUPED_I8_ARGS = [P] * 8 + [I] + [P] * 5 + [I] * 8 + [P, P]
+_I8_ARGS = [P] * 8 + [I] * 3 + [P] * 5 + [I] * 7 + [P, P]
+_ROWQUANT_ARGS = [P, I, P, P] + [I] * 4 + [P, P]
+_SCREEN_ARGS = [P, ctypes.c_int64, P, P, P]
+
+
+def _san(t):
+    """``nan_to_num(t, 0, 0, 0)``: the degraded fallback's read of a float
+    operand (None stays None)."""
+    return None if t is None else torch.nan_to_num(t, nan=0.0, posinf=0.0,
+                                                   neginf=0.0)
+
+
+def _tripped(gate) -> bool:
+    """The plain versions' read of the screen's flag (a host read: the
+    CPU path only)."""
+    return bool(gate.reshape(-1)[0])
+
+
+def _gated_out(gate, out, result):
+    """A gated plain version's result: written into ``out`` (a tensor, or
+    a tuple for a tuple result; when given) only if the screen tripped,
+    as the kernel writes it."""
+    if out is None:
+        return result
+    if _tripped(gate):
+        for o, r in zip(*((out, result) if isinstance(out, tuple)
+                          else ((out,), (result,)))):
+            o.copy_(r)
+    return out
+
+
+def _out_needs_gate(gate, out) -> None:
+    if out is not None and gate is None:
+        raise ValueError("out= is the degraded fallback's in-place output: "
+                         "it needs gate=")
+
+
+def _check_gate(gate, out, shape) -> None:
+    require(gate, "gate", torch.int32, (1,))
+    if out is not None:
+        require(out, "out", torch.float32, shape)
 
 
 def _epilogue_plain(acc, x_scale, w_scale, bias, residual, activation):
@@ -326,11 +378,13 @@ def gemm_plans(M: int, K: int, N: int,
 
 def _gemm_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
              bias=None, residual=None, activation=None, quantize_out=False,
-             acc=False):
+             acc=False, gate=None, out=None):
     """Launch the tensor-core GEMM on x [M, K] (int8, or f32/bf16 to be
     quantized in the kernel) and w [K, N] int8 (with w2, the gated pair),
     checked by the caller, under :func:`gemm_plan`; returns f32 [M, N],
-    (q int8 [M, N], scale f32 [M, 1]) or, with ``acc``, int32 [M, N]."""
+    (q int8 [M, N], scale f32 [M, 1]) or, with ``acc``, int32 [M, N].
+    ``gate`` launches the degraded fallback (f32 out only), into ``out``
+    when given."""
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
@@ -340,8 +394,9 @@ def _gemm_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
         variant = "qin_f32" if x.dtype == torch.float32 else "qin_bf16"
     plan = gemm_plan(M, K, N, variant)
     rc = _residual_code(residual, M, N)
-    out = torch.empty((M, N), dtype=torch.int32 if acc else torch.float32,
-                      device=dev)
+    if out is None:
+        out = torch.empty((M, N), dtype=torch.int32 if acc else torch.float32,
+                          device=dev)
     q = qs = amax = arrive = None
     if quantize_out:
         q = torch.empty((M, N), dtype=torch.int8, device=dev)
@@ -349,17 +404,21 @@ def _gemm_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
         bands = -(-M // plan.bm)
         ws = _requant_workspace(dev, M + bands)
         amax, arrive = ws[:M], ws[M:M + bands]
-    fn = bind(_LIB, "cim_gemm_i8_launch", _I8_ARGS)
-    check(_LIB, fn(ptr(x), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
-                   ptr(w2_scale), ptr(bias), ptr(residual), rc,
-                   ACTIVATIONS[activation], int(acc), ptr(out), ptr(q),
-                   ptr(qs), ptr(amax), ptr(arrive), M, K, N, plan.var,
-                   plan.shape, plan.cluster, plan.smem, stream(x)), what)
+    lib, entry = ((_LIB, "cim_gemm_i8_launch") if gate is None else
+                  (_FALLBACK_LIB, "cim_gemm_i8_launch_fallback"))
+    fn = bind(lib, entry, _I8_ARGS)
+    check(lib, fn(ptr(x), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
+                  ptr(w2_scale), ptr(bias), ptr(residual), rc,
+                  ACTIVATIONS[activation], int(acc), ptr(out), ptr(q),
+                  ptr(qs), ptr(amax), ptr(arrive), M, K, N, plan.var,
+                  plan.shape, plan.cluster, plan.smem, ptr(gate),
+                  stream(x)), what)
     return (q, qs) if quantize_out else out
 
 
 def _grouped_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
-                bias=None, counts=None, activation=None, quantize_out=False):
+                bias=None, counts=None, activation=None, quantize_out=False,
+                gate=None, out=None):
     """Launch the grouped body on x [E, M, K] int8 and w [E, K, N] (with
     w2, the gated pair: kernel 8; else kernel 7), checked by the caller,
     under :func:`grouped_plan`; returns f32 [E, M, N] or (q int8
@@ -368,7 +427,8 @@ def _grouped_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
     N = w.shape[-1]
     dev = x.device
     plan = grouped_plan(E, M, K, N, "int8" if w2 is None else "gated")
-    out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
     q = qs = amax = arrive = None
     if quantize_out:
         q = torch.empty((E, M, N), dtype=torch.int8, device=dev)
@@ -376,12 +436,14 @@ def _grouped_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
         bands = E * -(-M // plan.bm)
         ws = _requant_workspace(dev, E * M + bands)
         amax, arrive = ws[:E * M], ws[E * M:E * M + bands]
-    fn = bind(_LIB, "cim_grouped_i8_launch", _GROUPED_I8_ARGS)
-    check(_LIB, fn(ptr(x), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
-                   ptr(w2_scale), ptr(bias), ptr(counts),
-                   ACTIVATIONS[activation], ptr(out), ptr(q), ptr(qs),
-                   ptr(amax), ptr(arrive), E, M, K, N, plan.var, plan.shape,
-                   plan.cluster, plan.smem, stream(x)), what)
+    lib, entry = ((_LIB, "cim_grouped_i8_launch") if gate is None else
+                  (_FALLBACK_LIB, "cim_grouped_i8_launch_fallback"))
+    fn = bind(lib, entry, _GROUPED_I8_ARGS)
+    check(lib, fn(ptr(x), ptr(x_scale), ptr(w), ptr(w_scale), ptr(w2),
+                  ptr(w2_scale), ptr(bias), ptr(counts),
+                  ACTIVATIONS[activation], ptr(out), ptr(q), ptr(qs),
+                  ptr(amax), ptr(arrive), E, M, K, N, plan.var, plan.shape,
+                  plan.cluster, plan.smem, ptr(gate), stream(x)), what)
     return (q, qs) if quantize_out else out
 
 
@@ -474,24 +536,41 @@ def rowquant_plan(M: int, K: int, dtype: torch.dtype,
 # ---------------------------------------------------------------------------
 # Row quantizer (kernel 1)
 # ---------------------------------------------------------------------------
-def quantize_rows_int8_plain(x):
-    return ref.quantize_rows_int8_ref(x)
+def quantize_rows_int8_plain(x, gate=None, out=None):
+    if gate is None:
+        return ref.quantize_rows_int8_ref(x)
+    return _gated_out(gate, out, ref.quantize_rows_int8_ref(_san(x)))
 
 
-def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows_int8(x: torch.Tensor, gate: torch.Tensor | None = None,
+                       out: tuple | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row symmetric int8: x [M, K] f32/bf16 ->
     (q int8 [M, K], scale f32 [M, 1]), in one launch under
-    :func:`rowquant_plan`."""
-    if on_cpu(x):
-        return quantize_rows_int8_plain(x)
+    :func:`rowquant_plan`.  ``gate`` (the screen's flag) makes it the
+    degraded fallback: nothing is written when the flag is 0, else the
+    rows of ``nan_to_num(x)``, into ``out`` ((q, scale)) when given."""
+    _out_needs_gate(gate, out)
+    if on_cpu(x, gate, *(out or ())):
+        return quantize_rows_int8_plain(x, gate, out)
     require(x, "x", _FLOAT)
     M, K = x.shape
+    if gate is not None:
+        require(gate, "gate", torch.int32, (1,))
+        if out is not None:
+            require(out[0], "out q", torch.int8, (M, K))
+            require(out[1], "out scale", torch.float32, (M, 1))
     plan = rowquant_plan(M, K, x.dtype, x.data_ptr() % 16 == 0)
-    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    fn = bind(_LIB, "cim_quantize_rows_int8", _ROWQUANT_ARGS)
-    check(_LIB, fn(ptr(x), DTYPE_CODE[x.dtype], ptr(q), ptr(s), M, K,
-                   plan.threads, int(plan.vec), stream(x)),
+    if gate is not None and out is not None:
+        q, s = out
+    else:
+        q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    lib, entry = ((_LIB, "cim_quantize_rows_int8") if gate is None else
+                  (_FALLBACK_LIB, "cim_quantize_rows_int8_fallback"))
+    fn = bind(lib, entry, _ROWQUANT_ARGS)
+    check(lib, fn(ptr(x), DTYPE_CODE[x.dtype], ptr(q), ptr(s), M, K,
+                  plan.threads, int(plan.vec), ptr(gate), stream(x)),
           "quantize_rows_int8")
     quantize_rows_int8.launches += 1
     return q, s
@@ -535,30 +614,40 @@ cim_gemm_int8.launches = 0
 # Quantize-in GEMM (kernel 2)
 # ---------------------------------------------------------------------------
 def cim_gemm_int8_fused_qin_plain(x, w, w_scale, bias=None, residual=None,
-                                  activation=None):
-    return ref.fused_matmul_ref(x, w, w_scale, bias=bias, residual=residual,
-                                activation=activation)
+                                  activation=None, gate=None, out=None):
+    if gate is not None:
+        x, w_scale, bias, residual = map(_san, (x, w_scale, bias, residual))
+    res = ref.fused_matmul_ref(x, w, w_scale, bias=bias, residual=residual,
+                               activation=activation)
+    return res if gate is None else _gated_out(gate, out, res)
 
 
 def cim_gemm_int8_fused_qin(x: torch.Tensor, w: torch.Tensor,
                             w_scale: torch.Tensor,
                             bias: torch.Tensor | None = None,
                             residual: torch.Tensor | None = None,
-                            activation: str | None = None) -> torch.Tensor:
+                            activation: str | None = None,
+                            gate: torch.Tensor | None = None,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
     """Quantized linear as one launch: x [M, K] f32/bf16 is row-quantized
     inside the kernel, multiplied by w [K, N] int8 and rescaled by
     ``w_scale [N]`` (+ bias [N]) (+ activation) (+ residual [M, N])
-    -> f32 [M, N]."""
-    if on_cpu(x, w, w_scale, bias, residual):
+    -> f32 [M, N].  ``gate``: the degraded fallback, into ``out`` (f32
+    [M, N]) when given."""
+    _out_needs_gate(gate, out)
+    if on_cpu(x, w, w_scale, bias, residual, gate, out):
         return cim_gemm_int8_fused_qin_plain(x, w, w_scale, bias, residual,
-                                             activation)
+                                             activation, gate, out)
     require(x, "x", _FLOAT)
     M, K = x.shape
     N = _check_weight(w, w_scale, K)
     if bias is not None:
         require(bias, "bias", torch.float32, (N,))
+    if gate is not None:
+        _check_gate(gate, out, (M, N))
     out = _gemm_i8("cim_gemm_int8_fused_qin", x, None, w, w_scale,
-                   bias=bias, residual=residual, activation=activation)
+                   bias=bias, residual=residual, activation=activation,
+                   gate=gate, out=out)
     cim_gemm_int8_fused_qin.launches += 1
     return out
 
@@ -570,9 +659,14 @@ cim_gemm_int8_fused_qin.launches = 0
 # Pre-quantized GEMM (kernel 3)
 # ---------------------------------------------------------------------------
 def cim_gemm_int8_fused_plain(x_q, w, x_scale, w_scale, bias=None,
-                              residual=None, activation=None):
-    return _epilogue_plain(ref.cim_gemm_int8_ref(x_q, w), x_scale, w_scale,
-                           bias, residual, activation)
+                              residual=None, activation=None, gate=None,
+                              out=None):
+    if gate is not None:
+        x_scale, w_scale, bias, residual = map(
+            _san, (x_scale, w_scale, bias, residual))
+    res = _epilogue_plain(ref.cim_gemm_int8_ref(x_q, w), x_scale, w_scale,
+                          bias, residual, activation)
+    return res if gate is None else _gated_out(gate, out, res)
 
 
 def cim_gemm_int8_fused(x_q: torch.Tensor, w: torch.Tensor,
@@ -580,27 +674,37 @@ def cim_gemm_int8_fused(x_q: torch.Tensor, w: torch.Tensor,
                         bias: torch.Tensor | None = None,
                         residual: torch.Tensor | None = None,
                         activation: str | None = None,
-                        quantize_out: bool = False):
+                        quantize_out: bool = False,
+                        gate: torch.Tensor | None = None,
+                        out: torch.Tensor | None = None):
     """INT8 GEMM with the fused dequant/bias/activation/residual epilogue:
     x_q [M, K] int8 @ w [K, N] int8, rescaled by ``x_scale [M, 1]`` and
     ``w_scale [N]`` -> f32 [M, N]; with ``quantize_out`` -> (q int8
-    [M, N], scale f32 [M, 1]) for the next GEMM, in the same launch."""
+    [M, N], scale f32 [M, 1]) for the next GEMM, in the same launch.
+    ``gate``: the degraded fallback (no ``quantize_out``), into ``out``
+    (f32 [M, N]) when given."""
+    _out_needs_gate(gate, out)
     if quantize_out and residual is not None:
         raise ValueError("residual is for the block output, not a "
                          "requantized hidden state")
-    if on_cpu(x_q, w, x_scale, w_scale, bias, residual):
-        out = cim_gemm_int8_fused_plain(x_q, w, x_scale, w_scale, bias,
-                                        residual, activation)
-        return quantize_rows_int8_plain(out) if quantize_out else out
+    if quantize_out and gate is not None:
+        raise ValueError("the degraded fallback requantizes with the gated "
+                         "row quantizer, not in the epilogue")
+    if on_cpu(x_q, w, x_scale, w_scale, bias, residual, gate, out):
+        res = cim_gemm_int8_fused_plain(x_q, w, x_scale, w_scale, bias,
+                                        residual, activation, gate, out)
+        return quantize_rows_int8_plain(res) if quantize_out else res
     require(x_q, "x_q", torch.int8)
     M, K = x_q.shape
     require(x_scale, "x_scale", torch.float32, (M, 1))
     N = _check_weight(w, w_scale, K)
     if bias is not None:
         require(bias, "bias", torch.float32, (N,))
+    if gate is not None:
+        _check_gate(gate, out, (M, N))
     out = _gemm_i8("cim_gemm_int8_fused", x_q, x_scale, w, w_scale,
                    bias=bias, residual=residual, activation=activation,
-                   quantize_out=quantize_out)
+                   quantize_out=quantize_out, gate=gate, out=out)
     cim_gemm_int8_fused.launches += 1
     return out
 
@@ -612,25 +716,38 @@ cim_gemm_int8_fused.launches = 0
 # Gated GEMM (kernel 4)
 # ---------------------------------------------------------------------------
 def cim_gated_gemm_int8_plain(x_q, w_gate, w_up, x_scale, gate_scale,
-                              up_scale, activation="gelu"):
+                              up_scale, activation="gelu", gate=None,
+                              out=None):
+    if gate is not None:
+        x_scale, gate_scale, up_scale = map(_san, (x_scale, gate_scale,
+                                                   up_scale))
     g = ref.cim_gemm_int8_ref(x_q, w_gate).float() * x_scale \
         * gate_scale.unsqueeze(-2)
     u = ref.cim_gemm_int8_ref(x_q, w_up).float() * x_scale \
         * up_scale.unsqueeze(-2)
-    return ref.activate_ref(g, activation) * u
+    res = ref.activate_ref(g, activation) * u
+    return res if gate is None else _gated_out(gate, out, res)
 
 
 def cim_gated_gemm_int8(x_q: torch.Tensor, w_gate: torch.Tensor,
                         w_up: torch.Tensor, x_scale: torch.Tensor,
                         gate_scale: torch.Tensor, up_scale: torch.Tensor,
                         activation: str = "gelu",
-                        quantize_out: bool = False):
+                        quantize_out: bool = False,
+                        gate: torch.Tensor | None = None,
+                        out: torch.Tensor | None = None):
     """Gated MLP front half ``act(x@Wg) * (x@Wu)`` in one launch: both
     int32 accumulators share one x stream -> f32 [M, N], or with
-    ``quantize_out`` (q int8 [M, N], scale f32 [M, 1])."""
-    if on_cpu(x_q, w_gate, w_up, x_scale, gate_scale, up_scale):
+    ``quantize_out`` (q int8 [M, N], scale f32 [M, 1]).  ``gate``: the
+    degraded fallback (no ``quantize_out``), into ``out`` when given."""
+    _out_needs_gate(gate, out)
+    if quantize_out and gate is not None:
+        raise ValueError("the degraded fallback requantizes with the gated "
+                         "row quantizer, not in the epilogue")
+    if on_cpu(x_q, w_gate, w_up, x_scale, gate_scale, up_scale, gate, out):
         h = cim_gated_gemm_int8_plain(x_q, w_gate, w_up, x_scale,
-                                      gate_scale, up_scale, activation)
+                                      gate_scale, up_scale, activation, gate,
+                                      out)
         return quantize_rows_int8_plain(h) if quantize_out else h
     require(x_q, "x_q", torch.int8)
     M, K = x_q.shape
@@ -638,9 +755,11 @@ def cim_gated_gemm_int8(x_q: torch.Tensor, w_gate: torch.Tensor,
     N = _check_weight(w_gate, gate_scale, K, "w_gate")
     if _check_weight(w_up, up_scale, K, "w_up") != N:
         raise ValueError("gate and up widths differ")
+    if gate is not None:
+        _check_gate(gate, out, (M, N))
     out = _gemm_i8("cim_gated_gemm_int8", x_q, x_scale, w_gate, gate_scale,
                    w_up, up_scale, activation=activation,
-                   quantize_out=quantize_out)
+                   quantize_out=quantize_out, gate=gate, out=out)
     cim_gated_gemm_int8.launches += 1
     return out
 
@@ -652,9 +771,13 @@ cim_gated_gemm_int8.launches = 0
 # Grouped-expert GEMM (kernel 7)
 # ---------------------------------------------------------------------------
 def cim_grouped_gemm_int8_plain(x_q, w, x_scale, w_scale, bias=None,
-                                counts=None, activation=None):
+                                counts=None, activation=None, gate=None,
+                                out=None):
+    if gate is not None:
+        x_scale, w_scale, bias = map(_san, (x_scale, w_scale, bias))
     acc = _skip_plain(ref.cim_gemm_int8_ref(x_q, w), counts)
-    return _epilogue_plain(acc, x_scale, w_scale, bias, None, activation)
+    res = _epilogue_plain(acc, x_scale, w_scale, bias, None, activation)
+    return res if gate is None else _gated_out(gate, out, res)
 
 
 def cim_grouped_gemm_int8(x: torch.Tensor, w: torch.Tensor,
@@ -662,18 +785,26 @@ def cim_grouped_gemm_int8(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor | None = None,
                           counts: torch.Tensor | None = None,
                           activation: str | None = None,
-                          quantize_out: bool = False):
+                          quantize_out: bool = False,
+                          gate: torch.Tensor | None = None,
+                          out: torch.Tensor | None = None):
     """All experts' INT8 GEMMs in one launch on the int8 tensor-core body
     under :func:`grouped_plan`: per expert e, x [E, M, K] int8 @ w [E, K,
     N] int8, rescaled by ``x_scale [E, M, 1]`` and ``w_scale [E, N]`` (+
     bias [E, N]) (+ activation) -> f32 [E, M, N]; with ``quantize_out``
     -> (q int8 [E, M, N], scale f32 [E, M, 1]).  ``counts`` (int32 [E])
     is the skip list: an expert whose count is 0 streams no weights and
-    gets the epilogue of zero accumulators (act(bias) with a bias)."""
-    if on_cpu(x, w, x_scale, w_scale, bias, counts):
-        out = cim_grouped_gemm_int8_plain(x, w, x_scale, w_scale, bias,
-                                          counts, activation)
-        return quantize_rows_int8_plain(out) if quantize_out else out
+    gets the epilogue of zero accumulators (act(bias) with a bias).
+    ``gate``: the degraded fallback (no ``quantize_out``), into ``out``
+    (f32 [E, M, N]) when given."""
+    _out_needs_gate(gate, out)
+    if quantize_out and gate is not None:
+        raise ValueError("the degraded fallback requantizes with the gated "
+                         "row quantizer, not in the epilogue")
+    if on_cpu(x, w, x_scale, w_scale, bias, counts, gate, out):
+        res = cim_grouped_gemm_int8_plain(x, w, x_scale, w_scale, bias,
+                                          counts, activation, gate, out)
+        return quantize_rows_int8_plain(res) if quantize_out else res
     require(x, "x", torch.int8)
     E, M, K = x.shape
     require(x_scale, "x_scale", torch.float32, (E, M, 1))
@@ -681,9 +812,11 @@ def cim_grouped_gemm_int8(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         require(bias, "bias", torch.float32, (E, N))
     _check_counts(counts, E)
+    if gate is not None:
+        _check_gate(gate, out, (E, M, w.shape[-1]))
     out = _grouped_i8("cim_grouped_gemm_int8", x, x_scale, w, w_scale,
                       bias=bias, counts=counts, activation=activation,
-                      quantize_out=quantize_out)
+                      quantize_out=quantize_out, gate=gate, out=out)
     cim_grouped_gemm_int8.launches += 1
     return out
 
@@ -696,12 +829,17 @@ cim_grouped_gemm_int8.launches = 0
 # ---------------------------------------------------------------------------
 def cim_grouped_gated_gemm_int8_plain(x, w_gate, w_up, x_scale, gate_scale,
                                       up_scale, counts=None,
-                                      activation="gelu"):
+                                      activation="gelu", gate=None,
+                                      out=None):
+    if gate is not None:
+        x_scale, gate_scale, up_scale = map(_san, (x_scale, gate_scale,
+                                                   up_scale))
     g = _skip_plain(ref.cim_gemm_int8_ref(x, w_gate), counts).float() \
         * x_scale * gate_scale.unsqueeze(-2)
     u = _skip_plain(ref.cim_gemm_int8_ref(x, w_up), counts).float() \
         * x_scale * up_scale.unsqueeze(-2)
-    return ref.activate_ref(g, activation) * u
+    res = ref.activate_ref(g, activation) * u
+    return res if gate is None else _gated_out(gate, out, res)
 
 
 def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
@@ -710,7 +848,9 @@ def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
                                 up_scale: torch.Tensor,
                                 counts: torch.Tensor | None = None,
                                 activation: str = "gelu",
-                                quantize_out: bool = False):
+                                quantize_out: bool = False,
+                                gate: torch.Tensor | None = None,
+                                out: torch.Tensor | None = None):
     """All experts' gated front halves ``act(x@Wg) * (x@Wu)`` in one
     launch on the gated tensor-core body under :func:`grouped_plan`: x
     [E, M, K] int8, w_gate/w_up [E, K, N] int8, scales ``x_scale [E, M,
@@ -718,11 +858,17 @@ def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
     ``quantize_out`` (q int8 [E, M, N], scale f32 [E, M, 1]) for the
     grouped down GEMM.  ``counts`` as in :func:`cim_grouped_gemm_int8`:
     an idle expert's tiles store the zero accumulators' output and
-    stream nothing."""
-    if on_cpu(x, w_gate, w_up, x_scale, gate_scale, up_scale, counts):
+    stream nothing.  ``gate``: the degraded fallback (no
+    ``quantize_out``), into ``out`` when given."""
+    _out_needs_gate(gate, out)
+    if quantize_out and gate is not None:
+        raise ValueError("the degraded fallback requantizes with the gated "
+                         "row quantizer, not in the epilogue")
+    if on_cpu(x, w_gate, w_up, x_scale, gate_scale, up_scale, counts, gate,
+              out):
         h = cim_grouped_gated_gemm_int8_plain(x, w_gate, w_up, x_scale,
                                               gate_scale, up_scale, counts,
-                                              activation)
+                                              activation, gate, out)
         return quantize_rows_int8_plain(h) if quantize_out else h
     require(x, "x", torch.int8)
     E, M, K = x.shape
@@ -731,11 +877,73 @@ def cim_grouped_gated_gemm_int8(x: torch.Tensor, w_gate: torch.Tensor,
     if _check_weight(w_up, up_scale, K, "w_up", E=E) != N:
         raise ValueError("gate and up widths differ")
     _check_counts(counts, E)
+    if gate is not None:
+        _check_gate(gate, out, (E, M, N))
     out = _grouped_i8("cim_grouped_gated_gemm_int8", x, x_scale, w_gate,
                       gate_scale, w_up, up_scale, counts=counts,
-                      activation=activation, quantize_out=quantize_out)
+                      activation=activation, quantize_out=quantize_out,
+                      gate=gate, out=out)
     cim_grouped_gated_gemm_int8.launches += 1
     return out
 
 
 cim_grouped_gated_gemm_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The degraded mode's finite screen
+# ---------------------------------------------------------------------------
+# Per device: the screen's scratch words (zero between launches) and, in
+# word 2, the count of screens that tripped.
+_SCREEN_WS: dict[torch.device, torch.Tensor] = {}
+
+
+def _screen_workspace(device) -> torch.Tensor:
+    """The screen's 4 int32 words on ``device`` (``"cuda"`` is the current
+    card), made zero at first use, outside CUDA-graph capture (memory
+    allocated inside a capture belongs to the graph)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    ws = _SCREEN_WS.get(device)
+    if ws is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("finite_screen: launch once outside CUDA-graph "
+                               "capture first (its workspace is made then)")
+        ws = torch.zeros(4, dtype=torch.int32, device=device)
+        _SCREEN_WS[device] = ws
+    return ws
+
+
+def screen_trips(device) -> int:
+    """How many screens on ``device`` tripped so far (a host read: call
+    it after a run)."""
+    return int(_screen_workspace(device)[2])
+
+
+def finite_screen_plain(x):
+    flag = torch.isfinite(x).all().logical_not().to(torch.int32).reshape(1)
+    _screen_workspace(x.device)[2] += flag[0]
+    return flag
+
+
+def finite_screen(x: torch.Tensor) -> torch.Tensor:
+    """The degraded mode's screen: x (f32, any shape, contiguous, not
+    empty) -> flag int32 [1] on x's device, 1 when x holds a NaN or an
+    inf, else 0, in one launch with no host sync; a tripped screen adds
+    one to :func:`screen_trips`."""
+    if on_cpu(x):
+        return finite_screen_plain(x)
+    require(x, "x", torch.float32)
+    if x.numel() < 1:
+        raise ValueError("finite_screen: x is empty")
+    ws = _screen_workspace(x.device)
+    flag = torch.empty(1, dtype=torch.int32, device=x.device)
+    fn = bind(_LIB, "cim_finite_screen", _SCREEN_ARGS)
+    check(_LIB, fn(ptr(x), x.numel(), ptr(flag), ptr(ws), stream(x)),
+          "finite_screen")
+    finite_screen.launches += 1
+    return flag
+
+
+finite_screen.launches = 0

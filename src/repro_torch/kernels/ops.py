@@ -12,6 +12,14 @@ above ``SPLIT_MIN_SLOTS`` slots.  The reference's padding to 256-row /
 here: the kernels mask ragged edges.  Flash attention, the SSD scan and
 the softmax keep the reference's block arguments and their divisibility
 checks as the public contract; their kernels use tiles of their own.
+
+The three INT8 pipelines take ``gate=`` (the flag of
+:func:`finite_screen`) and ``out=``: the degraded mode's fallback, the
+same pipeline on gated launches that do nothing when the screen passed
+and otherwise read their float operands through ``nan_to_num``, the
+last one writing ``out`` in place.  The fallback's hidden state is
+always re-quantized by a gated row-quantize launch (never in the
+epilogue: the same bits, and no gated requant kernels to build).
 """
 from __future__ import annotations
 
@@ -26,13 +34,14 @@ from .cim_gemm import (MAX_FUSED_QUANT_K, MAX_FUSED_QUANT_N,
                        cim_gated_gemm_int8, cim_gemm_int8,
                        cim_gemm_int8_fused,
                        cim_gemm_int8_fused_qin, cim_grouped_gated_gemm_int8,
-                       cim_grouped_gemm_int8, quantize_rows_int8)
+                       cim_grouped_gemm_int8, finite_screen,
+                       quantize_rows_int8)
 from .decode_attention import SPLIT_STEP
 
 __all__ = ["quantize_weights_int8", "quantize_rows_int8",
            "cim_quantized_matmul", "cim_quantized_matmul_fused",
            "cim_int8_gemm_acc", "cim_hidden_int8", "cim_quantized_mlp",
-           "cim_quantized_grouped_mlp",
+           "cim_quantized_grouped_mlp", "finite_screen",
            "decode_attention", "decode_attention_splitkv",
            "decode_attention_paged", "n_splits_for", "flash_attention",
            "ssd_scan", "online_softmax", "ref",
@@ -117,20 +126,25 @@ def cim_quantized_matmul_fused(x: torch.Tensor, w_q: torch.Tensor,
                                w_scale: torch.Tensor,
                                bias: torch.Tensor | None = None,
                                residual: torch.Tensor | None = None,
-                               activation: str | None = None
+                               activation: str | None = None,
+                               gate: torch.Tensor | None = None,
+                               out: torch.Tensor | None = None
                                ) -> torch.Tensor:
     """Quantized linear: x [M, K] bf16/f32; w_q [K, N] int8; w_scale [N];
     optional bias [N] f32, activation and residual [M, N], applied in
     the epilogue in that order -> f32 [M, N].  One launch when K fits
-    ``MAX_FUSED_QUANT_K``, else quantize + GEMM (two launches)."""
+    ``MAX_FUSED_QUANT_K``, else quantize + GEMM (two launches); with
+    ``gate``, the same launches gated, into ``out``."""
     x, residual = x.contiguous(), _contig(residual)
     if x.shape[1] <= MAX_FUSED_QUANT_K:
         return cim_gemm_int8_fused_qin(x, w_q, w_scale, bias=bias,
                                        residual=residual,
-                                       activation=activation)
-    x_q, x_s = quantize_rows_int8(x)
+                                       activation=activation, gate=gate,
+                                       out=out)
+    x_q, x_s = quantize_rows_int8(x, gate=gate)
     return cim_gemm_int8_fused(x_q, w_q, x_s, w_scale, bias=bias,
-                               residual=residual, activation=activation)
+                               residual=residual, activation=activation,
+                               gate=gate, out=out)
 
 
 def cim_quantized_mlp(x: torch.Tensor, up_q: torch.Tensor,
@@ -139,27 +153,30 @@ def cim_quantized_mlp(x: torch.Tensor, up_q: torch.Tensor,
                       gate_q: torch.Tensor | None = None,
                       gate_scale: torch.Tensor | None = None,
                       residual: torch.Tensor | None = None,
-                      activation: str = "gelu") -> torch.Tensor:
+                      activation: str = "gelu",
+                      gate: torch.Tensor | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """INT8 MLP: quantize + (gated) up GEMM + down GEMM with the residual
     in the down GEMM's epilogue.  The hidden state is re-quantized by
     the up/gated GEMM when ``d_ff <= MAX_FUSED_QUANT_N``, else by one
     more row-quantize launch (gemma-2b's d_ff of 16384 takes this
-    branch: 4 launches per MLP; narrower ones take 3).  Returns f32
-    [M, N]."""
+    branch: 4 launches per MLP; narrower ones take 3).  With ``gate``
+    the fallback: 4 gated launches whatever d_ff, into ``out``.  Returns
+    f32 [M, N]."""
     x, residual = x.contiguous(), _contig(residual)
-    fuse_requant = up_q.shape[1] <= MAX_FUSED_QUANT_N
-    x_q, x_s = quantize_rows_int8(x)
+    fuse_requant = gate is None and up_q.shape[1] <= MAX_FUSED_QUANT_N
+    x_q, x_s = quantize_rows_int8(x, gate=gate)
     if gate_q is not None:
         h = cim_gated_gemm_int8(x_q, gate_q, up_q, x_s, gate_scale, up_scale,
                                 activation=activation,
-                                quantize_out=fuse_requant)
+                                quantize_out=fuse_requant, gate=gate)
     else:
         h = cim_gemm_int8_fused(x_q, up_q, x_s, up_scale,
                                 activation=activation,
-                                quantize_out=fuse_requant)
-    h_q, h_s = h if fuse_requant else quantize_rows_int8(h)
+                                quantize_out=fuse_requant, gate=gate)
+    h_q, h_s = h if fuse_requant else quantize_rows_int8(h, gate=gate)
     return cim_gemm_int8_fused(h_q, down_q, h_s, down_scale,
-                               residual=residual)
+                               residual=residual, gate=gate, out=out)
 
 
 def cim_quantized_grouped_mlp(x: torch.Tensor, up_q: torch.Tensor,
@@ -168,7 +185,10 @@ def cim_quantized_grouped_mlp(x: torch.Tensor, up_q: torch.Tensor,
                               gate_q: torch.Tensor | None = None,
                               gate_scale: torch.Tensor | None = None,
                               expert_counts: torch.Tensor | None = None,
-                              activation: str = "gelu") -> torch.Tensor:
+                              activation: str = "gelu",
+                              gate: torch.Tensor | None = None,
+                              out: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """INT8 MLPs of all E experts in a number of launches independent of
     E: one row quantize over the stacked [E * T, d] rows, one grouped
     (gated) GEMM that re-quantizes the hidden state in its epilogue when
@@ -179,29 +199,31 @@ def cim_quantized_grouped_mlp(x: torch.Tensor, up_q: torch.Tensor,
     down [E, F, d'] int8 with scale [E, d'] -> f32 [E, T, d'].
     ``expert_counts`` (int32 [E]) is the skip list: an expert with no
     tokens streams no weights in either grouped GEMM (same bits, its
-    rows being zero)."""
+    rows being zero).  With ``gate`` the fallback: 4 gated launches, the
+    skip list kept, into ``out``."""
     E, T, d = x.shape
     F = up_q.shape[2]
-    fuse_requant = F <= MAX_FUSED_QUANT_N
-    x_q, x_s = quantize_rows_int8(x.contiguous().reshape(E * T, d))
+    fuse_requant = gate is None and F <= MAX_FUSED_QUANT_N
+    x_q, x_s = quantize_rows_int8(x.contiguous().reshape(E * T, d),
+                                  gate=gate)
     x_q, x_s = x_q.reshape(E, T, d), x_s.reshape(E, T, 1)
     if gate_q is not None:
         h = cim_grouped_gated_gemm_int8(x_q, gate_q, up_q, x_s, gate_scale,
                                         up_scale, counts=expert_counts,
                                         activation=activation,
-                                        quantize_out=fuse_requant)
+                                        quantize_out=fuse_requant, gate=gate)
     else:
         h = cim_grouped_gemm_int8(x_q, up_q, x_s, up_scale,
                                   counts=expert_counts,
                                   activation=activation,
-                                  quantize_out=fuse_requant)
+                                  quantize_out=fuse_requant, gate=gate)
     if fuse_requant:
         h_q, h_s = h
     else:
-        h_q, h_s = quantize_rows_int8(h.reshape(E * T, F))
+        h_q, h_s = quantize_rows_int8(h.reshape(E * T, F), gate=gate)
         h_q, h_s = h_q.reshape(E, T, F), h_s.reshape(E, T, 1)
     return cim_grouped_gemm_int8(h_q, down_q, h_s, down_scale,
-                                 counts=expert_counts)
+                                 counts=expert_counts, gate=gate, out=out)
 
 
 def n_splits_for(S: int) -> int:

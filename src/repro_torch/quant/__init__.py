@@ -1,4 +1,5 @@
-from .linear import (QuantizedLinear, kernel_mode, quantize_attention,
+from .linear import (QuantizedLinear, degraded_mode, kernel_mode,
+                     quantize_attention,
                      quantize_linear, quantize_mlp, quantize_moe_experts,
                      quantized_matmul, quantized_mlp_apply,
                      quantized_moe_apply, quantized_moe_apply_looped,
@@ -6,7 +7,8 @@ from .linear import (QuantizedLinear, kernel_mode, quantize_attention,
 from .plan import (DIT_LAYER_KINDS, FULL_INT8, LAYER_KINDS, QuantPlan,
                    apply_dit_plan, apply_plan, covered_kinds)
 
-__all__ = ["QuantizedLinear", "kernel_mode", "quantize_attention",
+__all__ = ["QuantizedLinear", "degraded_mode", "kernel_mode",
+           "quantize_attention",
            "quantize_linear", "quantize_mlp", "quantize_moe_experts",
            "quantized_matmul", "quantized_mlp_apply", "quantized_moe_apply",
            "quantized_moe_apply_looped", "quantized_out_proj",

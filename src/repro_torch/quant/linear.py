@@ -16,7 +16,20 @@ Tensor parallelism: a leaf that
 runs through :mod:`repro_torch.quant.tp` under the current group
 (:func:`~repro_torch.parallel.context.tp_context`); a whole leaf runs
 the unsharded path, as the reference does for a dimension the group
-size does not divide.  Degraded mode comes with a later slice.
+size does not divide.
+
+Degraded mode (:func:`degraded_mode`, the reliability layer): every
+quantized apply site screens its fused output for non-finite values and,
+when the screen trips, re-runs the layer on operands sanitized by
+``nan_to_num(·, 0, 0, 0)`` (x, scales, bias, residual; never the int8
+weights), as the reference does with ``lax.cond``.  On the pipeline the
+screen is one launch that writes a flag on the device and the fallback
+is the same pipeline on gated launches that leave at once when the flag
+says the screen passed, writing the output in place only when it
+tripped: a healthy step pays the screen and the gated launches, never a
+second GEMM and never a host sync.  The plain oracle
+(``use_kernel=False``) screens on the host.  Under tensor parallelism
+degraded mode raises (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -94,6 +107,63 @@ def _tp_group_for(w: QuantizedLinear):
     return group
 
 
+# ---------------------------------------------------------------------------
+# Degraded-mode execution (reliability layer)
+# ---------------------------------------------------------------------------
+_DEGRADED_MODE: bool = False
+
+
+@contextlib.contextmanager
+def degraded_mode(enable: bool = True):
+    """Per-layer degraded-mode fallback for the enclosed scope.
+
+    When enabled, every quantized apply site screens its fused-pipeline
+    output (:func:`~repro_torch.kernels.ops.finite_screen`, one launch,
+    a flag on the device) and runs the layer's gated fallback chain,
+    which recomputes the layer on sanitized operands and writes its
+    output in place only when the screen tripped.  The contract, as the
+    reference's: with the mode off the code path, the bits and every
+    launch pin are unchanged; with it on and the screen passing the
+    output is bitwise the unscreened output; a tripped layer's output is
+    the same pipeline on operands sanitized by ``nan_to_num(·, 0, 0,
+    0)``, so corrupted channels contribute zero instead of poisoning the
+    residual stream."""
+    global _DEGRADED_MODE
+    prev = _DEGRADED_MODE
+    _DEGRADED_MODE = enable
+    try:
+        yield
+    finally:
+        _DEGRADED_MODE = prev
+
+
+def _san(a: torch.Tensor | None) -> torch.Tensor | None:
+    """Sanitize a float operand for the plain fallback (int8 weights are
+    always finite; scales/activations/bias/residual may not be)."""
+    return None if a is None else torch.nan_to_num(a, nan=0.0, posinf=0.0,
+                                                   neginf=0.0)
+
+
+def _screen(out: torch.Tensor, use_kernel: bool, gated, plain
+            ) -> torch.Tensor:
+    """Finite screen + fallback when degraded mode is active.  On the
+    pipeline ``gated(flag, out)`` runs the layer's gated launches into
+    ``out`` (they do nothing when the screen passed); the plain oracle
+    checks on the host and returns ``plain()`` when the screen trips."""
+    if not _DEGRADED_MODE:
+        return out
+    if use_kernel:
+        gated(kops.finite_screen(out), out)
+        return out
+    return out if bool(torch.isfinite(out).all()) else plain()
+
+
+def _no_tp_degraded(group) -> None:
+    if group is not None and _DEGRADED_MODE:
+        raise NotImplementedError("degraded mode under tensor parallelism "
+                                  "is not ported yet (ROADMAP A.3)")
+
+
 def _canon_activation(activation: str | None) -> str | None:
     if activation in ("gelu", "geglu"):
         return "gelu"
@@ -118,13 +188,21 @@ def _matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     r2 = None if residual is None else residual.reshape(-1,
                                                         residual.shape[-1])
     activation = _canon_activation(activation)
-    if _resolve_use_kernel(use_kernel):
+    use_kernel = _resolve_use_kernel(use_kernel)
+    if use_kernel:
         out = kops.cim_quantized_matmul_fused(x2, q, scale, bias=bias,
                                               residual=r2,
                                               activation=activation)
     else:
         out = kref.fused_matmul_ref(x2, q, scale, bias=bias, residual=r2,
                                     activation=activation)
+    out = _screen(out, use_kernel, lambda flag, o:
+                  kops.cim_quantized_matmul_fused(
+                      x2, q, scale, bias=bias, residual=r2,
+                      activation=activation, gate=flag, out=o),
+                  lambda: kref.fused_matmul_ref(
+                      _san(x2), q, _san(scale), bias=_san(bias),
+                      residual=_san(r2), activation=activation))
     return out.reshape(*lead, -1)
 
 
@@ -171,20 +249,29 @@ def quantized_mlp_apply(mlp: nn.Module, x: torch.Tensor, activation: str,
                                                         residual.shape[-1])
     gate = getattr(mlp, "gate", None)
     group = _tp_group_for(mlp.up)
+    _no_tp_degraded(group)
+
+    def pipeline(**kw):
+        return kops.cim_quantized_mlp(
+            x2, mlp.up.q, mlp.up.scale, mlp.down.q, mlp.down.scale,
+            gate_q=None if gate is None else gate.q,
+            gate_scale=None if gate is None else gate.scale,
+            residual=r2, activation=act, **kw)
     if group is not None:
         # up/gate column-parallel, down row-parallel with the int32 sum
         # before the residual epilogue (quant/tp.py)
         out = _tp.mlp(group, x2, mlp, act, use_kernel, residual=r2)
     elif use_kernel:
-        out = kops.cim_quantized_mlp(
-            x2, mlp.up.q, mlp.up.scale, mlp.down.q, mlp.down.scale,
-            gate_q=None if gate is None else gate.q,
-            gate_scale=None if gate is None else gate.scale,
-            residual=r2, activation=act)
+        out = pipeline()
     else:
-        qtree = {k: (getattr(mlp, k).q, getattr(mlp, k).scale)
-                 for k in _MLP_LEAVES if getattr(mlp, k, None) is not None}
-        out = kref.quantized_mlp_ref(x2, qtree, act, residual=r2)
+        out = kref.quantized_mlp_ref(x2, _expert_qtree(mlp), act,
+                                     residual=r2)
+    out = _screen(out, use_kernel,
+                  lambda flag, o: pipeline(gate=flag, out=o),
+                  lambda: kref.quantized_mlp_ref(
+                      _san(x2), {k: (q, _san(s)) for k, (q, s)
+                                 in _expert_qtree(mlp).items()}, act,
+                      residual=_san(r2)))
     return out.reshape(*lead, -1).to(x.dtype)
 
 
@@ -225,6 +312,7 @@ def quantized_qkv_proj(qkv: QuantizedLinear, x: torch.Tensor,
     d, HK, Dh = qkv.q.shape
     w_q, w_s = qkv.q.reshape(d, HK * Dh), qkv.scale.reshape(HK * Dh)
     group = _tp_group_for(qkv)
+    _no_tp_degraded(group)
     if group is not None:
         wide = _tp.matmul_column(group, x.reshape(-1, d), w_q, w_s,
                                  _resolve_use_kernel(use_kernel))
@@ -245,6 +333,7 @@ def quantized_out_proj(o: QuantizedLinear, attn_out: torch.Tensor,
     H, Dh, d = o.q.shape
     x2 = attn_out.reshape(*attn_out.shape[:-2], H * Dh)
     group = _tp_group_for(o)
+    _no_tp_degraded(group)
     if group is None:
         return _matmul(x2, o.q.reshape(H * Dh, d), o.scale, use_kernel,
                        residual)
@@ -295,19 +384,30 @@ def quantized_moe_apply(moe: nn.Module, x: torch.Tensor, activation: str,
     expert-parallel (:func:`repro_torch.quant.tp.grouped_moe`)."""
     act = _canon_activation(activation)
     group = _tp_group_for(moe.up)
+    _no_tp_degraded(group)
+    use_kernel = _resolve_use_kernel(use_kernel)
     if group is not None:
-        return _tp.grouped_moe(group, x, moe, act,
-                               _resolve_use_kernel(use_kernel),
+        return _tp.grouped_moe(group, x, moe, act, use_kernel,
                                expert_counts=expert_counts)
-    if _resolve_use_kernel(use_kernel):
-        gate = getattr(moe, "gate", None)
-        out = kops.cim_quantized_grouped_mlp(
+    gate = getattr(moe, "gate", None)
+
+    def pipeline(**kw):
+        return kops.cim_quantized_grouped_mlp(
             x, moe.up.q, moe.up.scale, moe.down.q, moe.down.scale,
             gate_q=None if gate is None else gate.q,
             gate_scale=None if gate is None else gate.scale,
-            expert_counts=expert_counts, activation=act)
+            expert_counts=expert_counts, activation=act, **kw)
+    if use_kernel:
+        out = pipeline()
     else:
         out = kref.grouped_quantized_mlp_ref(x, _expert_qtree(moe), act)
+    # the fallback keeps the skip list: an idle expert's rows are zero,
+    # so it gives the reference's bits, which ignore it
+    out = _screen(out, use_kernel,
+                  lambda flag, o: pipeline(gate=flag, out=o),
+                  lambda: kref.grouped_quantized_mlp_ref(
+                      _san(x), {k: (q, _san(s)) for k, (q, s)
+                                in _expert_qtree(moe).items()}, act))
     return out.to(x.dtype)
 
 

@@ -24,11 +24,12 @@ decisions; at the end of a run the ranks check that they agree.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ import torch
 from repro_torch.models.attention import EMPTY_SLOT
 from repro_torch.parallel.context import tp_context
 from repro_torch.parallel.sharding import shard_model
+from repro_torch.quant import degraded_mode
 from .lifecycle import EngineStallError, LifecycleMixin, RequestStatus
 from .paged_cache import PagedKVCache, PoolExhausted
 
@@ -82,8 +84,10 @@ class EngineStats:
 class ServingEngine:
     def __init__(self, model, n_slots: int = 4, max_len: int = 512,
                  prefill_bucket: int = 64, quant_plan=None,
-                 max_queue: Optional[int] = None,
-                 health_checks: bool = True, clock=None, tp=None):
+                 max_queue: Optional[int] = None, degraded: bool = False,
+                 health_checks: bool = True,
+                 fault_hook: Optional[Callable] = None, clock=None,
+                 tp=None):
         """``model`` is a :class:`~repro_torch.models.model.Model` holding
         its weights; the engine runs on the model's device.  Prompts are
         tokens: a vision config serves text prompts whose first
@@ -103,9 +107,22 @@ class ServingEngine:
 
         * ``max_queue`` — bounded admission queue; when full, ``submit``
           returns ``RequestStatus.REJECTED``.
+        * ``degraded`` — run every forward under
+          :func:`repro_torch.quant.degraded_mode`: each quantized layer
+          screens its fused output on the device and falls back to the
+          sanitized pipeline when it is non-finite (gated launches: a
+          healthy step pays the screens, no host sync).
         * ``health_checks`` — fail a slot's request on non-finite logits
           instead of sampling from them.
+        * ``fault_hook(phase, logits) -> logits | None`` — host-side
+          interception point after every prefill ("prefill", the last
+          token's logits [vocab]) and decode ("decode", [n_slots, vocab],
+          empty slots included) fetch, as the reference calls it; the
+          chaos harness (:mod:`repro_torch.reliability.chaos`) uses it.
         * ``clock`` — injectable monotonic clock (seconds) for deadlines.
+
+        ``degraded`` and ``fault_hook`` are not ported under ``tp`` yet
+        (ROADMAP A.3) and raise ``NotImplementedError`` there.
         """
         if model.cfg.frontend == "audio":
             raise ValueError(f"{model.cfg.name}: an audio-frontend arch "
@@ -116,6 +133,10 @@ class ServingEngine:
         if tp is not None and quant_plan is None:
             raise ValueError("tensor parallelism runs the INT8 plan: pass "
                              "a quant_plan with tp")
+        if tp is not None and (degraded or fault_hook is not None):
+            raise NotImplementedError("degraded mode and fault hooks under "
+                                      "tensor parallelism are not ported yet "
+                                      "(ROADMAP A.3)")
         if quant_plan is not None:
             model.quantize(quant_plan)
         if tp is not None:
@@ -128,7 +149,9 @@ class ServingEngine:
         self.max_len = max_len
         self.bucket = prefill_bucket
         self.max_queue = max_queue
+        self.degraded = degraded
         self.health_checks = health_checks
+        self.fault_hook = fault_hook
         self.closed = False
         self._clock = clock if clock is not None else time.monotonic
         self.kv_dtype = ("int8" if quant_plan is not None
@@ -146,10 +169,17 @@ class ServingEngine:
         return self.model.init_cache(self.n_slots, self.max_len,
                                      kv_dtype=self.kv_dtype)
 
+    @contextlib.contextmanager
     def _forward_ctx(self):
         """The context of every forward: the engine's tensor-parallel
-        group (None: no group)."""
-        return tp_context(self.tp)
+        group (None: no group) and, with ``degraded``, the quantized
+        layers' finite screen and fallback."""
+        with tp_context(self.tp):
+            if self.degraded:
+                with degraded_mode(True):
+                    yield
+            else:
+                yield
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -191,6 +221,12 @@ class ServingEngine:
     @staticmethod
     def _to_host(logits: torch.Tensor) -> np.ndarray:
         return logits.float().cpu().numpy()
+
+    def _apply_fault_hook(self, phase: str, logits: np.ndarray) -> np.ndarray:
+        if self.fault_hook is None:
+            return logits
+        out = self.fault_hook(phase, logits)
+        return logits if out is None else np.asarray(out)
 
     # ------------------------------------------------------------------
     def _finish(self, req: Request, status: RequestStatus,
@@ -317,6 +353,7 @@ class ServingEngine:
                      np.full(pad, req.prompt[-1])]).astype(np.int32)
                 logits = self._to_host(self._prefill_one(toks, slot, L))
                 self.stats.prefills += 1
+                logits = self._apply_fault_hook("prefill", logits)
                 if self.health_checks and not np.isfinite(logits).all():
                     self.stats.prefill_failures += 1
                     self._finish(req, RequestStatus.FAILED,
@@ -347,6 +384,7 @@ class ServingEngine:
             return
         self.stats.batch_occupancy.append(len(active) / self.n_slots)
         logits = self._to_host(self._decode_all(self.slot_last))
+        logits = self._apply_fault_hook("decode", logits)
         self.stats.decode_steps += 1
         for slot in active:
             req = self.slot_req[slot]
@@ -687,6 +725,7 @@ class PagedServingEngine(ServingEngine):
                 continue
             # final chunk: the request joins the decode batch
             self.stats.prefills += 1
+            logits = self._apply_fault_hook("prefill", logits)
             if self.health_checks and not np.isfinite(logits).all():
                 self.stats.prefill_failures += 1
                 self._finish(req, RequestStatus.FAILED,
@@ -716,6 +755,7 @@ class PagedServingEngine(ServingEngine):
             mask = np.zeros(self.n_slots, bool)
             mask[ok] = True
             logits = self._to_host(self._decode_masked(self.slot_last, mask))
+            logits = self._apply_fault_hook("decode", logits)
             self.stats.decode_steps += 1
             for slot in ok:
                 req = self.slot_req[slot]

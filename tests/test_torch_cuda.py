@@ -2660,3 +2660,232 @@ def test_xlstm_on_card_matches_cpu(dev):
     assert not any(counts.values()), counts
     err = (got - want).abs().max().item()
     assert err <= 5e-2 * want.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# the degraded mode: the finite screen and the gated fallback of kernels 1,
+# 2, 3, 4, 7 and 8
+# ---------------------------------------------------------------------------
+def _flag(v, dev):
+    return torch.tensor([v], dtype=torch.int32, device=dev)
+
+
+def _poisoned(t, seed):
+    """A copy of the float tensor ``t`` with a NaN, a +inf and a -inf at
+    seeded places."""
+    a = t.clone().reshape(-1)
+    idx = _gen(seed).permutation(a.numel())[:3]
+    for i, v in zip(idx.tolist(), (np.nan, np.inf, -np.inf)):
+        a[i] = v
+    return a.reshape(t.shape)
+
+
+def _sentinel(shape, dtype, dev):
+    return torch.full(shape, 77 if dtype == torch.int8 else 12345.0,
+                      dtype=dtype, device=dev)
+
+
+def _fallback_calls(dev, M, K, N, E, xdtype):
+    """name -> (call(fn, gate, out), kernel, plain, out shapes and dtypes,
+    exact) for kernels 1, 2, 3, 4, 7 and 8 on poisoned float operands."""
+    rng = _gen(61)
+    x = _poisoned(_t(rng.standard_normal((M, K)).astype(np.float32), dev,
+                     xdtype), 1)
+    xq = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
+    xs = _poisoned(_t(rng.uniform(1e-3, 1e-2, (M, 1)).astype(np.float32),
+                      dev), 2) if M >= 3 else \
+        _t(rng.uniform(1e-3, 1e-2, (M, 1)).astype(np.float32), dev)
+    (w, ws), (w2, ws2) = _w(rng, K, N, dev), _w(rng, K, N, dev)
+    ws, ws2 = _poisoned(ws, 3), _poisoned(ws2, 4)
+    bias = _poisoned(_t(rng.standard_normal(N).astype(np.float32), dev), 5)
+    res = _poisoned(_t(rng.standard_normal((M, N)).astype(np.float32), dev),
+                    6)
+    gx, gxs, [(gw, gws), (gw2, gws2)], counts = _grouped(rng, E, M, K, N,
+                                                         dev, zero=(1,))
+    gxs, gws, gws2 = _poisoned(gxs, 7), _poisoned(gws, 8), _poisoned(gws2, 9)
+    gbias = _poisoned(_t(rng.standard_normal((E, N)).astype(np.float32), dev),
+                      10)
+    f32 = torch.float32
+    return {
+        "rowquant": (lambda fn, g, o: fn(x, gate=g, out=o),
+                     cg.quantize_rows_int8, cg.quantize_rows_int8_plain,
+                     [((M, K), torch.int8), ((M, 1), f32)], True),
+        "qin": (lambda fn, g, o: fn(x, w, ws, bias, res, None, g, o),
+                cg.cim_gemm_int8_fused_qin, cg.cim_gemm_int8_fused_qin_plain,
+                [((M, N), f32)], True),
+        "fused": (lambda fn, g, o: fn(xq, w, xs, ws, bias, res, None,
+                                      gate=g, out=o),
+                  cg.cim_gemm_int8_fused, cg.cim_gemm_int8_fused_plain,
+                  [((M, N), f32)], True),
+        "gated": (lambda fn, g, o: fn(xq, w, w2, xs, ws, ws2, "silu",
+                                      gate=g, out=o),
+                  cg.cim_gated_gemm_int8, cg.cim_gated_gemm_int8_plain,
+                  [((M, N), f32)], False),
+        "grouped": (lambda fn, g, o: fn(gx, gw, gxs, gws, gbias, counts,
+                                        "gelu", gate=g, out=o),
+                    cg.cim_grouped_gemm_int8, cg.cim_grouped_gemm_int8_plain,
+                    [((E, M, N), f32)], False),
+        "grouped_gated": (lambda fn, g, o: fn(gx, gw, gw2, gxs, gws, gws2,
+                                              counts, "silu", gate=g, out=o),
+                          cg.cim_grouped_gated_gemm_int8,
+                          cg.cim_grouped_gated_gemm_int8_plain,
+                          [((E, M, N), f32)], False)}
+
+
+def _check_fallback(dev, calls):
+    """Flag 0: the sentinel outputs untouched bitwise, one launch counted
+    a call.  Flag 1: the plain version on the sanitized operands, its
+    integers exact, its floats bitwise or within the activations' 1e-5."""
+    for name, (call, fn, plain, outs, exact) in calls.items():
+        for v in (0, 1):
+            got = [_sentinel(s, d, dev) for s, d in outs]
+            want = [_sentinel(s, d, dev) for s, d in outs]
+            before = fn.launches
+            call(fn, _flag(v, dev), got[0] if len(got) == 1 else tuple(got))
+            call(plain, _flag(v, dev), want[0] if len(want) == 1
+                 else tuple(want))
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1, name
+            for a, b in zip(got, want):
+                assert torch.isfinite(a.float()).all(), (name, v)
+                if v == 0 or exact or a.dtype == torch.int8:
+                    assert torch.equal(a, b), (name, v)
+                else:
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 130])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_fallback_gated_under_the_plan(dev, M, xdtype):
+    _check_fallback(dev, _fallback_calls(dev, M, 1030, 264, 3, xdtype))
+
+
+@pytest.mark.parametrize("M,kind,cluster", [(8, "decode", 1),
+                                            (8, "decode", 5),
+                                            (16, "prefill", 1),
+                                            (130, "prefill", 3)])
+def test_fallback_gated_under_forced_plans(dev, M, kind, cluster):
+    """The fallback's tile shapes and clusters (rank 0 merging the ranks'
+    sums) as the plain kernels' forced plans."""
+    calls = _fallback_calls(dev, M, 2048, 512, 3, torch.float32)
+    del calls["rowquant"]
+    with cg.forced_gemm_plan(kind, cluster):
+        _check_fallback(dev, calls)
+
+
+def test_finite_screen_flags_and_counts(dev):
+    """The screen over sizes 1 to 2^22, aligned and not (float4 or single
+    loads, one block to the grid's cap): 0 on finite values, 1 with a
+    NaN, +inf or -inf anywhere; each trip counted once; one launch a
+    call."""
+    trips = cg.screen_trips(dev)
+    seen = 0
+    for n in (1, 3, 4, 1027, 8 * 2048, 1 << 22):
+        base = torch.randn(n + 1, device=dev)
+        for x in (base[:n], base[1:]):
+            before = cg.finite_screen.launches
+            assert int(cg.finite_screen(x)) == 0
+            for where in sorted({0, n // 2, n - 1}):
+                for v in (float("nan"), float("inf"), float("-inf")):
+                    bad = x.clone() if x.data_ptr() % 16 == 0 else \
+                        base.clone()[1:]
+                    bad[where] = v
+                    assert int(cg.finite_screen(bad)) == 1, (n, where, v)
+                    seen += 1
+            assert int(cg.finite_screen(x)) == 0
+            assert cg.finite_screen.launches == before + 2 + 3 * len(
+                {0, n // 2, n - 1})
+    assert cg.screen_trips(dev) == trips + seen
+
+
+def test_degraded_layers_no_host_sync_and_trip(dev):
+    """Under degraded mode the layers' screens and gated fallbacks make no
+    host sync (CUDA sync debug mode "error"); healthy outputs are bitwise
+    the mode-off ones, and with an inf scale the output equals the CPU
+    fallback's."""
+    from torch import nn
+
+    from repro_torch.kernels import ref as kref
+    from repro_torch.quant import QuantizedLinear, degraded_mode
+    from repro_torch.quant import linear as ql
+    rng = _gen(70)
+    w, ws = _w(rng, 256, 512, dev)
+    x = _t(rng.standard_normal((8, 256)).astype(np.float32), dev)
+    mlp = nn.Module()
+    for name, (K, N) in (("up", (256, 384)), ("gate", (256, 384)),
+                         ("down", (384, 256))):
+        setattr(mlp, name, QuantizedLinear(*_w(rng, K, N, dev)))
+    moe = nn.Module()
+    for name, (K, N) in (("up", (256, 128)), ("gate", (256, 128)),
+                         ("down", (128, 256))):
+        q, s = _t(rng.integers(-127, 128, (4, K, N)).astype(np.int8), dev), \
+            _t(rng.uniform(1e-3, 2e-2, (4, N)).astype(np.float32), dev)
+        setattr(moe, name, QuantizedLinear(q, s))
+    xe = _t(rng.standard_normal((4, 8, 256)).astype(np.float32), dev)
+    counts = _t(np.array([8, 0, 3, 8], np.int32), dev)
+
+    def run(lin):
+        return (ql.quantized_matmul(x, lin, use_kernel=True, residual=x[:, :1]
+                                    .expand(8, 512).contiguous()),
+                ql.quantized_mlp_apply(mlp, x, "gelu", use_kernel=True,
+                                       residual=x),
+                ql.quantized_moe_apply(moe, xe, "silu", use_kernel=True,
+                                       expert_counts=counts))
+    good = QuantizedLinear(w, ws)
+    off = run(good)
+    bad_s = ws.clone()
+    bad_s[7] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with degraded_mode(True):
+            on = run(good)
+            tripped = run(QuantizedLinear(w, bad_s))[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    want = kref.fused_matmul_ref(x.cpu(), w.cpu(), torch.nan_to_num(
+        bad_s.cpu(), 0.0, 0.0, 0.0), residual=x[:, :1].expand(8, 512).cpu())
+    assert torch.isfinite(tripped).all()
+    assert torch.equal(tripped.cpu(), want)
+
+
+FALLBACK_KERNELS = {
+    "i8": (r"cim_gemm_i8_fallback_kernelILi(\d)ELi(\d)EE", 12),
+    "grouped_i8": (r"cim_gemm_i8_grouped_fallback_kernelILi(\d)ELi(\d)EE",
+                   6),
+    "rowquant": (r"rowquant_fallback_kernelILi(\d)ELb([01])EE", 4)}
+
+
+def test_fallback_kernels_spill_nothing(dev):
+    """Every gated instantiation is in the fallback's library (3 tile
+    shapes x 4 variants dense, x 2 grouped; the row quantizer's 4), none
+    is in the ungated one, and none spills; their registers are
+    printed."""
+    import pathlib
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+
+    def dump(name):
+        _build.load(name)
+        return subprocess.run([str(tool), "--dump-resource-usage",
+                               str(_build.BUILD_DIR / f"lib{name}.so")],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    text = dump("cim_gemm_fallback")
+    assert "fallback_kernel" not in dump("cim_gemm")
+    for kind, (name, count) in FALLBACK_KERNELS.items():
+        found = {}
+        for m in re.finditer(r"Function \S*" + name + r"\S*:\s*\n\s*(.*)",
+                             text):
+            *args, use = m.groups()
+            found[tuple(map(int, args))] = {
+                k: int(v) for k, v in (f.split(":") for f in use.split())
+                if v.isdigit()}
+        print(kind, {k: v["REG"] for k, v in sorted(found.items())})
+        assert len(found) == count, (kind, sorted(found))
+        for key, use in found.items():
+            assert use["LOCAL"] == 0 and use["STACK"] == 0, (kind, key, use)

@@ -364,6 +364,6 @@ def test_build_flags_target_hopper_without_fast_math():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {p.name for p in _build.sources()} == {
-        "cim_gemm.cu", "decode_attention.cu", "flash_attention.cu",
-        "online_softmax.cu", "ssd_scan.cu"}
+        "cim_gemm.cu", "cim_gemm_fallback.cu", "decode_attention.cu",
+        "flash_attention.cu", "online_softmax.cu", "ssd_scan.cu"}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")

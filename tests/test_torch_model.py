@@ -239,7 +239,9 @@ def test_port_imports_no_jax_subprocess():
             "repro_torch.models.moe, repro_torch.parallel, "
             "repro_torch.parallel.context, repro_torch.parallel.sharding, "
             "repro_torch.quant.tp, repro_torch.models.dit, "
-            "repro_torch.diffusion, repro_torch.launch.generate\n"
+            "repro_torch.diffusion, repro_torch.launch.generate, "
+            "repro_torch.reliability, repro_torch.reliability.chaos, "
+            "repro_torch.core, repro_torch.core.bridge\n"
             "for arch in repro_torch.configs.ARCH_IDS:\n"
             "    repro_torch.configs.get_config(arch)\n"
             "sys.path.insert(0, '.')\n"
