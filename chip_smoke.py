@@ -60,11 +60,21 @@ the JAX package.  Phases, each printing its lines:
             ``ServingEngine(quant_plan=QuantPlan.full())``: 8 greedy
             requests; every request must end OK and the kernels' launch
             counters must match the plan (7 launches per layer per decode
-            step).
+            step).  The serve phases take their launch pins from the
+            port's manifest (``repro_torch.analysis.manifest``) wherever
+            it states a contract.
    serve-paged — ``PagedServingEngine`` over a pool too small for the
             first 8 of its 16 requests, so it must preempt: every request
             OK, the pool drains, counters exact (7 per layer per decode
             step, 6 per layer per prefill chunk).
+   obs    — the serve and serve-paged requests again, each engine with
+            ``obs=Observability()`` on a step clock: tokens bitwise the
+            runs without obs, every span closed once, ``dispatches_total``
+            times the 18 layers equal to the launch counters by site
+            class; the hooks' host time per step and the decode step
+            with and without obs; ``audit_lm`` on one full-width decode
+            step, ring and paged (launches by counter and site class,
+            the dtype flow outside the kernel wrappers).
    serve-long — the ring engine at 8192 slots, where decode attention
             takes the split walk: 8 launches per layer per decode step.
    reference — one full-width ring prefill + decode step and one paged
@@ -127,7 +137,9 @@ the JAX package.  Phases, each printing its lines:
             8 rows an evaluation); every request OK with finite latents,
             exactly 7 launches per block per evaluation (the 6 plan
             launches and 1 of kernel 12), the engine's latents bitwise a
-            direct ``sample()``, one evaluation within 5% of the largest
+            direct ``sample()`` and a replay of the first batch with
+            ``obs=`` (its evaluation and image counters the batch's), one
+            evaluation within 5% of the largest
             |eps| of the plain path; ms per evaluation, images/s, the
             profiled device share; the first batch again under degraded
             mode with a fault hook that plants a NaN in one request's
@@ -230,7 +242,8 @@ the JAX package.  Phases, each printing its lines:
             flag at 0 beside their kernels' ungated launches, and the
             screen.  Collectives are never captured in a graph.
 
-The LM serve runs (with the family's serve runs) must launch kernels
+The LM serve runs (with the family's serve runs and the obs phase's
+two) must launch kernels
 12-14 and the screen zero times and every other kernel at least once
 (the kernels' JSON record takes the screen's launches from the chaos
 phase's degraded serve); the kernels' JSON
@@ -1305,83 +1318,70 @@ def phase_ops(torch) -> tuple[dict, dict]:
     return counts, errs
 
 
-def expected_launches(cfg, decode_steps, forwards,
-                       attention=("decode_attention",), tp=False) -> dict:
-    """Launches the full plan makes, per layer and forward (decode step,
-    prefill or prefill chunk): QKV and out-proj, each one launch of
-    kernel 2 when its K (d_model; heads x head_dim) is at most
-    ``MAX_FUSED_QUANT_K``, else kernel 1 then kernel 3 (deepseek-67b's
-    and command-r-plus-104b's); for a dense FFN row-quant, gated (kernel
-    4; an ungated MLP such as musicgen's gelu: kernel 3), re-quantizing
-    its output when d_ff <= 8192, else one more row-quant (gemma-2b's
-    16384), down; for an MoE FFN row-quant of the stacked expert rows,
-    grouped gated (requant fused), grouped down, and the shared MLP's
-    row-quant, gated (requant fused), down.  Per layer and decode step
-    one launch of each ``attention`` kernel (a dict maps a layer's mixer
-    to its kernels: the split walk on gemma3-4b's global layers); a
-    prefill attends with the plain dense path.  On a tensor-parallel
-    rank (``tp``) the out-projection and every down GEMM are kernel 6
-    (the int32 partial), and the gated GEMM writes f32 (the requant runs
-    on the global row scale, outside any kernel).  A Mamba-2 layer
-    launches kernel 13 once per prefill and nothing at a decode step (its
-    projections are bf16 ``torch.matmul``, its decode recurrence plain
-    torch).  An MLA layer launches only its FFN's: its projections and
-    absorbed attention are bf16 ``torch`` products, as the reference's
-    plain ``einsum`` (no plan kind covers them); an mLSTM or sLSTM layer
-    launches nothing."""
+def expected_launches(cfg, decode_steps, forwards, kv_len=1024,
+                      paged=False, tp=False) -> dict:
+    """Launches the full plan makes over ``forwards`` forwards (decode
+    steps, prefills or prefill chunks) of which ``decode_steps`` are
+    decode steps, by launch counter: the sum of ``layer_launches`` over
+    the layers.  ``kv_len`` is the decode walk's cache (the ring's
+    ``max_len``, the paged table's capacity), ``paged`` the paged walk,
+    ``tp`` a tensor-parallel rank of ``TP``."""
     want = {name: 0 for name in SOURCES}
     for mixer, ffn in cfg.layer_specs():
         for name, n in layer_launches(cfg, mixer, ffn, decode_steps,
-                                      forwards, attention, tp).items():
+                                      forwards, kv_len, paged, tp).items():
             want[name] += n
     return want
 
 
-def layer_launches(cfg, mixer, ffn, decode_steps, forwards,
-                   attention=("decode_attention",), tp=False) -> dict:
+def layer_launches(cfg, mixer, ffn, decode_steps, forwards, kv_len=1024,
+                   paged=False, tp=False) -> dict:
     """One (mixer, ffn) layer's launches over ``forwards`` forwards of
-    which ``decode_steps`` are decode steps (``expected_launches``'s
-    rules)."""
+    which ``decode_steps`` are decode steps.  An attention layer's are the
+    port's manifest's (``analysis.manifest.layer_launches``: the
+    projections, the MLP or MoE pipeline, the decode walk by ``kv_len``
+    and ``paged``, a rank's kernel 6 and requant outside any kernel under
+    ``tp``); a prefill attends with the plain dense path.  The layers the
+    manifest has no contract for keep this rule: a Mamba-2 layer
+    launches kernel 13 once per prefill and nothing at a decode step (its
+    projections are bf16 ``torch.matmul``, its decode recurrence plain
+    torch); an MLA layer launches only its FFN's (row-quant, gated,
+    requant fused when d_ff <= 8192 or one more row-quant, down; an MoE
+    FFN the grouped pipeline and the shared MLP's): its projections and
+    absorbed attention are bf16 ``torch`` products, as the reference's
+    plain ``einsum`` (no plan kind covers them); an mLSTM or sLSTM layer
+    launches nothing."""
     from collections import Counter
-    from repro_torch.kernels.cim_gemm import (MAX_FUSED_QUANT_K,
-                                              MAX_FUSED_QUANT_N)
+    from repro_torch.analysis import manifest
+    from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_N
     want = Counter()
+    if mixer in ("attn", "attn_local"):
+        walk = dict(sharded=tp, kv_len=kv_len, paged=paged, tp=TP,
+                    block_size=PAGED_BLOCK)
+        for phase, n in (("decode", decode_steps),
+                         ("prefill", forwards - decode_steps)):
+            for name, k in manifest.layer_launches(
+                    cfg, (mixer, ffn), phase, **walk).items():
+                want[name] += k * n
+        return want
     if mixer == "mamba2":
         want["ssd_scan"] += forwards - decode_steps
     if mixer in RECURRENT:
         return want
-
-    def projection(K):
-        if K <= MAX_FUSED_QUANT_K:
-            want["cim_gemm_int8_fused_qin"] += forwards
-        else:
-            want["quantize_rows_int8"] += forwards
-            want["cim_gemm_int8_fused"] += forwards
-    if tp:
-        want["cim_gemm_int8_fused_qin"] += forwards
-        want["cim_gemm_int8"] += 2 * forwards
-    else:
-        if mixer != "mla":
-            projection(cfg.d_model)
-            projection(cfg.n_heads * cfg.head_dim)
-        want["cim_gemm_int8_fused"] += forwards
     want["cim_gated_gemm_int8" if cfg.gated
          else "cim_gemm_int8_fused"] += forwards
+    want["cim_gemm_int8_fused"] += forwards
     if ffn == "moe":
         want["quantize_rows_int8"] += 2 * forwards
         want["cim_grouped_gated_gemm_int8"] += forwards
         want["cim_grouped_gemm_int8"] += forwards
     else:
         want["quantize_rows_int8"] += (
-            1 if tp or cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
-    names = attention.get(mixer, ()) if isinstance(attention, dict) \
-        else attention
-    for name in names:
-        want[name] += decode_steps
+            1 if cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
     return want
 
 
-def launches_per_layer_step(cfg, attention=("decode_attention",),
+def launches_per_layer_step(cfg, kv_len=1024, paged=False,
                             by_ffn=False) -> dict:
     """Launches of one decode step, per layer mixer kind (e.g. gemma3-4b:
     7 on a local layer, 8 on a global one with the split walk), or per
@@ -1391,10 +1391,8 @@ def launches_per_layer_step(cfg, attention=("decode_attention",),
     for mixer, ffn in cfg.layer_specs():
         key = f"{mixer}/{ffn}" if by_ffn else mixer
         if key not in out:
-            att = attention.get(mixer, ()) if isinstance(attention, dict) \
-                else attention
-            out[key] = sum(layer_launches(cfg, mixer, ffn, 1, 1,
-                                          att).values())
+            out[key] = sum(layer_launches(cfg, mixer, ffn, 1, 1, kv_len,
+                                          paged).values())
     return out
 
 
@@ -1404,7 +1402,7 @@ def launches_per_decode_step(cfg, counts, decode_steps, forwards,
     launches less the prefills' (``forwards`` without decode steps), over
     the steps (a recurrent layer launches nothing at a decode step)."""
     prefill = sum(expected_launches(cfg, 0, forwards - decode_steps,
-                                    (), tp).values())
+                                    tp=tp).values())
     layers = sum(m not in RECURRENT for m, _ in cfg.layer_specs())
     return (sum(counts.values()) - prefill) / (layers * decode_steps)
 
@@ -1495,14 +1493,15 @@ def phase_serve(torch) -> tuple[dict, dict]:
         say(f"[serve]   req {r.uid}: prompt[{len(r.prompt)}] -> "
             f"{r.generated[:12]}...")
     return counts, dict(model=model, lengths=lengths,
-                        tokens=[r.generated for r in reqs])
+                        tokens=[r.generated for r in reqs],
+                        step_ms=statistics.median(step_ms))
 
 
 def phase_serve_paged(torch, model, tag: str = "serve-paged"
-                      ) -> tuple[dict, list]:
+                      ) -> tuple[dict, list, float]:
     """The paged engine on the shared model, over a pool that cannot hold
-    the first eight requests at once.  Returns the launch counts and the
-    requests' tokens."""
+    the first eight requests at once.  Returns the launch counts, the
+    requests' tokens and the median ms of a decode-only step."""
     from repro_torch.quant import QuantPlan
     from repro_torch.serving import PagedServingEngine, Request
 
@@ -1526,7 +1525,7 @@ def phase_serve_paged(torch, model, tag: str = "serve-paged"
     need(alloc.n_used == 0, f"{alloc.n_used} blocks still held at the end")
     want = expected_launches(cfg, st.decode_steps,
                              st.decode_steps + st.prefill_chunks,
-                             attention=("decode_attention_paged",))
+                             kv_len=engine._obs_kv_slots(), paged=True)
     say(f"[{tag}] {len(reqs)} requests OK: {st.tokens_out} decode "
         f"tokens + {st.prefills} prefills ({st.prefill_chunks} chunks) in "
         f"{wall:.2f} s ({(st.tokens_out + st.prefills) / wall:.1f} tok/s), "
@@ -1538,7 +1537,117 @@ def phase_serve_paged(torch, model, tag: str = "serve-paged"
     per = launches_per_decode_step(cfg, counts, st.decode_steps,
                                    st.decode_steps + st.prefill_chunks)
     say(f"[{tag}] {per:g} launches per layer per decode step")
-    return counts, [r.generated for r in reqs]
+    return counts, [r.generated for r in reqs], statistics.median(step_ms)
+
+
+def _timed_hooks(obs) -> list:
+    """Wrap every ``on_*`` hook of ``obs`` in a host timer; returns the
+    one-element list the seconds add up in."""
+    spent = [0.0]
+
+    def timed(fn):
+        def hook(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return hook
+    for name in dir(obs):
+        if name.startswith("on_"):
+            setattr(obs, name, timed(getattr(obs, name)))
+    return spent
+
+
+def phase_obs(torch, serve: dict, paged: tuple, card: str) -> dict:
+    """gemma-2b's serve and serve-paged runs again on the shared model,
+    each engine with ``obs=Observability()`` on a step clock: tokens
+    bitwise the runs without obs, every request's span closed once, and
+    the booked ``dispatches_total`` (the manifest's ``model_sites`` per
+    forward: one block of gemma-2b's one layer group) times the depth
+    equal to the launch counters by site class.  Prints the hooks' host
+    µs per engine step and the decode-only step's median ms with obs
+    beside the run without.  Then ``audit_lm`` on one full-width decode
+    step of the same model, ring and paged (launches by counter and by
+    site class, the dtype flow outside the wrappers).  Returns the two
+    serves' launch counts, summed."""
+    from repro_torch.analysis import audit_lm
+    from repro_torch.analysis.passes import classify
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Observability
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import PagedServingEngine, Request, ServingEngine
+
+    model = serve["model"]
+    cfg = model.cfg
+    need(len(cfg.layer_groups()) == 1, "obs: one layer group expected")
+    L = cfg.n_layers
+    total = {}
+    ring_kw = dict(n_slots=8, max_len=1024, prefill_bucket=64)
+    for name, cls, kw, lengths, seed, want, off_ms, counter in (
+            ("ring", ServingEngine, ring_kw, SERVE_LENGTHS, SEED,
+             serve["tokens"], serve["step_ms"], "prefills"),
+            ("paged", PagedServingEngine,
+             dict(ring_kw, block_size=PAGED_BLOCK, prefill_chunk=64,
+                  num_blocks=PAGED_NUM_BLOCKS), PAGED_PROMPTS, SEED + 1,
+             paged[0], paged[1], "prefill_chunks")):
+        obs = Observability()
+        spent = _timed_hooks(obs)
+        tick = [0]
+        engine = cls(model, quant_plan=QuantPlan.full(), obs=obs,
+                     clock=lambda: float(tick[0]), **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(_prompts(cfg, lengths, seed))]
+        for r in reqs:
+            engine.submit(r)
+        reset_launch_counts()
+        step_ms, hook_us = [], []
+        while engine.pending():
+            s0, h0 = time.perf_counter(), spent[0]
+            before = getattr(engine.stats, counter)
+            engine.step()
+            _sync(torch)
+            if getattr(engine.stats, counter) == before:
+                step_ms.append((time.perf_counter() - s0) * 1e3)
+            hook_us.append((spent[0] - h0) * 1e6)
+            tick[0] += 1
+        counts = launch_counts()
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        _check_served(cfg, reqs, NEW_TOKENS)
+        need([r.generated for r in reqs] == want,
+             f"obs {name}: tokens differ from the run without obs")
+        ends = obs.events.select("request_end")
+        need(sorted(e["uid"] for e in ends) == [r.uid for r in reqs]
+             and all(obs.traces[r.uid].closed for r in reqs),
+             f"obs {name}: a request's span was not closed exactly once")
+        booked = {k[0][1]: v for k, v in obs.dispatches_total.series.items()}
+        launched = dict(classify(counts))
+        need({k: v * L for k, v in booked.items()} == launched,
+             f"obs {name}: dispatches_total x {L} layers {booked} != "
+             f"the launch counters by site class {launched}")
+        snap = obs.snapshot()["metrics"]["counters"]
+        need(snap["tokens_total"]["series"][""]
+             == sum(len(r.generated) for r in reqs),
+             f"obs {name}: tokens_total disagrees with the run")
+        on_ms = statistics.median(step_ms)
+        say(f"[obs] {name}: {len(reqs)} requests OK, tokens bitwise the run "
+            f"without obs, {len(ends)} spans closed once; dispatches_total "
+            f"x {L} layers == launches by site class {json.dumps(launched)}")
+        say(f"[obs] {name}: hooks' host time per engine step: mean "
+            f"{statistics.mean(hook_us):.1f} µs (the first prices of each "
+            f"shape simulate the paper's TPU once), median "
+            f"{statistics.median(hook_us):.1f} µs, over {len(hook_us)} "
+            f"steps; decode-only step median {on_ms:.2f} ms with obs, "
+            f"{off_ms:.2f} ms without ({card})")
+        del engine
+    for paged_walk in (False, True):
+        t0 = time.perf_counter()
+        rep = audit_lm(cfg.name, "decode", paged=paged_walk, batch=8,
+                       kv_len=1024, model=model)
+        for line in rep.diff_lines():
+            say(f"[obs] audit {line} in {time.perf_counter() - t0:.2f} s")
+        need(rep.ok, f"obs: audit_lm found violations: {rep.diff_lines()}")
+    return total
 
 
 def phase_serve_long(torch, model) -> dict:
@@ -1556,9 +1665,9 @@ def phase_serve_long(torch, model) -> dict:
     counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
     st = engine.stats
     _check_served(cfg, reqs, LONG_NEW_TOKENS)
-    want = expected_launches(
-        cfg, st.decode_steps, st.decode_steps + st.prefills,
-        attention=("decode_attention_partial", "decode_attention_combine"))
+    want = expected_launches(cfg, st.decode_steps,
+                             st.decode_steps + st.prefills,
+                             kv_len=LONG_MAX_LEN)
     say(f"[serve-long] {len(reqs)} requests OK (prompts {LONG_PROMPTS}, "
         f"{ops.n_splits_for(LONG_MAX_LEN)} splits): {st.tokens_out} decode "
         f"tokens + {st.prefills} prefills in {wall:.2f} s, "
@@ -1642,7 +1751,7 @@ def phase_serve_moe(torch) -> tuple[dict, dict]:
                                    st.decode_steps + st.prefills)
     say(f"[serve-moe] {per:g} launches per layer per decode step")
     need(per == 9, f"{per} launches per layer per decode step, not 9")
-    prefill = sum(expected_launches(cfg, 0, 1, ()).values()) / cfg.n_layers
+    prefill = sum(expected_launches(cfg, 0, 1).values()) / cfg.n_layers
     say(f"[serve-moe] {prefill:g} launches per layer per prefill")
     need(prefill == 8, f"{prefill} launches per layer per prefill, not 8")
     steps = torch.stack(rec.decode).reshape(st.decode_steps, cfg.n_layers,
@@ -2145,7 +2254,9 @@ def phase_serve_dit(torch) -> dict:
     (each step one evaluation of 2B = 8 rows).  Every request OK with
     finite latents; exactly 7 launches per block per evaluation (the 6
     plan launches and 1 of kernel 12); the engine's latents bitwise a
-    direct ``sample()`` on the same noise; one evaluation within
+    direct ``sample()`` on the same noise, and a replay of the first batch
+    with ``obs=Observability()`` bitwise too, its ``denoise_evals_total``
+    and ``images_total`` the batch's; one evaluation within
     ``DIT_EPS_ATOL_REL`` of the largest |eps| of the plain path (the
     GEMMs' plain versions under ``kernel_mode(False)``, dense attention
     by explicit positions), which launches nothing.  Prints ms per
@@ -2154,10 +2265,12 @@ def phase_serve_dit(torch) -> dict:
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import manifest
     from repro_torch.configs import get_dit_config
     from repro_torch.diffusion import DiffusionEngine, ImageRequest, sample
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.dit import DiTModel
+    from repro_torch.obs import Observability
     from repro_torch.quant import QuantPlan, kernel_mode
     from repro_torch.serving import RequestStatus
 
@@ -2197,11 +2310,12 @@ def phase_serve_dit(torch) -> dict:
              for r in reqs), "serve-dit: latents of the wrong shape or "
          "non-finite")
     L = cfg.n_layers
+    # the plan's launches from the manifest, kernel 12 (no site class)
+    # once per block
     want = {name: 0 for name in SOURCES}
-    want.update(cim_gemm_int8_fused_qin=3 * L * evals,
-                quantize_rows_int8=L * evals,
-                cim_gemm_int8_fused=2 * L * evals,
-                flash_attention=L * evals)
+    for k, n in manifest.dit_step_launches(cfg).items():
+        want[k] = n * evals
+    want["flash_attention"] = L * evals
     say(f"[serve-dit] {len(reqs)} requests OK in {st.batches} batches of "
         f"{DIT_BATCH} ({evals} evaluations of {2 * DIT_BATCH} rows): "
         f"{wall:.2f} s, {st.images_out / wall:.3f} images/s, "
@@ -2225,15 +2339,39 @@ def phase_serve_dit(torch) -> dict:
         f"{'bitwise' if same else 'DIFFER'}")
     need(same, "serve-dit: the engine's latents are not its sample()'s")
 
+    # the first batch again with obs: the same latents bitwise, the
+    # counters the batch's
+    def replay_of(batch):
+        return [dataclasses.replace(r, status=RequestStatus.QUEUED,
+                                    latents=None, error=None,
+                                    finished_at=None) for r in batch]
+    obs = Observability()
+    watched = DiffusionEngine(model, batch_size=DIT_BATCH, obs=obs)
+    replay = replay_of(first)
+    for r in replay:
+        watched.submit(r)
+    watched.run_until_done()
+    c = obs.snapshot()["metrics"]["counters"]
+    got = (c["denoise_evals_total"]["series"][""],
+           c["images_total"]["series"][""])
+    same = all(np.array_equal(a.latents, b.latents)
+               for a, b in zip(replay, first))
+    say(f"[serve-dit] the first batch again with obs: latents "
+        f"{'bitwise' if same else 'DIFFER'}; denoise_evals_total "
+        f"{got[0]:g}, images_total {got[1]:g}")
+    need(same, "serve-dit: obs changed the latents")
+    need(got == (2 * DIT_STEPS * DIT_BATCH, DIT_BATCH)
+         and watched.stats.denoise_steps == DIT_STEPS,
+         f"serve-dit: obs counters {got} disagree with the batch")
+    del watched
+
     # the first batch again, under degraded mode, with a fault hook that
     # plants a NaN in one request's latents
     def plant(phase, lat):
         lat = lat.copy()
         lat[1, 0, 0, 0] = np.nan
         return lat
-    replay = [dataclasses.replace(r, status=RequestStatus.QUEUED,
-                                  latents=None, error=None,
-                                  finished_at=None) for r in first]
+    replay = replay_of(first)
     deg = DiffusionEngine(model, batch_size=DIT_BATCH, degraded=True,
                           fault_hook=plant)
     for r in replay:
@@ -2520,7 +2658,8 @@ def phase_serve_zamba2(torch) -> dict:
     st = engine.stats
     _check_served(cfg, reqs, NEW_TOKENS)
     want = expected_launches(cfg, st.decode_steps,
-                             st.decode_steps + st.prefills)
+                             st.decode_steps + st.prefills,
+                             kv_len=engine._obs_kv_slots())
     say(f"[serve-zamba2] {len(reqs)} requests OK (prompts "
         f"{ZAMBA_PROMPTS}): {st.tokens_out} decode tokens + {st.prefills} "
         f"prefills in {wall:.2f} s "
@@ -2619,7 +2758,7 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def _served_run(torch, tag, engine, reqs, prefill_counter, attention,
+def _served_run(torch, tag, engine, reqs, prefill_counter,
                 new_tokens=NEW_TOKENS) -> dict:
     """Serve ``reqs`` on ``engine`` and pin its launches exactly: every
     request OK, the counts ``expected_launches`` gives, and per layer per
@@ -2629,7 +2768,8 @@ def _served_run(torch, tag, engine, reqs, prefill_counter, attention,
     st = engine.stats
     _check_served(cfg, reqs, new_tokens)
     forwards = st.decode_steps + getattr(st, prefill_counter)
-    want = expected_launches(cfg, st.decode_steps, forwards, attention)
+    walk = dict(kv_len=engine._obs_kv_slots(), paged=hasattr(engine, "paged"))
+    want = expected_launches(cfg, st.decode_steps, forwards, **walk)
     say(f"[{tag}] {len(reqs)} requests OK (prompts "
         f"{[len(r.prompt) for r in reqs]}): {st.tokens_out} decode tokens + "
         f"{st.prefills} prefills ({getattr(st, prefill_counter)} "
@@ -2639,7 +2779,7 @@ def _served_run(torch, tag, engine, reqs, prefill_counter, attention,
         f"{statistics.median(step_ms):.2f} ms per decode-only step")
     say(f"[{tag}] launches {json.dumps(counts)}")
     need(counts == want, f"{tag}: launch counts {counts} != {want}")
-    per = launches_per_layer_step(cfg, attention)
+    per = launches_per_layer_step(cfg, **walk)
     say(f"[{tag}] launches per layer per decode step {json.dumps(per)} "
         f"(mean {launches_per_decode_step(cfg, counts, st.decode_steps, forwards):g})")
     return counts
@@ -2816,27 +2956,23 @@ def phase_serve_gemma3(torch) -> tuple[dict, dict]:
                                      ServingEngine)
     tag = "serve-gemma3"
     cfg = get_config(GEMMA3_ARCH)
-    from repro_torch.kernels import ops
     model = _draw_quantized(torch, cfg, tag)
     # a global layer's ring of GEMMA3_MAX_LEN slots takes the split walk
-    # above ops.SPLIT_MIN_SLOTS; a local layer's 1024 slots one walk
-    split = {"attn": ("decode_attention_partial", "decode_attention_combine")
-             if ops.n_splits_for(GEMMA3_MAX_LEN) > 1
-             else ("decode_attention",),
-             "attn_local": ("decode_attention",)}
+    # above 2048 slots; a local layer's 1024 slots one walk (the
+    # manifest's layer_launches; ROADMAP C.15)
     runs = []
-    for name, cls, kw, prefill_counter, attention in (
-            ("ring", ServingEngine, {}, "prefills", split),
+    for name, cls, kw, prefill_counter in (
+            ("ring", ServingEngine, {}, "prefills"),
             ("paged", PagedServingEngine,
              dict(block_size=PAGED_BLOCK, prefill_chunk=GEMMA3_CHUNK),
-             "prefill_chunks", ("decode_attention_paged",))):
+             "prefill_chunks")):
         engine = cls(model, n_slots=8, max_len=GEMMA3_MAX_LEN,
                      prefill_bucket=64, quant_plan=QuantPlan.full(), **kw)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
                 for i, p in enumerate(_prompts(cfg, GEMMA3_PROMPTS,
                                                SEED + 8))]
         runs.append(_served_run(torch, f"{tag} {name}", engine, reqs,
-                                prefill_counter, attention))
+                                prefill_counter))
         if name == "paged":
             alloc = engine.paged.allocator
             alloc.check()
@@ -2887,8 +3023,7 @@ def phase_serve_paligemma(torch) -> tuple[dict, dict]:
                            quant_plan=QuantPlan.full())
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(_prompts(cfg, PALI_PROMPTS, SEED + 10))]
-    counts = _served_run(torch, tag, engine, reqs, "prefills",
-                         ("decode_attention",))
+    counts = _served_run(torch, tag, engine, reqs, "prefills")
     del engine
     _free(torch)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
@@ -2979,8 +3114,7 @@ def phase_serve_deep(torch, arch: str) -> dict:
                            quant_plan=QuantPlan.full())
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(_prompts(cfg, SERVE_LENGTHS, SEED + 13))]
-    counts = _served_run(torch, tag, engine, reqs, "prefills",
-                         ("decode_attention",))
+    counts = _served_run(torch, tag, engine, reqs, "prefills")
     per = launches_per_layer_step(cfg)
     need(per == {"attn": 9}, f"{tag}: {per} per layer per decode step")
     del engine
@@ -3028,8 +3162,8 @@ def phase_serve_v3(torch) -> tuple[dict, dict, dict]:
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(_prompts(cfg, SERVE_LENGTHS, SEED + 16))]
     with CountsRecorder() as rec:
-        counts = _served_run(torch, tag, engine, reqs, "prefills", ())
-    per = launches_per_layer_step(cfg, (), by_ffn=True)
+        counts = _served_run(torch, tag, engine, reqs, "prefills")
+    per = launches_per_layer_step(cfg, by_ffn=True)
     say(f"[{tag}] launches per layer per decode step by kind "
         f"{json.dumps(per)} (MLA itself: none)")
     need(per == {"mla/dense": 4, "mla/moe": 6},
@@ -3443,6 +3577,7 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
     forward 2 MAX + 2 SUM (+1 gather), the paged run preempts and drains.
     ``ref`` = (input, logits): reference-tp's bitwise logits.  Returns
     the launch counts summed over ranks and runs."""
+    from repro_torch.analysis import manifest
     from repro_torch.parallel.context import spawn
     spec = dict(device=DEVICE, cfg=cfg, runs=runs)
     if ref is not None:
@@ -3481,20 +3616,21 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
         r0 = res[0]
         steps = r0["decode_steps"]
         fwd = steps + (r0["prefill_chunks"] if paged else r0["prefills"])
-        attn = ("decode_attention_paged",) if paged else ("decode_attention",)
-        want = expected_launches(cfg, steps, fwd, attn, tp=True)
+        walk = dict(kv_len=run["kw"]["max_len"], paged=paged)
+        want = expected_launches(cfg, steps, fwd, tp=True, **walk)
+        want_coll = {k: n * fwd for k, n in
+                     manifest.step_collectives(cfg).items()}
+        want_coll.setdefault("gather", 0)
         for r in res:
             need(r["launches"] == want,
                  f"{name}: launch counts {r['launches']} != {want}")
-            need(r["collectives"] == dict(max=2 * L * fwd, sum=2 * L * fwd,
-                                          gather=L * fwd if moe else 0,
-                                          bcast=0),
-                 f"{name}: collectives {r['collectives']}")
+            need(r["collectives"] == dict(want_coll, bcast=0),
+                 f"{name}: collectives {r['collectives']} != {want_coll}")
             for k in total:
                 total[k] += r["launches"][k]
         per = launches_per_decode_step(cfg, r0["launches"], steps, fwd,
                                        tp=True)
-        pre = sum(expected_launches(cfg, 0, 1, (), tp=True).values()) / L
+        pre = sum(expected_launches(cfg, 0, 1, tp=True).values()) / L
         need(per == (9 if moe else 6),
              f"{name}: {per} launches per layer per decode step")
         need(pre == (8 if moe else 5),
@@ -4404,8 +4540,10 @@ def main() -> int:
         errs.update(ops_errs)
         counts, serve = phase_serve(torch)
         # each run sets the counters to 0 first; the JSON line sums them
-        paged_counts, paged_tokens = phase_serve_paged(torch, serve["model"])
-        runs = [counts, paged_counts]
+        paged_counts, paged_tokens, paged_ms = phase_serve_paged(
+            torch, serve["model"])
+        runs = [counts, paged_counts,
+                phase_obs(torch, serve, (paged_tokens, paged_ms), card)]
         torch.cuda.empty_cache()
         runs.append(phase_serve_long(torch, serve["model"]))
         torch.cuda.empty_cache()
@@ -4432,8 +4570,8 @@ def main() -> int:
             ref=(ref_input, ref_logits)))
         moe_counts, moe = phase_serve_moe(torch)
         runs.append(moe_counts)
-        moe_paged_counts, _ = phase_serve_paged(torch, moe["model"],
-                                                "serve-moe-paged")
+        moe_paged_counts, _, _ = phase_serve_paged(torch, moe["model"],
+                                                   "serve-moe-paged")
         runs.append(moe_paged_counts)
         torch.cuda.empty_cache()
         phase_reference(torch, moe["model"], SEED, "reference-moe")

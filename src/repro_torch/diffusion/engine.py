@@ -77,7 +77,8 @@ class DiffusionEngine:
                  schedule: DiffusionSchedule = DEFAULT_SCHEDULE,
                  max_queue: Optional[int] = None, degraded: bool = False,
                  health_checks: bool = True,
-                 fault_hook: Optional[Callable] = None, clock=None):
+                 fault_hook: Optional[Callable] = None, clock=None,
+                 obs=None):
         """``model`` is a :class:`~repro_torch.models.dit.DiTModel`
         holding its weights; the engine runs on the model's device.  A
         ``quant_plan`` is applied to the model in place.
@@ -93,6 +94,10 @@ class DiffusionEngine:
           padded batch's latents [batch_size, C, H, W]), as the
           reference calls it.
         * ``clock`` — injectable monotonic clock (seconds) for deadlines.
+        * ``obs`` — a :class:`repro_torch.obs.Observability`: submit,
+          denoise-batch and finish hooks on the host, each behind one
+          ``obs is not None`` test (an engine without it runs the code it
+          ran before).
         """
         self.model = model
         if quant_plan is not None:
@@ -109,11 +114,15 @@ class DiffusionEngine:
         self._clock = clock if clock is not None else time.monotonic
         self.queue: deque[ImageRequest] = deque()
         self.stats = DiffusionStats()
+        self.obs = obs
+        if obs is not None:
+            obs.bind_dit_engine(self)
 
     # ------------------------------------------------------------------
     def _finish(self, req: ImageRequest, status: RequestStatus,
                 error: Optional[str] = None) -> RequestStatus:
-        req.finish(status, error, now=self._clock())
+        now = self._clock()
+        req.finish(status, error, now=now)
         if status is RequestStatus.OK:
             self.stats.completed += 1
         elif status is RequestStatus.FAILED:
@@ -122,6 +131,8 @@ class DiffusionEngine:
             self.stats.timed_out += 1
         else:
             self.stats.rejected += 1
+        if self.obs is not None:
+            self.obs.on_finish(req, status, req.error, now)
         return status
 
     def submit(self, req: ImageRequest) -> RequestStatus:
@@ -155,6 +166,8 @@ class DiffusionEngine:
         req.submitted_at = self._clock()
         self.queue.append(req)
         self.stats.submitted += 1
+        if self.obs is not None:
+            self.obs.on_submit(req, req.submitted_at, len(self.queue))
         return RequestStatus.QUEUED
 
     def _noise(self, req: ImageRequest) -> torch.Tensor:
@@ -215,6 +228,11 @@ class DiffusionEngine:
             out = self.fault_hook("denoise", lat)
             if out is not None:
                 lat = np.asarray(out)
+        if self.obs is not None:
+            # guidance stacks the conditional and null rows into one
+            # batch of 2B: a guided image takes two evaluations a step
+            evals = head.num_steps * (2 if head.cfg_scale > 0.0 else 1)
+            self.obs.on_denoise_batch(batch, evals, self._clock())
         delivered = 0
         for i, r in enumerate(batch):
             if self.health_checks and not np.isfinite(lat[i]).all():

@@ -8,6 +8,7 @@ launches on the current stream.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -18,12 +19,21 @@ ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2, "relu": 3}
 DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 
 
+# Called with the wrapper's code object each time a wrapper takes its
+# plain version (None: nobody listens).  ``analysis.record.Recorder``
+# sets it to count the wrappers' calls on the CPU, where no launch
+# counter moves.
+observer = None
+
+
 def on_cpu(*tensors: torch.Tensor | None) -> bool:
     """True if the call takes the plain version: every tensor on the CPU.
 
     Raises for any other device and for a CPU/CUDA mix."""
     devs = {t.device.type for t in tensors if t is not None}
     if devs == {"cpu"}:
+        if observer is not None:
+            observer(sys._getframe(1).f_code)
         return True
     if devs == {"cuda"}:
         return False

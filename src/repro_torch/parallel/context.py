@@ -49,7 +49,11 @@ class TPGroup:
     ``counts`` holds the collectives made so far by kind (``max``,
     ``sum``, ``gather``, ``bcast``); :meth:`agree` is the engines'
     end-of-run check and is not counted.  With ``backend="gloo"`` a CUDA
-    tensor is copied to the host for the collective and back."""
+    tensor is copied to the host for the collective and back.
+    ``observer(kind, tensor)``, when set, sees every counted collective's
+    input (``analysis.record.Recorder`` sets it for one step)."""
+
+    observer = None
 
     def __init__(self, rank: int = 0, size: int = 1,
                  backend: Optional[str] = None):
@@ -69,6 +73,8 @@ class TPGroup:
 
     def _all_reduce(self, t: torch.Tensor, op, kind: str) -> torch.Tensor:
         self.counts[kind] += 1
+        if self.observer is not None:
+            self.observer(kind, t)
         if self.size == 1:
             return t
         if self._staged(t):
@@ -93,6 +99,8 @@ class TPGroup:
         rank) concatenated on the leading axis, in rank order.  Moved as
         raw bytes, so any dtype goes through any backend."""
         self.counts["gather"] += 1
+        if self.observer is not None:
+            self.observer("gather", t)
         if self.size == 1:
             return t
         raw = t.contiguous().view(torch.uint8)

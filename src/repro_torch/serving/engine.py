@@ -87,7 +87,7 @@ class ServingEngine:
                  max_queue: Optional[int] = None, degraded: bool = False,
                  health_checks: bool = True,
                  fault_hook: Optional[Callable] = None, clock=None,
-                 tp=None):
+                 tp=None, obs=None):
         """``model`` is a :class:`~repro_torch.models.model.Model` holding
         its weights; the engine runs on the model's device.  Prompts are
         tokens: a vision config serves text prompts whose first
@@ -120,6 +120,11 @@ class ServingEngine:
           empty slots included) fetch, as the reference calls it; the
           chaos harness (:mod:`repro_torch.reliability.chaos`) uses it.
         * ``clock`` — injectable monotonic clock (seconds) for deadlines.
+        * ``obs`` — a :class:`repro_torch.obs.Observability`.  Every
+          instrumentation point is on the host and behind one ``obs is
+          not None`` test, so an engine without it runs the code it ran
+          before (bitwise the same tokens and launches); the hooks read
+          host values only, adding no device sync.
 
         ``degraded`` and ``fault_hook`` are not ported under ``tp`` yet
         (ROADMAP A.3) and raise ``NotImplementedError`` there.
@@ -162,6 +167,9 @@ class ServingEngine:
         self.slot_last = np.zeros(n_slots, np.int32)
         self.queue: deque[Request] = deque()
         self.stats = EngineStats()
+        self.obs = obs
+        if obs is not None:
+            obs.bind_llm_engine(self)
 
     def _init_cache(self) -> list:
         """The KV cache; the paged engine overrides this with block pools
@@ -228,10 +236,21 @@ class ServingEngine:
         out = self.fault_hook(phase, logits)
         return logits if out is None else np.asarray(out)
 
+    def _obs_kv_slots(self) -> int:
+        """Cache positions a decode walk streams per sequence: the
+        manifest's split-KV discriminant (the paged engine overrides it
+        with its block-table capacity)."""
+        return self.max_len
+
     # ------------------------------------------------------------------
     def _finish(self, req: Request, status: RequestStatus,
                 error: Optional[str] = None) -> RequestStatus:
-        req.finish(status, error, now=self._clock())
+        """Move ``req`` to a terminal status and book it.  The single
+        terminal funnel: ``req.finish`` enforces the exactly-once
+        transition, so the obs span close here fires exactly once per
+        request on every terminal path."""
+        now = self._clock()
+        req.finish(status, error, now=now)
         if self.tp is not None:
             self._finished.append((req.uid, status.value,
                                    tuple(req.generated)))
@@ -243,6 +262,8 @@ class ServingEngine:
             self.stats.timed_out += 1
         else:
             self.stats.rejected += 1
+        if self.obs is not None:
+            self.obs.on_finish(req, status, req.error, now)
         return status
 
     def submit(self, req: Request) -> RequestStatus:
@@ -283,6 +304,8 @@ class ServingEngine:
         req.submitted_at = self._clock()
         self.queue.append(req)
         self.stats.submitted += 1
+        if self.obs is not None:
+            self.obs.on_submit(req, req.submitted_at, len(self.queue))
         return RequestStatus.QUEUED
 
     def _sample(self, req: Request, logits: np.ndarray, step: int) -> int:
@@ -322,20 +345,23 @@ class ServingEngine:
             verdicts = self.tp.broadcast_flags(verdicts)
         return {id(r) for r, v in zip(pending, verdicts) if v}
 
-    def _expire_and_admit(self) -> None:
+    def _expire_and_admit(self) -> float:
         """The head of every step: time out the active requests whose
-        deadline passed, then fill free slots (queued requests found
-        expired on the way time out too)."""
-        expired = self._expired(self._clock())
+        deadline has passed, then fill free slots (queued requests found
+        expired on the way time out too).  Returns the step's clock
+        reading (the obs hooks' time)."""
+        now = self._clock()
+        expired = self._expired(now)
         for slot in self._active():
             req = self.slot_req[slot]
             if id(req) in expired:
                 self._finish(req, RequestStatus.TIMED_OUT,
                              "deadline expired mid-decode")
                 self._clear_slot(slot)
-        self._admit(expired)
+        self._admit(expired, now)
+        return now
 
-    def _admit(self, expired: set[int]) -> None:
+    def _admit(self, expired: set[int], now: float) -> None:
         """Fill free slots from the queue (prefill path)."""
         for slot in range(self.n_slots):
             while self.slot_req[slot] is None and self.queue:
@@ -351,8 +377,14 @@ class ServingEngine:
                 toks = np.concatenate(
                     [req.prompt,
                      np.full(pad, req.prompt[-1])]).astype(np.int32)
+                if self.obs is not None:
+                    self.obs.on_admit(req, slot, now)
                 logits = self._to_host(self._prefill_one(toks, slot, L))
                 self.stats.prefills += 1
+                if self.obs is not None:
+                    # the ring prefill computes the bucket-padded prompt
+                    self.obs.on_prefill(req, len(toks), len(toks), now)
+                    self.obs.on_prefill_done(req, now)
                 logits = self._apply_fault_hook("prefill", logits)
                 if self.health_checks and not np.isfinite(logits).all():
                     self.stats.prefill_failures += 1
@@ -364,6 +396,10 @@ class ServingEngine:
                 req.generated.append(nxt)
                 if req.first_token_at is None:
                     req.first_token_at = self._clock()
+                    if self.obs is not None:
+                        self.obs.on_first_token(req, req.first_token_at)
+                if self.obs is not None:
+                    self.obs.on_token(req, nxt, now)
                 self.slot_req[slot] = req
                 self.slot_pos[slot] = L
                 self.slot_last[slot] = nxt
@@ -378,7 +414,9 @@ class ServingEngine:
 
     def step(self) -> None:
         """One engine iteration: expire + admit + one batched decode."""
-        self._expire_and_admit()
+        now = self._expire_and_admit()
+        if self.obs is not None:
+            self.obs.queue_depth.set(len(self.queue))
         active = self._active()
         if not active:
             return
@@ -386,6 +424,10 @@ class ServingEngine:
         logits = self._to_host(self._decode_all(self.slot_last))
         logits = self._apply_fault_hook("decode", logits)
         self.stats.decode_steps += 1
+        if self.obs is not None:
+            self.obs.on_decode_rows(
+                [(self.slot_req[s], int(self.slot_pos[s]) + 1)
+                 for s in active], now)
         for slot in active:
             req = self.slot_req[slot]
             if self.health_checks and not np.isfinite(logits[slot]).all():
@@ -395,6 +437,8 @@ class ServingEngine:
             tok = self._sample(req, logits[slot], len(req.generated))
             req.generated.append(tok)
             self.stats.tokens_out += 1
+            if self.obs is not None:
+                self.obs.on_token(req, tok, now)
             self.slot_last[slot] = tok
             self.slot_pos[slot] += 1
             if ((req.eos_id is not None and tok == req.eos_id)
@@ -603,6 +647,20 @@ class PagedServingEngine(ServingEngine):
                 f"Raise max_len (table width) or block_size.")
         return self._enqueue(req)
 
+    def _obs_kv_slots(self) -> int:
+        return self.paged.capacity_tokens
+
+    def _used_tokens(self) -> int:
+        """KV positions written across all slots (a filling slot counts
+        its chunk offset, a decoding slot its position)."""
+        used = 0
+        for slot in self._active():
+            if slot in self.slot_fill:
+                used += int(self.slot_fill[slot][1])
+            else:
+                used += int(self.slot_pos[slot])
+        return used
+
     def _clear_slot(self, slot: int) -> None:
         """Free the slot and its blocks; the freed blocks' positions are
         reset to the empty sentinel in every layer, so a reallocated
@@ -617,7 +675,7 @@ class PagedServingEngine(ServingEngine):
         self.slot_req[slot] = None
         self.slot_fill.pop(slot, None)
 
-    def _admit(self, expired: set[int]) -> None:
+    def _admit(self, expired: set[int], now: float) -> None:
         """Assign queued requests to free slots (FIFO, no reordering).
 
         Admission only claims the slot and stages the resume tokens
@@ -648,6 +706,9 @@ class PagedServingEngine(ServingEngine):
                 self.slot_fill[slot] = [toks, 0]
                 self._slot_seq[slot] = self._admit_order
                 self._admit_order += 1
+                if self.obs is not None:
+                    self.obs.on_admit(req, slot, now,
+                                      resumed=bool(req.generated))
                 break
 
     # -- block pressure ------------------------------------------------
@@ -668,6 +729,8 @@ class PagedServingEngine(ServingEngine):
         self.queue.appendleft(req)
         self.stats.preemptions += 1
         self.stats.evicted_blocks += freed
+        if self.obs is not None:
+            self.obs.on_preempt(req, slot, freed, self._clock())
 
     def _ensure(self, slot: int, n_tokens: int) -> bool:
         """Grow ``slot`` to cover ``n_tokens`` positions, preempting
@@ -681,6 +744,9 @@ class PagedServingEngine(ServingEngine):
                 return True
             except PoolExhausted:
                 self.stats.pool_exhaustions += 1
+                if self.obs is not None:
+                    self.obs.on_pool_exhausted(self.slot_req[slot], slot,
+                                               self._clock())
                 victim = self._pick_victim(slot)
                 if victim is None:
                     self._finish(self.slot_req[slot], RequestStatus.FAILED,
@@ -700,7 +766,7 @@ class PagedServingEngine(ServingEngine):
     def step(self) -> None:
         """One engine iteration: expire + admit + one prefill chunk per
         filling slot + one batched decode for every running slot."""
-        self._expire_and_admit()
+        now = self._expire_and_admit()
 
         # chunked prefill: one chunk per filling slot
         C = self.prefill_chunk
@@ -719,12 +785,19 @@ class PagedServingEngine(ServingEngine):
             logits = self._to_host(self._prefill_chunk(chunk, slot, valid,
                                                        off))
             self.stats.prefill_chunks += 1
+            if self.obs is not None:
+                # the forward computes C padded query positions at
+                # ``off``, attending the off + C cached positions
+                self.obs.on_prefill(req, len(chunk), off + len(chunk),
+                                    now, chunk=True, offset=off)
             off += valid
             if off < len(toks):
                 self.slot_fill[slot][1] = off
                 continue
             # final chunk: the request joins the decode batch
             self.stats.prefills += 1
+            if self.obs is not None:
+                self.obs.on_prefill_done(req, now)
             logits = self._apply_fault_hook("prefill", logits)
             if self.health_checks and not np.isfinite(logits).all():
                 self.stats.prefill_failures += 1
@@ -734,8 +807,12 @@ class PagedServingEngine(ServingEngine):
                 continue
             tok = self._sample(req, logits, len(req.generated))
             req.generated.append(tok)
+            if self.obs is not None:
+                self.obs.on_token(req, tok, now)
             if req.first_token_at is None:
                 req.first_token_at = self._clock()
+                if self.obs is not None:
+                    self.obs.on_first_token(req, req.first_token_at)
             del self.slot_fill[slot]
             self.slot_pos[slot] = len(toks)
             self.slot_last[slot] = tok
@@ -757,6 +834,10 @@ class PagedServingEngine(ServingEngine):
             logits = self._to_host(self._decode_masked(self.slot_last, mask))
             logits = self._apply_fault_hook("decode", logits)
             self.stats.decode_steps += 1
+            if self.obs is not None:
+                self.obs.on_decode_rows(
+                    [(self.slot_req[s], int(self.slot_pos[s]) + 1)
+                     for s in ok], now)
             for slot in ok:
                 req = self.slot_req[slot]
                 if self.health_checks \
@@ -768,7 +849,14 @@ class PagedServingEngine(ServingEngine):
                 tok = self._sample(req, logits[slot], len(req.generated))
                 req.generated.append(tok)
                 self.stats.tokens_out += 1
+                if self.obs is not None:
+                    self.obs.on_token(req, tok, now)
                 self.slot_last[slot] = tok
                 self.slot_pos[slot] += 1
                 self._maybe_finish(slot, req, tok)
         self.stats.cache_utilization.append(self.paged.utilization())
+        if self.obs is not None:
+            self.obs.on_kv_state(
+                self.paged.utilization(),
+                self.paged.fragmentation(self._used_tokens()))
+            self.obs.queue_depth.set(len(self.queue))

@@ -2889,3 +2889,99 @@ def test_fallback_kernels_spill_nothing(dev):
         assert len(found) == count, (kind, sorted(found))
         for key, use in found.items():
             assert use["LOCAL"] == 0 and use["STACK"] == 0, (kind, key, use)
+
+
+# ---------------------------------------------------------------------------
+# observability and the launch audit on the card
+# ---------------------------------------------------------------------------
+# the registry's full-plan archs: a fact of the configs, not of the card
+AUDIT_ARCHS = ("gemma-2b", "gemma3-4b", "deepseek-67b", "command-r-plus-104b",
+               "paligemma-3b", "musicgen-medium", "qwen2-moe-a2.7b")
+
+
+def test_audit_archs_are_the_full_plan_archs():
+    from repro_torch.analysis import full_plan_archs
+    assert sorted(full_plan_archs()) == sorted(AUDIT_ARCHS)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", AUDIT_ARCHS)
+def test_audit_lm_clean_on_card(dev, arch, phase, paged):
+    """One smoke-config step on the card: the launch counters' deltas are
+    the manifest's per-layer counts by counter and by site class, and the
+    dtype flow outside the wrappers is clean."""
+    from repro_torch.analysis import audit_lm
+    rep = audit_lm(arch, phase, paged=paged, reduced=True, device=dev)
+    assert rep.ok, rep.diff_lines()
+    assert rep.n_dispatches > 0
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("gemma-2b", dict(tp=2)), ("qwen2-moe-a2.7b", dict(tp=2)),
+    ("gemma3-4b", dict(kv_len=4096)), ("gemma-2b", dict(kv_len=4096))])
+def test_audit_lm_tp_and_split_walk_on_card(dev, arch, kw):
+    """A TP rank (one in-process rank: kernel 6 and the collectives) and
+    the split walk above 2048 slots (gemma3-4b: its global layers only,
+    ROADMAP C.15)."""
+    from repro_torch.analysis import audit_lm
+    rep = audit_lm(arch, "decode", reduced=True, device=dev, **kw)
+    assert rep.ok, rep.diff_lines()
+    if "kv_len" in kw:
+        assert rep.launches["decode_attention_combine"] > 0
+
+
+def test_audit_dit_clean_on_card(dev):
+    """dit-test's evaluation on the card: the plan launches the manifest's
+    per block, kernel 12 once a block outside the contract."""
+    from repro_torch.analysis import audit_dit
+    from repro_torch.configs import get_dit_config
+    rep = audit_dit("dit-test", device=dev)
+    assert rep.ok, rep.diff_lines()
+    assert rep.launches["flash_attention"] == \
+        get_dit_config("dit-test").n_layers
+
+
+def _syncs(fn) -> int:
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+def test_obs_adds_no_device_sync(dev, paged):
+    """A decode step with obs makes no more device-to-host syncs than one
+    without: the hooks read host values only.  Same tokens either way."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import Model
+    from repro_torch.obs import Observability
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import (PagedServingEngine, Request,
+                                     ServingEngine)
+    model = Model(reduced_config(get_config("gemma-2b"))).init(0,
+                                                                device=dev)
+    rng = _gen(7)
+    prompts = [rng.integers(1, 256, n).astype(np.int32) for n in (5, 9, 3)]
+    counts, tokens = [], []
+    for obs in (None, Observability()):
+        cls = PagedServingEngine if paged else ServingEngine
+        kw = dict(block_size=8, prefill_chunk=16) if paged else {}
+        eng = cls(model, n_slots=3, max_len=64, prefill_bucket=16,
+                  quant_plan=QuantPlan.full(), obs=obs, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.step()                 # prefills (+ the first decode)
+        counts.append(_syncs(eng.step))
+        eng.run_until_done()
+        tokens.append([r.generated for r in reqs])
+    assert counts[1] <= counts[0], counts
+    assert tokens[0] == tokens[1]

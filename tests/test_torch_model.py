@@ -241,7 +241,8 @@ def test_port_imports_no_jax_subprocess():
             "repro_torch.quant.tp, repro_torch.models.dit, "
             "repro_torch.diffusion, repro_torch.launch.generate, "
             "repro_torch.reliability, repro_torch.reliability.chaos, "
-            "repro_torch.core, repro_torch.core.bridge\n"
+            "repro_torch.core, repro_torch.core.bridge, "
+            "repro_torch.obs, repro_torch.analysis\n"
             "for arch in repro_torch.configs.ARCH_IDS:\n"
             "    repro_torch.configs.get_config(arch)\n"
             "sys.path.insert(0, '.')\n"
