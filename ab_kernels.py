@@ -127,6 +127,20 @@ def _softmax_cases(torch, cs, cg, gen):
                [lambda x=x: sm.online_softmax(x) for x in xs])
 
 
+def _flash_cases(torch, cs, cg, gen):
+    """Kernel 12 at the ops phase's FLASH_CASES through the signature
+    both trees take (no ``lse``): every case must give the old tree's
+    bits."""
+    from repro_torch.kernels import flash_attention as fa
+    for case, B, Sq, Skv, H, KH, D, dtype, causal, window in cs.FLASH_CASES:
+        size = 2 if dtype == "bf16" else 4
+        nbytes = size * (2 * B * Sq * H * D + 2 * B * Skv * KH * D)
+        insts = [cs._flash_inputs(torch, gen, B, Sq, Skv, H, KH, D, dtype)
+                 for _ in range(cs.copies_for(nbytes))]
+        yield (case, [lambda a=a: fa.flash_attention(*a, causal, window)
+                      for a in insts])
+
+
 # wrapper name -> cases (label, calls on distinct inputs); add a kernel
 # here to time it
 CASES = {
@@ -136,6 +150,7 @@ CASES = {
     "decode_attention_combine": _combine_cases,
     "ssd_scan": _ssd_cases,
     "online_softmax": _softmax_cases,
+    "flash_attention": _flash_cases,
 }
 # kernels held to a tolerance across trees, chip_smoke's: a number (rtol
 # and share of the largest magnitude alike) or, by dtype, (rtol, share)

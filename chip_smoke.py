@@ -202,6 +202,40 @@ the JAX package.  Phases, each printing its lines:
             zeroed cache (the engine's slot reset, ROADMAP C.14) at the
             engine's 8 rows; its prefill within 5% of the plain path; ms
             per decode step.
+   train  — full-width gemma-2b (all 18 layers, 2.5 B parameters, random
+            weights from the seed) trained by the port's train step
+            (``launch.steps.build_train_step``): batches of 4 rows of 4096
+            tokens from the data pipeline in gemma-2b's 4 microbatches
+            (gradients summed in f32), each layer recomputed in the
+            backward (remat), AdamW with f32 moments; one warm-up step,
+            then ``TRAIN_STEPS`` timed.  Each microbatch attends on
+            kernel 12 with ``lse`` (the forward and its recompute) and
+            takes the differentiable attention's plain-torch backward.
+            Gates: finite loss and grad norm, every trained weight
+            changed, kernel 12's launches exactly steps x microbatches x
+            layers x 2 and no other kernel launched.  Then, on the
+            trained model, one microbatch's loss, grad norm and every
+            weight's gradient through the kernel 12 path against the
+            blockwise path (the same positions given), within
+            ``TRAIN_PATH_TOL``; and at the step's layer shape kernel 12
+            with ``lse`` (its output bitwise the launch without, within
+            ``FLASH_TOL`` of the plain version, ``lse`` within
+            ``TRAIN_LSE_TOL``) and the attention backward's dq, dk, dv
+            against plain autograd of the plain version (within
+            ``TRAIN_GRAD_TOL``); and each layer's attention gradients on
+            the trained model's own inputs against an f64 softmax
+            (within ``TRAIN_F64_TOL``).  Prints seconds a step, tokens/s, peak
+            GiB and the attention backward's share of a step (one
+            layer's backward timed alone, times the calls a step makes)
+            beside its FLOP count and bound.
+   train-restart — ``Trainer`` at gemma-2b-smoke width on the card, async
+            checkpoints every 5 steps in a temporary directory (removed
+            after): a crash at step 8, a resume from step 5 to 12, and an
+            uninterrupted run; the resumed losses and final weights
+            bitwise the uninterrupted run's (or within 1e-5, printed as
+            such); the last checkpoint restored onto the CPU bitwise the
+            card's weights.  A full-width checkpoint's bytes are printed:
+            it is why this phase runs at the smoke width.
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
             the row quantizer at four shapes (gemma-2b's hidden requant
@@ -249,7 +283,8 @@ two) must launch kernels
 phase's degraded serve); the kernels' JSON
 record adds serve-dit's and serve-zamba2's launches to theirs, and takes
 kernel 12's launches from forward-long, serve-dit, the family's two
-cacheless forwards and serve-deepseek-v3's, kernel 13's from the ops phase and serve-zamba2, and
+cacheless forwards, serve-deepseek-v3's and the train phase's, kernel
+13's from the ops phase and serve-zamba2, and
 kernel 14's from the ops phase.  The last two
 lines are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line.
@@ -261,9 +296,11 @@ import gc
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -464,6 +501,24 @@ FLASH_PREFIX_CASES = (
     ("paligemma-3b forward", 1, 4096, 8, 1, 256, 256),
     ("ragged", 2, 1000, 4, 2, 128, 77))
 # tensor parallelism: ranks on the one card, joined by gloo
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH = 4         # rows a step: gemma-2b's 4 microbatches of 1
+TRAIN_SEQ = 4096        # the reference's train_4k cell
+TRAIN_STEPS = 3         # timed, after one warm-up step
+RESTART_STEPS, RESTART_EVERY, RESTART_CRASH = 12, 5, 8
+# the train phase's checks: kernel 12's lse against its plain version
+# (both sum f32 scores, in other orders), the attention backward against
+# plain autograd (its p unrounded f32, the plain PV's p rounded to bf16),
+# and the kernel 12 path against the blockwise one through the whole
+# model (bf16 scores against f32 ones, through 18 layers): relative
+# loss, relative global grad norm, and each weight's norm of the
+# gradient difference over its gradient's norm; the attention's dq, dk,
+# dv on the trained model's inputs against an f64 softmax, relative L2
+# (bf16 inputs and outputs round at 2**-9)
+TRAIN_LSE_TOL = 1e-5
+TRAIN_GRAD_TOL = 2 ** -6
+TRAIN_PATH_TOL = {"loss": 2 ** -6, "grad_norm": 2 ** -4, "leaf": 2 ** -3}
+TRAIN_F64_TOL = 2 ** -5
 TP = 2
 TP_BACKEND = "gloo"
 # kernel 6's shapes: the row-parallel partials of gemma-2b at TP-2
@@ -3280,6 +3335,389 @@ def phase_serve_xlstm(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def _fingerprint(torch, params: dict) -> dict:
+    """4096 evenly spaced values of each trained weight (a full copy of
+    2.5 B weights would not fit beside the training state)."""
+    out = {}
+    for k, p in params.items():
+        flat = p.detach().reshape(-1)
+        out[k] = flat[::max(1, flat.numel() // 4096)].clone()
+    return out
+
+
+def phase_train(torch, card: str) -> dict:
+    """Full-width gemma-2b trained on the card (see the module note).
+    Returns the launch counts of the timed steps."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import for_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step, optimizer_config
+    from repro_torch.models import Model
+
+    cfg = get_config(TRAIN_ARCH)
+    mb = cfg.train_microbatches
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg).init(SEED, device=DEVICE)
+    ocfg = optimizer_config(cfg)
+    step = build_train_step(cfg, model, ocfg)
+    state = optim.init(ocfg, step.params)
+    n_params = sum(p.numel() for p in step.params.values())
+    say(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params} "
+        f"trained parameters; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+        f"{mb} microbatches, remat {cfg.remat}, moments "
+        f"{ocfg.moment_dtype}; set up in {time.perf_counter() - t0:.2f} s")
+    pipe = for_model(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+    before = _fingerprint(torch, step.params)
+    t0 = time.perf_counter()
+    first = step(state, pipe.batch_at(0))
+    _sync(torch)
+    say(f"[train] warm-up step: {time.perf_counter() - t0:.3f} s, loss "
+        f"{float(first['loss']):.4f}")
+    reset_launch_counts()
+    secs, mets = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        batch = pipe.batch_at(i)
+        _sync(torch)
+        t0 = time.perf_counter()
+        met = step(state, batch)
+        _sync(torch)
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = 2 if cfg.remat else 1
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = TRAIN_STEPS * mb * cfg.n_layers * per_step
+    for i, m in enumerate(mets, 1):
+        say(f"[train] step {i}: {secs[i - 1]:.4f} s, loss {m['loss']:.4f} "
+            f"(nll {m['nll']:.4f}), grad norm {m['grad_norm']:.4f}, lr "
+            f"{m['lr']:.3g}")
+    med = statistics.median(secs)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"[train] {med:.4f} s a step (median of {TRAIN_STEPS}), "
+        f"{tokens / med:.1f} tokens/s, peak {peak:.2f} GiB allocated, on "
+        f"{card}")
+    say(f"[train] launches {json.dumps(counts)} (kernel 12: {TRAIN_STEPS} "
+        f"steps x {mb} microbatches x {cfg.n_layers} layers x {per_step})")
+    need(counts == want, f"train: launch counts {counts} != {want}")
+    need(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+             for m in mets), "train: a loss or grad norm is not finite")
+    after = _fingerprint(torch, step.params)
+    still = [k for k in before if torch.equal(before[k], after[k])]
+    need(not still, f"train: weights unchanged: {still[:5]}")
+    say(f"[train] every one of {len(before)} trained weights changed")
+    params = step.params
+    del before, after, first, met, state, step
+    _train_paths_agree(torch, model, params, pipe.batch_at(TRAIN_STEPS + 1))
+    del params
+    _train_attention(torch, cfg, med)
+    del model
+    _free(torch)
+    return counts
+
+
+def _train_paths_agree(torch, model, params: dict, batch: dict) -> None:
+    """The card's training path held against the blockwise one on the
+    same full-width model and the same 4096-token row: ``Model.loss``
+    with the default positions (kernel 12 with ``lse``, the f32-score
+    backward that skips the block pairs no query sees) and with the
+    same positions given (``blockwise_forward``, the reference's
+    bf16-score backward over every block pair), remat as in the step.
+    Gates (``TRAIN_PATH_TOL``): the losses, the global gradient norms,
+    and every trained weight's gradient (the norm of the difference
+    over the norm of the blockwise one)."""
+    from repro_torch.training.trainer import device_batch
+    micro = {k: v[:1] for k, v in device_batch(batch, DEVICE).items()}
+    pos = torch.arange(TRAIN_SEQ, device=DEVICE)[None]
+
+    def loss_and_grads(positions):
+        for p in params.values():
+            p.grad = None
+        loss, _ = model.loss(micro, positions)
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    kl, kg = loss_and_grads(None)
+    bl, bg = loss_and_grads(pos)
+    norm = {}
+    rel = {}
+    for k in params:
+        a, b = kg[k].float(), bg[k].float()
+        norm[k] = (float(torch.linalg.vector_norm(a)),
+                   float(torch.linalg.vector_norm(b)))
+        rel[k] = float(torch.linalg.vector_norm(a - b)) / max(norm[k][1],
+                                                             1e-30)
+        del a, b
+    del kg, bg
+    kn = math.sqrt(sum(n[0] ** 2 for n in norm.values()))
+    bn = math.sqrt(sum(n[1] ** 2 for n in norm.values()))
+    worst = max(rel, key=rel.get)
+    loss_rel, norm_rel = abs(kl - bl) / abs(bl), abs(kn - bn) / bn
+    say(f"[train] one microbatch (1 x {TRAIN_SEQ}), kernel 12 path vs "
+        f"blockwise path: loss {kl:.6f} vs {bl:.6f} (relative "
+        f"{loss_rel:.3g}), grad norm {kn:.6f} vs {bn:.6f} (relative "
+        f"{norm_rel:.3g}), largest relative gradient difference "
+        f"{rel[worst]:.3g} ({worst}), median "
+        f"{statistics.median(rel.values()):.3g} over {len(rel)} weights "
+        f"(limits {TRAIN_PATH_TOL})")
+    need(math.isfinite(kl) and loss_rel <= TRAIN_PATH_TOL["loss"],
+         "train: the kernel 12 path's loss leaves the blockwise path's")
+    need(math.isfinite(kn) and norm_rel <= TRAIN_PATH_TOL["grad_norm"],
+         "train: the kernel 12 path's grad norm leaves the blockwise one")
+    need(rel[worst] <= TRAIN_PATH_TOL["leaf"],
+         f"train: the gradient of {worst} leaves the blockwise path's")
+    _free(torch)
+    _trained_attention_exact(torch, model, micro)
+
+
+def _trained_attention_exact(torch, model, micro: dict) -> None:
+    """The differentiable attention on the trained model's own inputs:
+    each layer's q, k, v of one 4096-token row (taken from a forward
+    without grad), through ``CachelessAttention`` on kernel 12, its dq,
+    dk, dv held against autograd of an f64 causal softmax within
+    ``TRAIN_F64_TOL`` (relative L2) for a random bf16 do.  A trained
+    layer's keys share a large component: a backward whose rows of ds
+    do not sum to zero passes it into dq."""
+    from repro_torch.models import attention as attn_mod
+    caught = []
+    real = attn_mod.cacheless_attention
+
+    def spy(q, k, v, positions, kind, *args, **kwargs):
+        caught.append((q.detach().clone(), k.detach().clone(),
+                       v.detach().clone(), kind))
+        return real(q, k, v, positions, kind, *args, **kwargs)
+
+    attn_mod.cacheless_attention = spy
+    try:
+        with torch.no_grad():
+            model.loss(micro)
+    finally:
+        attn_mod.cacheless_attention = real
+    need(len(caught) == len(model.layers)
+         and all(c[3] == "causal" for c in caught),
+         f"train: {len(caught)} attention calls caught")
+    S = caught[0][0].shape[1]
+    pos = torch.arange(S, device=DEVICE)[None]
+    keep = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    worst = {"dq": (0.0, -1), "dk": (0.0, -1), "dv": (0.0, -1)}
+    for layer, (q, k, v, _) in enumerate(caught):
+        B, _, H, D = q.shape
+        KH = k.shape[2]
+        do = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+        tq, tk, tv = (a.clone().requires_grad_() for a in (q, k, v))
+        attn_mod.CachelessAttention.apply(tq, tk, tv, pos, "causal", None,
+                                          None, True).backward(do)
+        q64, k64, v64 = (a.double().requires_grad_() for a in (q, k, v))
+        s64 = torch.einsum("bqhgd,bkhd->bhgqk",
+                           q64.reshape(B, S, KH, H // KH, D), k64) / D ** 0.5
+        p64 = torch.softmax(s64.masked_fill(~keep, float("-inf")), -1)
+        o64 = torch.einsum("bhgqk,bkhd->bhgqd", p64, v64)
+        o64.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).backward(do.double())
+        for name, g, w in (("dq", tq.grad, q64.grad), ("dk", tk.grad,
+                                                       k64.grad),
+                           ("dv", tv.grad, v64.grad)):
+            err = float(torch.linalg.vector_norm(g.double() - w)
+                        / torch.linalg.vector_norm(w))
+            if err > worst[name][0]:
+                worst[name] = (err, layer)
+        del tq, tk, tv, q64, k64, v64, s64, p64, o64
+    say(f"[train] the attention's gradients on the trained model's inputs "
+        f"({len(caught)} layers, 1 x {S} tokens) against an f64 softmax: "
+        + ", ".join(f"{n} {e:.3g} (layer {i})" for n, (e, i) in
+                    worst.items())
+        + f" relative L2 at worst (limit {TRAIN_F64_TOL:g})")
+    need(all(e <= TRAIN_F64_TOL for e, _ in worst.values()),
+         "train: the attention's gradients leave an f64 softmax's")
+    del caught
+    _free(torch)
+
+
+def _train_attention(torch, cfg, step_s: float) -> None:
+    """Kernel 12 with ``lse`` and the differentiable attention's
+    backward at the train step's layer shape (B 1, S 4096, gemma-2b's 8
+    heads on 1, D 256, causal, bf16), as the step calls them: the output
+    bitwise the launch without ``lse`` and within ``FLASH_TOL`` of the
+    plain version, ``lse`` within 1e-5 of the plain version's
+    (``TRAIN_LSE_TOL``); the backward's dq, dk, dv (f32 scores, skipped
+    blocks) within 2**-6 of each one's largest magnitude of plain
+    autograd through the plain version (``TRAIN_GRAD_TOL``: the
+    backward's p is unrounded f32, the plain version's PV rounds p to
+    bf16).  Then the backward timed alone, its share of a step, and its
+    bound: five f32 products a block pair that some query sees."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn_mod
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = TRAIN_SEQ
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    q, k, v = _flash_inputs(torch, gen, 1, S, S, H, KH, D, "bf16")
+    pos = torch.arange(S, device=DEVICE)[None]
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    bare = fa.flash_attention(q, k, v)
+    rq, rk, rv = (a.clone().requires_grad_() for a in (q, k, v))
+    plain, plain_lse = fa.flash_attention_plain(rq, rk, rv, return_lse=True)
+    plain_lse = plain_lse.detach()
+    where = f"B 1, S {S}, H {H}, KH {KH}, D {D}, causal, bf16"
+    tol = FLASH_TOL["bf16"]
+    ref = plain.detach().float()
+    diff = (out.float() - ref).abs()
+    out_ok = bool(out.isfinite().all()) and bool(
+        (diff <= tol * ref.abs() + tol * ref.abs().amax(-1,
+                                                        keepdim=True)).all())
+    empty = plain_lse == 1e30
+    lse_err = (lse - plain_lse).abs()[~empty]
+    lse_ok = bool(torch.equal(lse == 1e30, empty)) and bool(
+        (lse_err <= TRAIN_LSE_TOL * plain_lse[~empty].abs()
+         + TRAIN_LSE_TOL * plain_lse[~empty].abs().max()).all())
+    say(f"[train] flash_attention with lse ({where}): out bitwise the "
+        f"launch without lse {'ok' if torch.equal(out, bare) else 'FAIL'}, "
+        f"out max_abs_err={diff.max().item():.3g} (rtol={tol:.3g} + "
+        f"{tol:.3g} x row max) {'ok' if out_ok else 'FAIL'}, lse "
+        f"max_abs_err={lse_err.max().item():.3g} (rtol={TRAIN_LSE_TOL:g} + "
+        f"{TRAIN_LSE_TOL:g} x max) {'ok' if lse_ok else 'FAIL'}")
+    need(torch.equal(out, bare),
+         "train: kernel 12's output changes when it writes lse")
+    need(out_ok, "train: kernel 12 with lse disagrees with its plain version")
+    need(lse_ok, "train: kernel 12's lse disagrees with its plain version")
+    del bare, ref, diff, lse_err, empty
+    do = torch.randn(out.shape, generator=gen, device=DEVICE,
+                     dtype=out.dtype)
+    got = attn_mod.blockwise_backward(q, k, v, pos, pos, lse, do,
+                                      "causal", f32_scores=True)
+    plain.backward(do)
+    errs = []
+    for name, g, want in zip(("dq", "dk", "dv"), got,
+                             (rq.grad, rk.grad, rv.grad)):
+        err = (g.float() - want.float()).abs().max().item()
+        limit = TRAIN_GRAD_TOL * want.float().abs().max().item()
+        errs.append(f"{name} max_abs_err={err:.3g} (limit {limit:.3g})")
+        need(bool(g.isfinite().all()) and err <= limit,
+             f"train: the attention backward's {name} disagrees with "
+             f"plain autograd")
+    say(f"[train] attention backward vs plain autograd ({where}): "
+        + ", ".join(errs) + " ok")
+    del got, plain, plain_lse, rq, rk, rv
+    _free(torch)
+    bwd_ms = _event_ms(torch, lambda: attn_mod.blockwise_backward(
+        q, k, v, pos, pos, lse, do, "causal", f32_scores=True))
+    qb, kb = 512, 1024
+    pairs = sum(attn_mod._block_sees_keys("causal", None, None, i * qb,
+                                          i * qb + qb - 1, j * kb,
+                                          j * kb + kb - 1)
+                for i in range(S // qb) for j in range(S // kb))
+    # s, dv, dp, dq, dk: each [H x qb, kb] by D, 2 operations a multiply-add
+    flop = 5 * 2 * H * qb * kb * D * pairs
+    # read q, k, v, out, do (bf16) and lse (f32); write dq, dk, dv
+    nbytes = 2 * S * D * (4 * H + 4 * KH) + 4 * H * S
+    b, by = bound(nbytes, flop, F32_OPS_PER_S)
+    calls = cfg.train_microbatches * cfg.n_layers
+    say(f"[train] attention backward (plain torch, f32, {where}): "
+        f"{bwd_ms:.3f} ms a layer ({pairs} block pairs, {flop / 1e9:.1f} "
+        f"GFLOP, {flop / bwd_ms / 1e9:.2f} TFLOP/s; bound {b:.3f} ms by "
+        f"{by} at the f32 peak), x {calls} a step = "
+        f"{bwd_ms * calls / 1e3:.4f} s, {bwd_ms * calls / 1e3 / step_s:.3f} "
+        f"of a step")
+    del q, k, v, out, lse, do
+
+
+def phase_train_restart(torch) -> None:
+    """``Trainer`` at gemma-2b-smoke width on the card: crash, resume,
+    restore onto the CPU (see the module note)."""
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import for_model
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import Model
+    from repro_torch.training import Trainer, TrainerConfig
+
+    full = Model(get_config(TRAIN_ARCH))        # meta: shapes only
+    nbytes = sum(p.numel() * (p.element_size() + 8)
+                 for p in full.parameters())
+    say(f"[train-restart] a full-width {TRAIN_ARCH} checkpoint: "
+        f"{nbytes / 1e9:.2f} GB (weights and two f32 moments); this phase "
+        f"runs at the smoke width")
+    cfg = reduced_config(get_config(TRAIN_ARCH))
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="train-restart-"))
+
+    def crash(step):
+        if step == RESTART_CRASH:
+            raise RuntimeError("simulated node failure")
+
+    def trainer(sub, hook=None):
+        model = Model(cfg).init(SEED, device=DEVICE)
+        ocfg = optim.AdamWConfig(learning_rate=3e-3)
+        step = build_train_step(cfg, model, ocfg)
+        tc = TrainerConfig(total_steps=RESTART_STEPS,
+                           checkpoint_every=RESTART_EVERY, log_every=1,
+                           checkpoint_dir=str(tmp / sub),
+                           async_checkpoint=True)
+        return Trainer(model, step, optim.init(ocfg, step.params),
+                       for_model(cfg, batch=8, seq_len=64, seed=SEED), tc,
+                       failure_hook=hook)
+
+    try:
+        crashed = trainer("a", crash)
+        try:
+            crashed.run()
+        except RuntimeError as e:
+            need("simulated" in str(e), f"train-restart: {e}")
+        else:
+            need(False, "train-restart: the crash did not happen")
+        crashed.ckpt.wait()
+        need(crashed.ckpt.latest_step() == RESTART_EVERY,
+             f"train-restart: latest step {crashed.ckpt.latest_step()}")
+        resumed = trainer("a")
+        out = resumed.run()
+        straight = trainer("b")
+        want = straight.run()
+        got_l = {r["step"]: r["loss"] for r in out["history"]}
+        want_l = {r["step"]: r["loss"] for r in want["history"]}
+        need(sorted(got_l) == list(range(RESTART_EVERY + 1,
+                                         RESTART_STEPS + 1)),
+             f"train-restart: resumed steps {sorted(got_l)}")
+        pairs = [(resumed_p, straight_p) for resumed_p, straight_p in zip(
+            resumed.model.parameters(), straight.model.parameters())]
+        bitwise = all(got_l[s] == want_l[s] for s in got_l) and all(
+            torch.equal(a, b) for a, b in pairs)
+        worst = max([abs(got_l[s] - want_l[s]) / abs(want_l[s])
+                     for s in got_l] + [
+            ((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp_min(1e-30)).item()
+            for a, b in pairs])
+        say(f"[train-restart] losses of steps {min(got_l)}-{max(got_l)} "
+            f"resumed from step {RESTART_EVERY}: "
+            + ", ".join(f"{got_l[s]:.6f}" for s in sorted(got_l)))
+        say(f"[train-restart] resumed vs uninterrupted: "
+            f"{'bitwise' if bitwise else 'not bitwise'}, largest relative "
+            f"difference {worst:.3g}")
+        need(bitwise or worst <= 1e-5,
+             "train-restart: the resumed run left the uninterrupted one")
+        ck = Checkpointer(tmp / "a")
+        state = resumed._state()
+        back = ck.restore(RESTART_STEPS, state, device="cpu")
+        on_cpu = all(t.device.type == "cpu" for t in back["params"].values())
+        same = all(torch.equal(back["params"][n], p.detach().cpu())
+                   for n, p in state["params"].items())
+        say(f"[train-restart] step {RESTART_STEPS} restored onto the CPU: "
+            f"{'bitwise the card' if same and on_cpu else 'DIFFERS'}")
+        need(same and on_cpu, "train-restart: restore onto the CPU differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del crashed, resumed, straight
+    _free(torch)
+
+
 def _event_ms(torch, fn, reps: int = 3) -> float:
     """Median ms of ``fn`` run eagerly, timed with CUDA events (a call
     too large to capture in a graph beside the others)."""
@@ -4428,6 +4866,16 @@ def times_ops(torch, card: str) -> list:
                   is_causal=causal and mask is None, enable_gqa=True),
               nbytes, 4 * B * H * D * int(visible.sum()),
               BF16_OPS_PER_S if dtype == "bf16" else F32_OPS_PER_S, i == 0)
+        if case == "gemma-2b prefill":
+            # the lse operand of the differentiable attention's forward:
+            # without | with | with | without, in one graph each
+            turns = [time_ms(torch, [
+                (lambda a=a, r=r: fa.flash_attention(*a, causal, window,
+                                                     return_lse=r))
+                for a in insts]) for r in (False, True, True, False)]
+            say(f"[times] flash_attention ({case}) without | with | with | "
+                f"without lse: " + " | ".join(f"{t:.4f}" for t in turns)
+                + f" ms on {card}")
         body = fa.body_for(q.dtype, D)
         if body == "mma":    # the CUDA-core body at the same shape
             fma_ms = time_ms(torch, [
@@ -4596,6 +5044,8 @@ def main() -> int:
         runs += [phase_serve_deep(torch, arch) for arch in DEEP_ARCHS]
         v3_counts, v3_forward, v3_steps = phase_serve_v3(torch)
         runs += [v3_counts, phase_serve_xlstm(torch)]
+        train_counts = phase_train(torch, card)
+        phase_train_restart(torch)
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for k, v in counts.items()
                  if k not in OPS_KERNELS + DEGRADED_KERNELS),
@@ -4615,7 +5065,8 @@ def main() -> int:
                                      + dit_counts["flash_attention"]
                                      + g3_forward["flash_attention"]
                                      + pali_forward["flash_attention"]
-                                     + v3_forward["flash_attention"])
+                                     + v3_forward["flash_attention"]
+                                     + train_counts["flash_attention"])
         kernels = phase_times(torch, serve, moe, counts, errs, card,
                               v3_steps)
     except SmokeError as e:

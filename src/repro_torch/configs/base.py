@@ -61,6 +61,12 @@ class ModelConfig:
     # KV-cache precision ("bfloat16" | "int8")
     kv_cache_dtype: str = "bfloat16"
 
+    # training: recompute each layer in the backward (the reference's
+    # jax.checkpoint per layer group), and microbatches a train step
+    # sums its gradients over
+    remat: bool = True
+    train_microbatches: int = 1
+
     def layer_specs(self) -> tuple[tuple[str, str], ...]:
         """Per-layer (mixer, ffn) kinds."""
         out = []

@@ -18,4 +18,5 @@ CONFIG = ModelConfig(
     qk_norm=True,
     tie_embeddings=True,       # Cohere ties input/output embeddings
     family="dense",
+    train_microbatches=8,
 )

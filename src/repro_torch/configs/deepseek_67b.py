@@ -15,4 +15,5 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     rope_theta=10000.0,
     family="dense",
+    train_microbatches=8,
 )

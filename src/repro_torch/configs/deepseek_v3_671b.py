@@ -31,4 +31,5 @@ CONFIG = ModelConfig(
                   capacity_factor=1.25, norm_topk_prob=True,
                   first_k_dense=3),
     family="moe",
+    train_microbatches=8,
 )

@@ -20,4 +20,5 @@ CONFIG = ModelConfig(
     sliding_window=1024,
     local_global_pattern=5,    # 5 local layers per global layer
     family="dense",
+    train_microbatches=4,
 )

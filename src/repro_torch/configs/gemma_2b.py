@@ -15,4 +15,5 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     rope_theta=10000.0,
     tie_embeddings=True,
+    train_microbatches=4,
 )

@@ -20,4 +20,5 @@ CONFIG = ModelConfig(
     rope_theta=10000.0,
     frontend="audio",
     family="audio",
+    train_microbatches=4,
 )

@@ -25,4 +25,5 @@ CONFIG = ModelConfig(
     frontend_len=256,          # 224/14 = 16x16 patches
     frontend_dim=1152,         # SigLIP So400m width
     family="vlm",
+    train_microbatches=4,
 )

@@ -21,4 +21,5 @@ CONFIG = ModelConfig(
                   n_shared_experts=4, shared_d_ff=5632,
                   capacity_factor=1.25, norm_topk_prob=True),
     family="moe",
+    train_microbatches=4,
 )

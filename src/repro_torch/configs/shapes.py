@@ -18,6 +18,7 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         head_dim=16,
         d_ff=128 if cfg.d_ff else 0,
         vocab=256,
+        remat=False,
     )
     if cfg.local_global_pattern:
         kw["n_layers"] = 4

@@ -22,4 +22,5 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     xlstm=XLSTMConfig(n_heads=4, conv_kernel=4, chunk=64, slstm_every=8),
     family="ssm",
+    train_microbatches=2,
 )

@@ -26,4 +26,5 @@ CONFIG = ModelConfig(
                   chunk=128),
     attn_every=6,              # shared attention block cadence
     family="hybrid",
+    train_microbatches=2,
 )

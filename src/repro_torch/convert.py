@@ -32,9 +32,12 @@ port's :class:`~repro_torch.models.dit.DiTBlock` list, and quantized
 block leaves (the adaLN kernel q [d, 6d] with scale [6d], the attention
 and MLP leaves) cross over as ``QuantizedLinear`` modules.
 
-``quantized_paths(model)`` is the inverse map, kept beside the loaders
-so the two cannot drift apart: the reference's path of each stacked
-quantized leaf (``['group_0']['attn']['qkv']``,
+``reference_paths(model)`` spells every parameter's path in the
+reference's tree (``['group_0']['mixer_norm']['scale'][1]``: layer 1 of
+the group's stacked leaf), the key of the optimizer's decay mask.
+``quantized_paths(model)`` is the inverse map of the quantized leaves,
+kept beside the loaders so the two cannot drift apart: the reference's
+path of each stacked quantized leaf (``['group_0']['attn']['qkv']``,
 ``['group_0']['moe']['shared']['down']``, ``['blocks']['adaln']['kernel']``)
 to the port's modules it stacks, in layer order (the fault campaigns of
 :mod:`repro_torch.reliability.faults` draw per stacked leaf).
@@ -241,6 +244,44 @@ def _leaf_paths(prefix: str, module: torch.nn.Module):
     for name, sub in module.named_modules():
         if isinstance(sub, QuantizedLinear):
             yield prefix + "".join(f"['{p}']" for p in name.split(".")), sub
+
+
+def _spell(name: str) -> str:
+    """The reference's ``keystr`` spelling of a parameter ``name``
+    (dotted, relative to ``module``): a norm scale held as a tensor
+    (``mixer_norm``, ``ffn_norm``, ``final_norm``, attention's
+    ``q_norm``/``k_norm``) is the reference's ``<norm>['scale']``, its
+    ``<norm>_bias`` the reference's ``<norm>['bias']``."""
+    parts = name.split(".")
+    last = parts[-1]
+    if last.endswith("_norm_bias"):
+        parts[-1:] = [last[: -len("_bias")], "bias"]
+    elif last.endswith("_norm"):
+        parts.append("scale")
+    return "".join(f"['{p}']" for p in parts)
+
+
+def reference_paths(model: Model) -> dict[str, torch.nn.Parameter]:
+    """Every parameter of an LM ``model`` keyed by its path in the
+    reference's tree, in the model's order: the outer leaves as the
+    reference names them (``['embed']['embedding']``,
+    ``['head']['kernel']``, ``['frontend_proj']['kernel']``,
+    ``['final_norm']['scale']``), a block's leaves under its group with
+    the layer's index in the group's stack last (``['group_0']['attn']
+    ['q'][1]``)."""
+    outer = {"embed": "['embed']['embedding']", "head": "['head']['kernel']",
+             "frontend_proj": "['frontend_proj']['kernel']"}
+    out: dict[str, torch.nn.Parameter] = {}
+    for name, p in model.named_parameters(recurse=False):
+        out[outer.get(name) or _spell(name)] = p
+    i = 0
+    for gi, (_spec, count) in enumerate(model.cfg.layer_groups()):
+        for j in range(count):
+            block = model.layers[i]
+            i += 1
+            for name, p in block.named_parameters():
+                out[f"['group_{gi}']{_spell(name)}[{j}]"] = p
+    return out
 
 
 def quantized_paths(model) -> dict[str, list[QuantizedLinear]]:

@@ -51,7 +51,12 @@
 //   from lane j.  The same masks, rounding and softmax rules as above.
 //
 // Both end by writing acc / max(l, 1e-30) in q's dtype once, from one
-// launch.
+// launch.  Where the caller passes an ``lse`` buffer [B, H, Sq] f32 (the
+// differentiable cacheless attention's forward), each row's log-sum-exp
+// m + log(l), in scaled-score units, goes there too, or 1e30 for a row
+// with no visible key (its max stays at -1e30), which the backward turns
+// into p = exp(s - 1e30) = 0; the reference's fa_fwd saves the same.
+// Without it nothing else changes: the output's arithmetic is the same.
 //
 // Masks and skipped tiles (both bodies): the causal mask is aligned
 // top-left (query and key positions both start at 0); a prefix p moves a
@@ -111,12 +116,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q [B, Sq, H, D]; k, v [B, Skv, KH, D]; out [B, Sq, H, D].  DMAX: the
-// head dims a lane's accumulators cover (32 per register), >= D.
+// q [B, Sq, H, D]; k, v [B, Skv, KH, D]; out [B, Sq, H, D]; lse [B, H,
+// Sq] or null.  DMAX: the head dims a lane's accumulators cover (32 per
+// register), >= D.
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq,
                        int Skv, int H, int KH, int D, int causal, int window,
                        int prefix, float scale) {
   constexpr int U = DMAX / 32;
@@ -238,6 +245,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + warp + NW * i;
     if (qp >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[((int64_t)b * H + h) * Sq + qp] =
+          m[i] > NEG_INF ? m[i] + logf(l[i]) : 1e30f;
     T* o = out + (((int64_t)b * Sq + qp) * H + h) * D;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -264,9 +274,10 @@ cudaError_t opt_in(K kern, size_t smem, size_t (&granted)[64]) {
 }
 
 template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int KH, int D, int causal, int window,
-           int prefix, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int H, int KH, int D,
+           int causal, int window, int prefix, float scale,
+           cudaStream_t st) {
   const int Dp = (D + 3) & ~3;
   const size_t smem =
       sizeof(float) * ((size_t)BQ * Dp + (size_t)Dp * KTS + (size_t)BK * DMAX);
@@ -278,23 +289,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, NT, smem, st>>>(static_cast<const T*>(q),
                                static_cast<const T*>(k),
                                static_cast<const T*>(v), static_cast<T*>(out),
-                               Sq, Skv, H, KH, D, causal, window, prefix,
-                               scale);
+                               lse, Sq, Skv, H, KH, D, causal, window,
+                               prefix, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Skv, int H, int KH, int D, int causal, int window,
-             int prefix, float scale, cudaStream_t st) {
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Sq, int Skv, int H, int KH, int D,
+             int causal, int window, int prefix, float scale,
+             cudaStream_t st) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                         prefix, scale, st);
+    return launch<T, 64>(q, k, v, out, lse, B, Sq, Skv, H, KH, D, causal,
+                         window, prefix, scale, st);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                          prefix, scale, st);
-  return launch<T, 256>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                        prefix, scale, st);
+    return launch<T, 128>(q, k, v, out, lse, B, Sq, Skv, H, KH, D, causal,
+                          window, prefix, scale, st);
+  return launch<T, 256>(q, k, v, out, lse, B, Sq, Skv, H, KH, D, causal,
+                        window, prefix, scale, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -389,13 +401,14 @@ __device__ __forceinline__ uint32_t tile_off(int r, int j) {
 }
 
 // q [B, Sq, H, D]; k, v [B, Skv, KH, D]; out [B, Sq, H, D], all bf16;
-// D % 8 == 0, D <= DM.  Grid (H, q tiles, B): every head's heaviest q
-// tile is scheduled before any lighter one.
+// lse [B, H, Sq] f32 or null; D % 8 == 0, D <= DM.  Grid (H, q tiles,
+// B): every head's heaviest q tile is scheduled before any lighter one.
 template <int DM, int BK, int MINB>
 __global__ void __launch_bounds__(MT, MINB)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
+                           float* __restrict__ lse,
                            int Sq, int Skv, int H, int KH, int D, int causal,
                            int window, int prefix, float scale) {
   constexpr int KS = DM / 16;  // k-steps of q K^T
@@ -581,6 +594,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     const int qp = qr + 8 * i;
     if (qp >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
+    // a row's m and l are whole in each lane of its quad
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * H + h) * Sq + qp] =
+          m[i] > NEG_INF ? m[i] + logf(l[i]) : 1e30f;
     bf16* orow = out + ((int64_t)b * Sq + qp) * qs + (int64_t)h * D;
 #pragma unroll
     for (int n = 0; n < ON; ++n) {
@@ -593,9 +610,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 }
 
 template <int DM, int BK, int MINB>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Skv, int H, int KH, int D, int causal, int window,
-               int prefix, float scale, cudaStream_t st) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Sq, int Skv, int H, int KH, int D,
+               int causal, int window, int prefix, float scale,
+               cudaStream_t st) {
   const size_t smem = sizeof(bf16) * (size_t)(MBQ + 4 * BK) * DM;
   auto kern = flash_attention_mma_kernel<DM, BK, MINB>;
   static size_t granted[64] = {};
@@ -604,8 +622,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(H, (Sq + MBQ - 1) / MBQ, B);
   kern<<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KH, D,
-      causal, window, prefix, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Skv, H,
+      KH, D, causal, window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -617,31 +635,32 @@ extern "C" {
 // cores' f32 body, 1 = the tensor-core body (bf16, D % 8 == 0, 16-byte
 // aligned q, k, v and out).  0 < D <= 256, H % KH == 0, window 0 = none,
 // prefix 0 = none (a prefix only with causal and no window; checked by the
-// wrapper).
+// wrapper).  lse: null, or f32 [B, H, Sq] for each row's log-sum-exp.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int kind, int body, int B, int Sq,
-                           int Skv, int H, int KH, int D, int causal,
+                           void* out, void* lse, int kind, int body, int B,
+                           int Sq, int Skv, int H, int KH, int D, int causal,
                            int window, int prefix, float scale,
                            void* stream) {
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 256 || KH < 1 || H % KH || prefix < 0)
     return (int)cudaErrorInvalidValue;
   if (body == 1) {
     if (kind != 2 || D % 8) return (int)cudaErrorInvalidValue;
     if (D <= 64)
-      return launch_mma<64, 64, 2>(q, k, v, out, B, Sq, Skv, H, KH, D,
-                                   causal, window, prefix, scale, st);
+      return launch_mma<64, 64, 2>(q, k, v, out, lse_f, B, Sq, Skv, H, KH,
+                                   D, causal, window, prefix, scale, st);
     if (D <= 128)
-      return launch_mma<128, 64, 2>(q, k, v, out, B, Sq, Skv, H, KH, D,
-                                    causal, window, prefix, scale, st);
-    return launch_mma<256, 64, 1>(q, k, v, out, B, Sq, Skv, H, KH, D, causal,
-                                  window, prefix, scale, st);
+      return launch_mma<128, 64, 2>(q, k, v, out, lse_f, B, Sq, Skv, H, KH,
+                                    D, causal, window, prefix, scale, st);
+    return launch_mma<256, 64, 1>(q, k, v, out, lse_f, B, Sq, Skv, H, KH, D,
+                                  causal, window, prefix, scale, st);
   }
   if (kind == 2)
-    return launch_d<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KH, D, causal,
-                                   window, prefix, scale, st);
-  return launch_d<float>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                         prefix, scale, st);
+    return launch_d<__nv_bfloat16>(q, k, v, out, lse_f, B, Sq, Skv, H, KH, D,
+                                   causal, window, prefix, scale, st);
+  return launch_d<float>(q, k, v, out, lse_f, B, Sq, Skv, H, KH, D, causal,
+                         window, prefix, scale, st);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -29,13 +29,25 @@ observer = None
 def on_cpu(*tensors: torch.Tensor | None) -> bool:
     """True if the call takes the plain version: every tensor on the CPU.
 
-    Raises for any other device and for a CPU/CUDA mix."""
+    Raises for any other device and for a CPU/CUDA mix, and on the card
+    for a call that autograd would have to differentiate (grad mode on
+    and an input that requires grad): no kernel has a backward, so its
+    output would silently cut the gradient.  A kernel that takes part in
+    training is launched from an ``autograd.Function``'s forward, where
+    grad mode is off.  On the CPU the plain versions are torch ops and
+    stay differentiable."""
     devs = {t.device.type for t in tensors if t is not None}
     if devs == {"cpu"}:
         if observer is not None:
             observer(sys._getframe(1).f_code)
         return True
     if devs == {"cuda"}:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in tensors):
+            raise RuntimeError(
+                f"{sys._getframe(1).f_code.co_name}: the kernel has no "
+                f"backward, and an input requires grad; run it under "
+                f"torch.no_grad() or through an autograd.Function")
         return False
     raise ValueError(f"tensors must all lie on the CPU or all on one CUDA "
                      f"device, got {sorted(devs)}")

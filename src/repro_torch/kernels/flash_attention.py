@@ -15,6 +15,8 @@ launches the kernel or raises, and counts the launch.
 q:   [B, Sq, H, D]    (f32 or bf16; D <= 256)
 k,v: [B, Skv, KH, D]  (q's dtype; H % KH == 0)
 out: [B, Sq, H, D]    (q's dtype)
+lse: [B, H, Sq] f32   (with ``return_lse``: each row's log-sum-exp of its
+                       scaled scores, 1e30 for a row with no visible key)
 
 The causal mask is aligned top-left: query and key positions both start
 at 0, also when Sq != Skv.  ``window`` hides keys at or before
@@ -44,11 +46,12 @@ _LIB = "flash_attention"
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int | None = None,
-                          prefix_len: int = 0) -> torch.Tensor:
+                          prefix_len: int = 0, return_lse: bool = False):
     """The kernel's arithmetic, densely: f32 scores times 1/sqrt(D),
     masked with -1e30; p = exp(s - max) rounded to v's dtype for PV,
     l = sum of the unrounded p; out = (p . v) / max(l, 1e-30) in q's
-    dtype."""
+    dtype.  ``return_lse`` also returns max + log(l) [B, H, Sq] f32
+    (1e30 where the max is -1e30: no visible key)."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -61,7 +64,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     o = o / torch.clamp_min(l, 1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    out = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, row_lse(s.amax(-1), l[..., 0]).reshape(B, H, Sq)
+
+
+def row_lse(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """m + log(l) where the row saw a key (its max above -1e30), 1e30
+    where it saw none: the kernel's rule."""
+    return torch.where(m > NEG_INF, m + torch.log(l),
+                       torch.full_like(m, 1e30))
 
 
 def body_for(dtype: torch.dtype, D: int) -> str:
@@ -72,11 +85,13 @@ def body_for(dtype: torch.dtype, D: int) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None, *,
-                    body: str | None = None,
-                    prefix_len: int = 0) -> torch.Tensor:
+                    body: str | None = None, prefix_len: int = 0,
+                    return_lse: bool = False):
     """Prefill attention of q over k/v (see the module note for shapes
     and masks).  One launch on CUDA tensors.  ``body`` ("mma" or "fma")
-    overrides :func:`body_for`; "mma" needs bf16 and ``D % 8 == 0``."""
+    overrides :func:`body_for`; "mma" needs bf16 and ``D % 8 == 0``.
+    ``return_lse`` returns ``(out, lse)``: the rows' log-sum-exp, written
+    by the same launch."""
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     prefix_len = int(prefix_len or 0)
@@ -96,7 +111,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if body is not None and body not in BODIES:
         raise ValueError(f"body must be one of {BODIES}, got {body!r}")
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal, window, prefix_len)
+        return flash_attention_plain(q, k, v, causal, window, prefix_len,
+                                     return_lse)
     require(q, "q", (torch.float32, torch.bfloat16))
     require(k, "k", q.dtype)
     require(v, "v", q.dtype, tuple(k.shape))
@@ -113,14 +129,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError(f"{name} must start {_ALIGN}-byte aligned "
                                  f"for the tensor-core body")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = bind(_LIB, "flash_attention_launch",
-              [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, P])
-    check(_LIB, fn(ptr(q), ptr(k), ptr(v), ptr(out), DTYPE_CODE[q.dtype],
-                   int(body == "mma"), B, Sq, Skv, H, KH, D, int(causal),
-                   window or 0, prefix_len, 1.0 / math.sqrt(D), stream(q)),
+              [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, P])
+    check(_LIB, fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
+                   DTYPE_CODE[q.dtype], int(body == "mma"), B, Sq, Skv, H,
+                   KH, D, int(causal), window or 0, prefix_len,
+                   1.0 / math.sqrt(D), stream(q)),
           "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

@@ -10,7 +10,7 @@ port's ``DiTModel.init``).  ``--int8`` serves the full INT8 plan: 6
 plan launches per DiT block, beside one launch of kernel 12 for the
 block's attention on the card.  ``--cfg W`` turns on classifier-free
 guidance (the conditional and null-label rows stacked into one batch).
-Output goes through :func:`~repro_torch.launch.serve.emit`.
+Output goes through :func:`~repro_torch.launch.console.emit`.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.configs import DIT_ARCH_IDS, get_dit_config
 from repro_torch.diffusion import DiffusionEngine, ImageRequest
 from repro_torch.models.dit import DiTModel
 from repro_torch.quant import QuantPlan
-from .serve import emit
+from .console import emit
 
 
 def main(argv: list[str] | None = None) -> list[ImageRequest]:

@@ -13,12 +13,12 @@ the INT8 plan tensor-parallel over N ranks, each a process of its own
 one card (or the CPU), with ``--backend nccl`` rank r takes card r.  The
 ranks draw the model one after another, each keeping its shards, and
 every rank must produce the tokens of the others.  Output goes through
-:func:`emit`, the one place this package writes to the terminal.
+:func:`~repro_torch.launch.console.emit`, the one place this package
+writes to the terminal.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 
 import numpy as np
@@ -30,11 +30,7 @@ from repro_torch.models import Model
 from repro_torch.parallel.context import BACKENDS, rank_device, spawn
 from repro_torch.quant import QuantPlan
 from repro_torch.serving import Request, RequestStatus, ServingEngine
-
-
-def emit(*parts, sep: str = " ") -> None:
-    """Write one line to stdout (the CLI reporting channel)."""
-    sys.stdout.write(sep.join(str(p) for p in parts) + "\n")
+from .console import emit
 
 
 def _config(args: dict):

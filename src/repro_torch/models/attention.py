@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.flash_attention import row_lse
 from repro_torch.kernels.ref import NEG_INF, div
 from repro_torch.quant import tp as _tp
 from repro_torch.quant.linear import (QuantizedLinear, _resolve_use_kernel,
@@ -108,23 +109,33 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Blockwise attention (online softmax over KV blocks; the reference's
-# forward, without its custom VJP)
+# Blockwise attention (online softmax over KV blocks) and its backward:
+# the reference's custom VJP
 # ---------------------------------------------------------------------------
-def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
-                        window: Optional[int] = None,
-                        prefix_len: Optional[int] = None, q_block: int = 512,
-                        kv_block: int = 1024) -> torch.Tensor:
-    """The reference's ``blockwise_attention`` forward: q blocks of
-    ``q_block`` rows, each sweeping KV blocks of ``kv_block`` keys with
-    the online-softmax state (m, l, acc) in f32, so no [Sq, Skv] score
-    matrix is built.  Padded queries get position -1 and padded keys the
-    2**30 sentinel; the mask is the additive -1e30 bias on f32
-    positions.  The rounding is the reference's: the score einsum runs in
-    q's dtype and is then cast to f32, the PV einsum in v's dtype (p
-    rounded to it) is added to the f32 accumulator.  This is the plain
-    version of the path that :func:`attention_apply` gives kernel 12."""
+def _pad_blocks(a: torch.Tensor, n: int, value=0.0) -> torch.Tensor:
+    """``a`` padded with ``value`` along dim 1 to ``n`` entries."""
+    if a.shape[1] == n:
+        return a
+    pad = [0, 0] * (a.dim() - 2) + [0, n - a.shape[1]]
+    return torch.nn.functional.pad(a, pad, value=value)
+
+
+def blockwise_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
+                      window: Optional[int] = None,
+                      prefix_len: Optional[int] = None, q_block: int = 512,
+                      kv_block: int = 1024
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``blockwise_attention`` forward (its ``_fwd_impl``):
+    q blocks of ``q_block`` rows, each sweeping KV blocks of ``kv_block``
+    keys with the online-softmax state (m, l, acc) in f32, so no [Sq,
+    Skv] score matrix is built.  Padded queries get position -1 and
+    padded keys the 2**30 sentinel; the mask is the additive -1e30 bias
+    on f32 positions.  The rounding is the reference's: the score einsum
+    runs in q's dtype and is then cast to f32, the PV einsum in v's dtype
+    (p rounded to it) is added to the f32 accumulator.  Returns (out f32
+    [B, Sq, H, Dv] before the cast to q's dtype, lse [B, H, Sq]: m +
+    log(l), or 1e30 for a row with no visible key, kernel 12's rule)."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -134,18 +145,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_block = min(kv_block, Skv)
     nq = -(-Sq // q_block)
     nk = -(-Skv // kv_block)
-    pad_q = nq * q_block - Sq
-    pad_k = nk * kv_block - Skv
-    if pad_q:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
-        q_pos = torch.nn.functional.pad(q_pos, (0, pad_q), value=-1)
-    if pad_k:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
-        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad_k),
-                                         value=EMPTY_SLOT)
+    q = _pad_blocks(q, nq * q_block)
+    q_pos = _pad_blocks(q_pos, nq * q_block, -1)
+    k = _pad_blocks(k, nk * kv_block)
+    v = _pad_blocks(v, nk * kv_block)
+    kv_pos = _pad_blocks(kv_pos, nk * kv_block, EMPTY_SLOT)
     qp, kp = q_pos.float(), kv_pos.float()
-    outs = []
+    outs, lses = [], []
     for i in range(nq):
         rows = slice(i * q_block, (i + 1) * q_block)
         qg = q[:, rows].reshape(B, q_block, KH, G, D)
@@ -169,7 +175,178 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, Dv))
-    return torch.cat(outs, dim=1)[:, :Sq].to(q.dtype)
+        lses.append(row_lse(m, l).reshape(B, H, q_block))
+    return (torch.cat(outs, dim=1)[:, :Sq],
+            torch.cat(lses, dim=2)[..., :Sq])
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
+                        window: Optional[int] = None,
+                        prefix_len: Optional[int] = None, q_block: int = 512,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """:func:`blockwise_forward`'s output in q's dtype: the plain version
+    of the path that :func:`attention_apply` gives kernel 12."""
+    return blockwise_forward(q, k, v, q_pos, kv_pos, kind, window,
+                             prefix_len, q_block, kv_block)[0].to(q.dtype)
+
+
+def _block_sees_keys(kind: str, window, prefix_len, r0: int, r1: int,
+                     c0: int, c1: int) -> bool:
+    """Whether any query of positions [r0, r1] sees a key of [c0, c1]
+    under ``kind`` (aligned positions: query i and key i at position
+    i)."""
+    if kind == "full":
+        return True
+    if kind == "sliding":
+        return c0 <= r1 and c1 > r0 - window
+    return c0 <= r1 or (kind == "prefix" and c0 < (prefix_len or 0))
+
+
+def _heads_major(a: torch.Tensor, KH: int, blk: int) -> torch.Tensor:
+    """[B, n * blk, KH * G, d] -> [n, B, KH, G * blk, d] contiguous: the
+    rows of a block of each KV head's G query heads side by side, so one
+    batched product covers a block's whole GQA group."""
+    B, S, H, d = a.shape
+    G = H // KH
+    a = a.reshape(B, S // blk, blk, KH, G, d).permute(1, 0, 3, 4, 2, 5)
+    return a.reshape(S // blk, B, KH, G * blk, d).contiguous()
+
+
+def blockwise_backward(q, k, v, q_pos, kv_pos, lse, do, kind: str,
+                       window: Optional[int] = None,
+                       prefix_len: Optional[int] = None,
+                       f32_scores: bool = False, q_block: int = 512,
+                       kv_block: int = 1024):
+    """The reference's ``fa_bwd`` (``attention.py:203``-``:250``) in f32,
+    block by block: for each q block, over the KV blocks its queries
+    see, p = exp(s - lse) and dp = do v^T; then delta = rowsum(p dp);
+    then for each of those KV blocks dv += p^T do, ds = p (dp - delta) /
+    sqrt(D), dq += ds k, dk += ds^T q.  ``lse`` [B, H, Sq] is the
+    forward's rows' log-sum-exp.  Only the [q_block, Skv] p and dp of one
+    q block exist at a time, each KV head's G query heads stacked in
+    their rows (batched products over B x KH, no permute inside the
+    loop).
+
+    delta is rowsum(do . o) in exact arithmetic, and the reference takes
+    it from the forward's output o.  That o was summed from p rounded to
+    bf16, so its delta misses the backward's own p by ~2**-9 of |do| |o|,
+    and the rows of ds no longer sum to zero: dq gains that error times
+    the rows' attention-weighted mean key, which is large when the keys
+    share a component, as a trained layer's do.  Summed from the p and
+    dp that ds uses, the rows of ds sum to zero and dq keeps the
+    accuracy of dk and dv.
+
+    The scores are recomputed as the forward computed them: in f32 from
+    f32 operands after kernel 12 (``f32_scores``; its positions are then
+    ``arange``, so a block pair no query of which sees a key of is
+    skipped: its p is exp(-1e30 - lse) = 0 exactly), else the
+    reference's product in q's dtype.  Returns (dq, dk, dv) in q's, k's
+    and v's dtypes."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Skv)
+    nq = -(-Sq // q_block)
+    nk = -(-Skv // kv_block)
+    Sqp, Skp = nq * q_block, nk * kv_block
+    # padded rows: do = 0 and lse = 1e30 (p = 0), so they add nothing
+    qp = _pad_blocks(q_pos, Sqp, -1).float()
+    kp = _pad_blocks(kv_pos, Skp, EMPTY_SLOT).float()
+    qh = _heads_major(_pad_blocks(q, Sqp), KH, q_block)    # q's dtype
+    q32 = qh.float()
+    doh = _heads_major(_pad_blocks(do.float(), Sqp), KH, q_block)
+    # [nq, B, KH, G * q_block, 1]: the rows' lse
+    lse = _heads_major(_pad_blocks(lse.transpose(1, 2)[..., None], Sqp,
+                                   1e30), KH, q_block)
+    kh = _heads_major(_pad_blocks(k, Skp), KH, kv_block)   # [nk,B,KH,kb,D]
+    k32 = kh.float()
+    v32 = _heads_major(_pad_blocks(v.float(), Skp), KH, kv_block)
+    dq = torch.zeros_like(q32)
+    dk = torch.zeros_like(k32)
+    dv = torch.zeros_like(v32)
+    for i in range(nq):
+        r0 = i * q_block
+        seen = []
+        for j in range(nk):
+            c0 = j * kv_block
+            if f32_scores and not _block_sees_keys(
+                    kind, window, prefix_len, r0, r0 + q_block - 1, c0,
+                    c0 + kv_block - 1):
+                continue
+            if f32_scores:
+                s = torch.matmul(q32[i], k32[j].transpose(-1, -2))
+            else:
+                s = torch.matmul(qh[i], kh[j].transpose(-1, -2)).float()
+            bias = _mask_bias(qp[:, r0:r0 + q_block],
+                              kp[:, c0:c0 + kv_block], kind, window,
+                              prefix_len)
+            s = (s * scale).view(B, KH, G, q_block, kv_block) \
+                + bias[:, None, None]
+            p = torch.exp(s.view(B, KH, G * q_block, kv_block) - lse[i])
+            dp = torch.matmul(doh[i], v32[j].transpose(-1, -2))
+            seen.append((j, p, dp))
+        delta = 0.0
+        for _, p, dp in seen:
+            delta = delta + (p * dp).sum(-1, keepdim=True)
+        for j, p, dp in seen:
+            dv[j] += torch.matmul(p.transpose(-1, -2), doh[i])
+            ds = p * (dp - delta) * scale
+            dq[i] += torch.matmul(ds, k32[j])
+            dk[j] += torch.matmul(ds.transpose(-1, -2), q32[i])
+        del seen
+
+    def back(a, S, heads, blk):   # [n, B, KH, G * blk, d] -> [B, S, H, d]
+        n, _, _, _, d = a.shape
+        g = heads // KH
+        a = a.reshape(n, B, KH, g, blk, d).permute(1, 0, 4, 2, 3, 5)
+        return a.reshape(B, n * blk, heads, d)[:, :S]
+    return (back(dq, Sq, H, q_block).to(q.dtype),
+            back(dk, Skv, KH, kv_block).to(k.dtype),
+            back(dv, Skv, KH, kv_block).to(v.dtype))
+
+
+class CachelessAttention(torch.autograd.Function):
+    """Differentiable cacheless attention above ``DENSE_SEQ_THRESHOLD``:
+    the reference's ``blockwise_attention`` with its custom VJP.
+
+    Forward: kernel 12 with ``lse`` (``kernel``: the card with aligned
+    positions; also its plain version on CPU tensors) or
+    :func:`blockwise_forward`; both give (out, lse), and only lse and
+    the inputs are kept for the backward (O(S D), never O(S^2)).
+    Backward: :func:`blockwise_backward` in plain torch (the reference
+    computes it outside any Pallas kernel).  Grad mode is off inside
+    ``forward``, so kernel 12 launches there whatever its inputs
+    require.  ``kernel`` takes v at q's head size (the caller pads a
+    narrower v)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, kind, window, prefix_len, kernel):
+        if kernel:
+            out, lse = _fa.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=kind != "full",
+                window=window if kind == "sliding" else None,
+                prefix_len=prefix_len if kind == "prefix" else 0,
+                return_lse=True)
+        else:
+            out, lse = blockwise_forward(q, k, v, positions, positions,
+                                         kind, window, prefix_len)
+            out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, positions, lse)
+        ctx.mask = (kind, window, prefix_len, kernel)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, positions, lse = ctx.saved_tensors
+        kind, window, prefix_len, kernel = ctx.mask
+        dq, dk, dv = blockwise_backward(q, k, v, positions, positions, lse,
+                                        do, kind, window, prefix_len,
+                                        f32_scores=kernel)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -187,19 +364,27 @@ def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal, sliding or prefix one above the threshold.  The kernel takes
     no positions operand, so caller-given positions take the dense or
     blockwise path on either device, as CPU tensors do: a dispatch on
-    the input, not a fallback on failure.
+    the input, not a fallback on failure.  Above the threshold a call
+    that needs a gradient goes through :class:`CachelessAttention` (the
+    same forward, and the reference's backward); at or below it the
+    dense path is plain autograd.
 
     The kernel takes v at q's head size; a narrower v (MLA: q and k at
     192, v at 128) is padded with zero columns for the launch and the
     output cut back to v's width, which is exact: a zero column adds
     nothing to the others."""
     kernel = aligned_positions and q.is_cuda
+    long = q.shape[1] > DENSE_SEQ_THRESHOLD
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    Dv = v.shape[-1]
+    if kernel and Dv < q.shape[-1] and (long or kind == "full"):
+        v = torch.nn.functional.pad(v, (0, q.shape[-1] - Dv))
+    if long and grad:
+        return CachelessAttention.apply(q, k, v, positions, kind, window,
+                                        prefix_len, kernel)[..., :Dv]
     if kernel and (kind == "full" or (
-            q.shape[1] > DENSE_SEQ_THRESHOLD
-            and kind in ("causal", "sliding", "prefix"))):
-        Dv = v.shape[-1]
-        if Dv < q.shape[-1]:
-            v = torch.nn.functional.pad(v, (0, q.shape[-1] - Dv))
+            long and kind in ("causal", "sliding", "prefix"))):
         out = _fa.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             causal=kind != "full",

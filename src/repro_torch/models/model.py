@@ -14,6 +14,8 @@ config or ``frame_embeddings=`` for an audio one, see :meth:`Model.
 forward`):
     init(generator, device)              -> self, weights filled
     forward(tokens, caches, positions)   -> logits
+    trainable()                          -> self, float weights with grad
+    loss(batch)                          -> (loss, {"nll", "aux", "tokens"})
     prefill_padded(tokens, caches, lengths[, offset])
                                          -> last real token's logits
     decode_step(tokens, caches)          -> logits
@@ -28,15 +30,17 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.quant.linear import QuantizedLinear
 from repro_torch.quant.plan import FULL_INT8, apply_plan
 from . import attention as attn_mod
 from .layers import (MLP, embedding_apply, embedding_attend, lm_head_apply,
                      mlp_apply, norm_apply, truncated_normal_, weight)
 from .mla import MLA, init_mla_cache, mla_apply
-from .moe import MoE, moe_apply
+from .moe import MoE, load_balance_aux, moe_apply, route
 from .ssm import Mamba2, init_ssm_cache, mamba2_apply
 from .xlstm import (MLSTMBlock, SLSTMBlock, init_mlstm_cache,
                     init_slstm_cache, mlstm_block_apply, slstm_block_apply)
@@ -126,9 +130,21 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
     vision config attend under the ``"prefix"`` mask with
     ``prefix_len``.  Every mixer but attention adds its output to x, as
     the reference does (attention fuses it into its out-projection)."""
+    x = _mixer_apply(block, cfg, x, positions, cache, aligned_positions,
+                     prefix_len)
+    # a recurrent block has no FFN: the mixer's output is the update
+    if block.spec[0] in RECURRENT:
+        return x
+    return _ffn_apply(block, cfg, x)
+
+
+def _mixer_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, cache: Optional[dict],
+                 aligned_positions: bool,
+                 prefix_len: Optional[int]) -> torch.Tensor:
+    """The block's mixer on its norm of x, the residual included."""
     mixer, _ = block.spec
     h = _norm(cfg.norm, block.mixer_norm, x, block, "mixer_norm")
-    # a recurrent block has no FFN: the mixer's output is the update
     if mixer == "mamba2":
         return x + mamba2_apply(block.mamba, h, cfg.ssm, cache)
     if mixer == "mlstm":
@@ -136,22 +152,20 @@ def block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
     if mixer == "slstm":
         return x + slstm_block_apply(block.slstm, h, cfg.xlstm, cache)
     if mixer == "mla":
-        x = x + mla_apply(block.mla, h, positions, cfg.mla,
-                          rope_theta=cfg.rope_theta, cache=cache,
-                          aligned_positions=aligned_positions)
-        return _ffn_apply(block, cfg, x)
+        return x + mla_apply(block.mla, h, positions, cfg.mla,
+                             rope_theta=cfg.rope_theta, cache=cache,
+                             aligned_positions=aligned_positions)
     kind, window = "causal", None
     if mixer == "attn_local":
         kind, window = "sliding", cfg.sliding_window
     elif cfg.frontend == "vision":
         kind = "prefix"
     # the skip connection rides into the out-projection's epilogue
-    x = attn_mod.attention_apply(block.attn, h, positions, mask_kind=kind,
-                                 window=window, rope_theta=cfg.rope_theta,
-                                 cache=cache, residual=x,
-                                 aligned_positions=aligned_positions,
-                                 prefix_len=prefix_len)
-    return _ffn_apply(block, cfg, x)
+    return attn_mod.attention_apply(block.attn, h, positions, mask_kind=kind,
+                                    window=window, rope_theta=cfg.rope_theta,
+                                    cache=cache, residual=x,
+                                    aligned_positions=aligned_positions,
+                                    prefix_len=prefix_len)
 
 
 def _ffn_apply(block: Block, cfg: ModelConfig,
@@ -163,6 +177,25 @@ def _ffn_apply(block: Block, cfg: ModelConfig,
         # the shared expert's down GEMM
         return x + moe_apply(block.moe, h, cfg.moe, cfg.activation)
     return mlp_apply(block.mlp, h, cfg.activation, residual=x)
+
+
+def _train_block_apply(block: Block, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor, aligned_positions: bool,
+                       prefix_len: Optional[int]):
+    """A training loss's layer: :func:`block_apply` without a cache, and
+    the block's MoE load-balance auxiliary (f32; zero for a block
+    without a MoE FFN), the reference's ``block_apply``'s third
+    output.  Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if block.spec[1] != "moe":
+        return block_apply(block, cfg, x, positions, None,
+                           aligned_positions, prefix_len), aux
+    x = _mixer_apply(block, cfg, x, positions, None, aligned_positions,
+                     prefix_len)
+    h = _norm(cfg.norm, block.ffn_norm, x, block, "ffn_norm")
+    r = route(block.moe.router, h, cfg.moe)
+    x = x + moe_apply(block.moe, h, cfg.moe, cfg.activation, routing=r)
+    return x, aux + load_balance_aux(r, cfg.moe)
 
 
 class Model(nn.Module):
@@ -253,6 +286,62 @@ class Model(nn.Module):
             img = torch.matmul(img, self.frontend_proj)
         return torch.cat([img, x], dim=1), img.shape[1]
 
+    def _stack_inputs(self, tokens, positions, patch_embeddings,
+                      frame_embeddings):
+        """(x embedded, positions, aligned, prefix_len): positions
+        default to ``arange(S)`` in every row, and are then aligned."""
+        x, prefix_len = self._embed_inputs(tokens, patch_embeddings,
+                                           frame_embeddings)
+        B, S = x.shape[:2]
+        aligned = positions is None
+        if aligned:
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        return x, positions, aligned, prefix_len
+
+    def features(self, tokens: Optional[torch.Tensor] = None,
+                 caches: Optional[list] = None,
+                 positions: Optional[torch.Tensor] = None, *,
+                 patch_embeddings: Optional[torch.Tensor] = None,
+                 frame_embeddings: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """The stack and the final norm, without the head: x [B, S, d]
+        (the reference's ``forward(head=False)``)."""
+        x, positions, aligned, prefix_len = self._stack_inputs(
+            tokens, positions, patch_embeddings, frame_embeddings)
+        for i, block in enumerate(self.layers):
+            x = block_apply(block, self.cfg, x, positions,
+                            None if caches is None else caches[i], aligned,
+                            prefix_len)
+        return _norm(self.cfg.norm, self.final_norm, x, self, "final_norm")
+
+    def _train_features(self, batch: dict,
+                        positions: Optional[torch.Tensor]):
+        """:meth:`features` of a training batch, without caches, and the
+        blocks' summed MoE auxiliary (f32).  With ``cfg.remat`` and grad
+        mode on, each layer is recomputed in the backward
+        (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``
+        of a layer group's body.  Returns (x, aux)."""
+        x, positions, aligned, prefix_len = self._stack_inputs(
+            batch.get("inputs"), positions, batch.get("patch_embeddings"),
+            batch.get("frame_embeddings"))
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for block in self.layers:
+            args = (block, self.cfg, x, positions, aligned, prefix_len)
+            # nothing in a block draws random numbers: no RNG state to
+            # carry into the recompute
+            x, a = (checkpoint(_train_block_apply, *args, use_reentrant=False,
+                               preserve_rng_state=False) if remat
+                    else _train_block_apply(*args))
+            aux = aux + a
+        x = _norm(self.cfg.norm, self.final_norm, x, self, "final_norm")
+        return x, aux
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "head"):
+            return lm_head_apply(self.head, x)
+        return embedding_attend(self.embed, x)
+
     def forward(self, tokens: Optional[torch.Tensor] = None,
                 caches: Optional[list] = None,
                 positions: Optional[torch.Tensor] = None,
@@ -268,23 +357,82 @@ class Model(nn.Module):
         caches, a sequence longer than ``DENSE_SEQ_THRESHOLD`` attends
         blockwise; with the default positions (``arange(S)``) that is
         kernel 12 on the card."""
-        x, prefix_len = self._embed_inputs(tokens, patch_embeddings,
-                                           frame_embeddings)
-        B, S = x.shape[:2]
-        aligned = positions is None
-        if aligned:
-            positions = torch.arange(S, device=x.device).expand(B, S)
-        for i, block in enumerate(self.layers):
-            x = block_apply(block, self.cfg, x, positions,
-                            None if caches is None else caches[i], aligned,
-                            prefix_len)
-        x = _norm(self.cfg.norm, self.final_norm, x, self, "final_norm")
+        x = self.features(tokens, caches, positions,
+                          patch_embeddings=patch_embeddings,
+                          frame_embeddings=frame_embeddings)
         if last_index is not None:
-            rows = torch.arange(B, device=x.device)
+            rows = torch.arange(x.shape[0], device=x.device)
             x = x[rows, last_index.long()][:, None]
-        if hasattr(self, "head"):
-            return lm_head_apply(self.head, x)
-        return embedding_attend(self.embed, x)
+        return self._head(x)
+
+    # -- training ----------------------------------------------------------
+    LOSS_CHUNK_BUDGET = 2 ** 26   # logits elements per chunk
+
+    def trainable(self) -> "Model":
+        """Turn on ``requires_grad`` for the weights the reference
+        differentiates: every parameter of an unquantized model (all are
+        float).  A model under a quantization plan is not trained (its
+        int8 leaves have no gradient, its kernels no backward)."""
+        for name, mod in self.named_modules():
+            if isinstance(mod, QuantizedLinear):
+                raise NotImplementedError(
+                    f"{name}: a quantized model is not trained")
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
+
+    def _nll(self, feats, targets, mask):
+        """(sum of the token NLLs, their count) of one chunk, f32."""
+        logp = torch.log_softmax(self._head(feats), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        if mask is not None:
+            return torch.sum(nll * mask), torch.sum(mask)
+        return torch.sum(nll), torch.tensor(float(nll.numel()),
+                                            device=nll.device)
+
+    def loss(self, batch: dict, positions: Optional[torch.Tensor] = None):
+        """The reference's ``Model.loss``: cross entropy with a
+        sequence-chunked head plus the MoE auxiliary.  ``batch`` holds
+        tensors on the model's device: ``targets`` [B, T] and the
+        forward's inputs (``inputs``, ``patch_embeddings``,
+        ``frame_embeddings``), optionally ``loss_mask`` [B, T].
+        ``positions`` go to the forward as :meth:`forward`'s do (None:
+        ``arange(S)``, so a long sequence attends on kernel 12 on the
+        card; given, it attends blockwise, as on the CPU).  The
+        [B, S, vocab] logits are never built whole: the chunk count is
+        the smallest power of two dividing S that keeps a chunk within
+        ``LOSS_CHUNK_BUDGET`` logits, and each chunk is recomputed in the
+        backward.  A vision config scores the last T positions (the text
+        after the image prefix).  Returns (loss + aux, {"nll", "aux",
+        "tokens"})."""
+        cfg = self.cfg
+        feats, aux = self._train_features(batch, positions)
+        targets = batch["targets"]
+        if cfg.frontend == "vision":
+            feats = feats[:, -targets.shape[1]:]
+        mask = batch.get("loss_mask")
+        B, S, _ = feats.shape
+        n_chunks = 1
+        while (S % (n_chunks * 2) == 0 and
+               B * (S // n_chunks) * cfg.vocab > self.LOSS_CHUNK_BUDGET):
+            n_chunks *= 2
+        if n_chunks == 1:
+            total, count = self._nll(feats, targets, mask)
+        else:
+            C = S // n_chunks
+            if mask is None:
+                mask = torch.ones(targets.shape, dtype=torch.float32,
+                                  device=feats.device)
+            total = count = torch.zeros((), dtype=torch.float32,
+                                        device=feats.device)
+            for c in range(n_chunks):
+                cut = slice(c * C, (c + 1) * C)
+                s, n = checkpoint(self._nll, feats[:, cut], targets[:, cut],
+                                  mask[:, cut], use_reentrant=False,
+                                  preserve_rng_state=False)
+                total, count = total + s, count + n
+        loss = total / torch.clamp_min(count, 1.0)
+        return loss + aux, {"nll": loss, "aux": aux, "tokens": count}
 
     # -- serving -------------------------------------------------------------
     def prefill_padded(self, tokens: Optional[torch.Tensor], caches: list,

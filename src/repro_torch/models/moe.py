@@ -25,14 +25,15 @@ the same rows, without the transpose.  Two orders matter on the card:
 
 The per-expert token tally stays a device tensor: it is the skip list
 of the grouped kernels (no ``.item()``, no host sync anywhere in the
-routing).  The reference's load-balance auxiliary belongs to training
-and is not computed here.
+routing).  The reference's load-balance auxiliary
+(:func:`load_balance_aux`) is computed only when a training loss asks
+for it.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -50,7 +51,7 @@ class MoEConfig:
     shared_d_ff: int = 0           # hidden size of the shared expert MLP
     capacity_factor: float = 1.25
     norm_topk_prob: bool = True
-    aux_loss_coef: float = 0.001   # training only (not ported yet)
+    aux_loss_coef: float = 0.001   # the load-balance auxiliary's weight
     first_k_dense: int = 0         # leading dense layers
 
     @property
@@ -97,6 +98,7 @@ class MoE(nn.Module):
 class Routing(NamedTuple):
     """One forward's dispatch, per batch row over its ``n = S * K``
     token-expert entries (``s*`` fields in expert-sorted order)."""
+    probs: torch.Tensor         # [B, S, E] f32 router softmax
     expert_ids: torch.Tensor    # [B, S, K] int64, top-k order
     gates: torch.Tensor         # [B, S, K] f32, renormalized
     order: torch.Tensor         # [B, n] stable argsort by expert
@@ -129,8 +131,20 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig) -> Routing:
     sg = gates.reshape(B, n).gather(1, order)
     first = torch.searchsorted(se, se, side="left")
     pos = torch.arange(n, device=x.device)[None, :] - first
-    return Routing(expert_ids, gates, order, se, st, sg, pos,
+    return Routing(probs, expert_ids, gates, order, se, st, sg, pos,
                    pos < capacity, capacity)
+
+
+def load_balance_aux(r: Routing, cfg: MoEConfig) -> torch.Tensor:
+    """The reference's Switch-style auxiliary (``moe.py:94``–``:99``):
+    ``coef * E * sum(me * ce)``, ``me`` the mean router probability of
+    each expert, ``ce`` the fraction of token slots routed to it; f32.
+    Its gradient reaches the router through ``me`` alone."""
+    E = cfg.n_routed_experts
+    me = torch.mean(r.probs, dim=(0, 1))
+    ce = torch.mean(torch.sum(torch.nn.functional.one_hot(
+        r.expert_ids, E).float(), dim=2), dim=(0, 1))
+    return cfg.aux_loss_coef * E * torch.sum(me * ce)
 
 
 def expert_counts(r: Routing, n_experts: int) -> torch.Tensor:
@@ -144,13 +158,16 @@ def expert_counts(r: Routing, n_experts: int) -> torch.Tensor:
 
 
 def moe_apply(moe: MoE, x: torch.Tensor, cfg: MoEConfig,
-              activation: str = "swiglu") -> torch.Tensor:
+              activation: str = "swiglu",
+              routing: Optional[Routing] = None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d] in x's dtype: routed experts (grouped
     INT8 pipeline once the plan quantized them, bf16 batched products
-    otherwise) plus the shared experts."""
+    otherwise) plus the shared experts.  ``routing``: x's
+    :func:`route`, when the caller needs it too (a training loss takes
+    its :func:`load_balance_aux`)."""
     B, S, d = x.shape
     E, K = cfg.n_routed_experts, cfg.top_k
-    r = route(moe.router, x, cfg)
+    r = route(moe.router, x, cfg) if routing is None else routing
     rows = B * r.capacity                       # capacity rows per expert
     spare = E * rows
     b_idx = torch.arange(B, device=x.device)[:, None]

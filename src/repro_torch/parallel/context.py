@@ -160,6 +160,16 @@ def tp_group() -> Optional[TPGroup]:
     return _CURRENT
 
 
+def process_grid() -> tuple[int, int]:
+    """(rank, world size) of the initialized default process group, else
+    (0, 1): the reference's ``jax.process_index()`` and
+    ``jax.process_count()``, read by the data pipeline and the
+    checkpointer."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def rank_device(device, backend: str, rank: int) -> torch.device:
     """Where rank ``rank`` runs: the CPU if asked; with ``nccl`` card
     ``rank``; with ``gloo`` the one card that every rank shares.  Raises

@@ -2985,3 +2985,164 @@ def test_obs_adds_no_device_sync(dev, paged):
         tokens.append([r.generated for r in reqs])
     assert counts[1] <= counts[0], counts
     assert tokens[0] == tokens[1]
+
+
+# ---------------------------------------------------------------------------
+# training: kernel 12's lse, the differentiable cacheless attention, the
+# guard on kernels without a backward
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("body", ["mma", "fma"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,causal,window", BODY_SHAPES)
+def test_flash_attention_lse_close(dev, body, B, Sq, Skv, H, KH, D, causal,
+                                   window):
+    """Kernel 12 with ``return_lse`` on both bodies (bf16): the output
+    bitwise the launch without ``lse`` (the write changes nothing else),
+    the log-sum-exp within 1e-5 of the element plus 1e-5 of the largest
+    |lse| of the plain version's (both sum f32 scores, in other orders),
+    and 1e30 exactly on the same rows (no visible key)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(40)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32), dev,
+                  torch.bfloat16)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    before = fa.flash_attention.launches
+    plain_out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   body=body)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  body=body, return_lse=True)
+    _, ref = fa.flash_attention_plain(q, k, v, causal, window,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    empty = ref == 1e30
+    assert torch.equal(lse == 1e30, empty)
+    got, want = lse[~empty], ref[~empty]
+    limit = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+    assert bool(((got - want).abs() <= limit).all())
+
+
+def test_flash_attention_lse_f32(dev):
+    """The CUDA-core body in f32 with ``lse``, ragged, GQA: within 1e-5."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _gen(41)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32), dev)
+               for s in ((2, 150, 4, 64), (2, 150, 2, 64), (2, 150, 2, 64)))
+    out, lse = fa.flash_attention(q, k, v, prefix_len=45, return_lse=True)
+    ref_out, ref = fa.flash_attention_plain(q, k, v, True, None, 45,
+                                            return_lse=True)
+    _close_rows(out, ref_out, 2e-5, 2e-5, "f32 prefix 45")
+    torch.testing.assert_close(lse, ref, rtol=1e-5, atol=1e-5)
+
+
+# (S, H, KH, D, Dv, kind, window, prefix): gemma-2b's causal layer just
+# above the threshold, gemma3-4b's sliding one, paligemma-3b's prefix,
+# DiT-XL/2's head size (D 72, no mask), MLA's D 192 with v at 128
+TRAIN_ATTN_SHAPES = [(2304, 8, 1, 256, 256, "causal", None, None),
+                     (2304, 8, 4, 256, 256, "sliding", 1024, None),
+                     (2304, 8, 1, 256, 256, "prefix", None, 256),
+                     (2304, 16, 16, 72, 72, "full", None, None),
+                     (2304, 8, 8, 192, 128, "causal", None, None)]
+
+
+@pytest.mark.parametrize("S,H,KH,D,Dv,kind,window,prefix", TRAIN_ATTN_SHAPES)
+def test_cacheless_attention_grads_on_the_card(dev, S, H, KH, D, Dv, kind,
+                                               window, prefix):
+    """``cacheless_attention`` with inputs that need grad above 2048
+    tokens: one launch of kernel 12 (with ``lse``) in the forward, the
+    plain-torch backward; out and dq, dk, dv against plain autograd of
+    kernel 12's plain version on the same bf16 inputs, within 2**-6 of
+    each one's largest magnitude (the backward's p is unrounded f32, the
+    plain version's PV rounds p to bf16, and both gradients round to
+    bf16 at the end)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn_mod
+    rng = _gen(42)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in (
+        (1, S, H, D), (1, S, KH, D), (1, S, KH, Dv), (1, S, H, Dv))]
+    q, k, v = (_t(a, dev, torch.bfloat16).requires_grad_()
+               for a in arrs[:3])
+    do = _t(arrs[3], dev, torch.bfloat16)
+    pos = torch.arange(S, device=dev)[None]
+    before = fa.flash_attention.launches
+    out = attn_mod.cacheless_attention(q, k, v, pos, kind, window, True,
+                                       prefix)
+    assert fa.flash_attention.launches == before + 1
+    out.backward(do)
+    rq, rk, rv = (_t(a, dev, torch.bfloat16).requires_grad_()
+                  for a in arrs[:3])
+    want = fa.flash_attention_plain(
+        rq, rk, torch.nn.functional.pad(rv, (0, D - Dv)),
+        causal=kind != "full", window=window,
+        prefix_len=prefix or 0)[..., :Dv]
+    want.backward(do)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    for name, got, ref in (("out", out, want), ("dq", q.grad, rq.grad),
+                           ("dk", k.grad, rk.grad), ("dv", v.grad, rv.grad)):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2 ** -6 * ref.float().abs().max().item(), (name, err)
+
+
+def test_remat_train_step_launches_kernel_12_twice_a_layer(dev):
+    """gemma-2b-smoke with remat at 2112 tokens through the port's train
+    step on the card: kernel 12 launches in each layer's forward and its
+    recompute (2 a layer a microbatch, none other), the loss is finite
+    and every weight moved."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import for_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(reduced_config(get_config("gemma-2b")),
+                              remat=True)
+    model = Model(cfg).init(0, device=dev)
+    step = build_train_step(cfg, model)
+    state = optim.init(optim.AdamWConfig(), step.params)
+    before = {k: p.detach().clone() for k, p in step.params.items()}
+    reset_launch_counts()
+    met = step(state, for_model(cfg, 4, 2112, seed=0).batch_at(0))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.train_microbatches * cfg.n_layers * 2
+    assert counts == want
+    assert np.isfinite(float(met["loss"]))
+    assert all(not torch.equal(before[k], p) for k, p in
+               step.params.items())
+
+
+def test_guard_refuses_training_through_kernels_without_a_backward(dev):
+    """On the card, kernels 1-4 and 13 refuse an input that requires grad
+    under grad mode, naming the kernel; under ``no_grad`` they launch."""
+    from repro_torch.kernels import ssd_scan as ss
+    rng = _gen(43)
+    x = _t(rng.standard_normal((8, 256)).astype(np.float32), dev)
+    w, s = _w(rng, 256, 128, dev)
+    xq, xs = cg.quantize_rows_int8(x)
+    xs = xs.clone().requires_grad_()
+    xg = x.clone().requires_grad_()
+    calls = {
+        "quantize_rows_int8": lambda: cg.quantize_rows_int8(xg),
+        "cim_gemm_int8_fused_qin": lambda: cg.cim_gemm_int8_fused_qin(
+            xg, w, s),
+        "cim_gemm_int8_fused": lambda: cg.cim_gemm_int8_fused(xq, w, xs, s),
+        "cim_gated_gemm_int8": lambda: cg.cim_gated_gemm_int8(
+            xq, w, w, xs, s, s),
+        "ssd_scan": lambda: ss.ssd_scan(
+            _t(rng.standard_normal((2, 64, 16)).astype(np.float32),
+               dev).requires_grad_(),
+            -_t(rng.random((2, 64)).astype(np.float32), dev),
+            _t(rng.standard_normal((2, 64, 8)).astype(np.float32), dev),
+            _t(rng.standard_normal((2, 64, 8)).astype(np.float32), dev),
+            chunk=16),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the kernel has no"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

@@ -242,7 +242,10 @@ def test_port_imports_no_jax_subprocess():
             "repro_torch.diffusion, repro_torch.launch.generate, "
             "repro_torch.reliability, repro_torch.reliability.chaos, "
             "repro_torch.core, repro_torch.core.bridge, "
-            "repro_torch.obs, repro_torch.analysis\n"
+            "repro_torch.obs, repro_torch.analysis, repro_torch.data, "
+            "repro_torch.optim, repro_torch.checkpoint, "
+            "repro_torch.training, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.launch.console\n"
             "for arch in repro_torch.configs.ARCH_IDS:\n"
             "    repro_torch.configs.get_config(arch)\n"
             "sys.path.insert(0, '.')\n"
