@@ -31,8 +31,9 @@ the JAX package.  Phases, each printing its lines:
             version at 16384 to 8388608 values (finite, NaN, +-inf), and
             the gated fallback of kernels 1, 2, 3, 4, 7 and 8 at
             gemma-2b's decode shape (M 8) and qwen2-moe's (E 60, T 8), NaN
-            and +-inf planted in every float operand: with the flag at 0
-            a sentinel-filled output untouched bitwise, at 1 the plain
+            and +-inf planted in every float operand, and of kernel 6 at
+            gemma-2b's TP-2 down partial (int8 operands): with the flag at
+            0 a sentinel-filled output untouched bitwise, at 1 the plain
             version on the sanitized operands (integers exact, floats
             bitwise or within ``GELU_RTOL`` after an activation).
    ops    — kernels 12-14 through ``repro_torch.kernels.ops`` at the
@@ -103,9 +104,12 @@ the JAX package.  Phases, each printing its lines:
             seconds per campaign printed); the int8 weights bitwise
             restored.
    serve-tp — gemma-2b is freed; two tensor-parallel ranks (processes
-            joined by gloo, both on the one card) draw full-width
-            gemma-2b in turn, keep their shards and serve the serve
-            phase's 8 requests: every request OK, the ranks agree, the
+            joined by gloo, both on the one card) draw only their shards
+            of full-width gemma-2b, in turn (each leaf drawn, quantized
+            and cut before the next: the rank's peak while drawing
+            printed and below the 6.62 GiB of the whole draw), and
+            serve the serve phase's 8 requests: every request OK, the
+            ranks agree, the
             tokens bitwise the serve run's, per rank 6 launches per layer
             per decode step and 5 per prefill, 2 MAX + 2 SUM reductions
             per layer per forward; ms per decode step, the collectives'
@@ -202,6 +206,37 @@ the JAX package.  Phases, each printing its lines:
             zeroed cache (the engine's slot reset, ROADMAP C.14) at the
             engine's 8 rows; its prefill within 5% of the plain path; ms
             per decode step.
+   tp-families — every LM family and DiT at TP-2 in one spawn of two
+            gloo ranks on the one card, each model drawn into the ranks'
+            shards only and held against its unsharded phase's run in
+            this call (``TP_SPECS``, recorded by chaos, serve-dit,
+            serve-zamba2, serve-gemma3, serve-paligemma, musicgen,
+            serve-command, serve-deepseek-v3 and serve-xlstm): 3
+            requests of 8 new tokens at full width (deepseek-v3 and
+            command-r at 4 layers) on the ring engine (gemma3-4b also
+            paged), every request OK and the ranks agreeing, tokens
+            bitwise; prefill + 2 decode steps' logits bitwise (musicgen
+            fed frames, 4 steps; the bf16 mixers, zamba2's Mamba-2,
+            deepseek-v3's MLA, xlstm's mLSTM and sLSTM, gather their
+            heads before a whole out-projection), and deepseek-v3's
+            cacheless forward of 2304 tokens (kernel 12 once a layer
+            over the rank's 64 heads, D 192) on its last row likewise;
+            each rank holding 1/p of each cut leaf and of its caches
+            (KV, SSM, xLSTM heads; MLA's latent whole); launches
+            the manifest's and collectives per layer per forward pinned;
+            DiT-XL/2's first serve-dit batch at 2 steps through
+            ``DiffusionEngine(tp=)``, latents bitwise, 7 launches per
+            block per evaluation (kernel 12 non-causal over 8 heads);
+            degraded gemma-2b: tokens bitwise the unsharded degraded
+            run's at 14 launches per layer per decode step (kernel 6's
+            gated form, on its own counter, 2 a layer and forward) and
+            5 MAX + 4
+            SUM per layer per forward, a decode step under sync debug
+            mode "error" free of host syncs but gloo's staging copies, an
+            inf scale carried, the 1e-4 soak equal to the unsharded one
+            and the weights restored bitwise.  Rank 0's peak while
+            drawing and ms per decode step beside the card's name and
+            power limit.
    train  — full-width gemma-2b (all 18 layers, 2.5 B parameters, random
             weights from the seed) trained by the port's train step
             (``launch.steps.build_train_step``): batches of 4 rows of 4096
@@ -360,6 +395,13 @@ SOURCES = {
     "finite_screen": ("src/repro_torch/csrc/cim_gemm.cu",
                       "src/repro/quant/linear.py:129"),
 }
+# the kernels line's rows: the counters' kernels, and kernel 6's gated
+# form (built from csrc/cim_gemm_fallback.cu; its launches are read from
+# cim_gemm_int8.gated_launches in the degraded TP-2 run, the only run
+# that launches it: every other run is held to 0 of them)
+ROW_SOURCES = dict(SOURCES, **{
+    "cim_gemm_int8[fallback]": ("src/repro_torch/csrc/cim_gemm_fallback.cu",
+                                "src/repro/kernels/cim_gemm.py:189")})
 # Launched only under degraded mode (the chaos phase).
 DEGRADED_KERNELS = ("finite_screen",)
 # Kernels 12-14 are reached through the ops surface, and kernel 12 also
@@ -524,6 +566,27 @@ TP_BACKEND = "gloo"
 # kernel 6's shapes: the row-parallel partials of gemma-2b at TP-2
 # (out-projection and down) and of qwen2-moe's shared down
 TP_GEMM_SHAPES = ((1024, 2048), (8192, 2048), (2816, 2048))
+# the TP-2 family phases (tp-<arch>): few requests, few decode steps, at
+# full width (deepseek-v3 and command-r at their unsharded phases' 4
+# layers), each held against its unsharded phase's run in this call
+TP_FAMILY_LENGTHS = [64, 16, 100]
+TP_FAMILY_NEW = 8
+TP_MUSIC_STEPS = 4
+TP_DIT_STEPS = 2          # tp-dit: serve-dit's first batch at 2 steps
+# tp-deepseek-v3's cacheless forward: MLA above 2048 tokens, kernel 12 on
+# the rank's 64 heads at D 192
+TP_LONG_S = 2304
+# a rank's peak while drawing the whole model then cutting it: gemma-2b
+# 6.62 GiB, qwen2-moe 28.59 (PERF.md); a rank now draws only its shards
+TP_WHOLE_DRAW_PEAK_GIB = {"gemma-2b": 6.62, "qwen2-moe-a2.7b": 28.59}
+# degraded mode at TP-2 (gemma-2b): the 6 launches, 3 screens, the QKV
+# site's gated kernel 2, the out-projection's gated kernel 6, the MLP's
+# gated kernels 1, 4 and 6
+TP_DEGRADED_PER_LAYER = {"gemma-2b": 14}
+# the phases' unsharded runs the TP-2 family phases are held against
+TP_SPECS: list = []
+# the card's name and power limit (phase_card), printed beside the times
+CARD = "not read"
 
 
 class SmokeError(RuntimeError):
@@ -600,10 +663,12 @@ def phase_build():
 
 
 def phase_card(torch) -> str:
+    global CARD
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    CARD = out
     say(f"[card] {out}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -963,7 +1028,8 @@ def _poison(torch, t, gen):
 def _fallback_cases(torch, dev, gen):
     """(name, where, call(fn, gate, out), kernel, plain, out specs,
     exact) of kernels 1, 2, 3, 4, 7 and 8 at gemma-2b's decode shape
-    (M 8) and qwen2-moe's (E 60, T 8), every float operand poisoned."""
+    (M 8) and qwen2-moe's (E 60, T 8), every float operand poisoned, and
+    of kernel 6 at gemma-2b's TP-2 down partial (int8 operands)."""
     t = _rand_inputs(torch, 8, dev, gen)
     p = (lambda a: _poison(torch, a, gen))
     x, h, res = p(t["x"]), p(t["h"]), p(t["res"])
@@ -1024,7 +1090,12 @@ def _fallback_cases(torch, dev, gen):
          lambda fn, g, o: fn(eh, ed, ehs, eds, None, counts, None, gate=g,
                              out=o),
          cg.cim_grouped_gemm_int8, cg.cim_grouped_gemm_int8_plain,
-         [((MOE_E, 8, MOE_D), f32)], True)]
+         [((MOE_E, 8, MOE_D), f32)], True),
+        ("cim_gemm_int8", "TP-2 down partial [8, 8192] x [8192, 2048]",
+         lambda fn, g, o: fn(hq[:, :8192].contiguous(), wd[:8192], gate=g,
+                             out=o),
+         cg.cim_gemm_int8, cg.cim_gemm_int8_plain,
+         [((8, 2048), torch.int32)], True)]
 
 
 def phase_check_fallback(torch, errs: dict) -> None:
@@ -1062,6 +1133,8 @@ def phase_check_fallback(torch, errs: dict) -> None:
     errs["finite_screen"] = 0.0
     for name, where, call, fn, plain, outs, exact in _fallback_cases(
             torch, dev, gen):
+        if name == "cim_gemm_int8":
+            errs[name + "[fallback]"] = 0.0
         for v in (0, 1):
             flag = torch.tensor([v], dtype=torch.int32, device=dev)
             got, want = ([torch.full(s, 77 if d == torch.int8 else 12345.0,
@@ -1086,6 +1159,9 @@ def phase_check_fallback(torch, errs: dict) -> None:
                 "tripped: sanitized operands"
             say(f"[check] {name}[fallback] {where}, {what}: "
                 f"max_abs_err={err:.3g} ({rule}) {'ok' if ok else 'FAIL'}")
+            if name + "[fallback]" in errs:
+                errs[name + "[fallback]"] = max(errs[name + "[fallback]"],
+                                                err)
             need(ok, f"{name}'s fallback ({where}, flag {v}) disagrees "
                  f"with its plain version")
 
@@ -1103,8 +1179,10 @@ def times_fallback(torch, card: str) -> dict:
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(12)
     passed = torch.zeros(1, dtype=torch.int32, device=dev)
-    for name, where, call, fn, _, outs, _ in _fallback_cases(torch, dev,
-                                                             gen):
+    tripped = torch.ones(1, dtype=torch.int32, device=dev)
+    rows = []
+    for name, where, call, fn, plain, outs, _ in _fallback_cases(
+            torch, dev, gen):
         bufs = [torch.empty(s, dtype=d, device=dev) for s, d in outs]
         out = bufs[0] if len(bufs) == 1 else tuple(bufs)
         kern = time_ms(torch, [lambda: call(fn, None, None)] * FALLBACK_REPS)
@@ -1113,6 +1191,29 @@ def times_fallback(torch, card: str) -> dict:
         say(f"[times] {name}[fallback] {where}: {gated:.4f} ms a gated "
             f"launch with the flag passed, against {kern:.4f} ms for the "
             f"kernel's launch (warm), on {card}")
+        if name != "cim_gemm_int8":
+            continue
+        # kernel 6's gated form doing its work (the flag set), cold
+        M, N, K = 8, 2048, 8192
+        ops_ = [(torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                               device=dev, generator=gen),
+                 torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                               device=dev, generator=gen))
+                for _ in range(copies_for(M * K + K * N))]
+        ms = time_ms(torch, [(lambda a=a: fn(*a, gate=tripped))
+                             for a in ops_])
+        plain_ms = time_ms(torch, [lambda: plain(*ops_[0], tripped)],
+                           reps=5)
+        lib = time_ms(torch, [(lambda a=a: torch._int_mm(
+            torch.nn.functional.pad(a[0], (0, 0, 0, 32 - M)), a[1]))
+            for a in ops_])
+        b, by = bound(M * K + K * N + 4 * M * N + 4, 2 * M * K * N,
+                      INT8_OPS_PER_S)
+        say(f"[times] {name}[fallback] tripped {where}: {ms:.4f} ms (bound "
+            f"{b:.4f} ms by {by}, plain {plain_ms:.4f} ms, torch._int_mm "
+            f"{lib:.4f} ms) on {card}")
+        rows.append(dict(name=name + "[fallback]", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by, library_ms=lib))
     row = None
     for shape in ((8, 2048), (8, 2560), (MOE_E, 8, MOE_D)):
         n = math.prod(shape)
@@ -1127,7 +1228,7 @@ def times_fallback(torch, card: str) -> dict:
         if row is None:
             row = dict(name="finite_screen", ms=ms, plain_ms=plain_ms,
                        bound_ms=b, bound_by=by, library_ms=None)
-    return row
+    return [row] + rows
 
 
 def _dit_operands(torch, dev, gen, launch, name, M, K, N):
@@ -1392,47 +1493,24 @@ def expected_launches(cfg, decode_steps, forwards, kv_len=1024,
 def layer_launches(cfg, mixer, ffn, decode_steps, forwards, kv_len=1024,
                    paged=False, tp=False) -> dict:
     """One (mixer, ffn) layer's launches over ``forwards`` forwards of
-    which ``decode_steps`` are decode steps.  An attention layer's are the
-    port's manifest's (``analysis.manifest.layer_launches``: the
-    projections, the MLP or MoE pipeline, the decode walk by ``kv_len``
-    and ``paged``, a rank's kernel 6 and requant outside any kernel under
-    ``tp``); a prefill attends with the plain dense path.  The layers the
-    manifest has no contract for keep this rule: a Mamba-2 layer
-    launches kernel 13 once per prefill and nothing at a decode step (its
-    projections are bf16 ``torch.matmul``, its decode recurrence plain
-    torch); an MLA layer launches only its FFN's (row-quant, gated,
-    requant fused when d_ff <= 8192 or one more row-quant, down; an MoE
-    FFN the grouped pipeline and the shared MLP's): its projections and
-    absorbed attention are bf16 ``torch`` products, as the reference's
-    plain ``einsum`` (no plan kind covers them); an mLSTM or sLSTM layer
-    launches nothing."""
+    which ``decode_steps`` are decode steps: the port's manifest's
+    (``analysis.manifest.layer_launches``: an attention layer's
+    projections, its decode walk by ``kv_len`` and ``paged`` and, under
+    ``tp``, a rank's kernel 6 and requant outside any kernel; a prefill
+    attends with the plain dense path; a Mamba-2 layer kernel 13 once per
+    prefill and nothing at a decode step; MLA, mLSTM and sLSTM nothing,
+    their projections bf16 ``torch`` products as the reference's plain
+    ``einsum``; the FFN's MLP or MoE pipeline on every mixer)."""
     from collections import Counter
     from repro_torch.analysis import manifest
-    from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_N
     want = Counter()
-    if mixer in ("attn", "attn_local"):
-        walk = dict(sharded=tp, kv_len=kv_len, paged=paged, tp=TP,
-                    block_size=PAGED_BLOCK)
-        for phase, n in (("decode", decode_steps),
-                         ("prefill", forwards - decode_steps)):
-            for name, k in manifest.layer_launches(
-                    cfg, (mixer, ffn), phase, **walk).items():
-                want[name] += k * n
-        return want
-    if mixer == "mamba2":
-        want["ssd_scan"] += forwards - decode_steps
-    if mixer in RECURRENT:
-        return want
-    want["cim_gated_gemm_int8" if cfg.gated
-         else "cim_gemm_int8_fused"] += forwards
-    want["cim_gemm_int8_fused"] += forwards
-    if ffn == "moe":
-        want["quantize_rows_int8"] += 2 * forwards
-        want["cim_grouped_gated_gemm_int8"] += forwards
-        want["cim_grouped_gemm_int8"] += forwards
-    else:
-        want["quantize_rows_int8"] += (
-            1 if cfg.d_ff <= MAX_FUSED_QUANT_N else 2) * forwards
+    walk = dict(sharded=tp, kv_len=kv_len, paged=paged, tp=TP,
+                block_size=PAGED_BLOCK)
+    for phase, n in (("decode", decode_steps),
+                     ("prefill", forwards - decode_steps)):
+        for name, k in manifest.layer_launches(cfg, (mixer, ffn), phase,
+                                               **walk).items():
+            want[name] += k * n
     return want
 
 
@@ -1903,22 +1981,31 @@ def phase_reference(torch, model, seed: int,
     need(err <= tol, "paged: kernel path disagrees with plain path")
 
 
-def degraded_launches(cfg, decode_steps, forwards) -> dict:
+def degraded_launches(cfg, decode_steps, forwards, tp=False) -> dict:
     """``expected_launches`` under degraded mode: per quantized site and
     forward one screen and its fallback chain — QKV and out-proj the
     same launches as the site (one of kernel 2, or kernel 1 then kernel
     3 above ``MAX_FUSED_QUANT_K``), a dense MLP row-quant, gated (or
     kernel 3 ungated), row-quant, down (the fallback never fuses the
     requant), an MoE layer the same over the experts (grouped) and over
-    the shared MLP."""
+    the shared MLP.  Under ``tp`` a rank's row-parallel fallbacks end in
+    kernel 6's gated partial (the out-projection: that one launch; an
+    MLP: row-quant, gated, kernel 6, the hidden requant outside any
+    kernel); QKV and the experts' fallbacks are the unsharded ones on the
+    rank's shard."""
     from repro_torch.kernels.cim_gemm import MAX_FUSED_QUANT_K
-    want = expected_launches(cfg, decode_steps, forwards)
+    want = expected_launches(cfg, decode_steps, forwards, tp=tp)
     for mixer, ffn in cfg.layer_specs():
         if mixer in RECURRENT:
             continue
         sites = []
         if mixer != "mla":
-            sites += [cfg.d_model, cfg.n_heads * cfg.head_dim]
+            sites.append(cfg.d_model)
+            if tp:
+                want["finite_screen"] += forwards
+                want["cim_gemm_int8"] += forwards
+            else:
+                sites.append(cfg.n_heads * cfg.head_dim)
         for K in sites:
             want["finite_screen"] += forwards
             if K <= MAX_FUSED_QUANT_K:
@@ -1926,15 +2013,16 @@ def degraded_launches(cfg, decode_steps, forwards) -> dict:
             else:
                 want["quantize_rows_int8"] += forwards
                 want["cim_gemm_int8_fused"] += forwards
-        mlps = [("cim_gated_gemm_int8" if cfg.gated
-                 else "cim_gemm_int8_fused", "cim_gemm_int8_fused")]
+        front = "cim_gated_gemm_int8" if cfg.gated else "cim_gemm_int8_fused"
+        mlps = [(front, "cim_gemm_int8" if tp else "cim_gemm_int8_fused",
+                 1 if tp else 2)]
         if ffn == "moe":
             mlps.append(("cim_grouped_gated_gemm_int8" if cfg.gated
                          else "cim_grouped_gemm_int8",
-                         "cim_grouped_gemm_int8"))
-        for up, down in mlps:
+                         "cim_grouped_gemm_int8", 2))
+        for up, down, requants in mlps:
             want["finite_screen"] += forwards
-            want["quantize_rows_int8"] += 2 * forwards
+            want["quantize_rows_int8"] += requants * forwards
             want[up] += forwards
             want[down] += forwards
     return want
@@ -2093,6 +2181,22 @@ def phase_chaos(torch, serve: dict) -> dict:
     need(all(s is RequestStatus.OK for s in on[0]) and on[1] > 0,
          "chaos: degraded mode did not carry the poisoned layer")
 
+    # the degraded run tp-gemma-2b-degraded is held against
+    tp_run = dict(lengths=TP_FAMILY_LENGTHS, seed=SEED + 36,
+                  new=TP_FAMILY_NEW,
+                  kw=dict(n_slots=8, max_len=1024, prefill_bucket=64))
+    eng = ServingEngine(model, quant_plan=plan, degraded=True,
+                        **tp_run["kw"])
+    tp_reqs = [Request(uid=i, prompt=p, max_new_tokens=tp_run["new"])
+               for i, p in enumerate(_prompts(cfg, tp_run["lengths"],
+                                              tp_run["seed"]))]
+    for r in tp_reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    _check_served(cfg, tp_reqs, tp_run["new"])
+    del eng
+    tp_soak = None
+
     # (c), (d) the soaks
     pristine = quantized_leaves(model)
     soaks = [("ring", ServingEngine, ber, {}) for ber in CHAOS_BERS]
@@ -2123,6 +2227,10 @@ def phase_chaos(torch, serve: dict) -> dict:
         need(rep.weight_injections > 0, "chaos: no weight campaign ran")
         need(ber < 1e-4 or rep.bits_faulted > 0,
              f"chaos: no bit faulted at ber {ber:g}")
+        if kind == "ring" and ber == CHAOS_PAGED_BER:
+            tp_soak = ([r.status.value for r in reqs],
+                       [r.generated for r in reqs],
+                       dataclasses.asdict(rep))
         if kind == "paged":
             eng.paged.allocator.check()
             need(eng.paged.allocator.n_used == 0,
@@ -2139,6 +2247,10 @@ def phase_chaos(torch, serve: dict) -> dict:
         f"({sum(v.q.nbytes for v in pristine.values()) / 1e9:.3f} GB int8) "
         f"bitwise their snapshot after the soaks")
     del pristine, back
+    TP_SPECS.append(dict(tag="tp-gemma-2b-degraded", cfg=cfg, runs=[],
+                         tokens={}, chaos=dict(
+        run=tp_run, tokens=[r.generated for r in tp_reqs],
+        ber=CHAOS_PAGED_BER, soak=tp_soak)))
     gc.collect()
     return counts
 
@@ -2393,6 +2505,16 @@ def phase_serve_dit(torch) -> dict:
     say(f"[serve-dit] engine latents vs a direct sample(): "
         f"{'bitwise' if same else 'DIFFER'}")
     need(same, "serve-dit: the engine's latents are not its sample()'s")
+    # tp-dit's want: a direct sample() of the first batch's noise and
+    # labels at TP_DIT_STEPS steps (the TP engine draws the same noise)
+    tp_direct = sample(model, labels, x_init=noise, num_steps=TP_DIT_STEPS,
+                       cfg_scale=DIT_CFG_SCALE).cpu().numpy()
+    TP_SPECS.append(dict(tag="tp-dit", cfg=cfg, runs=[], tokens={},
+                         dit=dict(
+        requests=[dict(uid=r.uid, label=r.label, num_steps=TP_DIT_STEPS,
+                       cfg_scale=r.cfg_scale, method=r.method, seed=r.seed)
+                  for r in first],
+        latents=list(tp_direct))))
 
     # the first batch again with obs: the same latents bitwise, the
     # counters the batch's
@@ -2762,7 +2884,12 @@ def phase_serve_zamba2(torch) -> dict:
                      "ssd_scan")
     say(f"[serve-zamba2] device memory peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del engine, model
+    del engine
+    _free(torch)
+    _tp_want(torch, model, "tp-zamba2", _tp_runs(
+        ["ring"], n_slots=8, max_len=2048, prefill_bucket=64),
+        logits=_tp_token_input(cfg, SEED + 31))
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -3053,6 +3180,8 @@ def phase_serve_gemma3(torch) -> tuple[dict, dict]:
     fwd = _forward_vs_plain(torch, tag, model, GEMMA3_LONG_S,
                             {"causal": cfg.n_layers - n_local,
                              "sliding": n_local}, tokens=toks)
+    _tp_want(torch, model, "tp-gemma3", _tp_runs(
+        ["ring", "paged"], n_slots=8, max_len=1024, prefill_bucket=64))
     del model
     _free(torch)
     return {k: sum(r[k] for r in runs) for k in runs[0]}, fwd
@@ -3096,6 +3225,9 @@ def phase_serve_paligemma(torch) -> tuple[dict, dict]:
                             cfg.frontend_len + PALI_LONG_TEXT,
                             {"prefix": cfg.n_layers}, tokens=toks,
                             patch_embeddings=patches)
+    _tp_want(torch, model, "tp-paligemma", _tp_runs(
+        ["ring"], n_slots=8, max_len=1024, prefill_bucket=64),
+        logits=_tp_token_input(cfg, SEED + 32))
     del model
     _free(torch)
     return counts, fwd
@@ -3143,6 +3275,9 @@ def phase_musicgen(torch) -> dict:
     need(per == {"attn": 6}, f"{tag}: {per} per layer per decode step")
     _ring_vs_plain(torch, tag, model, B, 1024, MUSIC_STEPS, dict(
         frame_embeddings=frames, lengths=lengths), SEED, feed=feed)
+    _tp_want(torch, model, "tp-musicgen", logits=dict(
+        frames=frames.cpu().numpy(), lengths=lengths.cpu().numpy(),
+        feed=[f.cpu().numpy() for f in feed[:TP_MUSIC_STEPS]]))
     del model, caches
     _free(torch)
     return counts
@@ -3179,6 +3314,10 @@ def phase_serve_deep(torch, arch: str) -> dict:
     _ring_vs_plain(torch, tag, model, 4, 1024, 1, dict(
         tokens=toks, lengths=torch.tensor([64, 61, 32, 1], dtype=torch.int32,
                                           device=DEVICE)), SEED)
+    if cfg.qk_norm:                 # command-r: qk_norm and layernorm at TP
+        _tp_want(torch, model, "tp-command", _tp_runs(
+            ["ring"], n_slots=8, max_len=1024, prefill_bucket=64),
+            logits=_tp_token_input(cfg, SEED + 33))
     del model
     _free(torch)
     return counts
@@ -3244,6 +3383,15 @@ def phase_serve_v3(torch) -> tuple[dict, dict, dict]:
                             {"causal": cfg.n_layers}, tokens=toks)
     say(f"[{tag}] device memory peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    long_toks = torch.randint(0, cfg.vocab, (1, TP_LONG_S), device=DEVICE,
+                              generator=gen)
+    with torch.no_grad():
+        long_last = model(long_toks, last_index=torch.tensor(
+            [TP_LONG_S - 1], device=DEVICE)).float().cpu().numpy()
+    _tp_want(torch, model, "tp-deepseek-v3", _tp_runs(
+        ["ring"], n_slots=8, max_len=1024, prefill_bucket=64),
+        logits=_tp_token_input(cfg, SEED + 34),
+        long=dict(tokens=long_toks.cpu().numpy(), logits=long_last))
     del model
     _free(torch)
     return counts, fwd, step_counts
@@ -3330,7 +3478,12 @@ def phase_serve_xlstm(torch) -> dict:
     phase_profile(torch, model, SEED, "profile-xlstm")
     say(f"[{tag}] device memory peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del engine, model
+    del engine
+    _free(torch)
+    _tp_want(torch, model, "tp-xlstm", _tp_runs(
+        ["ring"], n_slots=8, max_len=2048, prefill_bucket=64),
+        logits=_tp_token_input(cfg, SEED + 35))
+    del model
     _free(torch)
     return counts
 
@@ -3910,15 +4063,15 @@ def _timed_collectives(torch, group) -> list:
 
 
 def _tp_rank(group, spec: dict) -> dict:
-    """One tensor-parallel rank: draw the model in turn (one rank at a
-    time holds the bf16 weights), keep this rank's shards, serve each of
-    ``spec["runs"]`` and, if asked, compute one prefill + decode step's
-    logits.  Returns numbers and tokens (no tensors)."""
+    """One tensor-parallel rank: draw only this rank's shards, one rank at
+    a time (each leaf drawn, quantized and cut before the next), serve
+    each of ``spec["runs"]`` and, if asked, compute one prefill + decode
+    step's logits.  Returns numbers and tokens (no tensors)."""
     import numpy as np
     import torch
     from repro_torch.models import Model
     from repro_torch.parallel.context import rank_device, tp_context
-    from repro_torch.parallel.sharding import build_in_turns, shard_model
+    from repro_torch.parallel.sharding import build_in_turns
     from repro_torch.quant import QuantPlan
     from repro_torch.serving import PagedServingEngine, Request, ServingEngine
 
@@ -3931,8 +4084,8 @@ def _tp_rank(group, spec: dict) -> dict:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        model = Model(cfg).init(SEED, device=dev)
-        shard_model(model.quantize(QuantPlan.full()), group)
+        model = Model(cfg).init(SEED, device=dev, tp=group,
+                                plan=QuantPlan.full())
         _sync(torch)
         mem = {}
         if cuda:
@@ -4012,9 +4165,11 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
     against the unsharded run: every request OK, the ranks agree, rank
     0's tokens bitwise ``want_tokens[run]``, per layer per decode step 6
     launches (9 for an MoE layer) and per prefill 5 (8), per layer per
-    forward 2 MAX + 2 SUM (+1 gather), the paged run preempts and drains.
-    ``ref`` = (input, logits): reference-tp's bitwise logits.  Returns
-    the launch counts summed over ranks and runs."""
+    forward 2 MAX + 2 SUM (+1 gather), the paged run preempts and drains,
+    each rank's peak while drawing its shards below the whole draw's
+    (``TP_WHOLE_DRAW_PEAK_GIB``).  ``ref`` = (input, logits):
+    reference-tp's bitwise logits.  Returns the launch counts summed
+    over ranks and runs."""
     from repro_torch.analysis import manifest
     from repro_torch.parallel.context import spawn
     spec = dict(device=DEVICE, cfg=cfg, runs=runs)
@@ -4030,14 +4185,19 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
     total = {name: 0 for name in SOURCES}
     for rk in ranks:
         mem = rk["memory"]
-        say(f"[{tag}] rank {rk['rank']}: drew and sharded in "
+        say(f"[{tag}] rank {rk['rank']}: drew only its shards in "
             f"{mem['build_s']:.1f} s, peak {mem.get('build_peak_gib', 0):.2f}"
-            f" GiB while drawing, {mem.get('after_plan_gib', 0):.2f} GiB "
-            f"after the plan; KV heads per layer {rk['kv_heads'][0]} of "
-            f"{cfg.n_kv_heads}")
+            f" GiB while drawing (the whole draw then the cut: "
+            f"{TP_WHOLE_DRAW_PEAK_GIB.get(cfg.name)} GiB), "
+            f"{mem.get('after_plan_gib', 0):.2f} GiB after; KV heads per "
+            f"layer {rk['kv_heads'][0]} of {cfg.n_kv_heads}; {CARD}")
         KH = cfg.n_kv_heads
         need(rk["kv_heads"] == [KH // TP if KH % TP == 0 else KH] * L,
              f"rank {rk['rank']} holds {rk['kv_heads']} KV heads")
+        whole = TP_WHOLE_DRAW_PEAK_GIB.get(cfg.name, math.inf)
+        need(mem.get("build_peak_gib", 0) < whole,
+             f"rank {rk['rank']} peaked at {mem.get('build_peak_gib')} GiB "
+             f"drawing its shards, not below the whole draw's {whole}")
     for run in runs:
         name = run["name"]
         res = [rk["runs"][name] for rk in ranks]
@@ -4111,6 +4271,610 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
         say(f"[reference-tp] {cfg.name} prefill + decode logits at TP-{TP} "
             f"bitwise the unsharded kernel path's on every rank")
     return total
+
+
+# ---------------------------------------------------------------------------
+# every LM family, DiT and degraded gemma-2b at TP-2
+# ---------------------------------------------------------------------------
+def _tp_logits(torch, model, group, inp) -> "np.ndarray":
+    """One prefill and two decode steps' logits (rows of ``inp``: tokens
+    and lengths, or an audio config's frames, lengths and the frames fed
+    at each step), under ``group`` (None: unsharded)."""
+    import numpy as np
+    from repro_torch.parallel.context import tp_context
+    dev = model.device
+    lengths = torch.as_tensor(inp["lengths"], device=dev)
+    with torch.no_grad(), tp_context(group):
+        if "frames" in inp:
+            frames = torch.as_tensor(inp["frames"], device=dev)
+            caches = model.init_cache(frames.shape[0], 1024, kv_dtype="int8")
+            outs = [model.prefill_padded(None, caches, lengths,
+                                         frame_embeddings=frames)]
+            for f in inp["feed"]:
+                outs.append(model.decode_step(
+                    None, caches, frame_embeddings=torch.as_tensor(
+                        f, device=dev)))
+        else:
+            toks = torch.as_tensor(inp["tokens"], device=dev)
+            caches = model.init_cache(toks.shape[0], 1024, kv_dtype="int8")
+            outs = [model.prefill_padded(toks, caches, lengths)]
+            for _ in range(2):
+                outs.append(model.decode_step(outs[-1].argmax(-1), caches))
+        return np.asarray(torch.cat(outs, dim=1).float().cpu())
+
+
+def _tp_token_input(cfg, seed) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return dict(tokens=rng.integers(0, cfg.vocab, (4, 64)).astype(np.int64),
+                lengths=np.array([64, 61, 32, 1], np.int32))
+
+
+def _tp_runs(engines, lengths=TP_FAMILY_LENGTHS, seed=SEED + 30, **kw):
+    """The TP family phases' engine runs: ``engines`` names ("ring",
+    "paged"), their kwargs ``kw`` (the paged engine's block size and
+    chunk added)."""
+    runs = []
+    for name in engines:
+        extra = (dict(block_size=PAGED_BLOCK, prefill_chunk=64)
+                 if name == "paged" else {})
+        runs.append(dict(name=name, engine=name, lengths=list(lengths),
+                         seed=seed, new=TP_FAMILY_NEW,
+                         kw=dict(kw, **extra)))
+    return runs
+
+
+def _tp_want(torch, model, tag, runs=(), logits=None, **extra) -> None:
+    """Record what ``tag``'s TP-2 phase is held against, bitwise, on this
+    phase's unsharded (quantized) ``model``: the tokens of each of
+    ``runs`` and, with ``logits`` (an input of ``_tp_logits``), the
+    unsharded logits.  Appended to ``TP_SPECS`` for
+    ``phase_tp_families``."""
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import (PagedServingEngine, Request,
+                                     ServingEngine)
+    cfg = model.cfg
+    spec = dict(tag=tag, cfg=cfg, runs=list(runs), tokens={}, **extra)
+    for run in runs:
+        cls = PagedServingEngine if run["engine"] == "paged" else \
+            ServingEngine
+        engine = cls(model, quant_plan=QuantPlan.full(), **run["kw"])
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
+                for i, p in enumerate(_prompts(cfg, run["lengths"],
+                                               run["seed"]))]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_done()
+        _check_served(cfg, reqs, run["new"])
+        spec["tokens"][run["name"]] = [r.generated for r in reqs]
+        del engine
+        _free(torch)
+    if logits is not None:
+        spec["logits_input"] = logits
+        spec["logits"] = _tp_logits(torch, model, None, logits)
+    TP_SPECS.append(spec)
+
+
+def _tp_held(model) -> dict:
+    """What a rank holds of each cut leaf, per layer kind: an int8 leaf's
+    bytes over the whole leaf's, a bf16 mixer's heads over the
+    config's."""
+    cfg = model.cfg
+    whole_heads = {"mla": cfg.n_heads}
+    if getattr(cfg, "ssm", None) is not None:
+        whole_heads["mamba"] = cfg.ssm.n_heads(cfg.d_model)
+    if getattr(cfg, "xlstm", None) is not None:
+        whole_heads["mlstm"] = whole_heads["slstm"] = cfg.xlstm.n_heads
+    heads_of = {"mamba": ("a_log", 0), "mla": ("q_up", 1),
+                "mlstm": ("q", 1), "slstm": ("r", 1)}
+    out = {}
+    for block in getattr(model, "blocks", None) or model.layers:
+        for name, mod in block.named_children():
+            if name in heads_of:
+                leaf, axis = heads_of[name]
+                out[f"{name}.heads"] = (getattr(mod, leaf).shape[axis]
+                                        / whole_heads[name])
+            for leaf_name, leaf in mod.named_children():
+                if getattr(leaf, "tp_shape", None) is not None:
+                    out[f"{name}.{leaf_name}"] = (leaf.q.numel()
+                                                  / math.prod(leaf.tp_shape))
+    return out
+
+
+def _tp_cache_heads(cache: dict) -> int:
+    """The heads a layer's cache holds on this rank."""
+    for key, axis in (("k", 2), ("k_pages", 2), ("ssm", 1), ("C", 1),
+                      ("c", 1)):
+        if key in cache:
+            return cache[key].shape[axis]
+    return -1                                  # MLA: the latent, whole
+
+
+def _tp_cache_heads_of(cfg, mixer: str) -> int:
+    """The heads a TP rank's cache of a ``mixer`` layer holds: 1/p of the
+    KV, SSM or xLSTM heads (KV heads whole when p does not divide them);
+    -1 for MLA, whose latent cache is whole."""
+    if mixer == "mla":
+        return -1
+    if mixer == "mamba2":
+        return cfg.ssm.n_heads(cfg.d_model) // TP
+    if mixer in ("mlstm", "slstm"):
+        return cfg.xlstm.n_heads // TP
+    KH = cfg.n_kv_heads
+    return KH if KH % TP else KH // TP
+
+
+def _tp_family_rank(group, specs: list, device: str) -> list:
+    """One TP rank of every family phase in turn: draw only this rank's
+    shards (the ranks take turns on the one card), serve each run, take
+    the logits, DiT's latents or the degraded checks, free the model.
+    Returns numbers, tokens and numpy arrays."""
+    import numpy as np
+    import torch
+    from repro_torch.diffusion import DiffusionEngine, ImageRequest
+    from repro_torch.kernels import cim_gemm
+    from repro_torch.models import Model
+    from repro_torch.models.dit import DiTModel
+    from repro_torch.parallel.context import rank_device
+    from repro_torch.parallel.sharding import build_in_turns
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import PagedServingEngine, Request, ServingEngine
+    dev = rank_device(device, TP_BACKEND, group.rank)
+    cuda = dev.type == "cuda"
+    gib = 2 ** 30
+    spent = _timed_collectives(torch, group)
+    results = []
+    for spec in specs:
+        cfg = spec["cfg"]
+        res = dict(tag=spec["tag"], rank=group.rank, runs={})
+
+        def build():
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cls = DiTModel if "dit" in spec else Model
+            model = cls(cfg).init(SEED, device=dev, tp=group,
+                                  plan=QuantPlan.full())
+            _sync(torch)
+            mem = dict(build_s=time.perf_counter() - t0, build_peak_gib=0.0,
+                       after_gib=0.0)
+            if cuda:
+                torch.cuda.empty_cache()
+                mem.update(
+                    build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                    after_gib=torch.cuda.memory_allocated() / gib)
+            return model, mem
+        model, res["memory"] = build_in_turns(group, build)
+        res["held"] = _tp_held(model)
+        for run in spec["runs"]:
+            paged = run["engine"] == "paged"
+            cls = PagedServingEngine if paged else ServingEngine
+            engine = cls(model, quant_plan=QuantPlan.full(), tp=group,
+                         **run["kw"])
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
+                    for i, p in enumerate(_prompts(cfg, run["lengths"],
+                                                   run["seed"]))]
+            spent[0] = 0.0
+            counts, wall, step_ms = _serve(
+                torch, engine, reqs, "prefill_chunks" if paged
+                else "prefills")
+            st = engine.stats
+            res["runs"][run["name"]] = dict(
+                tokens=[r.generated for r in reqs],
+                status=[r.status.value for r in reqs], launches=counts,
+                gated=cim_gemm.cim_gemm_int8.gated_launches,
+                collectives=dict(group.counts), collective_s=spent[0],
+                step_ms=statistics.median(step_ms) if step_ms else None,
+                decode_steps=st.decode_steps, prefills=st.prefills,
+                prefill_chunks=st.prefill_chunks,
+                cache_heads=[_tp_cache_heads(c) for c in engine.cache])
+            if paged:
+                engine.paged.allocator.check()
+                res["runs"][run["name"]]["blocks_held"] = \
+                    engine.paged.allocator.n_used
+            del engine
+        if "logits_input" in spec:
+            group.reset_counts()
+            res["logits"] = _tp_logits(torch, model, group,
+                                       spec["logits_input"])
+            res["logits_collectives"] = dict(group.counts)
+        if "long" in spec:
+            from repro_torch.kernels import launch_counts, reset_launch_counts
+            from repro_torch.parallel.context import tp_context
+            toks = torch.as_tensor(spec["long"]["tokens"], device=dev)
+            reset_launch_counts()
+            with torch.no_grad(), tp_context(group):
+                out_long = model(toks, last_index=torch.tensor(
+                    [toks.shape[1] - 1], device=dev))
+            res["long"] = np.asarray(out_long.float().cpu())
+            res["long_flash"] = launch_counts()["flash_attention"]
+        if "dit" in spec:
+            res.update(_tp_dit_rank(torch, model, group, spec["dit"],
+                                    DiffusionEngine, ImageRequest))
+        if "chaos" in spec:
+            res.update(_tp_chaos_rank(torch, model, group, spec["chaos"]))
+        del model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        results.append(res)
+    return results
+
+
+def _tp_dit_rank(torch, model, group, dit: dict, DiffusionEngine,
+                 ImageRequest) -> dict:
+    """DiT at the rank: the serve-dit phase's first batch through
+    ``DiffusionEngine(tp=)``: latents, launches, collectives and ms per
+    evaluation."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.quant import QuantPlan
+    engine = DiffusionEngine(model, batch_size=len(dit["requests"]),
+                             quant_plan=QuantPlan.full(), tp=group)
+    reqs = [ImageRequest(**r) for r in dit["requests"]]
+    for r in reqs:
+        engine.submit(r)
+    _sync(torch)
+    reset_launch_counts()
+    group.reset_counts()
+    t0 = time.perf_counter()
+    engine.run_until_done()
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    return dict(dit_latents=[r.latents for r in reqs],
+                dit_status=[r.status.value for r in reqs],
+                dit_launches=launch_counts(),
+                dit_collectives=dict(group.counts),
+                dit_evals=engine.stats.denoise_steps,
+                dit_ms=wall * 1e3 / max(1, engine.stats.denoise_steps))
+
+
+def _tp_chaos_rank(torch, model, group, chaos: dict) -> dict:
+    """Degraded gemma-2b at the rank: (a) a healthy degraded serve, its
+    launches and collectives; one decode step under CUDA's sync debug
+    mode "error"; (b) an inf in a layer's out-projection scale, every
+    request carried by the fallbacks; (c) the chaos phase's soak at
+    ``CHAOS_PAGED_BER`` with the monkey's fault hook, then every int8
+    weight bitwise its snapshot."""
+    import contextlib
+
+    import numpy as np
+    from repro_torch.kernels import cim_gemm as cg
+    from repro_torch.parallel.context import tp_context
+    from repro_torch.quant import QuantPlan, degraded_mode
+    from repro_torch.reliability import chaos_soak, quantized_leaves
+    from repro_torch.serving import Request, ServingEngine
+    cfg, plan = model.cfg, QuantPlan.full()
+    dev = model.device
+    out = {}
+    run = chaos["run"]
+    engine = ServingEngine(model, quant_plan=plan, tp=group, degraded=True,
+                           **run["kw"])
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
+            for i, p in enumerate(_prompts(cfg, run["lengths"],
+                                           run["seed"]))]
+    trips = cg.screen_trips(dev)
+    counts, wall, step_ms = _serve(torch, engine, reqs, "prefills")
+    out["a"] = dict(tokens=[r.generated for r in reqs],
+                    status=[r.status.value for r in reqs], launches=counts,
+                    gated=cg.cim_gemm_int8.gated_launches,
+                    collectives=dict(group.counts),
+                    decode_steps=engine.stats.decode_steps,
+                    prefills=engine.stats.prefills,
+                    step_ms=statistics.median(step_ms),
+                    trips=cg.screen_trips(dev) - trips)
+    del engine
+    syncs = {}
+    cache = model.init_cache(8, 64, kv_dtype="int8")
+    tok = torch.zeros((8, 1), dtype=torch.long, device=dev)
+    cuda = dev.type == "cuda"
+    for deg in (False, True):
+        _sync(torch)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad(), tp_context(group), (
+                    degraded_mode(True) if deg else contextlib.nullcontext()):
+                model.decode_step(tok, cache)
+            syncs[deg] = "no host sync"
+        except RuntimeError as e:
+            syncs[deg] = f"a host sync ({str(e).splitlines()[0][:80]})"
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    out["syncs"] = syncs
+    del cache
+    o = model.layers[len(model.layers) // 2].attn.o
+    saved = o.scale.clone()
+    o.scale[7] = math.inf
+    engine = ServingEngine(model, quant_plan=plan, tp=group, degraded=True,
+                           **run["kw"])
+    short = [Request(uid=i, prompt=p, max_new_tokens=4)
+             for i, p in enumerate(_prompts(cfg, run["lengths"],
+                                            run["seed"]))]
+    trips = cg.screen_trips(dev)
+    for r in short:
+        engine.submit(r)
+    engine.run_until_done()
+    _sync(torch)
+    out["b"] = dict(status=[r.status.value for r in short],
+                    trips=cg.screen_trips(dev) - trips)
+    o.scale.copy_(saved)
+    del engine
+    pristine = quantized_leaves(model)
+    engine = ServingEngine(model, n_slots=2, max_len=32, prefill_bucket=4,
+                           quant_plan=plan, tp=group, degraded=True)
+    reqs = _chaos_requests(cfg)
+    t0 = time.perf_counter()
+    res = chaos_soak(engine, reqs, ber=chaos["ber"], seed=CHAOS_SEED,
+                     period=CHAOS_PERIOD, logit_nan_rate=CHAOS_NAN_RATE,
+                     max_iters=200)
+    back = quantized_leaves(model)
+    out["c"] = dict(status=[r.status.value for r in reqs],
+                    tokens=[r.generated for r in reqs],
+                    report=dataclasses.asdict(res.chaos),
+                    violations=res.violations,
+                    seconds=time.perf_counter() - t0,
+                    sharded=sum(v.shard is not None
+                                for v in pristine.values()),
+                    restored=set(back) == set(pristine) and all(
+                        np.array_equal(back[k].q, pristine[k].q)
+                        and np.array_equal(back[k].scale, pristine[k].scale)
+                        for k in pristine))
+    return out
+
+
+def phase_tp_families(torch, card: str) -> dict:
+    """Every TP spec the unsharded phases recorded (``TP_SPECS``), on
+    ``TP`` gloo ranks sharing the one card in one spawn: each model drawn
+    into the ranks' shards only (in turns), then held against its
+    unsharded phase's run in this call: every request OK and the ranks
+    agreeing; rank 0's tokens and logits (DiT's latents) bitwise; each
+    rank holding 1/p of each cut leaf and of its caches; launches per
+    layer per decode step and per prefill the manifest's; collectives
+    per layer per forward pinned; rank 0's peak while drawing and ms per
+    decode step printed beside the card.  Returns (the launch counts over ranks and runs,
+    kernel 6's gated launches in the degraded run)."""
+    import numpy as np
+    from repro_torch.analysis import manifest
+    from repro_torch.parallel.context import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_tp_family_rank, TP, args=(TP_SPECS, DEVICE),
+                  backend=TP_BACKEND, timeout_s=1000)
+    k6_gated = 0
+    say(f"[tp-families] {len(TP_SPECS)} models on {TP} ranks ({TP_BACKEND}, "
+        f"one card) in {time.perf_counter() - t0:.1f} s; {card}")
+    total = {name: 0 for name in SOURCES}
+    for i, spec in enumerate(TP_SPECS):
+        tag, cfg = spec["tag"], spec["cfg"]
+        res = [rk[i] for rk in ranks]
+        r0 = res[0]
+        mem = r0["memory"]
+        say(f"[{tag}] rank 0: drew its shards in {mem['build_s']:.1f} s, peak "
+            f"{mem['build_peak_gib']:.2f} GiB while drawing, "
+            f"{mem['after_gib']:.2f} GiB after; {card}")
+        held = r0["held"]
+        KH = getattr(cfg, "n_kv_heads", cfg.n_heads)
+        for r in res:
+            for k, share in r["held"].items():
+                if k.endswith("qkv") and KH % TP:     # MQA: K/V whole
+                    want = (cfg.n_heads / TP + 2 * KH) / (cfg.n_heads
+                                                          + 2 * KH)
+                else:
+                    want = 1 / TP
+                need(abs(share - want) < 1e-9,
+                     f"{tag}: rank {r['rank']} holds {share:g} of {k}, not "
+                     f"{want:g}")
+        say(f"[{tag}] each rank holds of each cut leaf and mixer: "
+            f"{json.dumps({k: round(v, 4) for k, v in held.items()})}")
+        if tag == "tp-gemma-2b-degraded":
+            k6_gated = _tp_check_chaos(spec, res, card)
+        for run in spec["runs"]:
+            name = run["name"]
+            got = [r["runs"][name] for r in res]
+            paged = run["engine"] == "paged"
+            for g in got:
+                need(g["status"] == ["ok"] * len(run["lengths"]),
+                     f"{tag} {name}: requests not OK: {g['status']}")
+            need(all(g["tokens"] == got[0]["tokens"] for g in got),
+                 f"{tag} {name}: the ranks' tokens differ")
+            need(got[0]["tokens"] == spec["tokens"][name],
+                 f"{tag} {name}: tokens differ from the unsharded run's")
+            g0 = got[0]
+            steps = g0["decode_steps"]
+            fwd = steps + (g0["prefill_chunks"] if paged else g0["prefills"])
+            want = expected_launches(cfg, steps, fwd, tp=True,
+                                     kv_len=run["kw"]["max_len"],
+                                     paged=paged)
+            coll = {k: n * fwd for k, n in
+                    manifest.step_collectives(cfg).items()}
+            for g in got:
+                need(g["launches"] == want and g["gated"] == 0,
+                     f"{tag} {name}: launch counts {g['launches']} != {want}"
+                     f" or {g['gated']} gated launches of kernel 6")
+                need(g["collectives"] == dict(dict.fromkeys(
+                    ("max", "sum", "gather", "bcast"), 0), **coll),
+                     f"{tag} {name}: collectives {g['collectives']} != "
+                     f"{coll}")
+                for k in total:
+                    total[k] += g["launches"][k]
+            heads = []
+            for (mixer, _), h in zip(cfg.layer_specs(), g0["cache_heads"]):
+                want_h = _tp_cache_heads_of(cfg, mixer)
+                need(h == want_h, f"{tag} {name}: a {mixer} cache holds "
+                     f"{h} heads, not {want_h}")
+                heads.append(h)
+            per_step = {}
+            for mixer, ffn in sorted(set(cfg.layer_specs())):
+                per_step[f"{mixer}/{ffn}"] = [sum(layer_launches(
+                    cfg, mixer, ffn, steps_, 1, run["kw"]["max_len"],
+                    paged, tp=True).values()) for steps_ in (1, 0)]
+            per_coll = manifest.step_collectives(cfg)
+            say(f"[{tag} {name}] {len(run['lengths'])} requests OK on every "
+                f"rank, tokens bitwise the unsharded run's: {steps} decode "
+                f"steps, {fwd - steps} {'chunks' if paged else 'prefills'};"
+                f" per layer kind (launches per decode step, per prefill) "
+                f"{json.dumps(per_step)}; collectives per forward "
+                f"{json.dumps(dict(per_coll))} over {cfg.n_layers} layers; "
+                f"cache heads per layer {sorted(set(heads))}")
+            for g, r in zip(got, res):
+                say(f"[{tag} {name}] rank {r['rank']}: median "
+                    f"{g['step_ms']:.2f} ms per decode step; collectives "
+                    f"{g['collective_s'] * 1e3 / fwd:.2f} ms per forward; "
+                    f"{card}")
+            if paged:
+                need(all(g["blocks_held"] == 0 for g in got),
+                     f"{tag} {name}: blocks still held")
+        if "logits" in spec:
+            want = spec["logits"]
+            for r in res:
+                got = r["logits"]
+                need(got.shape == want.shape and np.isfinite(got).all(),
+                     f"{tag}: logits shape or non-finite")
+                err = float(np.abs(got - want).max())
+                need(err == 0.0, f"{tag}: rank {r['rank']} logits differ "
+                     f"from the unsharded run's (max |diff| {err:.4g})")
+                forwards = 1 + len(spec["logits_input"].get("feed", (0, 0)))
+                coll = {k: forwards * n for k, n in
+                        manifest.step_collectives(cfg).items()}
+                need(r["logits_collectives"] == dict(dict.fromkeys(
+                    ("max", "sum", "gather", "bcast"), 0), **coll),
+                     f"{tag}: logits' collectives {r['logits_collectives']}")
+            steps = len(spec["logits_input"].get("feed", (0, 0)))
+            say(f"[{tag}] prefill + {steps} decode steps' logits at TP-{TP}: "
+                f"bitwise against the unsharded run (largest |logit| "
+                f"{float(np.abs(want).max()):.4g})")
+        if "long" in spec:
+            want = spec["long"]["logits"]
+            for r in res:
+                err = float(np.abs(r["long"] - want).max())
+                need(np.isfinite(r["long"]).all() and err == 0.0,
+                     f"{tag}: the long forward's last logits differ from "
+                     f"the unsharded run's (max |diff| {err:.4g})")
+                need(r["long_flash"] == cfg.n_layers,
+                     f"{tag}: kernel 12 launched {r['long_flash']} times in "
+                     f"the long forward, not {cfg.n_layers}")
+            S = spec["long"]["tokens"].shape[1]
+            say(f"[{tag}] a cacheless forward of {S} tokens: kernel "
+                f"12 {res[0]['long_flash']} times a rank (causal, D 192, "
+                f"{cfg.n_heads // TP} heads a rank), the last row's logits "
+                f"bitwise against the unsharded run")
+        if "dit" in spec:
+            _tp_check_dit(spec, res, total, card)
+    return total, k6_gated
+
+
+def _tp_check_dit(spec, res, total, card) -> None:
+    """DiT at TP-2: latents bitwise a direct unsharded ``sample()`` of
+    serve-dit's first batch (its noise handed in) at ``TP_DIT_STEPS``
+    steps, 7 launches per block per evaluation
+    (1 of kernel 12, non-causal over the rank's 8 heads of 72), 2 MAX +
+    2 SUM per block per evaluation."""
+    import numpy as np
+    from repro_torch.analysis import manifest
+    tag, cfg = spec["tag"], spec["cfg"]
+    want_lat = spec["dit"]["latents"]
+    for r in res:
+        need(r["dit_status"] == ["ok"] * len(want_lat),
+             f"{tag}: requests not OK: {r['dit_status']}")
+        need(all(np.array_equal(a, b) for a, b in zip(r["dit_latents"],
+                                                       want_lat)),
+             f"{tag}: rank {r['rank']} latents differ from the unsharded "
+             f"run's")
+        evals = r["dit_evals"]
+        want = {name: 0 for name in SOURCES}
+        for k, n in manifest.dit_step_launches(cfg, sharded=True).items():
+            want[k] = n * evals
+        want["flash_attention"] = cfg.n_layers * evals
+        need(r["dit_launches"] == want,
+             f"{tag}: launch counts {r['dit_launches']} != {want}")
+        coll = {k: n * evals for k, n in
+                manifest.dit_step_collectives(cfg).items()}
+        need(r["dit_collectives"] == dict(gather=0, bcast=0, **coll),
+             f"{tag}: collectives {r['dit_collectives']} != {coll}")
+        for k in total:
+            total[k] += r["dit_launches"][k]
+    r0 = res[0]
+    say(f"[{tag}] {len(want_lat)} requests OK on every rank, latents bitwise "
+        f"a direct unsharded sample(); "
+        f"{sum(r0['dit_launches'].values()) / (cfg.n_layers * r0['dit_evals']):g}"
+        f" launches per block per evaluation (kernel 12 over "
+        f"{cfg.n_heads // TP} heads a rank), 2 MAX + 2 SUM per block; rank 0 "
+        f"{r0['dit_ms']:.2f} ms per evaluation; {card}")
+
+
+def _tp_check_chaos(spec, res, card) -> int:
+    """Degraded gemma-2b at TP-2 against the chaos phase's unsharded runs:
+    (a) tokens bitwise, ``degraded_launches(tp=True)`` per rank (14 per
+    layer per decode step), the degraded collectives per layer per
+    forward, no screen tripped, no host sync in a degraded decode step
+    but gloo's staging copies; (b) every request OK with screens tripped
+    on every rank; (c) the soak's statuses, tokens and report equal the
+    unsharded soak's, invariants held, the weights restored bitwise."""
+    from repro_torch.analysis import manifest
+    tag, cfg = spec["tag"], spec["cfg"]
+    chaos = spec["chaos"]
+    L = cfg.n_layers
+    for r in res:
+        a = r["a"]
+        need(a["status"] == ["ok"] * len(chaos["run"]["lengths"]),
+             f"{tag}: (a) requests not OK")
+        need(a["tokens"] == chaos["tokens"],
+             f"{tag}: (a) tokens differ from the unsharded degraded run's")
+        fwd = a["decode_steps"] + a["prefills"]
+        want = degraded_launches(cfg, a["decode_steps"], fwd, tp=True)
+        need(a["launches"] == want,
+             f"{tag}: (a) launch counts {a['launches']} != {want}")
+        # kernel 6's gated form (its own counter): every kernel 6 launch
+        # the degraded mode adds, one a row-parallel site and forward
+        want_gated = want["cim_gemm_int8"] - expected_launches(
+            cfg, a["decode_steps"], fwd, tp=True)["cim_gemm_int8"]
+        need(a["gated"] == want_gated == 2 * L * fwd,
+             f"{tag}: (a) kernel 6's gated form launched {a['gated']} "
+             f"times, not {want_gated} (2 a layer and forward)")
+        coll = {k: n * fwd for k, n in
+                manifest.step_collectives(cfg, degraded=True).items()}
+        need(a["collectives"] == dict(gather=0, bcast=0, **coll),
+             f"{tag}: (a) collectives {a['collectives']} != {coll}")
+        need(a["trips"] == 0, f"{tag}: (a) a healthy screen tripped")
+        need(r["syncs"] == {False: "no host sync", True: "no host sync"},
+             f"{tag}: a degraded decode step synchronised with the host: "
+             f"{r['syncs']}")
+        b = r["b"]
+        need(b["status"] == ["ok"] * len(chaos["run"]["lengths"])
+             and b["trips"] > 0, f"{tag}: (b) the poisoned layer was not "
+             f"carried: {b}")
+        c = r["c"]
+        need(c["violations"] == [] and c["restored"] and c["sharded"] > 0,
+             f"{tag}: (c) invariants {c['violations']}, restored "
+             f"{c['restored']}")
+        need((c["status"], c["tokens"], c["report"]) == chaos["soak"],
+             f"{tag}: (c) the soak differs from the unsharded soak")
+    a0 = res[0]["a"]
+    prefill = sum(degraded_launches(cfg, 0, a0["prefills"], tp=True).values())
+    per = (sum(a0["launches"].values()) - prefill) / (L * a0["decode_steps"])
+    need(per == TP_DEGRADED_PER_LAYER[cfg.name],
+         f"{tag}: {per} launches per layer per decode step, not "
+         f"{TP_DEGRADED_PER_LAYER[cfg.name]}")
+    coll = manifest.step_collectives(cfg, degraded=True)
+    say(f"[{tag}] (a) degraded, healthy: tokens bitwise the unsharded "
+        f"degraded run's, {per:g} launches per layer per decode step, "
+        f"{coll['max'] // L} MAX + {coll['sum'] // L} SUM per layer per "
+        f"forward, rank 0 median {a0['step_ms']:.2f} ms per decode step; "
+        f"one decode step under sync debug mode 'error': "
+        f"{res[0]['syncs'][True]} with the mode on (gloo's staging copies "
+        f"aside); {card}")
+    say(f"[{tag}] (b) inf in an out-projection scale: every request OK, "
+        f"screens tripped {[r['b']['trips'] for r in res]} by rank")
+    c0 = res[0]["c"]
+    say(f"[{tag}] (c) soak at ber {chaos['ber']:g}: statuses, tokens and "
+        f"report equal the unsharded soak's ({c0['report']}), "
+        f"{c0['sharded']} stacked leaves sharded, weights restored bitwise "
+        f"on every rank, {c0['seconds']:.2f} s")
+    # kernel 6's gated launches, read from its own counter
+    gated = sum(r["a"]["gated"] for r in res)
+    say(f"[{tag}] kernel 6's gated form launched {gated} times over the "
+        f"ranks (a row-parallel fallback's partial, 2 a layer and forward)")
+    return gated
 
 
 def _sdpa_ms(torch, q, k, v, pos, qp, ks, vs):
@@ -4801,10 +5565,10 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
     times_walks(torch, card)
     rows += times_ops(torch, card)
     times_flash_mla(torch, card)
-    rows.append(times_fallback(torch, card))
+    rows += times_fallback(torch, card)
     out = []
     for r in rows:
-        src, repl = SOURCES[r["name"]]
+        src, repl = ROW_SOURCES[r["name"]]
         entry = {"name": r["name"], "route": "cuda", "source": src,
                  "replaces": repl, "launches": counts[r["name"]],
                  "max_abs_err": errs[r["name"]], "ms": r["ms"],
@@ -5044,6 +5808,8 @@ def main() -> int:
         runs += [phase_serve_deep(torch, arch) for arch in DEEP_ARCHS]
         v3_counts, v3_forward, v3_steps = phase_serve_v3(torch)
         runs += [v3_counts, phase_serve_xlstm(torch)]
+        # every family and DiT at TP-2, held against the phases above
+        tp_counts, k6_gated = phase_tp_families(torch, card)
         train_counts = phase_train(torch, card)
         phase_train_restart(torch)
         counts = {k: sum(r[k] for r in runs) for k in counts}
@@ -5053,19 +5819,21 @@ def main() -> int:
         need(not any(counts[k] for k in OPS_KERNELS + DEGRADED_KERNELS),
              f"a serve run launched a kernel of the ops phase or of the "
              f"degraded mode: {counts}")
-        counts = {k: v + dit_counts[k] + zamba_counts[k]
+        counts = {k: v + dit_counts[k] + zamba_counts[k] + tp_counts[k]
                   for k, v in counts.items()}
         # kernel 14: the ops phase's own exact count; kernel 13: the ops
         # phase's and serve-zamba2's; kernel 12: its model paths',
         # forward-long and serve-dit
         counts.update({k: ops_counts[k] for k in OPS_KERNELS})
-        counts["ssd_scan"] += zamba_counts["ssd_scan"]
+        counts["ssd_scan"] += zamba_counts["ssd_scan"] + tp_counts["ssd_scan"]
         counts["finite_screen"] = chaos_counts["finite_screen"]
+        counts["cim_gemm_int8[fallback]"] = k6_gated
         counts["flash_attention"] = (long_counts["flash_attention"]
                                      + dit_counts["flash_attention"]
                                      + g3_forward["flash_attention"]
                                      + pali_forward["flash_attention"]
                                      + v3_forward["flash_attention"]
+                                     + tp_counts["flash_attention"]
                                      + train_counts["flash_attention"])
         kernels = phase_times(torch, serve, moe, counts, errs, card,
                               v3_steps)

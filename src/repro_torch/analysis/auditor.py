@@ -174,7 +174,8 @@ def audit_lm(arch: str, phase: str = "decode", paged: bool = False,
     if not manifest.supports_full_plan(cfg):
         return AuditReport(arch, label, sharded, {}, {}, [],
                            skipped="no full-plan contract for this "
-                                   "arch's mixers yet (ROADMAP A.3)")
+                                   "arch's mixers (nor in the reference's "
+                                   "manifest)")
     group = TPGroup() if sharded else None
     if model is None:
         model = Model(cfg).init(_SEED, device=device)

@@ -101,6 +101,16 @@ BLOCK_TP_COLLECTIVES = {"max": 2, "sum": 2}
 # resharding (its out_specs stay on the expert axis), so no all-gather
 # appears in its trace; the port makes it explicitly.
 MOE_TP_COLLECTIVES = {"gather": 1}
+# A bf16 mixer (MLA, Mamba-2, mLSTM, sLSTM) runs its rank's heads and
+# gathers their outputs once before its whole out-projection.
+MIXER_TP_COLLECTIVES = {"gather": 1}
+# Under degraded mode, per site: a column shard's screen flag is
+# max-reduced (QKV, a rank's experts); a row-parallel site's fallback
+# (the out-projection, an MLP's down) runs its sanitized global row scale
+# and int32 sum whatever the flag says.
+DEGRADED_TP_COLLECTIVES = {"qkv": {"max": 1}, "out": {"max": 1, "sum": 1},
+                           "mlp": {"max": 1, "sum": 1},
+                           "experts": {"max": 1}}
 ALLOWED_COLLECTIVES = frozenset({"max", "sum", "gather"})
 # The exactness contract: cross-rank accumulator sums are integer.
 SUM_DTYPE = torch.int32
@@ -225,8 +235,8 @@ def dit_sites(cfg, sharded: bool = False) -> Counter:
 def supports_full_plan(model) -> bool:
     """True when every layer group has a contract entry (attention mixer
     + dense/moe/none ffn): the archs the audit covers.  MLA, Mamba-2 and
-    xLSTM mixers have none (ROADMAP A.3).  ``model`` is a port model or
-    its config."""
+    xLSTM mixers have none, as in the reference's manifest.  ``model`` is
+    a port model or its config."""
     _cfg, groups = _groups(model)
     for (mixer, ffn), _count in groups:
         if mixer not in ("attn", "attn_local"):
@@ -297,6 +307,9 @@ def _decode_walk(cfg, mixer: str, kv_len: int, paged: bool, tp: int,
                     "decode_attention_combine": 1})
 
 
+BF16_MIXERS = ("mla", "mamba2", "mlstm", "slstm")
+
+
 def layer_launches(cfg, spec, phase: str, *, sharded: bool = False,
                    kv_len: int = 0, paged: bool = False, tp: int = 1,
                    block_size: int = 16) -> Counter:
@@ -307,19 +320,29 @@ def layer_launches(cfg, spec, phase: str, *, sharded: bool = False,
     over ``block_size``-slot blocks; ``sharded`` a tensor-parallel rank of
     a group of ``tp``.  A prefill attends with the plain dense path (no
     launch).  Its classification is :func:`block_sites`' up to the
-    split-KV rule (C.15)."""
-    _check_spec(spec)
+    split-KV rule (C.15).  The bf16 mixers, which no plan kind covers
+    (MLA, Mamba-2, mLSTM, sLSTM), launch nothing of the plan, sharded or
+    not; a Mamba-2 layer's prefill launches kernel 13 once (the decode
+    recurrence is plain torch); their FFN is counted as an attention
+    block's."""
+    mixer, ffn = spec
+    if mixer not in ("attn", "attn_local") + BF16_MIXERS or ffn not in (
+            "dense", "moe", "none"):
+        raise ValueError(f"no launch rule for layer {spec}")
     if phase not in ("prefill", "decode"):
         raise ValueError(f"unknown LM phase {phase!r}")
-    mixer, ffn = spec
-    out = _projection(cfg.d_model)                   # QKV
-    if sharded:
-        out["cim_gemm_int8"] += 1                    # row-parallel out
-    else:
-        out += _projection(cfg.n_heads * cfg.head_dim)
-    if phase == "decode":
-        out += _decode_walk(cfg, mixer, kv_len, paged, tp if sharded else 1,
-                            block_size)
+    out: Counter = Counter()
+    if mixer == "mamba2" and phase == "prefill":
+        out["ssd_scan"] += 1
+    if mixer in ("attn", "attn_local"):
+        out += _projection(cfg.d_model)              # QKV
+        if sharded:
+            out["cim_gemm_int8"] += 1                # row-parallel out
+        else:
+            out += _projection(cfg.n_heads * cfg.head_dim)
+        if phase == "decode":
+            out += _decode_walk(cfg, mixer, kv_len, paged,
+                                tp if sharded else 1, block_size)
     if ffn == "dense":
         out += _sharded_mlp(cfg.gated) if sharded else _mlp(cfg.d_ff,
                                                              cfg.gated)
@@ -334,44 +357,93 @@ def layer_launches(cfg, spec, phase: str, *, sharded: bool = False,
 
 def step_launches(model, phase: str, **kw) -> Counter:
     """A whole step's launches by counter: each group's
-    :func:`layer_launches` times its depth.  ``model`` is a port model or
-    its config; ``kw`` as :func:`layer_launches`."""
+    :func:`layer_launches` times its depth, for a model under the
+    full-plan contract (:func:`supports_full_plan`; else raises).
+    ``model`` is a port model or its config; ``kw`` as
+    :func:`layer_launches`."""
     cfg, groups = _groups(model)
     total: Counter = Counter()
     for spec, count in groups:
+        _check_spec(spec)
         for name, n in layer_launches(cfg, spec, phase, **kw).items():
             total[name] += n * count
     return total
 
 
-def dit_block_launches(cfg) -> Counter:
+def dit_block_launches(cfg, sharded: bool = False) -> Counter:
     """One DiT block's plan launches per evaluation: adaLN (bias in the
-    epilogue), QKV, out-projection and the ungated gelu MLP.  On the card
-    the block also launches kernel 12 once (uncontracted)."""
+    epilogue), QKV, out-projection and the ungated gelu MLP; ``sharded``
+    a tensor-parallel rank's (adaLN whole, the out-projection's int32
+    partial, the column-parallel MLP).  On the card the block also
+    launches kernel 12 once (uncontracted)."""
     out = _projection(cfg.d_model)                   # adaLN (cond vector)
     out += _projection(cfg.d_model)                  # QKV
+    if sharded:
+        out["cim_gemm_int8"] += 1                    # row-parallel out
+        return out + _sharded_mlp(gated=False)
     out += _projection(cfg.n_heads * cfg.head_dim)   # out-proj
     out += _mlp(cfg.d_ff, gated=False)
     return out
 
 
-def dit_step_launches(cfg) -> Counter:
+def dit_step_launches(cfg, sharded: bool = False) -> Counter:
     """One DiT evaluation's plan launches: every block's."""
-    return Counter({k: v * cfg.n_layers
-                    for k, v in dit_block_launches(cfg).items()})
+    return Counter({k: v * cfg.n_layers for k, v in
+                    dit_block_launches(cfg, sharded).items()})
 
 
-def step_collectives(model) -> Counter:
+def layer_collectives(cfg, spec, degraded: bool = False) -> Counter:
     """A tensor-parallel rank's collectives in one forward (prefill or
-    decode alike) of a full-plan model, by ``TPGroup`` kind: each layer's
-    :data:`BLOCK_TP_COLLECTIVES` (an MoE layer's
-    :data:`MOE_TP_COLLECTIVES` too)."""
-    _cfg, groups = _groups(model)
+    decode alike) of ONE layer whose parts all shard, by ``TPGroup``
+    kind: an attention mixer's out-projection and an MLP's down each 1
+    MAX + 1 SUM (:data:`BLOCK_TP_COLLECTIVES` for the two), a bf16
+    mixer's :data:`MIXER_TP_COLLECTIVES`, the routed experts'
+    :data:`MOE_TP_COLLECTIVES` (and the shared MLP's pair); with
+    ``degraded`` each site's :data:`DEGRADED_TP_COLLECTIVES` too."""
+    mixer, ffn = spec
+    out: Counter = Counter()
+    sites = []
+    if mixer in ("attn", "attn_local"):
+        out.update(max=1, sum=1)
+        sites += ["qkv", "out"]
+    else:
+        out.update(MIXER_TP_COLLECTIVES)
+    if ffn == "dense":
+        out.update(max=1, sum=1)
+        sites.append("mlp")
+    elif ffn == "moe":
+        out.update(MOE_TP_COLLECTIVES)
+        sites.append("experts")
+        if cfg.moe.shared_width:
+            out.update(max=1, sum=1)
+            sites.append("mlp")
+    if degraded:
+        for site in sites:
+            out.update(DEGRADED_TP_COLLECTIVES[site])
+    return out
+
+
+def step_collectives(model, degraded: bool = False) -> Counter:
+    """A tensor-parallel rank's collectives in one forward (prefill or
+    decode alike) of a model whose layers all shard, by ``TPGroup``
+    kind: each layer's :func:`layer_collectives` (a full-plan dense or
+    MoE block: :data:`BLOCK_TP_COLLECTIVES`, plus
+    :data:`MOE_TP_COLLECTIVES` for the experts)."""
+    cfg, groups = _groups(model)
     total: Counter = Counter()
-    for (_mixer, ffn), count in groups:
-        for kind, n in BLOCK_TP_COLLECTIVES.items():
+    for spec, count in groups:
+        for kind, n in layer_collectives(cfg, spec, degraded).items():
             total[kind] += n * count
-        if ffn == "moe":
-            for kind, n in MOE_TP_COLLECTIVES.items():
-                total[kind] += n * count
     return total
+
+
+def dit_step_collectives(cfg, degraded: bool = False) -> Counter:
+    """A tensor-parallel rank's collectives in one DiT evaluation: per
+    block the out-projection's and the MLP down's MAX + SUM (adaLN and
+    QKV need none); with ``degraded`` the QKV flag's MAX and the two
+    row-parallel fallbacks' MAX + SUM."""
+    per = Counter(max=2, sum=2)
+    if degraded:
+        for site in ("qkv", "out", "mlp"):
+            per.update(DEGRADED_TP_COLLECTIVES[site])
+    return Counter({k: v * cfg.n_layers for k, v in per.items()})

@@ -1454,6 +1454,18 @@ cim_gemm_i8_fallback_kernel(const I8Args a, const int* __restrict__ gate) {
   i8_body<EPI_F32, SHAPE, VAR, true>(a);
 }
 
+// The degraded fallback of kernel 6 (EPI_ACC): the int32 partial of a
+// row-parallel site under tensor parallelism, whose ranks sum their
+// sanitized partials.  Every block leaves at once when the screen's flag is
+// 0; else the exact int32 sum (x and w are int8: no float operand to read
+// through nan_to_num).
+template <int SHAPE>
+__global__ void __launch_bounds__(I8_NT, 1)
+cim_gemm_i8_acc_fallback_kernel(const I8Args a, const int* __restrict__ gate) {
+  if (*gate == 0) return;
+  i8_body<EPI_ACC, SHAPE, V_I8, true>(a);
+}
+
 // The grouped GEMMs, a block of an idle expert (count 0) where the
 // epilogue gives zero accumulators +0 (the gated pair: act(+0) * (+0);
 // kernel 7 without a bias: act(+0), the scales of the reference being
@@ -1641,6 +1653,21 @@ cudaError_t i8_fallback_run(const I8Args& a, int shape, int C, int smem,
                           gate);
 }
 
+cudaError_t i8_acc_fallback_run(const I8Args& a, int shape, int C, int smem,
+                                cudaStream_t st, const int* gate) {
+  if (shape == DEC8)
+    return launch_clustered(cim_gemm_i8_acc_fallback_kernel<DEC8>,
+                            i8_grid<DEC8, V_I8>(a, C, 1), I8_NT, C, smem, st,
+                            a, gate);
+  if (shape == DEC16)
+    return launch_clustered(cim_gemm_i8_acc_fallback_kernel<DEC16>,
+                            i8_grid<DEC16, V_I8>(a, C, 1), I8_NT, C, smem,
+                            st, a, gate);
+  return launch_clustered(cim_gemm_i8_acc_fallback_kernel<PRE>,
+                          i8_grid<PRE, V_I8>(a, C, 1), I8_NT, C, smem, st, a,
+                          gate);
+}
+
 template <int VAR>
 cudaError_t i8_grouped_fallback_run(const I8Args& a, const int* counts,
                                     int E, int shape, int C, int smem,
@@ -1726,7 +1753,12 @@ cudaError_t i8_opt_in() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || granted[dev % 64]) return e;
 #ifdef CIM_GEMM_FALLBACK
-  e = i8_opt_in_fallback<V_I8>();
+  e = opt_in_smem(cim_gemm_i8_acc_fallback_kernel<DEC8>);
+  if (e == cudaSuccess)
+    e = opt_in_smem(cim_gemm_i8_acc_fallback_kernel<DEC16>);
+  if (e == cudaSuccess)
+    e = opt_in_smem(cim_gemm_i8_acc_fallback_kernel<PRE>);
+  if (e == cudaSuccess) e = i8_opt_in_fallback<V_I8>();
   if (e == cudaSuccess) e = i8_opt_in_fallback<V_GATED>();
   if (e == cudaSuccess) e = i8_opt_in_fallback<V_QF32>();
   if (e == cudaSuccess) e = i8_opt_in_fallback<V_QBF16>();
@@ -1845,8 +1877,9 @@ int CIM_ENTRY(cim_quantize_rows_int8)(const void* x, int x_kind, void* q,
 // with acc (variant 0), the exact int32 sum in out [M, N].  shape (0/1
 // decode at 8/16 rows, 2 prefill), cluster and smem are the wrapper's plan
 // (gemm_plan); N % 4 == 0.  With ``gate`` (the screen's int32 flag on the
-// device; f32 epilogue only) the degraded fallback: every block leaves
-// when the flag is 0, else the body on operands read through nan_to_num.
+// device; the f32 epilogue, or the int32 sum of kernel 6) the degraded
+// fallback: every block leaves when the flag is 0, else the body on
+// operands read through nan_to_num.
 int CIM_ENTRY(cim_gemm_i8_launch)(const void* x, const void* xs,
                                   const void* w, const void* ws,
                                   const void* w2, const void* ws2,
@@ -1866,8 +1899,7 @@ int CIM_ENTRY(cim_gemm_i8_launch)(const void* x, const void* xs,
   if (var == V_GATED && (bias != nullptr || res != nullptr || res_kind))
     return (int)cudaErrorInvalidValue;
 #ifdef CIM_GEMM_FALLBACK
-  if (gate == nullptr || acc || q != nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (gate == nullptr || q != nullptr) return (int)cudaErrorInvalidValue;
 #else
   if (gate != nullptr) return (int)cudaErrorInvalidValue;
 #endif
@@ -1878,7 +1910,9 @@ int CIM_ENTRY(cim_gemm_i8_launch)(const void* x, const void* xs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #ifdef CIM_GEMM_FALLBACK
   const int* g = static_cast<const int*>(gate);
-  if (var == V_GATED)
+  if (acc)
+    e = i8_acc_fallback_run(a, shape, cluster, smem, st, g);
+  else if (var == V_GATED)
     e = i8_fallback_run<V_GATED>(a, shape, cluster, smem, st, g);
   else if (var == V_QF32)
     e = i8_fallback_run<V_QF32>(a, shape, cluster, smem, st, g);

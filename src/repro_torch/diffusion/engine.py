@@ -26,6 +26,7 @@ the same request (same distribution).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -34,6 +35,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.context import tp_context
+from repro_torch.parallel.sharding import shard_model
 from repro_torch.quant import degraded_mode
 from repro_torch.serving.lifecycle import (EngineStallError, LifecycleMixin,
                                            RequestStatus)
@@ -78,10 +81,20 @@ class DiffusionEngine:
                  max_queue: Optional[int] = None, degraded: bool = False,
                  health_checks: bool = True,
                  fault_hook: Optional[Callable] = None, clock=None,
-                 obs=None):
+                 obs=None, tp=None):
         """``model`` is a :class:`~repro_torch.models.dit.DiTModel`
         holding its weights; the engine runs on the model's device.  A
         ``quant_plan`` is applied to the model in place.
+
+        * ``tp`` — this rank's tensor-parallel group (a ``quant_plan`` is
+          required): the blocks' attention and MLP are cut to the rank's
+          shards in place (QKV column-parallel over its heads, the
+          out-projection and the MLP's down row-parallel; adaLN whole,
+          every rank needing all six chunks), every evaluation runs
+          under the group, deadlines follow rank 0's clock, and at the
+          end of a run the ranks check that they delivered the same
+          latents.  Each rank drives its own engine with the same
+          requests, so the same noise.
 
         * ``max_queue`` — bounded admission queue; when full, ``submit``
           returns ``RequestStatus.REJECTED``.
@@ -100,8 +113,15 @@ class DiffusionEngine:
           ran before).
         """
         self.model = model
+        if tp is not None and quant_plan is None:
+            raise ValueError("tensor parallelism runs the INT8 plan: pass "
+                             "a quant_plan with tp")
         if quant_plan is not None:
             model.quantize(quant_plan)
+        if tp is not None:
+            shard_model(model, tp)
+        self.tp = tp
+        self._finished: list[tuple] = []    # (uid, status, digest) under tp
         self.quant_plan = quant_plan
         self.device = model.device
         self.batch = batch_size
@@ -123,6 +143,10 @@ class DiffusionEngine:
                 error: Optional[str] = None) -> RequestStatus:
         now = self._clock()
         req.finish(status, error, now=now)
+        if self.tp is not None:
+            self._finished.append((req.uid, status.value, None if
+                                   req.latents is None else hashlib.sha256(
+                                       req.latents.tobytes()).hexdigest()))
         if status is RequestStatus.OK:
             self.stats.completed += 1
         elif status is RequestStatus.FAILED:
@@ -184,10 +208,14 @@ class DiffusionEngine:
     def _purge_expired(self, now: float) -> None:
         if not any(r.deadline_s is not None for r in self.queue):
             return
+        expired = [r.expired(now) for r in self.queue]
+        if self.tp is not None:
+            # rank 0's clock decides for every rank
+            expired = self.tp.broadcast_flags(expired)
         keep: deque[ImageRequest] = deque()
-        while self.queue:
-            r = self.queue.popleft()
-            if r.expired(now):
+        for r, late in zip(list(self.queue), expired):
+            self.queue.popleft()
+            if late:
                 self._finish(r, RequestStatus.TIMED_OUT,
                              "deadline expired while queued")
             else:
@@ -218,8 +246,8 @@ class DiffusionEngine:
         noise = torch.stack([self._noise(r) for r in rows])
         labels = torch.tensor([r.label for r in rows], dtype=torch.int32,
                               device=self.device)
-        with (degraded_mode(True) if self.degraded
-              else contextlib.nullcontext()):
+        with tp_context(self.tp), (degraded_mode(True) if self.degraded
+                                   else contextlib.nullcontext()):
             lat = sample(self.model, labels, x_init=noise,
                          num_steps=head.num_steps, cfg_scale=head.cfg_scale,
                          method=head.method, schedule=self.schedule)
@@ -258,18 +286,28 @@ class DiffusionEngine:
                              f"got {on_stall!r}")
         for _ in range(max_iters):
             if not self.queue:
-                return
+                break
             self.step()
-        if not self.queue:
+        if self.queue and on_stall == "raise":
+            raise EngineStallError(
+                f"run_until_done hit max_iters={max_iters} with "
+                f"{len(self.queue)} request(s) still queued")
+        while self.queue:
+            self._finish(self.queue.popleft(), RequestStatus.TIMED_OUT,
+                         "engine stalled at max_iters")
+        self._check_ranks_agree()
+
+    def _check_ranks_agree(self) -> None:
+        """Under tensor parallelism: raise unless every rank ended the
+        same requests with the same status and latents since the last
+        check."""
+        if self.tp is None:
             return
-        if on_stall == "timeout":
-            while self.queue:
-                self._finish(self.queue.popleft(), RequestStatus.TIMED_OUT,
-                             "engine stalled at max_iters")
-            return
-        raise EngineStallError(
-            f"run_until_done hit max_iters={max_iters} with "
-            f"{len(self.queue)} request(s) still queued")
+        digest = hashlib.sha256(repr(sorted(self._finished)).encode())
+        self._finished.clear()
+        if not self.tp.agree(digest.digest()):
+            raise RuntimeError(f"tensor-parallel rank {self.tp.rank}: the "
+                               f"ranks' requests ended differently")
 
     def drain(self, max_iters: int = 10_000,
               on_stall: str = "timeout") -> None:

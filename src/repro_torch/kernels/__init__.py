@@ -7,7 +7,9 @@ went through).  ``online_softmax`` takes the launches its
 ``softmax_plan`` gives: one, or two for a row longer than a
 thread-block cluster holds (a stats and a normalize launch), and counts
 both.  ``finite_screen`` (the degraded mode's screen) launches only under
-``quant.degraded_mode``.
+``quant.degraded_mode``; ``cim_gemm_int8.gated_launches`` counts the
+launches of kernel 6's gated form (the degraded fallback of a
+row-parallel site), which its ``launches`` counts as well.
 """
 from . import (cim_gemm, decode_attention, flash_attention, online_softmax,
                ops, ref, ssd_scan)
@@ -38,6 +40,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    cim_gemm.cim_gemm_int8.gated_launches = 0
 
 
 __all__ = ["cim_gemm", "decode_attention", "flash_attention",

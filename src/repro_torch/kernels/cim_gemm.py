@@ -29,7 +29,9 @@ an inf), and kernels 1, 2, 3, 4, 7 and 8 take that flag as ``gate=``: a
 gated launch does nothing when the flag is 0 and otherwise runs on its
 float operands read through ``nan_to_num(·, 0, 0, 0)`` (x, the scales,
 the bias and the residual; never the int8 weights), writing into
-``out=`` where given (the layer's output, in place).  The plain versions
+``out=`` where given (the layer's output, in place).  Kernel 6 takes it
+too: the int32 partial of a tensor-parallel row-parallel site's
+fallback (its operands are int8, so it only gates).  The plain versions
 take the same flag: they compute on the sanitized operands and write
 ``out`` only when the flag is set.
 """
@@ -383,8 +385,8 @@ def _gemm_i8(what, x, x_scale, w, w_scale, w2=None, w2_scale=None,
     quantized in the kernel) and w [K, N] int8 (with w2, the gated pair),
     checked by the caller, under :func:`gemm_plan`; returns f32 [M, N],
     (q int8 [M, N], scale f32 [M, 1]) or, with ``acc``, int32 [M, N].
-    ``gate`` launches the degraded fallback (f32 out only), into ``out``
-    when given."""
+    ``gate`` launches the degraded fallback (f32 out, or int32 with
+    ``acc``), into ``out`` when given."""
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
@@ -582,17 +584,25 @@ quantize_rows_int8.launches = 0
 # ---------------------------------------------------------------------------
 # INT8 GEMM to int32, no epilogue (kernel 6)
 # ---------------------------------------------------------------------------
-def cim_gemm_int8_plain(x_q, w):
-    return ref.cim_gemm_int8_ref(x_q, w)
+def cim_gemm_int8_plain(x_q, w, gate=None, out=None):
+    res = ref.cim_gemm_int8_ref(x_q, w)
+    return res if gate is None else _gated_out(gate, out, res)
 
 
-def cim_gemm_int8(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def cim_gemm_int8(x_q: torch.Tensor, w: torch.Tensor,
+                  gate: torch.Tensor | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Exact int8 GEMM: x_q [M, K] int8 @ w [K, N] int8 -> int32 [M, N],
     with no scale and no epilogue: the row-parallel partial accumulator
     of tensor parallelism, summed over the ranks before the one
-    dequant/residual epilogue."""
-    if on_cpu(x_q, w):
-        return cim_gemm_int8_plain(x_q, w)
+    dequant/residual epilogue.  ``gate`` (the screen's flag): the
+    degraded fallback of a row-parallel site, whose ranks sum the
+    partials of their sanitized inputs: nothing is written when the flag
+    is 0, else the same exact sum, into ``out`` (int32 [M, N]) when
+    given."""
+    _out_needs_gate(gate, out)
+    if on_cpu(x_q, w, gate, out):
+        return cim_gemm_int8_plain(x_q, w, gate, out)
     require(x_q, "x_q", torch.int8)
     M, K = x_q.shape
     require(w, "w", torch.int8)
@@ -602,12 +612,21 @@ def cim_gemm_int8(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if N % 4 or w.data_ptr() % 4:
         raise ValueError(f"w: N={N} must be a multiple of 4 and w 4-byte "
                          f"aligned")
-    out = _gemm_i8("cim_gemm_int8", x_q, None, w, None, acc=True)
+    if gate is not None:
+        require(gate, "gate", torch.int32, (1,))
+        if out is not None:
+            require(out, "out", torch.int32, (M, N))
+    out = _gemm_i8("cim_gemm_int8", x_q, None, w, None, acc=True, gate=gate,
+                   out=out)
     cim_gemm_int8.launches += 1
+    if gate is not None:
+        cim_gemm_int8.gated_launches += 1
     return out
 
 
 cim_gemm_int8.launches = 0
+# the gated form's launches alone (each is counted in ``launches`` too)
+cim_gemm_int8.gated_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -99,27 +99,32 @@ def cim_quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
     return cim_gemm_int8(x_q, w_q).float() * x_s * w_scale[None, :]
 
 
-def cim_int8_gemm_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+def cim_int8_gemm_acc(x_q: torch.Tensor, w_q: torch.Tensor,
+                      gate: torch.Tensor | None = None) -> torch.Tensor:
     """x_q [M, K] int8 @ w_q [K, N] int8 -> int32 [M, N], exactly: the
     row-parallel partial accumulator that tensor parallelism sums over
-    the ranks before its one dequant/residual epilogue."""
-    return cim_gemm_int8(x_q.contiguous(), w_q)
+    the ranks before its one dequant/residual epilogue.  With ``gate``
+    the degraded fallback's gated launch (nothing written at flag 0)."""
+    return cim_gemm_int8(x_q.contiguous(), w_q, gate=gate)
 
 
 def cim_hidden_int8(x_q: torch.Tensor, x_scale: torch.Tensor,
                     up_q: torch.Tensor, up_scale: torch.Tensor,
                     gate_q: torch.Tensor | None = None,
                     gate_scale: torch.Tensor | None = None,
-                    activation: str = "gelu") -> torch.Tensor:
+                    activation: str = "gelu",
+                    gate: torch.Tensor | None = None) -> torch.Tensor:
     """MLP front half from pre-quantized activations, f32 out, no
     requant: ``act(x@Wg) * (x@Wu)`` (or ``act(x@Wu)`` ungated).  The
     column shard of the tensor-parallel MLP: the requant runs outside,
-    with the row absmax reduced over the ranks."""
+    with the row absmax reduced over the ranks.  ``gate``: the degraded
+    fallback's gated launch (the scales read through ``nan_to_num``)."""
     if gate_q is not None:
         return cim_gated_gemm_int8(x_q, gate_q, up_q, x_scale, gate_scale,
-                                   up_scale, activation=activation)
+                                   up_scale, activation=activation,
+                                   gate=gate)
     return cim_gemm_int8_fused(x_q, up_q, x_scale, up_scale,
-                               activation=activation)
+                               activation=activation, gate=gate)
 
 
 def cim_quantized_matmul_fused(x: torch.Tensor, w_q: torch.Tensor,

@@ -11,8 +11,10 @@ drawn from ``--seed`` (the port's ``Model.init``).  ``--tp N`` serves
 the INT8 plan tensor-parallel over N ranks, each a process of its own
 (``spawn``): with ``--backend gloo`` (the default) every rank uses the
 one card (or the CPU), with ``--backend nccl`` rank r takes card r.  The
-ranks draw the model one after another, each keeping its shards, and
-every rank must produce the tokens of the others.  Output goes through
+ranks draw the model one after another, each drawing only its shards
+(every family; musicgen's audio frontend takes frame embeddings and is
+refused by this token CLI), and every rank must produce the tokens of
+the others.  Output goes through
 :func:`~repro_torch.launch.console.emit`, the one place this package
 writes to the terminal.
 """
@@ -64,15 +66,15 @@ def _serve(model, reqs: list[Request], args: dict, tp=None):
 
 
 def _serve_rank(group, args: dict) -> dict:
-    """One tensor-parallel rank: draw the model in turn, keep this rank's
-    shards, serve the requests; returns what rank 0 reports."""
-    from repro_torch.parallel.sharding import build_in_turns, shard_model
+    """One tensor-parallel rank: draw this rank's shards of the model, in
+    turn, and serve the requests; returns what rank 0 reports."""
+    from repro_torch.parallel.sharding import build_in_turns
     device = rank_device(args["device"], args["backend"], group.rank)
     cfg = _config(args)
 
     def build():
-        model = Model(cfg).init(args["seed"], device=device)
-        shard_model(model.quantize(QuantPlan.full()), group)
+        model = Model(cfg).init(args["seed"], device=device, tp=group,
+                                plan=QuantPlan.full())
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.empty_cache()

@@ -227,24 +227,33 @@ class DiTModel(nn.Module):
 
     # -- parameters ------------------------------------------------------
     def init(self, generator: torch.Generator | int = 0,
-             device=None) -> "DiTModel":
+             device=None, tp=None, plan=None) -> "DiTModel":
         """Allocate the weights on ``device`` (default: the card) and draw
         them: every matrix ``N(0, 1)`` truncated to [-2, 2] times
         1/sqrt(fan_in), the label table times 0.02, biases zero (the
         reference's init, not adaLN-Zero's zeros, so that random weights
         are not the identity).  An int ``generator`` seeds a fresh
-        generator on that device."""
+        generator on that device.  ``tp`` and ``plan``: a rank's shards
+        only, drawn leaf by leaf, as :meth:`repro_torch.models.Model.init`."""
         device = resolve_device(device)
         if isinstance(generator, int):
             generator = torch.Generator(device=device).manual_seed(generator)
+        if tp is not None:
+            from repro_torch.parallel.sharding import draw_sharded
+            return draw_sharded(self, tp, generator, device, plan)
         self.to_empty(device=device)
+        self.draw_(generator)
+        return self
+
+    def draw_(self, generator: torch.Generator) -> None:
+        """Draw every weight, already allocated, from ``generator``, in
+        ``init``'s order."""
         self.patch_embed.init_(generator)
         self.t_embed.init_(generator)
         truncated_normal_(self.y_table, generator, 0.02)
         self.final.init_(generator)
         for block in self.blocks:
             block.init_(generator)
-        return self
 
     def quantize(self, plan=None) -> "DiTModel":
         """Apply a :class:`~repro_torch.quant.plan.QuantPlan` (default:

@@ -3,6 +3,7 @@ rmsnorm and layernorm, embedding + tied logits, the untied LM head,
 RoPE, the dense MLP."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -15,10 +16,31 @@ from repro_torch.quant.linear import QuantizedLinear, quantized_mlp_apply
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
+_LEAF_SINK = None
+
+
+@contextlib.contextmanager
+def leaf_sink(sink):
+    """For the enclosed scope, a draw into a leaf on the meta device goes
+    to ``sink(p, generator, scale)`` instead (the tensor-parallel draw,
+    :func:`repro_torch.parallel.sharding.draw_sharded`, places each leaf
+    itself)."""
+    global _LEAF_SINK
+    prev, _LEAF_SINK = _LEAF_SINK, sink
+    try:
+        yield
+    finally:
+        _LEAF_SINK = prev
+
+
 def truncated_normal_(p: torch.Tensor, generator: torch.Generator,
                       scale: float) -> torch.Tensor:
     """Fill ``p`` with ``scale * N(0, 1)`` truncated to [-2, 2], drawn in
-    f32 with torch's own generator, then cast to ``p``'s dtype."""
+    f32 with torch's own generator, then cast to ``p``'s dtype (see
+    :func:`leaf_sink` for a leaf on the meta device)."""
+    if _LEAF_SINK is not None and p.is_meta:
+        _LEAF_SINK(p, generator, scale)
+        return p
     tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
     with torch.no_grad():

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.quant import tp as _tp
 from . import attention as attn_mod
 from .layers import apply_rope, rmsnorm_apply, truncated_normal_, weight
 
@@ -121,10 +122,16 @@ def mla_apply(m: MLA, x: torch.Tensor, positions: torch.Tensor,
     kv_lora], "k_rope" [B, T, rope], "index" [B] int32}) is written in
     place and its index advanced by S.  ``aligned_positions``:
     ``positions`` is ``arange(S)`` in every row (the cacheless path may
-    then attend on kernel 12)."""
+    then attend on kernel 12).
+
+    A tensor-parallel rank's layer holds its heads of ``q_up`` and
+    ``kv_up`` (:func:`repro_torch.parallel.sharding.mla_cuts`); the
+    down-projections, the latent cache and ``o`` stay whole, and the
+    heads' outputs are gathered (one all-gather) before ``o``."""
     B, S, _ = x.shape
     nope = cfg.qk_nope_head_dim
     scale = 1.0 / math.sqrt(cfg.qk_head_dim)
+    group = _tp.group_of(m)
 
     q_nope, q_rope = _project_q(m, x, cfg, positions, rope_theta)
     c_kv, k_rope = _project_kv_latent(m, x, cfg, positions, rope_theta)
@@ -139,7 +146,7 @@ def mla_apply(m: MLA, x: torch.Tensor, positions: torch.Tensor,
         out = attn_mod.cacheless_attention(
             q, k, kv[..., nope:], positions, "causal",
             aligned_positions=aligned_positions)
-        return torch.einsum("bshv,hvd->bsd", out.to(x.dtype), m.o)
+        return _out_proj(m, out.to(x.dtype), group)
 
     # absorbed: score and fold values directly against the latent cache
     idx = cache["index"].clone()
@@ -162,7 +169,15 @@ def mla_apply(m: MLA, x: torch.Tensor, positions: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", probs.to(c_cache.dtype), c_cache)
     out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
-    return torch.einsum("bshv,hvd->bsd", out.to(x.dtype), m.o)
+    return _out_proj(m, out.to(x.dtype), group)
+
+
+def _out_proj(m: MLA, out: torch.Tensor, group) -> torch.Tensor:
+    """The heads' outputs [B, S, H, v] (a rank's heads gathered first)
+    through the whole ``o``."""
+    if group is not None:
+        out = _tp.gather_heads(group, out, 2)
+    return torch.einsum("bshv,hvd->bsd", out, m.o)
 
 
 def init_mla_cache(batch: int, max_len: int, cfg: MLAConfig,

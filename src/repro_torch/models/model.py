@@ -220,20 +220,35 @@ class Model(nn.Module):
 
     # -- parameters ------------------------------------------------------
     def init(self, generator: torch.Generator | int = 0,
-             device=None) -> "Model":
+             device=None, tp=None, plan=None) -> "Model":
         """Allocate the weights on ``device`` (default: the card) and draw
         them: every matrix ``N(0, 1)`` truncated to [-2, 2] times
         1/sqrt(fan_in) (the embedding unscaled), norms at 1.  An int
         ``generator`` seeds a fresh generator on that device.  The draws
-        run in a fixed order: :meth:`init_outer`, then each block."""
+        run in a fixed order (:meth:`draw_`).
+
+        With ``tp`` (a tensor-parallel group) the model must still be on
+        the meta device: each leaf is drawn, quantized under ``plan``
+        (default: the full plan) and cut to the rank's shard before the
+        next is drawn (:func:`repro_torch.parallel.sharding.draw_sharded`),
+        so the rank never holds the whole model; the bits are the whole
+        draw's, quantized and sharded."""
         device = resolve_device(device)
         if isinstance(generator, int):
             generator = torch.Generator(device=device).manual_seed(generator)
+        if tp is not None:
+            from repro_torch.parallel.sharding import draw_sharded
+            return draw_sharded(self, tp, generator, device, plan)
         self.to_empty(device=device)
+        self.draw_(generator)
+        return self
+
+    def draw_(self, generator: torch.Generator) -> None:
+        """Draw every weight, already allocated, from ``generator``:
+        :meth:`init_outer`, then each block."""
         self.init_outer(generator)
         for block in self.layers:
             block.init_(generator)
-        return self
 
     def init_outer(self, generator: torch.Generator) -> None:
         """Draw the weights outside the blocks, already allocated: the
@@ -506,14 +521,14 @@ class Model(nn.Module):
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype: Optional[str] = None) -> list:
-        """One ring cache dict per layer, over the KV heads each layer
-        holds (a tensor-parallel rank's shard); ``kv_dtype="int8"``
-        overrides ``cfg.kv_cache_dtype``.  Sliding-window layers hold
-        only the window; a Mamba-2 layer holds its conv tail and state
+        """One ring cache dict per layer, over the heads each layer holds
+        (a tensor-parallel rank's shard); ``kv_dtype="int8"`` overrides
+        ``cfg.kv_cache_dtype``.  Sliding-window layers hold only the
+        window; a Mamba-2 layer holds its conv tail and state
         (``init_ssm_cache``), an MLA layer its bf16 latent cache of
         ``max_len`` slots whatever ``kv_dtype`` says (``init_mla_cache``,
-        as the reference), an xLSTM layer its state (``init_mlstm_cache``,
-        ``init_slstm_cache``)."""
+        as the reference; whole on every rank), an xLSTM layer its state
+        (``init_mlstm_cache``, ``init_slstm_cache``)."""
         kv = kv_dtype or self.cfg.kv_cache_dtype
         dt = torch.int8 if kv == "int8" else torch.bfloat16
         cfg, dev = self.cfg, self.device
@@ -521,20 +536,24 @@ class Model(nn.Module):
         for block in self.layers:
             mixer = block.spec[0]
             if mixer == "mamba2":
-                caches.append(init_ssm_cache(batch, cfg.d_model, cfg.ssm,
-                                             device=dev))
+                caches.append(init_ssm_cache(
+                    batch, cfg.d_model, cfg.ssm, device=dev,
+                    n_heads=block.mamba.a_log.shape[0],
+                    conv_dim=block.mamba.conv_w.shape[1]))
                 continue
             if mixer == "mla":
                 caches.append(init_mla_cache(batch, max_len, cfg.mla,
                                              device=dev))
                 continue
             if mixer == "mlstm":
-                caches.append(init_mlstm_cache(batch, cfg.d_model,
-                                               cfg.xlstm, device=dev))
+                caches.append(init_mlstm_cache(
+                    batch, cfg.d_model, cfg.xlstm, device=dev,
+                    n_heads=block.mlstm.q.shape[1]))
                 continue
             if mixer == "slstm":
-                caches.append(init_slstm_cache(batch, cfg.d_model,
-                                               cfg.xlstm, device=dev))
+                caches.append(init_slstm_cache(
+                    batch, cfg.d_model, cfg.xlstm, device=dev,
+                    n_heads=block.slstm.r.shape[1]))
                 continue
             span = max_len
             if block.spec[0] == "attn_local":

@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import silu
+from repro_torch.quant import tp as _tp
 from repro_torch.quant.linear import kernels_enabled
 from .layers import rmsnorm_apply, truncated_normal_, weight
 
@@ -112,14 +113,23 @@ def mamba2_apply(m: Mamba2, x: torch.Tensor, cfg: SSMConfig,
                  cache: Optional[dict] = None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d].  ``cache`` ({"conv" [B, K-1, conv_dim],
     "ssm" [B, H, P, N] f32, "index" [B] int32}) is read and updated in
-    place: the conv tail, the state, and the index advanced by S."""
+    place: the conv tail, the state, and the index advanced by S.
+
+    A tensor-parallel rank's block holds its SSM heads (their z, x and dt
+    columns, conv channels, ``a_log``, ``d_skip``, ``dt_bias``, state;
+    :func:`repro_torch.parallel.sharding.mamba_cuts`): the heads run as
+    the unsharded block's, and their gated outputs are gathered (one
+    all-gather) before the norm and the whole ``out_proj``."""
     B, S, D = x.shape
-    di, H = cfg.d_inner(D), cfg.n_heads(D)
-    P, N, G, K = cfg.head_dim, cfg.state_dim, cfg.n_groups, cfg.conv_kernel
+    P, N, K = cfg.head_dim, cfg.state_dim, cfg.conv_kernel
+    H = m.a_log.shape[0]                     # the heads this block holds
+    di = H * P
+    G = (m.conv_w.shape[1] - di) // (2 * N)
+    group = _tp.group_of(m)
 
     zxbcdt = torch.matmul(x, m.in_proj)
     z = zxbcdt[..., :di]
-    xbc_raw = zxbcdt[..., di:di + cfg.conv_dim(D)]
+    xbc_raw = zxbcdt[..., di:di + di + 2 * G * N]
     dt = zxbcdt[..., -H:]
 
     tail_in = cache["conv"] if cache is not None else None
@@ -159,16 +169,23 @@ def mamba2_apply(m: Mamba2, x: torch.Tensor, cfg: SSMConfig,
     y = y + xs.float() * m.d_skip[:, None]
     y = y.reshape(B, S, di).to(x.dtype)
     y = y * silu(z)
+    if group is not None:
+        y = _tp.gather_heads(group, y, -1)
     y = rmsnorm_apply(m.norm.scale, y)
     return torch.matmul(y, m.out_proj)
 
 
 def init_ssm_cache(batch: int, d_model: int, cfg: SSMConfig,
-                   dtype=torch.bfloat16, device=None) -> dict:
-    H = cfg.n_heads(d_model)
+                   dtype=torch.bfloat16, device=None,
+                   n_heads: Optional[int] = None,
+                   conv_dim: Optional[int] = None) -> dict:
+    """A Mamba-2 layer's cache; ``n_heads`` and ``conv_dim`` (default the
+    config's) are the heads and conv channels a tensor-parallel rank's
+    block holds."""
+    H = n_heads or cfg.n_heads(d_model)
     return {
         "conv": torch.zeros((batch, cfg.conv_kernel - 1,
-                             cfg.conv_dim(d_model)), dtype=dtype,
+                             conv_dim or cfg.conv_dim(d_model)), dtype=dtype,
                             device=device),
         "ssm": torch.zeros((batch, H, cfg.head_dim, cfg.state_dim),
                            dtype=torch.float32, device=device),

@@ -28,6 +28,7 @@ from torch import nn
 from torch.nn.functional import logsigmoid
 
 from repro_torch.kernels.ref import silu
+from repro_torch.quant import tp as _tp
 from .layers import MLP, mlp_apply, rmsnorm_apply, truncated_normal_, weight
 from .ssm import _causal_conv
 
@@ -173,13 +174,34 @@ class MLSTMBlock(nn.Module):
             self.norm.scale.fill_(1.0)
 
 
+def _among_heads(t: torch.Tensor, axis: int, heads: slice, H: int,
+                 fill: float = 0.0) -> torch.Tensor:
+    """``t``'s heads (on ``axis``) placed at ``heads`` among H, ``fill``
+    at the others."""
+    shape = list(t.shape)
+    shape[axis] = H
+    out = t.new_full(shape, fill)
+    out.narrow(axis, heads.start, heads.stop - heads.start).copy_(t)
+    return out
+
+
 def mlstm_block_apply(blk: MLSTMBlock, x: torch.Tensor, cfg: XLSTMConfig,
                       cache: Optional[dict] = None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d].  With a cache: one token takes the decode
     step, more the chunked scan from the cache's state; the conv tail,
-    state and index are updated in place."""
+    state and index are updated in place.
+
+    A tensor-parallel rank's block holds its heads' q, k and v and their
+    state (:func:`repro_torch.parallel.sharding.mlstm_cuts`; ``up``, the
+    conv and the gates' weights whole).  Its recurrence runs among all H
+    heads, the others' q, k, v and state zero: the batched products then
+    have the unsharded block's shapes, and cuBLAS rounds the rank's heads
+    as it rounds them there (over fewer heads it takes other algorithms).
+    The heads' outputs are gathered (one all-gather) before the norm and
+    the whole ``down``."""
     B, S, D = x.shape
     di, K = cfg.mlstm_inner(D), cfg.conv_kernel
+    group = _tp.group_of(blk)
 
     up = torch.einsum("bsd,dk->bsk", x, blk.up)
     u, z = up[..., :di], up[..., di:]
@@ -191,9 +213,17 @@ def mlstm_block_apply(blk: MLSTMBlock, x: torch.Tensor, cfg: XLSTMConfig,
     v = torch.einsum("bsk,khd->bshd", u, blk.v).float()
     ig = torch.einsum("bsk,kh->bsh", conv.float(), blk.igate)
     fg = torch.einsum("bsk,kh->bsh", conv.float(), blk.fgate) + blk.fgate_b
+    state = None if cache is None else (cache["C"], cache["n"], cache["m"])
+    if group is not None:
+        H, Hr = cfg.n_heads, q.shape[2]
+        heads = slice(group.rank * Hr, (group.rank + 1) * Hr)
+        q, k, v = (_among_heads(t, 2, heads, H) for t in (q, k, v))
+        if state is not None:
+            state = (_among_heads(state[0], 1, heads, H),
+                     _among_heads(state[1], 1, heads, H),
+                     _among_heads(state[2], 1, heads, H, M_FLOOR))
 
     if cache is not None:
-        state = (cache["C"], cache["n"], cache["m"])
         if S == 1:
             h, state = mlstm_decode_step(q, k, v, ig, fg, state)
         else:
@@ -202,11 +232,13 @@ def mlstm_block_apply(blk: MLSTMBlock, x: torch.Tensor, cfg: XLSTMConfig,
                              dim=1)[:, -(K - 1):]
         cache["conv"].copy_(new_tail)
         for name, value in zip(("C", "n", "m"), state):
-            cache[name].copy_(value)
+            cache[name].copy_(value if group is None else value[:, heads])
         cache["index"] += S
     else:
         h, _ = mlstm_scan(q, k, v, ig, fg, cfg.chunk)
 
+    if group is not None:
+        h = _tp.gather_heads(group, h[:, :, heads].to(x.dtype), 2)
     h = h.reshape(B, S, di).to(x.dtype)
     h = rmsnorm_apply(blk.norm.scale, h) * silu(z)
     return torch.einsum("bsk,kd->bsd", h, blk.down)
@@ -279,11 +311,18 @@ def slstm_block_apply(blk: SLSTMBlock, x: torch.Tensor, cfg: XLSTMConfig,
                       cache: Optional[dict] = None) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: the scan, rmsnorm, and the geglu FFN
     added as a residual.  The cache's carry and index are updated in
-    place."""
+    place.  A tensor-parallel rank's block holds its heads' ``r``, ``b``
+    and carry (:func:`repro_torch.parallel.sharding.slstm_cuts`: the
+    recurrence is block-diagonal by head) and takes its heads of the
+    whole input projection; the heads' outputs are gathered (one
+    all-gather) before the norm and the whole FFN."""
     B, S, D = x.shape
-    H = cfg.n_heads
-    dh = D // H
+    H = blk.r.shape[1]                       # the heads this block holds
+    dh = D // cfg.n_heads
+    group = _tp.group_of(blk)
     wx = torch.einsum("bsd,dghe->bsghe", x.float(), blk.w)
+    if group is not None:
+        wx = wx[:, :, :, group.rank * H:(group.rank + 1) * H]
     if cache is not None:
         carry = (cache["c"], cache["n"], cache["h"], cache["m"])
     else:
@@ -294,15 +333,21 @@ def slstm_block_apply(blk: SLSTMBlock, x: torch.Tensor, cfg: XLSTMConfig,
         for name, value in zip(("c", "n", "h", "m"), carry):
             cache[name].copy_(value)
         cache["index"] += S
-    h = hs.reshape(B, S, D).to(x.dtype)
+    h = hs.reshape(B, S, H * dh).to(x.dtype)
+    if group is not None:
+        h = _tp.gather_heads(group, h, -1)
     h = rmsnorm_apply(blk.norm.scale, h)
     return h + mlp_apply(blk.ffn, h, "geglu")
 
 
 def init_mlstm_cache(batch: int, d_model: int, cfg: XLSTMConfig,
-                     dtype=torch.bfloat16, device=None) -> dict:
-    di, H = cfg.mlstm_inner(d_model), cfg.n_heads
-    dh = di // H
+                     dtype=torch.bfloat16, device=None,
+                     n_heads: Optional[int] = None) -> dict:
+    """An mLSTM layer's cache over ``n_heads`` heads (default the
+    config's; a tensor-parallel rank's block holds fewer)."""
+    di = cfg.mlstm_inner(d_model)
+    dh = di // cfg.n_heads
+    H = n_heads or cfg.n_heads
     f32 = torch.float32
     return {
         "conv": torch.zeros((batch, cfg.conv_kernel - 1, di), dtype=dtype,
@@ -315,9 +360,10 @@ def init_mlstm_cache(batch: int, d_model: int, cfg: XLSTMConfig,
 
 
 def init_slstm_cache(batch: int, d_model: int, cfg: XLSTMConfig,
-                     device=None) -> dict:
-    H = cfg.n_heads
-    shape = (batch, H, d_model // H)
+                     device=None, n_heads: Optional[int] = None) -> dict:
+    """An sLSTM layer's carry over ``n_heads`` heads (default the
+    config's)."""
+    shape = (batch, n_heads or cfg.n_heads, d_model // cfg.n_heads)
     f32 = torch.float32
     return {"c": torch.zeros(shape, dtype=f32, device=device),
             "n": torch.zeros(shape, dtype=f32, device=device),

@@ -78,9 +78,10 @@ class TPGroup:
         if self.size == 1:
             return t
         if self._staged(t):
-            host = t.cpu()
-            dist.all_reduce(host, op)
-            t.copy_(host)
+            with _host_transport():
+                host = t.cpu()
+                dist.all_reduce(host, op)
+                t.copy_(host)
         else:
             dist.all_reduce(t, op)
         return t
@@ -104,11 +105,13 @@ class TPGroup:
         if self.size == 1:
             return t
         raw = t.contiguous().view(torch.uint8)
-        src = raw.cpu() if self._staged(t) else raw
-        out = torch.empty((self.size * src.shape[0],) + src.shape[1:],
-                          dtype=torch.uint8, device=src.device)
-        dist.all_gather(list(out.chunk(self.size)), src)
-        return out.to(t.device).view(t.dtype)
+        with _host_transport() if self._staged(t) else \
+                contextlib.nullcontext():
+            src = raw.cpu() if self._staged(t) else raw
+            out = torch.empty((self.size * src.shape[0],) + src.shape[1:],
+                              dtype=torch.uint8, device=src.device)
+            dist.all_gather(list(out.chunk(self.size)), src)
+            return out.to(t.device).view(t.dtype)
 
     def broadcast_flags(self, flags: list[bool]) -> list[bool]:
         """Rank 0's ``flags`` on every rank (the engines' deadline
@@ -137,6 +140,23 @@ class TPGroup:
         outs = [torch.empty_like(mine) for _ in range(self.size)]
         dist.all_gather(outs, mine)
         return all(torch.equal(o, mine) for o in outs)
+
+
+@contextlib.contextmanager
+def _host_transport():
+    """gloo moves a card tensor through host memory, and that copy waits
+    for the card by its nature: CUDA's sync debug mode is lifted for
+    these copies alone, so a step checked under mode "error" still
+    raises at every other host sync (the degraded mode's screens never
+    read their flag on the host; NCCL would need no such copy)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)
 
 
 _CURRENT: Optional[TPGroup] = None

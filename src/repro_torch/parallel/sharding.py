@@ -1,141 +1,275 @@
 """Shard placement for tensor parallelism (port of the divisibility
 fallback of ``repro/parallel/sharding.py::resolve_spec`` for the
-``heads``, ``kv_heads``, ``mlp`` and ``expert`` axes, and of
-``Model.quantize(mesh=)``).
+``heads``, ``kv_heads``, ``mlp`` and ``expert`` axes, of
+``Model.quantize(mesh=)``, and of the logical axes the reference's bf16
+mixers carry).
 
-:func:`shard_model` cuts, in place, the int8 leaves of a quantized model
-to one rank's shards; ``q`` and ``scale`` stay co-sharded on the
+:func:`shard_model` cuts, in place, a model's leaves to one rank's
+shards; a quantized leaf's ``q`` and ``scale`` stay co-sharded on the
 output-channel axis.  A dimension that the group size does not divide
 keeps its leaves whole on every rank (the reference's replicate-on-
 indivisible rule), and the layers then run the unsharded path.  The
-embedding, the untied head, the norms and the router stay whole (the
-reference places the vocabulary sharded, with the same bits).
+embedding, the untied head, the norms (``qk_norm``'s per-head weight
+and layernorm's included), ``frontend_proj``, the router and DiT's adaLN
+stay whole (the reference places the vocabulary sharded, with the same
+bits; adaLN's six chunks are needed whole on every rank).
 
-Each rank's attention columns are laid out as [its q heads | its k
-heads | its v heads]: q heads shard when ``H % p == 0``; K/V heads shard
-when ``KH % p == 0``, and are otherwise computed whole on every rank (an
-MQA head, ``KH == 1``; other indivisible KV counts keep the attention
-whole).  Each rank then attends its own q heads, and its attention
-output is the row-parallel out-projection's input shard.
+Each kind of layer and how a rank holds it:
+
+* attention (int8): the columns laid out as [its q heads | its k heads |
+  its v heads]: q heads shard when ``H % p == 0``; K/V heads shard when
+  ``KH % p == 0``, and are otherwise computed whole on every rank (an
+  MQA head, ``KH == 1``; other indivisible KV counts keep the attention
+  whole).  Each rank attends its own q heads, and its attention output
+  is the row-parallel out-projection's input shard.
+* MLP (int8): up/gate column-parallel, down row-parallel; routed expert
+  stacks on their leading expert axis.
+* the bf16 mixers shard by head and gather the heads' outputs (one
+  all-gather a layer and forward) before a whole out-projection, so
+  every rank computes the unsharded mixer's function:
+  Mamba-2 (``in_proj``'s z, x and dt columns, the conv channels,
+  ``a_log``, ``d_skip``, ``dt_bias`` of the rank's SSM heads; B and C
+  whole unless the group size divides the groups), MLA (``q_up`` and
+  ``kv_up``; the down-projections and the latent cache whole), the
+  mLSTM (``q``, ``k``, ``v``, the gates and the chunk state; ``up`` and
+  the conv whole, as every head reads all of the conv's channels) and
+  the sLSTM (``r``, ``b`` and the carry: its recurrence is
+  block-diagonal by head).  The f32 input products of the mLSTM's gates
+  and the sLSTM keep their small weights whole and are cut to the
+  rank's heads after the product: a column slice of an f32 product
+  rounds apart from the whole one on the card.
+
+A cut is a dict {axis: the global indices a rank keeps}.  A cut
+quantized leaf records them (``tp_index``, and the whole leaf's shape
+``tp_shape``): a weight fault drawn over the whole leaf lands on the
+rank that holds it (:mod:`repro_torch.reliability.faults`).
+
+:func:`draw_sharded` fills a model on the meta device with
+``init``'s weights one leaf at a time, each quantized (where the plan
+covers it) and cut before the next is drawn: a rank then holds its
+shards and one leaf's f32 temporary at most, never the whole model.
 """
 from __future__ import annotations
 
 import logging
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+from torch import nn
 
-from repro_torch.quant.linear import QuantizedLinear
+from repro_torch.quant.linear import QuantizedLinear, quantize_linear
+from repro_torch.quant.plan import FULL_INT8, covered_kinds
 from .context import TPGroup
 
 log = logging.getLogger(__name__)
 
+Cut = dict   # axis -> LongTensor: the global indices a rank keeps
 
-def _cut(w: QuantizedLinear, q_index, scale_index, p: int) -> None:
-    """Keep ``w.q[q_index]`` and ``w.scale[scale_index]`` (copies, so the
-    whole tensors are released) and mark ``w`` sharded ``p`` ways."""
-    w.q = w.q[q_index].clone(memory_format=torch.contiguous_format)
-    w.scale = w.scale[scale_index].clone(memory_format=torch.contiguous_format)
+
+def _span(n: int, group: TPGroup) -> torch.Tensor:
+    k = n // group.size
+    return torch.arange(group.rank * k, (group.rank + 1) * k)
+
+
+def _take(t: torch.Tensor, cut: Cut) -> torch.Tensor:
+    """``t`` cut on each axis of ``cut`` (a copy; ``t`` itself when the
+    cut is empty)."""
+    for axis, idx in sorted(cut.items()):
+        t = t.index_select(axis, idx.to(t.device))
+    return t.contiguous()
+
+
+def cut_quantized(w: QuantizedLinear, q_cut: Cut, scale_cut: Cut,
+                  p: int) -> None:
+    """Keep the rank's part of ``w.q`` and ``w.scale`` (copies, so the
+    whole tensors are released), record where it lies in the whole leaf
+    and mark ``w`` sharded ``p`` ways."""
+    w.tp_shape = tuple(w.q.shape)
+    w.tp_index = tuple(q_cut.get(a) for a in range(w.q.dim()))
+    w.q = _take(w.q, q_cut)
+    w.scale = _take(w.scale, scale_cut)
     w.tp_size = p
 
 
-def _span(n: int, group: TPGroup) -> slice:
-    k = n // group.size
-    return slice(group.rank * k, (group.rank + 1) * k)
+def _cut_param(owner: nn.Module, name: str, cut: Cut) -> None:
+    t = getattr(owner, name)
+    setattr(owner, name, nn.Parameter(_take(t.detach(), cut),
+                                      requires_grad=False))
+    owner.__dict__.setdefault("_tp_cut", set()).add(name)
 
 
-def _shard_attention(attn, group: TPGroup) -> bool:
-    qkv, o = getattr(attn, "qkv", None), attn.o
-    if not (isinstance(qkv, QuantizedLinear)
-            and isinstance(o, QuantizedLinear)):
-        return False
+# ---------------------------------------------------------------------------
+# The cuts of each layer kind: {leaf: cut} (a quantized leaf's scale under
+# "<leaf>.scale"), or None when the layer stays whole
+# ---------------------------------------------------------------------------
+def attention_cuts(H: int, KH: int, group: TPGroup) -> Optional[dict]:
     p = group.size
-    H, KH = o.q.shape[0], attn.n_kv_heads
     kv_split = KH % p == 0
     if H % p or not (kv_split or KH == 1):
-        return False
-    heads = torch.arange(H + 2 * KH)
-    kv = heads[_span(KH, group)] if kv_split else heads[:KH]
-    idx = torch.cat([heads[_span(H, group)], H + kv, H + KH + kv])
-    _cut(qkv, (slice(None), idx), idx, p)
-    _cut(o, _span(H, group), slice(None), p)
-    attn.n_kv_heads = len(kv)
-    return True
+        return None
+    qh = _span(H, group)
+    kv = _span(KH, group) if kv_split else torch.arange(KH)
+    wide = torch.cat([qh, H + kv, H + KH + kv])
+    return {"q": {1: qh}, "k": {1: kv}, "v": {1: kv}, "o": {0: qh},
+            "o.scale": {}, "qkv": {1: wide}, "qkv.scale": {0: wide}}
 
 
-def _shard_mlp(mlp, group: TPGroup) -> bool:
-    """Up/gate column-parallel, down row-parallel."""
-    if not isinstance(getattr(mlp, "up", None), QuantizedLinear):
-        return False
-    F = mlp.up.q.shape[1]
+def mlp_cuts(F: int, group: TPGroup) -> Optional[dict]:
     if F % group.size:
-        return False
-    cols = _span(F, group)
-    for name in ("up", "gate"):
-        w = getattr(mlp, name, None)
-        if w is not None:
-            _cut(w, (slice(None), cols), cols, group.size)
-    _cut(mlp.down, cols, slice(None), group.size)
-    return True
+        return None
+    c = _span(F, group)
+    return {"up": {1: c}, "up.scale": {0: c}, "gate": {1: c},
+            "gate.scale": {0: c}, "down": {0: c}, "down.scale": {}}
 
 
-def _shard_experts(moe, group: TPGroup) -> bool:
-    """The routed expert stacks on their leading expert axis."""
-    if not isinstance(moe.up, QuantizedLinear):
-        return False
-    E = moe.up.q.shape[0]
+def expert_cuts(E: int, group: TPGroup) -> Optional[dict]:
     if E % group.size:
-        return False
-    experts = _span(E, group)
-    for name in ("up", "gate", "down"):
-        w = getattr(moe, name, None)
-        if w is not None:
-            _cut(w, experts, experts, group.size)
-    return True
+        return None
+    e = _span(E, group)
+    return {name + sfx: {0: e} for name in ("up", "gate", "down")
+            for sfx in ("", ".scale")}
 
 
-def _sharded_ways(mod) -> int | None:
+def mamba_cuts(ssm, d_model: int, group: TPGroup) -> Optional[dict]:
+    H, P, N, G = (ssm.n_heads(d_model), ssm.head_dim, ssm.state_dim,
+                  ssm.n_groups)
+    p = group.size
+    if H % p or (G > 1 and G % p):
+        return None
+    di = ssm.d_inner(d_model)
+    heads = _span(H, group)
+    ch = (heads[:, None] * P + torch.arange(P)).reshape(-1)
+    groups = _span(G, group) if G > 1 else torch.arange(G)
+    gch = (groups[:, None] * N + torch.arange(N)).reshape(-1)
+    GN = G * N
+    cols = torch.cat([ch, di + ch, 2 * di + gch, 2 * di + GN + gch,
+                      2 * di + 2 * GN + heads])
+    conv = torch.cat([ch, di + gch, di + GN + gch])
+    return {"in_proj": {1: cols}, "conv_w": {1: conv}, "conv_b": {0: conv},
+            "a_log": {0: heads}, "d_skip": {0: heads},
+            "dt_bias": {0: heads}}
+
+
+def mla_cuts(H: int, group: TPGroup) -> Optional[dict]:
+    if H % group.size:
+        return None
+    h = _span(H, group)
+    return {"q_up": {1: h}, "kv_up": {1: h}}
+
+
+def mlstm_cuts(H: int, group: TPGroup) -> Optional[dict]:
+    """q, k and v by head; the gates' weights stay whole (their f32
+    products are cut after them, as the sLSTM's input projection)."""
+    if H % group.size:
+        return None
+    h = _span(H, group)
+    return {"q": {1: h}, "k": {1: h}, "v": {1: h}}
+
+
+def slstm_cuts(H: int, group: TPGroup) -> Optional[dict]:
+    """The recurrent weights ``r`` and ``b`` by head; the input
+    projection ``w`` stays whole (its f32 product is cut after it: a
+    column slice of it rounds apart from the whole on the card)."""
+    if H % group.size:
+        return None
+    h = _span(H, group)
+    return {"r": {1: h}, "b": {1: h}}
+
+
+def _apply_cuts(mod: nn.Module, cuts: dict, p: int) -> None:
+    """Cut each of ``mod``'s leaves named in ``cuts`` that is not cut yet,
+    and mark ``mod`` sharded ``p`` ways."""
+    done = mod.__dict__.get("_tp_cut", set())
+    for name, cut in cuts.items():
+        if name.endswith(".scale"):
+            continue
+        leaf = getattr(mod, name, None)
+        if isinstance(leaf, QuantizedLinear):
+            if leaf.tp_size is None:
+                cut_quantized(leaf, cut, cuts.get(name + ".scale", {}), p)
+        elif isinstance(leaf, torch.Tensor) and name not in done:
+            _cut_param(mod, name, cut)
+    mod.tp_size = p
+
+
+BF16_MIXERS = ("mamba2", "mla", "mlstm", "slstm")
+
+
+def _layer_parts(model, group: TPGroup) -> list:
+    """(kind, module, cuts or None) for every layer part of ``model`` (an
+    LM or a DiT) that tensor parallelism may shard, the cuts from the
+    config's (whole) dimensions."""
+    cfg = model.cfg
+    if hasattr(model, "blocks"):                     # DiT: H = KH
+        return [part for block in model.blocks for part in (
+            ("attention", block.attn,
+             attention_cuts(cfg.n_heads, cfg.n_heads, group)),
+            ("mlp", block.mlp, mlp_cuts(cfg.d_ff, group)))]
+    parts = []
+    for block in model.layers:
+        mixer, ffn = block.spec
+        if mixer in ("attn", "attn_local"):
+            cuts = attention_cuts(cfg.n_heads, cfg.n_kv_heads, group)
+            parts.append(("attention", block.attn, cuts))
+        elif mixer == "mamba2":
+            parts.append(("mamba2", block.mamba,
+                          mamba_cuts(cfg.ssm, cfg.d_model, group)))
+        elif mixer == "mla":
+            parts.append(("mla", block.mla, mla_cuts(cfg.n_heads, group)))
+        elif mixer == "mlstm":
+            parts.append(("mlstm", block.mlstm,
+                          mlstm_cuts(cfg.xlstm.n_heads, group)))
+        elif mixer == "slstm":
+            parts.append(("slstm", block.slstm,
+                          slstm_cuts(cfg.xlstm.n_heads, group)))
+        if ffn == "moe":
+            parts.append(("experts", block.moe,
+                          expert_cuts(cfg.moe.n_routed_experts, group)))
+            if hasattr(block.moe, "shared"):
+                parts.append(("shared mlp", block.moe.shared,
+                              mlp_cuts(cfg.moe.shared_width, group)))
+        elif ffn == "dense":
+            parts.append(("mlp", block.mlp, mlp_cuts(cfg.d_ff, group)))
+    return parts
+
+
+def _quantized(kind: str, mod: nn.Module) -> bool:
+    names = ("qkv", "o") if kind == "attention" else ("up", "down")
+    return all(isinstance(getattr(mod, n, None), QuantizedLinear)
+               for n in names)
+
+
+def _sharded_ways(mod: nn.Module) -> Optional[int]:
+    """The group size ``mod`` was sharded for (its own mark, or its
+    quantized leaves'), None if whole."""
     ways = {w.tp_size for w in mod.children()
             if isinstance(w, QuantizedLinear) and w.tp_size is not None}
-    return ways.pop() if ways else None
+    return getattr(mod, "tp_size", None) or (ways.pop() if ways else None)
 
 
 def shard_model(model, group: TPGroup):
-    """Cut the quantized leaves of ``model`` to ``group.rank``'s shards,
-    in place; returns the model.  Modules already sharded for a group of
-    this size are left as they are (for another size: raises).  Each
-    layer kind that stays whole (not quantized, or a dimension that
-    ``group.size`` does not divide) is logged once.  A config with
-    ``qk_norm``, layernorm or a frontend is refused: its sharded path has
-    not been held against the unsharded one (ROADMAP A.3)."""
-    cfg = model.cfg
-    untested = [what for what, on in (
-        ("qk_norm", cfg.qk_norm), ("layernorm", cfg.norm == "layernorm"),
-        (f"the {cfg.frontend} frontend", cfg.frontend is not None)) if on]
-    if untested:
-        raise NotImplementedError(
-            f"tensor parallelism of {cfg.name}: {', '.join(untested)} "
-            f"not ported to the sharded path")
+    """Cut the leaves of ``model`` (an LM or a DiT) to ``group.rank``'s
+    shards, in place; returns the model.  Attention and the MLPs shard
+    once quantized (their bf16 forms stay whole); the bf16 mixers
+    (Mamba-2, MLA, mLSTM, sLSTM) shard by head.  Modules already sharded
+    for a group of this size are left as they are (for another size:
+    raises).  Each layer kind that stays whole (not quantized, or a
+    dimension that ``group.size`` does not divide) is logged once."""
     whole = set()
-    for block in model.layers:
-        if block.spec[0] not in ("attn", "attn_local"):
-            raise NotImplementedError(f"tensor parallelism: mixer "
-                                      f"{block.spec[0]!r} is not ported")
-        parts = [("attention", block.attn, _shard_attention)]
-        if block.spec[1] == "moe":
-            parts.append(("experts", block.moe, _shard_experts))
-            if hasattr(block.moe, "shared"):
-                parts.append(("shared mlp", block.moe.shared, _shard_mlp))
-        else:
-            parts.append(("mlp", block.mlp, _shard_mlp))
-        for kind, mod, shard in parts:
-            ways = _sharded_ways(mod)
-            if ways is None:
-                if not shard(mod, group):
-                    whole.add(kind)
-            elif ways != group.size:
+    for kind, mod, cuts in _layer_parts(model, group):
+        ways = _sharded_ways(mod)
+        if ways is not None:
+            if ways != group.size:
                 raise ValueError(f"{kind} is sharded {ways} ways, not "
                                  f"{group.size}")
+            continue
+        if cuts is None or (kind not in BF16_MIXERS
+                            and not _quantized(kind, mod)):
+            whole.add(kind)
+            continue
+        _apply_cuts(mod, cuts, group.size)
+        if kind == "attention":
+            mod.n_kv_heads = len(cuts["k"][1])
     for kind in sorted(whole):
         log.info("tensor parallelism over %d ranks: the %s stays whole "
                  "(not quantized, or a dimension %d does not divide)",
@@ -143,11 +277,151 @@ def shard_model(model, group: TPGroup):
     return model
 
 
+# ---------------------------------------------------------------------------
+# Drawing only a rank's shards
+# ---------------------------------------------------------------------------
+class _Drawer:
+    """The sink of :func:`repro_torch.models.layers.truncated_normal_`
+    while a meta model is drawn (:func:`draw_sharded`): each drawn leaf
+    is quantized where the plan covers its layer, cut by its layer's
+    cuts, and placed in its module."""
+
+    def __init__(self, model, group: TPGroup, plan, device):
+        self.group, self.device = group, device
+        self.drawn: set = set()
+        self.owners = {id(p): (mod, name) for mod in model.modules()
+                       for name, p in mod._parameters.items()
+                       if p is not None}
+        self.parts = {id(mod): (kind, cuts)
+                      for kind, mod, cuts in _layer_parts(model, group)}
+        # the module -> its quantized kind, as the plan's rewrite
+        # (quant/plan.py) would quantize it after a whole draw
+        self.quant: dict = {}
+        both = plan.covers("attn_qkv") and plan.covers("attn_out")
+        if hasattr(model, "blocks"):
+            for block in model.blocks:
+                if both:
+                    self.quant[id(block.attn)] = "attention"
+                if plan.covers("mlp"):
+                    self.quant[id(block.mlp)] = "mlp"
+                if plan.covers("adaln"):
+                    self.quant[id(block.adaln)] = "adaln"
+        else:
+            for block in model.layers:
+                kinds = covered_kinds(*block.spec)
+                if both and "attn_qkv" in kinds:
+                    self.quant[id(block.attn)] = "attention"
+                if "mlp" in kinds and plan.covers("mlp"):
+                    self.quant[id(block.mlp)] = "mlp"
+                if "moe_experts" in kinds and plan.covers("moe_experts"):
+                    self.quant[id(block.moe)] = "experts"
+                    if hasattr(block.moe, "shared"):
+                        self.quant[id(block.moe.shared)] = "mlp"
+        self.pieces: dict = {}      # id(attention) -> {"q"|"k"|"v": leaf}
+
+    def record(self, p, generator, scale) -> None:
+        self.drawn.add(id(p))
+
+    def place(self, p, generator, scale) -> None:
+        tmp = torch.empty(p.shape, dtype=torch.float32, device=self.device)
+        nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        w = tmp.mul_(scale).to(p.dtype)
+        del tmp
+        mod, name = self.owners[id(p)]
+        kind, cuts = self.parts.get(id(mod), (None, None))
+        quant = self.quant.get(id(mod))
+        if (quant == "experts" and name == "router") or (
+                quant == "adaln" and name != "kernel"):
+            quant = None
+        if quant is None:
+            if kind in BF16_MIXERS and cuts is not None and name in cuts:
+                w = _take(w, cuts[name])
+                mod.__dict__.setdefault("_tp_cut", set()).add(name)
+            setattr(mod, name, nn.Parameter(w, requires_grad=False))
+            return
+        delattr(mod, name)
+        if quant != "attention":
+            ql = quantize_linear(w)
+            if cuts is not None and name in cuts:
+                cut_quantized(ql, cuts[name], cuts[name + ".scale"],
+                              self.group.size)
+            setattr(mod, name, ql)
+            return
+        # attention: o as quantize_attention makes it; q, k and v each
+        # quantized alone (per-output-channel scales: a piece's columns
+        # are the fused leaf's), joined once all three are drawn
+        if name == "o":                          # [H, Dh, d]
+            flat = quantize_linear(w.reshape(-1, w.shape[-1]))
+            ql = QuantizedLinear(flat.q.reshape(w.shape), flat.scale)
+        else:                                    # [d, heads, Dh]
+            flat = quantize_linear(w.reshape(w.shape[0], -1))
+            ql = QuantizedLinear(flat.q.reshape(w.shape),
+                                 flat.scale.reshape(w.shape[1:]))
+        if cuts is not None:                     # scale [d] or [heads, Dh]
+            scale_cut = {} if name == "o" else {0: cuts[name][1]}
+            cut_quantized(ql, cuts[name], scale_cut, self.group.size)
+        if name == "o":
+            mod.o = ql
+            return
+        got = self.pieces.setdefault(id(mod), {})
+        got[name] = ql
+        if len(got) == 3:
+            self._join_qkv(mod, [got.pop(n) for n in ("q", "k", "v")], cuts)
+            del self.pieces[id(mod)]
+
+    def _join_qkv(self, attn, parts: list, cuts) -> None:
+        qkv = QuantizedLinear(torch.cat([g.q for g in parts], dim=1),
+                              torch.cat([g.scale for g in parts], dim=0))
+        if cuts is not None:
+            d, H, Dh = parts[0].tp_shape
+            qkv.tp_shape = (d, H + 2 * parts[1].tp_shape[1], Dh)
+            qkv.tp_index = (None, cuts["qkv"][1], None)
+            qkv.tp_size = self.group.size
+            attn.n_kv_heads = len(cuts["k"][1])
+        attn.qkv = qkv
+
+
+def draw_sharded(model, group: TPGroup, generator: torch.Generator,
+                 device, plan=None):
+    """Fill ``model`` (an LM or a DiT on the meta device) with the weights
+    its ``init`` draws from ``generator`` (on ``device``), holding only
+    ``group.rank``'s shards: every leaf is drawn whole in turn, in
+    ``init``'s order from the same generator, then quantized (where
+    ``plan``, default the full plan, covers its layer) and cut before the
+    next one is drawn, so the bits are the whole draw's slices and the
+    rank holds its shards plus one leaf's temporaries at most.  The
+    leaves ``init`` fills without drawing (norms, biases, Mamba-2's
+    ``a_log``) are allocated first and cut at the end by
+    :func:`shard_model`.  Returns the model."""
+    from repro_torch.models import layers
+    if any(not t.is_meta for t in model.parameters()):
+        raise ValueError("draw_sharded: the model must be on the meta "
+                         "device")
+    plan = FULL_INT8 if plan is None else plan
+    drawer = _Drawer(model, group, plan, device)
+    with layers.leaf_sink(drawer.record):       # which leaves are drawn
+        model.draw_(generator)
+    for mod in model.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None and id(p) not in drawer.drawn:
+                setattr(mod, name, nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device=device),
+                    requires_grad=False))
+    with layers.leaf_sink(drawer.place):
+        model.draw_(generator)
+    if drawer.pieces:
+        raise RuntimeError("draw_sharded: an attention layer's q, k and v "
+                           "were not all drawn")
+    model.quantize(plan)
+    return shard_model(model, group)
+
+
 def build_in_turns(group: TPGroup, build: Callable):
     """Run ``build()`` on one rank at a time, with a barrier between
     turns, and return its result: ranks that share one card then never
-    hold two full-precision copies of a model at once.  ``build`` should
-    leave only its result on the device."""
+    draw at once (each rank's draw holds one leaf's f32 temporary beside
+    its shards).  ``build`` should leave only its result on the
+    device."""
     out = None
     for turn in range(group.size):
         if group.rank == turn:

@@ -28,8 +28,17 @@ is the same pipeline on gated launches that leave at once when the flag
 says the screen passed, writing the output in place only when it
 tripped: a healthy step pays the screen and the gated launches, never a
 second GEMM and never a host sync.  The plain oracle
-(``use_kernel=False``) screens on the host.  Under tensor parallelism
-degraded mode raises (ROADMAP A.3).
+(``use_kernel=False``) screens on the host.
+
+Degraded mode under tensor parallelism: every rank takes the branch of
+the whole output's screen, as the reference screens the global output
+under its mesh.  A column shard (QKV, a rank's experts) max-reduces its
+flag over the ranks and falls back on its own shard; a row-parallel
+output (the out-projection, the MLP's down) is whole on every rank, and
+its fallback sums the ranks' sanitized int32 partials (kernel 6 gated)
+before the sanitized epilogue (``quant/tp.py``); the fallback's
+collectives run whatever the flag says, as no rank reads it on the
+host.
 """
 from __future__ import annotations
 
@@ -51,7 +60,9 @@ class QuantizedLinear(nn.Module):
     out-projection); ``scale`` matches the output-channel axes.  Apply
     sites flatten to 2D.  ``tp_size`` is the number of ranks the leaf
     was sharded over (:func:`~repro_torch.parallel.sharding.shard_model`),
-    None for a whole leaf.
+    None for a whole leaf; a shard also records the whole leaf's
+    ``tp_shape`` and, per axis of ``q``, the whole leaf's indices it
+    holds (``tp_index``, None for an axis held whole).
     """
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor):
@@ -59,6 +70,8 @@ class QuantizedLinear(nn.Module):
         self.register_buffer("q", q)            # int8
         self.register_buffer("scale", scale)    # f32
         self.tp_size: int | None = None
+        self.tp_shape: tuple | None = None
+        self.tp_index: tuple | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -144,24 +157,31 @@ def _san(a: torch.Tensor | None) -> torch.Tensor | None:
                                                    neginf=0.0)
 
 
-def _screen(out: torch.Tensor, use_kernel: bool, gated, plain
-            ) -> torch.Tensor:
+def _screen(out: torch.Tensor, use_kernel: bool, gated, plain,
+            shard_of=None) -> torch.Tensor:
     """Finite screen + fallback when degraded mode is active.  On the
     pipeline ``gated(flag, out)`` runs the layer's gated launches into
     ``out`` (they do nothing when the screen passed); the plain oracle
-    checks on the host and returns ``plain()`` when the screen trips."""
+    checks on the host and returns ``plain()`` when the screen trips.
+
+    ``shard_of``: the tensor-parallel group of which ``out`` is this
+    rank's column shard; its flag is max-reduced over the ranks (one
+    MAX), so every rank takes the branch of the whole output's screen,
+    as the reference screens the global output.  A row-parallel output
+    is whole and alike on every rank: its flag needs no collective."""
     if not _DEGRADED_MODE:
         return out
     if use_kernel:
-        gated(kops.finite_screen(out), out)
+        flag = kops.finite_screen(out)
+        if shard_of is not None:
+            shard_of.all_reduce_max(flag)
+        gated(flag, out)
         return out
-    return out if bool(torch.isfinite(out).all()) else plain()
-
-
-def _no_tp_degraded(group) -> None:
-    if group is not None and _DEGRADED_MODE:
-        raise NotImplementedError("degraded mode under tensor parallelism "
-                                  "is not ported yet (ROADMAP A.3)")
+    tripped = torch.isfinite(out).all().logical_not().to(
+        torch.int32).reshape(1)
+    if shard_of is not None:
+        shard_of.all_reduce_max(tripped)
+    return plain() if bool(tripped) else out
 
 
 def _canon_activation(activation: str | None) -> str | None:
@@ -249,7 +269,6 @@ def quantized_mlp_apply(mlp: nn.Module, x: torch.Tensor, activation: str,
                                                         residual.shape[-1])
     gate = getattr(mlp, "gate", None)
     group = _tp_group_for(mlp.up)
-    _no_tp_degraded(group)
 
     def pipeline(**kw):
         return kops.cim_quantized_mlp(
@@ -259,9 +278,16 @@ def quantized_mlp_apply(mlp: nn.Module, x: torch.Tensor, activation: str,
             residual=r2, activation=act, **kw)
     if group is not None:
         # up/gate column-parallel, down row-parallel with the int32 sum
-        # before the residual epilogue (quant/tp.py)
+        # before the residual epilogue (quant/tp.py); the output is whole
+        # on every rank, and so is the fallback's
         out = _tp.mlp(group, x2, mlp, act, use_kernel, residual=r2)
-    elif use_kernel:
+        out = _screen(out, use_kernel,
+                      lambda flag, o: _tp.mlp_fallback(group, flag, x2, mlp,
+                                                       act, r2, o),
+                      lambda: _tp.mlp(group, _san(x2), _sanitized(mlp), act,
+                                      False, residual=_san(r2)))
+        return out.reshape(*lead, -1).to(x.dtype)
+    if use_kernel:
         out = pipeline()
     else:
         out = kref.quantized_mlp_ref(x2, _expert_qtree(mlp), act,
@@ -273,6 +299,15 @@ def quantized_mlp_apply(mlp: nn.Module, x: torch.Tensor, activation: str,
                                  in _expert_qtree(mlp).items()}, act,
                       residual=_san(r2)))
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+def _sanitized(mlp: nn.Module) -> nn.Module:
+    """The MLP's leaves with their scales read through nan_to_num (the
+    int8 weights are finite): the plain fallback's operands."""
+    out = nn.Module()
+    for k, (q, s) in _expert_qtree(mlp).items():
+        setattr(out, k, QuantizedLinear(q, _san(s)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -312,10 +347,17 @@ def quantized_qkv_proj(qkv: QuantizedLinear, x: torch.Tensor,
     d, HK, Dh = qkv.q.shape
     w_q, w_s = qkv.q.reshape(d, HK * Dh), qkv.scale.reshape(HK * Dh)
     group = _tp_group_for(qkv)
-    _no_tp_degraded(group)
     if group is not None:
-        wide = _tp.matmul_column(group, x.reshape(-1, d), w_q, w_s,
-                                 _resolve_use_kernel(use_kernel))
+        use_kernel = _resolve_use_kernel(use_kernel)
+        x2 = x.reshape(-1, d)
+        wide = _tp.matmul_column(group, x2, w_q, w_s, use_kernel)
+        # a column shard: the unsharded site's fallback on its columns
+        wide = _screen(wide, use_kernel,
+                       lambda flag, o: kops.cim_quantized_matmul_fused(
+                           x2, w_q, w_s, gate=flag, out=o),
+                       lambda: kref.fused_matmul_ref(_san(x2), w_q,
+                                                     _san(w_s)),
+                       shard_of=group)
     else:
         wide = _matmul(x, w_q, w_s, use_kernel, None)
     return wide.reshape(*x.shape[:-1], HK, Dh)
@@ -332,17 +374,20 @@ def quantized_out_proj(o: QuantizedLinear, attn_out: torch.Tensor,
     dequant/residual epilogue, bitwise the unsharded pipeline."""
     H, Dh, d = o.q.shape
     x2 = attn_out.reshape(*attn_out.shape[:-2], H * Dh)
+    w_q = o.q.reshape(H * Dh, d)
     group = _tp_group_for(o)
-    _no_tp_degraded(group)
     if group is None:
-        return _matmul(x2, o.q.reshape(H * Dh, d), o.scale, use_kernel,
-                       residual)
+        return _matmul(x2, w_q, o.scale, use_kernel, residual)
     lead = x2.shape[:-1]
-    out = _tp.matmul_row(group, x2.reshape(-1, H * Dh),
-                         o.q.reshape(H * Dh, d), o.scale,
-                         _resolve_use_kernel(use_kernel),
-                         residual=None if residual is None
-                         else residual.reshape(-1, d))
+    use_kernel = _resolve_use_kernel(use_kernel)
+    x2 = x2.reshape(-1, H * Dh)
+    r2 = None if residual is None else residual.reshape(-1, d)
+    out = _tp.matmul_row(group, x2, w_q, o.scale, use_kernel, residual=r2)
+    out = _screen(out, use_kernel,
+                  lambda flag, y: _tp.row_fallback(group, flag, x2, w_q,
+                                                   o.scale, r2, y),
+                  lambda: _tp.matmul_row(group, _san(x2), w_q, _san(o.scale),
+                                         False, residual=_san(r2)))
     return out.reshape(*lead, d)
 
 
@@ -381,14 +426,15 @@ def quantized_moe_apply(moe: nn.Module, x: torch.Tensor, activation: str,
     the router's tally) is the skip list: experts that received no tokens
     stream no weights, with the same bits.  ``use_kernel=False`` runs
     the plain grouped oracle.  A rank's shard of the expert stacks runs
-    expert-parallel (:func:`repro_torch.quant.tp.grouped_moe`)."""
+    expert-parallel: the same pipeline (and screen, its flag max-reduced
+    over the ranks) on the rank's experts' rows, then one all-gather of
+    the outputs in x's dtype."""
     act = _canon_activation(activation)
     group = _tp_group_for(moe.up)
-    _no_tp_degraded(group)
     use_kernel = _resolve_use_kernel(use_kernel)
+    dtype = x.dtype
     if group is not None:
-        return _tp.grouped_moe(group, x, moe, act, use_kernel,
-                               expert_counts=expert_counts)
+        x, expert_counts = _tp.expert_rows(group, x, moe, expert_counts)
     gate = getattr(moe, "gate", None)
 
     def pipeline(**kw):
@@ -407,8 +453,10 @@ def quantized_moe_apply(moe: nn.Module, x: torch.Tensor, activation: str,
                   lambda flag, o: pipeline(gate=flag, out=o),
                   lambda: kref.grouped_quantized_mlp_ref(
                       _san(x), {k: (q, _san(s)) for k, (q, s)
-                                in _expert_qtree(moe).items()}, act))
-    return out.to(x.dtype)
+                                in _expert_qtree(moe).items()}, act),
+                  shard_of=group)
+    out = out.to(dtype)
+    return out if group is None else group.all_gather(out)
 
 
 def quantized_moe_apply_looped(moe: nn.Module, x: torch.Tensor,

@@ -27,17 +27,33 @@ collectives the partition allows:
     expert-parallel (grouped MoE pipeline)
         The expert stacks are sharded on the expert axis; each rank runs
         the grouped pipeline on its E/p experts and its slice of the
-        skip list, and one all-gather in x's dtype returns every
-        expert's output to every rank.
+        skip list (:func:`expert_rows`, in
+        :func:`repro_torch.quant.linear.quantized_moe_apply`), and one
+        all-gather in x's dtype returns every expert's output to every
+        rank.
 
     head-parallel decode
         Each rank attends its own q heads over the KV heads it holds (its
         shard, or all of them for an MQA head).  Every head's softmax is
         independent: no collective.
 
+    head-parallel bf16 mixers (MLA, Mamba-2, mLSTM, sLSTM)
+        Each rank runs its heads; :func:`gather_heads` makes their
+        outputs whole on every rank (one all-gather) before the whole
+        out-projection, so the mixer computes the unsharded one's values.
+
+    degraded mode
+        A column shard's screen flag is max-reduced over the ranks (in
+        ``quant/linear.py``); a row-parallel output is whole on every
+        rank, and its fallback (:func:`row_fallback`,
+        :func:`mlp_fallback`) sums the ranks' sanitized int32 partials
+        (kernel 6's gated form) before the sanitized epilogue.
+
 Per layer and forward a dense block makes 2 MAX and 2 SUM reductions, an
-MoE block one gather more.  ``use_kernel`` picks the kernels or their
-plain versions, as elsewhere in ``quant``.
+MoE block one gather more, a bf16 mixer one gather; degraded mode adds a
+MAX for the QKV flag and a MAX + SUM for each row-parallel fallback.
+``use_kernel`` picks the kernels or their plain versions, as elsewhere in
+``quant``.
 """
 from __future__ import annotations
 
@@ -47,8 +63,37 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.parallel.context import TPGroup, tp_group
 
-__all__ = ["tp_group", "matmul_column", "matmul_row", "mlp", "grouped_moe",
-           "decode_attn", "decode_attn_paged"]
+__all__ = ["tp_group", "group_of", "gather_heads", "matmul_column",
+           "matmul_row", "mlp", "expert_rows", "decode_attn",
+           "decode_attn_paged"]
+
+
+def group_of(mod) -> TPGroup | None:
+    """The current TP group if ``mod`` (a bf16 mixer) holds a rank's
+    heads, None for a whole module.  A shard outside a group of its size
+    raises: its layer cannot run alone."""
+    ways = getattr(mod, "tp_size", None)
+    if ways is None:
+        return None
+    group = tp_group()
+    if group is None or group.size != ways:
+        raise RuntimeError(
+            f"a mixer sharded {ways} ways needs a tensor-parallel group of "
+            f"that size current (tp_context), got "
+            f"{None if group is None else group.size}")
+    return group
+
+
+def gather_heads(group: TPGroup, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' head blocks of ``t`` on axis ``dim`` concatenated in
+    rank order (one all-gather): a bf16 mixer's heads' outputs, whole on
+    every rank before its whole out-projection, so the sharded mixer
+    computes the unsharded one's function.  Returned contiguous: the
+    products that follow then take the unsharded operand's layout (a
+    transposed one makes cuBLAS take another algorithm, and round
+    apart)."""
+    whole = group.all_gather(t.movedim(dim, 0).contiguous())
+    return whole.movedim(0, dim).contiguous()
 
 
 def _global_rowquant(group: TPGroup, x: torch.Tensor
@@ -56,9 +101,13 @@ def _global_rowquant(group: TPGroup, x: torch.Tensor
     """Row absmax int8 quantization with the absmax max-reduced over the
     ranks: every rank quantizes its input-channel slice with the global
     row scale, so ``q`` is the unsharded quantization's slice bit for bit
-    (max is exact; the scalar chain is ``quantize_rows_int8``'s)."""
+    (max is exact; the scalar chain is ``quantize_rows_int8``'s).  A NaN
+    absmax enters the reduction as +inf, so a non-finite slice on any
+    rank leaves every rank's output non-finite (a MAX need not order
+    NaN), as the unsharded row's would be, and the screens trip alike."""
     x32 = x.float()
     amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    amax = torch.nan_to_num(amax, nan=float("inf"))
     amax = group.all_reduce_max(amax) + 1e-12
     scale = kref.div(amax, 127.0)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
@@ -74,14 +123,27 @@ def matmul_column(group: TPGroup, x2: torch.Tensor, w_q: torch.Tensor,
     return kref.fused_matmul_ref(x2, w_q, w_scale)
 
 
-def _row_epilogue(group, x_q, x_s, w_q, w_scale, use_kernel, residual):
-    acc = (kops.cim_int8_gemm_acc(x_q, w_q) if use_kernel
+def _row_epilogue(group, x_q, x_s, w_q, w_scale, use_kernel, residual,
+                  gate=None):
+    acc = (kops.cim_int8_gemm_acc(x_q, w_q, gate=gate) if use_kernel
            else kref.cim_gemm_int8_ref(x_q, w_q))
     acc = group.all_reduce_sum(acc)
     out = acc.float() * x_s * w_scale[None, :]
     if residual is not None:
         out = out + residual.float()
     return out
+
+
+def _san(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else torch.nan_to_num(t, nan=0.0, posinf=0.0,
+                                                   neginf=0.0)
+
+
+def _write_if(flag: torch.Tensor, new: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """``out`` replaced by ``new`` in place where the screen's ``flag`` is
+    set, without reading the flag on the host."""
+    return out.copy_(torch.where(flag.bool(), new, out))
 
 
 def matmul_row(group: TPGroup, x2: torch.Tensor, w_q: torch.Tensor,
@@ -93,6 +155,45 @@ def matmul_row(group: TPGroup, x2: torch.Tensor, w_q: torch.Tensor,
     x_q, x_s = _global_rowquant(group, x2)
     return _row_epilogue(group, x_q, x_s, w_q, w_scale, use_kernel,
                          residual)
+
+
+def row_fallback(group: TPGroup, flag: torch.Tensor, x2: torch.Tensor,
+                 w_q: torch.Tensor, w_scale: torch.Tensor,
+                 residual: torch.Tensor | None,
+                 out: torch.Tensor) -> torch.Tensor:
+    """The degraded fallback of a row-parallel site (its output, on every
+    rank alike, screened to ``flag``): the global row quantization of
+    nan_to_num(x), kernel 6's gated partial, the int32 sum over the
+    ranks, the epilogue on sanitized scales and residual, written into
+    ``out`` where the flag is set.  The ranks' collectives run whatever
+    the flag says (no rank reads it on the host): 1 MAX + 1 SUM more a
+    site and forward.  Bitwise the unsharded fallback's output."""
+    x_q, x_s = _global_rowquant(group, _san(x2))
+    return _write_if(flag, _row_epilogue(group, x_q, x_s, w_q, _san(w_scale),
+                                         True, _san(residual), gate=flag),
+                     out)
+
+
+def mlp_fallback(group: TPGroup, flag: torch.Tensor, x2: torch.Tensor,
+                 mlp_mod, activation: str, residual: torch.Tensor | None,
+                 out: torch.Tensor) -> torch.Tensor:
+    """The degraded fallback of the tensor-parallel MLP (its output, alike
+    on every rank, screened to ``flag``): the gated row quantize and
+    gated column front on sanitized operands, the hidden state's global
+    row quantization of nan_to_num(h), then :func:`row_fallback`'s down
+    projection; 1 MAX + 1 SUM more a forward."""
+    up, down = mlp_mod.up, mlp_mod.down
+    gate = getattr(mlp_mod, "gate", None)
+    x_q, x_s = kops.quantize_rows_int8(x2.contiguous(), gate=flag)
+    h = kops.cim_hidden_int8(
+        x_q, x_s, up.q, up.scale,
+        gate_q=None if gate is None else gate.q,
+        gate_scale=None if gate is None else gate.scale,
+        activation=activation, gate=flag)
+    h_q, h_s = _global_rowquant(group, _san(h))
+    return _write_if(flag, _row_epilogue(group, h_q, h_s, down.q,
+                                         _san(down.scale), True,
+                                         _san(residual), gate=flag), out)
 
 
 def mlp(group: TPGroup, x2: torch.Tensor, mlp_mod, activation: str,
@@ -122,31 +223,13 @@ def mlp(group: TPGroup, x2: torch.Tensor, mlp_mod, activation: str,
                          residual)
 
 
-def grouped_moe(group: TPGroup, x: torch.Tensor, moe, activation: str,
-                use_kernel: bool,
-                expert_counts: torch.Tensor | None = None) -> torch.Tensor:
-    """Expert-parallel grouped MoE pipeline: x [E, T, d] (every expert's
-    capacity rows, replicated) -> [E, T, d] in x's dtype on every rank.
-    ``moe`` holds this rank's E/p expert stacks; the rank runs them on
-    its slice of x and of the skip list ``expert_counts``, and one
-    all-gather of the outputs in x's dtype follows."""
+def expert_rows(group: TPGroup, x: torch.Tensor, moe,
+                expert_counts: torch.Tensor | None):
+    """This rank's slice of the experts' capacity rows x [E, T, d] and of
+    the skip list: the rows of the E/p experts whose stacks it holds."""
     n = moe.up.q.shape[0]
     mine = slice(group.rank * n, (group.rank + 1) * n)
-    xl = x[mine]
-    counts = None if expert_counts is None else expert_counts[mine]
-    gate = getattr(moe, "gate", None)
-    if use_kernel:
-        out = kops.cim_quantized_grouped_mlp(
-            xl, moe.up.q, moe.up.scale, moe.down.q, moe.down.scale,
-            gate_q=None if gate is None else gate.q,
-            gate_scale=None if gate is None else gate.scale,
-            expert_counts=counts, activation=activation)
-    else:
-        qtree = {k: (getattr(moe, k).q, getattr(moe, k).scale)
-                 for k in ("up", "gate", "down")
-                 if getattr(moe, k, None) is not None}
-        out = kref.grouped_quantized_mlp_ref(xl, qtree, activation)
-    return group.all_gather(out.to(x.dtype))
+    return x[mine], None if expert_counts is None else expert_counts[mine]
 
 
 def decode_attn(q, k, v, pos, q_pos, k_scale=None, v_scale=None, *,

@@ -37,9 +37,10 @@ Mitigations modeled alongside:
 """
 from __future__ import annotations
 
+import math
 import zlib
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -98,8 +99,8 @@ class FaultReport:
 # ---------------------------------------------------------------------------
 # Single-tensor injection
 # ---------------------------------------------------------------------------
-def inject_int8(q: np.ndarray, cfg: FaultConfig,
-                rng: np.random.Generator) -> tuple[np.ndarray, int]:
+def inject_int8(q: np.ndarray, cfg: FaultConfig, rng: np.random.Generator,
+                shard: Optional["Shard"] = None) -> tuple[np.ndarray, int]:
     """Inject ``cfg`` faults into one int8 tensor; returns (copy, count).
 
     Bit-level kinds draw the fault count from Binomial(bits, ber) and
@@ -111,63 +112,121 @@ def inject_int8(q: np.ndarray, cfg: FaultConfig,
     stream), carves it into ``tile_k``-row x single-column macro cells,
     and zeroes whole cells with probability ``ber`` each: one dead
     bit-line takes out one output channel within one resident macro.
+
+    With ``shard``, ``q`` int8 [L, ...] is a tensor-parallel rank's part
+    of a stacked leaf and ``shard`` its place in the whole one: the
+    draws are the whole leaf's and the rank keeps the faults that land
+    in its part, so each fault lands on every rank that holds its
+    weight; the count returned is the whole leaf's.
     """
     if q.dtype != np.int8:
         raise TypeError(f"expected int8 weights, got {q.dtype}")
-    out = np.array(q, copy=True)
+    out = np.array(q, copy=True, order="C")
     if cfg.ber <= 0.0 or out.size == 0:
         return out, 0
+    whole, held = _placement(out.shape, shard)
+    flat = out.reshape(-1)
 
     if cfg.kind == "column_kill":
-        cols = out.shape[-1]
-        rows = out.size // cols
-        q2 = out.reshape(rows, cols)
+        cols = whole[-1]
+        rows = math.prod(whole) // cols
         n_slabs = -(-rows // cfg.tile_k)              # ceil
         kill = rng.random((n_slabs, cols)) < cfg.ber  # per macro cell
         killed = 0
         for s, j in zip(*np.nonzero(kill)):
             lo = s * cfg.tile_k
             hi = min(lo + cfg.tile_k, rows)
-            q2[lo:hi, j] = 0
+            _, at = held(np.arange(lo, hi) * cols + j)
+            flat[at] = 0
             killed += hi - lo
         return out, killed
 
-    flat = out.reshape(-1).view(np.uint8)
-    n_bits = flat.size * 8
+    n_bits = math.prod(whole) * 8
     k = int(rng.binomial(n_bits, cfg.ber))
     if k == 0:
         return out, 0
     pos = rng.choice(n_bits, size=k, replace=False)
-    byte_idx = pos // 8
-    mask = (np.uint8(1) << (pos % 8).astype(np.uint8))
+    keep, byte_idx = held(pos // 8)
+    mask = (np.uint8(1) << (pos[keep] % 8).astype(np.uint8))
+    bits = flat.view(np.uint8)
     if cfg.kind == "bit_flip":
-        np.bitwise_xor.at(flat, byte_idx, mask)
+        np.bitwise_xor.at(bits, byte_idx, mask)
     elif cfg.kind == "stuck_at_0":
-        np.bitwise_and.at(flat, byte_idx, np.uint8(0xFF) ^ mask)
+        np.bitwise_and.at(bits, byte_idx, np.uint8(0xFF) ^ mask)
     else:  # stuck_at_1
-        np.bitwise_or.at(flat, byte_idx, mask)
+        np.bitwise_or.at(bits, byte_idx, mask)
     return out, k
+
+
+def _placement(shape: tuple, shard: Optional["Shard"]):
+    """(the whole tensor's shape, ``held``): ``held(i)`` maps flat places
+    ``i`` of the whole tensor to (which of them the part ``shape``
+    holds, their flat places in it).  Without ``shard`` the part is the
+    whole tensor."""
+    if shard is None:
+        return shape, lambda i: (slice(None), i)
+    whole = (shape[0],) + tuple(shard.shape)
+    local = []                     # per axis: whole index -> held (-1: no)
+    for n, idx in zip(whole, (None,) + tuple(shard.index)):
+        if idx is None:
+            local.append(None)
+        else:
+            m = np.full(n, -1, np.int64)
+            m[idx] = np.arange(len(idx))
+            local.append(m)
+
+    def held(i):
+        keep = np.ones(len(i), bool)
+        at = []
+        for g, m in zip(np.unravel_index(i, whole), local):
+            a = g if m is None else m[g]
+            keep &= a >= 0
+            at.append(a)
+        return keep, np.ravel_multi_index(tuple(a[keep] for a in at), shape)
+    return whole, held
 
 
 # ---------------------------------------------------------------------------
 # The model's stacked leaves
 # ---------------------------------------------------------------------------
+class Shard(NamedTuple):
+    """Where a tensor-parallel rank's stacked leaf lies in the whole one:
+    the whole per-layer ``q`` shape and, per axis, the whole leaf's
+    indices the rank holds (None: the axis is held whole)."""
+
+    shape: tuple
+    index: tuple
+
+
 class Leaf(NamedTuple):
     """One stacked quantized leaf on the host: ``q`` int8 [L, ...] and
-    ``scale`` f32 [L, ...], layer j being the j-th module of its path."""
+    ``scale`` f32 [L, ...], layer j being the j-th module of its path;
+    ``shard`` when it is a tensor-parallel rank's part of the leaf."""
 
     q: np.ndarray
     scale: np.ndarray
+    shard: Optional[Shard] = None
+
+
+def _shard_of(mods) -> Optional[Shard]:
+    first = mods[0]
+    if first.tp_index is None:
+        return None
+    return Shard(tuple(first.tp_shape), tuple(
+        None if i is None else i.cpu().numpy() for i in first.tp_index))
 
 
 def quantized_leaves(model) -> dict[str, Leaf]:
     """The reference's path -> the stacked host copy of the model's
     quantized leaves under it (:func:`repro_torch.convert.quantized_paths`),
     in the reference's shapes: qkv q [L, d, H + 2 KH, Dh], o q [L, H, Dh,
-    d], MoE expert stacks q [L, E, K, N] with scale [L, E, N]."""
+    d], MoE expert stacks q [L, E, K, N] with scale [L, E, N].  On a
+    tensor-parallel rank each leaf is the rank's shard, with its place in
+    the whole leaf (``shard``)."""
     from repro_torch.convert import quantized_paths
     return {path: Leaf(np.stack([m.q.cpu().numpy() for m in mods]),
-                       np.stack([m.scale.cpu().numpy() for m in mods]))
+                       np.stack([m.scale.cpu().numpy() for m in mods]),
+                       _shard_of(mods))
             for path, mods in quantized_paths(model).items()}
 
 
@@ -205,17 +264,23 @@ def inject_tree(leaves: dict[str, Leaf],
     Only the int8 resident-weight tensors are touched — scales pass
     through unchanged.  Returns new leaves (the inputs are not modified)
     plus a :class:`FaultReport`, both equal to the reference's
-    ``inject_tree`` on the same stacked tree."""
+    ``inject_tree`` on the same stacked tree; a tensor-parallel rank's
+    leaves take the whole tree's faults that fall in its shards
+    (``shard`` of :func:`inject_int8`), and its report is the whole
+    tree's."""
     report = FaultReport(kind=cfg.kind, ber=cfg.ber, seed=cfg.seed)
     out = {}
     for path, leaf in leaves.items():
-        faulted, n = inject_int8(leaf.q, cfg, _leaf_rng(path, cfg))
+        faulted, n = inject_int8(leaf.q, cfg, _leaf_rng(path, cfg),
+                                 leaf.shard)
+        size = (leaf.q.size if leaf.shard is None
+                else leaf.q.shape[0] * math.prod(leaf.shard.shape))
         report.leaves += 1
-        report.total_bits += leaf.q.size * 8
+        report.total_bits += size * 8
         if n:
             report.faults += n
             report.per_leaf[path] = n
-        out[path] = Leaf(faulted, leaf.scale)
+        out[path] = Leaf(faulted, leaf.scale, leaf.shard)
     return out, report
 
 
@@ -232,6 +297,10 @@ def protect_tree(clean: dict[str, Leaf], faulted: dict[str, Leaf],
     experts)."""
     if not 0.0 <= fraction <= 1.0:
         raise ValueError(f"fraction must be in [0, 1], got {fraction}")
+    if fraction and any(f.shard is not None for f in faulted.values()):
+        raise NotImplementedError(
+            "protect_tree ranks the output channels by the whole leaf's "
+            "scales, which a tensor-parallel rank's shard does not hold")
     out = {}
     for path, f in faulted.items():
         c = clean[path]
@@ -248,7 +317,7 @@ def protect_tree(clean: dict[str, Leaf], faulted: dict[str, Leaf],
         chans = np.argsort(score)[-n_protect:]
         q = np.array(f.q, copy=True)
         q[..., chans] = c.q[..., chans]
-        out[path] = Leaf(q, f.scale)
+        out[path] = Leaf(q, f.scale, f.shard)
     return out
 
 

@@ -97,13 +97,17 @@ class ServingEngine:
         become int8) and, when it covers ``attn_kv``, the KV cache is
         stored int8.
 
-        * ``tp`` — this rank's tensor-parallel group: the quantized
-          leaves are cut to the rank's shards in place
+        * ``tp`` — this rank's tensor-parallel group: the model's leaves
+          are cut to the rank's shards in place
           (:func:`~repro_torch.parallel.sharding.shard_model`, a
-          ``quant_plan`` is required), the KV cache holds the rank's KV
-          heads, and every forward runs under the group.  Each rank
-          drives its own engine with the same requests; deadlines are
-          decided by rank 0's clock (:meth:`_expired`).
+          ``quant_plan`` is required), the caches hold the rank's heads,
+          and every forward runs under the group.  Each rank drives its
+          own engine with the same requests; deadlines are decided by
+          rank 0's clock (:meth:`_expired`).  ``degraded`` screens the
+          whole output of each layer (a column shard's flag max-reduced
+          over the ranks), and a ``fault_hook`` sees the same logits on
+          every rank (the chaos harness's weight faults land on the
+          ranks that hold the faulted weights).
 
         * ``max_queue`` — bounded admission queue; when full, ``submit``
           returns ``RequestStatus.REJECTED``.
@@ -125,9 +129,6 @@ class ServingEngine:
           not None`` test, so an engine without it runs the code it ran
           before (bitwise the same tokens and launches); the hooks read
           host values only, adding no device sync.
-
-        ``degraded`` and ``fault_hook`` are not ported under ``tp`` yet
-        (ROADMAP A.3) and raise ``NotImplementedError`` there.
         """
         if model.cfg.frontend == "audio":
             raise ValueError(f"{model.cfg.name}: an audio-frontend arch "
@@ -138,10 +139,6 @@ class ServingEngine:
         if tp is not None and quant_plan is None:
             raise ValueError("tensor parallelism runs the INT8 plan: pass "
                              "a quant_plan with tp")
-        if tp is not None and (degraded or fault_hook is not None):
-            raise NotImplementedError("degraded mode and fault hooks under "
-                                      "tensor parallelism are not ported yet "
-                                      "(ROADMAP A.3)")
         if quant_plan is not None:
             model.quantize(quant_plan)
         if tp is not None:

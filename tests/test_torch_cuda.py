@@ -1018,9 +1018,11 @@ def test_cim_gemm_int8_exact(dev, M, K, N):
     x = _t(rng.integers(-127, 128, (M, K)).astype(np.int8), dev)
     w = _t(rng.integers(-127, 128, (K, N)).astype(np.int8), dev)
     before = cg.cim_gemm_int8.launches
+    gated = cg.cim_gemm_int8.gated_launches
     out = cg.cim_gemm_int8(x, w)
     torch.cuda.synchronize()
     assert cg.cim_gemm_int8.launches == before + 1
+    assert cg.cim_gemm_int8.gated_launches == gated
     assert out.dtype == torch.int32 and out.shape == (M, N)
     assert torch.equal(out, cg.cim_gemm_int8_plain(x, w))
 
@@ -1290,6 +1292,68 @@ def _tp_rank_on_card(group, seed):
                 row=bool(torch.equal(tp_row, whole_row)),
                 k6=cg.cim_gemm_int8.launches - before,
                 collectives=dict(group.counts))
+
+
+def _tp_degraded_rank_on_card(group, seed):
+    """One of 2 gloo ranks on the one card: gemma3-4b-smoke drawn into
+    this rank's shards (KV heads too), one decode step with degraded
+    mode under CUDA's sync debug mode "error" (the screens, the MAX of a
+    column shard's flag, the gated fallbacks, kernel 6's gated partials
+    and the fallbacks' sums: no host sync but gloo's own staging
+    copies), bitwise the step without the mode; then a NaN in rank 1's
+    QKV columns: every rank's logits finite and alike."""
+    import hashlib
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import Model
+    from repro_torch.parallel.context import rank_device, tp_context
+    from repro_torch.quant import QuantPlan, degraded_mode
+    dev = rank_device("cuda", "gloo", group.rank)
+    cfg = reduced_config(get_config("gemma3-4b"))
+    model = Model(cfg).init(seed, device=dev, tp=group,
+                            plan=QuantPlan.full())
+    rng = _gen(seed)
+    toks = _t(rng.integers(0, cfg.vocab, (4, 12)).astype(np.int64), dev)
+    lengths = _t(np.array([12, 9, 5, 1], np.int32), dev)
+
+    def step(degraded):
+        caches = model.init_cache(4, 64, kv_dtype="int8")
+        with torch.no_grad(), tp_context(group):
+            a = model.prefill_padded(toks, caches, lengths)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with degraded_mode(degraded):
+                    b = model.decode_step(a.argmax(-1), caches)
+                synced = None
+            except RuntimeError as e:
+                b, synced = None, str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return b, synced
+    step(True)                        # the screen's workspace, made once
+    healthy, synced_off = step(False)
+    degraded, synced_on = step(True)
+    qkv = model.layers[1].attn.qkv
+    if group.rank == 1:
+        with torch.no_grad():
+            qkv.scale[0, 3] = float("nan")
+    tripped, _ = step(True)
+    torch.cuda.synchronize()
+    return dict(synced=(synced_off, synced_on),
+                bitwise=bool(torch.equal(healthy, degraded)),
+                finite=bool(torch.isfinite(tripped).all()),
+                digest=hashlib.sha256(tripped.cpu().numpy().tobytes())
+                .hexdigest())
+
+
+def test_tp_degraded_step_no_host_sync(dev):
+    from repro_torch.parallel.context import spawn
+    outs = spawn(_tp_degraded_rank_on_card, 2, args=(34,), backend="gloo",
+                 timeout_s=300)
+    for out in outs:
+        assert out["synced"] == (None, None), out["synced"]
+        assert out["bitwise"] and out["finite"]
+    assert outs[0]["digest"] == outs[1]["digest"]
 
 
 def test_tp_two_ranks_on_one_card_bitwise(dev):
@@ -2687,7 +2751,8 @@ def _sentinel(shape, dtype, dev):
 
 def _fallback_calls(dev, M, K, N, E, xdtype):
     """name -> (call(fn, gate, out), kernel, plain, out shapes and dtypes,
-    exact) for kernels 1, 2, 3, 4, 7 and 8 on poisoned float operands."""
+    exact) for kernels 1, 2, 3, 4, 7 and 8 on poisoned float operands, and
+    kernel 6 (int8 operands only: its integers exact)."""
     rng = _gen(61)
     x = _poisoned(_t(rng.standard_normal((M, K)).astype(np.float32), dev,
                      xdtype), 1)
@@ -2729,23 +2794,31 @@ def _fallback_calls(dev, M, K, N, E, xdtype):
                                               counts, "silu", gate=g, out=o),
                           cg.cim_grouped_gated_gemm_int8,
                           cg.cim_grouped_gated_gemm_int8_plain,
-                          [((E, M, N), f32)], False)}
+                          [((E, M, N), f32)], False),
+        # kernel 6: a row-parallel site's partial under tensor parallelism
+        "acc": (lambda fn, g, o: fn(xq, w, gate=g, out=o),
+                cg.cim_gemm_int8, cg.cim_gemm_int8_plain,
+                [((M, N), torch.int32)], True)}
 
 
 def _check_fallback(dev, calls):
     """Flag 0: the sentinel outputs untouched bitwise, one launch counted
-    a call.  Flag 1: the plain version on the sanitized operands, its
-    integers exact, its floats bitwise or within the activations' 1e-5."""
+    a call (kernel 6's gated form also on its own counter).  Flag 1: the
+    plain version on the sanitized operands, its integers exact, its
+    floats bitwise or within the activations' 1e-5."""
     for name, (call, fn, plain, outs, exact) in calls.items():
         for v in (0, 1):
             got = [_sentinel(s, d, dev) for s, d in outs]
             want = [_sentinel(s, d, dev) for s, d in outs]
             before = fn.launches
+            gated = cg.cim_gemm_int8.gated_launches
             call(fn, _flag(v, dev), got[0] if len(got) == 1 else tuple(got))
             call(plain, _flag(v, dev), want[0] if len(want) == 1
                  else tuple(want))
             torch.cuda.synchronize()
             assert fn.launches == before + 1, name
+            assert cg.cim_gemm_int8.gated_launches == gated + (
+                fn is cg.cim_gemm_int8), name
             for a, b in zip(got, want):
                 assert torch.isfinite(a.float()).all(), (name, v)
                 if v == 0 or exact or a.dtype == torch.int8:
@@ -2853,6 +2926,7 @@ def test_degraded_layers_no_host_sync_and_trip(dev):
 
 FALLBACK_KERNELS = {
     "i8": (r"cim_gemm_i8_fallback_kernelILi(\d)ELi(\d)EE", 12),
+    "acc": (r"cim_gemm_i8_acc_fallback_kernelILi(\d)EE", 3),
     "grouped_i8": (r"cim_gemm_i8_grouped_fallback_kernelILi(\d)ELi(\d)EE",
                    6),
     "rowquant": (r"rowquant_fallback_kernelILi(\d)ELb([01])EE", 4)}
@@ -2860,9 +2934,9 @@ FALLBACK_KERNELS = {
 
 def test_fallback_kernels_spill_nothing(dev):
     """Every gated instantiation is in the fallback's library (3 tile
-    shapes x 4 variants dense, x 2 grouped; the row quantizer's 4), none
-    is in the ungated one, and none spills; their registers are
-    printed."""
+    shapes x 4 variants dense, x 2 grouped, kernel 6's 3; the row
+    quantizer's 4), none is in the ungated one, and none spills; their
+    registers are printed."""
     import pathlib
     import re
     import subprocess

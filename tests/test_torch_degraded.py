@@ -222,25 +222,32 @@ def test_launches_per_layer_off_and_on(monkeypatch, arch, off, on):
 
 
 def test_degraded_and_fault_hook_refused_under_tp(monkeypatch):
-    """The engines refuse ``degraded`` and ``fault_hook`` with ``tp=``, and
-    a rank's shard refuses degraded mode, naming ROADMAP A.3."""
-    from repro_torch.quant import tp as _tp
+    """Tensor parallelism now carries them: the engines take ``degraded``
+    and ``fault_hook`` with ``tp=`` (a group of one here; 2 and 4 ranks
+    in ``test_torch_tp_families.py``), and a rank's shard under degraded
+    mode screens and falls back as the unsharded site, a scale's NaN
+    included (its output bitwise the whole leaf's)."""
+    from repro_torch.parallel.context import TPGroup, tp_context
     from repro_torch.serving import PagedServingEngine, ServingEngine
     for cls in (ServingEngine, PagedServingEngine):
         for kw in (dict(degraded=True), dict(fault_hook=lambda p, x: None)):
-            with pytest.raises(NotImplementedError, match="A.3"):
-                cls(port_model(arch="gemma-2b"), quant_plan=QuantPlan.full(),
-                    tp=object(), **kw)
+            eng = cls(port_model(arch="gemma-2b"),
+                      quant_plan=QuantPlan.full(), tp=TPGroup(), **kw)
+            assert eng.tp is not None
     w = _ql(quantize_linear(jnp.asarray(W)))
-    qkv = QuantizedLinear(w.q.reshape(64, 6, 16), w.scale.reshape(6, 16))
-    qkv.tp_size = 2
+    scale = w.scale.clone()
+    scale[5] = float("nan")
 
-    class Group:
-        size = 2
-    monkeypatch.setattr(_tp, "tp_group", lambda: Group())
-    with degraded_mode(True), pytest.raises(NotImplementedError,
-                                            match="A.3"):
-        tlinear.quantized_qkv_proj(qkv, t(X))
+    def qkv(sharded):
+        out = QuantizedLinear(w.q.reshape(64, 6, 16), scale.reshape(6, 16))
+        out.tp_size = 1 if sharded else None
+        return out
+    with degraded_mode(True):
+        want = tlinear.quantized_qkv_proj(qkv(False), t(X))
+        with tp_context(TPGroup()):
+            got = tlinear.quantized_qkv_proj(qkv(True), t(X))
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
 
 
 def test_gated_plain_versions_write_only_when_tripped():

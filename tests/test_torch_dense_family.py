@@ -629,7 +629,17 @@ def test_ungated_gelu_mlp_is_three_launches(monkeypatch):
 @pytest.mark.parametrize("arch", ["gemma3-4b", "command-r-plus-104b",
                                   "paligemma-3b"])
 def test_tensor_parallelism_refuses_the_untested_features(arch):
+    """Tensor parallelism takes ``qk_norm``, layernorm and the vision
+    frontend now (held against the unsharded port in
+    ``test_torch_tp_families.py``): the attention shards, ``qk_norm``'s
+    per-head weights, the norms and ``frontend_proj`` stay whole."""
+    from repro_torch.parallel.context import TPGroup
     from repro_torch.parallel.sharding import shard_model
     m = port_model(QuantPlan.full(), arch)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        shard_model(m, object())
+    whole = {k: v.shape for k, v in m.state_dict().items()}
+    shard_model(m, TPGroup(1, 2, "gloo"))
+    attn = m.layers[0].attn
+    assert attn.o.tp_size == 2 and attn.o.q.shape[0] == m.cfg.n_heads // 2
+    for k, v in m.state_dict().items():
+        if "norm" in k or "frontend_proj" in k:
+            assert v.shape == whole[k], k

@@ -108,6 +108,35 @@ def test_campaign_bit_for_bit(pair, kind):
         np.array_equal(again[p].q, faulted[p].q) for p in faulted)
 
 
+@pytest.mark.parametrize("kind", FAULT_KINDS)
+def test_sharded_campaign_is_the_whole_campaigns_slice(pair, kind):
+    """Each leaf cut as two tensor-parallel ranks cut it (every other
+    output channel a rank, on the last axis): each rank's faulted part
+    equals its slice of the reference's faulted leaf, bit for bit, and
+    each rank's report is the reference's whole one."""
+    from repro_torch.reliability.faults import Leaf, Shard
+    config, jtree, model = pair
+    cfg = FaultConfig(kind=kind, ber=BER[kind], seed=7)
+    jft, jrep = jinject(jtree, _jcfg(cfg))
+    want = _jleaves(jft)
+    clean = quantized_leaves(model)
+    for rank in range(2):
+        parts = {}
+        for path, leaf in clean.items():
+            idx = np.arange(rank, leaf.q.shape[-1], 2)
+            index = (None,) * (leaf.q.ndim - 2) + (idx,)
+            parts[path] = Leaf(np.take(leaf.q, idx, axis=-1), leaf.scale,
+                               Shard(leaf.q.shape[1:], index))
+        faulted, rep = inject_tree(parts, cfg)
+        for name in ("leaves", "total_bits", "faults", "per_leaf"):
+            assert getattr(rep, name) == getattr(jrep, name), (rank, name)
+        for path, leaf in faulted.items():
+            assert np.array_equal(
+                leaf.q, np.take(np.asarray(want[path].q),
+                                parts[path].shard.index[-1], axis=-1)), \
+                (rank, path)
+
+
 def _jcfg(cfg):
     from repro.reliability import FaultConfig as JFault
     return JFault(**dataclasses.asdict(cfg))

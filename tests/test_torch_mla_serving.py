@@ -102,5 +102,7 @@ def test_paged_engine_and_tp_refuse_mla():
     assert m.layers[0].mlp.up.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="mla"):
         m.init_paged_cache(2, 9, 8, 4)
-    with pytest.raises(NotImplementedError, match="mla"):
-        shard_model(m.quantize(QuantPlan.full()), TPGroup())
+    # tensor parallelism shards the mixer by head now
+    shard_model(m.quantize(QuantPlan.full()), TPGroup(0, 2, "gloo"))
+    assert m.layers[0].mla.tp_size == 2
+    assert m.layers[0].mla.q_up.shape[1] * 2 == m.cfg.n_heads

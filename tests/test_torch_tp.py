@@ -9,7 +9,8 @@ ranks; the ranks run ``tests/torch_tp_ranks.py`` and import no JAX).
     the reference's ops within ``RTOL = 1e-6`` of the output's largest
     magnitude (tanh/exp may move an ulp), as ``test_torch_kernels.py``.
 (b) Every ``quant/tp.py`` function (``matmul_column``, ``matmul_row``,
-    ``mlp``, ``grouped_moe``, ``decode_attn``, ``decode_attn_paged``) on
+    ``mlp``, ``decode_attn``, ``decode_attn_paged``) and the grouped MoE
+    (``grouped_moe``: ``quantized_moe_apply`` under the group) on
     each rank's shards of ``gemma-2b-smoke`` and ``qwen2-moe-a2.7b-smoke``
     (weights from the reference's ``Model.init``), at group sizes 1, 2
     and 4, plain and kernel path: bitwise equal to the rank's slice of

@@ -103,5 +103,7 @@ def test_paged_engine_and_tp_refuse_xlstm():
                            block_size=8, quant_plan=QuantPlan.full())
     with pytest.raises(NotImplementedError, match="mlstm"):
         m.init_paged_cache(2, 9, 8, 4)
-    with pytest.raises(NotImplementedError, match="mlstm"):
-        shard_model(m.quantize(QuantPlan.full()), TPGroup())
+    # tensor parallelism shards the mixer by head now
+    shard_model(m.quantize(QuantPlan.full()), TPGroup(0, 2, "gloo"))
+    assert m.layers[0].mlstm.tp_size == 2
+    assert m.layers[0].mlstm.q.shape[1] * 2 == m.cfg.xlstm.n_heads

@@ -1,6 +1,7 @@
-"""Rank-side work of ``tests/test_torch_tp.py``: what each tensor-parallel
-rank computes on its shards, returned as numpy so that the parent test
-can hold it against the unsharded port and the JAX reference.
+"""Rank-side work of ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_families.py``: what each tensor-parallel rank
+computes on its shards, returned as numpy so that the parent test can
+hold it against the unsharded port and the JAX reference.
 
 Imports torch, numpy and the port only (no JAX): the ranks are processes
 started with ``spawn`` and import this module by name.
@@ -8,23 +9,31 @@ started with ``spawn`` and import this module by name.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import cim_gemm as cg
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import Model
+from repro_torch.models.dit import DiTModel
 from repro_torch.parallel.context import tp_context
 from repro_torch.parallel.sharding import shard_model
 from repro_torch.quant import QuantPlan
+from repro_torch.quant.linear import quantized_moe_apply
 from repro_torch.quant import tp as qtp
-from repro_torch.serving import PagedServingEngine, Request
+from repro_torch.serving import PagedServingEngine, Request, ServingEngine
 
-# the entry points a launch goes through (``ops`` and the attention walks)
+# the entry points a launch goes through (``ops``, the attention walks and
+# the SSD scan)
 SPY_NAMES = ("quantize_rows_int8", "cim_gemm_int8_fused_qin",
              "cim_gemm_int8_fused", "cim_gated_gemm_int8", "cim_gemm_int8",
              "cim_grouped_gemm_int8", "cim_grouped_gated_gemm_int8")
 SPY_ATTN = ("decode_attention", "decode_attention_paged")
+SPY_SCAN = ("ssd_scan",)
 
 
 def np_of(t: torch.Tensor) -> np.ndarray:
@@ -33,10 +42,12 @@ def np_of(t: torch.Tensor) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def spy():
+def spy(scan: bool = False):
     """Count the calls of every kernel entry point (on the CPU each runs
-    its plain version; on the card each call is one launch)."""
-    counts = dict.fromkeys(SPY_NAMES + SPY_ATTN, 0)
+    its plain version; on the card each call is one launch), the SSD
+    scan's too with ``scan``."""
+    counts = dict.fromkeys(SPY_NAMES + SPY_ATTN + (SPY_SCAN if scan
+                                                    else ()), 0)
     saved = []
 
     def wrap(mod, name):
@@ -51,6 +62,8 @@ def spy():
         wrap(ops, name)
     for name in SPY_ATTN:
         wrap(da, name)
+    for name in SPY_SCAN if scan else ():
+        wrap(ssd, name)
     try:
         yield counts
     finally:
@@ -125,9 +138,12 @@ def functions(group, case: dict) -> dict:
         run("mlp", lambda: qtp.mlp(group, case["x"], mlp, case["act"],
                                    use_kernel, residual=case["res"]))
         if block.spec[1] == "moe":
-            run("grouped_moe", lambda: qtp.grouped_moe(
-                group, case["xe"], block.moe, case["act"], use_kernel,
-                expert_counts=case["counts"]))
+            def grouped_moe():
+                with tp_context(group):
+                    return quantized_moe_apply(
+                        block.moe, case["xe"], case["act"],
+                        use_kernel=use_kernel, expert_counts=case["counts"])
+            run("grouped_moe", grouped_moe)
         ring, paged = case["ring"], case["paged"]
         q4 = _local_heads(case["q"], H_l, KH_l, r)
         heads = (q4.shape[0], H_l, q4.shape[-1])      # [B, H_l, D]
@@ -146,12 +162,12 @@ def functions(group, case: dict) -> dict:
     return out
 
 
-def _serve(engine, prompts, max_new):
+def _serve(engine, prompts, max_new, scan=False):
     reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     for req in reqs:
         engine.submit(req)
-    with spy() as counts:
+    with spy(scan) as counts:
         engine.tp.reset_counts()
         engine.run_until_done()
     st = engine.stats
@@ -162,7 +178,11 @@ def _serve(engine, prompts, max_new):
                prefill_chunks=st.prefill_chunks,
                preemptions=st.preemptions,
                cache_kv_heads=tuple(c["k" if "k" in c else "k_pages"].shape[2]
-                                    for c in engine.cache))
+                                    for c in engine.cache
+                                    if "k" in c or "k_pages" in c),
+               cache_shapes=[{k: tuple(v.shape) for k, v in c.items()
+                              if k not in ("index", "block_tables")}
+                             for c in engine.cache])
     if isinstance(engine, PagedServingEngine):
         engine.paged.allocator.check()
         out["blocks_held"] = engine.paged.allocator.n_used
@@ -242,13 +262,232 @@ def deadlines(group, case: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# every family, DiT, degraded mode and faults (tests/test_torch_tp_families.py)
+# ---------------------------------------------------------------------------
+def tp_shapes(model) -> dict:
+    """Per layer kind (its first layer): each leaf's shape (a quantized
+    leaf's q and scale), the attention's KV heads."""
+    out = {}
+    layers = getattr(model, "blocks", None) or model.layers
+    for block in layers:
+        spec = getattr(block, "spec", ("attn", "dense"))
+        mods = {}
+        for name in ("attn", "mla", "mamba", "mlstm", "slstm", "mlp", "moe"):
+            mod = getattr(block, name, None)
+            if mod is not None:
+                mods[name] = mod
+        if "moe" in mods and hasattr(mods["moe"], "shared"):
+            mods["shared"] = mods["moe"].shared
+        for mname, mod in mods.items():
+            key = f"{spec[0]}/{mname}"
+            if key in out:
+                continue
+            leaves = {}
+            for name, leaf in mod.named_children():
+                if hasattr(leaf, "q"):
+                    leaves[name] = (tuple(leaf.q.shape),
+                                    tuple(leaf.scale.shape), leaf.tp_size)
+            for name, p in mod.named_parameters(recurse=False):
+                leaves[name] = tuple(p.shape)
+            if mname == "attn":
+                leaves["kv_heads"] = mod.n_kv_heads
+            out[key] = leaves
+    return out
+
+
+def _logits(model, group, case):
+    """One prefill and two decode steps' logits under the group: token
+    prompts, or an audio config's frame embeddings."""
+    feed = case["logits"]
+    with torch.no_grad(), tp_context(group):
+        if "frames" in feed:
+            frames, lengths, steps = feed["frames"], feed["lengths"], \
+                feed["steps"]
+            caches = model.init_cache(frames.shape[0], 64, kv_dtype="int8")
+            outs = [model.prefill_padded(None, caches, lengths,
+                                         frame_embeddings=frames)]
+            for f in steps:
+                outs.append(model.decode_step(None, caches,
+                                              frame_embeddings=f))
+        else:
+            toks, lengths = feed["tokens"], feed["lengths"]
+            caches = model.init_cache(toks.shape[0], 32, kv_dtype="int8")
+            outs = [model.prefill_padded(toks, caches, lengths)]
+            for _ in range(2):
+                outs.append(model.decode_step(outs[-1].argmax(-1), caches))
+    return np_of(torch.cat(outs, dim=1))
+
+
+def family(group, case: dict) -> dict:
+    """A family's smoke model sharded over the group: its leaf shapes,
+    the engines of ``case["engines"]`` over the same requests, and the
+    logits of :func:`_logits`."""
+    model = shard_model(case["model"], group)
+    out = {"shapes": tp_shapes(model)}
+    for name, cls, kw in case.get("engines", ()):
+        eng = cls(model, quant_plan=QuantPlan.full(), tp=group, **kw)
+        out[name] = _serve(eng, case["prompts"], case["max_new"], scan=True)
+    if "logits" in case:
+        group.reset_counts()
+        out["logits"] = _logits(model, group, case)
+        out["logits.collectives"] = dict(group.counts)
+    if "long" in case:                  # a cacheless forward, its last row
+        with torch.no_grad(), tp_context(group):
+            out["long"] = np_of(model(case["long"], last_index=torch.tensor(
+                [case["long"].shape[1] - 1])))
+    return out
+
+
+def dit(group, case: dict) -> dict:
+    """DiT at the group: the engine's latents, a direct ``sample()`` under
+    the group on the same noise, launches and collectives."""
+    from repro_torch.diffusion import DiffusionEngine, ImageRequest, sample
+    model = case["model"]
+    eng = DiffusionEngine(model, batch_size=case["batch"],
+                          quant_plan=QuantPlan.full(), tp=group)
+    reqs = [ImageRequest(uid=i, label=lab, num_steps=case["steps"],
+                         cfg_scale=case["cfg"]) for i, lab in
+            enumerate(case["labels"])]
+    for r in reqs:
+        eng.submit(r)
+    group.reset_counts()
+    with spy(scan=True) as counts:
+        eng.run_until_done()
+    out = dict(latents=[r.latents for r in reqs],
+               status=[r.status.value for r in reqs],
+               launches=dict(counts), collectives=dict(group.counts),
+               shapes=tp_shapes(model))
+    with torch.no_grad(), tp_context(group):
+        out["sample"] = np_of(sample(model, case["direct_labels"],
+                                     x_init=case["noise"],
+                                     num_steps=case["steps"],
+                                     cfg_scale=case["cfg"]))
+    return out
+
+
+def poison(w, scale_index: tuple, q_axes: tuple, value: float) -> bool:
+    """Set ``w.scale`` at the whole leaf's ``scale_index`` to ``value``
+    where this rank holds it (``q_axes``: the q axis of each scale
+    axis); returns whether it does."""
+    at = []
+    for i, ax in zip(scale_index, q_axes):
+        held = None if w.tp_index is None else w.tp_index[ax]
+        if held is None:
+            at.append(i)
+            continue
+        hit = (held == i).nonzero()
+        if not len(hit):
+            return False
+        at.append(int(hit[0, 0]))
+    with torch.no_grad():
+        w.scale[tuple(at)] = value
+    return True
+
+
+def _leaf(model, path: str):
+    mod = model
+    for part in path.split("."):
+        mod = mod[int(part)] if part.isdigit() else getattr(mod, part)
+    return mod
+
+
+@contextlib.contextmanager
+def fallbacks():
+    """Count the gated fallbacks that wrote a layer's output: the plain
+    gated launches' writes (``cim_gemm._gated_out``) and the row-parallel
+    sites' (``quant.tp._write_if``), each when its flag was set."""
+    seen = {"gated": 0, "row": 0}
+    saved_out, saved_write = cg._gated_out, qtp._write_if
+
+    def gated_out(gate, out, result):
+        if out is not None and cg._tripped(gate):
+            seen["gated"] += 1
+        return saved_out(gate, out, result)
+
+    def write_if(flag, new, out):
+        seen["row"] += bool(flag.reshape(-1)[0])
+        return saved_write(flag, new, out)
+    cg._gated_out, qtp._write_if = gated_out, write_if
+    try:
+        yield seen
+    finally:
+        cg._gated_out, qtp._write_if = saved_out, saved_write
+
+
+def degraded(group, case: dict) -> dict:
+    """The ring engine in degraded mode over the group, with NaN/inf
+    planted at whole-leaf places of ``case["faults"]`` (each on the
+    ranks that hold it): statuses, tokens, fallbacks taken, launches and
+    collectives."""
+    model = shard_model(case["model"], group)
+    held = [poison(_leaf(model, path), idx, axes, value)
+            for path, idx, axes, value in case["faults"]]
+    eng = ServingEngine(model, quant_plan=QuantPlan.full(), tp=group,
+                        degraded=True, **case["kw"])
+    with fallbacks() as seen:
+        res = _serve(eng, case["prompts"], case["max_new"])
+    res.update(held=held, fallbacks=dict(seen))
+    return res
+
+
+def chaos(group, case: dict) -> dict:
+    """A chaos soak through the ring engine over the group (degraded,
+    ``fault_hook`` from the monkey): statuses, tokens, the report, and
+    whether every int8 weight is back bitwise afterwards."""
+    from repro_torch.reliability import chaos_soak, quantized_leaves
+    model = shard_model(case["model"], group)
+    eng = ServingEngine(model, quant_plan=QuantPlan.full(), tp=group,
+                        degraded=True, **case["kw"])
+    before = quantized_leaves(model)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=case["max_new"],
+                    temperature=0.7, top_k=5, seed=11)
+            for i, p in enumerate(case["prompts"])]
+    res = chaos_soak(eng, reqs, **case["soak"])
+    after = quantized_leaves(model)
+    return dict(status=[r.status.value for r in reqs],
+                tokens=[list(r.generated) for r in reqs],
+                report=dataclasses.asdict(res.chaos),
+                violations=res.violations,
+                restored=all(np.array_equal(before[p].q, after[p].q)
+                             for p in before),
+                sharded=sum(v.shard is not None for v in before.values()))
+
+
+def draws(group, case: dict) -> dict:
+    """Each config of ``case["configs"]`` drawn leaf by leaf into this
+    rank's shards (``init(tp=)``) against the whole draw, quantized and
+    cut: the names of the tensors whose bits differ (none expected)."""
+    out = {}
+    for cfg in case["configs"]:
+        cls = DiTModel if hasattr(cfg, "patch_size") else Model
+        mine = cls(cfg).init(0, device="cpu", tp=group,
+                             plan=QuantPlan.full())
+        whole = shard_model(cls(cfg).init(0, device="cpu").quantize(
+            QuantPlan.full()), group)
+        a, b = mine.state_dict(), whole.state_dict()
+        out[cfg.name] = sorted(set(a) ^ set(b)) + sorted(
+            k for k in set(a) & set(b)
+            if a[k].shape != b[k].shape or not torch.equal(a[k], b[k]))
+    return out
+
+
+def cli(group, case: dict) -> dict:
+    """The DiT CLI's rank (``launch.generate._generate_rank``) on the
+    arguments ``case["argv"]``."""
+    from repro_torch.launch import generate
+    args = generate.parser().parse_args(case["argv"])
+    return generate._generate_rank(group, args)
+
+
 def run_cases(group, cases: dict) -> dict:
-    """``cases``: name -> ("functions" | "engines", case dict).  One
-    thread per rank: the ranks share the host's cores, and the shapes
-    are tiny."""
+    """``cases``: name -> (kind, case dict).  One thread per rank: the
+    ranks share the host's cores, and the shapes are tiny."""
     torch.set_num_threads(1)
     todo = {"functions": functions, "engines": engines,
-            "deadlines": deadlines}
+            "deadlines": deadlines, "family": family, "dit": dit,
+            "degraded": degraded, "chaos": chaos, "draws": draws,
+            "cli": cli}
     return {name: todo[kind](group, case)
             for name, (kind, case) in cases.items()}
 
