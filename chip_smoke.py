@@ -271,6 +271,31 @@ the JAX package.  Phases, each printing its lines:
             such); the last checkpoint restored onto the CPU bitwise the
             card's weights.  A full-width checkpoint's bytes are printed:
             it is why this phase runs at the smoke width.
+   launch — the dry run (``python -m repro_torch.launch.dryrun --all``
+            on 16x16 and 2x16x16, then ``--all --grid 1x1``): every
+            (arch, cell) built on meta at full width, its arguments'
+            bytes a rank, ``fits`` and the H100 roofline's bottleneck
+            printed; 0 failed, exactly the 6 ``long_500k`` skips a grid,
+            nothing allocated on the card.
+   cell-decode32k — gemma-2b's ``decode_32k`` cell with the int8 KV
+            cache run whole: ``launch.steps.build_decode_step`` on 1x1,
+            the bf16 model drawn from the seed, 128 rows x 32768 slots
+            filled with seeded codes so every step reads every slot; the
+            build's bytes within ``CELL_BYTES_TOL`` of the dry run's,
+            kernels 9 and 10 once a layer a step and nothing else,
+            finite logits, rows 0-3's argmax the plain path's; ms a step
+            beside the roofline's ``memory_s``.
+   pipeline — gemma-2b's 18 blocks as 2 GPipe stages (gloo ranks on the
+            card, each drawing only its 9 layers, the full plan), 4
+            microbatches of one 4096-token row: bitwise the 18 blocks
+            in sequence in this process, kernel 12 36 times a rank and
+            kernels 1-4 the manifest's counts, the hops' host ms.
+   dp-train — gemma-2b cut to 6 layers at full width, DP-2 over gloo
+            (rows split, f32 sums all-reduced, ZeRO-1 moments, shards
+            all-gathered), 2 steps of 4 x 4096 tokens against the
+            single-rank step in the same call (``DP_LOSS_REL``,
+            ``DP_GRAD_REL``), the ranks' weights bitwise equal, kernel 12
+            with ``lse`` 48 times a rank; each rank's peak GiB.
 5. times  — each kernel's median time at the serve shapes beside its
             bound, its plain version and one PyTorch call (library_ms);
             the row quantizer at four shapes (gemma-2b's hidden requant
@@ -473,6 +498,9 @@ CHAOS_BERS = (1e-6, 1e-4, 1e-2)
 CHAOS_PAGED_BER = 1e-4
 CHAOS_SEED = 42
 CHAOS_PERIOD = 4
+# the soak at 1e-2 is cut to one campaign (every 8 fetches of its 8 to 11):
+# its host draw is the longest stretch of the chaos phase
+CHAOS_PERIODS = {1e-2: 8}
 CHAOS_NAN_RATE = 0.2
 # launches per layer per decode step under degraded mode
 # (``degraded_launches``): the plan's 7 (9), one screen a quantized site
@@ -563,6 +591,36 @@ TRAIN_PATH_TOL = {"loss": 2 ** -6, "grad_norm": 2 ** -4, "leaf": 2 ** -3}
 TRAIN_F64_TOL = 2 ** -5
 TP = 2
 TP_BACKEND = "gloo"
+# the launch layer.  cell-decode32k: gemma-2b's decode_32k cell (128 rows,
+# 32768 int8 slots) whole on the card, the build's bytes within 1% of the
+# dry run's arguments, rows 0-3 against the plain path, 5 timed steps.
+# Rows 0-3's logits within CELL_LOGIT_TOL of their largest |logit| (the
+# sound reading 0.40%); kernels 9 and 10 at the cell's shape on layer 0's
+# cache of rows 0-3 within CELL_ATTN_TOL of the plain output's largest
+# |value| (bf16 rounding: at most 2**-7), where a combine that skips any
+# one split lands at least CELL_ATTN_TOL away (31% on seeded CPU data)
+# pipeline: gemma-2b's 18 blocks as TP stages, 4 microbatches of one
+# 4096-token row.  dp-train: gemma-2b cut to 6 layers (two ranks' training
+# state share the card), DP-TP for 2 steps of TRAIN_BATCH x TRAIN_SEQ,
+# held against the single-rank step: the loss within 1e-6 relative, each
+# f32 gradient sum within 1e-6 of its leaf's largest element (the sums
+# add in another order), the ranks' weights bitwise equal, and within
+# DP_PARAM_ULPS steps of their dtype of the single rank's after the
+# steps (an f32-order difference in the update may move a rounding)
+CELL_ARCH, CELL_SHAPE = "gemma-2b", "decode_32k"
+CELL_BYTES_TOL = 0.01
+CELL_CHECK_ROWS = 4
+CELL_STEPS = 5
+CELL_LOGIT_TOL = 0.02
+CELL_ATTN_TOL = 0.02
+PIPE_ARCH = "gemma-2b"
+PIPE_MICRO = 4
+PIPE_SEQ = 4096
+DP_LAYERS = 6
+DP_STEPS = 2
+DP_LOSS_REL = 1e-6
+DP_GRAD_REL = 1e-6
+DP_PARAM_ULPS = 1
 # kernel 6's shapes: the row-parallel partials of gemma-2b at TP-2
 # (out-projection and down) and of qwen2-moe's shared down
 TP_GEMM_SHAPES = ((1024, 2048), (8192, 2048), (2816, 2048))
@@ -2080,7 +2138,8 @@ def phase_chaos(torch, serve: dict) -> dict:
     FAILED on the health check, with it on every request ends OK and the
     device's count of tripped screens grows; (c) ``chaos_soak`` on the
     ring engine at ``CHAOS_BERS`` (the chaos bench's workload at full
-    width, ``CHAOS_PERIOD``), (d) one soak through the paged engine at
+    width, ``CHAOS_PERIOD``; 1e-2 at ``CHAOS_PERIODS``' one campaign),
+    (d) one soak through the paged engine at
     ``CHAOS_PAGED_BER``, each with every request terminal and every
     invariant held; (e) afterwards every int8 weight bitwise its
     snapshot from before the soaks.  Returns the launch counts of (a)."""
@@ -2209,7 +2268,7 @@ def phase_chaos(torch, serve: dict) -> dict:
         t0 = time.perf_counter()
         with CampaignClock(torch) as clock:
             res = chaos_soak(eng, reqs, ber=ber, seed=CHAOS_SEED,
-                             period=CHAOS_PERIOD,
+                             period=CHAOS_PERIODS.get(ber, CHAOS_PERIOD),
                              logit_nan_rate=CHAOS_NAN_RATE, max_iters=200)
         secs = time.perf_counter() - t0
         rep = res.chaos
@@ -3869,6 +3928,581 @@ def phase_train_restart(torch) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     del crashed, resumed, straight
     _free(torch)
+
+
+# ---------------------------------------------------------------------------
+# the launch layer: the dry run, a shape cell run whole, GPipe stages and
+# data-parallel steps
+# ---------------------------------------------------------------------------
+def phase_launch(torch) -> None:
+    """``python -m repro_torch.launch.dryrun --all`` (16x16 and 2x16x16)
+    and ``--all --grid 1x1``, each on meta: 0 cells failed, exactly the
+    ``long_500k`` cells of the archs without ``long_context_capable``
+    skipped, nothing allocated on the card.  One line a cell: its GiB a
+    rank, ``fits`` and bottleneck."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import dryrun
+
+    _sync(torch)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        for argv in (["--all"], ["--all", "--grid", "1x1"]):
+            need(dryrun.main(argv + ["--out", tmp, "--quiet"]) == 0,
+                 f"launch: dryrun {' '.join(argv)} failed a cell")
+        secs = time.perf_counter() - t0
+        _sync(torch)
+        after = torch.cuda.memory_allocated()
+        want_skips = sorted(a for a in ARCH_IDS
+                            if not get_config(a).long_context_capable)
+        for grid in ("16x16", "2x16x16", "1x1"):
+            recs = [json.loads(p.read_text())
+                    for p in sorted(out.glob(f"*__{grid}.json"))]
+            skipped = sorted(r["arch"] for r in recs
+                             if r["status"] == "skipped")
+            failed = [r["arch"] for r in recs if r["status"] == "failed"]
+            need(len(recs) == 40 and not failed,
+                 f"launch: {grid}: {len(recs)} records, failed {failed}")
+            need(skipped == want_skips and all(
+                r["shape"] == "long_500k" for r in recs
+                if r["status"] == "skipped"),
+                f"launch: {grid}: skipped {skipped} != {want_skips}")
+            for r in recs:
+                if r["status"] != "ok":
+                    continue
+                gib = r["memory"]["argument_bytes_per_device"] / 2 ** 30
+                say(f"[launch] {grid} {r['arch']} {r['shape']}: "
+                    f"{gib:.2f} GiB a rank, fits {r['fits']} (card "
+                    f"{r['fits_card']}), {r['roofline']['bottleneck']}, "
+                    f"step {r['roofline']['step_s']:.4g} s on the H100")
+            say(f"[launch] {grid}: 34 ok, 6 skipped ({', '.join(skipped)}: "
+                f"long_500k), 0 failed")
+    need(after == before, f"launch: the dry run allocated "
+         f"{after - before} bytes on the card")
+    say(f"[launch] 120 cells in {secs:.2f} s, {after - before} bytes "
+        f"allocated on the card")
+
+
+def _fill_cache(torch, cache: list, S: int, gen) -> None:
+    """Every slot of every row written: seeded int8 codes and positive
+    scales, positions 0..S-1, the write index at S (the next token lands
+    at position S, over slot 0)."""
+    for c in cache:
+        for name in ("k", "v"):
+            c[name].copy_(torch.randint(-127, 128, c[name].shape,
+                                        dtype=torch.int8, device=DEVICE,
+                                        generator=gen))
+            sc = c[name + "_scale"]
+            sc.copy_(torch.rand(sc.shape, device=DEVICE, generator=gen)
+                     * 2e-2 + 1e-3)
+        c["pos"].copy_(torch.arange(S, dtype=torch.int32, device=DEVICE)
+                       .expand_as(c["pos"]))
+        c["index"].fill_(S)
+
+
+def _split_walk_vs_plain(torch, c: dict, S: int, G: int, ns: int,
+                         gen) -> tuple[float, float]:
+    """Kernels 9 and 10 (``ops.decode_attention``: the split walk and the
+    combine, as the model calls them) on one layer's cache rows ``c``
+    with a seeded bf16 q at position ``S``, against the plain walk and
+    combine: the kernels' max |err|, and the least over the ``ns``
+    splits of the plain combine's max |err| with that split left out,
+    each over the plain output's largest |value|."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import split_len
+    from repro_torch.kernels.ref import (combine_partials_ref,
+                                         decode_attention_partial_ref)
+    R, _, KH, D = c["k"].shape
+    q = torch.randn((R, KH, G, D), device=DEVICE,
+                    generator=gen).to(torch.bfloat16)
+    q_pos = torch.full((R,), S, dtype=torch.int32, device=DEVICE)
+    got = ops.decode_attention(q, c["k"], c["v"], c["pos"], q_pos,
+                               c["k_scale"], c["v_scale"]).float()
+    o, m, l = decode_attention_partial_ref(
+        q, c["k"], c["v"], c["pos"], q_pos, ns, split_len(S, ns),
+        k_scale=c["k_scale"], v_scale=c["v_scale"])
+    want = combine_partials_ref(o, m, l).to(torch.bfloat16).float()
+    top = want.abs().max().item()
+    faults = []
+    for s in range(ns):
+        keep = [i for i in range(ns) if i != s]
+        cut = combine_partials_ref(o[:, :, keep], m[:, :, keep],
+                                   l[:, :, keep]).to(torch.bfloat16)
+        faults.append((cut.float() - want).abs().max().item() / top)
+    return (got - want).abs().max().item() / top, min(faults)
+
+
+def phase_cell_decode32k(torch, card: str) -> dict:
+    """gemma-2b's ``decode_32k`` cell with the int8 KV cache, whole on the
+    card: the bundle of ``launch.steps.build_decode_step`` on 1x1, its
+    model drawn unquantized (bf16, as the dry run builds it) and its
+    cache of 128 rows x 32768 slots filled (``_fill_cache``), so that
+    each decode step reads every slot.  Gates: the bytes allocated by
+    the build within ``CELL_BYTES_TOL`` of the dry run's
+    ``argument_bytes_per_device``; kernels 9 and 10 launched the
+    manifest's count a step (the split walk and the combine once a
+    layer) and no other kernel; finite logits; kernels 9 and 10 on
+    layer 0's rows 0-3 within ``CELL_ATTN_TOL`` of the plain walk
+    (``_split_walk_vs_plain``), a dropped split beyond it; rows 0-3's
+    logits within ``CELL_LOGIT_TOL`` of the plain path's
+    (``kernel_mode(False)``, on a copy of those rows' cache) and their
+    argmax equal.  Prints the plain path with the last split's slots
+    unwritten beside it, and ms a step beside the roofline's
+    ``memory_s``."""
+    from collections import Counter
+    from repro_torch.analysis import manifest
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.decode_attention import EMPTY_SLOT, split_len
+    from repro_torch.kernels.ops import n_splits_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.quant import kernel_mode
+
+    cfg = dataclasses.replace(get_config(CELL_ARCH), kv_cache_dtype="int8")
+    cell = SHAPES[CELL_SHAPE]
+    B, S = cell.global_batch, cell.seq_len
+    rec = dryrun.run_cell(CELL_ARCH, CELL_SHAPE, make_smoke_mesh(),
+                          verbose=False, kv_int8=True)
+    need(rec["status"] == "ok", f"cell-decode32k: dry run {rec}")
+    bf16 = dryrun.run_cell(CELL_ARCH, CELL_SHAPE, make_smoke_mesh(),
+                           verbose=False)
+    want_bytes = rec["memory"]["argument_bytes_per_device"]
+    _free(torch)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bundle = build_decode_step(cfg, make_smoke_mesh(), CELL_SHAPE)
+    model = bundle.model.init(SEED, device=DEVICE)
+    cache = model.init_cache(B, S)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50)
+    _fill_cache(torch, cache, S, gen)
+    tokens = torch.randint(0, cfg.vocab, (B, 1), dtype=torch.int32,
+                           device=DEVICE, generator=gen)
+    _sync(torch)
+    built = torch.cuda.memory_allocated() - base
+    say(f"[cell-decode32k] {cfg.name} at {CELL_SHAPE} (B {B}, {S} int8 "
+        f"slots, unquantized bf16 weights) built in "
+        f"{time.perf_counter() - t0:.2f} s: {built} bytes allocated "
+        f"({built / 2 ** 30:.3f} GiB), the dry run's arguments "
+        f"{want_bytes} ({want_bytes / 2 ** 30:.3f} GiB, fits "
+        f"{rec['fits']}); bf16 cache: "
+        f"{bf16['memory']['argument_bytes_per_device'] / 2 ** 30:.2f} GiB, "
+        f"fits {bf16['fits']}, on the card {bf16['fits_card']}; "
+        f"cache bytes {rec['cache_bytes']['port']} (port's leaves) beside "
+        f"{rec['cache_bytes']['analytic']:.0f} (the roofline's)")
+    need(abs(built - want_bytes) <= CELL_BYTES_TOL * want_bytes,
+         f"cell-decode32k: {built} bytes allocated, dry run {want_bytes}")
+    rows = [{k: v[:CELL_CHECK_ROWS].clone() for k, v in c.items()}
+            for c in cache]
+    reset_launch_counts()
+    logits, cache = bundle.fn({"inputs": tokens}, cache)
+    _sync(torch)
+    counts = launch_counts()
+    want = Counter()
+    for spec in cfg.layer_specs():
+        for name, n in manifest.layer_launches(cfg, spec, "decode",
+                                               kv_len=S).items():
+            if name.startswith("decode_attention"):
+                want[name] += n
+    want = {k: want.get(k, 0) for k in counts}
+    say(f"[cell-decode32k] launches a step {json.dumps(counts)}")
+    need(counts == want, f"cell-decode32k: launches {counts} != {want}")
+    need(tuple(logits.shape) == (B, 1, cfg.vocab)
+         and bool(torch.isfinite(logits).all()),
+         "cell-decode32k: logits shape or non-finite")
+    ns = n_splits_for(S)
+    attn_err, attn_fault = _split_walk_vs_plain(
+        torch, rows[0], S, cfg.n_heads // cfg.n_kv_heads, ns, gen)
+    say(f"[cell-decode32k] kernels 9 and 10 at the cell's shape (layer "
+        f"0's cache of rows 0-{CELL_CHECK_ROWS - 1}, {ns} splits) against "
+        f"the plain walk and combine: max |err| {attn_err:.4g} of the "
+        f"largest |value| (limit {CELL_ATTN_TOL:g}); the plain combine "
+        f"with one split left out: at least {attn_fault:.4g} of it")
+    need(attn_err <= CELL_ATTN_TOL,
+         "cell-decode32k: kernels 9 and 10 differ from the plain path")
+    need(attn_fault > CELL_ATTN_TOL,
+         "cell-decode32k: the attention gate cannot tell a dropped split")
+    # the same fault at the logits: the last split's slots unwritten in
+    # every layer of a copy
+    cut = [{k: v.clone() for k, v in c.items()} for c in rows]
+    for c in cut:
+        c["pos"][:, S - split_len(S, ns):] = EMPTY_SLOT
+    with kernel_mode(False):
+        plain, _ = bundle.fn({"inputs": tokens[:CELL_CHECK_ROWS]}, rows)
+        dropped, _ = bundle.fn({"inputs": tokens[:CELL_CHECK_ROWS]}, cut)
+    got = logits[:CELL_CHECK_ROWS].float()
+    top = plain.float().abs().max().item()
+    err = (got - plain.float()).abs().max().item()
+    fault = (dropped.float() - plain.float()).abs().max().item()
+    top2 = plain.float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).min().item()
+    same = bool(torch.equal(got.argmax(-1), plain.argmax(-1)))
+    say(f"[cell-decode32k] rows 0-{CELL_CHECK_ROWS - 1} against the plain "
+        f"path: max_abs_err {err:.4g} of largest |logit| {top:.4g} "
+        f"({err / top:.4g}, limit {CELL_LOGIT_TOL:g}), argmax equal {same} "
+        f"(narrowest top-2 margin {margin:.4g}); the plain path with the "
+        f"last split's slots unwritten: {fault:.4g} ({fault / top:.4g})")
+    need(err <= CELL_LOGIT_TOL * top,
+         "cell-decode32k: logits differ from the plain path")
+    need(same, "cell-decode32k: argmax differs from the plain path")
+    del rows, cut, plain, dropped
+    steps = []
+    for _ in range(CELL_STEPS):
+        _sync(torch)
+        t0 = time.perf_counter()
+        logits, cache = bundle.fn({"inputs": tokens}, cache)
+        _sync(torch)
+        steps.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(steps)
+    mem_ms = rec["roofline"]["memory_s"] * 1e3
+    say(f"[cell-decode32k] {ms:.3f} ms a step (median of {CELL_STEPS}; "
+        f"{', '.join(f'{s:.3f}' for s in steps)}) beside the roofline's "
+        f"memory_s {mem_ms:.3f} ms on the H100 ({mem_ms / ms:.3f} of it), "
+        f"on {card}")
+    rows = _profiled_step(torch, "cell-decode32k",
+                          lambda: bundle.fn({"inputs": tokens}, cache))
+    walk = [(t, n) for t, n, key in rows if "decode_attention_kernel" in key]
+    if walk:
+        layer_bytes = rec["cache_bytes"]["port"] / cfg.n_layers
+        walk_ms = sum(t for t, _ in walk) / sum(n for _, n in walk)
+        say(f"[cell-decode32k] kernel 9: {walk_ms:.3f} ms a launch "
+            f"(profiled) for {layer_bytes:.4g} bytes of a layer's cache, "
+            f"{layer_bytes / walk_ms / 1e9:.3f} TB/s; its byte bound "
+            f"{layer_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, on {card}")
+    del logits, cache, bundle, model, tokens
+    _free(torch)
+    return counts
+
+
+def _profiled_step(torch, tag: str, fn) -> list:
+    """One call of ``fn`` under the profiler: prints its wall ms, the
+    device time the profiler attributes to kernels (busy share) and the
+    six largest kernels by device time; returns (ms, count, name) of
+    every device kernel (none if the profiler saw no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(torch)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(torch)
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (getattr(e, "self_cuda_time_total", 0) if t is None else t) / 1e3
+        rows.append((t, e.count, e.key))
+    dev_ms = sum(r[0] for r in rows)
+    if dev_ms == 0:
+        say(f"[{tag}] device time not measured (the profiler saw no device "
+            f"activity)")
+        return []
+    say(f"[{tag}] profiled step: {wall:.2f} ms wall, {dev_ms:.2f} ms of "
+        f"device kernels (busy {dev_ms / wall:.3f})")
+    for t, cnt, key in sorted(rows, reverse=True)[:6]:
+        say(f"[{tag}]   {t:9.3f} ms  {cnt:4d} x  {key[:90]}")
+    return rows
+
+
+def _pipeline_rank(group, spec: dict) -> dict:
+    """One GPipe stage: this rank's blocks of full-width gemma-2b drawn
+    with the whole draw's bits (``parallel.pipeline.draw_stage``, the
+    full plan), then ``pipeline_apply`` over the microbatches.  Returns
+    the output's digest (rank 0: its bits too), the launches, the hops
+    and their host seconds."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.parallel.context import rank_device
+    from repro_torch.parallel.pipeline import (block_stage_fn, draw_stage,
+                                               pipeline_apply)
+    from repro_torch.quant import QuantPlan
+
+    dev = rank_device(spec["device"], group.backend, group.rank)
+    cfg = get_config(spec["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    blocks = draw_stage(Model(cfg), group.rank, group.size, gen, dev,
+                        QuantPlan.full())
+    x = _pipeline_input(torch, cfg, spec, dev)
+    group.barrier()
+    reset_launch_counts()
+    hops: list = []
+    _sync(torch)
+    t0 = time.perf_counter()
+    out = pipeline_apply(group, block_stage_fn(cfg), blocks, x,
+                         spec["micro"], hop_s=hops)
+    _sync(torch)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    raw = out.view(torch.int16).cpu().numpy()
+    return dict(digest=hashlib.sha256(raw.tobytes()).hexdigest(),
+                bits=raw if group.rank == 0 else None, counts=counts,
+                hops=group.hops, hop_s=hops, layers=len(blocks),
+                collectives=dict(group.counts), seconds=secs,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _pipeline_input(torch, cfg, spec: dict, dev):
+    """The pipeline's input: ``micro`` rows of S hidden states, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 60)
+    return torch.randn((spec["micro"], spec["seq"], cfg.d_model),
+                       device=dev, generator=gen).to(torch.bfloat16)
+
+
+def phase_pipeline(torch, card: str) -> dict:
+    """Full-width gemma-2b's 18 blocks as ``TP`` GPipe stages of gloo
+    ranks on the one card (9 layers each, the full plan), 4 microbatches
+    of one 4096-token row (``parallel.pipeline``).  Gates: the output on
+    every rank bitwise the 18 blocks run in sequence in this process on
+    the same microbatches (``_draw_quantized``'s model: the same draw);
+    each rank launched kernel 12 once a block and microbatch (36) and
+    kernels 1-4 the manifest's prefill counts for its blocks; the hops
+    counted (4 a rank).  Prints the hops' host ms.  Returns the launch
+    counts summed over the ranks."""
+    import hashlib
+    from collections import Counter
+    from repro_torch.analysis import manifest
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.context import spawn
+    from repro_torch.parallel.pipeline import block_stage_fn
+
+    cfg = get_config(PIPE_ARCH)
+    spec = dict(arch=PIPE_ARCH, seed=SEED, micro=PIPE_MICRO, seq=PIPE_SEQ,
+                device=DEVICE)
+    _free(torch)
+    t0 = time.perf_counter()
+    res = spawn(_pipeline_rank, TP, args=(spec,), backend=TP_BACKEND)
+    say(f"[pipeline] {cfg.name} ({cfg.n_layers} layers) as {TP} stages of "
+        f"{[r['layers'] for r in res]} layers (gloo, one card), "
+        f"{PIPE_MICRO} microbatches of 1 x {PIPE_SEQ} tokens, full plan: "
+        f"spawn, draw and run {time.perf_counter() - t0:.2f} s")
+    model = _draw_quantized(torch, cfg, "pipeline")
+    x = _pipeline_input(torch, cfg, spec, torch.device(DEVICE))
+    stage = block_stage_fn(cfg)
+    seq = torch.cat([stage(model.layers, x[m:m + 1])
+                     for m in range(PIPE_MICRO)])
+    raw = seq.view(torch.int16).cpu().numpy()
+    digest = hashlib.sha256(raw.tobytes()).hexdigest()
+    import numpy as np
+    diff = int(np.count_nonzero(res[0]["bits"] != raw))
+    say(f"[pipeline] the ranks' outputs against the {cfg.n_layers} blocks "
+        f"in sequence: {diff} of {raw.size} values differ; digests "
+        f"{[r['digest'][:12] for r in res]} vs {digest[:12]}")
+    need(all(r["digest"] == digest for r in res) and diff == 0,
+         "pipeline: output differs from the blocks in sequence")
+    del model, x, seq
+    _free(torch)
+    total = Counter()
+    for rank, r in enumerate(res):
+        want = Counter()
+        for _ in range(r["layers"] * PIPE_MICRO):
+            want += manifest.layer_launches(cfg, ("attn", "dense"),
+                                            "prefill")
+        want["flash_attention"] = r["layers"] * PIPE_MICRO
+        want = {k: want.get(k, 0) for k in r["counts"]}
+        hop_ms = [s * 1e3 for s in r["hop_s"]]
+        say(f"[pipeline] rank {rank}: {r['seconds'] * 1e3:.2f} ms for the "
+            f"schedule, {r['hops']} hops, host ms "
+            f"{', '.join(f'{m:.3f}' for m in hop_ms)} (mean "
+            f"{statistics.mean(hop_ms):.3f}), peak {r['peak']:.2f} GiB; "
+            f"launches {json.dumps(r['counts'])}")
+        need(r["counts"] == want,
+             f"pipeline: rank {rank} launches {r['counts']} != {want}")
+        need(r["hops"] == PIPE_MICRO and r["collectives"]["bcast"] == 1,
+             f"pipeline: rank {rank} hops {r['hops']}, collectives "
+             f"{r['collectives']}")
+        total.update(r["counts"])
+    say(f"[pipeline] hop payload {PIPE_SEQ * cfg.d_model * 2} bytes (bf16 "
+        f"1 x {PIPE_SEQ} x {cfg.d_model}), host-staged, on {card}")
+    return dict(total)
+
+
+def _ulps(torch, a, b):
+    """Elementwise distance in steps of their dtype (bf16 or f32) of two
+    tensors."""
+    bits, top = ((torch.int16, 2 ** 15) if a.dtype == torch.bfloat16
+                 else (torch.int32, 2 ** 31))
+
+    def ordered(x):
+        x = x.contiguous().view(bits).long()
+        return torch.where(x < 0, -top - x, x)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _dp_rank(group, spec: dict) -> dict:
+    """One data-parallel rank of gemma-2b cut to ``spec["layers"]``
+    layers.  Rank 0 first runs the single-rank step on the whole batch
+    (its f32 gradient sums kept on the host), the other ranks waiting;
+    then every rank runs ``spec["steps"]`` steps of
+    ``build_train_step(dp=group)``.  Returns the losses, rank 0's
+    gradient check and its weights' distance from the single rank's
+    after the steps (``_ulps``), the parameters' digest, the kernel 12
+    launches, the
+    collectives' host seconds and wire bytes (``CollectiveMeter``) and
+    the peak."""
+    import hashlib
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import for_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.roofline import H100, CollectiveMeter
+    from repro_torch.launch.steps import build_train_step, optimizer_config
+    from repro_torch.models import Model
+    from repro_torch.parallel.context import rank_device
+
+    dev = rank_device(spec["device"], group.backend, group.rank)
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    ocfg = optimizer_config(cfg)
+    pipe = for_model(cfg, batch=spec["rows"], seq_len=spec["seq"],
+                     seed=spec["seed"])
+    batches = [pipe.batch_at(i) for i in range(spec["steps"])]
+    out: dict = {}
+    if group.rank == 0:
+        model = Model(cfg).init(spec["seed"], device=dev)
+        step = build_train_step(cfg, model, ocfg)
+        state = optim.init(ocfg, step.params)
+        single = []
+        for i, b in enumerate(batches):
+            single.append(float(step(state, b)["loss"]))
+            if i == 0:
+                host = {k: g.to("cpu", copy=True)
+                        for k, g in step.grads.items()}
+        out["single_losses"] = single
+        weights = {k: p.detach().to("cpu", copy=True)
+                   for k, p in step.params.items()}
+        del model, step, state
+        torch.cuda.empty_cache()
+    group.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg).init(spec["seed"], device=dev)
+    step = build_train_step(cfg, model, ocfg, dp=group)
+    state = optim.init(ocfg, step.shards)
+    spent = _timed_collectives(torch, group)
+    group.reset_counts()
+    reset_launch_counts()
+    losses, secs = [], []
+    meter = CollectiveMeter(group)
+    for i, b in enumerate(batches):
+        _sync(torch)
+        t0 = time.perf_counter()
+        with meter:
+            losses.append(float(step(state, b)["loss"]))
+        _sync(torch)
+        secs.append(time.perf_counter() - t0)
+        if i == 0 and group.rank == 0:
+            worst = 0.0
+            for k, g in step.grads.items():
+                want = host[k].to(dev)
+                err = (g - want).abs().max().item()
+                top = want.abs().max().item()
+                worst = max(worst, err / top if top else err)
+            out["grad_rel"] = worst
+            del host
+    counts = launch_counts()
+    digest = hashlib.sha256()
+    for p in step.params.values():
+        digest.update(p.detach().contiguous().view(torch.uint8)
+                      .cpu().numpy().tobytes())
+    total = sum(m.numel() for m in step.params.values())
+    held = sum(m.numel() for m in state["mu"].values())
+    wire = meter.stats()
+    out.update(losses=losses, seconds=secs, counts=counts,
+               digest=digest.hexdigest(), collective_s=spent[0],
+               wire_bytes=wire.wire_bytes_per_chip,
+               nvlink_s=wire.wire_bytes_per_chip / H100.link_bw,
+               collectives=dict(group.counts), moments=held,
+               elements=total,
+               peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if group.rank == 0:
+        ulps, moved = 0, 0
+        for k, p in step.params.items():
+            want = weights.pop(k).reshape(-1)
+            for i, part in enumerate(p.detach().reshape(-1).split(1 << 26)):
+                d = _ulps(torch, part, want[i << 26:(i + 1) << 26].to(dev))
+                ulps = max(ulps, int(d.max()))
+                moved += int((d > 0).sum())
+        out.update(param_ulps=ulps, params_moved=moved)
+    return out
+
+
+def phase_dp_train(torch, card: str) -> dict:
+    """gemma-2b at full width cut to ``DP_LAYERS`` layers, trained by the
+    data-parallel step over ``TP`` gloo ranks on the one card
+    (``launch.steps.build_train_step(dp=)``: rows split, f32 sums
+    all-reduced, ZeRO-1 moments, the shards all-gathered), ``DP_STEPS``
+    steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, against the
+    single-rank step on the same rows in the same call.  Gates: each
+    step's loss within ``DP_LOSS_REL`` relative of the single rank's,
+    the first step's f32 gradient sums within ``DP_GRAD_REL`` of each
+    leaf's largest; the ranks' weights bitwise equal, and within
+    ``DP_PARAM_ULPS`` of the single rank's after the steps; kernel 12
+    (with ``lse``) launched layers x 2 (forward and remat) x the rank's
+    microbatches x steps, no other kernel.  Prints each rank's peak GiB
+    and the collectives' host seconds a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.context import spawn
+
+    cfg = get_config(TRAIN_ARCH)
+    spec = dict(arch=TRAIN_ARCH, layers=DP_LAYERS, rows=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=DP_STEPS, seed=SEED, device=DEVICE)
+    _free(torch)
+    t0 = time.perf_counter()
+    res = spawn(_dp_rank, TP, args=(spec,), backend=TP_BACKEND)
+    say(f"[dp-train] {cfg.name} cut to {DP_LAYERS} of {cfg.n_layers} "
+        f"layers (every width kept), DP-{TP} over gloo on one card, "
+        f"{DP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"{time.perf_counter() - t0:.2f} s with the spawn, the draws and "
+        f"the single-rank steps")
+    single = res[0]["single_losses"]
+    micro = max(1, cfg.train_microbatches // TP)
+    per_rank = DP_LAYERS * 2 * micro * DP_STEPS
+    for rank, r in enumerate(res):
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], single)]
+        say(f"[dp-train] rank {rank}: losses "
+            f"{', '.join(f'{v:.6f}' for v in r['losses'])} (single rank "
+            f"{', '.join(f'{v:.6f}' for v in single)}; relative "
+            f"{', '.join(f'{v:.3g}' for v in rel)}), "
+            f"{', '.join(f'{s:.3f}' for s in r['seconds'])} s a step, "
+            f"collectives {r['collective_s'] / DP_STEPS:.3f} s a step on "
+            f"the host ({json.dumps(r['collectives'])}; "
+            f"{r['wire_bytes'] / DP_STEPS:.4g} wire bytes a step by the "
+            f"ring factors, {r['nvlink_s'] / DP_STEPS * 1e3:.2f} ms over "
+            f"the H100's NVLink), moments "
+            f"{r['moments']} of {r['elements']} elements, peak "
+            f"{r['peak']:.2f} GiB, on {card}")
+        need(max(rel) <= DP_LOSS_REL, f"dp-train: rank {rank} loss "
+             f"{r['losses']} vs {single}")
+        want = {k: 0 for k in r["counts"]}
+        want["flash_attention"] = per_rank
+        need(r["counts"] == want,
+             f"dp-train: rank {rank} launches {r['counts']} != {want}")
+    say(f"[dp-train] step 1's f32 gradient sums against the single rank's: "
+        f"worst {res[0]['grad_rel']:.3g} of a leaf's largest (limit "
+        f"{DP_GRAD_REL:g})")
+    need(res[0]["grad_rel"] <= DP_GRAD_REL, "dp-train: gradients differ")
+    need(len({r["digest"] for r in res}) == 1,
+         "dp-train: the ranks' weights differ")
+    say(f"[dp-train] after {DP_STEPS} steps the DP weights against the "
+        f"single rank's: {res[0]['params_moved']} of {res[0]['elements']} "
+        f"elements differ, at most {res[0]['param_ulps']} steps of their "
+        f"dtype (limit {DP_PARAM_ULPS})")
+    need(res[0]["param_ulps"] <= DP_PARAM_ULPS,
+         "dp-train: the DP weights differ from the single rank's")
+    say(f"[dp-train] the {TP} ranks' weights bitwise equal after "
+        f"{DP_STEPS} steps; kernel 12 with lse {per_rank} launches a rank")
+    return {k: sum(r["counts"][k] for r in res) for k in res[0]["counts"]}
 
 
 def _event_ms(torch, fn, reps: int = 3) -> float:
@@ -5812,6 +6446,15 @@ def main() -> int:
         tp_counts, k6_gated = phase_tp_families(torch, card)
         train_counts = phase_train(torch, card)
         phase_train_restart(torch)
+        launch_runs = []
+        for name, fn in (("launch", lambda: phase_launch(torch) or {}),
+                         ("cell-decode32k",
+                          lambda: phase_cell_decode32k(torch, card)),
+                         ("pipeline", lambda: phase_pipeline(torch, card)),
+                         ("dp-train", lambda: phase_dp_train(torch, card))):
+            t0 = time.perf_counter()
+            launch_runs.append(fn())
+            say(f"[{name}] phase: {time.perf_counter() - t0:.2f} s")
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for k, v in counts.items()
                  if k not in OPS_KERNELS + DEGRADED_KERNELS),
@@ -5835,6 +6478,11 @@ def main() -> int:
                                      + v3_forward["flash_attention"]
                                      + tp_counts["flash_attention"]
                                      + train_counts["flash_attention"])
+        # the launch layer's runs: kernels 9 and 10 (cell-decode32k), 1-4
+        # and 12 (pipeline), 12 (dp-train)
+        for run in launch_runs:
+            for k, v in run.items():
+                counts[k] += v
         kernels = phase_times(torch, serve, moe, counts, errs, card,
                               v3_steps)
     except SmokeError as e:

@@ -57,6 +57,9 @@ class ModelConfig:
     frontend_dim: int = 0             # frontend embedding dim (0 = d_model)
 
     family: str = "dense"             # dense | moe | ssm | hybrid | vlm | audio
+    # the long_500k cell (a 524288-token decode) applies only where this
+    # is set: sub-quadratic context (recurrent state, sparse attention)
+    long_context_capable: bool = False
     param_dtype: str = "bfloat16"
     # KV-cache precision ("bfloat16" | "int8")
     kv_cache_dtype: str = "bfloat16"
@@ -146,3 +149,17 @@ class ModelConfig:
                 total += mo.n_routed_experts * (mult * d * mo.d_expert + d)
                 total += mult * d * mo.shared_width
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: :meth:`param_count` with
+        each MoE layer's routed experts counted ``top_k`` times, not
+        ``n_routed_experts`` times (the reference's MoE accounting)."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        mult = 3 if self.gated else 2
+        n_moe = sum(1 for _, f in self.layer_specs() if f == "moe")
+        routed_all = n_moe * mo.n_routed_experts * mult * self.d_model \
+            * mo.d_expert
+        routed_active = n_moe * mo.top_k * mult * self.d_model * mo.d_expert
+        return int(self.param_count() - routed_all + routed_active)

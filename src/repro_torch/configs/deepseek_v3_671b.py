@@ -31,5 +31,6 @@ CONFIG = ModelConfig(
                   capacity_factor=1.25, norm_topk_prob=True,
                   first_k_dense=3),
     family="moe",
+    long_context_capable=True,
     train_microbatches=8,
 )

@@ -20,5 +20,6 @@ CONFIG = ModelConfig(
     sliding_window=1024,
     local_global_pattern=5,    # 5 local layers per global layer
     family="dense",
+    long_context_capable=True,
     train_microbatches=4,
 )

@@ -22,5 +22,6 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     xlstm=XLSTMConfig(n_heads=4, conv_kernel=4, chunk=64, slstm_every=8),
     family="ssm",
+    long_context_capable=True,
     train_microbatches=2,
 )

@@ -26,5 +26,6 @@ CONFIG = ModelConfig(
                   chunk=128),
     attn_every=6,              # shared attention block cadence
     family="hybrid",
+    long_context_capable=True,
     train_microbatches=2,
 )

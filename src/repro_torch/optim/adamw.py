@@ -67,16 +67,21 @@ def decay_mask(path: str) -> bool:
 
 
 def update(cfg: AdamWConfig, schedule: Optional[Callable] = None):
-    """Returns ``apply(grads, state, params) -> metrics``: one AdamW step
-    of ``params`` and ``state`` in place; ``grads``, ``state``'s moments
-    and ``params`` are dicts with the same keys.  ``schedule`` maps the
-    new step (an int32 tensor) to the learning rate."""
+    """Returns ``apply(grads, state, params, gnorm=None) -> metrics``: one
+    AdamW step of ``params`` and ``state`` in place; ``grads``,
+    ``state``'s moments and ``params`` are dicts with the same keys.
+    ``schedule`` maps the new step (an int32 tensor) to the learning
+    rate.  ``gnorm`` is the global norm to clip by where ``grads`` and
+    ``params`` are a rank's shards of the leaves (the data-parallel
+    step's moments, ZeRO-1): the norm of the whole gradients."""
 
     @torch.no_grad()
-    def apply(grads: dict, state: dict, params: dict) -> dict:
+    def apply(grads: dict, state: dict, params: dict,
+              gnorm: Optional[torch.Tensor] = None) -> dict:
         step = state["step"] + 1
         lr = cfg.learning_rate if schedule is None else schedule(step)
-        gnorm = global_norm(grads.values())
+        if gnorm is None:
+            gnorm = global_norm(grads.values())
         scale = None
         if cfg.clip_norm is not None:
             # a tensor numerator: torch turns ``float / tensor`` into a

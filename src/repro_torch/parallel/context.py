@@ -47,7 +47,8 @@ class TPGroup:
     """One rank's handle on a tensor-parallel group of ``size`` ranks.
 
     ``counts`` holds the collectives made so far by kind (``max``,
-    ``sum``, ``gather``, ``bcast``); :meth:`agree` is the engines'
+    ``sum``, ``gather``, ``bcast``), ``hops`` the pipeline's stage
+    hand-offs (:meth:`send`, :meth:`recv`); :meth:`agree` is the engines'
     end-of-run check and is not counted.  With ``backend="gloo"`` a CUDA
     tensor is copied to the host for the collective and back.
     ``observer(kind, tensor)``, when set, sees every counted collective's
@@ -64,9 +65,11 @@ class TPGroup:
             raise ValueError(f"rank {rank} outside a group of {size}")
         self.rank, self.size, self.backend = rank, size, backend
         self.counts = dict.fromkeys(COLLECTIVES, 0)
+        self.hops = 0
 
     def reset_counts(self) -> None:
         self.counts = dict.fromkeys(COLLECTIVES, 0)
+        self.hops = 0
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
@@ -112,6 +115,50 @@ class TPGroup:
                               dtype=torch.uint8, device=src.device)
             dist.all_gather(list(out.chunk(self.size)), src)
             return out.to(t.device).view(t.dtype)
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        """A pipeline hand-off: ``t`` to rank ``dst`` (which calls
+        :meth:`recv`), as raw bytes.  Counted in ``hops``, not in
+        ``counts``."""
+        self.hops += 1
+        if self.observer is not None:
+            self.observer("hop", t)
+        raw = t.contiguous().view(torch.uint8)
+        with _host_transport() if self._staged(t) else \
+                contextlib.nullcontext():
+            dist.send(raw.cpu() if self._staged(t) else raw, dst)
+
+    def recv(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Fill ``t`` (contiguous) with what rank ``src`` sends; returns
+        ``t``.  Counted in ``hops``."""
+        self.hops += 1
+        raw = t.view(torch.uint8)
+        if self._staged(t):
+            with _host_transport():
+                host = torch.empty(raw.shape, dtype=torch.uint8)
+                dist.recv(host, src)
+                raw.copy_(host)
+        else:
+            dist.recv(raw, src)
+        return t
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``t`` (contiguous, the same shape on every rank)
+        on every rank, in place, as raw bytes; counted as ``bcast``."""
+        self.counts["bcast"] += 1
+        if self.observer is not None:
+            self.observer("bcast", t)
+        if self.size == 1:
+            return t
+        raw = t.view(torch.uint8)
+        if self._staged(t):
+            with _host_transport():
+                host = raw.cpu()
+                dist.broadcast(host, src)
+                raw.copy_(host)
+        else:
+            dist.broadcast(raw, src)
+        return t
 
     def broadcast_flags(self, flags: list[bool]) -> list[bool]:
         """Rank 0's ``flags`` on every rank (the engines' deadline

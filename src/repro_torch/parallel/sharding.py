@@ -1,8 +1,22 @@
-"""Shard placement for tensor parallelism (port of the divisibility
-fallback of ``repro/parallel/sharding.py::resolve_spec`` for the
-``heads``, ``kv_heads``, ``mlp`` and ``expert`` axes, of
-``Model.quantize(mesh=)``, and of the logical axes the reference's bf16
-mixers carry).
+"""Logical-axis rules and shard placement (port of
+``repro/parallel/sharding.py`` and of ``Model.quantize(mesh=)``).
+
+The logical axes: every parameter, optimizer-state, cache and input leaf
+carries a tuple of logical axis names (:func:`param_axes`,
+:func:`cache_axes`, the reference's ``Model.param_axes()`` and
+``cache_axes()`` by the same paths), and :func:`resolve_spec` binds them
+to a grid, an ordered mapping from mesh axis name to size
+(``launch.mesh``), by the reference's greedy two-pass rule with its
+divisibility fallback.  A spec is a tuple with one entry a dimension:
+None, an axis name or a tuple of names (the reference's
+``PartitionSpec``).  The dry run (``launch.dryrun``) sums each leaf's
+shard under it; the data-parallel train step (``launch.steps``) splits
+the batch by :func:`batch_sharding` and its moments by the ``fsdp``
+axis (:func:`local_slices`).
+
+Tensor parallelism (the divisibility fallback for the ``heads``,
+``kv_heads``, ``mlp`` and ``expert`` axes, and the logical axes the
+reference's bf16 mixers carry):
 
 :func:`shard_model` cuts, in place, a model's leaves to one rank's
 shards; a quantized leaf's ``q`` and ``scale`` stay co-sharded on the
@@ -52,6 +66,7 @@ shards and one leaf's f32 temporary at most, never the whole model.
 from __future__ import annotations
 
 import logging
+import re
 from typing import Callable, Optional
 
 import torch
@@ -64,6 +79,264 @@ from .context import TPGroup
 log = logging.getLogger(__name__)
 
 Cut = dict   # axis -> LongTensor: the global indices a rank keeps
+
+
+# ---------------------------------------------------------------------------
+# Logical axes and the rules
+# ---------------------------------------------------------------------------
+# logical axis -> candidate mesh axes (in binding-priority order)
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "fsdp": ("pod", "data"),        # ZeRO parameter/optimizer sharding
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    "expert": ("model",),           # expert parallelism
+    # context parallelism: binds whatever the structural dims left free
+    "kv_seq": ("data", "model"),
+    "layers": (),                   # the reference's scan axis: replicated
+}
+
+# experts spread over both axes
+EP_WIDE_RULES = dict(DEFAULT_RULES, expert=("model", "data"))
+
+Spec = tuple    # per dimension: None, a mesh axis name or a tuple of names
+
+
+def resolve_spec(shape: tuple, axes: Optional[tuple], grid: dict,
+                 rules: Optional[dict] = None) -> Spec:
+    """One leaf's logical ``axes`` bound to ``grid`` (mesh axis -> size,
+    in order): each logical axis takes its rule's mesh axes in order,
+    each mesh axis at most once a leaf, skipping one whose size (times
+    the sizes already taken for this dimension) does not divide the
+    dimension.  ``kv_seq`` binds in a second pass, to the mesh axes the
+    other dimensions left free.  No axes, a scalar or axes of another
+    rank than ``shape``: replicated (``()``)."""
+    rules = rules or DEFAULT_RULES
+    if axes is None or len(shape) == 0 or len(axes) != len(shape):
+        return ()
+    used: set = set()
+    parts: list = [None] * len(shape)
+
+    def bind(i: int, dim: int, logical: str) -> None:
+        chosen, prod = [], 1
+        for cand in rules.get(logical, ()):
+            if cand in used or cand not in grid:
+                continue
+            if dim % (prod * grid[cand]) == 0:
+                chosen.append(cand)
+                used.add(cand)
+                prod *= grid[cand]
+        parts[i] = (tuple(chosen) if len(chosen) > 1
+                    else (chosen[0] if chosen else None))
+
+    for i, (dim, logical) in enumerate(zip(shape, axes)):
+        if logical is not None and logical != "kv_seq":
+            bind(i, dim, logical)
+    for i, (dim, logical) in enumerate(zip(shape, axes)):
+        if logical == "kv_seq":
+            bind(i, dim, logical)
+    return tuple(parts)
+
+
+def _tree_map(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one structure (dicts,
+    lists and tuples; a tuple in ``other`` is a leaf: its axes)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, a, b) for a, b in zip(tree, other))
+    return fn(tree, other)
+
+
+def make_shardings(grid: dict, shapes, axes,
+                   rules: Optional[dict] = None):
+    """The spec of every leaf of ``shapes`` (a tree of tensors, ``meta``
+    ones included) under its logical axes in ``axes`` (the same tree,
+    tuples at the leaves)."""
+    return _tree_map(lambda t, a: resolve_spec(tuple(t.shape), a, grid,
+                                               rules), shapes, axes)
+
+
+def batch_sharding(grid: dict, rules: Optional[dict] = None,
+                   batch: Optional[int] = None) -> Spec:
+    """The spec of a [batch, ...] input: its leading dimension over the
+    ``batch`` rule's mesh axes.  With ``batch`` (the global batch size)
+    a mesh axis whose size, times those already taken, does not divide
+    it is skipped (a batch of 6 on pod 2, data 4 binds pod only; a
+    batch of 5 replicates); without, every axis of the rule in the grid
+    binds."""
+    rules = rules or DEFAULT_RULES
+    axes, prod = [], 1
+    for a in rules["batch"]:
+        if a not in grid:
+            continue
+        if batch is not None and batch % (prod * grid[a]) != 0:
+            continue
+        axes.append(a)
+        prod *= grid[a]
+    return (tuple(axes) if len(axes) > 1 else (axes[0] if axes else None),)
+
+
+def input_shardings(grid: dict, specs: dict,
+                    rules: Optional[dict] = None) -> dict:
+    """Every batch input sharded on its leading (batch) dimension where
+    the grid divides it (:func:`batch_sharding`); a scalar replicated."""
+    return {k: batch_sharding(grid, rules, batch=t.shape[0]) if t.dim()
+            else () for k, t in specs.items()}
+
+
+def _bound(part) -> tuple:
+    return () if part is None else (part,) if isinstance(part, str) \
+        else tuple(part)
+
+
+def shard_shape(shape: tuple, spec: Spec, grid: dict) -> tuple:
+    """The shape of one rank's shard of a leaf of ``shape`` under
+    ``spec`` (every bound dimension divides, :func:`resolve_spec`)."""
+    out = list(shape)
+    for i, part in enumerate(spec):
+        for a in _bound(part):
+            out[i] //= grid[a]
+    return tuple(out)
+
+
+def shard_nbytes(t: torch.Tensor, spec: Spec, grid: dict) -> int:
+    """Bytes of one rank's shard of ``t`` under ``spec``."""
+    n = 1
+    for d in shard_shape(tuple(t.shape), spec, grid):
+        n *= d
+    return n * t.element_size()
+
+
+def local_slices(shape: tuple, spec: Spec, grid: dict,
+                 rank: int) -> tuple:
+    """Rank ``rank``'s shard of a leaf as one slice a dimension: ranks
+    number the grid's points in its axes' order, the last fastest (a
+    ``{"data": 2}`` grid: rank r is data index r)."""
+    coords, rest = {}, rank
+    for a in reversed(list(grid)):
+        coords[a] = rest % grid[a]
+        rest //= grid[a]
+    out = []
+    for i, dim in enumerate(shape):
+        names = _bound(spec[i]) if i < len(spec) else ()
+        index, count = 0, 1
+        for a in names:
+            index, count = index * grid[a] + coords[a], count * grid[a]
+        k = dim // count
+        out.append(slice(index * k, (index + 1) * k))
+    return tuple(out)
+
+
+# A leaf's logical axes by its path in the reference's tree (a block's
+# leaves relative to its group, without the group's "layers" axis).
+_OUTER_AXES = {
+    "['embed']['embedding']": ("vocab", "fsdp"),
+    "['head']['kernel']": ("fsdp", "vocab"),
+    "['frontend_proj']['kernel']": ("fsdp", None),
+}
+_MLP_AXES = {"up": ("fsdp", "mlp"), "gate": ("fsdp", "mlp"),
+             "down": ("mlp", "fsdp")}
+_BLOCK_AXES = {
+    **{f"['mlp']['{k}']": a for k, a in _MLP_AXES.items()},
+    **{f"['moe']['shared']['{k}']": a for k, a in _MLP_AXES.items()},
+    **{f"['slstm']['ffn']['{k}']": a for k, a in _MLP_AXES.items()},
+    "['attn']['q']": ("fsdp", "heads", None),
+    "['attn']['k']": ("fsdp", "kv_heads", None),
+    "['attn']['v']": ("fsdp", "kv_heads", None),
+    "['attn']['o']": ("heads", None, "fsdp"),
+    "['moe']['router']": ("fsdp", None),
+    "['moe']['up']": ("expert", "fsdp", "mlp"),
+    "['moe']['gate']": ("expert", "fsdp", "mlp"),
+    "['moe']['down']": ("expert", "mlp", "fsdp"),
+    "['mamba']['in_proj']": ("fsdp", "mlp"),
+    "['mamba']['conv_w']": (None, "mlp"),
+    "['mamba']['conv_b']": ("mlp",),
+    "['mamba']['a_log']": ("heads",),
+    "['mamba']['d_skip']": ("heads",),
+    "['mamba']['dt_bias']": ("heads",),
+    "['mamba']['out_proj']": ("mlp", "fsdp"),
+    "['mla']['q_down']": ("fsdp", None),
+    "['mla']['q_up']": (None, "heads", None),
+    "['mla']['kv_down']": ("fsdp", None),
+    "['mla']['kv_up']": (None, "heads", None),
+    "['mla']['o']": ("heads", None, "fsdp"),
+    "['mlstm']['up']": ("fsdp", "mlp"),
+    "['mlstm']['conv_w']": (None, "mlp"),
+    "['mlstm']['conv_b']": ("mlp",),
+    "['mlstm']['q']": ("mlp", "heads", None),
+    "['mlstm']['k']": ("mlp", "heads", None),
+    "['mlstm']['v']": ("mlp", "heads", None),
+    "['mlstm']['igate']": (None, "heads"),
+    "['mlstm']['fgate']": (None, "heads"),
+    "['mlstm']['fgate_b']": ("heads",),
+    "['mlstm']['down']": ("mlp", "fsdp"),
+    "['slstm']['w']": ("fsdp", None, "heads", None),
+    "['slstm']['r']": (None, "heads", None, None),
+    "['slstm']['b']": (None, "heads", None),
+}
+_GROUP_PATH = re.compile(r"^\['group_\d+'\](.*)\[\d+\]$")
+
+
+def _leaf_axes(path: str, ndim: int) -> tuple:
+    m = _GROUP_PATH.match(path)
+    rel = m.group(1) if m else path
+    axes = (_BLOCK_AXES if m else _OUTER_AXES).get(rel)
+    if axes is None and rel.endswith(("['scale']", "['bias']")):
+        axes = (None,) * ndim            # a norm: replicated
+    if axes is None or len(axes) != ndim:
+        raise KeyError(f"no logical axes for {path} ({ndim}-d)")
+    return axes
+
+
+def param_axes(model) -> dict:
+    """The logical axes of every parameter of an unquantized LM
+    ``model``, keyed as :func:`repro_torch.convert.reference_paths` keys
+    them (a block's leaf with its layer index last): the reference's
+    ``Model.param_axes()`` by the same paths, without the stacked
+    groups' leading ``"layers"`` axis (replicated under every rule)."""
+    from repro_torch.convert import reference_paths
+    return {k: _leaf_axes(k, p.dim())
+            for k, p in reference_paths(model).items()}
+
+
+_KV_AXES = {"k": ("batch", "kv_seq", "kv_heads", None),
+            "v": ("batch", "kv_seq", "kv_heads", None),
+            "k_scale": ("batch", "kv_seq", "kv_heads"),
+            "v_scale": ("batch", "kv_seq", "kv_heads"),
+            "pos": ("batch", "kv_seq"), "index": ("batch",)}
+_CACHE_AXES = {
+    "mla": {"c_kv": ("batch", "kv_seq", None),
+            "k_rope": ("batch", "kv_seq", None), "index": ("batch",)},
+    "mamba2": {"conv": ("batch", None, "mlp"),
+               "ssm": ("batch", "heads", None, None), "index": ("batch",)},
+    "mlstm": {"conv": ("batch", None, "mlp"),
+              "C": ("batch", "heads", None, None),
+              "n": ("batch", "heads", None), "m": ("batch", "heads"),
+              "index": ("batch",)},
+    "slstm": {"c": ("batch", "heads", None), "n": ("batch", "heads", None),
+              "h": ("batch", "heads", None), "m": ("batch", "heads", None),
+              "index": ("batch",)},
+}
+
+
+def cache_axes(model, kv_dtype: Optional[str] = None) -> list:
+    """The logical axes of ``model.init_cache(batch, max_len,
+    kv_dtype)``'s leaves, one dict a layer (the reference's
+    ``cache_axes()`` without the ``"layers"`` axis; the int8 scales
+    where ``kv_dtype``, default the config's, is int8)."""
+    int8 = (kv_dtype or model.cfg.kv_cache_dtype) == "int8"
+    out = []
+    for block in model.layers:
+        mixer = block.spec[0]
+        if mixer in _CACHE_AXES:
+            out.append(dict(_CACHE_AXES[mixer]))
+        else:
+            out.append({k: a for k, a in _KV_AXES.items()
+                        if int8 or not k.endswith("_scale")})
+    return out
 
 
 def _span(n: int, group: TPGroup) -> torch.Tensor:

@@ -3220,3 +3220,86 @@ def test_guard_refuses_training_through_kernels_without_a_backward(dev):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the launch layer on the card
+# ---------------------------------------------------------------------------
+def test_dryrun_all_allocates_nothing_on_card(dev, tmp_path):
+    """``dryrun --all --grid 1x1``: every cell built on meta, 0 failed,
+    and the card's allocated bytes unchanged; ``fits_card`` read from
+    the card's total."""
+    import json
+    from repro_torch.launch import dryrun
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert dryrun.main(["--all", "--grid", "1x1", "--out", str(tmp_path),
+                        "--quiet"]) == 0
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    rec = json.loads((tmp_path / "gemma-2b__decode_32k__1x1.json")
+                     .read_text())
+    assert rec["card_bytes"] == torch.cuda.mem_get_info()[1]
+    assert rec["fits_card"] == (rec["memory"]["argument_bytes_per_device"]
+                                <= rec["card_bytes"])
+
+
+def test_pipeline_two_ranks_bitwise_on_card(dev):
+    """gemma-2b-smoke's 4 blocks as 2 GPipe stages (gloo ranks sharing
+    the card, each drawing only its layers, the full plan): every rank's
+    output bitwise the 4 blocks in sequence on the same microbatches."""
+    import torch_pp_ranks as ranks
+    from repro_torch.models import Model
+    from repro_torch.parallel.context import spawn
+    from repro_torch.parallel.pipeline import block_stage_fn
+    from repro_torch.quant import QuantPlan
+    seed, micro = 5, 4
+    x = _gen(seed).standard_normal((8, 16, 64)).astype(np.float32)
+    case = dict(seed=seed, full=True, x=x, microbatches=micro,
+                device="cuda")
+    res = spawn(ranks.run_cases, 2, args=({"b": ("blocks", case)},))
+    cfg = ranks.smoke_cfg()
+    model = Model(cfg).init(seed, device=dev).quantize(QuantPlan.full())
+    xt = _t(x, dev, torch.bfloat16)
+    stage = block_stage_fn(cfg)
+    seq = torch.cat([stage(model.layers, mx)
+                     for mx in xt.reshape(micro, 2, 16, 64)])
+    want = ranks.bits(seq.cpu())
+    for r in res:
+        assert r["b"]["hops"] == micro
+        np.testing.assert_array_equal(r["b"]["out"], want)
+
+
+def test_decode_bundle_split_walk_gives_the_plain_paths_tokens(dev):
+    """``build_decode_step`` on gemma-2b-smoke (full plan, int8 ring of
+    4096 slots: the split walk and the combine) after a 3000-token
+    prefill: its greedy tokens over 8 steps equal the plain path's
+    (``kernel_mode(False)``) fed the same way."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.quant import QuantPlan, kernel_mode
+    cfg = dataclasses.replace(reduced_config(get_config("gemma-2b")),
+                              kv_cache_dtype="int8")
+    bundle = build_decode_step(cfg)
+    model = bundle.model.init(7, device=dev).quantize(QuantPlan.full())
+    prompt = _t(_gen(7).integers(0, cfg.vocab, (2, 3000)), dev)
+
+    def run(plain):
+        cache = model.init_cache(2, 4096)
+        toks = []
+        with torch.no_grad(), kernel_mode(False if plain else None):
+            logits = model.prefill_padded(prompt, cache,
+                                          torch.tensor([3000, 2500]))
+            for _ in range(8):
+                nxt = logits[:, -1].argmax(-1).to(torch.int32)
+                toks.append(nxt.tolist())
+                logits, cache = bundle.fn({"inputs": nxt[:, None]}, cache)
+        return toks
+
+    reset_launch_counts()
+    kern = run(False)
+    counts = launch_counts()
+    assert counts["decode_attention_partial"] == 8 * cfg.n_layers
+    assert counts["decode_attention_combine"] == 8 * cfg.n_layers
+    assert run(True) == kern

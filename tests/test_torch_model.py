@@ -245,7 +245,9 @@ def test_port_imports_no_jax_subprocess():
             "repro_torch.obs, repro_torch.analysis, repro_torch.data, "
             "repro_torch.optim, repro_torch.checkpoint, "
             "repro_torch.training, repro_torch.launch.steps, "
-            "repro_torch.launch.train, repro_torch.launch.console\n"
+            "repro_torch.launch.train, repro_torch.launch.console, "
+            "repro_torch.launch.mesh, repro_torch.launch.roofline, "
+            "repro_torch.launch.dryrun, repro_torch.parallel.pipeline\n"
             "for arch in repro_torch.configs.ARCH_IDS:\n"
             "    repro_torch.configs.get_config(arch)\n"
             "sys.path.insert(0, '.')\n"
