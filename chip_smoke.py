@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU with the CUDA toolkit; imports nothing of JAX or of
-the JAX package.  Phases, each printing its lines:
+the JAX package.  Phases, each printing its lines, then its seconds as
+``[name] phase: s``:
 
 1. build  — compile every ``src/repro_torch/csrc/*.cu`` for sm_90a.
 2. card   — the card's name and power limit (nvidia-smi).
@@ -114,8 +115,10 @@ the JAX package.  Phases, each printing its lines:
             per decode step and 5 per prefill, 2 MAX + 2 SUM reductions
             per layer per forward; ms per decode step, the collectives'
             host time, memory per rank.
-   serve-tp-paged — the same ranks through the paged engine over the
-            serve-paged pool: preempts, drains, tokens bitwise.
+   serve-tp-paged — the same ranks through the paged engine: eight of
+            serve-paged's prompts over a pool of 60 blocks that must
+            preempt (``TP_PAGED_PROMPTS``); preempts, drains, tokens
+            bitwise the same run's unsharded on the serve model.
    reference-tp — one prefill + decode step at TP-2: logits bitwise the
             unsharded kernel path's.
    serve-moe — gemma-2b is freed; full-width qwen2-moe-a2.7b (random
@@ -263,6 +266,38 @@ the JAX package.  Phases, each printing its lines:
             GiB and the attention backward's share of a step (one
             layer's backward timed alone, times the calls a step makes)
             beside its FLOP count and bound.
+   train-zamba2 — full-width zamba2-1.2b (all 38 layers: 32 Mamba-2 and
+            6 attention, H 64, P = N = 64, chunk 128; random weights from
+            the seed) trained as ``train`` trains gemma-2b: 4 rows of
+            4096 tokens in its 2 microbatches, remat, AdamW; one warm-up
+            step, then ``TRAIN_STEPS`` timed.  Each Mamba-2 layer's scan
+            goes through ``kernels.ssd_scan.SSDScan`` (kernel 13's
+            forward, the reference's gradient of the chunked form in
+            plain f32 torch).  Gates: finite loss and grad norm, every
+            trained weight changed, kernel 13 exactly steps x 2 x 32 x 2
+            and kernel 12 (causal, with ``lse``) steps x 2 x 6 x 2, no
+            other kernel; on the trained weights cast to f32, one
+            microbatch's loss, grad norm and every weight's gradient
+            against kernels off (the plain scan, blockwise attention)
+            within ``TRAIN_F32_PATH_TOL``; at the last Mamba-2 layer's own
+            scan inputs (the step's shape, 32 chunks), ``SSDScan``'s y and
+            final state within ``SSD_TOL`` and its five gradients within
+            ``TRAIN_SSD_F64_TOL`` of autograd of the plain scan in f64.  Prints seconds a step, tokens/s, peak
+            GiB, and kernel 13's forward and the plain scan backward
+            timed alone at that layer, times the calls a step makes, with
+            each one's share of a step.
+   train-families — one step of one 4096-token row at full width for
+            each training path the CPU alone had run, each model cut to
+            the layers that hold each of its layer kinds once
+            (``TRAIN_FAMILIES``): gemma3-4b (6 layers: kernel 12 sliding
+            and causal), paligemma-3b (2: prefix, 256 patches and 3840
+            tokens), deepseek-v3-671b (its first 2, dense: MLA at D 192
+            with v padded), qwen2-moe-a2.7b (2: the MoE backward and its
+            load-balance term, which must be positive).  Gates: finite
+            values, weights changed, kernel 12's launches by mask (each
+            with ``lse``) and no other kernel, the loss, grad norm and
+            every weight's gradient against kernels off within
+            ``TRAIN_PATH_TOL``; prints each peak GiB.
    train-restart — ``Trainer`` at gemma-2b-smoke width on the card, async
             checkpoints every 5 steps in a temporary directory (removed
             after): a crash at step 8, a resume from step 5 to 12, and an
@@ -292,7 +327,7 @@ the JAX package.  Phases, each printing its lines:
             kernels 1-4 the manifest's counts, the hops' host ms.
    dp-train — gemma-2b cut to 6 layers at full width, DP-2 over gloo
             (rows split, f32 sums all-reduced, ZeRO-1 moments, shards
-            all-gathered), 2 steps of 4 x 4096 tokens against the
+            all-gathered), ``DP_STEPS`` steps of 4 x 4096 tokens against the
             single-rank step in the same call (``DP_LOSS_REL``,
             ``DP_GRAD_REL``), the ranks' weights bitwise equal, kernel 12
             with ``lse`` 48 times a rank; each rank's peak GiB.
@@ -476,6 +511,13 @@ PAGED_BLOCK = 16
 PAGED_NUM_BLOCKS = 161
 PAGED_PROMPTS = [600, 520, 450, 380, 300, 240, 180, 120, 90, 64, 48, 40, 32,
                  24, 20, 16]
+# serve-tp-paged: eight of those prompts, 8 new tokens each, over a pool of
+# 60 blocks that cannot hold their 1082 prompt tokens at once (38 forwards
+# and 5 preemptions, against serve-paged's 157 and 3), held bitwise against
+# the same run unsharded
+TP_PAGED_PROMPTS = PAGED_PROMPTS[4:12]
+TP_PAGED_NEW = 8
+TP_PAGED_NUM_BLOCKS = 61
 # the serve runs' prompt lengths (ring, serve-moe and the TP runs)
 SERVE_LENGTHS = [16, 40, 64, 65, 100, 128, 150, 200]
 # the long run: a ring of 8192 slots, 4 splits
@@ -574,7 +616,7 @@ FLASH_PREFIX_CASES = (
 TRAIN_ARCH = "gemma-2b"
 TRAIN_BATCH = 4         # rows a step: gemma-2b's 4 microbatches of 1
 TRAIN_SEQ = 4096        # the reference's train_4k cell
-TRAIN_STEPS = 3         # timed, after one warm-up step
+TRAIN_STEPS = 2         # timed, after one warm-up step
 RESTART_STEPS, RESTART_EVERY, RESTART_CRASH = 12, 5, 8
 # the train phase's checks: kernel 12's lse against its plain version
 # (both sum f32 scores, in other orders), the attention backward against
@@ -589,6 +631,31 @@ TRAIN_LSE_TOL = 1e-5
 TRAIN_GRAD_TOL = 2 ** -6
 TRAIN_PATH_TOL = {"loss": 2 ** -6, "grad_norm": 2 ** -4, "leaf": 2 ** -3}
 TRAIN_F64_TOL = 2 ** -5
+# train-zamba2: SSDScan's five gradients at one trained Mamba-2 layer's
+# scan inputs against autograd of the plain scan in f64 (dx, db, dc, dh0
+# relative L2; dlog_a, whose terms cancel, its largest error over its
+# largest |value|): f32 sums over 4096 positions, ~1e-5 on seeded CPU
+# data at S 1024.  Its y and final state there within SSD_TOL.
+TRAIN_SSD_F64_TOL = 1e-3
+# train-zamba2's path gate runs on the trained weights cast to f32: in
+# bf16 a change at the rounding level (kernel 13's forward for the plain
+# scan's, y 2.8e-6 apart) moves a Mamba-2 a_log gradient 0.123, as far as
+# the kernel path's own 0.111 and near the leaf limit.  In f32 on an H100
+# (tools/zamba2_train_gaps.py): sound, loss 0, grad norm 1.24e-8, worst
+# leaf 2.39e-4; a fault in kernel 13's y at every Mamba-2 call (one chunk
+# x 1.01, or the scan restarted at chunk 16), grad norm 1.04e-6 and
+# 1.9e-6, worst leaf 7.75e-4 and 9.93e-4.  The limits lie between; the
+# y gate at SSD_TOL sees a chunk x 1.001
+TRAIN_F32_PATH_TOL = {"loss": 1e-6, "grad_norm": 5e-7, "leaf": 5e-4}
+# train-families: one step of one TRAIN_SEQ row (paligemma: 256 patches
+# and 3840 tokens) at full width, each model cut to the layers that hold
+# each of its layer kinds once (gemma3-4b: 5 sliding and its first
+# global; deepseek-v3: its first 2, dense MLA), one microbatch, remat;
+# kernel 12's launches by mask, each with lse (forward and recompute)
+TRAIN_FAMILIES = (("gemma3-4b", 6, {"sliding": 10, "causal": 2}),
+                  ("paligemma-3b", 2, {"prefix": 4}),
+                  ("deepseek-v3-671b", 2, {"causal": 4}),
+                  ("qwen2-moe-a2.7b", 2, {"causal": 4}))
 TP = 2
 TP_BACKEND = "gloo"
 # the launch layer.  cell-decode32k: gemma-2b's decode_32k cell (128 rows,
@@ -601,7 +668,7 @@ TP_BACKEND = "gloo"
 # one split lands at least CELL_ATTN_TOL away (31% on seeded CPU data)
 # pipeline: gemma-2b's 18 blocks as TP stages, 4 microbatches of one
 # 4096-token row.  dp-train: gemma-2b cut to 6 layers (two ranks' training
-# state share the card), DP-TP for 2 steps of TRAIN_BATCH x TRAIN_SEQ,
+# state share the card), DP-TP for DP_STEPS of TRAIN_BATCH x TRAIN_SEQ,
 # held against the single-rank step: the loss within 1e-6 relative, each
 # f32 gradient sum within 1e-6 of its leaf's largest element (the sums
 # add in another order), the ranks' weights bitwise equal, and within
@@ -649,6 +716,16 @@ CARD = "not read"
 
 class SmokeError(RuntimeError):
     pass
+
+
+def timed(fn, *args, tag: str = "", **kwargs):
+    """``fn(*args, **kwargs)``, then a line with its seconds: ``[tag]
+    phase: s`` (the tag defaults to the phase's name)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    tag = tag or fn.__name__.removeprefix("phase_").replace("_", "-")
+    say(f"[{tag}] phase: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def need(cond: bool, what: str) -> None:
@@ -3041,7 +3118,8 @@ def _held(tag, what, kern, plain) -> float:
 
 class FlashModes:
     """Counts kernel 12's launches by mask while active: ``sliding``
-    (a window), ``prefix`` (prefix_len > 0), ``causal``, ``full``.  The
+    (a window), ``prefix`` (prefix_len > 0), ``causal``, ``full``; and
+    in ``lse`` those that return ``lse`` (training's).  The
     attention layer's handle on the kernel module (``models.attention.
     _fa``) is pointed at a recording stand-in; the kernel module itself is
     left alone, since its wrapper counts launches on its own name."""
@@ -3051,11 +3129,13 @@ class FlashModes:
         from repro_torch.models import attention
         self.mod, self.fa = attention, attention._fa
         self.modes = {"causal": 0, "sliding": 0, "prefix": 0, "full": 0}
+        self.lse = 0
 
         def counted(q, k, v, causal=True, window=None, **kw):
             mode = ("full" if not causal else "sliding" if window
                     else "prefix" if kw.get("prefix_len") else "causal")
             self.modes[mode] += 1
+            self.lse += bool(kw.get("return_lse"))
             return self.fa.flash_attention(q, k, v, causal, window, **kw)
         self.stand_in = SimpleNamespace(flash_attention=counted)
 
@@ -3560,17 +3640,32 @@ def _fingerprint(torch, params: dict) -> dict:
     return out
 
 
-def phase_train(torch, card: str) -> dict:
-    """Full-width gemma-2b trained on the card (see the module note).
-    Returns the launch counts of the timed steps."""
+def _layer_kinds(cfg) -> dict:
+    """{mixer: layers} of ``cfg``, in layer order."""
+    kinds: dict = {}
+    for mixer, _ in cfg.layer_specs():
+        kinds[mixer] = kinds.get(mixer, 0) + 1
+    return kinds
+
+
+def _train_steps(torch, tag: str, cfg, card: str, rows: int, steps: int,
+                 warm: bool = True) -> dict:
+    """``cfg`` drawn from the seed on the card and trained by the port's
+    train step (``launch.steps.build_train_step``: the config's
+    microbatches summed in f32, its remat, AdamW): a warm-up step when
+    ``warm``, then ``steps`` timed steps of ``rows`` x ``TRAIN_SEQ``
+    tokens from the data pipeline, kernel 12's launches counted by mask
+    (``FlashModes``).  Gates: finite losses and grad norms, every
+    trained weight changed.  Returns the model, its trained parameters,
+    the launch counts, kernel 12's launches by mask and with ``lse``,
+    the steps' metrics, the median seconds a step, the peak GiB and the
+    pipeline."""
     from repro_torch import optim
-    from repro_torch.configs import get_config
     from repro_torch.data import for_model
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import build_train_step, optimizer_config
     from repro_torch.models import Model
 
-    cfg = get_config(TRAIN_ARCH)
     mb = cfg.train_microbatches
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -3580,116 +3675,172 @@ def phase_train(torch, card: str) -> dict:
     step = build_train_step(cfg, model, ocfg)
     state = optim.init(ocfg, step.params)
     n_params = sum(p.numel() for p in step.params.values())
-    say(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params} "
-        f"trained parameters; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
-        f"{mb} microbatches, remat {cfg.remat}, moments "
-        f"{ocfg.moment_dtype}; set up in {time.perf_counter() - t0:.2f} s")
-    pipe = for_model(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+    say(f"[{tag}] {cfg.name}: {cfg.n_layers} layers "
+        f"{json.dumps(_layer_kinds(cfg))}, d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params} trained parameters; "
+        f"{rows} x {TRAIN_SEQ} tokens a step in {mb} microbatches, remat "
+        f"{cfg.remat}, moments {ocfg.moment_dtype}; set up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    pipe = for_model(cfg, batch=rows, seq_len=TRAIN_SEQ, seed=SEED)
     before = _fingerprint(torch, step.params)
-    t0 = time.perf_counter()
-    first = step(state, pipe.batch_at(0))
-    _sync(torch)
-    say(f"[train] warm-up step: {time.perf_counter() - t0:.3f} s, loss "
-        f"{float(first['loss']):.4f}")
+    if warm:
+        t0 = time.perf_counter()
+        first = step(state, pipe.batch_at(0))
+        _sync(torch)
+        say(f"[{tag}] warm-up step: {time.perf_counter() - t0:.3f} s, loss "
+            f"{float(first['loss']):.4f}")
+        del first
     reset_launch_counts()
     secs, mets = [], []
-    for i in range(1, TRAIN_STEPS + 1):
-        batch = pipe.batch_at(i)
-        _sync(torch)
-        t0 = time.perf_counter()
-        met = step(state, batch)
-        _sync(torch)
-        secs.append(time.perf_counter() - t0)
-        mets.append({k: float(v) for k, v in met.items()})
+    with FlashModes() as fm:
+        for i in range(1, steps + 1):
+            batch = pipe.batch_at(i)
+            _sync(torch)
+            t0 = time.perf_counter()
+            met = step(state, batch)
+            _sync(torch)
+            secs.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in met.items()})
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_step = 2 if cfg.remat else 1
-    want = {k: 0 for k in counts}
-    want["flash_attention"] = TRAIN_STEPS * mb * cfg.n_layers * per_step
     for i, m in enumerate(mets, 1):
-        say(f"[train] step {i}: {secs[i - 1]:.4f} s, loss {m['loss']:.4f} "
-            f"(nll {m['nll']:.4f}), grad norm {m['grad_norm']:.4f}, lr "
-            f"{m['lr']:.3g}")
+        say(f"[{tag}] step {i}: {secs[i - 1]:.4f} s, loss {m['loss']:.4f} "
+            f"(nll {m['nll']:.4f}, aux {m['aux']:.4g}), grad norm "
+            f"{m['grad_norm']:.4f}, lr {m['lr']:.3g}")
     med = statistics.median(secs)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    say(f"[train] {med:.4f} s a step (median of {TRAIN_STEPS}), "
+    tokens = rows * TRAIN_SEQ
+    say(f"[{tag}] {med:.4f} s a step (median of {steps}), "
         f"{tokens / med:.1f} tokens/s, peak {peak:.2f} GiB allocated, on "
         f"{card}")
-    say(f"[train] launches {json.dumps(counts)} (kernel 12: {TRAIN_STEPS} "
-        f"steps x {mb} microbatches x {cfg.n_layers} layers x {per_step})")
-    need(counts == want, f"train: launch counts {counts} != {want}")
     need(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
-             for m in mets), "train: a loss or grad norm is not finite")
+             for m in mets), f"{tag}: a loss or grad norm is not finite")
     after = _fingerprint(torch, step.params)
     still = [k for k in before if torch.equal(before[k], after[k])]
-    need(not still, f"train: weights unchanged: {still[:5]}")
-    say(f"[train] every one of {len(before)} trained weights changed")
-    params = step.params
-    del before, after, first, met, state, step
-    _train_paths_agree(torch, model, params, pipe.batch_at(TRAIN_STEPS + 1))
+    need(not still, f"{tag}: weights unchanged: {still[:5]}")
+    say(f"[{tag}] every one of {len(before)} trained weights changed")
+    return dict(model=model, params=step.params, counts=counts,
+                modes={k: v for k, v in fm.modes.items() if v},
+                lse=fm.lse, metrics=mets, seconds=med, peak=peak, pipe=pipe)
+
+
+def _train_micro(torch, run: dict, rows: int) -> dict:
+    """The first ``rows`` rows of a batch the steps did not see, on the
+    card."""
+    from repro_torch.training.trainer import device_batch
+    batch = device_batch(run["pipe"].batch_at(TRAIN_STEPS + 1), DEVICE)
+    return {k: v[:rows] for k, v in batch.items()}
+
+
+def _pinned(tag: str, run: dict, want_modes: dict, **kernels) -> None:
+    """The timed steps launched kernel 12 exactly ``want_modes`` times by
+    mask, each with ``lse``, the ``kernels`` given their counts, and
+    nothing else."""
+    counts = run["counts"]
+    want = {k: 0 for k in counts}
+    want.update(kernels, flash_attention=sum(want_modes.values()))
+    launched = {k: v for k, v in counts.items() if v}
+    say(f"[{tag}] launches {json.dumps(launched)}, kernel 12 by mask {json.dumps(run['modes'])}, {run['lse']} with "
+        f"lse (want {json.dumps({k: v for k, v in want.items() if v})}, "
+        f"by mask {json.dumps(want_modes)}, none other)")
+    need(counts == want, f"{tag}: launch counts {counts} != {want}")
+    need(run["modes"] == want_modes and run["lse"] == want[
+        "flash_attention"], f"{tag}: kernel 12 by mask {run['modes']}, "
+         f"{run['lse']} with lse")
+
+
+def phase_train(torch, card: str) -> dict:
+    """Full-width gemma-2b trained on the card (see the module note).
+    Returns the launch counts of the timed steps."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    mb = cfg.train_microbatches
+    run = _train_steps(torch, "train", cfg, card, TRAIN_BATCH, TRAIN_STEPS)
+    per_step = 2 if cfg.remat else 1
+    _pinned("train", run, {"causal": TRAIN_STEPS * mb * cfg.n_layers
+                           * per_step})
+    say(f"[train] kernel 12: {TRAIN_STEPS} steps x {mb} microbatches x "
+        f"{cfg.n_layers} layers x {per_step}")
+    counts, med, model, params = (run["counts"], run["seconds"],
+                                  run["model"], run["params"])
+    micro = _train_micro(torch, run, TRAIN_BATCH // mb)
+    del run
+    _train_paths_agree(torch, "train", model, params, micro)
     del params
+    _trained_attention_exact(torch, model, micro)
     _train_attention(torch, cfg, med)
     del model
     _free(torch)
     return counts
 
 
-def _train_paths_agree(torch, model, params: dict, batch: dict) -> None:
-    """The card's training path held against the blockwise one on the
-    same full-width model and the same 4096-token row: ``Model.loss``
-    with the default positions (kernel 12 with ``lse``, the f32-score
-    backward that skips the block pairs no query sees) and with the
-    same positions given (``blockwise_forward``, the reference's
-    bf16-score backward over every block pair), remat as in the step.
-    Gates (``TRAIN_PATH_TOL``): the losses, the global gradient norms,
-    and every trained weight's gradient (the norm of the difference
-    over the norm of the blockwise one)."""
-    from repro_torch.training.trainer import device_batch
-    micro = {k: v[:1] for k, v in device_batch(batch, DEVICE).items()}
-    pos = torch.arange(TRAIN_SEQ, device=DEVICE)[None]
-
-    def loss_and_grads(positions):
-        for p in params.values():
-            p.grad = None
-        loss, _ = model.loss(micro, positions)
+def _loss_grads(torch, model, params: dict, micro: dict, plain: bool
+                ) -> tuple:
+    """(loss, {key: gradient}) of ``Model.loss`` on ``micro``, remat as in
+    the step: the kernel path (kernel 12 with ``lse`` and the f32-score
+    backward that skips the block pairs no query sees; ``SSDScan``:
+    kernel 13, the chunked form's gradient), or with ``plain`` kernels
+    off and the model's positions given (``blockwise_forward``, the
+    reference's bf16-score backward over every block pair; autograd of
+    the plain scan)."""
+    from repro_torch.quant import kernel_mode
+    rows = next(iter(micro.values())).shape[0]
+    pos = torch.arange(TRAIN_SEQ, device=DEVICE).expand(rows, TRAIN_SEQ)
+    for p in params.values():
+        p.grad = None
+    with kernel_mode(False if plain else None):
+        loss, _ = model.loss(micro, pos if plain else None)
         loss.backward()
-        grads = {k: p.grad for k, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        return float(loss.detach()), grads
+    grads = {k: p.grad for k, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return float(loss.detach()), grads
 
-    kl, kg = loss_and_grads(None)
-    bl, bg = loss_and_grads(pos)
-    norm = {}
+
+def _grads_apart(torch, kg: dict, bg: dict) -> tuple:
+    """(the global norms of ``kg`` and ``bg``, each key's norm of the
+    difference over ``bg``'s norm)."""
+    kn = bn = 0.0
     rel = {}
-    for k in params:
+    for k in kg:
         a, b = kg[k].float(), bg[k].float()
-        norm[k] = (float(torch.linalg.vector_norm(a)),
-                   float(torch.linalg.vector_norm(b)))
-        rel[k] = float(torch.linalg.vector_norm(a - b)) / max(norm[k][1],
-                                                             1e-30)
+        na = float(torch.linalg.vector_norm(a))
+        nb = float(torch.linalg.vector_norm(b))
+        kn, bn = kn + na ** 2, bn + nb ** 2
+        rel[k] = float(torch.linalg.vector_norm(a - b)) / max(nb, 1e-30)
         del a, b
+    return math.sqrt(kn), math.sqrt(bn), rel
+
+
+def _train_paths_agree(torch, tag: str, model, params: dict, micro: dict,
+                       tol: dict = TRAIN_PATH_TOL) -> None:
+    """The card's training path held against the plain one on the same
+    full-width model and the same microbatch of 4096-token rows
+    (:func:`_loss_grads`).  Gates (``tol``): the losses, the global
+    gradient norms, and every trained weight's gradient (the norm of the
+    difference over the norm of the plain one)."""
+    rows = next(iter(micro.values())).shape[0]
+    kl, kg = _loss_grads(torch, model, params, micro, False)
+    bl, bg = _loss_grads(torch, model, params, micro, True)
+    kn, bn, rel = _grads_apart(torch, kg, bg)
     del kg, bg
-    kn = math.sqrt(sum(n[0] ** 2 for n in norm.values()))
-    bn = math.sqrt(sum(n[1] ** 2 for n in norm.values()))
     worst = max(rel, key=rel.get)
     loss_rel, norm_rel = abs(kl - bl) / abs(bl), abs(kn - bn) / bn
-    say(f"[train] one microbatch (1 x {TRAIN_SEQ}), kernel 12 path vs "
-        f"blockwise path: loss {kl:.6f} vs {bl:.6f} (relative "
+    dtype = str(next(iter(params.values())).dtype).removeprefix("torch.")
+    say(f"[{tag}] one microbatch ({rows} x {TRAIN_SEQ}, weights {dtype}), "
+        f"kernel path vs plain path: loss {kl:.6f} vs {bl:.6f} (relative "
         f"{loss_rel:.3g}), grad norm {kn:.6f} vs {bn:.6f} (relative "
         f"{norm_rel:.3g}), largest relative gradient difference "
         f"{rel[worst]:.3g} ({worst}), median "
         f"{statistics.median(rel.values()):.3g} over {len(rel)} weights "
-        f"(limits {TRAIN_PATH_TOL})")
-    need(math.isfinite(kl) and loss_rel <= TRAIN_PATH_TOL["loss"],
-         "train: the kernel 12 path's loss leaves the blockwise path's")
-    need(math.isfinite(kn) and norm_rel <= TRAIN_PATH_TOL["grad_norm"],
-         "train: the kernel 12 path's grad norm leaves the blockwise one")
-    need(rel[worst] <= TRAIN_PATH_TOL["leaf"],
-         f"train: the gradient of {worst} leaves the blockwise path's")
+        f"(limits {tol})")
+    need(math.isfinite(kl) and loss_rel <= tol["loss"],
+         f"{tag}: the kernel path's loss leaves the plain path's")
+    need(math.isfinite(kn) and norm_rel <= tol["grad_norm"],
+         f"{tag}: the kernel path's grad norm leaves the plain path's")
+    need(rel[worst] <= tol["leaf"],
+         f"{tag}: the gradient of {worst} leaves the plain path's")
     _free(torch)
-    _trained_attention_exact(torch, model, micro)
 
 
 def _trained_attention_exact(torch, model, micro: dict) -> None:
@@ -3840,6 +3991,193 @@ def _train_attention(torch, cfg, step_s: float) -> None:
         f"{bwd_ms * calls / 1e3:.4f} s, {bwd_ms * calls / 1e3 / step_s:.3f} "
         f"of a step")
     del q, k, v, out, lse, do
+
+
+def phase_train_zamba2(torch, card: str) -> dict:
+    """Full-width zamba2-1.2b trained on the card (see the module note).
+    Returns the launch counts of the timed steps."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ZAMBA_ARCH)
+    mb = cfg.train_microbatches
+    kinds = _layer_kinds(cfg)
+    run = _train_steps(torch, "train-zamba2", cfg, card, TRAIN_BATCH,
+                       TRAIN_STEPS)
+    per = TRAIN_STEPS * mb * (2 if cfg.remat else 1)
+    _pinned("train-zamba2", run, {"causal": per * kinds["attn"]},
+            ssd_scan=per * kinds["mamba2"])
+    say(f"[train-zamba2] kernel 13: {TRAIN_STEPS} steps x {mb} microbatches"
+        f" x {kinds['mamba2']} Mamba-2 layers x {per // TRAIN_STEPS // mb}; "
+        f"kernel 12: the same x {kinds['attn']} attention layers")
+    counts, med, model, params = (run["counts"], run["seconds"],
+                                  run["model"], run["params"])
+    micro = _train_micro(torch, run, TRAIN_BATCH // mb)
+    del run
+    # in bf16 a rounding-level change of kernel 13's output moves an a_log
+    # gradient past the leaf limit: the paths are held in f32, on the
+    # trained weights cast up (TRAIN_F32_PATH_TOL)
+    del params
+    m32, p32 = _f32_copy(torch, model)
+    _train_paths_agree(torch, "train-zamba2", m32, p32, micro,
+                       TRAIN_F32_PATH_TOL)
+    del m32, p32
+    _trained_scan_exact(torch, model, micro, med, card)
+    del model, micro
+    _free(torch)
+    return counts
+
+
+def _f32_copy(torch, model) -> tuple:
+    """(an f32 model holding ``model``'s weights, its trained
+    parameters)."""
+    from repro_torch.models import Model
+    from repro_torch.training.trainer import trained_parameters
+    m32 = Model(dataclasses.replace(model.cfg, param_dtype="float32"),
+                device=DEVICE)
+    with torch.no_grad():
+        for a, b in zip(m32.parameters(), model.parameters()):
+            a.copy_(b)
+    return m32, trained_parameters(m32)
+
+
+def _trained_scan_exact(torch, model, micro: dict, step_s: float,
+                        card: str) -> None:
+    """``SSDScan`` on the trained model's own scan inputs: the last
+    Mamba-2 layer's (x, log_a, b, c) for one microbatch (taken from a
+    forward without grad), from a seeded initial state, with seeded
+    cotangents of y and the final state.  Its forward launches kernel 13
+    once, at the step's shape (32 chunks of look-back); y and the final
+    state are held against the plain scan in f64 within ``SSD_TOL`` of
+    each element plus ``SSD_TOL`` of the largest |value| (the check
+    phase's rule); its five gradients against autograd of the plain scan
+    in f64 (the chunk loop, another form than the backward's chunked
+    recompute): dx, db, dc and dh0 by relative L2, dlog_a by its largest
+    error over its largest |value| (its terms cancel), each within
+    ``TRAIN_SSD_F64_TOL``.  Then kernel 13's forward (a CUDA-graph
+    replay) and the plain backward (``ssd_scan_grads`` for dy alone, as
+    the step calls it) timed alone at that shape, times the calls a
+    step makes, and each one's share of a step."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm as ssm_mod
+    caught = {"calls": 0, "last": None}
+
+    def spy(x, log_a, b, c, chunk=128, h0=None):
+        caught["calls"] += 1
+        caught["last"] = (x, log_a, b, c, chunk)
+        return ss.ssd_scan_trainable(x, log_a, b, c, chunk, h0)
+
+    real = ssm_mod._ssd
+    ssm_mod._ssd = SimpleNamespace(ssd_scan_trainable=spy,
+                                   ssd_scan_plain=ss.ssd_scan_plain)
+    try:
+        with torch.no_grad():
+            model.loss(micro)
+    finally:
+        ssm_mod._ssd = real
+    cfg = model.cfg
+    n_mamba = _layer_kinds(cfg)["mamba2"]
+    need(caught["calls"] == n_mamba,
+         f"train-zamba2: {caught['calls']} scans caught")
+    x, la, b, c, chunk = caught.pop("last")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    where = (f"B {B}, S {S}, H {H}, G {G}, P {P}, N {N}, chunk {chunk}, "
+             f"f32")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    h0, dfinal = (torch.randn((B, H, P, N), generator=gen, device=DEVICE)
+                  for _ in range(2))
+    dy = torch.randn(x.shape, generator=gen, device=DEVICE)
+    ins = [a.clone().requires_grad_() for a in (x, la, b, c, h0)]
+    before = ss.ssd_scan.launches
+    y, final = ss.SSDScan.apply(*ins[:4], chunk, ins[4])
+    torch.autograd.backward([y, final], [dy, dfinal])
+    _sync(torch)
+    need(ss.ssd_scan.launches == before + 1,
+         "train-zamba2: SSDScan's forward did not launch kernel 13 once")
+    ref = [a.double().requires_grad_() for a in (x, la, b, c, h0)]
+    y64, f64 = ss.ssd_scan_plain(*ref[:4], chunk, ref[4])
+    torch.autograd.backward([y64, f64], [dy.double(), dfinal.double()])
+    errs = {}
+    for name, got, want in zip(("dx", "dlog_a", "db", "dc", "dh0"),
+                               (i.grad for i in ins), (r.grad for r in ref)):
+        d = got.double() - want
+        errs[name] = float(
+            d.abs().max() / want.abs().max() if name == "dlog_a" else
+            torch.linalg.vector_norm(d) / torch.linalg.vector_norm(want))
+        need(bool(got.isfinite().all()), f"train-zamba2: {name} not finite")
+    outs = {}
+    for name, got, want in (("y", y, y64), ("final", final, f64)):
+        got, want = got.detach().double(), want.detach()
+        d, big = (got - want).abs(), want.abs().max()
+        outs[name] = (float(d.max() / big), bool(got.isfinite().all()) and
+                      bool((d <= SSD_TOL * want.abs() + SSD_TOL * big).all()))
+    say(f"[train-zamba2] SSDScan on the trained model's last Mamba-2 "
+        f"layer's scan inputs ({where}), against the plain scan and its "
+        f"autograd in f64: "
+        + ", ".join(f"{n} {e:.3g} of its largest |value| "
+                    f"{'ok' if ok else 'FAIL'}" for n, (e, ok) in outs.items())
+        + f" (rtol={SSD_TOL:g} + {SSD_TOL:g} x max); "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (relative L2; dlog_a largest error over largest |value|; "
+        f"limit {TRAIN_SSD_F64_TOL:g})")
+    need(all(ok for _, ok in outs.values()),
+         "train-zamba2: kernel 13's y or final state at the training shape "
+         "leaves the f64 plain scan's")
+    need(all(e <= TRAIN_SSD_F64_TOL for e in errs.values()),
+         "train-zamba2: SSDScan's gradients leave the f64 plain scan's")
+    del ins, ref, y, final, y64, f64, h0, dfinal
+    _free(torch)
+    fwd_ms = time_ms(torch, [lambda: ss.ssd_scan(x, la, b, c, chunk)])
+    bwd_ms = _event_ms(torch, lambda: ss.ssd_scan_grads(
+        x, la, b, c, chunk, None, dy, None))
+    BH, L = B * H, chunk
+    tri = L * (L + 1) // 2
+    ops = BH * (S // L) * (2 * tri * (N + P) + 4 * L * P * N)
+    nbytes = 4 * (2 * BH * S * P + BH * S + 2 * B * S * G * N + BH * P * N)
+    fwd_bound, by = bound(nbytes, ops, F32_OPS_PER_S)
+    mb = cfg.train_microbatches
+    fwd_calls, bwd_calls = mb * n_mamba * 2, mb * n_mamba
+    say(f"[train-zamba2] kernel 13 forward ({where}): {fwd_ms:.4f} ms a "
+        f"layer call (bound {fwd_bound:.4f} ms by {by}) x {fwd_calls} a "
+        f"step = {fwd_ms * fwd_calls / 1e3:.4f} s, "
+        f"{fwd_ms * fwd_calls / 1e3 / step_s:.3f} of a step; the plain "
+        f"backward (the chunked form recomputed in f32 torch, autograd): "
+        f"{bwd_ms:.3f} ms a layer call x {bwd_calls} a step = "
+        f"{bwd_ms * bwd_calls / 1e3:.4f} s, "
+        f"{bwd_ms * bwd_calls / 1e3 / step_s:.3f} of a step, on {card}")
+    del x, la, b, c, dy
+    _free(torch)
+
+
+def phase_train_families(torch, card: str) -> list:
+    """One training step of each path only the CPU had trained (see the
+    module note).  Returns each model's launch counts."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch, layers, want_modes in TRAIN_FAMILIES:
+        tag = f"train-{arch}"
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  train_microbatches=1)
+        run = _train_steps(torch, tag, cfg, card, 1, 1, warm=False)
+        _pinned(tag, run, want_modes)
+        if cfg.moe is not None and layers > cfg.moe.first_k_dense:
+            aux = run["metrics"][-1]["aux"]
+            say(f"[{tag}] the MoE load-balance term: {aux:.6g}")
+            need(math.isfinite(aux) and aux > 0,
+                 f"{tag}: the MoE auxiliary loss is {aux}")
+        out.append(run["counts"])
+        model, params = run["model"], run["params"]
+        micro, peak = _train_micro(torch, run, 1), run["peak"]
+        del run
+        _train_paths_agree(torch, tag, model, params, micro)
+        del model, params, micro
+        _free(torch)
+        say(f"[{tag}] peak {peak:.2f} GiB allocated; "
+            f"{time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def phase_train_restart(torch) -> None:
@@ -4958,31 +5296,36 @@ def _tp_runs(engines, lengths=TP_FAMILY_LENGTHS, seed=SEED + 30, **kw):
     return runs
 
 
+def _unsharded_tokens(torch, model, run: dict) -> list:
+    """The tokens of a TP run spec's requests (``_tp_runs``) served
+    unsharded on ``model`` under the full plan, every request OK."""
+    from repro_torch.quant import QuantPlan
+    from repro_torch.serving import (PagedServingEngine, Request,
+                                     ServingEngine)
+    cfg = model.cfg
+    cls = PagedServingEngine if run["engine"] == "paged" else ServingEngine
+    engine = cls(model, quant_plan=QuantPlan.full(), **run["kw"])
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
+            for i, p in enumerate(_prompts(cfg, run["lengths"], run["seed"]))]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    _check_served(cfg, reqs, run["new"])
+    del engine
+    _free(torch)
+    return [r.generated for r in reqs]
+
+
 def _tp_want(torch, model, tag, runs=(), logits=None, **extra) -> None:
     """Record what ``tag``'s TP-2 phase is held against, bitwise, on this
     phase's unsharded (quantized) ``model``: the tokens of each of
     ``runs`` and, with ``logits`` (an input of ``_tp_logits``), the
     unsharded logits.  Appended to ``TP_SPECS`` for
     ``phase_tp_families``."""
-    from repro_torch.quant import QuantPlan
-    from repro_torch.serving import (PagedServingEngine, Request,
-                                     ServingEngine)
-    cfg = model.cfg
-    spec = dict(tag=tag, cfg=cfg, runs=list(runs), tokens={}, **extra)
+    spec = dict(tag=tag, cfg=model.cfg, runs=list(runs), tokens={},
+                **extra)
     for run in runs:
-        cls = PagedServingEngine if run["engine"] == "paged" else \
-            ServingEngine
-        engine = cls(model, quant_plan=QuantPlan.full(), **run["kw"])
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
-                for i, p in enumerate(_prompts(cfg, run["lengths"],
-                                               run["seed"]))]
-        for r in reqs:
-            engine.submit(r)
-        engine.run_until_done()
-        _check_served(cfg, reqs, run["new"])
-        spec["tokens"][run["name"]] = [r.generated for r in reqs]
-        del engine
-        _free(torch)
+        spec["tokens"][run["name"]] = _unsharded_tokens(torch, model, run)
     if logits is not None:
         spec["logits_input"] = logits
         spec["logits"] = _tp_logits(torch, model, None, logits)
@@ -6377,84 +6720,90 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     try:
-        phase_build()
-        card = phase_card(torch)
-        errs = phase_check(torch)
-        phase_check_fallback(torch, errs)
-        phase_check_prefix(torch)
-        ops_counts, ops_errs = phase_ops(torch)
+        timed(phase_build)
+        card = timed(phase_card, torch)
+        errs = timed(phase_check, torch)
+        timed(phase_check_fallback, torch, errs, tag="check-fallback")
+        timed(phase_check_prefix, torch, tag="check-prefix")
+        ops_counts, ops_errs = timed(phase_ops, torch)
         errs.update(ops_errs)
-        counts, serve = phase_serve(torch)
+        counts, serve = timed(phase_serve, torch)
         # each run sets the counters to 0 first; the JSON line sums them
-        paged_counts, paged_tokens, paged_ms = phase_serve_paged(
-            torch, serve["model"])
+        paged_counts, paged_tokens, paged_ms = timed(
+            phase_serve_paged, torch, serve["model"], tag="serve-paged")
         runs = [counts, paged_counts,
-                phase_obs(torch, serve, (paged_tokens, paged_ms), card)]
+                timed(phase_obs, torch, serve, (paged_tokens, paged_ms),
+                      card)]
         torch.cuda.empty_cache()
-        runs.append(phase_serve_long(torch, serve["model"]))
+        runs.append(timed(phase_serve_long, torch, serve["model"]))
         torch.cuda.empty_cache()
-        phase_reference(torch, serve["model"], SEED)
-        phase_profile(torch, serve["model"], SEED)
-        long_counts = phase_forward_long(torch, serve["model"])
-        chaos_counts = phase_chaos(torch, serve)
+        timed(phase_reference, torch, serve["model"], SEED)
+        timed(phase_profile, torch, serve["model"], SEED)
+        long_counts = timed(phase_forward_long, torch, serve["model"])
+        chaos_counts = timed(phase_chaos, torch, serve)
         cfg = serve["model"].cfg
         ref_input = _reference_input(torch, cfg, SEED + 4)
         ref_logits = reference_logits(torch, serve["model"], ref_input)
+        tp_paged = dict(name="serve-tp-paged", engine="paged",
+                        lengths=TP_PAGED_PROMPTS, seed=SEED + 1,
+                        new=TP_PAGED_NEW, kw=dict(
+                            n_slots=8, max_len=1024, prefill_bucket=64,
+                            block_size=PAGED_BLOCK, prefill_chunk=64,
+                            num_blocks=TP_PAGED_NUM_BLOCKS))
+        tp_paged_tokens = _unsharded_tokens(torch, serve["model"], tp_paged)
         del serve["model"]
         gc.collect()
         torch.cuda.empty_cache()
-        runs.append(phase_tp(torch, "serve-tp", cfg, [
+        runs.append(timed(phase_tp, torch, "serve-tp", cfg, [
             dict(name="serve-tp", engine="ring", lengths=serve["lengths"],
                  seed=SEED, new=NEW_TOKENS, kw=dict(
                      n_slots=8, max_len=1024, prefill_bucket=64)),
-            dict(name="serve-tp-paged", engine="paged",
-                 lengths=PAGED_PROMPTS, seed=SEED + 1, new=NEW_TOKENS,
-                 kw=dict(n_slots=8, max_len=1024, prefill_bucket=64,
-                         block_size=PAGED_BLOCK, prefill_chunk=64,
-                         num_blocks=PAGED_NUM_BLOCKS))],
-            {"serve-tp": serve["tokens"], "serve-tp-paged": paged_tokens},
-            ref=(ref_input, ref_logits)))
-        moe_counts, moe = phase_serve_moe(torch)
+            tp_paged],
+            {"serve-tp": serve["tokens"], "serve-tp-paged": tp_paged_tokens},
+            ref=(ref_input, ref_logits), tag="serve-tp"))
+        moe_counts, moe = timed(phase_serve_moe, torch)
         runs.append(moe_counts)
-        moe_paged_counts, _, _ = phase_serve_paged(torch, moe["model"],
-                                                   "serve-moe-paged")
+        moe_paged_counts, _, _ = timed(phase_serve_paged, torch,
+                                       moe["model"], "serve-moe-paged",
+                                       tag="serve-moe-paged")
         runs.append(moe_paged_counts)
         torch.cuda.empty_cache()
-        phase_reference(torch, moe["model"], SEED, "reference-moe")
-        phase_profile(torch, moe["model"], SEED, "profile-moe")
+        timed(phase_reference, torch, moe["model"], SEED, "reference-moe",
+              tag="reference-moe")
+        timed(phase_profile, torch, moe["model"], SEED, "profile-moe",
+              tag="profile-moe")
         moe_cfg = moe["model"].cfg
         del moe["model"]
         gc.collect()
         torch.cuda.empty_cache()
-        runs.append(phase_tp(torch, "serve-moe-tp", moe_cfg, [
+        runs.append(timed(phase_tp, torch, "serve-moe-tp", moe_cfg, [
             dict(name="serve-moe-tp", engine="ring",
                  lengths=serve["lengths"], seed=SEED + 3, new=NEW_TOKENS,
                  kw=dict(n_slots=8, max_len=1024, prefill_bucket=64))],
-            {"serve-moe-tp": moe["tokens"]}))
-        dit_counts = phase_serve_dit(torch)
-        zamba_counts = phase_serve_zamba2(torch)
+            {"serve-moe-tp": moe["tokens"]}, tag="serve-moe-tp"))
+        dit_counts = timed(phase_serve_dit, torch)
+        zamba_counts = timed(phase_serve_zamba2, torch)
         # the dense family beyond gemma-2b: their serve runs launch
         # kernel 12 zero times, their cacheless forwards only kernel 12
         # (counted below)
-        g3_counts, g3_forward = phase_serve_gemma3(torch)
-        pali_counts, pali_forward = phase_serve_paligemma(torch)
-        runs += [g3_counts, pali_counts, phase_musicgen(torch)]
-        runs += [phase_serve_deep(torch, arch) for arch in DEEP_ARCHS]
-        v3_counts, v3_forward, v3_steps = phase_serve_v3(torch)
-        runs += [v3_counts, phase_serve_xlstm(torch)]
+        g3_counts, g3_forward = timed(phase_serve_gemma3, torch)
+        pali_counts, pali_forward = timed(phase_serve_paligemma, torch)
+        runs += [g3_counts, pali_counts, timed(phase_musicgen, torch)]
+        runs += [timed(phase_serve_deep, torch, arch, tag=f"serve-{arch}")
+                 for arch in DEEP_ARCHS]
+        v3_counts, v3_forward, v3_steps = timed(phase_serve_v3, torch)
+        runs += [v3_counts, timed(phase_serve_xlstm, torch)]
         # every family and DiT at TP-2, held against the phases above
-        tp_counts, k6_gated = phase_tp_families(torch, card)
-        train_counts = phase_train(torch, card)
-        phase_train_restart(torch)
-        launch_runs = []
-        for name, fn in (("launch", lambda: phase_launch(torch) or {}),
-                         ("cell-decode32k",
-                          lambda: phase_cell_decode32k(torch, card)),
-                         ("pipeline", lambda: phase_pipeline(torch, card)),
-                         ("dp-train", lambda: phase_dp_train(torch, card))):
-            t0 = time.perf_counter()
-            launch_runs.append(fn())
-            say(f"[{name}] phase: {time.perf_counter() - t0:.2f} s")
+        tp_counts, k6_gated = timed(phase_tp_families, torch, card)
+        train_runs = [timed(phase_train, torch, card),
+                      timed(phase_train_zamba2, torch, card)]
+        train_runs += timed(phase_train_families, torch, card)
+        timed(phase_train_restart, torch)
+        launch_runs = [timed(lambda: phase_launch(torch) or {},
+                             tag="launch"),
+                       timed(phase_cell_decode32k, torch, card),
+                       timed(phase_pipeline, torch, card),
+                       timed(phase_dp_train, torch, card)]
         counts = {k: sum(r[k] for r in runs) for k in counts}
         need(all(v > 0 for k, v in counts.items()
                  if k not in OPS_KERNELS + DEGRADED_KERNELS),
@@ -6465,8 +6814,8 @@ def main() -> int:
         counts = {k: v + dit_counts[k] + zamba_counts[k] + tp_counts[k]
                   for k, v in counts.items()}
         # kernel 14: the ops phase's own exact count; kernel 13: the ops
-        # phase's and serve-zamba2's; kernel 12: its model paths',
-        # forward-long and serve-dit
+        # phase's, serve-zamba2's and train-zamba2's; kernel 12: its model
+        # paths', forward-long, serve-dit and the training runs
         counts.update({k: ops_counts[k] for k in OPS_KERNELS})
         counts["ssd_scan"] += zamba_counts["ssd_scan"] + tp_counts["ssd_scan"]
         counts["finite_screen"] = chaos_counts["finite_screen"]
@@ -6476,15 +6825,15 @@ def main() -> int:
                                      + g3_forward["flash_attention"]
                                      + pali_forward["flash_attention"]
                                      + v3_forward["flash_attention"]
-                                     + tp_counts["flash_attention"]
-                                     + train_counts["flash_attention"])
-        # the launch layer's runs: kernels 9 and 10 (cell-decode32k), 1-4
-        # and 12 (pipeline), 12 (dp-train)
-        for run in launch_runs:
+                                     + tp_counts["flash_attention"])
+        # the training runs: kernels 12 and 13 only; the launch layer's
+        # runs: kernels 9 and 10 (cell-decode32k), 1-4 and 12 (pipeline),
+        # 12 (dp-train)
+        for run in train_runs + launch_runs:
             for k, v in run.items():
                 counts[k] += v
-        kernels = phase_times(torch, serve, moe, counts, errs, card,
-                              v3_steps)
+        kernels = timed(phase_times, torch, serve, moe, counts, errs, card,
+                        v3_steps, tag="times")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -3,7 +3,10 @@
 
 A prefill (S > 1, or no cache) runs the chunked SSD scan, kernel 13 on
 CUDA tensors (``kernels/ssd_scan.py``), from the cache's state when there
-is a cache; a ragged last chunk is exact, so nothing is padded.  The
+is a cache; a ragged last chunk is exact, so nothing is padded.  A scan
+that autograd differentiates (training) goes through
+``kernels.ssd_scan.SSDScan``: the kernel's forward, the reference's
+gradient of the chunked form in plain torch.  The
 S == 1 decode is the O(1) recurrence ``h = exp(dt·A) h + (dt·b) xᵀ, y =
 c·h`` in plain torch, as the reference computes it outside any Pallas
 kernel.  The projections stay bf16 ``torch.matmul``: no plan kind covers
@@ -149,7 +152,7 @@ def mamba2_apply(m: Mamba2, x: torch.Tensor, cfg: SSMConfig,
 
     if cache is None or S > 1:
         h0 = cache["ssm"].float() if cache is not None else None
-        scan = (_ssd.ssd_scan if kernels_enabled()
+        scan = (_ssd.ssd_scan_trainable if kernels_enabled()
                 else _ssd.ssd_scan_plain)
         y, final = scan(x_scaled, log_a, b, c, cfg.chunk, h0)
     else:

@@ -3189,6 +3189,85 @@ def test_remat_train_step_launches_kernel_12_twice_a_layer(dev):
                step.params.items())
 
 
+@pytest.mark.parametrize("layout", ["model", "flat"])
+def test_ssd_scan_function_on_the_card(dev, layout):
+    """``SSDScan`` on the card: one launch of kernel 13 a forward and
+    none in the backward; y and the final state within 2e-4 of their
+    largest |value| (the kernel's tolerance) and dx, dlog_a, db, dc, dh0
+    within 1e-4 of each one's largest |value| (the same chunked
+    recompute in f32, summed in other orders) of the Function on CPU
+    copies (its plain forward).  A zamba2 layer's widths (P = N = 64,
+    chunk 128), S 300 (a ragged last chunk), from an initial state; the
+    model's layout with b and c per group (H 8 on G 2), and flattened
+    heads."""
+    from repro_torch.kernels import ssd_scan as ss
+    rng = _gen(44)
+    B, S, H, G, P, N = (2, 300, 8, 2, 64, 64) if layout == "model" else (
+        6, 300, 1, 1, 64, 64)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    arrs = [rng.standard_normal((B, S, H, P)) * dt[..., None],
+            -dt * np.arange(1, H + 1), rng.standard_normal((B, S, G, N)),
+            rng.standard_normal((B, S, G, N)),
+            rng.standard_normal((B, H, P, N)),
+            rng.standard_normal((B, S, H, P)),
+            rng.standard_normal((B, H, P, N))]
+    if layout == "flat":
+        arrs = [a.squeeze(1 if i in (4, 6) else 2)
+                for i, a in enumerate(arrs)]
+    arrs = [a.astype(np.float32) for a in arrs]
+    out = {}
+    for where in ("cpu", dev):
+        ins = [_t(a, where).requires_grad_() for a in arrs[:5]]
+        before = ss.ssd_scan.launches
+        y, final = ss.SSDScan.apply(*ins[:4], 128, ins[4])
+        launched = ss.ssd_scan.launches - before
+        torch.autograd.backward([y, final], [_t(arrs[5], where),
+                                             _t(arrs[6], where)])
+        if where != "cpu":
+            torch.cuda.synchronize()
+            assert launched == 1 and ss.ssd_scan.launches == before + 1
+        out[str(where)] = [y, final] + [i.grad for i in ins]
+    for i, (got, want) in enumerate(zip(out[str(dev)], out["cpu"])):
+        tol = 2e-4 if i < 2 else 1e-4
+        err = (got.detach().cpu() - want.detach()).abs().max().item()
+        assert err <= tol * want.detach().abs().max().item(), (i, err)
+
+
+def test_zamba2_smoke_train_step_on_the_card(dev):
+    """zamba2-smoke with remat at 2112 tokens through the port's train
+    step on the card: kernel 13 in each Mamba-2 layer's forward and its
+    recompute, kernel 12 with ``lse`` likewise in each attention layer
+    (2 a layer a microbatch each, none other), the loss finite and every
+    weight moved."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import for_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(reduced_config(get_config("zamba2-1.2b")),
+                              remat=True)
+    model = Model(cfg).init(0, device=dev)
+    step = build_train_step(cfg, model)
+    state = optim.init(optim.AdamWConfig(), step.params)
+    before = {k: p.detach().clone() for k, p in step.params.items()}
+    reset_launch_counts()
+    met = step(state, for_model(cfg, 4, 2112, seed=0).batch_at(0))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    mixers = [m for m, _ in cfg.layer_specs()]
+    want = {k: 0 for k in counts}
+    want["ssd_scan"] = cfg.train_microbatches * mixers.count("mamba2") * 2
+    want["flash_attention"] = cfg.train_microbatches * mixers.count(
+        "attn") * 2
+    assert counts == want and want["ssd_scan"] > 0
+    assert np.isfinite(float(met["loss"]))
+    assert np.isfinite(float(met["grad_norm"]))
+    assert all(not torch.equal(before[k], p) for k, p in
+               step.params.items())
+
+
 def test_guard_refuses_training_through_kernels_without_a_backward(dev):
     """On the card, kernels 1-4 and 13 refuse an input that requires grad
     under grad mode, naming the kernel; under ``no_grad`` they launch."""
