@@ -111,16 +111,35 @@ the JAX package.  Phases, each printing its lines, then its seconds as
             printed and below the 6.62 GiB of the whole draw), and
             serve the serve phase's 8 requests: every request OK, the
             ranks agree, the
-            tokens bitwise the serve run's, per rank 6 launches per layer
-            per decode step and 5 per prefill, 2 MAX + 2 SUM reductions
-            per layer per forward; ms per decode step, the collectives'
-            host time, memory per rank.
+            tokens bitwise the serve run's; each rank holds half the
+            vocabulary (the embedding's rows) and, gemma's one KV head
+            being whole, half the ring's slots (cut by sequence): per
+            rank 7 launches per layer per decode step (kernels 9 and 10
+            over the rank's slots and every rank's partials, never
+            kernel 5) and 5 per prefill, 2 MAX + 2 SUM reductions per
+            layer per forward, 1 gather a layer a prefill (the row's
+            slots) and 2 a decode step (the q heads, the partials), the
+            embedding's SUM and the logits' gather a forward; ms per
+            decode step, the collectives' host time, memory per rank.
    serve-tp-paged — the same ranks through the paged engine: eight of
             serve-paged's prompts over a pool of 60 blocks that must
             preempt (``TP_PAGED_PROMPTS``); preempts, drains, tokens
-            bitwise the same run's unsharded on the serve model.
+            bitwise the same run's unsharded on the serve model (the
+            pools are not cut by sequence: kernel 11, 6 launches).
+   serve-long-tp — the same ranks serve serve-long's requests (prompts
+            5000, 2500, 300, 40 in 8192 slots, 16 new tokens): tokens
+            bitwise serve-long's (each rank walks its 4096 slots in 2
+            splits: the 4 splits of the single card's walk); kernels 9
+            and 10 on every layer's decode step on each rank, kernel 5
+            never; each rank's cache (the allocator's bytes at the
+            engine's allocation) and embedding within 1% of the dry
+            run's per-device shards on a model-2 grid; rank 0's ms a
+            step beside the single card's; the host ms of each
+            collective of the path (the logits' gather, the embedding's
+            SUM, the q heads' and the partials' gathers).
    reference-tp — one prefill + decode step at TP-2: logits bitwise the
-            unsharded kernel path's.
+            unsharded kernel path's with the walk in 2 splits (the
+            ranks' 1 split each, ``ops.walk_as_ranks``).
    serve-moe — gemma-2b is freed; full-width qwen2-moe-a2.7b (random
             weights from the seed, 24 layers, 60 experts top-4 + the
             shared MLP, built in bf16 and quantized once) served by the
@@ -221,23 +240,38 @@ the JAX package.  Phases, each printing its lines, then its seconds as
             bitwise; prefill + 2 decode steps' logits bitwise (musicgen
             fed frames, 4 steps; the bf16 mixers, zamba2's Mamba-2,
             deepseek-v3's MLA, xlstm's mLSTM and sLSTM, gather their
-            heads before a whole out-projection), and deepseek-v3's
+            heads before a whole out-projection; paligemma's ring and
+            deepseek-v3's latent, cut by sequence, held, tokens and
+            logits, against the unsharded run walked as the ranks walk
+            (``ops.walk_as_ranks``: the ring in 2 splits, the latent in
+            2 merged chunks, the merge plain torch), that run's tokens
+            held against the default walk's by the near-tie rule
+            (``_walks_agree``; serve-deepseek-v3 also holds the latent's
+            walk against the default walk's attention and logits with
+            the router pinned, beside two planted faults in the merge,
+            ``_mla_walk_gates``), deepseek-v3's logits on rows that
+            cross the ranks' 512-slot boundary, and deepseek-v3's
             cacheless forward of 2304 tokens (kernel 12 once a layer
-            over the rank's 64 heads, D 192) on its last row likewise;
-            each rank holding 1/p of each cut leaf and of its caches
-            (KV, SSM, xLSTM heads; MLA's latent whole); launches
-            the manifest's and collectives per layer per forward pinned;
+            over the rank's 64 heads, D 192) on its last row bitwise;
+            each rank holding 1/p of each cut leaf (the vocabulary's
+            rows too) and of its caches (KV, SSM, xLSTM heads; the
+            slots of paligemma's ring and of MLA's latent); launches
+            the manifest's and collectives per forward pinned
+            (``manifest.run_collectives``);
             DiT-XL/2's first serve-dit batch at 2 steps through
             ``DiffusionEngine(tp=)``, latents bitwise, 7 launches per
             block per evaluation (kernel 12 non-causal over 8 heads);
             degraded gemma-2b: tokens bitwise the unsharded degraded
-            run's at 14 launches per layer per decode step (kernel 6's
-            gated form, on its own counter, 2 a layer and forward) and
-            5 MAX + 4
+            run's at 15 launches per layer per decode step (kernel 6's
+            gated form, on its own counter, 2 a layer and forward;
+            kernels 9 and 10 on the ring cut by sequence) and 5 MAX + 4
             SUM per layer per forward, a decode step under sync debug
             mode "error" free of host syncs but gloo's staging copies, an
             inf scale carried, the 1e-4 soak equal to the unsharded one
-            and the weights restored bitwise.  Rank 0's peak while
+            and the weights restored bitwise; ``protect_tree`` on the
+            ranks' shards of the MLP's up (column-parallel) and down
+            (row-parallel) leaves after a campaign, bitwise the whole
+            result's slices (``TP_PROTECT``).  Rank 0's peak while
             drawing and ms per decode step beside the card's name and
             power limit.
    train  — full-width gemma-2b (all 18 layers, 2.5 B parameters, random
@@ -386,6 +420,7 @@ Any failure exits non-zero before that line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -707,7 +742,31 @@ TP_WHOLE_DRAW_PEAK_GIB = {"gemma-2b": 6.62, "qwen2-moe-a2.7b": 28.59}
 # degraded mode at TP-2 (gemma-2b): the 6 launches, 3 screens, the QKV
 # site's gated kernel 2, the out-projection's gated kernel 6, the MLP's
 # gated kernels 1, 4 and 6
-TP_DEGRADED_PER_LAYER = {"gemma-2b": 14}
+TP_DEGRADED_PER_LAYER = {"gemma-2b": 15}
+# tp-deepseek-v3: MLA's latent cache is cut by sequence and a decode step
+# merges the ranks' softmax states and latent sums in plain torch (its own
+# f32 sum order; the reference has no kernel there).  The TP run is held
+# bitwise against the unsharded run walked as the ranks walk
+# (``ops.walk_as_ranks``), on rows of TP_MLA_LENGTHS tokens that cross
+# the ranks' 512-slot boundary of a 1024-slot cache.  That walk is held
+# against the default walk with the router pinned to the default walk's
+# experts (``_mla_walk_gates``): each MLA decode's o_lat within
+# TP_MLA_ATTN_TOL of a row's largest |value|, the logits within
+# TP_MLA_LOGIT_TOL of the largest |logit|; planted faults in the merge
+# must land beyond TP_MLA_ATTN_TOL.  On an H100 80GB HBM3 at 700 W:
+# o_lat 0.0056 sound, 0.56 and 0.997 under the faults (rank 1's partials
+# dropped; l not rescaled by exp(m_k - m_g)); logits 0.0208 sound (the
+# router routes no token apart: bf16 rounding through 4 layers), 0.0847
+# and 0.911 under the faults.  The walks' greedy tokens part only at near
+# ties: a top-2 margin within 2 TP_MLA_LOGIT_TOL of the largest |logit|
+# (``_walks_agree``)
+TP_MLA_LENGTHS = [1000, 700, 513, 1]
+TP_MLA_ATTN_TOL = 0.02
+TP_MLA_LOGIT_TOL = 0.04
+# protect_tree on the degraded TP-2 run's shards: a campaign over the
+# MLP's up (column-parallel) and down (row-parallel) leaves of gemma-2b,
+# then the top PROTECT_FRACTION of the channels restored
+TP_PROTECT = dict(leaves=("up", "down"), ber=1e-5, seed=5, fraction=0.05)
 # the phases' unsharded runs the TP-2 family phases are held against
 TP_SPECS: list = []
 # the card's name and power limit (phase_card), printed beside the times
@@ -1026,6 +1085,40 @@ def phase_check(torch) -> dict:
         attn_record("decode_attention_combine",
                     da.decode_attention_combine(o, m, l, q.dtype),
                     da.decode_attention_combine_plain(o, m, l, q.dtype),
+                    where)
+
+    # kernel 9 on a tensor-parallel rank's slots of a ring cut by sequence
+    # (serve-long-tp's 8192, serve-tp's 1024; rows whose visible slots
+    # leave rank 1's half empty): each half walked in n_splits_for(S/TP)
+    # splits with the whole ring's cluster (``cluster_slots``), the ranks'
+    # partials in rank order merged by kernel 10: bitwise the unsharded
+    # walk in TP x those splits, and within the walks' tolerance of the
+    # plain split version
+    for S, lengths in ((8192, [1, 100, 1500, 2049, 4000, 5016, 7000, 8192]),
+                       (1024, [1, 17, 100, 250, 513, 800, 1000, 1024])):
+        q, k, v, pos, qp, ks, vs = _decode_inputs(torch, dev, gen, S=S,
+                                                  lengths=lengths)
+        L = S // TP
+        ns = ops.n_splits_for(L)
+        parts = []
+        for r in range(TP):
+            cut = slice(r * L, (r + 1) * L)
+            parts.append(da.decode_attention_partial(
+                q, k[:, cut].contiguous(), v[:, cut].contiguous(),
+                pos[:, cut].contiguous(), qp, ks[:, cut].contiguous(),
+                vs[:, cut].contiguous(), n_splits=ns, cluster_slots=S))
+        o, m, l = (torch.cat([p[i] for p in parts], dim=2).contiguous()
+                   for i in range(3))
+        got = da.decode_attention_combine(o, m, l, q.dtype)
+        where = f"B=8 S={S} TP={TP} NS={ns} a rank"
+        record("kernel 9 on each rank's slots + kernel 10 vs the "
+               "unsharded split walk", got,
+               ops.decode_attention(q, k, v, pos, qp, ks, vs,
+                                    n_splits=TP * ns), True, 0, where=where)
+        attn_record("decode_attention_partial", got,
+                    kref.decode_attention_splitkv_ref(
+                        q, k, v, pos, qp, TP * ns,
+                        da.split_len(S, TP * ns), k_scale=ks, v_scale=vs),
                     where)
 
     # grouped GEMMs at qwen2-moe's widths: decode (T = 8) and a 64-token
@@ -1918,9 +2011,11 @@ def phase_obs(torch, serve: dict, paged: tuple, card: str) -> dict:
     return total
 
 
-def phase_serve_long(torch, model) -> dict:
+def phase_serve_long(torch, model) -> tuple[dict, dict]:
     """The ring engine at 8192 slots on the shared model: decode
-    attention takes the split walk (4 splits)."""
+    attention takes the split walk (4 splits).  Returns (the launch
+    counts, the tokens and the median ms a decode step, which
+    serve-long-tp is held against)."""
     from repro_torch.kernels import ops
     from repro_torch.quant import QuantPlan
     from repro_torch.serving import Request, ServingEngine
@@ -1947,7 +2042,8 @@ def phase_serve_long(torch, model) -> dict:
                                    st.decode_steps + st.prefills)
     say(f"[serve-long] {per:g} launches per layer per decode step")
     need(per == 8, f"{per} launches per layer per decode step, not 8")
-    return counts
+    return counts, dict(tokens=[r.generated for r in reqs],
+                        step_ms=statistics.median(step_ms))
 
 
 class CountsRecorder:
@@ -2382,13 +2478,70 @@ def phase_chaos(torch, serve: dict) -> dict:
     say(f"[chaos] (e) {len(pristine)} stacked leaves "
         f"({sum(v.q.nbytes for v in pristine.values()) / 1e9:.3f} GB int8) "
         f"bitwise their snapshot after the soaks")
+    protect = _protect_slices(cfg, pristine)
     del pristine, back
     TP_SPECS.append(dict(tag="tp-gemma-2b-degraded", cfg=cfg, runs=[],
                          tokens={}, chaos=dict(
         run=tp_run, tokens=[r.generated for r in tp_reqs],
-        ber=CHAOS_PAGED_BER, soak=tp_soak)))
+        ber=CHAOS_PAGED_BER, soak=tp_soak, protect=protect)))
     gc.collect()
     return counts
+
+
+def _protect_leaves(leaves: dict) -> dict:
+    """The stacked MLP leaves ``TP_PROTECT`` names (up and down)."""
+    return {p: leaf for p, leaf in leaves.items()
+            if any(p.endswith(f"['mlp']['{n}']")
+                   for n in TP_PROTECT["leaves"])}
+
+
+def _protected(leaves: dict, group=None) -> dict:
+    """``TP_PROTECT``'s campaign over ``leaves``, then ``protect_tree``
+    (on a rank's shards with ``group``): each leaf's q digest."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.reliability import (FaultConfig, inject_tree,
+                                         protect_tree)
+    fault = FaultConfig(ber=TP_PROTECT["ber"], seed=TP_PROTECT["seed"])
+    prot = protect_tree(leaves, inject_tree(leaves, fault)[0],
+                        TP_PROTECT["fraction"], group)
+    return {p: hashlib.sha256(np.ascontiguousarray(leaf.q).tobytes())
+            .hexdigest() for p, leaf in prot.items()}
+
+
+def _protect_slices(cfg, pristine: dict) -> list:
+    """The unsharded ``protect_tree`` result of ``TP_PROTECT``'s campaign
+    on the MLP's up and down leaves, cut to each TP rank's shards
+    (``parallel.sharding.mlp_cuts``: up by its output channels, down by
+    its input rows): one digest a leaf and rank."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.parallel.context import TPGroup
+    from repro_torch.parallel.sharding import mlp_cuts
+    from repro_torch.reliability import (FaultConfig, inject_tree,
+                                         protect_tree)
+    leaves = _protect_leaves(pristine)
+    fault = FaultConfig(ber=TP_PROTECT["ber"], seed=TP_PROTECT["seed"])
+    t0 = time.perf_counter()
+    whole = protect_tree(leaves, inject_tree(leaves, fault)[0],
+                         TP_PROTECT["fraction"])
+    out = []
+    for rank in range(TP):
+        cuts = mlp_cuts(cfg.d_ff, TPGroup(rank, TP, "gloo"))
+        digests = {}
+        for p, leaf in whole.items():
+            (axis, idx), = cuts[p.rsplit("['", 1)[1][:-2]].items()
+            q = np.take(leaf.q, idx.numpy(), axis=axis + 1)   # [L, ...]
+            digests[p] = hashlib.sha256(np.ascontiguousarray(q).tobytes()
+                                        ).hexdigest()
+        out.append(digests)
+    say(f"[chaos] protect_tree on {sorted(leaves)} after a campaign at ber "
+        f"{TP_PROTECT['ber']:g}: the whole result cut to each of {TP} "
+        f"ranks' shards for tp-gemma-2b-degraded, "
+        f"{time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def phase_profile(torch, model, seed: int, tag: str = "profile") -> None:
@@ -3155,7 +3308,8 @@ class RoutesRecorder:
 
     def __init__(self, torch):
         from repro_torch.models import moe
-        self.torch, self.mod, self.fn, self.ids = torch, moe, moe.route, []
+        self.torch, self.mod, self.fn = torch, moe, moe.route
+        self.ids, self.kept = [], []
 
     def __enter__(self):
         def record(router, x, cfg):
@@ -3165,12 +3319,82 @@ class RoutesRecorder:
             ids = r.expert_ids
             sig = self.torch.where(kept.reshape(ids.shape), ids, -1 - ids)
             self.ids.append(sig.sort(-1).values)
+            self.kept.append(r)
             return r
         self.mod.route = record
         return self
 
     def __exit__(self, *exc):
         self.mod.route = self.fn
+
+
+class RoutesPinned:
+    """While active every MoE layer's routing (``models.moe.route``) is
+    the next of ``kept``, a ``RoutesRecorder``'s of a run of the same
+    shapes: the router pinned to that run's experts and gates."""
+
+    def __init__(self, kept: list):
+        from repro_torch.models import moe
+        self.mod, self.fn, self.kept = moe, moe.route, list(kept)
+
+    def __enter__(self):
+        left = iter(self.kept)
+
+        def pinned(router, x, cfg):
+            r = next(left, None)
+            need(r is not None and tuple(r.expert_ids.shape[:2])
+                 == tuple(x.shape[:2]), "a pinned routing's shape differs")
+            return r
+        self.mod.route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.fn
+
+
+class LatentCalls:
+    """While active each MLA decode over a latent walked by sequence
+    (``models.mla._latent_decode`` wrapped) is held against the default
+    walk on its own inputs (``_latent_attend``: one softmax and one
+    product in the cache's dtype): ``errs`` keeps each call's largest
+    |difference| of a row's o_lat over that row's largest |value| of
+    the default's."""
+
+    def __init__(self):
+        from repro_torch.models import mla
+        self.mod, self.fn, self.errs = mla, mla._latent_decode, []
+
+    def __enter__(self):
+        def held(q_lat, q_rope, c, rk, positions, idx, scale, seq,
+                 heads_group=None):
+            got = self.fn(q_lat, q_rope, c, rk, positions, idx, scale, seq,
+                          heads_group)
+            want = self.mod._latent_attend(q_lat, q_rope, c, rk, positions,
+                                           idx, 1, scale)
+            diff = (got.float() - want.float()).abs().flatten(1)
+            self.errs.append((diff.amax(1) / want.float().abs().flatten(1)
+                              .amax(1)).max().item())
+            return got
+        self.mod._latent_decode = held
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._latent_decode = self.fn
+
+
+@contextlib.contextmanager
+def _patched(mod, name: str | None, fn):
+    """``mod.name`` replaced by ``fn`` inside the block (nothing when
+    ``name`` is None)."""
+    if name is None:
+        yield
+        return
+    saved = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
 
 
 def _forward_vs_plain(torch, tag, model, S, want_modes, **inputs) -> dict:
@@ -3527,9 +3751,11 @@ def phase_serve_v3(torch) -> tuple[dict, dict, dict]:
     with torch.no_grad():
         long_last = model(long_toks, last_index=torch.tensor(
             [TP_LONG_S - 1], device=DEVICE)).float().cpu().numpy()
+    cross = _tp_token_input(cfg, SEED + 34, TP_MLA_LENGTHS)
+    _mla_walk_gates(torch, model, tag, cross)
     _tp_want(torch, model, "tp-deepseek-v3", _tp_runs(
         ["ring"], n_slots=8, max_len=1024, prefill_bucket=64),
-        logits=_tp_token_input(cfg, SEED + 34),
+        logits=cross,
         long=dict(tokens=long_toks.cpu().numpy(), logits=long_last))
     del model
     _free(torch)
@@ -5068,13 +5294,20 @@ def _tp_rank(group, spec: dict) -> dict:
 
     model, memory = build_in_turns(group, build)
     out = dict(rank=group.rank, memory=memory, runs={},
-               kv_heads=[b.attn.n_kv_heads for b in model.layers])
+               kv_heads=[b.attn.n_kv_heads for b in model.layers],
+               vocab_bytes={k: model.get_parameter(k).numel()
+                            * model.get_parameter(k).element_size()
+                            for k in ("embed", "head") if hasattr(model, k)})
     spent = _timed_collectives(torch, group)
     for run in spec["runs"]:
         paged = run["engine"] == "paged"
         cls = PagedServingEngine if paged else ServingEngine
+        _sync(torch)
+        before = torch.cuda.memory_allocated() if cuda else 0
         engine = cls(model, quant_plan=QuantPlan.full(), tp=group,
                      **run["kw"])
+        _sync(torch)
+        allocated = (torch.cuda.memory_allocated() - before) if cuda else 0
         reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
                 for i, p in enumerate(_prompts(cfg, run["lengths"],
                                                run["seed"]))]
@@ -5092,10 +5325,20 @@ def _tp_rank(group, spec: dict) -> dict:
                    decode_steps=st.decode_steps, prefills=st.prefills,
                    prefill_chunks=st.prefill_chunks,
                    preemptions=st.preemptions,
-                   tokens_out=st.tokens_out)
+                   tokens_out=st.tokens_out, cache_allocated=allocated,
+                   cache_bytes=sum(t.numel() * t.element_size()
+                                   for c in engine.cache for t in c.values()
+                                   if t is not engine.cache[0].get(
+                                       "block_tables")),
+                   cache_slots=[c["k" if "k" in c else "k_pages"].shape[1]
+                                for c in engine.cache])
         if paged:
             engine.paged.allocator.check()
             res["blocks_held"] = engine.paged.allocator.n_used
+        if run["name"] == "serve-long-tp":
+            res["collective_ms"] = _path_collective_ms(
+                torch, model, group, len(run["lengths"]),
+                run["kw"]["max_len"])
         if cuda:
             res["memory_gib"] = torch.cuda.memory_allocated() / gib
             res["peak_gib"] = torch.cuda.max_memory_allocated() / gib
@@ -5112,6 +5355,74 @@ def _tp_rank(group, spec: dict) -> dict:
     return out
 
 
+def _path_collective_ms(torch, model, group, B: int, max_len: int) -> dict:
+    """Host ms of each collective the sequence- and vocabulary-cut path
+    makes, at a decode step of ``B`` rows over ``max_len`` slots (and a
+    one-row prefill's slot gather), median of 5 on gloo: the logits'
+    gather (B x V x 4 bytes through host memory), the embedding's SUM,
+    the q heads' and kernel 9's partials' gathers, the prefill's
+    gather of a row's slots of one layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import embedding_apply, gather_vocab
+    from repro_torch.quant import tp as qtp
+    cfg, dev, p = model.cfg, model.device, group.size
+    L = max_len // p
+    G_r, ns = cfg.n_heads // p, ops.n_splits_for(L)
+    cache = model.init_cache(1, max_len, kv_dtype="int8")[0]
+    calls = {
+        "logits gather": lambda: gather_vocab(group, torch.zeros(
+            (B, 1, cfg.vocab // p), device=dev)),
+        "embedding SUM": lambda: embedding_apply(
+            model.embed, torch.zeros((B, 1), dtype=torch.long, device=dev),
+            group),
+        "q heads gather": lambda: group.all_gather(torch.zeros(
+            (G_r, B, 1, cfg.head_dim), dtype=torch.bfloat16, device=dev)),
+        "partials gather": lambda: group.all_gather(torch.zeros(
+            (ns, B, 1, cfg.n_heads, cfg.head_dim + 2), device=dev)),
+        "prefill slots gather": lambda: qtp.gather_slots(qtp.SeqCut(
+            group, p, group.rank * L, max_len), [
+            cache["k"], cache["v"], cache["pos"], cache["k_scale"],
+            cache["v_scale"]])}
+    out = {}
+    for name, fn in calls.items():
+        times = []
+        for _ in range(5):
+            _sync(torch)
+            group.barrier()
+            t0 = time.perf_counter()
+            fn()
+            _sync(torch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
+def _dryrun_shard_bytes(cfg, batch: int, max_len: int) -> dict:
+    """The dry run's per-device bytes (``launch.dryrun``: each leaf's
+    shard under ``resolve_spec`` of its logical axes) on a ``{"data": 1,
+    "model": TP}`` grid: the int8 ring cache of ``batch`` rows of
+    ``max_len`` slots, the embedding and the untied head, on the meta
+    device."""
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import (cache_axes, make_shardings,
+                                               param_axes, shard_nbytes)
+    grid = {"data": 1, "model": TP}
+    model = Model(cfg)
+    cache = model.init_cache(batch, max_len, kv_dtype="int8")
+    specs = make_shardings(grid, cache, cache_axes(model, "int8"))
+    out = {"cache": sum(shard_nbytes(t, specs[i][k], grid)
+                        for i, c in enumerate(cache)
+                        for k, t in c.items())}
+    axes = param_axes(model)
+    for name, path in (("embed", "['embed']['embedding']"),
+                       ("head", "['head']['kernel']")):
+        if hasattr(model, name):
+            t = model.get_parameter(name)
+            out[name] = shard_nbytes(t, make_shardings(
+                grid, [t], [axes[path]])[0], grid)
+    return out
+
+
 def _reference_input(torch, cfg, seed):
     """Tokens [4, 64] and lengths for reference-tp (numpy)."""
     import numpy as np
@@ -5121,11 +5432,14 @@ def _reference_input(torch, cfg, seed):
 
 
 def reference_logits(torch, model, ref_input):
-    """One prefill + decode step on the unsharded kernel path: the logits
-    reference-tp must reproduce bit for bit."""
+    """One prefill + decode step on the unsharded kernel path, the decode
+    walk in ``TP`` splits (``ops.walk_as_ranks``): the logits
+    reference-tp must reproduce bit for bit (a rank walks its 512 of the
+    ring's 1024 slots in one split, with the whole ring's cluster)."""
+    from repro_torch.kernels import ops
     toks, lengths = (torch.as_tensor(a, device=DEVICE) for a in ref_input)
     caches = model.init_cache(toks.shape[0], 1024, kv_dtype="int8")
-    with torch.no_grad():
+    with torch.no_grad(), ops.walk_as_ranks(TP):
         a = model.prefill_padded(toks, caches, lengths)
         b = model.decode_step(a.argmax(-1), caches)
     return torch.cat([a, b], dim=1).cpu()
@@ -5188,23 +5502,40 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
         fwd = steps + (r0["prefill_chunks"] if paged else r0["prefills"])
         walk = dict(kv_len=run["kw"]["max_len"], paged=paged)
         want = expected_launches(cfg, steps, fwd, tp=True, **walk)
-        want_coll = {k: n * fwd for k, n in
-                     manifest.step_collectives(cfg).items()}
-        want_coll.setdefault("gather", 0)
+        want_coll = dict(dict.fromkeys(("max", "sum", "gather", "bcast"), 0),
+                         **manifest.run_collectives(cfg, steps, fwd - steps,
+                                                    **walk))
+        # a ring cut by sequence: kernels 9 and 10 on every layer's decode
+        # step, kernel 5 never
+        seq = manifest.seq_cut(cfg, "attn", TP, **walk)
         for r in res:
             need(r["launches"] == want,
                  f"{name}: launch counts {r['launches']} != {want}")
-            need(r["collectives"] == dict(want_coll, bcast=0),
+            need(r["collectives"] == want_coll,
                  f"{name}: collectives {r['collectives']} != {want_coll}")
+            if seq:
+                need(r["launches"]["decode_attention"] == 0
+                     and r["launches"]["decode_attention_partial"]
+                     == r["launches"]["decode_attention_combine"]
+                     == L * steps, f"{name}: a layer's decode step on the "
+                     f"ring cut by sequence did not launch kernels 9 and "
+                     f"10 (or launched kernel 5): {r['launches']}")
+                need(r["cache_slots"] == [run["kw"]["max_len"] // TP] * L,
+                     f"{name}: the rank's ring holds {r['cache_slots']} "
+                     f"slots a layer")
             for k in total:
                 total[k] += r["launches"][k]
         per = launches_per_decode_step(cfg, r0["launches"], steps, fwd,
                                        tp=True)
         pre = sum(expected_launches(cfg, 0, 1, tp=True).values()) / L
-        need(per == (9 if moe else 6),
+        want_per = sum(expected_launches(cfg, 1, 1, tp=True,
+                                         **walk).values()) / L
+        need(per == want_per == (9 if moe else 7 if seq else 6),
              f"{name}: {per} launches per layer per decode step")
         need(pre == (8 if moe else 5),
              f"{name}: {pre} launches per layer per prefill")
+        if name == "serve-long-tp":
+            _check_long_tp(cfg, run, ranks)
         if paged:
             need(all(r["preemptions"] >= 1 for r in res),
                  f"{name}: the tight pool never preempted")
@@ -5224,10 +5555,13 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
                 + (f"; memory {r['memory_gib']:.2f} GiB, peak "
                    f"{r['peak_gib']:.2f} GiB" if "memory_gib" in r else ""))
         say(f"[{name}] per rank: {per:g} launches per layer per decode "
-            f"step, {pre:g} per prefill; per layer per forward "
-            f"{r0['collectives']['max'] // (L * fwd)} MAX + "
-            f"{r0['collectives']['sum'] // (L * fwd)} SUM + "
-            f"{r0['collectives']['gather'] // (L * fwd)} gather")
+            f"step, {pre:g} per prefill; collectives over {fwd} forwards "
+            f"({steps} decode steps) {json.dumps(r0['collectives'])}, the "
+            f"manifest's (per forward: each layer's 1 MAX + 1 SUM a "
+            f"row-parallel GEMM"
+            + (", 1 gather a prefill and 2 a decode step on the ring cut "
+               "by sequence" if seq else "")
+            + ", the embedding's SUM and the logits' gather)")
         say(f"[{name}] launches (rank 0) {json.dumps(r0['launches'])}")
     if ref is not None:
         import numpy as np
@@ -5248,10 +5582,50 @@ def phase_tp(torch, tag: str, cfg, runs: list, want_tokens: dict,
 # ---------------------------------------------------------------------------
 # every LM family, DiT and degraded gemma-2b at TP-2
 # ---------------------------------------------------------------------------
-def _tp_logits(torch, model, group, inp) -> "np.ndarray":
+def _check_long_tp(cfg, run: dict, res: list) -> None:
+    """serve-long-tp beyond the TP gates (``res``: the ranks' results of
+    ``_tp_rank``): each rank's allocated cache
+    (the allocator's bytes at the engine's allocation) and embedding
+    within ``CELL_BYTES_TOL`` of the dry run's per-device shards on a
+    model-``TP`` grid (the cache's leaves exactly); rank 0's ms a step
+    beside the single card's; the path's collectives' host ms."""
+    dry = _dryrun_shard_bytes(cfg, run["kw"]["n_slots"],
+                              run["kw"]["max_len"])
+    gib = 2 ** 30
+    whole = {k: v * TP for k, v in dry.items()}
+    for rk, r in enumerate(res):
+        got = r["runs"]["serve-long-tp"]
+        need(got["cache_bytes"] == dry["cache"],
+             f"serve-long-tp: rank {rk}'s cache leaves hold "
+             f"{got['cache_bytes']} bytes, not the dry run's {dry['cache']}")
+        need(abs(got["cache_allocated"] - dry["cache"])
+             <= CELL_BYTES_TOL * dry["cache"],
+             f"serve-long-tp: rank {rk} allocated {got['cache_allocated']} "
+             f"bytes for its cache, the dry run's shard is {dry['cache']}")
+        for k, v in r["vocab_bytes"].items():
+            need(abs(v - dry[k]) <= CELL_BYTES_TOL * dry[k],
+                 f"serve-long-tp: rank {rk}'s {k} holds {v} bytes, the dry "
+                 f"run's shard {dry[k]}")
+        say(f"[serve-long-tp] rank {rk}: cache {got['cache_allocated'] / gib:.4f}"
+            f" GiB allocated (the dry run's shard {dry['cache'] / gib:.4f}, "
+            f"the whole cache {whole['cache'] / gib:.4f}); embedding "
+            f"{r['vocab_bytes']['embed'] / gib:.4f} GiB (the dry run's "
+            f"{dry['embed'] / gib:.4f}, whole {whole['embed'] / gib:.4f}); "
+            f"{CARD}")
+    r0 = res[0]["runs"]["serve-long-tp"]
+    say(f"[serve-long-tp] rank 0: median {r0['step_ms']:.2f} ms per decode "
+        f"step at TP-{TP} (gloo, one card), against {run['single_ms']:.2f} "
+        f"ms for serve-long on the single card in this call; {CARD}")
+    say(f"[serve-long-tp] rank 0's collectives' host ms (median of 5): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    r0["collective_ms"].items()) + f"; {CARD}")
+
+
+def _tp_logits(torch, model, group, inp, fed=None) -> "np.ndarray":
     """One prefill and two decode steps' logits (rows of ``inp``: tokens
     and lengths, or an audio config's frames, lengths and the frames fed
-    at each step), under ``group`` (None: unsharded)."""
+    at each step), under ``group`` (None: unsharded); each step fed its
+    own greedy tokens, or ``fed``'s (logits of the same shape)."""
     import numpy as np
     from repro_torch.parallel.context import tp_context
     dev = model.device
@@ -5270,16 +5644,21 @@ def _tp_logits(torch, model, group, inp) -> "np.ndarray":
             toks = torch.as_tensor(inp["tokens"], device=dev)
             caches = model.init_cache(toks.shape[0], 1024, kv_dtype="int8")
             outs = [model.prefill_padded(toks, caches, lengths)]
-            for _ in range(2):
-                outs.append(model.decode_step(outs[-1].argmax(-1), caches))
+            for i in range(2):
+                nxt = (outs[-1].argmax(-1) if fed is None else
+                       torch.as_tensor(fed[:, i:i + 1].argmax(-1),
+                                       device=dev))
+                outs.append(model.decode_step(nxt, caches))
         return np.asarray(torch.cat(outs, dim=1).float().cpu())
 
 
-def _tp_token_input(cfg, seed) -> dict:
+def _tp_token_input(cfg, seed, lengths=(64, 61, 32, 1)) -> dict:
     import numpy as np
     rng = np.random.default_rng(seed)
-    return dict(tokens=rng.integers(0, cfg.vocab, (4, 64)).astype(np.int64),
-                lengths=np.array([64, 61, 32, 1], np.int32))
+    return dict(tokens=rng.integers(0, cfg.vocab, (len(lengths),
+                                                   max(lengths))
+                                    ).astype(np.int64),
+                lengths=np.array(lengths, np.int32))
 
 
 def _tp_runs(engines, lengths=TP_FAMILY_LENGTHS, seed=SEED + 30, **kw):
@@ -5296,15 +5675,25 @@ def _tp_runs(engines, lengths=TP_FAMILY_LENGTHS, seed=SEED + 30, **kw):
     return runs
 
 
-def _unsharded_tokens(torch, model, run: dict) -> list:
+def _unsharded_tokens(torch, model, run: dict, seen: dict | None = None
+                      ) -> list:
     """The tokens of a TP run spec's requests (``_tp_runs``) served
-    unsharded on ``model`` under the full plan, every request OK."""
+    unsharded on ``model`` under the full plan, every request OK;
+    ``seen`` keeps each sampled step's logits, keyed (uid, step)."""
+    import numpy as np
     from repro_torch.quant import QuantPlan
     from repro_torch.serving import (PagedServingEngine, Request,
                                      ServingEngine)
     cfg = model.cfg
     cls = PagedServingEngine if run["engine"] == "paged" else ServingEngine
     engine = cls(model, quant_plan=QuantPlan.full(), **run["kw"])
+    if seen is not None:
+        sample = engine._sample
+
+        def recording(req, logits, step):
+            seen[(req.uid, step)] = np.array(logits, np.float32)
+            return sample(req, logits, step)
+        engine._sample = recording
     reqs = [Request(uid=i, prompt=p, max_new_tokens=run["new"])
             for i, p in enumerate(_prompts(cfg, run["lengths"], run["seed"]))]
     for r in reqs:
@@ -5320,22 +5709,173 @@ def _tp_want(torch, model, tag, runs=(), logits=None, **extra) -> None:
     """Record what ``tag``'s TP-2 phase is held against, bitwise, on this
     phase's unsharded (quantized) ``model``: the tokens of each of
     ``runs`` and, with ``logits`` (an input of ``_tp_logits``), the
-    unsharded logits.  Appended to ``TP_SPECS`` for
+    unsharded logits; where a rank's ring or latent cache is cut by
+    sequence, of the unsharded run walked as the ranks walk
+    (``ops.walk_as_ranks``), whose tokens are held against the default
+    walk's (``_walks_agree``).  Appended to ``TP_SPECS`` for
     ``phase_tp_families``."""
+    from repro_torch.analysis import manifest
+    from repro_torch.kernels import ops
     spec = dict(tag=tag, cfg=model.cfg, runs=list(runs), tokens={},
                 **extra)
+    cut = any(manifest.seq_cut(model.cfg, m, TP, 1024)
+              for m, _ in model.cfg.layer_specs())
+    def walk():
+        return ops.walk_as_ranks(TP) if cut else contextlib.nullcontext()
     for run in runs:
-        spec["tokens"][run["name"]] = _unsharded_tokens(torch, model, run)
+        name, walked, dflt = run["name"], {}, {}
+        with walk():
+            spec["tokens"][name] = _unsharded_tokens(torch, model, run,
+                                                     walked)
+        if not cut:
+            continue
+        with RoutesRecorder(torch) as free:
+            want = _unsharded_tokens(torch, model, run, dflt)
+        _walks_agree(tag, name, spec["tokens"][name], walked, want, dflt)
+        if free.kept:
+            with ops.walk_as_ranks(TP), RoutesPinned(free.kept):
+                pinned = _unsharded_tokens(torch, model, run)
+            say(f"[{tag} {name}] the walk as ranks with the router pinned "
+                f"to the default walk's experts: tokens "
+                f"{_first_parting(pinned, want)} against the default "
+                f"walk's")
     if logits is not None:
         spec["logits_input"] = logits
-        spec["logits"] = _tp_logits(torch, model, None, logits)
+        with walk():
+            spec["logits"] = _tp_logits(torch, model, None, logits)
     TP_SPECS.append(spec)
+
+
+def _walks_agree(tag, name, got, got_logits, want, want_logits) -> None:
+    """The unsharded run walked as the ranks walk (``got``) against its
+    default walk (``want``): greedy tokens equal step for step up to
+    where a request's streams part, which must be a near tie (the
+    default walk's top-2 margin there within ``2 * TP_MLA_LOGIT_TOL`` of
+    its largest |logit|: ``tests/torch_parity.py``'s
+    ``assert_same_tokens`` rule), and at least half of all steps
+    compared equal.  Each parting printed with its margin and the two
+    walks' largest logit difference there."""
+    import numpy as np
+    top = max(float(np.abs(v).max()) for v in want_logits.values())
+    limit = 2 * TP_MLA_LOGIT_TOL * top
+    compared = total = 0
+    notes = []
+    for uid, (a, b) in enumerate(zip(got, want)):
+        total += len(b)
+        for step, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                w, g = want_logits[(uid, step)], got_logits[(uid, step)]
+                top2 = np.sort(w)[-2:]
+                margin = float(top2[1] - top2[0])
+                diff = float(np.abs(g - w).max())
+                notes.append(f"request {uid} parts at step {step} (the "
+                             f"default's top-2 margin {margin:.4g}, the "
+                             f"walks' largest logit difference {diff:.4g})")
+                need(margin <= limit,
+                     f"{tag} {name}: request {uid} parts from the default "
+                     f"walk at step {step} away from a near tie (margin "
+                     f"{margin:.4g} > {limit:.4g})")
+                break
+            compared += 1
+    need(compared >= total // 2,
+         f"{tag} {name}: {compared} of {total} steps agree with the "
+         f"default walk")
+    say(f"[{tag} {name}] the unsharded run walked as the ranks walk "
+        f"against its default walk: {compared} of {total} steps equal; "
+        + ("; ".join(notes) if notes else "every token equal")
+        + f" (near-tie limit {limit:.4g}: 2 x {TP_MLA_LOGIT_TOL:g} of the "
+        f"largest |logit| {top:.4g})")
+
+
+def _first_parting(a: list, b: list) -> str:
+    """Where two requests' token streams first part: request and step."""
+    for uid, (x, y) in enumerate(zip(a, b)):
+        for step, (s, t) in enumerate(zip(x, y)):
+            if s != t:
+                return f"request {uid} parts at step {step}"
+    return "equal"
+
+
+def _mla_walk_gates(torch, model, tag: str, inp: dict) -> dict:
+    """MLA's latent walked as ``TP`` ranks walk it (``ops.walk_as_ranks``:
+    the chunks' softmax states and latent sums merged in plain torch)
+    against the default walk (one softmax, one product in bf16), on
+    ``_tp_logits``'s prefill and 2 decode steps of ``inp``, whose rows
+    cross the chunks' boundary.  With the router free the gap and the
+    tokens each decode step routes apart in the MoE layer are printed;
+    then with the router pinned to the default walk's experts and gates
+    (``RoutesPinned``) every MLA decode's o_lat must lie within
+    ``TP_MLA_ATTN_TOL`` of each row's largest |value| of the default
+    walk's on its own inputs (``LatentCalls``) and the logits within
+    ``TP_MLA_LOGIT_TOL`` of the largest |logit|.  Two planted faults in
+    the merge, rank 1's partials dropped (its chunk's scores masked) and
+    l not rescaled by exp(m_k - m_g), must land beyond both limits.
+    Returns the readings."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import NEG_INF
+    from repro_torch.models import mla
+    scores = mla._latent_scores
+
+    def dropped(q_lat, q_rope, c, rk, first, *rest):
+        s = scores(q_lat, q_rope, c, rk, first, *rest)
+        return s if first == 0 else torch.full_like(s, NEG_INF)
+
+    def unscaled(ml):
+        return ml[..., 0:1].amax(0), ml[..., 1:].sum(0)
+    with RoutesRecorder(torch) as free:
+        dflt = _tp_logits(torch, model, None, inp)
+    top = float(np.abs(dflt).max())
+    with ops.walk_as_ranks(TP), RoutesRecorder(torch) as moved:
+        walked = _tp_logits(torch, model, None, inp, fed=dflt)
+    apart = [int((a != b).any(-1).sum()) for a, b in zip(free.ids,
+                                                         moved.ids)]
+    say(f"[{tag}] MLA's latent walked as {TP} ranks against the default "
+        f"walk, rows of {inp['lengths'].tolist()} tokens over "
+        f"{TP} chunks of 512 slots, router free: logits max |diff| "
+        f"{np.abs(walked - dflt).max():.6g} ({np.abs(walked - dflt).max() / top:.4g} "
+        f"of the largest |logit| {top:.4g}), argmax equal at "
+        f"{float((walked.argmax(-1) == dflt.argmax(-1)).mean()):.3f} of "
+        f"the rows; tokens the MoE layer routes apart per forward "
+        f"{apart}")
+    out = {}
+    for fault, (attr, fn) in {"none": (None, None),
+                              "rank 1's partials dropped": (
+                                  "_latent_scores", dropped),
+                              "l not rescaled": ("_merge_states", unscaled),
+                              }.items():
+        with ops.walk_as_ranks(TP), RoutesPinned(free.kept), \
+                LatentCalls() as calls, _patched(mla, attr, fn):
+            got = _tp_logits(torch, model, None, inp, fed=dflt)
+        need(len(calls.errs) == 2 * model.cfg.n_layers,
+             f"{tag}: {len(calls.errs)} latent walks, not 2 a layer")
+        out[fault] = dict(attn=max(calls.errs) if fault == "none"
+                          else min(calls.errs),
+                          logits=float(np.abs(got - dflt).max()) / top)
+    sound = out["none"]
+    say(f"[{tag}] router pinned to the default walk's: every MLA decode's "
+        f"o_lat within {sound['attn']:.4g} of a row's largest |value| (limit "
+        f"{TP_MLA_ATTN_TOL:g}), logits within {sound['logits']:.4g} of the "
+        f"largest |logit| (limit {TP_MLA_LOGIT_TOL:g}); planted faults "
+        + "; ".join(f"{k}: o_lat {v['attn']:.4g} at least, logits "
+                    f"{v['logits']:.4g}" for k, v in out.items()
+                    if k != "none"))
+    need(sound["attn"] <= TP_MLA_ATTN_TOL
+         and sound["logits"] <= TP_MLA_LOGIT_TOL,
+         f"{tag}: the latent walked as ranks lands {sound} from the "
+         f"default walk")
+    for k, v in out.items():
+        need(k == "none" or (v["attn"] > TP_MLA_ATTN_TOL
+                             and v["logits"] > TP_MLA_LOGIT_TOL),
+             f"{tag}: the planted fault ({k}) lands within a limit: {v}")
+    return out
 
 
 def _tp_held(model) -> dict:
     """What a rank holds of each cut leaf, per layer kind: an int8 leaf's
     bytes over the whole leaf's, a bf16 mixer's heads over the
-    config's."""
+    config's, the vocabulary's rows (the embedding's, the untied
+    head's) over the whole."""
     cfg = model.cfg
     whole_heads = {"mla": cfg.n_heads}
     if getattr(cfg, "ssm", None) is not None:
@@ -5345,6 +5885,10 @@ def _tp_held(model) -> dict:
     heads_of = {"mamba": ("a_log", 0), "mla": ("q_up", 1),
                 "mlstm": ("q", 1), "slstm": ("r", 1)}
     out = {}
+    if hasattr(model, "embed"):            # an LM: the vocabulary's rows
+        out["vocab.embed"] = model.embed.shape[0] / cfg.vocab
+        if hasattr(model, "head"):
+            out["vocab.head"] = model.head.shape[1] / cfg.vocab
     for block in getattr(model, "blocks", None) or model.layers:
         for name, mod in block.named_children():
             if name in heads_of:
@@ -5365,6 +5909,15 @@ def _tp_cache_heads(cache: dict) -> int:
         if key in cache:
             return cache[key].shape[axis]
     return -1                                  # MLA: the latent, whole
+
+
+def _tp_cache_slots(cache: dict) -> int:
+    """The slots a layer's ring or latent cache holds on this rank (-1
+    for a recurrent state or the paged pools)."""
+    for key in ("k", "c_kv"):
+        if key in cache:
+            return cache[key].shape[1]
+    return -1
 
 
 def _tp_cache_heads_of(cfg, mixer: str) -> int:
@@ -5444,7 +5997,8 @@ def _tp_family_rank(group, specs: list, device: str) -> list:
                 step_ms=statistics.median(step_ms) if step_ms else None,
                 decode_steps=st.decode_steps, prefills=st.prefills,
                 prefill_chunks=st.prefill_chunks,
-                cache_heads=[_tp_cache_heads(c) for c in engine.cache])
+                cache_heads=[_tp_cache_heads(c) for c in engine.cache],
+                slots=[_tp_cache_slots(c) for c in engine.cache])
             if paged:
                 engine.paged.allocator.check()
                 res["runs"][run["name"]]["blocks_held"] = \
@@ -5597,6 +6151,12 @@ def _tp_chaos_rank(torch, model, group, chaos: dict) -> dict:
                         np.array_equal(back[k].q, pristine[k].q)
                         and np.array_equal(back[k].scale, pristine[k].scale)
                         for k in pristine))
+    # (d) protect_tree on the rank's shards of the MLP's up and down
+    group.reset_counts()
+    t0 = time.perf_counter()
+    out["d"] = dict(digests=_protected(_protect_leaves(back), group),
+                    max=group.counts["max"],
+                    seconds=time.perf_counter() - t0)
     return out
 
 
@@ -5655,15 +6215,15 @@ def phase_tp_families(torch, card: str) -> dict:
             need(all(g["tokens"] == got[0]["tokens"] for g in got),
                  f"{tag} {name}: the ranks' tokens differ")
             need(got[0]["tokens"] == spec["tokens"][name],
-                 f"{tag} {name}: tokens differ from the unsharded run's")
+                 f"{tag} {name}: tokens differ from the unsharded run's "
+                 f"(walked as the ranks walk where a cache is cut by "
+                 f"sequence)")
             g0 = got[0]
             steps = g0["decode_steps"]
             fwd = steps + (g0["prefill_chunks"] if paged else g0["prefills"])
-            want = expected_launches(cfg, steps, fwd, tp=True,
-                                     kv_len=run["kw"]["max_len"],
-                                     paged=paged)
-            coll = {k: n * fwd for k, n in
-                    manifest.step_collectives(cfg).items()}
+            walk = dict(kv_len=run["kw"]["max_len"], paged=paged)
+            want = expected_launches(cfg, steps, fwd, tp=True, **walk)
+            coll = manifest.run_collectives(cfg, steps, fwd - steps, **walk)
             for g in got:
                 need(g["launches"] == want and g["gated"] == 0,
                      f"{tag} {name}: launch counts {g['launches']} != {want}"
@@ -5675,24 +6235,31 @@ def phase_tp_families(torch, card: str) -> dict:
                 for k in total:
                     total[k] += g["launches"][k]
             heads = []
-            for (mixer, _), h in zip(cfg.layer_specs(), g0["cache_heads"]):
+            for (mixer, _), h, n in zip(cfg.layer_specs(),
+                                        g0["cache_heads"], g0["slots"]):
                 want_h = _tp_cache_heads_of(cfg, mixer)
                 need(h == want_h, f"{tag} {name}: a {mixer} cache holds "
                      f"{h} heads, not {want_h}")
+                if manifest.seq_cut(cfg, mixer, TP, **walk):
+                    need(n == run["kw"]["max_len"] // TP,
+                         f"{tag} {name}: a {mixer} cache cut by sequence "
+                         f"holds {n} slots")
                 heads.append(h)
             per_step = {}
             for mixer, ffn in sorted(set(cfg.layer_specs())):
                 per_step[f"{mixer}/{ffn}"] = [sum(layer_launches(
                     cfg, mixer, ffn, steps_, 1, run["kw"]["max_len"],
                     paged, tp=True).values()) for steps_ in (1, 0)]
-            per_coll = manifest.step_collectives(cfg)
+            per_coll = {ph: dict(manifest.step_collectives(
+                cfg, phase=ph, **walk)) for ph in ("decode", "prefill")}
             say(f"[{tag} {name}] {len(run['lengths'])} requests OK on every "
                 f"rank, tokens bitwise the unsharded run's: {steps} decode "
                 f"steps, {fwd - steps} {'chunks' if paged else 'prefills'};"
                 f" per layer kind (launches per decode step, per prefill) "
                 f"{json.dumps(per_step)}; collectives per forward "
-                f"{json.dumps(dict(per_coll))} over {cfg.n_layers} layers; "
-                f"cache heads per layer {sorted(set(heads))}")
+                f"{json.dumps(per_coll)} over {cfg.n_layers} layers; "
+                f"cache heads per layer {sorted(set(heads))}, slots "
+                f"{sorted(set(g0['slots']))}")
             for g, r in zip(got, res):
                 say(f"[{tag} {name}] rank {r['rank']}: median "
                     f"{g['step_ms']:.2f} ms per decode step; collectives "
@@ -5703,6 +6270,7 @@ def phase_tp_families(torch, card: str) -> dict:
                      f"{tag} {name}: blocks still held")
         if "logits" in spec:
             want = spec["logits"]
+            steps = len(spec["logits_input"].get("feed", (0, 0)))
             for r in res:
                 got = r["logits"]
                 need(got.shape == want.shape and np.isfinite(got).all(),
@@ -5710,15 +6278,13 @@ def phase_tp_families(torch, card: str) -> dict:
                 err = float(np.abs(got - want).max())
                 need(err == 0.0, f"{tag}: rank {r['rank']} logits differ "
                      f"from the unsharded run's (max |diff| {err:.4g})")
-                forwards = 1 + len(spec["logits_input"].get("feed", (0, 0)))
-                coll = {k: forwards * n for k, n in
-                        manifest.step_collectives(cfg).items()}
+                coll = manifest.run_collectives(cfg, steps, 1, kv_len=1024)
                 need(r["logits_collectives"] == dict(dict.fromkeys(
                     ("max", "sum", "gather", "bcast"), 0), **coll),
                      f"{tag}: logits' collectives {r['logits_collectives']}")
-            steps = len(spec["logits_input"].get("feed", (0, 0)))
             say(f"[{tag}] prefill + {steps} decode steps' logits at TP-{TP}: "
-                f"bitwise against the unsharded run (largest |logit| "
+                f"bitwise against the unsharded run (walked as the ranks "
+                f"walk where a cache is cut by sequence; largest |logit| "
                 f"{float(np.abs(want).max()):.4g})")
         if "long" in spec:
             want = spec["long"]["logits"]
@@ -5808,9 +6374,10 @@ def _tp_check_chaos(spec, res, card) -> int:
         need(a["gated"] == want_gated == 2 * L * fwd,
              f"{tag}: (a) kernel 6's gated form launched {a['gated']} "
              f"times, not {want_gated} (2 a layer and forward)")
-        coll = {k: n * fwd for k, n in
-                manifest.step_collectives(cfg, degraded=True).items()}
-        need(a["collectives"] == dict(gather=0, bcast=0, **coll),
+        coll = manifest.run_collectives(
+            cfg, a["decode_steps"], a["prefills"], degraded=True,
+            kv_len=chaos["run"]["kw"]["max_len"])
+        need(a["collectives"] == dict(dict(gather=0, bcast=0), **coll),
              f"{tag}: (a) collectives {a['collectives']} != {coll}")
         need(a["trips"] == 0, f"{tag}: (a) a healthy screen tripped")
         need(r["syncs"] == {False: "no host sync", True: "no host sync"},
@@ -5826,6 +6393,12 @@ def _tp_check_chaos(spec, res, card) -> int:
              f"{c['restored']}")
         need((c["status"], c["tokens"], c["report"]) == chaos["soak"],
              f"{tag}: (c) the soak differs from the unsharded soak")
+        d = r["d"]
+        need(d["digests"] == chaos["protect"][r["rank"]],
+             f"{tag}: (d) protect_tree on rank {r['rank']}'s shards is not "
+             f"the whole result's slices")
+        need(d["max"] == 1, f"{tag}: (d) protect_tree made {d['max']} MAX "
+             f"reductions, not 1 (the up leaf's cut scale)")
     a0 = res[0]["a"]
     prefill = sum(degraded_launches(cfg, 0, a0["prefills"], tp=True).values())
     per = (sum(a0["launches"].values()) - prefill) / (L * a0["decode_steps"])
@@ -5835,8 +6408,9 @@ def _tp_check_chaos(spec, res, card) -> int:
     coll = manifest.step_collectives(cfg, degraded=True)
     say(f"[{tag}] (a) degraded, healthy: tokens bitwise the unsharded "
         f"degraded run's, {per:g} launches per layer per decode step, "
-        f"{coll['max'] // L} MAX + {coll['sum'] // L} SUM per layer per "
-        f"forward, rank 0 median {a0['step_ms']:.2f} ms per decode step; "
+        f"{coll['max'] // L} MAX + {(coll['sum'] - 1) // L} SUM per layer "
+        f"per forward (and the embedding's SUM), rank 0 median "
+        f"{a0['step_ms']:.2f} ms per decode step; "
         f"one decode step under sync debug mode 'error': "
         f"{res[0]['syncs'][True]} with the mode on (gloo's staging copies "
         f"aside); {card}")
@@ -5847,6 +6421,10 @@ def _tp_check_chaos(spec, res, card) -> int:
         f"report equal the unsharded soak's ({c0['report']}), "
         f"{c0['sharded']} stacked leaves sharded, weights restored bitwise "
         f"on every rank, {c0['seconds']:.2f} s")
+    say(f"[{tag}] (d) protect_tree on each rank's shards of "
+        f"{sorted(chaos['protect'][0])}: bitwise the whole result's slices "
+        f"on every rank (the up leaf's channels ranked after one MAX of its "
+        f"scale), {res[0]['d']['seconds']:.2f} s on rank 0")
     # kernel 6's gated launches, read from its own counter
     gated = sum(r["a"]["gated"] for r in res)
     say(f"[{tag}] kernel 6's gated form launched {gated} times over the "
@@ -6420,7 +6998,21 @@ def phase_times(torch, serve: dict, moe: dict, counts: dict, errs: dict,
         for a in insts])
     say(f"[times] split walk then combine (B={B}, S={S}, NS={NS}): "
         f"{pair:.4f} ms on {card}")
-    del parts, insts
+    # kernel 9 on rank 0's slots of serve-long-tp's ring (the first 4096
+    # of 8192, the whole ring's cluster)
+    half = S // TP
+    rank_insts = [_decode_inputs(torch, dev, gen, B=B, S=half,
+                                 lengths=[min(n, half) for n in lengths])
+                  for _ in range(n)]
+    rank_ms = time_ms(torch, [(lambda a=a: da.decode_attention_partial(
+        *a, n_splits=ops.n_splits_for(half), cluster_slots=S))
+        for a in rank_insts])
+    say(f"[times] kernel 9 on a serve-long-tp rank's slots (B={B}, {half} "
+        f"of {S} slots, NS={ops.n_splits_for(half)}, cluster "
+        f"{da.cluster_for(S, D)}): {rank_ms:.4f} ms, against "
+        f"{rows[-2]['ms']:.4f} ms for the whole ring's {NS} splits on one "
+        f"card; {card}")
+    del parts, insts, rank_insts
 
     # grouped GEMMs at serve-moe's decode shapes (E = 60, T = 8) with the
     # expert counts of a served decode step (the skip list), then with
@@ -6735,7 +7327,9 @@ def main() -> int:
                 timed(phase_obs, torch, serve, (paged_tokens, paged_ms),
                       card)]
         torch.cuda.empty_cache()
-        runs.append(timed(phase_serve_long, torch, serve["model"]))
+        serve_long_counts, long_run = timed(phase_serve_long, torch,
+                                            serve["model"])
+        runs.append(serve_long_counts)
         torch.cuda.empty_cache()
         timed(phase_reference, torch, serve["model"], SEED)
         timed(phase_profile, torch, serve["model"], SEED)
@@ -6754,12 +7348,19 @@ def main() -> int:
         del serve["model"]
         gc.collect()
         torch.cuda.empty_cache()
+        # serve-long-tp: serve-long's requests on the same ranks
+        tp_long = dict(name="serve-long-tp", engine="ring",
+                       lengths=LONG_PROMPTS, seed=SEED + 2,
+                       new=LONG_NEW_TOKENS, single_ms=long_run["step_ms"],
+                       kw=dict(n_slots=4, max_len=LONG_MAX_LEN,
+                               prefill_bucket=64))
         runs.append(timed(phase_tp, torch, "serve-tp", cfg, [
             dict(name="serve-tp", engine="ring", lengths=serve["lengths"],
                  seed=SEED, new=NEW_TOKENS, kw=dict(
                      n_slots=8, max_len=1024, prefill_bucket=64)),
-            tp_paged],
-            {"serve-tp": serve["tokens"], "serve-tp-paged": tp_paged_tokens},
+            tp_paged, tp_long],
+            {"serve-tp": serve["tokens"], "serve-tp-paged": tp_paged_tokens,
+             "serve-long-tp": long_run["tokens"]},
             ref=(ref_input, ref_logits), tag="serve-tp"))
         moe_counts, moe = timed(phase_serve_moe, torch)
         runs.append(moe_counts)

@@ -155,33 +155,62 @@ def audit_lm(arch: str, phase: str = "decode", paged: bool = False,
     The model of ``arch`` (its reduced config if asked) is drawn from a
     seed on ``device`` (default: the card) under the full plan; an
     unsharded audit can pass ``model``, one already drawn and quantized,
-    instead.  ``tp > 1`` audits a tensor-parallel rank: one in-process
-    rank of a trivial group (a ``TPGroup`` of size 1, whose collectives
-    return their input and still count — a rank's launches and
-    collectives do not depend on the group's size)."""
-    from repro_torch.models import Model
-    from repro_torch.parallel.context import TPGroup
-    from repro_torch.parallel.sharding import shard_model
-    from repro_torch.quant import QuantPlan
+    instead.  ``tp > 1`` audits a tensor-parallel group: ``tp`` ranks
+    (gloo, one process each, sharing the card) each draw their shards
+    (``Model.init(tp=)``) and audit their own step, against the
+    manifest at that group size (a ring cut by sequence, the vocabulary
+    by rows, depend on it); the first failing rank's report is
+    returned, else rank 0's."""
     if phase not in ("prefill", "decode"):
         raise ValueError(f"unknown LM phase {phase!r}")
-    label = ("decode_paged" if paged else "decode_ring") \
-        if phase == "decode" else ("prefill_paged" if paged else "prefill")
     sharded = tp > 1
     if sharded and model is not None:
         raise ValueError("a tensor-parallel audit draws its own model")
     cfg = model.cfg if model is not None else _config(arch, reduced)
     if not manifest.supports_full_plan(cfg):
-        return AuditReport(arch, label, sharded, {}, {}, [],
+        return AuditReport(arch, _label(phase, paged), sharded, {}, {}, [],
                            skipped="no full-plan contract for this "
                                    "arch's mixers (nor in the reference's "
                                    "manifest)")
-    group = TPGroup() if sharded else None
+    if sharded:
+        from repro_torch.parallel.context import spawn
+        reps = spawn(_audit_rank, tp, args=(arch, cfg, phase, paged,
+                                            kv_len, batch, device))
+        return next((r for r in reps if not r.ok), reps[0])
     if model is None:
+        from repro_torch.models import Model
+        from repro_torch.quant import QuantPlan
         model = Model(cfg).init(_SEED, device=device)
         model.quantize(QuantPlan.full())
-        if sharded:
-            shard_model(model, group)
+    return _audit_step(arch, model, phase, paged, kv_len, batch, None)
+
+
+def _label(phase: str, paged: bool) -> str:
+    if phase == "decode":
+        return "decode_paged" if paged else "decode_ring"
+    return "prefill_paged" if paged else "prefill"
+
+
+def _audit_rank(group, arch, cfg, phase, paged, kv_len, batch, device):
+    """One rank of a tensor-parallel audit: its shards drawn from the
+    audit's seed, its step audited."""
+    from repro_torch.models import Model
+    from repro_torch.parallel.context import rank_device
+    from repro_torch.quant import QuantPlan
+    torch.set_num_threads(1)
+    dev = rank_device(device, group.backend, group.rank)
+    model = Model(cfg).init(_SEED, device=dev, tp=group,
+                            plan=QuantPlan.full())
+    return _audit_step(arch, model, phase, paged, kv_len, batch, group)
+
+
+def _audit_step(arch, model, phase, paged, kv_len, batch,
+                group) -> AuditReport:
+    """Run one step of ``model`` (a rank's shards with ``group``) and hold
+    it against the manifest."""
+    cfg = model.cfg
+    sharded = group is not None
+    tp = group.size if sharded else 1
     record, caches = run_lm_step(model, phase, paged=paged, batch=batch,
                                  kv_len=kv_len, group=group)
     want = manifest.step_launches(cfg, phase, sharded=sharded,
@@ -193,8 +222,11 @@ def audit_lm(arch: str, phase: str = "decode", paged: bool = False,
                                           kv_dtypes=_kv_dtypes(caches))
     violations += passes.collective_audit(
         record.ops, sharded=sharded,
-        expected=manifest.step_collectives(cfg) if sharded else None)
-    return AuditReport(arch, label, sharded, dict(expected),
+        expected=manifest.step_collectives(
+            cfg, phase=phase, tp=tp, kv_len=kv_len, paged=paged)
+        if sharded else None)
+    return AuditReport(arch, _label(phase, paged), sharded,
+                       dict(expected),
                        dict(passes.classify(record.launches)), violations,
                        launches=dict(record.launches))
 

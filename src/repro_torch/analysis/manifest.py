@@ -154,16 +154,32 @@ def _check_spec(spec) -> None:
         raise ValueError(f"no full-plan contract for ffn {ffn!r}")
 
 
+def seq_cut(cfg, mixer: str, tp: int, kv_len: int,
+            paged: bool = False) -> bool:
+    """Whether a tensor-parallel rank of ``tp`` holds only its slots of
+    a ``mixer`` layer's ring or latent cache of ``kv_len`` slots
+    (``parallel.sharding.seq_cut_slots``, the rule ``Model.init_cache``
+    allocates by).  The paged pools carry no ``kv_seq`` axis."""
+    from repro_torch.parallel.sharding import seq_cut_slots
+    return not paged and kv_len > 0 and seq_cut_slots(
+        cfg, mixer, tp, kv_len) is not None
+
+
 def block_sites(cfg, spec, phase: str, sharded: bool = False,
-                kv_len: int = 0) -> Counter:
+                kv_len: int = 0, tp: int = 2) -> Counter:
     """Expected site-class counts for ONE transformer block (the
-    reference's function).
+    reference's function, but for the ring cut by sequence).
 
     ``spec`` is the ``(mixer, ffn)`` pair of a layer group; ``phase`` is
     ``"prefill"`` / ``"decode"`` / ``"step"`` (DiT).  ``sharded`` asks
-    for a tensor-parallel rank's counts; ``kv_len`` is the attended
-    cache length (decides split-KV, for every layer alike: see
-    :func:`layer_launches` for what the port launches).
+    for a tensor-parallel rank's counts (of a group of ``tp``);
+    ``kv_len`` is the attended cache length (decides split-KV, for
+    every layer alike: see :func:`layer_launches` for what the port
+    launches).  A rank whose ring is cut by sequence (:func:`seq_cut`)
+    walks its slots in splits and merges the ranks' partials whatever
+    the length: one ``decode_attn`` and one ``attn_combine``, where the
+    reference's function counts the one walk below 2048 slots (ROADMAP
+    C: its tensor parallelism attends the whole ring).
     """
     _check_spec(spec)
     _mixer, ffn = spec
@@ -177,7 +193,8 @@ def block_sites(cfg, spec, phase: str, sharded: bool = False,
         sites += gemm_in_sites(q_dim)
     if phase == "decode":
         sites["decode_attn"] += 1
-        if kv_len > SPLITKV_THRESHOLD:
+        if kv_len > SPLITKV_THRESHOLD or (
+                sharded and seq_cut(cfg, _mixer, tp, kv_len)):
             sites["attn_combine"] += 1
     # feed-forward
     if ffn == "dense":
@@ -206,16 +223,17 @@ def _groups(model_or_cfg):
 
 
 def model_sites(model, phase: str, sharded: bool = False,
-                kv_len: int = 0) -> Counter:
+                kv_len: int = 0, tp: int = 2) -> Counter:
     """The reference's per-step counts: each layer group contributes its
     block's profile once, whatever its depth (the reference scans a
-    group's stacked layers over one traced block body).  ``model`` is a
-    port model or its config."""
+    group's stacked layers over one traced block body), with
+    :func:`block_sites`' combine on a ring cut by sequence.  ``model``
+    is a port model or its config."""
     cfg, groups = _groups(model)
     total: Counter = Counter()
     for spec, _count in groups:
         total += block_sites(cfg, spec, phase, sharded=sharded,
-                             kv_len=kv_len)
+                             kv_len=kv_len, tp=tp)
     return total
 
 
@@ -286,10 +304,14 @@ def _decode_walk(cfg, mixer: str, kv_len: int, paged: bool, tp: int,
                  block_size: int) -> Counter:
     """One layer's decode attention: the single walk, or the split walk
     and the combine.  A ring walk splits by its layer's cache (a
-    sliding-window layer holds ``min(kv_len, window)`` slots); a paged
-    walk splits only when its table row outgrows a block
-    (``walk_plan(...).splits``, above about 189 thousand int8 slots at D
-    256, G 8)."""
+    sliding-window layer holds ``min(kv_len, window)`` slots), and on a
+    rank of a ring cut by sequence always (kernel 9 over the rank's
+    slots, kernel 10 over every rank's partials); a paged walk splits
+    only when its table row outgrows a block (``walk_plan(...).splits``,
+    above about 189 thousand int8 slots at D 256, G 8)."""
+    if seq_cut(cfg, mixer, tp, kv_len, paged):
+        return Counter({"decode_attention_partial": 1,
+                        "decode_attention_combine": 1})
     if paged:
         heads = cfg.n_heads // tp
         group = heads // max(1, cfg.n_kv_heads // tp)
@@ -392,14 +414,35 @@ def dit_step_launches(cfg, sharded: bool = False) -> Counter:
                     dit_block_launches(cfg, sharded).items()})
 
 
-def layer_collectives(cfg, spec, degraded: bool = False) -> Counter:
-    """A tensor-parallel rank's collectives in one forward (prefill or
-    decode alike) of ONE layer whose parts all shard, by ``TPGroup``
-    kind: an attention mixer's out-projection and an MLP's down each 1
-    MAX + 1 SUM (:data:`BLOCK_TP_COLLECTIVES` for the two), a bf16
-    mixer's :data:`MIXER_TP_COLLECTIVES`, the routed experts'
+def seq_gathers(cfg, mixer: str, phase: str, tp: int) -> int:
+    """The all-gathers a rank of ``tp`` makes for ONE layer whose ring or
+    latent cache it holds cut by sequence (:func:`seq_cut`), in one
+    forward of ``phase``: a prefill gathers the rows' slots whole (1); a
+    decode step gathers the heads' queries where the rank holds only its
+    own (1; an attention layer's MQA head, MLA's heads), then the
+    partials (attention: kernel 9's; MLA: the softmax states and the
+    latent sums, 2)."""
+    if phase == "prefill":
+        return 1
+    if mixer == "mla":
+        return 2 + (cfg.n_heads % tp == 0)
+    return 1 + (cfg.n_heads % tp == 0 and cfg.n_kv_heads == 1)
+
+
+def layer_collectives(cfg, spec, degraded: bool = False, *,
+                      phase: str = "decode", tp: int = 2,
+                      kv_len: int | None = None,
+                      paged: bool = False) -> Counter:
+    """A tensor-parallel rank's collectives in one forward of ``phase`` of
+    ONE layer whose parts all shard, by ``TPGroup`` kind: an attention
+    mixer's out-projection and an MLP's down each 1 MAX + 1 SUM
+    (:data:`BLOCK_TP_COLLECTIVES` for the two), a bf16 mixer's
+    :data:`MIXER_TP_COLLECTIVES`, the routed experts'
     :data:`MOE_TP_COLLECTIVES` (and the shared MLP's pair); with
-    ``degraded`` each site's :data:`DEGRADED_TP_COLLECTIVES` too."""
+    ``degraded`` each site's :data:`DEGRADED_TP_COLLECTIVES` too; with
+    ``kv_len`` (the ring's or the latent cache's slots, or the paged
+    table's with ``paged``) a ring cut by sequence's
+    :func:`seq_gathers`."""
     mixer, ffn = spec
     out: Counter = Counter()
     sites = []
@@ -408,6 +451,8 @@ def layer_collectives(cfg, spec, degraded: bool = False) -> Counter:
         sites += ["qkv", "out"]
     else:
         out.update(MIXER_TP_COLLECTIVES)
+    if kv_len is not None and seq_cut(cfg, mixer, tp, kv_len, paged):
+        out["gather"] += seq_gathers(cfg, mixer, phase, tp)
     if ffn == "dense":
         out.update(max=1, sum=1)
         sites.append("mlp")
@@ -423,27 +468,64 @@ def layer_collectives(cfg, spec, degraded: bool = False) -> Counter:
     return out
 
 
-def step_collectives(model, degraded: bool = False) -> Counter:
-    """A tensor-parallel rank's collectives in one forward (prefill or
-    decode alike) of a model whose layers all shard, by ``TPGroup``
-    kind: each layer's :func:`layer_collectives` (a full-plan dense or
-    MoE block: :data:`BLOCK_TP_COLLECTIVES`, plus
-    :data:`MOE_TP_COLLECTIVES` for the experts)."""
+def vocab_collectives(cfg, tp: int = 2) -> Counter:
+    """A tensor-parallel rank's collectives for the vocabulary in one
+    forward, when ``tp`` divides it (``parallel.sharding.vocab_cuts``):
+    the embedding lookup's SUM (none for an audio frontend, which looks
+    up no token) and the logits' gather."""
+    if tp <= 1 or cfg.vocab % tp:
+        return Counter()
+    out = Counter(gather=1)
+    if cfg.frontend != "audio":
+        out["sum"] = 1
+    return out
+
+
+def step_collectives(model, degraded: bool = False, *,
+                     phase: str = "decode", tp: int = 2,
+                     kv_len: int | None = None,
+                     paged: bool = False) -> Counter:
+    """A tensor-parallel rank's collectives in one forward of ``phase`` of
+    a model whose layers all shard, by ``TPGroup`` kind: each layer's
+    :func:`layer_collectives` (a full-plan dense or MoE block:
+    :data:`BLOCK_TP_COLLECTIVES`, plus :data:`MOE_TP_COLLECTIVES` for
+    the experts; the gathers of a ring cut by sequence with ``kv_len``)
+    and the vocabulary's (:func:`vocab_collectives`)."""
     cfg, groups = _groups(model)
-    total: Counter = Counter()
+    total = vocab_collectives(cfg, tp)
     for spec, count in groups:
-        for kind, n in layer_collectives(cfg, spec, degraded).items():
+        for kind, n in layer_collectives(cfg, spec, degraded, phase=phase,
+                                         tp=tp, kv_len=kv_len,
+                                         paged=paged).items():
             total[kind] += n * count
     return total
 
 
-def dit_step_collectives(cfg, degraded: bool = False) -> Counter:
+def run_collectives(model, decode_steps: int, prefills: int,
+                    **kw) -> Counter:
+    """A run's collectives on a tensor-parallel rank: ``decode_steps``
+    forwards of the decode phase and ``prefills`` of the prefill phase
+    (a paged engine's chunks included), each :func:`step_collectives`
+    (``kw``: its keywords)."""
+    total: Counter = Counter()
+    for phase, n in (("decode", decode_steps), ("prefill", prefills)):
+        for kind, k in step_collectives(model, phase=phase, **kw).items():
+            total[kind] += k * n
+    return total
+
+
+def dit_step_collectives(cfg, degraded: bool = False,
+                         tp: int = 2) -> Counter:
     """A tensor-parallel rank's collectives in one DiT evaluation: per
     block the out-projection's and the MLP down's MAX + SUM (adaLN and
     QKV need none); with ``degraded`` the QKV flag's MAX and the two
-    row-parallel fallbacks' MAX + SUM."""
+    row-parallel fallbacks' MAX + SUM; the label lookup's SUM where
+    ``tp`` divides the label table's rows (no registered DiT's)."""
     per = Counter(max=2, sum=2)
     if degraded:
         for site in ("qkv", "out", "mlp"):
             per.update(DEGRADED_TP_COLLECTIVES[site])
-    return Counter({k: v * cfg.n_layers for k, v in per.items()})
+    out = Counter({k: v * cfg.n_layers for k, v in per.items()})
+    if tp > 1 and (cfg.n_classes + 1) % tp == 0:
+        out["sum"] += 1
+    return out

@@ -133,18 +133,47 @@ def forced_plan(cluster: int):
         _FORCED.update(saved)
 
 
+@contextlib.contextmanager
+def walk_as_ranks(p: int):
+    """Inside the block an unsharded ring or MLA latent cache that a
+    tensor-parallel group of ``p`` would cut by sequence
+    (``parallel.sharding.leaf_seq_slots``) is walked at a decode step as
+    its p ranks walk their slots (``quant.tp.seq_cut``): the ring in p s
+    splits of one kernel-9 launch merged by kernel 10 (s the splits of a
+    rank's slots), the latent in p chunks merged as the ranks merge
+    (``models.mla``).  The unsharded run that such a sharded decode
+    reproduces bit for bit."""
+    if p < 1:
+        raise ValueError("p must be positive")
+    saved = dict(_FORCED)
+    _FORCED["ranks"] = p
+    try:
+        yield
+    finally:
+        _FORCED.clear()
+        _FORCED.update(saved)
+
+
+def walked_ranks() -> int | None:
+    """The p of the innermost :func:`walk_as_ranks`, else None."""
+    return _FORCED.get("ranks")
+
+
 def walk_plan(S: int, D: int, G: int, kv_dtype: torch.dtype, mode: str,
-              n_splits: int = 1, bs: int | None = None) -> WalkPlan:
+              n_splits: int = 1, bs: int | None = None,
+              cluster_slots: int | None = None) -> WalkPlan:
     """The launch plan of one walk: ``mode`` is "ring", "paged" (``bs``
     slots a pool block, S = nb * bs) or "split" (``n_splits`` slices).
-    The cluster size depends on S and D only; the bytes also on the
-    cache dtype, G and the range a block reads.  A paged walk whose
+    The cluster size depends on S and D only (``cluster_slots`` in place
+    of S: a tensor-parallel rank's slots of a longer ring, planned as
+    the whole ring's walk); the bytes also on the cache dtype, G and the
+    range a block reads.  A paged walk whose
     bitmask, step list and table row outgrow a block (above about 189
     thousand int8 slots at D 256, G 8) is planned in the fewest slices
     of :func:`split_len` slots that fit one (``splits``); a ring or split
     walk that does not fit raises."""
     kv_bytes = torch.empty((), dtype=kv_dtype).element_size()
-    cluster = _FORCED.get("cluster", cluster_for(S, D))
+    cluster = _FORCED.get("cluster", cluster_for(cluster_slots or S, D))
     rng = split_len(S, n_splits) if mode == "split" else S
     smem = smem_bytes(kv_bytes, D, G, rng,
                       S // bs if mode == "paged" else 0)
@@ -350,7 +379,8 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
                              q_pos: torch.Tensor,
                              k_scale: torch.Tensor | None = None,
                              v_scale: torch.Tensor | None = None,
-                             window: int | None = None, n_splits: int = 2
+                             window: int | None = None, n_splits: int = 2,
+                             cluster_slots: int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The ring walk cut into ``n_splits`` slices of :func:`split_len`
@@ -359,7 +389,11 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
 
     The all-empty-row exception is decided over the whole row; a slice
     with no visible slot in a row that has some emits m = -1e30, l = 0,
-    o = 0.
+    o = 0.  ``cluster_slots``: k holds a tensor-parallel rank's slots
+    of a ring of that many, and the launch takes the whole ring's
+    cluster size (:func:`cluster_for`), so each split sums as the same
+    split of the unsharded walk does (the plain version has no
+    cluster).
     """
     if n_splits < 1:
         raise ValueError("n_splits must be positive")
@@ -376,7 +410,8 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
     m = torch.empty((B, KH, n_splits, G, 1), dtype=torch.float32,
                     device=q.device)
     l = torch.empty_like(m)
-    plan = walk_plan(S, D, G, k.dtype, "split", n_splits)
+    plan = walk_plan(S, D, G, k.dtype, "split", n_splits,
+                     cluster_slots=cluster_slots)
     fn = bind(_LIB, "decode_attention_partial_launch",
               [P, I, P, P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I,
                I, I, I, P])

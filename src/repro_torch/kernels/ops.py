@@ -36,14 +36,16 @@ from .cim_gemm import (MAX_FUSED_QUANT_K, MAX_FUSED_QUANT_N,
                        cim_gemm_int8_fused_qin, cim_grouped_gated_gemm_int8,
                        cim_grouped_gemm_int8, finite_screen,
                        quantize_rows_int8)
-from .decode_attention import SPLIT_STEP
+from .decode_attention import SPLIT_STEP, split_len, walk_as_ranks
 
 __all__ = ["quantize_weights_int8", "quantize_rows_int8",
            "cim_quantized_matmul", "cim_quantized_matmul_fused",
            "cim_int8_gemm_acc", "cim_hidden_int8", "cim_quantized_mlp",
            "cim_quantized_grouped_mlp", "finite_screen",
            "decode_attention", "decode_attention_splitkv",
-           "decode_attention_paged", "n_splits_for", "flash_attention",
+           "decode_attention_partial", "decode_attention_combine",
+           "decode_attention_paged", "n_splits_for", "split_len",
+           "walk_as_ranks", "flash_attention",
            "ssd_scan", "online_softmax", "ref",
            "MAX_FUSED_QUANT_K", "MAX_FUSED_QUANT_N"]
 
@@ -270,6 +272,25 @@ def decode_attention_splitkv(q, k, v, pos, q_pos, k_scale=None,
                                            k_scale=k_scale, v_scale=v_scale,
                                            window=window, n_splits=n_splits)
     return _da.decode_attention_combine(o, m, l, q.dtype)
+
+
+def decode_attention_partial(q, k, v, pos, q_pos, k_scale=None,
+                             v_scale=None, window=None, n_splits: int = 2,
+                             cluster_slots: int | None = None):
+    """The split walk's partials alone (kernel 9): raw (o, m, l) of
+    ``n_splits`` slices of the cache, for a merge over more partials
+    than one launch walks (tensor parallelism's sequence-cut ring);
+    ``cluster_slots`` as :func:`~.decode_attention.walk_plan`."""
+    return _da.decode_attention_partial(q.contiguous(), k, v, pos, q_pos,
+                                        k_scale=k_scale, v_scale=v_scale,
+                                        window=window, n_splits=n_splits,
+                                        cluster_slots=cluster_slots)
+
+
+def decode_attention_combine(o, m, l, out_dtype):
+    """Kernel 10: partials [B, KH, NS, G, D] (m, l [.., 1]) merged in
+    ascending split -> [B, KH, G, D] in ``out_dtype``."""
+    return _da.decode_attention_combine(o, m, l, out_dtype)
 
 
 def decode_attention_paged(q, k_pages, v_pages, pos_pages, block_tables,

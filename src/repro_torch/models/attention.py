@@ -401,8 +401,24 @@ def cacheless_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Ring-buffer cache update (in place)
 # ---------------------------------------------------------------------------
+def write_held_slot(buf: torch.Tensor, at: torch.Tensor,
+                    new: torch.Tensor) -> None:
+    """``buf[b, at[b]] = new[b]`` in place for the rows whose slot ``at``
+    lies in ``buf``'s [0, L) (a rank's slots of a cache cut by
+    sequence), the others untouched: each row writes its own slot, the
+    value it holds where the slot is another rank's, with no host
+    sync."""
+    B, L = buf.shape[:2]
+    rows = torch.arange(B, device=buf.device)
+    mine = (at >= 0) & (at < L)
+    at = torch.where(mine, at, torch.zeros_like(at))
+    keep = mine.reshape(B, *([1] * (new.dim() - 1)))
+    buf[rows, at] = torch.where(keep, new, buf[rows, at])
+
+
 def _ring_update(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
-                 valid_len: Optional[torch.Tensor] = None) -> None:
+                 valid_len: Optional[torch.Tensor] = None,
+                 seq: Optional[tuple[int, int]] = None) -> None:
     """Write ``new`` (S entries starting at logical position ``idx[b]``)
     into the capacity-``cap`` ring ``buf`` at ``slot = position % cap``,
     in place.
@@ -416,14 +432,25 @@ def _ring_update(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
         content (the reference's ``mode="drop"``; torch has no drop mode,
         and the S < cap slots of a row are distinct, so writing the old
         value back is the same).
+
+    ``seq`` = (first slot, cap): ``buf`` holds a tensor-parallel rank's
+    slots ``[first, first + L)`` of a ring of ``cap`` slots (cut by
+    sequence), and receives exactly the whole ring's write restricted to
+    them on each path: the one slot if it is the rank's, the rank's
+    range of the whole shifted ring, and each held slot's entry (by
+    gather, so no two writes meet).
     """
-    cap = buf.shape[1]
+    L = buf.shape[1]
+    lo, cap = (0, L) if seq is None else seq
     B, S = new.shape[:2]
     new = new.to(buf.dtype)
     rows = torch.arange(B, device=buf.device)
     start = idx.long() % cap
     if S == 1:
-        buf[rows, start] = new[:, 0]
+        if seq is None:
+            buf[rows, start] = new[:, 0]
+        else:
+            write_held_slot(buf, start - lo, new[:, 0])
         return
     if S >= cap:
         if valid_len is None:
@@ -431,9 +458,19 @@ def _ring_update(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
         else:
             s0 = torch.clamp(valid_len.long() - cap, 0, S - cap)
         shift = (idx.long() + s0) % cap
-        j = torch.arange(cap, device=buf.device)
-        src = s0[:, None] + (j[None, :] - shift[:, None]) % cap   # [B, cap]
+        j = torch.arange(lo, lo + L, device=buf.device)
+        src = s0[:, None] + (j[None, :] - shift[:, None]) % cap   # [B, L]
         buf.copy_(new[rows[:, None], src])
+        return
+    if seq is not None:
+        # the entry landing on each held slot, if any
+        g = torch.arange(lo, lo + L, device=buf.device)
+        e = (g[None, :] - start[:, None]) % cap                   # [B, L]
+        hit = e < (S if valid_len is None else
+                   torch.clamp(valid_len.long(), max=S)[:, None])
+        src = torch.where(hit, e, torch.zeros_like(e))
+        keep = hit.reshape(B, L, *([1] * (new.dim() - 2)))
+        buf.copy_(torch.where(keep, new[rows[:, None], src], buf))
         return
     ar = torch.arange(S, device=buf.device)
     slots = (start[:, None] + ar[None, :]) % cap                 # [B, S]
@@ -535,6 +572,24 @@ def _decode_attention_cached(q, ck, cv, cpos, q_pos, k_scale, v_scale,
     out4 = _tp.decode_attn(q4, ck, cv, cpos, q_pos.to(torch.int32),
                            k_scale, v_scale, window=window,
                            use_kernel=_resolve_use_kernel(None))
+    return out4.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _decode_attention_seq(q, ck, cv, cpos, q_pos, k_scale, v_scale, window,
+                          seq, heads_cut: bool) -> torch.Tensor:
+    """One-token decode over a ring cache walked by sequence (``seq``, a
+    :class:`repro_torch.quant.tp.SeqCut`): kernel 9 over the rank's
+    slots, the ranks' partials gathered, kernel 10 merging them
+    (:func:`repro_torch.quant.tp.decode_attn_seq`).  q [B, 1, H, D]
+    (``heads_cut``: the rank's query heads); ck/cv [B, L, KH, D] the
+    rank's slots; returns [B, 1, H, D]."""
+    B, _, H, D = q.shape
+    KH = ck.shape[2]
+    q4 = q[:, 0].reshape(B, KH, H // KH, D)
+    out4 = _tp.decode_attn_seq(seq, q4, ck, cv, cpos,
+                               q_pos.to(torch.int32), k_scale, v_scale,
+                               window=window, heads_cut=heads_cut,
+                               use_kernel=_resolve_use_kernel(None))
     return out4.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -654,6 +709,10 @@ def attention_apply(attn: Attention, x: torch.Tensor,
     elif cache is not None:
         # Ring-buffer cache: slot = position % capacity; per-slot true
         # positions drive masking.
+        # a tensor-parallel rank's slots of a ring cut by sequence (or a
+        # whole ring walked as the ranks walk theirs), else None
+        seq = _tp.seq_cut("k", cache["k"])
+        at = None if seq is None else seq.held
         idx = cache["index"]
         valid_len = torch.sum(positions < 2 ** 29, dim=1).to(torch.int32)
         quantized = cache["k"].dtype == torch.int8
@@ -662,26 +721,37 @@ def attention_apply(attn: Attention, x: torch.Tensor,
             # int8 at write time: the cache never holds widened KV
             kq, ks = _quantize_kv(k)
             vq, vs = _quantize_kv(v)
-            _ring_update(cache["k"], kq, idx, valid_len)
-            _ring_update(cache["v"], vq, idx, valid_len)
-            _ring_update(cache["k_scale"], ks, idx, valid_len)
-            _ring_update(cache["v_scale"], vs, idx, valid_len)
+            _ring_update(cache["k"], kq, idx, valid_len, at)
+            _ring_update(cache["v"], vq, idx, valid_len, at)
+            _ring_update(cache["k_scale"], ks, idx, valid_len, at)
+            _ring_update(cache["v_scale"], vs, idx, valid_len, at)
             cks, cvs = cache["k_scale"], cache["v_scale"]
         else:
-            _ring_update(cache["k"], k, idx, valid_len)
-            _ring_update(cache["v"], v, idx, valid_len)
-        _ring_update(cache["pos"], positions.to(torch.int32), idx, valid_len)
+            _ring_update(cache["k"], k, idx, valid_len, at)
+            _ring_update(cache["v"], v, idx, valid_len, at)
+        _ring_update(cache["pos"], positions.to(torch.int32), idx, valid_len,
+                     at)
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         cache["index"] += S
-        if S == 1:
+        win = window if mask_kind == "sliding" else None
+        if S == 1 and seq is not None:
+            # the rank's slots walked by kernel 9, the ranks' partials
+            # merged by kernel 10
+            out = _decode_attention_seq(
+                q, ck, cv, cpos, positions[:, 0], cks, cvs, win, seq,
+                heads_cut=getattr(qkv_w, "tp_size", None) is not None)
+        elif S == 1:
             # single-token decode: the flash-decode kernel streams the
             # (possibly int8) cache directly, dequantizing in-kernel
             out = _decode_attention_cached(
-                q, ck, cv, cpos, positions[:, 0], cks, cvs,
-                window if mask_kind == "sliding" else None)
+                q, ck, cv, cpos, positions[:, 0], cks, cvs, win)
         else:
             # multi-token (prefill) path: plain dense attention over the
-            # dequantized cache, as in the reference
+            # dequantized cache, as in the reference; a rank's slots are
+            # gathered whole first (these rows, this layer, one gather)
+            if seq is not None:
+                ck, cv, cpos, cks, cvs = _tp.gather_slots(
+                    seq, [ck, cv, cpos, cks, cvs])
             if quantized:
                 k_r = _dequantize_kv(ck, cks).to(q.dtype)
                 v_r = _dequantize_kv(cv, cvs).to(q.dtype)

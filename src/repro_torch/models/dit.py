@@ -40,10 +40,12 @@ from torch import nn
 from repro_torch.configs.dit import DiTConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import silu
+from repro_torch.quant import tp as _tp
 from repro_torch.quant.linear import QuantizedLinear, quantized_matmul
 from repro_torch.quant.plan import FULL_INT8, apply_dit_plan
 from .attention import Attention, attention_apply
-from .layers import MLP, mlp_apply, truncated_normal_, weight
+from .layers import (MLP, embedding_apply, mlp_apply, truncated_normal_,
+                     weight)
 
 
 def _dtype(cfg: DiTConfig):
@@ -268,7 +270,9 @@ class DiTModel(nn.Module):
         h = timestep_embedding(t, self.cfg.freq_dim)
         h = silu(torch.matmul(h, te.w1.float()) + te.b1)
         h = torch.matmul(h, te.w2.float()) + te.b2
-        ye = self.y_table[y.long()]
+        group = (_tp.group_of(self) if "y_table" in
+                 self.__dict__.get("_tp_cut", ()) else None)
+        ye = embedding_apply(self.y_table, y.long(), group)
         return (h + ye.float()).to(_dtype(self.cfg))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,

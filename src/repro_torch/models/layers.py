@@ -96,23 +96,63 @@ def norm_apply(kind: str, scale: torch.Tensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Embedding + tied head
 # ---------------------------------------------------------------------------
-def embedding_apply(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens]
+def _as_int32(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as int32 (a 16-bit dtype widened)."""
+    if t.element_size() == 4:
+        return t.view(torch.int32)
+    return t.view(torch.int16).to(torch.int32)
 
 
-def embedding_attend(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def embedding_apply(emb: torch.Tensor, tokens: torch.Tensor,
+                    group=None) -> torch.Tensor:
+    """The rows of ``emb`` at ``tokens``.  With ``group`` ``emb`` holds a
+    tensor-parallel rank's rows ``[r V / p, (r + 1) V / p)`` of the
+    vocabulary: an id outside them reads zero, and one SUM over the ranks
+    (of the rows' bits as int32, so any float dtype goes through any
+    backend) gives every rank the whole lookup, bit for bit: each row
+    comes from one rank, and an integer added to zeros is itself."""
+    if group is None:
+        return emb[tokens]
+    n = emb.shape[0]
+    local = tokens - group.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = emb[torch.where(mine, local, torch.zeros_like(local))]
+    bits = torch.where(mine[..., None], _as_int32(rows),
+                       torch.zeros((), dtype=torch.int32,
+                                   device=rows.device))
+    bits = group.all_reduce_sum(bits.contiguous())
+    if emb.element_size() == 4:
+        return bits.view(emb.dtype)
+    return bits.to(torch.int16).view(emb.dtype)
+
+
+def gather_vocab(group, logits: torch.Tensor) -> torch.Tensor:
+    """The ranks' vocabulary columns of ``logits`` [..., V/p]
+    concatenated in rank order (one all-gather): the whole row on every
+    rank, for the host sampler, the health check and degraded mode."""
+    if group is None:
+        return logits
+    whole = group.all_gather(logits.movedim(-1, 0).contiguous())
+    return whole.movedim(0, -1).contiguous()
+
+
+def embedding_attend(emb: torch.Tensor, x: torch.Tensor,
+                     group=None) -> torch.Tensor:
     """Tied-weight logits: x @ E^T / sqrt(d), in the weights' dtype, then
     f32.  A plain product outside any kernel, so it stays
-    ``torch.matmul``."""
+    ``torch.matmul``.  With ``group`` ``emb`` is a rank's rows: its
+    columns of the logits, gathered (:func:`gather_vocab`)."""
     scale = 1.0 / math.sqrt(emb.shape[-1])
-    return (torch.matmul(x, emb.t()) * scale).float()
+    return gather_vocab(group, (torch.matmul(x, emb.t()) * scale).float())
 
 
-def lm_head_apply(kernel: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def lm_head_apply(kernel: torch.Tensor, x: torch.Tensor,
+                  group=None) -> torch.Tensor:
     """Untied logits: x @ W with W [d, vocab] in the weights' dtype, then
     f32.  A plain product outside any kernel, so it stays
-    ``torch.matmul``."""
-    return torch.matmul(x, kernel).float()
+    ``torch.matmul``.  With ``group`` ``kernel`` is a rank's columns,
+    gathered (:func:`gather_vocab`)."""
+    return gather_vocab(group, torch.matmul(x, kernel).float())
 
 
 # ---------------------------------------------------------------------------

@@ -104,14 +104,131 @@ def _project_kv_latent(m: MLA, x, cfg: MLAConfig, positions, rope_theta):
 
 
 def _write_latent(buf: torch.Tensor, new: torch.Tensor,
-                  idx: torch.Tensor) -> None:
+                  idx: torch.Tensor,
+                  seq: Optional[tuple[int, int]] = None) -> None:
     """``buf[b, idx[b]:idx[b] + S] = new[b]`` in place, the start clamped
-    into [0, T - S] as ``jax.lax.dynamic_update_slice`` clamps it."""
+    into [0, T - S] as ``jax.lax.dynamic_update_slice`` clamps it.
+    ``seq`` = (first slot, T): ``buf`` holds a tensor-parallel rank's
+    slots ``[first, first + L)`` of a cache of T slots (cut by sequence)
+    and takes the whole write restricted to them."""
     B, S = new.shape[:2]
-    start = torch.clamp(idx.long(), 0, buf.shape[1] - S)
-    cols = start[:, None] + torch.arange(S, device=buf.device)[None]
-    buf[torch.arange(B, device=buf.device)[:, None], cols] = \
-        new.to(buf.dtype)
+    L = buf.shape[1]
+    lo, T = (0, L) if seq is None else seq
+    rows = torch.arange(B, device=buf.device)
+    start = torch.clamp(idx.long(), 0, T - S)
+    new = new.to(buf.dtype)
+    if seq is None:
+        cols = start[:, None] + torch.arange(S, device=buf.device)[None]
+        buf[rows[:, None], cols] = new
+        return
+    if S == 1:
+        attn_mod.write_held_slot(buf, start - lo, new[:, 0])
+        return
+    e = (lo + torch.arange(L, device=buf.device))[None] - start[:, None]
+    hit = (e >= 0) & (e < S)                                  # [B, L]
+    src = torch.where(hit, e, torch.zeros_like(e))
+    buf.copy_(torch.where(hit[..., None], new[rows[:, None], src], buf))
+
+
+def _latent_scores(q_lat, q_rope, c, rk, first, positions, idx, S, scale):
+    """Every head's f32 scores [B, H, S, L] of the queries against the
+    latent slots ``[first, first + L)`` (``c`` [B, L, r], ``rk`` [B, L,
+    rope]), a slot past a query's position or the rows' written slots
+    masked to NEG_INF."""
+    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), c.float())
+         + torch.einsum("bshk,btk->bhst", q_rope.float(), rk.float())
+         ) * scale
+    t_pos = (first + torch.arange(c.shape[1], device=s.device)
+             )[None, None, None, :]
+    valid = t_pos <= positions[:, None, :, None]
+    valid &= t_pos < (idx[:, None, None, None] + S)
+    return torch.where(valid, s, torch.full_like(s, NEG_INF))
+
+
+def _latent_attend(q_lat, q_rope, c_cache, r_cache, positions, idx, S,
+                   scale) -> torch.Tensor:
+    """The reference's absorbed attention over a whole latent cache: the
+    scores' softmax, cast to the cache's dtype, times the latent in the
+    cache's dtype.  Returns o_lat [B, S, H, r]."""
+    probs = torch.softmax(_latent_scores(q_lat, q_rope, c_cache, r_cache, 0,
+                                         positions, idx, S, scale), dim=-1)
+    return torch.einsum("bhst,btr->bshr", probs.to(c_cache.dtype), c_cache)
+
+
+def _merge_states(ml: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ranks' softmax states ml [p, B, H, 1, 2] (each rank's max m
+    and its sum l of exp(s - m)), in rank order, merged into the row's
+    max m_g and sum l_g = sum_k l_k exp(m_k - m_g), added in ascending
+    rank."""
+    m_g = ml[..., 0:1].amax(0)
+    w = torch.exp(ml[..., 0:1] - m_g)
+    l_g = ml[0, ..., 1:] * w[0]
+    for k in range(1, ml.shape[0]):
+        l_g = l_g + ml[k, ..., 1:] * w[k]
+    return m_g, l_g
+
+
+def _latent_decode(q_lat, q_rope, c_cache, r_cache, positions, idx, scale,
+                   seq, heads_group=None) -> torch.Tensor:
+    """The absorbed one-token attention over a latent cache walked by
+    sequence (``seq``, a :class:`repro_torch.quant.tp.SeqCut`: this
+    rank's slots, or a whole cache walked as ``seq.ranks`` chunks merged
+    alike; ``heads_group``: the rank holds only its heads).  In the
+    reference's roundings as far as a rank's slots allow: every head's
+    f32 scores over the slots (the heads' ``q_lat`` and ``q_rope``
+    gathered first when the rank holds only its heads), the ranks'
+    softmax states (m, l) gathered and merged into the row's max and sum
+    (:func:`_merge_states`), each slot's probability exp(s - m) / l
+    rounded to the cache's dtype as the reference rounds its softmax,
+    the rank's f32 sum of probability times latent, and the ranks' sums
+    gathered, added in ascending rank and rounded to the cache's dtype
+    (the reference's one bf16 product accumulates in f32 and rounds
+    once).  The reference has no kernel here: plain torch.  Returns the
+    rank's heads' o_lat [B, 1, H_r, r]: the whole cache's walk as ranks
+    bit for bit, and within the order of the f32 sums (the row's sum
+    and the latent's) of :func:`_latent_attend`."""
+    r = q_lat.shape[-1]
+    H_r = q_lat.shape[2]
+    both = torch.cat([q_lat, q_rope], -1)
+    if heads_group is not None:
+        both = _tp.gather_heads(heads_group, both, 2)
+    q_lat, q_rope = both[..., :r], both[..., r:]
+    group = seq.group
+    if group is None:
+        L = c_cache.shape[1] // seq.ranks
+        pieces = [(c_cache[:, k * L:(k + 1) * L].contiguous(),
+                   r_cache[:, k * L:(k + 1) * L].contiguous(), k * L)
+                  for k in range(seq.ranks)]
+    else:
+        pieces = [(c_cache, r_cache, seq.first)]
+
+    def ranks_of(ts):
+        """The ranks' tensors stacked in rank order."""
+        if group is None:
+            return torch.stack(ts)
+        return group.all_gather(ts[0].contiguous()).reshape(
+            group.size, *ts[0].shape)
+    scores, states = [], []
+    for c, rk, first in pieces:
+        s = _latent_scores(q_lat, q_rope, c, rk, first, positions, idx, 1,
+                           scale)
+        m = s.amax(-1, keepdim=True)                          # [B, H, 1, 1]
+        scores.append(s)
+        states.append(torch.cat([m, torch.exp(s - m).sum(-1, keepdim=True)],
+                                -1))
+    m_g, l_g = _merge_states(ranks_of(states))
+    parts = [torch.einsum("bhst,btr->bshr",
+                          (torch.exp(s - m_g) / l_g).to(c.dtype).float(),
+                          c.float())
+             for s, (c, _, _) in zip(scores, pieces)]
+    parts = ranks_of(parts)
+    acc = parts[0]
+    for k in range(1, parts.shape[0]):
+        acc = acc + parts[k]
+    if heads_group is not None:
+        rank = heads_group.rank
+        acc = acc[:, :, rank * H_r:(rank + 1) * H_r]
+    return acc.to(c_cache.dtype)
 
 
 def mla_apply(m: MLA, x: torch.Tensor, positions: torch.Tensor,
@@ -126,8 +243,14 @@ def mla_apply(m: MLA, x: torch.Tensor, positions: torch.Tensor,
 
     A tensor-parallel rank's layer holds its heads of ``q_up`` and
     ``kv_up`` (:func:`repro_torch.parallel.sharding.mla_cuts`); the
-    down-projections, the latent cache and ``o`` stay whole, and the
-    heads' outputs are gathered (one all-gather) before ``o``."""
+    down-projections and ``o`` stay whole, and the heads' outputs are
+    gathered (one all-gather) before ``o``.  Its latent cache may hold
+    only the rank's slots (cut by sequence, ``Model.init_cache``): a
+    prefill then gathers the rows' slots whole (one gather, the
+    unsharded function bit for bit), a decode step merges the ranks'
+    softmax states and latent sums (:func:`_latent_decode`: three
+    gathers, within the order of two f32 sums; bitwise an unsharded run
+    under ``kernels.decode_attention.walk_as_ranks``)."""
     B, S, _ = x.shape
     nope = cfg.qk_nope_head_dim
     scale = 1.0 / math.sqrt(cfg.qk_head_dim)
@@ -151,23 +274,26 @@ def mla_apply(m: MLA, x: torch.Tensor, positions: torch.Tensor,
     # absorbed: score and fold values directly against the latent cache
     idx = cache["index"].clone()
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-    _write_latent(c_cache, c_kv, idx)
-    _write_latent(r_cache, k_rope, idx)
+    # a tensor-parallel rank's slots of a latent cut by sequence (or a
+    # whole latent walked as the ranks walk theirs), else None
+    seq = _tp.seq_cut("c_kv", c_cache)
+    at = None if seq is None else seq.held
+    _write_latent(c_cache, c_kv, idx, at)
+    _write_latent(r_cache, k_rope, idx, at)
     cache["index"] += S
 
     w_uk = m.kv_up[..., :nope]                  # [r, H, nope]
     w_uv = m.kv_up[..., nope:]                  # [r, H, v]
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
-    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_cache.float())
-              + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                             r_cache.float())) * scale
-    t_pos = torch.arange(c_cache.shape[1], device=x.device)[None, None,
-                                                            None, :]
-    valid = t_pos <= positions[:, None, :, None]
-    valid &= t_pos < (idx[:, None, None, None] + S)
-    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", probs.to(c_cache.dtype), c_cache)
+    if S == 1 and seq is not None:
+        o_lat = _latent_decode(q_lat, q_rope, c_cache, r_cache, positions,
+                               idx, scale, seq, group)
+    else:
+        if seq is not None:
+            # a prefill: the rows' latent slots gathered whole (one gather)
+            c_cache, r_cache = _tp.gather_slots(seq, [c_cache, r_cache])
+        o_lat = _latent_attend(q_lat, q_rope, c_cache, r_cache, positions,
+                               idx, S, scale)
     out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
     return _out_proj(m, out.to(x.dtype), group)
 

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.quant import tp as _tp
 from repro_torch.quant.linear import QuantizedLinear
 from repro_torch.quant.plan import FULL_INT8, apply_plan
 from . import attention as attn_mod
@@ -291,7 +292,7 @@ class Model(nn.Module):
             raise ValueError(f"{cfg.name} has no audio frontend")
         if patch_embeddings is not None and cfg.frontend != "vision":
             raise ValueError(f"{cfg.name} has no vision frontend")
-        x = embedding_apply(self.embed, tokens)
+        x = embedding_apply(self.embed, tokens, self._vocab_group())
         if cfg.frontend != "vision":
             return x, None
         if patch_embeddings is None:
@@ -352,10 +353,19 @@ class Model(nn.Module):
         x = _norm(self.cfg.norm, self.final_norm, x, self, "final_norm")
         return x, aux
 
+    def _vocab_group(self):
+        """The current tensor-parallel group when this rank holds only its
+        rows of the vocabulary (``parallel.sharding.vocab_cuts``), else
+        None."""
+        if "embed" not in self.__dict__.get("_tp_cut", ()):
+            return None
+        return _tp.group_of(self)
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
+        group = self._vocab_group()
         if hasattr(self, "head"):
-            return lm_head_apply(self.head, x)
-        return embedding_attend(self.embed, x)
+            return lm_head_apply(self.head, x, group)
+        return embedding_attend(self.embed, x, group)
 
     def forward(self, tokens: Optional[torch.Tensor] = None,
                 caches: Optional[list] = None,
@@ -527,11 +537,24 @@ class Model(nn.Module):
         window; a Mamba-2 layer holds its conv tail and state
         (``init_ssm_cache``), an MLA layer its bf16 latent cache of
         ``max_len`` slots whatever ``kv_dtype`` says (``init_mla_cache``,
-        as the reference; whole on every rank), an xLSTM layer its state
-        (``init_mlstm_cache``, ``init_slstm_cache``)."""
+        as the reference), an xLSTM layer its state (``init_mlstm_cache``,
+        ``init_slstm_cache``).
+
+        On a model sharded by ``parallel.sharding.shard_model`` (rank r of
+        p) a ring or latent cache whose ``kv_seq`` axis binds the model
+        axis (``parallel.sharding.seq_cut_slots``: the KV heads cannot
+        take it and p divides the capacity) holds only the rank's slots
+        ``[r cap / p, (r + 1) cap / p)``, recorded on its ``k`` or
+        ``c_kv`` leaf (``parallel.sharding.record_slot_range``); the
+        write index stays whole and keeps its global meaning (slot =
+        position % cap)."""
+        from repro_torch.parallel.sharding import (cache_span,
+                                                   record_slot_range,
+                                                   seq_cut_slots)
         kv = kv_dtype or self.cfg.kv_cache_dtype
         dt = torch.int8 if kv == "int8" else torch.bfloat16
         cfg, dev = self.cfg, self.device
+        size = getattr(self, "tp_size", 1)
         caches = []
         for block in self.layers:
             mixer = block.spec[0]
@@ -540,10 +563,6 @@ class Model(nn.Module):
                     batch, cfg.d_model, cfg.ssm, device=dev,
                     n_heads=block.mamba.a_log.shape[0],
                     conv_dim=block.mamba.conv_w.shape[1]))
-                continue
-            if mixer == "mla":
-                caches.append(init_mla_cache(batch, max_len, cfg.mla,
-                                             device=dev))
                 continue
             if mixer == "mlstm":
                 caches.append(init_mlstm_cache(
@@ -555,12 +574,20 @@ class Model(nn.Module):
                     batch, cfg.d_model, cfg.xlstm, device=dev,
                     n_heads=block.slstm.r.shape[1]))
                 continue
-            span = max_len
-            if block.spec[0] == "attn_local":
-                span = min(max_len, self.cfg.sliding_window or max_len)
-            caches.append(attn_mod.init_kv_cache(
-                batch, span, block.attn.n_kv_heads, self.cfg.head_dim,
-                dtype=dt, device=self.device))
+            span = cache_span(cfg, mixer, max_len)
+            cut = seq_cut_slots(cfg, mixer, size, max_len)
+            slots = span if cut is None else cut
+            if mixer == "mla":
+                cache = init_mla_cache(batch, slots, cfg.mla, device=dev)
+                leaf = cache["c_kv"]
+            else:
+                cache = attn_mod.init_kv_cache(
+                    batch, slots, block.attn.n_kv_heads, cfg.head_dim,
+                    dtype=dt, device=dev)
+                leaf = cache["k"]
+            if cut is not None:
+                record_slot_range(leaf, self.tp_rank * cut, span)
+            caches.append(cache)
         return caches
 
     def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,

@@ -107,14 +107,17 @@ class TPGroup:
             self.observer("gather", t)
         if self.size == 1:
             return t
-        raw = t.contiguous().view(torch.uint8)
+        # one row of bytes per leading index (a size-1 trailing axis may
+        # carry any stride, which a dtype view refuses)
+        raw = t.contiguous().view(-1).view(torch.uint8).view(t.shape[0], -1)
         with _host_transport() if self._staged(t) else \
                 contextlib.nullcontext():
             src = raw.cpu() if self._staged(t) else raw
             out = torch.empty((self.size * src.shape[0],) + src.shape[1:],
                               dtype=torch.uint8, device=src.device)
             dist.all_gather(list(out.chunk(self.size)), src)
-            return out.to(t.device).view(t.dtype)
+            return out.to(t.device).view(t.dtype).reshape(
+                (self.size * t.shape[0],) + t.shape[1:])
 
     def send(self, t: torch.Tensor, dst: int) -> None:
         """A pipeline hand-off: ``t`` to rank ``dst`` (which calls

@@ -15,27 +15,43 @@ the batch by :func:`batch_sharding` and its moments by the ``fsdp``
 axis (:func:`local_slices`).
 
 Tensor parallelism (the divisibility fallback for the ``heads``,
-``kv_heads``, ``mlp`` and ``expert`` axes, and the logical axes the
-reference's bf16 mixers carry):
+``kv_heads``, ``mlp``, ``expert``, ``vocab`` and ``kv_seq`` axes, and
+the logical axes the reference's bf16 mixers carry):
 
 :func:`shard_model` cuts, in place, a model's leaves to one rank's
 shards; a quantized leaf's ``q`` and ``scale`` stay co-sharded on the
 output-channel axis.  A dimension that the group size does not divide
 keeps its leaves whole on every rank (the reference's replicate-on-
 indivisible rule), and the layers then run the unsharded path.  The
-embedding, the untied head, the norms (``qk_norm``'s per-head weight
-and layernorm's included), ``frontend_proj``, the router and DiT's adaLN
-stay whole (the reference places the vocabulary sharded, with the same
-bits; adaLN's six chunks are needed whole on every rank).
+norms (``qk_norm``'s per-head weight and layernorm's included),
+``frontend_proj``, the router and DiT's adaLN stay whole (adaLN's six
+chunks are needed whole on every rank).  A sharded model records the
+rank it holds (``tp_rank``, ``tp_size``).
 
 Each kind of layer and how a rank holds it:
 
+* the vocabulary: the embedding's rows and the untied head's columns
+  (DiT: the label table's rows) where the ``vocab`` axis binds the
+  group, ``resolve_spec`` of ``("vocab", "fsdp")`` on ``{"model": p}``
+  (every LM config's vocabulary divides 2 and 4; DiT's 1001 and 17
+  label rows do not, and stay whole): a lookup reads zero outside the
+  rank's rows and the ranks' rows are summed, the logits are the
+  rank's columns gathered (:mod:`repro_torch.models.layers`).
 * attention (int8): the columns laid out as [its q heads | its k heads |
   its v heads]: q heads shard when ``H % p == 0``; K/V heads shard when
   ``KH % p == 0``, and are otherwise computed whole on every rank (an
   MQA head, ``KH == 1``; other indivisible KV counts keep the attention
   whole).  Each rank attends its own q heads, and its attention output
   is the row-parallel out-projection's input shard.
+* the ring cache and MLA's latent cache: cut by :func:`seq_cut_slots`,
+  ``resolve_spec`` of :func:`cache_axes` on ``{"model": p}``: where the
+  KV heads cannot take the model axis (an MQA head; MLA's latent has
+  none) ``kv_seq`` binds it, and rank r holds the slots
+  ``[r cap / p, (r + 1) cap / p)`` (a capacity that p does not divide
+  stays whole); the rank's slot range is recorded on the cache's
+  ``k`` or ``c_kv`` leaf (:func:`record_slot_range`), where the layer
+  reads it.  The paged pools carry no ``kv_seq`` axis and hold their
+  KV heads as the layer does.
 * MLP (int8): up/gate column-parallel, down row-parallel; routed expert
   stacks on their leading expert axis.
 * the bf16 mixers shard by head and gather the heads' outputs (one
@@ -44,19 +60,21 @@ Each kind of layer and how a rank holds it:
   Mamba-2 (``in_proj``'s z, x and dt columns, the conv channels,
   ``a_log``, ``d_skip``, ``dt_bias`` of the rank's SSM heads; B and C
   whole unless the group size divides the groups), MLA (``q_up`` and
-  ``kv_up``; the down-projections and the latent cache whole), the
-  mLSTM (``q``, ``k``, ``v``, the gates and the chunk state; ``up`` and
-  the conv whole, as every head reads all of the conv's channels) and
-  the sLSTM (``r``, ``b`` and the carry: its recurrence is
-  block-diagonal by head).  The f32 input products of the mLSTM's gates
-  and the sLSTM keep their small weights whole and are cut to the
-  rank's heads after the product: a column slice of an f32 product
-  rounds apart from the whole one on the card.
+  ``kv_up``; the down-projections whole, the latent cache by sequence
+  as above), the mLSTM (``q``, ``k``, ``v``, the gates and the chunk
+  state; ``up`` and the conv whole, as every head reads all of the
+  conv's channels) and the sLSTM (``r``, ``b`` and the carry: its
+  recurrence is block-diagonal by head).  The f32 input products of
+  the mLSTM's gates and the sLSTM keep their small weights whole and
+  are cut after the product: a column slice of an f32 product rounds
+  apart from the whole one on the card.
 
 A cut is a dict {axis: the global indices a rank keeps}.  A cut
 quantized leaf records them (``tp_index``, and the whole leaf's shape
-``tp_shape``): a weight fault drawn over the whole leaf lands on the
-rank that holds it (:mod:`repro_torch.reliability.faults`).
+``tp_shape``; its scale's, ``tp_scale_index`` and ``tp_scale_shape``):
+a weight fault drawn over the whole leaf lands on the rank that holds
+it, and outlier protection ranks the whole leaf's channels
+(:mod:`repro_torch.reliability.faults`).
 
 :func:`draw_sharded` fills a model on the meta device with
 ``init``'s weights one leaf at a time, each quantized (where the plan
@@ -339,6 +357,63 @@ def cache_axes(model, kv_dtype: Optional[str] = None) -> list:
     return out
 
 
+def cache_span(cfg, mixer: str, max_len: int) -> int:
+    """The slots a ``mixer`` layer's ring cache of ``max_len`` holds: a
+    sliding-window layer only the window."""
+    if mixer == "attn_local" and cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def leaf_seq_slots(leaf: str, shape: tuple, p: int) -> Optional[int]:
+    """The slots a tensor-parallel rank of ``p`` holds of a ring cache's
+    ``k`` or an MLA latent cache's ``c_kv`` leaf of the whole ``shape``:
+    ``shape[1] // p`` where :func:`resolve_spec` binds the leaf's
+    ``kv_seq`` axis to the model axis of ``{"model": p}`` (the KV heads,
+    if any, cannot take it and p divides the capacity), rank r the slots
+    [r n, (r + 1) n); None where the slots stay whole (p 1 cuts
+    nothing)."""
+    axes = _CACHE_AXES["mla"]["c_kv"] if leaf == "c_kv" else _KV_AXES[leaf]
+    if p <= 1:
+        return None
+    i = axes.index("kv_seq")
+    if resolve_spec(tuple(shape), axes, {"model": p})[i] != "model":
+        return None
+    return shape[i] // p
+
+
+def seq_cut_slots(cfg, mixer: str, p: int, max_len: int) -> Optional[int]:
+    """The one rule for context parallelism at serving: the slots a rank
+    of ``p`` holds of a ``mixer`` layer's ring cache (its
+    :func:`cache_span`) or MLA latent cache of ``max_len`` slots
+    (:func:`leaf_seq_slots` of the whole leaf), None where the cache
+    stays whole or the layer holds none (a recurrent state).
+    ``Model.init_cache`` allocates by it and the manifest counts by
+    it."""
+    if mixer == "mla":
+        return leaf_seq_slots("c_kv", (1, max_len, cfg.mla.kv_lora_rank),
+                              p)
+    if mixer not in ("attn", "attn_local"):
+        return None
+    return leaf_seq_slots("k", (1, cache_span(cfg, mixer, max_len),
+                                cfg.n_kv_heads, cfg.head_dim), p)
+
+
+def record_slot_range(leaf: torch.Tensor, first: int, slots: int) -> None:
+    """Record on a rank's cache leaf that it holds the slots ``[first,
+    first + leaf.shape[1])`` of a cache of ``slots`` slots cut by
+    sequence (read back by :func:`slot_range`)."""
+    leaf.kv_seq = (first, slots)
+
+
+def slot_range(leaf: torch.Tensor) -> Optional[tuple[int, int]]:
+    """(the first slot, the whole capacity) recorded on ``leaf`` or, for
+    a view of it (the engine's slot view), on the leaf it views; None
+    for a whole cache."""
+    base = leaf if leaf._base is None else leaf._base
+    return getattr(base, "kv_seq", None)
+
+
 def _span(n: int, group: TPGroup) -> torch.Tensor:
     k = n // group.size
     return torch.arange(group.rank * k, (group.rank + 1) * k)
@@ -359,6 +434,9 @@ def cut_quantized(w: QuantizedLinear, q_cut: Cut, scale_cut: Cut,
     and mark ``w`` sharded ``p`` ways."""
     w.tp_shape = tuple(w.q.shape)
     w.tp_index = tuple(q_cut.get(a) for a in range(w.q.dim()))
+    w.tp_scale_shape = tuple(w.scale.shape)
+    w.tp_scale_index = tuple(scale_cut.get(a)
+                             for a in range(w.scale.dim()))
     w.q = _take(w.q, q_cut)
     w.scale = _take(w.scale, scale_cut)
     w.tp_size = p
@@ -465,7 +543,28 @@ def _apply_cuts(mod: nn.Module, cuts: dict, p: int) -> None:
     mod.tp_size = p
 
 
+def vocab_cuts(model, group: TPGroup) -> Optional[dict]:
+    """The rows of the embedding (DiT: the label table) and the columns
+    of the untied head that ``group.rank`` holds, when the ``vocab`` axis
+    binds the model axis (:func:`resolve_spec` of ``("vocab", "fsdp")``
+    on ``{"model": p}``: p divides the rows); None when they stay whole
+    (a group of one rank cuts nothing by vocabulary)."""
+    table = "y_table" if hasattr(model, "blocks") else "embed"
+    V, d = getattr(model, table).shape
+    if group.size <= 1 or resolve_spec(
+            (V, d), _OUTER_AXES["['embed']['embedding']"],
+            {"model": group.size})[0] != "model":
+        return None
+    rows = _span(V, group)
+    cuts = {table: {0: rows}}
+    if hasattr(model, "head"):
+        cuts["head"] = {1: rows}
+    return cuts
+
+
 BF16_MIXERS = ("mamba2", "mla", "mlstm", "slstm")
+# parts cut whether or not the plan quantized them
+PLAIN_PARTS = BF16_MIXERS + ("vocab",)
 
 
 def _layer_parts(model, group: TPGroup) -> list:
@@ -473,12 +572,12 @@ def _layer_parts(model, group: TPGroup) -> list:
     LM or a DiT) that tensor parallelism may shard, the cuts from the
     config's (whole) dimensions."""
     cfg = model.cfg
+    parts = [("vocab", model, vocab_cuts(model, group))]
     if hasattr(model, "blocks"):                     # DiT: H = KH
-        return [part for block in model.blocks for part in (
+        return parts + [part for block in model.blocks for part in (
             ("attention", block.attn,
              attention_cuts(cfg.n_heads, cfg.n_heads, group)),
             ("mlp", block.mlp, mlp_cuts(cfg.d_ff, group)))]
-    parts = []
     for block in model.layers:
         mixer, ffn = block.spec
         if mixer in ("attn", "attn_local"):
@@ -522,27 +621,37 @@ def _sharded_ways(mod: nn.Module) -> Optional[int]:
 
 def shard_model(model, group: TPGroup):
     """Cut the leaves of ``model`` (an LM or a DiT) to ``group.rank``'s
-    shards, in place; returns the model.  Attention and the MLPs shard
-    once quantized (their bf16 forms stay whole); the bf16 mixers
-    (Mamba-2, MLA, mLSTM, sLSTM) shard by head.  Modules already sharded
-    for a group of this size are left as they are (for another size:
-    raises).  Each layer kind that stays whole (not quantized, or a
-    dimension that ``group.size`` does not divide) is logged once."""
+    shards, in place; returns the model, marked with the rank it holds
+    (``tp_rank``, ``tp_size``: its ring and latent caches are cut by
+    sequence from them, ``Model.init_cache``).  Attention and the MLPs
+    shard once quantized (their bf16 forms stay whole); the bf16 mixers
+    (Mamba-2, MLA, mLSTM, sLSTM) shard by head, the vocabulary by rows.
+    Modules already sharded for a group of this size are left as they
+    are (for another size: raises).  Each layer kind that stays whole
+    (not quantized, or a dimension that ``group.size`` does not divide)
+    is logged once."""
+    held = getattr(model, "tp_rank", None)
+    if held is not None and (held, model.tp_size) != (group.rank,
+                                                      group.size):
+        raise ValueError(f"the model holds rank {held} of "
+                         f"{model.tp_size}, not rank {group.rank} of "
+                         f"{group.size}")
     whole = set()
     for kind, mod, cuts in _layer_parts(model, group):
         ways = _sharded_ways(mod)
-        if ways is not None:
+        if ways is not None and kind != "vocab":
             if ways != group.size:
                 raise ValueError(f"{kind} is sharded {ways} ways, not "
                                  f"{group.size}")
             continue
-        if cuts is None or (kind not in BF16_MIXERS
+        if cuts is None or (kind not in PLAIN_PARTS
                             and not _quantized(kind, mod)):
             whole.add(kind)
             continue
         _apply_cuts(mod, cuts, group.size)
         if kind == "attention":
             mod.n_kv_heads = len(cuts["k"][1])
+    model.tp_rank, model.tp_size = group.rank, group.size
     for kind in sorted(whole):
         log.info("tensor parallelism over %d ranks: the %s stays whole "
                  "(not quantized, or a dimension %d does not divide)",
@@ -607,7 +716,7 @@ class _Drawer:
                 quant == "adaln" and name != "kernel"):
             quant = None
         if quant is None:
-            if kind in BF16_MIXERS and cuts is not None and name in cuts:
+            if kind in PLAIN_PARTS and cuts is not None and name in cuts:
                 w = _take(w, cuts[name])
                 mod.__dict__.setdefault("_tp_cut", set()).add(name)
             setattr(mod, name, nn.Parameter(w, requires_grad=False))
@@ -649,6 +758,8 @@ class _Drawer:
             d, H, Dh = parts[0].tp_shape
             qkv.tp_shape = (d, H + 2 * parts[1].tp_shape[1], Dh)
             qkv.tp_index = (None, cuts["qkv"][1], None)
+            qkv.tp_scale_shape = qkv.tp_shape[1:]
+            qkv.tp_scale_index = (cuts["qkv"][1], None)
             qkv.tp_size = self.group.size
             attn.n_kv_heads = len(cuts["k"][1])
         attn.qkv = qkv

@@ -62,7 +62,8 @@ class QuantizedLinear(nn.Module):
     was sharded over (:func:`~repro_torch.parallel.sharding.shard_model`),
     None for a whole leaf; a shard also records the whole leaf's
     ``tp_shape`` and, per axis of ``q``, the whole leaf's indices it
-    holds (``tp_index``, None for an axis held whole).
+    holds (``tp_index``, None for an axis held whole), and the same of
+    its ``scale`` (``tp_scale_shape``, ``tp_scale_index``).
     """
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor):
@@ -72,6 +73,8 @@ class QuantizedLinear(nn.Module):
         self.tp_size: int | None = None
         self.tp_shape: tuple | None = None
         self.tp_index: tuple | None = None
+        self.tp_scale_shape: tuple | None = None
+        self.tp_scale_index: tuple | None = None
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,18 @@ collectives the partition allows:
         shard, or all of them for an MQA head).  Every head's softmax is
         independent: no collective.
 
+    sequence-parallel decode (context parallelism)
+        Where the KV heads cannot take the model axis, the ring cache is
+        cut by sequence (``kv_seq``): a rank holds its slots of every
+        KV head (:func:`seq_cut`).  Kernel 9 walks them in splits and
+        emits each split's raw (o, m, l); one all-gather brings every
+        rank's partials, in rank order on the split axis, and kernel 10
+        merges all of them on every rank (:func:`decode_attn_seq`; where
+        the ranks hold their own query heads, these are gathered first:
+        one more all-gather).  A
+        prefill over such a cache gathers the rows' slots whole first
+        (:func:`gather_slots`).
+
     head-parallel bf16 mixers (MLA, Mamba-2, mLSTM, sLSTM)
         Each rank runs its heads; :func:`gather_heads` makes their
         outputs whole on every rank (one all-gather) before the whole
@@ -50,21 +62,27 @@ collectives the partition allows:
         (kernel 6's gated form) before the sanitized epilogue.
 
 Per layer and forward a dense block makes 2 MAX and 2 SUM reductions, an
-MoE block one gather more, a bf16 mixer one gather; degraded mode adds a
+MoE block one gather more, a bf16 mixer one gather, a ring or latent
+cache cut by sequence one gather at a prefill and two at a decode step
+(the heads' queries, then the partials); degraded mode adds a
 MAX for the QKV flag and a MAX + SUM for each row-parallel fallback.
 ``use_kernel`` picks the kernels or their plain versions, as elsewhere in
 ``quant``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.decode_attention import walked_ranks
 from repro_torch.parallel.context import TPGroup, tp_group
 
-__all__ = ["tp_group", "group_of", "gather_heads", "matmul_column",
-           "matmul_row", "mlp", "expert_rows", "decode_attn",
+__all__ = ["tp_group", "group_of", "SeqCut", "seq_cut", "gather_heads",
+           "gather_slots", "matmul_column", "matmul_row", "mlp",
+           "expert_rows", "decode_attn", "decode_attn_seq",
            "decode_attn_paged"]
 
 
@@ -82,6 +100,73 @@ def group_of(mod) -> TPGroup | None:
             f"that size current (tp_context), got "
             f"{None if group is None else group.size}")
     return group
+
+
+class SeqCut(NamedTuple):
+    """A ring or latent cache walked by sequence at a decode step: this
+    rank's slots ``[first, first + slots / ranks)`` of a cache of
+    ``slots`` cut over ``group`` (``ranks`` = its size), or, with
+    ``group`` None, a whole cache walked as ``ranks`` ranks walk theirs
+    (``kernels.decode_attention.walk_as_ranks``)."""
+    group: Optional[TPGroup]
+    ranks: int
+    first: int
+    slots: int
+
+    @property
+    def held(self) -> Optional[tuple[int, int]]:
+        """(the first slot, the whole capacity) of a rank's cut, which
+        its writes take; None for a whole cache."""
+        return None if self.group is None else (self.first, self.slots)
+
+
+def seq_cut(name: str, leaf: torch.Tensor) -> Optional[SeqCut]:
+    """How a layer walks its cache by sequence, from the cache's ``k``
+    (``name`` "k") or ``c_kv`` leaf: the rank's cut recorded on it
+    (``parallel.sharding.slot_range``), under the current group, which
+    must be of the cut's size (a rank's slots cannot be attended alone);
+    else, inside ``walk_as_ranks(p)``, the whole cache that p ranks would
+    cut (``parallel.sharding.leaf_seq_slots``); else None."""
+    from repro_torch.parallel.sharding import leaf_seq_slots, slot_range
+    held = slot_range(leaf)
+    if held is not None:
+        first, slots = held
+        ways = slots // leaf.shape[1]
+        group = tp_group()
+        if group is None or group.size != ways:
+            raise RuntimeError(
+                f"a cache cut {ways} ways by sequence needs a tensor-"
+                f"parallel group of that size current (tp_context), got "
+                f"{None if group is None else group.size}")
+        return SeqCut(group, ways, first, slots)
+    p = walked_ranks()
+    if p is not None and leaf_seq_slots(name, tuple(leaf.shape), p):
+        return SeqCut(None, p, 0, leaf.shape[1])
+    return None
+
+
+def gather_slots(seq: SeqCut, leaves: list) -> list:
+    """Each [B, L, ...] leaf of ``leaves`` (None passes through) with the
+    ranks' slots concatenated in rank order on axis 1: the rows' whole
+    ring, on every rank, in one all-gather of the leaves' bytes (a whole
+    cache, ``seq.group`` None, as it is)."""
+    group = seq.group
+    if group is None:
+        return leaves
+    held = [t for t in leaves if t is not None]
+    B, L = held[0].shape[:2]
+    raw = [t.reshape(B, L, -1).contiguous().view(torch.uint8) for t in held]
+    whole = group.all_gather(torch.cat(raw, dim=2).movedim(1, 0)
+                             .contiguous()).movedim(0, 1)
+    out = []
+    parts = iter(torch.split(whole, [r.shape[2] for r in raw], dim=2))
+    for t in leaves:
+        if t is None:
+            out.append(None)
+            continue
+        part = next(parts).contiguous().view(t.dtype)
+        out.append(part.reshape(B, group.size * L, *t.shape[2:]))
+    return out
 
 
 def gather_heads(group: TPGroup, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -244,6 +329,58 @@ def decode_attn(q, k, v, pos, q_pos, k_scale=None, v_scale=None, *,
                                      v_scale=v_scale, window=window)
     return kref.decode_attention_ref(q, k, v, pos, q_pos, window=window,
                                      k_scale=k_scale, v_scale=v_scale)
+
+
+def decode_attn_seq(seq: SeqCut, q, k, v, pos, q_pos, k_scale=None,
+                    v_scale=None, *, window=None, heads_cut: bool = False,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """Sequence-parallel flash-decode over a ring cut by sequence: q
+    [B, KH, G_r, D] the rank's query heads (``heads_cut``: the ranks
+    hold G = p G_r heads between them, in rank order; else G_r = G, all
+    of them); k/v [B, L, KH, D] (+ scales) and pos [B, L] this rank's
+    slots of a ring of ``seq.slots`` = p L.  Returns the rank's heads'
+    output [B, KH, G_r, D].
+
+    With ``heads_cut`` the ranks' query heads are gathered first (one
+    all-gather), since a rank's slots must be attended by every head.
+    Kernel 9 walks the rank's slots in ``n_splits_for(L)`` splits (at
+    least one), its launch planned for the whole ring's length, and
+    emits their raw (o, m, l); one all-gather stacks the ranks' partials
+    in rank order on the split axis (kernel 10 sums in ascending split,
+    so the order is the ring's); kernel 10 merges all p s partials of
+    the rank's heads.  Where L is a multiple of the split length the
+    partials are the unsharded split walk's of p s splits (a head's bits
+    do not depend on the heads beside it), so the output is that walk's
+    bit for bit: the walk this function takes over a whole ring
+    (``seq.group`` None, ``walk_as_ranks``).  A rank with no visible
+    slot in a row walks its slots as an all-masked row (m = -1e30) and
+    kernel 10 weighs it exp(-1e30 - m_g) = 0."""
+    group = seq.group
+    L, G_r, D = k.shape[1] // (seq.ranks if group is None else 1), \
+        q.shape[2], q.shape[-1]
+    n = kops.n_splits_for(L) * (seq.ranks if group is None else 1)
+    if heads_cut:
+        q = group.all_gather(q.movedim(2, 0).contiguous()).movedim(0, 2)
+    if use_kernel:
+        o, m, l = kops.decode_attention_partial(
+            q, k, v, pos, q_pos, k_scale=k_scale, v_scale=v_scale,
+            window=window, n_splits=n, cluster_slots=seq.slots)
+    else:
+        o, m, l = kref.decode_attention_partial_ref(
+            q.contiguous(), k, v, pos, q_pos, n,
+            kops.split_len(k.shape[1], n), window=window, k_scale=k_scale,
+            v_scale=v_scale)
+    if group is not None:
+        part = torch.cat([o, m, l], dim=-1)           # [B, KH, n, G, D+2]
+        whole = group.all_gather(part.movedim(2, 0).contiguous()
+                                 ).movedim(0, 2)
+        if heads_cut:
+            whole = whole[:, :, :, group.rank * G_r:(group.rank + 1) * G_r]
+        o, m, l = (t.contiguous()
+                   for t in torch.split(whole, [D, 1, 1], -1))
+    if use_kernel:
+        return kops.decode_attention_combine(o, m, l, q.dtype)
+    return kref.combine_partials_ref(o, m, l).to(q.dtype)
 
 
 def decode_attn_paged(q, k_pages, v_pages, pos_pages, block_tables, q_pos,

@@ -84,7 +84,8 @@ class ChaosMonkey:
             leaves, rep = inject_tree(self._clean, campaign)
             if self.protect_fraction > 0.0:
                 leaves = protect_tree(self._clean, leaves,
-                                      self.protect_fraction)
+                                      self.protect_fraction,
+                                      getattr(self.engine, "tp", None))
             load_leaves(self.engine.model, leaves)  # same buffers
             self.report.weight_injections += 1
             self.report.bits_faulted += rep.faults

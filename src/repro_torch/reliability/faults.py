@@ -192,10 +192,13 @@ def _placement(shape: tuple, shard: Optional["Shard"]):
 class Shard(NamedTuple):
     """Where a tensor-parallel rank's stacked leaf lies in the whole one:
     the whole per-layer ``q`` shape and, per axis, the whole leaf's
-    indices the rank holds (None: the axis is held whole)."""
+    indices the rank holds (None: the axis is held whole); the same of
+    its per-layer ``scale``."""
 
     shape: tuple
     index: tuple
+    scale_shape: Optional[tuple] = None
+    scale_index: Optional[tuple] = None
 
 
 class Leaf(NamedTuple):
@@ -212,8 +215,11 @@ def _shard_of(mods) -> Optional[Shard]:
     first = mods[0]
     if first.tp_index is None:
         return None
-    return Shard(tuple(first.tp_shape), tuple(
-        None if i is None else i.cpu().numpy() for i in first.tp_index))
+
+    def host(index):
+        return tuple(None if i is None else i.cpu().numpy() for i in index)
+    return Shard(tuple(first.tp_shape), host(first.tp_index),
+                 tuple(first.tp_scale_shape), host(first.tp_scale_index))
 
 
 def quantized_leaves(model) -> dict[str, Leaf]:
@@ -284,8 +290,26 @@ def inject_tree(leaves: dict[str, Leaf],
     return out, report
 
 
+def _whole_scale(scale: np.ndarray, shard: Shard, group) -> np.ndarray:
+    """The whole stacked leaf's |scale| [L, ...] on every rank, from each
+    rank's part: a scale cut on some axis is placed in a zero array of
+    the whole shape and MAX-reduced over the ranks (one collective; a
+    place held by several ranks holds one value, and |scale| >= 0), so
+    the result is the whole leaf's bit for bit; a whole scale (a
+    row-parallel leaf's) is returned as it is."""
+    if all(i is None for i in shard.scale_index):
+        return scale
+    L = scale.shape[0]
+    whole = np.zeros((L,) + tuple(shard.scale_shape), np.float32)
+    at = [np.arange(L)] + [np.arange(n) if i is None else i for n, i in
+                           zip(shard.scale_shape, shard.scale_index)]
+    whole[np.ix_(*at)] = scale
+    t = group.all_reduce_max(torch.from_numpy(whole))
+    return t.numpy()
+
+
 def protect_tree(clean: dict[str, Leaf], faulted: dict[str, Leaf],
-                 fraction: float = 0.05) -> dict[str, Leaf]:
+                 fraction: float = 0.05, group=None) -> dict[str, Leaf]:
     """Outlier-channel protection: restore the top-``fraction`` output
     channels (ranked by mean |scale| — where requant amplifies a flipped
     bit the most, ``err = dq * scale``) of every faulted leaf from the
@@ -294,27 +318,47 @@ def protect_tree(clean: dict[str, Leaf], faulted: dict[str, Leaf],
     Channels are the last axis of ``q`` (the axis the fused kernels emit
     and every ``scale`` layout reduces onto); the per-channel score
     averages |scale| over any extra structure axes (layers, heads,
-    experts)."""
+    experts).
+
+    On a tensor-parallel rank (leaves with a ``shard``; ``group`` its
+    group, default the current one) the channels are ranked by the
+    whole leaf's scores: a row-parallel leaf's scale is whole on the
+    rank, a column-parallel one's is made whole first
+    (:func:`_whole_scale`, one MAX a leaf); every rank picks the same
+    whole-leaf channels and restores those it holds, so its leaves are
+    the unsharded result cut to its shards, bit for bit."""
     if not 0.0 <= fraction <= 1.0:
         raise ValueError(f"fraction must be in [0, 1], got {fraction}")
     if fraction and any(f.shard is not None for f in faulted.values()):
-        raise NotImplementedError(
-            "protect_tree ranks the output channels by the whole leaf's "
-            "scales, which a tensor-parallel rank's shard does not hold")
+        if group is None:
+            from repro_torch.parallel.context import tp_group
+            group = tp_group()
+        if group is None:
+            raise ValueError(
+                "protect_tree on a tensor-parallel rank's shards needs its "
+                "group (group=, or a current tp_context)")
     out = {}
     for path, f in faulted.items():
         c = clean[path]
-        n = c.q.shape[-1]
+        shard = c.shard
+        n = c.q.shape[-1] if shard is None else shard.shape[-1]
         n_protect = int(np.ceil(fraction * n))
         if n_protect == 0:
             out[path] = f
             continue
         scale = np.abs(np.asarray(c.scale, np.float32))
+        if shard is not None:
+            scale = _whole_scale(scale, shard, group)
         if scale.shape and scale.shape[-1] == n:
             score = scale.reshape(-1, n).mean(axis=0)
         else:  # scale laid out on other axes
             score = np.full(n, scale.mean(), np.float32)
         chans = np.argsort(score)[-n_protect:]
+        if shard is not None and shard.index[-1] is not None:
+            local = np.full(n, -1, np.int64)
+            local[shard.index[-1]] = np.arange(len(shard.index[-1]))
+            chans = local[chans]
+            chans = chans[chans >= 0]
         q = np.array(f.q, copy=True)
         q[..., chans] = c.q[..., chans]
         out[path] = Leaf(q, f.scale, f.shard)

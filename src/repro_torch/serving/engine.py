@@ -100,8 +100,14 @@ class ServingEngine:
         * ``tp`` — this rank's tensor-parallel group: the model's leaves
           are cut to the rank's shards in place
           (:func:`~repro_torch.parallel.sharding.shard_model`, a
-          ``quant_plan`` is required), the caches hold the rank's heads,
-          and every forward runs under the group.  Each rank drives its
+          ``quant_plan`` is required; the vocabulary by rows), the ring
+          caches hold the rank's heads, or, where the KV heads cannot
+          be cut (an MQA head; MLA's latent), the rank's slots of every
+          head (cut by sequence, ``Model.init_cache``: the slot reset
+          zeroes the rank's slots, the write index stays whole), and
+          every forward runs under the group.  The paged engine's pools
+          carry no sequence axis (as the reference's): for an MQA head
+          they stay whole on every rank.  Each rank drives its
           own engine with the same requests; deadlines are decided by
           rank 0's clock (:meth:`_expired`).  ``degraded`` screens the
           whole output of each layer (a column shard's flag max-reduced

@@ -4,13 +4,18 @@ CPU.
 * The manifest: ``block_sites``, ``model_sites``, ``dit_sites``,
   ``supports_full_plan`` and ``mlp_pipeline_dispatches`` equal the
   reference's for every registered config, at full and reduced width,
-  sharded and unsharded; the launches per layer pinned where the card's
-  runs pin them (gemma-2b 7, qwen2-moe 9, 8192 slots 8, TP-2 6 / 9); the
-  port's per-layer function classifies to ``block_sites`` except where
-  the reference counts a combine that no code launches (ROADMAP C.15).
+  sharded and unsharded, but for the combine a TP-2 rank adds on a ring
+  cut by sequence (ROADMAP C, "The reference's manifest at TP"); the
+  launches per layer pinned where the card's runs pin them (gemma-2b 7,
+  qwen2-moe 9, 8192 slots 8, TP-2 7 on gemma-2b's sequence-cut ring, 6
+  paged, 9 on qwen2-moe); the port's per-layer function classifies to
+  ``block_sites`` except where the reference counts a combine that no
+  code launches (ROADMAP C.15, and the paged pools, not cut by
+  sequence).
 * ``audit_lm`` on gemma-2b-smoke and qwen2-moe-smoke, prefill and
-  decode, ring and paged, unsharded and one TP rank: clean, the launches
-  (the wrappers' calls here) the manifest's per-layer counts.
+  decode, ring and paged, unsharded and at TP-2 (two gloo ranks, each
+  auditing its step): clean, the launches (the wrappers' calls here)
+  the manifest's per-layer counts.
 * Mutations mirroring the reference's ``test_analysis.py``: a partial
   plan, an unknown kernel, an integer matmul outside the wrappers, an
   int32 partial read before its ``all_reduce``, a float SUM, an int8
@@ -78,12 +83,20 @@ def test_manifest_matches_reference(arch, reduced):
     for sharded in (False, True):
         for kv in KV_LENS:
             for phase in ("prefill", "decode"):
+                extra = Counter()
                 for spec, _ in cfg.layer_groups():
+                    want = jman.block_sites(jcfg, spec, phase, sharded, kv)
+                    # a TP-2 rank whose ring is cut by sequence walks it
+                    # in splits and merges the ranks' partials: the
+                    # reference's function counts one walk (ROADMAP C)
+                    if (sharded and phase == "decode" and kv <= 2048
+                            and manifest.seq_cut(cfg, spec[0], 2, kv)):
+                        want["attn_combine"] += 1
+                        extra["attn_combine"] += 1
                     assert manifest.block_sites(cfg, spec, phase, sharded,
-                                                kv) == \
-                        jman.block_sites(jcfg, spec, phase, sharded, kv)
+                                                kv) == want
                 assert manifest.model_sites(cfg, phase, sharded, kv) == \
-                    jman.model_sites(jm, phase, sharded, kv)
+                    jman.model_sites(jm, phase, sharded, kv) + extra
 
 
 @pytest.mark.parametrize("arch", DIT_ARCH_IDS)
@@ -122,12 +135,19 @@ def test_launch_pins_at_full_width():
     assert _per_layer("gemma-2b", kv_len=8192) == 8
     assert _per_layer("qwen2-moe-a2.7b", kv_len=1024) == 9
     assert _per_layer("qwen2-moe-a2.7b", "prefill") == 8
-    assert _per_layer("gemma-2b", kv_len=1024, sharded=True, tp=2) == 6
+    # gemma-2b's MQA ring is cut by sequence at TP-2: kernels 9 and 10
+    # in place of kernel 5 (the paged pools stay whole: kernel 11)
+    assert _per_layer("gemma-2b", kv_len=1024, sharded=True, tp=2) == 7
+    assert _per_layer("gemma-2b", kv_len=1024, sharded=True, tp=2,
+                      paged=True) == 6
     assert _per_layer("qwen2-moe-a2.7b", kv_len=1024, sharded=True,
                       tp=2) == 9
     cfg = get_config("qwen2-moe-a2.7b")
+    # the layers' and the vocabulary's: the lookup's SUM, the logits'
+    # gather
     assert manifest.step_collectives(cfg) == Counter(
-        max=2 * cfg.n_layers, sum=2 * cfg.n_layers, gather=cfg.n_layers)
+        max=2 * cfg.n_layers, sum=2 * cfg.n_layers + 1,
+        gather=cfg.n_layers + 1)
     # gemma3-4b at 8192 slots: only its 5 global layers split
     g3 = get_config("gemma3-4b")
     got = manifest.step_launches(g3, "decode", kv_len=8192)
@@ -159,6 +179,11 @@ def test_layer_launches_classify_to_block_sites(arch):
                 if phase == "decode" and kv > 2048 and (
                         paged or span <= 2048):
                     want["attn_combine"] -= 1       # C.15
+                    want = +want
+                elif (phase == "decode" and paged and sharded
+                      and manifest.seq_cut(cfg, spec[0], 2, kv)):
+                    # the paged pools are not cut by sequence
+                    want["attn_combine"] -= 1
                     want = +want
                 assert got == want, (cfg.name, spec, phase, sharded,
                                      paged, kv)

@@ -24,6 +24,7 @@ softmax 2e-5 (f32) and 2**-7 (bf16).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -398,6 +399,97 @@ def test_split_one_bitwise_and_more_close(dev, qdtype, quantized, B, S, KH,
         err = (got - ref).abs()
         limit = _attn_limit(ref, qdtype, torch.float32)
         assert bool((err <= limit).all()), (ns, (err / limit).max().item())
+
+
+RANK_SHAPES = [(8, 8192, 1, 8, 256, None), (8, 1024, 1, 8, 256, None),
+               (3, 256, 2, 4, 16, None), (2, 4096, 1, 1, 64, 300)]
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("B,S,KH,G,D,window", RANK_SHAPES)
+def test_partial_on_each_ranks_slots_is_the_unsharded_split_walk(
+        dev, p, B, S, KH, G, D, window):
+    """Kernel 9 on each of p ranks' slots of a ring cut by sequence
+    (``cluster_slots``: the whole ring's cluster) in ``n_splits_for(S /
+    p)`` splits, the partials in rank order merged by kernel 10: bitwise
+    the unsharded walk in p times those splits (rows whose visible slots
+    leave the last ranks empty included), and by the decode-attention
+    rule its plain split version; without ``cluster_slots`` a rank takes
+    its own length's cluster size."""
+    from repro_torch.kernels import ops
+    q, k, v, pos, qp, ks, vs = _ring_case(dev, 9, B, S, KH, G, D, True,
+                                          torch.bfloat16)
+    L = S // p
+    ns = ops.n_splits_for(L)
+    parts = []
+    for r in range(p):
+        cut = slice(r * L, (r + 1) * L)
+        before = da.decode_attention_partial.launches
+        parts.append(da.decode_attention_partial(
+            q, k[:, cut].contiguous(), v[:, cut].contiguous(),
+            pos[:, cut].contiguous(), qp, ks[:, cut].contiguous(),
+            vs[:, cut].contiguous(), window=window, n_splits=ns,
+            cluster_slots=S))
+        assert da.decode_attention_partial.launches == before + 1
+    o, m, l = (torch.cat([t[i] for t in parts], dim=2).contiguous()
+               for i in range(3))
+    got = da.decode_attention_combine(o, m, l, q.dtype)
+    want = ops.decode_attention(q, k, v, pos, qp, ks, vs, window=window,
+                                n_splits=p * ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ref = ops.decode_attention_splitkv(
+        q.float().cpu(), k.cpu(), v.cpu(), pos.cpu(), qp.cpu(), ks.cpu(),
+        vs.cpu(), window=window, n_splits=p * ns).to(q.dtype).float()
+    err = (got.float().cpu() - ref).abs()
+    limit = _attn_limit(ref, torch.bfloat16, k.dtype)
+    assert bool((err <= limit).all()), (err / limit).max().item()
+    assert da.walk_plan(L, D, G, k.dtype, "split", ns,
+                        cluster_slots=S).cluster == da.cluster_for(S, D)
+
+
+def test_tp_two_sequence_cut_decode_on_card(dev):
+    """gemma-2b-smoke at 2 gloo ranks sharing the card, its ring of 128
+    slots cut by sequence: the prefill + decode logits bitwise the
+    unsharded model's with the walk in 2 splits, kernels 9 and 10 on
+    every layer's decode step and kernel 5 never."""
+    from repro_torch.parallel.context import spawn
+    res = spawn(_seq_cut_rank, 2, args=("cuda",), timeout_s=600)
+    want, _ = _seq_cut_logits(dev, None)
+    for got, launches in res:
+        np.testing.assert_array_equal(got, want)
+        assert launches["decode_attention"] == 0
+        assert launches["decode_attention_partial"] == \
+            launches["decode_attention_combine"] == 4 * 3
+
+
+def _seq_cut_logits(dev, group):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.parallel.context import tp_context
+    cfg = reduced_config(get_config("gemma-2b"))
+    model = Model(cfg).init(0, device=dev) if group is None else Model(
+        cfg).init(0, device=dev, tp=group)
+    if group is None:
+        model.quantize()
+    rng = _gen(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 90)), device=dev)
+    lengths = torch.tensor([90, 70, 20], dtype=torch.int32, device=dev)
+    with torch.no_grad(), tp_context(group), (
+            ops.walk_as_ranks(2) if group is None else
+            contextlib.nullcontext()):
+        caches = model.init_cache(3, 128, kv_dtype="int8")
+        reset_launch_counts()
+        outs = [model.prefill_padded(toks, caches, lengths)]
+        for _ in range(3):
+            outs.append(model.decode_step(outs[-1].argmax(-1), caches))
+    return torch.cat(outs, dim=1).cpu().numpy(), launch_counts()
+
+
+def _seq_cut_rank(group, device):
+    from repro_torch.parallel.context import rank_device
+    return _seq_cut_logits(rank_device(device, "gloo", group.rank), group)
 
 
 def _partials(seed, B, KH, NS, G, D, dev):

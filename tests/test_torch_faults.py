@@ -185,3 +185,38 @@ def test_ecc_residual_and_config_checks():
         FaultConfig(kind="gamma_ray")
     with pytest.raises(ValueError, match="ber"):
         FaultConfig(ber=1.5)
+
+
+def test_protect_tree_on_shards_is_the_whole_result_cut():
+    """``protect_tree`` on each of 2 gloo ranks' shards of gemma-2b-smoke
+    (``tests/torch_tp_ranks.py``, no JAX), after the whole tree's
+    campaign cut to each shard: every leaf bitwise the unsharded
+    result's cut to the shard, for the column-parallel leaves (QKV, the
+    MLP's up and gate: the output channels of their cut scales ranked
+    after one MAX each) and the row-parallel ones (the out-projection
+    and down: their scales whole on every rank)."""
+    import torch_tp_ranks as ranks
+    from repro_torch.parallel.context import spawn
+    model = _port_model("gemma-2b", _jax_tree("gemma-2b"))
+    cfg = FaultConfig(kind="bit_flip", ber=5e-3, seed=11)
+    clean = quantized_leaves(model)
+    whole = protect_tree(clean, inject_tree(clean, cfg)[0], 0.25)
+    case = dict(model=model, fault=cfg, fraction=0.25)
+    res = spawn(ranks.run_cases, 2, args=({"p": ("protect", case)},))
+    cut = {"column": 0, "row": 0}
+    for r in res:
+        got = r["p"]
+        assert set(got["leaves"]) == set(whole)
+        for path, (q, index) in got["leaves"].items():
+            w = whole[path].q
+            assert index is not None, path
+            at = [np.arange(w.shape[0])] + [
+                np.arange(n) if i is None else i
+                for n, i in zip(w.shape[1:], index)]
+            assert np.array_equal(q, w[np.ix_(*at)]), path
+            kind = "row" if path.endswith(("['o']", "['down']")) \
+                else "column"
+            cut[kind] += 1
+        # one MAX for each leaf whose scale is cut: QKV, up, gate
+        assert got["counts"]["max"] == 3
+    assert cut["column"] and cut["row"]

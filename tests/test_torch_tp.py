@@ -34,10 +34,15 @@ ranks; the ranks run ``tests/torch_tp_ranks.py`` and import no JAX).
     paged engines are held against fresh JAX paged engines, one slot per
     request (ROADMAP C.1).  Prefill + decode logits bitwise the
     unsharded port's.  Per rank: the sharded leaves hold 1/p of ``q``
-    and ``scale``, the cache KH/p heads where KH divides; per layer and
-    forward 2 MAX + 2 SUM (+1 gather for an MoE layer); kernel entry
-    calls per layer: 6 per decode step and 5 per prefill for a dense
-    layer, 9 and 8 for an MoE layer.
+    and ``scale``, the cache KH/p heads where KH divides (gemma's one
+    head: the ring's slots cut by sequence, the paged pools whole); per
+    layer and forward 2 MAX + 2 SUM (+1 gather for an MoE layer; on
+    gemma's ring +1 gather a prefill, the rows' slots, and +2 a decode
+    step, the q heads and kernel 9's partials), per forward the
+    embedding's SUM and the logits' gather; kernel entry calls per
+    layer: 6 per decode step and 5 per prefill for a dense layer, 9 and
+    8 for an MoE layer, and on gemma's ring kernels 9 and 10 in place of
+    kernel 5 (7 per decode step).
 (d) At 4 ranks, models whose MLP (or routed experts) 4 does not divide:
     those leaves stay whole and run the unsharded path, the rest shard,
     and the tokens stay bitwise.
@@ -60,6 +65,7 @@ from repro.serving import PagedServingEngine as JPagedEngine
 from repro.serving import ServingEngine as JEngine
 
 import torch_tp_ranks as ranks
+from repro_torch.analysis import manifest
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import cim_gemm as cg
 from repro_torch.kernels import ops
@@ -507,34 +513,49 @@ def test_tp_engine_matches_jax(arch, engine):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tp_engine_launches_and_collectives(arch):
     """Per rank, layer and forward: kernel entry calls 6 per decode step
-    and 5 per prefill for a dense layer (9 and 8 for an MoE layer), and
-    2 MAX + 2 SUM reductions (+1 gather for an MoE layer)."""
+    and 5 per prefill for a dense layer (9 and 8 for an MoE layer; on
+    gemma-2b's ring, cut by sequence, kernels 9 and 10 in place of
+    kernel 5: 7 per decode step), and 2 MAX + 2 SUM reductions (+1
+    gather for an MoE layer; +1 gather a prefill and +2 a decode step on
+    gemma-2b's ring); per forward one SUM (the embedding) and one gather
+    (the logits)."""
     moe = arch != "gemma-2b"
-    L = reduced_config(get_config(arch)).n_layers
+    cfg = reduced_config(get_config(arch))
+    L = cfg.n_layers
     for res in _function_results(2):
         for engine in ("ring", "paged"):
             got = res[f"eng/{arch}"][engine]
             steps = got["decode_steps"]
             fwd = steps + (got["prefill_chunks"] if engine == "paged"
                            else got["prefills"])
-            attn = ("decode_attention" if engine == "ring"
-                    else "decode_attention_paged")
+            seq = not moe and engine == "ring"
             want = dict.fromkeys(ranks.SPY_NAMES + ranks.SPY_ATTN, 0)
             want.update(cim_gemm_int8_fused_qin=L * fwd,
                         cim_gemm_int8=2 * L * fwd,
                         quantize_rows_int8=(2 if moe else 1) * L * fwd,
                         cim_gated_gemm_int8=L * fwd)
-            want[attn] = L * steps
+            if seq:
+                want.update(decode_attention_partial=L * steps,
+                            decode_attention_combine=L * steps)
+            else:
+                want["decode_attention" if engine == "ring"
+                     else "decode_attention_paged"] = L * steps
             if moe:
                 want.update(cim_grouped_gated_gemm_int8=L * fwd,
                             cim_grouped_gemm_int8=L * fwd)
             assert got["launches"] == want, engine
-            per_step, per_prefill = (9, 8) if moe else (6, 5)
+            per_step, per_prefill = (9, 8) if moe else (7 if seq else 6, 5)
             assert sum(want.values()) == L * (per_step * steps
                                               + per_prefill * (fwd - steps))
-            assert got["collectives"] == dict(
-                max=2 * L * fwd, sum=2 * L * fwd,
-                gather=L * fwd if moe else 0, bcast=0), engine
+            gather = L * fwd if moe else 0
+            if seq:
+                gather += L * (2 * steps + (fwd - steps))
+            want_coll = dict(max=2 * L * fwd, sum=2 * L * fwd + fwd,
+                             gather=gather + fwd, bcast=0)
+            assert got["collectives"] == want_coll, engine
+            assert dict(manifest.run_collectives(
+                cfg, steps, fwd - steps, kv_len=RING_KW["max_len"],
+                paged=engine == "paged"), bcast=0) == want_coll
 
 
 @pytest.mark.parametrize("engine", ["ring", "paged"])
@@ -599,15 +620,20 @@ def test_tp_fallback_keeps_indivisible_leaves_whole(arch):
         assert got["ring"]["tokens"] == want
         shapes = got["shapes"]
         assert shapes["attn.o"][2] == 4
+        # per forward the embedding's SUM and the logits' gather
         if arch == "gemma-2b":
+            # the one KV head's ring cut by sequence: +1 gather a
+            # prefill (the rows' slots), +2 a decode step (q, partials)
             assert shapes["mlp.up"][2] is None
             assert got["ring"]["collectives"] == dict(
-                max=L * fwd, sum=L * fwd, gather=0, bcast=0)
+                max=L * fwd, sum=L * fwd + fwd,
+                gather=L * (fwd + stats.decode_steps) + fwd, bcast=0)
         else:
             assert shapes["experts.up"][2] is None
             assert shapes["shared.up"][2] == 4
             assert got["ring"]["collectives"] == dict(
-                max=2 * L * fwd, sum=2 * L * fwd, gather=0, bcast=0)
+                max=2 * L * fwd, sum=2 * L * fwd + fwd, gather=fwd,
+                bcast=0)
 
 
 # ---------------------------------------------------------------------------

@@ -13,13 +13,16 @@ port's unsharded model, which the family's own tests hold against JAX:
 (b) The ring engine (and the paged one for the attention-only families)
     at 2 ranks: tokens bitwise the unsharded engine's on the same
     requests, every request OK, the caches 1/p (KV heads, SSM heads,
-    mLSTM and sLSTM heads; MLA's latent cache whole), launches per layer
-    and forward the manifest's, and the collectives per layer and
-    forward pinned (``manifest.step_collectives``: an attention block 2
-    MAX + 2 SUM, a bf16 mixer one gather, the experts one gather);
-    prefill and decode logits bitwise the unsharded model's (on the CPU
-    the bf16 mixers' column slices are bitwise too; ``PERF.md`` states
-    the card's tolerance).  musicgen is driven with frame embeddings
+    mLSTM and sLSTM heads; where the KV heads cannot be cut, paligemma's
+    one head and MLA's latent, the ring's slots by sequence, the paged
+    pools whole), launches per layer and forward the manifest's, and
+    the collectives per forward pinned (``manifest.run_collectives``: an
+    attention block 2 MAX + 2 SUM, a bf16 mixer one gather, the experts
+    one gather, a ring cut by sequence one gather a prefill and two or
+    three a decode step, the vocabulary's SUM and gather); prefill and
+    decode logits bitwise the unsharded model's (on the CPU the bf16
+    mixers' column slices are bitwise too, and MLA's merged softmax at
+    these sizes; ``PERF.md`` states the card's tolerance).  musicgen is driven with frame embeddings
     through ``prefill_padded`` and ``decode_step``; deepseek-v3 also
     through a cacheless forward of 2100 tokens.  At 4 ranks the bf16
     families and gemma3-4b (one KV head a rank) again.
@@ -321,7 +324,10 @@ def test_family_engine_bitwise(arch, engine, p):
     cfg = _cfg(arch)
     want, stats = _served(arch, engine)
     launches, fwd = _launches(cfg, stats, engine, p)
-    coll = {k: n * fwd for k, n in manifest.step_collectives(cfg).items()}
+    paged = engine == "paged"
+    coll = manifest.run_collectives(
+        cfg, stats.decode_steps, fwd - stats.decode_steps, tp=p,
+        kv_len=RING_KW["max_len"], paged=paged)
     for res in _results(p):
         got = res[arch][engine]
         assert got["status"] == ["ok"] * len(PROMPT_LENS)
@@ -331,10 +337,16 @@ def test_family_engine_bitwise(arch, engine, p):
         assert got["collectives"] == dict(dict.fromkeys(
             ("max", "sum", "gather", "bcast"), 0), **coll)
         for c, spec in zip(got["cache_shapes"], cfg.layer_specs()):
-            _check_cache(cfg, spec[0], c, p)
+            _check_cache(cfg, spec[0], c, p, paged)
 
 
-def _check_cache(cfg, mixer, shapes, p):
+def _check_cache(cfg, mixer, shapes, p, paged):
+    """A rank's cache of a ``mixer`` layer: its heads, and its slots
+    where the ring is cut by sequence (``manifest.seq_cut``)."""
+    cap = RING_KW["max_len"]
+    if manifest.seq_cut(cfg, mixer, p, cap, paged):
+        key = "c_kv" if mixer == "mla" else "k"
+        assert shapes[key][1] == cap // p, shapes
     if mixer in ("attn", "attn_local"):
         KH = cfg.n_kv_heads
         heads = KH // p if KH % p == 0 else KH
@@ -369,11 +381,14 @@ def test_family_logits_bitwise(arch, p):
     case = _family_case(arch, ())[1]
     want = _unsharded(("logits", arch), lambda: ranks._logits(
         port_model(QuantPlan.full(), arch), None, case))
+    # one prefill and two decode steps over a ring of 32 slots (64 for
+    # frames: ranks._logits)
+    coll = manifest.run_collectives(
+        cfg, 2, 1, tp=p, kv_len=64 if cfg.frontend == "audio" else 32)
     for res in _results(p):
         np.testing.assert_array_equal(res[arch]["logits"], want)
         assert res[arch]["logits.collectives"] == dict(
-            dict.fromkeys(("max", "sum", "gather", "bcast"), 0),
-            **{k: 3 * n for k, n in manifest.step_collectives(cfg).items()})
+            dict.fromkeys(("max", "sum", "gather", "bcast"), 0), **coll)
 
 
 def test_mla_long_forward_bitwise():
@@ -502,14 +517,14 @@ def test_degraded_tp_healthy_is_bitwise_and_pinned():
     tokens, _, _, stats = _degraded_want(())
     assert tokens == _served(DEGRADED_ARCH, "ring")[0]
     fwd = stats.decode_steps + stats.prefills
-    want = {k: n * fwd for k, n in
-            manifest.step_collectives(cfg, degraded=True).items()}
+    want = manifest.run_collectives(cfg, stats.decode_steps, stats.prefills,
+                                    degraded=True, kv_len=RING_KW["max_len"])
     assert want["max"] == 5 * cfg.n_layers * fwd
     for r in _results(2):
         got = r["healthy"]
         assert got["tokens"] == tokens
         assert got["fallbacks"] == {"gated": 0, "row": 0}
-        assert got["collectives"] == dict(gather=0, bcast=0, **want)
+        assert got["collectives"] == dict(dict(gather=0, bcast=0), **want)
 
 
 def test_chaos_soak_under_tp_equals_unsharded_and_restores():

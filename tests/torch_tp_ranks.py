@@ -32,7 +32,8 @@ from repro_torch.serving import PagedServingEngine, Request, ServingEngine
 SPY_NAMES = ("quantize_rows_int8", "cim_gemm_int8_fused_qin",
              "cim_gemm_int8_fused", "cim_gated_gemm_int8", "cim_gemm_int8",
              "cim_grouped_gemm_int8", "cim_grouped_gated_gemm_int8")
-SPY_ATTN = ("decode_attention", "decode_attention_paged")
+SPY_ATTN = ("decode_attention", "decode_attention_paged",
+            "decode_attention_partial", "decode_attention_combine")
 SPY_SCAN = ("ssd_scan",)
 
 
@@ -480,6 +481,119 @@ def cli(group, case: dict) -> dict:
     return generate._generate_rank(group, args)
 
 
+# ---------------------------------------------------------------------------
+# context and vocabulary parallelism, protect_tree on shards
+# (tests/test_torch_context_parallel.py, test_torch_vocab_parallel.py,
+# test_torch_faults.py)
+# ---------------------------------------------------------------------------
+def caches_np(caches) -> list:
+    return [{k: np_of(v.clone()) for k, v in c.items()} for c in caches]
+
+
+def direct_loop(model, group, toks, lengths, cap: int, steps: int) -> dict:
+    """A prefill of ``toks`` (``lengths`` valid) into int8 ring caches of
+    ``cap`` slots, then ``steps`` greedy decode steps, under ``group``:
+    the logits of each forward and every cache leaf after each."""
+    with torch.no_grad(), tp_context(group):
+        caches = model.init_cache(toks.shape[0], cap, kv_dtype="int8")
+        outs = [model.prefill_padded(toks, caches, lengths)]
+        snaps = [caches_np(caches)]
+        for _ in range(steps):
+            outs.append(model.decode_step(outs[-1].argmax(-1), caches))
+            snaps.append(caches_np(caches))
+    return dict(logits=np_of(torch.cat(outs, dim=1)), caches=snaps)
+
+
+def served_logits(engine, prompts, max_new) -> dict:
+    """Serve ``prompts`` greedily; the tokens and the logits each
+    sampled step saw, keyed (uid, step)."""
+    seen = {}
+    sample = engine._sample
+
+    def recording(req, logits, step):
+        seen[(req.uid, step)] = np.array(logits, np.float32, copy=True)
+        return sample(req, logits, step)
+    engine._sample = recording
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for req in reqs:
+        engine.submit(req)
+    engine.run_until_done()
+    return dict(tokens=[list(r.generated) for r in reqs],
+                status=[r.status.value for r in reqs], logits=seen)
+
+
+def context(group, case: dict) -> dict:
+    """The ring (or MLA's latent) cache cut by sequence on this rank:
+    :func:`direct_loop`, the ring engine's tokens and logits, launches
+    and collectives, and each cache leaf's bytes."""
+    model = shard_model(case["model"], group)
+    toks, lengths = case["direct"]
+    group.reset_counts()
+    with spy() as counts:
+        out = direct_loop(model, group, toks, lengths, case["cap"],
+                          case["steps"])
+    out.update(launches=dict(counts), collectives=dict(group.counts))
+    eng = ServingEngine(model, quant_plan=QuantPlan.full(), tp=group,
+                        **case["kw"])
+    out["engine"] = served_logits(eng, case["prompts"], case["max_new"])
+    out["cache_bytes"] = [{k: v.numel() * v.element_size()
+                           for k, v in c.items()} for c in eng.cache]
+    return out
+
+
+def vocab(group, case: dict) -> dict:
+    """The vocabulary cut by rows on this rank: the lookup and the
+    gathered logits of ``case["tables"]`` (whole tables, cut here) and a
+    model's embedding and head bytes, its logits under the group."""
+    from repro_torch.models import layers
+    r, p = group.rank, group.size
+    out = {"tables": []}
+    for emb, tokens, x in case["tables"]:
+        n = emb.shape[0] // p
+        rows = emb[r * n:(r + 1) * n].contiguous()
+        group.reset_counts()
+        got = dict(lookup=layers.embedding_apply(rows, tokens, group),
+                   tied=layers.embedding_attend(rows, x, group),
+                   untied=layers.lm_head_apply(rows.t().contiguous(), x,
+                                               group))
+        out["tables"].append(dict({k: np_of(v) for k, v in got.items()},
+                                  counts=dict(group.counts)))
+    for name, model in case["models"].items():
+        model = shard_model(model, group)
+        toks, lengths = case["logits"]
+        group.reset_counts()
+        res = direct_loop(model, group, toks, lengths, 32, 1)
+        res["collectives"] = dict(group.counts)
+        res["bytes"] = {k: model.get_parameter(k).numel()
+                        * model.get_parameter(k).element_size()
+                        for k in ("embed", "head") if hasattr(model, k)}
+        out[name] = res
+    for cfg in case["draws"]:
+        drawn = Model(cfg).init(0, device="cpu", tp=group,
+                                plan=QuantPlan.full())
+        out["draw/" + cfg.name] = {k: np_of(drawn.get_parameter(k))
+                                   for k in ("embed", "head")
+                                   if hasattr(drawn, k)}
+    return out
+
+
+def protect(group, case: dict) -> dict:
+    """``protect_tree`` on this rank's shards: each protected leaf's q and
+    where it lies in the whole leaf."""
+    from repro_torch.reliability import (inject_tree, protect_tree,
+                                         quantized_leaves)
+    model = shard_model(case["model"], group)
+    clean = quantized_leaves(model)
+    faulted, _ = inject_tree(clean, case["fault"])
+    group.reset_counts()
+    prot = protect_tree(clean, faulted, case["fraction"], group)
+    return dict(counts=dict(group.counts),
+                leaves={p: (leaf.q, None if leaf.shard is None
+                            else leaf.shard.index)
+                        for p, leaf in prot.items()})
+
+
 def run_cases(group, cases: dict) -> dict:
     """``cases``: name -> (kind, case dict).  One thread per rank: the
     ranks share the host's cores, and the shapes are tiny."""
@@ -487,7 +601,8 @@ def run_cases(group, cases: dict) -> dict:
     todo = {"functions": functions, "engines": engines,
             "deadlines": deadlines, "family": family, "dit": dit,
             "degraded": degraded, "chaos": chaos, "draws": draws,
-            "cli": cli}
+            "cli": cli, "context": context, "vocab": vocab,
+            "protect": protect}
     return {name: todo[kind](group, case)
             for name, (kind, case) in cases.items()}
 
